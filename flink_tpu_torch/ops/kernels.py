@@ -1,0 +1,126 @@
+"""Build and bind the hand-written CUDA kernels (``flink_tpu_torch/csrc``).
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
+``nvcc`` for ``sm_90a`` into its own shared library under
+``flink_tpu_torch/_build/`` (git-ignored), then loaded with ``ctypes``.
+Pointers come from ``tensor.data_ptr()`` and the stream from
+``torch.cuda.current_stream().cuda_stream``, all passed as
+``ctypes.c_void_p``. Every C entry returns ``cudaGetLastError()`` and
+``check`` raises on a non-zero code.
+
+The build runs at first use, never at import: one ``nvcc`` process per
+source, all started together. A library is named by the hash of its
+source and flags, so an edited source rebuilds and an unchanged one is
+reused.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+__all__ = ["build_all", "library", "check", "BUILD_DIR", "SOURCES"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_I32 = ctypes.c_int
+#: source stem -> {C entry: argtypes}; every entry returns int
+SOURCES = {
+    "hist256": {"hist256_launch": [_P, _P, _I64, _I32, _P, _P]},
+    "hash_table": {"hash_probe_launch": [_P, _I64, _P, _P, _I64, _I32, _P,
+                                         _P, _P]},
+}
+_ERROR_STRING = {"hist256": "hist256_error_string",
+                 "hash_table": "hash_probe_error_string"}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin and PATH); the CUDA kernels "
+                           "build only where the CUDA toolkit is installed")
+    return found
+
+
+def _lib_path(stem: str) -> Path:
+    src = (CSRC_DIR / f"{stem}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{stem}-{digest[:12]}.so"
+
+
+def build_all() -> float:
+    """Compile every source whose library is missing, one ``nvcc`` per
+    source, all at once. Returns the wall seconds spent (0.0 when every
+    library was already built). Raises with the compiler's output when a
+    build fails."""
+    todo = [s for s in SOURCES if not _lib_path(s).exists()]
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = []
+    for stem in todo:
+        out = _lib_path(stem)
+        tmp = out.with_suffix(f".tmp{os.getpid()}")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{stem}.cu")]
+        procs.append((stem, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+    failed = []
+    for stem, out, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{stem}.cu:\n{log.decode(errors='replace')}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def library(stem: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<stem>.cu``, building it first if
+    needed, with every C entry's argtypes and restype declared."""
+    lib = _LIBS.get(stem)
+    if lib is None:
+        path = _lib_path(stem)
+        if not path.exists():
+            build_all()
+        lib = ctypes.CDLL(str(path))
+        for entry, argtypes in SOURCES[stem].items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        err = getattr(lib, _ERROR_STRING[stem])
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _LIBS[stem] = lib
+    return lib
+
+
+def check(stem: str, code: int) -> None:
+    """Raise when a C entry reported a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if code != 0:
+        msg = getattr(library(stem), _ERROR_STRING[stem])(code)
+        raise RuntimeError(f"{stem} kernel launch failed: CUDA error {code} "
+                           f"({msg.decode(errors='replace')})")

@@ -1,0 +1,93 @@
+"""Segment folds: the device aggregation primitives (port of
+``flink_tpu/ops/segment_ops.py``).
+
+Each micro-batch folds into per-(pane, slot) accumulators with one
+scatter per aggregate; a window fire merges pane rows with one reduction.
+The port updates accumulators IN PLACE (``index_add_`` /
+``scatter_reduce_``) where the reference rebuilt them functionally and
+donated the old buffer. These stay PyTorch operators in this slice: on the
+TPU the fold was an XLA scatter, not a Pallas kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["AGG_INITS", "AGG_FOLDS", "AGG_MERGES", "AGG_COMBINE2",
+           "identity", "make_accumulator", "scatter_fold", "pow2_ceil"]
+
+
+def _max_of(dtype: torch.dtype):
+    return (torch.finfo(dtype).max if dtype.is_floating_point
+            else torch.iinfo(dtype).max)
+
+
+def _min_of(dtype: torch.dtype):
+    return (torch.finfo(dtype).min if dtype.is_floating_point
+            else torch.iinfo(dtype).min)
+
+
+#: kind -> identity element (a Python scalar) of an accumulator dtype
+AGG_INITS = {
+    "sum": lambda dtype: 0,
+    "count": lambda dtype: 0,
+    "min": _max_of,
+    "max": _min_of,
+}
+
+
+def _fold_add(acc, idx, vals):
+    return acc.index_add_(0, idx, vals)
+
+
+def _fold_min(acc, idx, vals):
+    return acc.scatter_reduce_(0, idx, vals, "amin")
+
+
+def _fold_max(acc, idx, vals):
+    return acc.scatter_reduce_(0, idx, vals, "amax")
+
+
+#: kind -> in-place scatter fold acc[idx] op= vals
+AGG_FOLDS = {"sum": _fold_add, "count": _fold_add, "min": _fold_min,
+             "max": _fold_max}
+
+#: kind -> reduction over axis 0 of a [rows, capacity] block; integer
+#: sums widen to int64 as the reference's jnp.sum does (an int32 count
+#: plane merges into int64 window counts)
+AGG_MERGES = {
+    "sum": lambda x: x.sum(0),
+    "count": lambda x: x.sum(0),
+    "min": lambda x: x.amin(0),
+    "max": lambda x: x.amax(0),
+}
+
+#: kind -> elementwise pairwise combine a (+) b
+AGG_COMBINE2 = {"sum": torch.add, "count": torch.add,
+                "min": torch.minimum, "max": torch.maximum}
+
+
+def identity(kind: str, dtype: torch.dtype):
+    return AGG_INITS[kind](dtype)
+
+
+def make_accumulator(kind: str, shape: tuple, dtype: torch.dtype,
+                     device) -> torch.Tensor:
+    return torch.full(shape, identity(kind, dtype), dtype=dtype,
+                      device=device)
+
+
+def scatter_fold(kind: str, acc: torch.Tensor, flat_idx: torch.Tensor,
+                 values: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Fold a batch into a flat accumulator IN PLACE: acc[flat_idx] op=
+    values, masked by ``valid`` (invalid rows fold the identity into slot
+    0, the reference's rule). Returns ``acc``."""
+    ident = identity(kind, acc.dtype)
+    idx = torch.where(valid, flat_idx.to(torch.int64), 0)
+    vals = torch.where(valid, values.to(acc.dtype), ident)
+    return AGG_FOLDS[kind](acc, idx, vals)
+
+
+def pow2_ceil(n: int) -> int:
+    """Next power of two >= n (n >= 1)."""
+    return 1 << (n - 1).bit_length() if n > 1 else 1

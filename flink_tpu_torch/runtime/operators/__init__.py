@@ -1,0 +1,5 @@
+from .base import (  # noqa: F401
+    CollectingOutput, OneInputOperator, OperatorContext, Output,
+)
+from .device_window import AggSpec, DeviceWindowAggOperator  # noqa: F401
+from .sink import CollectSink, SinkOperator  # noqa: F401
