@@ -9,32 +9,53 @@ Run from the repository root:  python3 chip_smoke.py
    process per source, in parallel); the seconds spent.
 3. Kernels, each held against its plain PyTorch version on the card at
    the shapes the Q5 path gives it:
-   * hist256 at n = 2^21 and 2^24, shifts 0/8/16/24: exactly equal to the
-     plain version and to torch.bincount;
+   * hist256, the TPU kernel's contract, at n = 2^21 and 2^24, shifts
+     0/8/16/24: exactly equal to the plain version and to torch.bincount;
+   * the select pass (hist256.cu's radix_pass_kernel) on Q5 window counts
+     (int64, value_bits 31, k 1000) at n = 2^21 and 2^24: every pass's
+     histogram and the device state (prefix, above, kk) exactly equal to
+     the plain version's, and the top k equal to torch.topk's under the
+     tie rule;
    * hash_probe: 2^19 keys with duplicates into capacity 2^21 and 2^24:
      the kernel's table holds the plain version's key set, table[slot] ==
      key, each key has one slot, lookup agrees with the insert, ok holds
-     everywhere, absent keys look up as -1, masked rows never probe.
-   Median kernel time over CUDA events (L2 flushed before each launch),
-   the plain version's time, the library call's time where one exists,
-   and the bound reckoned from the bytes each kernel must move.
+     everywhere, absent keys look up as -1, masked rows never probe;
+   * ingest_step on the next Q5 batch (2^19 rows) of a table that holds
+     the keys of the 4 batches before it, at 1M keys (capacity 2^21) and
+     10M keys (2^24): the same key set as the plain version, the count and
+     revenue planes equal key by key, the late and dropped counters equal.
+   Median kernel time over CUDA events with the L2 flushed before each
+   launch, the plain version's time, the library call's time where one
+   exists (and, for ingest_step, the chain it replaces: the probe kernel
+   and eager folds), and the bound reckoned from the bytes each kernel
+   must move. A profiler shows that one step is one launch and that the
+   select's passes run back to back.
 4. Nexmark Q5 at 1M keys (the bench.py headline: capacity 2^21, ring 16,
    batch 2^19, 2^23 events, 2000 ms panes, 5-pane sliding windows, top
    1000 by count(value_bits=31) with sum(price)) through the port's
    StreamExecutionEnvironment with datagen(device=True), after a short
    warm-up run under PyTorch's sync debug mode, which must flag no wait
    for the card that recurs per batch or per fire. Then 5 timed runs:
-   launch counters are zeroed just before each and read just after, and
-   both kernels must have run; every emitted window of every run is
-   checked against a numpy oracle (per-pane bincount of the same events,
-   top 1000 by count under the tie rule, revenue of each winner). The
-   median events/sec, its range, and p99 fire latency over all the
-   runs' fires are printed.
-   One more run under torch.profiler gives the card's busy time by
-   kernel against the run's wall time.
+   launch counters are zeroed just before each and read just after; each
+   run must launch ingest_step once per batch and hist256 once per digit
+   pass of each fire; every emitted window of every run is checked
+   against a numpy oracle (per-pane bincount of the same events, top 1000
+   by count under the tie rule, revenue of each winner). The median
+   events/sec, its range, and p99 fire latency over all the runs' fires
+   are printed. One more run under torch.profiler gives the card's busy
+   time by kernel against the run's wall time, and counts the launches of
+   both kernels again.
 5. The same at 10M keys (capacity 2^24, 2^25 events).
-6. The kernels line, the nvidia-smi line, then the last line
+6. The host-batch path: a short Q5 run with defer_overflow=False at 100k
+   keys into capacity 2^17, which must launch hash_probe, grow the table
+   exactly once, and pass the oracle.
+7. The kernels line, the nvidia-smi line, then the last line
    {"ok": true, "device": {...}}.
+
+``python3 chip_smoke.py --parent-kernels DIR`` instead times, with the same
+method, the kernels that an older checkout at DIR also has (hist256,
+hash_probe, and the probe-plus-eager-folds step chain) and prints one JSON
+line: the way to set a new kernel beside its predecessor in one call.
 
 Any failure raises and exits non-zero; without CUDA, or without the
 package beside this script, it exits non-zero before printing a result.
@@ -55,8 +76,13 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 MULT = 0x9E3779B97F4A7C15      # bench.py's key mixer
 INT64_MAX = (1 << 63) - 1
+MIN_TIMESTAMP = -(1 << 62)     # first open pane before any fire
 PANE_MS, WINDOW_PANES, RING, BATCH, TOPK = 2000, 5, 16, 1 << 19, 1000
 Q5_RUNS = 5                    # timed Q5 runs per configuration
+#: (label, keys, events, capacity) of the two Q5 cells
+Q5_CELLS = (("1M", 1_000_000, 1 << 23, 1 << 21),
+            ("10M", 10_000_000, 1 << 25, 1 << 24))
+STEP_PREFIX = 4                # batches in the table before a timed step
 
 
 def emit(obj) -> None:
@@ -71,12 +97,30 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def bound_ms(nbytes: float) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
 # -- timing ---------------------------------------------------------------
-def cuda_ms(fn, torch, reps: int = 15, setup=None) -> float:
-    """Median ms of ``fn`` between two CUDA events, ``setup`` (not timed)
-    before each run, after two warm-up runs. Each timed run is queued
-    behind a ~1 ms device sleep, so the host has enqueued the whole run
-    before the card reaches it and the events time the card alone."""
+class L2Flush:
+    """Evicts the 50 MB L2 by reading a 96 MB buffer, so it holds clean
+    lines of that buffer: the timed launch finds its inputs in device
+    memory and pays no write-back of dirty lines (a flush that writes
+    leaves those, and their write-back lands inside the timed launch)."""
+
+    def __init__(self, torch, dev):
+        self.buf = torch.ones(96 << 20, dtype=torch.uint8, device=dev)
+
+    def __call__(self) -> None:
+        self.buf.sum()
+
+
+def cuda_ms(fn, torch, flush, reps: int = 15, setup=None) -> float:
+    """Median ms of ``fn`` between two CUDA events, ``setup`` and the L2
+    flush (not timed) before each run, after two warm-up runs. Each timed
+    run is queued behind a ~1 ms device sleep, so the host has enqueued
+    the whole run before the card reaches it and the events time the card
+    alone."""
     for _ in range(2):
         if setup:
             setup()
@@ -87,6 +131,7 @@ def cuda_ms(fn, torch, reps: int = 15, setup=None) -> float:
         torch.cuda._sleep(2_000_000)
         if setup:
             setup()
+        flush()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -98,12 +143,12 @@ def cuda_ms(fn, torch, reps: int = 15, setup=None) -> float:
 
 
 # -- kernel phase -----------------------------------------------------------
-def check_hist256(torch, dev) -> dict:
+def check_hist256(torch, dev, flush) -> dict:
+    """The TPU kernel's contract: [256] int32 histogram of an int32 word."""
     from flink_tpu_torch.ops.radix_topk import histogram256, \
         histogram256_plain
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     shapes = {}
     max_err = 0
     for n in (1 << 21, 1 << 24):
@@ -125,26 +170,90 @@ def check_hist256(torch, dev) -> dict:
                     f"hist256 n={n} shift={shift}: differs from the plain "
                     f"version by up to {err}")
             max_err = max(max_err, err)
-        # timed at the top digit, the first pass of every fire; writing
-        # 64 MB before each launch evicts the inputs from the 50 MB L2
+        # timed at the top digit, the first pass of a 32-bit walk
         shift = 24
         weights = valid.to(torch.float32)
-        ms = cuda_ms(lambda: histogram256(u, valid, shift), torch,
-                     setup=lambda: flush.fill_(1))
-        plain_ms = cuda_ms(lambda: histogram256_plain(u, valid, shift),
-                           torch, setup=lambda: flush.fill_(2))
-        lib_ms = cuda_ms(lambda: torch.bincount(
-            (u >> shift) & 0xFF, weights=weights, minlength=256), torch,
-            setup=lambda: flush.fill_(3))
-        nbytes = n * 4 + n * 1 + 256 * 4
-        shapes[n] = {"n": n, "ms": ms, "plain_ms": plain_ms,
-                     "library_ms": lib_ms,
-                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                     "bound_by": "bytes"}
+        shapes[n] = {
+            "n": n,
+            "ms": cuda_ms(lambda: histogram256(u, valid, shift), torch,
+                          flush),
+            "plain_ms": cuda_ms(lambda: histogram256_plain(u, valid, shift),
+                                torch, flush),
+            "library_ms": cuda_ms(lambda: torch.bincount(
+                (u >> shift) & 0xFF, weights=weights, minlength=256), torch,
+                flush),
+            "bound_ms": bound_ms(n * 4 + n * 1 + 256 * 4),
+            "bound_by": "bytes"}
     return {"max_abs_err": max_err, "shapes": shapes}
 
 
-def check_hash_probe(torch, dev) -> dict:
+def q5_window_counts(torch, dev, n: int, gen):
+    """Ranked values shaped like a Q5 fire's: int64 window counts of
+    about 4.6 bids per key over the occupied half of the slots."""
+    valid = torch.rand(n, device=dev, generator=gen) < 0.48
+    counts = torch.poisson(torch.full((n,), 4.6, device=dev),
+                           generator=gen).to(torch.int64) + 1
+    return torch.where(valid, counts, 0), valid
+
+
+def check_select(torch, dev, flush) -> dict:
+    """The fire's select: one radix_pass_kernel launch per digit pass."""
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+    from flink_tpu_torch.ops.radix_topk import digit_plan, radix_select, \
+        radix_select_plain
+    from flink_tpu_torch.ops.topk import masked_topk, masked_topk_sort
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    value_bits = 31
+    plan, _seed = digit_plan(torch.int64, value_bits)
+    passes = len(plan)
+    shapes = {}
+    mismatches = 0
+    for n in (1 << 21, 1 << 24):
+        values, valid = q5_window_counts(torch, dev, n, gen)
+        got_h = torch.zeros((passes, 256), dtype=torch.int32, device=dev)
+        want_h = torch.zeros_like(got_h)
+        reset_launches()
+        got = radix_select(values, valid, TOPK, value_bits, got_h)
+        if KERNEL_LAUNCHES["hist256"] != passes:
+            raise AssertionError(f"select n={n}: "
+                                 f"{KERNEL_LAUNCHES['hist256']} launches "
+                                 f"for {passes} passes")
+        want = radix_select_plain(values, valid, TOPK, value_bits, want_h)
+        v, i, ok = masked_topk(values, valid, TOPK, value_bits=value_bits)
+        sv, _si, sok = masked_topk_sort(values, valid, TOPK)
+        torch.cuda.synchronize()
+        bad = {"hist_bins": int((got_h != want_h).sum()),
+               "state": int((got != want).sum()),
+               "topk_values": int((v != sv).sum() + (ok != sok).sum()),
+               "topk_index_values": int((values[i[ok]] != v[ok]).sum()
+                                        + (~valid[i[ok]]).sum())}
+        if any(bad.values()):
+            raise AssertionError(f"select n={n}: entries differing from "
+                                 f"the plain version: {bad}")
+        mismatches += sum(bad.values())
+        masked = torch.where(valid, values, torch.iinfo(torch.int64).min)
+        sel_ms = cuda_ms(lambda: radix_select(values, valid, TOPK,
+                                              value_bits), torch, flush)
+        plain_ms = cuda_ms(lambda: radix_select_plain(values, valid, TOPK,
+                                                      value_bits),
+                           torch, flush)
+        # one pass reads each value (8 B) and valid byte once
+        per_pass = bound_ms(n * 9 + 3 * 8)
+        shapes[n] = {"n": n, "passes": passes,
+                     "ms": sel_ms / passes, "plain_ms": plain_ms / passes,
+                     "bound_ms": per_pass, "bound_by": "bytes",
+                     "library_ms": None,
+                     "select_ms": sel_ms, "select_plain_ms": plain_ms,
+                     "select_bound_ms": per_pass,
+                     "select_library_ms": cuda_ms(
+                         lambda: torch.topk(masked, TOPK), torch, flush)}
+    # integers: the count of histogram bins, state words and top-k seats
+    # that differ from the plain version
+    return {"max_abs_err": mismatches, "shapes": shapes}
+
+
+def check_hash_probe(torch, dev, flush) -> dict:
     from flink_tpu_torch.ops.hash_table import EMPTY_KEY, lookup, \
         lookup_or_insert, lookup_or_insert_plain, make_table
 
@@ -155,7 +264,6 @@ def check_hash_probe(torch, dev) -> dict:
     keys = distinct[torch.randint(0, 1 << 18, (n,), device=dev,
                                   generator=gen)].contiguous()
     uniq = torch.unique(keys)
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     shapes = {}
     mismatches = 0
 
@@ -199,13 +307,12 @@ def check_hash_probe(torch, dev) -> dict:
         fresh = make_table(cap, dev)
 
         def reset():
-            flush.fill_(1)
             fresh.fill_(EMPTY_KEY)
 
-        ms = cuda_ms(lambda: lookup_or_insert(fresh, keys), torch,
+        ms = cuda_ms(lambda: lookup_or_insert(fresh, keys), torch, flush,
                      setup=reset)
         plain_ms = cuda_ms(lambda: lookup_or_insert_plain(fresh, keys),
-                           torch, reps=3, setup=reset)
+                           torch, flush, reps=3, setup=reset)
         # the least traffic: each key read (8 B), its slot and ok flag
         # written (4 B + 1 B); each distinct key's home sector of the
         # table read (32 B, the DRAM access unit) and its claim written
@@ -213,11 +320,194 @@ def check_hash_probe(torch, dev) -> dict:
         nbytes = n * (8 + 4 + 1) + int(uniq.numel()) * (32 + 8)
         shapes[cap] = {"n": n, "capacity": cap, "ms": ms,
                        "plain_ms": plain_ms, "library_ms": None,
-                       "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
-                       "bound_by": "bytes"}
+                       "bound_ms": bound_ms(nbytes), "bound_by": "bytes"}
     # the table holds keys, not values to be near, so its error is the
     # count of keys and rows that broke an invariant above
     return {"max_abs_err": mismatches, "shapes": shapes}
+
+
+def eager_step_chain(torch, table, count, rev, ts, keys, price,
+                     first_open, late, dropped) -> None:
+    """The Q5 ingest step as a chain of the probe kernel and eager
+    operators (pane division, late count, sanitize, masks, one scatter
+    per plane): what ingest_step replaces, and its yardstick."""
+    from flink_tpu_torch.ops.hash_table import lookup_or_insert, \
+        sanitize_keys_device
+    from flink_tpu_torch.ops.segment_ops import scatter_fold
+
+    panes = torch.div(ts, PANE_MS, rounding_mode="floor")
+    fresh = panes >= first_open
+    late += (~fresh).sum()
+    _, slots, ok = lookup_or_insert(table, sanitize_keys_device(keys), fresh)
+    dropped += (fresh & ~ok).sum()
+    ok = slots >= 0
+    ring_idx = panes % RING
+    for kind, arr, vals in (("count", count, torch.ones_like(slots)),
+                            ("sum", rev, price)):
+        flat = ring_idx.to(torch.int64) * arr.shape[-1] + \
+            slots.to(torch.int64).clamp(min=0)
+        scatter_fold(kind, arr.view(-1), flat, vals, ok)
+
+
+def q5_step_case(torch, dev, n_keys: int, n_events: int, cap: int) -> dict:
+    """Q5 state after STEP_PREFIX batches (built by the step chain, which
+    every checkout has) and the batch after them."""
+    from flink_tpu_torch.ops.hash_table import make_table
+    from flink_tpu_torch.ops.segment_ops import make_accumulator
+
+    span = q5_panes(n_events) * PANE_MS
+    gen = q5_gen(n_keys, n_events, span)
+
+    def batch(b):
+        idx = b * BATCH + torch.arange(BATCH, dtype=torch.int64, device=dev)
+        cols = gen(idx)
+        return cols["ts"], cols["auction"], cols["price"]
+
+    table = make_table(cap, dev)
+    count = make_accumulator("count", (RING, cap), torch.int32, dev)
+    rev = make_accumulator("sum", (RING, cap), torch.int64, dev)
+    late = torch.zeros((), dtype=torch.int64, device=dev)
+    dropped = torch.zeros((), dtype=torch.int64, device=dev)
+    for b in range(STEP_PREFIX):
+        eager_step_chain(torch, table, count, rev, *batch(b), MIN_TIMESTAMP,
+                         late, dropped)
+    return {"table": table, "count": count, "rev": rev,
+            "batch": batch(STEP_PREFIX)}
+
+
+def time_step_chain(torch, dev, flush, case: dict) -> float:
+    table0, count, rev = case["table"], case["count"], case["rev"]
+    table = table0.clone()
+    late = torch.zeros((), dtype=torch.int64, device=dev)
+    dropped = torch.zeros((), dtype=torch.int64, device=dev)
+    return cuda_ms(lambda: eager_step_chain(
+        torch, table, count, rev, *case["batch"], MIN_TIMESTAMP, late,
+        dropped), torch, flush, setup=lambda: table.copy_(table0))
+
+
+def check_ingest(torch, dev, flush) -> dict:
+    """The fused step on the next Q5 batch, against its plain version."""
+    from flink_tpu_torch.ops.hash_table import EMPTY_KEY, ingest_step, \
+        ingest_step_plain, lookup, sanitize_keys_device
+
+    shapes = {}
+    mismatches = 0
+    for label, n_keys, n_events, cap in Q5_CELLS:
+        case = q5_step_case(torch, dev, n_keys, n_events, cap)
+        ts, keys, price = case["batch"]
+        runs = {}
+        for name, step in (("kernel", ingest_step),
+                           ("plain", ingest_step_plain)):
+            table = case["table"].clone()
+            count, rev = case["count"].clone(), case["rev"].clone()
+            late = torch.zeros((), dtype=torch.int64, device=dev)
+            dropped = torch.zeros((), dtype=torch.int64, device=dev)
+            step(table, [("count", count, None), ("sum", rev, price)], ts,
+                 keys, PANE_MS, 0, MIN_TIMESTAMP, late, dropped)
+            occupied = torch.nonzero(table != EMPTY_KEY).flatten()
+            sorted_keys, order = torch.sort(table[occupied])
+            slots = occupied[order]
+            rows = sorted({int(ts[0]) // PANE_MS % RING,
+                           int(ts[-1]) // PANE_MS % RING})
+            runs[name] = (sorted_keys, count[rows][:, slots],
+                          rev[rows][:, slots], int(late), int(dropped),
+                          table)
+        (gk, gc, gr, gl, gd, gtable), (wk, wc, wr, wl, wd, _) = \
+            runs["kernel"], runs["plain"]
+        bad = {"key_set": int(gk.numel() != wk.numel())
+               or int((gk != wk).sum()),
+               "count_plane": 0 if gk.numel() != wk.numel()
+               else int((gc != wc).sum()),
+               "revenue_plane": 0 if gk.numel() != wk.numel()
+               else int((gr != wr).sum()),
+               "late": abs(gl - wl), "dropped": abs(gd - wd)}
+        if any(bad.values()):
+            raise AssertionError(f"ingest_step {label}: entries differing "
+                                 f"from the plain version: {bad}")
+        mismatches += sum(bad.values())
+        # the bound, from this batch: new keys and (ring row, key) pairs
+        table0 = case["table"]
+        d_new = int((gtable != EMPTY_KEY).sum() - (table0 != EMPTY_KEY).sum())
+        slot = lookup(gtable, sanitize_keys_device(keys)).to(torch.int64)
+        d_pk = int(torch.unique((ts // PANE_MS % RING) * cap + slot).numel())
+        nbytes = BATCH * (8 + 8 + 8) + d_new * (32 + 8) + d_pk * 2 * 2 * 32
+        table = table0.clone()
+        count, rev = case["count"], case["rev"]
+        late = torch.zeros((), dtype=torch.int64, device=dev)
+        dropped = torch.zeros((), dtype=torch.int64, device=dev)
+
+        def run(step):
+            return lambda: step(table, [("count", count, None),
+                                        ("sum", rev, price)], ts, keys,
+                                PANE_MS, 0, MIN_TIMESTAMP, late, dropped)
+
+        reset = lambda: table.copy_(table0)  # noqa: E731
+        shapes[cap] = {
+            "q5": label, "n": BATCH, "capacity": cap, "new_keys": d_new,
+            "ring_key_pairs": d_pk,
+            "ms": cuda_ms(run(ingest_step), torch, flush, setup=reset),
+            "plain_ms": cuda_ms(run(ingest_step_plain), torch, flush,
+                                reps=3, setup=reset),
+            "eager_chain_ms": time_step_chain(torch, dev, flush, case),
+            "library_ms": None, "bound_ms": bound_ms(nbytes),
+            "bound_by": "bytes"}
+        del case, runs, table
+    return {"max_abs_err": mismatches, "shapes": shapes}
+
+
+def device_kernels(torch, fn) -> list[str]:
+    """Names of the kernels ``fn`` ran on the card, in start order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    return [e.name for e in events]
+
+
+def check_launch_shape(torch, dev) -> dict:
+    """A profiler's count: one Q5 step is one launch, and a fire's select
+    runs its passes back to back, with no other kernel between them."""
+    from flink_tpu_torch.ops.hash_table import ingest_step
+    from flink_tpu_torch.ops.topk import masked_topk
+
+    label, n_keys, n_events, cap = Q5_CELLS[0]
+    case = q5_step_case(torch, dev, n_keys, n_events, cap)
+    late = torch.zeros((), dtype=torch.int64, device=dev)
+    dropped = torch.zeros((), dtype=torch.int64, device=dev)
+    step = device_kernels(torch, lambda: ingest_step(
+        case["table"], [("count", case["count"], None),
+                        ("sum", case["rev"], case["batch"][2])],
+        case["batch"][0], case["batch"][1], PANE_MS, 0, MIN_TIMESTAMP, late,
+        dropped))
+    if len(step) != 1 or "ingest_step_kernel" not in step[0]:
+        raise AssertionError(f"one Q5 step ran {step}")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    values, valid = q5_window_counts(torch, dev, cap, gen)
+    fire = device_kernels(torch, lambda: masked_topk(values, valid, TOPK,
+                                                     value_bits=31))
+    passes = [j for j, name in enumerate(fire) if "radix_pass_kernel" in name]
+    if len(passes) != 4 or passes != list(range(passes[0], passes[0] + 4)):
+        raise AssertionError(f"the select's passes are not 4 back-to-back "
+                             f"launches: {fire}")
+    return {"q5_step_kernels": len(step), "select_kernels": len(fire),
+            "select_passes_back_to_back": len(passes)}
+
+
+def parent_kernels(torch, dev, flush) -> dict:
+    """The kernels an older checkout shares with this one, timed alike."""
+    return {"hist256": check_hist256(torch, dev, flush),
+            "hash_probe": check_hash_probe(torch, dev, flush),
+            "eager_step_chain": {
+                cap: {"q5": label, "ms": time_step_chain(
+                    torch, dev, flush,
+                    q5_step_case(torch, dev, n_keys, n_events, cap))}
+                for label, n_keys, n_events, cap in Q5_CELLS}}
 
 
 # -- Q5 -------------------------------------------------------------------
@@ -244,9 +534,11 @@ def q5_gen(n_keys: int, n_events: int, span: int):
 
 
 def run_q5(torch, dev, n_keys: int, n_events: int, capacity: int,
-           batch: int = BATCH, topk: int = TOPK):
+           batch: int = BATCH, topk: int = TOPK, defer: bool = True):
     """One run of the Q5 pipeline through the port's public API; returns
-    (job result, [(window end - 1, auctions, bids, revenue)], span ms)."""
+    (job result, [(window end - 1, auctions, bids, revenue)], span ms).
+    ``defer`` False takes the host-batch path: each device batch comes to
+    the host, and the table grows inline."""
     from flink_tpu_torch.api import StreamExecutionEnvironment
     from flink_tpu_torch.core import Configuration, Schema, WatermarkStrategy
     from flink_tpu_torch.runtime.operators import AggSpec
@@ -273,7 +565,7 @@ def run_q5(torch, dev, n_keys: int, n_events: int, capacity: int,
                            AggSpec("sum", "price", out_name="revenue")],
                           capacity=capacity, ring_size=RING,
                           emit_window_bounds=False, emit_topk=topk,
-                          defer_overflow=True, async_fire=True)
+                          defer_overflow=defer, async_fire=True)
         .add_sink(sink))
     job = env.execute("nexmark-q5")
     return job, got, span
@@ -353,24 +645,39 @@ def q5_profile(torch, dev, n_keys: int, n_events: int,
                capacity: int) -> dict:
     """One more Q5 run under torch.profiler: the card's busy time by
     kernel (CUPTI records every kernel in the process, the ones this
-    package launches through ctypes too) against the run's wall time."""
+    package launches through ctypes too) against the run's wall time, and
+    the profiler's count of each hand kernel against its launch counter."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+
+    reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         job, _got, _span = run_q5(torch, dev, n_keys, n_events, capacity)
+    launches = dict(KERNEL_LAUNCHES)
     by_name: dict[str, list] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             acc = by_name.setdefault(e.name[:90], [0.0, 0])
             acc[0] += e.self_device_time_total / 1e3
             acc[1] += 1
+    counted = {kernel: sum(n for name, (_ms, n) in by_name.items()
+                           if symbol in name)
+               for kernel, symbol in (("ingest_step", "ingest_step_kernel"),
+                                      ("hist256", "radix_pass_kernel"))}
+    for kernel, n in counted.items():
+        if n != launches[kernel]:
+            raise AssertionError(f"profiler counted {n} {kernel} launches, "
+                                 f"the counter {launches[kernel]}")
     busy = sum(ms for ms, _n in by_name.values())
     wall = job.wall_s * 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {"wall_ms": wall, "device_busy_ms": busy,
             "idle_share": (1 - busy / wall) if busy else None,
+            "kernel_launches": sum(n for _ms, n in by_name.values()),
+            "profiler_counts": counted,
             "top": [{"name": k, "ms": ms, "calls": n}
                     for k, (ms, n) in top]}
 
@@ -400,11 +707,12 @@ def q5_phase(torch, dev, label: str, n_keys: int, n_events: int,
         job, got, span = run_q5(torch, dev, n_keys, n_events, capacity)
         peaks.append(torch.cuda.max_memory_allocated())
         launches = dict(KERNEL_LAUNCHES)
-        missing = [k for k, v in launches.items() if v == 0]
-        if missing:
-            raise AssertionError(f"Q5 {label}: kernels never launched on "
-                                 f"the main path: {missing}")
         windows = q5_oracle_check(n_keys, n_events, span, got)
+        # this path's kernels: one step per batch, 4 passes per fire
+        want = {"ingest_step": n_events // BATCH, "hist256": 4 * windows}
+        if any(launches[k] != v for k, v in want.items()):
+            raise AssertionError(f"Q5 {label}: launches {launches}, "
+                                 f"expected {want} on the main path")
         walls.append(job.wall_s)
         lat += job.operators[0].fire_latencies_ms
     lat.sort()
@@ -426,7 +734,31 @@ def q5_phase(torch, dev, label: str, n_keys: int, n_events: int,
             "profile": q5_profile(torch, dev, n_keys, n_events, capacity)}
 
 
-def main() -> int:
+def q5_host_batch_phase(torch, dev) -> dict:
+    """Q5 with defer_overflow=False: host batches through the standalone
+    probe, with the table growing once (100k keys pass 0.6 x 2^17)."""
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+
+    n_keys, n_events, cap = 100_000, 1 << 21, 1 << 17
+    reset_launches()
+    job, got, span = run_q5(torch, dev, n_keys, n_events, cap, defer=False)
+    launches = dict(KERNEL_LAUNCHES)
+    windows = q5_oracle_check(n_keys, n_events, span, got)
+    grown = job.operators[0].backend.capacity
+    if launches["hash_probe"] == 0 or grown != 2 * cap:
+        raise AssertionError(f"host-batch Q5: launches {launches}, table "
+                             f"{cap} -> {grown}; expected hash_probe "
+                             "launches and one doubling")
+    return {"q5": "host-batch", "keys": n_keys, "events": n_events,
+            "capacity": [cap, grown], "windows_checked": windows,
+            "wall_s": job.wall_s, "launches": launches}
+
+
+def main(argv: list[str]) -> int:
+    if argv and (argv[0] != "--parent-kernels" or len(argv) != 2):
+        print("usage: chip_smoke.py [--parent-kernels DIR]", file=sys.stderr)
+        return 2
+    pkg_dir = os.path.abspath(argv[1]) if argv else HERE
     # the smoke runs on one card: show torch only the first one, so the
     # count it reports is the count it used
     os.environ["CUDA_VISIBLE_DEVICES"] = os.environ.get(
@@ -437,44 +769,68 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "needs a CUDA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, HERE)
+    sys.path.insert(0, pkg_dir)
     try:
         import flink_tpu_torch  # noqa: F401
         from flink_tpu_torch.ops import kernels
     except ImportError as e:
-        print(f"chip_smoke: cannot import flink_tpu_torch beside this "
-              f"script ({e})", file=sys.stderr)
+        print(f"chip_smoke: cannot import flink_tpu_torch from {pkg_dir} "
+              f"({e})", file=sys.stderr)
         return 2
     smi = nvidia_smi_line()
     dev = torch.device("cuda", 0)
     emit({"device": {"nvidia_smi": smi, "name": torch.cuda.get_device_name(0),
                      "count": torch.cuda.device_count()},
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "package": pkg_dir})
     nvcc_s = kernels.build_all()
     emit({"build": {"nvcc_s": nvcc_s, "dir": str(kernels.BUILD_DIR),
                     "sources": sorted(kernels.SOURCES)}})
-    hist = check_hist256(torch, dev)
-    probe = check_hash_probe(torch, dev)
-    emit({"kernel_checks": {"hist256": hist, "hash_probe": probe}})
+    flush = L2Flush(torch, dev)
+    if argv:
+        emit({"parent_kernels": parent_kernels(torch, dev, flush)})
+        return 0
+    hist = check_hist256(torch, dev, flush)
+    select = check_select(torch, dev, flush)
+    probe = check_hash_probe(torch, dev, flush)
+    step = check_ingest(torch, dev, flush)
+    shape = check_launch_shape(torch, dev)
+    emit({"kernel_checks": {"hist256": hist, "select_pass": select,
+                            "hash_probe": probe, "ingest_step": step,
+                            "launch_shape": shape}})
     check_sync_detector(torch, dev)
-    q5_1m = q5_phase(torch, dev, "1M", 1_000_000, 1 << 23, 1 << 21)
-    emit(q5_1m)
-    emit(q5_phase(torch, dev, "10M", 10_000_000, 1 << 25, 1 << 24))
-    headline = q5_1m["launches_per_run"]
-    h, p = hist["shapes"][1 << 21], probe["shapes"][1 << 21]
+    q5 = {}
+    for label, n_keys, n_events, cap in Q5_CELLS:
+        q5[label] = q5_phase(torch, dev, label, n_keys, n_events, cap)
+        emit(q5[label])
+    host = q5_host_batch_phase(torch, dev)
+    emit(host)
+    main_run = q5["1M"]["launches_per_run"]
+    small, large = 1 << 21, 1 << 24
     emit({"kernels": [
         {"name": "hist256", "route": "cuda",
          "source": "flink_tpu_torch/csrc/hist256.cu",
          "replaces": "flink_tpu/ops/pallas_topk.py:40",
-         "launches": headline["hist256"],
-         "max_abs_err": hist["max_abs_err"], **h,
-         "at_n_2^24": hist["shapes"][1 << 24]},
+         "launches": main_run["hist256"],
+         "max_abs_err": max(hist["max_abs_err"], select["max_abs_err"]),
+         **select["shapes"][small],
+         "select_pass_at_n_2^24": select["shapes"][large],
+         "standalone_at_n_2^21": hist["shapes"][small],
+         "standalone_at_n_2^24": hist["shapes"][large],
+         "launches_q5_10M": q5["10M"]["launches_per_run"]["hist256"]},
         {"name": "hash_probe", "route": "cuda",
          "source": "flink_tpu_torch/csrc/hash_table.cu",
          "replaces": "flink_tpu/ops/hash_table.py:133",
-         "launches": headline["hash_probe"],
-         "max_abs_err": probe["max_abs_err"], **p,
-         "at_capacity_2^24": probe["shapes"][1 << 24]},
+         "launches": host["launches"]["hash_probe"],
+         "max_abs_err": probe["max_abs_err"], **probe["shapes"][small],
+         "at_capacity_2^24": probe["shapes"][large]},
+        {"name": "ingest_step", "route": "cuda",
+         "source": "flink_tpu_torch/csrc/hash_table.cu",
+         "replaces": "flink_tpu/runtime/operators/device_window.py:84",
+         "launches": main_run["ingest_step"],
+         "max_abs_err": step["max_abs_err"], **step["shapes"][small],
+         "at_capacity_2^24": step["shapes"][large],
+         "launches_q5_10M": q5["10M"]["launches_per_run"]["ingest_step"]},
     ]})
     print(smi, flush=True)
     if torch.cuda.device_count() != 1:
@@ -487,4 +843,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

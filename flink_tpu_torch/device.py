@@ -18,7 +18,8 @@ __all__ = ["resolve_device", "KERNEL_LAUNCHES", "note_launch",
            "reset_launches", "torch_dtype", "numpy_dtype"]
 
 #: kernel name -> launches since the last reset
-KERNEL_LAUNCHES: dict[str, int] = {"hist256": 0, "hash_probe": 0}
+KERNEL_LAUNCHES: dict[str, int] = {"hist256": 0, "hash_probe": 0,
+                                   "ingest_step": 0}
 
 
 def resolve_device(device=None) -> torch.device:

@@ -1,4 +1,5 @@
-"""Device open-addressing hash table: int64 key -> dense slot.
+"""Device open-addressing hash table: int64 key -> dense slot, and the
+fused ingest step built on it.
 
 Port of ``flink_tpu/ops/hash_table.py``. The table is a power-of-two
 ``[capacity]`` int64 tensor with ``EMPTY_KEY`` (int64 max) in free slots;
@@ -13,6 +14,13 @@ keyed state lives in dense planes indexed by slot.
   (8-slot probe windows, claims by scatter-min, smallest key wins) as a
   host loop over probe rounds, which is fine on the CPU and gives the
   reference's slot layout.
+* ``ingest_step`` is the slice-window operator's whole per-batch step
+  (the reference's ``_step_body``): pane and late mask, key sanitising,
+  lookup-or-insert and one fold per aggregate plane into ``[ring,
+  capacity]`` planes, with the late and dropped rows counted on the
+  device. On a CUDA tensor it is one launch of the same source's fused
+  kernel; its plain version is the chain of the probe's plain version and
+  ``scatter_fold`` per plane.
 
 Contract (both): rows where ``valid`` is False never probe (slot -1, ok
 False); a key that exhausts ``MAX_PROBES`` reports ok False, slot -1, and
@@ -23,16 +31,19 @@ reference's uint32 murmur finalizer, computed in int64 with 32-bit masks
 
 from __future__ import annotations
 
-from typing import Optional
+import ctypes
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..device import note_launch
+from .segment_ops import scatter_fold
 
 __all__ = ["EMPTY_KEY", "MAX_PROBES", "sanitize_keys_device", "make_table",
            "hash_keys_device", "lookup", "lookup_or_insert",
-           "lookup_or_insert_plain", "lookup_plain"]
+           "lookup_or_insert_plain", "lookup_plain", "ingest_step",
+           "ingest_step_plain"]
 
 EMPTY_KEY = int(np.iinfo(np.int64).max)
 MAX_PROBES = 128
@@ -76,14 +87,18 @@ def hash_keys_device(keys: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def _check(table: torch.Tensor, keys: torch.Tensor,
-           valid: Optional[torch.Tensor]) -> None:
+def _check_table(table: torch.Tensor) -> None:
     if table.dtype != torch.int64 or table.dim() != 1 \
             or not table.is_contiguous():
         raise ValueError("table must be a contiguous 1-D int64 tensor")
     cap = table.numel()
     if cap & (cap - 1):
         raise ValueError(f"table capacity {cap} not a power of two")
+
+
+def _check(table: torch.Tensor, keys: torch.Tensor,
+           valid: Optional[torch.Tensor]) -> None:
+    _check_table(table)
     if keys.dtype != torch.int64 or keys.dim() != 1 \
             or not keys.is_contiguous():
         raise ValueError("keys must be a contiguous 1-D int64 tensor")
@@ -198,3 +213,124 @@ def lookup_plain(table, keys):
         done = done | found | (pos_empty < CHUNK)
         base = torch.where(done, base, base + CHUNK)
     return slot.to(torch.int32)
+
+
+#: torch dtype -> dtype code of csrc/hash_table.cu
+_CODES = {torch.int64: 0, torch.int32: 1, torch.float32: 2,
+          torch.float64: 3, torch.uint8: 4, torch.bool: 5}
+#: aggregate kind -> fold code of csrc/hash_table.cu (a count adds +1)
+_KINDS = {"sum": 0, "count": 0, "min": 1, "max": 2}
+_MAX_PLANES, _MAX_COLS = 8, 7
+
+
+def _check_step(table, planes, ts, keys, late, dropped) -> None:
+    dev = table.device
+    _check_table(table)
+    if ts.dtype != torch.int64 or ts.dim() != 1 or not ts.is_contiguous():
+        raise ValueError("ts must be a contiguous 1-D int64 tensor")
+    if keys.dtype not in (torch.int64, torch.int32, torch.uint8, torch.bool) \
+            or keys.shape != ts.shape or not keys.is_contiguous():
+        raise ValueError("keys must be a contiguous integer tensor shaped "
+                         "like ts")
+    if not 0 < len(planes) <= _MAX_PLANES:
+        raise ValueError(f"1 to {_MAX_PLANES} planes, not {len(planes)}")
+    ring = planes[0][1].shape[0]
+    for kind, arr, values in planes:
+        # no bool plane: the eager fold has no min/max identity for one and
+        # its sum promotes to int64
+        if kind not in _KINDS or arr.dtype not in _CODES \
+                or arr.dtype == torch.bool \
+                or arr.shape != (ring, table.numel()) \
+                or not arr.is_contiguous() or arr.device != dev:
+            raise ValueError(f"plane ({kind}, {arr.dtype}, "
+                             f"{tuple(arr.shape)}) is not a contiguous "
+                             f"[{ring}, {table.numel()}] plane of a known "
+                             "kind and dtype on the table's device")
+        if values is not None and (values.dtype not in _CODES
+                                   or values.shape != ts.shape
+                                   or not values.is_contiguous()
+                                   or values.device != dev):
+            raise ValueError("values must be contiguous and shaped like ts")
+    for t in (ts, keys, late, dropped):
+        if t.device != dev:
+            raise ValueError("every input must be on the table's device")
+    for c in (late, dropped):
+        if c.dtype != torch.int64 or c.numel() != 1:
+            raise ValueError("late and dropped must be int64 scalars")
+
+
+def ingest_step_plain(table: torch.Tensor, planes: Sequence[tuple],
+                      ts: torch.Tensor, keys: torch.Tensor, pane: int,
+                      offset: int, first_open: int, late: torch.Tensor,
+                      dropped: torch.Tensor) -> None:
+    """Plain version of ``ingest_step`` (any device): the chain of the
+    probe's plain version and one ``scatter_fold`` per plane."""
+    panes = torch.div(ts - offset, pane, rounding_mode="floor")
+    fresh = panes >= first_open
+    late += (~fresh).sum()
+    _, slots, ok = lookup_or_insert_plain(table, sanitize_keys_device(keys),
+                                          fresh)
+    dropped += (fresh & ~ok).sum()
+    ring = planes[0][1].shape[0]
+    flat = (panes % ring) * table.numel() + slots.to(torch.int64).clamp(min=0)
+    for kind, arr, values in planes:
+        scatter_fold(kind, arr.view(-1), flat,
+                     torch.ones_like(slots) if values is None else values, ok)
+
+
+def ingest_step(table: torch.Tensor, planes: Sequence[tuple],
+                ts: torch.Tensor, keys: torch.Tensor, pane: int, offset: int,
+                first_open: int, late: torch.Tensor,
+                dropped: torch.Tensor) -> None:
+    """One ingest step of a micro-batch, IN PLACE, with no host sync.
+
+    Row i falls in pane p = floor((ts[i] - offset) / pane); a row with p <
+    ``first_open`` is late and only counts into ``late``. The others
+    find-or-claim their sanitized key in ``table``; a row whose insert
+    fails counts into ``dropped``, and every other row folds into ring
+    row p mod ring at its slot of each plane. ``planes``: (kind, [ring,
+    capacity] array, values [n] or None) with kind in sum|count|min|max;
+    values None folds +1 (the count plane). ``late``, ``dropped``: int64
+    scalars on the device, added to."""
+    _check_step(table, planes, ts, keys, late, dropped)
+    if table.device.type == "cpu":
+        return ingest_step_plain(table, planes, ts, keys, pane, offset,
+                                 first_open, late, dropped)
+    if table.device.type != "cuda":
+        raise ValueError(f"unsupported device {table.device}")
+    from . import kernels
+
+    cols: list[torch.Tensor] = []
+    plane_col = []
+    for _kind, _arr, values in planes:
+        if values is None:
+            plane_col.append(-1)
+            continue
+        for c, col in enumerate(cols):
+            if col is values:
+                plane_col.append(c)
+                break
+        else:
+            cols.append(values)
+            plane_col.append(len(cols) - 1)
+    if len(cols) > _MAX_COLS:
+        raise ValueError(f"at most {_MAX_COLS} value columns, not "
+                         f"{len(cols)}")
+    n = ts.numel()
+    if n == 0:
+        return
+    n_p, n_c = len(planes), len(cols)
+    ints = ctypes.c_int * n_p
+    rc = kernels.library("hash_table").ingest_step_launch(
+        table.data_ptr(), table.numel(), ts.data_ptr(), keys.data_ptr(),
+        _CODES[keys.dtype], n, int(pane), int(offset), int(first_open),
+        planes[0][1].shape[0], late.data_ptr(), dropped.data_ptr(), n_p,
+        (ctypes.c_void_p * n_p)(*[arr.data_ptr() for _k, arr, _v in planes]),
+        ints(*[_KINDS[kind] for kind, _a, _v in planes]),
+        ints(*[_CODES[arr.dtype] for _k, arr, _v in planes]),
+        ints(*plane_col), n_c,
+        (ctypes.c_void_p * max(n_c, 1))(*[c.data_ptr() for c in cols]),
+        (ctypes.c_int * max(n_c, 1))(*[_CODES[c.dtype] for c in cols]),
+        torch.cuda.current_stream(table.device).cuda_stream)
+    kernels.check("hash_table", rc)
+    note_launch("ingest_step")

@@ -5,7 +5,7 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``flink_tpu_torch/_build/`` (git-ignored), then loaded with ``ctypes``.
 Pointers come from ``tensor.data_ptr()`` and the stream from
 ``torch.cuda.current_stream().cuda_stream``, all passed as
-``ctypes.c_void_p``. Every C entry returns ``cudaGetLastError()`` and
+``ctypes.c_void_p`` (host arrays of them as ctypes arrays). Every C entry returns ``cudaGetLastError()`` and
 ``check`` raises on a non-zero code.
 
 The build runs at first use, never at import: one ``nvcc`` process per
@@ -34,12 +34,24 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
+_U64 = ctypes.c_ulonglong
 _I32 = ctypes.c_int
+_PI32 = ctypes.POINTER(ctypes.c_int)
+_PP = ctypes.POINTER(ctypes.c_void_p)
 #: source stem -> {C entry: argtypes}; every entry returns int
 SOURCES = {
-    "hist256": {"hist256_launch": [_P, _P, _I64, _I32, _P, _P]},
-    "hash_table": {"hash_probe_launch": [_P, _I64, _P, _P, _I64, _I32, _P,
-                                         _P, _P]},
+    "hist256": {
+        "radix_grid": [_I32, _I32, _PI32],
+        "radix_pass_launch": [_P, _I32, _P, _I64, _I32, _U64, _U64, _I64,
+                              _I32, _I32, _P, _P, _P, _P, _I32, _P],
+        "hist256_launch": [_P, _P, _I64, _I32, _I32, _P, _P, _P, _I32, _P],
+    },
+    "hash_table": {
+        "hash_probe_launch": [_P, _I64, _P, _P, _I64, _I32, _P, _P, _P],
+        "ingest_step_launch": [_P, _I64, _P, _P, _I32, _I64, _I64, _I64,
+                               _I64, _I64, _P, _P, _I32, _PP, _PI32, _PI32,
+                               _PI32, _I32, _PP, _PI32, _P],
+    },
 }
 _ERROR_STRING = {"hist256": "hist256_error_string",
                  "hash_table": "hash_probe_error_string"}

@@ -3,11 +3,11 @@
 
 * Each micro-batch of device-born columns runs one ingest step on the
   device (``_step``, the reference's ``_step_body``): pane assignment, the
-  late mask, the hash-table lookup-or-insert (hand-written CUDA kernel)
-  and one in-place scatter fold per aggregate into ``[ring, capacity]``
-  pane planes. The step never syncs with the host: no ``.item()``, no
-  boolean-mask indexing, no ``nonzero``; its only host inputs are the
-  batch's host-int event-time bounds.
+  late mask, the hash-table lookup-or-insert and one in-place fold per
+  aggregate into ``[ring, capacity]`` pane planes, all in one launch of
+  the hand-written CUDA kernel ``ingest_step``. The step never syncs with
+  the host: no ``.item()``, no boolean-mask indexing, no ``nonzero``; its
+  only host inputs are the batch's host-int event-time bounds.
 * A window ending at pane boundary ``p_end`` fires when the watermark
   passes ``p_end * pane - 1``. The fire (``_fire_outputs``, the
   reference's ``_fire_program``) merges the window's pane rows for every
@@ -38,7 +38,7 @@ import torch
 from ...core.device_records import DeviceRecordBatch
 from ...core.records import MIN_TIMESTAMP, RecordBatch, Schema
 from ...device import resolve_device, torch_dtype
-from ...ops.hash_table import EMPTY_KEY, sanitize_keys_device
+from ...ops.hash_table import EMPTY_KEY
 from ...ops.segment_ops import AGG_COMBINE2, AGG_MERGES
 from ...ops.topk import masked_topk
 from ...state.device_backend import DeviceKeyedStateBackend
@@ -266,21 +266,14 @@ class DeviceWindowAggOperator(AsyncFireQueue, SliceControlPlane,
         self._admit_token()
 
     def _step(self, batch: DeviceRecordBatch, first_open: int) -> None:
-        """The ingest step on the device; no host sync anywhere."""
-        backend = self._backend
-        ts = batch.dtimestamps
-        panes = torch.div(ts - self._offset, self._pane, rounding_mode="floor")
-        fresh = panes >= first_open
-        self._late_dev += (~fresh).sum()
-        keys = sanitize_keys_device(batch.device_column(self._key_column))
-        slots = backend.insert_deferred(keys, fresh)
-        ok = slots >= 0
-        ring_idx = panes % self._ring
-        backend.fold_batch("__count__", slots, torch.ones_like(slots), ok,
-                           ring_idx)
-        for _kind, name, field in self._fold_sig():
-            backend.fold_batch(name, slots, batch.device_column(field), ok,
-                               ring_idx)
+        """The ingest step on the device: one kernel launch on the card
+        (``ops.hash_table.ingest_step``), no host sync anywhere."""
+        folds = [("__count__", None)] + [
+            (name, batch.device_column(field))
+            for _kind, name, field in self._fold_sig()]
+        self._backend.ingest_deferred(
+            batch.dtimestamps, batch.device_column(self._key_column), folds,
+            self._pane, self._offset, first_open, self._late_dev)
 
     def _admit_token(self) -> None:
         """Bounded in-flight window: wait for the step ``max_inflight``

@@ -4,7 +4,8 @@ of ``flink_tpu/state/tpu_backend.py``).
 Keyed state for one subtask's key-group range lives on the device as a
 hash table (``ops/hash_table.py``: int64 key -> dense slot) next to named
 accumulator planes, ``[capacity]`` or ``[ring, capacity]``, updated by
-whole-batch scatter folds. Planes are updated in place.
+whole-batch scatter folds (a device batch's step is one fused kernel,
+``ingest_deferred``). Planes are updated in place.
 
 Growth: when occupancy passes 0.6 * capacity (or an insert exhausts its
 probes) the table doubles and every plane is re-keyed on the device.
@@ -27,8 +28,8 @@ import torch
 from ..core.keygroups import KeyGroupRange, hash_batch, \
     key_groups_for_hash_batch
 from ..device import numpy_dtype, torch_dtype
-from ..ops.hash_table import EMPTY_KEY, lookup, lookup_or_insert, \
-    make_table, sanitize_keys_device
+from ..ops.hash_table import EMPTY_KEY, ingest_step, lookup, \
+    lookup_or_insert, make_table, sanitize_keys_device
 from ..ops.segment_ops import identity, make_accumulator, scatter_fold
 
 __all__ = ["DeviceKeyedStateBackend"]
@@ -109,16 +110,27 @@ class DeviceKeyedStateBackend:
                 return slots
             self._rehash(self.capacity * 2)
 
-    def insert_deferred(self, keys: torch.Tensor,
-                        valid: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
-        """Sync-free insert of sanitized keys: ``ok`` False rows (invalid
-        or out of probes) get slot -1; the valid ones among them count
-        into ``dropped_device``."""
-        _, slots, ok = lookup_or_insert(self.table, keys, valid)
-        failed = ~ok if valid is None else valid & ~ok
-        self._dropped += failed.sum()
+    def insert_deferred(self, keys: torch.Tensor) -> torch.Tensor:
+        """Sync-free insert of sanitized keys: rows out of probes get slot
+        -1 and count into ``dropped_device``."""
+        _, slots, ok = lookup_or_insert(self.table, keys)
+        self._dropped += (~ok).sum()
         return slots
+
+    def ingest_deferred(self, ts: torch.Tensor, keys: torch.Tensor,
+                        folds: list[tuple[str, Optional[torch.Tensor]]],
+                        pane: int, offset: int, first_open: int,
+                        late: torch.Tensor) -> None:
+        """A device batch's whole ingest step, sync-free
+        (``ops.hash_table.ingest_step``): rows in panes below
+        ``first_open`` count into ``late``, the others find-or-claim their
+        key and fold into each named ring plane, ``(name, values)`` with
+        values None for +1; failed inserts count into ``dropped_device``."""
+        planes = [(self._array_states[name].kind,
+                   self._array_states[name].array, values)
+                  for name, values in folds]
+        ingest_step(self.table, planes, ts, keys, pane, offset, first_open,
+                    late, self._dropped)
 
     def fold_batch(self, name: str, slots: torch.Tensor,
                    values: torch.Tensor, valid: torch.Tensor,

@@ -4,8 +4,12 @@
 
 The histogram is held against numpy bincount and the reference's Pallas
 kernel in interpret mode (as tests/test_pallas_topk.py runs it); exact.
-Top-k is held against the reference ``masked_topk`` under the tie rule:
-values and ok equal, indices strictly above the k-th value equal as sets,
+The select's passes (``radix_select``, the plain version on the CPU) are
+held pass by pass against the reference's select loop around that
+kernel, and its threshold against the reference's k-th value; exact.
+Top-k is held against the reference ``masked_topk`` (and, for integer
+domains below 2^32, ``masked_topk_pallas``) under the tie rule: values
+and ok equal, indices strictly above the k-th value equal as sets,
 indices at the k-th value a subset of that tie class. Float inputs are
 multiples of 1/8, exactly representable."""
 
@@ -19,9 +23,12 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from flink_tpu.ops.hash_table import ensure_x64  # noqa: E402
-from flink_tpu.ops.pallas_topk import histogram256_pallas  # noqa: E402
+from flink_tpu.ops.pallas_topk import histogram256_pallas, \
+    masked_topk_pallas  # noqa: E402
+from flink_tpu.ops.topk import _to_uint64  # noqa: E402
 from flink_tpu.ops.topk import masked_topk as ref_topk  # noqa: E402
-from flink_tpu_torch.ops.radix_topk import histogram256  # noqa: E402
+from flink_tpu_torch.ops.radix_topk import digit_plan, histogram256, \
+    radix_select  # noqa: E402
 from flink_tpu_torch.ops.topk import masked_topk, masked_topk_sort  # noqa: E402
 
 
@@ -113,3 +120,71 @@ def test_unfilled_seats_hold_the_sentinel():
     assert ok.tolist() == [True, True, False]
     assert v.tolist()[:2] == [9, 5] and i.tolist()[:2] == [2, 0]
     assert int(v[2]) == torch.iinfo(torch.int64).min
+
+
+KINDS = ["int32_8", "int32_16", "int32_31", "int64_32", "int64_48",
+         "int64_neg", "int64_ties", "float32", "float64"]
+
+
+def _reference_passes(vals, valid, k, value_bits):
+    """The reference's select loop (``_topk_pallas``,
+    flink_tpu/ops/pallas_topk.py:121) in numpy around its Pallas histogram
+    in interpret mode: each pass's histogram, the threshold and kk."""
+    u = vals.astype(np.uint32)
+    passes = max(1, -(-value_bits // 8))
+    kk = min(k, int(valid.sum()))
+    cand, above, prefix, hists = valid.copy(), 0, 0, []
+    for shift in (24, 16, 8, 0)[4 - passes:]:
+        hist = np.asarray(histogram256_pallas(
+            jnp.asarray(u.view(np.int32)), jnp.asarray(cand), shift,
+            interpret=True)).astype(np.int64)
+        hists.append(hist)
+        revcum = np.cumsum(hist[::-1])[::-1]
+        bstar = int(np.max(np.where(above + revcum >= kk, np.arange(256),
+                                    -1)))
+        above += int(hist[bstar + 1:].sum())
+        prefix |= bstar << shift
+        cand = cand & (((u >> shift) & 0xFF) == bstar)
+    return np.stack(hists), prefix, kk
+
+
+@pytest.mark.parametrize("kind", ["int32_8", "int32_16", "int32_31",
+                                  "int64_32"])
+@pytest.mark.parametrize("k,n,p_valid", [(10, 3000, 0.6), (50, 40, 0.5)])
+def test_select_passes_match_pallas_reference(kind, k, n, p_valid):
+    """Integer domains below 2^32: every pass's histogram, the threshold
+    and kk equal the reference's Pallas select, and the top k follow the
+    tie rule against ``masked_topk_pallas(..., interpret=True)``."""
+    ensure_x64()
+    rng = np.random.default_rng(zlib.crc32(f"pass-{kind}-{k}-{n}".encode()))
+    vals, vb = _values(kind, n, rng)
+    valid = rng.random(n) < p_valid
+    want_hists, prefix, kk = _reference_passes(vals, valid, k, vb)
+    tv, tvalid = torch.from_numpy(vals), torch.from_numpy(valid)
+    plan, _seed = digit_plan(tv.dtype, vb)
+    hists = torch.zeros((len(plan), 256), dtype=torch.int32)
+    state = radix_select(tv, tvalid, min(k, n), vb, hists)
+    np.testing.assert_array_equal(hists.numpy(), want_hists)
+    assert int(state[2]) == kk > 0
+    assert int(state[0]) ^ -(1 << 63) == prefix   # integers: key == value
+    ref_out = masked_topk_pallas(jnp.asarray(vals), jnp.asarray(valid), k,
+                                 value_bits=vb, interpret=True)
+    _assert_tie_rule(vals, valid, ref_out, masked_topk(tv, tvalid, k,
+                                                       value_bits=vb))
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_select_threshold_matches_reference(kind):
+    """The state after the last pass: kk = min(k, valid rows), and the
+    prefix word is the uint64 order word of the reference's k-th value."""
+    ensure_x64()
+    rng = np.random.default_rng(zlib.crc32(f"thr-{kind}".encode()))
+    vals, vb = _values(kind, 3000, rng)
+    valid = rng.random(3000) < 0.6
+    rv, _ri, rok = (np.asarray(x) for x in ref_topk(
+        jnp.asarray(vals), jnp.asarray(valid), 100, value_bits=vb))
+    state = radix_select(torch.from_numpy(vals), torch.from_numpy(valid),
+                         100, vb)
+    assert int(state[2]) == int(rok.sum()) == 100
+    word = int(np.asarray(_to_uint64(jnp.asarray(rv[rok][-1:])))[0])
+    assert int(state[0]) & ((1 << 64) - 1) == word
