@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke run of flink_tpu_torch on one CUDA card: build, kernels, Q5.
+"""Smoke run of flink_tpu_torch on one CUDA card: build, kernels, Q5, Q7.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -8,11 +8,14 @@ Run from the repository root:  python3 chip_smoke.py
 2. Build: every ``flink_tpu_torch/csrc/*.cu`` with nvcc for sm_90a (one
    process per source, in parallel); the seconds spent.
 3. Kernels, each held against its plain PyTorch version on the card at
-   the shapes the Q5 path gives it:
+   the shapes the main paths give it:
    * hist256, the TPU kernel's contract, at n = 2^21 and 2^24, shifts
      0/8/16/24: exactly equal to the plain version and to torch.bincount;
-   * the select pass (hist256.cu's radix_pass_kernel) on Q5 window counts
-     (int64, value_bits 31, k 1000) at n = 2^21 and 2^24: every pass's
+   * the select pass (hist256.cu's radix_pass_kernel) on every value
+     type and digit plan the paths rank: Q5 window counts from the full
+     merge (int64, value_bits 31, k 1000) at n = 2^21 and 2^24, from the
+     incremental view (int32, value_bits 31, k 1000) at 2^24, and Q7's
+     max view (int64, value_bits 34: 5 passes, k 1) at 2^24: every pass's
      histogram and the device state (prefix, above, kk) exactly equal to
      the plain version's, and the top k equal to torch.topk's under the
      tie rule;
@@ -23,9 +26,18 @@ Run from the repository root:  python3 chip_smoke.py
    * ingest_step on the next Q5 batch (2^19 rows) of a table that holds
      the keys of the 4 batches before it, at 1M keys (capacity 2^21) and
      10M keys (2^24): the same key set as the plain version, the count and
-     revenue planes equal key by key, the late and dropped counters equal.
+     revenue planes equal key by key, the late and dropped counters equal;
+   * window_seal and window_rebuild (csrc/window_seal.cu) on Q5's
+     signature (int32 count, int64 revenue) at W = 5 on ring 16 (capacity
+     2^21 and 2^24) and at W = 20 on ring 46 (2^24), on Q7's (int64
+     count, int64 max tree) tumbling on ring 16 (2^21 and 2^24), and on a
+     128-pane window (ring 262, a tree of 512 leaves; 2^16): a rebuild
+     from the window's live rows, then seals at W with the retiring pane
+     valid and not and at another width, every view and state exactly
+     equal to the plain version's.
    Median kernel time over CUDA events with the L2 flushed before each
-   launch, the plain version's time, the library call's time where one
+   launch, the plain version's time (for the window kernels: the eager
+   seal and rebuild they replace), the library call's time where one
    exists (and, for ingest_step, the chain it replaces: the probe kernel
    and eager folds), and the bound reckoned from the bytes each kernel
    must move. A profiler shows that one step is one launch and that the
@@ -39,18 +51,34 @@ Run from the repository root:  python3 chip_smoke.py
    launch counters are zeroed just before each and read just after; each
    run must launch ingest_step once per batch and hist256 once per digit
    pass of each fire; every emitted window of every run is checked
-   against a numpy oracle (per-pane bincount of the same events, top 1000
-   by count under the tie rule, revenue of each winner). The median
+   against a numpy oracle (per-pane bincounts of the same events, top
+   1000 by count under the tie rule, revenue of each winner). The median
    events/sec, its range, and p99 fire latency over all the runs' fires
    are printed. One more run under torch.profiler gives the card's busy
    time by kernel against the run's wall time, and counts the launches of
    both kernels again.
-5. The same at 10M keys (capacity 2^24, 2^25 events).
-6. The host-batch path: a short Q5 run with defer_overflow=False at 100k
-   keys into capacity 2^17, which must launch hash_probe, grow the table
-   exactly once, and pass the oracle.
-7. The kernels line, the nvidia-smi line, then the last line
-   {"ok": true, "device": {...}}.
+5. The same at 10M keys (capacity 2^24, 2^25 events), then once more with
+   each fire profiled on its own (``fire_device_ms``): the device time
+   of one fire.
+6. Q5-10M with ``window.fire.incremental``: the same checks, and one
+   window_seal or window_rebuild per fire; the rebuilds are printed by
+   cause.
+7. Q5-10M at W = 20 (bench.py --window-panes 20: ring 46, 24 panes), 3
+   timed runs in each fire mode, and the device time per fire of each.
+8. Nexmark Q7 at 10M keys (bench.py _run_q7: 9 tumbling panes of
+   10 000 ms, max(packed = (price << 20) | bidder, value_bits 34), top 1,
+   window bounds), 3 timed runs in each fire mode: every window's row is
+   the auction of its pane's largest packed word, with its bounds; 5
+   select passes per fire.
+9. Coalesced ingest at the operator level: the Q5-1M events in device
+   batches of 2^16 rows, task.coalesce.target-records 2^19, a watermark
+   every 8 batches: one ingest_step per 8 batches, windows equal to the
+   oracle.
+10. The host-batch path: a short Q5 run with defer_overflow=False at 100k
+    keys into capacity 2^17, which must launch hash_probe, grow the table
+    exactly once, and pass the oracle.
+11. The kernels line, the nvidia-smi line, then the last line
+    {"ok": true, "device": {...}}.
 
 ``python3 chip_smoke.py --parent-kernels DIR`` instead times, with the same
 method, the kernels that an older checkout at DIR also has (hist256,
@@ -68,6 +96,7 @@ import linecache
 import os
 import subprocess
 import sys
+import time
 import warnings
 
 import numpy as np
@@ -79,10 +108,17 @@ INT64_MAX = (1 << 63) - 1
 MIN_TIMESTAMP = -(1 << 62)     # first open pane before any fire
 PANE_MS, WINDOW_PANES, RING, BATCH, TOPK = 2000, 5, 16, 1 << 19, 1000
 Q5_RUNS = 5                    # timed Q5 runs per configuration
+WIDE_RUNS = 3                  # timed runs of the W = 20 and Q7 cells
+WIDE_PANES = 20                # bench.py --window-panes 20
 #: (label, keys, events, capacity) of the two Q5 cells
 Q5_CELLS = (("1M", 1_000_000, 1 << 23, 1 << 21),
             ("10M", 10_000_000, 1 << 25, 1 << 24))
 STEP_PREFIX = 4                # batches in the table before a timed step
+FIRE_SLEEP_CYCLES = 40_000_000  # ~20 ms of device sleep before a timed fire
+PROFILE_TRIES = 3              # profiles taken before a lost record fails
+Q7_PANE_MS, Q7_VALUE_BITS = 10_000, 34   # bench.py _run_q7
+Q7_PRICES, Q7_BIDDER_BITS = 9973, 20
+CO_BATCH, CO_TARGET, CO_WM_EVERY = 1 << 16, 1 << 19, 8   # coalesced ingest
 
 
 def emit(obj) -> None:
@@ -187,41 +223,62 @@ def check_hist256(torch, dev, flush) -> dict:
     return {"max_abs_err": max_err, "shapes": shapes}
 
 
-def q5_window_counts(torch, dev, n: int, gen):
-    """Ranked values shaped like a Q5 fire's: int64 window counts of
-    about 4.6 bids per key over the occupied half of the slots."""
+def q5_window_counts(torch, dev, n: int, gen, dtype=None):
+    """Ranked values shaped like a Q5 fire's: window counts (int64 from
+    the full merge, int32 from the incremental view) of about 4.6 bids
+    per key over the occupied half of the slots."""
     valid = torch.rand(n, device=dev, generator=gen) < 0.48
     counts = torch.poisson(torch.full((n,), 4.6, device=dev),
-                           generator=gen).to(torch.int64) + 1
+                           generator=gen).to(dtype or torch.int64) + 1
     return torch.where(valid, counts, 0), valid
 
 
+def q7_window_maxima(torch, dev, n: int, gen, dtype=None):
+    """Ranked values shaped like a Q7 fire's: the int64 max view, a packed
+    word below 2^34 at the slots with a bid in the pane (about 3.1M of
+    10M keys in 2^24 slots) and the max's identity elsewhere."""
+    valid = torch.rand(n, device=dev, generator=gen) < 0.18
+    words = torch.randint(0, 1 << Q7_VALUE_BITS, (n,), dtype=torch.int64,
+                          device=dev, generator=gen)
+    return torch.where(valid, words, torch.iinfo(torch.int64).min), valid
+
+
+#: (label, values, dtype, value_bits, k, n) of the checked selects: Q5's
+#: full-mode int64 merge, its incremental int32 view, Q7's int64 max view
+SELECT_CASES = (("q5_int64", q5_window_counts, "int64", 31, TOPK, 1 << 21),
+                ("q5_int64", q5_window_counts, "int64", 31, TOPK, 1 << 24),
+                ("q5_int32", q5_window_counts, "int32", 31, TOPK, 1 << 24),
+                ("q7_int64", q7_window_maxima, "int64", Q7_VALUE_BITS, 1,
+                 1 << 24))
+
+
 def check_select(torch, dev, flush) -> dict:
-    """The fire's select: one radix_pass_kernel launch per digit pass."""
+    """The fire's select: one radix_pass_kernel launch per digit pass, on
+    each value type and digit plan the main paths rank."""
     from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
     from flink_tpu_torch.ops.radix_topk import digit_plan, radix_select, \
         radix_select_plain
     from flink_tpu_torch.ops.topk import masked_topk, masked_topk_sort
 
     gen = torch.Generator(device=dev).manual_seed(5)
-    value_bits = 31
-    plan, _seed = digit_plan(torch.int64, value_bits)
-    passes = len(plan)
     shapes = {}
     mismatches = 0
-    for n in (1 << 21, 1 << 24):
-        values, valid = q5_window_counts(torch, dev, n, gen)
+    for label, make, dt_name, value_bits, k, n in SELECT_CASES:
+        name = f"{label}_n_2^{n.bit_length() - 1}"
+        dtype = getattr(torch, dt_name)
+        passes = len(digit_plan(dtype, value_bits)[0])
+        values, valid = make(torch, dev, n, gen, dtype)
         got_h = torch.zeros((passes, 256), dtype=torch.int32, device=dev)
         want_h = torch.zeros_like(got_h)
         reset_launches()
-        got = radix_select(values, valid, TOPK, value_bits, got_h)
+        got = radix_select(values, valid, k, value_bits, got_h)
         if KERNEL_LAUNCHES["hist256"] != passes:
-            raise AssertionError(f"select n={n}: "
+            raise AssertionError(f"select {name}: "
                                  f"{KERNEL_LAUNCHES['hist256']} launches "
                                  f"for {passes} passes")
-        want = radix_select_plain(values, valid, TOPK, value_bits, want_h)
-        v, i, ok = masked_topk(values, valid, TOPK, value_bits=value_bits)
-        sv, _si, sok = masked_topk_sort(values, valid, TOPK)
+        want = radix_select_plain(values, valid, k, value_bits, want_h)
+        v, i, ok = masked_topk(values, valid, k, value_bits=value_bits)
+        sv, _si, sok = masked_topk_sort(values, valid, k)
         torch.cuda.synchronize()
         bad = {"hist_bins": int((got_h != want_h).sum()),
                "state": int((got != want).sum()),
@@ -229,25 +286,28 @@ def check_select(torch, dev, flush) -> dict:
                "topk_index_values": int((values[i[ok]] != v[ok]).sum()
                                         + (~valid[i[ok]]).sum())}
         if any(bad.values()):
-            raise AssertionError(f"select n={n}: entries differing from "
+            raise AssertionError(f"select {name}: entries differing from "
                                  f"the plain version: {bad}")
         mismatches += sum(bad.values())
-        masked = torch.where(valid, values, torch.iinfo(torch.int64).min)
-        sel_ms = cuda_ms(lambda: radix_select(values, valid, TOPK,
-                                              value_bits), torch, flush)
-        plain_ms = cuda_ms(lambda: radix_select_plain(values, valid, TOPK,
+        masked = torch.where(valid, values, torch.iinfo(dtype).min)
+        sel_ms = cuda_ms(lambda: radix_select(values, valid, k, value_bits),
+                         torch, flush)
+        plain_ms = cuda_ms(lambda: radix_select_plain(values, valid, k,
                                                       value_bits),
                            torch, flush)
-        # one pass reads each value (8 B) and valid byte once
-        per_pass = bound_ms(n * 9 + 3 * 8)
-        shapes[n] = {"n": n, "passes": passes,
-                     "ms": sel_ms / passes, "plain_ms": plain_ms / passes,
-                     "bound_ms": per_pass, "bound_by": "bytes",
-                     "library_ms": None,
-                     "select_ms": sel_ms, "select_plain_ms": plain_ms,
-                     "select_bound_ms": per_pass,
-                     "select_library_ms": cuda_ms(
-                         lambda: torch.topk(masked, TOPK), torch, flush)}
+        # one pass reads each value and valid byte once
+        per_pass = bound_ms(n * (values.element_size() + 1) + 3 * 8)
+        shapes[name] = {"n": n, "dtype": dt_name, "value_bits": value_bits,
+                        "k": k, "passes": passes,
+                        "ms": sel_ms / passes, "plain_ms": plain_ms / passes,
+                        "bound_ms": per_pass, "bound_by": "bytes",
+                        "library_ms": None,
+                        "share_of_bound": per_pass * passes / sel_ms,
+                        "select_ms": sel_ms, "select_plain_ms": plain_ms,
+                        "select_bound_ms": per_pass * passes,
+                        "select_library_ms": cuda_ms(
+                            lambda: torch.topk(masked, k), torch, flush)}
+        del values, valid, masked
     # integers: the count of histogram bins, state words and top-k seats
     # that differ from the plain version
     return {"max_abs_err": mismatches, "shapes": shapes}
@@ -455,19 +515,195 @@ def check_ingest(torch, dev, flush) -> dict:
     return {"max_abs_err": mismatches, "shapes": shapes}
 
 
-def device_kernels(torch, fn) -> list[str]:
-    """Names of the kernels ``fn`` ran on the card, in start order."""
+#: plane signatures of the window kernels on the two paths: (kind, pane
+#: dtype name); Q5 ranks count(value_bits=31) with sum(price), Q7 takes
+#: max(packed) with the count plane every window operator keeps
+SEAL_SIGS = {"q5": (("count", "int32"), ("sum", "int64")),
+             "q7": (("count", "int64"), ("max", "int64"))}
+#: (label, signature, window panes, ring, capacities) of the checked
+#: window kernels: Q5 at W = 5 and W = 20 (bench.py's ring 2W + 6), Q7
+#: tumbling, and a 128-pane window whose ring and 512-leaf tree the
+#: kernels' parameters could not hold by value
+SEAL_CASES = (("q5", "q5", WINDOW_PANES, RING, (1 << 21, 1 << 24)),
+              ("q7", "q7", 1, RING, (1 << 21, 1 << 24)),
+              ("q5_w20", "q5", WIDE_PANES, 2 * WIDE_PANES + 6, (1 << 24,)),
+              ("q7_w128", "q7", 128, 2 * 128 + 6, (1 << 16,)))
+
+
+def tree_walk(leaves: int, old_leaf: int, new_leaf: int) -> tuple[int, int]:
+    """(sibling reads, node writes) of one tree seal in csrc/window_seal.cu:
+    both leaves written, then the union of their ancestor paths."""
+    a, b = leaves + old_leaf, leaves + new_leaf
+    reads, writes = 0, 2
+    while a > 1:
+        if a == b:
+            reads, writes, a = reads + 1, writes + 1, a >> 1
+        elif a ^ 1 == b:
+            writes, a = writes + 1, a >> 1
+        else:
+            reads, writes, a, b = reads + 2, writes + 2, a >> 1, b >> 1
+            continue
+        b = a
+    return reads, writes
+
+
+def seal_bytes(planes, new_row: int, sub_row: int, sub_valid: bool,
+               new_leaf: int, old_leaf: int) -> int:
+    """Bytes one seal must move, each read once and each write once: an
+    invertible plane reads its window and the new (and retiring) pane row
+    and writes the view and the window; a tree reads the new row and the
+    siblings on the two paths and writes the changed nodes and the view."""
+    total = 0
+    for kind, pane, state, _view in planes:
+        pb, ab = pane.element_size(), state.element_size()
+        if kind in ("sum", "count"):
+            retire = pb if sub_valid and sub_row != new_row else 0
+            total += ab + pb + retire + 2 * ab
+        else:
+            reads, writes = tree_walk(state.shape[0] // 2, old_leaf,
+                                      new_leaf)
+            total += pb + reads * ab + (writes + 1) * ab
+    return total * planes[0][1].shape[1]
+
+
+def rebuild_bytes(planes, rows: list, sub_row: int, sub_valid: bool) -> int:
+    """Bytes one rebuild must move: each live row read once (and the
+    retiring row, when it is not one of them), the view and the window
+    (or every node of the tree) written once."""
+    total = 0
+    for kind, pane, state, _view in planes:
+        pb, ab = pane.element_size(), state.element_size()
+        reads = len(rows) * pb
+        if kind in ("sum", "count"):
+            extra = pb if sub_valid and sub_row not in rows else 0
+            total += reads + extra + 2 * ab
+        else:
+            total += reads + (state.shape[0] + 1) * ab
+    return total * planes[0][1].shape[1]
+
+
+def seal_planes(torch, dev, sig: str, ring: int, cap: int, gen):
+    """Two equal copies of a signature's planes on a ring of ``ring``
+    rows: random pane rows (Q5: counts of a few bids and revenues; Q7:
+    packed words below 2^34), zeroed windows and identity trees of
+    pow2_ceil(ring) leaves, and a view each."""
+    from flink_tpu_torch.ops.segment_ops import make_accumulator, pow2_ceil
+    from flink_tpu_torch.runtime.operators.device_window import \
+        _window_dtype
+
+    copies = ([], [])
+    for kind, dt_name in SEAL_SIGS[sig]:
+        dt = getattr(torch, dt_name)
+        hi = {"count": 9, "sum": 997 * 9, "max": 1 << Q7_VALUE_BITS}[kind]
+        pane = torch.randint(0, hi, (ring, cap), dtype=torch.int64,
+                             device=dev, generator=gen).to(dt)
+        wdt = _window_dtype(kind, dt)
+        shape = ((cap,) if kind in ("sum", "count")
+                 else (2 * pow2_ceil(ring), cap))
+        for planes in copies:
+            planes.append((kind, pane,
+                           make_accumulator(kind, shape, wdt, dev),
+                           torch.empty(cap, dtype=wdt, device=dev)))
+    return copies
+
+
+def check_window_seal(torch, dev, flush) -> dict:
+    """window_seal and window_rebuild against their plain versions on each
+    SEAL_CASES shape: a rebuild from the window's W live rows, then seals
+    at W (the retiring pane valid and not) and at another width, each
+    followed by a check that every view and state is exactly equal. Timed
+    on the case's own shape: a seal and a rebuild at W."""
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+    from flink_tpu_torch.ops.segment_ops import pow2_ceil
+    from flink_tpu_torch.ops.window_seal import rebuild, rebuild_plain, \
+        seal, seal_plain
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = {}
+    mismatches = 0
+    for label, sig, W, ring, caps in SEAL_CASES:
+        L = pow2_ceil(ring)
+        steps = ((f"w{W}", W, True), (f"w{W}_sub_invalid", W, False),
+                 ("w5", 5, True) if W == 1 else ("w1", 1, True))
+        for cap in caps:
+            name = f"{label}_cap_2^{cap.bit_length() - 1}"
+            kern, plain = seal_planes(torch, dev, sig, ring, cap, gen)
+            p_end = 3 * ring + 7
+            rows = [p % ring for p in range(p_end - W, p_end)]
+            leaves = [p % L for p in range(p_end - W, p_end)]
+            sub_row = (p_end - W) % ring
+            reset_launches()
+            rebuild(kern, rows, leaves, sub_row, True)
+            rebuild_plain(plain, rows, leaves, sub_row, True)
+            for step, w, sub_valid in (("rebuild", W, True),) + steps:
+                if step != "rebuild":
+                    p_end += 1
+                    args = ((p_end - 1) % ring, (p_end - w) % ring,
+                            sub_valid, (p_end - 1) % L, (p_end - 1 - w) % L)
+                    seal(kern, *args)
+                    seal_plain(plain, *args)
+                torch.cuda.synchronize()
+                bad = sum(int((a[2] != b[2]).sum() + (a[3] != b[3]).sum())
+                          for a, b in zip(kern, plain))
+                mismatches += bad
+                if bad:
+                    raise AssertionError(
+                        f"window kernels {name} {step}: {bad} entries "
+                        "differ from the plain version")
+            if (KERNEL_LAUNCHES["window_seal"], KERNEL_LAUNCHES[
+                    "window_rebuild"]) != (len(steps), 1):
+                raise AssertionError(f"window kernels launched "
+                                     f"{KERNEL_LAUNCHES}")
+            args = (p_end % ring, (p_end + 1 - W) % ring, True, p_end % L,
+                    (p_end - W) % L)
+            rargs = (rows, leaves, sub_row, True)
+            seal_ms = cuda_ms(lambda: seal(kern, *args), torch, flush)
+            rebuild_ms = cuda_ms(lambda: rebuild(kern, *rargs), torch, flush)
+            seal_bound = bound_ms(seal_bytes(kern, *args))
+            rebuild_bound = bound_ms(rebuild_bytes(kern, rows, sub_row,
+                                                   True))
+            out[name] = {
+                "capacity": cap, "ring": ring, "tree_leaves": L,
+                "window_panes": W,
+                "checked": ["rebuild"] + [st for st, _w, _v in steps],
+                "seal_ms": seal_ms,
+                "seal_plain_ms": cuda_ms(lambda: seal_plain(plain, *args),
+                                         torch, flush, reps=5),
+                "seal_bound_ms": seal_bound,
+                "seal_share_of_bound": seal_bound / seal_ms,
+                "rebuild_ms": rebuild_ms,
+                "rebuild_plain_ms": cuda_ms(
+                    lambda: rebuild_plain(plain, *rargs), torch, flush,
+                    reps=5),
+                "rebuild_bound_ms": rebuild_bound,
+                "rebuild_share_of_bound": rebuild_bound / rebuild_ms,
+                "bound_by": "bytes", "library_ms": None}
+            del kern, plain
+    # integers: the count of view and state entries that differ
+    return {"max_abs_err": mismatches, "shapes": out}
+
+
+def device_kernels(torch, fn, symbol: str,
+                   count: int) -> tuple[list[str], int]:
+    """Names of the kernels ``fn`` ran on the card, in start order, from
+    the first of up to PROFILE_TRIES profiles that recorded ``count``
+    kernels named ``symbol`` (the profiler at times loses a kernel's
+    record; the launch counters do not); and the profiles taken."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    for tries in range(1, PROFILE_TRIES + 1):
         torch.cuda.synchronize()
-    events = sorted((e for e in prof.events()
-                     if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
-    return [e.name for e in events]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        names = [e.name for e in events]
+        if sum(symbol in n for n in names) == count:
+            break
+    return names, tries
 
 
 def check_launch_shape(torch, dev) -> dict:
@@ -480,23 +716,25 @@ def check_launch_shape(torch, dev) -> dict:
     case = q5_step_case(torch, dev, n_keys, n_events, cap)
     late = torch.zeros((), dtype=torch.int64, device=dev)
     dropped = torch.zeros((), dtype=torch.int64, device=dev)
-    step = device_kernels(torch, lambda: ingest_step(
+    step, step_tries = device_kernels(torch, lambda: ingest_step(
         case["table"], [("count", case["count"], None),
                         ("sum", case["rev"], case["batch"][2])],
         case["batch"][0], case["batch"][1], PANE_MS, 0, MIN_TIMESTAMP, late,
-        dropped))
+        dropped), "ingest_step_kernel", 1)
     if len(step) != 1 or "ingest_step_kernel" not in step[0]:
         raise AssertionError(f"one Q5 step ran {step}")
     gen = torch.Generator(device=dev).manual_seed(6)
     values, valid = q5_window_counts(torch, dev, cap, gen)
-    fire = device_kernels(torch, lambda: masked_topk(values, valid, TOPK,
-                                                     value_bits=31))
+    fire, fire_tries = device_kernels(
+        torch, lambda: masked_topk(values, valid, TOPK, value_bits=31),
+        "radix_pass_kernel", 4)
     passes = [j for j, name in enumerate(fire) if "radix_pass_kernel" in name]
     if len(passes) != 4 or passes != list(range(passes[0], passes[0] + 4)):
         raise AssertionError(f"the select's passes are not 4 back-to-back "
                              f"launches: {fire}")
     return {"q5_step_kernels": len(step), "select_kernels": len(fire),
-            "select_passes_back_to_back": len(passes)}
+            "select_passes_back_to_back": len(passes),
+            "profiles_taken": step_tries + fire_tries}
 
 
 def parent_kernels(torch, dev, flush) -> dict:
@@ -511,9 +749,17 @@ def parent_kernels(torch, dev, flush) -> dict:
 
 
 # -- Q5 -------------------------------------------------------------------
-def q5_panes(n_events: int, batch: int = BATCH) -> int:
-    """bench.py's pane count for the default ring and W = 5."""
-    return max(4, min(RING - WINDOW_PANES - 2, n_events // batch))
+def ring_for(window_panes: int) -> int:
+    """bench.py's ring for a window width: 16, or 2W + 6 for wide ones."""
+    return max(RING, 2 * window_panes + 6)
+
+
+def q5_panes(n_events: int, batch: int = BATCH,
+             window_panes: int = WINDOW_PANES) -> int:
+    """bench.py's pane count: the stream spans at most ring - W - 2 panes
+    of the ring ``ring_for(W)``."""
+    return max(4, min(ring_for(window_panes) - window_panes - 2,
+                      n_events // batch))
 
 
 def q5_gen(n_keys: int, n_events: int, span: int):
@@ -534,17 +780,19 @@ def q5_gen(n_keys: int, n_events: int, span: int):
 
 
 def run_q5(torch, dev, n_keys: int, n_events: int, capacity: int,
-           batch: int = BATCH, topk: int = TOPK, defer: bool = True):
+           batch: int = BATCH, topk: int = TOPK, defer: bool = True,
+           fire_mode: str = "full", window_panes: int = WINDOW_PANES):
     """One run of the Q5 pipeline through the port's public API; returns
     (job result, [(window end - 1, auctions, bids, revenue)], span ms).
     ``defer`` False takes the host-batch path: each device batch comes to
-    the host, and the table grows inline."""
+    the host, and the table grows inline. ``fire_mode`` "incremental" sets
+    ``window.fire.incremental``."""
     from flink_tpu_torch.api import StreamExecutionEnvironment
     from flink_tpu_torch.core import Configuration, Schema, WatermarkStrategy
     from flink_tpu_torch.runtime.operators import AggSpec
     from flink_tpu_torch.window import SlidingEventTimeWindows
 
-    span = q5_panes(n_events, batch) * PANE_MS
+    span = q5_panes(n_events, batch, window_panes) * PANE_MS
     schema = Schema([("auction", np.int64), ("price", np.int64),
                      ("ts", np.int64)])
     got = []
@@ -554,16 +802,19 @@ def run_q5(torch, dev, n_keys: int, n_events: int, capacity: int,
                     b.column("bids"), b.column("revenue")))
 
     env = StreamExecutionEnvironment(
-        Configuration({"pipeline.micro-batch-size": batch}), device=dev)
+        Configuration({"pipeline.micro-batch-size": batch,
+                       "window.fire.incremental":
+                           fire_mode == "incremental"}), device=dev)
     ws = WatermarkStrategy.for_monotonous_timestamps() \
         .with_timestamp_column("ts")
     (env.datagen(q5_gen(n_keys, n_events, span), schema, count=n_events,
                  timestamp_column="ts", watermark_strategy=ws, device=True)
         .key_by("auction")
-        .window(SlidingEventTimeWindows.of(WINDOW_PANES * PANE_MS, PANE_MS))
+        .window(SlidingEventTimeWindows.of(window_panes * PANE_MS, PANE_MS))
         .device_aggregate([AggSpec("count", out_name="bids", value_bits=31),
                            AggSpec("sum", "price", out_name="revenue")],
-                          capacity=capacity, ring_size=RING,
+                          capacity=capacity,
+                          ring_size=ring_for(window_panes),
                           emit_window_bounds=False, emit_topk=topk,
                           defer_overflow=defer, async_fire=True)
         .add_sink(sink))
@@ -571,10 +822,13 @@ def run_q5(torch, dev, n_keys: int, n_events: int, capacity: int,
     return job, got, span
 
 
-def q5_oracle_check(n_keys: int, n_events: int, span: int, got,
-                    topk: int = TOPK) -> int:
-    """Hold every emitted window against numpy under the tie rule; returns
-    the windows checked."""
+def q5_expected(n_keys: int, n_events: int, span: int, topk: int = TOPK,
+                window_panes: int = WINDOW_PANES) -> list:
+    """The numpy oracle of every Q5 window, once per configuration:
+    [(end pane, top values, candidates, their bids and revenue, keys
+    strictly above the k-th value)], where the candidates are the keys at
+    or above the k-th value. Each window's sums slide: its newest pane is
+    added and the pane that left it subtracted, one bincount each."""
     idx = np.arange(n_events, dtype=np.int64)
     keys = ((idx.astype(np.uint64) * np.uint64(MULT))
             % np.uint64(n_keys)).astype(np.int64)
@@ -582,34 +836,205 @@ def q5_oracle_check(n_keys: int, n_events: int, span: int, got,
     panes = (idx * span) // n_events // PANE_MS
     n_p = int(panes[-1]) + 1
     bounds = np.searchsorted(panes, np.arange(n_p + 1))
-    cnt, rev = [], []
-    for p in range(n_p):
+
+    def pane_sums(p):
         a, b = bounds[p], bounds[p + 1]
-        cnt.append(np.bincount(keys[a:b], minlength=n_keys))
-        rev.append(np.bincount(keys[a:b], weights=price[a:b],
-                               minlength=n_keys).astype(np.int64))
-    expected_ends = list(range(int(panes[0]) + 1, n_p + WINDOW_PANES))
-    ends = [(ts + 1) // PANE_MS for ts, *_ in got]
-    if ends != expected_ends:
-        raise AssertionError(f"fired windows {ends} != {expected_ends}")
-    for (ts, k, bids, revenue), p_end in zip(got, ends):
-        live = range(max(0, p_end - WINDOW_PANES), min(p_end, n_p))
-        c = sum(cnt[p] for p in live)
-        r = sum(rev[p] for p in live)
-        nz = int((c > 0).sum())
-        kk = min(topk, nz)
+        return (np.bincount(keys[a:b], minlength=n_keys),
+                np.bincount(keys[a:b], weights=price[a:b],
+                            minlength=n_keys).astype(np.int64))
+
+    c = np.zeros(n_keys, np.int64)
+    r = np.zeros(n_keys, np.int64)
+    out = []
+    for p_end in range(int(panes[0]) + 1, n_p + window_panes):
+        for p, sign in ((p_end - 1, 1), (p_end - 1 - window_panes, -1)):
+            if 0 <= p < n_p:
+                pc, pr = pane_sums(p)
+                c += sign * pc
+                r += sign * pr
+        kk = min(topk, int((c > 0).sum()))
         want = -np.sort(-np.partition(c, len(c) - kk)[len(c) - kk:])
-        kth = want[-1]
+        cand = np.flatnonzero(c >= want[-1])
+        out.append((p_end, want, cand, c[cand], r[cand],
+                    set(np.flatnonzero(c > want[-1]).tolist())))
+    return out
+
+
+def q5_check(expected: list, got) -> int:
+    """Hold every emitted window against the oracle under the tie rule;
+    returns the windows checked."""
+    ends = [(ts + 1) // PANE_MS for ts, *_ in got]
+    if ends != [e[0] for e in expected]:
+        raise AssertionError(f"fired windows {ends} != "
+                             f"{[e[0] for e in expected]}")
+    for (ts, k, bids, revenue), (p_end, want, cand, cc, cr, strict) in zip(
+            got, expected):
+        kk, kth = len(want), want[-1]
+        pos = np.minimum(np.searchsorted(cand, k), len(cand) - 1)
         ok = (len(k) == kk and len(np.unique(k)) == kk
+              and np.array_equal(cand[pos], k)
               and np.array_equal(bids.astype(np.int64), want)
-              and np.array_equal(c[k], bids.astype(np.int64))
-              and np.array_equal(r[k], revenue.astype(np.int64))
-              and set(k[bids > kth].tolist())
-              == set(np.flatnonzero(c > kth).tolist()))
+              and np.array_equal(cc[pos], bids.astype(np.int64))
+              and np.array_equal(cr[pos], revenue.astype(np.int64))
+              and set(k[bids > kth].tolist()) == strict)
         if not ok:
             raise AssertionError(f"Q5 window ending at pane {p_end} "
                                  "disagrees with the numpy oracle")
     return len(got)
+
+
+def q5_oracle_check(n_keys: int, n_events: int, span: int, got,
+                    topk: int = TOPK,
+                    window_panes: int = WINDOW_PANES) -> int:
+    """Hold every emitted window against numpy under the tie rule; returns
+    the windows checked."""
+    return q5_check(q5_expected(n_keys, n_events, span, topk, window_panes),
+                    got)
+
+
+# -- Q7 -------------------------------------------------------------------
+def q7_gen(n_keys: int, n_events: int, span: int):
+    """bench.py's Q7 generator on int64 torch indices: the auction key as
+    in ``q5_gen``, and the packed word (price << 20) | bidder, whose max
+    carries the winning bid's payload."""
+    q5 = q5_gen(n_keys, n_events, span)
+
+    def gen(idx):
+        cols = q5(idx)
+        price = idx % Q7_PRICES + 1
+        bidder = idx % (1 << Q7_BIDDER_BITS)
+        return {"auction": cols["auction"],
+                "packed": (price << Q7_BIDDER_BITS) | bidder,
+                "ts": cols["ts"]}
+
+    return gen
+
+
+def run_q7(torch, dev, n_keys: int, n_events: int, capacity: int,
+           batch: int = BATCH, fire_mode: str = "full"):
+    """One run of bench.py's Q7 (the highest bid of each tumbling window:
+    max(packed, value_bits=34), top 1, with window bounds) through the
+    port's public API; returns (job result, [(window end - 1, auctions,
+    starts, ends, best)], span ms)."""
+    from flink_tpu_torch.api import StreamExecutionEnvironment
+    from flink_tpu_torch.core import Configuration, Schema, WatermarkStrategy
+    from flink_tpu_torch.runtime.operators import AggSpec
+    from flink_tpu_torch.window import TumblingEventTimeWindows
+
+    span = q5_panes(n_events, batch) * Q7_PANE_MS
+    schema = Schema([("auction", np.int64), ("packed", np.int64),
+                     ("ts", np.int64)])
+    got = []
+
+    def sink(b):
+        got.append((int(b.timestamps[0]), b.column("auction"),
+                    b.column("window_start"), b.column("window_end"),
+                    b.column("best")))
+
+    env = StreamExecutionEnvironment(
+        Configuration({"pipeline.micro-batch-size": batch,
+                       "window.fire.incremental":
+                           fire_mode == "incremental"}), device=dev)
+    ws = WatermarkStrategy.for_monotonous_timestamps() \
+        .with_timestamp_column("ts")
+    (env.datagen(q7_gen(n_keys, n_events, span), schema, count=n_events,
+                 timestamp_column="ts", watermark_strategy=ws, device=True)
+        .key_by("auction")
+        .window(TumblingEventTimeWindows.of(Q7_PANE_MS))
+        .device_aggregate([AggSpec("max", "packed", out_name="best",
+                                   value_bits=Q7_VALUE_BITS)],
+                          capacity=capacity, ring_size=RING,
+                          emit_window_bounds=True, emit_topk=1,
+                          defer_overflow=True, async_fire=True)
+        .add_sink(sink))
+    job = env.execute("nexmark-q7")
+    return job, got, span
+
+
+def q7_expected(n_keys: int, n_events: int, span: int) -> list:
+    """[(end pane, auction, window start, window end, packed word)] of
+    every window: the auction of the pane's largest packed word, which is
+    unique (price and bidder together name the event up to 9973 * 2^20
+    events)."""
+    idx = np.arange(n_events, dtype=np.int64)
+    keys = ((idx.astype(np.uint64) * np.uint64(MULT))
+            % np.uint64(n_keys)).astype(np.int64)
+    packed = ((idx % Q7_PRICES + 1) << Q7_BIDDER_BITS) | \
+        (idx % (1 << Q7_BIDDER_BITS))
+    panes = (idx * span) // n_events // Q7_PANE_MS
+    n_p = int(panes[-1]) + 1
+    bounds = np.searchsorted(panes, np.arange(n_p + 1))
+    out = []
+    for p in range(int(panes[0]), n_p):
+        block = packed[bounds[p]:bounds[p + 1]]
+        j = int(np.argmax(block))
+        if int((block == block[j]).sum()) != 1:
+            raise AssertionError(f"Q7 pane {p}: the top packed word is not "
+                                 "unique; the oracle needs it to be")
+        out.append((p + 1, int(keys[bounds[p] + j]), p * Q7_PANE_MS,
+                    (p + 1) * Q7_PANE_MS, int(block[j])))
+    return out
+
+
+def q7_check(expected: list, got) -> int:
+    """Every window: its one row is the expected winner, with its bounds;
+    returns the windows checked."""
+    if any(len(cols[0]) != 1 for _ts, *cols in got):
+        raise AssertionError("Q7: a window emitted other than one row")
+    rows = [(((ts + 1) // Q7_PANE_MS), *(int(c[0]) for c in cols))
+            for ts, *cols in got]
+    if rows != expected:
+        bad = [(g, e) for g, e in zip(rows, expected) if g != e][:3]
+        raise AssertionError(f"Q7: {len(rows)} windows, {len(expected)} "
+                             f"expected; first differences {bad}")
+    return len(got)
+
+
+# -- coalesced ingest ---------------------------------------------------------
+def run_coalesced_q5(torch, dev, n_keys: int, n_events: int, capacity: int,
+                     batch: int = CO_BATCH, target: int = CO_TARGET,
+                     wm_every: int = CO_WM_EVERY, topk: int = TOPK):
+    """Q5 through ``DeviceWindowAggOperator`` driven directly (the local
+    runner emits a watermark after every batch, so nothing would gather):
+    device batches of ``batch`` rows, ``task.coalesce.target-records`` =
+    ``target``, and a watermark (the batch's largest timestamp - 1, as the
+    monotonous strategy gives) every ``wm_every`` batches. Returns
+    (operator, [(window end - 1, auctions, bids, revenue)], span ms)."""
+    from flink_tpu_torch.core import Configuration, Schema
+    from flink_tpu_torch.core.device_records import DeviceRecordBatch
+    from flink_tpu_torch.core.elements import MAX_WATERMARK
+    from flink_tpu_torch.runtime import OneInputOperatorTestHarness
+    from flink_tpu_torch.runtime.operators import AggSpec, \
+        DeviceWindowAggOperator
+    from flink_tpu_torch.window import SlidingEventTimeWindows
+
+    span = q5_panes(n_events) * PANE_MS
+    gen = q5_gen(n_keys, n_events, span)
+    schema = Schema([("auction", np.int64), ("price", np.int64),
+                     ("ts", np.int64)])
+    op = DeviceWindowAggOperator(
+        SlidingEventTimeWindows.of(WINDOW_PANES * PANE_MS, PANE_MS),
+        "auction", [AggSpec("count", out_name="bids", value_bits=31),
+                    AggSpec("sum", "price", out_name="revenue")],
+        capacity=capacity, ring_size=RING, emit_window_bounds=False,
+        emit_topk=topk, defer_overflow=True, async_fire=True, device=dev)
+    h = OneInputOperatorTestHarness(
+        op, schema, Configuration({"task.coalesce.target-records": target}))
+    for i in range(n_events // batch):
+        idx = torch.arange(i * batch, (i + 1) * batch, dtype=torch.int64,
+                           device=dev)
+        cols = gen(idx)
+        ts_max = ((i + 1) * batch - 1) * span // n_events
+        h.process_batch(DeviceRecordBatch(
+            schema, cols, cols["ts"], i * batch * span // n_events, ts_max,
+            ts_column="ts"))
+        if (i + 1) % wm_every == 0:
+            h.process_watermark(ts_max - 1)
+    h.process_watermark(MAX_WATERMARK.timestamp)
+    h.close()
+    got = [(int(b.timestamps[0]), b.column("auction"), b.column("bids"),
+            b.column("revenue")) for b in h.output.batches]
+    return op, got, span
 
 
 def implicit_syncs(torch, fn) -> list[str]:
@@ -641,97 +1066,240 @@ def check_sync_detector(torch, dev) -> None:
                              "waits; the per-batch sync check is blind")
 
 
-def q5_profile(torch, dev, n_keys: int, n_events: int,
-               capacity: int) -> dict:
-    """One more Q5 run under torch.profiler: the card's busy time by
-    kernel (CUPTI records every kernel in the process, the ones this
-    package launches through ctypes too) against the run's wall time, and
-    the profiler's count of each hand kernel against its launch counter."""
+#: hand kernel -> the symbol the profiler records it under
+KERNEL_SYMBOLS = (("ingest_step", "ingest_step_kernel"),
+                  ("hist256", "radix_pass_kernel"),
+                  ("window_seal", "window_kernel<true>"),
+                  ("window_rebuild", "window_kernel<false>"))
+
+
+def run_profile(torch, run) -> dict:
+    """One more run under torch.profiler: the card's busy time by kernel
+    (CUPTI records every kernel in the process, the ones this package
+    launches through ctypes too) against the run's wall time, and the
+    profiler's count of each hand kernel, which must equal its launch
+    counter (a profile that lost a kernel would understate busy time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
 
-    reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        job, _got, _span = run_q5(torch, dev, n_keys, n_events, capacity)
-    launches = dict(KERNEL_LAUNCHES)
-    by_name: dict[str, list] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            acc = by_name.setdefault(e.name[:90], [0.0, 0])
-            acc[0] += e.self_device_time_total / 1e3
-            acc[1] += 1
-    counted = {kernel: sum(n for name, (_ms, n) in by_name.items()
-                           if symbol in name)
-               for kernel, symbol in (("ingest_step", "ingest_step_kernel"),
-                                      ("hist256", "radix_pass_kernel"))}
-    for kernel, n in counted.items():
-        if n != launches[kernel]:
-            raise AssertionError(f"profiler counted {n} {kernel} launches, "
-                                 f"the counter {launches[kernel]}")
+    for tries in range(1, PROFILE_TRIES + 1):
+        reset_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            job, _got, _span = run()
+        by_name: dict[str, list] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                acc = by_name.setdefault(e.name[:90], [0.0, 0])
+                acc[0] += e.self_device_time_total / 1e3
+                acc[1] += 1
+        counted = {kernel: sum(n for name, (_ms, n) in by_name.items()
+                               if symbol in name)
+                   for kernel, symbol in KERNEL_SYMBOLS}
+        if all(n == KERNEL_LAUNCHES[k] for k, n in counted.items()):
+            break
+    else:
+        raise AssertionError(f"profiler counted {counted} launches in each "
+                             f"of {PROFILE_TRIES} profiles, the counters "
+                             f"{dict(KERNEL_LAUNCHES)}")
     busy = sum(ms for ms, _n in by_name.values())
     wall = job.wall_s * 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     return {"wall_ms": wall, "device_busy_ms": busy,
             "idle_share": (1 - busy / wall) if busy else None,
             "kernel_launches": sum(n for _ms, n in by_name.values()),
-            "profiler_counts": counted,
+            "profiler_counts": counted, "profiles_taken": tries,
             "top": [{"name": k, "ms": ms, "calls": n}
                     for k, (ms, n) in top]}
 
 
-def q5_phase(torch, dev, label: str, n_keys: int, n_events: int,
-             capacity: int) -> dict:
-    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+def fire_device_ms(torch, run) -> dict:
+    """Runs ``run()`` with every window fire timed on the card alone: the
+    card is drained and put to sleep for about 20 ms, the fire is enqueued
+    between two CUDA events (seal or merge, emit mask, select, gathers,
+    the copy home, the retirement of the oldest pane) while the card
+    sleeps, so the events time the fire's device work back to back,
+    without the host's launch gaps. A fire whose start event the card
+    reached before the host had enqueued the fire would include such
+    gaps: the run fails if one does."""
+    from flink_tpu_torch.runtime.operators.device_window import \
+        DeviceWindowAggOperator as Op
 
-    # warm-up of 4 batches and 8 fires, which also shows that no batch and
-    # no fire makes the host wait for the card: the only waits are the
-    # once-per-job reads at end of input (the source's monotonicity flag,
-    # the late counter)
-    syncs = implicit_syncs(torch, lambda: run_q5(torch, dev, n_keys,
-                                                 4 * BATCH, capacity))
+    fire = Op._fire
+    per_fire, host_ms, overtaken = [], [], []
+
+    def timed(self, p_end):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(FIRE_SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        fire(self, p_end)
+        end.record()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        overtaken.append(start.query())
+        end.synchronize()
+        per_fire.append(start.elapsed_time(end))
+
+    Op._fire = timed
+    try:
+        run()
+    finally:
+        Op._fire = fire
+    if any(overtaken):
+        raise AssertionError(f"{sum(overtaken)} fires were reached by the "
+                             "card before the host had enqueued them")
+    return {"fires": len(per_fire),
+            "median_ms": float(np.median(per_fire)),
+            "mean_ms": float(np.mean(per_fire)),
+            "first_ms": per_fire[0], "max_ms": max(per_fire),
+            "host_enqueue_median_ms": float(np.median(host_ms))}
+
+
+def check_no_repeated_waits(torch, label: str, run) -> list[str]:
+    """A warm-up run under the sync debug mode: no batch and no fire may
+    make the host wait for the card; the only waits are the once-per-job
+    reads at end of input (the source's monotonicity flag, the late
+    counter). Returns where the host waited."""
+    syncs = implicit_syncs(torch, run)
     repeated = sorted({s for s in syncs if syncs.count(s) > 1})
     if repeated:
-        raise AssertionError(f"Q5 {label}: the host waited for the card "
-                             f"more than once per job at {repeated}")
-    # the run is host-bound and short, so its wall time is noisy: time
-    # several runs, check every one against the oracle
-    walls, lat, peaks, launches = [], [], [], None
-    for _ in range(Q5_RUNS):
-        job = got = None   # the last run's state goes back to the allocator
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        job, got, span = run_q5(torch, dev, n_keys, n_events, capacity)
-        peaks.append(torch.cuda.max_memory_allocated())
-        launches = dict(KERNEL_LAUNCHES)
-        windows = q5_oracle_check(n_keys, n_events, span, got)
-        # this path's kernels: one step per batch, 4 passes per fire
-        want = {"ingest_step": n_events // BATCH, "hist256": 4 * windows}
-        if any(launches[k] != v for k, v in want.items()):
-            raise AssertionError(f"Q5 {label}: launches {launches}, "
-                                 f"expected {want} on the main path")
-        walls.append(job.wall_s)
-        lat += job.operators[0].fire_latencies_ms
-    lat.sort()
-    eps = sorted(n_events / w for w in walls)
+        raise AssertionError(f"{label}: the host waited for the card more "
+                             f"than once per job at {repeated}")
+    return sorted(syncs)
+
+
+def timed_run(torch, label: str, run, check, passes: int, fire_mode: str,
+              n_events: int) -> dict:
+    """One timed run, held to the oracle (``check(got)`` returns the
+    windows) and to the path's launches: one ingest step per batch,
+    ``passes`` select passes per fire, and in incremental mode one seal or
+    rebuild per fire. Counters are zeroed just before the run."""
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    job, got, _span = run()
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(KERNEL_LAUNCHES)
+    windows = check(got)
+    seen = {"ingest_step": launches["ingest_step"],
+            "hist256": launches["hist256"],
+            "window_kernels": launches["window_seal"]
+            + launches["window_rebuild"]}
+    want = {"ingest_step": n_events // BATCH, "hist256": passes * windows,
+            "window_kernels": windows if fire_mode == "incremental" else 0}
+    if seen != want:
+        raise AssertionError(f"{label} {fire_mode}: launches {launches}, "
+                             f"expected {want} on the main path")
     op = job.operators[0]
-    return {"q5": label, "keys": n_keys, "events": n_events,
-            "capacity": capacity, "batch": BATCH, "runs": Q5_RUNS,
-            "wall_s": walls,
+    return {"wall_s": job.wall_s, "lat": list(op.fire_latencies_ms),
+            "peak": peak, "launches": launches, "windows": windows,
+            "rebuilds": dict(op.inc_rebuilds),
+            "late_dropped": op.late_dropped,
+            "state_bytes": op.backend.state_nbytes}
+
+
+def summary(runs: list, n_events: int) -> dict:
+    lat = sorted(x for r in runs for x in r["lat"])
+    eps = sorted(n_events / r["wall_s"] for r in runs)
+    last = runs[-1]
+    return {"runs": len(runs), "wall_s": [r["wall_s"] for r in runs],
             "events_per_sec": float(np.median(eps)),
             "events_per_sec_min_max": [eps[0], eps[-1]],
             "p99_fire_latency_ms": lat[min(len(lat) - 1,
                                            int(0.99 * len(lat)))],
-            "fires": len(lat), "windows_checked_per_run": windows,
-            "late_dropped": op.late_dropped,
-            "host_waits_per_job": sorted(syncs),
-            "state_bytes": op.backend.state_nbytes,
-            "max_memory_allocated": max(peaks),
-            "launches_per_run": launches,
-            "profile": q5_profile(torch, dev, n_keys, n_events, capacity)}
+            "fires": len(lat), "windows_checked_per_run": last["windows"],
+            "rebuilds_by_cause": last["rebuilds"],
+            "late_dropped": last["late_dropped"],
+            "state_bytes": last["state_bytes"],
+            "max_memory_allocated": max(r["peak"] for r in runs),
+            "launches_per_run": last["launches"]}
+
+
+def cell_phase(torch, label: str, modes: tuple, runs: int, run, check,
+               passes: int, n_events: int, meta: dict) -> dict:
+    """A cell's timed runs: a warm-up of 4 batches per mode under the sync
+    check, then ``runs`` timed runs of each mode in turns (full,
+    incremental, full, ...), so both modes meet the same state of the
+    process and the card. ``run(mode, events)`` runs the pipeline."""
+    waits = {m: check_no_repeated_waits(
+        torch, f"{label} {m}", lambda m=m: run(m, 4 * BATCH))
+        for m in modes}
+    done = {m: [] for m in modes}
+    for _ in range(runs):
+        for m in modes:
+            done[m].append(timed_run(torch, label, lambda m=m: run(m, None),
+                                     check, passes, m, n_events))
+    return {m: {"cell": label, "fire_mode": m, **meta,
+                "host_waits_per_job": waits[m],
+                **summary(done[m], n_events)} for m in modes}
+
+
+def q5_cell(torch, dev, label: str, n_keys: int, n_events: int,
+            capacity: int, modes=("full",), window_panes: int = WINDOW_PANES,
+            runs: int = Q5_RUNS) -> tuple[dict, object]:
+    """A Q5 cell's timed runs in each of ``modes``; returns (results by
+    mode, run(mode, events) for the profiles)."""
+    def run(mode, events):
+        return run_q5(torch, dev, n_keys, events or n_events, capacity,
+                      fire_mode=mode, window_panes=window_panes)
+
+    span = q5_panes(n_events, BATCH, window_panes) * PANE_MS
+    expected = q5_expected(n_keys, n_events, span, TOPK, window_panes)
+    meta = {"q5": label, "window_panes": window_panes,
+            "ring": ring_for(window_panes), "keys": n_keys,
+            "events": n_events, "capacity": capacity, "batch": BATCH}
+    return cell_phase(torch, f"Q5 {label}", modes, runs, run,
+                      lambda got: q5_check(expected, got), 4, n_events,
+                      meta), run
+
+
+def q7_cell(torch, dev, n_keys: int, n_events: int,
+            capacity: int) -> tuple[dict, object]:
+    """The Q7 cell's timed runs in both modes; value_bits 34 makes 5
+    digit passes of the select per fire."""
+    def run(mode, events):
+        return run_q7(torch, dev, n_keys, events or n_events, capacity,
+                      fire_mode=mode)
+
+    expected = q7_expected(n_keys, n_events,
+                           q5_panes(n_events, BATCH) * Q7_PANE_MS)
+    meta = {"q7": f"{n_keys // 1_000_000}M", "keys": n_keys,
+            "events": n_events, "capacity": capacity, "batch": BATCH,
+            "pane_ms": Q7_PANE_MS}
+    return cell_phase(torch, "Q7 10M", ("full", "incremental"), WIDE_RUNS,
+                      run, lambda got: q7_check(expected, got), 5,
+                      n_events, meta), run
+
+
+def coalesce_phase(torch, dev) -> dict:
+    """Coalesced ingest at the operator level, Q5-1M: batches of 2^16
+    rows gather to 2^19 records, so one ingest step runs per 8 batches."""
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+    from flink_tpu_torch.metrics import DEVICE_STATS
+
+    _label, n_keys, n_events, cap = Q5_CELLS[0]
+    before = DEVICE_STATS.snapshot()["batches_coalesced_total"]
+    reset_launches()
+    op, got, span = run_coalesced_q5(torch, dev, n_keys, n_events, cap)
+    launches = dict(KERNEL_LAUNCHES)
+    windows = q5_oracle_check(n_keys, n_events, span, got)
+    n_batches = n_events // CO_BATCH
+    merged = DEVICE_STATS.snapshot()["batches_coalesced_total"] - before
+    steps = n_batches * CO_BATCH // CO_TARGET
+    if launches["ingest_step"] != steps or merged != n_batches:
+        raise AssertionError(f"coalesced Q5: {launches['ingest_step']} "
+                             f"ingest steps for {n_batches} batches "
+                             f"({merged} coalesced), expected {steps}")
+    return {"coalesce": "Q5-1M", "batch": CO_BATCH, "target": CO_TARGET,
+            "watermark_every": CO_WM_EVERY, "batches": n_batches,
+            "batches_coalesced": merged, "windows_checked": windows,
+            "launches": launches}
 
 
 def q5_host_batch_phase(torch, dev) -> dict:
@@ -777,6 +1345,7 @@ def main(argv: list[str]) -> int:
         print(f"chip_smoke: cannot import flink_tpu_torch from {pkg_dir} "
               f"({e})", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     smi = nvidia_smi_line()
     dev = torch.device("cuda", 0)
     emit({"device": {"nvidia_smi": smi, "name": torch.cuda.get_device_name(0),
@@ -795,29 +1364,79 @@ def main(argv: list[str]) -> int:
     probe = check_hash_probe(torch, dev, flush)
     step = check_ingest(torch, dev, flush)
     shape = check_launch_shape(torch, dev)
+    window = check_window_seal(torch, dev, flush)
     emit({"kernel_checks": {"hist256": hist, "select_pass": select,
                             "hash_probe": probe, "ingest_step": step,
-                            "launch_shape": shape}})
+                            "launch_shape": shape, "window_seal": window}})
+    del flush
     check_sync_detector(torch, dev)
-    q5 = {}
-    for label, n_keys, n_events, cap in Q5_CELLS:
-        q5[label] = q5_phase(torch, dev, label, n_keys, n_events, cap)
-        emit(q5[label])
+    # every cell's timed runs first, both fire modes in turns; then the
+    # profiled runs, so no profiler session precedes a timed run
+    modes = ("full", "incremental")
+    (l1, k1, e1, c1), (l10, k10, e10, c10) = Q5_CELLS
+    q5_1m, run_1m = q5_cell(torch, dev, l1, k1, e1, c1)
+    emit(q5_1m["full"])
+    q5_10m, run_10m = q5_cell(torch, dev, l10, k10, e10, c10, modes)
+    wide, run_wide = q5_cell(torch, dev, f"{l10}-W{WIDE_PANES}", k10, e10,
+                             c10, modes, WIDE_PANES, WIDE_RUNS)
+    q7, run_7 = q7_cell(torch, dev, k10, e10, c10)
+    for cell in (q5_10m, wide, q7):
+        for m in modes:
+            emit(cell[m])
+    cells = (("Q5-10M", run_10m), ("Q5-10M-W20", run_wide),
+             ("Q7-10M", run_7))
+    emit({"run_profiles": {
+        "Q5-1M full": run_profile(torch, lambda: run_1m("full", None)),
+        **{f"{cell} {m}": run_profile(torch, lambda r=r, m=m: r(m, None))
+           for cell, r in cells for m in modes}}})
+    emit({"fire_device_ms": {
+        f"{cell} {m}": fire_device_ms(torch, lambda r=r, m=m: r(m, None))
+        for cell, r in cells for m in modes}})
+    emit(coalesce_phase(torch, dev))
     host = q5_host_batch_phase(torch, dev)
     emit(host)
-    main_run = q5["1M"]["launches_per_run"]
+    emit({"smoke_seconds_before_kernels_line": time.perf_counter() - t_start})
+    main_run = q5_1m["full"]["launches_per_run"]
+    inc_run = q5_10m["incremental"]["launches_per_run"]
     small, large = 1 << 21, 1 << 24
+    # each window kernel leads with the shape of Q5-10M incremental, the
+    # path whose launches it reports
+    seal_q5 = window["shapes"]["q5_cap_2^24"]
+
+    def window_entry(kernel: str, replaces: str) -> dict:
+        return {"name": f"window_{kernel}", "route": "cuda",
+                "source": "flink_tpu_torch/csrc/window_seal.cu",
+                "replaces": replaces,
+                "launches": inc_run[f"window_{kernel}"],
+                "max_abs_err": window["max_abs_err"],
+                "ms": seal_q5[f"{kernel}_ms"],
+                "plain_ms": seal_q5[f"{kernel}_plain_ms"],
+                "bound_ms": seal_q5[f"{kernel}_bound_ms"],
+                "bound_by": "bytes", "library_ms": None,
+                "launches_by_path": {
+                    f"{cell} incremental": c["incremental"][
+                        "launches_per_run"][f"window_{kernel}"]
+                    for cell, c in (("Q5-10M-W20", wide), ("Q7-10M", q7))},
+                "shapes": {k: {f: v[f"{kernel}_{f}"] for f in
+                               ("ms", "plain_ms", "bound_ms",
+                                "share_of_bound")}
+                           for k, v in window["shapes"].items()}}
+
     emit({"kernels": [
         {"name": "hist256", "route": "cuda",
          "source": "flink_tpu_torch/csrc/hist256.cu",
          "replaces": "flink_tpu/ops/pallas_topk.py:40",
          "launches": main_run["hist256"],
          "max_abs_err": max(hist["max_abs_err"], select["max_abs_err"]),
-         **select["shapes"][small],
-         "select_pass_at_n_2^24": select["shapes"][large],
+         **select["shapes"]["q5_int64_n_2^21"],
+         "select_passes": {k: v for k, v in select["shapes"].items()
+                           if k != "q5_int64_n_2^21"},
          "standalone_at_n_2^21": hist["shapes"][small],
          "standalone_at_n_2^24": hist["shapes"][large],
-         "launches_q5_10M": q5["10M"]["launches_per_run"]["hist256"]},
+         "launches_by_path": {
+             f"{cell} {m}": c[m]["launches_per_run"]["hist256"]
+             for cell, c in (("Q5-10M", q5_10m), ("Q5-10M-W20", wide),
+                             ("Q7-10M", q7)) for m in modes}},
         {"name": "hash_probe", "route": "cuda",
          "source": "flink_tpu_torch/csrc/hash_table.cu",
          "replaces": "flink_tpu/ops/hash_table.py:133",
@@ -830,7 +1449,12 @@ def main(argv: list[str]) -> int:
          "launches": main_run["ingest_step"],
          "max_abs_err": step["max_abs_err"], **step["shapes"][small],
          "at_capacity_2^24": step["shapes"][large],
-         "launches_q5_10M": q5["10M"]["launches_per_run"]["ingest_step"]},
+         "launches_q5_10M": q5_10m["full"]["launches_per_run"][
+             "ingest_step"]},
+        window_entry("seal",
+                     "flink_tpu/runtime/operators/device_window.py:295"),
+        window_entry("rebuild",
+                     "flink_tpu/runtime/operators/device_window.py:352"),
     ]})
     print(smi, flush=True)
     if torch.cuda.device_count() != 1:

@@ -19,7 +19,8 @@ __all__ = ["resolve_device", "KERNEL_LAUNCHES", "note_launch",
 
 #: kernel name -> launches since the last reset
 KERNEL_LAUNCHES: dict[str, int] = {"hist256": 0, "hash_probe": 0,
-                                   "ingest_step": 0}
+                                   "ingest_step": 0, "window_seal": 0,
+                                   "window_rebuild": 0}
 
 
 def resolve_device(device=None) -> torch.device:

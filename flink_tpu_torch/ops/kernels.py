@@ -52,9 +52,18 @@ SOURCES = {
                                _I64, _I64, _P, _P, _I32, _PP, _PI32, _PI32,
                                _PI32, _I32, _PP, _PI32, _P],
     },
+    "window_seal": {
+        "window_seal_launch": [_I64, _I64, _I32, _PP, _PP, _PP, _PI32, _PI32,
+                               _PI32, _I32, _I32, _I32, _I32, _I32, _I32,
+                               _P],
+        "window_rebuild_launch": [_I64, _I64, _I32, _PP, _PP, _PP, _PI32,
+                                  _PI32, _PI32, _I32, _I32, _P, _I32, _I32,
+                                  _P],
+    },
 }
 _ERROR_STRING = {"hist256": "hist256_error_string",
-                 "hash_table": "hash_probe_error_string"}
+                 "hash_table": "hash_probe_error_string",
+                 "window_seal": "window_seal_error_string"}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 

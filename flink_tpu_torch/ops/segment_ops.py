@@ -14,7 +14,9 @@ from __future__ import annotations
 import torch
 
 __all__ = ["AGG_INITS", "AGG_FOLDS", "AGG_MERGES", "AGG_COMBINE2",
-           "identity", "make_accumulator", "scatter_fold", "pow2_ceil"]
+           "AGG_INVERT", "INVERTIBLE_KINDS", "identity", "make_accumulator",
+           "scatter_fold", "pow2_ceil", "merge_tree_build",
+           "merge_tree_update", "merge_tree_root"]
 
 
 def _max_of(dtype: torch.dtype):
@@ -62,9 +64,18 @@ AGG_MERGES = {
     "max": lambda x: x.amax(0),
 }
 
-#: kind -> elementwise pairwise combine a (+) b
+#: kind -> elementwise pairwise combine a (+) b: the binary form of the
+#: pane merge, used by the incremental fire engine (running window
+#: accumulators and merge-tree levels)
 AGG_COMBINE2 = {"sum": torch.add, "count": torch.add,
                 "min": torch.minimum, "max": torch.maximum}
+
+#: kind -> inverse combine a (-) b, for invertible aggregates only
+AGG_INVERT = {"sum": torch.sub, "count": torch.sub}
+
+#: kinds whose combine has an inverse: a running window accumulator can
+#: retire a pane by subtraction. min/max use a merge tree instead.
+INVERTIBLE_KINDS = frozenset(AGG_INVERT)
 
 
 def identity(kind: str, dtype: torch.dtype):
@@ -86,6 +97,44 @@ def scatter_fold(kind: str, acc: torch.Tensor, flat_idx: torch.Tensor,
     idx = torch.where(valid, flat_idx.to(torch.int64), 0)
     vals = torch.where(valid, values.to(acc.dtype), ident)
     return AGG_FOLDS[kind](acc, idx, vals)
+
+
+def merge_tree_build(kind: str, leaves: torch.Tensor) -> torch.Tensor:
+    """Heap-ordered merge tree [2L, capacity] over ``leaves`` [L, capacity]
+    (L a power of two): node 0 is the identity, node 1 the root, the
+    children of node i are 2i and 2i + 1, and the leaves are rows [L, 2L).
+    A window fire reads the root; a pane seal rewrites one leaf and its
+    log2(L) ancestors."""
+    combine = AGG_COMBINE2[kind]
+    levels = [leaves]
+    cur = leaves
+    while cur.shape[0] > 1:
+        cur = combine(cur[0::2], cur[1::2])
+        levels.append(cur)
+    ident = torch.full((1,) + tuple(leaves.shape[1:]),
+                       identity(kind, leaves.dtype), dtype=leaves.dtype,
+                       device=leaves.device)
+    return torch.cat([ident] + list(reversed(levels)), 0)
+
+
+def merge_tree_update(kind: str, tree: torch.Tensor, leaf_pos: int,
+                      value: torch.Tensor) -> torch.Tensor:
+    """Set leaf ``leaf_pos`` (in [0, L)) of a heap tree [2L, capacity] to
+    ``value`` [capacity] and recompute its ancestor path, IN PLACE.
+    Returns ``tree``."""
+    L = tree.shape[0] // 2
+    combine = AGG_COMBINE2[kind]
+    idx = int(leaf_pos) + L
+    tree[idx] = value
+    while idx > 1:
+        idx //= 2
+        tree[idx] = combine(tree[2 * idx], tree[2 * idx + 1])
+    return tree
+
+
+def merge_tree_root(tree: torch.Tensor) -> torch.Tensor:
+    """The full-tree merge: root of a heap-ordered merge tree."""
+    return tree[1]
 
 
 def pow2_ceil(n: int) -> int:

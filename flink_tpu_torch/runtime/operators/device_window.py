@@ -10,11 +10,21 @@
   only host inputs are the batch's host-int event-time bounds.
 * A window ending at pane boundary ``p_end`` fires when the watermark
   passes ``p_end * pane - 1``. The fire (``_fire_outputs``, the
-  reference's ``_fire_program``) merges the window's pane rows for every
-  aggregate, builds the emit mask, optionally ranks the top k on the
-  device (radix select on the hand-written histogram kernel) and carries
-  the health scalars; its outputs copy to the host asynchronously and are
-  emitted when they land. The oldest pane's ring row is then retired.
+  reference's ``_fire_program`` and ``_fire_inc_program``) takes the
+  window's merge of every aggregate, builds the emit mask, optionally
+  ranks the top k on the device (radix select on the hand-written
+  histogram kernel) and carries the health scalars; its outputs copy to
+  the host asynchronously and are emitted when they land. The oldest
+  pane's ring row is then retired.
+* The merge: a full fire reads the window's W pane rows of every plane.
+  With ``window.fire.incremental`` the fire reads a [capacity] view
+  instead: a running window accumulator per invertible aggregate and a
+  merge tree per min/max, sealed once per fire by one launch of the
+  hand-written ``window_seal`` kernel, and rebuilt from the pane rows by
+  ``window_rebuild`` when stale (first fire, restore, a jump of the fire
+  boundary, a write into a sealed pane). Its cost does not grow with W.
+* ``task.coalesce.target-records`` gathers consecutive batches on the host
+  and runs one ingest step for them (``CoalescingIngest``).
 * In-flight window: after each step a CUDA event is recorded; the host
   waits on the event of the step ``max_inflight`` batches back before it
   admits more work, so the device stays fed while the backlog (and the
@@ -22,8 +32,8 @@
 
 Late records (pane already fired) are dropped and counted. Host batches
 (the test harness, host sources) take the host late filter and upload
-their columns; the incremental fire engine, coalesced ingest, the spill
-tier and the fused chain are later slices.
+their columns. The spill tier, the fused chain, the device guard and the
+degrade ladder are later slices.
 """
 
 from __future__ import annotations
@@ -38,13 +48,17 @@ import torch
 from ...core.device_records import DeviceRecordBatch
 from ...core.records import MIN_TIMESTAMP, RecordBatch, Schema
 from ...device import resolve_device, torch_dtype
+from ...metrics.device import DEVICE_STATS
 from ...ops.hash_table import EMPTY_KEY
-from ...ops.segment_ops import AGG_COMBINE2, AGG_MERGES
+from ...ops.segment_ops import AGG_COMBINE2, AGG_MERGES, INVERTIBLE_KINDS, \
+    pow2_ceil
 from ...ops.topk import masked_topk
+from ...ops.window_seal import rebuild, seal
 from ...state.device_backend import DeviceKeyedStateBackend
 from ...window.assigners import WindowAssigner
 from .base import OneInputOperator, OperatorContext, Output
-from .slice_control import AsyncFireQueue, SliceControlPlane
+from .slice_control import AsyncFireQueue, CoalescingIngest, \
+    SliceControlPlane
 
 __all__ = ["DeviceWindowAggOperator", "AggSpec"]
 
@@ -95,8 +109,17 @@ def _merge(kind: str, arr: torch.Tensor, rows: list[int],
     return out
 
 
-class DeviceWindowAggOperator(AsyncFireQueue, SliceControlPlane,
-                              OneInputOperator):
+def _window_dtype(kind: str, pane_dtype: torch.dtype) -> torch.dtype:
+    """dtype of an incremental window plane: an integer sum widens to
+    int64 as the full merge's sum does; a count keeps its pane dtype (an
+    int32 count plane promises that every window count fits int32)."""
+    if kind == "sum" and not pane_dtype.is_floating_point:
+        return torch.int64
+    return pane_dtype
+
+
+class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
+                              SliceControlPlane, OneInputOperator):
     def __init__(self, assigner: WindowAssigner, key_column: str,
                  aggs: Sequence[AggSpec],
                  capacity: int = 1 << 16,
@@ -105,6 +128,7 @@ class DeviceWindowAggOperator(AsyncFireQueue, SliceControlPlane,
                  emit_topk: Optional[int] = None,
                  defer_overflow: bool = False,
                  async_fire: bool = False,
+                 fire_incremental: Optional[bool] = None,
                  device=None,
                  name: str = "DeviceWindowAgg"):
         """``emit_topk``: emit only the k keys with the largest value of the
@@ -112,8 +136,9 @@ class DeviceWindowAggOperator(AsyncFireQueue, SliceControlPlane,
         ``defer_overflow``: the hot path never syncs with the host; failed
         inserts count on the device and fail loudly at the next fire.
         ``async_fire``: fires emit once their device->host copy lands,
-        with watermarks held behind them. ``device``: ``cuda`` unless
-        ``"cpu"`` is asked for."""
+        with watermarks held behind them. ``fire_incremental``: the
+        incremental fire engine; None reads ``window.fire.incremental``.
+        ``device``: ``cuda`` unless ``"cpu"`` is asked for."""
         super().__init__(name)
         pane = assigner.pane_size
         if pane is None:
@@ -145,11 +170,28 @@ class DeviceWindowAggOperator(AsyncFireQueue, SliceControlPlane,
         self._late_dev: Optional[torch.Tensor] = None
         self._late_cached = 0
         self._registered = False
+        # incremental fire engine: _inc_next is the fire boundary the sealed
+        # state is consistent for; _inc_stale names why the next fire must
+        # rebuild it from the pane planes (None: the next fire seals)
+        self._inc_flag = fire_incremental
+        self._inc_enabled = bool(fire_incremental)
+        self._inc_next: Optional[int] = None
+        self._inc_stale: Optional[str] = "first fire"
+        self._tree_size = pow2_ceil(self._ring)   # merge-tree leaves L
+        #: rebuilds by cause, for the run's record
+        self.inc_rebuilds: dict[str, int] = {}
+        self._init_coalescer()
 
     # -- lifecycle ---------------------------------------------------------
     def setup(self, ctx: OperatorContext, output: Output) -> None:
         super().setup(ctx, output)
         self._max_inflight = max(1, int(ctx.config.get("task.max-inflight")))
+        if self._inc_flag is None:
+            self._inc_enabled = bool(ctx.config.get("window.fire.incremental"))
+        self._coalesce_target = int(
+            ctx.config.get("task.coalesce.target-records"))
+        self._coalesce_timeout_s = float(
+            ctx.config.get("task.coalesce.timeout-ms")) / 1e3
         self._backend = DeviceKeyedStateBackend(
             ctx.key_group_range, ctx.max_parallelism,
             capacity=self._capacity, device=self._device,
@@ -188,9 +230,21 @@ class DeviceWindowAggOperator(AsyncFireQueue, SliceControlPlane,
             live = (range(first, self._max_seen_pane + 1)
                     if first is not None else range(0))
             self._backend.conform_ring(self._ring, live)
+            # snapshots never carry the derived incremental state: the
+            # first fire after a restore rebuilds it
+            self._inc_stale = "restore"
+            self._inc_next = None
 
     # -- data path ---------------------------------------------------------
     def process_batch(self, batch: RecordBatch) -> None:
+        if batch.n == 0:
+            return
+        if self._coalesce_target > 1:
+            self._coalesce_admit(batch)
+        else:
+            self._process_batch_now(batch)
+
+    def _process_batch_now(self, batch: RecordBatch) -> None:
         if self._pending:
             self._drain(block=False)
         if batch.n == 0:
@@ -257,6 +311,7 @@ class DeviceWindowAggOperator(AsyncFireQueue, SliceControlPlane,
                                else max(self._max_seen_pane, pane_hi))
         self._min_seen_pane = (eff_lo if self._min_seen_pane is None
                                else min(self._min_seen_pane, eff_lo))
+        self._note_open_ingest(eff_lo)
         self._check_ring(pane_hi)
         if self._late_dev is None:
             self._late_dev = torch.zeros((), dtype=torch.int64,
@@ -274,6 +329,17 @@ class DeviceWindowAggOperator(AsyncFireQueue, SliceControlPlane,
         self._backend.ingest_deferred(
             batch.dtimestamps, batch.device_column(self._key_column), folds,
             self._pane, self._offset, first_open, self._late_dev)
+
+    def _note_open_ingest(self, min_pane: int) -> None:
+        """A write into a pane the incremental engine already sealed
+        (pane < _inc_next - 1: late-but-open rows, or a lower first pane)
+        makes the running window state stale: the next fire rebuilds it."""
+        if self._inc_next is not None and min_pane < self._inc_next - 1:
+            self._inc_stale = "write into a sealed pane"
+
+    def _pre_fire_flush(self) -> None:
+        """Coalesced batches fold before any fire."""
+        self._coalesce_flush()
 
     def _admit_token(self) -> None:
         """Bounded in-flight window: wait for the step ``max_inflight``
@@ -296,19 +362,107 @@ class DeviceWindowAggOperator(AsyncFireQueue, SliceControlPlane,
         first = max(p_end - W, self._min_seen_pane)
         if first >= p_end:
             return
-        rows = [p % self._ring for p in range(first, p_end)]
-        outs = self._fire_outputs(rows)
+        if self._inc_enabled:
+            view = self._seal_window(p_end, first)
+
+            def merged(_kind, name, idx=None):
+                return view[name] if idx is None else view[name][idx]
+        else:
+            rows = [p % self._ring for p in range(first, p_end)]
+            DEVICE_STATS.note_fire_merge_rows(len(rows))
+            backend = self._backend
+
+            def merged(kind, name, idx=None):
+                return _merge(kind, backend.get_array(name), rows, idx)
+        outs = self._fire_outputs(merged)
         self._enqueue_fire((p_end, outs, time.perf_counter()))
         # retire the oldest pane of this window: no later window needs it
         if p_end - W >= self._min_seen_pane:
             self._backend.reset_ring_row((p_end - W) % self._ring)
 
-    def _fire_outputs(self, rows: list[int]) -> tuple:
-        """The whole fire on the device: merge + emit mask + optional
-        top-k + health scalars (dropped inserts, occupancy, late rows)."""
+    # -- incremental fire engine -------------------------------------------
+    def _inc_sigs(self) -> tuple[tuple, tuple]:
+        """(invertible, merge-tree) signatures over the pane planes: the
+        count plane is always invertible; min/max planes take a tree."""
+        inv, tree = [("count", "__count__")], []
+        for a in self._aggs:
+            if a.kind == "count":
+                continue
+            if a.kind == "avg":
+                inv.append(("sum", f"{a.out_name}.sum"))
+            elif a.kind in INVERTIBLE_KINDS:
+                inv.append((a.kind, a.out_name))
+            else:
+                tree.append((a.kind, a.out_name))
+        return tuple(inv), tuple(tree)
+
+    def _ensure_inc_planes(self, inv_sig: tuple, tree_sig: tuple) -> None:
+        """Register the derived window-role planes on the current backend
+        (lazily: a restore rebuilds the backend without them)."""
+        backend = self._backend
+        for kind, name in inv_sig:
+            if not backend.has_array(f"{name}.__win__"):
+                backend.register_array_state(
+                    f"{name}.__win__", kind,
+                    _window_dtype(kind, backend.get_array(name).dtype),
+                    role="window")
+                self._inc_stale = self._inc_stale or "new window planes"
+        for kind, name in tree_sig:
+            if not backend.has_array(f"{name}.__tree__"):
+                backend.register_array_state(
+                    f"{name}.__tree__", kind, backend.get_array(name).dtype,
+                    ring=2 * self._tree_size, role="window")
+                self._inc_stale = self._inc_stale or "new window planes"
+
+    def _seal_window(self, p_end: int, first: int) -> dict:
+        """Bring the running window state to this fire, one launch on the
+        card: seal the newest pane, or rebuild from the window's pane rows
+        when the state is stale. Returns {plane name: [capacity] view}."""
+        W, ring, L = self._window_panes, self._ring, self._tree_size
+        inv_sig, tree_sig = self._inc_sigs()
+        self._ensure_inc_planes(inv_sig, tree_sig)
+        backend = self._backend
+        planes, view = [], {}
+        for kind, name in inv_sig + tree_sig:
+            state = backend.get_array(
+                f"{name}.__win__" if kind in INVERTIBLE_KINDS
+                else f"{name}.__tree__")
+            view[name] = torch.empty(state.shape[-1], dtype=state.dtype,
+                                     device=self._device)
+            planes.append((kind, backend.get_array(name), state,
+                           view[name]))
+        sub_row = (p_end - W) % ring
+        # a retiring pane below the first one seen holds no data, and its
+        # ring row may alias a live pane
+        sub_valid = p_end - W >= self._min_seen_pane
+        cause = self._inc_stale or (None if self._inc_next == p_end
+                                    else "fire boundary jump")
+        if cause is not None:
+            panes = range(first, p_end)
+            rebuild(planes, [p % ring for p in panes],
+                    [p % L for p in panes], sub_row, sub_valid)
+            self.inc_rebuilds[cause] = self.inc_rebuilds.get(cause, 0) + 1
+            rows_read = sealed = len(panes)
+        else:
+            seal(planes, (p_end - 1) % ring, sub_row, sub_valid,
+                 (p_end - 1) % L, (p_end - 1 - W) % L)
+            rows_read, sealed = (2 if sub_valid else 1), 1
+        DEVICE_STATS.note_panes_sealed(sealed)
+        DEVICE_STATS.note_fire_merge_rows(rows_read)
+        self._inc_stale = None
+        self._inc_next = p_end + 1
+        return view
+
+    def _fire_outputs(self, merged) -> tuple:
+        """The whole fire on the device: the window's merge + emit mask +
+        optional top-k + health scalars (dropped inserts, occupancy, late
+        rows). ``merged(kind, plane, idx=None)`` is the window's merge of
+        a plane, or its values at ``idx`` only (a top-k fire's winners).
+        Counts emit as int64 whatever their plane's width, as the full
+        merge's sum gives them."""
         backend = self._backend
         table = backend.table
-        count = _merge("count", backend.get_array("__count__"), rows)
+        count = merged("count", "__count__")
         occupied = table != EMPTY_KEY
         emit = occupied & (count > 0)
         health = (backend.dropped_device.clone(), occupied.sum(),
@@ -320,39 +474,34 @@ class DeviceWindowAggOperator(AsyncFireQueue, SliceControlPlane,
             if first.kind == "count":
                 ranked = count
             elif first.kind == "avg":
-                s = _merge("sum", backend.get_array(f"{first.out_name}.sum"),
-                           rows)
+                s = merged("sum", f"{first.out_name}.sum")
                 ranked = s / count.clamp(min=1).to(s.dtype)
             else:
-                ranked = _merge(first.kind, backend.get_array(first.out_name),
-                                rows)
+                ranked = merged(first.kind, first.out_name)
             _vals, idx, ok = masked_topk(ranked, emit, self._topk,
                                          value_bits=first.value_bits)
-            count_k = count[idx]
+            count_k = count[idx].to(torch.int64)
             out = {}
             for a in self._aggs:
-                if a.out_name == first.out_name:
-                    out[a.out_name] = ranked[idx]
-                elif a.kind == "count":
+                if a.kind == "count":
                     out[a.out_name] = count_k
+                elif a.out_name == first.out_name:
+                    out[a.out_name] = ranked[idx]
                 elif a.kind == "avg":
-                    s = _merge("sum", backend.get_array(f"{a.out_name}.sum"),
-                               rows, idx)
+                    s = merged("sum", f"{a.out_name}.sum", idx)
                     out[a.out_name] = s / count_k.clamp(min=1).to(s.dtype)
                 else:
-                    out[a.out_name] = _merge(
-                        a.kind, backend.get_array(a.out_name), rows, idx)
+                    out[a.out_name] = merged(a.kind, a.out_name, idx)
             return table[idx], ok, out, health
         results = {}
         for a in self._aggs:
             if a.kind == "count":
-                results[a.out_name] = count
+                results[a.out_name] = count.to(torch.int64)
             elif a.kind == "avg":
-                s = _merge("sum", backend.get_array(f"{a.out_name}.sum"), rows)
+                s = merged("sum", f"{a.out_name}.sum")
                 results[a.out_name] = s / count.clamp(min=1).to(s.dtype)
             else:
-                results[a.out_name] = _merge(
-                    a.kind, backend.get_array(a.out_name), rows)
+                results[a.out_name] = merged(a.kind, a.out_name)
         return table, emit, results, health
 
     def _materialize(self, item) -> None:
@@ -396,6 +545,7 @@ class DeviceWindowAggOperator(AsyncFireQueue, SliceControlPlane,
                                      np.full(n, end - 1, np.int64)))
 
     def finish(self) -> None:
+        self._coalesce_flush()
         self._drain(block=True)
         self._refresh_late()
 
@@ -416,6 +566,7 @@ class DeviceWindowAggOperator(AsyncFireQueue, SliceControlPlane,
     # -- checkpointing -----------------------------------------------------
     def snapshot_state(self, checkpoint_id: int) -> dict:
         self._drain(block=True)
+        self._pre_fire_flush()   # buffered batches belong in the snapshot
         self._refresh_late()
         return {"keyed": {"backend": self._backend.snapshot(checkpoint_id),
                           "meta": self._control_meta()}}

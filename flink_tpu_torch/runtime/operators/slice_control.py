@@ -1,10 +1,12 @@
 """Host control plane of the slice-window device operator (port of
 ``flink_tpu/runtime/operators/slice_control.py``): pane arithmetic, the
 host late filter, the watermark-driven fire loop, the fired/seen-pane
-metadata that rides with keyed snapshots, and asynchronous fire emission.
+metadata that rides with keyed snapshots, asynchronous fire emission and
+coalesced ingest.
 
-Subclasses provide ``_fold(batch, keys, panes)``, ``_fire(p_end)`` and
-``_materialize(item)``.
+Subclasses provide ``_fold(batch, keys, panes)``, ``_fire(p_end)``,
+``_materialize(item)`` and ``_process_batch_now(batch)``, and may hook
+``_note_open_ingest(min_pane)`` and ``_pre_fire_flush()``.
 """
 
 from __future__ import annotations
@@ -16,10 +18,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...core.device_records import DeviceRecordBatch
 from ...core.elements import Watermark
 from ...core.records import RecordBatch
+from ...metrics.device import DEVICE_STATS
 
-__all__ = ["SliceControlPlane", "AsyncFireQueue"]
+__all__ = ["SliceControlPlane", "AsyncFireQueue", "CoalescingIngest"]
 
 _MAX_FIRE_SAMPLES = 65536
 
@@ -41,6 +45,77 @@ def _to_host(tree):
     if isinstance(tree, (tuple, list)):
         return type(tree)(_to_host(v) for v in tree)
     return tree
+
+
+class CoalescingIngest:
+    """Coalesced ingest: consecutive same-schema micro-batches gather on
+    the host up to a record target, so one ingest step amortizes its fixed
+    cost (launch, pane bookkeeping) over several upstream batches. The
+    buffer flushes when the target is reached, when a batch of another
+    schema arrives, when its age deadline has passed (checked at the next
+    admit: no timer thread), and always before fires, snapshots and finish,
+    so a record admitted before a watermark folds before that watermark's
+    fires."""
+
+    def _init_coalescer(self) -> None:
+        self._coalesce_target = 0     # records; <= 1 disables
+        self._coalesce_timeout_s = 0.0
+        self._co_buf: list = []
+        self._co_records = 0
+        self._co_deadline: Optional[float] = None
+
+    @staticmethod
+    def _co_signature(batch) -> tuple:
+        return (type(batch).__name__,
+                tuple((f.name, np.dtype(f.dtype).str)
+                      for f in batch.schema.fields))
+
+    def _coalesce_admit(self, batch) -> None:
+        if self._co_buf and self._co_signature(self._co_buf[0]) != \
+                self._co_signature(batch):
+            self._coalesce_flush()
+        self._co_buf.append(batch)
+        self._co_records += batch.n
+        now = time.monotonic()
+        if self._co_deadline is None and self._coalesce_timeout_s > 0:
+            self._co_deadline = now + self._coalesce_timeout_s
+        if self._co_records >= self._coalesce_target or (
+                self._co_deadline is not None and now >= self._co_deadline):
+            self._coalesce_flush()
+
+    def _coalesce_flush(self) -> None:
+        buf, self._co_buf = self._co_buf, []
+        self._co_records = 0
+        self._co_deadline = None
+        if not buf:
+            return
+        if len(buf) == 1:
+            self._process_batch_now(buf[0])
+            return
+        DEVICE_STATS.note_batches_coalesced(len(buf))
+        self._process_batch_now(self._co_merge(buf))
+
+    @staticmethod
+    def _co_merge(buf: list) -> RecordBatch:
+        """One batch of the buffered batches, in arrival order: device
+        columns join with ``torch.cat`` on the device, and the event-time
+        bounds stay host ints."""
+        first = buf[0]
+        if isinstance(first, DeviceRecordBatch):
+            cols = {f.name: torch.cat([b.device_column(f.name) for b in buf])
+                    for f in first.schema.fields}
+            dts = (torch.cat([b.dtimestamps for b in buf])
+                   if first.dtimestamps is not None else None)
+            return DeviceRecordBatch(
+                first.schema, cols, dts, min(b.ts_min for b in buf),
+                max(b.ts_max for b in buf), ts_column=first.ts_column)
+        cols = {f.name: np.concatenate([b.column(f.name) for b in buf])
+                for f in first.schema.fields}
+        return RecordBatch(first.schema, cols,
+                           np.concatenate([b.timestamps for b in buf]))
+
+    def _process_batch_now(self, batch) -> None:
+        raise NotImplementedError
 
 
 class AsyncFireQueue:
@@ -176,7 +251,12 @@ class SliceControlPlane:
         self._min_seen_pane = (min_pane if self._min_seen_pane is None
                                else min(self._min_seen_pane, min_pane))
         self._check_ring(max_pane)
+        self._note_open_ingest(min_pane)
         self._fold(batch, keys, panes)
+
+    def _note_open_ingest(self, min_pane: int) -> None:
+        """Hook: the incremental fire engine invalidates its running window
+        state when a batch writes into a pane it already sealed."""
 
     def _check_ring(self, max_pane: int) -> None:
         """Two open panes must never share a ring row."""
@@ -191,6 +271,7 @@ class SliceControlPlane:
     # -- firing ------------------------------------------------------------
     def process_watermark(self, watermark: Watermark) -> None:
         self.current_watermark = watermark.timestamp
+        self._pre_fire_flush()
         # a window ending at pane boundary p_end fires when
         # wm >= p_end*pane + offset - 1
         wm_pane_end = (watermark.timestamp - self._offset + 1) // self._pane
@@ -217,6 +298,9 @@ class SliceControlPlane:
 
     def _emit_watermark_out(self, watermark: Watermark) -> None:
         self.output.emit_watermark(watermark)
+
+    def _pre_fire_flush(self) -> None:
+        """Hook: fold any buffered input before the fires."""
 
     def _fold(self, batch: RecordBatch, keys: np.ndarray,
               panes: np.ndarray) -> None:

@@ -10,6 +10,10 @@ whole-batch scatter folds (a device batch's step is one fused kernel,
 Growth: when occupancy passes 0.6 * capacity (or an insert exhausts its
 probes) the table doubles and every plane is re-keyed on the device.
 
+Window-role planes (``role="window"``) hold the incremental fire
+engine's derived state; snapshots, pane retirement and ring conforming
+leave them out.
+
 Snapshots are the reference's schema, ``{"kind": "tpu", keys,
 key_groups, max_parallelism, states}``, as numpy in canonical (group,
 key) order, so a snapshot of either package restores into the other.
@@ -38,14 +42,21 @@ _GROW_AT = 0.6  # occupancy share that triggers a doubling rehash
 
 
 class _ArrayState:
-    __slots__ = ("name", "kind", "dtype", "ring", "array")
+    __slots__ = ("name", "kind", "dtype", "ring", "array", "role")
 
     def __init__(self, name: str, kind: str, dtype: torch.dtype,
-                 ring: Optional[int], capacity: int, device):
+                 ring: Optional[int], capacity: int, device,
+                 role: str = "pane"):
         self.name = name
         self.kind = kind
         self.dtype = dtype
         self.ring = ring
+        # role "pane": the source-of-truth pane planes, which snapshot,
+        # retire and conform. role "window": DERIVED incremental-fire state
+        # (running window accumulators, merge trees); it follows slot
+        # remaps on a rehash but is left out of snapshots, ring-row
+        # retirement and conform_ring: a restore rebuilds it from the panes
+        self.role = role
         shape = (ring, capacity) if ring else (capacity,)
         self.array = make_accumulator(kind, shape, dtype, device)
 
@@ -71,14 +82,24 @@ class DeviceKeyedStateBackend:
 
     # -- array states ---------------------------------------------------
     def register_array_state(self, name: str, kind: str, dtype,
-                             ring: Optional[int] = None) -> None:
+                             ring: Optional[int] = None,
+                             role: str = "pane") -> None:
         if name not in self._array_states:
             self._array_states[name] = _ArrayState(
                 name, kind, torch_dtype(dtype), ring, self.capacity,
-                self.device)
+                self.device, role)
+
+    def has_array(self, name: str) -> bool:
+        return name in self._array_states
 
     def get_array(self, name: str) -> torch.Tensor:
         return self._array_states[name].array
+
+    def _pane_states(self) -> list[_ArrayState]:
+        """The states that snapshot, retire and conform: every one but the
+        derived window-role planes."""
+        return [st for st in self._array_states.values()
+                if st.role != "window"]
 
     @property
     def state_nbytes(self) -> int:
@@ -143,9 +164,9 @@ class DeviceKeyedStateBackend:
         scatter_fold(st.kind, st.array.view(-1), flat, values, valid)
 
     def reset_ring_row(self, row: int) -> None:
-        """Pane retirement: ring row ``row`` of every ring plane back to
-        its aggregate identity."""
-        for st in self._array_states.values():
+        """Pane retirement: ring row ``row`` of every ring pane plane back
+        to its aggregate identity."""
+        for st in self._pane_states():
             if st.ring:
                 st.array[row].fill_(identity(st.kind, st.dtype))
 
@@ -172,6 +193,8 @@ class DeviceKeyedStateBackend:
 
     def _rebuild(self, keys: torch.Tensor, old_slots: torch.Tensor,
                  new_capacity: int) -> None:
+        """Re-key every plane, window-role planes included, onto a fresh
+        table of ``new_capacity``."""
         new_table = make_table(new_capacity, self.device)
         if keys.numel():
             _, new_slots, ok = lookup_or_insert(new_table, keys.contiguous())
@@ -193,7 +216,7 @@ class DeviceKeyedStateBackend:
         """Re-seat ring planes restored under another ring size: each live
         pane's row moves from p % old_ring to p % ring."""
         live = list(live_panes)
-        for st in self._array_states.values():
+        for st in self._pane_states():
             if not st.ring or st.ring == ring:
                 continue
             if len(live) > ring:
@@ -219,7 +242,8 @@ class DeviceKeyedStateBackend:
                                            self.max_parallelism)
         order = np.lexsort((keys, groups))
         states = {}
-        for name, st in self._array_states.items():
+        for st in self._pane_states():
+            name = st.name
             arr = st.array.cpu().numpy()
             vals = arr[:, slots] if st.ring else arr[slots]
             states[name] = {"kind": st.kind,
