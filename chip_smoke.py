@@ -45,9 +45,12 @@ Run from the repository root:  python3 chip_smoke.py
 4. Nexmark Q5 at 1M keys (the bench.py headline: capacity 2^21, ring 16,
    batch 2^19, 2^23 events, 2000 ms panes, 5-pane sliding windows, top
    1000 by count(value_bits=31) with sum(price)) through the port's
-   StreamExecutionEnvironment with datagen(device=True), after a short
+   StreamExecutionEnvironment with datagen(device=True) and
+   ``env.execute()`` on the task runtime (a source task and a window task
+   on two threads, joined by a channel; the watermark interval at 0, so a
+   watermark follows every batch), after a short
    warm-up run under PyTorch's sync debug mode, which must flag no wait
-   for the card that recurs per batch or per fire. Then 5 timed runs:
+   for the card that recurs per batch or per fire. Then 3 timed runs:
    launch counters are zeroed just before each and read just after; each
    run must launch ingest_step once per batch and hist256 once per digit
    pass of each fire; every emitted window of every run is checked
@@ -57,13 +60,15 @@ Run from the repository root:  python3 chip_smoke.py
    are printed. One more run under torch.profiler gives the card's busy
    time by kernel against the run's wall time, and counts the launches of
    both kernels again.
-5. The same at 10M keys (capacity 2^24, 2^25 events), then once more with
-   each fire profiled on its own (``fire_device_ms``): the device time
-   of one fire.
+5. The same at 10M keys (capacity 2^24, 2^25 events; 5 timed runs), then
+   once more with each fire profiled on its own (``fire_device_ms``): the
+   device time of one fire (those runs chain source and window into one
+   task with the fused chain, so no other thread enqueues work while a
+   fire is timed).
 6. Q5-10M with ``window.fire.incremental``: the same checks, and one
    window_seal or window_rebuild per fire; the rebuilds are printed by
    cause.
-7. Q5-10M at W = 20 (bench.py --window-panes 20: ring 46, 24 panes), 3
+7. Q5-10M at W = 20 (bench.py --window-panes 20: ring 46, 24 panes), 2
    timed runs in each fire mode, and the device time per fire of each.
 8. Nexmark Q7 at 10M keys (bench.py _run_q7: 9 tumbling panes of
    10 000 ms, max(packed = (price << 20) | bidder, value_bits 34), top 1,
@@ -77,7 +82,27 @@ Run from the repository root:  python3 chip_smoke.py
 10. The host-batch path: a short Q5 run with defer_overflow=False at 100k
     keys into capacity 2^17, which must launch hash_probe, grow the table
     exactly once, and pass the oracle.
-11. The kernels line, the nvidia-smi line, then the last line
+11. The fused chain at the Q5-10M shape, at the operator level: a run's
+    batches (and two power-of-two tails) once through the fused chain and
+    once through the reader's decode and the unfused step: the table,
+    both planes and the late and dropped counters equal bit for bit;
+    under the profiler one CUDA graph launch and one ingest_step per
+    micro-batch, and chain_fused_dispatches_total equal to the
+    micro-batches.
+12. Q5-10M through the runtime, fusion off ("runtime") and on ("fused"),
+    in turns with the earlier single-thread loop over the same operators
+    ("direct"): every window against the oracle, events/s, p99 fire
+    latency, peak device memory, launches per run, one profiled run of
+    each (idle share) and the host's enqueue per batch.
+13. Coalesced ingest inside the runtime: Q5-1M in 2^16-row batches, the
+    watermark every 5 ms of wall time, task.coalesce.target-records 2^19:
+    batches must gather, and every window equals the oracle.
+14. Checkpoint and restore at Q5-10M: a paced source, checkpoints every
+    0.5 s; the job is cancelled after one completed, a fresh job restores
+    from it and runs to the end; every window of both equals the oracle.
+    Barrier to ack per task, the snapshot's copy and sort/gather seconds,
+    the store, the bytes, and the restore's time to its first batch.
+15. The kernels line, the nvidia-smi line, then the last line
     {"ok": true, "device": {...}}.
 
 ``python3 chip_smoke.py --parent-kernels DIR`` instead times, with the same
@@ -91,6 +116,7 @@ package beside this script, it exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import gc
 import json
 import linecache
 import os
@@ -107,8 +133,9 @@ MULT = 0x9E3779B97F4A7C15      # bench.py's key mixer
 INT64_MAX = (1 << 63) - 1
 MIN_TIMESTAMP = -(1 << 62)     # first open pane before any fire
 PANE_MS, WINDOW_PANES, RING, BATCH, TOPK = 2000, 5, 16, 1 << 19, 1000
-Q5_RUNS = 5                    # timed Q5 runs per configuration
-WIDE_RUNS = 3                  # timed runs of the W = 20 and Q7 cells
+Q5_RUNS = 5                    # timed runs of Q5-10M and the runtime cell
+SHORT_RUNS = 3                 # timed runs of the Q5-1M and Q7 cells
+WIDE_RUNS = 2                  # timed runs of the W = 20 cell
 WIDE_PANES = 20                # bench.py --window-panes 20
 #: (label, keys, events, capacity) of the two Q5 cells
 Q5_CELLS = (("1M", 1_000_000, 1 << 23, 1 << 21),
@@ -452,18 +479,25 @@ def check_ingest(torch, dev, flush) -> dict:
 
     shapes = {}
     mismatches = 0
+    # the scalar-buffer form: first_open read from a device scalar, as a
+    # CUDA graph replays it (runtime/compiled.py)
+    first_open_at = torch.full((), MIN_TIMESTAMP, dtype=torch.int64,
+                               device=dev)
+    forms = (("kernel", ingest_step, MIN_TIMESTAMP),
+             ("plain", ingest_step_plain, MIN_TIMESTAMP),
+             ("kernel_scalar_buffer", ingest_step, first_open_at),
+             ("plain_scalar_buffer", ingest_step_plain, first_open_at))
     for label, n_keys, n_events, cap in Q5_CELLS:
         case = q5_step_case(torch, dev, n_keys, n_events, cap)
         ts, keys, price = case["batch"]
         runs = {}
-        for name, step in (("kernel", ingest_step),
-                           ("plain", ingest_step_plain)):
+        for name, step, first_open in forms:
             table = case["table"].clone()
             count, rev = case["count"].clone(), case["rev"].clone()
             late = torch.zeros((), dtype=torch.int64, device=dev)
             dropped = torch.zeros((), dtype=torch.int64, device=dev)
             step(table, [("count", count, None), ("sum", rev, price)], ts,
-                 keys, PANE_MS, 0, MIN_TIMESTAMP, late, dropped)
+                 keys, PANE_MS, 0, first_open, late, dropped)
             occupied = torch.nonzero(table != EMPTY_KEY).flatten()
             sorted_keys, order = torch.sort(table[occupied])
             slots = occupied[order]
@@ -472,19 +506,22 @@ def check_ingest(torch, dev, flush) -> dict:
             runs[name] = (sorted_keys, count[rows][:, slots],
                           rev[rows][:, slots], int(late), int(dropped),
                           table)
-        (gk, gc, gr, gl, gd, gtable), (wk, wc, wr, wl, wd, _) = \
-            runs["kernel"], runs["plain"]
-        bad = {"key_set": int(gk.numel() != wk.numel())
-               or int((gk != wk).sum()),
-               "count_plane": 0 if gk.numel() != wk.numel()
-               else int((gc != wc).sum()),
-               "revenue_plane": 0 if gk.numel() != wk.numel()
-               else int((gr != wr).sum()),
-               "late": abs(gl - wl), "dropped": abs(gd - wd)}
-        if any(bad.values()):
-            raise AssertionError(f"ingest_step {label}: entries differing "
-                                 f"from the plain version: {bad}")
-        mismatches += sum(bad.values())
+        wk, wc, wr, wl, wd, _ = runs["plain"]
+        for form in ("kernel", "kernel_scalar_buffer", "plain_scalar_buffer"):
+            gk, gc, gr, gl, gd, _ = runs[form]
+            bad = {"key_set": int(gk.numel() != wk.numel())
+                   or int((gk != wk).sum()),
+                   "count_plane": 0 if gk.numel() != wk.numel()
+                   else int((gc != wc).sum()),
+                   "revenue_plane": 0 if gk.numel() != wk.numel()
+                   else int((gr != wr).sum()),
+                   "late": abs(gl - wl), "dropped": abs(gd - wd)}
+            if any(bad.values()):
+                raise AssertionError(f"ingest_step {label} {form}: entries "
+                                     "differing from the plain version: "
+                                     f"{bad}")
+            mismatches += sum(bad.values())
+        gtable = runs["kernel"][5]
         # the bound, from this batch: new keys and (ring row, key) pairs
         table0 = case["table"]
         d_new = int((gtable != EMPTY_KEY).sum() - (table0 != EMPTY_KEY).sum())
@@ -496,16 +533,18 @@ def check_ingest(torch, dev, flush) -> dict:
         late = torch.zeros((), dtype=torch.int64, device=dev)
         dropped = torch.zeros((), dtype=torch.int64, device=dev)
 
-        def run(step):
+        def run(step, first_open=MIN_TIMESTAMP):
             return lambda: step(table, [("count", count, None),
                                         ("sum", rev, price)], ts, keys,
-                                PANE_MS, 0, MIN_TIMESTAMP, late, dropped)
+                                PANE_MS, 0, first_open, late, dropped)
 
         reset = lambda: table.copy_(table0)  # noqa: E731
         shapes[cap] = {
             "q5": label, "n": BATCH, "capacity": cap, "new_keys": d_new,
             "ring_key_pairs": d_pk,
             "ms": cuda_ms(run(ingest_step), torch, flush, setup=reset),
+            "ms_scalar_buffer": cuda_ms(run(ingest_step, first_open_at),
+                                        torch, flush, setup=reset),
             "plain_ms": cuda_ms(run(ingest_step_plain), torch, flush,
                                 reps=3, setup=reset),
             "eager_chain_ms": time_step_chain(torch, dev, flush, case),
@@ -779,14 +818,21 @@ def q5_gen(n_keys: int, n_events: int, span: int):
     return gen
 
 
-def run_q5(torch, dev, n_keys: int, n_events: int, capacity: int,
+def q5_env(torch, dev, n_keys: int, n_events: int, capacity: int,
            batch: int = BATCH, topk: int = TOPK, defer: bool = True,
-           fire_mode: str = "full", window_panes: int = WINDOW_PANES):
-    """One run of the Q5 pipeline through the port's public API; returns
-    (job result, [(window end - 1, auctions, bids, revenue)], span ms).
-    ``defer`` False takes the host-batch path: each device batch comes to
-    the host, and the table grows inline. ``fire_mode`` "incremental" sets
-    ``window.fire.incremental``."""
+           fire_mode: str = "full", window_panes: int = WINDOW_PANES,
+           fused: bool = False, wm_interval: float = 0.0,
+           settings: dict | None = None, rate: float | None = None):
+    """The Q5 pipeline on a fresh StreamExecutionEnvironment, not yet
+    executed; returns (env, got, span ms), ``got`` filled by the sink with
+    (window end - 1, auctions, bids, revenue) per window. ``defer`` False
+    takes the host-batch path: each device batch comes to the host, and
+    the table grows inline. ``fire_mode`` "incremental" sets
+    ``window.fire.incremental``; ``fused`` sets
+    ``pipeline.fusion.enabled``; ``wm_interval`` is the source's
+    watermark interval (0: after every batch, the cadence of the old
+    single-thread runner); ``settings`` adds configuration keys; ``rate``
+    caps the source's events per second."""
     from flink_tpu_torch.api import StreamExecutionEnvironment
     from flink_tpu_torch.core import Configuration, Schema, WatermarkStrategy
     from flink_tpu_torch.runtime.operators import AggSpec
@@ -803,12 +849,15 @@ def run_q5(torch, dev, n_keys: int, n_events: int, capacity: int,
 
     env = StreamExecutionEnvironment(
         Configuration({"pipeline.micro-batch-size": batch,
-                       "window.fire.incremental":
-                           fire_mode == "incremental"}), device=dev)
+                       "window.fire.incremental": fire_mode == "incremental",
+                       "pipeline.fusion.enabled": fused,
+                       "pipeline.auto-watermark-interval": wm_interval,
+                       **(settings or {})}), device=dev)
     ws = WatermarkStrategy.for_monotonous_timestamps() \
         .with_timestamp_column("ts")
     (env.datagen(q5_gen(n_keys, n_events, span), schema, count=n_events,
-                 timestamp_column="ts", watermark_strategy=ws, device=True)
+                 rate_per_sec=rate, timestamp_column="ts",
+                 watermark_strategy=ws, device=True)
         .key_by("auction")
         .window(SlidingEventTimeWindows.of(window_panes * PANE_MS, PANE_MS))
         .device_aggregate([AggSpec("count", out_name="bids", value_bits=31),
@@ -818,6 +867,14 @@ def run_q5(torch, dev, n_keys: int, n_events: int, capacity: int,
                           emit_window_bounds=False, emit_topk=topk,
                           defer_overflow=defer, async_fire=True)
         .add_sink(sink))
+    return env, got, span
+
+
+def run_q5(torch, dev, n_keys: int, n_events: int, capacity: int, **kw):
+    """One run of the Q5 pipeline through ``env.execute()`` on the
+    runtime (keywords: ``q5_env``'s); returns (the finished job, [(window
+    end - 1, auctions, bids, revenue)], span ms)."""
+    env, got, span = q5_env(torch, dev, n_keys, n_events, capacity, **kw)
     job = env.execute("nexmark-q5")
     return job, got, span
 
@@ -911,7 +968,8 @@ def q7_gen(n_keys: int, n_events: int, span: int):
 
 
 def run_q7(torch, dev, n_keys: int, n_events: int, capacity: int,
-           batch: int = BATCH, fire_mode: str = "full"):
+           batch: int = BATCH, fire_mode: str = "full", fused: bool = False,
+           wm_interval: float = 0.0):
     """One run of bench.py's Q7 (the highest bid of each tumbling window:
     max(packed, value_bits=34), top 1, with window bounds) through the
     port's public API; returns (job result, [(window end - 1, auctions,
@@ -933,8 +991,10 @@ def run_q7(torch, dev, n_keys: int, n_events: int, capacity: int,
 
     env = StreamExecutionEnvironment(
         Configuration({"pipeline.micro-batch-size": batch,
-                       "window.fire.incremental":
-                           fire_mode == "incremental"}), device=dev)
+                       "window.fire.incremental": fire_mode == "incremental",
+                       "pipeline.fusion.enabled": fused,
+                       "pipeline.auto-watermark-interval": wm_interval}),
+        device=dev)
     ws = WatermarkStrategy.for_monotonous_timestamps() \
         .with_timestamp_column("ts")
     (env.datagen(q7_gen(n_keys, n_events, span), schema, count=n_events,
@@ -994,8 +1054,8 @@ def q7_check(expected: list, got) -> int:
 def run_coalesced_q5(torch, dev, n_keys: int, n_events: int, capacity: int,
                      batch: int = CO_BATCH, target: int = CO_TARGET,
                      wm_every: int = CO_WM_EVERY, topk: int = TOPK):
-    """Q5 through ``DeviceWindowAggOperator`` driven directly (the local
-    runner emits a watermark after every batch, so nothing would gather):
+    """Q5 through ``DeviceWindowAggOperator`` driven directly, with the
+    watermark cadence fixed in batches rather than wall time:
     device batches of ``batch`` rows, ``task.coalesce.target-records`` =
     ``target``, and a watermark (the batch's largest timestamp - 1, as the
     monotonous strategy gives) every ``wm_every`` batches. Returns
@@ -1180,8 +1240,7 @@ def timed_run(torch, label: str, run, check, passes: int, fire_mode: str,
     rebuild per fire. Counters are zeroed just before the run."""
     from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    start = fresh_memory(torch)
     reset_launches()
     job, got, _span = run()
     peak = torch.cuda.max_memory_allocated()
@@ -1198,10 +1257,40 @@ def timed_run(torch, label: str, run, check, passes: int, fire_mode: str,
                              f"expected {want} on the main path")
     op = job.operators[0]
     return {"wall_s": job.wall_s, "lat": list(op.fire_latencies_ms),
-            "peak": peak, "launches": launches, "windows": windows,
+            "peak": peak, "start": start, "launches": launches,
+            "windows": windows,
             "rebuilds": dict(op.inc_rebuilds),
             "late_dropped": op.late_dropped,
-            "state_bytes": op.backend.state_nbytes}
+            "state_bytes": op.backend.state_nbytes,
+            "tasks": task_record(job)}
+
+
+def fresh_memory(torch) -> dict:
+    """Before a measured run: drain the card, free what earlier runs left
+    (a finished job's tasks and its reporter reference each other, so
+    its device state waits for the cyclic collector), and reset the peak.
+    Returns the bytes allocated before and after the collection."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    return {"allocated_before_gc": before,
+            "allocated_at_start": torch.cuda.memory_allocated()}
+
+
+def task_record(job) -> dict:
+    """Per task of a runtime job: CPU seconds of its thread, seconds its
+    loop slept with nothing to do, seconds its writers were blocked on a
+    full channel, and the most elements one of its output channels held;
+    for a direct run, the CPU seconds of the one thread."""
+    if not hasattr(job, "tasks"):
+        return {"direct": {"cpu_s": job.cpu_s}}
+    return {tid: {"cpu_s": t.cpu_s, "idle_s": t.idle_s,
+                  "backpressured_s": sum(w.backpressured_s
+                                         for w in t.writers),
+                  "max_queued": max((w.max_queued for w in t.writers),
+                                    default=0)}
+            for tid, t in job.tasks.items()}
 
 
 def summary(runs: list, n_events: int) -> dict:
@@ -1218,7 +1307,9 @@ def summary(runs: list, n_events: int) -> dict:
             "late_dropped": last["late_dropped"],
             "state_bytes": last["state_bytes"],
             "max_memory_allocated": max(r["peak"] for r in runs),
-            "launches_per_run": last["launches"]}
+            "memory_at_start": [r["start"] for r in runs],
+            "launches_per_run": last["launches"],
+            "tasks_last_run": last["tasks"]}
 
 
 def cell_phase(torch, label: str, modes: tuple, runs: int, run, check,
@@ -1245,9 +1336,9 @@ def q5_cell(torch, dev, label: str, n_keys: int, n_events: int,
             runs: int = Q5_RUNS) -> tuple[dict, object]:
     """A Q5 cell's timed runs in each of ``modes``; returns (results by
     mode, run(mode, events) for the profiles)."""
-    def run(mode, events):
+    def run(mode, events, **kw):
         return run_q5(torch, dev, n_keys, events or n_events, capacity,
-                      fire_mode=mode, window_panes=window_panes)
+                      fire_mode=mode, window_panes=window_panes, **kw)
 
     span = q5_panes(n_events, BATCH, window_panes) * PANE_MS
     expected = q5_expected(n_keys, n_events, span, TOPK, window_panes)
@@ -1263,16 +1354,16 @@ def q7_cell(torch, dev, n_keys: int, n_events: int,
             capacity: int) -> tuple[dict, object]:
     """The Q7 cell's timed runs in both modes; value_bits 34 makes 5
     digit passes of the select per fire."""
-    def run(mode, events):
+    def run(mode, events, **kw):
         return run_q7(torch, dev, n_keys, events or n_events, capacity,
-                      fire_mode=mode)
+                      fire_mode=mode, **kw)
 
     expected = q7_expected(n_keys, n_events,
                            q5_panes(n_events, BATCH) * Q7_PANE_MS)
     meta = {"q7": f"{n_keys // 1_000_000}M", "keys": n_keys,
             "events": n_events, "capacity": capacity, "batch": BATCH,
             "pane_ms": Q7_PANE_MS}
-    return cell_phase(torch, "Q7 10M", ("full", "incremental"), WIDE_RUNS,
+    return cell_phase(torch, "Q7 10M", ("full", "incremental"), SHORT_RUNS,
                       run, lambda got: q7_check(expected, got), 5,
                       n_events, meta), run
 
@@ -1322,6 +1413,331 @@ def q5_host_batch_phase(torch, dev) -> dict:
             "wall_s": job.wall_s, "launches": launches}
 
 
+# -- the runtime -------------------------------------------------------------
+#: the Q5-10M runtime cell's runners: the single-thread loop of the old
+#: local runner over the same operators ("direct"), the task/channel
+#: runtime ("runtime"), and the runtime with the fused chain ("fused")
+RT_MODES = ("direct", "runtime", "fused")
+CKPT_RUN_S, CKPT_INTERVAL_S = 2.5, 0.5   # checkpoint phase: source pacing
+CO_WM_INTERVAL_S = 0.005                 # coalescing through the runtime
+
+
+def run_q5_direct(torch, dev, n_keys: int, n_events: int, capacity: int,
+                  **kw):
+    """Q5 on the deployed job's own reader and operator chain, driven on
+    the calling thread by the single-thread loop the local runner of the
+    port ran before the task runtime: read a batch, assign timestamps,
+    push it through the chain, emit the watermark when it advanced; at
+    end of input the MAX watermark, finish, and drain the card. Returns
+    (run record with ``operators``, ``wall_s`` and the thread's
+    ``cpu_s``, windows, span ms)."""
+    from types import SimpleNamespace
+
+    from flink_tpu_torch.cluster import deploy_local
+    from flink_tpu_torch.core.elements import MAX_WATERMARK, Watermark
+
+    env, got, span = q5_env(torch, dev, n_keys, n_events, capacity, **kw)
+    job = deploy_local(env.get_job_graph("nexmark-q5-direct"), env.config,
+                       env.device)
+    (src,) = job.source_tasks.values()
+    (win,) = [t for t in job.tasks.values() if t is not src]
+    chain, reader, ws = win.chain, src.reader, src.ws
+    size = env.config.get("pipeline.micro-batch-size")
+    chain.open()
+    gen = ws.create_generator()
+    last = MIN_TIMESTAMP
+    t0, cpu0 = time.perf_counter(), time.thread_time()
+    while (batch := reader.read_batch(size)) is not None:
+        batch = ws.assign_timestamps(batch)
+        gen.on_batch(batch)
+        chain.process_batch(batch)
+        wm = gen.current_watermark()
+        if wm > last:
+            last = wm
+            chain.process_watermark(Watermark(wm))
+    chain.process_watermark(MAX_WATERMARK)
+    chain.finish()
+    chain.close()
+    reader.close()
+    torch.cuda.synchronize()
+    run = SimpleNamespace(operators=chain.operators,
+                          wall_s=time.perf_counter() - t0,
+                          cpu_s=time.thread_time() - cpu0)
+    return run, got, span
+
+
+def host_enqueue(torch, run) -> dict:
+    """Runs ``run()`` with the device reader's ``read_batch`` and the
+    window operator's ``process_batch`` timed on the host: the median ms
+    per micro-batch each thread spends enqueueing (a fire's enqueue falls
+    in the watermark, not here)."""
+    from flink_tpu_torch.connectors.datagen import _DeviceDataGenReader
+    from flink_tpu_torch.runtime.operators.device_window import \
+        DeviceWindowAggOperator as Op
+
+    times = {"read_ms": [], "process_ms": []}
+    originals = ((_DeviceDataGenReader, "read_batch", "read_ms"),
+                 (Op, "process_batch", "process_ms"))
+
+    def timed(fn, key):
+        def wrapper(self, *a):
+            t0 = time.perf_counter()
+            out = fn(self, *a)
+            times[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapper
+
+    saved = [getattr(cls, name) for cls, name, _key in originals]
+    for (cls, name, key), fn in zip(originals, saved):
+        setattr(cls, name, timed(fn, key))
+    try:
+        run()
+    finally:
+        for (cls, name, _key), fn in zip(originals, saved):
+            setattr(cls, name, fn)
+    return {k: float(np.median(v)) if v else None for k, v in times.items()}
+
+
+def runtime_phase(torch, dev) -> dict:
+    """Q5-10M through the runtime, fusion off and on, in turns with the
+    old single-thread loop over the same operators; every window of every
+    run against the oracle; one profiled run of each; the host's enqueue
+    per batch."""
+    label, n_keys, n_events, cap = Q5_CELLS[1]
+    runners = {"direct": run_q5_direct, "runtime": run_q5,
+               "fused": lambda *a, **k: run_q5(*a, fused=True, **k)}
+
+    def run(mode, events):
+        return runners[mode](torch, dev, n_keys, events or n_events, cap)
+
+    span = q5_panes(n_events) * PANE_MS
+    expected = q5_expected(n_keys, n_events, span)
+    meta = {"q5": label, "keys": n_keys, "events": n_events,
+            "capacity": cap, "batch": BATCH, "watermark_interval_s": 0.0}
+    cells = cell_phase(torch, f"Q5 {label} runtime", RT_MODES, Q5_RUNS, run,
+                       lambda got: q5_check(expected, got), 4, n_events,
+                       meta)
+    for mode in RT_MODES:
+        cells[mode]["runner"] = mode
+        cells[mode]["profile"] = run_profile(
+            torch, lambda m=mode: run(m, None))
+        cells[mode]["host_enqueue_per_batch"] = host_enqueue(
+            torch, lambda m=mode: run(m, None))
+    return cells
+
+
+def fused_chain_phase(torch, dev) -> dict:
+    """The fused chain at the Q5-10M shape, at the operator level: a
+    run's batches (64 of 2^19 rows and two power-of-two tails) go once
+    through the fused chain and once through the reader's decode and the
+    unfused step, into two operators. The key set, every pane plane of
+    every key, and the late and dropped counters must be equal bit for
+    bit; under the profiler the fused feed must be one graph launch and
+    one ingest_step per micro-batch, and chain_fused_dispatches_total
+    must count every micro-batch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+    from flink_tpu_torch.connectors.datagen import DataGenSource
+    from flink_tpu_torch.core import Schema
+    from flink_tpu_torch.metrics import DEVICE_STATS
+    from flink_tpu_torch.ops.hash_table import EMPTY_KEY
+    from flink_tpu_torch.runtime import OneInputOperatorTestHarness
+    from flink_tpu_torch.runtime.operators import AggSpec, \
+        DeviceWindowAggOperator
+    from flink_tpu_torch.window import SlidingEventTimeWindows
+
+    _label, n_keys, base, cap = Q5_CELLS[1]
+    n_events = base + (1 << 18) + (1 << 16)
+    span = q5_panes(base) * PANE_MS
+    schema = Schema([("auction", np.int64), ("price", np.int64),
+                     ("ts", np.int64)])
+    source = DataGenSource(q5_gen(n_keys, n_events, span), schema,
+                           count=n_events, timestamp_column="ts",
+                           device=True)
+    feeds = {}
+    for fused in (False, True):
+        reader = source.create_reader(source.create_splits(1)[0], dev)
+        op = DeviceWindowAggOperator(
+            SlidingEventTimeWindows.of(WINDOW_PANES * PANE_MS, PANE_MS),
+            "auction", [AggSpec("count", out_name="bids", value_bits=31),
+                        AggSpec("sum", "price", out_name="revenue")],
+            capacity=cap, ring_size=RING, emit_window_bounds=False,
+            emit_topk=TOPK, defer_overflow=True, async_fire=True,
+            device=dev)
+        if fused:
+            reader.enable_fused()
+            op.enable_fused_chain(source, 0, 1)
+        h = OneInputOperatorTestHarness(op, schema)
+        h.open()
+        feeds[fused] = (reader, op, h)
+
+    def feed(fused: bool) -> tuple[int, list]:
+        reader, op, h = feeds[fused]
+        host_ms = []
+        n = 0
+        while True:
+            t0 = time.perf_counter()
+            batch = reader.read_batch(BATCH)
+            if batch is None:
+                break
+            h.process_batch(batch)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            n += 1
+        torch.cuda.synchronize()
+        return n, host_ms
+
+    reset_launches()
+    n_unfused, host_unfused = feed(False)
+    unfused_launches = KERNEL_LAUNCHES["ingest_step"]
+    before = DEVICE_STATS.snapshot()["chain_fused_dispatches_total"]
+    reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        n_fused, host_fused = feed(True)
+    fused_launches = KERNEL_LAUNCHES["ingest_step"]
+    dispatches = DEVICE_STATS.snapshot()["chain_fused_dispatches_total"] \
+        - before
+    graph_launches = sum("cudaGraphLaunch" in e.name for e in prof.events()
+                         if e.device_type == DeviceType.CPU)
+    step_kernels = sum("ingest_step_kernel" in e.name for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+
+    def state(op):
+        backend = op.backend
+        table = backend.table
+        slots = torch.nonzero(table != EMPTY_KEY).flatten()
+        keys, order = torch.sort(table[slots])
+        slots = slots[order]
+        return ([keys] + [backend.get_array(name)[:, slots]
+                          for name in ("__count__", "revenue")]
+                + [backend.dropped_device.reshape(1),
+                   op._late_dev.reshape(1)])
+
+    got, want = state(feeds[True][1]), state(feeds[False][1])
+    names = ("keys", "count_plane", "revenue_plane", "dropped", "late")
+    bad = {name: (int(a.numel() != b.numel()) if a.shape != b.shape
+                  else int((a != b).sum()))
+           for name, a, b in zip(names, got, want)}
+    batches = n_events // BATCH + 2
+    counts = {"micro_batches": (n_fused, n_unfused, batches),
+              "graph_launches": graph_launches,
+              "ingest_step_kernels": step_kernels,
+              "ingest_step_launches": (fused_launches, unfused_launches),
+              "chain_fused_dispatches_total": dispatches}
+    if any(bad.values()):
+        raise AssertionError(f"fused chain: state differing from the "
+                             f"unfused run: {bad}")
+    if not (n_fused == n_unfused == batches == graph_launches
+            == step_kernels == fused_launches == unfused_launches
+            == dispatches):
+        raise AssertionError(f"fused chain: expected {batches} of each: "
+                             f"{counts}")
+    captures = feeds[True][1].fused_chain.captures
+    for _reader, _op, h in feeds.values():
+        h.close()
+    return {"fused_chain": "Q5-10M", "events": n_events, "capacity": cap,
+            "differing_entries": bad, **counts, "graph_captures": captures,
+            "host_ms_per_batch_fused": float(np.median(host_fused)),
+            "host_ms_per_batch_unfused": float(np.median(host_unfused))}
+
+
+def coalesce_runtime_phase(torch, dev) -> dict:
+    """Coalesced ingest inside the runtime: Q5-1M in batches of 2^16
+    rows, task.coalesce.target-records 2^19, the source's watermark every
+    5 ms of wall time: batches must gather, and every window must equal
+    the oracle."""
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+    from flink_tpu_torch.metrics import DEVICE_STATS
+
+    _label, n_keys, n_events, cap = Q5_CELLS[0]
+    before = DEVICE_STATS.snapshot()["batches_coalesced_total"]
+    reset_launches()
+    job, got, span = run_q5(
+        torch, dev, n_keys, n_events, cap, batch=CO_BATCH,
+        wm_interval=CO_WM_INTERVAL_S,
+        settings={"task.coalesce.target-records": CO_TARGET})
+    launches = dict(KERNEL_LAUNCHES)
+    merged = DEVICE_STATS.snapshot()["batches_coalesced_total"] - before
+    windows = q5_oracle_check(n_keys, n_events, span, got)
+    if merged == 0:
+        raise AssertionError("coalesced Q5 through the runtime: no batch "
+                             "gathered at a 5 ms watermark interval")
+    (src,) = job.source_tasks.values()
+    return {"coalesce_runtime": "Q5-1M", "batch": CO_BATCH,
+            "target": CO_TARGET, "watermark_interval_s": CO_WM_INTERVAL_S,
+            "batches": n_events // CO_BATCH, "batches_coalesced": merged,
+            "ingest_steps": launches["ingest_step"],
+            "watermarks": src.watermarks_out, "windows_checked": windows,
+            "wall_s": job.wall_s, "events_per_sec": n_events / job.wall_s}
+
+
+def checkpoint_phase(torch, dev) -> dict:
+    """Checkpoint and restore at Q5-10M. The source is paced to finish in
+    CKPT_RUN_S seconds and checkpoints are on every CKPT_INTERVAL_S; the
+    job is cancelled once one checkpoint completed, a fresh job restores
+    from it and runs to the end. Every window of both jobs equals the
+    oracle; windows of the first job may repeat in the second, with equal
+    values; together they are every window, and the checkpoint fell after
+    the first fire and before the last."""
+    label, n_keys, n_events, cap = Q5_CELLS[1]
+    env, got, span = q5_env(
+        torch, dev, n_keys, n_events, cap, rate=n_events / CKPT_RUN_S,
+        settings={"execution.checkpointing.interval": CKPT_INTERVAL_S})
+    fresh_memory(torch)
+    t0 = time.perf_counter()
+    job = env.execute_async("q5-checkpointed")
+    cp = None
+    while cp is None and not job.failed and time.perf_counter() - t0 < 300:
+        time.sleep(0.002)
+        cp = job.coordinator.latest_checkpoint()
+    completed_at = time.perf_counter() - t0
+    job.cancel()
+    if cp is None:
+        raise AssertionError(f"no checkpoint completed: {job._failed}")
+    op = job.operators[0]
+    stats = job.coordinator.stats[-1]
+    before = list(got)
+    env2, got2, _span = q5_env(torch, dev, n_keys, n_events, cap)
+    env2.restore_from_checkpoint(cp)
+    t1 = time.perf_counter()
+    job2 = env2.execute_async("q5-restored")
+    deploy_s = time.perf_counter() - t1
+    job2.wait()
+    restore_s = job2.operators[0].first_batch_at - t1
+    expected = q5_expected(n_keys, n_events, span)
+    by_end = {e[0]: e for e in expected}
+
+    def check(rows) -> list:
+        ends = [(ts + 1) // PANE_MS for ts, *_ in rows]
+        q5_check([by_end[e] for e in ends], rows)
+        return ends
+
+    ends1, ends2 = check(before), check(got2)
+    if not ends2 or not ends1 or min(ends2) <= expected[0][0]:
+        raise AssertionError(f"the checkpoint did not fall between the first "
+                             f"and the last fire: {ends1} then {ends2}")
+    if sorted(set(ends1) | set(ends2)) != sorted(by_end):
+        raise AssertionError("windows of the two jobs miss some: "
+                             f"{ends1} and {ends2}")
+    return {"checkpoint": f"Q5-{label}", "events": n_events,
+            "source_rate_per_s": n_events / CKPT_RUN_S,
+            "interval_s": CKPT_INTERVAL_S, "checkpoint_id": cp.checkpoint_id,
+            "completed_after_s": completed_at,
+            "barrier_to_ack_s": stats["barrier_to_ack_s"],
+            "duration_s": stats["duration_s"],
+            "snapshot_s": op.backend.last_snapshot_s,
+            "store_s": stats["store_s"], "snapshot_bytes": stats["bytes"],
+            "state_bytes": op.backend.state_nbytes,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "restore_deploy_s": deploy_s,
+            "restore_to_first_batch_s": restore_s,
+            "windows_before_cancel": len(ends1),
+            "windows_after_restore": len(ends2),
+            "windows_repeated": len(set(ends1) & set(ends2))}
+
+
 def main(argv: list[str]) -> int:
     if argv and (argv[0] != "--parent-kernels" or len(argv) != 2):
         print("usage: chip_smoke.py [--parent-kernels DIR]", file=sys.stderr)
@@ -1369,12 +1785,21 @@ def main(argv: list[str]) -> int:
                             "hash_probe": probe, "ingest_step": step,
                             "launch_shape": shape, "window_seal": window}})
     del flush
+    phase_s = {"build_and_kernels": time.perf_counter() - t_start}
+    t_phase = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        phase_s[name] = now - t_phase
+        t_phase = now
+
     check_sync_detector(torch, dev)
     # every cell's timed runs first, both fire modes in turns; then the
     # profiled runs, so no profiler session precedes a timed run
     modes = ("full", "incremental")
     (l1, k1, e1, c1), (l10, k10, e10, c10) = Q5_CELLS
-    q5_1m, run_1m = q5_cell(torch, dev, l1, k1, e1, c1)
+    q5_1m, run_1m = q5_cell(torch, dev, l1, k1, e1, c1, runs=SHORT_RUNS)
     emit(q5_1m["full"])
     q5_10m, run_10m = q5_cell(torch, dev, l10, k10, e10, c10, modes)
     wide, run_wide = q5_cell(torch, dev, f"{l10}-W{WIDE_PANES}", k10, e10,
@@ -1383,18 +1808,36 @@ def main(argv: list[str]) -> int:
     for cell in (q5_10m, wide, q7):
         for m in modes:
             emit(cell[m])
+    phase_done("cells")
     cells = (("Q5-10M", run_10m), ("Q5-10M-W20", run_wide),
              ("Q7-10M", run_7))
     emit({"run_profiles": {
         "Q5-1M full": run_profile(torch, lambda: run_1m("full", None)),
         **{f"{cell} {m}": run_profile(torch, lambda r=r, m=m: r(m, None))
            for cell, r in cells for m in modes}}})
+    # fires are timed with the fused chain on: source and window are then
+    # one task, so no other thread enqueues device work during a fire
     emit({"fire_device_ms": {
-        f"{cell} {m}": fire_device_ms(torch, lambda r=r, m=m: r(m, None))
+        f"{cell} {m}": fire_device_ms(
+            torch, lambda r=r, m=m: r(m, None, fused=True))
         for cell, r in cells for m in modes}})
+    phase_done("profiles_and_fire_times")
     emit(coalesce_phase(torch, dev))
     host = q5_host_batch_phase(torch, dev)
     emit(host)
+    phase_done("coalesce_and_host_batch")
+    fused = fused_chain_phase(torch, dev)
+    emit(fused)
+    phase_done("fused_chain")
+    runtime = runtime_phase(torch, dev)
+    for m in RT_MODES:
+        emit(runtime[m])
+    phase_done("runtime")
+    emit(coalesce_runtime_phase(torch, dev))
+    phase_done("coalesce_runtime")
+    emit(checkpoint_phase(torch, dev))
+    phase_done("checkpoint")
+    emit({"phase_seconds": phase_s})
     emit({"smoke_seconds_before_kernels_line": time.perf_counter() - t_start})
     main_run = q5_1m["full"]["launches_per_run"]
     inc_run = q5_10m["incremental"]["launches_per_run"]
@@ -1450,7 +1893,11 @@ def main(argv: list[str]) -> int:
          "max_abs_err": step["max_abs_err"], **step["shapes"][small],
          "at_capacity_2^24": step["shapes"][large],
          "launches_q5_10M": q5_10m["full"]["launches_per_run"][
-             "ingest_step"]},
+             "ingest_step"],
+         "launches_q5_10M_fused": runtime["fused"]["launches_per_run"][
+             "ingest_step"],
+         "fused_graph_launches_per_micro_batch":
+             fused["graph_launches"] / fused["micro_batches"][0]},
         window_entry("seal",
                      "flink_tpu/runtime/operators/device_window.py:295"),
         window_entry("rebuild",

@@ -10,8 +10,13 @@ keeps its own trimmed copies of the host modules it needs. Layout mirrors
   ops/        hash table, segment folds, radix top-k, kernel build + binding
   csrc/       hand-written CUDA kernels (sm_90a), built at first use
   state/      device keyed-state backend (hash table + pane planes)
-  runtime/    operator base, harness, local runner, the window operator
+  runtime/    operator base and chain, harness, the window operator, stream
+              tasks, channels, record writers, the fused chain
+  graph/      transformations, StreamGraph/JobGraph, fusion certificate
+  cluster/    local deployment of a JobGraph as threads
+  checkpoint/ checkpoint coordinator and storage
   connectors/ datagen and collection sources
+  metrics/    device counters
   api/        StreamExecutionEnvironment / DataStream
 
 Device policy (``device.py``): entry points run on ``cuda`` unless the

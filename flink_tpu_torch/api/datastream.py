@@ -1,45 +1,87 @@
-"""DataStream API of the port (the Q5 subset of
-``flink_tpu/api/datastream.py``): a linear chain source -> key_by ->
-window -> device_aggregate -> sink."""
+"""DataStream API of the port (trimmed port of
+``flink_tpu/api/datastream.py``): a lazy Transformation DAG of sources,
+keyed exchanges, device window aggregates, custom one-input operators and
+sinks, compiled and run by ``StreamExecutionEnvironment.execute``."""
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
+
+from ..core.records import RecordBatch
+from ..graph.transformations import OneInputTransformation, \
+    PartitionTransformation, SinkTransformation, Transformation
 from ..runtime.operators.device_window import DeviceWindowAggOperator
 from ..runtime.operators.sink import CollectSink, SinkOperator
+from ..runtime.writer import KeyGroupPartitioner, RebalancePartitioner
 from ..window.assigners import WindowAssigner
 
 __all__ = ["DataStream", "KeyedStream", "WindowedStream"]
 
 
+def _column_extractor(key: str):
+    def extract(batch: RecordBatch) -> np.ndarray:
+        return batch.column(key)
+    extract.column = key
+    return extract
+
+
 class DataStream:
-    """One linear pipeline: a source, its watermark strategy and a list of
-    operator factories, run by ``env.execute``."""
-
-    def __init__(self, env, source, watermark_strategy, factories=()):
+    def __init__(self, env, transformation: Transformation):
         self.env = env
-        self.source = source
-        self.watermark_strategy = watermark_strategy
-        self.factories = list(factories)
+        self.transformation = transformation
 
-    def _then(self, factory) -> "DataStream":
-        return DataStream(self.env, self.source, self.watermark_strategy,
-                          self.factories + [factory])
+    def _one_input(self, name: str, factory, parallelism=None,
+                   key_extractor=None, traceable=False) -> "DataStream":
+        t = OneInputTransformation(
+            name=name, operator_factory=factory, parallelism=parallelism,
+            inputs=[self.transformation], key_extractor=key_extractor,
+            traceable=traceable)
+        self.env._transformations.append(t)
+        return DataStream(self.env, t)
 
-    def key_by(self, key_column: str) -> "KeyedStream":
-        """Key by an integer column. One subtask owns every key group, so
-        the keyed exchange is the identity."""
-        if not isinstance(key_column, str):
+    def transform(self, name: str, operator_factory,
+                  parallelism: Optional[int] = None,
+                  traceable: bool = False) -> "DataStream":
+        """Attach a custom one-input operator; ``traceable`` declares it
+        device-safe (a pure columnwise step the fusion certifier may fuse
+        through)."""
+        return self._one_input(name, operator_factory, parallelism,
+                               traceable=traceable)
+
+    def key_by(self, key: str) -> "KeyedStream":
+        """Key by an integer column: a hash exchange by key group."""
+        if not isinstance(key, str):
             raise ValueError("the port keys by a column name")
-        return KeyedStream(self, key_column)
+        extractor = _column_extractor(key)
+        maxp = self.env.max_parallelism
+        t = PartitionTransformation(
+            name="keyed-exchange",
+            partitioner_factory=lambda: KeyGroupPartitioner(extractor, maxp),
+            partitioner_name="hash", inputs=[self.transformation])
+        self.env._transformations.append(t)
+        return KeyedStream(self.env, t, extractor, key)
 
-    def add_sink(self, sink, name: str = "Sink") -> "DataStream":
+    def rebalance(self) -> "DataStream":
+        t = PartitionTransformation(
+            name="rebalance", partitioner_factory=RebalancePartitioner,
+            partitioner_name="rebalance", inputs=[self.transformation])
+        self.env._transformations.append(t)
+        return DataStream(self.env, t)
+
+    def add_sink(self, sink, name: str = "Sink",
+                 parallelism: Optional[int] = None) -> "DataStream":
         """``sink``: a callable taking a batch, or an object with
         ``invoke_batch(batch)``."""
-        stream = self._then(lambda: SinkOperator(sink, name))
-        self.env._pipelines.append(stream)
-        return stream
+        t = SinkTransformation(name=name,
+                               operator_factory=lambda: SinkOperator(sink,
+                                                                     name),
+                               parallelism=parallelism,
+                               inputs=[self.transformation])
+        self.env._transformations.append(t)
+        self.env._sinks.append(t)
+        return self
 
     def execute_and_collect(self, job_name: str = "collect") -> list:
         sink = CollectSink()
@@ -47,11 +89,29 @@ class DataStream:
         self.env.execute(job_name)
         return sink.rows
 
+    def set_parallelism(self, parallelism: int) -> "DataStream":
+        self.transformation.parallelism = parallelism
+        return self
 
-class KeyedStream:
-    def __init__(self, stream: DataStream, key_column: str):
-        self.stream = stream
-        self.key_column = key_column
+    def uid(self, uid: str) -> "DataStream":
+        self.transformation.uid = uid
+        return self
+
+    def name(self, name: str) -> "DataStream":
+        self.transformation.name = name
+        return self
+
+    def disable_chaining(self) -> "DataStream":
+        self.transformation.chaining_allowed = False
+        return self
+
+
+class KeyedStream(DataStream):
+    def __init__(self, env, transformation: Transformation, key_extractor,
+                 key_spec: str):
+        super().__init__(env, transformation)
+        self.key_extractor = key_extractor
+        self.key_spec = key_spec
 
     def window(self, assigner: WindowAssigner) -> "WindowedStream":
         return WindowedStream(self, assigner)
@@ -72,9 +132,8 @@ class WindowedStream:
         """Device window aggregation: rows (key, [window_start,
         window_end], *aggregates); ``emit_topk=k`` emits the top k keys by
         the first aggregate per window (the Q5 hot-items fire)."""
-        stream = self.keyed.stream
-        assigner, key_col = self.assigner, self.keyed.key_column
-        device = stream.env.device
+        assigner, key_col = self.assigner, self.keyed.key_spec
+        device = self.keyed.env.device
 
         def factory():
             return DeviceWindowAggOperator(
@@ -83,4 +142,5 @@ class WindowedStream:
                 emit_topk=emit_topk, defer_overflow=defer_overflow,
                 async_fire=async_fire, device=device, name=name)
 
-        return stream._then(factory)
+        return self.keyed._one_input(name, factory,
+                                     key_extractor=self.keyed.key_extractor)

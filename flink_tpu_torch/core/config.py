@@ -1,20 +1,39 @@
-"""Job configuration: the few string keys the port reads.
+"""Job configuration: the string keys the port reads.
 
 A trimmed stand-in for ``flink_tpu/core/config.py``'s typed options. Keys
 and defaults match the reference's, so one dict of settings drives both.
+Durations are seconds (a number, or a string such as ``"5 ms"``).
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Optional
 
 __all__ = ["Configuration", "DEFAULTS"]
 
-#: key -> default (reference: PipelineOptions / TaskOptions /
-#: WindowOptions)
+#: key -> default (reference: PipelineOptions / CheckpointingOptions /
+#: TaskOptions / WindowOptions)
 DEFAULTS: dict[str, Any] = {
-    "pipeline.micro-batch-size": 4096,
+    "pipeline.parallelism": 1,
     "pipeline.max-parallelism": 128,
+    "pipeline.micro-batch-size": 4096,
+    # fuse compatible adjacent operators into one task
+    "pipeline.operator-chaining": True,
+    # periodic watermark emission of a source task (seconds of wall time;
+    # 0 emits after every batch)
+    "pipeline.auto-watermark-interval": 0.2,
+    # certify chains (graph/fusion.py) and lower a certified source ->
+    # window prefix to one dispatch per micro-batch; also lets a hash edge
+    # chain at parallelism 1 into a device window aggregate
+    "pipeline.fusion.enabled": False,
+    # seconds between checkpoints; 0 disables periodic checkpoints
+    "execution.checkpointing.interval": 0.0,
+    # exactly-once (aligned barriers) or at-least-once
+    "execution.checkpointing.mode": "exactly-once",
+    "execution.checkpointing.timeout": 600.0,
+    # checkpoint directory; in-memory storage when unset
+    "execution.checkpointing.dir": None,
     "task.max-inflight": 2,
     # coalesce consecutive same-schema micro-batches host-side up to this
     # many records, then run one ingest step (0/1: off)
@@ -27,6 +46,23 @@ DEFAULTS: dict[str, Any] = {
     "window.fire.incremental": False,
 }
 
+#: value type of each key whose default does not name it
+_TYPES: dict[str, type] = {"execution.checkpointing.dir": str}
+_DURATIONS = {"pipeline.auto-watermark-interval",
+              "execution.checkpointing.interval",
+              "execution.checkpointing.timeout"}
+_DURATION_RE = re.compile(r"^\s*([0-9.]+)\s*(ms|s|min)?\s*$")
+_UNITS = {"ms": 1e-3, "s": 1.0, "min": 60.0}
+
+
+def _duration(value: Any) -> float:
+    if isinstance(value, (int, float)):
+        return float(value)
+    m = _DURATION_RE.match(str(value))
+    if not m:
+        raise ValueError(f"cannot parse duration {value!r}")
+    return float(m.group(1)) * _UNITS[m.group(2) or "s"]
+
 
 class Configuration:
     def __init__(self, values: Optional[dict] = None):
@@ -38,12 +74,19 @@ class Configuration:
         if key not in DEFAULTS:
             raise KeyError(f"unknown option {key!r}; the port reads "
                            f"{sorted(DEFAULTS)}")
-        kind = type(DEFAULTS[key])
-        if kind is bool and isinstance(value, str):
+        kind = _TYPES.get(key, type(DEFAULTS[key]))
+        if value is None:
+            if DEFAULTS[key] is not None:
+                raise ValueError(f"{key} takes a value")
+        elif key in _DURATIONS:
+            value = _duration(value)
+        elif kind is bool and isinstance(value, str):
             if value.strip().lower() not in ("true", "false"):
                 raise ValueError(f"{key} takes true or false, not {value!r}")
             value = value.strip().lower() == "true"
-        self._values[key] = kind(value)
+        else:
+            value = kind(value)
+        self._values[key] = value
         return self
 
     def get(self, key: str) -> Any:

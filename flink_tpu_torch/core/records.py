@@ -142,3 +142,16 @@ class RecordBatch:
 
     def filter(self, mask: np.ndarray) -> "RecordBatch":
         return self.take(np.flatnonzero(mask))
+
+    @classmethod
+    def empty(cls, schema: Schema) -> "RecordBatch":
+        return cls(schema, {f.name: np.empty(0, dtype=f.dtype)
+                            for f in schema.fields})
+
+    def split_by(self, part: np.ndarray, num_parts: int) -> list["RecordBatch"]:
+        """Partition rows by an int partition-id array (stable within
+        parts)."""
+        order = np.argsort(part, kind="stable")
+        bounds = np.searchsorted(part[order], np.arange(num_parts + 1))
+        return [self.take(order[bounds[p]:bounds[p + 1]])
+                for p in range(num_parts)]

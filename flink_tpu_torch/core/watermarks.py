@@ -86,13 +86,14 @@ class WatermarkStrategy:
             # the source usually bound this column with analytic bounds; a
             # late bind (another column, or none yet) repairs ts_min/ts_max
             # with one device min/max: correctness over speed, rare path
-            if (batch.dtimestamps is None
-                    or batch.ts_column != self.timestamp_column):
-                col = batch.device_column(self.timestamp_column)
-                batch.dtimestamps = col.to(torch.int64)
-                batch.ts_column = self.timestamp_column
-                batch.ts_min = int(col.min())
-                batch.ts_max = int(col.max())
+            if batch.ts_column == self.timestamp_column and (
+                    batch.lazy or batch.dtimestamps is not None):
+                return batch   # bound at the source (a lazy batch: unread)
+            col = batch.device_column(self.timestamp_column)
+            batch.dtimestamps = col.to(torch.int64)
+            batch.ts_column = self.timestamp_column
+            batch.ts_min = int(col.min())
+            batch.ts_max = int(col.max())
             return batch
         return batch.with_timestamps(
             batch.column(self.timestamp_column).astype(np.int64))

@@ -188,6 +188,9 @@ struct StepArgs {
   int key_dtype;
   long long n;
   long long pane, offset, first_open, ring;
+  // non-null: first_open is read from this device scalar instead (a graph
+  // replays frozen by-value arguments, so per-batch scalars live there)
+  const long long* first_open_at;
   unsigned long long* late;
   unsigned long long* dropped;
   int n_planes;
@@ -285,7 +288,9 @@ __global__ void __launch_bounds__(kThreads) ingest_step_kernel(StepArgs a) {
   const long long d = (long long)((unsigned long long)ts -
                                   (unsigned long long)a.offset);
   const long long pane = floor_div(d, a.pane);
-  const bool fresh = in && pane >= a.first_open;
+  const long long first_open =
+      a.first_open_at != nullptr ? __ldg(a.first_open_at) : a.first_open;
+  const bool fresh = in && pane >= first_open;
   long long k = value_as<long long>(kr, a.key_dtype);
   if (k == (long long)kEmpty) k = (long long)kEmpty - 1;  // sanitize
   const int slot =
@@ -343,13 +348,15 @@ extern "C" int hash_probe_launch(void* table, long long capacity,
 // columns col_data[c] [n] of col_dtype[c]. Plane q is a [ring, capacity]
 // buffer of plane_dtype[q] (not bool) folded by plane_kind[q] with column
 // plane_col[q] (-1: +1, the count plane). late and dropped: int64
-// counters, added to.
+// counters, added to. first_open_at: null, or an int64 device scalar read
+// in place of first_open.
 // Dtype codes: 0 int64, 1 int32, 2 float32, 3 float64, 4 uint8, 5 bool.
 // Kind codes: 0 sum (and count), 1 min, 2 max. Returns cudaGetLastError.
 extern "C" int ingest_step_launch(
     void* table, long long capacity, const void* ts, const void* keys,
     int key_dtype, long long n, long long pane, long long offset,
-    long long first_open, long long ring, void* late, void* dropped,
+    long long first_open, const void* first_open_at, long long ring,
+    void* late, void* dropped,
     int n_planes, void* const* plane_data, const int* plane_kind,
     const int* plane_dtype, const int* plane_col, int n_cols,
     const void* const* col_data, const int* col_dtype, void* stream) {
@@ -369,6 +376,7 @@ extern "C" int ingest_step_launch(
   a.pane = pane;
   a.offset = offset;
   a.first_open = first_open;
+  a.first_open_at = (const long long*)first_open_at;
   a.ring = ring;
   a.late = (unsigned long long*)late;
   a.dropped = (unsigned long long*)dropped;
@@ -397,6 +405,23 @@ extern "C" int ingest_step_launch(
     case 6: return (int)launch_step<6>(a, s);
     default: return (int)launch_step<7>(a, s);
   }
+}
+
+// Loads every kernel of this library now, so a first launch inside a CUDA
+// graph capture never has to load a module (lazy loading). Returns
+// cudaGetLastError.
+extern "C" int hash_table_load() {
+  cudaFuncAttributes attr;
+  cudaFuncGetAttributes(&attr, hash_probe_kernel);
+  cudaFuncGetAttributes(&attr, ingest_step_kernel<0>);
+  cudaFuncGetAttributes(&attr, ingest_step_kernel<1>);
+  cudaFuncGetAttributes(&attr, ingest_step_kernel<2>);
+  cudaFuncGetAttributes(&attr, ingest_step_kernel<3>);
+  cudaFuncGetAttributes(&attr, ingest_step_kernel<4>);
+  cudaFuncGetAttributes(&attr, ingest_step_kernel<5>);
+  cudaFuncGetAttributes(&attr, ingest_step_kernel<6>);
+  cudaFuncGetAttributes(&attr, ingest_step_kernel<7>);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* hash_probe_error_string(int code) {

@@ -4,12 +4,15 @@
   Without CUDA they raise unless the caller asked for ``"cpu"``: there is
   no quiet fallback, so a run on the CPU is always one somebody asked for.
 * Every kernel wrapper adds one to its counter in ``KERNEL_LAUNCHES``
-  where it launches its kernel, and nowhere else. A caller resets the
+  where it launches its kernel, and nowhere else; a replay of a CUDA
+  graph adds one for each kernel launch the graph holds. A caller resets the
   counters, drives a path and reads them back to show which kernels the
   path went through.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -21,6 +24,8 @@ __all__ = ["resolve_device", "KERNEL_LAUNCHES", "note_launch",
 KERNEL_LAUNCHES: dict[str, int] = {"hist256": 0, "hash_probe": 0,
                                    "ingest_step": 0, "window_seal": 0,
                                    "window_rebuild": 0}
+# the tasks of a job launch from threads of their own
+_LAUNCH_LOCK = threading.Lock()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -38,12 +43,19 @@ def resolve_device(device=None) -> torch.device:
 
 
 def note_launch(kernel: str) -> None:
-    KERNEL_LAUNCHES[kernel] = KERNEL_LAUNCHES.get(kernel, 0) + 1
+    """Count one launch of ``kernel``. A launch recorded into a CUDA graph
+    under capture does not run then: its graph's replays count it
+    (``runtime/compiled.py``)."""
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        return
+    with _LAUNCH_LOCK:
+        KERNEL_LAUNCHES[kernel] = KERNEL_LAUNCHES.get(kernel, 0) + 1
 
 
 def reset_launches() -> None:
-    for name in KERNEL_LAUNCHES:
-        KERNEL_LAUNCHES[name] = 0
+    with _LAUNCH_LOCK:
+        for name in KERNEL_LAUNCHES:
+            KERNEL_LAUNCHES[name] = 0
 
 
 _NP_TO_TORCH = {

@@ -7,7 +7,10 @@ coalesced ingest's accounting, with the reference's counter names.
 * ``fire_merge_rows_read``: pane rows read per window fire (a full merge
   reads W, a seal 2 or 1);
 * ``batches_coalesced_total``: upstream micro-batches merged into one
-  coalesced ingest step.
+  coalesced ingest step;
+* ``chain_fused_dispatches_total``: micro-batches a certified fused
+  source -> window chain ran as one dispatch (a CUDA graph replay on the
+  card).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ class DeviceStats:
         self._panes_sealed = 0
         self._batches_coalesced = 0
         self._fire_merge_rows = 0
+        self._chain_dispatches = 0
 
     def note_panes_sealed(self, n: int = 1) -> None:
         with self._lock:
@@ -38,12 +42,17 @@ class DeviceStats:
         with self._lock:
             self._fire_merge_rows += int(n)
 
+    def note_chain_dispatch(self) -> None:
+        with self._lock:
+            self._chain_dispatches += 1
+
     def snapshot(self) -> dict[str, int]:
         """Flat cumulative view, under the reference's keys."""
         with self._lock:
             return {"panes_sealed_total": self._panes_sealed,
                     "batches_coalesced_total": self._batches_coalesced,
-                    "fire_merge_rows_read": self._fire_merge_rows}
+                    "fire_merge_rows_read": self._fire_merge_rows,
+                    "chain_fused_dispatches_total": self._chain_dispatches}
 
 
 DEVICE_STATS = DeviceStats()

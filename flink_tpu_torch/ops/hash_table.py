@@ -223,7 +223,7 @@ _KINDS = {"sum": 0, "count": 0, "min": 1, "max": 2}
 _MAX_PLANES, _MAX_COLS = 8, 7
 
 
-def _check_step(table, planes, ts, keys, late, dropped) -> None:
+def _check_step(table, planes, ts, keys, first_open, late, dropped) -> None:
     dev = table.device
     _check_table(table)
     if ts.dtype != torch.int64 or ts.dim() != 1 or not ts.is_contiguous():
@@ -257,14 +257,20 @@ def _check_step(table, planes, ts, keys, late, dropped) -> None:
     for c in (late, dropped):
         if c.dtype != torch.int64 or c.numel() != 1:
             raise ValueError("late and dropped must be int64 scalars")
+    if isinstance(first_open, torch.Tensor) and (
+            first_open.dtype != torch.int64 or first_open.dim() != 0
+            or first_open.device != dev):
+        raise ValueError("first_open is an int or a 0-d int64 tensor on the "
+                         "table's device")
 
 
 def ingest_step_plain(table: torch.Tensor, planes: Sequence[tuple],
                       ts: torch.Tensor, keys: torch.Tensor, pane: int,
-                      offset: int, first_open: int, late: torch.Tensor,
+                      offset: int, first_open, late: torch.Tensor,
                       dropped: torch.Tensor) -> None:
     """Plain version of ``ingest_step`` (any device): the chain of the
-    probe's plain version and one ``scatter_fold`` per plane."""
+    probe's plain version and one ``scatter_fold`` per plane. A tensor
+    ``first_open`` is compared on the device, as the kernel reads it."""
     panes = torch.div(ts - offset, pane, rounding_mode="floor")
     fresh = panes >= first_open
     late += (~fresh).sum()
@@ -280,7 +286,7 @@ def ingest_step_plain(table: torch.Tensor, planes: Sequence[tuple],
 
 def ingest_step(table: torch.Tensor, planes: Sequence[tuple],
                 ts: torch.Tensor, keys: torch.Tensor, pane: int, offset: int,
-                first_open: int, late: torch.Tensor,
+                first_open, late: torch.Tensor,
                 dropped: torch.Tensor) -> None:
     """One ingest step of a micro-batch, IN PLACE, with no host sync.
 
@@ -291,8 +297,11 @@ def ingest_step(table: torch.Tensor, planes: Sequence[tuple],
     row p mod ring at its slot of each plane. ``planes``: (kind, [ring,
     capacity] array, values [n] or None) with kind in sum|count|min|max;
     values None folds +1 (the count plane). ``late``, ``dropped``: int64
-    scalars on the device, added to."""
-    _check_step(table, planes, ts, keys, late, dropped)
+    scalars on the device, added to. ``first_open`` is an int, or a 0-d
+    int64 tensor on the device that the kernel reads when it runs: the
+    form a CUDA graph replays, whose by-value arguments are frozen at
+    capture (``runtime/compiled.py``). Either way it is one launch."""
+    _check_step(table, planes, ts, keys, first_open, late, dropped)
     if table.device.type == "cpu":
         return ingest_step_plain(table, planes, ts, keys, pane, offset,
                                  first_open, late, dropped)
@@ -321,9 +330,11 @@ def ingest_step(table: torch.Tensor, planes: Sequence[tuple],
         return
     n_p, n_c = len(planes), len(cols)
     ints = ctypes.c_int * n_p
+    at = isinstance(first_open, torch.Tensor)
     rc = kernels.library("hash_table").ingest_step_launch(
         table.data_ptr(), table.numel(), ts.data_ptr(), keys.data_ptr(),
-        _CODES[keys.dtype], n, int(pane), int(offset), int(first_open),
+        _CODES[keys.dtype], n, int(pane), int(offset),
+        0 if at else int(first_open), first_open.data_ptr() if at else None,
         planes[0][1].shape[0], late.data_ptr(), dropped.data_ptr(), n_p,
         (ctypes.c_void_p * n_p)(*[arr.data_ptr() for _k, arr, _v in planes]),
         ints(*[_KINDS[kind] for kind, _a, _v in planes]),

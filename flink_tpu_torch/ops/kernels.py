@@ -49,8 +49,9 @@ SOURCES = {
     "hash_table": {
         "hash_probe_launch": [_P, _I64, _P, _P, _I64, _I32, _P, _P, _P],
         "ingest_step_launch": [_P, _I64, _P, _P, _I32, _I64, _I64, _I64,
-                               _I64, _I64, _P, _P, _I32, _PP, _PI32, _PI32,
-                               _PI32, _I32, _PP, _PI32, _P],
+                               _I64, _P, _I64, _P, _P, _I32, _PP, _PI32,
+                               _PI32, _PI32, _I32, _PP, _PI32, _P],
+        "hash_table_load": [],
     },
     "window_seal": {
         "window_seal_launch": [_I64, _I64, _I32, _PP, _PP, _PP, _PI32, _PI32,
@@ -64,6 +65,10 @@ SOURCES = {
 _ERROR_STRING = {"hist256": "hist256_error_string",
                  "hash_table": "hash_probe_error_string",
                  "window_seal": "window_seal_error_string"}
+
+#: source stem -> C entry that loads every kernel of the library at once
+#: (its kernels launch inside CUDA graph captures)
+_LOAD = {"hash_table": "hash_table_load"}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -135,6 +140,8 @@ def library(stem: str) -> ctypes.CDLL:
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         _LIBS[stem] = lib
+        if stem in _LOAD:
+            check(stem, getattr(lib, _LOAD[stem])())
     return lib
 
 

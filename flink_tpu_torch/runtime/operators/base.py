@@ -3,7 +3,8 @@
 
 Operators are batch-oriented: ``process_batch`` receives a whole
 RecordBatch and watermarks arrive through ``process_watermark`` in channel
-order. Chained operators call each other directly.
+order. Chained operators call each other directly; ``OperatorChain`` is
+the fused sequence one task runs.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from ...core.keygroups import KeyGroupRange, key_group_range_for_operator
 from ...core.records import MIN_TIMESTAMP, RecordBatch
 
 __all__ = ["OperatorContext", "Output", "CollectingOutput", "StreamOperator",
-           "OneInputOperator", "chain_operators"]
+           "OneInputOperator", "OperatorChain"]
 
 
 @dataclass
@@ -114,11 +115,53 @@ class _ChainingOutput(Output):
         self._op.process_watermark(watermark)
 
 
-def chain_operators(operators: list, ctx: OperatorContext,
-                    tail: Output) -> None:
-    """Wire ``operators`` back to front: each one's output feeds the next,
-    the last one's feeds ``tail``."""
-    out = tail
-    for op in reversed(operators):
-        op.setup(ctx, out)
-        out = _ChainingOutput(op)
+class OperatorChain:
+    """A fused sequence of operators run by one task. The head receives
+    the task's input; the tail writes the task's output."""
+
+    def __init__(self, operators: list, ctx: OperatorContext,
+                 tail_output: Output):
+        self.operators = operators
+        self.ctx = ctx
+        for i, op in enumerate(operators):
+            # stable per-operator id for state snapshots (unique in the
+            # chain): the reference's key, so checkpoints map across
+            op._op_key = f"{i}:{op.name}"
+        out = tail_output
+        for op in reversed(operators):
+            op.setup(ctx, out)
+            out = _ChainingOutput(op)
+        self.head = operators[0]
+
+    def initialize_state(self, per_operator_snapshots) -> None:
+        for op in self.operators:
+            snaps = (per_operator_snapshots or {}).get(_op_key(op))
+            op.initialize_state(
+                snaps.get("keyed_list", []) if snaps else [],
+                snaps.get("operator") if snaps else None)
+
+    def open(self) -> None:
+        for op in reversed(self.operators):  # downstream first
+            op.open()
+
+    def process_batch(self, batch: RecordBatch) -> None:
+        self.head.process_batch(batch)
+
+    def process_watermark(self, watermark: Watermark) -> None:
+        self.head.process_watermark(watermark)
+
+    def snapshot_state(self, checkpoint_id: int) -> dict:
+        return {_op_key(op): op.snapshot_state(checkpoint_id)
+                for op in self.operators}
+
+    def finish(self) -> None:
+        for op in self.operators:
+            op.finish()
+
+    def close(self) -> None:
+        for op in self.operators:
+            op.close()
+
+
+def _op_key(op: StreamOperator) -> str:
+    return getattr(op, "_op_key", op.name)

@@ -30,10 +30,15 @@
   admits more work, so the device stays fed while the backlog (and the
   fire latency behind it) stays bounded.
 
+* A certified fused chain (``enable_fused_chain``) hands this operator
+  ``LazyDeviceBatch`` handles; each is decoded and folded in one dispatch
+  (``_ingest_chain``, ``runtime/compiled.py``: a CUDA graph replay on the
+  card).
+
 Late records (pane already fired) are dropped and counted. Host batches
 (the test harness, host sources) take the host late filter and upload
-their columns. The spill tier, the fused chain, the device guard and the
-degrade ladder are later slices.
+their columns. The spill tier, the device guard and the degrade ladder
+are later slices.
 """
 
 from __future__ import annotations
@@ -181,6 +186,12 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
         #: rebuilds by cause, for the run's record
         self.inc_rebuilds: dict[str, int] = {}
         self._init_coalescer()
+        # certified fused chain (graph/fusion.py lowered_prefix): armed by
+        # the deployer through enable_fused_chain, built at the first batch
+        self._fused_spec: Optional[tuple] = None  # (source, subtask, par)
+        self.fused_chain = None                   # runtime.compiled.FusedChain
+        #: perf_counter of the first batch this operator processed
+        self.first_batch_at: Optional[float] = None
 
     # -- lifecycle ---------------------------------------------------------
     def setup(self, ctx: OperatorContext, output: Output) -> None:
@@ -235,20 +246,41 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
             self._inc_stale = "restore"
             self._inc_next = None
 
+    def enable_fused_chain(self, source, subtask: int,
+                           parallelism: int) -> bool:
+        """Arm the certified source -> window lowering (called by the
+        deployer before setup): the upstream reader then emits
+        ``LazyDeviceBatch`` handles and this operator decodes and folds
+        each in one dispatch. Only under deferred overflow, as the fused
+        dispatch checks nothing on the host."""
+        if not self._defer:
+            return False
+        self._fused_spec = (source, int(subtask), int(parallelism))
+        return True
+
+    def disable_fused_chain(self) -> None:
+        self._fused_spec = None
+
     # -- data path ---------------------------------------------------------
     def process_batch(self, batch: RecordBatch) -> None:
         if batch.n == 0:
             return
-        if self._coalesce_target > 1:
+        if self._coalesce_target > 1 and not getattr(batch, "lazy", False):
             self._coalesce_admit(batch)
-        else:
-            self._process_batch_now(batch)
+            return
+        if self._coalesce_target > 1:
+            # a lazy chain batch is already a full micro-batch: flushing the
+            # buffered batches first keeps arrival order
+            self._coalesce_flush()
+        self._process_batch_now(batch)
 
     def _process_batch_now(self, batch: RecordBatch) -> None:
         if self._pending:
             self._drain(block=False)
         if batch.n == 0:
             return
+        if self.first_batch_at is None:
+            self.first_batch_at = time.perf_counter()
         if not self._registered:
             key_dtype = np.dtype(batch.schema.field(self._key_column).dtype)
             if not np.issubdtype(key_dtype, np.integer):
@@ -256,7 +288,10 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
                     "device window aggregation needs an integer key column; "
                     f"{self._key_column!r} is {key_dtype}")
             self._register_aggs(batch.schema)
-        if (isinstance(batch, DeviceRecordBatch) and self._defer
+        if (self._fused_spec is not None and getattr(batch, "lazy", False)
+                and not batch.realized):
+            self._ingest_chain(batch)
+        elif (isinstance(batch, DeviceRecordBatch) and self._defer
                 and batch.dtimestamps is not None):
             self._ingest_device(batch)
         else:
@@ -295,17 +330,19 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
                                valid, ring_idx)
         self._admit_token()
 
-    def _ingest_device(self, batch: DeviceRecordBatch) -> None:
-        """Device-born batch: the host does pane bookkeeping on the batch's
-        event-time BOUNDS only, the data plane is ``_step``. A batch wholly
-        behind the fired boundary is dropped without device work."""
+    def _device_bookkeeping(self, batch: DeviceRecordBatch
+                            ) -> Optional[int]:
+        """Pane bookkeeping of a device batch on its event-time BOUNDS
+        only; returns the step's first open pane, or None when the batch
+        is wholly behind the fired boundary (dropped and counted, with no
+        device work)."""
         pane_lo = (batch.ts_min - self._offset) // self._pane
         pane_hi = (batch.ts_max - self._offset) // self._pane
         first_open = (self._fired_boundary - self._window_panes
                       if self._fired_boundary is not None else None)
         if first_open is not None and pane_hi < first_open:
             self._late_dropped += batch.n
-            return
+            return None
         eff_lo = pane_lo if first_open is None else max(pane_lo, first_open)
         self._max_seen_pane = (pane_hi if self._max_seen_pane is None
                                else max(self._max_seen_pane, pane_hi))
@@ -316,8 +353,38 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
         if self._late_dev is None:
             self._late_dev = torch.zeros((), dtype=torch.int64,
                                          device=self._device)
-        self._step(batch, first_open if first_open is not None
-                   else MIN_TIMESTAMP)
+        return first_open if first_open is not None else MIN_TIMESTAMP
+
+    def _ingest_device(self, batch: DeviceRecordBatch) -> None:
+        """Device-born batch: host bookkeeping on the bounds, then
+        ``_step`` on the device."""
+        first_open = self._device_bookkeeping(batch)
+        if first_open is None:
+            return
+        self._step(batch, first_open)
+        self._admit_token()
+
+    def _ingest_chain(self, batch) -> None:
+        """Certified-chain ingest of a ``LazyDeviceBatch``: no columns
+        exist yet; one dispatch (runtime/compiled.py) decodes the batch
+        from its start index and folds it, with the same bookkeeping as
+        ``_ingest_device``."""
+        first_open = self._device_bookkeeping(batch)
+        if first_open is None:
+            batch.realize()   # the reader's contract check sees it too
+            return
+        if self.fused_chain is None:
+            from ..compiled import FusedChain
+            source, subtask, parallelism = self._fused_spec
+            self.fused_chain = FusedChain(
+                source, subtask, parallelism, self._key_column, self._pane,
+                self._offset, self._device)
+        backend = self._backend
+        planes = backend.fold_planes(      # (kind, plane, field name)
+            [("__count__", None)]
+            + [(name, field) for _kind, name, field in self._fold_sig()])
+        self.fused_chain.run(batch, backend.table, planes, self._late_dev,
+                             backend.dropped_device, first_open)
         self._admit_token()
 
     def _step(self, batch: DeviceRecordBatch, first_open: int) -> None:

@@ -3,6 +3,8 @@
 
 from __future__ import annotations
 
+import threading
+
 from ...core.records import RecordBatch
 from .base import OneInputOperator
 
@@ -28,10 +30,14 @@ class SinkOperator(OneInputOperator):
 
 
 class CollectSink:
-    """Collects every row (the execute_and_collect sink)."""
+    """Collects every row (the execute_and_collect sink), from any number
+    of sink subtasks."""
 
     def __init__(self):
         self.rows: list = []
+        self._lock = threading.Lock()
 
     def invoke_batch(self, batch: RecordBatch) -> None:
-        self.rows.extend(batch.iter_rows())
+        rows = list(batch.iter_rows())
+        with self._lock:
+            self.rows.extend(rows)

@@ -24,6 +24,7 @@ snapshot mirror, the native host index and the row planes.
 
 from __future__ import annotations
 
+import time
 from typing import Iterable, Optional
 
 import numpy as np
@@ -79,6 +80,9 @@ class DeviceKeyedStateBackend:
         # inserts accumulate in a device counter read at fire boundaries
         self._defer = bool(defer_overflow)
         self._dropped = torch.zeros((), dtype=torch.int64, device=self.device)
+        #: seconds of the last snapshot's phases: the copy to the host, and
+        #: the hash, sort and gather there
+        self.last_snapshot_s: dict[str, float] = {}
 
     # -- array states ---------------------------------------------------
     def register_array_state(self, name: str, kind: str, dtype,
@@ -147,11 +151,14 @@ class DeviceKeyedStateBackend:
         ``first_open`` count into ``late``, the others find-or-claim their
         key and fold into each named ring plane, ``(name, values)`` with
         values None for +1; failed inserts count into ``dropped_device``."""
-        planes = [(self._array_states[name].kind,
-                   self._array_states[name].array, values)
-                  for name, values in folds]
-        ingest_step(self.table, planes, ts, keys, pane, offset, first_open,
-                    late, self._dropped)
+        ingest_step(self.table, self.fold_planes(folds), ts, keys, pane,
+                    offset, first_open, late, self._dropped)
+
+    def fold_planes(self, folds: list[tuple[str, object]]) -> list[tuple]:
+        """(name, values) -> (kind, plane array, values) for the step."""
+        return [(self._array_states[name].kind,
+                 self._array_states[name].array, values)
+                for name, values in folds]
 
     def fold_batch(self, name: str, slots: torch.Tensor,
                    values: torch.Tensor, valid: torch.Tensor,
@@ -233,8 +240,14 @@ class DeviceKeyedStateBackend:
     # -- checkpointing -----------------------------------------------------
     def snapshot(self, checkpoint_id: int) -> dict:
         """Host numpy snapshot in the reference's schema, canonical
-        (group, key) order."""
+        (group, key) order: the table and every pane plane copied whole to
+        the host, then the occupied keys hashed, sorted and gathered there.
+        ``last_snapshot_s`` keeps the seconds of the two phases."""
+        t0 = time.perf_counter()
         table = self.table.cpu().numpy()
+        planes = {st.name: st.array.cpu().numpy()
+                  for st in self._pane_states()}
+        t1 = time.perf_counter()
         occupied = table != EMPTY_KEY
         keys = table[occupied]
         slots = np.flatnonzero(occupied)
@@ -243,13 +256,15 @@ class DeviceKeyedStateBackend:
         order = np.lexsort((keys, groups))
         states = {}
         for st in self._pane_states():
-            name = st.name
-            arr = st.array.cpu().numpy()
+            arr = planes.pop(st.name)
             vals = arr[:, slots] if st.ring else arr[slots]
-            states[name] = {"kind": st.kind,
-                            "dtype": str(numpy_dtype(st.dtype)),
-                            "ring": st.ring,
-                            "values": np.ascontiguousarray(vals[..., order])}
+            states[st.name] = {"kind": st.kind,
+                               "dtype": str(numpy_dtype(st.dtype)),
+                               "ring": st.ring,
+                               "values": np.ascontiguousarray(
+                                   vals[..., order])}
+        self.last_snapshot_s = {"copy": t1 - t0,
+                                "sort_gather": time.perf_counter() - t1}
         return {"kind": "tpu", "keys": np.ascontiguousarray(keys[order]),
                 "key_groups": np.ascontiguousarray(groups[order]),
                 "max_parallelism": self.max_parallelism, "states": states}

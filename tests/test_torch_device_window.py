@@ -104,11 +104,12 @@ def _batches(h):
 
 
 def _run(make_harness, ops):
+    """Feed ``ops``, then close: ``finish`` drains fires still in flight
+    (``async_fire``) before the output is read."""
     h = make_harness()
     _feed(h, ops)
-    out = _batches(h)
     h.close()
-    return out
+    return _batches(h)
 
 
 CASES = {

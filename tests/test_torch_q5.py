@@ -9,7 +9,10 @@
   generator, also past the wrap of the 64-bit product.
 * core/keygroups.py is bit-exact with the reference.
 * No module of flink_tpu_torch, nor chip_smoke.py, imports jax or
-  flink_tpu; the tiny Q5 runs in a subprocess where both are blocked.
+  flink_tpu (the scan covers the graph, the runtime, the local cluster
+  and the checkpoint modules); the tiny Q5 runs in a subprocess where
+  both are blocked, through ``env.execute()`` with checkpoints and the
+  fused chain on.
 * An entry point asked for no device needs CUDA and raises without it.
 """
 
@@ -218,7 +221,19 @@ def test_port_imports_neither_jax_nor_flink_tpu():
                 continue
             offenders += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
                           for n in names if n.split(".")[0] in banned]
-    assert len(_port_sources()) > 20
+    scanned = {p.relative_to(ROOT).as_posix() for p in _port_sources()}
+    assert {"flink_tpu_torch/graph/stream_graph.py",
+            "flink_tpu_torch/graph/fusion.py",
+            "flink_tpu_torch/graph/transformations.py",
+            "flink_tpu_torch/runtime/stream_task.py",
+            "flink_tpu_torch/runtime/channels.py",
+            "flink_tpu_torch/runtime/writer.py",
+            "flink_tpu_torch/runtime/compiled.py",
+            "flink_tpu_torch/cluster/local.py",
+            "flink_tpu_torch/checkpoint/coordinator.py",
+            "flink_tpu_torch/checkpoint/storage.py"} <= scanned
+    assert "flink_tpu_torch/runtime/local.py" not in scanned
+    assert len(scanned) > 30
     assert not offenders, offenders
 
 
@@ -233,24 +248,35 @@ spec = importlib.util.spec_from_file_location("chip_smoke",
                                               {root!r} + "/chip_smoke.py")
 cs = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(cs)
-job, got, span = cs.run_q5(torch, torch.device("cpu"), 3000, 1 << 14,
-                           1 << 13, batch=1 << 10, topk=20)
+# through env.execute(): the fused chain, and a checkpoint every 20 ms of
+# a source paced to last half a second
+job, got, span = cs.run_q5(
+    torch, torch.device("cpu"), 3000, 1 << 14, 1 << 13, batch=1 << 10,
+    topk=20, fused=True, rate=(1 << 14) / 0.5,
+    settings={{"execution.checkpointing.interval": 0.02}})
 n = cs.q5_oracle_check(3000, 1 << 14, span, got, topk=20)
 assert sys.modules["jax"] is None and sys.modules["flink_tpu"] is None
 assert any(m.startswith("flink_tpu_torch.") for m in sys.modules)
-print("windows", n, "late", job.operators[0].late_dropped)
+assert "flink_tpu_torch.cluster.local" in sys.modules
+fused = len(job.job_graph.vertices) == 1 and not job.fusion_declined
+print("windows", n, "late", job.operators[0].late_dropped,
+      "checkpoints", int(len(job.coordinator.stats) > 0), "fused",
+      int(fused and job.operators[0].fused_chain is not None))
 """
 
 
 def test_q5_runs_with_jax_and_flink_tpu_blocked():
     """chip_smoke.py's own Q5 path and numpy oracle, at a tiny size on the
-    CPU, in a process that cannot import jax or flink_tpu."""
+    CPU, in a process that cannot import jax or flink_tpu: through
+    ``env.execute()`` on the graph runtime, with the fused chain and
+    periodic checkpoints."""
     out = subprocess.run([sys.executable, "-c",
                           _BLOCKED_RUN.format(root=str(ROOT))],
                          capture_output=True, text=True, timeout=240,
                          cwd=str(ROOT))
     assert out.returncode == 0, out.stderr[-3000:]
-    assert out.stdout.split() == ["windows", "13", "late", "0"]
+    assert out.stdout.split() == ["windows", "13", "late", "0",
+                                  "checkpoints", "1", "fused", "1"]
 
 
 def test_smoke_oracle_catches_a_wrong_window():
