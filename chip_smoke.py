@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of flink_tpu_torch on one CUDA card: build, kernels, Q5, Q7.
+"""Smoke run of flink_tpu_torch on one CUDA card: build, kernels, Q5, Q7,
+checkpoints and state beyond an HBM budget.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -27,6 +28,11 @@ Run from the repository root:  python3 chip_smoke.py
      the keys of the 4 batches before it, at 1M keys (capacity 2^21) and
      10M keys (2^24): the same key set as the plain version, the count and
      revenue planes equal key by key, the late and dropped counters equal;
+   * ingest_step's two optional forms on that batch, against the plain
+     version with the same parts: dirty marking at 2^21 and 2^24 (the
+     marked blocks exactly those written) and the spill split at 2^23 with
+     about half the key groups spilled (staged rows equal as a multiset,
+     stage count and touch clock equal), each timed beside today's form;
    * window_seal and window_rebuild (csrc/window_seal.cu) on Q5's
      signature (int32 count, int64 revenue) at W = 5 on ring 16 (capacity
      2^21 and 2^24) and at W = 20 on ring 46 (2^24), on Q7's (int64
@@ -97,12 +103,27 @@ Run from the repository root:  python3 chip_smoke.py
 13. Coalesced ingest inside the runtime: Q5-1M in 2^16-row batches, the
     watermark every 5 ms of wall time, task.coalesce.target-records 2^19:
     batches must gather, and every window equals the oracle.
-14. Checkpoint and restore at Q5-10M: a paced source, checkpoints every
-    0.5 s; the job is cancelled after one completed, a fresh job restores
-    from it and runs to the end; every window of both equals the oracle.
-    Barrier to ack per task, the snapshot's copy and sort/gather seconds,
-    the store, the bytes, and the restore's time to its first batch.
-15. The kernels line, the nvidia-smi line, then the last line
+14. Snapshots through the mirror at Q5-10M (operator level): a full
+    capture, a delta under load, an idle one, 64 hot keys, a retired ring
+    row; each equal to the whole-copy snapshot, with its capture, order
+    and gather seconds, DMA bytes and dirty share.
+15. Checkpoint and restore at Q5-10M into FsCheckpointStorage in a
+    temporary directory: a paced source, checkpoints every 0.5 s, the
+    source paused after the first so the third is idle; the job is
+    cancelled, the idle checkpoint on disk equals the whole-copy snapshot,
+    a fresh job restores from the directory and runs to the end; every
+    window of both equals the oracle and none repeats. Per checkpoint the
+    window task's barrier to ack, the snapshot's capture, order and
+    gather, the store, DMA and fs bytes; the restore's time to its first
+    batch.
+16. Q5-10M through env.execute() at state.backend.tpu.hbm-budget-slots
+    2^23: every window against the oracle, one spill-form ingest_step per
+    batch, no staged row dropped; events/sec, p99 fire latency, keys per
+    tier, evictions, host seconds, peak memory. Then a budgeted job's
+    checkpoint restored into an unbudgeted job and the reverse: windows
+    against the oracle, and each checkpoint restored under the other
+    budget snapshots byte for byte as it was stored.
+17. The kernels line, the nvidia-smi line, then the last line
     {"ok": true, "device": {...}}.
 
 ``python3 chip_smoke.py --parent-kernels DIR`` instead times, with the same
@@ -146,6 +167,12 @@ PROFILE_TRIES = 3              # profiles taken before a lost record fails
 Q7_PANE_MS, Q7_VALUE_BITS = 10_000, 34   # bench.py _run_q7
 Q7_PRICES, Q7_BIDDER_BITS = 9973, 20
 CO_BATCH, CO_TARGET, CO_WM_EVERY = 1 << 16, 1 << 19, 8   # coalesced ingest
+MAXP = 128                     # pipeline.max-parallelism: the key groups
+DIRTY_SHIFT = 9                # 512-slot dirty blocks of the state backend
+SPILL_BUDGET = 1 << 23         # the spill phase's hbm-budget-slots
+# the spill phase drains its stage at every watermark, which the runtime
+# emits after every batch at interval 0: one batch is the most it stages
+SPILL_STAGING = BATCH
 
 
 def emit(obj) -> None:
@@ -554,6 +581,144 @@ def check_ingest(torch, dev, flush) -> dict:
     return {"max_abs_err": mismatches, "shapes": shapes}
 
 
+def check_ingest_forms(torch, dev, flush) -> dict:
+    """The two optional forms of ingest_step on the next Q5 batch, each
+    against the plain version with the same parts: dirty marking (the form
+    of every step of the main paths) at capacity 2^21 and 2^24, and the
+    spill split at the spill phase's capacity 2^23 with about half of the
+    128 key groups spilled. Table key set, planes key by key, late and
+    dropped equal; the marked blocks exactly the blocks the kernel's folds
+    wrote; the staged rows equal as a multiset, the stage count and the
+    touch clock equal. Times the form beside today's form (no parts) in
+    the same call; the bound adds the bytes of the parts to the step's."""
+    from flink_tpu_torch.core.keygroups import key_groups_device
+    from flink_tpu_torch.ops.hash_table import EMPTY_KEY, StepSpill, \
+        ingest_step, ingest_step_plain, lookup, sanitize_keys_device
+
+    spilled = torch.from_numpy(
+        np.random.default_rng(5).random(MAXP) < 0.5).to(dev)
+    cases = [("dirty", label, k, e, c) for label, k, e, c in Q5_CELLS]
+    cases.append(("spill", "10M", Q5_CELLS[1][1], Q5_CELLS[1][2],
+                  SPILL_BUDGET))
+    shapes, mismatches = {}, 0
+    for form, label, n_keys, n_events, cap in cases:
+        case = q5_step_case(torch, dev, n_keys, n_events, cap)
+        ts, keys, price = case["batch"]
+        nb = cap >> DIRTY_SHIFT
+
+        def parts():
+            dirty = torch.zeros(nb + 1, dtype=torch.uint8, device=dev)
+            spill = None
+            if form == "spill":
+                spill = StepSpill(
+                    spilled, torch.zeros(MAXP, dtype=torch.int64, device=dev),
+                    1, torch.zeros((), dtype=torch.int64, device=dev),
+                    torch.zeros(BATCH, dtype=torch.int64, device=dev),
+                    torch.zeros(BATCH, dtype=torch.int32, device=dev),
+                    [None, torch.zeros(BATCH, dtype=torch.int64, device=dev)])
+            return dirty, spill
+
+        runs = {}
+        for name, step in (("kernel", ingest_step),
+                           ("plain", ingest_step_plain)):
+            table = case["table"].clone()
+            count, rev = case["count"].clone(), case["rev"].clone()
+            late = torch.zeros((), dtype=torch.int64, device=dev)
+            dropped = torch.zeros((), dtype=torch.int64, device=dev)
+            dirty, spill = parts()
+            step(table, [("count", count, None), ("sum", rev, price)], ts,
+                 keys, PANE_MS, 0, MIN_TIMESTAMP, late, dropped, dirty,
+                 DIRTY_SHIFT, spill)
+            occupied = torch.nonzero(table != EMPTY_KEY).flatten()
+            sorted_keys, order = torch.sort(table[occupied])
+            slots = occupied[order]
+            rows = sorted({int(ts[0]) // PANE_MS % RING,
+                           int(ts[-1]) // PANE_MS % RING})
+            runs[name] = (sorted_keys, count[rows][:, slots],
+                          rev[rows][:, slots], int(late), int(dropped),
+                          table, dirty, spill)
+        gk, gc, gr, gl, gd, gtable, gdirty, gspill = runs["kernel"]
+        wk, wc, wr, wl, wd, _wt, _wdirty, wspill = runs["plain"]
+        same = gk.numel() == wk.numel()
+        bad = {"key_set": int(not same) or int((gk != wk).sum()),
+               "count_plane": 0 if not same else int((gc != wc).sum()),
+               "revenue_plane": 0 if not same else int((gr != wr).sum()),
+               "late": abs(gl - wl), "dropped": abs(gd - wd)}
+        skeys = sanitize_keys_device(keys)
+        folds = torch.ones_like(skeys, dtype=torch.bool)
+        staged = 0
+        if form == "spill":
+            folds = ~spilled[key_groups_device(skeys, MAXP).to(torch.int64)]
+            staged = int(gspill.count)
+            n = min(staged, BATCH)
+            got_rows, want_rows = (
+                np.unique(np.stack([sp.keys[:n].cpu().numpy(),
+                                    sp.ring[:n].cpu().numpy(),
+                                    sp.values[1][:n].cpu().numpy()]), axis=1,
+                          return_counts=True)
+                for sp in (gspill, wspill))
+            bad["stage_count"] = abs(staged - int(wspill.count))
+            bad["stage_rows"] = int(not (
+                np.array_equal(got_rows[0], want_rows[0])
+                and np.array_equal(got_rows[1], want_rows[1])))
+            bad["touch"] = int((gspill.touch != wspill.touch).sum())
+            if staged == 0 or int((~folds).sum()) != staged:
+                bad["stage_count"] += 1
+        written = torch.unique(
+            lookup(gtable, skeys)[folds].to(torch.int64) >> DIRTY_SHIFT)
+        marked = torch.nonzero(gdirty[:nb]).flatten()
+        bad["dirty_blocks"] = (int(written.numel() != marked.numel())
+                               or int((written != marked).sum()))
+        if any(bad.values()):
+            raise AssertionError(f"ingest_step {form} form at {label}: "
+                                 "entries differing from the plain version: "
+                                 f"{bad}")
+        mismatches += sum(bad.values())
+        # the bound: the step's bytes for the rows that fold, plus the
+        # parts: one byte per marked block; a staged row's 8 + 4 + 8 bytes;
+        # the clock's read and write
+        table0 = case["table"]
+        d_new = int((gtable != EMPTY_KEY).sum() - (table0 != EMPTY_KEY).sum())
+        slot = lookup(gtable, skeys)[folds].to(torch.int64)
+        d_pk = int(torch.unique((ts[folds] // PANE_MS % RING) * cap
+                                + slot).numel())
+        nbytes = (BATCH * (8 + 8 + 8) + d_new * (32 + 8) + d_pk * 2 * 2 * 32
+                  + marked.numel() + staged * 20
+                  + (2 * MAXP * 8 if form == "spill" else 0))
+        table = table0.clone()
+        count, rev = case["count"], case["rev"]
+        late = torch.zeros((), dtype=torch.int64, device=dev)
+        dropped = torch.zeros((), dtype=torch.int64, device=dev)
+        dirty, spill = parts()
+
+        def run(step, with_parts=True):
+            return lambda: step(
+                table, [("count", count, None), ("sum", rev, price)], ts,
+                keys, PANE_MS, 0, MIN_TIMESTAMP, late, dropped,
+                dirty if with_parts else None, DIRTY_SHIFT,
+                spill if with_parts else None)
+
+        def reset():
+            table.copy_(table0)
+            if spill is not None:
+                spill.count.zero_()
+
+        ms = cuda_ms(run(ingest_step), torch, flush, setup=reset)
+        shapes[f"{form}_cap_2^{cap.bit_length() - 1}"] = {
+            "q5": label, "form": form, "n": BATCH, "capacity": cap,
+            "new_keys": d_new, "ring_key_pairs": d_pk,
+            "dirty_blocks": int(marked.numel()), "staged_rows": staged,
+            "ms": ms,
+            "ms_without_parts": cuda_ms(run(ingest_step, False), torch,
+                                        flush, setup=reset),
+            "plain_ms": cuda_ms(run(ingest_step_plain), torch, flush,
+                                reps=3, setup=reset),
+            "library_ms": None, "bound_ms": bound_ms(nbytes),
+            "bound_by": "bytes", "share_of_bound": bound_ms(nbytes) / ms}
+        del case, runs, table
+    return {"max_abs_err": mismatches, "shapes": shapes}
+
+
 #: plane signatures of the window kernels on the two paths: (kind, pane
 #: dtype name); Q5 ranks count(value_bits=31) with sum(price), Q7 takes
 #: max(packed) with the count plane every window operator keeps
@@ -822,7 +987,8 @@ def q5_env(torch, dev, n_keys: int, n_events: int, capacity: int,
            batch: int = BATCH, topk: int = TOPK, defer: bool = True,
            fire_mode: str = "full", window_panes: int = WINDOW_PANES,
            fused: bool = False, wm_interval: float = 0.0,
-           settings: dict | None = None, rate: float | None = None):
+           settings: dict | None = None, rate: float | None = None,
+           staging: int = 1 << 16, source_hook=None):
     """The Q5 pipeline on a fresh StreamExecutionEnvironment, not yet
     executed; returns (env, got, span ms), ``got`` filled by the sink with
     (window end - 1, auctions, bids, revenue) per window. ``defer`` False
@@ -831,9 +997,13 @@ def q5_env(torch, dev, n_keys: int, n_events: int, capacity: int,
     ``window.fire.incremental``; ``fused`` sets
     ``pipeline.fusion.enabled``; ``wm_interval`` is the source's
     watermark interval (0: after every batch, the cadence of the old
-    single-thread runner); ``settings`` adds configuration keys; ``rate``
-    caps the source's events per second."""
+    single-thread runner); ``settings`` adds configuration keys (an HBM
+    budget: ``state.backend.tpu.hbm-budget-slots``); ``rate`` caps the
+    source's events per second; ``staging`` is the operator's
+    ``spill_staging_slots``; ``source_hook(source)`` receives the
+    ``DataGenSource``."""
     from flink_tpu_torch.api import StreamExecutionEnvironment
+    from flink_tpu_torch.connectors.datagen import DataGenSource
     from flink_tpu_torch.core import Configuration, Schema, WatermarkStrategy
     from flink_tpu_torch.runtime.operators import AggSpec
     from flink_tpu_torch.window import SlidingEventTimeWindows
@@ -855,9 +1025,12 @@ def q5_env(torch, dev, n_keys: int, n_events: int, capacity: int,
                        **(settings or {})}), device=dev)
     ws = WatermarkStrategy.for_monotonous_timestamps() \
         .with_timestamp_column("ts")
-    (env.datagen(q5_gen(n_keys, n_events, span), schema, count=n_events,
-                 rate_per_sec=rate, timestamp_column="ts",
-                 watermark_strategy=ws, device=True)
+    source = DataGenSource(q5_gen(n_keys, n_events, span), schema,
+                           count=n_events, rate_per_sec=rate,
+                           timestamp_column="ts", device=True)
+    if source_hook is not None:
+        source_hook(source)
+    (env.from_source(source, ws, "DataGen")
         .key_by("auction")
         .window(SlidingEventTimeWindows.of(window_panes * PANE_MS, PANE_MS))
         .device_aggregate([AggSpec("count", out_name="bids", value_bits=31),
@@ -865,7 +1038,8 @@ def q5_env(torch, dev, n_keys: int, n_events: int, capacity: int,
                           capacity=capacity,
                           ring_size=ring_for(window_panes),
                           emit_window_bounds=False, emit_topk=topk,
-                          defer_overflow=defer, async_fire=True)
+                          defer_overflow=defer, async_fire=True,
+                          spill_staging_slots=staging)
         .add_sink(sink))
     return env, got, span
 
@@ -1247,10 +1421,13 @@ def timed_run(torch, label: str, run, check, passes: int, fire_mode: str,
     launches = dict(KERNEL_LAUNCHES)
     windows = check(got)
     seen = {"ingest_step": launches["ingest_step"],
+            "ingest_step_dirty": launches["ingest_step_dirty"],
             "hist256": launches["hist256"],
             "window_kernels": launches["window_seal"]
             + launches["window_rebuild"]}
-    want = {"ingest_step": n_events // BATCH, "hist256": passes * windows,
+    want = {"ingest_step": n_events // BATCH,
+            "ingest_step_dirty": n_events // BATCH,
+            "hist256": passes * windows,
             "window_kernels": windows if fire_mode == "incremental" else 0}
     if seen != want:
         raise AssertionError(f"{label} {fire_mode}: launches {launches}, "
@@ -1673,69 +1850,394 @@ def coalesce_runtime_phase(torch, dev) -> dict:
             "wall_s": job.wall_s, "events_per_sec": n_events / job.wall_s}
 
 
-def checkpoint_phase(torch, dev) -> dict:
-    """Checkpoint and restore at Q5-10M. The source is paced to finish in
-    CKPT_RUN_S seconds and checkpoints are on every CKPT_INTERVAL_S; the
-    job is cancelled once one checkpoint completed, a fresh job restores
-    from it and runs to the end. Every window of both jobs equals the
-    oracle; windows of the first job may repeat in the second, with equal
-    values; together they are every window, and the checkpoint fell after
-    the first fire and before the last."""
-    label, n_keys, n_events, cap = Q5_CELLS[1]
-    env, got, span = q5_env(
-        torch, dev, n_keys, n_events, cap, rate=n_events / CKPT_RUN_S,
-        settings={"execution.checkpointing.interval": CKPT_INTERVAL_S})
+def snapshot_digest(snap: dict) -> str:
+    """blake2b over every field of a keyed snapshot, in order: the keys,
+    the key groups, and each state's kind, dtype, ring and value bytes."""
+    import hashlib
+
+    h = hashlib.blake2b(digest_size=16)
+    for f in ("keys", "key_groups"):
+        a = np.ascontiguousarray(snap[f])
+        h.update(a.dtype.str.encode())
+        h.update(a.tobytes())
+    h.update(str(snap["max_parallelism"]).encode())
+    for name, st in snap["states"].items():
+        v = np.ascontiguousarray(st["values"])
+        h.update(f"{name}|{st['kind']}|{st['dtype']}|{st['ring']}|"
+                 f"{v.dtype.str}|{v.shape}".encode())
+        h.update(v.tobytes())
+    return h.hexdigest()
+
+
+def q5_operator(torch, dev, capacity: int, **kw):
+    """The Q5 window operator of ``q5_env`` in a test harness, opened;
+    keywords go to the operator (a budget, a staging size)."""
+    from flink_tpu_torch.core import Schema
+    from flink_tpu_torch.runtime import OneInputOperatorTestHarness
+    from flink_tpu_torch.runtime.operators import AggSpec, \
+        DeviceWindowAggOperator
+    from flink_tpu_torch.window import SlidingEventTimeWindows
+
+    op = DeviceWindowAggOperator(
+        SlidingEventTimeWindows.of(WINDOW_PANES * PANE_MS, PANE_MS),
+        "auction", [AggSpec("count", out_name="bids", value_bits=31),
+                    AggSpec("sum", "price", out_name="revenue")],
+        capacity=capacity, ring_size=RING, emit_window_bounds=False,
+        emit_topk=TOPK, defer_overflow=True, async_fire=True, device=dev,
+        **kw)
+    h = OneInputOperatorTestHarness(op, Schema(
+        [("auction", np.int64), ("price", np.int64), ("ts", np.int64)]))
+    h.open()
+    return op, h
+
+
+def mirror_phase(torch, dev) -> dict:
+    """Snapshots through the mirror against the whole-copy snapshot at
+    Q5-10M, at the operator level: the state of 16 batches (a full
+    capture), 8 batches more (a delta under load: Q5 spreads a batch over
+    every block), none (idle), and a batch of 64 hot keys (a few blocks)
+    with a retired ring row (replayed on the host). Each snapshot must equal
+    the whole-copy snapshot of the same state field by field; prints each
+    one's phases, DMA bytes and dirty share beside the whole copy's
+    seconds."""
+    from flink_tpu_torch.connectors.datagen import DataGenSource
+    from flink_tpu_torch.core import Schema
+    from flink_tpu_torch.core.device_records import DeviceRecordBatch
+
+    _label, n_keys, n_events, cap = Q5_CELLS[1]
+    span = q5_panes(n_events) * PANE_MS
+    schema = Schema([("auction", np.int64), ("price", np.int64),
+                     ("ts", np.int64)])
+    source = DataGenSource(q5_gen(n_keys, n_events, span), schema,
+                           count=n_events, timestamp_column="ts",
+                           device=True)
+    reader = source.create_reader(source.create_splits(1)[0], dev)
     fresh_memory(torch)
+    op, h = q5_operator(torch, dev, cap)
+    backend = op.backend
+    records = []
+    last = [None]
+
+    def feed(k: int) -> None:
+        for _ in range(k):
+            batch = reader.read_batch(BATCH)
+            last[0] = batch
+            h.process_batch(batch)
+
+    def snap(label: str) -> None:
+        cid = len(records) + 1
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = op.snapshot_state(cid)["keyed"]["backend"]
+        took = time.perf_counter() - t0
+        log = dict(backend.snapshot_log[-1])
+        t1 = time.perf_counter()
+        want = backend.snapshot_plain(cid)
+        plain_s = time.perf_counter() - t1
+        if snapshot_digest(got) != snapshot_digest(want):
+            raise AssertionError(f"mirror snapshot '{label}' differs from "
+                                 "the whole-copy snapshot")
+        records.append({"snapshot": label, "seconds": took, **log,
+                        "whole_copy_s": plain_s})
+
+    feed(16)
+    snap("full_capture")
+    feed(8)
+    snap("delta_under_load")
+    snap("idle")
+    hot = torch.arange(64, dtype=torch.int64, device=dev).repeat(16)
+    ts = torch.full_like(hot, last[0].ts_max)
+    h.process_batch(DeviceRecordBatch(
+        schema, {"auction": hot, "price": hot + 1, "ts": ts}, ts,
+        last[0].ts_max, last[0].ts_max, ts_column="ts"))
+    backend.reset_ring_row(0)
+    snap("hot_keys_and_a_retired_row")
+    full = records[0]["dma_bytes"]
+    if not (records[2]["dma_bytes"] * 100 < full
+            and records[3]["dma_bytes"] * 10 < full):
+        raise AssertionError(f"idle or hot-key snapshots moved too much: "
+                             f"{[r['dma_bytes'] for r in records]}")
+    return {"mirror": "Q5-10M", "capacity": cap, "keys": records[-1]["keys"],
+            "state_bytes": backend.state_nbytes, "snapshots": records}
+
+
+def wait_checkpoints(job, n: int, spilled: bool = False,
+                     after: float = 0.0, timeout: float = 300.0) -> None:
+    """Until ``n`` checkpoints of ``job`` triggered after the wall time
+    ``after`` completed (or the job failed); with ``spilled``, until the
+    last of them holds host-tier keys too."""
+    def done() -> bool:
+        stats = [s for s in job.coordinator.stats
+                 if s.get("started", 0.0) > after]
+        if len(stats) < n:
+            return False
+        log = {r["checkpoint_id"]: r
+               for r in job.operators[0].backend.snapshot_log}
+        return not spilled or log.get(stats[-1]["id"], {}).get(
+            "host_keys", 0) > 0
+
     t0 = time.perf_counter()
-    job = env.execute_async("q5-checkpointed")
-    cp = None
-    while cp is None and not job.failed and time.perf_counter() - t0 < 300:
+    while (not done() and not job._failed
+           and time.perf_counter() - t0 < timeout):
         time.sleep(0.002)
-        cp = job.coordinator.latest_checkpoint()
-    completed_at = time.perf_counter() - t0
-    job.cancel()
-    if cp is None:
-        raise AssertionError(f"no checkpoint completed: {job._failed}")
+    if not done():
+        raise AssertionError(f"{len(job.coordinator.stats)} checkpoints "
+                             f"completed, waiting for {n} after {after} "
+                             f"(spilled: {spilled}): {job._failed}")
+
+
+def checkpoint_record(job, stat: dict) -> dict:
+    """A finished checkpoint: the window task's barrier-to-ack split into
+    the snapshot's capture, order and gather (and host tier), the store,
+    the DMA bytes, dirty share, snapshot bytes and fs bytes written."""
     op = job.operators[0]
-    stats = job.coordinator.stats[-1]
-    before = list(got)
-    env2, got2, _span = q5_env(torch, dev, n_keys, n_events, cap)
-    env2.restore_from_checkpoint(cp)
-    t1 = time.perf_counter()
-    job2 = env2.execute_async("q5-restored")
-    deploy_s = time.perf_counter() - t1
-    job2.wait()
-    restore_s = job2.operators[0].first_batch_at - t1
+    (win,) = [t for t in stat["barrier_to_ack_s"]
+              if t not in job.source_tasks]
+    log = next((r for r in op.backend.snapshot_log
+                if r["checkpoint_id"] == stat["id"]), {})
+    return {"id": stat["id"],
+            "window_barrier_to_ack_s": stat["barrier_to_ack_s"].get(win),
+            "barrier_to_ack_s": stat["barrier_to_ack_s"],
+            "capture_s": log.get("capture"), "order_s": log.get("order"),
+            "gather_s": log.get("gather"), "host_tier_s": log.get("host_tier"),
+            "store_s": stat["store_s"], "dma_bytes": log.get("dma_bytes"),
+            "dirty_share": log.get("dirty_share"),
+            "host_keys": log.get("host_keys"),
+            "snapshot_bytes": stat["bytes"],
+            "fs_bytes_written": stat.get("bytes_written")}
+
+
+def checkpoint_phase(torch, dev) -> dict:
+    """Checkpoint and restore at Q5-10M into FsCheckpointStorage (a
+    temporary directory). The source is paced to finish in CKPT_RUN_S
+    seconds and checkpoints are on every CKPT_INTERVAL_S. After the first
+    checkpoint (a full capture) completed the source pauses until two
+    checkpoints triggered after the pause completed: the first of them
+    still takes the batches queued before the pause, the second is idle
+    (the window task has drained), and its DMA bytes must be a small
+    fraction of the full capture's. The second checkpoint of the run is
+    a delta under load. The job is cancelled still paused;
+    the idle checkpoint, loaded from disk, must equal the whole-copy
+    snapshot of the job's state, and a fresh job restores from the
+    checkpoint's directory and runs to the end. Every window of both equals the
+    oracle; none repeats, and together they are every window."""
+    import shutil
+    import tempfile
+
+    from flink_tpu_torch.checkpoint.storage import load_checkpoint
+
+    label, n_keys, n_events, cap = Q5_CELLS[1]
+    ckpt_dir = tempfile.mkdtemp(prefix="flink_tpu_torch_ckpt_")
+    sources = []
+    try:
+        env, got, span = q5_env(
+            torch, dev, n_keys, n_events, cap, rate=n_events / CKPT_RUN_S,
+            source_hook=sources.append,
+            settings={"execution.checkpointing.interval": CKPT_INTERVAL_S,
+                      "execution.checkpointing.dir": ckpt_dir})
+        fresh_memory(torch)
+        t0 = time.perf_counter()
+        job = env.execute_async("q5-checkpointed")
+        wait_checkpoints(job, 1)
+        sources[0].set_rate(0)
+        paused_at = time.perf_counter() - t0
+        wait_checkpoints(job, 2, after=time.time())
+        job.cancel()
+        stats = [s for s in job.coordinator.stats if not s.get("failed")]
+        cp = job.coordinator.latest_checkpoint()
+        op = job.operators[0]
+        records = [checkpoint_record(job, s) for s in stats]
+        idle, full = records[-1], records[0]
+        if not idle["dma_bytes"] * 100 < full["dma_bytes"]:
+            raise AssertionError(f"the idle checkpoint moved "
+                                 f"{idle['dma_bytes']} bytes against the "
+                                 f"full capture's {full['dma_bytes']}")
+        on_disk = load_checkpoint(cp.external_path)
+        (snap,) = [s["chain"] for s in on_disk.task_snapshots.values()
+                   if s.get("chain")]
+        (window,) = [v for v in snap.values() if "keyed" in v]
+        stored = window["keyed"]["backend"]
+        t1 = time.perf_counter()
+        whole = op.backend.snapshot_plain(cp.checkpoint_id)
+        whole_copy_s = time.perf_counter() - t1
+        if snapshot_digest(stored) != snapshot_digest(whole):
+            raise AssertionError("the idle checkpoint on disk differs from "
+                                 "the whole-copy snapshot of the state")
+        before = list(got)
+        del job, op, env, whole, stored, snap, window, on_disk
+        env2, got2, _span = q5_env(torch, dev, n_keys, n_events, cap)
+        env2.restore_from_checkpoint(cp.external_path)
+        t2 = time.perf_counter()
+        job2 = env2.execute_async("q5-restored")
+        deploy_s = time.perf_counter() - t2
+        job2.wait()
+        restore_s = job2.operators[0].first_batch_at - t2
+        expected = q5_expected(n_keys, n_events, span)
+        by_end = {e[0]: e for e in expected}
+
+        def check(rows) -> list:
+            ends = [(ts + 1) // PANE_MS for ts, *_ in rows]
+            q5_check([by_end[e] for e in ends], rows)
+            return ends
+
+        ends1, ends2 = check(before), check(got2)
+        if not ends2 or not ends1 or set(ends1) & set(ends2):
+            raise AssertionError(f"windows before the cancel {ends1} and "
+                                 f"after the restore {ends2} overlap or one "
+                                 "side is empty")
+        if sorted(ends1 + ends2) != sorted(by_end):
+            raise AssertionError("windows of the two jobs miss some: "
+                                 f"{ends1} and {ends2}")
+        return {"checkpoint": f"Q5-{label}", "events": n_events,
+                "storage": "FsCheckpointStorage",
+                "source_rate_per_s": n_events / CKPT_RUN_S,
+                "interval_s": CKPT_INTERVAL_S, "paused_after_s": paused_at,
+                "checkpoints": records, "restored_from": cp.checkpoint_id,
+                "whole_copy_s": whole_copy_s,
+                "chunks_on_disk": len(os.listdir(os.path.join(ckpt_dir,
+                                                              "chunks"))),
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "restore_deploy_s": deploy_s,
+                "restore_to_first_batch_s": restore_s,
+                "windows_before_cancel": len(ends1),
+                "windows_after_restore": len(ends2),
+                "windows_repeated": 0}
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def spill_record(job, n_events: int, peak: int) -> dict:
+    """A budgeted run: throughput, fire latency, where the keys live,
+    evictions, the host tier's seconds and peak device memory."""
+    op = job.operators[0]
+    b = op.backend
+    lat = sorted(op.fire_latencies_ms)
+    host = b.host_tier
+    return {"wall_s": job.wall_s, "events_per_sec": n_events / job.wall_s,
+            "p99_fire_latency_ms": lat[min(len(lat) - 1,
+                                           int(0.99 * len(lat)))],
+            "fires": len(lat), "capacity": b.capacity,
+            "keys_resident": b.num_keys,
+            "keys_spilled": len(host.index) if host else 0,
+            "groups_spilled": int(host.spilled_mask.sum()) if host else 0,
+            "evictions": dict(b.evictions),
+            "host_fold_s": b.spill_s["host_fold"],
+            "evict_s": b.spill_s["evict"],
+            "drain_s": op.spill_s["drain"],
+            "host_fire_s": op.spill_s["host_fire"],
+            "rows_drained": op.spill_rows_drained,
+            "dropped": int(b.dropped_device),
+            "max_memory_allocated": peak}
+
+
+def spill_phase(torch, dev) -> dict:
+    """Q5-10M through ``env.execute()`` with
+    ``state.backend.tpu.hbm-budget-slots`` = SPILL_BUDGET (2^23: about
+    half the key groups end on the host): every window against the
+    oracle, one spill-form ingest_step per batch, no staged row dropped,
+    and the run's spill record. Then across budgets: a paced budgeted job
+    checkpointed into a directory, cancelled, and restored into an
+    unbudgeted job (at the first checkpoint that holds host-tier keys),
+    and the reverse; every window of both jobs equals the
+    oracle (a window may repeat, with equal values), and each checkpoint
+    restored into an operator of the other budget snapshots byte for
+    byte as the checkpoint it came from. The budgeted side holds host-tier
+    keys: at the checkpoint going one way, during the restored run going
+    the other."""
+    import shutil
+    import tempfile
+
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+    from flink_tpu_torch.checkpoint.storage import load_checkpoint
+
+    label, n_keys, n_events, cap = Q5_CELLS[1]
+    budget = {"state.backend.tpu.hbm-budget-slots": SPILL_BUDGET}
+    fresh_memory(torch)
+    reset_launches()
+    job, got, span = run_q5(torch, dev, n_keys, n_events, cap,
+                            settings=budget, staging=SPILL_STAGING)
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(KERNEL_LAUNCHES)
+    windows = q5_oracle_check(n_keys, n_events, span, got)
+    record = spill_record(job, n_events, peak)
+    emit({"spill_run": f"Q5-{label}", **record})
+    if (launches["ingest_step_spill"] != n_events // BATCH
+            or record["dropped"] or not record["groups_spilled"]):
+        raise AssertionError(f"spill run: launches {launches}, record "
+                             f"{record}")
+    del job, got
     expected = q5_expected(n_keys, n_events, span)
     by_end = {e[0]: e for e in expected}
-
-    def check(rows) -> list:
-        ends = [(ts + 1) // PANE_MS for ts, *_ in rows]
-        q5_check([by_end[e] for e in ends], rows)
-        return ends
-
-    ends1, ends2 = check(before), check(got2)
-    if not ends2 or not ends1 or min(ends2) <= expected[0][0]:
-        raise AssertionError(f"the checkpoint did not fall between the first "
-                             f"and the last fire: {ends1} then {ends2}")
-    if sorted(set(ends1) | set(ends2)) != sorted(by_end):
-        raise AssertionError("windows of the two jobs miss some: "
-                             f"{ends1} and {ends2}")
-    return {"checkpoint": f"Q5-{label}", "events": n_events,
-            "source_rate_per_s": n_events / CKPT_RUN_S,
-            "interval_s": CKPT_INTERVAL_S, "checkpoint_id": cp.checkpoint_id,
-            "completed_after_s": completed_at,
-            "barrier_to_ack_s": stats["barrier_to_ack_s"],
-            "duration_s": stats["duration_s"],
-            "snapshot_s": op.backend.last_snapshot_s,
-            "store_s": stats["store_s"], "snapshot_bytes": stats["bytes"],
-            "state_bytes": op.backend.state_nbytes,
-            "max_memory_allocated": torch.cuda.max_memory_allocated(),
-            "restore_deploy_s": deploy_s,
-            "restore_to_first_batch_s": restore_s,
-            "windows_before_cancel": len(ends1),
-            "windows_after_restore": len(ends2),
-            "windows_repeated": len(set(ends1) & set(ends2))}
+    crossings = {}
+    for name, first, second in (("budgeted_to_unbudgeted", budget, {}),
+                                ("unbudgeted_to_budgeted", {}, budget)):
+        ckpt_dir = tempfile.mkdtemp(prefix="flink_tpu_torch_spill_")
+        try:
+            env, got1, _span = q5_env(
+                torch, dev, n_keys, n_events, cap, staging=SPILL_STAGING,
+                rate=n_events / (2 * CKPT_RUN_S),
+                settings={**first,
+                          "execution.checkpointing.interval": CKPT_INTERVAL_S,
+                          "execution.checkpointing.dir": ckpt_dir})
+            fresh_memory(torch)
+            job = env.execute_async(f"q5-{name}")
+            wait_checkpoints(job, 1, spilled=bool(first))
+            job.cancel()
+            cp = job.coordinator.latest_checkpoint()
+            stat = checkpoint_record(job, job.coordinator.stats[-1])
+            spilled_at_cp = job.operators[0].backend.spill_active
+            before = list(got1)
+            del job, env
+            loaded = load_checkpoint(cp.external_path)
+            (chain,) = [s["chain"] for s in loaded.task_snapshots.values()
+                        if s.get("chain")]
+            (window,) = [v for v in chain.values() if "keyed" in v]
+            op, _h = q5_operator(
+                torch, dev, cap, spill_staging_slots=SPILL_STAGING,
+                hbm_budget_slots=second.get(
+                    "state.backend.tpu.hbm-budget-slots", 0))
+            op.initialize_state([window["keyed"]], None)
+            twin = op.backend.snapshot(cp.checkpoint_id)
+            if snapshot_digest(twin) != snapshot_digest(
+                    window["keyed"]["backend"]):
+                raise AssertionError(f"{name}: the checkpoint restored "
+                                     "under the other budget snapshots "
+                                     "differently")
+            twin_spilled = op.backend.spill_active
+            del op, _h, twin, loaded, chain, window
+            env2, got2, _span = q5_env(torch, dev, n_keys, n_events, cap,
+                                       staging=SPILL_STAGING, settings=second)
+            env2.restore_from_checkpoint(cp.external_path)
+            job2 = env2.execute_async(f"q5-{name}-restored")
+            job2.wait()
+            ends = []
+            for rows in (before, got2):
+                e = [(ts + 1) // PANE_MS for ts, *_ in rows]
+                q5_check([by_end[x] for x in e], rows)
+                ends.append(e)
+            if not ends[1] or sorted(set(ends[0]) | set(ends[1])) != \
+                    sorted(by_end):
+                raise AssertionError(f"{name}: windows {ends}")
+            crossings[name] = {
+                "checkpoint": stat, "spill_active_at_checkpoint":
+                spilled_at_cp, "spill_active_after_restore": twin_spilled,
+                "restored_run": spill_record(
+                    job2, n_events, torch.cuda.max_memory_allocated()),
+                "windows_before": len(ends[0]),
+                "windows_after": len(ends[1]),
+                "windows_repeated": len(set(ends[0]) & set(ends[1]))}
+            del job2, env2, got2
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if not (crossings["budgeted_to_unbudgeted"]["spill_active_at_checkpoint"]
+            and crossings["unbudgeted_to_budgeted"]["restored_run"][
+                "groups_spilled"]):
+        raise AssertionError("a crossing did not hold spilled state on the "
+                             f"budgeted side: {crossings}")
+    return {"spill": f"Q5-{label}", "hbm_budget_slots": SPILL_BUDGET,
+            "staging_slots": SPILL_STAGING, "windows_checked": windows,
+            "ingest_step_spill_launches": launches["ingest_step_spill"],
+            **record, "across_budgets": crossings}
 
 
 def main(argv: list[str]) -> int:
@@ -1779,10 +2281,12 @@ def main(argv: list[str]) -> int:
     select = check_select(torch, dev, flush)
     probe = check_hash_probe(torch, dev, flush)
     step = check_ingest(torch, dev, flush)
+    forms = check_ingest_forms(torch, dev, flush)
     shape = check_launch_shape(torch, dev)
     window = check_window_seal(torch, dev, flush)
     emit({"kernel_checks": {"hist256": hist, "select_pass": select,
                             "hash_probe": probe, "ingest_step": step,
+                            "ingest_step_forms": forms,
                             "launch_shape": shape, "window_seal": window}})
     del flush
     phase_s = {"build_and_kernels": time.perf_counter() - t_start}
@@ -1835,8 +2339,13 @@ def main(argv: list[str]) -> int:
     phase_done("runtime")
     emit(coalesce_runtime_phase(torch, dev))
     phase_done("coalesce_runtime")
+    emit(mirror_phase(torch, dev))
+    phase_done("mirror")
     emit(checkpoint_phase(torch, dev))
     phase_done("checkpoint")
+    spill = spill_phase(torch, dev)
+    emit(spill)
+    phase_done("spill")
     emit({"phase_seconds": phase_s})
     emit({"smoke_seconds_before_kernels_line": time.perf_counter() - t_start})
     main_run = q5_1m["full"]["launches_per_run"]
@@ -1864,6 +2373,20 @@ def main(argv: list[str]) -> int:
                                ("ms", "plain_ms", "bound_ms",
                                 "share_of_bound")}
                            for k, v in window["shapes"].items()}}
+
+    def form_entry(form: str, launches: int, lead: str,
+                   others: set) -> dict:
+        entry = forms["shapes"][lead]
+        return {"name": f"ingest_step_{form}", "route": "cuda",
+                "source": "flink_tpu_torch/csrc/hash_table.cu",
+                "replaces": "flink_tpu/runtime/operators/device_window.py:"
+                            + ("150" if form == "dirty" else "106"),
+                "launches": launches, "max_abs_err": forms["max_abs_err"],
+                **{k: entry[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+                "ms_without_parts": entry["ms_without_parts"],
+                "share_of_bound": entry["share_of_bound"],
+                "shapes": {k: forms["shapes"][k] for k in {lead} | others}}
 
     emit({"kernels": [
         {"name": "hist256", "route": "cuda",
@@ -1898,6 +2421,10 @@ def main(argv: list[str]) -> int:
              "ingest_step"],
          "fused_graph_launches_per_micro_batch":
              fused["graph_launches"] / fused["micro_batches"][0]},
+        form_entry("dirty", main_run["ingest_step_dirty"],
+                   "dirty_cap_2^21", {"dirty_cap_2^24"}),
+        form_entry("spill", spill["ingest_step_spill_launches"],
+                   "spill_cap_2^23", set()),
         window_entry("seal",
                      "flink_tpu/runtime/operators/device_window.py:295"),
         window_entry("rebuild",

@@ -128,10 +128,15 @@ class WindowedStream:
                          emit_topk: Optional[int] = None,
                          defer_overflow: bool = False,
                          async_fire: bool = False,
+                         hbm_budget_slots: int = 0,
+                         spill_staging_slots: int = 1 << 16,
                          name: str = "DeviceWindowAgg") -> DataStream:
         """Device window aggregation: rows (key, [window_start,
         window_end], *aggregates); ``emit_topk=k`` emits the top k keys by
-        the first aggregate per window (the Q5 hot-items fire)."""
+        the first aggregate per window (the Q5 hot-items fire).
+        ``hbm_budget_slots`` caps the device state and pages cold key
+        groups to host RAM; ``spill_staging_slots`` is the rows the
+        deferred step can stage for the host between two watermarks."""
         assigner, key_col = self.assigner, self.keyed.key_spec
         device = self.keyed.env.device
 
@@ -140,7 +145,9 @@ class WindowedStream:
                 assigner, key_col, aggs, capacity=capacity,
                 ring_size=ring_size, emit_window_bounds=emit_window_bounds,
                 emit_topk=emit_topk, defer_overflow=defer_overflow,
-                async_fire=async_fire, device=device, name=name)
+                async_fire=async_fire, hbm_budget_slots=hbm_budget_slots,
+                spill_staging_slots=spill_staging_slots, device=device,
+                name=name)
 
         return self.keyed._one_input(name, factory,
                                      key_extractor=self.keyed.key_extractor)

@@ -133,11 +133,14 @@ class CheckpointCoordinator:
             self._completed.sort(key=lambda c: c.checkpoint_id)
             self.stats.append({
                 "id": p.checkpoint_id, "savepoint": p.is_savepoint,
+                "started": p.started,
                 "duration_s": now - p.started,
                 "barrier_to_ack_s": {t: at - p.started
                                      for t, at in p.ack_at.items()},
                 "store_s": now - t0,
                 "bytes": snapshot_nbytes(cp.task_snapshots),
+                "bytes_written": getattr(self.storage, "last_bytes_written",
+                                         None),
                 "tasks": len(p.acks)})
             regulars = [c for c in self._completed if not c.is_savepoint]
             while len(regulars) > RETAINED:

@@ -76,6 +76,12 @@ class DataGenSource:
         self._ts_col = timestamp_column
         self._device = bool(device)
 
+    def set_rate(self, rate_per_sec: Optional[float]) -> None:
+        """Change the rate cap while the job runs: 0 pauses the source,
+        None lifts the cap. A reader re-anchors its clock at its next read,
+        so no burst makes up for a pause."""
+        self._rate = rate_per_sec
+
     def create_splits(self, parallelism: int) -> list[SourceSplit]:
         return [SourceSplit(f"datagen-{i}", (i, parallelism))
                 for i in range(parallelism)]
@@ -98,10 +104,16 @@ class _DataGenReader(SourceReader):
         self._parallelism = parallelism
         self._next = 0
         self._started = time.time()
+        self._rate_seen = source._rate
 
     def _plan_batch(self, max_records: int) -> Optional[int]:
         """How many records the next batch holds (None: exhausted, 0:
         nothing due yet)."""
+        rate = self._s._rate
+        if rate != self._rate_seen:
+            self._rate_seen = rate
+            if rate:
+                self._started = time.time() - self._next / rate
         n = max_records
         if self._s._count is not None:
             total = self._s._count
@@ -110,9 +122,8 @@ class _DataGenReader(SourceReader):
             if self._next >= share:
                 return None
             n = min(n, share - self._next)
-        if self._s._rate is not None:
-            due = int((time.time() - self._started) * self._s._rate) \
-                - self._next
+        if rate is not None:
+            due = int((time.time() - self._started) * rate) - self._next
             if due < n:
                 return 0
         return n
@@ -140,7 +151,7 @@ class _DataGenReader(SourceReader):
 
     def restore(self, state: Any) -> None:
         self._next = int(state)
-        if self._s._rate is not None:
+        if self._s._rate:
             # the rate holds from here on, not from the reader's creation
             self._started = time.time() - self._next / self._s._rate
 

@@ -44,6 +44,13 @@ DEFAULTS: dict[str, Any] = {
     # incremental fires: a running window accumulator per invertible
     # aggregate and a merge tree per min/max, sealed once per pane
     "window.fire.incremental": False,
+    # most device hash-table slots of keyed state; state beyond them pages
+    # to the host spill tier at key-group granularity (0: unlimited)
+    "state.backend.tpu.hbm-budget-slots": 0,
+    # the same budget in bytes ("512mb" style sizes), converted to slots
+    # from the operator's per-slot footprint; the slots key wins when both
+    # are set (0: unlimited)
+    "state.backend.tpu.hbm-budget-bytes": 0,
 }
 
 #: value type of each key whose default does not name it
@@ -51,8 +58,14 @@ _TYPES: dict[str, type] = {"execution.checkpointing.dir": str}
 _DURATIONS = {"pipeline.auto-watermark-interval",
               "execution.checkpointing.interval",
               "execution.checkpointing.timeout"}
+_MEMORY = {"state.backend.tpu.hbm-budget-bytes"}
 _DURATION_RE = re.compile(r"^\s*([0-9.]+)\s*(ms|s|min)?\s*$")
 _UNITS = {"ms": 1e-3, "s": 1.0, "min": 60.0}
+_MEMORY_RE = re.compile(r"^\s*(\d+(?:\.\d+)?)\s*(b|kb|k|mb|m|gb|g|tb|t)?\s*$",
+                        re.IGNORECASE)
+_MEMORY_UNITS = {"b": 1, "k": 1 << 10, "kb": 1 << 10, "m": 1 << 20,
+                 "mb": 1 << 20, "g": 1 << 30, "gb": 1 << 30, "t": 1 << 40,
+                 "tb": 1 << 40}
 
 
 def _duration(value: Any) -> float:
@@ -62,6 +75,16 @@ def _duration(value: Any) -> float:
     if not m:
         raise ValueError(f"cannot parse duration {value!r}")
     return float(m.group(1)) * _UNITS[m.group(2) or "s"]
+
+
+def _memory(value: Any) -> int:
+    """Bytes: an int, or a size such as "512mb", "1.5 g" or "1024"."""
+    if isinstance(value, int):
+        return value
+    m = _MEMORY_RE.match(str(value))
+    if not m:
+        raise ValueError(f"cannot parse memory size {value!r}")
+    return int(float(m.group(1)) * _MEMORY_UNITS[(m.group(2) or "b").lower()])
 
 
 class Configuration:
@@ -80,6 +103,8 @@ class Configuration:
                 raise ValueError(f"{key} takes a value")
         elif key in _DURATIONS:
             value = _duration(value)
+        elif key in _MEMORY:
+            value = _memory(value)
         elif kind is bool and isinstance(value, str):
             if value.strip().lower() not in ("true", "false"):
                 raise ValueError(f"{key} takes true or false, not {value!r}")

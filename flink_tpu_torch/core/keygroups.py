@@ -5,16 +5,22 @@ carry each key's group, so ``murmur_mix``, ``hash_batch`` and
 ``key_groups_for_hash_batch`` must stay bit-exact with the reference:
 ``key_group = murmur(hash(key)) % max_parallelism``, and subtask ``i`` of
 ``p`` owns ``[ceil(i*maxp/p), floor(((i+1)*maxp - 1)/p)]``.
+
+``key_groups_device`` is the same map on torch int64 tensors (the port of
+``flink_tpu/parallel/mesh.py::key_groups_device``): the canonical
+snapshot order is computed with it on the card, and it is the plain
+version of the group hash inside the ingest kernel's spill split.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 import numpy as np
+import torch
 
 __all__ = ["KeyGroupRange", "murmur_mix",
            "hash_batch", "key_groups_for_hash_batch",
-           "key_group_range_for_operator"]
+           "key_group_range_for_operator", "key_groups_device"]
 
 _C1 = np.uint32(0xCC9E2D51)
 _C2 = np.uint32(0x1B873593)
@@ -81,3 +87,41 @@ def key_groups_for_hash_batch(hashes: np.ndarray,
     """uint32 hashes -> int32 key groups."""
     return (murmur_mix(hashes.astype(np.uint32))
             % np.int32(max_parallelism)).astype(np.int32)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """(a * c) mod 2^32 for a in [0, 2^32) in int64, split at 16 bits so
+    no partial product overflows."""
+    return (a * (c & 0xFFFF) + (((a * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _rotl32_t(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def key_groups_device(keys: torch.Tensor,
+                      max_parallelism: int) -> torch.Tensor:
+    """int64 keys -> int32 key groups on the keys' device, bit-equal to
+    ``key_groups_for_hash_batch(hash_batch(keys), max_parallelism)``:
+    the Long.hashCode fold and the murmur round in int64 with 32-bit
+    masks (torch has no uint32 multiply to trust)."""
+    u = keys.to(torch.int64)
+    k = (u ^ ((u >> 32) & _M32)) & _M32
+    k = _mul32(k, 0xCC9E2D51)
+    k = _rotl32_t(k, 15)
+    k = _mul32(k, 0x1B873593)
+    h = _rotl32_t(k, 13)
+    h = (_mul32(h, 5) + 0xE6546B64) & _M32
+    h = h ^ 4
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    # int32 reinterpretation, abs with MIN -> 0
+    s = torch.where(h >= (1 << 31), h - (1 << 32), h)
+    s = torch.where(s == -(1 << 31), torch.zeros_like(s), s.abs())
+    return (s % max_parallelism).to(torch.int32)

@@ -45,6 +45,30 @@
 // scatter_reduce) and for uint8. (The eager fold takes no bool plane: a
 // bool plane has no min/max identity and its sum promotes to int64.) Late
 // and dropped rows are summed over the warp and added with one atomic each.
+//
+// Two optional parts of the step, each off when its pointer is null, so a
+// launch without them keeps its form and its cost:
+//  * Dirty marking (device_window.py:150-151, the incremental snapshot's
+//    capture): every row that folds sets the byte of its slot's block,
+//    dirty[slot >> dirty_shift], to 1: an idempotent plain store into a
+//    [n_blocks] bitmap (32 KiB at 2^24 slots: it stays in L2), made only
+//    when an L2 read finds the byte 0. Only blocks really written are
+//    marked (the reference also marks block 0 for every row that does not
+//    fold).
+//  * The deferred-spill split (device_window.py:106-130, under an HBM
+//    budget): the row's key group (the murmur of core/keygroups.py, as
+//    key_groups_device computes it) reads the [maxp] spilled mask; only
+//    fresh rows of resident groups probe and fold, and fresh rows of
+//    spilled groups or whose insert failed go to staging buffers for the
+//    host tier: key, ring row, and each plane's value. Positions come from
+//    one warp-aggregated atomicAdd on the stage count, so the stage fills
+//    in atomic order, not batch order; rows past its capacity count into
+//    `dropped`. The per-group LRU clock touch[g] = max(batch_no) is taken
+//    through a bitmap of the block's groups in shared memory and one global
+//    atomicMax per touched group per block, skipped when the clock already
+//    holds batch_no (2^19 rows on 128 addresses would serialise as per-row
+//    atomics).
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -88,6 +112,30 @@ __device__ __forceinline__ int probe(unsigned long long* table,
     }
   }
   return -1;
+}
+
+__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
+  return (x << r) | (x >> (32 - r));
+}
+
+// key group of an int64 key: core/keygroups.py's murmur_mix of the
+// Long.hashCode fold, abs with INT_MIN -> 0, modulo max_parallelism
+__device__ __forceinline__ int key_group(unsigned long long u, int maxp) {
+  uint32_t k = (uint32_t)(u ^ (u >> 32));
+  k *= 0xCC9E2D51u;
+  k = rotl32(k, 15);
+  k *= 0x1B873593u;
+  uint32_t h = rotl32(k, 13);
+  h = h * 5u + 0xE6546B64u;
+  h ^= 4u;
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  int v = (int)h;
+  v = v == INT_MIN ? 0 : (v < 0 ? -v : v);
+  return v % maxp;
 }
 
 __device__ __forceinline__ unsigned long long load_one(const void* p,
@@ -179,6 +227,27 @@ struct StepCol {
   int dtype;
 };
 
+// data[pos] = the value, converted to `dtype` as numpy's astype does
+__device__ __forceinline__ void store_as(void* data, long long pos, int dtype,
+                                         unsigned long long raw, int code) {
+  switch (dtype) {
+    case kI64:
+      static_cast<long long*>(data)[pos] = value_as<long long>(raw, code);
+      break;
+    case kI32: static_cast<int*>(data)[pos] = value_as<int>(raw, code); break;
+    case kF32:
+      static_cast<float*>(data)[pos] = value_as<float>(raw, code);
+      break;
+    case kF64:
+      static_cast<double*>(data)[pos] = value_as<double>(raw, code);
+      break;
+    default:
+      static_cast<unsigned char*>(data)[pos] =
+          value_as<unsigned char>(raw, code);
+      break;
+  }
+}
+
 struct StepArgs {
   unsigned long long* table;
   unsigned long long mask;  // capacity - 1
@@ -196,6 +265,19 @@ struct StepArgs {
   int n_planes;
   StepPlane planes[kMaxPlanes];
   StepCol cols[kMaxCols];
+  // dirty marking: non-null -> dirty[slot >> dirty_shift] = 1 per fold
+  uint8_t* dirty;
+  int dirty_shift;
+  // deferred-spill split: on when maxp > 0
+  int maxp;
+  const uint8_t* spilled;          // [maxp] bool
+  long long* touch;                // [maxp] int64 LRU clock, or null
+  long long batch_no;
+  unsigned long long* stage_count; // int64 scalar, added to
+  long long stage_cap;
+  long long* stage_keys;           // [stage_cap]
+  int* stage_ring;                 // [stage_cap]
+  void* stage_vals[kMaxPlanes];    // plane q's [stage_cap] column, or null
 };
 
 // acc op= value, `raw` holding the value's bits as a column of dtype `code`
@@ -264,10 +346,20 @@ __global__ void __launch_bounds__(kThreads) ingest_step_kernel(StepArgs a) {
   // the plane table goes to shared memory once per block, so the fold loop
   // can index it at run time without a local copy of the parameters
   __shared__ StepPlane planes[kMaxPlanes];
+  __shared__ void* stage_vals[kMaxPlanes];
+  // spill form with a clock: bit g set when a row of the block is in group g
+  extern __shared__ unsigned touched[];
+  const bool spill = a.maxp > 0;
+  const bool clock = spill && a.touch != nullptr;
+  const int words = clock ? (a.maxp + 31) >> 5 : 0;
+  for (int w = threadIdx.x; w < words; w += blockDim.x) touched[w] = 0u;
   if (threadIdx.x < kMaxPlanes) {
 #pragma unroll
     for (int q = 0; q < kMaxPlanes; ++q) {
-      if (q == (int)threadIdx.x) planes[q] = a.planes[q];
+      if (q == (int)threadIdx.x) {
+        planes[q] = a.planes[q];
+        stage_vals[q] = a.stage_vals[q];
+      }
     }
   }
   __syncthreads();
@@ -293,11 +385,23 @@ __global__ void __launch_bounds__(kThreads) ingest_step_kernel(StepArgs a) {
   const bool fresh = in && pane >= first_open;
   long long k = value_as<long long>(kr, a.key_dtype);
   if (k == (long long)kEmpty) k = (long long)kEmpty - 1;  // sanitize
-  const int slot =
-      fresh ? probe(a.table, a.mask, (unsigned long long)k, true) : -1;
+  bool spilled_row = false;
+  if (spill && in) {
+    const int g = key_group((unsigned long long)k, a.maxp);
+    spilled_row = a.spilled[g] != 0;
+    if (clock) atomicOr(&touched[g >> 5], 1u << (g & 31));
+  }
+  const int slot = fresh && !spilled_row
+                       ? probe(a.table, a.mask, (unsigned long long)k, true)
+                       : -1;
+  long long row = pane % a.ring;
+  if (row < 0) row += a.ring;
   if (slot >= 0) {
-    const long long m = pane % a.ring;
-    const long long idx = (m < 0 ? m + a.ring : m) * a.cap + slot;
+    // read before the store: after its first row a block's byte reads 1,
+    // and 2^19 stores into a few KiB would queue on the same L2 lines
+    if (a.dirty != nullptr && __ldcg(a.dirty + (slot >> a.dirty_shift)) == 0)
+      a.dirty[slot >> a.dirty_shift] = 1;
+    const long long idx = row * a.cap + slot;
     for (int q = 0; q < a.n_planes; ++q) {
       if (planes[q].col < 0) fold(planes[q], idx, 1ull, kI64);
     }
@@ -309,20 +413,68 @@ __global__ void __launch_bounds__(kThreads) ingest_step_kernel(StepArgs a) {
       }
     }
   }
-  // every lane gets here (no early return above), so the warp sums are legal
+  // every lane gets here (no early return above), so the warp-wide calls
+  // are legal
+  bool drop = fresh && slot < 0;
+  if (spill) {
+    const bool to_host = drop;   // a spilled group's row, or a failed insert
+    drop = false;
+    const unsigned m = __ballot_sync(kFull, to_host);
+    if (m != 0u) {
+      const int lane = threadIdx.x & 31;
+      const int leader = __ffs(m) - 1;
+      unsigned long long base = 0;
+      if (lane == leader)
+        base = atomicAdd(a.stage_count, (unsigned long long)__popc(m));
+      base = __shfl_sync(kFull, base, leader);
+      if (to_host) {
+        const long long pos =
+            (long long)(base + (unsigned long long)__popc(m & ((1u << lane) -
+                                                               1u)));
+        if (pos < a.stage_cap) {
+          a.stage_keys[pos] = k;
+          a.stage_ring[pos] = (int)row;
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            for (int q = 0; q < a.n_planes; ++q) {
+              if (planes[q].col == c && stage_vals[q] != nullptr)
+                store_as(stage_vals[q], pos, planes[q].dtype, cv[c],
+                         a.cols[c].dtype);
+            }
+          }
+        } else {
+          drop = true;
+        }
+      }
+    }
+  }
   const unsigned late = __reduce_add_sync(kFull, (in && !fresh) ? 1u : 0u);
-  const unsigned dropped =
-      __reduce_add_sync(kFull, (fresh && slot < 0) ? 1u : 0u);
+  const unsigned dropped = __reduce_add_sync(kFull, drop ? 1u : 0u);
   if ((threadIdx.x & 31) == 0) {
     if (late) atomicAdd(a.late, (unsigned long long)late);
     if (dropped) atomicAdd(a.dropped, (unsigned long long)dropped);
+  }
+  if (clock) {
+    __syncthreads();
+    for (int w = threadIdx.x; w < words; w += blockDim.x) {
+      unsigned bits = touched[w];
+      while (bits != 0u) {
+        const int g = (w << 5) + __ffs(bits) - 1;
+        bits &= bits - 1u;
+        if (__ldcg(a.touch + g) < a.batch_no) atomicMax(a.touch + g,
+                                                        a.batch_no);
+      }
+    }
   }
 }
 
 template <int NC>
 cudaError_t launch_step(const StepArgs& a, cudaStream_t stream) {
   const long long blocks = (a.n + kThreads - 1) / kThreads;
-  ingest_step_kernel<NC><<<(unsigned)blocks, kThreads, 0, stream>>>(a);
+  const size_t smem = a.maxp > 0 && a.touch != nullptr
+                          ? (size_t)((a.maxp + 31) >> 5) * sizeof(unsigned)
+                          : 0;
+  ingest_step_kernel<NC><<<(unsigned)blocks, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -350,6 +502,13 @@ extern "C" int hash_probe_launch(void* table, long long capacity,
 // plane_col[q] (-1: +1, the count plane). late and dropped: int64
 // counters, added to. first_open_at: null, or an int64 device scalar read
 // in place of first_open.
+// dirty: null, or [capacity >> dirty_shift] bytes set to 1 per folded
+// slot's block. maxp > 0 turns on the spill split: spilled [maxp] bool,
+// touch [maxp] int64 (or null) maxed with batch_no, stage_count an int64
+// counter, stage_keys [stage_cap] int64, stage_ring [stage_cap] int32 and
+// stage_vals[q] plane q's [stage_cap] column of its dtype (null: none, as
+// for the count plane); in that form `dropped` counts the rows the stage
+// could not hold, and failed inserts stage instead.
 // Dtype codes: 0 int64, 1 int32, 2 float32, 3 float64, 4 uint8, 5 bool.
 // Kind codes: 0 sum (and count), 1 min, 2 max. Returns cudaGetLastError.
 extern "C" int ingest_step_launch(
@@ -359,11 +518,19 @@ extern "C" int ingest_step_launch(
     void* late, void* dropped,
     int n_planes, void* const* plane_data, const int* plane_kind,
     const int* plane_dtype, const int* plane_col, int n_cols,
-    const void* const* col_data, const int* col_dtype, void* stream) {
+    const void* const* col_data, const int* col_dtype, void* dirty,
+    int dirty_shift, int maxp, const void* spilled, void* touch,
+    long long batch_no, void* stage_count, long long stage_cap,
+    void* stage_keys, void* stage_ring, void* const* stage_vals,
+    void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if (n_planes < 1 || n_planes > kMaxPlanes || n_cols < 0 ||
       n_cols > kMaxCols || pane <= 0 || ring <= 0 || key_dtype == kF32 ||
-      key_dtype == kF64 || key_dtype < 0 || key_dtype > kBool)
+      key_dtype == kF64 || key_dtype < 0 || key_dtype > kBool ||
+      dirty_shift < 0 || dirty_shift > 30 || maxp < 0 ||
+      (maxp > 0 && (spilled == nullptr || stage_count == nullptr ||
+                    stage_keys == nullptr || stage_ring == nullptr ||
+                    stage_cap < 0)))
     return (int)cudaErrorInvalidValue;
   StepArgs a{};
   a.table = (unsigned long long*)table;
@@ -393,6 +560,20 @@ extern "C" int ingest_step_launch(
     if (col_dtype[c] < 0 || col_dtype[c] > kBool)
       return (int)cudaErrorInvalidValue;
     a.cols[c] = StepCol{col_data[c], col_dtype[c]};
+  }
+  a.dirty = (uint8_t*)dirty;
+  a.dirty_shift = dirty_shift;
+  a.maxp = maxp;
+  if (maxp > 0) {
+    a.spilled = (const uint8_t*)spilled;
+    a.touch = (long long*)touch;
+    a.batch_no = batch_no;
+    a.stage_count = (unsigned long long*)stage_count;
+    a.stage_cap = stage_cap;
+    a.stage_keys = (long long*)stage_keys;
+    a.stage_ring = (int*)stage_ring;
+    for (int q = 0; q < n_planes; ++q)
+      a.stage_vals[q] = stage_vals != nullptr ? stage_vals[q] : nullptr;
   }
   cudaStream_t s = (cudaStream_t)stream;
   switch (n_cols) {

@@ -5,7 +5,10 @@
   no quiet fallback, so a run on the CPU is always one somebody asked for.
 * Every kernel wrapper adds one to its counter in ``KERNEL_LAUNCHES``
   where it launches its kernel, and nowhere else; a replay of a CUDA
-  graph adds one for each kernel launch the graph holds. A caller resets the
+  graph adds one for each kernel launch the graph holds. A launch of
+  ``ingest_step`` in one of its two optional forms also counts into the
+  form's own counter, ``ingest_step_dirty`` (dirty marking) or
+  ``ingest_step_spill`` (the spill split, which marks dirty blocks too). A caller resets the
   counters, drives a path and reads them back to show which kernels the
   path went through.
 """
@@ -22,7 +25,8 @@ __all__ = ["resolve_device", "KERNEL_LAUNCHES", "note_launch",
 
 #: kernel name -> launches since the last reset
 KERNEL_LAUNCHES: dict[str, int] = {"hist256": 0, "hash_probe": 0,
-                                   "ingest_step": 0, "window_seal": 0,
+                                   "ingest_step": 0, "ingest_step_dirty": 0,
+                                   "ingest_step_spill": 0, "window_seal": 0,
                                    "window_rebuild": 0}
 # the tasks of a job launch from threads of their own
 _LAUNCH_LOCK = threading.Lock()

@@ -18,9 +18,13 @@ keyed state lives in dense planes indexed by slot.
   (the reference's ``_step_body``): pane and late mask, key sanitising,
   lookup-or-insert and one fold per aggregate plane into ``[ring,
   capacity]`` planes, with the late and dropped rows counted on the
-  device. On a CUDA tensor it is one launch of the same source's fused
-  kernel; its plain version is the chain of the probe's plain version and
-  ``scatter_fold`` per plane.
+  device. Two optional parts: dirty marking of the snapshot's slot blocks
+  (``dirty``), and the deferred-spill split under an HBM budget
+  (``spill``, a ``StepSpill``): rows of spilled key groups and failed
+  inserts go to staging buffers for the host tier, and a per-group clock
+  records the batch. On a CUDA tensor it is one launch of the same
+  source's fused kernel; its plain version is the chain of the probe's
+  plain version and ``scatter_fold`` per plane, staging in batch order.
 
 Contract (both): rows where ``valid`` is False never probe (slot -1, ok
 False); a key that exhausts ``MAX_PROBES`` reports ok False, slot -1, and
@@ -32,18 +36,20 @@ reference's uint32 murmur finalizer, computed in int64 with 32-bit masks
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..core.keygroups import key_groups_device
 from ..device import note_launch
 from .segment_ops import scatter_fold
 
 __all__ = ["EMPTY_KEY", "MAX_PROBES", "sanitize_keys_device", "make_table",
            "hash_keys_device", "lookup", "lookup_or_insert",
            "lookup_or_insert_plain", "lookup_plain", "ingest_step",
-           "ingest_step_plain"]
+           "ingest_step_plain", "StepSpill"]
 
 EMPTY_KEY = int(np.iinfo(np.int64).max)
 MAX_PROBES = 128
@@ -75,7 +81,18 @@ def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
 
 def hash_keys_device(keys: torch.Tensor) -> torch.Tensor:
     """Murmur-style finalizer over int64 keys; returns int64 tensors
-    holding the reference's uint32 hash values (bit-equal)."""
+    holding the reference's uint32 hash values (bit-equal). On a CPU
+    tensor the same steps run in numpy's wrapping uint32."""
+    if keys.device.type == "cpu":
+        u = keys.to(torch.int64).numpy().view(np.uint64)
+        h = ((u ^ (u >> np.uint64(32))) & np.uint64(_M32)).astype(np.uint32)
+        h *= np.uint32(0xCC9E2D51)
+        h = (h << np.uint32(15)) | (h >> np.uint32(17))
+        h *= np.uint32(0x1B873593)
+        h ^= h >> np.uint32(16)
+        h *= np.uint32(0x85EBCA6B)
+        h ^= h >> np.uint32(13)
+        return torch.from_numpy(h.astype(np.int64))
     u = keys.to(torch.int64)
     h = (u ^ (u >> 32)) & _M32
     h = _mul32(h, 0xCC9E2D51)
@@ -162,57 +179,88 @@ def _windows(table, keys, h0, base, mask):
     offs = torch.arange(CHUNK, dtype=torch.int64, device=keys.device)
     idx = ((h0 + base)[:, None] + offs[None, :]) & mask
     entry = table[idx]
-    rng = offs[None, :]
-    pos_found = torch.where(entry == keys[:, None], rng, CHUNK).amin(1)
-    pos_empty = torch.where(entry == EMPTY_KEY, rng, CHUNK).amin(1)
-    return idx, pos_found, pos_empty
+    # positions in uint8: the reduction over 8 columns is many times
+    # cheaper than in int64 on the CPU
+    rng = offs.to(torch.uint8)[None, :]
+    none = torch.full((), CHUNK, dtype=torch.uint8, device=keys.device)
+    pos_found = torch.where(entry == keys[:, None], rng, none).amin(1)
+    pos_empty = torch.where(entry == EMPTY_KEY, rng, none).amin(1)
+    return idx, pos_found.long(), pos_empty.long()
 
 
 def lookup_or_insert_plain(table, keys, valid=None):
     """Plain version: the reference's probe rounds, looped on the host
-    (one host sync per round; any device)."""
+    (one host sync per round; any device). Each round works on the rows
+    still unresolved only, which changes no claim: a resolved row neither
+    probes nor claims again."""
     mask = table.numel() - 1
-    h0 = hash_keys_device(keys) & mask
     n = keys.numel()
     dev = keys.device
-    base = torch.zeros(n, dtype=torch.int64, device=dev)
     slot = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    done = (torch.zeros(n, dtype=torch.bool, device=dev) if valid is None
-            else ~valid)
-    while bool(((~done) & (base < MAX_PROBES)).any()):
-        idx, pos_found, pos_empty = _windows(table, keys, h0, base, mask)
-        found = ~done & (pos_found < pos_empty)
+    pend = (torch.arange(n, device=dev) if valid is None
+            else torch.nonzero(valid).flatten())
+    k = keys[pend]
+    h0 = hash_keys_device(k) & mask
+    base = torch.zeros(pend.numel(), dtype=torch.int64, device=dev)
+    while pend.numel() and bool((base < MAX_PROBES).any()):
+        idx, pos_found, pos_empty = _windows(table, k, h0, base, mask)
+        found = pos_found < pos_empty
         fslot = idx.gather(1, pos_found.clamp(max=CHUNK - 1)[:, None])[:, 0]
-        want = ~done & ~found & (pos_empty < CHUNK)
+        want = ~found & (pos_empty < CHUNK)
         cslot = idx.gather(1, pos_empty.clamp(max=CHUNK - 1)[:, None])[:, 0]
-        table.scatter_reduce_(0, torch.where(want, cslot, 0),
-                              torch.where(want, keys, EMPTY_KEY), "amin")
-        won = want & (table[cslot] == keys)
-        slot = torch.where(found, fslot, slot)
-        slot = torch.where(won, cslot, slot)
-        done = done | found | won
-        base = torch.where(done, base,
-                           base + torch.where(want, pos_empty, CHUNK))
-    return table, slot.to(torch.int32), done & (slot >= 0)
+        table.scatter_reduce_(0, cslot[want], k[want], "amin")
+        won = want & (table[cslot] == k)
+        slot[pend[found]] = fslot[found]
+        slot[pend[won]] = cslot[won]
+        keep = ~(found | won)
+        base = (base + torch.where(want, pos_empty, CHUNK))[keep]
+        pend, k, h0 = pend[keep], k[keep], h0[keep]
+    return table, slot.to(torch.int32), slot >= 0
 
 
 def lookup_plain(table, keys):
-    """Plain version of ``lookup`` (first empty before a match: absent)."""
+    """Plain version of ``lookup`` (first empty before a match: absent),
+    each round on the rows still unresolved."""
     mask = table.numel() - 1
-    h0 = hash_keys_device(keys) & mask
     n = keys.numel()
     dev = keys.device
-    base = torch.zeros(n, dtype=torch.int64, device=dev)
     slot = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    done = torch.zeros(n, dtype=torch.bool, device=dev)
-    while bool(((~done) & (base < MAX_PROBES)).any()):
-        idx, pos_found, pos_empty = _windows(table, keys, h0, base, mask)
-        found = ~done & (pos_found < pos_empty)
+    pend = torch.arange(n, device=dev)
+    k = keys
+    h0 = hash_keys_device(k) & mask
+    base = torch.zeros(n, dtype=torch.int64, device=dev)
+    while pend.numel() and bool((base < MAX_PROBES).any()):
+        idx, pos_found, pos_empty = _windows(table, k, h0, base, mask)
+        found = pos_found < pos_empty
         fslot = idx.gather(1, pos_found.clamp(max=CHUNK - 1)[:, None])[:, 0]
-        slot = torch.where(found, fslot, slot)
-        done = done | found | (pos_empty < CHUNK)
-        base = torch.where(done, base, base + CHUNK)
+        slot[pend[found]] = fslot[found]
+        keep = ~(found | (pos_empty < CHUNK))
+        base = (base + CHUNK)[keep]
+        pend, k, h0 = pend[keep], k[keep], h0[keep]
     return slot.to(torch.int32)
+
+
+@dataclass
+class StepSpill:
+    """The deferred-spill part of an ingest step (HBM budget): ``spilled``
+    [max_parallelism] bool marks the key groups on the host; ``touch``
+    [max_parallelism] int64 takes max(``batch_no``) over every row's
+    group; ``count`` is the int64 device scalar of rows staged so far (it
+    keeps counting past the capacity); ``keys`` [S] int64 and ``ring`` [S]
+    int32 take the staged rows' keys and ring rows, and ``values[q]`` [S]
+    plane q's value in the plane's dtype (None for the count plane)."""
+
+    spilled: torch.Tensor
+    touch: torch.Tensor
+    batch_no: int
+    count: torch.Tensor
+    keys: torch.Tensor
+    ring: torch.Tensor
+    values: list
+
+    @property
+    def max_parallelism(self) -> int:
+        return self.spilled.numel()
 
 
 #: torch dtype -> dtype code of csrc/hash_table.cu
@@ -264,30 +312,99 @@ def _check_step(table, planes, ts, keys, first_open, late, dropped) -> None:
                          "table's device")
 
 
+def _check_parts(table, planes, dirty, dirty_shift, spill) -> None:
+    dev = table.device
+    if dirty is not None and (
+            dirty.dtype != torch.uint8 or dirty.dim() != 1
+            or not dirty.is_contiguous() or dirty.device != dev
+            or not 0 <= dirty_shift <= 30
+            or dirty.numel() < (table.numel() + (1 << dirty_shift) - 1)
+            >> dirty_shift):
+        raise ValueError("dirty must be a contiguous uint8 tensor of one "
+                         "byte per block of 2^dirty_shift slots, on the "
+                         "table's device")
+    if spill is None:
+        return
+    S = spill.keys.numel()
+    ok = (spill.spilled.dtype == torch.bool and spill.spilled.dim() == 1
+          and spill.spilled.numel() > 0
+          and spill.touch.dtype == torch.int64
+          and spill.touch.shape == spill.spilled.shape
+          and spill.count.dtype == torch.int64 and spill.count.dim() == 0
+          and spill.keys.dtype == torch.int64 and spill.keys.dim() == 1
+          and spill.ring.dtype == torch.int32 and spill.ring.shape == (S,)
+          and len(spill.values) == len(planes))
+    tensors = [spill.spilled, spill.touch, spill.count, spill.keys,
+               spill.ring]
+    for (_kind, arr, values), col in zip(planes, spill.values):
+        if col is None:
+            continue
+        ok = ok and (col.dtype == arr.dtype and col.shape == (S,))
+        tensors.append(col)
+    if not ok or any(t.device != dev or not t.is_contiguous()
+                     for t in tensors):
+        raise ValueError("spill: bool mask and int64 clock of one length, "
+                         "an int64 count scalar, [S] int64 keys, [S] int32 "
+                         "ring rows and one [S] column per plane in its "
+                         "dtype (or None), contiguous on the table's device")
+
+
 def ingest_step_plain(table: torch.Tensor, planes: Sequence[tuple],
                       ts: torch.Tensor, keys: torch.Tensor, pane: int,
                       offset: int, first_open, late: torch.Tensor,
-                      dropped: torch.Tensor) -> None:
+                      dropped: torch.Tensor,
+                      dirty: Optional[torch.Tensor] = None,
+                      dirty_shift: int = 0,
+                      spill: Optional[StepSpill] = None) -> None:
     """Plain version of ``ingest_step`` (any device): the chain of the
-    probe's plain version and one ``scatter_fold`` per plane. A tensor
+    probe's plain version and one ``scatter_fold`` per plane, in the
+    reference's batch order (staging positions by ``cumsum``). A tensor
     ``first_open`` is compared on the device, as the kernel reads it."""
     panes = torch.div(ts - offset, pane, rounding_mode="floor")
     fresh = panes >= first_open
     late += (~fresh).sum()
-    _, slots, ok = lookup_or_insert_plain(table, sanitize_keys_device(keys),
-                                          fresh)
-    dropped += (fresh & ~ok).sum()
+    skeys = sanitize_keys_device(keys)
     ring = planes[0][1].shape[0]
-    flat = (panes % ring) * table.numel() + slots.to(torch.int64).clamp(min=0)
+    ring_idx = panes % ring
+    valid = fresh
+    if spill is not None:
+        groups = key_groups_device(skeys, spill.max_parallelism).to(
+            torch.int64)
+        spill.touch.scatter_reduce_(
+            0, groups, torch.full_like(groups, int(spill.batch_no)), "amax")
+        sp = spill.spilled[groups]
+        valid = fresh & ~sp
+    _, slots, ok = lookup_or_insert_plain(table, skeys, valid)
+    if spill is not None:
+        to_host = fresh & (sp | ~ok)
+        S = spill.keys.numel()
+        pos = spill.count + torch.cumsum(to_host.to(torch.int64), 0) - 1
+        can = to_host & (pos < S)
+        dropped += (to_host & ~can).sum()
+        at = pos[can]
+        spill.keys[at] = skeys[can]
+        spill.ring[at] = ring_idx[can].to(torch.int32)
+        for (_kind, arr, values), col in zip(planes, spill.values):
+            if col is not None:
+                col[at] = values[can].to(col.dtype)
+        spill.count += to_host.sum()
+    else:
+        dropped += (fresh & ~ok).sum()
+    flat = ring_idx * table.numel() + slots.to(torch.int64).clamp(min=0)
     for kind, arr, values in planes:
         scatter_fold(kind, arr.view(-1), flat,
                      torch.ones_like(slots) if values is None else values, ok)
+    if dirty is not None:
+        dirty[slots[ok].to(torch.int64) >> dirty_shift] = 1
 
 
 def ingest_step(table: torch.Tensor, planes: Sequence[tuple],
                 ts: torch.Tensor, keys: torch.Tensor, pane: int, offset: int,
                 first_open, late: torch.Tensor,
-                dropped: torch.Tensor) -> None:
+                dropped: torch.Tensor,
+                dirty: Optional[torch.Tensor] = None,
+                dirty_shift: int = 0,
+                spill: Optional[StepSpill] = None) -> None:
     """One ingest step of a micro-batch, IN PLACE, with no host sync.
 
     Row i falls in pane p = floor((ts[i] - offset) / pane); a row with p <
@@ -300,11 +417,21 @@ def ingest_step(table: torch.Tensor, planes: Sequence[tuple],
     scalars on the device, added to. ``first_open`` is an int, or a 0-d
     int64 tensor on the device that the kernel reads when it runs: the
     form a CUDA graph replays, whose by-value arguments are frozen at
-    capture (``runtime/compiled.py``). Either way it is one launch."""
+    capture (``runtime/compiled.py``). Either way it is one launch.
+
+    ``dirty`` (uint8, one byte per block of ``2^dirty_shift`` slots): the
+    block of every slot a row folds into is set to 1. ``spill``: the
+    deferred-spill split (``StepSpill``); rows of spilled groups never
+    probe, and they and the fresh rows whose insert fails go to the stage
+    (``dropped`` then counts the rows past the stage's capacity). The
+    kernel stages in atomic order, the plain version in batch order: the
+    staged rows are equal as a multiset."""
     _check_step(table, planes, ts, keys, first_open, late, dropped)
+    _check_parts(table, planes, dirty, dirty_shift, spill)
     if table.device.type == "cpu":
         return ingest_step_plain(table, planes, ts, keys, pane, offset,
-                                 first_open, late, dropped)
+                                 first_open, late, dropped, dirty,
+                                 dirty_shift, spill)
     if table.device.type != "cuda":
         raise ValueError(f"unsupported device {table.device}")
     from . import kernels
@@ -342,6 +469,19 @@ def ingest_step(table: torch.Tensor, planes: Sequence[tuple],
         ints(*plane_col), n_c,
         (ctypes.c_void_p * max(n_c, 1))(*[c.data_ptr() for c in cols]),
         (ctypes.c_int * max(n_c, 1))(*[_CODES[c.dtype] for c in cols]),
+        dirty.data_ptr() if dirty is not None else None, int(dirty_shift),
+        spill.max_parallelism if spill is not None else 0,
+        *((spill.spilled.data_ptr(), spill.touch.data_ptr(),
+           int(spill.batch_no), spill.count.data_ptr(), spill.keys.numel(),
+           spill.keys.data_ptr(), spill.ring.data_ptr(),
+           (ctypes.c_void_p * n_p)(*[None if c is None else c.data_ptr()
+                                     for c in spill.values]))
+          if spill is not None else (None, None, 0, None, 0, None, None,
+                                     None)),
         torch.cuda.current_stream(table.device).cuda_stream)
     kernels.check("hash_table", rc)
     note_launch("ingest_step")
+    if spill is not None:
+        note_launch("ingest_step_spill")
+    elif dirty is not None:
+        note_launch("ingest_step_dirty")

@@ -50,7 +50,9 @@ SOURCES = {
         "hash_probe_launch": [_P, _I64, _P, _P, _I64, _I32, _P, _P, _P],
         "ingest_step_launch": [_P, _I64, _P, _P, _I32, _I64, _I64, _I64,
                                _I64, _P, _I64, _P, _P, _I32, _PP, _PI32,
-                               _PI32, _PI32, _I32, _PP, _PI32, _P],
+                               _PI32, _PI32, _I32, _PP, _PI32, _P, _I32,
+                               _I32, _P, _P, _I64, _P, _I64, _P, _P, _PP,
+                               _P],
         "hash_table_load": [],
     },
     "window_seal": {

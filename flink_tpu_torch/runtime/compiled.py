@@ -5,8 +5,9 @@
 decode -> window step`` prefix may run as one dispatch, and records it in
 the job's ``FusionCertificate``. ``FusedChain`` is what that buys: the
 device datagen decode (the user's ``gen_fn`` on torch tensors), the
-reader's monotonicity check and the window operator's ingest step run as
-ONE dispatch per micro-batch.
+reader's monotonicity check and the window operator's ingest step (with
+its dirty marking of the snapshot's slot blocks) run as ONE dispatch per
+micro-batch.
 
 * On the card that dispatch is a CUDA graph replay. One graph is captured
   per batch length: the decode's operators, the monotonicity check ORed
@@ -19,9 +20,9 @@ ONE dispatch per micro-batch.
   ``first_open`` from it.
 * A graph also freezes every pointer it was captured with. The cache of a
   batch length is keyed on the ``data_ptr()`` of the table, every pane
-  plane, the counters and the buffers, so a table that grew (a rehash, a
-  restore) or a re-seated ring is captured anew, never replayed into
-  freed memory.
+  plane, the dirty bitmap, the counters and the buffers, so a table that
+  grew (a rehash, a restore), a re-seated ring or a bitmap reallocated
+  with the table is captured anew, never replayed into freed memory.
 * On the CPU the same class runs the decode and the plain step eagerly,
   reading the same scalar buffer.
 
@@ -67,8 +68,8 @@ class FusedChain:
         self.captures = 0
 
     def _body(self, n: int, viol: torch.Tensor, table: torch.Tensor,
-              planes: list, late: torch.Tensor,
-              dropped: torch.Tensor) -> None:
+              planes: list, late: torch.Tensor, dropped: torch.Tensor,
+              dirty: torch.Tensor, dirty_shift: int) -> None:
         """The decode and the step of one batch, from the scalar buffer:
         the reader's decode index math and casts, then ``ingest_step``.
         ``planes``: (kind, [ring, capacity] array, field or None)."""
@@ -84,13 +85,14 @@ class FusedChain:
         ingest_step(table, [(kind, arr, None if field is None else out[field])
                             for kind, arr, field in planes],
                     ts, out[self._key_column], self._pane, self._offset,
-                    scal[2], late, dropped)
+                    scal[2], late, dropped, dirty, dirty_shift)
 
     def run(self, batch, table: torch.Tensor, planes: list,
-            late: torch.Tensor, dropped: torch.Tensor,
-            first_open: int) -> None:
+            late: torch.Tensor, dropped: torch.Tensor, first_open: int,
+            dirty: torch.Tensor, dirty_shift: int) -> None:
         """Decode ``batch`` (a ``LazyDeviceBatch``) and fold it into the
-        state in place: one graph replay on the card."""
+        state in place, marking the dirty blocks of ``dirty`` (one byte per
+        block of 2^``dirty_shift`` slots): one graph replay on the card."""
         n = batch.n
         host = torch.tensor([batch.start, batch.prev_last, first_open],
                             dtype=torch.int64)
@@ -100,27 +102,30 @@ class FusedChain:
         viol = batch.reader._viol
         if not self._cuda:
             self._scal.copy_(host)
-            self._body(n, viol, table, planes, late, dropped)
+            self._body(n, viol, table, planes, late, dropped, dirty,
+                       dirty_shift)
             batch.reader._viol_checked = False
             DEVICE_STATS.note_chain_dispatch()
             return
         self._scal.copy_(host.pin_memory(), non_blocking=True)
         key = (table.data_ptr(),
                tuple(arr.data_ptr() for _k, arr, _f in planes),
-               late.data_ptr(), dropped.data_ptr(), viol.data_ptr())
+               late.data_ptr(), dropped.data_ptr(), viol.data_ptr(),
+               dirty.data_ptr(), dirty_shift)
         entry = self._graphs.get(n)
         if entry is None or entry[0] != key:
             self._graphs.pop(n, None)   # frees a stale graph's pool first
             entry = (key, self._capture(n, viol, table, planes, late,
-                                        dropped))
+                                        dropped, dirty, dirty_shift))
             self._graphs[n] = entry
         entry[1].replay()
         batch.reader._viol_checked = False
         note_launch("ingest_step")
+        note_launch("ingest_step_dirty")
         DEVICE_STATS.note_chain_dispatch()
 
-    def _capture(self, n: int, viol, table, planes, late,
-                 dropped) -> torch.cuda.CUDAGraph:
+    def _capture(self, n: int, viol, table, planes, late, dropped, dirty,
+                 dirty_shift: int) -> torch.cuda.CUDAGraph:
         """Record the body into a new graph on a side stream ordered after
         the current one; nothing runs until the first replay."""
         graph = torch.cuda.CUDAGraph()
@@ -129,7 +134,8 @@ class FusedChain:
         with torch.cuda.stream(side):
             graph.capture_begin(capture_error_mode="thread_local")
             try:
-                self._body(n, viol, table, planes, late, dropped)
+                self._body(n, viol, table, planes, late, dropped, dirty,
+                           dirty_shift)
             finally:
                 graph.capture_end()
         torch.cuda.current_stream(self._dev).wait_stream(side)

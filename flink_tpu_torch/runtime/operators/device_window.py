@@ -34,11 +34,24 @@
   ``LazyDeviceBatch`` handles; each is decoded and folded in one dispatch
   (``_ingest_chain``, ``runtime/compiled.py``: a CUDA graph replay on the
   card).
+* Every step marks the slot blocks it writes in the backend's dirty
+  bitmap, so a checkpoint copies only what changed (``snapshot_state``).
+* HBM budget (``hbm_budget_slots``, or ``state.backend.tpu.hbm-budget-
+  slots`` / ``-bytes``): keyed state past it pages to the host tier at
+  key-group granularity. Under deferred overflow the split runs inside
+  the ingest kernel: rows of spilled groups (and failed inserts) go to
+  device staging buffers of ``spill_staging_slots`` rows, drained into
+  the host tier at each watermark before any fire
+  (``_drain_spill_stage``). A fire takes the host tier's part of the
+  window before its pane retires (``_host_fire_part``) and merges it at
+  materialization, re-ranking top k across both tiers. A budgeted job
+  does not take the fused chain: its lazy batches decode and go through
+  the spill step, as the reference does.
 
 Late records (pane already fired) are dropped and counted. Host batches
 (the test harness, host sources) take the host late filter and upload
-their columns. The spill tier, the device guard and the degrade ladder
-are later slices.
+their columns (under a deferred budget they take the device step).
+The device guard and the degrade ladder are later slices.
 """
 
 from __future__ import annotations
@@ -133,6 +146,8 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
                  emit_topk: Optional[int] = None,
                  defer_overflow: bool = False,
                  async_fire: bool = False,
+                 hbm_budget_slots: int = 0,
+                 spill_staging_slots: int = 1 << 16,
                  fire_incremental: Optional[bool] = None,
                  device=None,
                  name: str = "DeviceWindowAgg"):
@@ -141,7 +156,10 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
         ``defer_overflow``: the hot path never syncs with the host; failed
         inserts count on the device and fail loudly at the next fire.
         ``async_fire``: fires emit once their device->host copy lands,
-        with watermarks held behind them. ``fire_incremental``: the
+        with watermarks held behind them. ``hbm_budget_slots``: device
+        slots of keyed state (0: the configuration's budget, if any);
+        ``spill_staging_slots``: rows the deferred step can stage for the
+        host tier between two watermarks. ``fire_incremental``: the
         incremental fire engine; None reads ``window.fire.incremental``.
         ``device``: ``cuda`` unless ``"cpu"`` is asked for."""
         super().__init__(name)
@@ -165,6 +183,9 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
         self._topk = emit_topk
         self._defer = bool(defer_overflow)
         self._async = bool(async_fire)
+        self._hbm_budget = int(hbm_budget_slots)
+        self._stage_slots = int(spill_staging_slots)
+        self._stage: Optional[dict] = None   # deferred-spill staging buffers
         self._backend: Optional[DeviceKeyedStateBackend] = None
         self._init_control_plane()
         if self._async:
@@ -192,6 +213,10 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
         self.fused_chain = None                   # runtime.compiled.FusedChain
         #: perf_counter of the first batch this operator processed
         self.first_batch_at: Optional[float] = None
+        #: seconds of the spill tier's host work: staged-row drains and
+        #: host parts of fires; and the rows drained
+        self.spill_s = {"drain": 0.0, "host_fire": 0.0}
+        self.spill_rows_drained = 0
 
     # -- lifecycle ---------------------------------------------------------
     def setup(self, ctx: OperatorContext, output: Output) -> None:
@@ -203,10 +228,22 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
             ctx.config.get("task.coalesce.target-records"))
         self._coalesce_timeout_s = float(
             ctx.config.get("task.coalesce.timeout-ms")) / 1e3
+        budget = self._hbm_budget or int(
+            ctx.config.get("state.backend.tpu.hbm-budget-slots"))
+        budget_bytes = int(
+            ctx.config.get("state.backend.tpu.hbm-budget-bytes"))
+        if not budget and budget_bytes:
+            # bytes to slots from the per-slot footprint this operator
+            # allocates: the 8-byte table key and one [ring] row of 8-byte
+            # cells per plane (the count plane and one per non-count
+            # aggregate); narrower planes land under the budget
+            value_planes = sum(1 for a in self._aggs if a.kind != "count")
+            slot_bytes = 8 + self._ring * 8 * (1 + value_planes)
+            budget = max(1, budget_bytes // slot_bytes)
         self._backend = DeviceKeyedStateBackend(
             ctx.key_group_range, ctx.max_parallelism,
             capacity=self._capacity, device=self._device,
-            defer_overflow=self._defer)
+            defer_overflow=self._defer, hbm_budget_slots=budget)
         # a COUNT with value_bits <= 31 promises every per-window count
         # fits int32: the count plane halves its traffic
         cvb = min((a.value_bits for a in self._aggs if a.kind == "count"),
@@ -289,15 +326,35 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
                     f"{self._key_column!r} is {key_dtype}")
             self._register_aggs(batch.schema)
         if (self._fused_spec is not None and getattr(batch, "lazy", False)
-                and not batch.realized):
+                and not batch.realized and not self._spill_deferred):
             self._ingest_chain(batch)
         elif (isinstance(batch, DeviceRecordBatch) and self._defer
                 and batch.dtimestamps is not None):
             self._ingest_device(batch)
+        elif self._spill_deferred:
+            # the spill split needs the device step: upload the columns
+            self._ingest_device(self._to_device_batch(batch))
         else:
             keys = np.asarray(batch.column(self._key_column)).astype(
                 np.int64, copy=False)
             self._ingest(batch, keys)
+
+    @property
+    def _spill_deferred(self) -> bool:
+        return (self._defer and self._backend is not None
+                and self._backend.hbm_budget > 0)
+
+    def _to_device_batch(self, batch: RecordBatch) -> DeviceRecordBatch:
+        ts = np.asarray(batch.timestamps, np.int64)
+        cols = {self._key_column: self._upload(np.asarray(
+            batch.column(self._key_column)).astype(np.int64, copy=False))}
+        for a in self._aggs:
+            if a.field is not None and a.field not in cols:
+                cols[a.field] = self._upload(batch.column(a.field))
+        schema = Schema([(f.name, f.dtype) for f in batch.schema.fields
+                         if f.name in cols])
+        return DeviceRecordBatch(schema, cols, self._upload(ts),
+                                 int(ts.min()), int(ts.max()))
 
     def _fold_sig(self) -> list[tuple[str, str, str]]:
         """(fold kind, plane name, field) per non-count aggregate."""
@@ -384,18 +441,55 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
             [("__count__", None)]
             + [(name, field) for _kind, name, field in self._fold_sig()])
         self.fused_chain.run(batch, backend.table, planes, self._late_dev,
-                             backend.dropped_device, first_open)
+                             backend.dropped_device, first_open,
+                             backend.dirty_buffer, backend.dirty_shift)
         self._admit_token()
 
     def _step(self, batch: DeviceRecordBatch, first_open: int) -> None:
         """The ingest step on the device: one kernel launch on the card
-        (``ops.hash_table.ingest_step``), no host sync anywhere."""
+        (``ops.hash_table.ingest_step``), no host sync anywhere; under a
+        deferred budget it stages the host tier's rows."""
         folds = [("__count__", None)] + [
             (name, batch.device_column(field))
             for _kind, name, field in self._fold_sig()]
         self._backend.ingest_deferred(
             batch.dtimestamps, batch.device_column(self._key_column), folds,
-            self._pane, self._offset, first_open, self._late_dev)
+            self._pane, self._offset, first_open, self._late_dev,
+            self._ensure_stage() if self._spill_deferred else None)
+
+    def _ensure_stage(self) -> dict:
+        """The staging buffers of the deferred spill split: keys, ring
+        rows and one column per non-count plane, and the row count."""
+        if self._stage is None:
+            S, dev = self._stage_slots, self._device
+            st = {"keys": torch.zeros(S, dtype=torch.int64, device=dev),
+                  "ring": torch.zeros(S, dtype=torch.int32, device=dev),
+                  "count": torch.zeros((), dtype=torch.int64, device=dev)}
+            for _k, name, _f in self._fold_sig():
+                st[name] = torch.zeros(
+                    S, dtype=self._backend.get_array(name).dtype, device=dev)
+            self._stage = st
+        return self._stage
+
+    def _drain_spill_stage(self) -> None:
+        """Fold the staged rows into the host tier (one scalar read per
+        watermark, a copy of the written prefix when rows were staged)."""
+        if self._stage is None:
+            return
+        cnt = int(self._stage["count"])
+        if cnt == 0:
+            return
+        take = min(cnt, self._stage_slots)
+        t0 = time.perf_counter()
+        keys = self._stage["keys"][:take].cpu().numpy()
+        ring = self._stage["ring"][:take].cpu().numpy()
+        vals = {"__count__": np.ones(take, np.int64)}
+        for _k, name, _f in self._fold_sig():
+            vals[name] = self._stage[name][:take].cpu().numpy()
+        self._backend.drain_staged(keys, ring, vals)
+        self._stage["count"].zero_()
+        self.spill_s["drain"] += time.perf_counter() - t0
+        self.spill_rows_drained += take
 
     def _note_open_ingest(self, min_pane: int) -> None:
         """A write into a pane the incremental engine already sealed
@@ -405,8 +499,10 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
             self._inc_stale = "write into a sealed pane"
 
     def _pre_fire_flush(self) -> None:
-        """Coalesced batches fold before any fire."""
+        """Coalesced batches fold before any fire, then the staged host
+        tier rows: a fire merges the host tier's part of its window."""
         self._coalesce_flush()
+        self._drain_spill_stage()
 
     def _admit_token(self) -> None:
         """Bounded in-flight window: wait for the step ``max_inflight``
@@ -442,7 +538,11 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
             def merged(kind, name, idx=None):
                 return _merge(kind, backend.get_array(name), rows, idx)
         outs = self._fire_outputs(merged)
-        self._enqueue_fire((p_end, outs, time.perf_counter()))
+        # the host tier's part, taken before the pane below retires
+        host_part = (self._host_fire_part([p % self._ring
+                                           for p in range(first, p_end)])
+                     if self._backend.spill_active else None)
+        self._enqueue_fire((p_end, outs, time.perf_counter(), host_part))
         # retire the oldest pane of this window: no later window needs it
         if p_end - W >= self._min_seen_pane:
             self._backend.reset_ring_row((p_end - W) % self._ring)
@@ -571,8 +671,49 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
                 results[a.out_name] = merged(a.kind, a.out_name)
         return table, emit, results, health
 
+    def _host_fire_part(self, rows: list[int]):
+        """The window's results for the host tier's keys (numpy merges of
+        their ring rows), or None when none has a row in it. Under top k
+        only the host's own k best (stable in host order) can place, so
+        the other aggregates are merged at those keys alone."""
+        t0 = time.perf_counter()
+        ht = self._backend.host_tier
+        rows = np.asarray(rows, np.int64)
+        hcount = ht.fire("__count__", rows)
+        pos = np.flatnonzero(hcount > 0)
+        if not len(pos):
+            self.spill_s["host_fire"] += time.perf_counter() - t0
+            return None
+        count = hcount[pos]
+        if self._topk is not None and len(pos) > self._topk:
+            first = self._aggs[0]
+            if first.kind == "count":
+                ranked = count
+            elif first.kind == "avg":
+                s = ht.fire(f"{first.out_name}.sum", rows, pos)
+                ranked = s / np.maximum(count, 1).astype(s.dtype)
+            else:
+                ranked = ht.fire(first.out_name, rows, pos)
+            k = self._topk
+            kth = np.partition(ranked, len(ranked) - k)[len(ranked) - k]
+            cand = np.flatnonzero(ranked >= kth)
+            keep = np.sort(cand[np.argsort(-ranked[cand],
+                                           kind="stable")[:k]])
+            pos, count = pos[keep], count[keep]
+        res: dict[str, np.ndarray] = {}
+        for a in self._aggs:
+            if a.kind == "count":
+                res[a.out_name] = count
+            elif a.kind == "avg":
+                s = ht.fire(f"{a.out_name}.sum", rows, pos)
+                res[a.out_name] = s / np.maximum(count, 1).astype(s.dtype)
+            else:
+                res[a.out_name] = ht.fire(a.out_name, rows, pos)
+        self.spill_s["host_fire"] += time.perf_counter() - t0
+        return ht.keys()[pos], res
+
     def _materialize(self, item) -> None:
-        p_end, host, _event, t0 = item
+        p_end, host, _event, t0, host_part = item
         keys_or_table, mask, results, (dropped, occ, late) = host
         self._backend.apply_health(int(dropped), int(occ))
         if late is not None:
@@ -582,12 +723,26 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
             keys = keys_or_table.numpy()[sel]
             results = {n: v.numpy()[sel] for n, v in results.items()}
         else:
-            # canonical emission order: raw slot order leaks insert history
             idx = np.flatnonzero(sel)
             keys = keys_or_table.numpy()[idx]
+            results = {n: v.numpy()[idx] for n, v in results.items()}
+        if host_part is not None:
+            hkeys, hres = host_part
+            keys = np.concatenate([keys, hkeys])
+            results = {n: np.concatenate(
+                [v, hres[n].astype(v.dtype, copy=False)])
+                for n, v in results.items()}
+            if self._topk is not None and len(keys) > self._topk:
+                # re-rank across both tiers, ties in (device, host) order
+                order = np.argsort(-results[self._aggs[0].out_name],
+                                   kind="stable")[:self._topk]
+                keys = keys[order]
+                results = {n: v[order] for n, v in results.items()}
+        if self._topk is None:
+            # canonical emission order: raw slot order leaks insert history
             order = np.argsort(keys, kind="stable")
             keys = keys[order]
-            results = {n: v.numpy()[idx][order] for n, v in results.items()}
+            results = {n: v[order] for n, v in results.items()}
         if len(keys):
             self._emit_rows(p_end, keys, results)
         self._note_latency(t0)

@@ -199,7 +199,7 @@ def test_periodic_checkpoints_complete():
     backend = snap["keyed"]["backend"]
     assert backend["kind"] == "tpu" and len(backend["keys"])
     assert job.operators[0].backend.last_snapshot_s.keys() == \
-        {"copy", "sort_gather"}
+        {"capture", "order", "gather", "host_tier"}
     assert sorted(rows) == sorted(_reference_rows())
 
 
@@ -249,9 +249,9 @@ def test_storage_round_trip(kind, tmp_path):
             storage.load(1)
         return
     path = cps[1].external_path
-    assert sorted(os.listdir(tmp_path)) == ["chk-1", "chk-2"]
+    assert sorted(os.listdir(tmp_path)) == ["chk-1", "chk-2", "chunks"]
     storage.discard(cps[0])
-    assert sorted(os.listdir(tmp_path)) == ["chk-2"]
+    assert sorted(os.listdir(tmp_path)) == ["chk-2", "chunks"]
     payload = os.path.join(path, "a1.bin")
     data = bytearray(open(payload, "rb").read())
     data[0] ^= 1
@@ -285,7 +285,8 @@ def test_cancel_and_restore_completes_the_run(case, tmp_path):
     assert _reader_next(cp) < N_EVENTS
     if on_disk:
         # one checkpoint is retained: only the newest directory is left
-        assert os.listdir(tmp_path) == [f"chk-{cp.checkpoint_id}"]
+        assert sorted(os.listdir(tmp_path)) == [f"chk-{cp.checkpoint_id}",
+                                                "chunks"]
     after = []
     env = _port_q5(settings, after)
     env.restore_from_checkpoint(cp.external_path if on_disk else cp)

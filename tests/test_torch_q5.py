@@ -231,7 +231,8 @@ def test_port_imports_neither_jax_nor_flink_tpu():
             "flink_tpu_torch/runtime/compiled.py",
             "flink_tpu_torch/cluster/local.py",
             "flink_tpu_torch/checkpoint/coordinator.py",
-            "flink_tpu_torch/checkpoint/storage.py"} <= scanned
+            "flink_tpu_torch/checkpoint/storage.py",
+            "flink_tpu_torch/state/spill.py"} <= scanned
     assert "flink_tpu_torch/runtime/local.py" not in scanned
     assert len(scanned) > 30
     assert not offenders, offenders
@@ -259,9 +260,18 @@ assert sys.modules["jax"] is None and sys.modules["flink_tpu"] is None
 assert any(m.startswith("flink_tpu_torch.") for m in sys.modules)
 assert "flink_tpu_torch.cluster.local" in sys.modules
 fused = len(job.job_graph.vertices) == 1 and not job.fusion_declined
+# under an HBM budget: keys page to the host tier, staged in the step
+job2, got2, span2 = cs.run_q5(
+    torch, torch.device("cpu"), 3000, 1 << 14, 1 << 13, batch=1 << 10,
+    topk=20, staging=1 << 10,
+    settings={{"state.backend.tpu.hbm-budget-slots": 1 << 11}})
+n2 = cs.q5_oracle_check(3000, 1 << 14, span2, got2, topk=20)
+assert "flink_tpu_torch.state.spill" in sys.modules
+assert sys.modules["jax"] is None and sys.modules["flink_tpu"] is None
 print("windows", n, "late", job.operators[0].late_dropped,
       "checkpoints", int(len(job.coordinator.stats) > 0), "fused",
-      int(fused and job.operators[0].fused_chain is not None))
+      int(fused and job.operators[0].fused_chain is not None),
+      "spilled_windows", n2, int(job2.operators[0].backend.spill_active))
 """
 
 
@@ -269,14 +279,16 @@ def test_q5_runs_with_jax_and_flink_tpu_blocked():
     """chip_smoke.py's own Q5 path and numpy oracle, at a tiny size on the
     CPU, in a process that cannot import jax or flink_tpu: through
     ``env.execute()`` on the graph runtime, with the fused chain and
-    periodic checkpoints."""
+    periodic checkpoints, then again under an HBM budget (the host spill
+    tier)."""
     out = subprocess.run([sys.executable, "-c",
                           _BLOCKED_RUN.format(root=str(ROOT))],
                          capture_output=True, text=True, timeout=240,
                          cwd=str(ROOT))
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.split() == ["windows", "13", "late", "0",
-                                  "checkpoints", "1", "fused", "1"]
+                                  "checkpoints", "1", "fused", "1",
+                                  "spilled_windows", "13", "1"]
 
 
 def test_smoke_oracle_catches_a_wrong_window():
