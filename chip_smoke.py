@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of flink_tpu_torch on one CUDA card: build, kernels, Q5, Q7,
-checkpoints and state beyond an HBM budget.
+checkpoints, state beyond an HBM budget, and session windows (Q11).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -56,7 +56,7 @@ Run from the repository root:  python3 chip_smoke.py
    on two threads, joined by a channel; the watermark interval at 0, so a
    watermark follows every batch), after a short
    warm-up run under PyTorch's sync debug mode, which must flag no wait
-   for the card that recurs per batch or per fire. Then 3 timed runs:
+   for the card that recurs per batch or per fire. Then 2 timed runs:
    launch counters are zeroed just before each and read just after; each
    run must launch ingest_step once per batch and hist256 once per digit
    pass of each fire; every emitted window of every run is checked
@@ -66,7 +66,7 @@ Run from the repository root:  python3 chip_smoke.py
    are printed. One more run under torch.profiler gives the card's busy
    time by kernel against the run's wall time, and counts the launches of
    both kernels again.
-5. The same at 10M keys (capacity 2^24, 2^25 events; 5 timed runs), then
+5. The same at 10M keys (capacity 2^24, 2^25 events; 4 timed runs), then
    once more with each fire profiled on its own (``fire_device_ms``): the
    device time of one fire (those runs chain source and window into one
    task with the fused chain, so no other thread enqueues work while a
@@ -78,7 +78,7 @@ Run from the repository root:  python3 chip_smoke.py
    timed runs in each fire mode, and the device time per fire of each.
 8. Nexmark Q7 at 10M keys (bench.py _run_q7: 9 tumbling panes of
    10 000 ms, max(packed = (price << 20) | bidder, value_bits 34), top 1,
-   window bounds), 3 timed runs in each fire mode: every window's row is
+   window bounds), 2 timed runs in each fire mode: every window's row is
    the auction of its pane's largest packed word, with its bounds; 5
    select passes per fire.
 9. Coalesced ingest at the operator level: the Q5-1M events in device
@@ -123,7 +123,26 @@ Run from the repository root:  python3 chip_smoke.py
     checkpoint restored into an unbudgeted job and the reverse: windows
     against the oracle, and each checkpoint restored under the other
     budget snapshots byte for byte as it was stored.
-17. The kernels line, the nvidia-smi line, then the last line
+17. Session windows (csrc/session_window.cu): in the kernel phase,
+    session_step and session_fire against their plain versions at
+    Q11-10M's shapes (a 2^19-row batch into 2^24 slots and 4 lanes; a fire
+    over [4, 2^24] with half the lanes due, two rounds) and on a signature
+    with sum, min, max and avg under disorder and late rows: planes equal
+    key by key (slot for slot on a shared table), emitted and fired rows,
+    the counters and the dirty blocks equal; each timed beside its plain
+    version, with its byte bound. Then the cells, through env.execute()
+    with a watermark after every batch: Nexmark Q11 at 10M bidders
+    (q11.sql: count(*) per SESSION(dateTime, 10 s); bench.py's key mixer,
+    2^25 events over 30 000 ms, batch 2^19, capacity 2^24, 4 lanes) and
+    bench.py::bench_session's session-100K (2^21 events over 200 000 ms,
+    batch 2^16, gap 5000, sum(v), the watermark 1000 ms behind): every
+    emitted window against a numpy oracle, session_step once per batch,
+    session_fire at least once per fire, no ingest_step; events/sec, p99
+    fire latency, the fire kernel's device ms, peak memory. Then
+    session-100K with fs checkpoints around fires, cancelled and restored
+    from the last: no window repeated, none lost, the checkpoint equal to
+    the whole-copy snapshot.
+18. The kernels line, the nvidia-smi line, then the last line
     {"ok": true, "device": {...}}.
 
 ``python3 chip_smoke.py --parent-kernels DIR`` instead times, with the same
@@ -154,8 +173,8 @@ MULT = 0x9E3779B97F4A7C15      # bench.py's key mixer
 INT64_MAX = (1 << 63) - 1
 MIN_TIMESTAMP = -(1 << 62)     # first open pane before any fire
 PANE_MS, WINDOW_PANES, RING, BATCH, TOPK = 2000, 5, 16, 1 << 19, 1000
-Q5_RUNS = 5                    # timed runs of Q5-10M and the runtime cell
-SHORT_RUNS = 3                 # timed runs of the Q5-1M and Q7 cells
+Q5_RUNS = 4                    # timed runs of Q5-10M and the runtime cell
+SHORT_RUNS = 2                 # timed runs of the Q5-1M and Q7 cells
 WIDE_RUNS = 2                  # timed runs of the W = 20 cell
 WIDE_PANES = 20                # bench.py --window-panes 20
 #: (label, keys, events, capacity) of the two Q5 cells
@@ -966,18 +985,21 @@ def q5_panes(n_events: int, batch: int = BATCH,
                       n_events // batch))
 
 
-def q5_gen(n_keys: int, n_events: int, span: int):
-    """bench.py's Q5 generator on int64 torch indices. The auction key is
-    (idx * MULT) % n_keys in uint64; torch has no uint64 remainder, so it
-    is computed from int64 ops: the product wraps mod 2^64 alike, then
-    x % n = ((x >>> 1) % n * 2 + (x & 1)) % n, where x >>> 1 is the
-    logical shift (x >> 1) & INT64_MAX."""
-    mult = MULT - (1 << 64)    # the same 64 bits as a signed int64
+def mixed_keys(idx, n_keys: int):
+    """bench.py's key mixer (idx * MULT) % n_keys in uint64, on int64 torch
+    indices. Torch has no uint64 remainder, so it is computed from int64
+    ops: the product wraps mod 2^64 alike (MULT as the signed int64 of the
+    same 64 bits), then x % n = ((x >>> 1) % n * 2 + (x & 1)) % n, where
+    x >>> 1 is the logical shift (x >> 1) & INT64_MAX."""
+    x = idx * (MULT - (1 << 64))
+    return (((x >> 1) & INT64_MAX) % n_keys * 2 + (x & 1)) % n_keys
 
+
+def q5_gen(n_keys: int, n_events: int, span: int):
+    """bench.py's Q5 generator on int64 torch indices: the auction key by
+    ``mixed_keys``, price idx % 997 + 1, ts idx * span // n_events."""
     def gen(idx):
-        x = idx * mult
-        auction = (((x >> 1) & INT64_MAX) % n_keys * 2 + (x & 1)) % n_keys
-        return {"auction": auction, "price": idx % 997 + 1,
+        return {"auction": mixed_keys(idx, n_keys), "price": idx % 997 + 1,
                 "ts": (idx * span) // n_events}
 
     return gen
@@ -1304,7 +1326,9 @@ def check_sync_detector(torch, dev) -> None:
 KERNEL_SYMBOLS = (("ingest_step", "ingest_step_kernel"),
                   ("hist256", "radix_pass_kernel"),
                   ("window_seal", "window_kernel<true>"),
-                  ("window_rebuild", "window_kernel<false>"))
+                  ("window_rebuild", "window_kernel<false>"),
+                  ("session_step", "session_step_kernel"),
+                  ("session_fire", "session_fire_kernel"))
 
 
 def run_profile(torch, run) -> dict:
@@ -1345,6 +1369,9 @@ def run_profile(torch, run) -> dict:
             "idle_share": (1 - busy / wall) if busy else None,
             "kernel_launches": sum(n for _ms, n in by_name.values()),
             "profiler_counts": counted, "profiles_taken": tries,
+            "kernel_ms": {kernel: sum(ms for name, (ms, _n) in by_name.items()
+                                      if symbol in name)
+                          for kernel, symbol in KERNEL_SYMBOLS},
             "top": [{"name": k, "ms": ms, "calls": n}
                     for k, (ms, n) in top]}
 
@@ -2240,6 +2267,627 @@ def spill_phase(torch, dev) -> dict:
             **record, "across_budgets": crossings}
 
 
+# -- session windows: Nexmark Q11 and bench.py's session configuration ------
+#: the two session cells: bench.py's MULT mixer over ``keys`` bidders with
+#: ts = idx * span // events (Q11: q11.sql's SESSION(dateTime, 10 s) with
+#: count(*)), and bench.py::bench_session's seeded numpy stream (sum(v));
+#: ``lag``: the watermark trails the batch's largest timestamp by it
+SESSION_CELLS = {
+    "Q11-10M": {"keys": 10_000_000, "events": 1 << 25, "batch": BATCH,
+                "capacity": 1 << 24, "lanes": 4, "span": 30_000,
+                "gap": 10_000, "lag": 1, "agg": "count"},
+    "session-100K": {"keys": 100_000, "events": 1 << 21, "batch": 1 << 16,
+                     "capacity": 1 << 18, "lanes": 4, "span": 200_000,
+                     "gap": 5000, "lag": 1000, "agg": "sum"},
+}
+SESSION_RUNS = 3               # timed runs of each session cell
+SESSION_PREFIX = 4             # Q11 batches in the state before a timed step
+SESS_CKPT_RUN_S, SESS_CKPT_INTERVAL_S = 2.0, 0.25   # session checkpoints
+
+
+def session_config(cell: str, **overrides) -> dict:
+    """A session cell's configuration, with ``overrides`` (a smaller
+    stream for a run on the CPU)."""
+    return {"cell": cell, **SESSION_CELLS[cell], **overrides}
+
+
+def session_data(c: dict) -> dict:
+    """The cell's events in numpy, in index order: key, ts and the summed
+    value (session-100K: bench_session's rng draws, in its order)."""
+    n_events = c["events"]
+    if c["agg"] == "count":
+        idx = np.arange(n_events, dtype=np.int64)
+        keys = ((idx.astype(np.uint64) * np.uint64(MULT))
+                % np.uint64(c["keys"])).astype(np.int64)
+        return {"key": keys, "ts": (idx * c["span"]) // n_events}
+    rng = np.random.default_rng(0)
+    keys = rng.integers(0, c["keys"], n_events).astype(np.int64)
+    vals = rng.integers(1, 100, n_events).astype(np.int64)
+    ts = np.sort(rng.integers(0, c["span"], n_events)).astype(np.int64)
+    return {"key": keys, "ts": ts, "v": vals}
+
+
+def session_gen(torch, c: dict):
+    """The cell's datagen(device=True) generator: Q11 computes its columns
+    from the indices on the device; session-100K gathers its stream, made
+    in bulk with numpy and uploaded once per device."""
+    if c["agg"] == "count":
+        span, n_events = c["span"], c["events"]
+
+        def q11(idx):
+            return {"bidder": mixed_keys(idx, c["keys"]),
+                    "ts": (idx * span) // n_events}
+
+        return q11
+    data = session_data(c)
+    cols: dict = {}
+
+    def stream(idx):
+        if idx.device not in cols:
+            cols[idx.device] = {k: torch.from_numpy(v).to(idx.device)
+                                for k, v in data.items()}
+        d = cols[idx.device]
+        return {"k": d["key"][idx], "v": d["v"][idx], "ts": d["ts"][idx]}
+
+    return stream
+
+
+def session_env(torch, dev, c: dict, n_events: int | None = None,
+                settings: dict | None = None, rate: float | None = None,
+                source_hook=None):
+    """The cell's pipeline, datagen(device=True) -> key_by -> session
+    window -> device_aggregate -> sink, on a fresh environment, not yet
+    executed: a watermark after every batch; ``n_events`` stops the source
+    early (the stream stays the cell's). Returns (env, got), ``got``
+    filled with (key, window_start, window_end, aggregate) per batch."""
+    from flink_tpu_torch.api import StreamExecutionEnvironment
+    from flink_tpu_torch.connectors.datagen import DataGenSource
+    from flink_tpu_torch.core import Configuration, Schema, WatermarkStrategy
+    from flink_tpu_torch.runtime.operators import AggSpec
+    from flink_tpu_torch.window import EventTimeSessionWindows
+
+    n = n_events or c["events"]
+    count = c["agg"] == "count"
+    key, out = ("bidder", "bids") if count else ("k", "total")
+    fields = [(key, np.int64)] + ([] if count else [("v", np.int64)])
+    got = []
+
+    def sink(b):
+        got.append((b.column(key), b.column("window_start"),
+                    b.column("window_end"), b.column(out)))
+
+    env = StreamExecutionEnvironment(
+        Configuration({"pipeline.micro-batch-size": c["batch"],
+                       "pipeline.auto-watermark-interval": 0.0,
+                       **(settings or {})}), device=dev)
+    ws = WatermarkStrategy.for_bounded_out_of_orderness(c["lag"] - 1) \
+        .with_timestamp_column("ts")
+    source = DataGenSource(session_gen(torch, c),
+                           Schema(fields + [("ts", np.int64)]), count=n,
+                           rate_per_sec=rate, timestamp_column="ts",
+                           device=True)
+    if source_hook is not None:
+        source_hook(source)
+    agg = (AggSpec("count", out_name=out) if count
+           else AggSpec("sum", "v", out_name=out))
+    (env.from_source(source, ws, "DataGen")
+        .key_by(key)
+        .window(EventTimeSessionWindows.with_gap(c["gap"]))
+        .device_aggregate([agg], capacity=c["capacity"],
+                          ring_size=c["lanes"])
+        .add_sink(sink))
+    return env, got
+
+
+def run_session(torch, dev, c: dict, n_events: int | None = None, **kw):
+    """One run of the cell through ``env.execute()``; returns (job, got)."""
+    env, got = session_env(torch, dev, c, n_events, **kw)
+    return env.execute(f"sessions-{c['cell']}"), got
+
+
+def session_expected(c: dict) -> np.ndarray:
+    """The numpy oracle: the events sorted by (key, ts), a new session
+    where the key changes or the gap to the previous event is at least
+    ``gap``; window [first, last + gap), count (Q11) or sum(v). Rows
+    [key, start, end, aggregate], sorted by (key, start)."""
+    d = session_data(c)
+    order = np.lexsort((d["ts"], d["key"]))
+    k, t = d["key"][order], d["ts"][order]
+    new = np.ones(len(k), bool)
+    new[1:] = (k[1:] != k[:-1]) | (t[1:] - t[:-1] >= c["gap"])
+    first = np.flatnonzero(new)
+    last = np.r_[first[1:], len(k)] - 1
+    agg = (last - first + 1 if c["agg"] == "count"
+           else np.add.reduceat(d["v"][order], first))
+    return by_session(np.stack([k[first], t[first], t[last] + c["gap"],
+                                agg.astype(np.int64)], 1))
+
+
+def by_session(rows: np.ndarray) -> np.ndarray:
+    """Rows [key, start, ...] sorted by (key, start), one argsort of
+    key * (largest start + 1) + start (keys and starts are not negative,
+    and the product fits int64 for every cell)."""
+    if not len(rows):
+        return rows
+    width = int(rows[:, 1].max()) + 1
+    return rows[np.argsort(rows[:, 0] * width + rows[:, 1], kind="stable")]
+
+
+def session_rows(got) -> np.ndarray:
+    """Emitted rows as [key, start, end, aggregate], sorted by (key,
+    start)."""
+    if not got:
+        return np.zeros((0, 4), np.int64)
+    return by_session(np.stack([np.concatenate([np.asarray(g[i])
+                                                for g in got])
+                                .astype(np.int64) for i in range(4)], 1))
+
+
+def session_check(expected: np.ndarray, got) -> int:
+    """Every emitted session window equals the oracle's, as a set; returns
+    the windows checked."""
+    rows = session_rows(got)
+    if rows.shape != expected.shape or not np.array_equal(rows, expected):
+        raise AssertionError(
+            f"session windows disagree with the numpy oracle: {len(rows)} "
+            f"emitted, {len(expected)} expected")
+    return len(rows)
+
+
+def session_cell(torch, dev, cell: str) -> dict:
+    """A session cell's timed runs: a warm-up of 4 batches, then
+    SESSION_RUNS runs, each held to the oracle and to the path's launches
+    (session_step once per batch, session_fire at least once per fire,
+    no ingest_step); then a profiled run (busy time, the fire kernel's
+    device ms per fire)."""
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+
+    c = session_config(cell)
+    n = c["events"]
+    expected = session_expected(c)
+    run_session(torch, dev, c, 4 * c["batch"])
+    runs = []
+    for _ in range(SESSION_RUNS):
+        start = fresh_memory(torch)
+        reset_launches()
+        job, got = run_session(torch, dev, c)
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(KERNEL_LAUNCHES)
+        windows = session_check(expected, got)
+        op = job.operators[0]
+        fires = len(op.fire_latencies_ms)
+        if (launches["session_step"] != n // c["batch"]
+                or launches["session_fire"] < fires
+                or launches["ingest_step"] or op.late_dropped):
+            raise AssertionError(f"{cell}: launches {launches} for "
+                                 f"{n // c['batch']} batches and {fires} "
+                                 f"fires, {op.late_dropped} late")
+        runs.append({"wall_s": job.wall_s, "lat": list(op.fire_latencies_ms),
+                     "peak": peak, "start": start, "launches": launches,
+                     "windows": windows, "rebuilds": {},
+                     "late_dropped": op.late_dropped,
+                     "state_bytes": op.backend.state_nbytes,
+                     "tasks": task_record(job)})
+        del job, got, op   # the next run's memory starts without this state
+    profile = run_profile(torch, lambda: (*run_session(torch, dev, c),
+                                          None))
+    fire_ms = profile["kernel_ms"]["session_fire"]
+    return {**c, "fire_kernel_ms_per_fire_profiled":
+            fire_ms / max(1, len(runs[-1]["lat"])),
+            "profile": profile, **summary(runs, n)}
+
+
+# -- session kernels against their plain versions ---------------------------
+def session_state(torch, dev, cap: int, lanes: int, folds=()) -> dict:
+    """Empty session state: the table, the lane planes at the reference's
+    identities, cur_lane, the dirty bitmap, the counters, and one plane per
+    (kind, dtype) of ``folds``."""
+    from flink_tpu_torch.ops.hash_table import make_table
+    from flink_tpu_torch.ops.segment_ops import make_accumulator
+
+    shape = (lanes, cap)
+    return {"table": make_table(cap, dev),
+            "start": make_accumulator("min", shape, torch.int64, dev),
+            "end": make_accumulator("max", shape, torch.int64, dev),
+            "open": make_accumulator("max", shape, torch.int8, dev),
+            "count": torch.zeros(shape, dtype=torch.int64, device=dev),
+            "cur_lane": torch.zeros(cap, dtype=torch.int32, device=dev),
+            "dirty": torch.zeros((cap >> DIRTY_SHIFT) + 2,
+                                 dtype=torch.uint8, device=dev),
+            "dropped": torch.zeros((), dtype=torch.int64, device=dev),
+            "late": torch.zeros((), dtype=torch.int64, device=dev),
+            "folds": [(k, make_accumulator(k, shape, d, dev))
+                      for k, d in folds]}
+
+
+def clone_state(st: dict) -> dict:
+    return {k: ([(kind, p.clone()) for kind, p in v] if k == "folds"
+                else v.clone()) for k, v in st.items()}
+
+
+def copy_state(dst: dict, src: dict) -> None:
+    for k, v in src.items():
+        if k == "folds":
+            for (_k, d), (_k2, s) in zip(dst[k], v):
+                d.copy_(s)
+        else:
+            dst[k].copy_(v)
+
+
+def step_on(fn, st: dict, b: dict, gap: int, boundary: int):
+    """``session_step`` or its plain version on state ``st`` and sorted
+    batch ``b`` (keys, ts, one value column per fold plane)."""
+    return fn(st["table"], st["start"], st["end"], st["open"], st["count"],
+              [(k, p, v) for (k, p), v in zip(st["folds"], b["vals"])],
+              st["cur_lane"], b["keys"], b["ts"], gap, boundary,
+              st["dropped"], st["late"], st["dirty"], DIRTY_SHIFT)
+
+
+def fire_on(fn, st: dict, outs, gap: int, boundary: int):
+    return fn(st["table"], st["start"], st["end"], st["open"], st["count"],
+              st["folds"], outs(st), gap, boundary, st["dirty"],
+              DIRTY_SHIFT)
+
+
+def state_by_key(st: dict) -> tuple:
+    """(sorted keys, every plane and cur_lane at their slots): a state as a
+    function of its keys, whatever slots its table gave them."""
+    table = st["table"].cpu().numpy()
+    slots = np.flatnonzero(table != INT64_MAX)
+    order = np.argsort(table[slots], kind="stable")
+    s = slots[order]
+    planes = [st[k].cpu().numpy()[..., s] for k in
+              ("start", "end", "open", "count", "cur_lane")]
+    planes += [p.cpu().numpy()[..., s] for _k, p in st["folds"]]
+    return table[s], planes
+
+
+def assert_states_equal(a: dict, b: dict, what: str) -> None:
+    ka, pa = state_by_key(a)
+    kb, pb = state_by_key(b)
+    same = np.array_equal(ka, kb) and all(
+        np.array_equal(x, y, equal_nan=x.dtype.kind == "f")
+        for x, y in zip(pa, pb))
+    same = same and all(int(a[c]) == int(b[c]) for c in ("dropped", "late"))
+    if not same:
+        raise AssertionError(f"session {what}: the kernel's state differs "
+                             "from the plain version's")
+
+
+def assert_dirty_is_touched(torch, st: dict, keys, before, what: str) -> None:
+    """The dirty bytes set by one step are exactly the blocks of the slots
+    of the batch's keys (``before``: the bitmap before the step)."""
+    from flink_tpu_torch.ops.hash_table import lookup, sanitize_keys_device
+
+    slots = lookup(st["table"], sanitize_keys_device(keys)).to(torch.int64)
+    want = before.clone()
+    want[slots[slots >= 0] >> DIRTY_SHIFT] = 1
+    if not torch.equal(want, st["dirty"]):
+        raise AssertionError(f"session {what}: dirty blocks are not those "
+                             "of the batch's slots")
+
+
+def emitted_rows(rows) -> np.ndarray:
+    g = int(rows.n)
+    cols = [rows.key, rows.start, rows.end, rows.count, *rows.values]
+    out = np.stack([c[:g].cpu().double().numpy() for c in cols], 1)
+    return out[np.lexsort(out.T[::-1])] if g else out
+
+
+def fired_rows(rows) -> np.ndarray:
+    f = int(rows.counts[0])
+    cols = [rows.key, rows.start, rows.end, rows.count, *rows.values]
+    return np.stack([c[:f].cpu().double().numpy() for c in cols], 1)
+
+
+def sort_batch(torch, keys, ts, vals):
+    """The operator's sort: ts then key, both stable."""
+    order = torch.sort(ts, stable=True).indices
+    order = order[torch.sort(keys[order], stable=True).indices]
+    return {"keys": keys[order].contiguous(), "ts": ts[order].contiguous(),
+            "vals": [v[order].contiguous() for v in vals]}
+
+
+def q11_batch(torch, dev, b: int, c: dict) -> tuple[dict, int]:
+    """Q11-10M's batch ``b``, sorted, and the fire boundary after it."""
+    idx = torch.arange(b * c["batch"], (b + 1) * c["batch"],
+                       dtype=torch.int64, device=dev)
+    ts = (idx * c["span"]) // c["events"]
+    return (sort_batch(torch, mixed_keys(idx, c["keys"]), ts, []),
+            int(ts.max()) - c["lag"] + 1)
+
+
+def step_bytes(torch, pre: dict, b: dict, gap: int) -> int:
+    """Bytes one step must move on this batch: each row's key, ts and
+    values; per distinct key its table cell (written too when new), the
+    open cells of its lanes and the start and end of its open ones, and
+    its cur_lane read and written; per segment its lane's start, end,
+    open, count and aggregate cells written (the rows here are never
+    late)."""
+    from flink_tpu_torch.ops.hash_table import lookup, sanitize_keys_device
+
+    keys, ts = b["keys"], b["ts"]
+    n, L = keys.numel(), pre["open"].shape[0]
+    vbytes = sum(v.element_size() for v in b["vals"])
+    distinct = torch.ones(n, dtype=torch.bool, device=keys.device)
+    distinct[1:] = keys[1:] != keys[:-1]
+    anchors = distinct.clone()
+    anchors[1:] |= ts[1:] - ts[:-1] >= gap
+    uk = keys[distinct]
+    slots = lookup(pre["table"], sanitize_keys_device(uk)).to(torch.int64)
+    old = slots[slots >= 0]
+    open_lanes = int((pre["open"][:, old] > 0).sum())
+    d, new = int(uk.numel()), int((slots < 0).sum())
+    lane_cell = 8 + 8 + 1 + 8 + sum(p.element_size()
+                                    for _k, p in pre["folds"])
+    return (n * (16 + vbytes) + d * (8 + L + 4 + 4) + new * 8
+            + open_lanes * 16 + int(anchors.sum()) * lane_cell)
+
+
+def fire_bytes(st: dict, due: int, outs_bytes: int) -> int:
+    """Bytes one fire round must move: the open plane, the end of each open
+    lane; per fired lane its key, start, count and aggregate cells read,
+    the outputs written and the lane's cells reset."""
+    L, cap = st["open"].shape
+    fired = min(due, cap)
+    agg = sum(p.element_size() for _k, p in st["folds"])
+    open_lanes = int((st["open"] > 0).sum())
+    return (L * cap + 8 * open_lanes
+            + fired * (24 + agg + 32 + outs_bytes + 25 + agg))
+
+
+def check_session(torch, dev, flush, q11: dict | None = None) -> dict:
+    """session_step and session_fire against their plain versions: at
+    Q11-10M's shapes (a 2^19-row batch into 2^24 slots, 4 lanes, with 4
+    batches and their fires in the state; a fire over [4, 2^24] with half
+    the lanes due, so two rounds) and on a small signature with sum, min,
+    max and avg under disorder and late rows. The step equals the plain
+    version on a shared table slot for slot (the batch's keys inserted
+    beforehand, so both find the same slots), and from a state where the
+    batch's keys are new, key by key, its dirty blocks those of the batch's
+    slots; emitted and fired rows equal; each kernel timed beside its
+    plain version. ``q11``: another configuration in place of Q11-10M's."""
+    from flink_tpu_torch.ops.hash_table import lookup_or_insert, \
+        sanitize_keys_device
+    from flink_tpu_torch.ops.session import session_fire, \
+        session_fire_plain, session_step, session_step_plain
+
+    c = q11 or session_config("Q11-10M")
+    gap, L, cap = c["gap"], c["lanes"], c["capacity"]
+    shapes = {}
+
+    def count_out(st):
+        return [("count", st["count"])]
+
+    # -- the step at Q11-10M ------------------------------------------------
+    st = session_state(torch, dev, cap, L)
+    boundary = MIN_TIMESTAMP
+    for b in range(SESSION_PREFIX):
+        batch, nxt = q11_batch(torch, dev, b, c)
+        step_on(session_step, st, batch, gap, boundary)
+        boundary = nxt
+        while int(fire_on(session_fire, st, count_out, gap,
+                          boundary).counts[1]):
+            pass
+    batch, _ = q11_batch(torch, dev, SESSION_PREFIX, c)
+    pre = clone_state(st)
+    plain = clone_state(pre)
+    before = st["dirty"].clone()
+    got = step_on(session_step, st, batch, gap, boundary)
+    want = step_on(session_step_plain, plain, batch, gap, boundary)
+    torch.cuda.synchronize()
+    assert_states_equal(st, plain, "step at Q11-10M, new keys")
+    assert_dirty_is_touched(torch, st, batch["keys"], before, "step")
+    if not np.array_equal(emitted_rows(got), emitted_rows(want)):
+        raise AssertionError("session step: emitted segments differ")
+    # the same batch on one table, its keys in place: slot for slot
+    shared = clone_state(pre)
+    lookup_or_insert(shared["table"], sanitize_keys_device(batch["keys"]))
+    twin = clone_state(shared)
+    step_on(session_step, shared, batch, gap, boundary)
+    step_on(session_step_plain, twin, batch, gap, boundary)
+    torch.cuda.synchronize()
+    for k in ("table", "start", "end", "open", "count", "cur_lane", "dirty",
+              "dropped", "late"):
+        if not torch.equal(shared[k], twin[k]):
+            raise AssertionError(f"session step on a shared table: {k} "
+                                 "differs from the plain version's")
+    live, live_plain = clone_state(pre), clone_state(pre)
+    shapes["q11_step_cap_2^24"] = {
+        "rows": batch["keys"].numel(), "capacity": cap, "lanes": L,
+        "ms": cuda_ms(lambda: step_on(session_step, live, batch, gap,
+                                      boundary), torch, flush,
+                      setup=lambda: copy_state(live, pre)),
+        "plain_ms": cuda_ms(lambda: step_on(session_step_plain, live_plain,
+                                            batch, gap, boundary), torch,
+                            flush, setup=lambda: copy_state(live_plain, pre)),
+        "bound_ms": bound_ms(step_bytes(torch, pre, batch, gap)),
+        "bound_by": "bytes", "library_ms": None}
+    del st, plain, shared, twin, live, live_plain, pre
+
+    # -- the fire at Q11-10M: half the lanes due, two rounds ------------------
+    gen = torch.Generator(device=dev).manual_seed(11)
+    st = session_state(torch, dev, cap, L)
+    st["table"].copy_(torch.randperm(cap, device=dev, generator=gen) * 7 + 1)
+    r = torch.rand((L, cap), device=dev, generator=gen)
+    bnd = 1_000_000
+    st["open"].copy_((r < 0.75).to(torch.int8))
+    due = r < 0.49   # under 2^25 lanes: two rounds of 2^24
+    st["end"].copy_(torch.where(
+        due, bnd - gap - (r * 5000).to(torch.int64),
+        bnd - gap + 1 + (r * 5000).to(torch.int64)))
+    st["start"].copy_(st["end"] - (r * 9000).to(torch.int64))
+    st["count"].copy_((r * 7).to(torch.int64) + 1)
+    pre = clone_state(st)
+    plain = clone_state(pre)
+    n_due = int(due.sum())
+    for rnd in range(3):
+        got = fire_on(session_fire, st, count_out, gap, bnd)
+        want = fire_on(session_fire_plain, plain, count_out, gap, bnd)
+        torch.cuda.synchronize()
+        if not (torch.equal(got.counts, want.counts)
+                and np.array_equal(fired_rows(got), fired_rows(want))):
+            raise AssertionError(f"session fire round {rnd}: fired rows "
+                                 "differ from the plain version's")
+        for k in ("start", "end", "open", "count", "dirty"):
+            if not torch.equal(st[k], plain[k]):
+                raise AssertionError(f"session fire round {rnd}: {k} "
+                                     "differs from the plain version's")
+        if int(got.counts[1]) == 0:
+            break
+    rounds = rnd + 1
+    if rounds != 2:
+        raise AssertionError(f"{n_due} lanes due fired in {rounds} rounds")
+    live, live_plain = clone_state(pre), clone_state(pre)
+    shapes["q11_fire_cap_2^24"] = {
+        "lanes": L, "capacity": cap, "due": n_due, "rounds": rounds,
+        "ms": cuda_ms(lambda: fire_on(session_fire, live, count_out, gap,
+                                      bnd), torch, flush,
+                      setup=lambda: copy_state(live, pre)),
+        "plain_ms": cuda_ms(lambda: fire_on(session_fire_plain, live_plain,
+                                            count_out, gap, bnd), torch,
+                            flush, setup=lambda: copy_state(live_plain, pre)),
+        "bound_ms": bound_ms(fire_bytes(pre, n_due, 0)),
+        "bound_by": "bytes", "library_ms": None}
+    del st, plain, live, live_plain, pre
+
+    # -- a small signature: sum, min, max, avg; disorder and late rows -------
+    sig = (("sum", torch.int64), ("min", torch.int64), ("max", torch.int32),
+           ("sum", torch.float32))
+    rng = np.random.default_rng(3)
+    small_gap, small_cap, small_lanes = 40, 1 << 12, 16
+    k_st = session_state(torch, dev, small_cap, small_lanes, sig)
+    p_st = clone_state(k_st)
+
+    def sig_out(s):
+        (_a, total), (_b, lo), (_c, hi), (_d, mean) = s["folds"]
+        return [("count", s["count"]), ("sum", total), ("min", lo),
+                ("max", hi), ("avg", mean)]
+
+    boundary, t0, emitted, fired = MIN_TIMESTAMP, 0, 0, 0
+    for step in range(12):
+        n = 1 << 12
+        keys = torch.from_numpy(rng.integers(0, 500, n)).to(dev)
+        ts = torch.from_numpy(t0 + np.sort(rng.integers(0, 600, n))
+                              + rng.integers(-90, 90, n)).to(dev)
+        v = torch.from_numpy(rng.integers(-40, 40, n)).to(dev)
+        batch = sort_batch(torch, keys, ts,
+                           [v, v, v.to(torch.int32), v.to(torch.float32)])
+        before = k_st["dirty"].clone()
+        got = step_on(session_step, k_st, batch, small_gap, boundary)
+        want = step_on(session_step_plain, p_st, batch, small_gap, boundary)
+        torch.cuda.synchronize()
+        assert_states_equal(k_st, p_st, f"small step {step}")
+        assert_dirty_is_touched(torch, k_st, batch["keys"], before,
+                                f"small step {step}")
+        if not np.array_equal(emitted_rows(got), emitted_rows(want)):
+            raise AssertionError(f"small step {step}: emitted differ")
+        emitted += int(got.n)
+        t0 += 500
+        boundary = t0 + 200   # ahead of the next batch's first rows
+        while True:
+            got = fire_on(session_fire, k_st, sig_out, small_gap, boundary)
+            want = fire_on(session_fire_plain, p_st, sig_out, small_gap,
+                           boundary)
+            a, b = fired_rows(got), fired_rows(want)
+            if not (torch.equal(got.counts, want.counts) and np.array_equal(
+                    a[np.lexsort(a.T[::-1])], b[np.lexsort(b.T[::-1])])):
+                raise AssertionError(f"small fire after step {step}: "
+                                     "fired rows differ")
+            fired += len(a)
+            assert_states_equal(k_st, p_st, f"small fire after {step}")
+            if int(got.counts[1]) == 0:
+                break
+    late, dropped = int(k_st["late"]), int(k_st["dropped"])
+    if not (late and fired):
+        raise AssertionError(f"the small signature saw {late} late rows "
+                             f"and fired {fired} sessions")
+    return {"max_abs_err": 0, "shapes": shapes,
+            "small_signature": {"steps": 12, "late": late,
+                                "dropped": dropped, "emitted": emitted,
+                                "fired": fired}}
+
+
+def session_checkpoint_phase(torch, dev, c: dict | None = None) -> dict:
+    """session-100K with fs checkpoints: the source paced to finish in
+    SESS_CKPT_RUN_S seconds, checkpoints every SESS_CKPT_INTERVAL_S. Once
+    two checkpoints completed with fires between them, the source pauses
+    and the job is cancelled; a fresh job restores from the last checkpoint
+    and runs to the end. The rows the first job emitted before that
+    checkpoint and the restored job's rows together equal the oracle, and
+    no window repeats. Every checkpoint's snapshot through the mirror
+    equals the whole-copy snapshot taken at the same point.
+    ``c``: another configuration in place of session-100K's."""
+    import shutil
+    import tempfile
+
+    from flink_tpu_torch.runtime.operators import DeviceSessionWindowOperator
+
+    c = c or session_config("session-100K")
+    ckpt_dir = tempfile.mkdtemp(prefix="flink_tpu_torch_sessions_")
+    sources, marks, emitted = [], {}, []
+    snap = DeviceSessionWindowOperator.snapshot_state
+
+    def marked(self, checkpoint_id):
+        out = snap(self, checkpoint_id)
+        whole = self.backend.snapshot_plain(checkpoint_id)
+        marks[checkpoint_id] = {
+            "fires": len(self.fire_latencies_ms), "rows": len(emitted[0]),
+            "mirror_equals_whole_copy": snapshot_digest(
+                out["keyed"]["backend"]) == snapshot_digest(whole)}
+        return out
+
+    DeviceSessionWindowOperator.snapshot_state = marked
+    try:
+        env, got = session_env(
+            torch, dev, c, rate=c["events"] / SESS_CKPT_RUN_S,
+            source_hook=sources.append,
+            settings={"execution.checkpointing.interval":
+                      SESS_CKPT_INTERVAL_S,
+                      "execution.checkpointing.dir": ckpt_dir})
+        emitted.append(got)
+        fresh_memory(torch)
+        job = env.execute_async("sessions-checkpointed")
+        wait_checkpoints(job, 1)
+        wait_checkpoints(job, 1, after=time.time())
+        sources[0].set_rate(0)
+        job.cancel()
+        cp = job.coordinator.latest_checkpoint()
+        ids = [s["id"] for s in job.coordinator.stats if not s.get("failed")]
+        fires = marks[ids[-1]]["fires"] - marks[ids[0]]["fires"]
+        if len(ids) < 2 or not fires or cp.checkpoint_id != ids[-1]:
+            raise AssertionError(f"checkpoints {ids} (restoring {cp}) with "
+                                 f"{fires} fires between: {marks}")
+        if not all(m["mirror_equals_whole_copy"] for m in marks.values()):
+            raise AssertionError(f"a session snapshot through the mirror "
+                                 f"differs from the whole copy: {marks}")
+        before = got[:marks[cp.checkpoint_id]["rows"]]
+        del job, env
+        env2, got2 = session_env(torch, dev, c)
+        env2.restore_from_checkpoint(cp.external_path)
+        t2 = time.perf_counter()
+        job2 = env2.execute("sessions-restored")
+        restore_s = job2.operators[0].first_batch_at - t2
+        a, b = session_rows(before), session_rows(got2)
+        repeated = (set(map(tuple, a[:, :2].tolist()))
+                    & set(map(tuple, b[:, :2].tolist())))
+        if repeated:
+            raise AssertionError(f"{len(repeated)} session windows repeat "
+                                 "after the restore")
+        session_check(session_expected(c),
+                      [tuple(r[:, i] for i in range(4)) for r in (a, b)])
+        return {"checkpoint": c["cell"], "events": c["events"],
+                "storage": "FsCheckpointStorage", "checkpoints": ids,
+                "marks": marks, "fires_between": fires,
+                "restored_from": cp.checkpoint_id,
+                "windows_before_checkpoint": len(a),
+                "windows_after_restore": len(b), "windows_repeated": 0,
+                "restore_to_first_batch_s": restore_s}
+    finally:
+        DeviceSessionWindowOperator.snapshot_state = snap
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
 def main(argv: list[str]) -> int:
     if argv and (argv[0] != "--parent-kernels" or len(argv) != 2):
         print("usage: chip_smoke.py [--parent-kernels DIR]", file=sys.stderr)
@@ -2284,10 +2932,12 @@ def main(argv: list[str]) -> int:
     forms = check_ingest_forms(torch, dev, flush)
     shape = check_launch_shape(torch, dev)
     window = check_window_seal(torch, dev, flush)
+    sess = check_session(torch, dev, flush)
     emit({"kernel_checks": {"hist256": hist, "select_pass": select,
                             "hash_probe": probe, "ingest_step": step,
                             "ingest_step_forms": forms,
-                            "launch_shape": shape, "window_seal": window}})
+                            "launch_shape": shape, "window_seal": window,
+                            "session": sess}})
     del flush
     phase_s = {"build_and_kernels": time.perf_counter() - t_start}
     t_phase = time.perf_counter()
@@ -2346,6 +2996,13 @@ def main(argv: list[str]) -> int:
     spill = spill_phase(torch, dev)
     emit(spill)
     phase_done("spill")
+    sessions = {cell: session_cell(torch, dev, cell)
+                for cell in SESSION_CELLS}
+    for cell in SESSION_CELLS:
+        emit(sessions[cell])
+    phase_done("session_cells")
+    emit(session_checkpoint_phase(torch, dev))
+    phase_done("session_checkpoint")
     emit({"phase_seconds": phase_s})
     emit({"smoke_seconds_before_kernels_line": time.perf_counter() - t_start})
     main_run = q5_1m["full"]["launches_per_run"]
@@ -2388,6 +3045,22 @@ def main(argv: list[str]) -> int:
                 "share_of_bound": entry["share_of_bound"],
                 "shapes": {k: forms["shapes"][k] for k in {lead} | others}}
 
+    def session_entry(kernel: str, line: int) -> dict:
+        shape = sess["shapes"][f"q11_{kernel}_cap_2^24"]
+        return {"name": f"session_{kernel}", "route": "cuda",
+                "source": "flink_tpu_torch/csrc/session_window.cu",
+                "replaces": "flink_tpu/runtime/operators/device_session.py:"
+                            f"{line}",
+                "launches": sessions["Q11-10M"]["launches_per_run"][
+                    f"session_{kernel}"],
+                "max_abs_err": sess["max_abs_err"],
+                **{k: shape[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+                "share_of_bound": shape["bound_ms"] / shape["ms"],
+                "launches_session_100K": sessions["session-100K"][
+                    "launches_per_run"][f"session_{kernel}"],
+                "shape": shape}
+
     emit({"kernels": [
         {"name": "hist256", "route": "cuda",
          "source": "flink_tpu_torch/csrc/hist256.cu",
@@ -2429,6 +3102,8 @@ def main(argv: list[str]) -> int:
                      "flink_tpu/runtime/operators/device_window.py:295"),
         window_entry("rebuild",
                      "flink_tpu/runtime/operators/device_window.py:352"),
+        session_entry("step", 76),
+        session_entry("fire", 256),
     ]})
     print(smi, flush=True)
     if torch.cuda.device_count() != 1:

@@ -12,10 +12,11 @@ import numpy as np
 from ..core.records import RecordBatch
 from ..graph.transformations import OneInputTransformation, \
     PartitionTransformation, SinkTransformation, Transformation
+from ..runtime.operators.device_session import DeviceSessionWindowOperator
 from ..runtime.operators.device_window import DeviceWindowAggOperator
 from ..runtime.operators.sink import CollectSink, SinkOperator
 from ..runtime.writer import KeyGroupPartitioner, RebalancePartitioner
-from ..window.assigners import WindowAssigner
+from ..window.assigners import EventTimeSessionWindows, WindowAssigner
 
 __all__ = ["DataStream", "KeyedStream", "WindowedStream"]
 
@@ -136,9 +137,32 @@ class WindowedStream:
         the first aggregate per window (the Q5 hot-items fire).
         ``hbm_budget_slots`` caps the device state and pages cold key
         groups to host RAM; ``spill_staging_slots`` is the rows the
-        deferred step can stage for the host between two watermarks."""
+        deferred step can stage for the host between two watermarks.
+
+        Session windows (``EventTimeSessionWindows``) take the device
+        session operator, with max(4, min(ring_size, 16)) lanes per key;
+        it takes none of top k, deferred overflow, async fires or a
+        budget."""
         assigner, key_col = self.assigner, self.keyed.key_spec
         device = self.keyed.env.device
+        if type(assigner) is EventTimeSessionWindows:
+            if emit_topk is not None:
+                raise ValueError(
+                    "emit_topk is not supported for session windows")
+            if defer_overflow or async_fire or hbm_budget_slots:
+                raise ValueError(
+                    "defer_overflow/async_fire/hbm_budget_slots are not "
+                    "supported by the session operator yet; drop them")
+            gap, lanes = assigner.gap, max(4, min(ring_size, 16))
+
+            def session_factory():
+                return DeviceSessionWindowOperator(
+                    gap, key_col, aggs, capacity=capacity, lanes=lanes,
+                    emit_window_bounds=emit_window_bounds, device=device,
+                    name=name)
+
+            return self.keyed._one_input(
+                name, session_factory, key_extractor=self.keyed.key_extractor)
 
         def factory():
             return DeviceWindowAggOperator(

@@ -28,17 +28,12 @@
 // consecutive, so each is one coalesced request. (Four rows per thread,
 // with the table reads and then the claims of all four issued together,
 // measured slower on the H100: fewer warps hide less latency.)
-// The slot hash is the murmur finalizer of hash_keys_device, in uint32,
-// and probing is linear up to MAX_PROBES slots. An empty slot is claimed
-// with a 64-bit atomicCAS from EMPTY_KEY:
-//  * CAS won, or lost to the same key (a duplicate in the batch): found;
-//  * lost to another key: keep probing.
-// Slots only ever go EMPTY -> key, so a stale read of EMPTY is corrected
-// by the CAS and a present key never sits behind an empty slot in its
-// probe sequence. The slot layout differs from the reference's scatter-
-// min (the winner among racing keys is whoever's CAS lands first); the set
-// of keys, key -> slot consistency and the ok contract are the same. Rows
-// that do not probe get slot -1; a key that exhausts MAX_PROBES gets -1.
+// The probe (probe.cuh, shared with session_window.cu) is linear, with
+// 64-bit atomicCAS claims. The slot layout differs from the reference's
+// scatter-min (the winner among racing keys is whoever's CAS lands
+// first); the set of keys, key -> slot consistency and the ok contract
+// are the same. Rows that do not probe get slot -1; a key that exhausts
+// MAX_PROBES gets -1.
 // The step folds with one atomic per plane and row: atomicAdd for sums and
 // counts (int64 through unsigned long long), atomicMin/atomicMax for
 // int32/int64, a CAS loop for float min/max (NaN propagates, as in torch's
@@ -72,10 +67,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "probe.cuh"
+
 namespace {
 
-constexpr unsigned long long kEmpty = 0x7FFFFFFFFFFFFFFFull;  // int64 max
-constexpr int kMaxProbes = 128;
+using probe_table::kEmpty;
+using probe_table::probe;
 constexpr int kThreads = 256;
 constexpr int kMaxPlanes = 8;
 constexpr int kMaxCols = 7;
@@ -83,36 +80,6 @@ constexpr unsigned kFull = 0xffffffffu;
 
 enum Dtype { kI64 = 0, kI32 = 1, kF32 = 2, kF64 = 3, kU8 = 4, kBool = 5 };
 enum Kind { kSum = 0, kMin = 1, kMax = 2 };  // a count plane folds +1 as kSum
-
-__device__ __forceinline__ uint32_t probe_hash(unsigned long long u) {
-  uint32_t h = (uint32_t)(u ^ (u >> 32));
-  h *= 0xCC9E2D51u;
-  h = (h << 15) | (h >> 17);
-  h *= 0x1B873593u;
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  return h;
-}
-
-// The slot of `key`, or -1: absent (insert == false: the first empty
-// slot before any match), or MAX_PROBES slots full of other keys.
-__device__ __forceinline__ int probe(unsigned long long* table,
-                                     unsigned long long mask,
-                                     unsigned long long key, bool insert) {
-  const uint32_t h = probe_hash(key);
-  for (int p = 0; p < kMaxProbes; ++p) {
-    const unsigned long long s = (h + (uint32_t)p) & mask;
-    const unsigned long long cur = __ldcg(table + s);
-    if (cur == key) return (int)s;
-    if (cur == kEmpty) {
-      if (!insert) return -1;
-      const unsigned long long prev = atomicCAS(table + s, kEmpty, key);
-      if (prev == kEmpty || prev == key) return (int)s;
-    }
-  }
-  return -1;
-}
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));

@@ -8,7 +8,9 @@
   graph adds one for each kernel launch the graph holds. A launch of
   ``ingest_step`` in one of its two optional forms also counts into the
   form's own counter, ``ingest_step_dirty`` (dirty marking) or
-  ``ingest_step_spill`` (the spill split, which marks dirty blocks too). A caller resets the
+  ``ingest_step_spill`` (the spill split, which marks dirty blocks too).
+  A session window launches ``session_step`` once per batch and
+  ``session_fire`` once per fire round. A caller resets the
   counters, drives a path and reads them back to show which kernels the
   path went through.
 """
@@ -27,7 +29,8 @@ __all__ = ["resolve_device", "KERNEL_LAUNCHES", "note_launch",
 KERNEL_LAUNCHES: dict[str, int] = {"hist256": 0, "hash_probe": 0,
                                    "ingest_step": 0, "ingest_step_dirty": 0,
                                    "ingest_step_spill": 0, "window_seal": 0,
-                                   "window_rebuild": 0}
+                                   "window_rebuild": 0, "session_step": 0,
+                                   "session_fire": 0}
 # the tasks of a job launch from threads of their own
 _LAUNCH_LOCK = threading.Lock()
 
@@ -64,6 +67,7 @@ def reset_launches() -> None:
 
 _NP_TO_TORCH = {
     np.dtype(np.int64): torch.int64, np.dtype(np.int32): torch.int32,
+    np.dtype(np.int8): torch.int8,
     np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64,
     np.dtype(np.bool_): torch.bool, np.dtype(np.uint8): torch.uint8,
 }

@@ -115,10 +115,14 @@ def _class_location(cls: type) -> tuple[str, int]:
 
 def _classify_operator(op: Any) -> tuple[str, str]:
     """Category of an instantiated operator of the port."""
+    from ..runtime.operators.device_session import \
+        DeviceSessionWindowOperator
     from ..runtime.operators.device_window import DeviceWindowAggOperator
 
     if isinstance(op, DeviceWindowAggOperator):
         return "window-device", "keyed partial-agg tail (one-dispatch step)"
+    if isinstance(op, DeviceSessionWindowOperator):
+        return "keyed-device", "keyed device aggregate (own fused step)"
     return "host-effectful", f"unclassified operator {type(op).__name__}"
 
 

@@ -10,8 +10,8 @@ Pointers come from ``tensor.data_ptr()`` and the stream from
 
 The build runs at first use, never at import: one ``nvcc`` process per
 source, all started together. A library is named by the hash of its
-source and flags, so an edited source rebuilds and an unchanged one is
-reused.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -55,6 +55,17 @@ SOURCES = {
                                _P],
         "hash_table_load": [],
     },
+    "session_window": {
+        "session_step_launch": [_P, _I64, _P, _P, _I64, _I64, _I64, _I32, _P,
+                                _P, _P, _P, _P, _I32, _PP, _PI32, _PI32, _PP,
+                                _P, _P, _P, _I32, _P, _P, _P, _P, _P, _PP,
+                                _P],
+        "session_fire_launch": [_P, _I64, _I32, _I64, _I64, _P, _P, _P, _P,
+                                _I32, _PP, _PI32, _PI32, _I32, _PI32, _PP,
+                                _PI32, _PP, _P, _P, _P, _P, _P, _I32, _P, _P,
+                                _P],
+        "session_fire_scratch_words": [_I64],
+    },
     "window_seal": {
         "window_seal_launch": [_I64, _I64, _I32, _PP, _PP, _PP, _PI32, _PI32,
                                _PI32, _I32, _I32, _I32, _I32, _I32, _I32,
@@ -66,6 +77,7 @@ SOURCES = {
 }
 _ERROR_STRING = {"hist256": "hist256_error_string",
                  "hash_table": "hash_probe_error_string",
+                 "session_window": "session_window_error_string",
                  "window_seal": "window_seal_error_string"}
 
 #: source stem -> C entry that loads every kernel of the library at once
@@ -89,8 +101,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(stem: str) -> Path:
-    src = (CSRC_DIR / f"{stem}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """The library's path, named by the hash of its source, every shared
+    header of ``csrc/`` and the flags."""
+    h = hashlib.sha256((CSRC_DIR / f"{stem}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{stem}-{digest[:12]}.so"
 
 

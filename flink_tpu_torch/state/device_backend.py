@@ -20,9 +20,10 @@ key) order, so a snapshot of either package restores into the other, and
 a snapshot does not depend on where a key lives (device or host tier).
 
 * Incremental capture: a ``[n_blocks]`` uint8 dirty bitmap over blocks of
-  512 slots, set by the ingest kernel and the host-batch fold, and a host
-  mirror of the table and every pane plane in pinned memory (allocated
-  once per shape). A snapshot gathers only the dirty blocks on the device
+  512 slots, set by the ingest kernel, the session step and fire kernels
+  (through ``dirty_buffer`` and ``dirty_shift``) and the host-batch fold,
+  and a host mirror of the table and every pane plane in pinned memory
+  (allocated once per shape). A snapshot gathers only the dirty blocks on the device
   and brings them home in one copy (or copies everything when more than
   half are dirty); ring-row retirements are replayed on the host. A
   rehash, an eviction, a restore or a ring conform invalidates the mirror

@@ -1,3 +1,4 @@
 from .assigners import (  # noqa: F401
-    SlidingEventTimeWindows, TumblingEventTimeWindows, WindowAssigner,
+    EventTimeSessionWindows, SlidingEventTimeWindows, TimeWindow,
+    TumblingEventTimeWindows, WindowAssigner,
 )

@@ -150,7 +150,9 @@ def _assert_completes_run(before, after):
 def _checkpoint_mid_run(env, min_next=3 * BATCH, timeout=30.0):
     """Start ``env``'s job, wait for a completed checkpoint whose source
     position is at least ``min_next`` records, cancel; returns (job,
-    checkpoint)."""
+    checkpoint). The checkpoint is read after ``cancel`` has joined the
+    tasks: one in flight at the cancel may still complete and retire the
+    one seen before it."""
     job = env.execute_async("q5-checkpointed")
     deadline = time.time() + timeout
     while time.time() < deadline and not job.failed:
@@ -162,7 +164,7 @@ def _checkpoint_mid_run(env, min_next=3 * BATCH, timeout=30.0):
         job.cancel()
         raise AssertionError("no checkpoint completed mid-run")
     job.cancel()
-    return job, cp
+    return job, job.coordinator.latest_checkpoint()
 
 
 def _reader_next(cp):
