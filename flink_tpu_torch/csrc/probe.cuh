@@ -34,10 +34,14 @@ __device__ __forceinline__ uint32_t probe_hash(unsigned long long u) {
 
 // The slot of `key`, or -1: absent (insert == false: the first empty
 // slot before any match), or MAX_PROBES slots full of other keys.
-__device__ __forceinline__ int probe(unsigned long long* table,
-                                     unsigned long long mask,
-                                     unsigned long long key, bool insert) {
+// `claimed` is set when this call's CAS took the slot from EMPTY: the
+// slot was never a key's before.
+__device__ __forceinline__ int probe_claim(unsigned long long* table,
+                                           unsigned long long mask,
+                                           unsigned long long key,
+                                           bool insert, bool& claimed) {
   const uint32_t h = probe_hash(key);
+  claimed = false;
   for (int p = 0; p < kMaxProbes; ++p) {
     const unsigned long long s = (h + (uint32_t)p) & mask;
     const unsigned long long cur = __ldcg(table + s);
@@ -45,10 +49,18 @@ __device__ __forceinline__ int probe(unsigned long long* table,
     if (cur == kEmpty) {
       if (!insert) return -1;
       const unsigned long long prev = atomicCAS(table + s, kEmpty, key);
+      claimed = prev == kEmpty;
       if (prev == kEmpty || prev == key) return (int)s;
     }
   }
   return -1;
+}
+
+__device__ __forceinline__ int probe(unsigned long long* table,
+                                     unsigned long long mask,
+                                     unsigned long long key, bool insert) {
+  bool claimed;
+  return probe_claim(table, mask, key, insert, claimed);
 }
 
 }  // namespace probe_table

@@ -11,7 +11,9 @@ Pointers come from ``tensor.data_ptr()`` and the stream from
 The build runs at first use, never at import: one ``nvcc`` process per
 source, all started together. A library is named by the hash of its
 source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
-source or header rebuilds and an unchanged one is reused.
+source or header rebuilds and an unchanged one is reused. The compiler's
+output (ptxas's registers, shared memory and spills per kernel) is kept
+beside each library (``build_log``).
 """
 
 from __future__ import annotations
@@ -24,13 +26,14 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["build_all", "library", "check", "BUILD_DIR", "SOURCES"]
+__all__ = ["build_all", "build_log", "library", "check", "BUILD_DIR",
+           "SOURCES"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -137,9 +140,18 @@ def build_all() -> float:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
+            out.with_suffix(".log").write_bytes(log)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return time.perf_counter() - t0
+
+
+def build_log(stem: str) -> str:
+    """The compiler's output of the built ``csrc/<stem>.cu``: ptxas's
+    registers, shared memory and spills of every kernel (``-Xptxas
+    -v``); empty before the build."""
+    log = _lib_path(stem).with_suffix(".log")
+    return log.read_text(errors="replace") if log.exists() else ""
 
 
 def library(stem: str) -> ctypes.CDLL:

@@ -417,6 +417,10 @@ def session_fire(table: torch.Tensor, start: torch.Tensor, end: torch.Tensor,
                                   outs, gap, boundary, dirty, dirty_shift)
     if table.device.type != "cuda":
         raise ValueError(f"unsupported device {table.device}")
+    for t in (start, end, open_, count, *[p for _k, p in resets]):
+        if t.data_ptr() % 16:
+            raise ValueError("session_fire reads the planes 16 bytes at a "
+                             "time: each must start on a 16-byte boundary")
     from . import kernels
 
     lib = kernels.library("session_window")
