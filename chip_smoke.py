@@ -7,8 +7,15 @@ Run from the repository root:  python3 chip_smoke.py
 1. The card: name and power limit as nvidia-smi reports them, torch and
    CUDA versions.
 2. Build: every ``flink_tpu_torch/csrc/*.cu`` with nvcc for sm_90a (one
-   process per source, in parallel); the seconds spent.
-3. Kernels, each held against its plain PyTorch version on the card at
+   process per source, in parallel, with ``tools/sector_rate.cu`` beside
+   them); the seconds spent.
+3. The card's own rate for the scattered accesses of the ingest step
+   (``sector_rates``): 2^19 8-byte reads, read-then-CAS claims, CAS, 4-
+   and 8-byte atomic adds and plain stores at the Q5-10M cell's
+   footprints (a 2^24-slot table, one ring row of [16, 2^24] int32 and
+   int64 planes), at random addresses, bucketed into spans of 2^14 slots
+   and sorted: G sectors/s each.
+4. Kernels, each held against its plain PyTorch version on the card at
    the shapes the main paths give it:
    * hist256, the TPU kernel's contract, at n = 2^21 and 2^24, shifts
      0/8/16/24: exactly equal to the plain version and to torch.bincount;
@@ -29,10 +36,18 @@ Run from the repository root:  python3 chip_smoke.py
      10M keys (2^24): the same key set as the plain version, the count and
      revenue planes equal key by key, the late and dropped counters equal;
    * ingest_step's two optional forms on that batch, against the plain
-     version with the same parts: dirty marking at 2^21 and 2^24 (the
-     marked blocks exactly those written) and the spill split at 2^23 with
-     about half the key groups spilled (staged rows equal as a multiset,
-     stage count and touch clock equal), each timed beside today's form;
+     version with the same parts: dirty marking at 2^21 and 2^24, and at
+     2^24 on Q5-10M's 33rd batch, whose keys are all present (the marked
+     blocks exactly those written), and the spill split at 2^23 with
+     about half the key groups spilled (staged rows equal position by
+     position, in batch order; stage count and touch clock equal), each
+     timed beside the step without parts, with its sector floor (the
+     sectors its pattern touches) and that floor at the measured rates;
+   * both forms on adversarial inputs (``INGEST_EDGE_CASES``): a hot key,
+     one bucket of home slots, 1 and ragged row counts, every row late, a
+     full table, cells past 2^31, every kind and dtype, and the spill
+     split with no group spilled, every group, an overflowing stage, 1,
+     100 and 4096 key groups and a clock ahead of the batch number;
    * window_seal and window_rebuild (csrc/window_seal.cu) on Q5's
      signature (int32 count, int64 revenue) at W = 5 on ring 16 (capacity
      2^21 and 2^24) and at W = 20 on ring 46 (2^24), on Q7's (int64
@@ -48,7 +63,7 @@ Run from the repository root:  python3 chip_smoke.py
    and eager folds), and the bound reckoned from the bytes each kernel
    must move. A profiler shows that one step is one launch and that the
    select's passes run back to back.
-4. Nexmark Q5 at 1M keys (the bench.py headline: capacity 2^21, ring 16,
+5. Nexmark Q5 at 1M keys (the bench.py headline: capacity 2^21, ring 16,
    batch 2^19, 2^23 events, 2000 ms panes, 5-pane sliding windows, top
    1000 by count(value_bits=31) with sum(price)) through the port's
    StreamExecutionEnvironment with datagen(device=True) and
@@ -66,48 +81,48 @@ Run from the repository root:  python3 chip_smoke.py
    are printed. One more run under torch.profiler gives the card's busy
    time by kernel against the run's wall time, and counts the launches of
    both kernels again.
-5. The same at 10M keys (capacity 2^24, 2^25 events; 4 timed runs), then
+6. The same at 10M keys (capacity 2^24, 2^25 events; 4 timed runs), then
    once more with each fire profiled on its own (``fire_device_ms``): the
    device time of one fire (those runs chain source and window into one
    task with the fused chain, so no other thread enqueues work while a
    fire is timed).
-6. Q5-10M with ``window.fire.incremental``: the same checks, and one
+7. Q5-10M with ``window.fire.incremental``: the same checks, and one
    window_seal or window_rebuild per fire; the rebuilds are printed by
    cause.
-7. Q5-10M at W = 20 (bench.py --window-panes 20: ring 46, 24 panes), 2
+8. Q5-10M at W = 20 (bench.py --window-panes 20: ring 46, 24 panes), 2
    timed runs in each fire mode, and the device time per fire of each.
-8. Nexmark Q7 at 10M keys (bench.py _run_q7: 9 tumbling panes of
+9. Nexmark Q7 at 10M keys (bench.py _run_q7: 9 tumbling panes of
    10 000 ms, max(packed = (price << 20) | bidder, value_bits 34), top 1,
    window bounds), 2 timed runs in each fire mode: every window's row is
    the auction of its pane's largest packed word, with its bounds; 5
    select passes per fire.
-9. Coalesced ingest at the operator level: the Q5-1M events in device
+10. Coalesced ingest at the operator level: the Q5-1M events in device
    batches of 2^16 rows, task.coalesce.target-records 2^19, a watermark
    every 8 batches: one ingest_step per 8 batches, windows equal to the
    oracle.
-10. The host-batch path: a short Q5 run with defer_overflow=False at 100k
+11. The host-batch path: a short Q5 run with defer_overflow=False at 100k
     keys into capacity 2^17, which must launch hash_probe, grow the table
     exactly once, and pass the oracle.
-11. The fused chain at the Q5-10M shape, at the operator level: a run's
+12. The fused chain at the Q5-10M shape, at the operator level: a run's
     batches (and two power-of-two tails) once through the fused chain and
     once through the reader's decode and the unfused step: the table,
     both planes and the late and dropped counters equal bit for bit;
     under the profiler one CUDA graph launch and one ingest_step per
     micro-batch, and chain_fused_dispatches_total equal to the
     micro-batches.
-12. Q5-10M through the runtime, fusion off ("runtime") and on ("fused"),
+13. Q5-10M through the runtime, fusion off ("runtime") and on ("fused"),
     in turns with the earlier single-thread loop over the same operators
     ("direct"): every window against the oracle, events/s, p99 fire
     latency, peak device memory, launches per run, one profiled run of
     each (idle share) and the host's enqueue per batch.
-13. Coalesced ingest inside the runtime: Q5-1M in 2^16-row batches, the
+14. Coalesced ingest inside the runtime: Q5-1M in 2^16-row batches, the
     watermark every 5 ms of wall time, task.coalesce.target-records 2^19:
     batches must gather, and every window equals the oracle.
-14. Snapshots through the mirror at Q5-10M (operator level): a full
+15. Snapshots through the mirror at Q5-10M (operator level): a full
     capture, a delta under load, an idle one, 64 hot keys, a retired ring
     row; each equal to the whole-copy snapshot, with its capture, order
     and gather seconds, DMA bytes and dirty share.
-15. Checkpoint and restore at Q5-10M into FsCheckpointStorage in a
+16. Checkpoint and restore at Q5-10M into FsCheckpointStorage in a
     temporary directory: a paced source, checkpoints every 0.5 s, the
     source paused after the first so the third is idle; the job is
     cancelled, the idle checkpoint on disk equals the whole-copy snapshot,
@@ -116,14 +131,14 @@ Run from the repository root:  python3 chip_smoke.py
     window task's barrier to ack, the snapshot's capture, order and
     gather, the store, DMA and fs bytes; the restore's time to its first
     batch.
-16. Q5-10M through env.execute() at state.backend.tpu.hbm-budget-slots
+17. Q5-10M through env.execute() at state.backend.tpu.hbm-budget-slots
     2^23: every window against the oracle, one spill-form ingest_step per
     batch, no staged row dropped; events/sec, p99 fire latency, keys per
     tier, evictions, host seconds, peak memory. Then a budgeted job's
     checkpoint restored into an unbudgeted job and the reverse: windows
     against the oracle, and each checkpoint restored under the other
     budget snapshots byte for byte as it was stored.
-17. Session windows (csrc/session_window.cu): in the kernel phase,
+18. Session windows (csrc/session_window.cu): in the kernel phase,
     session_step and session_fire against their plain versions at
     Q11-10M's shapes (a 2^19-row batch into 2^24 slots and 4 lanes, the
     fifth batch and the 33rd; a fire over [4, 2^24] with half the lanes
@@ -150,14 +165,16 @@ Run from the repository root:  python3 chip_smoke.py
     session-100K with fs checkpoints around fires, cancelled and restored
     from the last: no window repeated, none lost, the checkpoint equal to
     the whole-copy snapshot.
-18. The kernels line, the nvidia-smi line, then the last line
+19. The kernels line, the nvidia-smi line, then the last line
     {"ok": true, "device": {...}}.
 
 ``python3 chip_smoke.py --parent-kernels DIR`` instead times, with the same
-method, the kernels that an older checkout at DIR also has (the session
-kernels with their checks, hist256, hash_probe, and the
-probe-plus-eager-folds step chain) and prints one JSON line: the way to
-set a new kernel beside its predecessor in one call.
+method, the kernels that an older checkout at DIR also has (ingest_step
+with no parts and in its dirty and spill forms, timed only, as the older
+spill form stages in another order; the session kernels with their
+checks, hist256, hash_probe, and the probe-plus-eager-folds step chain)
+and prints one JSON line: the way to set a new kernel beside its
+predecessor in one call.
 
 Any failure raises and exits non-zero; without CUDA, or without the
 package beside this script, it exits non-zero before printing a result.
@@ -165,7 +182,9 @@ package beside this script, it exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import ctypes
 import gc
+import hashlib
 import json
 import linecache
 import os
@@ -190,6 +209,11 @@ WIDE_PANES = 20                # bench.py --window-panes 20
 Q5_CELLS = (("1M", 1_000_000, 1 << 23, 1 << 21),
             ("10M", 10_000_000, 1 << 25, 1 << 24))
 STEP_PREFIX = 4                # batches in the table before a timed step
+PRESENT_PREFIX = 32            # Q5-10M batches before one whose keys are all
+#                                in the table (its 33rd)
+SECTOR_SPAN = 1 << 14          # slots of an address-ordered span
+#: the scattered accesses of the step, as tools/sector_rate.cu numbers them
+SECTOR_OPS = ("read8", "probe8", "cas8", "red4", "red8", "store4", "store8")
 FIRE_SLEEP_CYCLES = 40_000_000  # ~20 ms of device sleep before a timed fire
 FIRE_TIMING_TRIES = 3          # timed-fire runs, the sleep doubled each
 PROFILE_TRIES = 3              # profiles taken before a lost record fails
@@ -492,8 +516,9 @@ def eager_step_chain(torch, table, count, rev, ts, keys, price,
         scatter_fold(kind, arr.view(-1), flat, vals, ok)
 
 
-def q5_step_case(torch, dev, n_keys: int, n_events: int, cap: int) -> dict:
-    """Q5 state after STEP_PREFIX batches (built by the step chain, which
+def q5_step_case(torch, dev, n_keys: int, n_events: int, cap: int,
+                 prefix: int = STEP_PREFIX) -> dict:
+    """Q5 state after ``prefix`` batches (built by the step chain, which
     every checkout has) and the batch after them."""
     from flink_tpu_torch.ops.hash_table import make_table
     from flink_tpu_torch.ops.segment_ops import make_accumulator
@@ -511,11 +536,11 @@ def q5_step_case(torch, dev, n_keys: int, n_events: int, cap: int) -> dict:
     rev = make_accumulator("sum", (RING, cap), torch.int64, dev)
     late = torch.zeros((), dtype=torch.int64, device=dev)
     dropped = torch.zeros((), dtype=torch.int64, device=dev)
-    for b in range(STEP_PREFIX):
+    for b in range(prefix):
         eager_step_chain(torch, table, count, rev, *batch(b), MIN_TIMESTAMP,
                          late, dropped)
     return {"table": table, "count": count, "rev": rev,
-            "batch": batch(STEP_PREFIX)}
+            "batch": batch(prefix)}
 
 
 def time_step_chain(torch, dev, flush, case: dict) -> float:
@@ -578,12 +603,15 @@ def check_ingest(torch, dev, flush) -> dict:
                                      f"{bad}")
             mismatches += sum(bad.values())
         gtable = runs["kernel"][5]
-        # the bound, from this batch: new keys and (ring row, key) pairs
+        # the bound, from this batch: new keys, present keys (their table
+        # sector read) and (ring row, key) pairs
         table0 = case["table"]
         d_new = int((gtable != EMPTY_KEY).sum() - (table0 != EMPTY_KEY).sum())
         slot = lookup(gtable, sanitize_keys_device(keys)).to(torch.int64)
+        d_present = int(torch.unique(slot).numel()) - d_new
         d_pk = int(torch.unique((ts // PANE_MS % RING) * cap + slot).numel())
-        nbytes = BATCH * (8 + 8 + 8) + d_new * (32 + 8) + d_pk * 2 * 2 * 32
+        nbytes = (BATCH * (8 + 8 + 8) + d_new * (32 + 8) + d_present * 32
+                  + d_pk * 2 * 2 * 32)
         table = table0.clone()
         count, rev = case["count"], case["rev"]
         late = torch.zeros((), dtype=torch.int64, device=dev)
@@ -597,7 +625,7 @@ def check_ingest(torch, dev, flush) -> dict:
         reset = lambda: table.copy_(table0)  # noqa: E731
         shapes[cap] = {
             "q5": label, "n": BATCH, "capacity": cap, "new_keys": d_new,
-            "ring_key_pairs": d_pk,
+            "present_keys": d_present, "ring_key_pairs": d_pk,
             "ms": cuda_ms(run(ingest_step), torch, flush, setup=reset),
             "ms_scalar_buffer": cuda_ms(run(ingest_step, first_open_at),
                                         torch, flush, setup=reset),
@@ -610,28 +638,174 @@ def check_ingest(torch, dev, flush) -> dict:
     return {"max_abs_err": mismatches, "shapes": shapes}
 
 
-def check_ingest_forms(torch, dev, flush) -> dict:
+def start_sector_build():
+    """Starts nvcc on tools/sector_rate.cu with the package's flags, into
+    its build directory, beside the package's own builds. Returns the
+    library's path and the build under way (None: already built)."""
+    from flink_tpu_torch.ops import kernels
+
+    src = os.path.join(HERE, "tools", "sector_rate.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(
+            f.read() + " ".join(kernels.NVCC_FLAGS).encode()).hexdigest()
+    out = kernels.BUILD_DIR / f"libsector_rate-{digest[:12]}.so"
+    if out.exists():
+        return out, None
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".tmp{os.getpid()}")
+    return out, (tmp, subprocess.Popen(
+        [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(tmp), src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+
+
+def sector_library(build):
+    """The loaded library of a ``start_sector_build``, once built."""
+    out, job = build
+    if job is not None:
+        tmp, proc = job
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed on tools/sector_rate.cu:\n"
+                               + log.decode(errors="replace"))
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    lib.sector_rate_launch.argtypes = [
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_ulonglong, ctypes.c_void_p, ctypes.c_void_p]
+    lib.sector_rate_launch.restype = ctypes.c_int
+    return lib
+
+
+def sector_rates(torch, dev, flush, lib) -> dict:
+    """The card's own rate for each scattered access of the step
+    (SECTOR_OPS, tools/sector_rate.cu), a batch's 2^19 accesses at the
+    Q5-10M cell's footprints: the 8-byte slots of a 2^24-slot table (128
+    MB); the 4-byte and 8-byte cells of one ring row of [16, 2^24] planes
+    (1 GB and 2 GB). Each op at the same addresses in three orders:
+    random; bucketed into spans of SECTOR_SPAN slots taken in address
+    order, random within a span (as a block would take a bucket); sorted.
+    The rate is distinct 32-byte sectors touched per second, the L2
+    flushed before each launch."""
+    cap, row = 1 << 24, 5
+    gen = torch.Generator(device=dev).manual_seed(8)
+    slots = torch.randint(0, cap, (BATCH,), generator=gen, device=dev,
+                          dtype=torch.int64)
+    span = f"spans_of_2^{SECTOR_SPAN.bit_length() - 1}"
+    orders = {"random": slots,
+              span: slots[torch.sort(slots // SECTOR_SPAN,
+                                     stable=True).indices],
+              "sorted": torch.sort(slots).values}
+    table = torch.empty(cap, dtype=torch.int64, device=dev)
+    plane4 = torch.zeros((RING, cap), dtype=torch.int32, device=dev)
+    plane8 = torch.zeros((RING, cap), dtype=torch.int64, device=dev)
+    sink = torch.zeros(1, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    where = {"read8": (table, 0, 8), "probe8": (table, 0, 8),
+             "cas8": (table, 0, 8), "red4": (plane4, row * cap, 4),
+             "red8": (plane8, row * cap, 8), "store4": (plane4, row * cap, 4),
+             "store8": (plane8, row * cap, 8)}
+    out = {}
+    for code, op in enumerate(SECTOR_OPS):
+        base, offset, width = where[op]
+        out[op] = {}
+        for order, at in orders.items():
+            idx = (at + offset).contiguous()
+
+            def launch(idx=idx, base=base, code=code):
+                rc = lib.sector_rate_launch(code, base.data_ptr(),
+                                            idx.data_ptr(), idx.numel(),
+                                            INT64_MAX, sink.data_ptr(),
+                                            stream)
+                if rc:
+                    raise RuntimeError(f"sector_rate launch failed: {rc}")
+
+            ms = cuda_ms(launch, torch, flush,
+                         setup=lambda: table.fill_(INT64_MAX))
+            sectors = int(torch.unique(idx * width // 32).numel())
+            out[op][order] = {"ms": ms, "sectors": sectors,
+                              "g_sectors_per_s": sectors / ms / 1e6}
+        random = out[op]["random"]["g_sectors_per_s"]
+        out[op]["sorted_over_random"] = (
+            out[op]["sorted"]["g_sectors_per_s"] / random)
+        out[op]["spans_over_random"] = (
+            out[op][span]["g_sectors_per_s"] / random)
+    del table, plane4, plane8
+    return {"n": BATCH, "span_slots": SECTOR_SPAN, "ops": out}
+
+
+def ingest_sectors(torch, table0, gtable, ts, skeys, folds, cap: int,
+                   staged: int, rates: dict | None) -> dict:
+    """The step's sector floor for this batch: every probing row's table
+    sector read (a present key's too), a new key's table sector written
+    back; per plane (int32 count, int64 revenue) each distinct (ring row,
+    slot) sector read and written; the streamed columns (ts, key, price:
+    24 B a row) and 20 B a staged row. The dirty bitmap stays in L2 and is
+    not counted. With ``rates`` (``sector_rates``), that pattern at the
+    card's measured random rates: present keys' table sectors at read8's,
+    new keys' at probe8's, the count plane's at red4's, the revenue
+    plane's at red8's, the streamed bytes at 3.35 TB/s, one after
+    another."""
+    from flink_tpu_torch.ops.hash_table import lookup
+
+    slot = lookup(gtable, skeys).to(torch.int64)
+    on = folds & (slot >= 0)
+    s = slot[on]
+    was = lookup(table0, skeys[on]) >= 0
+    cell = (ts[on] // PANE_MS % RING) * cap + s
+    table_read = sector_ids(torch, 0, s, 8)
+    table_new = sector_ids(torch, 0, s[~was], 8)
+    count_sec = sector_ids(torch, 1, cell, 4)
+    rev_sec = sector_ids(torch, 2, cell, 8)
+    n = sector_floor(torch, [table_read, count_sec, rev_sec],
+                     [table_new, count_sec, rev_sec])
+    streamed = BATCH * 24 + staged * 20
+    out = {"sectors": n, "streamed_bytes": streamed,
+           "sector_floor_ms": bound_ms(32 * n + streamed)}
+    if rates is not None:
+        def distinct(ids):
+            return int(torch.unique(ids).numel())
+
+        def per_ms(op):
+            return rates["ops"][op]["random"]["g_sectors_per_s"] * 1e6
+
+        out["at_measured_rate_ms"] = (
+            distinct(sector_ids(torch, 0, s[was], 8)) / per_ms("read8")
+            + distinct(table_new) / per_ms("probe8")
+            + distinct(count_sec) / per_ms("red4")
+            + distinct(rev_sec) / per_ms("red8") + bound_ms(streamed))
+    return out
+
+
+def check_ingest_forms(torch, dev, flush, rates: dict | None = None,
+                       compare: bool = True) -> dict:
     """The two optional forms of ingest_step on the next Q5 batch, each
     against the plain version with the same parts: dirty marking (the form
-    of every step of the main paths) at capacity 2^21 and 2^24, and the
+    of every step of the main paths) at capacity 2^21 and 2^24, and at
+    2^24 on Q5-10M's 33rd batch, whose keys are all in the table; and the
     spill split at the spill phase's capacity 2^23 with about half of the
     128 key groups spilled. Table key set, planes key by key, late and
     dropped equal; the marked blocks exactly the blocks the kernel's folds
-    wrote; the staged rows equal as a multiset, the stage count and the
-    touch clock equal. Times the form beside today's form (no parts) in
-    the same call; the bound adds the bytes of the parts to the step's."""
+    wrote; the staged rows equal position by position (batch order), the
+    stage count and the touch clock equal. Times the form beside the step
+    without parts in the same call; the bound adds the bytes of the parts
+    to the step's, and the sector floor (``ingest_sectors``) counts the
+    sectors the pattern touches. ``compare`` False: times the kernel only
+    (an older checkout's, whose staging order differs)."""
     from flink_tpu_torch.core.keygroups import key_groups_device
     from flink_tpu_torch.ops.hash_table import EMPTY_KEY, StepSpill, \
         ingest_step, ingest_step_plain, lookup, sanitize_keys_device
 
     spilled = torch.from_numpy(
         np.random.default_rng(5).random(MAXP) < 0.5).to(dev)
-    cases = [("dirty", label, k, e, c) for label, k, e, c in Q5_CELLS]
+    cases = [("dirty", label, k, e, c, STEP_PREFIX, "")
+             for label, k, e, c in Q5_CELLS]
+    cases.append(("dirty", "10M", Q5_CELLS[1][1], Q5_CELLS[1][2],
+                  Q5_CELLS[1][3], PRESENT_PREFIX, "_present"))
     cases.append(("spill", "10M", Q5_CELLS[1][1], Q5_CELLS[1][2],
-                  SPILL_BUDGET))
+                  SPILL_BUDGET, STEP_PREFIX, ""))
     shapes, mismatches = {}, 0
-    for form, label, n_keys, n_events, cap in cases:
-        case = q5_step_case(torch, dev, n_keys, n_events, cap)
+    for form, label, n_keys, n_events, cap, prefix, tag in cases:
+        case = q5_step_case(torch, dev, n_keys, n_events, cap, prefix)
         ts, keys, price = case["batch"]
         nb = cap >> DIRTY_SHIFT
 
@@ -649,7 +823,8 @@ def check_ingest_forms(torch, dev, flush) -> dict:
 
         runs = {}
         for name, step in (("kernel", ingest_step),
-                           ("plain", ingest_step_plain)):
+                           ("plain", ingest_step_plain))[:2 if compare
+                                                         else 1]:
             table = case["table"].clone()
             count, rev = case["count"].clone(), case["rev"].clone()
             late = torch.zeros((), dtype=torch.int64, device=dev)
@@ -667,53 +842,55 @@ def check_ingest_forms(torch, dev, flush) -> dict:
                           rev[rows][:, slots], int(late), int(dropped),
                           table, dirty, spill)
         gk, gc, gr, gl, gd, gtable, gdirty, gspill = runs["kernel"]
-        wk, wc, wr, wl, wd, _wt, _wdirty, wspill = runs["plain"]
-        same = gk.numel() == wk.numel()
-        bad = {"key_set": int(not same) or int((gk != wk).sum()),
-               "count_plane": 0 if not same else int((gc != wc).sum()),
-               "revenue_plane": 0 if not same else int((gr != wr).sum()),
-               "late": abs(gl - wl), "dropped": abs(gd - wd)}
         skeys = sanitize_keys_device(keys)
         folds = torch.ones_like(skeys, dtype=torch.bool)
-        staged = 0
+        staged = int(gspill.count) if form == "spill" else 0
         if form == "spill":
             folds = ~spilled[key_groups_device(skeys, MAXP).to(torch.int64)]
-            staged = int(gspill.count)
-            n = min(staged, BATCH)
-            got_rows, want_rows = (
-                np.unique(np.stack([sp.keys[:n].cpu().numpy(),
-                                    sp.ring[:n].cpu().numpy(),
-                                    sp.values[1][:n].cpu().numpy()]), axis=1,
-                          return_counts=True)
-                for sp in (gspill, wspill))
-            bad["stage_count"] = abs(staged - int(wspill.count))
-            bad["stage_rows"] = int(not (
-                np.array_equal(got_rows[0], want_rows[0])
-                and np.array_equal(got_rows[1], want_rows[1])))
-            bad["touch"] = int((gspill.touch != wspill.touch).sum())
-            if staged == 0 or int((~folds).sum()) != staged:
-                bad["stage_count"] += 1
-        written = torch.unique(
-            lookup(gtable, skeys)[folds].to(torch.int64) >> DIRTY_SHIFT)
         marked = torch.nonzero(gdirty[:nb]).flatten()
-        bad["dirty_blocks"] = (int(written.numel() != marked.numel())
-                               or int((written != marked).sum()))
-        if any(bad.values()):
-            raise AssertionError(f"ingest_step {form} form at {label}: "
-                                 "entries differing from the plain version: "
-                                 f"{bad}")
-        mismatches += sum(bad.values())
-        # the bound: the step's bytes for the rows that fold, plus the
-        # parts: one byte per marked block; a staged row's 8 + 4 + 8 bytes;
-        # the clock's read and write
+        if compare:
+            wk, wc, wr, wl, wd, _wt, _wdirty, wspill = runs["plain"]
+            same = gk.numel() == wk.numel()
+            bad = {"key_set": int(not same) or int((gk != wk).sum()),
+                   "count_plane": 0 if not same else int((gc != wc).sum()),
+                   "revenue_plane": 0 if not same else int((gr != wr).sum()),
+                   "late": abs(gl - wl), "dropped": abs(gd - wd)}
+            if form == "spill":
+                n = min(staged, BATCH)
+                bad["stage_count"] = abs(staged - int(wspill.count))
+                # position by position: both stage in batch order
+                bad["stage_rows"] = sum(
+                    int((g[:n] != w[:n]).sum())
+                    for g, w in ((gspill.keys, wspill.keys),
+                                 (gspill.ring, wspill.ring),
+                                 (gspill.values[1], wspill.values[1])))
+                bad["touch"] = int((gspill.touch != wspill.touch).sum())
+                if staged == 0 or int((~folds).sum()) != staged:
+                    bad["stage_count"] += 1
+            written = torch.unique(
+                lookup(gtable, skeys)[folds].to(torch.int64) >> DIRTY_SHIFT)
+            bad["dirty_blocks"] = (int(written.numel() != marked.numel())
+                                   or int((written != marked).sum()))
+            if any(bad.values()):
+                raise AssertionError(f"ingest_step {form} form at {label}"
+                                     f"{tag}: entries differing from the "
+                                     f"plain version: {bad}")
+            mismatches += sum(bad.values())
+        # the bound: the step's bytes for the rows that fold (a new key's
+        # table sector read and its key written, a present key's table
+        # sector read), plus the parts: one byte per marked block; a staged
+        # row's 8 + 4 + 8 bytes; the clock's read and write
         table0 = case["table"]
         d_new = int((gtable != EMPTY_KEY).sum() - (table0 != EMPTY_KEY).sum())
         slot = lookup(gtable, skeys)[folds].to(torch.int64)
+        d_present = int(torch.unique(slot).numel()) - d_new
         d_pk = int(torch.unique((ts[folds] // PANE_MS % RING) * cap
                                 + slot).numel())
-        nbytes = (BATCH * (8 + 8 + 8) + d_new * (32 + 8) + d_pk * 2 * 2 * 32
-                  + marked.numel() + staged * 20
+        nbytes = (BATCH * (8 + 8 + 8) + d_new * (32 + 8) + d_present * 32
+                  + d_pk * 2 * 2 * 32 + marked.numel() + staged * 20
                   + (2 * MAXP * 8 if form == "spill" else 0))
+        sectors = ingest_sectors(torch, table0, gtable, ts, skeys, folds,
+                                 cap, staged, rates)
         table = table0.clone()
         count, rev = case["count"], case["rev"]
         late = torch.zeros((), dtype=torch.int64, device=dev)
@@ -733,19 +910,324 @@ def check_ingest_forms(torch, dev, flush) -> dict:
                 spill.count.zero_()
 
         ms = cuda_ms(run(ingest_step), torch, flush, setup=reset)
-        shapes[f"{form}_cap_2^{cap.bit_length() - 1}"] = {
+        entry = {
             "q5": label, "form": form, "n": BATCH, "capacity": cap,
-            "new_keys": d_new, "ring_key_pairs": d_pk,
-            "dirty_blocks": int(marked.numel()), "staged_rows": staged,
-            "ms": ms,
+            "batches_before": prefix, "new_keys": d_new,
+            "present_keys": d_present, "ring_key_pairs": d_pk,
+            "dirty_blocks": int(marked.numel()),
+            "staged_rows": staged, "ms": ms,
             "ms_without_parts": cuda_ms(run(ingest_step, False), torch,
                                         flush, setup=reset),
-            "plain_ms": cuda_ms(run(ingest_step_plain), torch, flush,
-                                reps=3, setup=reset),
             "library_ms": None, "bound_ms": bound_ms(nbytes),
-            "bound_by": "bytes", "share_of_bound": bound_ms(nbytes) / ms}
+            "bound_by": "bytes", "share_of_bound": bound_ms(nbytes) / ms,
+            **sectors,
+            "share_of_sector_floor": sectors["sector_floor_ms"] / ms}
+        if "at_measured_rate_ms" in sectors:
+            entry["share_of_measured_rate"] = (
+                sectors["at_measured_rate_ms"] / ms)
+        if compare:
+            entry["plain_ms"] = cuda_ms(run(ingest_step_plain), torch, flush,
+                                        reps=3, setup=reset)
+        shapes[f"{form}_cap_2^{cap.bit_length() - 1}{tag}"] = entry
         del case, runs, table
     return {"max_abs_err": mismatches, "shapes": shapes}
+
+
+# -- adversarial inputs of ingest_step ----------------------------------------
+#: every row one key; every key's home slot in one bucket (1/64) of the
+#: table; one row; rows that are not a multiple of a block; every row
+#: late; a table with no free slot; cells past 2^31 (ring 129 x 2^24,
+#: uint8 planes); every fold kind and dtype; the spill split with no group
+#: spilled, every group, a stage that overflows, 1, 100 and 4096 key
+#: groups, and a restored clock above the batch number. Each case runs
+#: the dirty form, and the spill form where it has one: the spill cases
+#: only that. Panes of EDGE_PANE ms from EDGE_OFFSET; panes below
+#: EDGE_FIRST_OPEN are late (about a quarter of the rows).
+INGEST_EDGE_CASES = ("hot_key", "one_bucket", "n_1", "n_ragged", "all_late",
+                     "full_table", "cells_past_2^31", "kinds_dtypes",
+                     "spill_none", "spill_all", "spill_overflow",
+                     "spill_maxp_1", "spill_maxp_100", "spill_maxp_4096",
+                     "spill_clock_ahead")
+EDGE_PANE, EDGE_OFFSET, EDGE_FIRST_OPEN, EDGE_RING = 100, -37, -4, 4
+EDGE_SHIFT = 3                 # 8-slot dirty blocks
+EDGE_SPLIT_MAXP = 128
+
+
+def _ingest_edge_batch(rng, pool, n: int, cols: dict,
+                       late: bool = False) -> tuple:
+    """(keys, ts, {column: values}): keys drawn from ``pool``, panes -7 to
+    6 (every row late: -20 to -5), values small, so every sum is exact."""
+    keys = pool[rng.integers(0, pool.size, n)].astype(np.int64)
+    ts = (rng.integers(-2037, -537, n) if late
+          else rng.integers(-700, 600, n)).astype(np.int64)
+    vals = {}
+    for name, dt in cols.items():
+        v = rng.integers(-40, 40, n)
+        if np.dtype(dt) == np.uint8:
+            v = rng.integers(0, 256, n)
+        elif np.dtype(dt) == np.bool_:
+            v = rng.integers(0, 2, n)
+        elif np.dtype(dt).kind == "f":
+            v = v / 8.0
+        vals[name] = v.astype(dt)
+    return keys, ts, vals
+
+
+def _edge_spill(rng, maxp: int, spilled=None, stage: int = 1 << 14,
+                touch=None, batch_no: int = 1) -> dict:
+    return {"maxp": maxp,
+            "spilled": (rng.random(maxp) < 0.5 if spilled is None
+                        else np.asarray(spilled, dtype=bool)),
+            "touch": (np.zeros(maxp, np.int64) if touch is None
+                      else np.asarray(touch, dtype=np.int64)),
+            "stage": stage, "batch_no": batch_no}
+
+
+def ingest_edge_configs(case: str) -> list:
+    """The configurations of one adversarial case, from a seed: each a
+    dict of capacity, ring, the prepared table (numpy), planes (kind,
+    torch dtype name, column or None), value columns, batches, the forms
+    to run ("dirty", "spill") and the spill split's parameters."""
+    from flink_tpu_torch.ops.hash_table import EMPTY_KEY, \
+        hash_keys_device, lookup_or_insert_plain, make_table
+
+    rng = np.random.default_rng(sum(map(ord, case)))
+    pool = rng.integers(-(10 ** 12), 10 ** 12, 700)
+    pool[:2] = [EMPTY_KEY, EMPTY_KEY - 1]
+    mixed = [("count", "int32", None), ("sum", "int64", "v"),
+             ("min", "float32", "v"), ("max", "int64", "v")]
+    base = {"cap": 1 << 12, "ring": EDGE_RING, "planes": mixed,
+            "cols": {"v": np.int64}, "prefill": None,
+            "forms": ("dirty", "spill"),
+            "spill": _edge_spill(rng, EDGE_SPLIT_MAXP)}
+
+    def cfg(n_batches=2, n=3001, late=False, pool=pool, **kw):
+        c = {**base, **kw}
+        c["batches"] = [_ingest_edge_batch(rng, pool, n, c["cols"], late)
+                        for _ in range(n_batches)]
+        return c
+
+    if case == "hot_key":
+        return [cfg(n=5001, pool=np.array([42], np.int64))]
+    if case == "one_bucket":
+        cap = 1 << 16
+        cand = rng.integers(-(10 ** 15), 10 ** 15, 1 << 18)
+        home = hash_keys_device(torch_cpu_tensor(cand)).numpy() & (cap - 1)
+        keys = cand[(home >> 10) == 0][:300]
+        return [cfg(n=4000, pool=keys, cap=cap)]
+    if case == "n_1":
+        return [cfg(n_batches=1, n=1)]
+    if case == "n_ragged":
+        return [cfg(n_batches=1, n=n) for n in (255, 257, 1000, 4097)]
+    if case == "all_late":
+        return [cfg(late=True)]
+    if case == "full_table":
+        cap = 1 << 10
+        present = pool[2:302]
+        table = make_table(cap, "cpu")
+        lookup_or_insert_plain(table, torch_cpu_tensor(present))
+        table = table.numpy()
+        free = np.flatnonzero(table == EMPTY_KEY)
+        table[free] = 10 ** 13 + np.arange(free.size)   # no batch key
+        return [cfg(cap=cap, prefill=table,
+                    spill=_edge_spill(rng, EDGE_SPLIT_MAXP,
+                                      spilled=np.arange(EDGE_SPLIT_MAXP) % 4
+                                      == 0))]
+    if case == "cells_past_2^31":
+        c = cfg(n_batches=1, n=4000, cap=1 << 24, ring=129,
+                planes=[("count", "uint8", None), ("max", "uint8", "v")],
+                cols={"v": np.uint8}, forms=("dirty",))
+        keys, _ts, vals = c["batches"][0]
+        panes = 128 + 129 * rng.integers(0, 3, keys.size)
+        c["batches"] = [(keys, EDGE_OFFSET + panes * EDGE_PANE, vals)]
+        return [c]
+    if case == "kinds_dtypes":
+        out = []
+        for kind in ("sum", "min", "max"):
+            for dt in ("int32", "int64", "float32", "float64", "uint8"):
+                out.append(cfg(n_batches=1, n=2000,
+                               planes=[("count", "int32", None),
+                                       (kind, dt, "v"),
+                                       ("sum", "float32", "v")],
+                               cols={"v": np.dtype(dt).type}))
+        out.append(cfg(n_batches=1, n=2000,
+                       planes=[("count", "int64", None),
+                               ("sum", "int64", "b")],
+                       cols={"b": np.bool_}))
+        return out
+    spill_only = {"forms": ("spill",)}
+    if case == "spill_none":
+        return [cfg(**spill_only, spill=_edge_spill(
+            rng, EDGE_SPLIT_MAXP, spilled=np.zeros(EDGE_SPLIT_MAXP)))]
+    if case == "spill_all":
+        return [cfg(**spill_only, spill=_edge_spill(
+            rng, EDGE_SPLIT_MAXP, spilled=np.ones(EDGE_SPLIT_MAXP)))]
+    if case == "spill_overflow":
+        # the first batch overflows the stage; the second finds it full
+        return [cfg(**spill_only, spill=_edge_spill(rng, EDGE_SPLIT_MAXP,
+                                                    stage=700))]
+    if case.startswith("spill_maxp_"):
+        maxp = int(case.rsplit("_", 1)[1])
+        return [cfg(**spill_only, spill=_edge_spill(rng, maxp))]
+    if case == "spill_clock_ahead":
+        touch = np.where(np.arange(EDGE_SPLIT_MAXP) % 3 == 0, 9, 0)
+        return [cfg(**spill_only, spill=_edge_spill(
+            rng, EDGE_SPLIT_MAXP, touch=touch, batch_no=4))]
+    raise ValueError(case)
+
+
+def torch_cpu_tensor(a):
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def run_ingest_edge(torch, dev, c: dict, form: str, step) -> dict:
+    """One configuration through ``step`` (ingest_step or its plain
+    version) in one form, from fresh state; the state after it."""
+    from flink_tpu_torch.ops.hash_table import StepSpill, make_table
+    from flink_tpu_torch.ops.segment_ops import make_accumulator
+
+    cap, ring = c["cap"], c["ring"]
+    table = (make_table(cap, dev) if c["prefill"] is None
+             else torch_cpu_tensor(c["prefill"]).to(dev))
+    planes = [(kind, make_accumulator(kind, (ring, cap), getattr(torch, dt),
+                                      dev), col)
+              for kind, dt, col in c["planes"]]
+    late = torch.zeros((), dtype=torch.int64, device=dev)
+    dropped = torch.zeros((), dtype=torch.int64, device=dev)
+    dirty = torch.zeros((cap >> EDGE_SHIFT) + 1, dtype=torch.uint8,
+                        device=dev)
+    spill = None
+    if form == "spill":
+        sp = c["spill"]
+        S = sp["stage"]
+        spill = StepSpill(
+            torch_cpu_tensor(sp["spilled"]).to(dev),
+            torch_cpu_tensor(sp["touch"]).to(dev), sp["batch_no"],
+            torch.zeros((), dtype=torch.int64, device=dev),
+            torch.zeros(S, dtype=torch.int64, device=dev),
+            torch.zeros(S, dtype=torch.int32, device=dev),
+            [None if col is None else
+             torch.zeros(S, dtype=getattr(torch, dt), device=dev)
+             for _kind, dt, col in c["planes"]])
+    for b, (keys, ts, vals) in enumerate(c["batches"]):
+        if spill is not None:
+            spill.batch_no = c["spill"]["batch_no"] + b
+        cols = {k: torch_cpu_tensor(v).to(dev) for k, v in vals.items()}
+        step(table, [(kind, arr, None if col is None else cols[col])
+                     for kind, arr, col in planes],
+             torch_cpu_tensor(ts).to(dev), torch_cpu_tensor(keys).to(dev),
+             EDGE_PANE, EDGE_OFFSET, EDGE_FIRST_OPEN, late, dropped, dirty,
+             EDGE_SHIFT, spill)
+    return {"table": table, "planes": [arr for _k, arr, _c in planes],
+            "late": int(late), "dropped": int(dropped), "dirty": dirty,
+            "spill": spill}
+
+
+def edge_folded_blocks(torch, c: dict, form: str, table):
+    """The dirty blocks a run must have marked: the blocks of the slots,
+    in its final table, of every fresh row that probes (not of a spilled
+    group) and whose key is there."""
+    from flink_tpu_torch.core.keygroups import key_groups_device
+    from flink_tpu_torch.ops.hash_table import lookup, sanitize_keys_device
+
+    blocks = []
+    for keys, ts, _vals in c["batches"]:
+        k = sanitize_keys_device(torch_cpu_tensor(keys).to(table.device))
+        t = torch_cpu_tensor(ts).to(table.device)
+        on = torch.div(t - EDGE_OFFSET, EDGE_PANE,
+                       rounding_mode="floor") >= EDGE_FIRST_OPEN
+        if form == "spill":
+            sp = torch_cpu_tensor(c["spill"]["spilled"]).to(table.device)
+            on &= ~sp[key_groups_device(k, c["spill"]["maxp"]).long()]
+        slot = lookup(table, k).to(torch.int64)
+        blocks.append(slot[on & (slot >= 0)] >> EDGE_SHIFT)
+    return torch.unique(torch.cat(blocks))
+
+
+def check_ingest_edge(torch, dev, case: str) -> dict:
+    """Every configuration of ``case`` through the kernel and the plain
+    version in each of its forms: the table's key set, every plane key by
+    key (the slot layouts differ), late and dropped equal; each run's
+    dirty blocks exactly those of its folds; the staged rows equal
+    position by position (both stage in batch order), the stage count and
+    the touch clock equal. Returns per form the counts seen."""
+    from flink_tpu_torch.ops.hash_table import EMPTY_KEY, ingest_step, \
+        ingest_step_plain
+
+    def by_key(st):
+        table = st["table"]
+        occupied = torch.nonzero(table != EMPTY_KEY).flatten()
+        keys, order = torch.sort(table[occupied])
+        return keys, [p[:, occupied[order]] for p in st["planes"]]
+
+    seen = {}
+    for i, c in enumerate(ingest_edge_configs(case)):
+        for form in c["forms"]:
+            got = run_ingest_edge(torch, dev, c, form, ingest_step)
+            want = run_ingest_edge(torch, dev, c, form, ingest_step_plain)
+            what = f"ingest_step {case}[{i}] {form} form"
+            gk, gp = by_key(got)
+            wk, wp = by_key(want)
+            if not torch.equal(gk, wk):
+                only_got = gk[~torch.isin(gk, wk)]
+                only_want = wk[~torch.isin(wk, gk)]
+                raise AssertionError(
+                    f"{what}: key sets differ: {gk.numel()} keys against "
+                    f"{wk.numel()}; only the kernel's "
+                    f"{only_got[:5].tolist()}, only the plain version's "
+                    f"{only_want[:5].tolist()}")
+            for q, (g, w) in enumerate(zip(gp, wp)):
+                if g.dtype != w.dtype or not torch.equal(g, w):
+                    raise AssertionError(f"{what}: plane {q} differs key "
+                                         "by key")
+            if (got["late"], got["dropped"]) != (want["late"],
+                                                 want["dropped"]):
+                raise AssertionError(
+                    f"{what}: late, dropped {got['late'], got['dropped']} "
+                    f"against {want['late'], want['dropped']}")
+            for st, name in ((got, "kernel"), (want, "plain")):
+                blocks = edge_folded_blocks(torch, c, form, st["table"])
+                marked = torch.nonzero(
+                    st["dirty"][:c["cap"] >> EDGE_SHIFT]).flatten()
+                if not torch.equal(blocks, marked):
+                    raise AssertionError(f"{what}: the {name}'s dirty "
+                                         "blocks are not its folds' blocks")
+            staged = 0
+            if form == "spill":
+                gs, ws = got["spill"], want["spill"]
+                staged = int(gs.count)
+                if staged != int(ws.count):
+                    raise AssertionError(f"{what}: stage count {staged} "
+                                         f"against {int(ws.count)}")
+                n = min(staged, gs.keys.numel())
+                pairs = [(gs.keys, ws.keys), (gs.ring, ws.ring)] + [
+                    (g, w) for g, w in zip(gs.values, ws.values)
+                    if g is not None]
+                for g, w in pairs:
+                    if not torch.equal(g[:n], w[:n]):
+                        raise AssertionError(f"{what}: staged rows differ "
+                                             "in batch order")
+                if not torch.equal(gs.touch, ws.touch):
+                    raise AssertionError(f"{what}: touch clocks differ")
+            rows = sum(k.size for k, _t, _v in c["batches"])
+            entry = seen.setdefault(form, {"rows": 0, "late": 0,
+                                           "dropped": 0, "staged": 0,
+                                           "keys": 0})
+            entry["rows"] += rows
+            entry["late"] += got["late"]
+            entry["dropped"] += got["dropped"]
+            entry["staged"] += staged
+            entry["keys"] += int(gk.numel())
+            del got, want
+    return seen
+
+
+def ingest_edges(torch, dev) -> dict:
+    """Every adversarial case of ingest_step on the card."""
+    return {case: check_ingest_edge(torch, dev, case)
+            for case in INGEST_EDGE_CASES}
 
 
 #: plane signatures of the window kernels on the two paths: (kind, pane
@@ -971,8 +1453,13 @@ def check_launch_shape(torch, dev) -> dict:
 
 
 def parent_kernels(torch, dev, flush) -> dict:
-    """The kernels an older checkout shares with this one, timed alike."""
-    return {"session": check_session(torch, dev, flush, edges=False),
+    """The kernels an older checkout shares with this one, timed alike
+    (its ingest_step's forms timed only: its stage fills in another
+    order)."""
+    return {"ingest_step": check_ingest(torch, dev, flush),
+            "ingest_step_forms": check_ingest_forms(torch, dev, flush,
+                                                    compare=False),
+            "session": check_session(torch, dev, flush, edges=False),
             "hist256": check_hist256(torch, dev, flush),
             "hash_probe": check_hash_probe(torch, dev, flush),
             "eager_step_chain": {
@@ -3440,7 +3927,9 @@ def main(argv: list[str]) -> int:
                      "count": torch.cuda.device_count()},
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "package": pkg_dir})
+    sector_build = None if argv else start_sector_build()
     nvcc_s = kernels.build_all()
+    sector_lib = None if argv else sector_library(sector_build)
     emit({"build": {"nvcc_s": nvcc_s, "dir": str(kernels.BUILD_DIR),
                     "sources": sorted(kernels.SOURCES)}})
     ptxas = {stem: ptxas_report(kernels.build_log(stem))
@@ -3451,17 +3940,21 @@ def main(argv: list[str]) -> int:
     if argv:
         emit({"parent_kernels": parent_kernels(torch, dev, flush)})
         return 0
+    rates = sector_rates(torch, dev, flush, sector_lib)
+    emit({"sector_rates": rates})
     hist = check_hist256(torch, dev, flush)
     select = check_select(torch, dev, flush)
     probe = check_hash_probe(torch, dev, flush)
     step = check_ingest(torch, dev, flush)
-    forms = check_ingest_forms(torch, dev, flush)
+    forms = check_ingest_forms(torch, dev, flush, rates)
+    edges = ingest_edges(torch, dev)
     shape = check_launch_shape(torch, dev)
     window = check_window_seal(torch, dev, flush)
     sess = check_session(torch, dev, flush)
     emit({"kernel_checks": {"hist256": hist, "select_pass": select,
                             "hash_probe": probe, "ingest_step": step,
                             "ingest_step_forms": forms,
+                            "ingest_step_edges": edges,
                             "launch_shape": shape, "window_seal": window,
                             "session": sess}})
     del flush
@@ -3566,10 +4059,17 @@ def main(argv: list[str]) -> int:
                             + ("150" if form == "dirty" else "106"),
                 "launches": launches, "max_abs_err": forms["max_abs_err"],
                 **{k: entry[k] for k in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")},
-                "ms_without_parts": entry["ms_without_parts"],
-                "share_of_bound": entry["share_of_bound"],
-                "shapes": {k: forms["shapes"][k] for k in {lead} | others}}
+                                         "bound_by", "library_ms",
+                                         "ms_without_parts", "share_of_bound",
+                                         "sector_floor_ms",
+                                         "at_measured_rate_ms",
+                                         "share_of_measured_rate")},
+                "edge_cases": sorted(k for k, v in edges.items()
+                                     if form in v),
+                "shapes": {k: forms["shapes"][k] for k in {lead} | others},
+                "ptxas": {k: v for k, v in ptxas["hash_table"].items()
+                          if ("ingest_spill_kernel" if form == "spill"
+                              else "ingest_step_kernel") in k}}
 
     def session_entry(kernel: str, line: int) -> dict:
         shape = sess["shapes"][f"q11_{kernel}_cap_2^24"]
@@ -3626,7 +4126,8 @@ def main(argv: list[str]) -> int:
          "fused_graph_launches_per_micro_batch":
              fused["graph_launches"] / fused["micro_batches"][0]},
         form_entry("dirty", main_run["ingest_step_dirty"],
-                   "dirty_cap_2^21", {"dirty_cap_2^24"}),
+                   "dirty_cap_2^21", {"dirty_cap_2^24",
+                                      "dirty_cap_2^24_present"}),
         form_entry("spill", spill["ingest_step_spill_launches"],
                    "spill_cap_2^23", set()),
         window_entry("seal",

@@ -23,8 +23,10 @@ keyed state lives in dense planes indexed by slot.
   (``spill``, a ``StepSpill``): rows of spilled key groups and failed
   inserts go to staging buffers for the host tier, and a per-group clock
   records the batch. On a CUDA tensor it is one launch of the same
-  source's fused kernel; its plain version is the chain of the probe's
-  plain version and ``scatter_fold`` per plane, staging in batch order.
+  source's fused kernel (the spill form's zeroes its look-back words
+  first); its plain version is the chain of the probe's plain version and
+  ``scatter_fold`` per plane. Both stage in batch order, as the reference
+  does.
 
 Contract (both): rows where ``valid`` is False never probe (slot -1, ok
 False); a key that exhausts ``MAX_PROBES`` reports ok False, slot -1, and
@@ -423,9 +425,10 @@ def ingest_step(table: torch.Tensor, planes: Sequence[tuple],
     block of every slot a row folds into is set to 1. ``spill``: the
     deferred-spill split (``StepSpill``); rows of spilled groups never
     probe, and they and the fresh rows whose insert fails go to the stage
-    (``dropped`` then counts the rows past the stage's capacity). The
-    kernel stages in atomic order, the plain version in batch order: the
-    staged rows are equal as a multiset."""
+    (``dropped`` then counts the rows past the stage's capacity). Both
+    the kernel and the plain version stage in batch order, as the
+    reference's ``cumsum`` does: position by position the same rows, and
+    the same rows dropped when the stage overflows."""
     _check_step(table, planes, ts, keys, first_open, late, dropped)
     _check_parts(table, planes, dirty, dirty_shift, spill)
     if table.device.type == "cpu":
@@ -458,7 +461,13 @@ def ingest_step(table: torch.Tensor, planes: Sequence[tuple],
     n_p, n_c = len(planes), len(cols)
     ints = ctypes.c_int * n_p
     at = isinstance(first_open, torch.Tensor)
-    rc = kernels.library("hash_table").ingest_step_launch(
+    lib = kernels.library("hash_table")
+    # the spill form's look-back words and tile counter (zeroed by the
+    # launch)
+    scratch = None if spill is None else torch.empty(
+        lib.ingest_step_scratch_words(n), dtype=torch.int64,
+        device=table.device)
+    rc = lib.ingest_step_launch(
         table.data_ptr(), table.numel(), ts.data_ptr(), keys.data_ptr(),
         _CODES[keys.dtype], n, int(pane), int(offset),
         0 if at else int(first_open), first_open.data_ptr() if at else None,
@@ -478,6 +487,7 @@ def ingest_step(table: torch.Tensor, planes: Sequence[tuple],
                                      for c in spill.values]))
           if spill is not None else (None, None, 0, None, 0, None, None,
                                      None)),
+        scratch.data_ptr() if scratch is not None else None,
         torch.cuda.current_stream(table.device).cuda_stream)
     kernels.check("hash_table", rc)
     note_launch("ingest_step")

@@ -55,8 +55,9 @@ SOURCES = {
                                _I64, _P, _I64, _P, _P, _I32, _PP, _PI32,
                                _PI32, _PI32, _I32, _PP, _PI32, _P, _I32,
                                _I32, _P, _P, _I64, _P, _I64, _P, _P, _PP,
-                               _P],
+                               _P, _P],
         "hash_table_load": [],
+        "ingest_step_scratch_words": [_I64],
     },
     "session_window": {
         "session_step_launch": [_P, _I64, _P, _P, _I64, _I64, _I64, _I32, _P,

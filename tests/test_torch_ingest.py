@@ -137,3 +137,73 @@ def test_step_refuses_what_the_kernel_cannot_take(bad):
         port.ingest_step(table, planes, ts, keys, PANE, OFFSET, FIRST_OPEN,
                          torch.zeros((), dtype=torch.int64),
                          torch.zeros((), dtype=torch.int64))
+
+
+#: chip_smoke.py's adversarial inputs that the reference's step takes as
+#: they are (the dirty form): every row one key, every key's home slot in
+#: one 64th of the table, every row late, a table with no free slot
+REF_EDGE_CASES = ("hot_key", "one_bucket", "all_late", "full_table")
+
+
+def _chip_smoke():
+    import importlib.util
+    import pathlib
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parent.parent
+        / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_plain_step_matches_reference_on_adversarial_input():
+    """``ingest_step_plain`` against ``_step_body`` on the adversarial
+    inputs the card's kernel is held to (tests/test_torch_ingest_kernels.py),
+    one case after another (the file stays under the size at which its
+    place among the largest test files would move): the table (the same
+    prepared table for both, the same probe rounds), the count plane and
+    every value plane, late and dropped, exactly."""
+    cs = _chip_smoke()
+    for case in REF_EDGE_CASES:
+        _plain_matches_reference(cs, case)
+
+
+def _plain_matches_reference(cs, case: str) -> None:
+    (c,) = cs.ingest_edge_configs(case)
+    cap, ring = c["cap"], c["ring"]
+    (_c, count_dt, _none), *values = c["planes"]
+    ensure_x64()
+    step = _step_body(tuple((kind, f"p{q}", col)
+                            for q, (kind, _dt, col) in enumerate(values)),
+                      ring, cs.EDGE_PANE, cs.EDGE_OFFSET, 1 << cs.EDGE_SHIFT)
+    table = (ref_make_table(cap) if c["prefill"] is None
+             else jnp.asarray(c["prefill"]))
+    arrays = {"__count__": ref_acc("count", (ring, cap), jnp.dtype(count_dt)),
+              **{f"p{q}": ref_acc(kind, (ring, cap), jnp.dtype(dt))
+                 for q, (kind, dt, _col) in enumerate(values)}}
+    dropped, late = jnp.int64(0), jnp.int64(0)
+    dirty = jnp.zeros((cap >> cs.EDGE_SHIFT) + 1, bool)
+    for keys, ts, vals in c["batches"]:
+        table, arrays, dropped, late, dirty, _st, _to, _tok = step(
+            table, arrays, dropped, late, dirty, None, None,
+            jnp.asarray(keys), jnp.asarray(ts),
+            {k: jnp.asarray(v) for k, v in vals.items()}, None, 0,
+            cs.EDGE_FIRST_OPEN, len(keys))
+    got = cs.run_ingest_edge(torch, torch.device("cpu"), c, "dirty",
+                             port.ingest_step_plain)
+    np.testing.assert_array_equal(got["table"].numpy(), np.asarray(table),
+                                  err_msg=case)
+    want = [np.asarray(arrays["__count__"])] + [
+        np.asarray(arrays[f"p{q}"]) for q in range(len(values))]
+    for q, (g, w) in enumerate(zip(got["planes"], want)):
+        assert g.numpy().dtype == w.dtype, (case, q)
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=f"{case} {q}")
+    assert (got["late"], got["dropped"]) == (int(late), int(dropped)), case
+    rows = sum(k.size for k, _t, _v in c["batches"])
+    if case == "all_late":
+        assert got["late"] == rows
+    if case == "full_table":
+        assert got["dropped"] > 0
+    if case in ("hot_key", "one_bucket"):
+        assert got["dropped"] == 0 and got["late"] > 0
