@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of flink_tpu_torch on one CUDA card: build, kernels, Q5, Q7,
-checkpoints, state beyond an HBM budget, and session windows (Q11).
+checkpoints, state beyond an HBM budget, session windows (Q11), and SQL
+GROUP BY on the card (TPC-H Q1, 10M keys).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -165,7 +166,32 @@ Run from the repository root:  python3 chip_smoke.py
     session-100K with fs checkpoints around fires, cancelled and restored
     from the last: no window repeated, none lost, the checkpoint equal to
     the whole-copy snapshot.
-19. The kernels line, the nvidia-smi line, then the last line
+19. The device GROUP BY (csrc/group_agg.cu). In the kernel phase
+    (``check_group_agg``) its four kernels (first occurrence, compaction
+    in batch order, fold, emit) against their plain versions at both
+    SQL cells' shapes (TPC-H Q1's 6th batch after its WHERE: 300,110
+    rows, 6 groups, 12 planes, capacity 2^16; the GROUP BY's 6th batch:
+    2^19 rows into 2^24 slots, 7 planes): groups, row indices, counts,
+    min, max and whole-number sums equal, other sums within 1e-12
+    relative; and on adversarial batches (``GAGG_EDGE_CASES``: one key,
+    drains within and across batches, +-inf, -0.0 and NaN, invalid rows,
+    ragged and empty batches, 32 planes, composite keys) bit for bit.
+    Each kernel timed alone beside its plain version, with its byte bound
+    and 32-byte sector floor. Then two cells through
+    ``TableEnvironment.execute_sql`` on the graph runtime, each a
+    warm-up, a timed run (launch counters zeroed before it: every kernel
+    once per batch, the probe at least once) and a profiled run:
+    ``sql_tpch_q1`` (bench.py::bench_tpch_q1's schema, generator and
+    query, BASELINE config #5, at 2^25 rows in batches of 2^19; the 6
+    final groups against a numpy oracle, the changelog's retractions
+    against the rows they retract) and ``sql_groupby_10m`` (COUNT, SUM,
+    MIN, MAX and AVG of price per auction over 10M auctions, 2^25 events,
+    the table growing by rehash from 2^16 slots; every final group
+    against the oracle through a replay of the changelog; then the
+    changelog table with one batch of UPDATE_BEFORE rows, some groups
+    draining to DELETE). Rows/s, host seconds per batch by part, the
+    kernels' device ms and launches, peak device memory.
+20. The kernels line, the nvidia-smi line, then the last line
     {"ok": true, "device": {...}}.
 
 ``python3 chip_smoke.py --parent-kernels DIR`` instead times, with the same
@@ -3897,6 +3923,864 @@ def session_checkpoint_phase(torch, dev, c: dict | None = None) -> dict:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
 
+# -- device GROUP BY: the group aggregation kernels and the SQL cells --------
+#: the stages of a group aggregation step, each a kernel of csrc/group_agg.cu
+GAGG_STAGES = ("first", "compact", "fold", "emit")
+GAGG_SYMBOLS = tuple((f"group_agg_{s}", f"group_agg_{s}_kernel")
+                     for s in GAGG_STAGES)
+GAGG_REL_TOL = 1e-12           # sums of values no float64 holds exactly
+#: bench.py::bench_tpch_q1: schema, generator and query (BASELINE config #5)
+TPCH_FIELDS = [("l_returnflag", np.int64), ("l_linestatus", np.int64),
+               ("l_quantity", np.float64), ("l_extendedprice", np.float64),
+               ("l_discount", np.float64), ("l_tax", np.float64),
+               ("l_shipdate", np.int64)]
+TPCH_Q1_SQL = (
+    "SELECT l_returnflag, l_linestatus, SUM(l_quantity) sq, "
+    "SUM(l_extendedprice) sp, "
+    "SUM(l_extendedprice * (1 - l_discount)) sd, "
+    "SUM(l_extendedprice * (1 - l_discount) * (1 + l_tax)) sc, "
+    "AVG(l_quantity) aq, AVG(l_extendedprice) ap, AVG(l_discount) ad, "
+    "COUNT(*) co FROM lineitem WHERE l_shipdate <= 19980902 "
+    "GROUP BY l_returnflag, l_linestatus")
+TPCH_SHIPDATE_MAX = 19980902
+TPCH_ROWS = 1 << 25            # BASELINE says 100M rows: cut for the limit
+#: the query's output columns: exact ones (integer sums, counts and their
+#: quotients) and ones held to GAGG_REL_TOL
+TPCH_EXACT = ("sq", "sp", "aq", "ap", "co")
+TPCH_TOL = ("sd", "sc", "ad")
+#: Nexmark Q17's per-auction aggregates at the north star's 10M keys
+GROUPBY_KEYS = 10_000_000
+GROUPBY_ROWS = 1 << 25
+GROUPBY_SQL = ("SELECT auction, COUNT(*) c, SUM(price) s, MIN(price) mn, "
+               "MAX(price) mx, AVG(price) a FROM bid GROUP BY auction")
+# over a changelog input the planner sends MIN/MAX to the host's exact
+# retraction path, so the retraction run asks the device route's others
+GROUPBY_RETRACT_SQL = ("SELECT auction, COUNT(*) c, SUM(price) s, "
+                       "AVG(price) a FROM bid_cl GROUP BY auction")
+SQL_TIMEOUT_S = 900.0
+
+
+def tpch_gen(idx) -> dict:
+    """bench.py::bench_tpch_q1's generator, on an int64 numpy index."""
+    u = idx.astype(np.uint64) * np.uint64(MULT)
+    return {"l_returnflag": (u % np.uint64(3)).astype(np.int64),
+            "l_linestatus": ((u >> np.uint64(8)) % np.uint64(2)).astype(
+                np.int64),
+            "l_quantity": ((idx % 50) + 1).astype(np.float64),
+            "l_extendedprice": ((idx % 9973) + 1).astype(np.float64),
+            "l_discount": (idx % 11).astype(np.float64) / 100.0,
+            "l_tax": (idx % 9).astype(np.float64) / 100.0,
+            "l_shipdate": 19980101 + (idx % 1400)}
+
+
+def bid_keys(idx, n_keys: int):
+    """bench.py's key mixer (idx * MULT) % n_keys in uint64, numpy."""
+    return ((idx.astype(np.uint64) * np.uint64(MULT))
+            % np.uint64(n_keys)).astype(np.int64)
+
+
+def retraction_rows(n_keys: int, n_rows: int, budget: int,
+                    seed: int = 17) -> tuple[np.ndarray, np.ndarray]:
+    """UPDATE_BEFORE rows for a seeded subset of the keys, at most
+    ``budget``: every event of some keys (their groups drain and emit
+    DELETE) and one event of others that hold two or more. Returns the
+    retracted events' (auction, price), shuffled."""
+    rng = np.random.default_rng(seed)
+    idx = np.arange(n_rows, dtype=np.int64)
+    keys = bid_keys(idx, n_keys)
+    counts = np.bincount(keys, minlength=n_keys)
+    present = np.flatnonzero(counts)
+    chosen = rng.choice(present, size=min(len(present), budget // 4),
+                        replace=False)
+    drain = chosen[: len(chosen) // 2]
+    part = chosen[len(chosen) // 2:]
+    part = part[counts[part] >= 2]
+    drain = drain[np.cumsum(counts[drain]) <= budget - len(part)]
+    ev = idx[np.isin(keys, drain)]
+    first = idx[np.isin(keys, part)]
+    _, at = np.unique(keys[first], return_index=True)
+    ev = np.concatenate([ev, first[at]])
+    rng.shuffle(ev)
+    return keys[ev], ev % 997 + 1
+
+
+def bid_gen(n_keys: int, n_rows: int, retract=None):
+    """The bid stream: auction by the key mixer, price idx % 997 + 1;
+    with ``retract`` = (auction, price), a __rowkind__ column and those
+    rows as UPDATE_BEFORE after the first ``n_rows``."""
+    def gen(idx):
+        out = {"auction": bid_keys(idx, n_keys), "price": idx % 997 + 1}
+        if retract is not None:
+            tail = idx >= n_rows
+            j = np.where(tail, idx - n_rows, 0)
+            out["auction"] = np.where(tail, retract[0][j], out["auction"])
+            out["price"] = np.where(tail, retract[1][j], out["price"])
+            out["__rowkind__"] = np.where(tail, 1, 0).astype(np.int8)
+        return out
+
+    return gen
+
+
+def sql_env(torch, dev, batch: int):
+    from flink_tpu_torch.api import StreamExecutionEnvironment
+    from flink_tpu_torch.core import Configuration
+
+    return StreamExecutionEnvironment(
+        Configuration({"pipeline.micro-batch-size": batch,
+                       "pipeline.auto-watermark-interval": 0}), device=dev)
+
+
+def run_tpch_q1(torch, dev, n_rows: int = TPCH_ROWS, batch: int = BATCH):
+    """bench.py::bench_tpch_q1 through the port: a datagen view and
+    TPC-H Q1 by ``TableEnvironment.execute_sql``. Returns (job, result)."""
+    from flink_tpu_torch.core import Schema
+    from flink_tpu_torch.sql import TableEnvironment
+
+    env = sql_env(torch, dev, batch)
+    t_env = TableEnvironment(env)
+    schema = Schema(TPCH_FIELDS)
+    t_env.create_temporary_view(
+        "lineitem", env.datagen(tpch_gen, schema, count=n_rows), schema)
+    res = t_env.execute_sql(TPCH_Q1_SQL, timeout=SQL_TIMEOUT_S)
+    return env.last_job, res
+
+
+def run_groupby(torch, dev, n_keys: int = GROUPBY_KEYS,
+                n_rows: int = GROUPBY_ROWS, batch: int = BATCH,
+                retract=None):
+    """The 10M-key GROUP BY through ``execute_sql``; with ``retract``
+    (``retraction_rows``) the changelog table and its query. Returns
+    (job, result)."""
+    from flink_tpu_torch.core import Schema
+    from flink_tpu_torch.sql import TableEnvironment
+
+    env = sql_env(torch, dev, batch)
+    t_env = TableEnvironment(env)
+    fields = [("auction", np.int64), ("price", np.int64)]
+    count = n_rows
+    if retract is not None:
+        fields.append(("__rowkind__", np.int8))
+        count += len(retract[0])
+    schema = Schema(fields)
+    name = "bid" if retract is None else "bid_cl"
+    t_env.create_temporary_view(
+        name, env.datagen(bid_gen(n_keys, n_rows, retract), schema,
+                          count=count), schema)
+    res = t_env.execute_sql(GROUPBY_SQL if retract is None
+                            else GROUPBY_RETRACT_SQL, timeout=SQL_TIMEOUT_S)
+    return env.last_job, res
+
+
+def tpch_expected(n_rows: int) -> dict:
+    """Numpy oracle of TPC-H Q1 on the generator: (returnflag, linestatus)
+    -> the query's columns; sums pairwise over each group's rows."""
+    c = tpch_gen(np.arange(n_rows, dtype=np.int64))
+    keep = c["l_shipdate"] <= TPCH_SHIPDATE_MAX
+    c = {k: v[keep] for k, v in c.items()}
+    g = c["l_returnflag"] * 2 + c["l_linestatus"]
+    disc = c["l_extendedprice"] * (1 - c["l_discount"])
+    out = {}
+    for gid in np.unique(g):
+        m = g == gid
+        co = float(m.sum())
+        sq, sp = c["l_quantity"][m].sum(), c["l_extendedprice"][m].sum()
+        out[(int(gid) // 2, int(gid) % 2)] = {
+            "sq": sq, "sp": sp, "sd": disc[m].sum(),
+            "sc": (disc[m] * (1 + c["l_tax"][m])).sum(),
+            "aq": sq / co, "ap": sp / co,
+            "ad": c["l_discount"][m].sum() / co, "co": co}
+    return out
+
+
+def fold_changelog(batches, key_of, n_keys: int,
+                   val_cols: tuple) -> tuple[np.ndarray, np.ndarray, int]:
+    """Replays a keyed changelog batch by batch on dense per-key state
+    (``key_of(batch)``: each row's key in [0, n_keys)) and holds it to its
+    own rules: -U and -D retract exactly the row last emitted for their
+    key (bit for bit), +I only for a key not alive, +U only for one
+    alive. Returns (values [n_keys, cols], alive, keys that were alive
+    once and are not at the end)."""
+    state = np.zeros((n_keys, len(val_cols)), np.float64)
+    alive = np.zeros(n_keys, bool)
+    seen = np.zeros(n_keys, bool)
+    for b in batches:
+        k = np.asarray(key_of(b)).astype(np.int64)
+        kind = np.asarray(b.column("__rowkind__"))
+        vals = np.stack([np.asarray(b.column(c), np.float64)
+                         for c in val_cols], axis=1)
+        r = (kind == 1) | (kind == 3)
+        kr = k[r]
+        if not alive[kr].all():
+            raise AssertionError("a retraction of a key that is not alive")
+        if not np.array_equal(state[kr].view(np.int64),
+                              vals[r].view(np.int64)):
+            raise AssertionError("a retraction differs from the row it "
+                                 "retracts")
+        alive[k[kind == 3]] = False
+        if alive[k[kind == 0]].any() or not alive[k[kind == 2]].all():
+            raise AssertionError("+I of a live key or +U of a dead one")
+        a = (kind == 0) | (kind == 2)
+        state[k[a]] = vals[a]
+        alive[k[a]] = True
+        seen[k[a]] = True
+    return state, alive, int((seen & ~alive).sum())
+
+
+def tpch_check(expected: dict, res) -> dict:
+    """The 6 final groups of ``collect_final`` against the oracle (exact
+    where the oracle's value is exact, else GAGG_REL_TOL relative), and
+    the changelog's retractions against the rows they retract."""
+    names = [f.name for f in res.schema.fields]
+    final = {(int(r[0]), int(r[1])): dict(zip(names[2:], r[2:]))
+             for r in res.collect_final()}
+    if set(final) != set(expected) or len(final) != 6:
+        raise AssertionError(f"TPC-H Q1 groups {sorted(final)} != "
+                             f"{sorted(expected)}")
+    worst = 0.0
+    for key, want in expected.items():
+        got = final[key]
+        for col in TPCH_EXACT:
+            if got[col] != want[col]:
+                raise AssertionError(f"TPC-H Q1 {key} {col}: {got[col]} != "
+                                     f"{want[col]}")
+        for col in TPCH_TOL:
+            rel = abs(got[col] - want[col]) / abs(want[col])
+            worst = max(worst, rel)
+            if rel > GAGG_REL_TOL:
+                raise AssertionError(f"TPC-H Q1 {key} {col}: {got[col]} vs "
+                                     f"{want[col]} (relative {rel})")
+    batches = res.batches()
+    state, alive, _ = fold_changelog(
+        batches, lambda b: b.column("l_returnflag") * 2
+        + b.column("l_linestatus"), 6, tuple(names[2:-1]))
+    for (rf, ls), want in expected.items():
+        got = dict(zip(names[2:-1], state[rf * 2 + ls]))
+        if not alive[rf * 2 + ls] or got != final[(rf, ls)]:
+            raise AssertionError(f"TPC-H Q1 {(rf, ls)}: the changelog's "
+                                 "last row is not the final one")
+    return {"groups": len(final), "max_rel_err": worst,
+            "changelog_rows": sum(b.n for b in batches)}
+
+
+def groupby_expected(n_keys: int, n_rows: int, retract=None) -> dict:
+    """Numpy oracle of the GROUP BY per auction: count, sum, min, max and
+    avg of price over the events, less the retracted ones (min and max
+    then unused)."""
+    idx = np.arange(n_rows, dtype=np.int64)
+    keys, price = bid_keys(idx, n_keys), idx % 997 + 1
+    count = np.bincount(keys, minlength=n_keys).astype(np.float64)
+    total = np.bincount(keys, weights=price, minlength=n_keys)
+    srt = np.sort(keys * 1024 + price)
+    sk = srt >> 10
+    starts = np.flatnonzero(np.r_[True, sk[1:] != sk[:-1]])
+    ends = np.r_[starts[1:], len(srt)] - 1
+    mn = np.full(n_keys, np.nan)
+    mx = np.full(n_keys, np.nan)
+    mn[sk[starts]] = srt[starts] & 1023
+    mx[sk[starts]] = srt[ends] & 1023
+    if retract is not None:
+        count -= np.bincount(retract[0], minlength=n_keys)
+        total -= np.bincount(retract[0], weights=retract[1],
+                             minlength=n_keys)
+    return {"c": count, "s": total, "mn": mn, "mx": mx,
+            "a": np.divide(total, count, out=np.zeros(n_keys),
+                           where=count > 0)}
+
+
+def groupby_check(expected: dict, res, retract=None) -> dict:
+    """Every final group against the oracle, exactly (integer sums and
+    their quotients), through the changelog replay (``fold_changelog``);
+    after retractions the drained groups must be dead."""
+    cols = ("c", "s", "a") if retract is not None else ("c", "s", "mn",
+                                                        "mx", "a")
+    n_keys = len(expected["c"])
+    batches = res.batches()
+    state, alive, drained = fold_changelog(
+        batches, lambda b: b.column("auction"), n_keys, cols)
+    want_alive = expected["c"] > 0
+    if not np.array_equal(alive, want_alive):
+        raise AssertionError(f"{int((alive != want_alive).sum())} groups "
+                             "alive or dead against the oracle")
+    for j, col in enumerate(cols):
+        got, want = state[alive, j], expected[col][alive]
+        if not np.array_equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(f"GROUP BY {col}: {bad} groups differ "
+                                 "from the oracle")
+    kinds = np.concatenate([np.asarray(b.column("__rowkind__"))
+                            for b in batches])
+    return {"groups": int(alive.sum()), "changelog_rows": int(len(kinds)),
+            "deletes": int((kinds == 3).sum()), "drained": drained}
+
+
+# -- the group aggregation kernels against their plain versions -------------
+GAGG_EDGE_CASES = ("one_key", "drain_in_batch", "drain_across", "specials",
+                   "invalid_rows", "ragged", "few_groups_many_tiles",
+                   "planes_32", "composite")
+#: the fold signature of most edge cases: rc, COUNT, SUM, MIN, MAX, AVG
+EDGE_KINDS = ("sum", "sum", "sum", "min", "max", "sum", "sum")
+EDGE_COLS = (-1, -1, 0, 0, 0, 0, -1)
+
+
+def _edge_rows(rng, n: int, slots, retract: float = 0.0, vals=None,
+               n_valid=None) -> dict:
+    slots = np.asarray(slots, np.int32)
+    sign = np.where(rng.random(n) < retract, -1.0, 1.0)
+    if vals is None:
+        vals = rng.integers(-50, 50, (1, n)).astype(np.float64)
+    return {"slots": slots, "sign": sign,
+            "vals": np.ascontiguousarray(vals, np.float64),
+            "n_valid": n if n_valid is None else n_valid}
+
+
+def gagg_edge_config(case: str) -> dict:
+    """Adversarial inputs of the group aggregation step, numpy: capacity,
+    plane kinds and value columns, and batches of slots (or ``keys``, two
+    integer columns to combine and probe), signs, values and n_valid."""
+    rng = np.random.default_rng(GAGG_EDGE_CASES.index(case) + 1)
+    c = {"cap": 1 << 10, "kinds": EDGE_KINDS, "cols": EDGE_COLS,
+         "batches": []}
+    bs = c["batches"]
+    if case == "one_key":
+        for n in (5000, 5000, 300):
+            bs.append(_edge_rows(rng, n, np.full(n, 7), retract=0.2))
+    elif case == "drain_in_batch":
+        # slot 3 holds 4 rows, then a batch retracts all 4 and inserts one
+        # more: the net count stays 1 and no reset happens in between
+        bs.append(_edge_rows(rng, 4, [3] * 4, vals=[[5, 6, 7, 8]]))
+        b = _edge_rows(rng, 5, [3] * 5, vals=[[5, 6, 7, 8, 2]])
+        b["sign"][:4] = -1.0
+        bs.append(b)
+        bs.append(_edge_rows(rng, 3, [3, 4, 3], vals=[[9, 1, 0]]))
+    elif case == "drain_across":
+        bs.append(_edge_rows(rng, 6, [1, 2, 1, 2, 1, 9],
+                             vals=[[4, -3, 8, 5, 6, 1]]))
+        b = _edge_rows(rng, 5, [1, 1, 1, 2, 9], vals=[[4, 8, 6, -3, 1]])
+        b["sign"][:] = -1.0          # 1 and 9 drain, 2 keeps one row
+        bs.append(b)
+        bs.append(_edge_rows(rng, 4, [1, 9, 9, 2], vals=[[50, 7, -7, 0]]))
+    elif case == "specials":
+        inf, nan = np.inf, np.nan
+        sp = [inf, -inf, -0.0, 0.0, nan, 3.0]
+        bs.append(_edge_rows(rng, 8, [0, 1, 1, 2, 2, 3, 4, 5], vals=[
+            [inf, -0.0, 0.0, 0.0, -0.0, nan, -inf, inf]]))
+        bs.append(_edge_rows(rng, 12, rng.integers(0, 6, 12),
+                             vals=[rng.choice(sp, 12)]))
+        b = _edge_rows(rng, 2, [0, 4], vals=[[inf, -inf]])
+        b["sign"][:] = -1.0          # 0 and 4 drain: reset to +-inf
+        bs.append(b)
+        bs.append(_edge_rows(rng, 4, [0, 4, 0, 4], vals=[
+            [inf, -inf, -0.0, 0.0]]))
+    elif case == "invalid_rows":
+        for n in (700, 700):
+            s = rng.integers(0, 5, n)
+            s[rng.random(n) < 0.3] = -1
+            bs.append(_edge_rows(rng, n, s, retract=0.3, n_valid=n - 37))
+    elif case == "ragged":
+        for n in (1, 255, 257, 1000, 0):
+            bs.append(_edge_rows(rng, n, rng.integers(0, 300, n),
+                                 retract=0.2))
+    elif case == "few_groups_many_tiles":
+        for n in (1 << 16, 1 << 16):
+            bs.append(_edge_rows(rng, n, rng.integers(0, 6, n),
+                                 retract=0.1))
+    elif case == "planes_32":
+        c["kinds"] = ("sum",) + ("sum", "min", "max", "sum") * 7 + (
+            "sum", "min", "max")
+        c["cols"] = (-1,) + tuple(-1 if k == "sum" and q % 5 == 4
+                                  else q % 4 for q, k in
+                                  enumerate(c["kinds"][1:]))
+        for n in (3000, 3000):
+            bs.append(_edge_rows(rng, n, rng.integers(0, 40, n),
+                                 retract=0.25,
+                                 vals=rng.integers(-9, 9, (4, n))))
+    elif case == "composite":
+        for n in (2000, 2000):
+            k1 = rng.integers(-3, 5, n)
+            k2 = rng.integers(0, 7, n) * (1 << 40)
+            b = _edge_rows(rng, n, np.zeros(n), retract=0.2)
+            b["keys"] = (k1, k2)
+            bs.append(b)
+    else:
+        raise ValueError(case)
+    return c
+
+
+def combined_keys(cols) -> np.ndarray:
+    """The device GROUP BY's combine of integer key columns (the port's
+    ``combine_key_columns``)."""
+    from flink_tpu_torch.sql.device_group_agg import combine_key_columns
+
+    return combine_key_columns([np.asarray(x, np.int64) for x in cols])
+
+
+def gagg_state(torch, dev, c: dict) -> dict:
+    """Fresh planes (at the state backend's identities), firstpos, dirty
+    bitmap and hash table of an edge configuration."""
+    from flink_tpu_torch.ops.group_agg import new_firstpos
+    from flink_tpu_torch.ops.hash_table import make_table
+    from flink_tpu_torch.ops.segment_ops import make_accumulator
+
+    cap = c["cap"]
+    return {"planes": [make_accumulator(k, (cap,), torch.float64, dev)
+                       for k in c["kinds"]],
+            "firstpos": new_firstpos(cap, dev),
+            "dirty": torch.zeros(cap // 8 + 1, dtype=torch.uint8,
+                                 device=dev),
+            "table": make_table(cap, dev)}
+
+
+def gagg_batch_on(torch, dev, st: dict, b: dict) -> dict:
+    """A batch's tensors on ``dev``; ``keys`` batches probe the state's
+    table for their slots."""
+    from flink_tpu_torch.ops.hash_table import lookup_or_insert
+
+    slots = torch.from_numpy(b["slots"]).to(dev)
+    if "keys" in b:
+        keys = torch.from_numpy(combined_keys(b["keys"])).to(dev)
+        _, slots, ok = lookup_or_insert(st["table"], keys)
+        if not bool(ok.all()):
+            raise AssertionError("edge table overflow")
+    return {"slots": slots.contiguous(),
+            "sign": torch.from_numpy(b["sign"]).to(dev),
+            "vals": torch.from_numpy(b["vals"]).to(dev),
+            "n_valid": b["n_valid"]}
+
+
+def gagg_step_on(fn, c: dict, st: dict, b: dict):
+    return fn(st["planes"], c["kinds"], c["cols"], b["slots"], b["sign"],
+              b["vals"], b["n_valid"], st["firstpos"], st["dirty"], 3)
+
+
+def gagg_outputs(torch, step) -> dict:
+    """A step's outputs on the host: groups, row indices, PREV and NEW."""
+    g = int(step.n_groups[0])
+    return {"groups": g, "row_idx": step.row_idx[:g].cpu().numpy(),
+            "comp": step.comp[:g].cpu().numpy()}
+
+
+def same_bits(a, b) -> bool:
+    """Equal float64 arrays, NaN where NaN (any payload), -0.0 apart from
+    +0.0."""
+    a, b = np.asarray(a), np.asarray(b)
+    na, nb = np.isnan(a), np.isnan(b)
+    return bool(np.array_equal(na, nb) and np.array_equal(
+        np.where(na, 0, a).view(np.int64), np.where(nb, 0, b).view(np.int64)))
+
+
+def check_gagg_edge(torch, dev, case: str) -> dict:
+    """An edge case, kernel against plain version on the same inputs:
+    groups, row indices, PREV and NEW rows, every plane, the dirty bitmap
+    and the firstpos scratch (NO_ROW everywhere after a step) equal bit
+    for bit; one launch of each stage per non-empty step."""
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+    from flink_tpu_torch.ops.group_agg import NO_ROW, group_agg_step, \
+        group_agg_step_plain
+
+    c = gagg_edge_config(case)
+    kst, pst = gagg_state(torch, dev, c), gagg_state(torch, dev, c)
+    groups = 0
+    for j, raw in enumerate(c["batches"]):
+        b = gagg_batch_on(torch, dev, kst, raw)   # one set of slots for both
+        reset_launches()
+        got = gagg_outputs(torch, gagg_step_on(group_agg_step, c, kst, b))
+        want = gagg_outputs(torch, gagg_step_on(group_agg_step_plain, c,
+                                                pst, b))
+        n = raw["slots"].size
+        launched = {s: KERNEL_LAUNCHES[f"group_agg_{s}"]
+                    for s in GAGG_STAGES}
+        if set(launched.values()) != {int(dev.type == "cuda" and n > 0)}:
+            raise AssertionError(f"group_agg {case} batch {j}: launches "
+                                 f"{launched}")
+        what = f"group_agg {case} batch {j}"
+        if got["groups"] != want["groups"] or not np.array_equal(
+                got["row_idx"], want["row_idx"]):
+            raise AssertionError(f"{what}: groups or their rows differ")
+        if not same_bits(got["comp"], want["comp"]):
+            raise AssertionError(f"{what}: PREV/NEW rows differ")
+        for q, (a, b) in enumerate(zip(kst["planes"], pst["planes"])):
+            if not same_bits(a.cpu().numpy(), b.cpu().numpy()):
+                raise AssertionError(f"{what}: plane {q} differs")
+        for name in ("dirty", "firstpos"):
+            if not torch.equal(kst[name], pst[name]):
+                raise AssertionError(f"{what}: {name} differs")
+        if bool((kst["firstpos"] != NO_ROW).any()):
+            raise AssertionError(f"{what}: firstpos not restored")
+        groups += got["groups"]
+    return {"batches": len(c["batches"]), "groups": groups}
+
+
+def gagg_edges(torch, dev) -> dict:
+    return {case: check_gagg_edge(torch, dev, case)
+            for case in GAGG_EDGE_CASES}
+
+
+def gagg_shape(torch, dev, label: str) -> dict:
+    """A main path's step at its real shape: TPC-H Q1's 6th batch after
+    its WHERE (12 planes, 5 value columns, capacity 2^16, the 5 batches
+    before it folded), or the 10M GROUP BY's 6th batch (7 planes, one
+    value column, capacity 2^24)."""
+    from flink_tpu_torch.ops.group_agg import group_agg_step, new_firstpos
+    from flink_tpu_torch.ops.hash_table import lookup_or_insert, make_table
+    from flink_tpu_torch.ops.segment_ops import make_accumulator
+
+    if label == "tpch_q1":
+        cap = 1 << 16
+        kinds = ("sum",) * 12
+        cols = (-1, 0, 1, 2, 3, 0, -1, 1, -1, 4, -1, -1)
+    else:
+        cap = 1 << 24
+        kinds = ("sum", "sum", "sum", "min", "max", "sum", "sum")
+        cols = (-1, -1, 0, 0, 0, 0, -1)
+
+    def batch(b: int) -> dict:
+        idx = np.arange(b * BATCH, (b + 1) * BATCH, dtype=np.int64)
+        if label == "tpch_q1":
+            g = tpch_gen(idx)
+            keep = g["l_shipdate"] <= TPCH_SHIPDATE_MAX
+            g = {k: v[keep] for k, v in g.items()}
+            price, disc = g["l_extendedprice"], g["l_discount"]
+            keys = combined_keys([g["l_returnflag"], g["l_linestatus"]])
+            vals = np.stack([g["l_quantity"], price, price * (1 - disc),
+                             price * (1 - disc) * (1 + g["l_tax"]), disc])
+        else:
+            keys = bid_keys(idx, GROUPBY_KEYS)
+            vals = (idx % 997 + 1).astype(np.float64)[None]
+        return {"keys": torch.from_numpy(keys).to(dev),
+                "vals": torch.from_numpy(np.ascontiguousarray(vals)).to(dev),
+                "sign": torch.ones(len(keys), dtype=torch.float64,
+                                   device=dev)}
+
+    table = make_table(cap, dev)
+    planes = [make_accumulator(k, (cap,), torch.float64, dev) for k in kinds]
+    firstpos = new_firstpos(cap, dev)
+    dirty = torch.zeros((cap >> DIRTY_SHIFT) + 1, dtype=torch.uint8,
+                        device=dev)
+    for b in range(STEP_PREFIX + 2):
+        raw = batch(b)
+        _, slots, ok = lookup_or_insert(table, raw["keys"])
+        if not bool(ok.all()):
+            raise AssertionError(f"{label}: table overflow")
+        step = {"slots": slots, "sign": raw["sign"], "vals": raw["vals"],
+                "n_valid": slots.numel()}
+        if b <= STEP_PREFIX:
+            group_agg_step(planes, kinds, cols, slots, raw["sign"],
+                           raw["vals"], slots.numel(), firstpos, dirty,
+                           DIRTY_SHIFT)
+    return {"label": label, "cap": cap, "kinds": kinds, "cols": cols,
+            "planes": planes, "firstpos": firstpos, "dirty": dirty,
+            "step": step}
+
+
+def gagg_bytes_and_sectors(torch, sh: dict, post_planes: list,
+                           first_rows) -> dict:
+    """Per stage, the bytes it must move (each input read once, each
+    output written once, counted on this batch's data: G groups, the
+    dead ones written) and its 32-byte sector floor; and the whole
+    step's bytes."""
+    s = sh["step"]
+    dev = s["slots"].device
+    n, P, C = s["slots"].numel(), len(sh["planes"]), s["vals"].shape[0]
+    slots = s["slots"].to(torch.int64)
+    uniq = torch.unique(slots[slots >= 0])
+    G = int(uniq.numel())
+    dead = uniq[post_planes[0][uniq] <= 0]
+    D = int(dead.numel())
+    cols = sorted({c for c in sh["cols"] if c >= 0})
+    rows = torch.arange(n, device=dev)
+    gpos = torch.arange(G, device=dev)
+    comp_prev = (gpos[:, None] * 2 * P
+                 + torch.arange(P, device=dev)[None]).flatten()
+    comp_new = comp_prev + P
+    blocks = torch.unique(uniq >> DIRTY_SHIFT)
+
+    def planes_at(idx, base: int) -> list:
+        return [sector_ids(torch, base + q, idx, 8) for q in range(P)]
+
+    stages = {
+        "first": (4 * n + 8 * G,
+                  [sector_ids(torch, 0, rows, 4),
+                   sector_ids(torch, 1, uniq, 4)],
+                  [sector_ids(torch, 1, uniq, 4)]),
+        "compact": (4 * n + 4 * G + 8 * P * G + 4 * G + 8 * P * G + 8,
+                    [sector_ids(torch, 0, rows, 4),
+                     sector_ids(torch, 1, uniq, 4)] + planes_at(uniq, 10),
+                    [sector_ids(torch, 2, gpos, 4),
+                     sector_ids(torch, 3, comp_prev, 8)]),
+        "fold": (n * (4 + 8 + 8 * len(cols)) + 16 * P * G,
+                 [sector_ids(torch, 0, rows, 4),
+                  sector_ids(torch, 4, rows, 8)]
+                 + [sector_ids(torch, 5 + c, rows, 8) for c in cols]
+                 + planes_at(uniq, 10),
+                 planes_at(uniq, 10)),
+        "emit": (8 + 8 * G + 8 * P * G + 8 * P * D + 8 * P * G + 4 * G
+                 + int(blocks.numel()),
+                 [sector_ids(torch, 2, gpos, 4),
+                  sector_ids(torch, 0, first_rows, 4)]
+                 + planes_at(uniq, 10),
+                 [sector_ids(torch, 3, comp_new, 8),
+                  sector_ids(torch, 1, uniq, 4),
+                  sector_ids(torch, 9, blocks, 1)] + planes_at(dead, 10)),
+    }
+    out = {st: {"bytes": nbytes, "bound_ms": bound_ms(nbytes),
+                "sector_floor_ms": bound_ms(32 * sector_floor(torch, rd,
+                                                              wr))}
+           for st, (nbytes, rd, wr) in stages.items()}
+    whole = (n * (4 + 8 + 8 * len(cols)) + 16 * P * G + 4 * G
+             + 16 * P * G + 8 + int(blocks.numel()))
+    return {"rows": n, "groups": G, "dead": D, "planes": P,
+            "value_cols": len(cols), "stages": out,
+            "step_bytes": whole, "step_bound_ms": bound_ms(whole)}
+
+
+def gagg_compare(got: np.ndarray, want: np.ndarray,
+                 exact: np.ndarray) -> tuple[float, float]:
+    """Kernel values against the plain version's: NaN at the same places,
+    equal where ``exact`` (counts, min, max, whole-number sums) or not
+    finite, elsewhere the (max absolute, max relative) difference."""
+    got, want = np.asarray(got), np.asarray(want)
+    nan = np.isnan(want)
+    if not np.array_equal(np.isnan(got), nan):
+        raise AssertionError("NaN where the plain version has none")
+    eq = ~nan & (exact | ~np.isfinite(want))
+    if not np.array_equal(got[eq], want[eq]):
+        raise AssertionError("an exact value differs from the plain "
+                             "version's")
+    tol = ~nan & ~eq
+    diff = np.abs(got[tol] - want[tol])
+    if not diff.size:
+        return 0.0, 0.0
+    return (float(diff.max()),
+            float((diff / np.maximum(np.abs(want[tol]), 1e-300)).max()))
+
+
+def check_group_agg(torch, dev, flush) -> dict:
+    """The four group aggregation kernels against their plain versions at
+    both main paths' shapes (``gagg_shape``) and on the adversarial cases
+    (``gagg_edges``): at the shapes, groups and row indices equal, counts,
+    min, max and whole-number sums equal, other sums within GAGG_REL_TOL
+    relative, in the PREV/NEW rows and in every plane after the step; each
+    stage timed alone (median of 15 launches, L2 flushed, from the same
+    state each time) beside its plain version, with its byte bound and
+    32-byte sector floor."""
+    from flink_tpu_torch.ops import group_agg as ga
+
+    shapes, worst, worst_abs = {}, 0.0, 0.0
+    for label in ("tpch_q1", "groupby_10m"):
+        sh = gagg_shape(torch, dev, label)
+        s = sh["step"]
+        args = (sh["kinds"], sh["cols"], s["slots"], s["sign"], s["vals"],
+                s["n_valid"])
+        pre = [p.clone() for p in sh["planes"]]
+        k_planes = [p.clone() for p in pre]
+        p_planes = [p.clone() for p in pre]
+        kfp, pfp = sh["firstpos"].clone(), sh["firstpos"].clone()
+        kd, pd = sh["dirty"].clone(), sh["dirty"].clone()
+        kst = ga.group_agg_step(k_planes, *args, kfp, kd, DIRTY_SHIFT)
+        pst = ga.group_agg_step_plain(p_planes, *args, pfp, pd, DIRTY_SHIFT)
+        got, want = gagg_outputs(torch, kst), gagg_outputs(torch, pst)
+        if got["groups"] != want["groups"] or not np.array_equal(
+                got["row_idx"], want["row_idx"]):
+            raise AssertionError(f"group_agg {label}: groups differ")
+        P = len(pre)
+        err = abs_err = 0.0
+        for q in range(P):
+            wv = np.concatenate([want["comp"][:, q], want["comp"][:, P + q],
+                                 p_planes[q].cpu().numpy()])
+            gv = np.concatenate([got["comp"][:, q], got["comp"][:, P + q],
+                                 k_planes[q].cpu().numpy()])
+            exact = np.full(wv.shape, sh["kinds"][q] != "sum") | (
+                wv == np.round(wv))
+            a_err, r_err = gagg_compare(gv, wv, exact)
+            abs_err, err = max(abs_err, a_err), max(err, r_err)
+        if err > GAGG_REL_TOL:
+            raise AssertionError(f"group_agg {label}: relative error {err}")
+        if not torch.equal(kd, pd) or not torch.equal(kfp, pfp):
+            raise AssertionError(f"group_agg {label}: dirty or firstpos "
+                                 "differ")
+        worst = max(worst, err)
+        worst_abs = max(worst_abs, abs_err)
+        record = gagg_bytes_and_sectors(torch, sh, p_planes,
+                                        pst.row_idx[:want["groups"]])
+        # the state before each stage, for timing it alone
+        after_first = sh["firstpos"].clone()
+        ga.group_agg_first(ga.make_step(pre, *args, after_first))
+        mid = [p.clone() for p in pre]
+        fstep = ga.make_step(mid, *args, after_first.clone())
+        ga.group_agg_compact(fstep)
+        ga.group_agg_fold(fstep)
+        post_fold = [p.clone() for p in mid]
+        for stage in GAGG_STAGES:
+            for form in ("kernel", "plain"):
+                planes = [p.clone() for p in (post_fold if stage == "emit"
+                                              else pre)]
+                fp = (sh["firstpos"] if stage == "first"
+                      else after_first).clone()
+                st = ga.make_step(planes, *args, fp, sh["dirty"].clone(),
+                                  DIRTY_SHIFT)
+                if stage == "emit":
+                    st.row_idx.copy_(fstep.row_idx)
+                    st.n_groups.copy_(fstep.n_groups)
+                src = {"planes": [p.clone() for p in planes],
+                       "fp": fp.clone()}
+
+                def setup(st=st, src=src):
+                    for p, p0 in zip(st.planes, src["planes"]):
+                        p.copy_(p0)
+                    st.firstpos.copy_(src["fp"])
+
+                fn = getattr(ga, f"group_agg_{stage}"
+                             + ("_plain" if form == "plain" else ""))
+                key = "ms" if form == "kernel" else "plain_ms"
+                record["stages"][stage][key] = cuda_ms(
+                    lambda fn=fn, st=st: fn(st), torch, flush, setup=setup)
+        for v in record["stages"].values():
+            v["share_of_bound"] = v["bound_ms"] / v["ms"]
+            v["share_of_sector_floor"] = v["sector_floor_ms"] / v["ms"]
+        record["step_ms"] = sum(v["ms"] for v in record["stages"].values())
+        record["step_plain_ms"] = sum(v["plain_ms"]
+                                      for v in record["stages"].values())
+        record["max_rel_err"], record["max_abs_err"] = err, abs_err
+        shapes[label] = record
+        del sh, pre, k_planes, p_planes, mid, post_fold
+        torch.cuda.empty_cache()
+    return {"shapes": shapes, "max_rel_err": worst, "max_abs_err": worst_abs,
+            "tolerance": GAGG_REL_TOL, "edges": gagg_edges(torch, dev)}
+
+
+# -- the SQL cells -------------------------------------------------------------
+def sql_operators(job) -> tuple:
+    """The run's device GROUP BY operator and its batch operators."""
+    from flink_tpu_torch.runtime.operators.simple import BatchFnOperator
+    from flink_tpu_torch.sql.device_group_agg import DeviceGroupAggOperator
+
+    ops = job.operators
+    agg = [op for op in ops if isinstance(op, DeviceGroupAggOperator)]
+    if len(agg) != 1:
+        raise AssertionError(f"{len(agg)} device GROUP BY operators in the "
+                             "plan; expected one")
+    return agg[0], [op for op in ops if isinstance(op, BatchFnOperator)]
+
+
+def sql_profile(torch, run) -> dict:
+    """A run under torch.profiler: the card's busy time by kernel against
+    the run's wall time; the profiler's count of each group aggregation
+    kernel must equal its launch counter."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+
+    symbols = GAGG_SYMBOLS + (("hash_probe", "hash_probe_kernel"),)
+    for tries in range(1, PROFILE_TRIES + 1):
+        reset_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            job, _res = run()
+        by_name: dict[str, list] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                acc = by_name.setdefault(e.name[:90], [0.0, 0])
+                acc[0] += e.self_device_time_total / 1e3
+                acc[1] += 1
+        counted = {k: sum(n for name, (_ms, n) in by_name.items()
+                          if sym in name) for k, sym in GAGG_SYMBOLS}
+        if all(n == KERNEL_LAUNCHES[k] for k, n in counted.items()):
+            break
+    else:
+        raise AssertionError(f"profiler counted {counted}, the counters "
+                             f"{dict(KERNEL_LAUNCHES)}")
+    busy = sum(ms for ms, _n in by_name.values())
+    wall = job.wall_s * 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall if wall else None,
+            "profiles_taken": tries,
+            "kernel_ms": {k: sum(ms for name, (ms, _n) in by_name.items()
+                                 if sym in name) for k, sym in symbols},
+            "top": [{"name": k, "ms": ms, "calls": n}
+                    for k, (ms, n) in top]}
+
+
+def sql_run_record(torch, label: str, run, check, n_rows: int) -> dict:
+    """One run of a SQL cell with the launch counters zeroed just before
+    and read just after: every stage of the group aggregation step and the
+    probe launched once per batch of the device GROUP BY (at least once),
+    the result held to its oracle; rows/s, host seconds per batch by part,
+    rehashes and peak device memory."""
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+
+    start = fresh_memory(torch)
+    reset_launches()
+    job, res = run()
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(KERNEL_LAUNCHES)
+    agg, batch_ops = sql_operators(job)
+    batches = agg.stats["batches"]
+    stage_launches = {f"group_agg_{s}": launches[f"group_agg_{s}"]
+                      for s in GAGG_STAGES}
+    if batches < 1 or set(stage_launches.values()) != {batches} \
+            or launches["hash_probe"] < batches:
+        raise AssertionError(f"{label}: launches {launches} for {batches} "
+                             "device GROUP BY batches")
+    checked = check(res)
+    host = {k: v / batches for k, v in agg.stats.items()
+            if k.endswith("_s")}
+    calc = {}
+    for op in batch_ops:
+        calc[op.name] = calc.get(op.name, 0.0) + op.busy_s / batches
+    return {"cell": label, "rows": n_rows, "wall_s": job.wall_s,
+            "rows_per_sec": n_rows / job.wall_s, "batches": batches,
+            "groups_emitted": agg.stats["groups"],
+            "host_s_per_batch": {**calc, **host,
+                                 "total": sum(calc.values())
+                                 + sum(host.values())},
+            "rehashes": list(agg.rehashes),
+            "capacity": agg.backend.capacity,
+            "launches": launches, "max_memory_allocated": peak,
+            "memory_at_start": start, "tasks": task_record(job),
+            "check": checked}
+
+
+def sql_tpch_q1_phase(torch, dev) -> dict:
+    """BASELINE config #5: TPC-H Q1 at TPCH_ROWS rows in batches of
+    2^19 through execute_sql; a warm-up of 4 batches, a timed run held to
+    the oracle, and a profiled one."""
+    expected = tpch_expected(TPCH_ROWS)
+    run_tpch_q1(torch, dev, 4 * BATCH)
+    rec = sql_run_record(torch, "sql_tpch_q1",
+                         lambda: run_tpch_q1(torch, dev),
+                         lambda res: tpch_check(expected, res), TPCH_ROWS)
+    rec["profile"] = sql_profile(torch, lambda: run_tpch_q1(torch, dev))
+    return {"sql_tpch_q1": rec}
+
+
+def sql_groupby_phase(torch, dev) -> dict:
+    """The 10M-key GROUP BY: the query at GROUPBY_ROWS events, timed and
+    held group by group to the oracle, then profiled; then the changelog
+    table with one batch of UPDATE_BEFORE rows (some groups drain and emit
+    DELETE), held to the oracle less the retracted events."""
+    expected = groupby_expected(GROUPBY_KEYS, GROUPBY_ROWS)
+    run_groupby(torch, dev, n_rows=4 * BATCH)
+    rec = sql_run_record(torch, "sql_groupby_10m",
+                         lambda: run_groupby(torch, dev),
+                         lambda res: groupby_check(expected, res),
+                         GROUPBY_ROWS)
+    rec["profile"] = sql_profile(torch, lambda: run_groupby(torch, dev))
+    del expected
+    retract = retraction_rows(GROUPBY_KEYS, GROUPBY_ROWS, BATCH)
+    expected = groupby_expected(GROUPBY_KEYS, GROUPBY_ROWS, retract)
+    rec["retraction_run"] = sql_run_record(
+        torch, "sql_groupby_10m retractions",
+        lambda: run_groupby(torch, dev, retract=retract),
+        lambda res: groupby_check(expected, res, retract),
+        GROUPBY_ROWS + len(retract[0]))
+    rec["retraction_run"]["retracted_rows"] = len(retract[0])
+    if rec["retraction_run"]["check"]["deletes"] == 0:
+        raise AssertionError("the retraction batch drained no group")
+    return {"sql_groupby_10m": rec}
+
+
 def main(argv: list[str]) -> int:
     if argv and (argv[0] != "--parent-kernels" or len(argv) != 2):
         print("usage: chip_smoke.py [--parent-kernels DIR]", file=sys.stderr)
@@ -3951,12 +4835,13 @@ def main(argv: list[str]) -> int:
     shape = check_launch_shape(torch, dev)
     window = check_window_seal(torch, dev, flush)
     sess = check_session(torch, dev, flush)
+    gagg = check_group_agg(torch, dev, flush)
     emit({"kernel_checks": {"hist256": hist, "select_pass": select,
                             "hash_probe": probe, "ingest_step": step,
                             "ingest_step_forms": forms,
                             "ingest_step_edges": edges,
                             "launch_shape": shape, "window_seal": window,
-                            "session": sess}})
+                            "session": sess, "group_agg": gagg}})
     del flush
     phase_s = {"build_and_kernels": time.perf_counter() - t_start}
     t_phase = time.perf_counter()
@@ -4022,6 +4907,12 @@ def main(argv: list[str]) -> int:
     phase_done("session_cells")
     emit(session_checkpoint_phase(torch, dev))
     phase_done("session_checkpoint")
+    tpch = sql_tpch_q1_phase(torch, dev)["sql_tpch_q1"]
+    emit({"sql_tpch_q1": tpch})
+    phase_done("sql_tpch_q1")
+    groupby = sql_groupby_phase(torch, dev)["sql_groupby_10m"]
+    emit({"sql_groupby_10m": groupby})
+    phase_done("sql_groupby_10m")
     emit({"phase_seconds": phase_s})
     emit({"smoke_seconds_before_kernels_line": time.perf_counter() - t_start})
     main_run = q5_1m["full"]["launches_per_run"]
@@ -4092,6 +4983,29 @@ def main(argv: list[str]) -> int:
                 "ptxas": {k: v for k, v in ptxas["session_window"].items()
                           if f"session_{kernel}_kernel" in k}}
 
+    def gagg_entry(stage: str) -> dict:
+        at = gagg["shapes"]["tpch_q1"]["stages"][stage]
+        key = f"group_agg_{stage}"
+        return {"name": key, "route": "cuda",
+                "source": "flink_tpu_torch/csrc/group_agg.cu",
+                "replaces": "flink_tpu/sql/device_group_agg.py:71",
+                "launches": tpch["launches"][key],
+                "max_abs_err": gagg["max_abs_err"],
+                "max_rel_err": gagg["max_rel_err"],
+                **{k: at[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "sector_floor_ms", "share_of_bound",
+                                      "share_of_sector_floor")},
+                "bound_by": "bytes", "library_ms": None,
+                "launches_by_path": {
+                    "sql_groupby_10m": groupby["launches"][key],
+                    "sql_groupby_10m retractions": groupby[
+                        "retraction_run"]["launches"][key]},
+                "at_groupby_10m": gagg["shapes"]["groupby_10m"]["stages"][
+                    stage],
+                "edge_cases": sorted(gagg["edges"]),
+                "ptxas": {k: v for k, v in ptxas["group_agg"].items()
+                          if f"{key}_kernel" in k}}
+
     emit({"kernels": [
         {"name": "hist256", "route": "cuda",
          "source": "flink_tpu_torch/csrc/hist256.cu",
@@ -4136,6 +5050,7 @@ def main(argv: list[str]) -> int:
                      "flink_tpu/runtime/operators/device_window.py:352"),
         session_entry("step", 76),
         session_entry("fire", 256),
+        *[gagg_entry(stage) for stage in GAGG_STAGES],
     ]})
     print(smi, flush=True)
     if torch.cuda.device_count() != 1:

@@ -15,23 +15,43 @@ from ..graph.transformations import OneInputTransformation, \
 from ..runtime.operators.device_session import DeviceSessionWindowOperator
 from ..runtime.operators.device_window import DeviceWindowAggOperator
 from ..runtime.operators.sink import CollectSink, SinkOperator
-from ..runtime.writer import KeyGroupPartitioner, RebalancePartitioner
+from ..runtime.writer import GlobalPartitioner, KeyGroupPartitioner, \
+    RebalancePartitioner
 from ..window.assigners import EventTimeSessionWindows, WindowAssigner
 
-__all__ = ["DataStream", "KeyedStream", "WindowedStream"]
+__all__ = ["DataStream", "KeyedStream", "WindowedStream",
+           "make_key_extractor"]
 
 
-def _column_extractor(key: str):
-    def extract(batch: RecordBatch) -> np.ndarray:
-        return batch.column(key)
-    extract.column = key
-    return extract
+def make_key_extractor(key):
+    """RecordBatch -> per-row keys. ``key`` is a column name; a callable
+    marked ``vectorized = True``, which takes the batch and returns the
+    key array (the exchange then hashes exactly that array); or a
+    callable of one row (a tuple), whose results form an object array."""
+    if isinstance(key, str):
+        def extract(batch: RecordBatch) -> np.ndarray:
+            return batch.column(key)
+        extract.column = key
+        return extract
+    if not callable(key):
+        raise ValueError(f"key_by takes a column name or a callable, "
+                         f"not {key!r}")
+    if getattr(key, "vectorized", False):
+        return key
+
+    def extract_rows(batch: RecordBatch) -> np.ndarray:
+        out = np.empty(batch.n, dtype=object)
+        out[:] = [key(r) for r in batch.iter_rows()]
+        return out
+    return extract_rows
 
 
 class DataStream:
     def __init__(self, env, transformation: Transformation):
         self.env = env
         self.transformation = transformation
+        #: the output schema of a stream the SQL planner built
+        self._sql_schema = None
 
     def _one_input(self, name: str, factory, parallelism=None,
                    key_extractor=None, traceable=False) -> "DataStream":
@@ -51,11 +71,10 @@ class DataStream:
         return self._one_input(name, operator_factory, parallelism,
                                traceable=traceable)
 
-    def key_by(self, key: str) -> "KeyedStream":
-        """Key by an integer column: a hash exchange by key group."""
-        if not isinstance(key, str):
-            raise ValueError("the port keys by a column name")
-        extractor = _column_extractor(key)
+    def key_by(self, key) -> "KeyedStream":
+        """A hash exchange by key group; ``key`` as ``make_key_extractor``
+        takes it. The device window operators need a column name."""
+        extractor = make_key_extractor(key)
         maxp = self.env.max_parallelism
         t = PartitionTransformation(
             name="keyed-exchange",
@@ -64,12 +83,19 @@ class DataStream:
         self.env._transformations.append(t)
         return KeyedStream(self.env, t, extractor, key)
 
-    def rebalance(self) -> "DataStream":
+    def _repartition(self, name: str, factory) -> "DataStream":
         t = PartitionTransformation(
-            name="rebalance", partitioner_factory=RebalancePartitioner,
-            partitioner_name="rebalance", inputs=[self.transformation])
+            name=name, partitioner_factory=factory, partitioner_name=name,
+            inputs=[self.transformation])
         self.env._transformations.append(t)
         return DataStream(self.env, t)
+
+    def rebalance(self) -> "DataStream":
+        return self._repartition("rebalance", RebalancePartitioner)
+
+    def global_(self) -> "DataStream":
+        """Every record to subtask 0 of the next operator."""
+        return self._repartition("global", GlobalPartitioner)
 
     def add_sink(self, sink, name: str = "Sink",
                  parallelism: Optional[int] = None) -> "DataStream":
@@ -109,7 +135,7 @@ class DataStream:
 
 class KeyedStream(DataStream):
     def __init__(self, env, transformation: Transformation, key_extractor,
-                 key_spec: str):
+                 key_spec):
         super().__init__(env, transformation)
         self.key_extractor = key_extractor
         self.key_spec = key_spec
@@ -144,6 +170,8 @@ class WindowedStream:
         it takes none of top k, deferred overflow, async fires or a
         budget."""
         assigner, key_col = self.assigner, self.keyed.key_spec
+        if not isinstance(key_col, str):
+            raise ValueError("device aggregation needs a column key")
         device = self.keyed.env.device
         if type(assigner) is EventTimeSessionWindows:
             if emit_topk is not None:

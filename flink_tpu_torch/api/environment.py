@@ -31,6 +31,10 @@ __all__ = ["StreamExecutionEnvironment"]
 
 
 class StreamExecutionEnvironment:
+    #: the keyed-state backend every job of the port runs: the device
+    #: backend, under the reference's name
+    state_backend = "tpu"
+
     def __init__(self, config: Optional[Configuration] = None, device=None):
         self.config = config or Configuration()
         self.device = resolve_device(device)

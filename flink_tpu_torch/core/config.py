@@ -10,7 +10,7 @@ from __future__ import annotations
 import re
 from typing import Any, Optional
 
-__all__ = ["Configuration", "DEFAULTS"]
+__all__ = ["Configuration", "DEFAULTS", "SqlOptions"]
 
 #: key -> default (reference: PipelineOptions / CheckpointingOptions /
 #: TaskOptions / WindowOptions)
@@ -51,7 +51,17 @@ DEFAULTS: dict[str, Any] = {
     # from the operator's per-slot footprint; the slots key wins when both
     # are set (0: unlimited)
     "state.backend.tpu.hbm-budget-bytes": 0,
+    # split a plain GROUP BY into a local combine before the keyed
+    # exchange and a global merge after it (the host route; the device
+    # fold pre-aggregates a whole batch and skips the split)
+    "sql.optimizer.agg-phase-strategy.two-phase": True,
 }
+
+
+class SqlOptions:
+    """The SQL planner's keys (reference ``core/config.py::SqlOptions``)."""
+
+    TWO_PHASE_AGG = "sql.optimizer.agg-phase-strategy.two-phase"
 
 #: value type of each key whose default does not name it
 _TYPES: dict[str, type] = {"execution.checkpointing.dir": str}

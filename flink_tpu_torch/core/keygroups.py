@@ -6,6 +6,10 @@ carry each key's group, so ``murmur_mix``, ``hash_batch`` and
 ``key_group = murmur(hash(key)) % max_parallelism``, and subtask ``i`` of
 ``p`` owns ``[ceil(i*maxp/p), floor(((i+1)*maxp - 1)/p)]``.
 
+``stable_hash`` and ``assign_to_key_group`` are the reference's scalar
+path, for the host operators whose keys are strings or tuples (the SQL
+layer's host GROUP BY): their snapshots carry the same groups.
+
 ``key_groups_device`` is the same map on torch int64 tensors (the port of
 ``flink_tpu/parallel/mesh.py::key_groups_device``): the canonical
 snapshot order is computed with it on the card, and it is the plain
@@ -14,12 +18,16 @@ version of the group hash inside the ingest kernel's spill split.
 
 from __future__ import annotations
 
+import functools
+import zlib
 from dataclasses import dataclass
+from typing import Any
+
 import numpy as np
 import torch
 
-__all__ = ["KeyGroupRange", "murmur_mix",
-           "hash_batch", "key_groups_for_hash_batch",
+__all__ = ["KeyGroupRange", "murmur_mix", "stable_hash",
+           "assign_to_key_group", "hash_batch", "key_groups_for_hash_batch",
            "key_group_range_for_operator", "key_groups_device"]
 
 _C1 = np.uint32(0xCC9E2D51)
@@ -75,9 +83,51 @@ class KeyGroupRange:
         return self.start <= key_group <= self.end
 
 
-def hash_batch(keys: np.ndarray) -> np.ndarray:
-    """uint32 hash of int64 keys: the Long.hashCode fold v ^ (v >>> 32)."""
-    u = np.asarray(keys).astype(np.int64).view(np.uint64)
+def stable_hash(key: Any) -> int:
+    """A process-stable 32-bit hash of a Python key: ints fold like
+    Long.hashCode, strings and bytes by crc32, floats by the crc32 of
+    their float64 bytes, tuples by combining their items' hashes."""
+    if isinstance(key, (bool, np.bool_)):
+        return 1231 if key else 1237
+    if isinstance(key, (int, np.integer)):
+        u = int(key) & 0xFFFFFFFFFFFFFFFF
+        return (u ^ (u >> 32)) & 0xFFFFFFFF
+    if isinstance(key, str):
+        return zlib.crc32(key.encode("utf-8"))
+    if isinstance(key, bytes):
+        return zlib.crc32(key)
+    if isinstance(key, (float, np.floating)):
+        return zlib.crc32(np.float64(key).tobytes())
+    if isinstance(key, tuple):
+        h = 1
+        for item in key:
+            h = (31 * h + stable_hash(item)) & 0xFFFFFFFF
+        return h
+    return zlib.crc32(repr(key).encode("utf-8"))
+
+
+@functools.lru_cache(maxsize=1 << 16)
+def _assign_cached(typed_key, max_parallelism: int) -> int:
+    return int(murmur_mix(stable_hash(typed_key[1]))) % max_parallelism
+
+
+def assign_to_key_group(key: Any, max_parallelism: int) -> int:
+    """The key group of one key. The cache keys on the type too: True, 1
+    and 1.0 are equal in Python but hash apart here."""
+    try:
+        return _assign_cached((type(key), key), max_parallelism)
+    except TypeError:                        # unhashable key
+        return int(murmur_mix(stable_hash(key))) % max_parallelism
+
+
+def hash_batch(keys) -> np.ndarray:
+    """uint32 hashes of a batch of keys: the Long.hashCode fold v ^ (v >>>
+    32) of integer arrays, ``stable_hash`` of anything else."""
+    keys = np.asarray(keys)
+    if not np.issubdtype(keys.dtype, np.integer):
+        return np.fromiter((stable_hash(k) for k in keys), dtype=np.uint32,
+                           count=len(keys))
+    u = keys.astype(np.int64).view(np.uint64)
     return ((u ^ (u >> np.uint64(32))) & np.uint64(0xFFFFFFFF)).astype(
         np.uint32)
 

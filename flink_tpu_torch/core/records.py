@@ -14,10 +14,16 @@ from typing import Any, Iterator, Mapping, Optional, Sequence
 import numpy as np
 
 __all__ = ["Schema", "FieldType", "RecordBatch", "MIN_TIMESTAMP",
-           "MAX_TIMESTAMP"]
+           "MAX_TIMESTAMP", "scalar"]
 
 MIN_TIMESTAMP = -(1 << 62)
 MAX_TIMESTAMP = (1 << 62) - 1
+
+
+def scalar(v):
+    """numpy scalar -> Python scalar (identity otherwise): the row-value
+    unwrapper of the host operators."""
+    return v.item() if isinstance(v, np.generic) else v
 
 # Canonical dtype aliases accepted in schemas.
 _DTYPES = {
@@ -45,6 +51,13 @@ class Schema:
 
     def field(self, name: str) -> FieldType:
         return self.fields[self._index[name]]
+
+    def index_of(self, name: str) -> int:
+        return self._index[name]
+
+    @property
+    def names(self) -> tuple[str, ...]:
+        return tuple(f.name for f in self.fields)
 
     def __contains__(self, name: str) -> bool:
         return name in self._index
@@ -119,7 +132,7 @@ class RecordBatch:
 
     def row(self, i: int) -> Any:
         """Row i as a scalar (1-column schema) or tuple of Python values."""
-        vals = tuple(self.columns[f.name][i].item()
+        vals = tuple(scalar(self.columns[f.name][i])
                      for f in self.schema.fields)
         return vals[0] if len(vals) == 1 else vals
 

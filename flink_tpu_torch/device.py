@@ -10,9 +10,10 @@
   form's own counter, ``ingest_step_dirty`` (dirty marking) or
   ``ingest_step_spill`` (the spill split, which marks dirty blocks too).
   A session window launches ``session_step`` once per batch and
-  ``session_fire`` once per fire round. A caller resets the
-  counters, drives a path and reads them back to show which kernels the
-  path went through.
+  ``session_fire`` once per fire round. A device GROUP BY batch launches
+  ``group_agg_first``, ``_compact``, ``_fold`` and ``_emit`` once each.
+  A caller resets the counters, drives a path and reads them back to show
+  which kernels the path went through.
 """
 
 from __future__ import annotations
@@ -30,7 +31,9 @@ KERNEL_LAUNCHES: dict[str, int] = {"hist256": 0, "hash_probe": 0,
                                    "ingest_step": 0, "ingest_step_dirty": 0,
                                    "ingest_step_spill": 0, "window_seal": 0,
                                    "window_rebuild": 0, "session_step": 0,
-                                   "session_fire": 0}
+                                   "session_fire": 0, "group_agg_first": 0,
+                                   "group_agg_compact": 0,
+                                   "group_agg_fold": 0, "group_agg_emit": 0}
 # the tasks of a job launch from threads of their own
 _LAUNCH_LOCK = threading.Lock()
 

@@ -70,6 +70,11 @@ SOURCES = {
                                 _P],
         "session_fire_scratch_words": [_I64],
     },
+    "group_agg": {
+        "group_agg_launch": [_I32, _PP, _PI32, _PI32, _I32, _P, _P, _P, _I64,
+                             _I64, _P, _P, _I32, _P, _P, _P, _P, _P],
+        "group_agg_scratch_words": [_I64],
+    },
     "window_seal": {
         "window_seal_launch": [_I64, _I64, _I32, _PP, _PP, _PP, _PI32, _PI32,
                                _PI32, _I32, _I32, _I32, _I32, _I32, _I32,
@@ -82,7 +87,8 @@ SOURCES = {
 _ERROR_STRING = {"hist256": "hist256_error_string",
                  "hash_table": "hash_probe_error_string",
                  "session_window": "session_window_error_string",
-                 "window_seal": "window_seal_error_string"}
+                 "window_seal": "window_seal_error_string",
+                 "group_agg": "group_agg_error_string"}
 
 #: source stem -> C entry that loads every kernel of the library at once
 #: (its kernels launch inside CUDA graph captures)

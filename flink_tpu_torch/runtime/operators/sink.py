@@ -3,8 +3,7 @@
 
 from __future__ import annotations
 
-import threading
-
+from ...connectors.core import CollectSink
 from ...core.records import RecordBatch
 from .base import OneInputOperator
 
@@ -12,14 +11,24 @@ __all__ = ["SinkOperator", "CollectSink"]
 
 
 class SinkOperator(OneInputOperator):
-    """``sink`` is an object with ``invoke_batch(batch)`` or a callable
-    taking a batch."""
+    """``sink`` is a ``connectors.core.Sink`` (one writer per subtask), an
+    object with ``invoke_batch(batch)``, or a callable taking a batch."""
 
     def __init__(self, sink, name: str = "Sink"):
         super().__init__(name)
-        self._invoke = getattr(sink, "invoke_batch", sink)
-        if not callable(self._invoke):
-            raise TypeError("a sink is a callable or has invoke_batch(batch)")
+        self._sink = sink
+        self._writer = None
+        self._invoke = None
+        if not hasattr(sink, "create_writer"):
+            self._invoke = getattr(sink, "invoke_batch", sink)
+            if not callable(self._invoke):
+                raise TypeError("a sink is a Sink, a callable or has "
+                                "invoke_batch(batch)")
+
+    def open(self) -> None:
+        if self._invoke is None:
+            self._writer = self._sink.create_writer(self.ctx.subtask_index)
+            self._invoke = self._writer.write_batch
 
     def process_batch(self, batch: RecordBatch) -> None:
         if batch.n:
@@ -28,16 +37,10 @@ class SinkOperator(OneInputOperator):
     def process_watermark(self, watermark) -> None:
         self.current_watermark = watermark.timestamp
 
+    def finish(self) -> None:
+        if self._writer is not None:
+            self._writer.flush()
 
-class CollectSink:
-    """Collects every row (the execute_and_collect sink), from any number
-    of sink subtasks."""
-
-    def __init__(self):
-        self.rows: list = []
-        self._lock = threading.Lock()
-
-    def invoke_batch(self, batch: RecordBatch) -> None:
-        rows = list(batch.iter_rows())
-        with self._lock:
-            self.rows.extend(rows)
+    def close(self) -> None:
+        if self._writer is not None:
+            self._writer.close()

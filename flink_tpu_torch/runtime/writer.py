@@ -26,7 +26,8 @@ from ..core.records import RecordBatch
 from .channels import Channel
 
 __all__ = ["StreamPartitioner", "ForwardPartitioner", "RebalancePartitioner",
-           "KeyGroupPartitioner", "RecordWriter", "WriterCancelled"]
+           "GlobalPartitioner", "KeyGroupPartitioner", "RecordWriter",
+           "WriterCancelled"]
 
 
 class StreamPartitioner:
@@ -57,6 +58,15 @@ class RebalancePartitioner(StreamPartitioner):
     def route(self, batch, num_channels, subtask_index):
         self._next = (self._next + 1) % num_channels
         return [(self._next, batch)]
+
+
+class GlobalPartitioner(StreamPartitioner):
+    """Every batch to subtask 0 (the singleton Top-N's input)."""
+
+    name = "global"
+
+    def route(self, batch, num_channels, subtask_index):
+        return [(0, batch)]
 
 
 class KeyGroupPartitioner(StreamPartitioner):
