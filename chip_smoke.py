@@ -167,20 +167,32 @@ Run from the repository root:  python3 chip_smoke.py
     from the last: no window repeated, none lost, the checkpoint equal to
     the whole-copy snapshot.
 19. The device GROUP BY (csrc/group_agg.cu). In the kernel phase
-    (``check_group_agg``) its four kernels (first occurrence, compaction
-    in batch order, fold, emit) against their plain versions at both
-    SQL cells' shapes (TPC-H Q1's 6th batch after its WHERE: 300,110
-    rows, 6 groups, 12 planes, capacity 2^16; the GROUP BY's 6th batch:
-    2^19 rows into 2^24 slots, 7 planes): groups, row indices, counts,
-    min, max and whole-number sums equal, other sums within 1e-12
-    relative; and on adversarial batches (``GAGG_EDGE_CASES``: one key,
-    drains within and across batches, +-inf, -0.0 and NaN, invalid rows,
-    ragged and empty batches, 32 planes, composite keys) bit for bit.
-    Each kernel timed alone beside its plain version, with its byte bound
-    and 32-byte sector floor. Then two cells through
-    ``TableEnvironment.execute_sql`` on the graph runtime, each a
-    warm-up, a timed run (launch counters zeroed before it: every kernel
-    once per batch, the probe at least once) and a profiled run:
+    (``check_group_agg``) its step (first and last rows of each slot;
+    then, range by range, the compaction in batch order, which finishes
+    a group of one row in the batch itself; the fold; the emit) against
+    its plain version at both SQL cells' shapes (TPC-H Q1's 6th batch
+    after its WHERE: 300,110 rows, 6 groups, 12 planes, capacity 2^16;
+    the GROUP BY's 6th batch: 2^19 rows into 2^24 slots, 7 planes):
+    groups, row indices, counts, min, max and whole-number sums equal,
+    other sums within 1e-12 relative; and on adversarial batches
+    (``GAGG_EDGE_CASES``: one key, drains within and across batches,
+    +-inf, -0.0 and NaN, invalid rows, ragged and empty batches, 32
+    planes, composite keys; ``GAGG_RANGE_CASES``: the same under ranges
+    of 5 to 700 rows, empty ranges, a group drained in one range and
+    re-inserted in a later one; ``GAGG_CARD_CASES``: 2^19 rows on one and
+    on six slots, more slots a fold block meets than its pre-fold table
+    holds, all-distinct rows at 2^24 slots) bit for bit. The whole step
+    timed as one call (the L2 flushed before it only), each stage's
+    device time inside such steps (profiled) and alone (the L2 flushed
+    before it) beside its plain version, with its byte bound, 32-byte
+    sector floor and floor at the card's measured random rates, and the
+    library calls that compute a stage's function (``scatter_reduce_``
+    for the first rows, ``index_add_`` for one sum plane's fold). Then
+    two cells through ``TableEnvironment.execute_sql`` on the graph
+    runtime, each a
+    warm-up, a timed run (launch counters zeroed before it: the first
+    stage once per batch, the compaction, fold and emit once per range of
+    a batch's rows, the probe at least once) and a profiled run:
     ``sql_tpch_q1`` (bench.py::bench_tpch_q1's schema, generator and
     query, BASELINE config #5, at 2^25 rows in batches of 2^19; the 6
     final groups against a numpy oracle, the changelog's retractions
@@ -198,7 +210,8 @@ Run from the repository root:  python3 chip_smoke.py
 method, the kernels that an older checkout at DIR also has (ingest_step
 with no parts and in its dirty and spill forms, timed only, as the older
 spill form stages in another order; the session kernels with their
-checks, hist256, hash_probe, and the probe-plus-eager-folds step chain)
+checks, hist256, hash_probe, the group aggregation step and its stages
+at both shapes, timed only, and the probe-plus-eager-folds step chain)
 and prints one JSON line: the way to set a new kernel beside its
 predecessor in one call.
 
@@ -1486,6 +1499,8 @@ def parent_kernels(torch, dev, flush) -> dict:
             "ingest_step_forms": check_ingest_forms(torch, dev, flush,
                                                     compare=False),
             "session": check_session(torch, dev, flush, edges=False),
+            "group_agg": check_group_agg(torch, dev, flush, compare=False,
+                                         edges=False),
             "hist256": check_hist256(torch, dev, flush),
             "hash_probe": check_hash_probe(torch, dev, flush),
             "eager_step_chain": {
@@ -4217,27 +4232,49 @@ def groupby_check(expected: dict, res, retract=None) -> dict:
 GAGG_EDGE_CASES = ("one_key", "drain_in_batch", "drain_across", "specials",
                    "invalid_rows", "ragged", "few_groups_many_tiles",
                    "planes_32", "composite")
+#: small cases of the range schedule: a batch names its ranges
+#: (``range_rows``: rows per range, or each range's row count)
+GAGG_RANGE_CASES = ("slot_in_every_range", "drain_then_reinsert",
+                    "ragged_ranges", "n_valid_short", "specials_ranges",
+                    "planes_32_ranges", "empty_ranges", "peer_set_split",
+                    "planes_32_one_row_groups")
+#: card-sized cases: 2^19 rows on one and on six slots, more distinct slots
+#: a fold block meets than its pre-fold table holds, all-distinct rows at
+#: 2^24 slots
+GAGG_CARD_CASES = ("hot_slot", "six_slots", "prefold_overflow",
+                   "distinct_2^24")
 #: the fold signature of most edge cases: rc, COUNT, SUM, MIN, MAX, AVG
 EDGE_KINDS = ("sum", "sum", "sum", "min", "max", "sum", "sum")
 EDGE_COLS = (-1, -1, 0, 0, 0, 0, -1)
+PREFOLD_TABLE = 64             # csrc/group_agg.cu's kTable
 
 
 def _edge_rows(rng, n: int, slots, retract: float = 0.0, vals=None,
-               n_valid=None) -> dict:
+               n_valid=None, range_rows=None) -> dict:
     slots = np.asarray(slots, np.int32)
     sign = np.where(rng.random(n) < retract, -1.0, 1.0)
     if vals is None:
         vals = rng.integers(-50, 50, (1, n)).astype(np.float64)
     return {"slots": slots, "sign": sign,
             "vals": np.ascontiguousarray(vals, np.float64),
-            "n_valid": n if n_valid is None else n_valid}
+            "n_valid": n if n_valid is None else n_valid,
+            "range_rows": range_rows}
+
+
+def _planes_32(c: dict) -> None:
+    c["kinds"] = ("sum",) + ("sum", "min", "max", "sum") * 7 + (
+        "sum", "min", "max")
+    c["cols"] = (-1,) + tuple(-1 if k == "sum" and q % 5 == 4 else q % 4
+                              for q, k in enumerate(c["kinds"][1:]))
 
 
 def gagg_edge_config(case: str) -> dict:
     """Adversarial inputs of the group aggregation step, numpy: capacity,
     plane kinds and value columns, and batches of slots (or ``keys``, two
-    integer columns to combine and probe), signs, values and n_valid."""
-    rng = np.random.default_rng(GAGG_EDGE_CASES.index(case) + 1)
+    integer columns to combine and probe), signs, values, n_valid and the
+    ranges (None: the step's own choice)."""
+    cases = GAGG_EDGE_CASES + GAGG_RANGE_CASES + GAGG_CARD_CASES
+    rng = np.random.default_rng(cases.index(case) + 1)
     c = {"cap": 1 << 10, "kinds": EDGE_KINDS, "cols": EDGE_COLS,
          "batches": []}
     bs = c["batches"]
@@ -4285,11 +4322,7 @@ def gagg_edge_config(case: str) -> dict:
             bs.append(_edge_rows(rng, n, rng.integers(0, 6, n),
                                  retract=0.1))
     elif case == "planes_32":
-        c["kinds"] = ("sum",) + ("sum", "min", "max", "sum") * 7 + (
-            "sum", "min", "max")
-        c["cols"] = (-1,) + tuple(-1 if k == "sum" and q % 5 == 4
-                                  else q % 4 for q, k in
-                                  enumerate(c["kinds"][1:]))
+        _planes_32(c)
         for n in (3000, 3000):
             bs.append(_edge_rows(rng, n, rng.integers(0, 40, n),
                                  retract=0.25,
@@ -4301,6 +4334,103 @@ def gagg_edge_config(case: str) -> dict:
             b = _edge_rows(rng, n, np.zeros(n), retract=0.2)
             b["keys"] = (k1, k2)
             bs.append(b)
+    elif case == "slot_in_every_range":
+        s = rng.integers(0, 200, 4000)
+        s[::7] = 5                   # slot 5 in each of the 8 ranges
+        for order in (s, s[::-1]):
+            bs.append(_edge_rows(rng, 4000, order, retract=0.25,
+                                 range_rows=500))
+    elif case == "drain_then_reinsert":
+        bs.append(_edge_rows(rng, 6, [3, 3, 3, 3, 9, 9],
+                             vals=[[5, 6, 7, 8, 4, 2]]))
+        # range 0 retracts slot 3's four rows (its count passes 0), range 2
+        # inserts it again: no reset; 9 drains over ranges 0 and 2
+        b = _edge_rows(rng, 9, [3, 3, 3, 3, 9, 4, 4, 3, 9],
+                       vals=[[5, 6, 7, 8, 4, 1, 1, 2, 2]],
+                       range_rows=[5, 2, 2])
+        b["sign"][:] = [-1, -1, -1, -1, -1, 1, 1, 1, -1]
+        bs.append(b)
+        # 9 restarts from the identities
+        bs.append(_edge_rows(rng, 4, [9, 3, 9, 4], vals=[[7, 0, -7, 3]],
+                             range_rows=[1, 1, 2]))
+    elif case == "ragged_ranges":
+        for n in (3000, 2999):
+            bs.append(_edge_rows(rng, n, rng.integers(0, 300, n),
+                                 retract=0.2, range_rows=257))
+    elif case == "n_valid_short":
+        for n in (2000, 1500):
+            s = rng.integers(0, 64, n)
+            s[rng.random(n) < 0.2] = -1
+            bs.append(_edge_rows(rng, n, s, retract=0.3, n_valid=n - 663,
+                                 range_rows=600))
+    elif case == "specials_ranges":
+        sp = [np.inf, -np.inf, -0.0, 0.0, np.nan, 3.0]
+        for n, retract in ((24, 0.0), (24, 0.3), (6, 0.5), (12, 0.0)):
+            bs.append(_edge_rows(rng, n, rng.integers(0, 6, n),
+                                 retract=retract, vals=[rng.choice(sp, n)],
+                                 range_rows=5))
+    elif case == "planes_32_ranges":
+        _planes_32(c)
+        for n in (3000, 3000):
+            bs.append(_edge_rows(rng, n, rng.integers(0, 40, n),
+                                 retract=0.25,
+                                 vals=rng.integers(-9, 9, (4, n)),
+                                 range_rows=700))
+    elif case == "empty_ranges":
+        bs.append(_edge_rows(rng, 2000, rng.integers(0, 100, 2000),
+                             retract=0.2, range_rows=[0, 700, 0, 0, 1200,
+                                                      100, 0]))
+        bs.append(_edge_rows(rng, 0, [], range_rows=[0, 0]))
+        bs.append(_edge_rows(rng, 500, rng.integers(0, 100, 500),
+                             retract=0.4, range_rows=[500, 0]))
+    elif case == "peer_set_split":
+        # runs of 7 rows on one slot, cut by range boundaries mid-run and
+        # mid-warp
+        s = np.repeat(rng.integers(0, 50, 3000 // 7 + 1), 7)[:3000]
+        for rows in (100, 37):
+            bs.append(_edge_rows(rng, 3000, s, retract=0.3,
+                                 range_rows=rows))
+    elif case == "planes_32_one_row_groups":
+        # groups of one row (the compaction finishes them) over 32 planes,
+        # in 4 chunks of loads; specials in one value column; the second
+        # batch meets half of the first's slots again, some to drain, and
+        # repeats a few slots
+        _planes_32(c)
+        c["cap"] = 1 << 14
+        sp = np.array([np.inf, -np.inf, -0.0, 0.0, np.nan, 7.0])
+        first = rng.choice(c["cap"], 3000, replace=False)
+        second = np.concatenate([first[:1500],
+                                 rng.choice(c["cap"], 1400, replace=False),
+                                 first[:100]])
+        for s, retract in ((first, 0.0), (rng.permutation(second), 0.5)):
+            vals = rng.integers(-9, 9, (4, s.size)).astype(np.float64)
+            vals[3] = rng.choice(sp, s.size)
+            bs.append(_edge_rows(rng, s.size, s, retract=retract, vals=vals,
+                                 range_rows=700))
+    elif case in ("hot_slot", "six_slots"):
+        for rows in (None, 1 << 16):
+            s = (np.full(BATCH, 7) if case == "hot_slot"
+                 else rng.integers(0, 6, BATCH) * 131)
+            bs.append(_edge_rows(rng, BATCH, s, retract=0.2,
+                                 range_rows=rows))
+    elif case == "prefold_overflow":
+        # every tile of 256 rows holds 64 slots, 4 rows each inside a warp,
+        # and no tile shares a slot: a tile pre-folds (64 peer sets), and a
+        # fold block that walks more than one tile outgrows its table
+        c["cap"] = 1 << 17
+        i = np.arange(BATCH)
+        s = (i // 256) * PREFOLD_TABLE + (i % 256) // 4
+        for rows in (None, 1 << 16):
+            bs.append(_edge_rows(rng, BATCH, s, retract=0.2,
+                                 range_rows=rows))
+    elif case == "distinct_2^24":
+        c["cap"] = 1 << 24
+        i = np.arange(BATCH, dtype=np.int64)
+        # an odd multiplier is a bijection of the slots: every row its own
+        # slot; the second batch meets half of the first's slots again
+        for shift, retract in ((0, 0.0), (BATCH // 2, 0.5)):
+            s = ((i + shift) * 0x9E3779B1 + 12345) & (c["cap"] - 1)
+            bs.append(_edge_rows(rng, BATCH, s, retract=retract))
     else:
         raise ValueError(case)
     return c
@@ -4315,16 +4445,19 @@ def combined_keys(cols) -> np.ndarray:
 
 
 def gagg_state(torch, dev, c: dict) -> dict:
-    """Fresh planes (at the state backend's identities), firstpos, dirty
-    bitmap and hash table of an edge configuration."""
-    from flink_tpu_torch.ops.group_agg import new_firstpos
+    """Fresh planes (at the state backend's identities), the row scratch
+    (and views of its first-row and last-row halves), dirty bitmap and
+    hash table of an edge configuration."""
+    from flink_tpu_torch.ops.group_agg import new_rowpos
     from flink_tpu_torch.ops.hash_table import make_table
     from flink_tpu_torch.ops.segment_ops import make_accumulator
 
     cap = c["cap"]
+    rowpos = new_rowpos(cap, dev)
     return {"planes": [make_accumulator(k, (cap,), torch.float64, dev)
                        for k in c["kinds"]],
-            "firstpos": new_firstpos(cap, dev),
+            "rowpos": rowpos, "firstpos": rowpos[:, 0],
+            "lastpos": rowpos[:, 1],
             "dirty": torch.zeros(cap // 8 + 1, dtype=torch.uint8,
                                  device=dev),
             "table": make_table(cap, dev)}
@@ -4344,12 +4477,13 @@ def gagg_batch_on(torch, dev, st: dict, b: dict) -> dict:
     return {"slots": slots.contiguous(),
             "sign": torch.from_numpy(b["sign"]).to(dev),
             "vals": torch.from_numpy(b["vals"]).to(dev),
-            "n_valid": b["n_valid"]}
+            "n_valid": b["n_valid"], "range_rows": b.get("range_rows")}
 
 
 def gagg_step_on(fn, c: dict, st: dict, b: dict):
     return fn(st["planes"], c["kinds"], c["cols"], b["slots"], b["sign"],
-              b["vals"], b["n_valid"], st["firstpos"], st["dirty"], 3)
+              b["vals"], b["n_valid"], st["rowpos"], st["dirty"], 3,
+              range_rows=b.get("range_rows"))
 
 
 def gagg_outputs(torch, step) -> dict:
@@ -4368,31 +4502,40 @@ def same_bits(a, b) -> bool:
         np.where(na, 0, a).view(np.int64), np.where(nb, 0, b).view(np.int64)))
 
 
+def gagg_expected_launches(dev, step) -> dict:
+    """Launches of one step: on the card the first stage once, and each
+    other stage once per range that holds rows; none on the CPU."""
+    on = int(dev.type == "cuda" and step.slots.numel() > 0)
+    ranges = step.launched_ranges(range(step.n_ranges))
+    return {s: on * (1 if s == "first" else ranges) for s in GAGG_STAGES}
+
+
 def check_gagg_edge(torch, dev, case: str) -> dict:
-    """An edge case, kernel against plain version on the same inputs:
-    groups, row indices, PREV and NEW rows, every plane, the dirty bitmap
-    and the firstpos scratch (NO_ROW everywhere after a step) equal bit
-    for bit; one launch of each stage per non-empty step."""
+    """An edge case, kernel against plain version on the same inputs and
+    ranges: groups, row indices, PREV and NEW rows, every plane, the dirty
+    bitmap and the row scratch (NO_ROW and NO_LAST everywhere after a
+    step) equal bit for bit; one launch of the first stage and one of each other
+    stage per range that holds rows."""
     from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
-    from flink_tpu_torch.ops.group_agg import NO_ROW, group_agg_step, \
-        group_agg_step_plain
+    from flink_tpu_torch.ops.group_agg import NO_LAST, NO_ROW, \
+        group_agg_step, group_agg_step_plain
 
     c = gagg_edge_config(case)
     kst, pst = gagg_state(torch, dev, c), gagg_state(torch, dev, c)
-    groups = 0
+    groups = ranges = 0
     for j, raw in enumerate(c["batches"]):
         b = gagg_batch_on(torch, dev, kst, raw)   # one set of slots for both
         reset_launches()
-        got = gagg_outputs(torch, gagg_step_on(group_agg_step, c, kst, b))
-        want = gagg_outputs(torch, gagg_step_on(group_agg_step_plain, c,
-                                                pst, b))
-        n = raw["slots"].size
+        kstep = gagg_step_on(group_agg_step, c, kst, b)
         launched = {s: KERNEL_LAUNCHES[f"group_agg_{s}"]
                     for s in GAGG_STAGES}
-        if set(launched.values()) != {int(dev.type == "cuda" and n > 0)}:
-            raise AssertionError(f"group_agg {case} batch {j}: launches "
-                                 f"{launched}")
+        got = gagg_outputs(torch, kstep)
+        want = gagg_outputs(torch, gagg_step_on(group_agg_step_plain, c,
+                                                pst, b))
         what = f"group_agg {case} batch {j}"
+        if launched != gagg_expected_launches(dev, kstep):
+            raise AssertionError(f"{what}: launches {launched} for "
+                                 f"ranges {kstep.bounds}")
         if got["groups"] != want["groups"] or not np.array_equal(
                 got["row_idx"], want["row_idx"]):
             raise AssertionError(f"{what}: groups or their rows differ")
@@ -4401,18 +4544,39 @@ def check_gagg_edge(torch, dev, case: str) -> dict:
         for q, (a, b) in enumerate(zip(kst["planes"], pst["planes"])):
             if not same_bits(a.cpu().numpy(), b.cpu().numpy()):
                 raise AssertionError(f"{what}: plane {q} differs")
-        for name in ("dirty", "firstpos"):
+        for name in ("dirty", "rowpos"):
             if not torch.equal(kst[name], pst[name]):
                 raise AssertionError(f"{what}: {name} differs")
-        if bool((kst["firstpos"] != NO_ROW).any()):
-            raise AssertionError(f"{what}: firstpos not restored")
+        if bool((kst["firstpos"] != NO_ROW).any()) or bool(
+                (kst["lastpos"] != NO_LAST).any()):
+            raise AssertionError(f"{what}: a scratch not restored")
         groups += got["groups"]
-    return {"batches": len(c["batches"]), "groups": groups}
+        ranges += kstep.n_ranges
+    return {"batches": len(c["batches"]), "groups": groups,
+            "ranges": ranges}
 
 
 def gagg_edges(torch, dev) -> dict:
     return {case: check_gagg_edge(torch, dev, case)
-            for case in GAGG_EDGE_CASES}
+            for case in GAGG_EDGE_CASES + GAGG_RANGE_CASES
+            + GAGG_CARD_CASES}
+
+
+def gagg_scratches(ga, cap: int, dev) -> tuple:
+    """A step's persistent scratch: (rowpos,); (firstpos,) for an older
+    checkout whose step (four whole-batch launches) keeps first rows
+    only."""
+    if hasattr(ga, "new_rowpos"):
+        return (ga.new_rowpos(cap, dev),)
+    return (ga.new_firstpos(cap, dev),)
+
+
+def gagg_call(fn, sh: dict, planes, scratch, dirty, **kw):
+    """``fn`` (a step or ``make_step``) on a shape's batch, with these
+    planes, scratches and dirty bitmap."""
+    s = sh["step"]
+    return fn(planes, sh["kinds"], sh["cols"], s["slots"], s["sign"],
+              s["vals"], s["n_valid"], *scratch, dirty, DIRTY_SHIFT, **kw)
 
 
 def gagg_shape(torch, dev, label: str) -> dict:
@@ -4420,7 +4584,7 @@ def gagg_shape(torch, dev, label: str) -> dict:
     its WHERE (12 planes, 5 value columns, capacity 2^16, the 5 batches
     before it folded), or the 10M GROUP BY's 6th batch (7 planes, one
     value column, capacity 2^24)."""
-    from flink_tpu_torch.ops.group_agg import group_agg_step, new_firstpos
+    from flink_tpu_torch.ops import group_agg as ga
     from flink_tpu_torch.ops.hash_table import lookup_or_insert, make_table
     from flink_tpu_torch.ops.segment_ops import make_accumulator
 
@@ -4452,85 +4616,152 @@ def gagg_shape(torch, dev, label: str) -> dict:
                                    device=dev)}
 
     table = make_table(cap, dev)
-    planes = [make_accumulator(k, (cap,), torch.float64, dev) for k in kinds]
-    firstpos = new_firstpos(cap, dev)
-    dirty = torch.zeros((cap >> DIRTY_SHIFT) + 1, dtype=torch.uint8,
-                        device=dev)
+    sh = {"label": label, "cap": cap, "kinds": kinds, "cols": cols,
+          "planes": [make_accumulator(k, (cap,), torch.float64, dev)
+                     for k in kinds],
+          "scratch": gagg_scratches(ga, cap, dev),
+          "dirty": torch.zeros((cap >> DIRTY_SHIFT) + 1, dtype=torch.uint8,
+                               device=dev)}
     for b in range(STEP_PREFIX + 2):
         raw = batch(b)
         _, slots, ok = lookup_or_insert(table, raw["keys"])
         if not bool(ok.all()):
             raise AssertionError(f"{label}: table overflow")
-        step = {"slots": slots, "sign": raw["sign"], "vals": raw["vals"],
-                "n_valid": slots.numel()}
+        sh["step"] = {"slots": slots, "sign": raw["sign"],
+                      "vals": raw["vals"], "n_valid": slots.numel()}
         if b <= STEP_PREFIX:
-            group_agg_step(planes, kinds, cols, slots, raw["sign"],
-                           raw["vals"], slots.numel(), firstpos, dirty,
-                           DIRTY_SHIFT)
-    return {"label": label, "cap": cap, "kinds": kinds, "cols": cols,
-            "planes": planes, "firstpos": firstpos, "dirty": dirty,
-            "step": step}
+            gagg_call(ga.group_agg_step, sh, sh["planes"], sh["scratch"],
+                      sh["dirty"])
+    return sh
 
 
 def gagg_bytes_and_sectors(torch, sh: dict, post_planes: list,
-                           first_rows) -> dict:
-    """Per stage, the bytes it must move (each input read once, each
-    output written once, counted on this batch's data: G groups, the
-    dead ones written) and its 32-byte sector floor; and the whole
-    step's bytes."""
+                           rates: dict | None = None) -> dict:
+    """Per stage (over every range), the bytes it must move (each input
+    read once, each output written once, counted on this batch's data: G
+    groups, G1 of them one-row groups that the compaction finishes, the
+    dead ones written), its 32-byte sector floor and, with ``rates``
+    (``sector_rates``), its random sectors at the card's measured rates
+    (the first stage's atomics at red4's, reads at read8's, sum folds at
+    red8's, min/max folds at cas8's, stores of what the stage read at
+    store8's) plus its streamed bytes at 3.35 TB/s; and the whole step's
+    bytes, sector floor and floor at the measured rates, each group's
+    sectors fetched once (the row scratch's by the first stage's atomics,
+    the planes' by one read, written back)."""
     s = sh["step"]
     dev = s["slots"].device
-    n, P, C = s["slots"].numel(), len(sh["planes"]), s["vals"].shape[0]
+    n, P = s["slots"].numel(), len(sh["planes"])
     slots = s["slots"].to(torch.int64)
-    uniq = torch.unique(slots[slots >= 0])
-    G = int(uniq.numel())
-    dead = uniq[post_planes[0][uniq] <= 0]
-    D = int(dead.numel())
-    cols = sorted({c for c in sh["cols"] if c >= 0})
     rows = torch.arange(n, device=dev)
-    gpos = torch.arange(G, device=dev)
-    comp_prev = (gpos[:, None] * 2 * P
-                 + torch.arange(P, device=dev)[None]).flatten()
-    comp_new = comp_prev + P
+    on = slots >= 0
+    uniq, inv, counts = torch.unique(slots[on], return_inverse=True,
+                                     return_counts=True)
+    G = int(uniq.numel())
+    first_row = torch.full((G,), n, dtype=torch.int64, device=dev)
+    first_row.scatter_reduce_(0, inv, rows[on], "amin")
+    gpos = torch.empty(G, dtype=torch.int64, device=dev)
+    gpos[torch.argsort(first_row)] = torch.arange(G, device=dev)
+    one = counts == 1
+    dead = post_planes[0][uniq] <= 0
+    G1, D = int(one.sum()), int(dead.sum())
+    Dm = int((dead & ~one).sum())
+    multi_rows = rows[on][~one[inv]]
+    single_rows = rows[on][one[inv]]
+    cols = sorted({c for c in sh["cols"] if c >= 0})
+    C = len(cols)
     blocks = torch.unique(uniq >> DIRTY_SHIFT)
+    nb = int(blocks.numel())
+    nb1 = int(torch.unique(uniq[one] >> DIRTY_SHIFT).numel())
+    nbm = int(torch.unique(uniq[~one] >> DIRTY_SHIFT).numel())
+    Gm, nm = G - G1, int(multi_rows.numel())
 
-    def planes_at(idx, base: int) -> list:
-        return [sector_ids(torch, base + q, idx, 8) for q in range(P)]
+    def comp_at(pos, half: int):
+        return (pos[:, None] * 2 * P + half * P
+                + torch.arange(P, device=dev)[None]).flatten()
 
+    # sector id spaces: 0 slots, 1 rowpos, 2 row_idx, 3 comp, 4 sign,
+    # 5 single flags, 6 dirty, 7 n_groups, 8 + c value column c, 64 + q
+    # plane q
+    slot_s = sector_ids(torch, 0, rows, 4)
+    flag_s = sector_ids(torch, 5, rows, 1)
+
+    def rp(idx):
+        return sector_ids(torch, 1, idx, 8)
+
+    def row_cols(r) -> list:
+        return [sector_ids(torch, 4, r, 8)] + [
+            sector_ids(torch, 8 + c, r, 8) for c in cols]
+
+    def planes_at(idx) -> list:
+        return [sector_ids(torch, 64 + q, idx, 8) for q in range(P)]
+
+    def dirty_at(idx):
+        return sector_ids(torch, 6, torch.unique(idx >> DIRTY_SHIFT), 1)
+
+    u1, um = uniq[one], uniq[~one]
+    streamed = {
+        "first": 4 * n,
+        "compact": 4 * n + n + 4 * G + 8 * P * G + 8 * G1 * (1 + C)
+        + 8 * P * G1 + nb1 + 8,
+        "fold": 4 * n + n + 8 * nm * (1 + C),
+        "emit": 4 * n + n + 8 * P * Gm + nbm}
     stages = {
-        "first": (4 * n + 8 * G,
-                  [sector_ids(torch, 0, rows, 4),
-                   sector_ids(torch, 1, uniq, 4)],
-                  [sector_ids(torch, 1, uniq, 4)]),
-        "compact": (4 * n + 4 * G + 8 * P * G + 4 * G + 8 * P * G + 8,
-                    [sector_ids(torch, 0, rows, 4),
-                     sector_ids(torch, 1, uniq, 4)] + planes_at(uniq, 10),
+        "first": (4 * n + 16 * G, [slot_s, rp(uniq)], [rp(uniq)]),
+        "compact": (streamed["compact"] + 8 * G + 8 * P * G + 8 * P * G1
+                    + 8 * G, [slot_s, rp(uniq)] + planes_at(uniq)
+                    + row_cols(single_rows),
                     [sector_ids(torch, 2, gpos, 4),
-                     sector_ids(torch, 3, comp_prev, 8)]),
-        "fold": (n * (4 + 8 + 8 * len(cols)) + 16 * P * G,
-                 [sector_ids(torch, 0, rows, 4),
-                  sector_ids(torch, 4, rows, 8)]
-                 + [sector_ids(torch, 5 + c, rows, 8) for c in cols]
-                 + planes_at(uniq, 10),
-                 planes_at(uniq, 10)),
-        "emit": (8 + 8 * G + 8 * P * G + 8 * P * D + 8 * P * G + 4 * G
-                 + int(blocks.numel()),
-                 [sector_ids(torch, 2, gpos, 4),
-                  sector_ids(torch, 0, first_rows, 4)]
-                 + planes_at(uniq, 10),
-                 [sector_ids(torch, 3, comp_new, 8),
-                  sector_ids(torch, 1, uniq, 4),
-                  sector_ids(torch, 9, blocks, 1)] + planes_at(dead, 10)),
+                     sector_ids(torch, 3, comp_at(gpos, 0), 8),
+                     sector_ids(torch, 3, comp_at(gpos[one], 1), 8),
+                     flag_s, rp(uniq), dirty_at(u1),
+                     sector_ids(torch, 7, gpos[:1], 8)] + planes_at(u1)),
+        "fold": (streamed["fold"] + 16 * P * Gm,
+                 [slot_s, flag_s] + row_cols(multi_rows) + planes_at(um),
+                 planes_at(um)),
+        "emit": (streamed["emit"] + 8 * Gm + 8 * P * Gm + 8 * P * Dm
+                 + 8 * Gm, [slot_s, flag_s, rp(um)] + planes_at(um),
+                 [sector_ids(torch, 3, comp_at(gpos[~one], 1), 8), rp(um),
+                  dirty_at(um)] + planes_at(um[dead[~one]])),
     }
     out = {st: {"bytes": nbytes, "bound_ms": bound_ms(nbytes),
                 "sector_floor_ms": bound_ms(32 * sector_floor(torch, rd,
                                                               wr))}
            for st, (nbytes, rd, wr) in stages.items()}
-    whole = (n * (4 + 8 + 8 * len(cols)) + 16 * P * G + 4 * G
-             + 16 * P * G + 8 + int(blocks.numel()))
-    return {"rows": n, "groups": G, "dead": D, "planes": P,
-            "value_cols": len(cols), "stages": out,
-            "step_bytes": whole, "step_bound_ms": bound_ms(whole)}
+    whole = n * (4 + 8 + 8 * C) + 16 * P * G + 4 * G + 16 * P * G + 8 + nb
+    rec = {"rows": n, "groups": G, "one_row_groups": G1, "dead": D,
+           "planes": P, "value_cols": C, "stages": out, "step_bytes": whole,
+           "step_bound_ms": bound_ms(whole),
+           "step_sector_floor_ms": bound_ms(32 * sector_floor(
+               torch, [slot_s] + row_cols(rows) + [rp(uniq)]
+               + planes_at(uniq),
+               [sector_ids(torch, 2, gpos, 4),
+                sector_ids(torch, 3, torch.cat([comp_at(gpos, 0),
+                                                comp_at(gpos, 1)]), 8),
+                rp(uniq), dirty_at(uniq)] + planes_at(uniq)))}
+    if rates is None:
+        return rec
+
+    def per_ms(op: str) -> float:
+        return rates["ops"][op]["random"]["g_sectors_per_s"] * 1e6
+
+    def sec(ids) -> int:
+        return int(torch.unique(ids).numel())
+
+    r_all, r_m = sec(rp(uniq)), sec(rp(um))
+    p_all, p_1, p_m = (sec(planes_at(x)[0]) for x in (uniq, u1, um))
+    sums = sum(k == "sum" for k in sh["kinds"])
+    random = {"first": r_all / per_ms("red4"),
+              "compact": (r_all + P * p_all) / per_ms("read8")
+              + P * p_1 / per_ms("store8"),
+              "fold": sums * p_m / per_ms("red8")
+              + (P - sums) * p_m / per_ms("cas8"),
+              "emit": (r_m + P * p_m) / per_ms("read8")}
+    for st, ms in random.items():
+        out[st]["at_measured_rate_ms"] = ms + bound_ms(streamed[st])
+    rec["step_at_measured_rate_ms"] = (
+        r_all / per_ms("red4") + P * p_all / per_ms("read8")
+        + P * p_all / per_ms("store8") + bound_ms(whole - 16 * P * G))
+    return rec
 
 
 def gagg_compare(got: np.ndarray, want: np.ndarray,
@@ -4554,98 +4785,223 @@ def gagg_compare(got: np.ndarray, want: np.ndarray,
             float((diff / np.maximum(np.abs(want[tol]), 1e-300)).max()))
 
 
-def check_group_agg(torch, dev, flush) -> dict:
-    """The four group aggregation kernels against their plain versions at
-    both main paths' shapes (``gagg_shape``) and on the adversarial cases
-    (``gagg_edges``): at the shapes, groups and row indices equal, counts,
-    min, max and whole-number sums equal, other sums within GAGG_REL_TOL
-    relative, in the PREV/NEW rows and in every plane after the step; each
-    stage timed alone (median of 15 launches, L2 flushed, from the same
-    state each time) beside its plain version, with its byte bound and
-    32-byte sector floor."""
+def compare_gagg_shape(torch, sh: dict, **kw) -> tuple:
+    """The step's kernels against its plain version from the shape's
+    state (``kw``: the step's keywords, such as ``range_rows``): groups
+    and row indices equal, counts, min, max and whole-number sums equal,
+    other sums within GAGG_REL_TOL relative, in the PREV/NEW rows and in
+    every plane; the dirty bitmaps and both scratches equal. Returns (the
+    plain version's planes after the step, max relative error, max
+    absolute error, the ranges)."""
     from flink_tpu_torch.ops import group_agg as ga
 
+    label = sh["label"]
+    k_planes = [p.clone() for p in sh["planes"]]
+    p_planes = [p.clone() for p in sh["planes"]]
+    kscr = tuple(x.clone() for x in sh["scratch"])
+    pscr = tuple(x.clone() for x in sh["scratch"])
+    kd, pd = sh["dirty"].clone(), sh["dirty"].clone()
+    kst = gagg_call(ga.group_agg_step, sh, k_planes, kscr, kd, **kw)
+    pst = gagg_call(ga.group_agg_step_plain, sh, p_planes, pscr, pd, **kw)
+    got, want = gagg_outputs(torch, kst), gagg_outputs(torch, pst)
+    if got["groups"] != want["groups"] or not np.array_equal(
+            got["row_idx"], want["row_idx"]):
+        raise AssertionError(f"group_agg {label}: groups differ")
+    P = len(sh["planes"])
+    err = abs_err = 0.0
+    for q in range(P):
+        wv = np.concatenate([want["comp"][:, q], want["comp"][:, P + q],
+                             p_planes[q].cpu().numpy()])
+        gv = np.concatenate([got["comp"][:, q], got["comp"][:, P + q],
+                             k_planes[q].cpu().numpy()])
+        exact = np.full(wv.shape, sh["kinds"][q] != "sum") | (
+            wv == np.round(wv))
+        a_err, r_err = gagg_compare(gv, wv, exact)
+        abs_err, err = max(abs_err, a_err), max(err, r_err)
+    if err > GAGG_REL_TOL:
+        raise AssertionError(f"group_agg {label}: relative error {err}")
+    if not torch.equal(kd, pd) or not all(
+            torch.equal(a, b) for a, b in zip(kscr, pscr)):
+        raise AssertionError(f"group_agg {label}: dirty or a scratch "
+                             "differs")
+    return p_planes, err, abs_err, kst.n_ranges
+
+
+def gagg_stage_device_ms(torch, step, setup, flush, launches: dict,
+                         reps: int = 7) -> dict:
+    """Each stage's device ms inside whole steps (its launches summed over
+    a step, the mean of ``reps`` steps, each after ``setup`` and the L2
+    flush), from the first of up to PROFILE_TRIES profiles that recorded
+    every launch of the counters' ``launches`` a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for tries in range(1, PROFILE_TRIES + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                setup()
+                flush()
+                step()
+            torch.cuda.synchronize()
+        got = {s: [0.0, 0] for s in GAGG_STAGES}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            for s in GAGG_STAGES:
+                if f"group_agg_{s}_kernel" in e.name:
+                    got[s][0] += e.self_device_time_total / 1e3
+                    got[s][1] += 1
+        if all(got[s][1] == reps * launches[s] for s in GAGG_STAGES):
+            break
+    else:
+        raise AssertionError(f"profiler counted {got} in {reps} steps, the "
+                             f"counters {launches} a step")
+    return {s: {"ms": ms / reps, "launches": n // reps}
+            for s, (ms, n) in got.items()} | {"profiles_taken": tries}
+
+
+def time_gagg(torch, dev, flush, sh: dict, plain: bool = True) -> dict:
+    """The step at a shape, from the shape's state each time: the whole
+    step as one ``group_agg_step`` call (the L2 flushed before it only);
+    each stage's device ms inside such steps (profiled); each stage alone
+    over every range (from the state the stages before it leave, the L2
+    flushed before it) beside its plain version. Works on an older
+    checkout's step too (four whole-batch launches)."""
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+    from flink_tpu_torch.ops import group_agg as ga
+
+    pre = {"planes": sh["planes"], "scratch": sh["scratch"],
+           "dirty": sh["dirty"]}
+    planes = [p.clone() for p in pre["planes"]]
+    scratch = tuple(x.clone() for x in pre["scratch"])
+    dirty = pre["dirty"].clone()
+
+    def restore():
+        for p, p0 in zip(planes, pre["planes"]):
+            p.copy_(p0)
+        for x, x0 in zip(scratch, pre["scratch"]):
+            x.copy_(x0)
+        dirty.copy_(pre["dirty"])
+
+    def step():
+        gagg_call(ga.group_agg_step, sh, planes, scratch, dirty)
+
+    restore()
+    reset_launches()
+    step()
+    launches = {s: KERNEL_LAUNCHES[f"group_agg_{s}"] for s in GAGG_STAGES}
+    out = {"step_ms": cuda_ms(step, torch, flush, setup=restore),
+           "launches_per_step": launches,
+           "in_step": gagg_stage_device_ms(torch, step, restore, flush,
+                                           launches)}
+    if plain:
+        out["step_plain_ms"] = cuda_ms(
+            lambda: gagg_call(ga.group_agg_step_plain, sh, planes, scratch,
+                              dirty), torch, flush, setup=restore)
+    alone = {}
+    for j, stage in enumerate(GAGG_STAGES):
+        restore()
+        st = gagg_call(ga.make_step, sh, planes, scratch, dirty)
+        for before in GAGG_STAGES[:j]:
+            getattr(ga, f"group_agg_{before}")(st)
+        mut = [*st.planes, *scratch, st.dirty, st.n_groups] + (
+            [st.status] if st.status is not None else [])
+        snap = [x.clone() for x in mut]
+
+        def setup(mut=mut, snap=snap):
+            for x, x0 in zip(mut, snap):
+                x.copy_(x0)
+
+        rec = {"ms": cuda_ms(lambda st=st, s=stage: getattr(
+            ga, f"group_agg_{s}")(st), torch, flush, setup=setup)}
+        if plain:
+            rec["plain_ms"] = cuda_ms(lambda st=st, s=stage: getattr(
+                ga, f"group_agg_{s}_plain")(st), torch, flush, setup=setup)
+        alone[stage] = rec
+        del st, mut, snap
+    out["alone"] = alone
+    del planes, scratch, dirty
+    torch.cuda.empty_cache()
+    return out
+
+
+def gagg_library_ms(torch, flush, sh: dict) -> dict:
+    """One PyTorch call for a stage's function at the shape: the first
+    stage's first rows by ``scatter_reduce_(..., "amin")`` into firstpos;
+    one sum plane's fold (the first value column times the sign) by
+    ``index_add_``. The compaction and the emit have none."""
+    from flink_tpu_torch.ops.group_agg import NO_ROW
+
+    s = sh["step"]
+    idx = s["slots"].to(torch.int64)
+    rows = torch.arange(idx.numel(), dtype=torch.int32, device=idx.device)
+    fp0 = torch.full((sh["cap"],), NO_ROW, dtype=torch.int32,
+                     device=idx.device)
+    fp = fp0.clone()
+    q = next(q for q, c in enumerate(sh["cols"]) if c >= 0)
+    plane0 = sh["planes"][q]
+    plane = plane0.clone()
+    v = s["vals"][sh["cols"][q]] * s["sign"]
+    return {"first": cuda_ms(lambda: fp.scatter_reduce_(0, idx, rows, "amin"),
+                             torch, flush, setup=lambda: fp.copy_(fp0)),
+            "compact": None,
+            "fold": cuda_ms(lambda: plane.index_add_(0, idx, v), torch,
+                            flush, setup=lambda: plane.copy_(plane0)),
+            "emit": None}
+
+
+def check_group_agg(torch, dev, flush, rates: dict | None = None,
+                    compare: bool = True, edges: bool = True) -> dict:
+    """The group aggregation step's kernels at both main paths' shapes
+    (``gagg_shape``) under the range schedule: against the plain version
+    (``compare_gagg_shape``), timed (``time_gagg``: the whole step as one
+    call, each stage inside it and alone, beside the plain versions), with
+    each stage's byte bound, sector floor and, with ``rates``, its floor at
+    the card's measured random rates (``gagg_bytes_and_sectors``), and the
+    library calls that compute a stage's function; then the adversarial
+    cases (``gagg_edges``). ``compare=False`` (an older checkout's step)
+    times only."""
     shapes, worst, worst_abs = {}, 0.0, 0.0
     for label in ("tpch_q1", "groupby_10m"):
         sh = gagg_shape(torch, dev, label)
-        s = sh["step"]
-        args = (sh["kinds"], sh["cols"], s["slots"], s["sign"], s["vals"],
-                s["n_valid"])
-        pre = [p.clone() for p in sh["planes"]]
-        k_planes = [p.clone() for p in pre]
-        p_planes = [p.clone() for p in pre]
-        kfp, pfp = sh["firstpos"].clone(), sh["firstpos"].clone()
-        kd, pd = sh["dirty"].clone(), sh["dirty"].clone()
-        kst = ga.group_agg_step(k_planes, *args, kfp, kd, DIRTY_SHIFT)
-        pst = ga.group_agg_step_plain(p_planes, *args, pfp, pd, DIRTY_SHIFT)
-        got, want = gagg_outputs(torch, kst), gagg_outputs(torch, pst)
-        if got["groups"] != want["groups"] or not np.array_equal(
-                got["row_idx"], want["row_idx"]):
-            raise AssertionError(f"group_agg {label}: groups differ")
-        P = len(pre)
-        err = abs_err = 0.0
-        for q in range(P):
-            wv = np.concatenate([want["comp"][:, q], want["comp"][:, P + q],
-                                 p_planes[q].cpu().numpy()])
-            gv = np.concatenate([got["comp"][:, q], got["comp"][:, P + q],
-                                 k_planes[q].cpu().numpy()])
-            exact = np.full(wv.shape, sh["kinds"][q] != "sum") | (
-                wv == np.round(wv))
-            a_err, r_err = gagg_compare(gv, wv, exact)
-            abs_err, err = max(abs_err, a_err), max(err, r_err)
-        if err > GAGG_REL_TOL:
-            raise AssertionError(f"group_agg {label}: relative error {err}")
-        if not torch.equal(kd, pd) or not torch.equal(kfp, pfp):
-            raise AssertionError(f"group_agg {label}: dirty or firstpos "
-                                 "differ")
-        worst = max(worst, err)
-        worst_abs = max(worst_abs, abs_err)
-        record = gagg_bytes_and_sectors(torch, sh, p_planes,
-                                        pst.row_idx[:want["groups"]])
-        # the state before each stage, for timing it alone
-        after_first = sh["firstpos"].clone()
-        ga.group_agg_first(ga.make_step(pre, *args, after_first))
-        mid = [p.clone() for p in pre]
-        fstep = ga.make_step(mid, *args, after_first.clone())
-        ga.group_agg_compact(fstep)
-        ga.group_agg_fold(fstep)
-        post_fold = [p.clone() for p in mid]
-        for stage in GAGG_STAGES:
-            for form in ("kernel", "plain"):
-                planes = [p.clone() for p in (post_fold if stage == "emit"
-                                              else pre)]
-                fp = (sh["firstpos"] if stage == "first"
-                      else after_first).clone()
-                st = ga.make_step(planes, *args, fp, sh["dirty"].clone(),
-                                  DIRTY_SHIFT)
-                if stage == "emit":
-                    st.row_idx.copy_(fstep.row_idx)
-                    st.n_groups.copy_(fstep.n_groups)
-                src = {"planes": [p.clone() for p in planes],
-                       "fp": fp.clone()}
-
-                def setup(st=st, src=src):
-                    for p, p0 in zip(st.planes, src["planes"]):
-                        p.copy_(p0)
-                    st.firstpos.copy_(src["fp"])
-
-                fn = getattr(ga, f"group_agg_{stage}"
-                             + ("_plain" if form == "plain" else ""))
-                key = "ms" if form == "kernel" else "plain_ms"
-                record["stages"][stage][key] = cuda_ms(
-                    lambda fn=fn, st=st: fn(st), torch, flush, setup=setup)
-        for v in record["stages"].values():
-            v["share_of_bound"] = v["bound_ms"] / v["ms"]
-            v["share_of_sector_floor"] = v["sector_floor_ms"] / v["ms"]
-        record["step_ms"] = sum(v["ms"] for v in record["stages"].values())
-        record["step_plain_ms"] = sum(v["plain_ms"]
-                                      for v in record["stages"].values())
-        record["max_rel_err"], record["max_abs_err"] = err, abs_err
+        record = {}
+        if compare:
+            p_planes, err, abs_err, n_ranges = compare_gagg_shape(torch, sh)
+            record = gagg_bytes_and_sectors(torch, sh, p_planes, rates)
+            record.update(max_rel_err=err, max_abs_err=abs_err,
+                          ranges=n_ranges)
+            worst, worst_abs = max(worst, err), max(worst_abs, abs_err)
+            del p_planes
+            lib = gagg_library_ms(torch, flush, sh)
+        t = time_gagg(torch, dev, flush, sh, plain=compare)
+        stages = record.setdefault("stages", {s: {} for s in GAGG_STAGES})
+        for s in GAGG_STAGES:
+            v = stages[s]
+            v["ms"] = t["in_step"][s]["ms"]
+            v["launches_per_step"] = t["launches_per_step"][s]
+            v["alone_ms"] = t["alone"][s]["ms"]
+            if compare:
+                v["plain_ms"] = t["alone"][s]["plain_ms"]
+                v["library_ms"] = lib[s]
+                v["share_of_bound"] = v["bound_ms"] / v["ms"]
+                v["share_of_sector_floor"] = v["sector_floor_ms"] / v["ms"]
+        record["step_ms"] = t["step_ms"]
+        record["profiles_taken"] = t["in_step"]["profiles_taken"]
+        if compare:
+            record["step_plain_ms"] = t["step_plain_ms"]
+            record["step_share_of_bound"] = (record["step_bound_ms"]
+                                             / t["step_ms"])
         shapes[label] = record
-        del sh, pre, k_planes, p_planes, mid, post_fold
+        del sh
         torch.cuda.empty_cache()
-    return {"shapes": shapes, "max_rel_err": worst, "max_abs_err": worst_abs,
-            "tolerance": GAGG_REL_TOL, "edges": gagg_edges(torch, dev)}
+    out = {"shapes": shapes}
+    if compare:
+        out.update(max_rel_err=worst, max_abs_err=worst_abs,
+                   tolerance=GAGG_REL_TOL)
+    if edges:
+        out["edges"] = gagg_edges(torch, dev)
+    return out
 
 
 # -- the SQL cells -------------------------------------------------------------
@@ -4704,8 +5060,10 @@ def sql_profile(torch, run) -> dict:
 
 def sql_run_record(torch, label: str, run, check, n_rows: int) -> dict:
     """One run of a SQL cell with the launch counters zeroed just before
-    and read just after: every stage of the group aggregation step and the
-    probe launched once per batch of the device GROUP BY (at least once),
+    and read just after: the group aggregation step's first stage once
+    per batch of the device GROUP BY (at least once), its compaction, fold
+    and emit once per range of a batch's rows, the probe at least once a
+    batch,
     the result held to its oracle; rows/s, host seconds per batch by part,
     rehashes and peak device memory."""
     from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
@@ -4717,12 +5075,15 @@ def sql_run_record(torch, label: str, run, check, n_rows: int) -> dict:
     launches = dict(KERNEL_LAUNCHES)
     agg, batch_ops = sql_operators(job)
     batches = agg.stats["batches"]
-    stage_launches = {f"group_agg_{s}": launches[f"group_agg_{s}"]
-                      for s in GAGG_STAGES}
-    if batches < 1 or set(stage_launches.values()) != {batches} \
+    ranges = agg.stats["ranges"]
+    # the first stage once a batch, the others once per range of rows
+    want = {f"group_agg_{s}": batches if s == "first" else ranges
+            for s in GAGG_STAGES}
+    if batches < 1 or ranges < batches or any(
+            launches[k] != v for k, v in want.items()) \
             or launches["hash_probe"] < batches:
         raise AssertionError(f"{label}: launches {launches} for {batches} "
-                             "device GROUP BY batches")
+                             f"device GROUP BY batches, {ranges} ranges")
     checked = check(res)
     host = {k: v / batches for k, v in agg.stats.items()
             if k.endswith("_s")}
@@ -4731,7 +5092,7 @@ def sql_run_record(torch, label: str, run, check, n_rows: int) -> dict:
         calc[op.name] = calc.get(op.name, 0.0) + op.busy_s / batches
     return {"cell": label, "rows": n_rows, "wall_s": job.wall_s,
             "rows_per_sec": n_rows / job.wall_s, "batches": batches,
-            "groups_emitted": agg.stats["groups"],
+            "ranges": ranges, "groups_emitted": agg.stats["groups"],
             "host_s_per_batch": {**calc, **host,
                                  "total": sum(calc.values())
                                  + sum(host.values())},
@@ -4835,7 +5196,7 @@ def main(argv: list[str]) -> int:
     shape = check_launch_shape(torch, dev)
     window = check_window_seal(torch, dev, flush)
     sess = check_session(torch, dev, flush)
-    gagg = check_group_agg(torch, dev, flush)
+    gagg = check_group_agg(torch, dev, flush, rates)
     emit({"kernel_checks": {"hist256": hist, "select_pass": select,
                             "hash_probe": probe, "ingest_step": step,
                             "ingest_step_forms": forms,
@@ -4984,6 +5345,9 @@ def main(argv: list[str]) -> int:
                           if f"session_{kernel}_kernel" in k}}
 
     def gagg_entry(stage: str) -> dict:
+        # "ms": the stage's device time inside one whole step at TPC-H
+        # Q1's shape (all its launches of the step), "alone_ms" the stage
+        # alone over every range, the L2 flushed before it
         at = gagg["shapes"]["tpch_q1"]["stages"][stage]
         key = f"group_agg_{stage}"
         return {"name": key, "route": "cuda",
@@ -4992,10 +5356,15 @@ def main(argv: list[str]) -> int:
                 "launches": tpch["launches"][key],
                 "max_abs_err": gagg["max_abs_err"],
                 "max_rel_err": gagg["max_rel_err"],
-                **{k: at[k] for k in ("ms", "plain_ms", "bound_ms",
-                                      "sector_floor_ms", "share_of_bound",
-                                      "share_of_sector_floor")},
-                "bound_by": "bytes", "library_ms": None,
+                **{k: at[k] for k in ("ms", "alone_ms", "plain_ms",
+                                      "bound_ms", "sector_floor_ms",
+                                      "at_measured_rate_ms",
+                                      "share_of_bound",
+                                      "share_of_sector_floor",
+                                      "library_ms", "launches_per_step")},
+                "bound_by": "bytes",
+                "step_ms": {k: v["step_ms"]
+                            for k, v in gagg["shapes"].items()},
                 "launches_by_path": {
                     "sql_groupby_10m": groupby["launches"][key],
                     "sql_groupby_10m retractions": groupby[

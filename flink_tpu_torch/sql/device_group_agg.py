@@ -7,9 +7,11 @@ and emit UPDATE_BEFORE/UPDATE_AFTER (INSERT first, DELETE on full
 retraction). Each micro-batch is one lookup-or-insert on the state
 backend's hash table (``hash_probe``, growing by rehash as the reference's
 synchronous mode does) and one group aggregation step
-(``ops/group_agg.py``: four kernels on the card) over dense ``[capacity]``
-float64 planes: PREV rows of the touched groups, the folds, drained groups
-reset, NEW rows, compacted in first-occurrence order.
+(``ops/group_agg.py``: on the card a first-occurrence kernel, then a
+compaction, a fold and an emit kernel for each range of the batch's rows)
+over dense ``[capacity]`` float64 planes: PREV rows of the touched groups,
+the folds, drained groups reset, NEW rows, compacted in first-occurrence
+order.
 
 Host work per batch: the key combine and the upload of keys, signs and
 value columns; one read of the group count; one copy home of the
@@ -45,7 +47,7 @@ import numpy as np
 import torch
 
 from ..core.records import RecordBatch, Schema
-from ..ops.group_agg import group_agg_step, new_firstpos
+from ..ops.group_agg import group_agg_step, new_rowpos
 from ..runtime.operators.base import OneInputOperator, OperatorContext, Output
 from ..state.device_backend import DeviceKeyedStateBackend
 from . import rowkind as rk
@@ -86,7 +88,8 @@ class DeviceGroupAggOperator(OneInputOperator):
         self.backend: Optional[DeviceKeyedStateBackend] = None
         self._out_schema: Optional[Schema] = None
         self._key_dtypes: Optional[list] = None
-        self._firstpos: Optional[torch.Tensor] = None
+        # the step's persistent scratch (first and last row of a slot)
+        self._rowpos: Optional[torch.Tensor] = None
         # plane layout mirrors the host op's slots: __rc__ + per-agg planes
         # (avg = a .sum/.cnt pair); (name, fold kind, value column)
         self._plane_sig: list[tuple[str, str, Optional[str]]] = []
@@ -109,10 +112,12 @@ class DeviceGroupAggOperator(OneInputOperator):
         #: seconds by part, summed over batches: the key combine and sign
         #: (prep), the upload, the probe (with any rehash), the step's
         #: enqueue, the wait for the group count, the copy home and the
-        #: changelog assembly; batches and groups emitted
-        self.stats = {"batches": 0, "rows": 0, "groups": 0, "prep_s": 0.0,
-                      "upload_s": 0.0, "probe_s": 0.0, "step_s": 0.0,
-                      "sync_s": 0.0, "d2h_s": 0.0, "changelog_s": 0.0}
+        #: changelog assembly; batches, the step's ranges of rows (each a
+        #: compaction, fold and emit launch on the card) and groups emitted
+        self.stats = {"batches": 0, "rows": 0, "ranges": 0, "groups": 0,
+                      "prep_s": 0.0, "upload_s": 0.0, "probe_s": 0.0,
+                      "step_s": 0.0, "sync_s": 0.0, "d2h_s": 0.0,
+                      "changelog_s": 0.0}
         #: the capacity after each rehash, in order
         self.rehashes: list[int] = []
 
@@ -160,15 +165,16 @@ class DeviceGroupAggOperator(OneInputOperator):
         while cap < self.backend.capacity:   # the table doubles per rehash
             cap *= 2
             self.rehashes.append(cap)
-        if (self._firstpos is None
-                or self._firstpos.numel() != self.backend.capacity):
+        if (self._rowpos is None
+                or self._rowpos.shape[0] != self.backend.capacity):
             # a fresh table (first batch, rehash, restore): the scratch
-            # holds NO_ROW everywhere between steps, so a new one is equal
-            self._firstpos = new_firstpos(self.backend.capacity, dev)
+            # holds its sentinels everywhere between steps, so a new one
+            # is equal
+            self._rowpos = new_rowpos(self.backend.capacity, dev)
         t3 = time.perf_counter()
         st = group_agg_step(
             [self.backend.get_array(n) for n in self._names], self._kinds,
-            self._cols, slots, dsign, dvals, batch.n, self._firstpos,
+            self._cols, slots, dsign, dvals, batch.n, self._rowpos,
             self.backend.dirty_buffer, self.backend.dirty_shift)
         t4 = time.perf_counter()
         g = int(st.n_groups[0])
@@ -184,6 +190,7 @@ class DeviceGroupAggOperator(OneInputOperator):
         s = self.stats
         s["batches"] += 1
         s["rows"] += batch.n
+        s["ranges"] += st.launched_ranges(range(st.n_ranges))
         s["groups"] += g
         for k, a, b in (("prep_s", t0, t1), ("upload_s", t1, t2),
                         ("probe_s", t2, t3), ("step_s", t3, t4),
@@ -258,3 +265,4 @@ class DeviceGroupAggOperator(OneInputOperator):
                          operator_snapshot) -> None:
         if keyed_snapshots:
             self.backend.restore([s["backend"] for s in keyed_snapshots])
+            self._rowpos = None

@@ -1,7 +1,8 @@
-"""The group aggregation kernels of csrc/group_agg.cu (the four stages of
-``ops/group_agg.py::group_agg_step``) against ``group_agg_step_plain`` on
-the card, on the adversarial inputs of chip_smoke.py
-(``GAGG_EDGE_CASES``):
+"""The group aggregation kernels of csrc/group_agg.cu (the stages of
+``ops/group_agg.py::group_agg_step``, run range by range) against
+``group_agg_step_plain`` in the same ranges on the card, on the
+adversarial inputs of chip_smoke.py (``GAGG_EDGE_CASES``,
+``GAGG_RANGE_CASES``, ``GAGG_CARD_CASES``):
 
 * every row on one key, across many warps and tiles;
 * a group drained and re-inserted within one batch (no reset) and across
@@ -10,11 +11,19 @@ the card, on the adversarial inputs of chip_smoke.py
   slots (at the state backend's identities) and after a reset;
 * rows with slot -1 and rows past n_valid, next to a real slot 0;
 * 0, 1, 255, 257 and 1000 rows; 2^16 rows over 6 groups; 32 planes;
-* composite keys (two integer columns combined, then probed).
+* composite keys (two integer columns combined, then probed);
+* the range schedule: a slot in every range, a group drained in one range
+  and re-inserted in a later one, ranges of 257 and 37 rows (a warp's peer
+  set cut by a range boundary), n_valid < n, specials, 32 planes, empty
+  ranges;
+* all 2^19 rows on one slot and on 6 slots (the fold's pre-fold table), in
+  one range and in 8; 64 slots a tile in 4-row peer sets, no slot shared
+  between tiles (a fold block walks more distinct slots than its table
+  holds); all-distinct rows at 2^24 slots in 8 ranges.
 
-Both sides get the same slots; the group count, row indices, PREV and NEW
-rows, every plane, the dirty bitmap and the firstpos scratch are compared
-bit for bit (values are integers or specials, so every sum is exact in
+Both sides get the same slots and ranges; the group count, row indices,
+PREV and NEW rows, every plane, the dirty bitmap and both scratches are
+compared bit for bit (values are integers or specials, so every sum is exact in
 any order: tolerance exact). One further test runs the device GROUP BY
 operator on the card and on the CPU over the same batches: the changelogs
 must be equal row for row.
@@ -53,7 +62,8 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("case", cs.GAGG_EDGE_CASES)
+@pytest.mark.parametrize("case", cs.GAGG_EDGE_CASES + cs.GAGG_RANGE_CASES
+                         + cs.GAGG_CARD_CASES)
 def test_kernel_equals_plain(dev, case):
     seen = cs.check_gagg_edge(torch, dev, case)
     assert seen["groups"] > 0
