@@ -168,31 +168,30 @@ Run from the repository root:  python3 chip_smoke.py
     the whole-copy snapshot.
 19. The device GROUP BY (csrc/group_agg.cu). In the kernel phase
     (``check_group_agg``) its step (first and last rows of each slot;
-    then, range by range, the compaction in batch order, which finishes
-    a group of one row in the batch itself; the fold; the emit) against
-    its plain version at both SQL cells' shapes (TPC-H Q1's 6th batch
-    after its WHERE: 300,110 rows, 6 groups, 12 planes, capacity 2^16;
-    the GROUP BY's 6th batch: 2^19 rows into 2^24 slots, 7 planes):
-    groups, row indices, counts, min, max and whole-number sums equal,
-    other sums within 1e-12 relative; and on adversarial batches
-    (``GAGG_EDGE_CASES``: one key, drains within and across batches,
-    +-inf, -0.0 and NaN, invalid rows, ragged and empty batches, 32
-    planes, composite keys; ``GAGG_RANGE_CASES``: the same under ranges
-    of 5 to 700 rows, empty ranges, a group drained in one range and
-    re-inserted in a later one; ``GAGG_CARD_CASES``: 2^19 rows on one and
-    on six slots, more slots a fold block meets than its pre-fold table
-    holds, all-distinct rows at 2^24 slots) bit for bit. The whole step
-    timed as one call (the L2 flushed before it only), each stage's
-    device time inside such steps (profiled) and alone (the L2 flushed
-    before it) beside its plain version, with its byte bound, 32-byte
-    sector floor and floor at the card's measured random rates, and the
-    library calls that compute a stage's function (``scatter_reduce_``
-    for the first rows, ``index_add_`` for one sum plane's fold). Then
-    two cells through ``TableEnvironment.execute_sql`` on the graph
-    runtime, each a
-    warm-up, a timed run (launch counters zeroed before it: the first
-    stage once per batch, the compaction, fold and emit once per range of
-    a batch's rows, the probe at least once) and a profiled run:
+    the compaction in batch order, which finishes a group of one row in
+    the batch itself; the fold; the emit) against its plain version at
+    both SQL cells' shapes (TPC-H Q1's 6th batch after its WHERE: 300,110
+    rows, 6 groups, 12 planes, capacity 2^16; the GROUP BY's 6th batch:
+    2^19 rows into 2^24 slots, 7 planes): groups, row indices, counts,
+    min, max and whole-number sums equal, other sums within 1e-12
+    relative; and on adversarial batches (``GAGG_EDGE_CASES``: one key,
+    drains within and across batches, +-inf, -0.0 and NaN, invalid rows,
+    ragged and empty batches, 32 planes, composite keys;
+    ``GAGG_STEP_CASES``: groups of one row and of several side by side,
+    in 32 planes too, with specials, short n_valid, nothing to fold, runs
+    of a slot across warps and tiles, a group drained and re-inserted
+    within a batch; ``GAGG_CARD_CASES``: 2^19 rows on one and on six
+    slots, more slots a fold block meets than its pre-fold table holds,
+    all-distinct rows at 2^24 slots) bit for bit. The whole step timed as
+    one call (the L2 flushed before it only), each stage's device time
+    inside such steps (profiled) and alone (the L2 flushed before it)
+    beside its plain version, with its byte bound, 32-byte sector floor
+    and floor at the card's measured random rates, and the library calls
+    that compute a stage's function (``scatter_reduce_`` for the first
+    rows, ``index_add_`` for one sum plane's fold). Then two cells
+    through ``TableEnvironment.execute_sql`` on the graph runtime, each a
+    warm-up, a timed run (launch counters zeroed before it: each stage of
+    the step once per batch, the probe at least once) and a profiled run:
     ``sql_tpch_q1`` (bench.py::bench_tpch_q1's schema, generator and
     query, BASELINE config #5, at 2^25 rows in batches of 2^19; the 6
     final groups against a numpy oracle, the changelog's retractions
@@ -4232,12 +4231,16 @@ def groupby_check(expected: dict, res, retract=None) -> dict:
 GAGG_EDGE_CASES = ("one_key", "drain_in_batch", "drain_across", "specials",
                    "invalid_rows", "ragged", "few_groups_many_tiles",
                    "planes_32", "composite")
-#: small cases of the range schedule: a batch names its ranges
-#: (``range_rows``: rows per range, or each range's row count)
-GAGG_RANGE_CASES = ("slot_in_every_range", "drain_then_reinsert",
-                    "ragged_ranges", "n_valid_short", "specials_ranges",
-                    "planes_32_ranges", "empty_ranges", "peer_set_split",
-                    "planes_32_one_row_groups")
+#: small cases of the step's two paths (a group of one row in the batch,
+#: finished by the compaction; a group of several, folded and emitted)
+#: side by side: a slot spread over the whole batch, a group drained and
+#: re-inserted within a batch, batches not a multiple of 256 rows,
+#: ``n_valid < n``, specials in min and max, 32 planes, batches with
+#: nothing to fold, runs of one slot across warps and tiles
+GAGG_STEP_CASES = ("slot_spread", "drain_then_reinsert", "odd_batches",
+                   "n_valid_short", "specials_mixed", "planes_32_mixed",
+                   "nothing_to_fold", "runs_across_warps",
+                   "planes_32_one_row_groups")
 #: card-sized cases: 2^19 rows on one and on six slots, more distinct slots
 #: a fold block meets than its pre-fold table holds, all-distinct rows at
 #: 2^24 slots
@@ -4250,15 +4253,14 @@ PREFOLD_TABLE = 64             # csrc/group_agg.cu's kTable
 
 
 def _edge_rows(rng, n: int, slots, retract: float = 0.0, vals=None,
-               n_valid=None, range_rows=None) -> dict:
+               n_valid=None) -> dict:
     slots = np.asarray(slots, np.int32)
     sign = np.where(rng.random(n) < retract, -1.0, 1.0)
     if vals is None:
         vals = rng.integers(-50, 50, (1, n)).astype(np.float64)
     return {"slots": slots, "sign": sign,
             "vals": np.ascontiguousarray(vals, np.float64),
-            "n_valid": n if n_valid is None else n_valid,
-            "range_rows": range_rows}
+            "n_valid": n if n_valid is None else n_valid}
 
 
 def _planes_32(c: dict) -> None:
@@ -4271,9 +4273,8 @@ def _planes_32(c: dict) -> None:
 def gagg_edge_config(case: str) -> dict:
     """Adversarial inputs of the group aggregation step, numpy: capacity,
     plane kinds and value columns, and batches of slots (or ``keys``, two
-    integer columns to combine and probe), signs, values, n_valid and the
-    ranges (None: the step's own choice)."""
-    cases = GAGG_EDGE_CASES + GAGG_RANGE_CASES + GAGG_CARD_CASES
+    integer columns to combine and probe), signs, values and n_valid."""
+    cases = GAGG_EDGE_CASES + GAGG_STEP_CASES + GAGG_CARD_CASES
     rng = np.random.default_rng(cases.index(case) + 1)
     c = {"cap": 1 << 10, "kinds": EDGE_KINDS, "cols": EDGE_COLS,
          "batches": []}
@@ -4334,62 +4335,58 @@ def gagg_edge_config(case: str) -> dict:
             b = _edge_rows(rng, n, np.zeros(n), retract=0.2)
             b["keys"] = (k1, k2)
             bs.append(b)
-    elif case == "slot_in_every_range":
+    elif case == "slot_spread":
         s = rng.integers(0, 200, 4000)
-        s[::7] = 5                   # slot 5 in each of the 8 ranges
+        s[::7] = 5                   # slot 5 from the first tile to the last
         for order in (s, s[::-1]):
-            bs.append(_edge_rows(rng, 4000, order, retract=0.25,
-                                 range_rows=500))
+            bs.append(_edge_rows(rng, 4000, order, retract=0.25))
     elif case == "drain_then_reinsert":
         bs.append(_edge_rows(rng, 6, [3, 3, 3, 3, 9, 9],
                              vals=[[5, 6, 7, 8, 4, 2]]))
-        # range 0 retracts slot 3's four rows (its count passes 0), range 2
-        # inserts it again: no reset; 9 drains over ranges 0 and 2
+        # slot 3's four rows retracted (its count passes 0), then inserted
+        # again later in the batch: no reset; 9 drains; 4 is new
         b = _edge_rows(rng, 9, [3, 3, 3, 3, 9, 4, 4, 3, 9],
-                       vals=[[5, 6, 7, 8, 4, 1, 1, 2, 2]],
-                       range_rows=[5, 2, 2])
+                       vals=[[5, 6, 7, 8, 4, 1, 1, 2, 2]])
         b["sign"][:] = [-1, -1, -1, -1, -1, 1, 1, 1, -1]
         bs.append(b)
         # 9 restarts from the identities
-        bs.append(_edge_rows(rng, 4, [9, 3, 9, 4], vals=[[7, 0, -7, 3]],
-                             range_rows=[1, 1, 2]))
-    elif case == "ragged_ranges":
-        for n in (3000, 2999):
+        bs.append(_edge_rows(rng, 4, [9, 3, 9, 4], vals=[[7, 0, -7, 3]]))
+    elif case == "odd_batches":
+        for n in (3000, 2999, 257):
             bs.append(_edge_rows(rng, n, rng.integers(0, 300, n),
-                                 retract=0.2, range_rows=257))
+                                 retract=0.2))
     elif case == "n_valid_short":
         for n in (2000, 1500):
             s = rng.integers(0, 64, n)
             s[rng.random(n) < 0.2] = -1
-            bs.append(_edge_rows(rng, n, s, retract=0.3, n_valid=n - 663,
-                                 range_rows=600))
-    elif case == "specials_ranges":
+            bs.append(_edge_rows(rng, n, s, retract=0.3, n_valid=n - 663))
+    elif case == "specials_mixed":
         sp = [np.inf, -np.inf, -0.0, 0.0, np.nan, 3.0]
         for n, retract in ((24, 0.0), (24, 0.3), (6, 0.5), (12, 0.0)):
-            bs.append(_edge_rows(rng, n, rng.integers(0, 6, n),
-                                 retract=retract, vals=[rng.choice(sp, n)],
-                                 range_rows=5))
-    elif case == "planes_32_ranges":
+            bs.append(_edge_rows(rng, n, rng.integers(0, 12, n),
+                                 retract=retract, vals=[rng.choice(sp, n)]))
+    elif case == "planes_32_mixed":
+        # 32 planes, groups of one row and of several side by side
         _planes_32(c)
+        c["cap"] = 1 << 13
         for n in (3000, 3000):
-            bs.append(_edge_rows(rng, n, rng.integers(0, 40, n),
+            bs.append(_edge_rows(rng, n, rng.integers(0, 4000, n),
                                  retract=0.25,
-                                 vals=rng.integers(-9, 9, (4, n)),
-                                 range_rows=700))
-    elif case == "empty_ranges":
+                                 vals=rng.integers(-9, 9, (4, n))))
+    elif case == "nothing_to_fold":
+        # no valid row (n_valid 0), no rows, every slot -1 but a few
         bs.append(_edge_rows(rng, 2000, rng.integers(0, 100, 2000),
-                             retract=0.2, range_rows=[0, 700, 0, 0, 1200,
-                                                      100, 0]))
-        bs.append(_edge_rows(rng, 0, [], range_rows=[0, 0]))
-        bs.append(_edge_rows(rng, 500, rng.integers(0, 100, 500),
-                             retract=0.4, range_rows=[500, 0]))
-    elif case == "peer_set_split":
-        # runs of 7 rows on one slot, cut by range boundaries mid-run and
-        # mid-warp
-        s = np.repeat(rng.integers(0, 50, 3000 // 7 + 1), 7)[:3000]
-        for rows in (100, 37):
-            bs.append(_edge_rows(rng, 3000, s, retract=0.3,
-                                 range_rows=rows))
+                             n_valid=0))
+        bs.append(_edge_rows(rng, 0, []))
+        s = np.full(500, -1)
+        s[[3, 250, 499]] = [7, 7, 8]
+        bs.append(_edge_rows(rng, 500, s, retract=0.4))
+    elif case == "runs_across_warps":
+        # runs of 7 and of 37 rows on one slot, across warp and tile
+        # boundaries
+        for run in (7, 37):
+            s = np.repeat(rng.integers(0, 50, 3000 // run + 1), run)[:3000]
+            bs.append(_edge_rows(rng, 3000, s, retract=0.3))
     elif case == "planes_32_one_row_groups":
         # groups of one row (the compaction finishes them) over 32 planes,
         # in 4 chunks of loads; specials in one value column; the second
@@ -4405,14 +4402,13 @@ def gagg_edge_config(case: str) -> dict:
         for s, retract in ((first, 0.0), (rng.permutation(second), 0.5)):
             vals = rng.integers(-9, 9, (4, s.size)).astype(np.float64)
             vals[3] = rng.choice(sp, s.size)
-            bs.append(_edge_rows(rng, s.size, s, retract=retract, vals=vals,
-                                 range_rows=700))
+            bs.append(_edge_rows(rng, s.size, s, retract=retract,
+                                 vals=vals))
     elif case in ("hot_slot", "six_slots"):
-        for rows in (None, 1 << 16):
+        for _ in range(2):
             s = (np.full(BATCH, 7) if case == "hot_slot"
                  else rng.integers(0, 6, BATCH) * 131)
-            bs.append(_edge_rows(rng, BATCH, s, retract=0.2,
-                                 range_rows=rows))
+            bs.append(_edge_rows(rng, BATCH, s, retract=0.2))
     elif case == "prefold_overflow":
         # every tile of 256 rows holds 64 slots, 4 rows each inside a warp,
         # and no tile shares a slot: a tile pre-folds (64 peer sets), and a
@@ -4420,9 +4416,8 @@ def gagg_edge_config(case: str) -> dict:
         c["cap"] = 1 << 17
         i = np.arange(BATCH)
         s = (i // 256) * PREFOLD_TABLE + (i % 256) // 4
-        for rows in (None, 1 << 16):
-            bs.append(_edge_rows(rng, BATCH, s, retract=0.2,
-                                 range_rows=rows))
+        for _ in range(2):
+            bs.append(_edge_rows(rng, BATCH, s, retract=0.2))
     elif case == "distinct_2^24":
         c["cap"] = 1 << 24
         i = np.arange(BATCH, dtype=np.int64)
@@ -4477,13 +4472,12 @@ def gagg_batch_on(torch, dev, st: dict, b: dict) -> dict:
     return {"slots": slots.contiguous(),
             "sign": torch.from_numpy(b["sign"]).to(dev),
             "vals": torch.from_numpy(b["vals"]).to(dev),
-            "n_valid": b["n_valid"], "range_rows": b.get("range_rows")}
+            "n_valid": b["n_valid"]}
 
 
 def gagg_step_on(fn, c: dict, st: dict, b: dict):
     return fn(st["planes"], c["kinds"], c["cols"], b["slots"], b["sign"],
-              b["vals"], b["n_valid"], st["rowpos"], st["dirty"], 3,
-              range_rows=b.get("range_rows"))
+              b["vals"], b["n_valid"], st["rowpos"], st["dirty"], 3)
 
 
 def gagg_outputs(torch, step) -> dict:
@@ -4502,27 +4496,18 @@ def same_bits(a, b) -> bool:
         np.where(na, 0, a).view(np.int64), np.where(nb, 0, b).view(np.int64)))
 
 
-def gagg_expected_launches(dev, step) -> dict:
-    """Launches of one step: on the card the first stage once, and each
-    other stage once per range that holds rows; none on the CPU."""
-    on = int(dev.type == "cuda" and step.slots.numel() > 0)
-    ranges = step.launched_ranges(range(step.n_ranges))
-    return {s: on * (1 if s == "first" else ranges) for s in GAGG_STAGES}
-
-
 def check_gagg_edge(torch, dev, case: str) -> dict:
-    """An edge case, kernel against plain version on the same inputs and
-    ranges: groups, row indices, PREV and NEW rows, every plane, the dirty
-    bitmap and the row scratch (NO_ROW and NO_LAST everywhere after a
-    step) equal bit for bit; one launch of the first stage and one of each other
-    stage per range that holds rows."""
+    """An edge case, kernel against plain version on the same inputs:
+    groups, row indices, PREV and NEW rows, every plane, the dirty bitmap
+    and the row scratch (NO_ROW and NO_LAST everywhere after a step) equal
+    bit for bit; one launch of each stage per step of any rows."""
     from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
     from flink_tpu_torch.ops.group_agg import NO_LAST, NO_ROW, \
         group_agg_step, group_agg_step_plain
 
     c = gagg_edge_config(case)
     kst, pst = gagg_state(torch, dev, c), gagg_state(torch, dev, c)
-    groups = ranges = 0
+    groups = 0
     for j, raw in enumerate(c["batches"]):
         b = gagg_batch_on(torch, dev, kst, raw)   # one set of slots for both
         reset_launches()
@@ -4533,9 +4518,9 @@ def check_gagg_edge(torch, dev, case: str) -> dict:
         want = gagg_outputs(torch, gagg_step_on(group_agg_step_plain, c,
                                                 pst, b))
         what = f"group_agg {case} batch {j}"
-        if launched != gagg_expected_launches(dev, kstep):
-            raise AssertionError(f"{what}: launches {launched} for "
-                                 f"ranges {kstep.bounds}")
+        if set(launched.values()) != {int(dev.type == "cuda"
+                                          and raw["slots"].size > 0)}:
+            raise AssertionError(f"{what}: launches {launched}")
         if got["groups"] != want["groups"] or not np.array_equal(
                 got["row_idx"], want["row_idx"]):
             raise AssertionError(f"{what}: groups or their rows differ")
@@ -4551,14 +4536,12 @@ def check_gagg_edge(torch, dev, case: str) -> dict:
                 (kst["lastpos"] != NO_LAST).any()):
             raise AssertionError(f"{what}: a scratch not restored")
         groups += got["groups"]
-        ranges += kstep.n_ranges
-    return {"batches": len(c["batches"]), "groups": groups,
-            "ranges": ranges}
+    return {"batches": len(c["batches"]), "groups": groups}
 
 
 def gagg_edges(torch, dev) -> dict:
     return {case: check_gagg_edge(torch, dev, case)
-            for case in GAGG_EDGE_CASES + GAGG_RANGE_CASES
+            for case in GAGG_EDGE_CASES + GAGG_STEP_CASES
             + GAGG_CARD_CASES}
 
 
@@ -4571,12 +4554,12 @@ def gagg_scratches(ga, cap: int, dev) -> tuple:
     return (ga.new_firstpos(cap, dev),)
 
 
-def gagg_call(fn, sh: dict, planes, scratch, dirty, **kw):
+def gagg_call(fn, sh: dict, planes, scratch, dirty):
     """``fn`` (a step or ``make_step``) on a shape's batch, with these
     planes, scratches and dirty bitmap."""
     s = sh["step"]
     return fn(planes, sh["kinds"], sh["cols"], s["slots"], s["sign"],
-              s["vals"], s["n_valid"], *scratch, dirty, DIRTY_SHIFT, **kw)
+              s["vals"], s["n_valid"], *scratch, dirty, DIRTY_SHIFT)
 
 
 def gagg_shape(torch, dev, label: str) -> dict:
@@ -4637,17 +4620,20 @@ def gagg_shape(torch, dev, label: str) -> dict:
 
 def gagg_bytes_and_sectors(torch, sh: dict, post_planes: list,
                            rates: dict | None = None) -> dict:
-    """Per stage (over every range), the bytes it must move (each input
-    read once, each output written once, counted on this batch's data: G
-    groups, G1 of them one-row groups that the compaction finishes, the
-    dead ones written), its 32-byte sector floor and, with ``rates``
+    """Per stage, the bytes it must move (each input read once, each
+    output written once, counted on this batch's data: G groups, G1 of
+    them one-row groups that the compaction finishes, the dead ones
+    written), its 32-byte sector floor and, with ``rates``
     (``sector_rates``), its random sectors at the card's measured rates
-    (the first stage's atomics at red4's, reads at read8's, sum folds at
-    red8's, min/max folds at cas8's, stores of what the stage read at
-    store8's) plus its streamed bytes at 3.35 TB/s; and the whole step's
-    bytes, sector floor and floor at the measured rates, each group's
-    sectors fetched once (the row scratch's by the first stage's atomics,
-    the planes' by one read, written back)."""
+    plus its streamed bytes at 3.35 TB/s; and the whole step's bytes,
+    sector floor and floor at the measured rates, each group's sectors
+    fetched once (the row scratch's by the first stage's atomics, the
+    planes' by one read, written back once). A random sector is priced
+    by the operation the kernels issue on it: the first stage's atomics
+    at red4's rate, a read at read8's, a plane's write-back at red8's
+    for a sum and at cas8's for a min or max (the fold's atomics, also
+    the compaction's for a one-row group), a drained group's reset at
+    store8's."""
     s = sh["step"]
     dev = s["slots"].device
     n, P = s["slots"].numel(), len(sh["planes"])
@@ -4747,20 +4733,29 @@ def gagg_bytes_and_sectors(torch, sh: dict, post_planes: list,
     def sec(ids) -> int:
         return int(torch.unique(ids).numel())
 
+    def write_back(live: int, dead: int) -> float:
+        # live: plane sectors folded by atomics, dead: reset by stores
+        return (sums * live / per_ms("red8") + (P - sums) * live
+                / per_ms("cas8") + P * dead / per_ms("store8"))
+
     r_all, r_m = sec(rp(uniq)), sec(rp(um))
-    p_all, p_1, p_m = (sec(planes_at(x)[0]) for x in (uniq, u1, um))
+    p_all, p_m = (sec(planes_at(x)[0]) for x in (uniq, um))
+    p_1l, p_1d, p_ml, p_md = (
+        sec(planes_at(x)[0]) for x in (u1[~dead[one]], u1[dead[one]],
+                                       um[~dead[~one]], um[dead[~one]]))
     sums = sum(k == "sum" for k in sh["kinds"])
     random = {"first": r_all / per_ms("red4"),
               "compact": (r_all + P * p_all) / per_ms("read8")
-              + P * p_1 / per_ms("store8"),
-              "fold": sums * p_m / per_ms("red8")
-              + (P - sums) * p_m / per_ms("cas8"),
-              "emit": (r_m + P * p_m) / per_ms("read8")}
+              + write_back(p_1l, p_1d),
+              "fold": write_back(p_m, 0),
+              "emit": (r_m + P * p_m) / per_ms("read8")
+              + write_back(0, p_md)}
     for st, ms in random.items():
         out[st]["at_measured_rate_ms"] = ms + bound_ms(streamed[st])
     rec["step_at_measured_rate_ms"] = (
         r_all / per_ms("red4") + P * p_all / per_ms("read8")
-        + P * p_all / per_ms("store8") + bound_ms(whole - 16 * P * G))
+        + write_back(p_1l + p_ml, p_1d + p_md)
+        + bound_ms(whole - 16 * P * G))
     return rec
 
 
@@ -4785,14 +4780,13 @@ def gagg_compare(got: np.ndarray, want: np.ndarray,
             float((diff / np.maximum(np.abs(want[tol]), 1e-300)).max()))
 
 
-def compare_gagg_shape(torch, sh: dict, **kw) -> tuple:
+def compare_gagg_shape(torch, sh: dict) -> tuple:
     """The step's kernels against its plain version from the shape's
-    state (``kw``: the step's keywords, such as ``range_rows``): groups
-    and row indices equal, counts, min, max and whole-number sums equal,
-    other sums within GAGG_REL_TOL relative, in the PREV/NEW rows and in
-    every plane; the dirty bitmaps and both scratches equal. Returns (the
-    plain version's planes after the step, max relative error, max
-    absolute error, the ranges)."""
+    state: groups and row indices equal, counts, min, max and whole-number
+    sums equal, other sums within GAGG_REL_TOL relative, in the PREV/NEW
+    rows and in every plane; the dirty bitmaps and both scratches equal.
+    Returns (the plain version's planes after the step, max relative
+    error, max absolute error)."""
     from flink_tpu_torch.ops import group_agg as ga
 
     label = sh["label"]
@@ -4801,8 +4795,8 @@ def compare_gagg_shape(torch, sh: dict, **kw) -> tuple:
     kscr = tuple(x.clone() for x in sh["scratch"])
     pscr = tuple(x.clone() for x in sh["scratch"])
     kd, pd = sh["dirty"].clone(), sh["dirty"].clone()
-    kst = gagg_call(ga.group_agg_step, sh, k_planes, kscr, kd, **kw)
-    pst = gagg_call(ga.group_agg_step_plain, sh, p_planes, pscr, pd, **kw)
+    kst = gagg_call(ga.group_agg_step, sh, k_planes, kscr, kd)
+    pst = gagg_call(ga.group_agg_step_plain, sh, p_planes, pscr, pd)
     got, want = gagg_outputs(torch, kst), gagg_outputs(torch, pst)
     if got["groups"] != want["groups"] or not np.array_equal(
             got["row_idx"], want["row_idx"]):
@@ -4824,7 +4818,7 @@ def compare_gagg_shape(torch, sh: dict, **kw) -> tuple:
             torch.equal(a, b) for a, b in zip(kscr, pscr)):
         raise AssertionError(f"group_agg {label}: dirty or a scratch "
                              "differs")
-    return p_planes, err, abs_err, kst.n_ranges
+    return p_planes, err, abs_err
 
 
 def gagg_stage_device_ms(torch, step, setup, flush, launches: dict,
@@ -4865,8 +4859,8 @@ def time_gagg(torch, dev, flush, sh: dict, plain: bool = True) -> dict:
     """The step at a shape, from the shape's state each time: the whole
     step as one ``group_agg_step`` call (the L2 flushed before it only);
     each stage's device ms inside such steps (profiled); each stage alone
-    over every range (from the state the stages before it leave, the L2
-    flushed before it) beside its plain version. Works on an older
+    (from the state the stages before it leave, the L2 flushed before it)
+    beside its plain version. Works on an older
     checkout's step too (four whole-batch launches)."""
     from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
     from flink_tpu_torch.ops import group_agg as ga
@@ -4954,7 +4948,7 @@ def gagg_library_ms(torch, flush, sh: dict) -> dict:
 def check_group_agg(torch, dev, flush, rates: dict | None = None,
                     compare: bool = True, edges: bool = True) -> dict:
     """The group aggregation step's kernels at both main paths' shapes
-    (``gagg_shape``) under the range schedule: against the plain version
+    (``gagg_shape``): against the plain version
     (``compare_gagg_shape``), timed (``time_gagg``: the whole step as one
     call, each stage inside it and alone, beside the plain versions), with
     each stage's byte bound, sector floor and, with ``rates``, its floor at
@@ -4967,10 +4961,9 @@ def check_group_agg(torch, dev, flush, rates: dict | None = None,
         sh = gagg_shape(torch, dev, label)
         record = {}
         if compare:
-            p_planes, err, abs_err, n_ranges = compare_gagg_shape(torch, sh)
+            p_planes, err, abs_err = compare_gagg_shape(torch, sh)
             record = gagg_bytes_and_sectors(torch, sh, p_planes, rates)
-            record.update(max_rel_err=err, max_abs_err=abs_err,
-                          ranges=n_ranges)
+            record.update(max_rel_err=err, max_abs_err=abs_err)
             worst, worst_abs = max(worst, err), max(worst_abs, abs_err)
             del p_planes
             lib = gagg_library_ms(torch, flush, sh)
@@ -5060,12 +5053,10 @@ def sql_profile(torch, run) -> dict:
 
 def sql_run_record(torch, label: str, run, check, n_rows: int) -> dict:
     """One run of a SQL cell with the launch counters zeroed just before
-    and read just after: the group aggregation step's first stage once
-    per batch of the device GROUP BY (at least once), its compaction, fold
-    and emit once per range of a batch's rows, the probe at least once a
-    batch,
-    the result held to its oracle; rows/s, host seconds per batch by part,
-    rehashes and peak device memory."""
+    and read just after: every stage of the group aggregation step once
+    per batch of the device GROUP BY (at least once), the probe at least
+    once a batch, the result held to its oracle; rows/s, host seconds per
+    batch by part, rehashes and peak device memory."""
     from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
 
     start = fresh_memory(torch)
@@ -5075,15 +5066,12 @@ def sql_run_record(torch, label: str, run, check, n_rows: int) -> dict:
     launches = dict(KERNEL_LAUNCHES)
     agg, batch_ops = sql_operators(job)
     batches = agg.stats["batches"]
-    ranges = agg.stats["ranges"]
-    # the first stage once a batch, the others once per range of rows
-    want = {f"group_agg_{s}": batches if s == "first" else ranges
-            for s in GAGG_STAGES}
-    if batches < 1 or ranges < batches or any(
-            launches[k] != v for k, v in want.items()) \
+    stage_launches = {f"group_agg_{s}": launches[f"group_agg_{s}"]
+                      for s in GAGG_STAGES}
+    if batches < 1 or set(stage_launches.values()) != {batches} \
             or launches["hash_probe"] < batches:
         raise AssertionError(f"{label}: launches {launches} for {batches} "
-                             f"device GROUP BY batches, {ranges} ranges")
+                             "device GROUP BY batches")
     checked = check(res)
     host = {k: v / batches for k, v in agg.stats.items()
             if k.endswith("_s")}
@@ -5092,7 +5080,7 @@ def sql_run_record(torch, label: str, run, check, n_rows: int) -> dict:
         calc[op.name] = calc.get(op.name, 0.0) + op.busy_s / batches
     return {"cell": label, "rows": n_rows, "wall_s": job.wall_s,
             "rows_per_sec": n_rows / job.wall_s, "batches": batches,
-            "ranges": ranges, "groups_emitted": agg.stats["groups"],
+            "groups_emitted": agg.stats["groups"],
             "host_s_per_batch": {**calc, **host,
                                  "total": sum(calc.values())
                                  + sum(host.values())},
@@ -5346,8 +5334,7 @@ def main(argv: list[str]) -> int:
 
     def gagg_entry(stage: str) -> dict:
         # "ms": the stage's device time inside one whole step at TPC-H
-        # Q1's shape (all its launches of the step), "alone_ms" the stage
-        # alone over every range, the L2 flushed before it
+        # Q1's shape, "alone_ms" the stage alone, the L2 flushed before it
         at = gagg["shapes"]["tpch_q1"]["stages"][stage]
         key = f"group_agg_{stage}"
         return {"name": key, "route": "cuda",

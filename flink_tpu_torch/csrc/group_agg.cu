@@ -7,59 +7,52 @@
 // only after every fold, the groups come out in first-row order), so a
 // batch is a schedule of launches on one stream:
 //
-//  1. group_agg_first_kernel, over the whole batch: the first and the last
-//     row of each touched slot, an atomicMin and an atomicMax of the row
-//     index into the two int32 halves of the slot's entry of a persistent
-//     [capacity, 2] scratch (rowpos; one 32-byte sector holds both; rows
-//     of a block meet in shared memory first where they hold few slots).
-//     It holds (kNoRow, kNoLast) everywhere between batches: a batch
-//     restores the entries it touched, so it costs O(B). It also zeroes
-//     the compaction's look-back words.
-//  2. Then, range by range (the batch's rows cut into ranges in order):
-//     a. group_agg_compact_kernel: the range's first-occurrence rows,
-//        compacted in batch order (the changelog's order) by a block scan
-//        of ballots and a decoupled look-back over tiles taken from an
-//        atomic tile counter (as hash_table.cu's spill form). Counter and
-//        status words carry over from one range to the next, so positions
-//        run on across ranges and the batch's last tile writes the group
-//        count. Each first row writes its row index and every plane's PREV
-//        value. A group whose first row is also its last (its only row in
-//        the batch) takes the whole step there: its planes are loaded once,
-//        folded, reset if drained and stored, its NEW values written, its
-//        dirty block marked and both scratches restored; its row is marked
-//        in a per-row byte (single) that the fold and the emit skip. Any
-//        other group leaves its position in its slot's first-row half as
-//        ~position (negative: no row index equals it).
-//     b. group_agg_fold_kernel: every other valid row of the range folds
-//        into its slot: the signed row count and each sum plane add (value
-//        * sign, or the sign for a count plane), min and max planes fold
-//        the raw value and ignore the sign (the reference's documented
-//        append-only degradation).
-//     c. group_agg_emit_kernel: one thread a row of the range that is its
-//        slot's last row (of a group of more than one row): every plane's
-//        post-fold value loaded, a drained group (count <= 0) reset to the
-//        identities (0, +inf, -inf), the NEW values written at the position
-//        the first-row half holds, the slot's dirty block marked and its
-//        scratch entry restored.
-//     A slot's first row lies in the earliest range that touches it, so its
-//     PREV values are read before any fold of it; its last row lies in the
-//     latest, so its emit sees every fold of the batch.
+//  1. group_agg_first_kernel: the first and the last row of each touched
+//     slot, an atomicMin and an atomicMax of the row index into the two
+//     int32 halves of the slot's entry of a persistent [capacity, 2]
+//     scratch (rowpos; one 32-byte sector holds both; rows of a block meet
+//     in shared memory first where they hold few slots). It holds (kNoRow,
+//     kNoLast) everywhere between batches: a batch restores the entries it
+//     touched, so it costs O(B). It also zeroes the compaction's look-back
+//     words.
+//  2. group_agg_compact_kernel: the first-occurrence rows, compacted in
+//     batch order (the changelog's order) by a block scan of ballots and a
+//     decoupled look-back over tiles taken from an atomic tile counter (as
+//     hash_table.cu's spill form); the last tile writes the group count.
+//     Each first row writes its row index and every plane's PREV value. A
+//     group whose first row is also its last (its only row in the batch)
+//     takes the whole step there: its planes are loaded once, folded, reset
+//     if drained and stored, its NEW values written, its dirty block marked
+//     and both scratches restored; its row is marked in a per-row byte
+//     (single) that the fold and the emit skip. Any other group leaves its
+//     position in its slot's first-row half as ~position (negative: no row
+//     index equals it).
+//  3. group_agg_fold_kernel: every other valid row folds into its slot: the
+//     signed row count and each sum plane add (value * sign, or the sign
+//     for a count plane), min and max planes fold the raw value and ignore
+//     the sign (the reference's documented append-only degradation).
+//  4. group_agg_emit_kernel: one thread a row that is its slot's last row
+//     (of a group of more than one row): every plane's post-fold value
+//     loaded, a drained group (count <= 0) reset to the identities (0,
+//     +inf, -inf), the NEW values written at the position the first-row
+//     half holds, the slot's dirty block marked and its scratch entry
+//     restored.
 //
 // What bounds it on an H100: random 32-byte sectors. At 10M keys a batch of
 // 2^19 rows touches 2^19 groups (every row its own group), each a sector
-// in every plane, 128 MB apart, and in the row scratch. Run as whole-batch
-// stages, the compaction, the fold and the emit each fetched those
-// sectors from device memory again. Ranges of rows keep a range's groups
-// in the 50 MB L2 between its stages only while the range is small (a
-// group holds a 128-byte line in each plane and in the row scratch, 8
-// lines at 7 planes), and the small ranges' launches cost more than the
-// L2 saved (tools/gagg_designs.py). So a group of one row in the batch
-// (every group at 10M keys) is finished by its compaction thread: its
-// sectors are fetched once, folded by the fold's own atomics while in L2,
-// and its row is skipped by the fold and the emit. For the atomics to find
-// the lines still in L2, the compaction's blocks walk the tiles with few
-// threads in flight (about one block an SM where the planes exceed L2,
-// ops/group_agg.py::compact_blocks_for): 2^15 groups' lines, 34 MB.
+// in every plane, 128 MB apart, and in the row scratch. Run as separate
+// stages, the compaction, the fold and the emit each fetched those sectors
+// from device memory again. Cutting the batch into ranges of rows, each
+// range's stages run in turn, keeps a range's groups in the 50 MB L2 only
+// while the range is small (a group holds a 128-byte line in each plane and
+// in the row scratch, 8 lines at 7 planes), and the small ranges' launches
+// cost more than the L2 saved (tools/gagg_designs.py). So a group of one
+// row in the batch (every group at 10M keys) is finished by its compaction
+// thread: its sectors are fetched once, folded by the fold's own atomics
+// while in L2, and its row is skipped by the fold and the emit. For the
+// atomics to find the lines still in L2, the compaction's blocks walk the
+// tiles with few threads in flight where the planes exceed L2
+// (kCompactBlocksPerSM): 2^15 groups' lines, 34 MB, at one block an SM.
 //
 // At few groups (TPC-H Q1's 6) the atomics contend instead. Rows of one
 // slot inside a warp are combined first (__match_any_sync on the slot,
@@ -67,9 +60,9 @@
 // sets in all (by a block-wide count of the warps' leaders) then folds
 // them into a small slot-keyed table in shared memory, and the block
 // issues one global atomic per table entry and plane at its end. A fold
-// block walks several tiles of its range, so TPC-H's fold issues a few
-// atomics per block where it issued some per warp. An all-distinct tile
-// skips the table. float64 min and max have no native atomic: a CAS loop
+// block walks several tiles, so TPC-H's fold issues a few atomics per
+// block where it issued some per warp. An all-distinct tile skips the
+// table. float64 min and max have no native atomic: a CAS loop
 // folds with the reference's semantics (NaN wins, -0.0 below +0.0), which
 // XLA's scatter-min and scatter-max on the CPU were measured to follow.
 //
@@ -96,7 +89,12 @@ constexpr int kTable = 64;
 constexpr int kPreFoldLeads = 64;
 constexpr int kFirstPreFoldLeads = 64;  // the same for the first rows
 static_assert(kTable == 64, "table_entry hashes a slot to 6 bits");
-constexpr int kFoldBlocksPerSM = 8;  // fold blocks walk a range's tiles
+constexpr int kFoldBlocksPerSM = 8;  // fold blocks walk the tiles
+// The compaction's blocks: a block a tile while the planes and the row
+// scratch fit in kL2Budget bytes of the 50 MB L2; else kCompactBlocksPerSM
+// an SM walking the tiles, chosen from tools/gagg_designs.py's sweep.
+constexpr long long kL2Budget = 40ll << 20;
+constexpr double kCompactBlocksPerSM = 1.0;
 constexpr int kEmitChunk = 16;  // plane loads an emit thread issues together
 constexpr int kFirstChunk = 8;  // and a compaction thread
 
@@ -120,13 +118,10 @@ struct Args {
   int* row_idx;                // [n] out: the groups' first rows
   double* comp;                // [n, 2 * n_planes] out: PREV, then NEW
   long long* n_groups;         // out
-  unsigned long long* status;  // [n_tiles] look-back words, then one
-                               // tile counter a range
-  unsigned* tile_counter;      // the launch's range's
-  long long n_tiles;           // look-back tiles of the whole batch
-  long long status_words;      // look-back words and counters
-  long long r0, r1;            // the launch's range of rows
-  long long tile0;             // the range's first look-back tile
+  unsigned long long* status;  // [n_tiles] look-back words, then the
+                               // tile counter
+  long long n_tiles;           // look-back tiles of the batch
+  long long status_words;      // look-back words and the counter
 };
 
 __host__ __device__ long long tiles_of(long long rows) {
@@ -384,8 +379,8 @@ __device__ __forceinline__ void first_of_group(const Args& a, int s,
   a.rowpos[s] = make_int2(kNoRow, kNoLast);
 }
 
-// Compacts look-back tile ``tile`` of the range (the whole block calls it;
-// the caller took the tile from the counter, so tiles start in order). A
+// Compacts look-back tile ``tile`` (the whole block calls it; the caller
+// took the tile from the counter, so tiles start in order). A
 // group of one row in the batch is folded and emitted here, and its row
 // is marked in ``single`` for the fold and the emit to skip.
 __device__ __forceinline__ void compact_tile(const Args& a, long long tile) {
@@ -394,12 +389,12 @@ __device__ __forceinline__ void compact_tile(const Args& a, long long tile) {
   __shared__ unsigned long long warp_sum[kWarps];
   __shared__ long long tile_base;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long i = a.r0 + (tile - a.tile0) * kThreads + tid;
-  const int s = i < a.r1 ? row_slot(a, i) : -1;
+  const long long i = tile * kThreads + tid;
+  const int s = row_slot(a, i);
   const int2 fl = s >= 0 ? __ldcg(a.rowpos + s) : make_int2(kNoRow, kNoLast);
   const bool first = s >= 0 && fl.x == (int)i;
   const bool single = first && fl.y == (int)i;
-  if (i < a.r1) a.single[i] = single;
+  if (i < a.n) a.single[i] = single;
   const unsigned ballot = __ballot_sync(kFull, first);
   if (lane == 0) warp_count[warp] = __popc(ballot);
   __syncthreads();
@@ -419,8 +414,7 @@ __device__ __forceinline__ void compact_tile(const Args& a, long long tile) {
   } else {
     if (tid == 0) st[tile] = kFlagAggregate | total;
     // the whole block looks back: thread k reads tile - 1 - k, 256 at a
-    // time, and the nearest published prefix ends the walk (an earlier
-    // range's tiles are all prefixes)
+    // time, and the nearest published prefix ends the walk
     unsigned long long before = 0;
     for (long long j0 = tile - 1;; j0 -= kThreads) {
       const long long j = j0 - tid;
@@ -467,7 +461,7 @@ __device__ __forceinline__ void compact_tile(const Args& a, long long tile) {
   __syncthreads();  // tile_base is read before the block's next tile
 }
 
-// Folds tiles t0, t0 + stride, ... of the range (the whole block calls it
+// Folds tiles t0, t0 + stride, ... (the whole block calls it
 // with the same arguments), through the block's pre-fold table where a
 // tile's peer sets are few.
 __device__ __forceinline__ void fold_tiles(const Args& a, long long t0,
@@ -475,14 +469,14 @@ __device__ __forceinline__ void fold_tiles(const Args& a, long long t0,
   extern __shared__ double table[];  // [kTable, n_planes]
   __shared__ int keys[kTable];
   const int tid = threadIdx.x, lane = tid & 31;
-  const long long tiles = (a.r1 - a.r0 + kThreads - 1) / kThreads;
+  const long long tiles = tiles_of(a.n);
   bool table_ready = false;  // the same in every thread of the block
   for (long long t = t0; t < tiles; t += stride) {
-    const long long i = a.r0 + t * kThreads + tid;
+    const long long i = t * kThreads + tid;
     // the compaction folded the rows of one-row groups; both loads are
     // issued before either is used
-    const int slot = i < a.r1 ? row_slot(a, i) : -1;
-    const bool taken = i < a.r1 && __ldcg(a.single + i);
+    const int slot = row_slot(a, i);
+    const bool taken = i < a.n && __ldcg(a.single + i);
     const int s = taken ? -1 : slot;
     const double sg = s >= 0 ? __ldg(a.sign + i) : 0.0;
     const unsigned peers = slot_peers(s, lane);
@@ -523,7 +517,7 @@ __device__ __forceinline__ void fold_tiles(const Args& a, long long t0,
 
 // Emits row i's group if i is its slot's last row.
 __device__ __forceinline__ void emit_row(const Args& a, long long i) {
-  if (i >= a.r1) return;
+  if (i >= a.n) return;
   // a row the compaction took was its group's only one, emitted there
   const bool taken = __ldcg(a.single + i);
   const int s = row_slot(a, i);
@@ -565,23 +559,23 @@ __global__ void __launch_bounds__(kThreads) group_agg_first_kernel(
   first_rows(a, i);
 }
 
-// Compacts the range's tiles, taken in row order from the range's counter
-// until none is left (the whole block calls it).
-__device__ __forceinline__ void compact_range(const Args& a) {
+// Compacts the batch's tiles, taken in row order from the counter until
+// none is left (the whole block calls it).
+__device__ __forceinline__ void compact_tiles(const Args& a) {
   __shared__ long long tile_s;
-  const long long end = a.tile0 + tiles_of(a.r1 - a.r0);
+  unsigned* counter = reinterpret_cast<unsigned*>(a.status + a.n_tiles);
   while (true) {
-    if (threadIdx.x == 0) tile_s = a.tile0 + atomicAdd(a.tile_counter, 1u);
+    if (threadIdx.x == 0) tile_s = atomicAdd(counter, 1u);
     __syncthreads();
-    const long long tile = tile_s;  // of the whole batch
-    if (tile >= end) return;
+    const long long tile = tile_s;
+    if (tile >= a.n_tiles) return;
     compact_tile(a, tile);  // ends in a barrier: tile_s is free again
   }
 }
 
 __global__ void __launch_bounds__(kThreads) group_agg_compact_kernel(
     const Args a) {
-  compact_range(a);
+  compact_tiles(a);
 }
 
 __global__ void __launch_bounds__(kThreads) group_agg_fold_kernel(
@@ -591,47 +585,33 @@ __global__ void __launch_bounds__(kThreads) group_agg_fold_kernel(
 
 __global__ void __launch_bounds__(kThreads) group_agg_emit_kernel(
     const Args a) {
-  emit_row(a, a.r0 + (long long)blockIdx.x * kThreads + threadIdx.x);
+  emit_row(a, (long long)blockIdx.x * kThreads + threadIdx.x);
 }
 
 }  // namespace
 
-// Stages of a group aggregation step over n rows cut into n_ranges ranges
-// (bounds: n_ranges + 1 row boundaries, 0 first, n last, non-decreasing).
-// stage 0 runs the first-occurrence kernel over the whole batch (and zeroes
-// the look-back words); 1, 2 and 3 run the compaction, the fold or the emit
-// over each range r_begin <= r < r_end in order; 4 runs the whole step: the
-// first stage, then each range's compaction, fold and emit. A range of no
-// rows launches nothing. The compaction's blocks walk a range's tiles:
-// compact_blocks of them (0: a block a tile). planes[n_planes] float64
-// [capacity] with kinds and value columns, slots [n] int32, sign [n]
-// float64, vals [n_cols, n] float64, rowpos [capacity, 2] int32, single [n]
-// bytes (written by the compaction, read by the fold and the emit), dirty
-// [blocks + 1] bytes or null, row_idx [n] int32, comp [n, 2 * n_planes]
-// float64, n_groups one int64, status group_agg_scratch_words(n, n_ranges)
-// int64 words. Returns cudaGetLastError after each launch, or
-// cudaErrorInvalidValue for more than kMaxPlanes planes or bad bounds.
+// Stages of a group aggregation step over n rows: stage 0 runs the
+// first-occurrence kernel (and zeroes the look-back words), 1 the
+// compaction, 2 the fold, 3 the emit, each over the whole batch; 4 runs the
+// four in order, the whole step. A batch of no rows launches nothing.
+// planes[n_planes] float64 [capacity] with kinds and value columns, slots
+// [n] int32, sign [n] float64, vals [n_cols, n] float64, rowpos [capacity,
+// 2] int32, single [n] bytes (written by the compaction, read by the fold
+// and the emit), dirty [blocks + 1] bytes or null, row_idx [n] int32, comp
+// [n, 2 * n_planes] float64, n_groups one int64, status
+// group_agg_scratch_words(n) int64 words. Returns cudaGetLastError after
+// the launches, or cudaErrorInvalidValue for more than kMaxPlanes planes.
 extern "C" int group_agg_launch(int stage, void** planes, const int* kinds,
                                 const int* cols, int n_planes,
-                                const void* slots, const void* sign,
-                                const void* vals, long long n,
-                                long long n_valid, void* rowpos,
+                                long long capacity, const void* slots,
+                                const void* sign, const void* vals,
+                                long long n, long long n_valid, void* rowpos,
                                 void* single, void* dirty, int dirty_shift,
                                 void* row_idx, void* comp, void* n_groups,
-                                void* status,
-                                const long long* bounds, int n_ranges,
-                                int r_begin, int r_end, int compact_blocks,
-                                void* stream) {
-  if (n_planes < 1 || n_planes > kMaxPlanes || n_valid > n || n_ranges < 1 ||
-      r_begin < 0 || r_begin > r_end || r_end > n_ranges ||
-      bounds[0] != 0 || bounds[n_ranges] != n || stage < kFirst ||
-      stage > kStep)
+                                void* status, void* stream) {
+  if (n_planes < 1 || n_planes > kMaxPlanes || n_valid > n ||
+      stage < kFirst || stage > kStep)
     return (int)cudaErrorInvalidValue;
-  long long n_tiles = 0;
-  for (int r = 0; r < n_ranges; ++r) {
-    if (bounds[r + 1] < bounds[r]) return (int)cudaErrorInvalidValue;
-    n_tiles += tiles_of(bounds[r + 1] - bounds[r]);
-  }
   if (n <= 0) return (int)cudaSuccess;
   Args a;
   for (int q = 0; q < n_planes; ++q) {
@@ -652,57 +632,40 @@ extern "C" int group_agg_launch(int stage, void** planes, const int* kinds,
   a.row_idx = static_cast<int*>(row_idx);
   a.comp = static_cast<double*>(comp);
   a.n_groups = static_cast<long long*>(n_groups);
-  a.n_tiles = n_tiles;
+  a.n_tiles = tiles_of(n);
   a.status = static_cast<unsigned long long*>(status);
-  a.status_words = n_tiles + n_ranges;
-  a.tile_counter = nullptr;
-  a.r0 = 0;
-  a.r1 = n;
-  a.tile0 = 0;
+  a.status_words = a.n_tiles + 1;
+  const unsigned tiles = (unsigned)a.n_tiles;
+  const bool all = stage == kStep;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (stage == kFirst || stage == kStep) {
-    group_agg_first_kernel<<<(unsigned)tiles_of(n), kThreads, 0, st>>>(a);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    if (stage == kFirst) return (int)cudaSuccess;
-  }
   int dev = 0, sms = 132;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const size_t table_bytes = (size_t)kTable * n_planes * sizeof(double);
-  for (int r = 0; r < r_begin; ++r)
-    a.tile0 += tiles_of(bounds[r + 1] - bounds[r]);
-  for (int r = r_begin; r < r_end; ++r) {
-    a.r0 = bounds[r];
-    a.r1 = bounds[r + 1];
-    const long long tiles = tiles_of(a.r1 - a.r0);
-    if (tiles == 0) continue;
-    a.tile_counter = reinterpret_cast<unsigned*>(a.status + n_tiles + r);
-    if (stage == kCompact || stage == kStep) {
-      const long long most = compact_blocks > 0 ? compact_blocks : tiles;
-      group_agg_compact_kernel<<<(unsigned)(tiles < most ? tiles : most),
-                                 kThreads, 0, st>>>(a);
-      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (all || stage == kFirst)
+    group_agg_first_kernel<<<tiles, kThreads, 0, st>>>(a);
+  if (all || stage == kCompact) {
+    long long blocks = tiles;
+    if (capacity * (8ll * n_planes + 8) > kL2Budget) {
+      const long long most = (long long)(kCompactBlocksPerSM * sms + 0.5);
+      blocks = most < 1 ? 1 : most < blocks ? most : blocks;
     }
-    if (stage == kFold || stage == kStep) {
-      const long long most = (long long)kFoldBlocksPerSM * sms;
-      group_agg_fold_kernel<<<(unsigned)(tiles < most ? tiles : most),
-                              kThreads, table_bytes, st>>>(a);
-      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    }
-    if (stage == kEmit || stage == kStep) {
-      group_agg_emit_kernel<<<(unsigned)tiles, kThreads, 0, st>>>(a);
-      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    }
-    a.tile0 += tiles;
+    group_agg_compact_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(a);
   }
-  return (int)cudaSuccess;
+  if (all || stage == kFold) {
+    const unsigned most = (unsigned)(kFoldBlocksPerSM * sms);
+    group_agg_fold_kernel<<<tiles < most ? tiles : most, kThreads,
+                            (size_t)kTable * n_planes * sizeof(double),
+                            st>>>(a);
+  }
+  if (all || stage == kEmit)
+    group_agg_emit_kernel<<<tiles, kThreads, 0, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
-// int64 words of the look-back scratch for n rows in n_ranges ranges: one
-// word per tile of kThreads rows of a range, and a tile counter a range.
-extern "C" int group_agg_scratch_words(long long n, int n_ranges) {
-  return (int)((n + kThreads - 1) / kThreads + 2 * (long long)n_ranges);
+// int64 words of the look-back scratch for n rows: one word per tile of
+// kThreads rows, and the tile counter.
+extern "C" int group_agg_scratch_words(long long n) {
+  return (int)((n + kThreads - 1) / kThreads + 1);
 }
 
 extern "C" const char* group_agg_error_string(int code) {

@@ -11,8 +11,7 @@
   ``ingest_step_spill`` (the spill split, which marks dirty blocks too).
   A session window launches ``session_step`` once per batch and
   ``session_fire`` once per fire round. A device GROUP BY batch launches
-  ``group_agg_first`` once and ``_compact``, ``_fold`` and ``_emit`` once
-  for each range of its rows that holds any (``ops/group_agg.py``).
+  ``group_agg_first``, ``_compact``, ``_fold`` and ``_emit`` once each.
   A caller resets the counters, drives a path and reads them back to show
   which kernels the path went through.
 """
@@ -53,14 +52,14 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def note_launch(kernel: str, n: int = 1) -> None:
-    """Count ``n`` launches of ``kernel`` (one C call may enqueue several).
-    A launch recorded into a CUDA graph under capture does not run then:
-    its graph's replays count it (``runtime/compiled.py``)."""
+def note_launch(kernel: str) -> None:
+    """Count one launch of ``kernel``. A launch recorded into a CUDA graph
+    under capture does not run then: its graph's replays count it
+    (``runtime/compiled.py``)."""
     if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
         return
     with _LAUNCH_LOCK:
-        KERNEL_LAUNCHES[kernel] = KERNEL_LAUNCHES.get(kernel, 0) + n
+        KERNEL_LAUNCHES[kernel] = KERNEL_LAUNCHES.get(kernel, 0) + 1
 
 
 def reset_launches() -> None:

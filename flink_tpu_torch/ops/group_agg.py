@@ -32,38 +32,31 @@ in the order of each group's first row in the batch:
 min and max fold with the reference's semantics (XLA's scatter-min and
 scatter-max on the CPU): a NaN wins, -0.0 is below +0.0.
 
-The step runs range by range: ``first`` over the whole batch, then for
-each range of rows, in order, ``compact``, ``fold`` and ``emit``. A
-slot's first row lies in the earliest range that touches it and its last
-row in the latest, so PREV is read before any fold and NEW after every
-fold, as in the reference's one program. The compaction finishes a group
-whose first row is also its last (its only row in the batch): the fold,
-a drained group's reset and NEW; the fold and the emit skip its row
-(``single``). ``range_rows`` gives the rows per range, or each range's row
-count; by default (``RANGE_ROWS``) the batch is one range: on an H100 no
-range size measured faster once the compaction finishes one-row groups
-(tools/gagg_designs.py). Each stage is a kernel of
-``csrc/group_agg.cu`` on a CUDA tensor (``group_agg_first``, ``_compact``,
-``_fold``, ``_emit``, each launch counted in ``KERNEL_LAUNCHES``; a range of
-no rows launches nothing) and its plain PyTorch version on a CPU tensor;
-``group_agg_step`` runs the schedule, ``group_agg_step_plain`` runs the
-plain versions on any device.
+The step runs four stages in order: ``first`` (each touched slot's first
+and last row), ``compact`` (the groups in first-row order, their PREV
+values), ``fold`` and ``emit`` (a drained group's reset and NEW, at the
+group's last row). The compaction finishes a group whose first row is
+also its last (its only row in the batch): the fold, a drained group's
+reset and NEW; the fold and the emit skip its row (``single``). Each stage
+is a kernel of ``csrc/group_agg.cu`` on a CUDA tensor (``group_agg_first``,
+``_compact``, ``_fold``, ``_emit``, each launch counted in
+``KERNEL_LAUNCHES``; a batch of no rows launches nothing) and its plain
+PyTorch version on a CPU tensor; ``group_agg_step`` runs the four (one call
+enqueues them all on the card), ``group_agg_step_plain`` runs the plain
+versions on any device.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 from dataclasses import dataclass
-from typing import Optional, Sequence, Union
+from typing import Optional, Sequence
 
 import torch
 
 from ..device import note_launch
 
-__all__ = ["NO_ROW", "NO_LAST", "RANGE_ROWS", "L2_BUDGET",
-           "COMPACT_BLOCKS_PER_SM",
-           "GroupAggStep", "make_step", "compact_blocks_for",
+__all__ = ["NO_ROW", "NO_LAST", "GroupAggStep", "make_step",
            "group_agg_first", "group_agg_compact",
            "group_agg_fold", "group_agg_emit", "group_agg_step",
            "group_agg_first_plain", "group_agg_compact_plain",
@@ -73,28 +66,15 @@ __all__ = ["NO_ROW", "NO_LAST", "RANGE_ROWS", "L2_BUDGET",
 NO_ROW = (1 << 31) - 1
 NO_LAST = -1
 MAX_PLANES = 32
-#: rows per range of a step that names none (None: one range)
-RANGE_ROWS: Optional[int] = None
-#: bytes of the H100's 50 MB L2 that the planes and the row scratch may
-#: fill and still be read from L2 throughout a step
-L2_BUDGET = 40 << 20
-#: compaction blocks an SM where they are not (chosen from
-#: tools/gagg_designs.py's sweep): a group's planes are loaded, folded by
-#: atomics and emitted by one thread, and fewer threads in flight keep
-#: their lines in L2 from the loads to the atomics
-COMPACT_BLOCKS_PER_SM = 1.0
 _KINDS = {"sum": 0, "min": 1, "max": 2}
 _STAGES = ("first", "compact", "fold", "emit", "step")
 _IDENTITY = {"sum": 0.0, "min": float("inf"), "max": float("-inf")}
 _I64_MAX = (1 << 63) - 1
 
-RangeRows = Union[None, int, Sequence[int]]
-
 
 @dataclass
 class GroupAggStep:
-    """One step's tensors: inputs, the scratches, the ranges (``bounds``:
-    row boundaries, 0 first, n last) and outputs."""
+    """One step's tensors: inputs, the scratches and outputs."""
 
     planes: list
     kinds: list
@@ -107,12 +87,10 @@ class GroupAggStep:
     single: torch.Tensor
     dirty: Optional[torch.Tensor]
     dirty_shift: int
-    bounds: list
     row_idx: torch.Tensor
     comp: torch.Tensor
     n_groups: torch.Tensor
     status: Optional[torch.Tensor]
-    compact_blocks: int = 0
 
     @property
     def firstpos(self) -> torch.Tensor:
@@ -122,47 +100,11 @@ class GroupAggStep:
     def lastpos(self) -> torch.Tensor:
         return self.rowpos[:, 1]
 
-    @property
-    def n_ranges(self) -> int:
-        return len(self.bounds) - 1
-
-    def launched_ranges(self, ranges: Sequence[int]) -> int:
-        """How many of ``ranges`` hold rows (a range of none launches
-        nothing)."""
-        return sum(self.bounds[r + 1] > self.bounds[r] for r in ranges)
-
 
 def new_rowpos(capacity: int, device) -> torch.Tensor:
     out = torch.empty((capacity, 2), dtype=torch.int32, device=device)
     out[:, 0] = NO_ROW
     out[:, 1] = NO_LAST
-    return out
-
-
-def compact_blocks_for(capacity: int, n_planes: int, sms: int) -> int:
-    """The compaction's blocks: 0 (a block a tile of 256 rows) when the
-    planes and the row scratch fit in ``L2_BUDGET``, else
-    ``COMPACT_BLOCKS_PER_SM`` an SM, walking the tiles."""
-    if capacity * (8 * n_planes + 8) <= L2_BUDGET:
-        return 0
-    return max(1, round(COMPACT_BLOCKS_PER_SM * sms))
-
-
-def _bounds(n: int, range_rows: RangeRows) -> list:
-    if range_rows is None:
-        range_rows = RANGE_ROWS
-    if range_rows is None:
-        return [0, n]
-    if isinstance(range_rows, int):
-        if range_rows < 1:
-            raise ValueError(f"range_rows {range_rows} < 1")
-        return list(range(0, n, range_rows)) + [n] if n else [0, 0]
-    sizes = [int(r) for r in range_rows]
-    if not sizes or min(sizes) < 0 or sum(sizes) != n:
-        raise ValueError(f"range sizes {sizes} do not cut {n} rows")
-    out = [0]
-    for r in sizes:
-        out.append(out[-1] + r)
     return out
 
 
@@ -210,148 +152,110 @@ def make_step(planes: Sequence[torch.Tensor], kinds: Sequence[str],
               cols: Sequence[int], slots: torch.Tensor, sign: torch.Tensor,
               vals: torch.Tensor, n_valid: int, rowpos: torch.Tensor,
               dirty: Optional[torch.Tensor] = None,
-              dirty_shift: int = 9,
-              range_rows: RangeRows = None) -> GroupAggStep:
-    """Check the inputs, cut the rows into ranges and allocate the outputs
-    (and, on the card, the compaction's look-back scratch)."""
+              dirty_shift: int = 9) -> GroupAggStep:
+    """Check the inputs and allocate the outputs (and, on the card, the
+    compaction's look-back scratch)."""
     _check(planes, kinds, cols, slots, sign, vals, n_valid, rowpos, dirty)
     dev = slots.device
     n = slots.numel()
-    bounds = _bounds(n, range_rows)
-    status, blocks = None, 0
+    status = None
     if dev.type == "cuda":
         from . import kernels
 
-        words = kernels.library("group_agg").group_agg_scratch_words(
-            n, len(bounds) - 1)
+        words = kernels.library("group_agg").group_agg_scratch_words(n)
         status = torch.empty(words, dtype=torch.int64, device=dev)
-        blocks = compact_blocks_for(planes[0].numel(), len(planes),
-                                    _sm_count(dev))
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return GroupAggStep(
         list(planes), list(kinds), [int(c) for c in cols], slots, sign,
         vals, int(n_valid), rowpos,
         torch.empty(n, dtype=torch.uint8, device=dev), dirty,
-        int(dirty_shift), bounds,
+        int(dirty_shift),
         torch.empty(n, dtype=torch.int32, device=dev),
         torch.empty((n, 2 * len(planes)), dtype=torch.float64, device=dev),
-        torch.zeros(1, dtype=torch.int64, device=dev), status, blocks)
+        torch.zeros(1, dtype=torch.int64, device=dev), status)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(dev: torch.device) -> int:
-    return torch.cuda.get_device_properties(dev).multi_processor_count
-
-
-def _ranges(st: GroupAggStep, r: Optional[int]) -> range:
-    return range(st.n_ranges) if r is None else range(r, r + 1)
-
-
-def _launch(stage: str, st: GroupAggStep, ranges: range) -> None:
+def _launch(stage: str, st: GroupAggStep) -> None:
     from . import kernels
 
     P = len(st.planes)
     dev = st.slots.device
-    R = st.n_ranges
     rc = kernels.library("group_agg").group_agg_launch(
         _STAGES.index(stage),
         (ctypes.c_void_p * P)(*[p.data_ptr() for p in st.planes]),
         (ctypes.c_int * P)(*[_KINDS[k] for k in st.kinds]),
-        (ctypes.c_int * P)(*st.cols), P, st.slots.data_ptr(),
-        st.sign.data_ptr(), st.vals.data_ptr() if st.vals.numel() else None,
+        (ctypes.c_int * P)(*st.cols), P, st.planes[0].numel(),
+        st.slots.data_ptr(), st.sign.data_ptr(),
+        st.vals.data_ptr() if st.vals.numel() else None,
         st.slots.numel(), st.n_valid, st.rowpos.data_ptr(),
         st.single.data_ptr(),
         st.dirty.data_ptr() if st.dirty is not None else None,
         st.dirty_shift, st.row_idx.data_ptr(), st.comp.data_ptr(),
         st.n_groups.data_ptr(), st.status.data_ptr(),
-        (ctypes.c_longlong * (R + 1))(*st.bounds), R, ranges.start,
-        ranges.stop, st.compact_blocks,
         torch.cuda.current_stream(dev).cuda_stream)
     kernels.check("group_agg", rc)
-    if stage in ("first", "step"):
-        note_launch("group_agg_first")
-    k = st.launched_ranges(ranges)
-    for name in (("compact", "fold", "emit") if stage == "step"
-                 else (stage,) if stage != "first" else ()):
-        note_launch(f"group_agg_{name}", k)
+    for name in _STAGES[:4] if stage == "step" else (stage,):
+        note_launch(f"group_agg_{name}")
 
 
 def _on_card(st: GroupAggStep) -> bool:
     return st.slots.device.type != "cpu" and st.slots.numel() > 0
 
 
-def group_agg_first(st: GroupAggStep) -> None:
-    """The first stage over the whole batch: its kernel on a CUDA tensor,
-    ``group_agg_first_plain`` on a CPU tensor."""
-    if st.slots.device.type == "cpu":
-        group_agg_first_plain(st)
-    elif _on_card(st):
-        _launch("first", st, range(0))
-
-
-def _range_stage(stage: str, plain):
-    def run(st: GroupAggStep, r: Optional[int] = None) -> None:
+def _stage(stage: str, plain):
+    def run(st: GroupAggStep) -> None:
         if st.slots.device.type == "cpu":
-            plain(st, r)
+            plain(st)
         elif _on_card(st):
-            _launch(stage, st, _ranges(st, r))
+            _launch(stage, st)
 
     run.__name__ = f"group_agg_{stage}"
-    run.__doc__ = (f"The {stage} stage over range ``r`` (None: every range "
-                   f"in order): its kernel on a CUDA tensor, "
+    run.__doc__ = (f"The {stage} stage: its kernel on a CUDA tensor, "
                    f"``group_agg_{stage}_plain`` on a CPU tensor.")
     return run
 
 
 # -- plain versions ----------------------------------------------------------
-def _valid(st: GroupAggStep, lo: int, hi: int):
-    i = torch.arange(lo, hi, device=st.slots.device)
-    return (st.slots[lo:hi] >= 0) & (i < st.n_valid), i
-
-
-def _span(st: GroupAggStep, r: int) -> tuple:
-    return st.bounds[r], st.bounds[r + 1]
+def _valid(st: GroupAggStep):
+    i = torch.arange(st.slots.numel(), device=st.slots.device)
+    return (st.slots >= 0) & (i < st.n_valid), i
 
 
 def group_agg_first_plain(st: GroupAggStep) -> None:
     """rowpos[slot] = (min(first, row), max(last, row)) over the batch's
     valid rows."""
-    valid, i = _valid(st, 0, st.slots.numel())
+    valid, i = _valid(st)
     s = st.slots[valid].long()
     rows = i[valid].to(torch.int32)
     st.firstpos.scatter_reduce_(0, s, rows, "amin")
     st.lastpos.scatter_reduce_(0, s, rows, "amax")
 
 
-def group_agg_compact_plain(st: GroupAggStep, r: Optional[int] = None) -> None:
-    """The range's rows that are their slot's first, in batch order after
-    the groups of earlier ranges: their index and every plane's value
-    before the fold. A group whose first row is also its last (its only
-    row in the batch) takes the whole step here: the fold, a drained
-    group's reset, NEW, the dirty block and both scratches restored; its
-    row is marked in ``single``. Every other group's position is left in
-    firstpos as ``~position``. The plain version keeps the running group
-    count in ``n_groups``."""
-    for rr in _ranges(st, r):
-        lo, hi = _span(st, rr)
-        valid, i = _valid(st, lo, hi)
-        s = st.slots[lo:hi].long().clamp(min=0)
-        first = valid & (st.firstpos[s] == i)
-        single = first & (st.lastpos[s] == i)
-        st.single[lo:hi] = single
-        rows = i[first]
-        g0, g = int(st.n_groups[0]), rows.numel()
-        st.row_idx[g0:g0 + g] = rows.to(torch.int32)
-        ss = st.slots[rows].long()
-        for q, plane in enumerate(st.planes):
-            st.comp[g0:g0 + g, q] = plane[ss]
-        pos = torch.arange(g0, g0 + g, device=ss.device)
-        one = single[first]
-        st.firstpos[ss[~one]] = ~pos[~one].to(torch.int32)
-        _fold_rows(st, rows[one])
-        _emit_groups(st, ss[one], pos[one])
-        st.n_groups.fill_(g0 + g)
+def group_agg_compact_plain(st: GroupAggStep) -> None:
+    """The rows that are their slot's first, in batch order: their index
+    and every plane's value before the fold. A group whose first row is
+    also its last (its only row in the batch) takes the whole step here:
+    the fold, a drained group's reset, NEW, the dirty block and both
+    scratches restored; its row is marked in ``single``. Every other
+    group's position is left in firstpos as ``~position``."""
+    valid, i = _valid(st)
+    s = st.slots.long().clamp(min=0)
+    first = valid & (st.firstpos[s] == i)
+    single = first & (st.lastpos[s] == i)
+    st.single.copy_(single)
+    rows = i[first]
+    g = rows.numel()
+    st.row_idx[:g] = rows.to(torch.int32)
+    ss = st.slots[rows].long()
+    for q, plane in enumerate(st.planes):
+        st.comp[:g, q] = plane[ss]
+    pos = torch.arange(g, device=ss.device)
+    one = single[first]
+    st.firstpos[ss[~one]] = ~pos[~one].to(torch.int32)
+    _fold_rows(st, rows[one])
+    _emit_groups(st, ss[one], pos[one])
+    st.n_groups.fill_(g)
 
 
 def _order_key(x: torch.Tensor) -> torch.Tensor:
@@ -406,57 +310,53 @@ def _emit_groups(st: GroupAggStep, s: torch.Tensor,
     st.lastpos[s] = NO_LAST
 
 
-def _others(st: GroupAggStep, lo: int, hi: int):
-    """The range's valid rows that the compaction did not take, and the
-    row indices."""
-    valid, i = _valid(st, lo, hi)
-    return valid & (st.single[lo:hi] == 0), i
+def _others(st: GroupAggStep):
+    """The valid rows that the compaction did not take, and the row
+    indices."""
+    valid, i = _valid(st)
+    return valid & (st.single == 0), i
 
 
-def group_agg_fold_plain(st: GroupAggStep, r: Optional[int] = None) -> None:
-    """Every valid row of the range folds into its slot, plane by plane,
-    but the rows the compaction took."""
-    for rr in _ranges(st, r):
-        lo, hi = _span(st, rr)
-        rows, i = _others(st, lo, hi)
-        _fold_rows(st, i[rows])
+def group_agg_fold_plain(st: GroupAggStep) -> None:
+    """Every valid row folds into its slot, plane by plane, but the rows
+    the compaction took."""
+    rows, i = _others(st)
+    _fold_rows(st, i[rows])
 
 
-def group_agg_emit_plain(st: GroupAggStep, r: Optional[int] = None) -> None:
-    """Per group whose last row lies in the range (but the one-row groups
-    the compaction emitted): drained (count <= 0) planes to their
-    identities, the NEW values at the group's position, the dirty block,
-    and both scratches restored."""
-    for rr in _ranges(st, r):
-        lo, hi = _span(st, rr)
-        rows, i = _others(st, lo, hi)
-        s = st.slots[lo:hi].long().clamp(min=0)
-        s = s[rows & (st.lastpos[s] == i)]
-        _emit_groups(st, s, (~st.firstpos[s]).long())
+def group_agg_emit_plain(st: GroupAggStep) -> None:
+    """Per group of more than one row (the compaction emitted the others),
+    at its last row: drained (count <= 0) planes to their identities, the
+    NEW values at the group's position, the dirty block, and both
+    scratches restored."""
+    rows, i = _others(st)
+    s = st.slots.long().clamp(min=0)
+    s = s[rows & (st.lastpos[s] == i)]
+    _emit_groups(st, s, (~st.firstpos[s]).long())
 
 
-group_agg_compact = _range_stage("compact", group_agg_compact_plain)
-group_agg_fold = _range_stage("fold", group_agg_fold_plain)
-group_agg_emit = _range_stage("emit", group_agg_emit_plain)
+group_agg_first = _stage("first", group_agg_first_plain)
+group_agg_compact = _stage("compact", group_agg_compact_plain)
+group_agg_fold = _stage("fold", group_agg_fold_plain)
+group_agg_emit = _stage("emit", group_agg_emit_plain)
 
 
 def _plain_schedule(st: GroupAggStep) -> None:
     group_agg_first_plain(st)
-    for r in range(st.n_ranges):
-        group_agg_compact_plain(st, r)
-        group_agg_fold_plain(st, r)
-        group_agg_emit_plain(st, r)
+    group_agg_compact_plain(st)
+    group_agg_fold_plain(st)
+    group_agg_emit_plain(st)
 
 
 def group_agg_step(*args, **kw) -> GroupAggStep:
-    """One step (``make_step``'s arguments): the first stage, then each
-    range's compaction, fold and emit, as kernels on a CUDA tensor (one
-    call enqueues them all). Returns the step with its outputs."""
+    """One step (``make_step``'s arguments): the four stages in order, as
+    kernels on a CUDA tensor (one call enqueues them all). Returns the
+    step with its outputs."""
     st = make_step(*args, **kw)
     if st.slots.device.type == "cpu":
         _plain_schedule(st)
     elif _on_card(st):
-        _launch("step", st, range(st.n_ranges))
+        _launch("step", st)
     return st
 
 

@@ -40,7 +40,6 @@ _I64 = ctypes.c_longlong
 _U64 = ctypes.c_ulonglong
 _I32 = ctypes.c_int
 _PI32 = ctypes.POINTER(ctypes.c_int)
-_PI64 = ctypes.POINTER(ctypes.c_longlong)
 _PP = ctypes.POINTER(ctypes.c_void_p)
 #: source stem -> {C entry: argtypes}; every entry returns int
 SOURCES = {
@@ -72,10 +71,10 @@ SOURCES = {
         "session_fire_scratch_words": [_I64],
     },
     "group_agg": {
-        "group_agg_launch": [_I32, _PP, _PI32, _PI32, _I32, _P, _P, _P, _I64,
-                             _I64, _P, _P, _P, _I32, _P, _P, _P, _P, _PI64,
-                             _I32, _I32, _I32, _I32, _P],
-        "group_agg_scratch_words": [_I64, _I32],
+        "group_agg_launch": [_I32, _PP, _PI32, _PI32, _I32, _I64, _P, _P,
+                             _P, _I64, _I64, _P, _P, _P, _I32, _P, _P, _P,
+                             _P, _P],
+        "group_agg_scratch_words": [_I64],
     },
     "window_seal": {
         "window_seal_launch": [_I64, _I64, _I32, _PP, _PP, _PP, _PI32, _PI32,

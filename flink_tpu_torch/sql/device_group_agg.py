@@ -7,11 +7,9 @@ and emit UPDATE_BEFORE/UPDATE_AFTER (INSERT first, DELETE on full
 retraction). Each micro-batch is one lookup-or-insert on the state
 backend's hash table (``hash_probe``, growing by rehash as the reference's
 synchronous mode does) and one group aggregation step
-(``ops/group_agg.py``: on the card a first-occurrence kernel, then a
-compaction, a fold and an emit kernel for each range of the batch's rows)
-over dense ``[capacity]`` float64 planes: PREV rows of the touched groups,
-the folds, drained groups reset, NEW rows, compacted in first-occurrence
-order.
+(``ops/group_agg.py``: four kernels on the card) over dense ``[capacity]``
+float64 planes: PREV rows of the touched groups, the folds, drained groups
+reset, NEW rows, compacted in first-occurrence order.
 
 Host work per batch: the key combine and the upload of keys, signs and
 value columns; one read of the group count; one copy home of the
@@ -112,12 +110,10 @@ class DeviceGroupAggOperator(OneInputOperator):
         #: seconds by part, summed over batches: the key combine and sign
         #: (prep), the upload, the probe (with any rehash), the step's
         #: enqueue, the wait for the group count, the copy home and the
-        #: changelog assembly; batches, the step's ranges of rows (each a
-        #: compaction, fold and emit launch on the card) and groups emitted
-        self.stats = {"batches": 0, "rows": 0, "ranges": 0, "groups": 0,
-                      "prep_s": 0.0, "upload_s": 0.0, "probe_s": 0.0,
-                      "step_s": 0.0, "sync_s": 0.0, "d2h_s": 0.0,
-                      "changelog_s": 0.0}
+        #: changelog assembly; batches and groups emitted
+        self.stats = {"batches": 0, "rows": 0, "groups": 0, "prep_s": 0.0,
+                      "upload_s": 0.0, "probe_s": 0.0, "step_s": 0.0,
+                      "sync_s": 0.0, "d2h_s": 0.0, "changelog_s": 0.0}
         #: the capacity after each rehash, in order
         self.rehashes: list[int] = []
 
@@ -190,7 +186,6 @@ class DeviceGroupAggOperator(OneInputOperator):
         s = self.stats
         s["batches"] += 1
         s["rows"] += batch.n
-        s["ranges"] += st.launched_ranges(range(st.n_ranges))
         s["groups"] += g
         for k, a, b in (("prep_s", t0, t1), ("upload_s", t1, t2),
                         ("probe_s", t2, t3), ("step_s", t3, t4),

@@ -1,23 +1,20 @@
-"""The device GROUP BY step run range by range
-(``ops/group_agg.py::group_agg_step_plain`` with ``range_rows``) against
-the reference's ``_gagg_program`` and against the same step in one range,
-on the CPU.
+"""The device GROUP BY step's plain version
+(``ops/group_agg.py::group_agg_step_plain``) against the reference's
+``_gagg_program``, on the CPU, where its two paths meet: a group of one
+row in the batch (finished by the compaction) and a group of several
+(folded, then emitted at its last row).
 
-The step runs the first stage over the whole batch, then each range's
-compaction, fold and emit in order. On chip_smoke.py's range cases
-(``GAGG_RANGE_CASES``: a slot in every range, a group drained in one range
-and re-inserted in a later one, ranges of 257 rows, ``n_valid < n``,
-+-inf, -0.0 and NaN in min and max, 32 planes, empty ranges, runs of one
-slot cut by range boundaries) the group count, row indices, PREV and NEW
-rows and every plane equal both bit for bit (NaN where NaN), the dirty
-blocks equal the one-range step's (the reference also marks block 0 for
-invalid rows), and both halves of the row scratch (first and last row)
-are back at their sentinels after every step. The compaction finishes a
-group of one row in the batch itself; the cases hold such groups beside
-groups of several rows. Also: how a step is cut into ranges and how many
-blocks its compaction takes, the stages run stage by stage over every
-range (as chip_smoke.py times them alone), and the operator over many
-ranges against the reference operator.
+On chip_smoke.py's cases (``GAGG_STEP_CASES``: a slot spread over the
+whole batch, a group drained and re-inserted within a batch, batches not
+a multiple of 256 rows, ``n_valid < n``, +-inf, -0.0 and NaN in min and
+max, 32 planes with groups of one row and of several, batches with
+nothing to fold, runs of one slot across warps and tiles, 32 planes of
+one-row groups) the group count, row indices, PREV and NEW rows and every
+plane equal the reference's bit for bit (NaN where NaN), and both halves
+of the row scratch (first and last row) are back at their sentinels after
+every step. Also: ``make_step``'s input checks, the stages run one by one
+(as chip_smoke.py times them alone) against the step, and the operator
+against the reference operator across a rehash and a restore.
 
 Values are integers or specials, so every sum is exact in any order:
 tolerance exact.
@@ -89,22 +86,19 @@ def _ref_run(c: dict) -> list:
     return out
 
 
-def _port_run(c: dict, one_range: bool = False) -> list:
-    """The plain step over the case's batches, in the case's ranges or in
-    one; per batch (groups, row_idx, prev, new, planes, dirty, ranges)."""
+def _port_run(c: dict) -> list:
+    """The plain step over the case's batches; per batch (groups, row_idx,
+    prev, new, planes)."""
     st = cs.gagg_state(torch, CPU, c)
     P = len(c["kinds"])
     out = []
     for raw in c["batches"]:
         b = cs.gagg_batch_on(torch, CPU, st, raw)
-        if one_range:
-            b["range_rows"] = [raw["slots"].size]
         step = cs.gagg_step_on(ga.group_agg_step_plain, c, st, b)
         g = int(step.n_groups[0])
         comp = step.comp[:g].numpy()
         out.append((g, step.row_idx[:g].numpy(), comp[:, :P], comp[:, P:],
-                    [p.numpy().copy() for p in st["planes"]],
-                    st["dirty"].numpy().copy(), step.n_ranges))
+                    [p.numpy().copy() for p in st["planes"]]))
         assert bool((st["firstpos"] == ga.NO_ROW).all())
         assert bool((st["lastpos"] == ga.NO_LAST).all())
     return out
@@ -120,60 +114,47 @@ def _assert_same(port: list, other: list, what: str) -> None:
             assert cs.same_bits(a, b), f"{what} batch {j}: plane {q}"
 
 
-@pytest.mark.parametrize("case", cs.GAGG_RANGE_CASES)
-def test_ranges_equal_reference_and_one_range(case):
+@pytest.mark.parametrize("case", cs.GAGG_STEP_CASES)
+def test_step_case_equals_reference(case):
     c = cs.gagg_edge_config(case)
-    ranged = _port_run(c)
-    one = _port_run(c, one_range=True)
-    _assert_same(ranged, _ref_run(c), "reference")
-    _assert_same(ranged, one, "one range")
-    for j, (p, o) in enumerate(zip(ranged, one)):
-        assert np.array_equal(p[5], o[5]), f"batch {j}: dirty"
-    # the case runs the range schedule, not one range a batch
-    assert max(p[6] for p in ranged) > 1
+    port = _port_run(c)
+    _assert_same(port, _ref_run(c), "reference")
 
 
-def test_ranges_and_compaction_blocks():
-    # the 10M GROUP BY's 7 planes over 2^24 slots exceed L2: the
-    # compaction's blocks walk the tiles, one an SM
-    assert ga.compact_blocks_for(1 << 24, 7, 132) == 132
-    # TPC-H Q1: 12 planes over 2^16 slots fit in L2: a block a tile
-    assert ga.compact_blocks_for(1 << 16, 12, 132) == 0
-    assert ga.compact_blocks_for(1 << 19, 7, 132) == 0
-    assert ga.compact_blocks_for(1 << 20, 7, 132) == 132
-    # the bounds a step is cut into
-    c = cs.gagg_edge_config("ragged_ranges")
+def test_make_step_checks_its_inputs():
+    c = cs.gagg_edge_config("odd_batches")
     st = cs.gagg_state(torch, CPU, c)
     b = cs.gagg_batch_on(torch, CPU, st, c["batches"][0])
-    step = ga.make_step(st["planes"], c["kinds"], c["cols"], b["slots"],
-                        b["sign"], b["vals"], b["n_valid"], st["rowpos"],
-                        range_rows=1000)
-    assert step.bounds == [0, 1000, 2000, 3000]
-    step = ga.make_step(st["planes"], c["kinds"], c["cols"], b["slots"],
-                        b["sign"], b["vals"], b["n_valid"], st["rowpos"],
-                        range_rows=[0, 3000, 0])
-    assert step.bounds == [0, 0, 3000, 3000]
-    assert step.launched_ranges(range(step.n_ranges)) == 1
-    step = ga.make_step(st["planes"], c["kinds"], c["cols"], b["slots"],
-                        b["sign"], b["vals"], b["n_valid"], st["rowpos"])
-    assert step.bounds == [0, 3000] and step.compact_blocks == 0
-    with pytest.raises(ValueError):
-        ga.make_step(st["planes"], c["kinds"], c["cols"], b["slots"],
-                     b["sign"], b["vals"], b["n_valid"], st["rowpos"],
-                     range_rows=[1000, 1000])
+    args = [st["planes"], c["kinds"], c["cols"], b["slots"], b["sign"],
+            b["vals"], b["n_valid"], st["rowpos"]]
+    step = ga.make_step(*args)
+    assert step.status is None and step.n_valid == 3000
+    assert step.comp.shape == (3000, 2 * len(c["kinds"]))
+    bad = {
+        "too many planes": (0, [st["planes"][0]] * 33),
+        "plane 0 not the row count": (1, ("min",) + c["kinds"][1:]),
+        "a min plane of the sign": (2, c["cols"][:3] + (-1,)
+                                    + c["cols"][4:]),
+        "int64 slots": (3, b["slots"].long()),
+        "n_valid past n": (6, 3001),
+        "a first-row scratch only": (7, st["rowpos"][:, 0].contiguous()),
+    }
+    for what, (k, value) in bad.items():
+        with pytest.raises(ValueError):
+            ga.make_step(*args[:k], value, *args[k + 1:])
+            pytest.fail(what)
 
 
 def test_stage_by_stage_equals_the_step():
-    """Each stage over every range, one stage after another (as the
-    stages are timed alone), gives the range-by-range step's outputs."""
-    c = cs.gagg_edge_config("slot_in_every_range")
+    """Each stage, one after another (as the stages are timed alone),
+    gives the step's outputs."""
+    c = cs.gagg_edge_config("slot_spread")
     a, b = cs.gagg_state(torch, CPU, c), cs.gagg_state(torch, CPU, c)
     for raw in c["batches"]:
         batch = cs.gagg_batch_on(torch, CPU, a, raw)
         want = cs.gagg_outputs(torch, cs.gagg_step_on(
             ga.group_agg_step_plain, c, a, batch))
         st = cs.gagg_step_on(ga.make_step, c, b, batch)
-        assert st.n_ranges == 8
         ga.group_agg_first(st)
         ga.group_agg_compact(st)
         ga.group_agg_fold(st)
@@ -198,10 +179,10 @@ def _port_op():
                                   capacity=64, device="cpu")
 
 
-def test_operator_over_many_ranges_equals_reference(monkeypatch):
-    """Every batch cut into ranges of 256 rows: the changelog stays the
-    reference's, across a rehash and a restore."""
-    monkeypatch.setattr(ga, "RANGE_ROWS", 256)
+def test_operator_across_rehash_and_restore_equals_reference():
+    """Batches of groups of one row and of several: the changelog stays
+    the reference's, across a rehash and a restore (each a fresh row
+    scratch)."""
     rng = np.random.default_rng(11)
     port = OneInputOperatorTestHarness(_port_op(), Schema(SCHEMA))
     ref = RefHarness(RefOp(["k"], [RefSpec(*a) for a in AGGS], capacity=64),
@@ -218,7 +199,7 @@ def test_operator_over_many_ranges_equals_reference(monkeypatch):
     for t in range(4):
         feed((port, ref), t)
     op = port.operator
-    assert op.rehashes and op.stats["ranges"] > 2 * op.stats["batches"]
+    assert op.rehashes
     snap = port.snapshot()
     restored = OneInputOperatorTestHarness.restored(
         _port_op, snap, schema=Schema(SCHEMA))

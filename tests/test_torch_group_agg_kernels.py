@@ -1,8 +1,7 @@
 """The group aggregation kernels of csrc/group_agg.cu (the stages of
-``ops/group_agg.py::group_agg_step``, run range by range) against
-``group_agg_step_plain`` in the same ranges on the card, on the
-adversarial inputs of chip_smoke.py (``GAGG_EDGE_CASES``,
-``GAGG_RANGE_CASES``, ``GAGG_CARD_CASES``):
+``ops/group_agg.py::group_agg_step``) against ``group_agg_step_plain``
+on the card, on the adversarial inputs of chip_smoke.py
+(``GAGG_EDGE_CASES``, ``GAGG_STEP_CASES``, ``GAGG_CARD_CASES``):
 
 * every row on one key, across many warps and tiles;
 * a group drained and re-inserted within one batch (no reset) and across
@@ -12,18 +11,19 @@ adversarial inputs of chip_smoke.py (``GAGG_EDGE_CASES``,
 * rows with slot -1 and rows past n_valid, next to a real slot 0;
 * 0, 1, 255, 257 and 1000 rows; 2^16 rows over 6 groups; 32 planes;
 * composite keys (two integer columns combined, then probed);
-* the range schedule: a slot in every range, a group drained in one range
-  and re-inserted in a later one, ranges of 257 and 37 rows (a warp's peer
-  set cut by a range boundary), n_valid < n, specials, 32 planes, empty
-  ranges;
-* all 2^19 rows on one slot and on 6 slots (the fold's pre-fold table), in
-  one range and in 8; 64 slots a tile in 4-row peer sets, no slot shared
-  between tiles (a fold block walks more distinct slots than its table
-  holds); all-distinct rows at 2^24 slots in 8 ranges.
+* groups of one row (finished by the compaction) and of several side by
+  side: a slot spread over the whole batch, a group drained and
+  re-inserted within a batch, batches of 3000, 2999 and 257 rows,
+  n_valid < n, specials, 32 planes, batches with nothing to fold, runs of
+  7 and 37 rows on one slot across warps and tiles;
+* all 2^19 rows on one slot and on 6 slots (the fold's pre-fold table);
+  64 slots a tile in 4-row peer sets, no slot shared between tiles (a
+  fold block walks more distinct slots than its table holds);
+  all-distinct rows at 2^24 slots.
 
-Both sides get the same slots and ranges; the group count, row indices,
-PREV and NEW rows, every plane, the dirty bitmap and both scratches are
-compared bit for bit (values are integers or specials, so every sum is exact in
+Both sides get the same slots; the group count, row indices, PREV and
+NEW rows, every plane, the dirty bitmap and both scratches are compared
+bit for bit (values are integers or specials, so every sum is exact in
 any order: tolerance exact). One further test runs the device GROUP BY
 operator on the card and on the CPU over the same batches: the changelogs
 must be equal row for row.
@@ -62,7 +62,7 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("case", cs.GAGG_EDGE_CASES + cs.GAGG_RANGE_CASES
+@pytest.mark.parametrize("case", cs.GAGG_EDGE_CASES + cs.GAGG_STEP_CASES
                          + cs.GAGG_CARD_CASES)
 def test_kernel_equals_plain(dev, case):
     seen = cs.check_gagg_edge(torch, dev, case)
