@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of flink_tpu_torch on one CUDA card: build, kernels, Q5, Q7,
-checkpoints, state beyond an HBM budget, session windows (Q11), and SQL
-GROUP BY on the card (TPC-H Q1, 10M keys).
+checkpoints, state beyond an HBM budget, session windows (Q11), SQL
+GROUP BY on the card (TPC-H Q1, 10M keys), and the interval join of two
+streams over device list state (Nexmark Q7's join, 100K and 10M
+auctions).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -202,7 +204,40 @@ Run from the repository root:  python3 chip_smoke.py
     changelog table with one batch of UPDATE_BEFORE rows, some groups
     draining to DELETE). Rows/s, host seconds per batch by part, the
     kernels' device ms and launches, peak device memory.
-20. The kernels line, the nvidia-smi line, then the last line
+20. The device list state of the interval join (csrc/device_lists.cu).
+    In the kernel phase (``check_device_lists``) list_append, list_probe
+    and list_prune against their plain versions at both join cells'
+    shapes (capacity 2^25 a side and 2^18, 32 rows a key): the bids' lists
+    holding a pane's bids, the next batch of 2^15 appended, the pane's
+    maxes (one a distinct auction, about 3.4M at 10M) probing them with
+    their interval, the next watermark's prune; a fire's maxes appended to
+    the maxes' lists (C = 3, maxprice float32), a batch of bids probing
+    them, the prune that drops them all. Flags, failed rows, every key's
+    whole list, the matches in order and the counts equal; each timed
+    (the L2 flushed, the state put back before each launch) beside its
+    plain version, with its byte bound, its 32-byte sector floor and that
+    floor at the card's measured random rates. Then the adversarial
+    sequences (``LIST_EDGE_CASES``: a hot key past L, in-batch duplicates,
+    ragged batches and keys, a horizon that drops everything, ts at the
+    exact bounds, float and bool columns, lists out of ts order, lists of
+    256 rows of 9 columns, one row) and a store on the card against one
+    on the CPU through rehashes and a dead-key rebuild, snapshots equal
+    field by field.
+21. The Q7 join cells through ``env.execute()``: bench.py::
+    bench_framework_q7_join (bids -> tumbling max per auction on the
+    device window -> connect(bids) -> IntervalJoinOperator -> is-winner),
+    8 panes of 10 000 ms, batches of 2^15, 32 rows a key, a watermark
+    after every batch: ``q7_join_ref`` (100K auctions, 2^18 bids, window
+    and stores at 2^18, host batches as in the reference) and
+    ``q7_join_10m`` (10M auctions, 2^25 device-batch bids, window 2^24,
+    stores 2^25 a side). A warm-up run of 2^16 bids, 2 timed runs (launch
+    counters zeroed before each: every list kernel launched, the window's
+    probe at least once a batch on device batches) and a profiled run; every run's
+    winners (each bid whose price is its auction's pane maximum) against
+    a numpy oracle as a multiset. Bids/s, peak memory, prunes run and
+    skipped, rebuilds, host seconds a batch by part, kernel builds after
+    the warm-up, idle share and the profiled busy split.
+22. The kernels line, the nvidia-smi line, then the last line
     {"ok": true, "device": {...}}.
 
 ``python3 chip_smoke.py --parent-kernels DIR`` instead times, with the same
@@ -5130,6 +5165,902 @@ def sql_groupby_phase(torch, dev) -> dict:
     return {"sql_groupby_10m": rec}
 
 
+# -- device list state and the interval join (Q7 join) ---------------------
+LIST_KERNELS = ("list_append", "list_probe", "list_prune")
+#: kernel -> the launch's CUDA kernels (the profiler names them so)
+LIST_SYMBOLS = (("list_append", "list_resolve_kernel"),
+                ("list_probe", "list_probe_count_kernel"),
+                ("list_prune", "list_prune_scan_kernel"))
+#: the CUDA kernels of one launch of each
+LIST_PARTS = {"list_append": ("list_resolve_kernel", "list_single_kernel",
+                              "list_segment_kernel", "list_rank_kernel",
+                              "list_finish_kernel"),
+              "list_probe": ("list_probe_count_kernel",
+                             "list_probe_scan_kernel",
+                             "list_probe_write_kernel"),
+              "list_prune": ("list_prune_scan_kernel",
+                             "list_prune_move_kernel")}
+LIST_EDGE_CASES = ("hot_key_past_L", "duplicates", "ragged", "drop_all",
+                   "lo_hi_exact", "float_columns", "unsorted_prune",
+                   "wide_list", "one_row")
+Q7J_PANE_MS, Q7J_PANES, Q7J_BATCH = 10_000, 8, 1 << 15
+Q7J_ROWS_PER_KEY = 32          # bench.py's rows_per_key
+Q7J_RUNS = 2                   # timed runs of each join cell
+#: bench.py::bench_framework_q7_join (:590-677), and the same job at 10M
+#: auctions; the 10M cell's bids are device batches (datagen(device=True))
+Q7J_CELLS = {
+    "q7_join_ref": {"auctions": 100_000, "bids": 1 << 18,
+                    "window_capacity": 1 << 18, "store_capacity": 1 << 18,
+                    "device_batches": False},
+    "q7_join_10m": {"auctions": 10_000_000, "bids": 1 << 25,
+                    "window_capacity": 1 << 24, "store_capacity": 1 << 25,
+                    "device_batches": True},
+}
+
+
+def _list_batch(rng, n: int, pool, t0: int = 0, span: int = 1000,
+                dtypes=(np.int64, np.float64)) -> tuple:
+    keys = np.asarray(pool)[rng.integers(0, len(pool), n)].astype(np.int64)
+    ts = np.sort(rng.integers(t0, t0 + span, n)).astype(np.int64)
+    cols = []
+    for d in dtypes:
+        d = np.dtype(d)
+        if d.kind == "f":
+            cols.append((rng.integers(-64, 64, n) / 8.0).astype(d))
+        elif d.kind == "b":
+            cols.append(rng.random(n) < 0.5)
+        else:
+            cols.append(rng.integers(-1000, 1000, n).astype(d))
+    return keys, ts, cols
+
+
+def list_edge_config(case: str) -> dict:
+    """An adversarial sequence of list operations: ("append", keys, ts,
+    cols), ("prune", horizon), ("probe", keys, ts, lo_off, hi_off) and
+    ("probe_batch", keys), on a state of ``capacity`` slots and ``L`` rows
+    a key that never needs to grow."""
+    rng = np.random.default_rng(LIST_EDGE_CASES.index(case) + 40)
+    dtypes = [np.dtype(np.int64), np.dtype(np.float64)]
+    cap, L, ops = 1 << 12, 32, []
+    if case == "hot_key_past_L":
+        # one key 40 times in one batch among others: the first L - 3 of
+        # its rows (batch order) fit behind the 3 it holds, then overflow
+        L = 8
+        k, t, c = _list_batch(rng, 3, [7])
+        ops.append(("append", k, t, c))
+        k, t, c = _list_batch(rng, 60, [7, 7, 7, 1, 2], t0=1000)
+        ops += [("append", k, t, c), ("probe_batch", np.array([7, 1, 2]))]
+    elif case == "duplicates":
+        L = 128
+        for i, n in enumerate((1000, 1, 777)):
+            ops.append(("append", *_list_batch(rng, n, np.arange(50),
+                                               t0=1000 * i)))
+        ops += [("probe", np.arange(-3, 53), np.full(56, 1500), -600, 600),
+                ("prune", 800), ("probe_batch", np.arange(50))]
+    elif case == "ragged":
+        pool = rng.integers(-(1 << 62), 1 << 62, 3000)
+        pool[:3] = [0, -1, INT64_MAX]        # INT64_MAX: the sanitised key
+        for i, n in enumerate((1, 255, 257, 4097, 31)):
+            ops.append(("append", *_list_batch(rng, n, pool[:1500 + 300 * i],
+                                               t0=100 * i, span=300)))
+        probe = pool[rng.integers(0, 3000, 2000)]
+        ops += [("probe", probe, rng.integers(0, 800, 2000), -100, 50),
+                ("probe_batch", probe)]
+    elif case == "drop_all":
+        k, t, c = _list_batch(rng, 3000, np.arange(800))
+        ops += [("append", k, t, c), ("prune", 1 << 40),
+                ("probe_batch", np.arange(800)),
+                ("append", *_list_batch(rng, 500, np.arange(1200),
+                                        t0=1 << 41)),
+                ("probe_batch", np.arange(1200))]
+    elif case == "lo_hi_exact":
+        k, t, c = _list_batch(rng, 2000, np.arange(300))
+        pk = k[rng.integers(0, 2000, 1000)]
+        at = t[rng.integers(0, 2000, 1000)]
+        ops += [("append", k, t, c), ("probe", pk, at, 0, 0),
+                ("probe", pk, at + 10, -10, -10), ("probe", pk, at, -5, 7),
+                ("probe", pk, at, 3, 2)]
+    elif case == "float_columns":
+        dtypes = [np.dtype(np.float32), np.dtype(np.float64),
+                  np.dtype(np.bool_), np.dtype(np.int32)]
+        k, t, c = _list_batch(rng, 1500, np.arange(200), dtypes=dtypes)
+        c[0][:4] = [np.inf, -0.0, np.nan, 1e-30]
+        c[1][:4] = [np.nan, -np.inf, 1e300, -0.0]
+        ops += [("append", k, t, c), ("probe_batch", np.arange(200)),
+                ("prune", 500), ("probe", k, t, -200, 200)]
+    elif case == "unsorted_prune":
+        # lists out of ts order, two chunks of 32 a list: the move pass
+        L = 64
+        k, t, c = _list_batch(rng, 6000, np.arange(150))
+        perm = rng.permutation(6000)
+        ops += [("append", k[perm], t[perm], [x[perm] for x in c]),
+                ("prune", 400), ("probe_batch", np.arange(150)),
+                ("prune", 700), ("probe", k, t, -50, 50)]
+    elif case == "wide_list":
+        # 256 rows of 9 columns: 18 KiB of shared memory a warp
+        L, dtypes = 256, [np.dtype(np.int64)] * 8
+        k, t, c = _list_batch(rng, 5000, np.arange(40), dtypes=dtypes)
+        perm = rng.permutation(5000)
+        ops += [("append", k[perm], t[perm], [x[perm] for x in c]),
+                ("prune", 333), ("probe_batch", np.arange(40))]
+    elif case == "one_row":
+        ops += [("append", *_list_batch(rng, 1, [5])),
+                ("probe", np.array([5]), np.array([0]), -10000, 10000),
+                ("prune", 1 << 20), ("probe_batch", np.array([5]))]
+    else:
+        raise ValueError(case)
+    return {"dtypes": dtypes, "capacity": cap, "L": L, "ops": ops}
+
+
+def apply_list_op(store, op):
+    """One operation on a list store of either package; the probes'
+    results as plain lists (matches in order; each key's live rows)."""
+    kind = op[0]
+    if kind == "append":
+        store.append_batch(*op[1:])
+        return None
+    if kind == "prune":
+        store.prune(op[1])
+        return None
+    keys = np.asarray(op[1], np.int64)
+    if kind == "probe" and hasattr(store, "probe_range"):
+        import torch
+        ts = np.asarray(op[2], np.int64)
+        bi, packed = store.probe_range(
+            torch.from_numpy(keys).to(store.device),
+            torch.from_numpy(ts).to(store.device), op[3], op[4])
+        return bi.cpu().tolist(), packed.cpu().tolist()
+    packed, counts = store.probe_batch(keys)
+    if kind == "probe":      # the reference: the join's host mask
+        ts = np.asarray(op[2], np.int64)
+        ots = packed[:, :, 0]
+        m = (np.arange(packed.shape[1])[None, :] < counts[:, None]) \
+            & (ots >= (ts + op[3])[:, None]) & (ots <= (ts + op[4])[:, None])
+        bi, li = np.nonzero(m)
+        return bi.tolist(), packed[bi, li].tolist()
+    return counts.tolist(), [packed[b, :c].tolist()
+                             for b, c in enumerate(counts)]
+
+
+def list_state(torch, dev, cap: int, L: int, C: int) -> dict:
+    """An empty list state: table, rows (not cleared: a claim zeroes a
+    list), counts, and the zero scratch."""
+    from flink_tpu_torch.ops.hash_table import make_table
+
+    return {"table": make_table(cap, dev),
+            "rows": torch.empty((cap, L, C), dtype=torch.int64, device=dev),
+            "counts": torch.zeros(cap, dtype=torch.int32, device=dev),
+            "hits": torch.zeros(cap, dtype=torch.int64, device=dev)}
+
+
+def lists_by_key(torch, st: dict, keys=None) -> tuple:
+    """(sorted keys, their counts, their whole [L, C] lists) of a state:
+    every occupied key, or ``keys`` (a tensor; absent ones dropped)."""
+    from flink_tpu_torch.ops.hash_table import EMPTY_KEY, lookup
+
+    if keys is None:
+        slots = torch.nonzero(st["table"] != EMPTY_KEY).flatten()
+    else:
+        slots = lookup(st["table"], torch.unique(keys).contiguous())
+        slots = slots[slots >= 0].to(torch.int64)
+    k = st["table"][slots]
+    order = torch.argsort(k)
+    slots = slots[order]
+    return (k[order].cpu().numpy(), st["counts"][slots].cpu().numpy(),
+            st["rows"][slots].cpu().numpy())
+
+
+def assert_lists_equal(torch, a: dict, b: dict, what: str, keys=None,
+                       live_only: bool = False) -> None:
+    ka, ca, ra = lists_by_key(torch, a, keys)
+    kb, cb, rb = lists_by_key(torch, b, keys)
+    if not (np.array_equal(ka, kb) and np.array_equal(ca, cb)):
+        raise AssertionError(f"{what}: keys or counts differ "
+                             f"({len(ka)} and {len(kb)} keys)")
+    if live_only:
+        live = np.arange(ra.shape[1])[None, :] < ca[:, None]
+        ra, rb = ra[live], rb[live]
+    if not np.array_equal(ra, rb):
+        raise AssertionError(f"{what}: lists differ")
+
+
+def _packed_on(torch, dev, ts, cols, dtypes):
+    from flink_tpu_torch.state.device_lists import pack_columns
+
+    return pack_columns(torch.from_numpy(np.asarray(ts, np.int64)),
+                        [torch.from_numpy(np.ascontiguousarray(c))
+                         for c in cols], dtypes).to(dev)
+
+
+def check_list_edge(torch, dev, case: str) -> dict:
+    """One ``LIST_EDGE_CASES`` sequence through the kernels and, on a
+    second state, through the plain versions, on the card: after every
+    operation the flags, failed rows, probe outputs (in order), live
+    counts, and every key's whole list (rows past its count too) equal,
+    and the kernels' scratch back at zero."""
+    from flink_tpu_torch.ops import device_lists as dl
+
+    c = list_edge_config(case)
+    C = 1 + len(c["dtypes"])
+    k = list_state(torch, dev, c["capacity"], c["L"], C)
+    p = list_state(torch, dev, c["capacity"], c["L"], C)
+    plain_args = ("table", "rows", "counts")
+    for i, op in enumerate(c["ops"]):
+        what = f"list edge {case} op {i} ({op[0]})"
+        if op[0] == "append":
+            keys = torch.from_numpy(op[1]).to(dev)
+            packed = _packed_on(torch, dev, op[2], op[3], c["dtypes"])
+            fk, xk = dl.list_append(*(k[n] for n in plain_args), k["hits"],
+                                    keys, packed)
+            fp, xp = dl.list_append_plain(*(p[n] for n in plain_args),
+                                          keys, packed)
+            same = (fk.tolist() == fp.tolist()
+                    and torch.equal(xk.cpu(), xp.cpu()))
+        elif op[0] == "prune":
+            same = int(dl.list_prune(k["rows"], k["counts"], k["hits"],
+                                     op[1])) \
+                == int(dl.list_prune_plain(p["rows"], p["counts"], op[1]))
+        else:
+            keys = torch.from_numpy(np.asarray(op[1], np.int64)).to(dev)
+            ts = (torch.from_numpy(np.asarray(op[2], np.int64)).to(dev)
+                  if op[0] == "probe" else None)
+            rng = op[3:5] if op[0] == "probe" else (0, 0)
+            got = dl.list_probe(k["table"], k["rows"], k["counts"], keys,
+                                ts, *rng)
+            want = dl.list_probe_plain(p["table"], p["rows"], p["counts"],
+                                       keys, ts, *rng)
+            same = all(torch.equal(g.cpu(), w.cpu())
+                       for g, w in zip(got, want))
+        if not same:
+            raise AssertionError(f"{what}: kernel and plain version differ")
+        assert_lists_equal(torch, k, p, what)
+        if bool((k["hits"] != 0).any()):
+            raise AssertionError(f"{what}: the scratch is not zero again")
+    return {"ops": len(c["ops"]), "L": c["L"], "C": C}
+
+
+def list_snapshots_equal(a: dict, b: dict) -> bool:
+    """Two list snapshots equal field by field after a canonical sort by
+    key."""
+    def canon(s):
+        order = np.argsort(np.asarray(s["keys"]), kind="stable")
+        return [np.asarray(s[f])[order] for f in ("keys", "key_groups",
+                                                   "rows", "counts")]
+    if any(a[f] != b[f] for f in ("kind", "L", "C", "dtypes")):
+        return False
+    return all(x.dtype == y.dtype and np.array_equal(x, y)
+               for x, y in zip(canon(a), canon(b)))
+
+
+def check_list_store(torch, dev) -> dict:
+    """A DeviceListStore on the card and one on the CPU through the same
+    appends (in-batch duplicates, a hot key), probes, prunes, rehashes
+    (from 64 slots) and a dead-key rebuild: every probe equal and the
+    snapshots equal field by field after each step."""
+    from flink_tpu_torch.core import KeyGroupRange
+    from flink_tpu_torch.state.device_lists import DeviceListStore
+
+    dtypes = [np.dtype(np.int64), np.dtype(np.float64)]
+    stores = [DeviceListStore(KeyGroupRange(0, 127), MAXP, dtypes,
+                              capacity=64, rows_per_key=16, device=d)
+              for d in (dev, "cpu")]
+    rng = np.random.default_rng(77)
+    ops = [("append", *_list_batch(rng, n, np.arange(700), t0=200 * i))
+           for i, n in enumerate((300, 64, 1000, 5, 900))]
+    ops += [("probe", np.arange(800), rng.integers(0, 1000, 800), -150, 0),
+            ("prune", 500), ("probe_batch", np.arange(750)),
+            ("append", *_list_batch(rng, 400, np.arange(690, 900),
+                                    t0=2000)),
+            ("prune", 1900), ("probe_batch", np.arange(950))]
+    for i, op in enumerate(ops):
+        outs = [apply_list_op(st, op) for st in stores]
+        if outs[0] != outs[1]:
+            raise AssertionError(f"list store op {i} ({op[0]}): the card "
+                                 "and the CPU differ")
+        if not list_snapshots_equal(stores[0].snapshot(),
+                                    stores[1].snapshot()):
+            raise AssertionError(f"list store op {i} ({op[0]}): snapshots "
+                                 "differ")
+    if stores[0].stats != stores[1].stats:
+        raise AssertionError(f"list store stats {stores[0].stats} on the "
+                             f"card, {stores[1].stats} on the CPU")
+    return {"ops": len(ops), **stores[0].stats}
+
+
+def q7j_span() -> int:
+    return Q7J_PANES * Q7J_PANE_MS
+
+
+def q7j_pane_range(p: int, count: int) -> tuple[int, int]:
+    """The bid indices of pane p: ts = idx * span // count in [p, p + 1)
+    panes."""
+    span = q7j_span()
+    return (-(-(p * Q7J_PANE_MS * count) // span),
+            -(-((p + 1) * Q7J_PANE_MS * count) // span))
+
+
+def q7j_bids(n_keys: int, count: int, lo: int, hi: int) -> tuple:
+    """bench.py::bench_framework_q7_join's bids [lo, hi) in numpy:
+    (auction, price, ts)."""
+    idx = np.arange(lo, hi, dtype=np.int64)
+    auction = ((idx.astype(np.uint64) * np.uint64(MULT))
+               % np.uint64(n_keys)).astype(np.int64)
+    return auction, idx % Q7_PRICES + 1, (idx * q7j_span()) // count
+
+
+def q7_join_gen(n_keys: int, count: int, device: bool):
+    """The reference's generator: numpy indices in and numpy columns out,
+    or (``device``) int64 torch indices with ``mixed_keys``."""
+    span = q7j_span()
+
+    def gen(idx):
+        if device:
+            return {"auction": mixed_keys(idx, n_keys),
+                    "price": idx % Q7_PRICES + 1,
+                    "ts": (idx * span) // count}
+        u = idx.astype(np.uint64)
+        return {"auction": ((u * np.uint64(MULT))
+                            % np.uint64(n_keys)).astype(np.int64),
+                "price": (idx % Q7_PRICES) + 1,
+                "ts": (idx * span) // count}
+
+    return gen
+
+
+def q7j_winner_word(auction, price, ts):
+    """A winner (auction, price, ts) in one int64: ts < 2^17, price <
+    2^14, auction < 2^24, so the multiset compares as sorted words."""
+    return (auction << 31) | (price << 17) | ts
+
+
+def q7_join_expected(c: dict) -> np.ndarray:
+    """Every winner of the job as a sorted ``q7j_winner_word``: each bid
+    whose price equals the largest price of its auction in its pane. None
+    is lost at a boundary: a pane's max row (ts = end - 1) reaches the
+    join while the combined watermark is below end - 1, so the bids'
+    horizon (watermark - pane + 1) is below the pane's start; a bid that
+    reaches the join after its pane's max finds it kept, as the maxes'
+    horizon is the watermark, below the bid's ts."""
+    if q7j_span() >= 1 << 17 or c["auctions"] >= 1 << 24:
+        raise AssertionError("the winner word does not hold this cell")
+    n_keys, count = c["auctions"], c["bids"]
+    out = []
+    for p in range(Q7J_PANES):
+        auction, price, ts = q7j_bids(n_keys, count, *q7j_pane_range(p,
+                                                                     count))
+        s = np.sort(auction * 16384 + price)
+        last = np.r_[(s[1:] >> 14) != (s[:-1] >> 14), True]
+        maxp = np.zeros(n_keys, np.int64)
+        maxp[s[last] >> 14] = s[last] & 16383
+        win = price == maxp[auction]
+        out.append(q7j_winner_word(auction[win], price[win], ts[win]))
+    return np.sort(np.concatenate(out))
+
+
+def q7_join_check(expected: np.ndarray, got: list) -> int:
+    g = np.sort(np.concatenate(got)) if got else np.zeros(0, np.int64)
+    if not np.array_equal(g, expected):
+        raise AssertionError(f"Q7 join: {len(g)} winners, {len(expected)} "
+                             "expected, or they differ")
+    return len(g)
+
+
+def q7_join_env(torch, dev, c: dict, count: int | None = None,
+                rate: float | None = None, source_hook=None,
+                settings: dict | None = None):
+    """bench.py::bench_framework_q7_join through the port's public API:
+    bids -> key_by -> tumbling max per auction (the device window) ->
+    connect(bids) -> IntervalJoinOperator (max row ts = end - 1; offsets
+    [-(pane - 1), 0]) -> is-winner -> sink, a watermark after every batch
+    (``c["batch"]`` rows, 2^15 by default). ``rate`` paces the source,
+    ``source_hook(source)`` receives it, ``settings`` adds configuration
+    keys. Returns (env, [winner words of each sink batch])."""
+    from flink_tpu_torch.api import StreamExecutionEnvironment
+    from flink_tpu_torch.connectors.datagen import DataGenSource
+    from flink_tpu_torch.core import Configuration, Schema, WatermarkStrategy
+    from flink_tpu_torch.runtime.operators import AggSpec, BatchFnOperator
+    from flink_tpu_torch.sql.join import IntervalJoinOperator
+    from flink_tpu_torch.window import TumblingEventTimeWindows
+
+    count = count or c["bids"]
+    schema = Schema([("auction", np.int64), ("price", np.int64),
+                     ("ts", np.int64)])
+    env = StreamExecutionEnvironment(Configuration({
+        "pipeline.micro-batch-size": c.get("batch", Q7J_BATCH),
+        "pipeline.auto-watermark-interval": 0.0, **(settings or {})}),
+        device=dev)
+    env.set_state_backend("tpu")
+    ws = WatermarkStrategy.for_monotonous_timestamps() \
+        .with_timestamp_column("ts")
+    source = DataGenSource(q7_join_gen(c["auctions"], count,
+                                       c["device_batches"]), schema,
+                           count=count, rate_per_sec=rate,
+                           timestamp_column="ts",
+                           device=c["device_batches"])
+    if source_hook is not None:
+        source_hook(source)
+    bids = env.from_source(source, ws, "DataGen")
+    maxes = (bids.key_by("auction")
+             .window(TumblingEventTimeWindows.of(Q7J_PANE_MS))
+             .device_aggregate([AggSpec("max", "price",
+                                        out_name="maxprice")],
+                               capacity=c["window_capacity"],
+                               ring_size=RING, emit_window_bounds=False))
+    out_schema = Schema([("m_auction", np.int64), ("maxprice", np.int64),
+                         ("auction", np.int64), ("price", np.int64),
+                         ("ts", np.int64)])
+
+    def join_factory():
+        return IntervalJoinOperator(
+            0, 0, -(Q7J_PANE_MS - 1), 0, out_schema,
+            rows_per_key=Q7J_ROWS_PER_KEY,
+            store_capacity=c["store_capacity"], name="q7-join", device=dev)
+
+    def is_winner(batch):
+        mask = batch.column("price") == batch.column("maxprice")
+        return batch.take(np.flatnonzero(mask))
+
+    got = []
+
+    def sink(b):
+        a, p = b.column("auction"), b.column("price")
+        if not (np.array_equal(b.column("m_auction"), a)
+                and np.array_equal(b.column("maxprice"), p)):
+            raise AssertionError("Q7 join: a winner joined another "
+                                 "auction's max")
+        got.append(q7j_winner_word(a, p, b.column("ts")))
+
+    (maxes.connect(bids).transform("q7-join", join_factory)
+     .transform("is-winner", lambda: BatchFnOperator(is_winner, "is-winner"))
+     .add_sink(sink, "winners"))
+    return env, got
+
+
+def run_q7_join(torch, dev, c: dict, count: int | None = None):
+    """One run of ``q7_join_env``'s job through ``env.execute()``;
+    returns (job, winner words)."""
+    env, got = q7_join_env(torch, dev, c, count)
+    return env.execute("nexmark-q7-join", timeout=900.0), got
+
+
+def q7_join_operator(job):
+    from flink_tpu_torch.sql.join import IntervalJoinOperator
+
+    ops = [op for op in job.operators if isinstance(op, IntervalJoinOperator)]
+    if len(ops) != 1:
+        raise AssertionError(f"{len(ops)} interval joins in the job")
+    return ops[0]
+
+
+def join_profile(torch, run) -> dict:
+    """A run under torch.profiler: the card's busy time by kernel against
+    the run's wall time, and the profiler's count of each list kernel and
+    of the window's probe beside its launch counter. Up to PROFILE_TRIES
+    profiles are taken until they agree; the records a profile still
+    lacks are reported (``lost_records``): on an H100 80GB HBM3, each of
+    three profiles of q7_join_ref once lacked one list_append and one
+    hash_probe launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+
+    symbols = LIST_SYMBOLS + (("hash_probe", "hash_probe_kernel"),)
+    job = None
+    for tries in range(1, PROFILE_TRIES + 1):
+        job = None          # the 10M cell's state fits on the card once
+        fresh_memory(torch)
+        reset_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            job, _got = run()
+        by_name: dict[str, list] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                acc = by_name.setdefault(e.name[:90], [0.0, 0])
+                acc[0] += e.self_device_time_total / 1e3
+                acc[1] += 1
+        counted = {k: sum(n for name, (_ms, n) in by_name.items()
+                          if sym in name) for k, sym in symbols}
+        lost = {k: KERNEL_LAUNCHES[k] - n for k, n in counted.items()}
+        if not any(lost.values()):
+            break
+    if any(n < 0 or n == KERNEL_LAUNCHES[k] for k, n in lost.items()
+           if KERNEL_LAUNCHES[k]):
+        raise AssertionError(f"profiler counted {counted}, the counters "
+                             f"{dict(KERNEL_LAUNCHES)}")
+    busy = sum(ms for ms, _n in by_name.values())
+    wall = job.wall_s * 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall if wall else None,
+            "profiles_taken": tries, "profiler_counts": counted,
+            "lost_records": lost,
+            "kernel_ms": {k: sum(ms for name, (ms, _n) in by_name.items()
+                                 if any(part in name for part in parts))
+                          for k, parts in (*LIST_PARTS.items(),
+                                           ("hash_probe",
+                                            ("hash_probe_kernel",)))},
+            "list_parts_ms": {part: sum(ms for name, (ms, _n)
+                                        in by_name.items() if part in name)
+                              for parts in LIST_PARTS.values()
+                              for part in parts},
+            "top": [{"name": k, "ms": ms, "calls": n}
+                    for k, (ms, n) in top]}
+
+
+def q7_join_run_record(torch, label: str, c: dict, run, expected) -> dict:
+    """One timed run with the launch counters zeroed just before it: the
+    winners against the oracle, each list kernel launched, the window's
+    probe at least once a batch (device batches); bids/s, peak memory, the
+    stores' prunes and rebuilds, host seconds a batch by part."""
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+    from flink_tpu_torch.ops import kernels
+
+    start = fresh_memory(torch)
+    built = sorted(p.name for p in kernels.BUILD_DIR.glob("*.so"))
+    reset_launches()
+    job, got = run()
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(KERNEL_LAUNCHES)
+    winners = q7_join_check(expected, got)
+    missing = [k for k in LIST_KERNELS if not launches[k]]
+    batches = c["bids"] // Q7J_BATCH
+    # the reference's window here defers no overflow: a device batch is
+    # one hash_probe and eager folds (the list stores' reloads probe too)
+    if missing or (c["device_batches"]
+                   and launches["hash_probe"] < batches):
+        raise AssertionError(f"{label}: launches {launches}; each list "
+                             "kernel must launch, and the window's probe "
+                             "once a batch")
+    op = q7_join_operator(job)
+    st = op.stats
+    n = max(st["batches"], 1)
+    stores = {side: dict(s.stats, capacity=s.capacity, occupied=s._occ,
+                         rows_bytes=s.rows.numel() * 8)
+              for side, s in zip(("maxes", "bids"), op._stores)
+              if s is not None}
+    return {"wall_s": job.wall_s, "bids_per_sec": c["bids"] / job.wall_s,
+            "winners": winners, "matches": st["matches"],
+            "join_batches": st["batches"], "peak": peak, "start": start,
+            "launches": launches, "stores": stores,
+            "host_s_per_batch": {k: st[k] / n for k in
+                                 ("pack_s", "upload_s", "probe_s",
+                                  "append_s", "copy_home_s", "emit_s")},
+            "prune_s_total": st["prune_s"],
+            "kernel_builds_after_warmup": len(
+                set(p.name for p in kernels.BUILD_DIR.glob("*.so"))
+                - set(built)),
+            "tasks": task_record(job)}
+
+
+def q7_join_cell(torch, dev, cell: str) -> dict:
+    """A Q7 join cell: the reference's warm-up run (2^16 bids), then
+    ``Q7J_RUNS`` timed runs and one profiled run, every run's winners
+    against the numpy oracle."""
+    c = Q7J_CELLS[cell]
+    expected = q7_join_expected(c)
+    small = dict(c, bids=min(1 << 16, c["bids"]))
+    job, got = run_q7_join(torch, dev, small)
+    q7_join_check(q7_join_expected(small), got)
+    del job, got
+    runs = [q7_join_run_record(torch, cell, c,
+                               lambda: run_q7_join(torch, dev, c), expected)
+            for _ in range(Q7J_RUNS)]
+    prof = join_profile(torch, lambda: run_q7_join(torch, dev, c))
+    bps = sorted(r["bids_per_sec"] for r in runs)
+    last = runs[-1]
+    return {"cell": cell, **c, "pane_ms": Q7J_PANE_MS, "panes": Q7J_PANES,
+            "batch": Q7J_BATCH, "rows_per_key": Q7J_ROWS_PER_KEY,
+            "window_ring": RING, "runs": len(runs),
+            "bids_per_sec": float(np.median(bps)),
+            "bids_per_sec_min_max": [bps[0], bps[-1]],
+            "wall_s": [r["wall_s"] for r in runs],
+            "winners": last["winners"], "matches": last["matches"],
+            "join_batches": last["join_batches"],
+            "max_memory_allocated": max(r["peak"] for r in runs),
+            "memory_at_start": [r["start"] for r in runs],
+            "stores": last["stores"],
+            "host_s_per_batch": last["host_s_per_batch"],
+            "prune_s_total": last["prune_s_total"],
+            "kernel_builds_after_warmup": sum(
+                r["kernel_builds_after_warmup"] for r in runs),
+            "launches_per_run": last["launches"],
+            "tasks_last_run": last["tasks"], "profile": prof}
+
+
+#: (label, auctions, bids, capacity a side) of the list kernels' shapes
+LIST_SHAPES = (("q7_join_10m", 10_000_000, 1 << 25, 1 << 25),
+               ("q7_join_ref", 100_000, 1 << 18, 1 << 18))
+#: sector class -> the measured rate (``sector_rates``: op, order) it is
+#: priced at; the prune walks the slots in address order
+LIST_RATE_OF = {"read": ("read8", "random"), "claim": ("probe8", "random"),
+                "atomic": ("red8", "random"), "store": ("store8", "random"),
+                "store4": ("store4", "random"),
+                "read_in_order": ("read8", "sorted"),
+                "store_in_order": ("store8", "sorted"),
+                "store4_in_order": ("store4", "sorted")}
+
+
+def list_lists_of(torch, st: dict, keys) -> tuple:
+    """(sorted distinct keys present, their counts, their whole [L, C]
+    lists), on the device."""
+    from flink_tpu_torch.ops.hash_table import lookup, sanitize_keys_device
+
+    k = torch.unique(sanitize_keys_device(keys))
+    slots = lookup(st["table"], k.contiguous()).to(torch.int64)
+    on = slots >= 0
+    k, slots = k[on], slots[on]
+    return k, st["counts"][slots], st["rows"][slots]
+
+
+def range_sectors(torch, starts, nbytes) -> int:
+    """32-byte sectors covering the disjoint byte ranges [start, start +
+    nbytes) (nbytes a tensor or an int; empty ranges add none)."""
+    nbytes = torch.as_tensor(nbytes, device=starts.device)
+    ends = starts + nbytes - 1
+    n = torch.where(nbytes > 0, ends // 32 - starts // 32 + 1, 0)
+    return int(n.sum())
+
+
+def distinct_sectors(torch, byte_addr) -> int:
+    return int(torch.unique(byte_addr // 32).numel())
+
+
+def list_cost(sectors: dict, streamed: int, nbytes: int,
+              rates: dict | None) -> dict:
+    """Byte bound, 32-byte sector floor, and that floor at the card's
+    measured rates for each class's access and order (streamed bytes at
+    3.35 TB/s)."""
+    n = sum(sectors.values())
+    out = {"bytes": nbytes, "bound_ms": bound_ms(nbytes),
+           "sectors": sectors, "streamed_bytes": streamed,
+           "sector_floor_ms": bound_ms(32 * n + streamed)}
+    if rates is not None:
+        out["at_measured_rate_ms"] = bound_ms(streamed) + sum(
+            v / (rates["ops"][LIST_RATE_OF[k][0]][LIST_RATE_OF[k][1]][
+                "g_sectors_per_s"] * 1e6) for k, v in sectors.items())
+    return out
+
+
+def list_append_case(torch, flush, rates, st: dict, keys, packed) -> dict:
+    """list_append against its plain version on one state (the state put
+    back between them): flags, failed rows, and the batch keys' counts
+    and whole lists equal; both timed, the state put back before each
+    launch. Its cost: each row's key and packed row read and row written,
+    a distinct key's table entry read and count read and written, a new
+    key's claim and its list zeroed."""
+    from flink_tpu_torch.ops import device_lists as dl
+    from flink_tpu_torch.ops.hash_table import lookup, sanitize_keys_device
+
+    L, C = st["rows"].shape[1], st["rows"].shape[2]
+    t0, c0 = st["table"].clone(), st["counts"].clone()
+
+    def restore():
+        st["table"].copy_(t0)
+        st["counts"].copy_(c0)
+
+    args = (st["table"], st["rows"], st["counts"])
+    fk, xk = dl.list_append(*args, st["hits"], keys, packed)
+    got = list_lists_of(torch, st, keys)
+    fk, xk = fk.tolist(), xk.cpu()
+    skeys = sanitize_keys_device(keys)
+    slots = lookup(st["table"], skeys).to(torch.int64)
+    restore()
+    fp, xp = dl.list_append_plain(*args, keys, packed)
+    want = list_lists_of(torch, st, keys)
+    if fk != fp.tolist() or not torch.equal(xk, xp.cpu()) or not all(
+            torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("list_append: kernel and plain version differ")
+    restore()
+    ms = cuda_ms(lambda: dl.list_append(*args, st["hits"], keys, packed),
+                 torch, flush, setup=restore)
+    plain_ms = cuda_ms(lambda: dl.list_append_plain(*args, keys, packed),
+                       torch, flush, setup=restore)
+    restore()
+    n = keys.numel()
+    uslots, per_slot = torch.unique(slots, return_counts=True)
+    new = torch.unique(slots[lookup(t0, skeys) < 0])
+    # a slot's rows land side by side from its count before the batch
+    before = c0[uslots].to(torch.int64)
+    written = torch.clamp(torch.minimum(per_slot, L - before), min=0)
+    sectors = {"read": distinct_sectors(torch, uslots * 8)
+               + distinct_sectors(torch, uslots * 4),
+               "claim": distinct_sectors(torch, new * 8),
+               "atomic": distinct_sectors(torch, uslots * 8),
+               "store4": distinct_sectors(torch, uslots * 4),
+               "store": range_sectors(torch, (uslots * L + before) * C * 8,
+                                      written * C * 8)}
+    streamed = n * (8 + 8 * C) + int(new.numel()) * L * C * 8
+    nbytes = (n * (8 + 16 * C) + int(uslots.numel()) * 16
+              + int(new.numel()) * (8 + L * C * 8))
+    cost = list_cost(sectors, streamed, nbytes, rates)
+    return {"n": n, "capacity": st["table"].numel(), "L": L, "C": C,
+            "distinct_keys": int(uslots.numel()),
+            "new_keys": int(new.numel()), "flags": fk, "ms": ms,
+            "plain_ms": plain_ms, **cost,
+            "share_of_bound": cost["bound_ms"] / ms}
+
+
+def list_probe_case(torch, flush, rates, st: dict, keys, ts, lo_off: int,
+                    hi_off: int) -> dict:
+    """list_probe against its plain version: matches, their order and
+    each row's count equal; both timed (the kernel's one host read of M
+    inside). Its cost: each key and ts read, a key's table entry, a found
+    key's count and its live rows' ts, a match's row and output."""
+    from flink_tpu_torch.ops import device_lists as dl
+    from flink_tpu_torch.ops.hash_table import lookup, sanitize_keys_device
+
+    L, C = st["rows"].shape[1], st["rows"].shape[2]
+    args = (st["table"], st["rows"], st["counts"], keys, ts, lo_off, hi_off)
+    got = dl.list_probe(*args)
+    want = dl.list_probe_plain(*args)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("list_probe: kernel and plain version differ")
+    m = int(got[0].numel())
+    del got, want
+    ms = cuda_ms(lambda: dl.list_probe(*args), torch, flush)
+    plain_ms = cuda_ms(lambda: dl.list_probe_plain(*args), torch, flush)
+    n = keys.numel()
+    slots = lookup(st["table"], sanitize_keys_device(keys)).to(torch.int64)
+    found = torch.unique(slots[slots >= 0])
+    cnt = st["counts"][found].to(torch.int64)
+    examined = int(cnt.sum())
+    sectors = {"read": distinct_sectors(torch, found * 8)
+               + int((slots < 0).sum())
+               + distinct_sectors(torch, found * 4)
+               + range_sectors(torch, found * L * C * 8, cnt * C * 8)}
+    streamed = n * 16 + m * (8 + 8 * C)
+    nbytes = n * 24 + int(found.numel()) * 4 + examined * 8 \
+        + m * (C - 1) * 8 + m * (8 + 8 * C)
+    cost = list_cost(sectors, streamed, nbytes, rates)
+    return {"n": n, "capacity": st["table"].numel(), "L": L, "C": C,
+            "found_keys": int(found.numel()), "live_rows_examined": examined,
+            "matches": m, "lo_off": lo_off, "hi_off": hi_off, "ms": ms,
+            "plain_ms": plain_ms, **cost,
+            "share_of_bound": cost["bound_ms"] / ms}
+
+
+def list_prune_case(torch, flush, rates, st: dict, horizon: int) -> dict:
+    """list_prune against its plain version on one state (put back
+    between them and before each timed launch): live keys, every count
+    and every live slot's whole list equal. Its cost: counts read, live
+    rows' ts, a changed count written, a moved list read and written, all
+    in address order (the kernel walks the slots so)."""
+    from flink_tpu_torch.ops import device_lists as dl
+
+    L, C = st["rows"].shape[1], st["rows"].shape[2]
+    c0 = st["counts"].clone()
+    live = torch.nonzero(c0 > 0).flatten()
+    r0 = st["rows"][live]
+
+    def restore():
+        st["counts"].copy_(c0)
+        st["rows"][live] = r0
+
+    lk = int(dl.list_prune(st["rows"], st["counts"], st["hits"], horizon))
+    ck, rk = st["counts"].clone(), st["rows"][live]
+    restore()
+    lp = int(dl.list_prune_plain(st["rows"], st["counts"], horizon))
+    same = (lk == lp and torch.equal(ck, st["counts"])
+            and torch.equal(rk, st["rows"][live])
+            and not bool((st["hits"] != 0).any()))
+    del ck, rk
+    if not same:
+        raise AssertionError("list_prune: kernel and plain version differ")
+    restore()
+    ms = cuda_ms(lambda: dl.list_prune(st["rows"], st["counts"], st["hits"],
+                                       horizon), torch, flush, setup=restore)
+    plain_ms = cuda_ms(lambda: dl.list_prune_plain(st["rows"], st["counts"],
+                                                   horizon),
+                       torch, flush, setup=restore)
+    restore()
+    cap = c0.numel()
+    cnt = c0[live].to(torch.int64)
+    ts = r0[:, :, 0]
+    pos = torch.arange(L, device=ts.device)[None, :]
+    keep = (pos < cnt[:, None]) & (ts >= horizon)
+    drop = (pos < cnt[:, None]) & ~keep
+    # a list moves when a dropped row precedes a kept one
+    first_keep_after_drop = (keep & (torch.cumsum(drop.to(torch.int32), 1)
+                                     > 0)).any(1)
+    kept = keep.sum(1)
+    changed = live[kept != cnt]
+    moved = first_keep_after_drop
+    base = live * L * C * 8
+    sectors = {"read_in_order": range_sectors(torch, base, cnt * C * 8),
+               "store_in_order": range_sectors(torch, base[moved],
+                                               cnt[moved] * C * 8),
+               "store4_in_order": distinct_sectors(torch, changed * 4)}
+    streamed = cap * 4
+    nbytes = cap * 4 + int(cnt.sum()) * 8 + int(changed.numel()) * 4 \
+        + 2 * int(cnt[moved].sum()) * C * 8
+    cost = list_cost(sectors, streamed, nbytes, rates)
+    return {"capacity": cap, "L": L, "C": C, "horizon": horizon,
+            "live_keys_before": int(live.numel()), "live_keys_after": lk,
+            "live_rows": int(cnt.sum()), "dropped_rows": int(drop.sum()),
+            "lists_moved": int(moved.sum()), "ms": ms, "plain_ms": plain_ms,
+            **cost, "share_of_bound": cost["bound_ms"] / ms}
+
+
+def list_shape_cases(torch, dev, flush, rates, n_keys: int, count: int,
+                     cap: int) -> dict:
+    """The list kernels at one cell's shapes. The bids' side: pane 3's
+    bids appended a batch at a time (the state a fire meets), then the
+    next batch appended, the pane's maxes probing it with their interval,
+    and the prune of the next watermark (a batch's rows older than the
+    horizon). The maxes' side (C = 3, maxprice float32 as the window
+    emits it): a fire's maxes appended to an empty state, a batch of bids
+    probing them, and the prune that drops them all."""
+    from flink_tpu_torch.ops import device_lists as dl
+
+    L, P = Q7J_ROWS_PER_KEY, Q7J_PANE_MS
+    i64 = [np.dtype(np.int64)] * 3
+    b0, b1 = q7j_pane_range(3, count)
+
+    def bids(lo, hi):
+        auction, price, ts = q7j_bids(n_keys, count, lo, hi)
+        return (torch.from_numpy(auction).to(dev),
+                _packed_on(torch, dev, ts, [auction, price, ts], i64), ts)
+
+    out = {}
+    st = list_state(torch, dev, cap, L, 4)
+    for lo in range(b0, b1, Q7J_BATCH):
+        keys, packed, _ts = bids(lo, min(lo + Q7J_BATCH, b1))
+        flags, _failed = dl.list_append(st["table"], st["rows"],
+                                        st["counts"], st["hits"], keys,
+                                        packed)
+        if any(flags[:2].tolist()):
+            raise AssertionError(f"bids' state: flags {flags.tolist()}")
+    keys, packed, _ts = bids(b1, b1 + Q7J_BATCH)
+    out["append_bids_batch"] = list_append_case(torch, flush, rates, st,
+                                                keys, packed)
+    auction, price, _ts = q7j_bids(n_keys, count, b0, b1)
+    s = np.sort(auction * 16384 + price)
+    last = np.r_[(s[1:] >> 14) != (s[:-1] >> 14), True]
+    m_keys, m_price = s[last] >> 14, (s[last] & 16383).astype(np.float32)
+    m_ts = np.full(len(m_keys), 4 * P - 1, np.int64)
+    mk = torch.from_numpy(m_keys).to(dev)
+    out["probe_bids_by_fire"] = list_probe_case(
+        torch, flush, rates, st, mk, torch.from_numpy(m_ts).to(dev),
+        -(P - 1), 0)
+    horizon = int((b0 + Q7J_BATCH) * q7j_span() // count)
+    out["prune_bids_watermark"] = list_prune_case(torch, flush, rates, st,
+                                                  horizon)
+    del st
+    fresh_memory(torch)
+    st = list_state(torch, dev, cap, L, 3)
+    packed = _packed_on(torch, dev, m_ts, [m_keys, m_price],
+                        [np.dtype(np.int64), np.dtype(np.float32)])
+    out["append_maxes_fire"] = list_append_case(torch, flush, rates, st, mk,
+                                                packed)
+    dl.list_append(st["table"], st["rows"], st["counts"], st["hits"], mk,
+                   packed)
+    keys, _packed, ts = bids(b1, b1 + Q7J_BATCH)
+    out["probe_maxes_by_batch"] = list_probe_case(
+        torch, flush, rates, st, keys, torch.from_numpy(ts).to(dev), 0,
+        P - 1)
+    out["prune_maxes_watermark"] = list_prune_case(torch, flush, rates, st,
+                                                   4 * P)
+    del st
+    fresh_memory(torch)
+    return out
+
+
+def check_device_lists(torch, dev, flush, rates: dict | None = None) -> dict:
+    """The three list kernels against their plain versions on the card:
+    at both join cells' shapes (timed, with bounds and sector floors), on
+    ``LIST_EDGE_CASES``, and a store on the card against one on the CPU
+    (rehash and rebuild)."""
+    shapes = {label: list_shape_cases(torch, dev, flush, rates, n_keys,
+                                      count, cap)
+              for label, n_keys, count, cap in LIST_SHAPES}
+    edges = {case: check_list_edge(torch, dev, case)
+             for case in LIST_EDGE_CASES}
+    return {"shapes": shapes, "edges": edges,
+            "store": check_list_store(torch, dev), "max_abs_err": 0}
+
+
 def main(argv: list[str]) -> int:
     if argv and (argv[0] != "--parent-kernels" or len(argv) != 2):
         print("usage: chip_smoke.py [--parent-kernels DIR]", file=sys.stderr)
@@ -5185,12 +6116,14 @@ def main(argv: list[str]) -> int:
     window = check_window_seal(torch, dev, flush)
     sess = check_session(torch, dev, flush)
     gagg = check_group_agg(torch, dev, flush, rates)
+    lists = check_device_lists(torch, dev, flush, rates)
     emit({"kernel_checks": {"hist256": hist, "select_pass": select,
                             "hash_probe": probe, "ingest_step": step,
                             "ingest_step_forms": forms,
                             "ingest_step_edges": edges,
                             "launch_shape": shape, "window_seal": window,
-                            "session": sess, "group_agg": gagg}})
+                            "session": sess, "group_agg": gagg,
+                            "device_lists": lists}})
     del flush
     phase_s = {"build_and_kernels": time.perf_counter() - t_start}
     t_phase = time.perf_counter()
@@ -5262,6 +6195,11 @@ def main(argv: list[str]) -> int:
     groupby = sql_groupby_phase(torch, dev)["sql_groupby_10m"]
     emit({"sql_groupby_10m": groupby})
     phase_done("sql_groupby_10m")
+    joins = {}
+    for cell in Q7J_CELLS:
+        joins[cell] = q7_join_cell(torch, dev, cell)
+        emit({cell: joins[cell]})
+        phase_done(cell)
     emit({"phase_seconds": phase_s})
     emit({"smoke_seconds_before_kernels_line": time.perf_counter() - t_start})
     main_run = q5_1m["full"]["launches_per_run"]
@@ -5362,6 +6300,28 @@ def main(argv: list[str]) -> int:
                 "ptxas": {k: v for k, v in ptxas["group_agg"].items()
                           if f"{key}_kernel" in k}}
 
+    def list_entry(kernel: str, line: str, lead: str, others: tuple
+                   ) -> dict:
+        shapes = lists["shapes"]["q7_join_10m"]
+        at = shapes[lead]
+        return {"name": kernel, "route": "cuda",
+                "source": "flink_tpu_torch/csrc/device_lists.cu",
+                "replaces": f"flink_tpu/state/device_lists.py:{line}",
+                "launches": joins["q7_join_10m"]["launches_per_run"][kernel],
+                "max_abs_err": lists["max_abs_err"],
+                **{k: at[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "share_of_bound", "sector_floor_ms",
+                                      "at_measured_rate_ms")},
+                "bound_by": "bytes", "library_ms": None, "lead_shape": lead,
+                "launches_q7_join_ref": joins["q7_join_ref"][
+                    "launches_per_run"][kernel],
+                "shapes": {f"{cell} {k}": lists["shapes"][cell][k]
+                           for cell in lists["shapes"]
+                           for k in (lead, *others)},
+                "edge_cases": sorted(lists["edges"]),
+                "ptxas": {k: v for k, v in ptxas["device_lists"].items()
+                          if any(part in k for part in LIST_PARTS[kernel])}}
+
     emit({"kernels": [
         {"name": "hist256", "route": "cuda",
          "source": "flink_tpu_torch/csrc/hist256.cu",
@@ -5407,6 +6367,12 @@ def main(argv: list[str]) -> int:
         session_entry("step", 76),
         session_entry("fire", 256),
         *[gagg_entry(stage) for stage in GAGG_STAGES],
+        list_entry("list_append", "44", "append_bids_batch",
+                   ("append_maxes_fire",)),
+        list_entry("list_probe", "77", "probe_maxes_by_batch",
+                   ("probe_bids_by_fire",)),
+        list_entry("list_prune", "91", "prune_bids_watermark",
+                   ("prune_maxes_watermark",)),
     ]})
     print(smi, flush=True)
     if torch.cuda.device_count() != 1:

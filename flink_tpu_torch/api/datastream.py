@@ -1,7 +1,9 @@
 """DataStream API of the port (trimmed port of
 ``flink_tpu/api/datastream.py``): a lazy Transformation DAG of sources,
-keyed exchanges, device window aggregates, custom one-input operators and
-sinks, compiled and run by ``StreamExecutionEnvironment.execute``."""
+keyed exchanges, device window aggregates, custom one-input operators,
+two connected streams into one two-input operator (``connect`` then
+``transform``), and sinks, compiled and run by
+``StreamExecutionEnvironment.execute``."""
 
 from __future__ import annotations
 
@@ -11,7 +13,8 @@ import numpy as np
 
 from ..core.records import RecordBatch
 from ..graph.transformations import OneInputTransformation, \
-    PartitionTransformation, SinkTransformation, Transformation
+    PartitionTransformation, SinkTransformation, Transformation, \
+    TwoInputTransformation
 from ..runtime.operators.device_session import DeviceSessionWindowOperator
 from ..runtime.operators.device_window import DeviceWindowAggOperator
 from ..runtime.operators.sink import CollectSink, SinkOperator
@@ -19,7 +22,7 @@ from ..runtime.writer import GlobalPartitioner, KeyGroupPartitioner, \
     RebalancePartitioner
 from ..window.assigners import EventTimeSessionWindows, WindowAssigner
 
-__all__ = ["DataStream", "KeyedStream", "WindowedStream",
+__all__ = ["DataStream", "KeyedStream", "WindowedStream", "ConnectedStreams",
            "make_key_extractor"]
 
 
@@ -90,6 +93,17 @@ class DataStream:
         self.env._transformations.append(t)
         return DataStream(self.env, t)
 
+    def connect(self, other: "DataStream") -> "ConnectedStreams":
+        """This stream and ``other`` into one two-input operator
+        (``ConnectedStreams.transform``); each input keeps its own
+        exchange (``key_by`` both for a keyed join). Broadcast state is not
+        ported: only a DataStream connects."""
+        if not isinstance(other, DataStream):
+            raise NotImplementedError(
+                f"connect takes a DataStream, not {type(other).__name__}; "
+                "broadcast state is not ported")
+        return ConnectedStreams(self.env, self, other)
+
     def rebalance(self) -> "DataStream":
         return self._repartition("rebalance", RebalancePartitioner)
 
@@ -142,6 +156,27 @@ class KeyedStream(DataStream):
 
     def window(self, assigner: WindowAssigner) -> "WindowedStream":
         return WindowedStream(self, assigner)
+
+
+class ConnectedStreams:
+    """Two streams into one two-input operator: batches of the first
+    reach ``process_batch1``, of the second ``process_batch2``."""
+
+    def __init__(self, env, first: DataStream, second: DataStream):
+        self.env = env
+        self.first = first
+        self.second = second
+
+    def transform(self, name: str, operator_factory,
+                  parallelism: Optional[int] = None) -> DataStream:
+        """``operator_factory() -> TwoInputOperator`` (a fresh instance a
+        subtask)."""
+        t = TwoInputTransformation(
+            name=name, operator_factory=operator_factory,
+            parallelism=parallelism,
+            inputs=[self.first.transformation, self.second.transformation])
+        self.env._transformations.append(t)
+        return DataStream(self.env, t)
 
 
 class WindowedStream:

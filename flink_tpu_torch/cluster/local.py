@@ -3,7 +3,8 @@ port of ``flink_tpu/cluster/local.py``).
 
 Real channels, real barrier alignment, real keyed state: every (vertex,
 subtask) becomes a task on a thread of its own, joined to its neighbours
-by bounded channels. ``run_job`` deploys, attaches the checkpoint
+by bounded channels. A two-input vertex gets one gate per logical input
+(its in-edges' ``target_input``). ``run_job`` deploys, attaches the checkpoint
 coordinator when ``execution.checkpointing.interval`` > 0, and runs to
 the end of input.
 
@@ -31,7 +32,7 @@ from ..graph.stream_graph import JobGraph
 from ..runtime.channels import InputGate, LocalChannel
 from ..runtime.operators.base import OperatorChain, OperatorContext
 from ..runtime.stream_task import OneInputStreamTask, SourceStreamTask, \
-    StreamTask, TaskReporter
+    StreamTask, TaskReporter, TwoInputStreamTask
 from ..runtime.writer import RecordWriter
 
 __all__ = ["LocalJob", "deploy_local", "run_job"]
@@ -210,6 +211,18 @@ def _deploy_vertices(job: LocalJob, job_graph: JobGraph,
                     task.chain = OperatorChain(ops, ctx,
                                                task.make_tail_output())
                 job.source_tasks[task_id] = task
+            elif vertex.kind == "two_input":
+                per_input: list[list] = [[], []]
+                for ei, e in in_edges:
+                    per_input[e.target_input].extend(
+                        channels[ei][s][sub] for s in range(len(channels[ei])))
+                task = TwoInputStreamTask(
+                    task_id, ctx, InputGate(per_input[0], aligned=aligned),
+                    InputGate(per_input[1], aligned=aligned), writers, job,
+                    config)
+                task.chain = OperatorChain(
+                    [n.operator_factory() for n in vertex.chained_nodes],
+                    ctx, task.make_tail_output())
             else:
                 in_channels = [channels[ei][s][sub] for ei, _e in in_edges
                                for s in range(len(channels[ei]))]

@@ -44,6 +44,10 @@ DEFAULTS: dict[str, Any] = {
     # incremental fires: a running window accumulator per invertible
     # aggregate and a merge tree per min/max, sealed once per pane
     "window.fire.incremental": False,
+    # the interval join's state plane: "tpu" keeps each side's rows in
+    # device lists (state/device_lists.py), "hashmap" in host buffers;
+    # every other operator of the port keeps its state on the device
+    "state.backend.type": "tpu",
     # most device hash-table slots of keyed state; state beyond them pages
     # to the host spill tier at key-group granularity (0: unlimited)
     "state.backend.tpu.hbm-budget-slots": 0,

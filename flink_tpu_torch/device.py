@@ -12,6 +12,9 @@
   A session window launches ``session_step`` once per batch and
   ``session_fire`` once per fire round. A device GROUP BY batch launches
   ``group_agg_first``, ``_compact``, ``_fold`` and ``_emit`` once each.
+  The device list state of the interval join counts one launch of
+  ``list_append`` (five kernels), ``list_probe`` (three) and
+  ``list_prune`` (two) a call.
   A caller resets the counters, drives a path and reads them back to show
   which kernels the path went through.
 """
@@ -33,7 +36,9 @@ KERNEL_LAUNCHES: dict[str, int] = {"hist256": 0, "hash_probe": 0,
                                    "window_rebuild": 0, "session_step": 0,
                                    "session_fire": 0, "group_agg_first": 0,
                                    "group_agg_compact": 0,
-                                   "group_agg_fold": 0, "group_agg_emit": 0}
+                                   "group_agg_fold": 0, "group_agg_emit": 0,
+                                   "list_append": 0, "list_probe": 0,
+                                   "list_prune": 0}
 # the tasks of a job launch from threads of their own
 _LAUNCH_LOCK = threading.Lock()
 

@@ -137,6 +137,10 @@ def _classify_node(node: Any) -> FusedOp:
                            "device-resident generator batches", file, line)
         return FusedOp(node.id, node.name, "source-host",
                        "host-resident source batches", file, line)
+    if node.kind == "two_input":
+        return FusedOp(node.id, node.name, "two-input",
+                       "two-input operator (two gates; a flush point)",
+                       "<unknown>", 0)
     if node.kind == "sink":
         cat, detail = "sink", "chain flush point"
     elif node.traceable:

@@ -9,8 +9,10 @@ slot-sharing group. Under ``pipeline.fusion.enabled`` a hash edge at
 parallelism 1 into a device window aggregate chains too: every record
 lands on subtask 0, so the keyed exchange is forward-equivalent.
 
-The port builds sources, one-input operators and sinks; two-input
-operators and iterations are refused.
+The port builds sources, one-input and two-input operators and sinks;
+iterations are refused. A two-input node's in-edges carry
+``target_input`` (0 or 1), and it heads its chain: nothing chains into
+it, and forward edges after it chain as usual.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from ..core.config import Configuration
 from .transformations import (
     OneInputTransformation, PartitionTransformation, SideOutputTransformation,
     SinkTransformation, SourceTransformation, Transformation,
-    UnionTransformation,
+    TwoInputTransformation, UnionTransformation,
 )
 
 __all__ = ["StreamNode", "StreamEdge", "StreamGraph", "JobVertex", "JobEdge",
@@ -33,7 +35,7 @@ __all__ = ["StreamNode", "StreamEdge", "StreamGraph", "JobVertex", "JobEdge",
 class StreamNode:
     id: int
     name: str
-    kind: str  # source | one_input | sink
+    kind: str  # source | one_input | two_input | sink
     parallelism: int
     max_parallelism: int
     uid: str = ""
@@ -124,13 +126,18 @@ def build_stream_graph(sinks: list[Transformation],
                               operator_factory=t.operator_factory,
                               key_extractor=t.key_extractor,
                               traceable=t.traceable, **common)
+        elif isinstance(t, TwoInputTransformation):
+            node = StreamNode(t.id, t.name, "two_input", par, maxp,
+                              operator_factory=t.operator_factory, **common)
         else:
             raise TypeError(f"the port builds no {type(t).__name__}")
         g.nodes[node.id] = node
         visited[t.id] = node.id
-        for up in t.inputs:
+        two = isinstance(t, TwoInputTransformation)
+        for input_idx, up in enumerate(t.inputs):
             for nid, attrs in resolve_input(up):
-                g.edges.append(_make_edge(nid, node.id, attrs))
+                g.edges.append(_make_edge(nid, node.id, attrs,
+                                          input_idx if two else 0))
         return node.id
 
     for s in sinks:
@@ -138,14 +145,15 @@ def build_stream_graph(sinks: list[Transformation],
     return g
 
 
-def _make_edge(source_id: int, target_id: int, attrs: dict) -> StreamEdge:
+def _make_edge(source_id: int, target_id: int, attrs: dict,
+               target_input: int = 0) -> StreamEdge:
     from ..runtime.writer import ForwardPartitioner
     return StreamEdge(
         source_id, target_id,
         partitioner_factory=attrs.get("partitioner_factory",
                                       ForwardPartitioner),
         partitioner_name=attrs.get("partitioner_name", "forward"),
-        side_tag=attrs.get("side_tag"))
+        side_tag=attrs.get("side_tag"), target_input=target_input)
 
 
 # ---------------------------------------------------------------------------

@@ -84,12 +84,24 @@ SOURCES = {
                                   _PI32, _PI32, _I32, _I32, _P, _I32, _I32,
                                   _P],
     },
+    "device_lists": {
+        "list_append_launch": [_P, _I64, _P, _I32, _I32, _P, _P, _P, _P,
+                               _I64, _P, _P, _P, _P],
+        "list_probe_blocks": [_I64],
+        "list_probe_count_launch": [_P, _I64, _P, _I32, _I32, _P, _P, _I64,
+                                    _P, _I64, _I64, _P, _P, _P, _P],
+        "list_probe_write_launch": [_P, _I32, _I32, _P, _I64, _P, _I64,
+                                    _I64, _P, _P, _P, _P, _P, _P],
+        "list_prune_launch": [_P, _I32, _I32, _P, _I64, _I64, _I32, _P, _P,
+                              _P],
+    },
 }
 _ERROR_STRING = {"hist256": "hist256_error_string",
                  "hash_table": "hash_probe_error_string",
                  "session_window": "session_window_error_string",
                  "window_seal": "window_seal_error_string",
-                 "group_agg": "group_agg_error_string"}
+                 "group_agg": "group_agg_error_string",
+                 "device_lists": "device_lists_error_string"}
 
 #: source stem -> C entry that loads every kernel of the library at once
 #: (its kernels launch inside CUDA graph captures)

@@ -1,5 +1,6 @@
 from .base import (  # noqa: F401
     CollectingOutput, OneInputOperator, OperatorContext, Output,
+    TwoInputOperator,
 )
 from .device_session import DeviceSessionWindowOperator  # noqa: F401
 from .device_window import AggSpec, DeviceWindowAggOperator  # noqa: F401

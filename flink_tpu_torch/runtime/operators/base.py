@@ -4,7 +4,9 @@
 Operators are batch-oriented: ``process_batch`` receives a whole
 RecordBatch and watermarks arrive through ``process_watermark`` in channel
 order. Chained operators call each other directly; ``OperatorChain`` is
-the fused sequence one task runs.
+the fused sequence one task runs. A ``TwoInputOperator`` heads a chain of
+a two-input task: ``process_batch1/2`` per input, and its watermark is
+the min across the inputs.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from ...core.keygroups import KeyGroupRange, key_group_range_for_operator
 from ...core.records import MIN_TIMESTAMP, RecordBatch
 
 __all__ = ["OperatorContext", "Output", "CollectingOutput", "StreamOperator",
-           "OneInputOperator", "OperatorChain"]
+           "OneInputOperator", "TwoInputOperator", "OperatorChain"]
 
 
 @dataclass
@@ -60,6 +62,13 @@ class CollectingOutput(Output):
     def emit_watermark(self, watermark: Watermark) -> None:
         self.watermarks.append(watermark)
 
+    def rows(self) -> list:
+        return [r for b in self.batches for r in b.iter_rows()]
+
+    def clear(self) -> None:
+        self.batches.clear()
+        self.watermarks.clear()
+
 
 class StreamOperator:
     """Lifecycle: setup -> initialize_state -> open -> process -> finish
@@ -99,6 +108,28 @@ class StreamOperator:
 class OneInputOperator(StreamOperator):
     def process_batch(self, batch: RecordBatch) -> None:
         raise NotImplementedError
+
+
+class TwoInputOperator(StreamOperator):
+    """Two-input operator: each input's watermark is kept, and the
+    operator's watermark advances to the min across both."""
+
+    def __init__(self, name: str = ""):
+        super().__init__(name)
+        self._input_watermarks = [MIN_TIMESTAMP, MIN_TIMESTAMP]
+
+    def process_batch1(self, batch: RecordBatch) -> None:
+        raise NotImplementedError
+
+    def process_batch2(self, batch: RecordBatch) -> None:
+        raise NotImplementedError
+
+    def process_watermark_n(self, input_index: int,
+                            watermark: Watermark) -> None:
+        self._input_watermarks[input_index] = watermark.timestamp
+        combined = min(self._input_watermarks)
+        if combined > self.current_watermark:
+            self.process_watermark(Watermark(combined))
 
 
 class _ChainingOutput(Output):
@@ -149,6 +180,17 @@ class OperatorChain:
 
     def process_watermark(self, watermark: Watermark) -> None:
         self.head.process_watermark(watermark)
+
+    def process_batch_n(self, input_index: int, batch: RecordBatch) -> None:
+        """A batch to input 0 or 1 of a two-input head."""
+        if input_index == 0:
+            self.head.process_batch1(batch)
+        else:
+            self.head.process_batch2(batch)
+
+    def process_watermark_n(self, input_index: int,
+                            watermark: Watermark) -> None:
+        self.head.process_watermark_n(input_index, watermark)
 
     def snapshot_state(self, checkpoint_id: int) -> dict:
         return {_op_key(op): op.snapshot_state(checkpoint_id)

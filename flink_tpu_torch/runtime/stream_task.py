@@ -13,13 +13,19 @@ the coordinator), so operators never see concurrency.
   snapshotted and acknowledged.
 * ``OneInputStreamTask`` polls its input gate; a fully aligned barrier is
   broadcast downstream, then the chain is snapshotted and acknowledged.
+* ``TwoInputStreamTask`` polls two gates, one per logical input, in
+  turns. Each gate aligns barriers over its own channels; the snapshot is
+  taken only once both gates delivered the barrier of the same
+  checkpoint, and the gate that aligned first is not polled meanwhile. A
+  held barrier completes when the other gate's input ends.
 * At the end of a bounded input the MAX watermark flushes event time, the
   chain finishes, and ``EndOfInput`` closes every output channel.
 
 Every task of one job runs on the device's default stream, so a device
 batch made on a source thread is consumed in order on the window thread.
 Alignment groups, admission control, adaptive batch sizes, latency
-markers, tracing, the stall watchdog and two-input tasks are not ported.
+markers, tracing, the stall watchdog and unaligned checkpoints are not
+ported.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ from .operators.base import OperatorChain, OperatorContext, Output
 from .writer import RecordWriter
 
 __all__ = ["StreamTask", "SourceStreamTask", "OneInputStreamTask",
-           "TaskReporter"]
+           "TwoInputStreamTask", "TaskReporter"]
 
 IDLE_POLL_S = 0.0005  # a task whose gate is empty sleeps this long
 
@@ -286,3 +292,78 @@ class OneInputStreamTask(StreamTask):
             self.chain.close()
             self.broadcast_all(EndOfInput())
 
+
+
+class TwoInputStreamTask(StreamTask):
+    """Two gates -> a chain headed by a two-input operator -> writers."""
+
+    def __init__(self, task_id: str, ctx: OperatorContext, gate1: InputGate,
+                 gate2: InputGate, writers: list[RecordWriter],
+                 reporter: TaskReporter,
+                 config: Optional[Configuration] = None):
+        super().__init__(task_id, ctx, writers, reporter, config)
+        self.gates = [gate1, gate2]
+        # the barrier each gate delivered and the task holds
+        self._gate_barrier: list = [None, None]
+
+    def restore_state(self, snapshot: Optional[dict]) -> None:
+        if snapshot and snapshot.get("chain"):
+            self.chain.initialize_state(snapshot["chain"])
+
+    def _maybe_complete_barrier(self) -> None:
+        b0, b1 = self._gate_barrier
+        # an ended input never delivers barriers: do not wait on it
+        if b0 is not None and b1 is None and self.gates[1].all_ended():
+            b1 = b0
+        if b1 is not None and b0 is None and self.gates[0].all_ended():
+            b0 = b1
+        if b0 is None or b1 is None:
+            return  # hold the aligned gate
+        if b0.checkpoint_id != b1.checkpoint_id:
+            # a newer checkpoint overtook on one side: adopt it
+            newer = max(b0, b1, key=lambda b: b.checkpoint_id)
+            self._gate_barrier = [b if b is newer else None
+                                  for b in self._gate_barrier]
+            return
+        self._gate_barrier = [None, None]
+        self.broadcast_all(b0)
+        snap = {"chain": self.chain.snapshot_state(b0.checkpoint_id)}
+        self.reporter.acknowledge_checkpoint(self.task_id, b0.checkpoint_id,
+                                             snap)
+
+    def invoke(self) -> None:
+        self.chain.open()
+        rr = 0
+        while not self._cancelled.is_set():
+            self._drain_mailbox()
+            if any(b is not None for b in self._gate_barrier):
+                # the other input may have ended while a barrier was held
+                self._maybe_complete_barrier()
+            ev = gi = None
+            for off in range(2):
+                g = (rr + off) % 2
+                if self._gate_barrier[g] is not None:
+                    continue  # aligned, waiting for the other gate
+                ev = self.gates[g].poll()
+                if ev is not None:
+                    gi, rr = g, 1 - g
+                    break
+            if ev is None:
+                if all(g.all_ended() for g in self.gates):
+                    break
+                time.sleep(IDLE_POLL_S)
+                self.idle_s += IDLE_POLL_S
+                continue
+            if ev.kind == "batch":
+                self.chain.process_batch_n(gi, ev.value)
+            elif ev.kind == "watermark":
+                self.chain.process_watermark_n(gi, ev.value)
+            elif ev.kind == "barrier":
+                self._gate_barrier[gi] = ev.value
+                self._maybe_complete_barrier()
+            elif ev.kind == "idle":
+                self.broadcast_all(ev.value)
+        if not self._cancelled.is_set():
+            self.chain.finish()
+            self.chain.close()
+            self.broadcast_all(EndOfInput())

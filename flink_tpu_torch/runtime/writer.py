@@ -8,7 +8,9 @@ channel, which is what makes downstream alignment and min-combine
 correct.
 
 A keyed exchange into one channel forwards the batch untouched, so a
-device batch stays on the device. Splitting a device batch by key group
+device batch stays on the device. A task with several outputs (a source
+feeding a window and a join) hands the same batch to each writer: a
+device batch reaches every consumer by reference. Splitting a device batch by key group
 across several subtasks is multi-device work the port does not do yet:
 it raises.
 """
