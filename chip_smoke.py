@@ -258,6 +258,7 @@ from __future__ import annotations
 import ctypes
 import gc
 import hashlib
+import importlib.util
 import json
 import linecache
 import os
@@ -709,6 +710,17 @@ def check_ingest(torch, dev, flush) -> dict:
             "bound_by": "bytes"}
         del case, runs, table
     return {"max_abs_err": mismatches, "shapes": shapes}
+
+
+def list_designs_module():
+    """tools/list_designs.py, which builds and binds the earlier design of
+    the list append and prune (tools/list_earlier.cu: no tile summary)
+    beside the package's kernels."""
+    spec = importlib.util.spec_from_file_location(
+        "list_designs", os.path.join(HERE, "tools", "list_designs.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def start_sector_build():
@@ -5168,24 +5180,24 @@ def sql_groupby_phase(torch, dev) -> dict:
 # -- device list state and the interval join (Q7 join) ---------------------
 LIST_KERNELS = ("list_append", "list_probe", "list_prune")
 #: kernel -> the launch's CUDA kernels (the profiler names them so)
-LIST_SYMBOLS = (("list_append", "list_resolve_kernel"),
+LIST_SYMBOLS = (("list_append", "list_append_kernel"),
                 ("list_probe", "list_probe_count_kernel"),
-                ("list_prune", "list_prune_scan_kernel"))
+                ("list_prune", "list_prune_kernel"))
 #: the CUDA kernels of one launch of each
-LIST_PARTS = {"list_append": ("list_resolve_kernel", "list_single_kernel",
-                              "list_segment_kernel", "list_rank_kernel",
-                              "list_finish_kernel"),
+LIST_PARTS = {"list_append": ("list_append_kernel",),
               "list_probe": ("list_probe_count_kernel",
                              "list_probe_scan_kernel",
                              "list_probe_write_kernel"),
-              "list_prune": ("list_prune_scan_kernel",
-                             "list_prune_move_kernel")}
+              "list_prune": ("list_prune_kernel",)}
 LIST_EDGE_CASES = ("hot_key_past_L", "duplicates", "ragged", "drop_all",
                    "lo_hi_exact", "float_columns", "unsorted_prune",
                    "wide_list", "one_row")
 Q7J_PANE_MS, Q7J_PANES, Q7J_BATCH = 10_000, 8, 1 << 15
 Q7J_ROWS_PER_KEY = 32          # bench.py's rows_per_key
 Q7J_RUNS = 2                   # timed runs of each join cell
+#: slots of each state of check_list_sequence: the 10M cell's 2^25 halved,
+#: so that a side's kernel and plain states fit on one card together
+LIST_SEQ_CAPACITY = 1 << 24
 #: bench.py::bench_framework_q7_join (:590-677), and the same job at 10M
 #: auctions; the 10M cell's bids are device batches (datagen(device=True))
 Q7J_CELLS = {
@@ -5322,46 +5334,67 @@ def apply_list_op(store, op):
                              for b, c in enumerate(counts)]
 
 
-def list_state(torch, dev, cap: int, L: int, C: int) -> dict:
-    """An empty list state: table, rows (not cleared: a claim zeroes a
-    list), counts, and the zero scratch."""
+def list_state(torch, dev, cap: int, L: int, C: int,
+               tile_slots: int | None = None) -> dict:
+    """An empty list state: table, rows (not cleared: a claim writes a
+    whole list), counts, the tile summary (tiles of ``tile_slots``, the
+    store's by default), and the zero scratch."""
+    from flink_tpu_torch.ops.device_lists import TILE_SLOTS, make_tiles
     from flink_tpu_torch.ops.hash_table import make_table
 
     return {"table": make_table(cap, dev),
             "rows": torch.empty((cap, L, C), dtype=torch.int64, device=dev),
             "counts": torch.zeros(cap, dtype=torch.int32, device=dev),
+            "tiles": make_tiles(cap, dev, tile_slots or TILE_SLOTS),
             "hits": torch.zeros(cap, dtype=torch.int64, device=dev)}
 
 
-def lists_by_key(torch, st: dict, keys=None) -> tuple:
-    """(sorted keys, their counts, their whole [L, C] lists) of a state:
-    every occupied key, or ``keys`` (a tensor; absent ones dropped)."""
-    from flink_tpu_torch.ops.hash_table import EMPTY_KEY, lookup
+def check_tiles(torch, st: dict, what: str, exact: bool = False) -> dict:
+    """A state's tile summary against the one its rows and counts give:
+    each tile's live slots equal, and its bounds hold every live row's ts
+    (``exact``: equal them, as the plain versions keep them). Returns the
+    tiles whose bounds are wider than their rows'."""
+    from flink_tpu_torch.ops.device_lists import tile_summary
 
-    if keys is None:
+    t = st["tiles"]
+    want = tile_summary(st["rows"], st["counts"], t.shape[1])
+    live = want[2] > 0
+    if not torch.equal(t[2], want[2]):
+        raise AssertionError(f"{what}: the tiles' live slots differ from "
+                             "the counts'")
+    if exact and not torch.equal(t, want):
+        raise AssertionError(f"{what}: the tile bounds are not exact")
+    if bool((t[0][live] > want[0][live]).any()
+            or (t[1][live] < want[1][live]).any()):
+        raise AssertionError(f"{what}: a live row lies outside its tile's "
+                             "bounds")
+    loose = live & ((t[0] < want[0]) | (t[1] > want[1]))
+    return {"tiles": t.shape[1], "live_tiles": int(live.sum()),
+            "loose_tiles": int(loose.sum())}
+
+
+def lists_equal_by_key(torch, a: dict, b: dict, what: str,
+                       chunk: int = 1 << 20) -> int:
+    """Every occupied key of two list states, its count and its whole
+    [L, C] list (the snapshot's fields) equal, key by key, a chunk of
+    keys at a time. Returns the keys."""
+    from flink_tpu_torch.ops.hash_table import EMPTY_KEY
+
+    def by_key(st):
         slots = torch.nonzero(st["table"] != EMPTY_KEY).flatten()
-    else:
-        slots = lookup(st["table"], torch.unique(keys).contiguous())
-        slots = slots[slots >= 0].to(torch.int64)
-    k = st["table"][slots]
-    order = torch.argsort(k)
-    slots = slots[order]
-    return (k[order].cpu().numpy(), st["counts"][slots].cpu().numpy(),
-            st["rows"][slots].cpu().numpy())
+        keys = st["table"][slots]
+        order = torch.argsort(keys)
+        return keys[order], slots[order]
 
-
-def assert_lists_equal(torch, a: dict, b: dict, what: str, keys=None,
-                       live_only: bool = False) -> None:
-    ka, ca, ra = lists_by_key(torch, a, keys)
-    kb, cb, rb = lists_by_key(torch, b, keys)
-    if not (np.array_equal(ka, kb) and np.array_equal(ca, cb)):
-        raise AssertionError(f"{what}: keys or counts differ "
-                             f"({len(ka)} and {len(kb)} keys)")
-    if live_only:
-        live = np.arange(ra.shape[1])[None, :] < ca[:, None]
-        ra, rb = ra[live], rb[live]
-    if not np.array_equal(ra, rb):
-        raise AssertionError(f"{what}: lists differ")
+    (ka, sa), (kb, sb) = by_key(a), by_key(b)
+    if not (torch.equal(ka, kb)
+            and torch.equal(a["counts"][sa], b["counts"][sb])):
+        raise AssertionError(f"{what}: keys or counts differ")
+    for i in range(0, sa.numel(), chunk):
+        if not torch.equal(a["rows"][sa[i:i + chunk]],
+                           b["rows"][sb[i:i + chunk]]):
+            raise AssertionError(f"{what}: lists differ")
+    return int(ka.numel())
 
 
 def _packed_on(torch, dev, ts, cols, dtypes):
@@ -5377,14 +5410,15 @@ def check_list_edge(torch, dev, case: str) -> dict:
     second state, through the plain versions, on the card: after every
     operation the flags, failed rows, probe outputs (in order), live
     counts, and every key's whole list (rows past its count too) equal,
-    and the kernels' scratch back at zero."""
+    the kernels' tile summary holding their rows (the plain one exact
+    after a prune), and the kernels' scratch back at zero."""
     from flink_tpu_torch.ops import device_lists as dl
 
     c = list_edge_config(case)
     C = 1 + len(c["dtypes"])
     k = list_state(torch, dev, c["capacity"], c["L"], C)
     p = list_state(torch, dev, c["capacity"], c["L"], C)
-    plain_args = ("table", "rows", "counts")
+    plain_args = ("table", "rows", "counts", "tiles")
     for i, op in enumerate(c["ops"]):
         what = f"list edge {case} op {i} ({op[0]})"
         if op[0] == "append":
@@ -5397,9 +5431,10 @@ def check_list_edge(torch, dev, case: str) -> dict:
             same = (fk.tolist() == fp.tolist()
                     and torch.equal(xk.cpu(), xp.cpu()))
         elif op[0] == "prune":
-            same = int(dl.list_prune(k["rows"], k["counts"], k["hits"],
-                                     op[1])) \
-                == int(dl.list_prune_plain(p["rows"], p["counts"], op[1]))
+            same = int(dl.list_prune(k["rows"], k["counts"], k["tiles"],
+                                     k["hits"], op[1])) \
+                == int(dl.list_prune_plain(p["rows"], p["counts"],
+                                           p["tiles"], op[1]))
         else:
             keys = torch.from_numpy(np.asarray(op[1], np.int64)).to(dev)
             ts = (torch.from_numpy(np.asarray(op[2], np.int64)).to(dev)
@@ -5413,7 +5448,9 @@ def check_list_edge(torch, dev, case: str) -> dict:
                        for g, w in zip(got, want))
         if not same:
             raise AssertionError(f"{what}: kernel and plain version differ")
-        assert_lists_equal(torch, k, p, what)
+        lists_equal_by_key(torch, k, p, what)
+        check_tiles(torch, k, what)
+        check_tiles(torch, p, what, exact=True)
         if bool((k["hits"] != 0).any()):
             raise AssertionError(f"{what}: the scratch is not zero again")
     return {"ops": len(c["ops"]), "L": c["L"], "C": C}
@@ -5432,39 +5469,114 @@ def list_snapshots_equal(a: dict, b: dict) -> bool:
                for x, y in zip(canon(a), canon(b)))
 
 
+def list_store_ops(seed: int) -> list:
+    """A seeded sequence of list-store operations with a watermark after
+    every batch, for stores of L = 16 rows from 64 slots: batches with
+    in-batch duplicates and rows out of ts order over a key pool that
+    grows (rehashes), a hot key past L (the overflow), prunes below every
+    list, inside them, at the same horizon again and above every list (a
+    dead-key rebuild, then skipped prunes of the emptied store), probes,
+    and a restore from the store's own snapshot ("restore")."""
+    rng = np.random.default_rng(seed)
+    ops, t = [], 0
+    for step in range(28):
+        pool = np.arange(30 + 12 * step)
+        n = int(rng.integers(1, 90))
+        k, ts, c = _list_batch(rng, n, pool, t0=t, span=300)
+        perm = rng.permutation(n)
+        ops.append(("append", k[perm], ts[perm], [x[perm] for x in c]))
+        if step == 9:
+            k, ts, c = _list_batch(rng, 20, [7], t0=t, span=50)
+            ops.append(("append", k, ts, c))         # past L: overflow
+        if step == 14:
+            ops.append(("restore",))
+        if step in (18, 19, 20):
+            horizon = t + (1 << 40)                  # above every list
+        elif step % 7 == 3:
+            horizon = -(1 << 40)                     # below every list
+        elif step % 5 == 4:
+            horizon = ops[-2][1] if ops[-2][0] == "prune" else t - 400
+        else:
+            horizon = t - int(rng.integers(100, 400))
+        ops.append(("prune", horizon))
+        if step % 6 == 5:
+            ops.append(("probe", pool, rng.integers(t - 300, t + 300,
+                                                    len(pool)), -150, 50))
+        t += 100
+    ops.append(("probe_batch", np.arange(400)))
+    return ops
+
+
 def check_list_store(torch, dev) -> dict:
-    """A DeviceListStore on the card and one on the CPU through the same
-    appends (in-batch duplicates, a hot key), probes, prunes, rehashes
-    (from 64 slots) and a dead-key rebuild: every probe equal and the
-    snapshots equal field by field after each step."""
+    """A DeviceListStore on the card and one on the CPU through
+    ``list_store_ops`` (two seeds) and the earlier fixed sequence
+    (appends with in-batch duplicates and a hot key, probes, prunes,
+    rehashes from 64 slots, a dead-key rebuild): every probe and every
+    raised overflow equal, the snapshots equal field by field after each
+    step, the card's tile summary holding its rows and the CPU's exact
+    after a prune that reloaded nothing, and the stats (prunes run and
+    skipped, rebuilds, rehashes) equal."""
     from flink_tpu_torch.core import KeyGroupRange
     from flink_tpu_torch.state.device_lists import DeviceListStore
 
     dtypes = [np.dtype(np.int64), np.dtype(np.float64)]
-    stores = [DeviceListStore(KeyGroupRange(0, 127), MAXP, dtypes,
-                              capacity=64, rows_per_key=16, device=d)
-              for d in (dev, "cpu")]
     rng = np.random.default_rng(77)
-    ops = [("append", *_list_batch(rng, n, np.arange(700), t0=200 * i))
-           for i, n in enumerate((300, 64, 1000, 5, 900))]
-    ops += [("probe", np.arange(800), rng.integers(0, 1000, 800), -150, 0),
-            ("prune", 500), ("probe_batch", np.arange(750)),
-            ("append", *_list_batch(rng, 400, np.arange(690, 900),
-                                    t0=2000)),
-            ("prune", 1900), ("probe_batch", np.arange(950))]
-    for i, op in enumerate(ops):
-        outs = [apply_list_op(st, op) for st in stores]
-        if outs[0] != outs[1]:
-            raise AssertionError(f"list store op {i} ({op[0]}): the card "
-                                 "and the CPU differ")
-        if not list_snapshots_equal(stores[0].snapshot(),
-                                    stores[1].snapshot()):
-            raise AssertionError(f"list store op {i} ({op[0]}): snapshots "
-                                 "differ")
-    if stores[0].stats != stores[1].stats:
-        raise AssertionError(f"list store stats {stores[0].stats} on the "
-                             f"card, {stores[1].stats} on the CPU")
-    return {"ops": len(ops), **stores[0].stats}
+    fixed = [("append", *_list_batch(rng, n, np.arange(700), t0=200 * i))
+             for i, n in enumerate((300, 64, 1000, 5, 900))]
+    fixed += [("probe", np.arange(800), rng.integers(0, 1000, 800), -150, 0),
+              ("prune", 500), ("probe_batch", np.arange(750)),
+              ("append", *_list_batch(rng, 400, np.arange(690, 900),
+                                      t0=2000)),
+              ("prune", 1900), ("probe_batch", np.arange(950))]
+    out: dict = {"ops": 0, "loose_tiles": 0}
+
+    def tally(name: str, stores: list) -> None:
+        if stores[0].stats != stores[1].stats:
+            raise AssertionError(f"list store {name}: stats "
+                                 f"{stores[0].stats} on the card, "
+                                 f"{stores[1].stats} on the CPU")
+        for k, v in stores[0].stats.items():
+            out[k] = out.get(k, 0) + v
+            out.setdefault(name, {})[k] = out.get(name, {}).get(k, 0) + v
+
+    for name, ops in (("fixed", fixed), ("seed 1", list_store_ops(1)),
+                      ("seed 2", list_store_ops(2))):
+        stores = [DeviceListStore(KeyGroupRange(0, 127), MAXP, dtypes,
+                                  capacity=64, rows_per_key=16, device=d)
+                  for d in (dev, "cpu")]
+        for i, op in enumerate(ops):
+            what = f"list store {name} op {i} ({op[0]})"
+            before = dict(stores[1].stats)
+            if op[0] == "restore":
+                tally(name, stores)
+                snap = stores[1].snapshot()
+                stores = [DeviceListStore.from_snapshots(
+                    KeyGroupRange(0, 127), MAXP, [snap], capacity=64,
+                    device=d) for d in (dev, "cpu")]
+                outs = [None, None]
+            else:
+                outs = []
+                for st in stores:
+                    try:
+                        outs.append(apply_list_op(st, op))
+                    except RuntimeError as e:
+                        outs.append(("raised", str(e)))
+            if outs[0] != outs[1]:
+                raise AssertionError(f"{what}: the card and the CPU differ")
+            if not list_snapshots_equal(stores[0].snapshot(),
+                                        stores[1].snapshot()):
+                raise AssertionError(f"{what}: snapshots differ")
+            # a plain prune that ran, and reloaded nothing, is exact
+            exact = op[0] == "prune" and stores[1].stats == dict(
+                before, prunes=before["prunes"] + 1)
+            got = [check_tiles(torch, {"rows": st.rows, "counts": st.counts,
+                                       "tiles": st.tiles}, what, exact=x)
+                   for st, x in zip(stores, (False, exact))]
+            out["loose_tiles"] = max(out["loose_tiles"],
+                                     got[0]["loose_tiles"])
+        tally(name, stores)
+        out["ops"] += len(ops)
+    return out
 
 
 def q7j_span() -> int:
@@ -5823,38 +5935,66 @@ def list_cost(sectors: dict, streamed: int, nbytes: int,
     return out
 
 
-def list_append_case(torch, flush, rates, st: dict, keys, packed) -> dict:
+def turns(torch, flush, setup, **fns) -> dict:
+    """Each of ``fns`` timed by ``cuda_ms`` (``setup`` before every run),
+    in turns and then again in reverse order; ``<name>_ms`` the first
+    turn's, ``<name>_ms_again`` the second's."""
+    out = {}
+    order = list(fns)
+    for suffix, names in (("", order), ("_again", order[::-1])):
+        for name in names:
+            out[f"{name}_ms{suffix}"] = cuda_ms(fns[name], torch, flush,
+                                               setup=setup)
+    return out
+
+
+def list_append_case(torch, flush, rates, st: dict, keys, packed,
+                     earlier=None) -> dict:
     """list_append against its plain version on one state (the state put
     back between them): flags, failed rows, and the batch keys' counts
-    and whole lists equal; both timed, the state put back before each
-    launch. Its cost: each row's key and packed row read and row written,
-    a distinct key's table entry read and count read and written, a new
-    key's claim and its list zeroed."""
+    and whole lists equal, and both tile summaries exact; the kernel, the
+    earlier design's (``earlier``, tools/list_designs.py; its lists equal
+    too) and the plain version timed, the state put back before each
+    launch.
+    Its cost: each row's key and packed row read and row written, a
+    distinct key's table entry read and count read and written, a new
+    key's claim and its list written."""
     from flink_tpu_torch.ops import device_lists as dl
     from flink_tpu_torch.ops.hash_table import lookup, sanitize_keys_device
 
     L, C = st["rows"].shape[1], st["rows"].shape[2]
-    t0, c0 = st["table"].clone(), st["counts"].clone()
+    t0, c0, g0 = (st[k].clone() for k in ("table", "counts", "tiles"))
 
     def restore():
         st["table"].copy_(t0)
         st["counts"].copy_(c0)
+        st["tiles"].copy_(g0)
 
-    args = (st["table"], st["rows"], st["counts"])
+    args = (st["table"], st["rows"], st["counts"], st["tiles"])
     fk, xk = dl.list_append(*args, st["hits"], keys, packed)
     got = list_lists_of(torch, st, keys)
+    tiles = check_tiles(torch, st, "list_append", exact=True)
     fk, xk = fk.tolist(), xk.cpu()
     skeys = sanitize_keys_device(keys)
     slots = lookup(st["table"], skeys).to(torch.int64)
     restore()
     fp, xp = dl.list_append_plain(*args, keys, packed)
     want = list_lists_of(torch, st, keys)
+    check_tiles(torch, st, "list_append_plain", exact=True)
     if fk != fp.tolist() or not torch.equal(xk, xp.cpu()) or not all(
             torch.equal(a, b) for a, b in zip(got, want)):
         raise AssertionError("list_append: kernel and plain version differ")
-    restore()
-    ms = cuda_ms(lambda: dl.list_append(*args, st["hits"], keys, packed),
-                 torch, flush, setup=restore)
+    fns = {"kernel": lambda: dl.list_append(*args, st["hits"], keys, packed)}
+    if earlier is not None:
+        restore()
+        f_e, _x_e = earlier.append(torch, st, keys, packed)
+        if f_e.tolist() != fk or not all(
+                torch.equal(a, b)
+                for a, b in zip(list_lists_of(torch, st, keys), want)):
+            raise AssertionError("the earlier list_append differs")
+        fns["earlier"] = lambda: earlier.append(torch, st, keys, packed)
+    del got, want
+    times = turns(torch, flush, restore, **fns)
     plain_ms = cuda_ms(lambda: dl.list_append_plain(*args, keys, packed),
                        torch, flush, setup=restore)
     restore()
@@ -5875,10 +6015,12 @@ def list_append_case(torch, flush, rates, st: dict, keys, packed) -> dict:
     nbytes = (n * (8 + 16 * C) + int(uslots.numel()) * 16
               + int(new.numel()) * (8 + L * C * 8))
     cost = list_cost(sectors, streamed, nbytes, rates)
+    ms = times["kernel_ms"]
     return {"n": n, "capacity": st["table"].numel(), "L": L, "C": C,
             "distinct_keys": int(uslots.numel()),
             "new_keys": int(new.numel()), "flags": fk, "ms": ms,
-            "plain_ms": plain_ms, **cost,
+            **times, "earlier_ms": times.get("earlier_ms"),
+            "plain_ms": plain_ms, "tiles": tiles, **cost,
             "share_of_bound": cost["bound_ms"] / ms}
 
 
@@ -5921,38 +6063,58 @@ def list_probe_case(torch, flush, rates, st: dict, keys, ts, lo_off: int,
             "share_of_bound": cost["bound_ms"] / ms}
 
 
-def list_prune_case(torch, flush, rates, st: dict, horizon: int) -> dict:
+def list_prune_case(torch, flush, rates, st: dict, horizon: int,
+                    earlier=None) -> dict:
     """list_prune against its plain version on one state (put back
-    between them and before each timed launch): live keys, every count
-    and every live slot's whole list equal. Its cost: counts read, live
-    rows' ts, a changed count written, a moved list read and written, all
-    in address order (the kernel walks the slots so)."""
+    between them and before each timed launch): live keys, every count,
+    every live slot's whole list and the tile summary equal (the
+    kernel's exact). The kernel, the earlier design's (``earlier``; equal
+    too) and the plain version timed. Its bound, the earlier design's:
+    counts read, live rows' ts, a changed count written, a moved list read
+    and written, all in address order. Its design floor: the summary
+    read, a visited tile's counts and its live lists' ts sectors, an
+    emptied tile's counts written, the changed counts, the moved lists
+    read and written, and the summaries written (from the summary before
+    the prune: a tile is visited unless its lower bound is at the horizon
+    or its upper bound below it)."""
     from flink_tpu_torch.ops import device_lists as dl
 
     L, C = st["rows"].shape[1], st["rows"].shape[2]
-    c0 = st["counts"].clone()
+    c0, g0 = st["counts"].clone(), st["tiles"].clone()
     live = torch.nonzero(c0 > 0).flatten()
     r0 = st["rows"][live]
 
     def restore():
         st["counts"].copy_(c0)
         st["rows"][live] = r0
+        st["tiles"].copy_(g0)
 
-    lk = int(dl.list_prune(st["rows"], st["counts"], st["hits"], horizon))
-    ck, rk = st["counts"].clone(), st["rows"][live]
+    lk = int(dl.list_prune(st["rows"], st["counts"], st["tiles"],
+                           st["hits"], horizon))
+    tiles = check_tiles(torch, st, "list_prune", exact=True)
+    ck, rk, gk = st["counts"].clone(), st["rows"][live], st["tiles"].clone()
     restore()
-    lp = int(dl.list_prune_plain(st["rows"], st["counts"], horizon))
+    lp = int(dl.list_prune_plain(st["rows"], st["counts"], st["tiles"],
+                                 horizon))
     same = (lk == lp and torch.equal(ck, st["counts"])
             and torch.equal(rk, st["rows"][live])
+            and torch.equal(gk, st["tiles"])
             and not bool((st["hits"] != 0).any()))
-    del ck, rk
     if not same:
         raise AssertionError("list_prune: kernel and plain version differ")
-    restore()
-    ms = cuda_ms(lambda: dl.list_prune(st["rows"], st["counts"], st["hits"],
-                                       horizon), torch, flush, setup=restore)
+    fns = {"kernel": lambda: dl.list_prune(st["rows"], st["counts"],
+                                           st["tiles"], st["hits"], horizon)}
+    if earlier is not None:
+        restore()
+        l_e = int(earlier.prune(torch, st, horizon))
+        if l_e != lk or not torch.equal(ck, st["counts"]) \
+                or not torch.equal(rk, st["rows"][live]):
+            raise AssertionError("the earlier list_prune differs")
+        fns["earlier"] = lambda: earlier.prune(torch, st, horizon)
+    del ck, rk, gk
+    times = turns(torch, flush, restore, **fns)
     plain_ms = cuda_ms(lambda: dl.list_prune_plain(st["rows"], st["counts"],
-                                                   horizon),
+                                                   st["tiles"], horizon),
                        torch, flush, setup=restore)
     restore()
     cap = c0.numel()
@@ -5962,11 +6124,9 @@ def list_prune_case(torch, flush, rates, st: dict, horizon: int) -> dict:
     keep = (pos < cnt[:, None]) & (ts >= horizon)
     drop = (pos < cnt[:, None]) & ~keep
     # a list moves when a dropped row precedes a kept one
-    first_keep_after_drop = (keep & (torch.cumsum(drop.to(torch.int32), 1)
-                                     > 0)).any(1)
+    moved = (keep & (torch.cumsum(drop.to(torch.int32), 1) > 0)).any(1)
     kept = keep.sum(1)
     changed = live[kept != cnt]
-    moved = first_keep_after_drop
     base = live * L * C * 8
     sectors = {"read_in_order": range_sectors(torch, base, cnt * C * 8),
                "store_in_order": range_sectors(torch, base[moved],
@@ -5976,22 +6136,50 @@ def list_prune_case(torch, flush, rates, st: dict, horizon: int) -> dict:
     nbytes = cap * 4 + int(cnt.sum()) * 8 + int(changed.numel()) * 4 \
         + 2 * int(cnt[moved].sum()) * C * 8
     cost = list_cost(sectors, streamed, nbytes, rates)
+    # the design floor, from the summary before the prune
+    n_tiles, T = g0.shape[1], cap // g0.shape[1]
+    has = g0[2] > 0
+    skip = has & (g0[0] >= horizon)
+    zero = has & ~skip & (g0[1] < horizon)
+    visit = has & ~skip & ~zero
+    in_visit = visit[live // T]
+    design_bytes = (n_tiles * 24 + int((visit | zero).sum()) * 24
+                    + int(visit.sum()) * T * 4 + int(zero.sum()) * T * 4
+                    + 32 * range_sectors(torch, base[in_visit],
+                                         cnt[in_visit] * C * 8)
+                    + 32 * distinct_sectors(torch, changed[visit[changed
+                                                                 // T]] * 4)
+                    + 2 * 32 * range_sectors(torch, base[moved],
+                                             cnt[moved] * C * 8))
+    ms = times["kernel_ms"]
+    design_ms = bound_ms(design_bytes)
     return {"capacity": cap, "L": L, "C": C, "horizon": horizon,
             "live_keys_before": int(live.numel()), "live_keys_after": lk,
             "live_rows": int(cnt.sum()), "dropped_rows": int(drop.sum()),
-            "lists_moved": int(moved.sum()), "ms": ms, "plain_ms": plain_ms,
-            **cost, "share_of_bound": cost["bound_ms"] / ms}
+            "lists_moved": int(moved.sum()), "tiles": tiles,
+            "tiles_skipped": int(skip.sum()), "tiles_emptied": int(zero.sum()),
+            "tiles_visited": int(visit.sum()), "ms": ms, **times,
+            "earlier_ms": times.get("earlier_ms"), "plain_ms": plain_ms,
+            **cost,
+            "share_of_bound": cost["bound_ms"] / ms,
+            "design_floor_bytes": design_bytes,
+            "design_floor_ms": design_ms,
+            "share_of_design_floor": design_ms / ms}
 
 
 def list_shape_cases(torch, dev, flush, rates, n_keys: int, count: int,
-                     cap: int) -> dict:
+                     cap: int, earlier=None, tile_slots: int | None = None
+                     ) -> dict:
     """The list kernels at one cell's shapes. The bids' side: pane 3's
     bids appended a batch at a time (the state a fire meets), then the
     next batch appended, the pane's maxes probing it with their interval,
     and the prune of the next watermark (a batch's rows older than the
     horizon). The maxes' side (C = 3, maxprice float32 as the window
     emits it): a fire's maxes appended to an empty state, a batch of bids
-    probing them, and the prune that drops them all."""
+    probing them, and the prune that drops them all. ``earlier``: the
+    earlier design's append and prune timed beside the kernels
+    (tools/list_designs.py);
+    ``tile_slots``: the summary's tile size."""
     from flink_tpu_torch.ops import device_lists as dl
 
     L, P = Q7J_ROWS_PER_KEY, Q7J_PANE_MS
@@ -6004,17 +6192,17 @@ def list_shape_cases(torch, dev, flush, rates, n_keys: int, count: int,
                 _packed_on(torch, dev, ts, [auction, price, ts], i64), ts)
 
     out = {}
-    st = list_state(torch, dev, cap, L, 4)
+    st = list_state(torch, dev, cap, L, 4, tile_slots)
     for lo in range(b0, b1, Q7J_BATCH):
         keys, packed, _ts = bids(lo, min(lo + Q7J_BATCH, b1))
         flags, _failed = dl.list_append(st["table"], st["rows"],
-                                        st["counts"], st["hits"], keys,
-                                        packed)
+                                        st["counts"], st["tiles"],
+                                        st["hits"], keys, packed)
         if any(flags[:2].tolist()):
             raise AssertionError(f"bids' state: flags {flags.tolist()}")
     keys, packed, _ts = bids(b1, b1 + Q7J_BATCH)
     out["append_bids_batch"] = list_append_case(torch, flush, rates, st,
-                                                keys, packed)
+                                                keys, packed, earlier)
     auction, price, _ts = q7j_bids(n_keys, count, b0, b1)
     s = np.sort(auction * 16384 + price)
     last = np.r_[(s[1:] >> 14) != (s[:-1] >> 14), True]
@@ -6026,39 +6214,144 @@ def list_shape_cases(torch, dev, flush, rates, n_keys: int, count: int,
         -(P - 1), 0)
     horizon = int((b0 + Q7J_BATCH) * q7j_span() // count)
     out["prune_bids_watermark"] = list_prune_case(torch, flush, rates, st,
-                                                  horizon)
+                                                  horizon, earlier)
     del st
     fresh_memory(torch)
-    st = list_state(torch, dev, cap, L, 3)
+    st = list_state(torch, dev, cap, L, 3, tile_slots)
     packed = _packed_on(torch, dev, m_ts, [m_keys, m_price],
                         [np.dtype(np.int64), np.dtype(np.float32)])
     out["append_maxes_fire"] = list_append_case(torch, flush, rates, st, mk,
-                                                packed)
-    dl.list_append(st["table"], st["rows"], st["counts"], st["hits"], mk,
-                   packed)
+                                                packed, earlier)
+    dl.list_append(st["table"], st["rows"], st["counts"], st["tiles"],
+                   st["hits"], mk, packed)
     keys, _packed, ts = bids(b1, b1 + Q7J_BATCH)
     out["probe_maxes_by_batch"] = list_probe_case(
         torch, flush, rates, st, keys, torch.from_numpy(ts).to(dev), 0,
         P - 1)
     out["prune_maxes_watermark"] = list_prune_case(torch, flush, rates, st,
-                                                   4 * P)
+                                                   4 * P, earlier)
     del st
     fresh_memory(torch)
     return out
 
 
-def check_device_lists(torch, dev, flush, rates: dict | None = None) -> dict:
+def check_device_lists(torch, dev, flush, rates: dict | None = None,
+                       earlier=None) -> dict:
     """The three list kernels against their plain versions on the card:
-    at both join cells' shapes (timed, with bounds and sector floors), on
-    ``LIST_EDGE_CASES``, and a store on the card against one on the CPU
-    (rehash and rebuild)."""
+    at both join cells' shapes (timed, with bounds and sector floors, PR
+    11's append and prune beside them), on ``LIST_EDGE_CASES``, a store
+    on the card against one on the CPU (rehashes, rebuilds, many
+    watermarks, a restore), and a pane of the 10M join replayed through
+    both (``check_list_sequence``)."""
     shapes = {label: list_shape_cases(torch, dev, flush, rates, n_keys,
-                                      count, cap)
+                                      count, cap, earlier)
               for label, n_keys, count, cap in LIST_SHAPES}
     edges = {case: check_list_edge(torch, dev, case)
              for case in LIST_EDGE_CASES}
     return {"shapes": shapes, "edges": edges,
-            "store": check_list_store(torch, dev), "max_abs_err": 0}
+            "store": check_list_store(torch, dev),
+            "sequence": check_list_sequence(torch, dev), "max_abs_err": 0}
+
+
+def check_list_sequence(torch, dev, c: dict | None = None,
+                        cap: int = LIST_SEQ_CAPACITY,
+                        batch: int = Q7J_BATCH) -> dict:
+    """A pane of the q7_join_10m cell replayed through the kernels on one
+    state and the plain versions on another, on the card, a side at a
+    time (capacity LIST_SEQ_CAPACITY: a side's two states share the
+    card). The bids: pane 2's 128 batches of 2^15 appended, then pane 3's,
+    each followed by the prune at its watermark (the batch's last ts - 1;
+    horizon watermark - pane + 1). The maxes: pane 2's fire (one max an
+    auction, ts its end - 1) appended with pane 3's first batch, the
+    prune at each of pane 3's 128 watermarks (horizon the watermark),
+    then pane 3's fire. After every prune the keys left with a live row
+    equal, every occupied key's count and whole list equal key by key
+    (the snapshot's fields), both tile summaries exact, and the scratch
+    zero; after the last append the same."""
+    from flink_tpu_torch.ops import device_lists as dl
+
+    c = c or Q7J_CELLS["q7_join_10m"]
+    n_keys, count, L, P = c["auctions"], c["bids"], Q7J_ROWS_PER_KEY, \
+        Q7J_PANE_MS
+    i64 = [np.dtype(np.int64)] * 3
+    args = ("table", "rows", "counts", "tiles")
+
+    def both_append(k, p, keys, packed, what):
+        fk, xk = dl.list_append(*(k[n] for n in args), k["hits"], keys,
+                                packed)
+        fp, xp = dl.list_append_plain(*(p[n] for n in args), keys, packed)
+        if fk.tolist() != fp.tolist() or not torch.equal(xk, xp):
+            raise AssertionError(f"{what}: flags or failed rows differ")
+
+    def both_prune(k, p, horizon, what) -> int:
+        lk = int(dl.list_prune(k["rows"], k["counts"], k["tiles"],
+                               k["hits"], horizon))
+        lp = int(dl.list_prune_plain(p["rows"], p["counts"], p["tiles"],
+                                     horizon))
+        if lk != lp:
+            raise AssertionError(f"{what}: {lk} and {lp} live keys")
+        return lk
+
+    def check(k, p, what) -> dict:
+        keys = lists_equal_by_key(torch, k, p, what)
+        tk = check_tiles(torch, k, what, exact=True)
+        check_tiles(torch, p, what, exact=True)
+        if bool((k["hits"] != 0).any()):
+            raise AssertionError(f"{what}: the scratch is not zero again")
+        return {"keys": keys, **tk}
+
+    def pane_batches(p):
+        lo, hi = q7j_pane_range(p, count)
+        for b in range(lo, hi, batch):
+            auction, price, ts = q7j_bids(n_keys, count, b,
+                                          min(b + batch, hi))
+            yield (torch.from_numpy(auction).to(dev),
+                   _packed_on(torch, dev, ts, [auction, price, ts], i64),
+                   int(ts[-1]) - 1)
+
+    def fire(p):
+        auction, price, _ts = q7j_bids(n_keys, count,
+                                       *q7j_pane_range(p, count))
+        s = np.sort(auction * 16384 + price)
+        last = np.r_[(s[1:] >> 14) != (s[:-1] >> 14), True]
+        keys = s[last] >> 14
+        return (torch.from_numpy(keys).to(dev),
+                _packed_on(torch, dev,
+                           np.full(len(keys), (p + 1) * P - 1, np.int64),
+                           [keys, (s[last] & 16383).astype(np.float32)],
+                           [np.dtype(np.int64), np.dtype(np.float32)]))
+
+    t0 = time.perf_counter()
+    out = {"capacity": cap, "L": L, "batches": 0, "prunes": 0}
+    k, p = (list_state(torch, dev, cap, L, 4) for _ in range(2))
+    for keys, packed, _wm in pane_batches(2):
+        both_append(k, p, keys, packed, "bids pane 2")
+    live = []
+    for j, (keys, packed, wm) in enumerate(pane_batches(3)):
+        both_append(k, p, keys, packed, f"bids batch {j}")
+        live.append(both_prune(k, p, wm - P + 1, f"bids prune {j}"))
+        out["bids"] = check(k, p, f"bids prune {j}")
+        out["batches"] += 1
+        out["prunes"] += 1
+    out["bids"]["live_keys_first_last"] = [live[0], live[-1]]
+    del k, p
+    if torch.device(dev).type == "cuda":
+        fresh_memory(torch)
+    k, p = (list_state(torch, dev, cap, L, 3) for _ in range(2))
+    for j, (_keys, _packed, wm) in enumerate(pane_batches(3)):
+        if j == 0:
+            both_append(k, p, *fire(2), "maxes pane 2")
+            check(k, p, "maxes pane 2")
+        both_prune(k, p, wm, f"maxes prune {j}")
+        out["maxes"] = check(k, p, f"maxes prune {j}")
+        out["prunes"] += 1
+    both_append(k, p, *fire(3), "maxes pane 3")
+    out["maxes_end"] = check(k, p, "maxes pane 3")
+    del k, p
+    if torch.device(dev).type == "cuda":
+        fresh_memory(torch)
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def main(argv: list[str]) -> int:
@@ -6092,8 +6385,11 @@ def main(argv: list[str]) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "package": pkg_dir})
     sector_build = None if argv else start_sector_build()
+    designs = None if argv else list_designs_module()
+    earlier_build = None if argv else designs.start_earlier_build()
     nvcc_s = kernels.build_all()
     sector_lib = None if argv else sector_library(sector_build)
+    earlier = None if argv else designs.EarlierKernels(earlier_build)
     emit({"build": {"nvcc_s": nvcc_s, "dir": str(kernels.BUILD_DIR),
                     "sources": sorted(kernels.SOURCES)}})
     ptxas = {stem: ptxas_report(kernels.build_log(stem))
@@ -6116,7 +6412,7 @@ def main(argv: list[str]) -> int:
     window = check_window_seal(torch, dev, flush)
     sess = check_session(torch, dev, flush)
     gagg = check_group_agg(torch, dev, flush, rates)
-    lists = check_device_lists(torch, dev, flush, rates)
+    lists = check_device_lists(torch, dev, flush, rates, earlier)
     emit({"kernel_checks": {"hist256": hist, "select_pass": select,
                             "hash_probe": probe, "ingest_step": step,
                             "ingest_step_forms": forms,
@@ -6312,6 +6608,10 @@ def main(argv: list[str]) -> int:
                 **{k: at[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "share_of_bound", "sector_floor_ms",
                                       "at_measured_rate_ms")},
+                # the earlier design timed in this call; the prune's floor
+                **{k: at[k] for k in ("earlier_ms", "kernel_ms_again",
+                                      "earlier_ms_again", "design_floor_ms",
+                                      "share_of_design_floor") if k in at},
                 "bound_by": "bytes", "library_ms": None, "lead_shape": lead,
                 "launches_q7_join_ref": joins["q7_join_ref"][
                     "launches_per_run"][kernel],

@@ -13,8 +13,8 @@
   ``session_fire`` once per fire round. A device GROUP BY batch launches
   ``group_agg_first``, ``_compact``, ``_fold`` and ``_emit`` once each.
   The device list state of the interval join counts one launch of
-  ``list_append`` (five kernels), ``list_probe`` (three) and
-  ``list_prune`` (two) a call.
+  ``list_append`` (one cooperative kernel), ``list_probe`` (three
+  kernels) and ``list_prune`` (one kernel) a call.
   A caller resets the counters, drives a path and reads them back to show
   which kernels the path went through.
 """

@@ -85,15 +85,15 @@ SOURCES = {
                                   _P],
     },
     "device_lists": {
-        "list_append_launch": [_P, _I64, _P, _I32, _I32, _P, _P, _P, _P,
-                               _I64, _P, _P, _P, _P],
+        "list_append_launch": [_P, _I64, _P, _I32, _I32, _P, _P, _P, _I64,
+                               _I32, _P, _P, _I64, _P, _P, _P, _P],
         "list_probe_blocks": [_I64],
         "list_probe_count_launch": [_P, _I64, _P, _I32, _I32, _P, _P, _I64,
                                     _P, _I64, _I64, _P, _P, _P, _P],
         "list_probe_write_launch": [_P, _I32, _I32, _P, _I64, _P, _I64,
                                     _I64, _P, _P, _P, _P, _P, _P],
-        "list_prune_launch": [_P, _I32, _I32, _P, _I64, _I64, _I32, _P, _P,
-                              _P],
+        "list_prune_launch": [_P, _I32, _I32, _P, _I64, _P, _I64, _I32,
+                              _I64, _I32, _P, _P, _P, _P],
     },
 }
 _ERROR_STRING = {"hist256": "hist256_error_string",

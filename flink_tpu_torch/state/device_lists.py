@@ -14,7 +14,11 @@ their int64 bits), addressed by the device hash table of
   row's interval, compacted on the card, so only matches come home;
   ``probe_batch`` keeps the reference's ``[B, L_eff, C]`` contract;
 * ``prune``: per-key compaction keeping rows with ts >= horizon (the
-  watermark cleanup of the interval join), touching live lists only.
+  watermark cleanup of the interval join). A tile summary (``tiles``:
+  per 128 slots bounds on the live rows' ts and the live slots; derived,
+  never snapshotted; rebuilt by every load with the widest bounds) lets
+  it skip the tiles it cannot change and empty the tiles it drops whole
+  without reading a ts. A store with no live key skips the prune.
 
 The reference's rules hold: the 0.6 load pre-grow, list overflow failing
 loudly with the same message, the dead-key rebuild when emptied keys
@@ -36,11 +40,14 @@ from ..core.keygroups import KeyGroupRange, hash_batch, \
     key_groups_for_hash_batch
 from ..device import resolve_device
 from ..ops.device_lists import check_list_shape, list_append, list_probe, \
-    list_prune
+    list_prune, make_tiles, tiles_from_counts
 from ..ops.hash_table import EMPTY_KEY, lookup_or_insert, make_table
 
 __all__ = ["DeviceListStore", "pack_columns"]
 
+#: ``_min_ts`` of a store with no live row: every prune is skipped until
+#: an append lowers it
+_NO_ROWS = 1 << 63
 _OVERFLOW = ("device list overflow: a key exceeded {L} live rows; raise "
              "rows_per_key or tighten the retention window")
 
@@ -84,9 +91,10 @@ class DeviceListStore:
         self.C = 1 + len(self.col_dtypes)    # ts + payload columns
         check_list_shape(self.L, self.C)
         self._occ = 0   # occupied slots (insert-only table)
-        # lower bound on the oldest live row's ts: prune() is skipped when
-        # it provably cannot drop a row
-        self._min_ts: Optional[int] = None
+        # lower bound on the oldest live row's ts, as the reference keeps
+        # it (None after a restore until an append); _NO_ROWS: no live
+        # row. prune() is skipped when it provably cannot drop a row
+        self._min_ts: Optional[int] = _NO_ROWS
         #: prunes run and skipped, dead-key rebuilds and rehashes
         self.stats = {"prunes": 0, "prunes_skipped": 0, "rebuilds": 0,
                       "rehashes": 0}
@@ -94,8 +102,8 @@ class DeviceListStore:
 
     def _alloc(self, cap: int) -> None:
         """A fresh state of ``cap`` slots. The block is not cleared: a
-        slot's list is zeroed when an insert claims it, or written whole
-        by a reload."""
+        slot's list is written whole when an insert claims it, or by a
+        reload. The tile summary starts empty."""
         dev = self.device
         self.capacity = cap
         # the block first: it takes the freed block of a reload whole
@@ -104,6 +112,7 @@ class DeviceListStore:
         self.table = make_table(cap, dev)
         self.counts = torch.zeros(cap, dtype=torch.int32, device=dev)
         self.hits = torch.zeros(cap, dtype=torch.int64, device=dev)
+        self.tiles = make_tiles(cap, dev)
 
     # -- packing -------------------------------------------------------
     def _pack(self, ts, cols) -> torch.Tensor:
@@ -151,7 +160,8 @@ class DeviceListStore:
             self._rehash(self.capacity * 2)
         keys = keys.contiguous()
         flags, failed = list_append(self.table, self.rows, self.counts,
-                                    self.hits, keys, packed.contiguous())
+                                    self.tiles, self.hits, keys,
+                                    packed.contiguous())
         full, insert_failed, inserted = flags.tolist()
         self._occ += int(inserted)
         if full:
@@ -201,14 +211,16 @@ class DeviceListStore:
         """Drop every row with ts < horizon (watermark cleanup). When dead
         keys (occupied slots whose lists emptied) dominate, the table is
         rebuilt without them, so an unbounded key domain cannot grow the
-        device state without bound."""
+        device state without bound. Skipped when no row can drop: every
+        live row is at the horizon or above, or there is none (the
+        reference's prune then changes nothing and rebuilds nothing)."""
         if self._min_ts is not None and self._min_ts >= horizon:
             self.stats["prunes_skipped"] += 1
             return
-        live = int(list_prune(self.rows, self.counts, self.hits,
+        live = int(list_prune(self.rows, self.counts, self.tiles, self.hits,
                               int(horizon)))
         self.stats["prunes"] += 1
-        self._min_ts = int(horizon)
+        self._min_ts = int(horizon) if live else _NO_ROWS
         dead = self._occ - live
         if dead > 64 and dead * 2 > self._occ:
             self.stats["rebuilds"] += 1
@@ -229,7 +241,7 @@ class DeviceListStore:
         slots = torch.nonzero(keep).flatten()
         keys, rows, counts = self.table[slots], self.rows[slots], \
             self.counts[slots]
-        self.table = self.rows = self.counts = self.hits = None
+        self.table = self.rows = self.counts = self.hits = self.tiles = None
         del slots, keep
         self._load(capacity, keys, rows, counts)
 
@@ -246,6 +258,7 @@ class DeviceListStore:
         slots = slots.to(torch.int64)
         self.rows[slots] = rows
         self.counts[slots] = counts.to(torch.int32)
+        self.tiles = tiles_from_counts(self.counts)
 
     # -- checkpointing -------------------------------------------------
     def snapshot(self) -> dict:
@@ -304,8 +317,9 @@ class DeviceListStore:
                 else np.empty((0, self.L, self.C), np.int64))
         counts = (np.concatenate(counts_parts) if counts_parts
                   else np.empty(0, np.int32))
-        self.table = self.rows = self.counts = self.hits = None
+        self.table = self.rows = self.counts = self.hits = self.tiles = None
         dev = self.device
         self._load(cap, torch.as_tensor(keys).to(dev),
                    torch.as_tensor(rows).to(dev),
                    torch.as_tensor(counts.astype(np.int32)).to(dev))
+        self._min_ts = None if (counts > 0).any() else _NO_ROWS

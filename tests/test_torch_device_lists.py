@@ -9,9 +9,12 @@ sort by key) so that they hold the semantics, not the layout. Tolerance:
 exact, every column being int64 or float bits. Rows past a key's count
 (the rows a prune dropped, zeros in a fresh list) are compared too.
 
-The ``cuda`` cases hold the kernels (csrc/device_lists.cu) against their
-plain versions on chip_smoke.py's adversarial inputs
-(``LIST_EDGE_CASES``) and a store on the card against one on the CPU;
+The plain versions keep the tile summary (``tiles``: per tile bounds on
+the live rows' ts and the live slots); after every step it is held to
+the rows (``chip_smoke.check_tiles``). The ``cuda`` cases hold the
+kernels (csrc/device_lists.cu) against their plain versions on
+chip_smoke.py's adversarial inputs (``LIST_EDGE_CASES``) and a store on
+the card against one on the CPU;
 they skip without a card. The reference package is imported inside the
 ``ref`` fixture, so they run where JAX is not installed:
 
@@ -316,6 +319,84 @@ def test_plain_versions_on_edge_cases_match_reference(ref):
                     outs.append(("raised", str(e)))
             assert outs[0] == outs[1], (case, op[0])
             assert_snapshots_equal(r.snapshot(), p.snapshot())
+            _check_summary(p, exact=op[0] == "prune")
+
+
+def _check_summary(store, exact: bool) -> dict:
+    """The store's tile summary against its rows: live slots a tile
+    exact, every live row's ts inside its tile's bounds (``exact``: the
+    bounds equal the rows', as the plain prune leaves them)."""
+    return cs.check_tiles(torch, {"rows": store.rows, "counts": store.counts,
+                                  "tiles": store.tiles}, "summary",
+                          exact=exact)
+
+
+def test_sequences_equal_reference_with_tile_summary(ref):
+    """chip_smoke.list_store_ops: seeded appends (in-batch duplicates, ts
+    out of order, a hot key past L), a watermark after every batch with
+    horizons below, inside and above every list, rehashes, dead-key
+    rebuilds, probes and a restore across packages. After every step the
+    outputs and snapshots equal the reference's, and the plain tile
+    summary holds every live row's ts with its live slots exact (the
+    bounds exact after a prune that ran and reloaded nothing)."""
+    from flink_tpu.core import KeyGroupRange as RefRange
+    from flink_tpu.state.device_lists import DeviceListStore as RefStore
+
+    for seed in (1, 2, 3):
+        r, p = ref(DTYPES, capacity=64, rows_per_key=16), \
+            port(DTYPES, capacity=64, rows_per_key=16)
+        for i, op in enumerate(cs.list_store_ops(seed)):
+            before = dict(p.stats)
+            if op[0] == "restore":
+                r, p = (RefStore.from_snapshots(RefRange(0, 127), 128,
+                                                [p.snapshot()], capacity=64),
+                        DeviceListStore.from_snapshots(KGR, 128,
+                                                       [r.snapshot()],
+                                                       capacity=64,
+                                                       device="cpu"))
+            else:
+                outs = []
+                for st in (r, p):
+                    try:
+                        outs.append(cs.apply_list_op(st, op))
+                    except RuntimeError as e:
+                        outs.append(("raised", str(e)))
+                assert outs[0] == outs[1], (seed, i, op[0])
+            assert_snapshots_equal(r.snapshot(), p.snapshot())
+            ran = op[0] == "prune" and p.stats == dict(
+                before, prunes=before["prunes"] + 1)
+            _check_summary(p, exact=ran)
+        assert p.stats["prunes_skipped"] > 0
+
+
+def test_prune_skips_an_emptied_store(ref):
+    """A prune that leaves no live key marks the store empty: the next
+    prunes are skipped (the reference's change nothing and rebuild
+    nothing), the snapshots still equal the reference's, and an append
+    makes the prune run again."""
+    keys = np.arange(40, dtype=np.int64)
+    r, p = _both(ref, 9, [("append", keys, keys * 10, [keys, keys * 0.5]),
+                          ("prune", 10 ** 6)],
+                 capacity=128, rows_per_key=4)
+    assert p.stats == {"prunes": 1, "prunes_skipped": 0, "rebuilds": 0,
+                       "rehashes": 0}
+    assert_snapshots_equal(r.snapshot(), p.snapshot())
+    for h in (10 ** 6 + 1, 10 ** 7):
+        for st in (r, p):
+            st.prune(h)
+        assert_snapshots_equal(r.snapshot(), p.snapshot())
+    assert p.stats["prunes"] == 1 and p.stats["prunes_skipped"] == 2
+    assert int(p.tiles[2].sum()) == 0
+    more = np.array([3, 50], np.int64)
+    for st in (r, p):
+        st.append_batch(more, np.array([5, 2 * 10 ** 7], np.int64),
+                        [more, more * 0.5])
+        st.prune(10 ** 7)
+    assert p.stats["prunes"] == 2 and p.stats["prunes_skipped"] == 2
+    assert_snapshots_equal(r.snapshot(), p.snapshot())
+    _check_summary(p, exact=True)
+    rows, counts = p.probe_batch(more)
+    assert counts.tolist() == [0, 1] and rows[1, 0, 0] == 2 * 10 ** 7
 
 
 def test_device_required_unless_cpu_asked():
@@ -342,7 +423,10 @@ def test_cuda_kernels_equal_plain_on_edge_cases(dev):
 @pytest.mark.cuda
 def test_cuda_store_equals_cpu_store(dev):
     """A store on the card (kernels) and one on the CPU (plain versions)
-    through appends with duplicates, probes, prunes, a rehash and a
-    rebuild: snapshots equal field by field."""
+    through appends with duplicates, probes, prunes, rehashes and
+    rebuilds, and ``list_store_ops``' sequences of many watermarks (a
+    restore among them): outputs, snapshots and stats equal, the card's
+    tile summary holding its rows."""
     got = cs.check_list_store(torch, dev)
     assert got["rehashes"] >= 1 and got["rebuilds"] >= 1
+    assert got["prunes"] >= 20 and got["prunes_skipped"] >= 1
