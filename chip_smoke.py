@@ -216,13 +216,18 @@ Run from the repository root:  python3 chip_smoke.py
     whole list, the matches in order and the counts equal; each timed
     (the L2 flushed, the state put back before each launch) beside its
     plain version, with its byte bound, its 32-byte sector floor and that
-    floor at the card's measured random rates. Then the adversarial
+    floor at the card's measured random rates (the prune's bound what its
+    tile summary leaves it to move, the earlier design's beside it, and
+    the earlier design's append and prune timed in turns with the
+    kernels). Then the adversarial
     sequences (``LIST_EDGE_CASES``: a hot key past L, in-batch duplicates,
     ragged batches and keys, a horizon that drops everything, ts at the
     exact bounds, float and bool columns, lists out of ts order, lists of
     256 rows of 9 columns, one row) and a store on the card against one
     on the CPU through rehashes and a dead-key rebuild, snapshots equal
-    field by field.
+    field by field, and a pane of the 10M join replayed through kernels
+    and plain versions at 2^25 slots (``check_list_sequence``), every
+    prune's lists and summaries compared.
 21. The Q7 join cells through ``env.execute()``: bench.py::
     bench_framework_q7_join (bids -> tumbling max per auction on the
     device window -> connect(bids) -> IntervalJoinOperator -> is-winner),
@@ -5195,9 +5200,6 @@ LIST_EDGE_CASES = ("hot_key_past_L", "duplicates", "ragged", "drop_all",
 Q7J_PANE_MS, Q7J_PANES, Q7J_BATCH = 10_000, 8, 1 << 15
 Q7J_ROWS_PER_KEY = 32          # bench.py's rows_per_key
 Q7J_RUNS = 2                   # timed runs of each join cell
-#: slots of each state of check_list_sequence: the 10M cell's 2^25 halved,
-#: so that a side's kernel and plain states fit on one card together
-LIST_SEQ_CAPACITY = 1 << 24
 #: bench.py::bench_framework_q7_join (:590-677), and the same job at 10M
 #: auctions; the 10M cell's bids are device batches (datagen(device=True))
 Q7J_CELLS = {
@@ -5334,18 +5336,16 @@ def apply_list_op(store, op):
                              for b, c in enumerate(counts)]
 
 
-def list_state(torch, dev, cap: int, L: int, C: int,
-               tile_slots: int | None = None) -> dict:
+def list_state(torch, dev, cap: int, L: int, C: int) -> dict:
     """An empty list state: table, rows (not cleared: a claim writes a
-    whole list), counts, the tile summary (tiles of ``tile_slots``, the
-    store's by default), and the zero scratch."""
-    from flink_tpu_torch.ops.device_lists import TILE_SLOTS, make_tiles
+    whole list), counts, the tile summary, and the zero scratch."""
+    from flink_tpu_torch.ops.device_lists import make_tiles
     from flink_tpu_torch.ops.hash_table import make_table
 
     return {"table": make_table(cap, dev),
             "rows": torch.empty((cap, L, C), dtype=torch.int64, device=dev),
             "counts": torch.zeros(cap, dtype=torch.int32, device=dev),
-            "tiles": make_tiles(cap, dev, tile_slots or TILE_SLOTS),
+            "tiles": make_tiles(cap, dev),
             "hits": torch.zeros(cap, dtype=torch.int64, device=dev)}
 
 
@@ -6069,14 +6069,15 @@ def list_prune_case(torch, flush, rates, st: dict, horizon: int,
     between them and before each timed launch): live keys, every count,
     every live slot's whole list and the tile summary equal (the
     kernel's exact). The kernel, the earlier design's (``earlier``; equal
-    too) and the plain version timed. Its bound, the earlier design's:
-    counts read, live rows' ts, a changed count written, a moved list read
-    and written, all in address order. Its design floor: the summary
-    read, a visited tile's counts and its live lists' ts sectors, an
-    emptied tile's counts written, the changed counts, the moved lists
-    read and written, and the summaries written (from the summary before
-    the prune: a tile is visited unless its lower bound is at the horizon
-    or its upper bound below it)."""
+    too) and the plain version timed. Its bound, what the design must
+    move: the summary read, a visited tile's counts and its live lists'
+    sectors, an emptied tile's counts written, the changed counts, the
+    moved lists written, and the summaries written (from the
+    summary before the prune: a tile is visited unless its lower bound is
+    at the horizon or its upper bound below it). Beside it, ``earlier_*``,
+    the earlier design's bound: every count read, live rows' ts, a changed
+    count written, a moved list read and written, all in address order,
+    with its sector floors."""
     from flink_tpu_torch.ops import device_lists as dl
 
     L, C = st["rows"].shape[1], st["rows"].shape[2]
@@ -6135,24 +6136,22 @@ def list_prune_case(torch, flush, rates, st: dict, horizon: int,
     streamed = cap * 4
     nbytes = cap * 4 + int(cnt.sum()) * 8 + int(changed.numel()) * 4 \
         + 2 * int(cnt[moved].sum()) * C * 8
-    cost = list_cost(sectors, streamed, nbytes, rates)
-    # the design floor, from the summary before the prune
+    old_bound = {f"earlier_{k}": v for k, v in
+                 list_cost(sectors, streamed, nbytes, rates).items()}
+    # the bound, from the summary before the prune; a moved list is read
+    # with its tile's live lists, then written
     n_tiles, T = g0.shape[1], cap // g0.shape[1]
     has = g0[2] > 0
     skip = has & (g0[0] >= horizon)
     zero = has & ~skip & (g0[1] < horizon)
     visit = has & ~skip & ~zero
     in_visit = visit[live // T]
-    design_bytes = (n_tiles * 24 + int((visit | zero).sum()) * 24
-                    + int(visit.sum()) * T * 4 + int(zero.sum()) * T * 4
-                    + 32 * range_sectors(torch, base[in_visit],
-                                         cnt[in_visit] * C * 8)
-                    + 32 * distinct_sectors(torch, changed[visit[changed
-                                                                 // T]] * 4)
-                    + 2 * 32 * range_sectors(torch, base[moved],
-                                             cnt[moved] * C * 8))
+    nbytes = (n_tiles * 24 + int((visit | zero).sum()) * (24 + T * 4)
+              + 32 * range_sectors(torch, base[in_visit],
+                                   cnt[in_visit] * C * 8)
+              + 32 * distinct_sectors(torch, changed[visit[changed // T]] * 4)
+              + 32 * range_sectors(torch, base[moved], cnt[moved] * C * 8))
     ms = times["kernel_ms"]
-    design_ms = bound_ms(design_bytes)
     return {"capacity": cap, "L": L, "C": C, "horizon": horizon,
             "live_keys_before": int(live.numel()), "live_keys_after": lk,
             "live_rows": int(cnt.sum()), "dropped_rows": int(drop.sum()),
@@ -6160,16 +6159,13 @@ def list_prune_case(torch, flush, rates, st: dict, horizon: int,
             "tiles_skipped": int(skip.sum()), "tiles_emptied": int(zero.sum()),
             "tiles_visited": int(visit.sum()), "ms": ms, **times,
             "earlier_ms": times.get("earlier_ms"), "plain_ms": plain_ms,
-            **cost,
-            "share_of_bound": cost["bound_ms"] / ms,
-            "design_floor_bytes": design_bytes,
-            "design_floor_ms": design_ms,
-            "share_of_design_floor": design_ms / ms}
+            "bytes": nbytes, "bound_ms": bound_ms(nbytes),
+            "share_of_bound": bound_ms(nbytes) / ms, **old_bound,
+            "share_of_earlier_bound": old_bound["earlier_bound_ms"] / ms}
 
 
 def list_shape_cases(torch, dev, flush, rates, n_keys: int, count: int,
-                     cap: int, earlier=None, tile_slots: int | None = None
-                     ) -> dict:
+                     cap: int, earlier=None) -> dict:
     """The list kernels at one cell's shapes. The bids' side: pane 3's
     bids appended a batch at a time (the state a fire meets), then the
     next batch appended, the pane's maxes probing it with their interval,
@@ -6178,8 +6174,7 @@ def list_shape_cases(torch, dev, flush, rates, n_keys: int, count: int,
     emits it): a fire's maxes appended to an empty state, a batch of bids
     probing them, and the prune that drops them all. ``earlier``: the
     earlier design's append and prune timed beside the kernels
-    (tools/list_designs.py);
-    ``tile_slots``: the summary's tile size."""
+    (tools/list_designs.py)."""
     from flink_tpu_torch.ops import device_lists as dl
 
     L, P = Q7J_ROWS_PER_KEY, Q7J_PANE_MS
@@ -6192,7 +6187,7 @@ def list_shape_cases(torch, dev, flush, rates, n_keys: int, count: int,
                 _packed_on(torch, dev, ts, [auction, price, ts], i64), ts)
 
     out = {}
-    st = list_state(torch, dev, cap, L, 4, tile_slots)
+    st = list_state(torch, dev, cap, L, 4)
     for lo in range(b0, b1, Q7J_BATCH):
         keys, packed, _ts = bids(lo, min(lo + Q7J_BATCH, b1))
         flags, _failed = dl.list_append(st["table"], st["rows"],
@@ -6217,7 +6212,7 @@ def list_shape_cases(torch, dev, flush, rates, n_keys: int, count: int,
                                                   horizon, earlier)
     del st
     fresh_memory(torch)
-    st = list_state(torch, dev, cap, L, 3, tile_slots)
+    st = list_state(torch, dev, cap, L, 3)
     packed = _packed_on(torch, dev, m_ts, [m_keys, m_price],
                         [np.dtype(np.int64), np.dtype(np.float32)])
     out["append_maxes_fire"] = list_append_case(torch, flush, rates, st, mk,
@@ -6254,25 +6249,34 @@ def check_device_lists(torch, dev, flush, rates: dict | None = None,
 
 
 def check_list_sequence(torch, dev, c: dict | None = None,
-                        cap: int = LIST_SEQ_CAPACITY,
                         batch: int = Q7J_BATCH) -> dict:
     """A pane of the q7_join_10m cell replayed through the kernels on one
     state and the plain versions on another, on the card, a side at a
-    time (capacity LIST_SEQ_CAPACITY: a side's two states share the
-    card). The bids: pane 2's 128 batches of 2^15 appended, then pane 3's,
-    each followed by the prune at its watermark (the batch's last ts - 1;
-    horizon watermark - pane + 1). The maxes: pane 2's fire (one max an
-    auction, ts its end - 1) appended with pane 3's first batch, the
-    prune at each of pane 3's 128 watermarks (horizon the watermark),
-    then pane 3's fire. After every prune the keys left with a live row
-    equal, every occupied key's count and whole list equal key by key
-    (the snapshot's fields), both tile summaries exact, and the scratch
-    zero; after the last append the same."""
+    time, each state of the cell's store capacity (2^25 slots: a side's
+    two states, 2 x 32 GiB for the bids, share the card, the plain prune
+    permuting a chunk of lists at a time). The bids: pane 2's 128
+    batches of 2^15 appended, then pane 3's, each followed by the prune
+    at its watermark (the batch's last ts - 1; horizon watermark - pane +
+    1). The maxes: pane 2's fire (one max an auction, ts its end - 1),
+    then after each of pane 3's 128 batches that batch's own maxes (one
+    an auction of the batch, ts the batch's last ts, as an early fire
+    would emit them) and the prune at horizon watermark - pane / 8: the
+    early prunes skip every tile (pane 2's ts is each tile's lower
+    bound), the one that passes pane 2's ts visits every tile with a row
+    of both, and the later ones visit, skip and empty tiles as the rows
+    of a sliding eighth of the pane come and go; then pane 3's fire.
+    After every prune the keys left with a live row equal, every
+    occupied key's count and whole list equal key by key (the snapshot's
+    fields), both tile summaries exact, and the scratch zero; after the
+    last append the same. Returns per side the last check and the
+    prunes that visited, skipped and emptied tiles (from the kernels'
+    summary before each prune)."""
     from flink_tpu_torch.ops import device_lists as dl
 
     c = c or Q7J_CELLS["q7_join_10m"]
     n_keys, count, L, P = c["auctions"], c["bids"], Q7J_ROWS_PER_KEY, \
         Q7J_PANE_MS
+    cap = c["store_capacity"]
     i64 = [np.dtype(np.int64)] * 3
     args = ("table", "rows", "counts", "tiles")
 
@@ -6283,7 +6287,15 @@ def check_list_sequence(torch, dev, c: dict | None = None,
         if fk.tolist() != fp.tolist() or not torch.equal(xk, xp):
             raise AssertionError(f"{what}: flags or failed rows differ")
 
-    def both_prune(k, p, horizon, what) -> int:
+    def both_prune(k, p, horizon, what, paths) -> int:
+        g = k["tiles"]
+        skip = (g[2] > 0) & (g[0] >= horizon)
+        empty = (g[2] > 0) & ~skip & (g[1] < horizon)
+        for path, n in (("visited", int(((g[2] > 0) & ~skip & ~empty)
+                                         .sum())),
+                        ("skipped", int(skip.sum())),
+                        ("emptied", int(empty.sum()))):
+            paths[f"prunes_that_{path}"] += n > 0
         lk = int(dl.list_prune(k["rows"], k["counts"], k["tiles"],
                                k["hits"], horizon))
         lp = int(dl.list_prune_plain(p["rows"], p["counts"], p["tiles"],
@@ -6309,47 +6321,59 @@ def check_list_sequence(torch, dev, c: dict | None = None,
                    _packed_on(torch, dev, ts, [auction, price, ts], i64),
                    int(ts[-1]) - 1)
 
-    def fire(p):
-        auction, price, _ts = q7j_bids(n_keys, count,
-                                       *q7j_pane_range(p, count))
+    def maxes(lo, hi, ts):
+        """One max an auction of bids [lo, hi), each at ``ts``."""
+        auction, price, _ts = q7j_bids(n_keys, count, lo, hi)
         s = np.sort(auction * 16384 + price)
         last = np.r_[(s[1:] >> 14) != (s[:-1] >> 14), True]
         keys = s[last] >> 14
         return (torch.from_numpy(keys).to(dev),
-                _packed_on(torch, dev,
-                           np.full(len(keys), (p + 1) * P - 1, np.int64),
+                _packed_on(torch, dev, np.full(len(keys), ts, np.int64),
                            [keys, (s[last] & 16383).astype(np.float32)],
                            [np.dtype(np.int64), np.dtype(np.float32)]))
 
+    def fresh():
+        if torch.device(dev).type == "cuda":
+            fresh_memory(torch)
+            torch.cuda.empty_cache()
+
     t0 = time.perf_counter()
     out = {"capacity": cap, "L": L, "batches": 0, "prunes": 0}
+    fresh()
+    paths = dict.fromkeys(("prunes_that_visited", "prunes_that_skipped",
+                           "prunes_that_emptied"), 0)
     k, p = (list_state(torch, dev, cap, L, 4) for _ in range(2))
     for keys, packed, _wm in pane_batches(2):
         both_append(k, p, keys, packed, "bids pane 2")
     live = []
     for j, (keys, packed, wm) in enumerate(pane_batches(3)):
         both_append(k, p, keys, packed, f"bids batch {j}")
-        live.append(both_prune(k, p, wm - P + 1, f"bids prune {j}"))
+        live.append(both_prune(k, p, wm - P + 1, f"bids prune {j}", paths))
         out["bids"] = check(k, p, f"bids prune {j}")
         out["batches"] += 1
         out["prunes"] += 1
-    out["bids"]["live_keys_first_last"] = [live[0], live[-1]]
+    out["bids"].update(paths, live_keys_first_last=[live[0], live[-1]])
     del k, p
-    if torch.device(dev).type == "cuda":
-        fresh_memory(torch)
+    fresh()
+    paths = dict.fromkeys(paths, 0)
     k, p = (list_state(torch, dev, cap, L, 3) for _ in range(2))
+    both_append(k, p, *maxes(*q7j_pane_range(2, count), 3 * P - 1),
+                "maxes pane 2")
+    check(k, p, "maxes pane 2")
+    lo = q7j_pane_range(3, count)[0]
     for j, (_keys, _packed, wm) in enumerate(pane_batches(3)):
-        if j == 0:
-            both_append(k, p, *fire(2), "maxes pane 2")
-            check(k, p, "maxes pane 2")
-        both_prune(k, p, wm, f"maxes prune {j}")
+        hi = min(lo + batch, q7j_pane_range(3, count)[1])
+        both_append(k, p, *maxes(lo, hi, wm + 1), f"maxes batch {j}")
+        lo = hi
+        both_prune(k, p, wm - P // 8, f"maxes prune {j}", paths)
         out["maxes"] = check(k, p, f"maxes prune {j}")
         out["prunes"] += 1
-    both_append(k, p, *fire(3), "maxes pane 3")
+    out["maxes"].update(paths)
+    both_append(k, p, *maxes(*q7j_pane_range(3, count), 4 * P - 1),
+                "maxes pane 3")
     out["maxes_end"] = check(k, p, "maxes pane 3")
     del k, p
-    if torch.device(dev).type == "cuda":
-        fresh_memory(torch)
+    fresh()
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -6606,12 +6630,13 @@ def main(argv: list[str]) -> int:
                 "launches": joins["q7_join_10m"]["launches_per_run"][kernel],
                 "max_abs_err": lists["max_abs_err"],
                 **{k: at[k] for k in ("ms", "plain_ms", "bound_ms",
-                                      "share_of_bound", "sector_floor_ms",
-                                      "at_measured_rate_ms")},
-                # the earlier design timed in this call; the prune's floor
-                **{k: at[k] for k in ("earlier_ms", "kernel_ms_again",
-                                      "earlier_ms_again", "design_floor_ms",
-                                      "share_of_design_floor") if k in at},
+                                      "share_of_bound")},
+                # the append's sector floors; the earlier design timed in
+                # this call, and the prune's earlier bound
+                **{k: at[k] for k in ("sector_floor_ms", "at_measured_rate_ms",
+                                      "earlier_ms", "kernel_ms_again",
+                                      "earlier_ms_again", "earlier_bound_ms",
+                                      "share_of_earlier_bound") if k in at},
                 "bound_by": "bytes", "library_ms": None, "lead_shape": lead,
                 "launches_q7_join_ref": joins["q7_join_ref"][
                     "launches_per_run"][kernel],

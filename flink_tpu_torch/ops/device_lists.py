@@ -8,7 +8,7 @@ Port of the programs of ``flink_tpu/state/device_lists.py``. The state:
 their int64 bits), ``counts`` [capacity] int32, ``hits`` [capacity] int64,
 a scratch that is zero between calls (the kernels' own; the plain
 versions do not read it), and ``tiles`` [3, capacity / T] int64, the tile
-summary of T slots a tile (``TILE_SLOTS`` in the store; T is read from
+summary of T slots a tile (``TILE_SLOTS``; the kernels read T from
 the shapes): ``tiles[0]`` a lower and ``tiles[1]`` an upper bound on
 column 0 of every live row of the tile, ``tiles[2]`` the tile's slots
 with a nonzero count, exact. An empty tile holds (int64 max, int64 min,
@@ -63,6 +63,9 @@ __all__ = ["list_append", "list_append_plain", "list_probe",
 MAX_LIST_WORDS = 28_000
 #: slots a tile of the list state's summary covers (a power of two)
 TILE_SLOTS = 128
+#: live lists the plain prune permutes at a time (its temporaries are
+#: about three copies of that many lists)
+_PRUNE_CHUNK = 1 << 20
 _INT64_MAX, _INT64_MIN = (1 << 63) - 1, -(1 << 63)
 
 
@@ -108,26 +111,27 @@ def _stream(t: torch.Tensor):
 
 
 # -- the tile summary --------------------------------------------------------
-def make_tiles(capacity: int, device, tile_slots: int = TILE_SLOTS
-               ) -> torch.Tensor:
-    """The summary of an empty state of ``capacity`` slots: [3, tiles]
-    int64, every tile (int64 max, int64 min, 0). A state smaller than a
-    tile is one tile."""
-    t = torch.empty((3, max(1, capacity // tile_slots)), dtype=torch.int64,
-                    device=device)
+def _empty_tiles(n_tiles: int, device) -> torch.Tensor:
+    t = torch.empty((3, n_tiles), dtype=torch.int64, device=device)
     t[0] = _INT64_MAX
     t[1] = _INT64_MIN
     t[2] = 0
     return t
 
 
-def tiles_from_counts(counts: torch.Tensor, tile_slots: int = TILE_SLOTS
-                      ) -> torch.Tensor:
+def make_tiles(capacity: int, device) -> torch.Tensor:
+    """The summary of an empty state of ``capacity`` slots: [3, tiles]
+    int64, tiles of ``TILE_SLOTS``, every tile (int64 max, int64 min, 0).
+    A state smaller than a tile is one tile."""
+    return _empty_tiles(max(1, capacity // TILE_SLOTS), device)
+
+
+def tiles_from_counts(counts: torch.Tensor) -> torch.Tensor:
     """The summary of a state just loaded (a restore, a rehash, a dead-key
     rebuild), from its counts alone: each tile's live slots exact, its
     bounds the widest (int64 min, int64 max) where it has a live slot, so
     the next prune visits it and makes them exact."""
-    t = make_tiles(counts.numel(), counts.device, tile_slots)
+    t = make_tiles(counts.numel(), counts.device)
     live = (counts > 0).view(t.shape[1], -1).sum(1)
     t[0] = torch.where(live > 0, _INT64_MIN, _INT64_MAX)
     t[1] = torch.where(live > 0, _INT64_MAX, _INT64_MIN)
@@ -141,7 +145,7 @@ def tile_summary(rows: torch.Tensor, counts: torch.Tensor, n_tiles: int
     0 over its live rows and its live slots (the plain prune's result,
     and what a kernel's bounds must hold against)."""
     cap, L = rows.shape[0], rows.shape[1]
-    t = make_tiles(cap, rows.device, cap // n_tiles)
+    t = _empty_tiles(n_tiles, rows.device)
     live = torch.nonzero(counts > 0).flatten()
     if live.numel():
         ts = rows[live, :, 0]
@@ -316,15 +320,15 @@ def list_probe(table, rows, counts, keys, ts=None, lo_off: int = 0,
 def list_prune_plain(rows, counts, tiles, horizon: int, ts_col: int = 0):
     """Plain version of ``list_prune`` (any device): the reference's
     stable argsort of ~keep, over the live slots' lists only (a slot with
-    no live row keeps its order under that sort); the summary made exact
-    on every tile. It skips nothing: it is the semantics."""
+    no live row keeps its order under that sort), ``_PRUNE_CHUNK`` lists
+    at a time; the summary made exact on every tile. It skips nothing: it
+    is the semantics."""
     L = rows.shape[1]
     _tile_shift(tiles, rows.shape[0])
-    live = torch.nonzero(counts > 0).flatten()
-    if live.numel():
+    pos = torch.arange(L, device=rows.device)[None, :]
+    for live in torch.nonzero(counts > 0).flatten().split(_PRUNE_CHUNK):
         sub = rows[live]
-        keep = (torch.arange(L, device=rows.device)[None, :]
-                < counts[live][:, None].to(torch.int64)) \
+        keep = (pos < counts[live][:, None].to(torch.int64)) \
             & (sub[:, :, ts_col] >= horizon)
         perm = torch.sort((~keep).to(torch.uint8), dim=1, stable=True).indices
         rows[live] = torch.take_along_dim(sub, perm[:, :, None], dim=1)

@@ -423,6 +423,20 @@ class EarlierKernels:
         return result[0]
 
 
+def with_tiles_of(torch, list_state, tile_slots: int):
+    """``chip_smoke.list_state`` with an empty summary of ``tile_slots``
+    slots a tile in place of the store's (the kernels read the tile size
+    from the summary's shape)."""
+    def state(torch_, dev, cap: int, L: int, C: int) -> dict:
+        st = list_state(torch_, dev, cap, L, C)
+        t = torch.empty((3, max(1, cap // tile_slots)), dtype=torch.int64,
+                        device=dev)
+        t[0], t[1], t[2] = (1 << 63) - 1, -(1 << 63), 0
+        st["tiles"] = t
+        return st
+    return state
+
+
 def bind(kernels, so):
     lib = ctypes.CDLL(str(so))
     for entry, argtypes in kernels.SOURCES["device_lists"].items():
@@ -485,10 +499,16 @@ def main(argv: list[str]) -> int:
     kept = kernels.library("device_lists")
 
     def timed(tile_slots=None) -> dict:
-        return {label: cs.list_shape_cases(torch, dev, flush, None, n_keys,
-                                           count, cap, earlier=earlier,
-                                           tile_slots=tile_slots)
-                for label, n_keys, count, cap in cs.LIST_SHAPES}
+        kept_state = cs.list_state
+        if tile_slots:
+            cs.list_state = with_tiles_of(torch, kept_state, tile_slots)
+        try:
+            return {label: cs.list_shape_cases(torch, dev, flush, None,
+                                               n_keys, count, cap,
+                                               earlier=earlier)
+                    for label, n_keys, count, cap in cs.LIST_SHAPES}
+        finally:
+            cs.list_state = kept_state
 
     emit({"design": "kept", "card": smi,
           "ptxas": cs.ptxas_report(kernels.build_log("device_lists")),
