@@ -91,9 +91,9 @@
 // check_device_lists): the append of a bid batch at 66% of its floor at
 // the card's measured sector rates, of a fire's maxes at 81% (38% of its
 // bytes, most of them the new lists); the bids' prune at a watermark at
-// 19% of its design floor (the summary, the visited tiles' counts and
-// live lists' sectors: two dependent round trips a tile), the maxes'
-// prune, which empties every tile, at 81% (its counts zeroed). The
+// 18% of its bound (the summary, the visited tiles' counts and live
+// lists' sectors: two dependent round trips a tile), the maxes' prune,
+// which empties every tile, at 81% (its counts zeroed). The
 // designs tried beside these: tools/list_designs.py.
 #include <climits>
 #include <cstdint>
