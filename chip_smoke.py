@@ -217,13 +217,16 @@ Run from the repository root:  python3 chip_smoke.py
     (the L2 flushed, the state put back before each launch) beside its
     plain version, with its byte bound, its 32-byte sector floor and that
     floor at the card's measured random rates (the prune's bound what its
-    tile summary leaves it to move, the earlier design's beside it, and
-    the earlier design's append and prune timed in turns with the
-    kernels). Then the adversarial
+    tile summary leaves it to move, the earlier design's beside it); the
+    probe also with room for one match fewer than it finds, so that its
+    launch runs again. (``tools/list_designs.py`` times the earlier
+    kernels beside these.) Then the adversarial
     sequences (``LIST_EDGE_CASES``: a hot key past L, in-batch duplicates,
     ragged batches and keys, a horizon that drops everything, ts at the
     exact bounds, float and bool columns, lists out of ts order, lists of
-    256 rows of 9 columns, one row) and a store on the card against one
+    256 rows of 9 columns, one row, a probe's output room at M, one below
+    it and 0, lists past the kernel's 32-row match mask) and a store on
+    the card against one
     on the CPU through rehashes and a dead-key rebuild, snapshots equal
     field by field, and a pane of the 10M join replayed through kernels
     and plain versions at 2^25 slots (``check_list_sequence``), every
@@ -239,8 +242,8 @@ Run from the repository root:  python3 chip_smoke.py
     counters zeroed before each: every list kernel launched, the window's
     probe at least once a batch on device batches) and a profiled run; every run's
     winners (each bid whose price is its auction's pane maximum) against
-    a numpy oracle as a multiset. Bids/s, peak memory, prunes run and
-    skipped, rebuilds, host seconds a batch by part, kernel builds after
+    a numpy oracle as a multiset. Bids/s, peak memory, prunes and probes
+    run and skipped, rebuilds, host seconds a batch by part, kernel builds after
     the warm-up, idle share and the profiled busy split.
 22. The kernels line, the nvidia-smi line, then the last line
     {"ok": true, "device": {...}}.
@@ -499,7 +502,7 @@ def check_select(torch, dev, flush) -> dict:
     return {"max_abs_err": mismatches, "shapes": shapes}
 
 
-def check_hash_probe(torch, dev, flush) -> dict:
+def check_hash_probe(torch, dev, flush, rates: dict | None = None) -> dict:
     from flink_tpu_torch.ops.hash_table import EMPTY_KEY, lookup, \
         lookup_or_insert, lookup_or_insert_plain, make_table
 
@@ -564,9 +567,16 @@ def check_hash_probe(torch, dev, flush) -> dict:
         # table read (32 B, the DRAM access unit) and its claim written
         # (8 B); duplicates can find their key's sector in L2
         nbytes = n * (8 + 4 + 1) + int(uniq.numel()) * (32 + 8)
+        # its sector floor: each distinct key's claimed sector, priced at
+        # the card's measured random claim rate, the rows streamed
+        cost = list_cost({"claim": distinct_sectors(torch, safe[ok] * 8)},
+                         n * (8 + 4 + 1), nbytes, rates)
         shapes[cap] = {"n": n, "capacity": cap, "ms": ms,
                        "plain_ms": plain_ms, "library_ms": None,
-                       "bound_ms": bound_ms(nbytes), "bound_by": "bytes"}
+                       "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+                       **{k: cost[k] for k in ("sectors", "sector_floor_ms",
+                                               "at_measured_rate_ms")
+                          if k in cost}}
     # the table holds keys, not values to be near, so its error is the
     # count of keys and rows that broke an invariant above
     return {"max_abs_err": mismatches, "shapes": shapes}
@@ -715,17 +725,6 @@ def check_ingest(torch, dev, flush) -> dict:
             "bound_by": "bytes"}
         del case, runs, table
     return {"max_abs_err": mismatches, "shapes": shapes}
-
-
-def list_designs_module():
-    """tools/list_designs.py, which builds and binds the earlier design of
-    the list append and prune (tools/list_earlier.cu: no tile summary)
-    beside the package's kernels."""
-    spec = importlib.util.spec_from_file_location(
-        "list_designs", os.path.join(HERE, "tools", "list_designs.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def start_sector_build():
@@ -5186,17 +5185,15 @@ def sql_groupby_phase(torch, dev) -> dict:
 LIST_KERNELS = ("list_append", "list_probe", "list_prune")
 #: kernel -> the launch's CUDA kernels (the profiler names them so)
 LIST_SYMBOLS = (("list_append", "list_append_kernel"),
-                ("list_probe", "list_probe_count_kernel"),
+                ("list_probe", "list_probe_kernel"),
                 ("list_prune", "list_prune_kernel"))
 #: the CUDA kernels of one launch of each
 LIST_PARTS = {"list_append": ("list_append_kernel",),
-              "list_probe": ("list_probe_count_kernel",
-                             "list_probe_scan_kernel",
-                             "list_probe_write_kernel"),
+              "list_probe": ("list_probe_kernel",),
               "list_prune": ("list_prune_kernel",)}
 LIST_EDGE_CASES = ("hot_key_past_L", "duplicates", "ragged", "drop_all",
                    "lo_hi_exact", "float_columns", "unsorted_prune",
-                   "wide_list", "one_row")
+                   "wide_list", "one_row", "probe_room")
 Q7J_PANE_MS, Q7J_PANES, Q7J_BATCH = 10_000, 8, 1 << 15
 Q7J_ROWS_PER_KEY = 32          # bench.py's rows_per_key
 Q7J_RUNS = 2                   # timed runs of each join cell
@@ -5230,9 +5227,12 @@ def _list_batch(rng, n: int, pool, t0: int = 0, span: int = 1000,
 
 def list_edge_config(case: str) -> dict:
     """An adversarial sequence of list operations: ("append", keys, ts,
-    cols), ("prune", horizon), ("probe", keys, ts, lo_off, hi_off) and
-    ("probe_batch", keys), on a state of ``capacity`` slots and ``L`` rows
-    a key that never needs to grow."""
+    cols), ("prune", horizon), ("probe", keys, ts, lo_off, hi_off[,
+    room]) and ("probe_batch", keys), on a state of ``capacity`` slots
+    and ``L`` rows a key that never needs to grow. ``room``: the kernel's
+    output has room for M + room matches (M the probe's), so 0 puts M at
+    the room and -1 one past it (the launch runs again); a store ignores
+    it."""
     rng = np.random.default_rng(LIST_EDGE_CASES.index(case) + 40)
     dtypes = [np.dtype(np.int64), np.dtype(np.float64)]
     cap, L, ops = 1 << 12, 32, []
@@ -5296,11 +5296,23 @@ def list_edge_config(case: str) -> dict:
         k, t, c = _list_batch(rng, 5000, np.arange(40), dtypes=dtypes)
         perm = rng.permutation(5000)
         ops += [("append", k[perm], t[perm], [x[perm] for x in c]),
-                ("prune", 333), ("probe_batch", np.arange(40))]
+                ("prune", 333), ("probe_batch", np.arange(40)),
+                ("probe", k[:700], t[:700], -100, 100)]
     elif case == "one_row":
         ops += [("append", *_list_batch(rng, 1, [5])),
                 ("probe", np.array([5]), np.array([0]), -10000, 10000),
                 ("prune", 1 << 20), ("probe_batch", np.array([5]))]
+    elif case == "probe_room":
+        # the probe's output room: M at 0, M at the room and one past it,
+        # lists of about 50 rows (past the 32 of the kernel's match mask)
+        L = 128
+        k, t, c = _list_batch(rng, 3000, np.arange(60))
+        ops += [("append", k, t, c),
+                ("probe", np.arange(60), np.full(60, 5000), 0, 10, 0),
+                ("probe", k[:500], t[:500], -100, 100, 0),
+                ("probe", k[:500], t[:500], -100, 100, -1),
+                ("probe", k[:40], t[:40], -2000, 2000, -1),
+                ("probe_batch", np.arange(60))]
     else:
         raise ValueError(case)
     return {"dtypes": dtypes, "capacity": cap, "L": L, "ops": ops}
@@ -5322,7 +5334,8 @@ def apply_list_op(store, op):
         ts = np.asarray(op[2], np.int64)
         bi, packed = store.probe_range(
             torch.from_numpy(keys).to(store.device),
-            torch.from_numpy(ts).to(store.device), op[3], op[4])
+            torch.from_numpy(ts).to(store.device), op[3], op[4],
+            int(ts.min()), int(ts.max()))
         return bi.cpu().tolist(), packed.cpu().tolist()
     packed, counts = store.probe_batch(keys)
     if kind == "probe":      # the reference: the join's host mask
@@ -5411,7 +5424,10 @@ def check_list_edge(torch, dev, case: str) -> dict:
     operation the flags, failed rows, probe outputs (in order), live
     counts, and every key's whole list (rows past its count too) equal,
     the kernels' tile summary holding their rows (the plain one exact
-    after a prune), and the kernels' scratch back at zero."""
+    after a prune), and the kernels' scratch back at zero. A probe with a
+    ``room`` gives the kernel room for M + room matches (else the batch's
+    rows), and must launch again when that is below M."""
+    from flink_tpu_torch import KERNEL_LAUNCHES
     from flink_tpu_torch.ops import device_lists as dl
 
     c = list_edge_config(case)
@@ -5440,10 +5456,19 @@ def check_list_edge(torch, dev, case: str) -> dict:
             ts = (torch.from_numpy(np.asarray(op[2], np.int64)).to(dev)
                   if op[0] == "probe" else None)
             rng = op[3:5] if op[0] == "probe" else (0, 0)
-            got = dl.list_probe(k["table"], k["rows"], k["counts"], keys,
-                                ts, *rng)
             want = dl.list_probe_plain(p["table"], p["rows"], p["counts"],
                                        keys, ts, *rng)
+            room = (int(want[0].numel()) + op[5] if len(op) > 5 else None)
+            before = KERNEL_LAUNCHES["list_probe"]
+            got = dl.list_probe(k["table"], k["rows"], k["counts"], keys,
+                                ts, *rng, capacity=room)
+            launches = KERNEL_LAUNCHES["list_probe"] - before
+            # the default room is the batch's rows
+            again = want[0].numel() > (keys.numel() if room is None
+                                       else room)
+            if launches != 1 + again:
+                raise AssertionError(f"{what}: {launches} launches at room "
+                                     f"{room} for {want[0].numel()} matches")
             same = all(torch.equal(g.cpu(), w.cpu())
                        for g, w in zip(got, want))
         if not same:
@@ -5507,15 +5532,94 @@ def list_store_ops(seed: int) -> list:
     return ops
 
 
+def list_probe_skip_ops(seed: int) -> list:
+    """A seeded sequence of list-store operations for stores of L = 16
+    rows from 64 slots, with probes after every step whose batch interval
+    [ts_min + lo_off, ts_max + hi_off] lies before the live rows' ts, ends
+    on their least, spans them, starts on their largest and lies after
+    them, a probe_batch, and ("skipped", n): the probes the store has
+    skipped so far. Appends (one grows the table), prunes at a live row's
+    ts (so the store's bounds stay the live rows' own), a dead-key
+    rebuild, a prune past every row (the store empties: every probe
+    skips), then appends, and a restore ("restore"; the new store skips
+    no probe until its next append)."""
+    rng = np.random.default_rng(seed)
+    lo_off, hi_off = -20, 30
+    ops, live, known, skipped = [], [], True, 0
+
+    def append(keys, t0, span):
+        nonlocal known
+        n = len(keys)
+        ts = np.sort(rng.integers(t0, t0 + span, n)).astype(np.int64)
+        cols = [rng.integers(-1000, 1000, n).astype(np.int64),
+                rng.integers(-64, 64, n) / 8.0]
+        perm = rng.permutation(n)
+        ops.append(("append", np.asarray(keys, np.int64)[perm], ts[perm],
+                    [c[perm] for c in cols]))
+        live.append(ts)
+        known = True
+
+    def prune(horizon):
+        ops.append(("prune", int(horizon)))
+        live[:] = [t[t >= horizon] for t in live]
+
+    def ts_of():
+        return np.concatenate(live) if live else np.zeros(0, np.int64)
+
+    def probes(pool):
+        nonlocal skipped
+        ts = ts_of()
+        empty = ts.size == 0
+        lo, hi = (int(ts.min()), int(ts.max())) if not empty else (0, 0)
+        keys = np.asarray(pool)[rng.integers(0, len(pool), 48)]
+        for a, b in ((lo - 100, lo - 1), (lo - 100, lo), (lo - 50, hi + 50),
+                     (hi, hi + 100), (hi + 1, hi + 100)):
+            t = np.sort(rng.integers(a - lo_off, b - hi_off + 1, 48))
+            t[0], t[-1] = a - lo_off, b - hi_off
+            ops.append(("probe", keys, t.astype(np.int64), lo_off, hi_off))
+            skipped += empty or (known and (b < lo or a > hi))
+        ops.append(("probe_batch", keys))
+        skipped += empty
+        ops.append(("skipped", skipped))
+
+    pool = np.arange(50)
+    append(rng.integers(0, 30, 40), 1000, 300)
+    probes(pool)
+    append(rng.integers(0, 50, 40), 1200, 400)      # the table grows
+    probes(pool)
+    prune(np.sort(ts_of())[len(ts_of()) // 3])
+    probes(pool)
+    old = rng.permutation(np.arange(1000, 1150))
+    append(old, 100, 100)                           # 150 keys, ts below
+    probes(np.r_[pool, old])
+    prune(int(ts_of()[ts_of() >= 1000].min()))      # a dead-key rebuild
+    probes(np.r_[pool, old])
+    prune(int(ts_of().max()) + 1)                   # the store empties
+    probes(pool)
+    append(rng.integers(0, 40, 30), 3000, 200)
+    probes(pool)
+    append(rng.integers(0, 40, 20), 2900, 600)
+    probes(pool)
+    ops.append(("restore",))
+    known, skipped = False, 0
+    probes(pool)
+    prune(np.sort(ts_of())[len(ts_of()) // 4])
+    probes(pool)
+    append(rng.integers(0, 40, 20), 3400, 200)
+    probes(pool)
+    return ops
+
+
 def check_list_store(torch, dev) -> dict:
     """A DeviceListStore on the card and one on the CPU through
-    ``list_store_ops`` (two seeds) and the earlier fixed sequence
-    (appends with in-batch duplicates and a hot key, probes, prunes,
-    rehashes from 64 slots, a dead-key rebuild): every probe and every
-    raised overflow equal, the snapshots equal field by field after each
-    step, the card's tile summary holding its rows and the CPU's exact
-    after a prune that reloaded nothing, and the stats (prunes run and
-    skipped, rebuilds, rehashes) equal."""
+    ``list_store_ops`` (two seeds), ``list_probe_skip_ops`` (two seeds)
+    and the earlier fixed sequence (appends with in-batch duplicates and
+    a hot key, probes, prunes, rehashes from 64 slots, a dead-key
+    rebuild): every probe and every raised overflow equal, the snapshots
+    equal field by field after each step, the card's tile summary holding
+    its rows and the CPU's exact after a prune that reloaded nothing, the
+    stats (prunes and probes run and skipped, rebuilds, rehashes) equal,
+    and the probes skipped those the sequence expects."""
     from flink_tpu_torch.core import KeyGroupRange
     from flink_tpu_torch.state.device_lists import DeviceListStore
 
@@ -5540,13 +5644,22 @@ def check_list_store(torch, dev) -> dict:
             out.setdefault(name, {})[k] = out.get(name, {}).get(k, 0) + v
 
     for name, ops in (("fixed", fixed), ("seed 1", list_store_ops(1)),
-                      ("seed 2", list_store_ops(2))):
+                      ("seed 2", list_store_ops(2)),
+                      ("skips 1", list_probe_skip_ops(1)),
+                      ("skips 2", list_probe_skip_ops(2))):
         stores = [DeviceListStore(KeyGroupRange(0, 127), MAXP, dtypes,
                                   capacity=64, rows_per_key=16, device=d)
                   for d in (dev, "cpu")]
         for i, op in enumerate(ops):
             what = f"list store {name} op {i} ({op[0]})"
             before = dict(stores[1].stats)
+            if op[0] == "skipped":
+                if any(st.stats["probes_skipped"] != op[1]
+                       for st in stores):
+                    raise AssertionError(f"{what}: probes skipped "
+                                         f"{[st.stats for st in stores]}, "
+                                         f"{op[1]} expected")
+                continue
             if op[0] == "restore":
                 tally(name, stores)
                 snap = stores[1].snapshot()
@@ -5873,6 +5986,12 @@ def q7_join_cell(torch, dev, cell: str) -> dict:
             "max_memory_allocated": max(r["peak"] for r in runs),
             "memory_at_start": [r["start"] for r in runs],
             "stores": last["stores"],
+            # the join's probe calls: launched (a launch again past the
+            # output's room counts too) and skipped by the stores' bounds
+            "probe_calls": {side: {k: st[k] for k in ("probes",
+                                                      "probes_skipped")}
+                            for side, st in last["stores"].items()},
+            "list_probe_launches": last["launches"]["list_probe"],
             "host_s_per_batch": last["host_s_per_batch"],
             "prune_s_total": last["prune_s_total"],
             "kernel_builds_after_warmup": sum(
@@ -5948,14 +6067,11 @@ def turns(torch, flush, setup, **fns) -> dict:
     return out
 
 
-def list_append_case(torch, flush, rates, st: dict, keys, packed,
-                     earlier=None) -> dict:
+def list_append_case(torch, flush, rates, st: dict, keys, packed) -> dict:
     """list_append against its plain version on one state (the state put
     back between them): flags, failed rows, and the batch keys' counts
-    and whole lists equal, and both tile summaries exact; the kernel, the
-    earlier design's (``earlier``, tools/list_designs.py; its lists equal
-    too) and the plain version timed, the state put back before each
-    launch.
+    and whole lists equal, and both tile summaries exact; the kernel and
+    the plain version timed, the state put back before each launch.
     Its cost: each row's key and packed row read and row written, a
     distinct key's table entry read and count read and written, a new
     key's claim and its list written."""
@@ -5984,17 +6100,10 @@ def list_append_case(torch, flush, rates, st: dict, keys, packed,
     if fk != fp.tolist() or not torch.equal(xk, xp.cpu()) or not all(
             torch.equal(a, b) for a, b in zip(got, want)):
         raise AssertionError("list_append: kernel and plain version differ")
-    fns = {"kernel": lambda: dl.list_append(*args, st["hits"], keys, packed)}
-    if earlier is not None:
-        restore()
-        f_e, _x_e = earlier.append(torch, st, keys, packed)
-        if f_e.tolist() != fk or not all(
-                torch.equal(a, b)
-                for a, b in zip(list_lists_of(torch, st, keys), want)):
-            raise AssertionError("the earlier list_append differs")
-        fns["earlier"] = lambda: earlier.append(torch, st, keys, packed)
     del got, want
-    times = turns(torch, flush, restore, **fns)
+    times = turns(torch, flush, restore,
+                  kernel=lambda: dl.list_append(*args, st["hits"], keys,
+                                                packed))
     plain_ms = cuda_ms(lambda: dl.list_append_plain(*args, keys, packed),
                        torch, flush, setup=restore)
     restore()
@@ -6019,29 +6128,62 @@ def list_append_case(torch, flush, rates, st: dict, keys, packed,
     return {"n": n, "capacity": st["table"].numel(), "L": L, "C": C,
             "distinct_keys": int(uslots.numel()),
             "new_keys": int(new.numel()), "flags": fk, "ms": ms,
-            **times, "earlier_ms": times.get("earlier_ms"),
-            "plain_ms": plain_ms, "tiles": tiles, **cost,
+            **times, "plain_ms": plain_ms, "tiles": tiles, **cost,
             "share_of_bound": cost["bound_ms"] / ms}
+
+
+def kernel_device_ms(torch, fn, flush, symbols: tuple, reps: int = 7
+                     ) -> float:
+    """Device ms of the kernels a call of ``fn`` launches whose names hold
+    any of ``symbols``: the profiler's sum over ``reps`` calls, each after
+    the L2 flush, over ``reps`` (the host's part of a call left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush()
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and any(sym in e.name for sym in symbols)) / 1e3 / reps
 
 
 def list_probe_case(torch, flush, rates, st: dict, keys, ts, lo_off: int,
                     hi_off: int) -> dict:
     """list_probe against its plain version: matches, their order and
-    each row's count equal; both timed (the kernel's one host read of M
-    inside). Its cost: each key and ts read, a key's table entry, a found
-    key's count and its live rows' ts, a match's row and output."""
+    each row's count equal, at the output's default room and again with
+    room for one match fewer than M (the launch runs again: two launches,
+    the same result); both timed (the kernel's one host read of M inside),
+    the kernel with the room a store gives it once it has seen M, and
+    its kernel's device time alone by the profiler (``device_ms``). Its
+    cost: each key and ts read, a key's table entry, a found key's count
+    and its live rows' ts, a match's row and output."""
+    from flink_tpu_torch import KERNEL_LAUNCHES
     from flink_tpu_torch.ops import device_lists as dl
     from flink_tpu_torch.ops.hash_table import lookup, sanitize_keys_device
 
     L, C = st["rows"].shape[1], st["rows"].shape[2]
     args = (st["table"], st["rows"], st["counts"], keys, ts, lo_off, hi_off)
-    got = dl.list_probe(*args)
     want = dl.list_probe_plain(*args)
-    if not all(torch.equal(a, b) for a, b in zip(got, want)):
-        raise AssertionError("list_probe: kernel and plain version differ")
-    m = int(got[0].numel())
+    m = int(want[0].numel())
+    for room in (None, max(m - 1, 0)):
+        before = KERNEL_LAUNCHES["list_probe"]
+        got = dl.list_probe(*args, capacity=room)
+        launches = KERNEL_LAUNCHES["list_probe"] - before
+        if not all(torch.equal(a, b) for a, b in zip(got, want)) \
+                or launches != 1 + (m > (keys.numel() if room is None
+                                         else room)):
+            raise AssertionError(f"list_probe at room {room}: kernel and "
+                                 f"plain version differ, or {launches} "
+                                 "launches")
     del got, want
-    ms = cuda_ms(lambda: dl.list_probe(*args), torch, flush)
+    ms = cuda_ms(lambda: dl.list_probe(*args, hint=m), torch, flush)
+    device_ms = kernel_device_ms(torch, lambda: dl.list_probe(*args, hint=m),
+                                 flush, LIST_PARTS["list_probe"])
     plain_ms = cuda_ms(lambda: dl.list_probe_plain(*args), torch, flush)
     n = keys.numel()
     slots = lookup(st["table"], sanitize_keys_device(keys)).to(torch.int64)
@@ -6059,17 +6201,15 @@ def list_probe_case(torch, flush, rates, st: dict, keys, ts, lo_off: int,
     return {"n": n, "capacity": st["table"].numel(), "L": L, "C": C,
             "found_keys": int(found.numel()), "live_rows_examined": examined,
             "matches": m, "lo_off": lo_off, "hi_off": hi_off, "ms": ms,
-            "plain_ms": plain_ms, **cost,
+            "device_ms": device_ms, "plain_ms": plain_ms, **cost,
             "share_of_bound": cost["bound_ms"] / ms}
 
 
-def list_prune_case(torch, flush, rates, st: dict, horizon: int,
-                    earlier=None) -> dict:
+def list_prune_case(torch, flush, rates, st: dict, horizon: int) -> dict:
     """list_prune against its plain version on one state (put back
     between them and before each timed launch): live keys, every count,
     every live slot's whole list and the tile summary equal (the
-    kernel's exact). The kernel, the earlier design's (``earlier``; equal
-    too) and the plain version timed. Its bound, what the design must
+    kernel's exact). The kernel and the plain version timed. Its bound, what the design must
     move: the summary read, a visited tile's counts and its live lists'
     sectors, an emptied tile's counts written, the changed counts, the
     moved lists written, and the summaries written (from the
@@ -6103,17 +6243,11 @@ def list_prune_case(torch, flush, rates, st: dict, horizon: int,
             and not bool((st["hits"] != 0).any()))
     if not same:
         raise AssertionError("list_prune: kernel and plain version differ")
-    fns = {"kernel": lambda: dl.list_prune(st["rows"], st["counts"],
-                                           st["tiles"], st["hits"], horizon)}
-    if earlier is not None:
-        restore()
-        l_e = int(earlier.prune(torch, st, horizon))
-        if l_e != lk or not torch.equal(ck, st["counts"]) \
-                or not torch.equal(rk, st["rows"][live]):
-            raise AssertionError("the earlier list_prune differs")
-        fns["earlier"] = lambda: earlier.prune(torch, st, horizon)
     del ck, rk, gk
-    times = turns(torch, flush, restore, **fns)
+    times = turns(torch, flush, restore,
+                  kernel=lambda: dl.list_prune(st["rows"], st["counts"],
+                                               st["tiles"], st["hits"],
+                                               horizon))
     plain_ms = cuda_ms(lambda: dl.list_prune_plain(st["rows"], st["counts"],
                                                    st["tiles"], horizon),
                        torch, flush, setup=restore)
@@ -6158,23 +6292,21 @@ def list_prune_case(torch, flush, rates, st: dict, horizon: int,
             "lists_moved": int(moved.sum()), "tiles": tiles,
             "tiles_skipped": int(skip.sum()), "tiles_emptied": int(zero.sum()),
             "tiles_visited": int(visit.sum()), "ms": ms, **times,
-            "earlier_ms": times.get("earlier_ms"), "plain_ms": plain_ms,
+            "plain_ms": plain_ms,
             "bytes": nbytes, "bound_ms": bound_ms(nbytes),
             "share_of_bound": bound_ms(nbytes) / ms, **old_bound,
             "share_of_earlier_bound": old_bound["earlier_bound_ms"] / ms}
 
 
 def list_shape_cases(torch, dev, flush, rates, n_keys: int, count: int,
-                     cap: int, earlier=None) -> dict:
+                     cap: int) -> dict:
     """The list kernels at one cell's shapes. The bids' side: pane 3's
     bids appended a batch at a time (the state a fire meets), then the
     next batch appended, the pane's maxes probing it with their interval,
     and the prune of the next watermark (a batch's rows older than the
     horizon). The maxes' side (C = 3, maxprice float32 as the window
     emits it): a fire's maxes appended to an empty state, a batch of bids
-    probing them, and the prune that drops them all. ``earlier``: the
-    earlier design's append and prune timed beside the kernels
-    (tools/list_designs.py)."""
+    probing them, and the prune that drops them all."""
     from flink_tpu_torch.ops import device_lists as dl
 
     L, P = Q7J_ROWS_PER_KEY, Q7J_PANE_MS
@@ -6197,7 +6329,7 @@ def list_shape_cases(torch, dev, flush, rates, n_keys: int, count: int,
             raise AssertionError(f"bids' state: flags {flags.tolist()}")
     keys, packed, _ts = bids(b1, b1 + Q7J_BATCH)
     out["append_bids_batch"] = list_append_case(torch, flush, rates, st,
-                                                keys, packed, earlier)
+                                                keys, packed)
     auction, price, _ts = q7j_bids(n_keys, count, b0, b1)
     s = np.sort(auction * 16384 + price)
     last = np.r_[(s[1:] >> 14) != (s[:-1] >> 14), True]
@@ -6209,14 +6341,14 @@ def list_shape_cases(torch, dev, flush, rates, n_keys: int, count: int,
         -(P - 1), 0)
     horizon = int((b0 + Q7J_BATCH) * q7j_span() // count)
     out["prune_bids_watermark"] = list_prune_case(torch, flush, rates, st,
-                                                  horizon, earlier)
+                                                  horizon)
     del st
     fresh_memory(torch)
     st = list_state(torch, dev, cap, L, 3)
     packed = _packed_on(torch, dev, m_ts, [m_keys, m_price],
                         [np.dtype(np.int64), np.dtype(np.float32)])
     out["append_maxes_fire"] = list_append_case(torch, flush, rates, st, mk,
-                                                packed, earlier)
+                                                packed)
     dl.list_append(st["table"], st["rows"], st["counts"], st["tiles"],
                    st["hits"], mk, packed)
     keys, _packed, ts = bids(b1, b1 + Q7J_BATCH)
@@ -6224,22 +6356,23 @@ def list_shape_cases(torch, dev, flush, rates, n_keys: int, count: int,
         torch, flush, rates, st, keys, torch.from_numpy(ts).to(dev), 0,
         P - 1)
     out["prune_maxes_watermark"] = list_prune_case(torch, flush, rates, st,
-                                                   4 * P, earlier)
+                                                   4 * P)
     del st
     fresh_memory(torch)
     return out
 
 
-def check_device_lists(torch, dev, flush, rates: dict | None = None,
-                       earlier=None) -> dict:
+def check_device_lists(torch, dev, flush, rates: dict | None = None
+                       ) -> dict:
     """The three list kernels against their plain versions on the card:
-    at both join cells' shapes (timed, with bounds and sector floors, PR
-    11's append and prune beside them), on ``LIST_EDGE_CASES``, a store
+    at both join cells' shapes (timed, with bounds and sector floors;
+    ``tools/list_designs.py`` times the earlier designs beside them), on
+    ``LIST_EDGE_CASES``, a store
     on the card against one on the CPU (rehashes, rebuilds, many
     watermarks, a restore), and a pane of the 10M join replayed through
     both (``check_list_sequence``)."""
     shapes = {label: list_shape_cases(torch, dev, flush, rates, n_keys,
-                                      count, cap, earlier)
+                                      count, cap)
               for label, n_keys, count, cap in LIST_SHAPES}
     edges = {case: check_list_edge(torch, dev, case)
              for case in LIST_EDGE_CASES}
@@ -6409,11 +6542,8 @@ def main(argv: list[str]) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "package": pkg_dir})
     sector_build = None if argv else start_sector_build()
-    designs = None if argv else list_designs_module()
-    earlier_build = None if argv else designs.start_earlier_build()
     nvcc_s = kernels.build_all()
     sector_lib = None if argv else sector_library(sector_build)
-    earlier = None if argv else designs.EarlierKernels(earlier_build)
     emit({"build": {"nvcc_s": nvcc_s, "dir": str(kernels.BUILD_DIR),
                     "sources": sorted(kernels.SOURCES)}})
     ptxas = {stem: ptxas_report(kernels.build_log(stem))
@@ -6428,7 +6558,7 @@ def main(argv: list[str]) -> int:
     emit({"sector_rates": rates})
     hist = check_hist256(torch, dev, flush)
     select = check_select(torch, dev, flush)
-    probe = check_hash_probe(torch, dev, flush)
+    probe = check_hash_probe(torch, dev, flush, rates)
     step = check_ingest(torch, dev, flush)
     forms = check_ingest_forms(torch, dev, flush, rates)
     edges = ingest_edges(torch, dev)
@@ -6436,7 +6566,7 @@ def main(argv: list[str]) -> int:
     window = check_window_seal(torch, dev, flush)
     sess = check_session(torch, dev, flush)
     gagg = check_group_agg(torch, dev, flush, rates)
-    lists = check_device_lists(torch, dev, flush, rates, earlier)
+    lists = check_device_lists(torch, dev, flush, rates)
     emit({"kernel_checks": {"hist256": hist, "select_pass": select,
                             "hash_probe": probe, "ingest_step": step,
                             "ingest_step_forms": forms,
@@ -6631,11 +6761,10 @@ def main(argv: list[str]) -> int:
                 "max_abs_err": lists["max_abs_err"],
                 **{k: at[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "share_of_bound")},
-                # the append's sector floors; the earlier design timed in
-                # this call, and the prune's earlier bound
+                # the sector floors, a second turn's time, and the
+                # prune's earlier bound
                 **{k: at[k] for k in ("sector_floor_ms", "at_measured_rate_ms",
-                                      "earlier_ms", "kernel_ms_again",
-                                      "earlier_ms_again", "earlier_bound_ms",
+                                      "kernel_ms_again", "earlier_bound_ms",
                                       "share_of_earlier_bound") if k in at},
                 "bound_by": "bytes", "library_ms": None, "lead_shape": lead,
                 "launches_q7_join_ref": joins["q7_join_ref"][
@@ -6667,7 +6796,18 @@ def main(argv: list[str]) -> int:
          "replaces": "flink_tpu/ops/hash_table.py:133",
          "launches": host["launches"]["hash_probe"],
          "max_abs_err": probe["max_abs_err"], **probe["shapes"][small],
-         "at_capacity_2^24": probe["shapes"][large]},
+         "at_capacity_2^24": probe["shapes"][large],
+         # a device GROUP BY batch probes once; a join's launches are the
+         # window's probes and its list stores' reloads
+         "launches_by_path": {
+             "sql_tpch_q1": tpch["launches"]["hash_probe"],
+             "sql_groupby_10m": groupby["launches"]["hash_probe"],
+             **{cell: joins[cell]["launches_per_run"]["hash_probe"]
+                for cell in Q7J_CELLS}},
+         "list_reloads_by_cell": {
+             cell: {side: st["rebuilds"] + st["rehashes"]
+                    for side, st in joins[cell]["stores"].items()}
+             for cell in Q7J_CELLS}},
         {"name": "ingest_step", "route": "cuda",
          "source": "flink_tpu_torch/csrc/hash_table.cu",
          "replaces": "flink_tpu/runtime/operators/device_window.py:84",
@@ -6694,8 +6834,8 @@ def main(argv: list[str]) -> int:
         *[gagg_entry(stage) for stage in GAGG_STAGES],
         list_entry("list_append", "44", "append_bids_batch",
                    ("append_maxes_fire",)),
-        list_entry("list_probe", "77", "probe_maxes_by_batch",
-                   ("probe_bids_by_fire",)),
+        list_entry("list_probe", "77", "probe_bids_by_fire",
+                   ("probe_maxes_by_batch",)),
         list_entry("list_prune", "91", "prune_bids_watermark",
                    ("prune_maxes_watermark",)),
     ]})

@@ -9,14 +9,13 @@
 //    counts bumped by the rows that fit; list-full, insert-failed, the
 //    keys inserted and the failed rows reported. XLA ranked by a stable
 //    argsort of the whole batch by slot.
-//  * list_probe_count_launch + list_probe_write_launch: _probe_slots
-//    (:77) and _probe_gather (:86) with the operator's host mask
-//    (flink_tpu/sql/join.py:349-357). The reference gathered [B, L_eff,
-//    C] candidate rows and brought them home for the interval mask; here
-//    each key is looked up read-only, its live rows whose ts lies in the
-//    row's [ts + lo_off, ts + hi_off] are counted, the counts are scanned
-//    over the batch, and only the matches are written, compacted in
-//    (batch row, list position) order: np.nonzero's order.
+//  * list_probe_launch: _probe_slots (:77) and _probe_gather (:86) with
+//    the operator's host mask (flink_tpu/sql/join.py:349-357). The
+//    reference gathered [B, L_eff, C] candidate rows and brought them home
+//    for the interval mask; here each key is looked up read-only, its live
+//    rows whose ts lies in the row's [ts + lo_off, ts + hi_off] are
+//    counted and only the matches are written, compacted in (batch row,
+//    list position) order: np.nonzero's order.
 //  * list_prune_launch: _prune_prog (:91). Per key, the stable partition
 //    of its live rows into those with ts >= horizon first, the others
 //    after them, as the reference's argsort(~keep, stable) leaves them.
@@ -82,6 +81,20 @@
 //  a live row: each block's sum, then the last block's total (a ticket in
 //  hits[0], reset by that block).
 //
+// list_probe: one launch, a block a tile of 256 rows, the tiles taken in
+// order from a counter so that a tile's predecessors are running or done.
+// Each row looks its key up, reads its count with its first row's ts, and
+// issues its other live rows' ts loads 8 at a time, independent of each
+// other, keeping the matches among the first 32 rows as a bit mask. The tile scans its rows' match counts
+// and takes its output offset by a decoupled look-back over the tiles
+// before it; then each row writes its matches, their other columns read
+// from the sectors the ts loads brought in (a list past 32 rows reads the
+// rest again). Only the first `cap` matches are written; the total M and
+// every row's count always are, so the host reads M once and, past the
+// capacity, launches again with room for M. The last block to finish (a
+// ticket) zeroes the look-back words, the counter and the ticket: no
+// memset runs before a launch.
+//
 // Bound on the H100: random 32-byte sectors, not bytes. An append costs a
 // key its table sector (a claim when new), its count and scratch words,
 // its row's sector and a new key's list; a probe a key's table sector,
@@ -93,8 +106,12 @@
 // bytes, most of them the new lists); the bids' prune at a watermark at
 // 18% of its bound (the summary, the visited tiles' counts and live
 // lists' sectors: two dependent round trips a tile), the maxes' prune,
-// which empties every tile, at 81% (its counts zeroed). The
-// designs tried beside these: tools/list_designs.py.
+// which empties every tile, at 81% (its counts zeroed); a fire's probe of
+// 4.2M maxes at 74% to 85% of its floor at the measured random read rate
+// by its device time (0.60 to 0.70 ms; the host's read of M adds 0.05 to
+// 0.18 ms a call). The designs tried beside these (staging the probe's
+// matches in shared memory, one ts load at a time: neither won at both
+// cells' shapes): tools/list_designs.py.
 #include <climits>
 #include <cstdint>
 #include <cooperative_groups.h>
@@ -592,124 +609,208 @@ __global__ void __launch_bounds__(kPruneWarps * 32)
   }
 }
 
-__device__ __forceinline__ long long block_sum(long long v, long long* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  long long s = 0;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < kThreads / 32; ++w) s += red[w];
-  return s;
-}
+// The probe's look-back words (one a tile, then the tile counter and the
+// blocks' ticket; zero between launches): flag in the top two bits, the
+// tile's match count or its inclusive prefix below.
+constexpr unsigned long long kFlagAggregate = 1ull << 62;
+constexpr unsigned long long kFlagPrefix = 2ull << 62;
+constexpr unsigned long long kValueMask = (1ull << 62) - 1;
+// a row's matches among its list's first kMaskRows rows are a bit mask;
+// its ts loads are issued kTsLoads at a time
+constexpr int kMaskRows = 32;
+constexpr int kTsLoads = 8;
 
-// Probe, pass 1: each row's matches (its key's live rows with ts in the
-// row's range; every live row when ts is null) and its slot; a block's
-// total into block_off[block].
-__global__ void __launch_bounds__(kThreads)
-list_probe_count_kernel(unsigned long long* table, unsigned long long mask,
-                        const long long* rows, int L, int C,
-                        const int* counts, const long long* keys, long long n,
-                        const long long* ts, long long lo_off,
-                        long long hi_off, int* m_out, int* slot_out,
-                        long long* block_off) {
-  __shared__ long long red[kThreads / 32];
-  const long long i = blockIdx.x * (long long)kThreads + threadIdx.x;
+struct ProbeArgs {
+  unsigned long long* table;  // read only: probe() without insert
+  unsigned long long mask;    // capacity - 1
+  const long long* rows;
+  int C;
+  long long lc;  // L * C
+  const int* counts;
+  const long long* keys;
+  long long n;
+  const long long* ts;  // [n], or null: every live row matches
+  long long lo_off, hi_off;
+  long long cap;        // output rows this launch may write
+  int* m_out;           // [n] each row's matches
+  long long* out_idx;   // [cap] batch row of each match
+  long long* out_packed;  // [cap, C]
+  long long* total;     // [1] M, every match, written or not
+  unsigned long long* status;  // [n_tiles + 2] look-back words, counter,
+                               // ticket
+  long long n_tiles;
+};
+
+// A row's matches: its live rows' ts loaded kTsLoads at a time, each
+// group's loads independent (the first row's, v0, loaded already); the
+// matches among the first kMaskRows rows into bits. Returns the count.
+__device__ __forceinline__ long long match_rows(const long long* r, int C,
+                                                int c, long long v0,
+                                                long long lo, long long hi,
+                                                unsigned& bits) {
   long long m = 0;
-  if (i < n) {
-    const int s = probe(table, mask, sanitize(keys[i]), false);
-    if (s >= 0) {
-      const int c = counts[s];
-      if (ts == nullptr) {
-        m = c;
-      } else {
-        const long long lo = ts[i] + lo_off, hi = ts[i] + hi_off;
-        const long long* r = rows + (long long)s * L * C;
-        for (int j = 0; j < c; ++j) {
-          const long long t = r[(long long)j * C];
-          m += (t >= lo) & (t <= hi);
-        }
-      }
-    }
-    m_out[i] = (int)m;
-    slot_out[i] = s;
+  for (int j0 = 0; j0 < c; j0 += kTsLoads) {
+    long long v[kTsLoads];
+#pragma unroll
+    for (int q = 0; q < kTsLoads; ++q)
+      v[q] = j0 + q == 0  ? v0
+             : j0 + q < c ? __ldg(r + (long long)(j0 + q) * C)
+                          : 0;
+    unsigned g = 0u;
+#pragma unroll
+    for (int q = 0; q < kTsLoads; ++q)
+      g |= (unsigned)(j0 + q < c && v[q] >= lo && v[q] <= hi) << q;
+    m += __popc(g);
+    if (j0 < kMaskRows) bits |= g << j0;
   }
-  const long long total = block_sum(m, red);
-  if (threadIdx.x == 0) block_off[blockIdx.x] = total;
+  return m;
 }
 
-// Probe, pass 2 (one block): exclusive scan of the block totals in place;
-// the grand total into block_off[nb].
-__global__ void __launch_bounds__(1024)
-list_probe_scan_kernel(long long* block_off, long long nb) {
-  __shared__ long long warp_sums[32];
-  __shared__ long long carry;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) carry = 0;
+__device__ __forceinline__ void write_match(const ProbeArgs& a, long long off,
+                                            long long i,
+                                            const long long* row) {
+  a.out_idx[off] = i;
+  long long* o = a.out_packed + off * a.C;
+  for (int e = 0; e < a.C; ++e) o[e] = __ldg(row + e);
+}
+
+// The tile's exclusive prefix over the tiles before it (the whole block
+// calls it): tile 0 publishes its prefix at once; any other publishes its
+// aggregate, then thread k reads the word of tile - 1 - k, kThreads at a
+// time, and the nearest published prefix ends the walk.
+__device__ __forceinline__ long long look_back(const ProbeArgs& a,
+                                              long long tile,
+                                              long long total) {
+  __shared__ int warp_stop[kThreads / 32];
+  __shared__ unsigned long long warp_sum[kThreads / 32];
+  __shared__ long long base_s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  volatile unsigned long long* st = a.status;
+  if (tile == 0) {
+    if (tid == 0) {
+      st[0] = kFlagPrefix | (unsigned long long)total;
+      base_s = 0;
+    }
+    __syncthreads();
+    return 0;
+  }
+  if (tid == 0) st[tile] = kFlagAggregate | (unsigned long long)total;
+  unsigned long long before = 0;
+  for (long long j0 = tile - 1;; j0 -= kThreads) {
+    const long long j = j0 - tid;
+    unsigned long long v = kFlagPrefix;  // before tile 0: no tile
+    if (j >= 0) {
+      do {
+        v = st[j];
+      } while ((v >> 62) == 0ull);  // not published yet
+    }
+    const unsigned prefixes = __ballot_sync(kFull, (v >> 62) == 2ull);
+    if (lane == 0)
+      warp_stop[warp] = prefixes ? 32 * warp + __ffs(prefixes) - 1 : kThreads;
+    __syncthreads();
+    int stop = kThreads;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w)
+      stop = warp_stop[w] < stop ? warp_stop[w] : stop;
+    unsigned long long part = tid <= stop ? (v & kValueMask) : 0ull;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) part += __shfl_down_sync(kFull, part, o);
+    if (lane == 0) warp_sum[warp] = part;
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) before += warp_sum[w];
+    __syncthreads();  // warp_stop and warp_sum are read before reuse
+    if (stop < kThreads) break;
+  }
+  if (tid == 0) {
+    st[tile] = kFlagPrefix | (before + (unsigned long long)total);
+    base_s = (long long)before;
+  }
   __syncthreads();
-  for (long long base = 0; base < nb; base += 1024) {
-    const long long j = base + threadIdx.x;
-    const long long v = j < nb ? block_off[j] : 0;
-    long long x = v;
-    for (int o = 1; o < 32; o <<= 1) {
-      const long long y = __shfl_up_sync(kFull, x, o);
-      if (lane >= o) x += y;
-    }
-    if (lane == 31) warp_sums[warp] = x;
-    __syncthreads();
-    if (warp == 0) {
-      long long w = warp_sums[lane];
-      for (int o = 1; o < 32; o <<= 1) {
-        const long long y = __shfl_up_sync(kFull, w, o);
-        if (lane >= o) w += y;
-      }
-      warp_sums[lane] = w;
-    }
-    __syncthreads();
-    const long long incl = x + (warp > 0 ? warp_sums[warp - 1] : 0) + carry;
-    if (j < nb) block_off[j] = incl - v;
-    __syncthreads();
-    if (threadIdx.x == 1023) carry = incl;
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) block_off[nb] = carry;
+  return base_s;
 }
 
-// Probe, pass 3: each row's output offset (its block's offset and the
-// block's exclusive scan of the counts), then its matches in list order.
-__global__ void __launch_bounds__(kThreads)
-list_probe_write_kernel(const long long* rows, int L, int C,
-                        const int* counts, long long n, const long long* ts,
-                        long long lo_off, long long hi_off, const int* m_in,
-                        const int* slot_in, const long long* block_off,
-                        long long* out_idx, long long* out_packed) {
-  __shared__ long long warp_sums[kThreads / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long i = blockIdx.x * (long long)kThreads + threadIdx.x;
-  const long long m = i < n ? m_in[i] : 0;
+// The probe: a block a tile of kThreads rows, tiles taken in order from
+// the counter (see the note at the top).
+__global__ void __launch_bounds__(kThreads) list_probe_kernel(ProbeArgs a) {
+  __shared__ long long tile_s;
+  __shared__ long long warp_tot[kThreads / 32];
+  __shared__ bool last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  unsigned long long* counter = a.status + a.n_tiles;
+  if (tid == 0) tile_s = (long long)atomicAdd(counter, 1ull);
+  __syncthreads();
+  const long long tile = tile_s;
+  const long long i = tile * kThreads + tid;
+  // 1. lookup, count, the live rows' ts: the row's matches
+  int s = -1, c = 0;
+  unsigned bits = 0u;
+  long long m = 0, lo = 0, hi = 0;
+  if (i < a.n) {
+    s = probe(a.table, a.mask, sanitize(a.keys[i]), false);
+    if (s >= 0) {
+      const long long* r = a.rows + (long long)s * a.lc;
+      // the first row's ts loaded with the count, before it is known to
+      // be live (a slot's list is always there to read)
+      const long long v0 = a.ts != nullptr ? __ldg(r) : 0;
+      c = __ldg(a.counts + s);
+      if (a.ts == nullptr) {
+        m = c;
+        bits = c >= kMaskRows ? kFull : (1u << c) - 1u;
+      } else {
+        const long long t = a.ts[i];
+        lo = t + a.lo_off;
+        hi = t + a.hi_off;
+        m = match_rows(r, a.C, c, v0, lo, hi, bits);
+      }
+    }
+    a.m_out[i] = (int)m;
+  }
+  // 2. the tile's scan of the matches, its prefix by the look-back
   long long x = m;
+#pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
     const long long y = __shfl_up_sync(kFull, x, o);
     if (lane >= o) x += y;
   }
-  if (lane == 31) warp_sums[warp] = x;
+  if (lane == 31) warp_tot[warp] = x;
   __syncthreads();
-  long long before = 0;
-  for (int w = 0; w < warp; ++w) before += warp_sums[w];
-  if (m == 0) return;
-  long long off = block_off[blockIdx.x] + before + x - m;
-  const int s = slot_in[i];
-  const int c = counts[s];
-  const long long* r = rows + (long long)s * L * C;
-  const long long lo = ts ? ts[i] + lo_off : 0, hi = ts ? ts[i] + hi_off : 0;
-  for (int j = 0; j < c; ++j) {
-    const long long* row = r + (long long)j * C;
-    if (ts != nullptr && (row[0] < lo || row[0] > hi)) continue;
-    out_idx[off] = i;
-    copy_row(out_packed + off * C, row, C);
-    ++off;
+  long long before = 0, total = 0;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) {
+    before += w < warp ? warp_tot[w] : 0;
+    total += warp_tot[w];
   }
+  const long long base = look_back(a, tile, total);
+  if (tid == 0 && tile == a.n_tiles - 1) *a.total = base + total;
+  // 3. the row's matches at its offset, those below the capacity: the
+  // first kMaskRows from the mask, any later ones read again
+  long long off = base + before + x - m;
+  if (m > 0 && off < a.cap) {
+    const long long* r = a.rows + (long long)s * a.lc;
+    for (unsigned b = bits; b && off < a.cap; b &= b - 1u, ++off)
+      write_match(a, off, i, r + (long long)(__ffs(b) - 1) * a.C);
+    for (int j = kMaskRows; j < c && off < a.cap; ++j) {
+      const long long* row = r + (long long)j * a.C;
+      if (a.ts != nullptr) {
+        const long long v = __ldg(row);
+        if (v < lo || v > hi) continue;
+      }
+      write_match(a, off++, i, row);
+    }
+  }
+  // 4. the last block to finish zeroes the look-back words, the counter
+  // and the ticket: every block has done its look-back before its ticket
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    last = atomicAdd(counter + 1, 1ull) == (unsigned long long)gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  for (long long j = tid; j < a.n_tiles + 2; j += kThreads) a.status[j] = 0ull;
 }
+
 inline long long blocks_for(long long n) {
   return (n + kThreads - 1) / kThreads;
 }
@@ -783,55 +884,53 @@ extern "C" int list_append_launch(void* table, long long capacity,
   return (int)cudaGetLastError();
 }
 
-// Entries of a probe's block_off: one a block of kThreads rows, and the
-// total.
-extern "C" int list_probe_blocks(long long n) {
-  return (int)blocks_for(n);
+// Words of a probe's look-back scratch for n rows: a word a tile, the
+// tile counter and the ticket. They are zero before a launch and the
+// launch leaves them zero.
+extern "C" int list_probe_status_words(long long n) {
+  return (int)(blocks_for(n) + 2);
 }
 
-// Probe, passes 1 and 2: per row its matches m [n] int32 and slot [n]
-// int32 (-1: absent); block_off [blocks + 1] int64 gets each block's
-// output offset and the total at [blocks]. ts null: every live row
-// matches.
-extern "C" int list_probe_count_launch(void* table, long long capacity,
-                                       const void* rows, int L, int C,
-                                       const void* counts, const void* keys,
-                                       long long n, const void* ts,
-                                       long long lo_off, long long hi_off,
-                                       void* m, void* slots, void* block_off,
-                                       void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (n <= 0)
-    return (int)cudaMemsetAsync(block_off, 0, sizeof(long long), st);
-  if (L <= 0 || C <= 0 || n > INT_MAX) return (int)cudaErrorInvalidValue;
-  const long long nb = blocks_for(n);
-  list_probe_count_kernel<<<(unsigned)nb, kThreads, 0, st>>>(
-      (unsigned long long*)table, (unsigned long long)(capacity - 1),
-      (const long long*)rows, L, C, (const int*)counts,
-      (const long long*)keys, n, (const long long*)ts, lo_off, hi_off,
-      (int*)m, (int*)slots, (long long*)block_off);
-  list_probe_scan_kernel<<<1, 1024, 0, st>>>((long long*)block_off, nb);
-  return (int)cudaGetLastError();
-}
-
-// Probe, pass 3: the matches, out_idx [total] int64 (batch row) and
-// out_packed [total, C] int64, in (batch row, list position) order.
-extern "C" int list_probe_write_launch(const void* rows, int L, int C,
-                                       const void* counts, long long n,
-                                       const void* ts, long long lo_off,
-                                       long long hi_off, const void* m,
-                                       const void* slots,
-                                       const void* block_off, void* out_idx,
-                                       void* out_packed, void* stream) {
+// The probe, one launch: per row its matches m [n] int32; total [1] int64
+// M, every match; the first cap matches, out_idx [cap] int64 (batch row)
+// and out_packed [cap, C] int64, in (batch row, list position) order.
+// ts null: every live row matches. status: list_probe_status_words(n)
+// int64 words, zero. Reads the state only, so a launch again with a
+// larger cap writes the same matches.
+extern "C" int list_probe_launch(void* table, long long capacity,
+                                 const void* rows, int L, int C,
+                                 const void* counts, const void* keys,
+                                 long long n, const void* ts,
+                                 long long lo_off, long long hi_off,
+                                 long long cap, void* m, void* total,
+                                 void* out_idx, void* out_packed,
+                                 void* status, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  list_probe_write_kernel<<<(unsigned)blocks_for(n), kThreads, 0,
-                            (cudaStream_t)stream>>>(
-      (const long long*)rows, L, C, (const int*)counts, n,
-      (const long long*)ts, lo_off, hi_off, (const int*)m,
-      (const int*)slots, (const long long*)block_off, (long long*)out_idx,
-      (long long*)out_packed);
+  if (L <= 0 || C <= 0 || capacity <= 0 || cap < 0 || n > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const long long nt = blocks_for(n);
+  ProbeArgs a{(unsigned long long*)table,
+              (unsigned long long)(capacity - 1),
+              (const long long*)rows,
+              C,
+              (long long)L * C,
+              (const int*)counts,
+              (const long long*)keys,
+              n,
+              (const long long*)ts,
+              lo_off,
+              hi_off,
+              cap,
+              (int*)m,
+              (long long*)out_idx,
+              (long long*)out_packed,
+              (long long*)total,
+              (unsigned long long*)status,
+              nt};
+  list_probe_kernel<<<(unsigned)nt, kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
+
 // Bytes of shared memory the prune takes a warp to move a list.
 extern "C" long long list_prune_smem_per_warp(int L, int C) {
   return ((long long)L * C + (L + 31) / 32) * (long long)sizeof(long long);

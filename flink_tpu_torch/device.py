@@ -13,8 +13,9 @@
   ``session_fire`` once per fire round. A device GROUP BY batch launches
   ``group_agg_first``, ``_compact``, ``_fold`` and ``_emit`` once each.
   The device list state of the interval join counts one launch of
-  ``list_append`` (one cooperative kernel), ``list_probe`` (three
-  kernels) and ``list_prune`` (one kernel) a call.
+  ``list_append`` (one cooperative kernel) and ``list_prune`` (one
+  kernel) a call, and ``list_probe`` a launch of its one kernel (a call
+  launches again only when its matches pass the output's room).
   A caller resets the counters, drives a path and reads them back to show
   which kernels the path went through.
 """

@@ -29,7 +29,8 @@ with a nonzero count, exact. An empty tile holds (int64 max, int64 min,
   ``[ts + lo_off, ts + hi_off]`` (every live row when ``ts`` is None),
   as (batch row int64 [M], packed row [M, C]) in (batch row, list
   position) order, np.nonzero's order, and each row's match count int32
-  [n]. One host read of M sizes the output.
+  [n]. One launch that reads each list once and one host read of M; a
+  second launch only when M passes the output's room.
 * ``list_prune`` (``_prune_prog``, ``:91``): each key's live rows
   partitioned stably into those with ts >= horizon first and the others
   after them (the reference's ``argsort(~keep, stable)``), counts set to
@@ -46,6 +47,8 @@ the summary with tensor ops, the prune's bounds exact on every tile.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -67,6 +70,8 @@ TILE_SLOTS = 128
 #: about three copies of that many lists)
 _PRUNE_CHUNK = 1 << 20
 _INT64_MAX, _INT64_MIN = (1 << 63) - 1, -(1 << 63)
+#: (device, stream) -> the probe's look-back words, zero between launches
+_PROBE_STATUS: dict = {}
 
 
 def check_list_shape(L: int, C: int) -> None:
@@ -270,13 +275,31 @@ def list_probe_plain(table, rows, counts, keys, ts=None, lo_off: int = 0,
     return bi, cand[bi, li], m.sum(1).to(torch.int32)
 
 
+def _probe_status(lib, dev, stream, n: int) -> torch.Tensor:
+    """The probe's look-back words for n rows on ``stream``: kept a
+    stream, zero between launches (a launch leaves them zero), grown to
+    a power of two when short."""
+    words = lib.list_probe_status_words(n)
+    key = (dev, stream)
+    have = _PROBE_STATUS.get(key)
+    if have is None or have.numel() < words:
+        have = torch.zeros(1 << (words - 1).bit_length(), dtype=torch.int64,
+                           device=dev)
+        _PROBE_STATUS[key] = have
+    return have
+
+
 def list_probe(table, rows, counts, keys, ts=None, lo_off: int = 0,
-               hi_off: int = 0):
+               hi_off: int = 0, hint: int = 0,
+               capacity: Optional[int] = None):
     """The rows of ``keys``' lists whose ts (column 0) lies in [ts[i] +
     lo_off, ts[i] + hi_off] (every live row when ``ts`` is None), read
     only: (batch row int64 [M], packed row int64 [M, C], matches a row
-    int32 [n]), in (batch row, list position) order. One host read of M
-    between the count and the write."""
+    int32 [n]), in (batch row, list position) order; the first two are
+    views into buffers of this call. One launch and one host read of M:
+    the launch has room for ``capacity`` matches (by default the larger
+    of n and ``hint``, the caller's largest M so far) and, when M passes
+    it, runs again with room for M."""
     _check_state(table, rows, counts, None)
     _check_batch(table, keys, ts)
     if table.device.type == "cpu":
@@ -289,31 +312,36 @@ def list_probe(table, rows, counts, keys, ts=None, lo_off: int = 0,
     n = keys.numel()
     dev = table.device
     L, C = rows.shape[1], rows.shape[2]
-    nb = lib.list_probe_blocks(n)
     m = torch.empty(n, dtype=torch.int32, device=dev)
-    slots = torch.empty(n, dtype=torch.int32, device=dev)
-    block_off = torch.empty(nb + 1, dtype=torch.int64, device=dev)
+    if n == 0:
+        return (torch.empty(0, dtype=torch.int64, device=dev),
+                torch.empty((0, C), dtype=torch.int64, device=dev), m)
+    cap = max(n, int(hint)) if capacity is None else int(capacity)
+    total = torch.empty(1, dtype=torch.int64, device=dev)
     ts_ptr = ts.data_ptr() if ts is not None else None
     stream = _stream(table)
-    rc = lib.list_probe_count_launch(
-        table.data_ptr(), table.numel(), rows.data_ptr(), L, C,
-        counts.data_ptr(), keys.data_ptr(), n, ts_ptr, int(lo_off),
-        int(hi_off), m.data_ptr(), slots.data_ptr(), block_off.data_ptr(),
-        stream)
-    kernels.check("device_lists", rc)
-    total = int(block_off[nb])
-    out_idx = torch.empty(total, dtype=torch.int64, device=dev)
-    out_packed = torch.empty((total, C), dtype=torch.int64, device=dev)
-    if total:
-        rc = lib.list_probe_write_launch(
-            rows.data_ptr(), L, C, counts.data_ptr(), n, ts_ptr, int(lo_off),
-            int(hi_off), m.data_ptr(), slots.data_ptr(),
-            block_off.data_ptr(), out_idx.data_ptr(), out_packed.data_ptr(),
+    status = _probe_status(lib, dev, stream, n)
+
+    def launch(room: int):
+        out_idx = torch.empty(room, dtype=torch.int64, device=dev)
+        out_packed = torch.empty((room, C), dtype=torch.int64, device=dev)
+        rc = lib.list_probe_launch(
+            table.data_ptr(), table.numel(), rows.data_ptr(), L, C,
+            counts.data_ptr(), keys.data_ptr(), n, ts_ptr, int(lo_off),
+            int(hi_off), room, m.data_ptr(), total.data_ptr(),
+            out_idx.data_ptr(), out_packed.data_ptr(), status.data_ptr(),
             stream)
+        if rc:       # the scratch may hold a failed launch's words
+            _PROBE_STATUS.pop((dev, stream), None)
         kernels.check("device_lists", rc)
-    if n:
         note_launch("list_probe")
-    return out_idx, out_packed, m
+        return out_idx, out_packed
+
+    out_idx, out_packed = launch(cap)
+    got = int(total)
+    if got > cap:
+        out_idx, out_packed = launch(got)
+    return out_idx[:got], out_packed[:got], m
 
 
 # -- prune ------------------------------------------------------------------

@@ -87,11 +87,9 @@ SOURCES = {
     "device_lists": {
         "list_append_launch": [_P, _I64, _P, _I32, _I32, _P, _P, _P, _I64,
                                _I32, _P, _P, _I64, _P, _P, _P, _P],
-        "list_probe_blocks": [_I64],
-        "list_probe_count_launch": [_P, _I64, _P, _I32, _I32, _P, _P, _I64,
-                                    _P, _I64, _I64, _P, _P, _P, _P],
-        "list_probe_write_launch": [_P, _I32, _I32, _P, _I64, _P, _I64,
-                                    _I64, _P, _P, _P, _P, _P, _P],
+        "list_probe_status_words": [_I64],
+        "list_probe_launch": [_P, _I64, _P, _I32, _I32, _P, _P, _I64, _P,
+                              _I64, _I64, _I64, _P, _P, _P, _P, _P, _P],
         "list_prune_launch": [_P, _I32, _I32, _P, _I64, _P, _I64, _I32,
                               _I64, _I32, _P, _P, _P, _P],
     },

@@ -10,8 +10,9 @@ reference routes them (``_device_eligible``):
   schema of numeric columns with an integer key): each side's rows live in
   a ``DeviceListStore`` on the card. A batch probes the other side's lists
   with its interval (``list_probe``: only matches come home, in the
-  reference's order) and is appended to its own side (``list_append``); a
-  watermark prunes both (``list_prune``). A batch of device columns
+  reference's order; no launch when the batch's ts range cannot reach the
+  other side's live rows) and is appended to its own side
+  (``list_append``); a watermark prunes both (``list_prune``). A batch of device columns
   (``datagen(device=True)``) is packed and appended on the card with no
   round trip through the host;
 * the host plane (``hashmap``, or any other schema): the reference's
@@ -187,7 +188,7 @@ class IntervalJoinOperator(TwoInputOperator):
                              device=dev))
             packed = pack_columns(ts, [batch.device_column(n) for n in names],
                                   store.col_dtypes)
-            ts_min = batch.ts_min
+            ts_min, ts_max = batch.ts_min, batch.ts_max
             t1 = t0
         else:
             packed = pack_columns(
@@ -196,6 +197,7 @@ class IntervalJoinOperator(TwoInputOperator):
                  for n in names], store.col_dtypes)
             keys = packed[:, 1 + self.key_idx[side]]
             ts_min = int(batch.timestamps.min())
+            ts_max = int(batch.timestamps.max())
             t1 = time.perf_counter()
             packed = packed.to(dev)
             keys = keys.contiguous().to(dev)
@@ -208,13 +210,14 @@ class IntervalJoinOperator(TwoInputOperator):
         if other is not None:
             lo_off, hi_off = ((self.lower, self.upper) if side == 0
                               else (-self.upper, -self.lower))
-            bi, opacked = other.probe_range(keys, ts, lo_off, hi_off)
+            bi, opacked = other.probe_range(keys, ts, lo_off, hi_off, ts_min,
+                                            ts_max)
             st["probe_s"] += time.perf_counter() - t2
             if bi.numel():
                 self._emit_matches(side, batch, names, on_device, ts, other,
                                    bi, opacked)
         t3 = time.perf_counter()
-        store.append_packed(keys, packed, ts_min)
+        store.append_packed(keys, packed, ts_min, ts_max)
         st["append_s"] += time.perf_counter() - t3
 
     def _emit_matches(self, side: int, batch: RecordBatch, names: list,

@@ -12,7 +12,10 @@ their int64 bits), addressed by the device hash table of
   write; one host read of three flags a batch;
 * ``probe_range``: the other side's rows of each key whose ts lies in the
   row's interval, compacted on the card, so only matches come home;
-  ``probe_batch`` keeps the reference's ``[B, L_eff, C]`` contract;
+  ``probe_batch`` keeps the reference's ``[B, L_eff, C]`` contract. A
+  probe that cannot match is not launched: the store has no live row, or
+  the batch's interval ``[ts_min + lo_off, ts_max + hi_off]`` lies wholly
+  outside host bounds that hold for every live row's ts;
 * ``prune``: per-key compaction keeping rows with ts >= horizon (the
   watermark cleanup of the interval join). A tile summary (``tiles``:
   per 128 slots bounds on the live rows' ts and the live slots; derived,
@@ -45,9 +48,12 @@ from ..ops.hash_table import EMPTY_KEY, lookup_or_insert, make_table
 
 __all__ = ["DeviceListStore", "pack_columns"]
 
-#: ``_min_ts`` of a store with no live row: every prune is skipped until
-#: an append lowers it
+#: ``_min_ts`` of a store with no live row: every prune and every probe is
+#: skipped until an append lowers it
 _NO_ROWS = 1 << 63
+_INT64_MAX, _INT64_MIN = (1 << 63) - 1, -(1 << 63)
+#: live lists whose ts one step of ``_live_ts_bounds`` reads
+_BOUNDS_CHUNK = 1 << 20
 _OVERFLOW = ("device list overflow: a key exceeded {L} live rows; raise "
              "rows_per_key or tighten the retention window")
 
@@ -95,9 +101,18 @@ class DeviceListStore:
         # it (None after a restore until an append); _NO_ROWS: no live
         # row. prune() is skipped when it provably cannot drop a row
         self._min_ts: Optional[int] = _NO_ROWS
-        #: prunes run and skipped, dead-key rebuilds and rehashes
-        self.stats = {"prunes": 0, "prunes_skipped": 0, "rebuilds": 0,
-                      "rehashes": 0}
+        # bounds that hold for every live row's ts, for the probe to skip
+        # on (None: unknown; after a restore until the next append, which
+        # reads them from the whole store). _min_ts need not hold: after a
+        # restore an append sets it to the batch's least ts, as the
+        # reference's does, and the prune skips by it as the reference's
+        self._probe_min_ts: Optional[int] = None
+        self._max_ts: Optional[int] = None
+        # the largest probe output so far: the room the next one starts with
+        self._probe_hint = 0
+        #: prunes and probes run and skipped, dead-key rebuilds, rehashes
+        self.stats = {"prunes": 0, "prunes_skipped": 0, "probes": 0,
+                      "probes_skipped": 0, "rebuilds": 0, "rehashes": 0}
         self._alloc(cap)
 
     def _alloc(self, cap: int) -> None:
@@ -144,14 +159,27 @@ class DeviceListStore:
                            self._pack(ts, cols))
 
     def append_packed(self, keys: torch.Tensor, packed: torch.Tensor,
-                      ts_min: Optional[int] = None) -> None:
+                      ts_min: Optional[int] = None,
+                      ts_max: Optional[int] = None) -> None:
         """Append packed rows [n, C] under keys [n], both on the store's
-        device; ``ts_min`` (the batch's least ts) spares a device read."""
+        device; ``ts_min`` and ``ts_max`` (bounds on the batch's ts) spare
+        a device read."""
         n = keys.numel()
         if n == 0:
             return
-        if ts_min is None:
-            ts_min = int(packed[:, 0].min())
+        if ts_min is None or ts_max is None:
+            lo, hi = torch.stack(torch.aminmax(packed[:, 0])).tolist()
+            ts_min = lo if ts_min is None else ts_min
+            ts_max = hi if ts_max is None else ts_max
+        if self._min_ts == _NO_ROWS:
+            self._probe_min_ts, self._max_ts = ts_min, ts_max
+        elif self._max_ts is None:
+            lo, hi = self._live_ts_bounds()
+            self._probe_min_ts, self._max_ts = min(lo, ts_min), max(hi,
+                                                                    ts_max)
+        else:
+            self._probe_min_ts = min(self._probe_min_ts, ts_min)
+            self._max_ts = max(self._max_ts, ts_max)
         self._min_ts = (ts_min if self._min_ts is None
                         else min(self._min_ts, ts_min))
         # pre-grow while the worst case (every key new) would pass the
@@ -171,16 +199,58 @@ class DeviceListStore:
             # did insert are applied; grow and retry only the failed ones
             sel = torch.nonzero(failed).flatten()
             self._rehash(self.capacity * 2)
-            self.append_packed(keys[sel], packed[sel])
+            self.append_packed(keys[sel], packed[sel], ts_min, ts_max)
+
+    def _live_ts_bounds(self) -> tuple[int, int]:
+        """The least and largest ts of the live rows, read from the rows
+        (int64 max and min when there is none)."""
+        pos = torch.arange(self.L, device=self.device)[None, :]
+        lo, hi = [], []
+        for live in torch.nonzero(self.counts > 0).flatten().split(
+                _BOUNDS_CHUNK):
+            ts = self.rows[live, :, 0]
+            on = pos < self.counts[live][:, None].to(torch.int64)
+            lo.append(torch.where(on, ts, _INT64_MAX).amin())
+            hi.append(torch.where(on, ts, _INT64_MIN).amax())
+        if not lo:
+            return _INT64_MAX, _INT64_MIN
+        return tuple(torch.stack([torch.stack(lo).amin(),
+                                  torch.stack(hi).amax()]).tolist())
+
+    def _probe_skips(self, lo: Optional[int], hi: Optional[int]) -> bool:
+        """True, and counted, when no live row can match a probe whose
+        rows' intervals lie inside [lo, hi] (None: not known): the store
+        has no live row, or [lo, hi] misses bounds that hold for every
+        live row. An unknown bound never skips; touching a bound runs."""
+        skip = self._min_ts == _NO_ROWS or (
+            lo is not None and hi is not None and self._max_ts is not None
+            and (hi < self._probe_min_ts or lo > self._max_ts))
+        self.stats["probes_skipped" if skip else "probes"] += 1
+        return skip
+
+    def _probe(self, keys: torch.Tensor, ts: Optional[torch.Tensor],
+               lo_off: int = 0, hi_off: int = 0):
+        out = list_probe(self.table, self.rows, self.counts,
+                         keys.contiguous(),
+                         None if ts is None else ts.contiguous(), lo_off,
+                         hi_off, hint=self._probe_hint)
+        self._probe_hint = max(self._probe_hint, out[0].numel())
+        return out
 
     def probe_range(self, keys: torch.Tensor, ts: torch.Tensor,
-                    lo_off: int, hi_off: int):
+                    lo_off: int, hi_off: int, ts_min: Optional[int] = None,
+                    ts_max: Optional[int] = None):
         """For each key, its rows with ts in [ts + lo_off, ts + hi_off]:
         (batch row int64 [M], packed rows int64 [M, C]) on the device, in
-        (batch row, list position) order."""
-        bi, packed, _m = list_probe(self.table, self.rows, self.counts,
-                                    keys.contiguous(), ts.contiguous(),
-                                    lo_off, hi_off)
+        (batch row, list position) order. ``ts_min`` and ``ts_max``, bounds
+        on the batch's ts, let a probe that cannot match skip its launch
+        (with neither, only an empty store skips)."""
+        if self._probe_skips(None if ts_min is None else ts_min + lo_off,
+                             None if ts_max is None else ts_max + hi_off):
+            return (torch.empty(0, dtype=torch.int64, device=self.device),
+                    torch.empty((0, self.C), dtype=torch.int64,
+                                device=self.device))
+        bi, packed, _m = self._probe(keys, ts, lo_off, hi_off)
         return bi, packed
 
     def probe_batch(self, keys) -> tuple[np.ndarray, np.ndarray]:
@@ -191,11 +261,12 @@ class DeviceListStore:
         n = len(keys)
         if n == 0:
             return np.zeros((0, 0, self.C), np.int64), np.zeros(0, np.int32)
+        if self._probe_skips(None, None):
+            return np.zeros((n, 0, self.C), np.int64), np.zeros(n, np.int32)
         keys_t = (keys if isinstance(keys, torch.Tensor) else
                   torch.as_tensor(np.asarray(keys, np.int64))).to(
             self.device, torch.int64)
-        bi, packed, m = list_probe(self.table, self.rows, self.counts,
-                                   keys_t.contiguous())
+        bi, packed, m = self._probe(keys_t, None)
         counts = m.cpu().numpy()
         mx = int(counts.max())
         if mx == 0:
@@ -220,7 +291,13 @@ class DeviceListStore:
         live = int(list_prune(self.rows, self.counts, self.tiles, self.hits,
                               int(horizon)))
         self.stats["prunes"] += 1
-        self._min_ts = int(horizon) if live else _NO_ROWS
+        if live:    # every live row is at the horizon or above
+            self._min_ts = int(horizon)
+            self._probe_min_ts = (int(horizon) if self._probe_min_ts is None
+                                  else max(self._probe_min_ts, int(horizon)))
+        else:
+            self._min_ts = _NO_ROWS
+            self._probe_min_ts = self._max_ts = None
         dead = self._occ - live
         if dead > 64 and dead * 2 > self._occ:
             self.stats["rebuilds"] += 1
@@ -323,3 +400,4 @@ class DeviceListStore:
                    torch.as_tensor(rows).to(dev),
                    torch.as_tensor(counts.astype(np.int32)).to(dev))
         self._min_ts = None if (counts > 0).any() else _NO_ROWS
+        self._probe_min_ts = self._max_ts = None

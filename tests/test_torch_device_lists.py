@@ -187,8 +187,8 @@ def test_prune_skips_when_nothing_can_drop(ref):
                    np.array([10, 20, 30, 40, 50], np.int64),
                    [np.arange(5, dtype=np.int64)])
     p.prune(5)
-    assert p.stats == {"prunes": 0, "prunes_skipped": 1, "rebuilds": 0,
-                       "rehashes": 0}
+    assert p.stats == {"prunes": 0, "prunes_skipped": 1, "probes": 0,
+                       "probes_skipped": 0, "rebuilds": 0, "rehashes": 0}
     p.prune(30)
     rows, counts = p.probe_batch(np.array([1], np.int64))
     assert counts[0] == 3 and rows[0, :3, 0].tolist() == [30, 40, 50]
@@ -369,6 +369,90 @@ def test_sequences_equal_reference_with_tile_summary(ref):
         assert p.stats["prunes_skipped"] > 0
 
 
+def test_probe_skips_equal_reference_on_seeded_sequences(ref):
+    """chip_smoke.list_probe_skip_ops: appends, a rehash, prunes at a live
+    row's ts, a dead-key rebuild, a prune that empties the store, appends
+    and a restore across packages, with probes after every step whose
+    interval lies before, ends on, spans, starts on and lies after the
+    live rows' ts. Every probe (interval and probe_batch) equals the
+    reference's probe_batch with the join's mask; the probes skipped are
+    exactly those that miss the bounds or meet an empty store, none after
+    the restore until an append."""
+    from flink_tpu.core import KeyGroupRange as RefRange
+    from flink_tpu.state.device_lists import DeviceListStore as RefStore
+
+    for seed in (1, 2, 3):
+        r, p = ref(DTYPES, capacity=64, rows_per_key=16), \
+            port(DTYPES, capacity=64, rows_per_key=16)
+        kinds = set()
+        for i, op in enumerate(cs.list_probe_skip_ops(seed)):
+            if op[0] == "skipped":
+                assert p.stats["probes_skipped"] == op[1], (seed, i)
+                continue
+            if op[0] == "restore":
+                assert p.stats["rebuilds"] == 1 and p.stats["rehashes"] >= 1
+                r, p = (RefStore.from_snapshots(RefRange(0, 127), 128,
+                                                [p.snapshot()], capacity=64),
+                        DeviceListStore.from_snapshots(KGR, 128,
+                                                       [r.snapshot()],
+                                                       capacity=64,
+                                                       device="cpu"))
+                continue
+            outs = [cs.apply_list_op(st, op) for st in (r, p)]
+            assert outs[0] == outs[1], (seed, i, op[0])
+            assert_snapshots_equal(r.snapshot(), p.snapshot())
+            kinds.add(op[0])
+        assert kinds == {"append", "prune", "probe", "probe_batch"}
+        assert p.stats["probes_skipped"] > 0 and p.stats["probes"] > 0
+
+
+def test_probe_skip_bounds_empty_and_restored_store(ref):
+    """The skip on a store's bounds: an empty store skips every probe
+    with no launch; intervals that touch the least or largest live ts
+    run, those a step past them skip; after a restore nothing skips
+    (the bounds are unknown) until an append, which takes them from the
+    whole store, restored rows too; a prune that empties the store skips
+    again. Results equal the reference's throughout."""
+    keys = np.arange(10, dtype=np.int64)
+    p = port(DTYPES, capacity=64, rows_per_key=8)
+    r = ref(DTYPES, capacity=64, rows_per_key=8)
+
+    def probe(st, lo, hi):
+        t = np.array([lo, hi], np.int64)
+        return cs.apply_list_op(st, ("probe", keys[:2], t, 0, 0))
+
+    assert probe(p, 0, 10) == ([], [])
+    assert p.stats["probes_skipped"] == 1 and p.stats["probes"] == 0
+    assert p.probe_batch(keys)[1].tolist() == [0] * 10
+    assert p.stats["probes_skipped"] == 2
+    for st in (r, p):
+        st.append_batch(keys, 100 + 10 * keys, [keys, keys * 0.5])
+    cases = ((0, 99, True), (0, 100, False), (190, 300, False),
+             (191, 300, True), (120, 150, False))
+    for lo, hi, skips in cases:
+        before = p.stats["probes_skipped"]
+        assert probe(p, lo, hi) == probe(r, lo, hi), (lo, hi)
+        assert p.stats["probes_skipped"] - before == skips, (lo, hi)
+    p2 = DeviceListStore.from_snapshots(KGR, 128, [r.snapshot()],
+                                        capacity=64, device="cpu")
+    for lo, hi, _skips in cases:
+        assert probe(p2, lo, hi) == probe(r, lo, hi)
+    assert p2.stats["probes_skipped"] == 0
+    more = np.array([3], np.int64)
+    for st in (r, p2):       # a later row: the restored ones keep the low
+        st.append_batch(more, np.array([500], np.int64), [more, more * 0.5])
+    for lo, hi, skips in ((0, 99, True), (0, 100, False), (501, 600, True),
+                          (500, 600, False)):
+        before = p2.stats["probes_skipped"]
+        assert probe(p2, lo, hi) == probe(r, lo, hi), (lo, hi)
+        assert p2.stats["probes_skipped"] - before == skips, (lo, hi)
+    for st in (r, p2):
+        st.prune(10 ** 6)
+    before = p2.stats["probes_skipped"]
+    assert probe(p2, 0, 10 ** 7) == probe(r, 0, 10 ** 7) == ([], [])
+    assert p2.stats["probes_skipped"] == before + 1
+
+
 def test_prune_skips_an_emptied_store(ref):
     """A prune that leaves no live key marks the store empty: the next
     prunes are skipped (the reference's change nothing and rebuild
@@ -378,8 +462,8 @@ def test_prune_skips_an_emptied_store(ref):
     r, p = _both(ref, 9, [("append", keys, keys * 10, [keys, keys * 0.5]),
                           ("prune", 10 ** 6)],
                  capacity=128, rows_per_key=4)
-    assert p.stats == {"prunes": 1, "prunes_skipped": 0, "rebuilds": 0,
-                       "rehashes": 0}
+    assert p.stats == {"prunes": 1, "prunes_skipped": 0, "probes": 0,
+                       "probes_skipped": 0, "rebuilds": 0, "rehashes": 0}
     assert_snapshots_equal(r.snapshot(), p.snapshot())
     for h in (10 ** 6 + 1, 10 ** 7):
         for st in (r, p):

@@ -392,6 +392,53 @@ def test_q7_join_both_packages_equal_winners(ref):
         assert op._device and op.stats["matches"] == SMALL_Q7["bids"]
 
 
+def test_skipped_probes_keep_the_reference_rows(ref):
+    """Two streams whose batches alternate in bursts far apart in time:
+    most batches' intervals miss the other side's live rows (or meet an
+    emptied store) and skip their probe, and the rows, in order, still
+    equal the reference's."""
+    rng = np.random.default_rng(11)
+    left, right, t = [], [], 0
+    for burst in range(12):
+        n = int(rng.integers(5, 30))
+        ts = np.sort(rng.integers(t, t + 150, n))
+        keys = rng.integers(0, 12, n)
+        if burst % 3 == 2:   # left and right close together: matches
+            half = n // 2
+            left += [((int(k), int(v)), int(x)) for k, v, x in
+                     zip(keys[:half], rng.integers(0, 100, half), ts[:half])]
+            right += [((int(k), float(v) / 8), int(x)) for k, v, x in
+                      zip(keys[half:], rng.integers(0, 80, n - half),
+                          ts[half:])]
+        elif burst % 2:
+            left += [((int(k), int(v)), int(x)) for k, v, x in
+                     zip(keys, rng.integers(0, 100, n), ts)]
+        else:
+            right += [((int(k), float(v) / 8), int(x)) for k, v, x in
+                      zip(keys, rng.integers(0, 80, n), ts)]
+        t += 1000
+    sched = _schedule(left, right, batch=6, prune_every=3)
+    hp, op = _port_harness()
+    hr, _ = _ref_harness(ref)
+    got, want = _drive(hp, sched), _drive(hr, sched)
+    assert got == want and len(got) > 0
+    skipped = sum(s.stats["probes_skipped"] for s in op._stores)
+    assert skipped > 0 and sum(s.stats["probes"] for s in op._stores) > 0
+
+
+def test_q7_join_skips_the_probes_of_bids_past_the_maxes():
+    """The Q7 join through env.execute() on the CPU: the winners equal the
+    oracle, and the maxes' store skips probes (a bid batch after a fire
+    lies past every max's ts, or meets a store its prune emptied)."""
+    c = dict(SMALL_Q7, bids=1 << 14, batch=1 << 10)
+    job, got = cs.run_q7_join(torch, torch.device("cpu"), c)
+    assert cs.q7_join_check(cs.q7_join_expected(c), got) > 0
+    maxes, bids = cs.q7_join_operator(job)._stores
+    assert maxes.stats["probes_skipped"] > 0
+    assert maxes.stats["probes"] + maxes.stats["probes_skipped"] \
+        + bids.stats["probes"] + bids.stats["probes_skipped"] > 0
+
+
 def test_q7_join_checkpoint_and_restore():
     """The job checkpoints with the source paused, is cancelled and
     restored from the checkpoint: the winners of both jobs together are

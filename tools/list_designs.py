@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The designs of the list state's append and prune (csrc/device_lists.cu),
-timed beside the kept ones on one CUDA card.
+"""The designs of the list state's append, probe and prune
+(csrc/device_lists.cu), timed beside the kept ones on one CUDA card.
 
 Run from the repository root, on the card:
 
@@ -9,17 +9,21 @@ Run from the repository root, on the card:
 (with names, only those designs beside the kept one; ``--out``: every
 design's whole record also appended to FILE, one JSON line each).
 
-The earlier design's two kernels stay buildable here:
+The earlier designs' kernels stay buildable here:
 ``tools/list_earlier.cu`` holds them as they were before the tile
-summary (the append as five kernels and a memset, a claimed list zeroed
-in the first and its row written in the second; the prune as one thread
-a slot over every count, then a warp a list that moves), bound by
-``EarlierKernels``. ``chip_smoke.check_device_lists`` times them in the
-same call as the kept kernels, on the same states.
+summary and the one-launch probe (the append as five kernels and a
+memset, a claimed list zeroed in the first and its row written in the
+second; the prune as one thread a slot over every count, then a warp a
+list that moves; the probe as a count, a scan and a write kernel with a
+host read of the total between them, each list read twice), bound by
+``EarlierKernels``. Every case of ``chip_smoke.list_shape_cases`` times
+them in turns with the kernel of the design under test, on the same
+states, their results held equal to the kernel's.
 
 The designs, at both Q7 join cells' shapes (``chip_smoke.list_shape_cases``:
-a bid batch and a fire's maxes appended, the bids' watermark prune and the
-maxes' prune that drops them all), each held against the plain versions:
+a bid batch and a fire's maxes appended, the maxes probing the bids and
+a bid batch probing the maxes, the bids' watermark prune and the maxes'
+prune that drops them all), each held against the plain versions:
 
 * tiles of 64, 256 and 512 slots against the kept 128 (the tile size is
   read from the summary's shape: no rebuild);
@@ -33,7 +37,11 @@ maxes' prune that drops them all), each held against the plain versions:
   zeros after it by the grid (partial sectors);
 * the claimed lists stored through L2 (plain stores, not st.global.cs);
 * a warp's rows of one tile folded before the summary's atomics, and
-  each bound read before its atomic.
+  each bound read before its atomic;
+* the probe's matches staged in shared memory and stored by the block as
+  16-byte words (a tile whose matches do not fit stores them row by row;
+  kept: each row stores its own matches);
+* the probe's ts loads one at a time (kept: 8 issued together).
 
 Each source design is the kept source with one change, built with the
 package's flags into the package's build directory (all at once, one
@@ -282,6 +290,69 @@ NOTE_FOLD = r"""__device__ __forceinline__ void tile_note(const Tiles& t, int s,
 }
 
 """
+#: the kept probe's write: each row its own matches
+PROBE_WRITE = r"""  long long off = base + before + x - m;
+  if (m > 0 && off < a.cap) {
+    const long long* r = a.rows + (long long)s * a.lc;
+    for (unsigned b = bits; b && off < a.cap; b &= b - 1u, ++off)
+      write_match(a, off, i, r + (long long)(__ffs(b) - 1) * a.C);
+    for (int j = kMaskRows; j < c && off < a.cap; ++j) {
+      const long long* row = r + (long long)j * a.C;
+      if (a.ts != nullptr) {
+        const long long v = __ldg(row);
+        if (v < lo || v > hi) continue;
+      }
+      write_match(a, off++, i, row);
+    }
+  }
+"""
+#: the probe's write staged: a tile's matches (when they fit) into shared
+#: memory at their place in the tile's output, then the block stores them
+#: as 16-byte words (an 8-byte word at an unaligned head or a lone tail)
+PROBE_STAGED = r"""  constexpr long long kStageWords = 2048;
+  __shared__ __align__(16) long long stage[kStageWords];
+  long long off = base + before + x - m;
+  const long long end = base + total < a.cap ? base + total : a.cap;
+  const bool staged = (end - base) * a.C <= kStageWords;  // block-uniform
+  if (m > 0 && off < a.cap) {
+    const long long* r = a.rows + (long long)s * a.lc;
+    for (int j = 0; j < c && off < a.cap; ++j) {
+      const long long* row = r + (long long)j * a.C;
+      if (j < kMaskRows) {
+        if (!((bits >> j) & 1u)) continue;
+      } else if (a.ts != nullptr) {
+        const long long v = __ldg(row);
+        if (v < lo || v > hi) continue;
+      }
+      a.out_idx[off] = i;
+      if (staged) {
+        long long* o = stage + (off - base) * a.C;
+        for (int e = 0; e < a.C; ++e) o[e] = __ldg(row + e);
+      } else {
+        long long* o = a.out_packed + off * a.C;
+        for (int e = 0; e < a.C; ++e) o[e] = __ldg(row + e);
+      }
+      ++off;
+    }
+  }
+  if (staged) {
+    __syncthreads();
+    const long long words = (end - base) * a.C;
+    long long* dst = a.out_packed + base * a.C;
+    const long long head = ((uintptr_t)dst & 15) != 0 ? 1 : 0;
+    if (tid == 0 && head && words > 0) dst[0] = stage[0];
+    const long long pairs = words > head ? (words - head) / 2 : 0;
+    for (long long q = tid; q < pairs; q += kThreads) {
+      const long long w = head + 2 * q;
+      *reinterpret_cast<longlong2*>(dst + w) =
+          make_longlong2(stage[w], stage[w + 1]);
+    }
+    if (tid == 0 && words > head && (words - head) % 2)
+      dst[words - 1] = stage[words - 1];
+  }
+"""
+#: the kept ts loads a probe row issues together
+TS_LOADS = "constexpr int kTsLoads = 8;"
 #: tile sizes tried beside the kept one (128)
 TILE_SIZES = (64, 256, 512)
 
@@ -335,6 +406,13 @@ def designs(src: str) -> dict:
             "a warp's rows of one tile folded before the summary's atomics, "
             "each bound read before its atomic",
             src[:lo] + NOTE_FOLD + src[hi:]),
+        "probe_staged_stores": (
+            "the probe's matches staged in shared memory, stored as 16-byte "
+            "words by the block (kept: each row its own)",
+            patch(src, PROBE_WRITE, PROBE_STAGED)),
+        "probe_ts_loads_1": (
+            "the probe's ts loads one at a time (kept: 8 together)",
+            patch(src, TS_LOADS, TS_LOADS.replace("8", "1"))),
     }
 
 
@@ -365,8 +443,8 @@ def start_earlier_build():
 
 
 class EarlierKernels:
-    """The earlier list_append and list_prune on a ``chip_smoke.list_state``
-    (its tile summary neither read nor kept)."""
+    """The earlier list_append, list_prune and list_probe on a
+    ``chip_smoke.list_state`` (its tile summary neither read nor kept)."""
 
     def __init__(self, build):
         out, job = build
@@ -382,8 +460,17 @@ class EarlierKernels:
             _P, _I64, _P, _I32, _I32, _P, _P, _P, _P, _I64, _P, _P, _P, _P]
         lib.list_prune_earlier_launch.argtypes = [
             _P, _I32, _I32, _P, _I64, _I64, _I32, _P, _P, _P]
+        lib.list_probe_earlier_blocks.argtypes = [_I64]
+        lib.list_probe_earlier_count_launch.argtypes = [
+            _P, _I64, _P, _I32, _I32, _P, _P, _I64, _P, _I64, _I64, _P, _P,
+            _P, _P]
+        lib.list_probe_earlier_write_launch.argtypes = [
+            _P, _I32, _I32, _P, _I64, _P, _I64, _I64, _P, _P, _P, _P, _P, _P]
         for fn in (lib.list_append_earlier_launch,
-                   lib.list_prune_earlier_launch):
+                   lib.list_prune_earlier_launch,
+                   lib.list_probe_earlier_blocks,
+                   lib.list_probe_earlier_count_launch,
+                   lib.list_probe_earlier_write_launch):
             fn.restype = ctypes.c_int
         lib.list_earlier_error_string.argtypes = [ctypes.c_int]
         lib.list_earlier_error_string.restype = ctypes.c_char_p
@@ -411,6 +498,35 @@ class EarlierKernels:
             torch.cuda.current_stream(dev).cuda_stream))
         return flags[:3], failed
 
+    def probe(self, torch, st: dict, keys, ts, lo_off: int, hi_off: int):
+        """(batch row [M], packed rows [M, C], matches a row [n]) as
+        ``list_probe``: three kernels, one host read of M between them."""
+        n = keys.numel()
+        dev = keys.device
+        rows = st["rows"]
+        L, C = rows.shape[1], rows.shape[2]
+        nb = self.lib.list_probe_earlier_blocks(n)
+        m = torch.empty(n, dtype=torch.int32, device=dev)
+        slots = torch.empty(n, dtype=torch.int32, device=dev)
+        block_off = torch.empty(nb + 1, dtype=torch.int64, device=dev)
+        ts_ptr = ts.data_ptr() if ts is not None else None
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        self._check(self.lib.list_probe_earlier_count_launch(
+            st["table"].data_ptr(), st["table"].numel(), rows.data_ptr(), L,
+            C, st["counts"].data_ptr(), keys.data_ptr(), n, ts_ptr,
+            int(lo_off), int(hi_off), m.data_ptr(), slots.data_ptr(),
+            block_off.data_ptr(), stream))
+        total = int(block_off[nb])
+        out_idx = torch.empty(total, dtype=torch.int64, device=dev)
+        out_packed = torch.empty((total, C), dtype=torch.int64, device=dev)
+        if total:
+            self._check(self.lib.list_probe_earlier_write_launch(
+                rows.data_ptr(), L, C, st["counts"].data_ptr(), n, ts_ptr,
+                int(lo_off), int(hi_off), m.data_ptr(), slots.data_ptr(),
+                block_off.data_ptr(), out_idx.data_ptr(),
+                out_packed.data_ptr(), stream))
+        return out_idx, out_packed, m
+
     def prune(self, torch, st: dict, horizon: int):
         """The keys left with a live row, as ``list_prune``."""
         rows = st["rows"]
@@ -421,6 +537,95 @@ class EarlierKernels:
             st["hits"].data_ptr(), result.data_ptr(),
             torch.cuda.current_stream(rows.device).cuda_stream))
         return result[0]
+
+
+def with_earlier(cs, earlier):
+    """``chip_smoke``'s append, probe and prune cases, each followed by
+    the kernel and the earlier design's kernels timed in turns on the
+    same state (put back before each launch), the earlier results held
+    equal to the kernel's. Returns the kept cases, to put back."""
+    from flink_tpu_torch.ops import device_lists as dl
+
+    kept = (cs.list_append_case, cs.list_probe_case, cs.list_prune_case)
+    append_case, probe_case, prune_case = kept
+
+    def saver(torch, st: dict, rows_too: bool):
+        live = torch.nonzero(st["counts"] > 0).flatten()
+        saved = {k: st[k].clone() for k in ("table", "counts", "tiles")}
+        r0 = st["rows"][live] if rows_too else None
+
+        def restore():
+            for k, v in saved.items():
+                st[k].copy_(v)
+            if rows_too:
+                st["rows"][live] = r0
+        return restore, live
+
+    def append(torch, flush, rates, st, keys, packed):
+        restore, _live = saver(torch, st, False)
+        rec = append_case(torch, flush, rates, st, keys, packed)
+        args = (st["table"], st["rows"], st["counts"], st["tiles"])
+        restore()
+        fk, _x = dl.list_append(*args, st["hits"], keys, packed)
+        want = cs.list_lists_of(torch, st, keys)
+        restore()
+        fe, _x = earlier.append(torch, st, keys, packed)
+        if fe.tolist() != fk.tolist() or not all(
+                torch.equal(a, b)
+                for a, b in zip(cs.list_lists_of(torch, st, keys), want)):
+            raise AssertionError("the earlier list_append differs")
+        del want
+        times = cs.turns(torch, flush, restore,
+                         kernel=lambda: dl.list_append(*args, st["hits"],
+                                                       keys, packed),
+                         earlier=lambda: earlier.append(torch, st, keys,
+                                                        packed))
+        restore()
+        return {**rec, **times}
+
+    def probe(torch, flush, rates, st, keys, ts, lo_off, hi_off):
+        rec = probe_case(torch, flush, rates, st, keys, ts, lo_off, hi_off)
+        args = (st["table"], st["rows"], st["counts"], keys, ts, lo_off,
+                hi_off)
+        got = dl.list_probe(*args)
+        if not all(torch.equal(a, b) for a, b in zip(
+                got, earlier.probe(torch, st, keys, ts, lo_off, hi_off))):
+            raise AssertionError("the earlier list_probe differs")
+        m = int(got[0].numel())
+        del got
+        return {**rec, **cs.turns(
+            torch, flush, None,
+            kernel=lambda: dl.list_probe(*args, hint=m),
+            earlier=lambda: earlier.probe(torch, st, keys, ts, lo_off,
+                                          hi_off)),
+            "earlier_device_ms": cs.kernel_device_ms(
+                torch, lambda: earlier.probe(torch, st, keys, ts, lo_off,
+                                             hi_off),
+                flush, ("list_probe_earlier_",))}
+
+    def prune(torch, flush, rates, st, horizon):
+        restore, live = saver(torch, st, True)
+        rec = prune_case(torch, flush, rates, st, horizon)
+        lk = int(dl.list_prune(st["rows"], st["counts"], st["tiles"],
+                               st["hits"], horizon))
+        ck, rk = st["counts"].clone(), st["rows"][live]
+        restore()
+        if int(earlier.prune(torch, st, horizon)) != lk \
+                or not torch.equal(ck, st["counts"]) \
+                or not torch.equal(rk, st["rows"][live]):
+            raise AssertionError("the earlier list_prune differs")
+        del ck, rk
+        times = cs.turns(torch, flush, restore,
+                         kernel=lambda: dl.list_prune(
+                             st["rows"], st["counts"], st["tiles"],
+                             st["hits"], horizon),
+                         earlier=lambda: earlier.prune(torch, st, horizon))
+        restore()
+        return {**rec, **times}
+
+    cs.list_append_case, cs.list_probe_case, cs.list_prune_case = (
+        append, probe, prune)
+    return kept
 
 
 def with_tiles_of(torch, list_state, tile_slots: int):
@@ -455,7 +660,8 @@ def brief(rec: dict) -> dict:
     if "shapes" not in rec:
         return rec
     keep = ("kernel_ms", "kernel_ms_again", "earlier_ms", "earlier_ms_again",
-            "tiles_visited", "tiles_emptied")
+            "device_ms", "earlier_device_ms", "matches", "tiles_visited",
+            "tiles_emptied")
     return {**{k: v for k, v in rec.items() if k not in ("shapes",
                                                           "ptxas")},
             "shapes": {label: {case: {k: r[k] for k in keep if k in r}
@@ -497,6 +703,7 @@ def main(argv: list[str]) -> int:
     kernels.build_all()
     flush = cs.L2Flush(torch, dev)
     kept = kernels.library("device_lists")
+    with_earlier(cs, earlier)
 
     def timed(tile_slots=None) -> dict:
         kept_state = cs.list_state
@@ -504,8 +711,7 @@ def main(argv: list[str]) -> int:
             cs.list_state = with_tiles_of(torch, kept_state, tile_slots)
         try:
             return {label: cs.list_shape_cases(torch, dev, flush, None,
-                                               n_keys, count, cap,
-                                               earlier=earlier)
+                                               n_keys, count, cap)
                     for label, n_keys, count, cap in cs.LIST_SHAPES}
         finally:
             cs.list_state = kept_state

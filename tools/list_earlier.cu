@@ -1,9 +1,10 @@
-// The earlier list_append and list_prune (flink_tpu_torch/csrc/
-// device_lists.cu as it stood before the tile summary), kept buildable so
-// that one call can time them beside the package's kernels:
-// tools/list_designs.py builds this file with the package's flags (-I
-// flink_tpu_torch/csrc) and binds list_append_earlier_launch and
-// list_prune_earlier_launch.
+// The earlier list_append, list_prune and list_probe (flink_tpu_torch/
+// csrc/device_lists.cu as it stood before the tile summary and the
+// one-launch probe), kept buildable so that one call can time them beside
+// the package's kernels: tools/list_designs.py builds this file with the
+// package's flags (-I flink_tpu_torch/csrc) and binds
+// list_append_earlier_launch, list_prune_earlier_launch and the probe's
+// list_probe_earlier_count_launch and list_probe_earlier_write_launch.
 //
 // list_append_earlier_launch: five kernels and a memset. The first claims
 // each row's slot, takes its arrival index in hits[slot] and zeroes a
@@ -13,7 +14,11 @@
 // segments. list_prune_earlier_launch: one thread a slot reads every count
 // and each live list's ts, and a list that must move goes to a work list
 // (in the zero scratch hits) that a warp an item partitions through
-// shared memory. Neither keeps the tile summary.
+// shared memory. Neither keeps the tile summary. The probe: three
+// kernels, a thread a row counting its matches (a block's total), one
+// block scanning the block totals, and (after the host reads the total to
+// size the output) a thread a row writing its matches, each list read
+// again.
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -276,6 +281,113 @@ __global__ void list_prune_move_kernel(long long* rows, int L, int C,
   }
 }
 
+// Probe, pass 1: each row's matches (its key's live rows with ts in the
+// row's range; every live row when ts is null) and its slot; a block's
+// total into block_off[block].
+__global__ void __launch_bounds__(kThreads)
+list_probe_earlier_count_kernel(unsigned long long* table, unsigned long long mask,
+                        const long long* rows, int L, int C,
+                        const int* counts, const long long* keys, long long n,
+                        const long long* ts, long long lo_off,
+                        long long hi_off, int* m_out, int* slot_out,
+                        long long* block_off) {
+  __shared__ long long red[kThreads / 32];
+  const long long i = blockIdx.x * (long long)kThreads + threadIdx.x;
+  long long m = 0;
+  if (i < n) {
+    const int s = probe(table, mask, sanitize(keys[i]), false);
+    if (s >= 0) {
+      const int c = counts[s];
+      if (ts == nullptr) {
+        m = c;
+      } else {
+        const long long lo = ts[i] + lo_off, hi = ts[i] + hi_off;
+        const long long* r = rows + (long long)s * L * C;
+        for (int j = 0; j < c; ++j) {
+          const long long t = r[(long long)j * C];
+          m += (t >= lo) & (t <= hi);
+        }
+      }
+    }
+    m_out[i] = (int)m;
+    slot_out[i] = s;
+  }
+  const long long total = block_sum(m, red);
+  if (threadIdx.x == 0) block_off[blockIdx.x] = total;
+}
+
+// Probe, pass 2 (one block): exclusive scan of the block totals in place;
+// the grand total into block_off[nb].
+__global__ void __launch_bounds__(1024)
+list_probe_earlier_scan_kernel(long long* block_off, long long nb) {
+  __shared__ long long warp_sums[32];
+  __shared__ long long carry;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) carry = 0;
+  __syncthreads();
+  for (long long base = 0; base < nb; base += 1024) {
+    const long long j = base + threadIdx.x;
+    const long long v = j < nb ? block_off[j] : 0;
+    long long x = v;
+    for (int o = 1; o < 32; o <<= 1) {
+      const long long y = __shfl_up_sync(kFull, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) warp_sums[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+      long long w = warp_sums[lane];
+      for (int o = 1; o < 32; o <<= 1) {
+        const long long y = __shfl_up_sync(kFull, w, o);
+        if (lane >= o) w += y;
+      }
+      warp_sums[lane] = w;
+    }
+    __syncthreads();
+    const long long incl = x + (warp > 0 ? warp_sums[warp - 1] : 0) + carry;
+    if (j < nb) block_off[j] = incl - v;
+    __syncthreads();
+    if (threadIdx.x == 1023) carry = incl;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) block_off[nb] = carry;
+}
+
+// Probe, pass 3: each row's output offset (its block's offset and the
+// block's exclusive scan of the counts), then its matches in list order.
+__global__ void __launch_bounds__(kThreads)
+list_probe_earlier_write_kernel(const long long* rows, int L, int C,
+                        const int* counts, long long n, const long long* ts,
+                        long long lo_off, long long hi_off, const int* m_in,
+                        const int* slot_in, const long long* block_off,
+                        long long* out_idx, long long* out_packed) {
+  __shared__ long long warp_sums[kThreads / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long i = blockIdx.x * (long long)kThreads + threadIdx.x;
+  const long long m = i < n ? m_in[i] : 0;
+  long long x = m;
+  for (int o = 1; o < 32; o <<= 1) {
+    const long long y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  long long before = 0;
+  for (int w = 0; w < warp; ++w) before += warp_sums[w];
+  if (m == 0) return;
+  long long off = block_off[blockIdx.x] + before + x - m;
+  const int s = slot_in[i];
+  const int c = counts[s];
+  const long long* r = rows + (long long)s * L * C;
+  const long long lo = ts ? ts[i] + lo_off : 0, hi = ts ? ts[i] + hi_off : 0;
+  for (int j = 0; j < c; ++j) {
+    const long long* row = r + (long long)j * C;
+    if (ts != nullptr && (row[0] < lo || row[0] > hi)) continue;
+    out_idx[off] = i;
+    copy_row(out_packed + off * C, row, C);
+    ++off;
+  }
+}
 inline long long blocks_for(long long n) {
   return (n + kThreads - 1) / kThreads;
 }
@@ -374,6 +486,55 @@ extern "C" int list_prune_earlier_launch(void* rows, int L, int C,
   return (int)cudaGetLastError();
 }
 
+// Entries of a probe's block_off: one a block of kThreads rows, and the
+// total.
+extern "C" int list_probe_earlier_blocks(long long n) {
+  return (int)blocks_for(n);
+}
+
+// Probe, passes 1 and 2: per row its matches m [n] int32 and slot [n]
+// int32 (-1: absent); block_off [blocks + 1] int64 gets each block's
+// output offset and the total at [blocks]. ts null: every live row
+// matches.
+extern "C" int list_probe_earlier_count_launch(void* table, long long capacity,
+                                       const void* rows, int L, int C,
+                                       const void* counts, const void* keys,
+                                       long long n, const void* ts,
+                                       long long lo_off, long long hi_off,
+                                       void* m, void* slots, void* block_off,
+                                       void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n <= 0)
+    return (int)cudaMemsetAsync(block_off, 0, sizeof(long long), st);
+  if (L <= 0 || C <= 0 || n > INT_MAX) return (int)cudaErrorInvalidValue;
+  const long long nb = blocks_for(n);
+  list_probe_earlier_count_kernel<<<(unsigned)nb, kThreads, 0, st>>>(
+      (unsigned long long*)table, (unsigned long long)(capacity - 1),
+      (const long long*)rows, L, C, (const int*)counts,
+      (const long long*)keys, n, (const long long*)ts, lo_off, hi_off,
+      (int*)m, (int*)slots, (long long*)block_off);
+  list_probe_earlier_scan_kernel<<<1, 1024, 0, st>>>((long long*)block_off, nb);
+  return (int)cudaGetLastError();
+}
+
+// Probe, pass 3: the matches, out_idx [total] int64 (batch row) and
+// out_packed [total, C] int64, in (batch row, list position) order.
+extern "C" int list_probe_earlier_write_launch(const void* rows, int L, int C,
+                                       const void* counts, long long n,
+                                       const void* ts, long long lo_off,
+                                       long long hi_off, const void* m,
+                                       const void* slots,
+                                       const void* block_off, void* out_idx,
+                                       void* out_packed, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  list_probe_earlier_write_kernel<<<(unsigned)blocks_for(n), kThreads, 0,
+                            (cudaStream_t)stream>>>(
+      (const long long*)rows, L, C, (const int*)counts, n,
+      (const long long*)ts, lo_off, hi_off, (const int*)m,
+      (const int*)slots, (const long long*)block_off, (long long*)out_idx,
+      (long long*)out_packed);
+  return (int)cudaGetLastError();
+}
 extern "C" const char* list_earlier_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
