@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of flink_tpu_torch on one CUDA card: build, kernels, Q5, Q7,
 checkpoints, state beyond an HBM budget, session windows (Q11), SQL
-GROUP BY on the card (TPC-H Q1, 10M keys), and the interval join of two
+GROUP BY on the card (TPC-H Q1, 10M keys), the interval join of two
 streams over device list state (Nexmark Q7's join, 100K and 10M
-auctions).
+auctions), the row plane (ValueState, keep-first deduplication at 10M
+keys) and the SQL joins.
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -245,7 +246,46 @@ Run from the repository root:  python3 chip_smoke.py
     a numpy oracle as a multiset. Bids/s, peak memory, prunes and probes
     run and skipped, rebuilds, host seconds a batch by part, kernel builds after
     the warm-up, idle share and the profiled busy split.
-22. The kernels line, the nvidia-smi line, then the last line
+22. The row plane (csrc/row_state.cu). In the kernel phase
+    (``check_row_state``) dedup_first, row_set, row_get and row_unset
+    against their plain versions at two shapes (``ROW_SHAPES``): the
+    dedup cell's 17th batch of 2^19 rows into 2^24 slots holding its
+    first 16 batches' keys, and 2^12 rows into 2^16 slots; fresh masks,
+    status words and the state by key (presence, clock, value) equal,
+    the scratch back to ROW_NONE; each timed (the L2 flushed, the state
+    put back before each launch) beside its plain version, with its byte
+    bound, its 32-byte sector floor and that floor at the card's measured
+    random rates. Then the adversarial sequences (``ROW_EDGE_CASES``: a
+    random mix, one key repeated, every row invalid, the EMPTY sentinel
+    key, ts - last == ttl, an int64-max clock, an overflow on a 16-slot
+    table that must leave presence and clock as they were and a retry
+    that admits the plain version's rows, last-write-wins, every value
+    dtype) and a backend on the card against one on the CPU
+    (``check_row_backend``: keep-first batches that grow a 64-slot table,
+    a TTL value plane; snapshots equal).
+23. ``value_state``: a ValueState over the row plane on the card, 600
+    updates, clears and reads of 300 keys against a dict, then TTL
+    expiry (row_set, row_get and row_unset each launched).
+24. ``dedup_10m``: datagen device batches of 2^19 -> key_by ->
+    DeduplicateOperator(keep first, TTL 10 000 ms) -> sink through
+    ``env.execute()``: 2^25 events over 10M keys (the MULT mixer) in
+    ascending event time over 30 000 ms, one batch of UPDATE_BEFORE rows
+    mid-run, the table growing by rehash from 2^16 to 2^24 slots; every
+    emitted row against a numpy oracle of the reference's batch-granular
+    rule (flink_tpu/sql/dedup.py:17-20), in order. A warm-up of 4
+    batches, 2 timed runs (launch counters zeroed before each:
+    dedup_first once a batch and once a retry), a profiled run, and a
+    run checkpointed mid-run, cancelled and restored into a fresh job
+    whose rows continue the first's with none lost or repeated. Events/s,
+    peak memory, rehashes, retries, host seconds a batch by part, kernel
+    builds after the warm-up, dedup_first's device ms and the idle share.
+25. ``sql_join``: through ``execute_sql`` on datagen tables (2^18
+    auctions, 2^16 persons; the host plane: the reference's join
+    operators): a Nexmark Q3-shaped inner join (category = 10; q3.sql's
+    string state filter cut), a LEFT JOIN under a GROUP BY over its
+    changelog (the device GROUP BY retracting the padded rows) and a
+    temporal join; each query's final rows against a dict oracle, rows/s.
+26. The kernels line, the nvidia-smi line, then the last line
     {"ok": true, "device": {...}}.
 
 ``python3 chip_smoke.py --parent-kernels DIR`` instead times, with the same
@@ -269,6 +309,7 @@ import hashlib
 import importlib.util
 import json
 import linecache
+import math
 import os
 import subprocess
 import sys
@@ -6097,9 +6138,11 @@ def list_append_case(torch, flush, rates, st: dict, keys, packed) -> dict:
     fp, xp = dl.list_append_plain(*args, keys, packed)
     want = list_lists_of(torch, st, keys)
     check_tiles(torch, st, "list_append_plain", exact=True)
-    if fk != fp.tolist() or not torch.equal(xk, xp.cpu()) or not all(
-            torch.equal(a, b) for a, b in zip(got, want)):
-        raise AssertionError("list_append: kernel and plain version differ")
+    err = max_abs_diff(torch, [(torch.tensor(fk), fp.cpu()), (xk, xp.cpu()),
+                               (len(got), len(want)), *zip(got, want)])
+    if err:
+        raise AssertionError("list_append: kernel and plain version differ "
+                             f"by {err}")
     del got, want
     times = turns(torch, flush, restore,
                   kernel=lambda: dl.list_append(*args, st["hits"], keys,
@@ -6127,7 +6170,8 @@ def list_append_case(torch, flush, rates, st: dict, keys, packed) -> dict:
     ms = times["kernel_ms"]
     return {"n": n, "capacity": st["table"].numel(), "L": L, "C": C,
             "distinct_keys": int(uslots.numel()),
-            "new_keys": int(new.numel()), "flags": fk, "ms": ms,
+            "new_keys": int(new.numel()), "flags": fk, "max_abs_err": err,
+            "ms": ms,
             **times, "plain_ms": plain_ms, "tiles": tiles, **cost,
             "share_of_bound": cost["bound_ms"] / ms}
 
@@ -6170,16 +6214,18 @@ def list_probe_case(torch, flush, rates, st: dict, keys, ts, lo_off: int,
     args = (st["table"], st["rows"], st["counts"], keys, ts, lo_off, hi_off)
     want = dl.list_probe_plain(*args)
     m = int(want[0].numel())
+    err = 0.0
     for room in (None, max(m - 1, 0)):
         before = KERNEL_LAUNCHES["list_probe"]
         got = dl.list_probe(*args, capacity=room)
         launches = KERNEL_LAUNCHES["list_probe"] - before
-        if not all(torch.equal(a, b) for a, b in zip(got, want)) \
-                or launches != 1 + (m > (keys.numel() if room is None
-                                         else room)):
+        err = max(err, max_abs_diff(torch, [(len(got), len(want)),
+                                            *zip(got, want)]))
+        if err or launches != 1 + (m > (keys.numel() if room is None
+                                        else room)):
             raise AssertionError(f"list_probe at room {room}: kernel and "
-                                 f"plain version differ, or {launches} "
-                                 "launches")
+                                 f"plain version differ by {err}, or "
+                                 f"{launches} launches")
     del got, want
     ms = cuda_ms(lambda: dl.list_probe(*args, hint=m), torch, flush)
     device_ms = kernel_device_ms(torch, lambda: dl.list_probe(*args, hint=m),
@@ -6200,7 +6246,8 @@ def list_probe_case(torch, flush, rates, st: dict, keys, ts, lo_off: int,
     cost = list_cost(sectors, streamed, nbytes, rates)
     return {"n": n, "capacity": st["table"].numel(), "L": L, "C": C,
             "found_keys": int(found.numel()), "live_rows_examined": examined,
-            "matches": m, "lo_off": lo_off, "hi_off": hi_off, "ms": ms,
+            "matches": m, "lo_off": lo_off, "hi_off": hi_off,
+            "max_abs_err": err, "ms": ms,
             "device_ms": device_ms, "plain_ms": plain_ms, **cost,
             "share_of_bound": cost["bound_ms"] / ms}
 
@@ -6237,12 +6284,11 @@ def list_prune_case(torch, flush, rates, st: dict, horizon: int) -> dict:
     restore()
     lp = int(dl.list_prune_plain(st["rows"], st["counts"], st["tiles"],
                                  horizon))
-    same = (lk == lp and torch.equal(ck, st["counts"])
-            and torch.equal(rk, st["rows"][live])
-            and torch.equal(gk, st["tiles"])
-            and not bool((st["hits"] != 0).any()))
-    if not same:
-        raise AssertionError("list_prune: kernel and plain version differ")
+    err = max_abs_diff(torch, [(lk, lp), (ck, st["counts"]),
+                               (rk, st["rows"][live]), (gk, st["tiles"])])
+    if err or bool((st["hits"] != 0).any()):
+        raise AssertionError("list_prune: kernel and plain version differ "
+                             f"by {err}, or its hits were left set")
     del ck, rk, gk
     times = turns(torch, flush, restore,
                   kernel=lambda: dl.list_prune(st["rows"], st["counts"],
@@ -6291,7 +6337,8 @@ def list_prune_case(torch, flush, rates, st: dict, horizon: int) -> dict:
             "live_rows": int(cnt.sum()), "dropped_rows": int(drop.sum()),
             "lists_moved": int(moved.sum()), "tiles": tiles,
             "tiles_skipped": int(skip.sum()), "tiles_emptied": int(zero.sum()),
-            "tiles_visited": int(visit.sum()), "ms": ms, **times,
+            "tiles_visited": int(visit.sum()), "max_abs_err": err,
+            "ms": ms, **times,
             "plain_ms": plain_ms,
             "bytes": nbytes, "bound_ms": bound_ms(nbytes),
             "share_of_bound": bound_ms(nbytes) / ms, **old_bound,
@@ -6376,9 +6423,13 @@ def check_device_lists(torch, dev, flush, rates: dict | None = None
               for label, n_keys, count, cap in LIST_SHAPES}
     edges = {case: check_list_edge(torch, dev, case)
              for case in LIST_EDGE_CASES}
+    # the largest |kernel - plain| over the shapes' outputs and states (the
+    # edge cases, the store and the sequence compare alike and raise)
     return {"shapes": shapes, "edges": edges,
             "store": check_list_store(torch, dev),
-            "sequence": check_list_sequence(torch, dev), "max_abs_err": 0}
+            "sequence": check_list_sequence(torch, dev),
+            "max_abs_err": max(c["max_abs_err"] for sh in shapes.values()
+                               for c in sh.values())}
 
 
 def check_list_sequence(torch, dev, c: dict | None = None,
@@ -6511,6 +6562,1058 @@ def check_list_sequence(torch, dev, c: dict | None = None,
     return out
 
 
+# -- the row plane: row_state.cu's four kernels ------------------------------
+ROW_EDGE_CASES = ("random", "one_key", "all_invalid", "empty_key",
+                  "ttl_equal", "max_clock", "overflow", "last_wins",
+                  "dtypes")
+ROW_DTYPES = ("int8", "int32", "int64", "float32", "float64")
+#: kernel -> the part of its CUDA kernels' names (ptxas, the profiler)
+ROW_PTXAS = {"dedup_first": "dedup_", "row_set": "row_set_",
+             "row_get": "row_get_", "row_unset": "row_unset_"}
+
+
+def _row_values(rng, n: int, dtype: str) -> np.ndarray:
+    """Values every dtype of the plane holds exactly."""
+    return rng.integers(-100, 100, n).astype(dtype)
+
+
+def row_edge_configs(case: str) -> list:
+    """The adversarial operation sequences of the row programs: each a dict
+    of the state's ``cap``, ``ttl`` (0: no clock), value ``dtype`` and
+    ``ops``: ("dedup", keys, valid or None, ts), ("set", keys, values,
+    now: an int or an int64 array), ("get", keys, now), ("unset", keys),
+    ("grow",) (the table doubled, as the backend's rehash) and
+    ("fill_clock", value) (as a restore that adds a clock)."""
+    rng = np.random.default_rng(1400 + ROW_EDGE_CASES.index(case))
+    i64 = np.int64
+
+    def batch(n, pool, t0, span, p_valid=None):
+        keys = rng.choice(pool, n).astype(i64)
+        ts = np.sort(rng.integers(t0, t0 + span, n)).astype(i64)
+        valid = None if p_valid is None else rng.random(n) < p_valid
+        return ("dedup", keys, valid, ts)
+
+    c = {"cap": 256, "ttl": 0, "dtype": "float64"}
+    if case == "random":
+        pool = np.arange(40)
+        c["ttl"] = 50
+        c["ops"] = [batch(60, pool, 40 * b, 60, 0.85) for b in range(4)] + [
+            ("set", rng.choice(pool, 30).astype(i64),
+             _row_values(rng, 30, "float64"), 170),
+            ("get", rng.choice(np.arange(50), 40).astype(i64), 200),
+            ("unset", rng.choice(np.arange(50), 10).astype(i64)),
+            ("get", np.arange(50, dtype=i64), 230),
+            batch(80, np.arange(60), 230, 40, 0.9)]
+    elif case == "one_key":
+        c.update(cap=64, ttl=10)
+        key = np.full(100, 7, i64)
+        c["ops"] = [("dedup", key, None, np.sort(rng.integers(0, 50, 100))),
+                    ("dedup", key[:50], None, np.arange(55, 105, dtype=i64)),
+                    ("dedup", key[:20], None, np.arange(60, 80, dtype=i64)),
+                    ("get", key[:3], 65), ("get", key[:3], 10 ** 6)]
+    elif case == "all_invalid":
+        c.update(cap=64, ttl=100)
+        keys = rng.integers(0, 30, 40).astype(i64)
+        ts = np.arange(40, dtype=i64)
+        c["ops"] = [("dedup", keys, np.zeros(40, bool), ts),
+                    ("get", keys, 40), ("dedup", keys, None, ts + 1),
+                    ("dedup", keys, np.zeros(40, bool), ts + 500)]
+    elif case == "empty_key":
+        c.update(cap=64, ttl=100)
+        keys = np.array([INT64_MAX, INT64_MAX - 1, 5, INT64_MAX, -1, 0], i64)
+        c["ops"] = [("dedup", keys, None, np.zeros(6, i64)),
+                    ("set", keys, _row_values(rng, 6, "float64"), 3),
+                    ("get", keys, 5), ("unset", keys[:1]),
+                    ("get", keys, 5), ("dedup", keys, None, np.full(6, 7, i64))]
+    elif case == "ttl_equal":
+        c.update(cap=64, ttl=100)
+        keys = np.array([1, 2, 3], i64)
+        c["ops"] = [("dedup", keys, None, np.zeros(3, i64)),
+                    ("get", keys, 100), ("get", keys, 101),
+                    ("dedup", keys, None, np.array([100, 101, 99], i64)),
+                    ("dedup", keys, None, np.array([201, 202, 199], i64))]
+    elif case == "max_clock":
+        c.update(cap=64, ttl=100)
+        c["ops"] = [("dedup", np.arange(10, dtype=i64), None,
+                     np.zeros(10, i64)),
+                    ("fill_clock", INT64_MAX),
+                    ("dedup", np.arange(20, dtype=i64), None,
+                     np.full(20, 10 ** 12, i64)),
+                    ("get", np.arange(20, dtype=i64), 10 ** 12),
+                    ("dedup", np.arange(20, dtype=i64), None,
+                     np.full(20, 10 ** 12 + 101, i64))]
+    elif case == "overflow":
+        c.update(cap=16, ttl=100)
+        old = np.arange(8, dtype=i64)
+        new = np.concatenate([rng.permutation(np.arange(100, 130)), old,
+                              np.arange(100, 110)]).astype(i64)
+        valid = np.ones(len(new), bool)
+        valid[::7] = False
+        ts = np.sort(rng.integers(200, 300, len(new))).astype(i64)
+        c["ops"] = [("dedup", old, None, np.zeros(8, i64)),
+                    ("dedup", new, valid, ts), ("grow",),
+                    ("dedup", new, valid, ts), ("get", new, 300)]
+    elif case == "last_wins":
+        c.update(cap=64, ttl=1000)
+        keys = rng.integers(0, 6, 200).astype(i64)
+        c["ops"] = [("set", keys, _row_values(rng, 200, "float64"),
+                     np.arange(200, dtype=i64)),
+                    ("get", np.arange(8, dtype=i64), 1100),
+                    ("set", keys[::-1].copy(),
+                     _row_values(rng, 200, "float64"), 1500),
+                    ("get", np.arange(8, dtype=i64), 2400),
+                    ("get", np.arange(8, dtype=i64), 2600)]
+    elif case == "dtypes":
+        out = []
+        for dt in ROW_DTYPES:
+            keys = rng.integers(0, 20, 50).astype(i64)
+            out.append({"cap": 64, "ttl": 0, "dtype": dt, "ops": [
+                ("set", keys, _row_values(rng, 50, dt), 0),
+                ("get", np.arange(24, dtype=i64), 0),
+                ("unset", keys[:5].copy()),
+                ("get", np.arange(24, dtype=i64), 0),
+                ("set", keys[::2].copy(), _row_values(rng, 25, dt), 0),
+                ("get", np.arange(24, dtype=i64), 0)]})
+        return out
+    else:
+        raise ValueError(case)
+    return [c]
+
+
+def row_state_new(torch, dev, c: dict) -> dict:
+    from flink_tpu_torch.device import torch_dtype
+    from flink_tpu_torch.ops.hash_table import make_table
+    from flink_tpu_torch.ops.row_state import new_row_scratch
+
+    cap = c["cap"]
+    return {"table": make_table(cap, dev),
+            "vals": torch.zeros(cap, dtype=torch_dtype(c["dtype"]),
+                                device=dev),
+            "presence": torch.zeros(cap, dtype=torch.int8, device=dev),
+            "last_ts": (torch.zeros(cap, dtype=torch.int64, device=dev)
+                        if c["ttl"] else None),
+            "scratch": new_row_scratch(cap, dev),
+            "dirty": torch.zeros((cap >> EDGE_SHIFT) + 1, dtype=torch.uint8,
+                                 device=dev)}
+
+
+def row_grow(torch, st: dict) -> None:
+    """Double the table and move every plane to its keys' new slots (the
+    backend's rehash)."""
+    from flink_tpu_torch.ops.hash_table import EMPTY_KEY, lookup_or_insert, \
+        make_table
+    from flink_tpu_torch.ops.row_state import new_row_scratch
+
+    table = st["table"]
+    cap, dev = 2 * table.numel(), table.device
+    old = torch.nonzero(table != EMPTY_KEY).flatten()
+    new_table = make_table(cap, dev)
+    _, slots, ok = lookup_or_insert(new_table, table[old].contiguous())
+    assert bool(ok.all()), "row_grow: the doubled table overflowed"
+    slots = slots.to(torch.int64)
+    for name in ("vals", "presence", "last_ts"):
+        if st[name] is not None:
+            plane = torch.zeros(cap, dtype=st[name].dtype, device=dev)
+            plane[slots] = st[name][old]
+            st[name] = plane
+    st["table"] = new_table
+    st["scratch"] = new_row_scratch(cap, dev)
+    st["dirty"] = torch.zeros((cap >> EDGE_SHIFT) + 1, dtype=torch.uint8,
+                              device=dev)
+
+
+def apply_row_op(torch, st: dict, op: tuple, ttl: int) -> dict:
+    """One operation of ``row_edge_configs`` through the wrappers (the
+    kernels on a card, the plain versions on the CPU); its outputs as
+    numpy. A dedup's written slots must have their dirty blocks marked."""
+    from flink_tpu_torch.ops.hash_table import lookup_or_insert, \
+        sanitize_keys_device
+    from flink_tpu_torch.ops.row_state import dedup_first, row_get, \
+        row_set, row_unset
+
+    dev = st["table"].device
+
+    def t(a, dtype=torch.int64):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    kind = op[0]
+    if kind == "dedup":
+        _, keys, valid, ts = op
+        st["dirty"].zero_()
+        fresh, slots, status = dedup_first(
+            st["table"], st["presence"], st["last_ts"], t(keys),
+            None if valid is None else t(valid, torch.bool), t(ts), ttl,
+            st["scratch"], st["dirty"], EDGE_SHIFT)
+        s = status.cpu().numpy()
+        if not s[0]:
+            ok = slots[slots >= 0].to(torch.int64)
+            assert bool((st["dirty"][ok >> EDGE_SHIFT] == 1).all()), \
+                "a written slot's dirty block is unmarked"
+        return {"fresh": fresh.cpu().numpy(), "failed": bool(s[0]),
+                "claims": int(s[1]), "n_fresh": int(s[2])}
+    if kind == "set":
+        _, keys, vals, now = op
+        _, slots, ok = lookup_or_insert(st["table"],
+                                        sanitize_keys_device(t(keys)))
+        assert bool(ok.all())
+        row_set(st["vals"], st["presence"], st["last_ts"], slots,
+                t(vals, st["vals"].dtype),
+                now if np.ndim(now) == 0 else t(now), st["scratch"])
+        return {}
+    if kind == "get":
+        v, p = row_get(st["table"], st["vals"], st["presence"], st["last_ts"],
+                       t(op[1]), op[2], ttl)
+        return {"vals": v.cpu().numpy(), "present": p.cpu().numpy()}
+    if kind == "unset":
+        slots = row_unset(st["table"], st["presence"], t(op[1]))
+        return {"found": (slots >= 0).cpu().numpy()}
+    if kind == "grow":
+        row_grow(torch, st)
+        return {}
+    if kind == "fill_clock":
+        st["last_ts"].fill_(op[1])
+        return {}
+    raise ValueError(kind)
+
+
+def row_state_by_key(table: np.ndarray, planes: dict) -> dict:
+    """The state by key, in key order: a key's presence, clock and value
+    bits, keys whose every plane holds 0 left out (an absent key reads
+    so), so states of two slot layouts compare."""
+    occ = np.flatnonzero(table != INT64_MAX)
+    order = occ[np.argsort(table[occ], kind="stable")]
+    out = {"keys": table[order]}
+    keep = np.zeros(len(order), bool)
+    for name in ("presence", "last_ts", "vals"):
+        a = planes.get(name)
+        if a is None:
+            continue
+        a = np.asarray(a)
+        bits = a.view(f"u{a.dtype.itemsize}")[order]
+        out[name] = bits
+        keep |= bits != 0
+    return {k: v[keep] for k, v in out.items()}
+
+
+def row_state_host(st: dict) -> dict:
+    return row_state_by_key(
+        st["table"].cpu().numpy(),
+        {n: st[n].cpu().numpy() for n in ("presence", "last_ts", "vals")
+         if st[n] is not None})
+
+
+def states_by_key_equal(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(np.array_equal(a[k], b[k])
+                                        for k in a)
+
+
+def max_abs_diff(torch, pairs) -> float:
+    """The largest |a - b| over pairs of tensors or arrays compared entry
+    by entry (on a's device): 0.0 when every pair is equal; inf when a
+    pair's shapes differ, or where entries differ by less than float64
+    shows (or are NaN)."""
+    worst = 0.0
+    for a, b in pairs:
+        a = torch.as_tensor(a)
+        b = torch.as_tensor(b).to(a.device)
+        if a.shape != b.shape:
+            return math.inf
+        ne = a != b
+        if bool(ne.any()):
+            d = float((a[ne].double() - b[ne].double()).abs().max())
+            worst = max(worst, d if d > 0 else math.inf)
+    return worst
+
+
+def by_key_diff(torch, a: dict, b: dict) -> float:
+    """max_abs_diff of two states by key (``row_state_by_key``)."""
+    if a.keys() != b.keys():
+        return math.inf
+    return max_abs_diff(torch, [(a[k], b[k]) for k in a])
+
+
+def run_row_edge(torch, dev, c: dict) -> tuple:
+    """Every op of a config: (outputs, the state by key after each op)."""
+    st = row_state_new(torch, dev, c)
+    outs, states = [], []
+    for op in c["ops"]:
+        outs.append(apply_row_op(torch, st, op, c["ttl"]))
+        states.append(row_state_host(st))
+    return outs, states
+
+
+def check_row_edge(torch, dev, case: str) -> dict:
+    """The kernels on ``dev`` against the plain versions on the CPU through
+    one case: outputs equal (a get's values where present: an absent key
+    reads slot 0, whose key differs between the layouts), states equal by
+    key after every op; an overflowing dedup leaves presence and clock as
+    they were."""
+    ops = 0
+    for c in row_edge_configs(case):
+        got, got_st = run_row_edge(torch, dev, c)
+        want, want_st = run_row_edge(torch, torch.device("cpu"), c)
+        prev = None
+        for i, (op, g, w) in enumerate(zip(c["ops"], got, want)):
+            what = f"{case} op {i} ({op[0]})"
+            if "present" in g:
+                assert np.array_equal(g["present"], w["present"]), what
+                p = w["present"]
+                assert np.array_equal(g["vals"][p], w["vals"][p]), what
+            else:
+                assert g.keys() == w.keys() and all(
+                    np.array_equal(g[k], w[k]) for k in g), what
+            assert states_by_key_equal(got_st[i], want_st[i]), what
+            if op[0] == "dedup" and g["failed"]:
+                assert not g["fresh"].any(), what
+                for name in ("presence", "last_ts"):
+                    if name in prev:
+                        keys = got_st[i]["keys"]
+                        pos = np.searchsorted(keys, prev["keys"])
+                        assert np.array_equal(got_st[i][name][pos],
+                                              prev[name]), what
+            prev = got_st[i]
+            ops += 1
+    return {"ops": ops}
+
+
+def row_edges(torch, dev) -> dict:
+    return {case: check_row_edge(torch, dev, case)["ops"]
+            for case in ROW_EDGE_CASES}
+
+
+def check_row_backend(torch, dev) -> dict:
+    """Keep-first batches (with retractions) through a backend on ``dev``
+    and one on the CPU from a 64-slot table: fresh masks, capacities,
+    occupancy and snapshots equal after every batch; then a ValueState's
+    upserts, lookups and clears on both."""
+    from flink_tpu_torch.core import KeyGroupRange
+    from flink_tpu_torch.state.device_backend import DeviceKeyedStateBackend
+
+    rng = np.random.default_rng(77)
+    bs = [DeviceKeyedStateBackend(KeyGroupRange(0, MAXP - 1), MAXP,
+                                  capacity=64, device=d)
+          for d in (dev, torch.device("cpu"))]
+    for b in bs:
+        b.register_row_state("seen", np.int8, ttl_ms=300)
+        b.register_row_state("v", np.float64, ttl_ms=100)
+    caps, fresh_rows = [], 0
+    for step in range(10):
+        keys = rng.integers(0, 3000, 400).astype(np.int64)
+        ts = np.sort(rng.integers(100 * step, 100 * step + 90, 400))
+        valid = rng.random(400) > 0.1
+        got = [b.dedup_first_batch("seen", keys, ts, valid) for b in bs]
+        if not np.array_equal(*got) or len({(b.capacity, b.num_keys)
+                                            for b in bs}) != 1:
+            raise AssertionError(f"row backend batch {step}: the card's "
+                                 "admissions or table differ")
+        fresh_rows += int(got[0].sum())
+        caps.append(bs[0].capacity)
+        for b in bs:
+            b.rows_upsert("v", keys[:50], keys[:50] * 0.25, now_ms=ts[:50])
+            b.rows_clear("v", keys[50:60])
+        looked = [b.rows_lookup("v", np.arange(3100, dtype=np.int64),
+                                now_ms=int(ts[-1])) for b in bs]
+        if not (np.array_equal(looked[0][1], looked[1][1])
+                and np.array_equal(looked[0][0][looked[0][1]],
+                                   looked[1][0][looked[1][1]])):
+            raise AssertionError(f"row backend batch {step}: lookups differ")
+    snaps = [b.snapshot(1) for b in bs]
+    if snapshot_digest(snaps[0]) != snapshot_digest(snaps[1]):
+        raise AssertionError("row backend: the card's snapshot differs")
+    return {"batches": 10, "fresh_rows": fresh_rows, "capacities": caps,
+            "rehashes": int(np.log2(caps[-1] // 64))}
+
+
+#: the big shapes of the row kernels: (label, rows, capacity, keys held)
+ROW_SHAPES = (("dedup_10m", 1 << 19, 1 << 24, 10_000_000),
+              ("small", 1 << 12, 1 << 16, 30_000))
+
+
+def row_shape_state(torch, dev, rows: int, cap: int, n_keys: int) -> dict:
+    """The state of the dedup cell after its first 16 batches (the mixer's
+    keys, ts over the cell's 30 s; at the small shape the same stream over
+    fewer keys), built through the kernels, and the 17th batch: keys, ts,
+    valid (all), plus a float64 value plane for the set and get."""
+    from flink_tpu_torch.ops.hash_table import make_table
+    from flink_tpu_torch.ops.row_state import dedup_first, new_row_scratch
+
+    span, count, ttl = 30_000, 32 * rows, 10_000
+    st = {"table": make_table(cap, dev),
+          "presence": torch.zeros(cap, dtype=torch.int8, device=dev),
+          "last_ts": torch.zeros(cap, dtype=torch.int64, device=dev),
+          "vals": torch.zeros(cap, dtype=torch.float64, device=dev),
+          "scratch": new_row_scratch(cap, dev),
+          "dirty": torch.zeros((cap >> DIRTY_SHIFT) + 1, dtype=torch.uint8,
+                               device=dev), "ttl": ttl}
+
+    def batch(b):
+        idx = torch.arange(b * rows, (b + 1) * rows, dtype=torch.int64,
+                           device=dev)
+        return mixed_keys(idx, n_keys), (idx * span) // count
+
+    for b in range(16):
+        keys, ts = batch(b)
+        _f, _s, status = dedup_first(st["table"], st["presence"],
+                                     st["last_ts"], keys, None, ts, ttl,
+                                     st["scratch"], st["dirty"], DIRTY_SHIFT)
+        if int(status[0]):
+            raise AssertionError("row shape state: the table overflowed")
+    st["keys"], st["ts"] = batch(16)
+    return st
+
+
+def row_clone(st: dict) -> dict:
+    return {k: v.clone() if hasattr(v, "clone") else v for k, v in st.items()}
+
+
+def row_put_back(dst: dict, src: dict) -> None:
+    for k in ("table", "presence", "last_ts", "vals", "scratch"):
+        dst[k].copy_(src[k])
+
+
+def row_state_of(torch, st: dict) -> dict:
+    return row_state_by_key(st["table"].cpu().numpy(),
+                            {n: st[n].cpu().numpy()
+                             for n in ("presence", "last_ts", "vals")})
+
+
+def row_shape_cases(torch, dev, flush, rates, label: str, rows: int,
+                    cap: int, n_keys: int) -> dict:
+    """The four kernels against their plain versions at one shape (the
+    plain versions run on the card too, on a copy of the same state),
+    each timed with the L2 flushed and the state put back before every
+    launch, with its byte bound, its 32-byte sector floor and that floor
+    at the card's measured random rates."""
+    from flink_tpu_torch.ops.hash_table import lookup, \
+        lookup_or_insert_plain, sanitize_keys_device
+    from flink_tpu_torch.ops.row_state import dedup_first, \
+        dedup_first_plain, row_get, row_get_plain, row_set, row_set_plain, \
+        row_unset, row_unset_plain
+
+    st = row_shape_state(torch, dev, rows, cap, n_keys)
+    base = row_clone(st)
+    keys, ts, ttl = st["keys"], st["ts"], st["ttl"]
+    n = keys.numel()
+    out = {}
+
+    def sectors(idx, esize):
+        return distinct_sectors(torch, idx.to(torch.int64) * esize)
+
+    # -- dedup_first --------------------------------------------------------
+    def run_dedup(fn, s):
+        return fn(s["table"], s["presence"], s["last_ts"], keys, None, ts,
+                  ttl, s["scratch"], s["dirty"], DIRTY_SHIFT)
+
+    plain_st = row_clone(base)
+    fk, sk, stk = run_dedup(dedup_first, st)
+    fp, sp, stp = run_dedup(dedup_first_plain, plain_st)
+    torch.cuda.synchronize()
+    err = max(max_abs_diff(torch, [(fk, fp), (stk, stp),
+                                   (st["scratch"], base["scratch"])]),
+              by_key_diff(torch, row_state_of(torch, st),
+                          row_state_of(torch, plain_st)))
+    if err:
+        raise AssertionError(f"dedup_first at {label}: the kernel and the "
+                             f"plain version differ by {err}")
+    failed, claims, n_fresh = (int(v) for v in stk.tolist())
+    ok = sk[sk >= 0].to(torch.int64)
+    distinct = torch.unique(ok)
+    fresh_slots = sk[fk].to(torch.int64)
+    new_slots = distinct[base["table"][distinct] != INT64_MAX]
+    ms = cuda_ms(lambda: run_dedup(dedup_first, st), torch, flush,
+                 setup=lambda: row_put_back(st, base))
+    plain_ms = cuda_ms(lambda: run_dedup(dedup_first_plain, plain_st), torch,
+                       flush, reps=3, setup=lambda: row_put_back(plain_st,
+                                                                 base))
+    # least bytes: a row's key and ts read, its slot and fresh flag
+    # written; a distinct key's table entry read (a new key's claimed),
+    # presence and clock read, presence written, a fresh key's clock
+    # written, a dirty byte a touched block
+    d = int(distinct.numel())
+    nbytes = (n * (8 + 8 + 4 + 1) + d * (8 + 1 + 8 + 1)
+              + int(new_slots.numel()) * 8 + n_fresh * 8
+              + int(torch.unique(distinct >> DIRTY_SHIFT).numel()))
+    cost = list_cost({"claim": sectors(distinct, 8),
+                      "read": sectors(distinct, 8),
+                      "store": sectors(distinct, 1) + sectors(fresh_slots, 8),
+                      "atomic": sectors(distinct, 4)},
+                     n * (8 + 8 + 4 + 1), nbytes, rates)
+    out["dedup_first"] = {"rows": n, "capacity": cap, "keys_in_state": int(
+        (base["table"] != INT64_MAX).sum()), "distinct_keys": d,
+        "claims": claims, "fresh": n_fresh, "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "library_ms": None, "bound_by": "bytes", **cost,
+        "share_of_bound": cost["bound_ms"] / ms}
+    # -- row_set: the batch's keys into the value plane, last row wins --------
+    row_put_back(st, base)
+    _, slots, okk = lookup_or_insert_plain(st["table"],
+                                           sanitize_keys_device(keys))
+    torch.cuda.synchronize()
+    # the table now holds every key: set the kernel's and plain's states
+    base2 = row_clone(st)
+    vals = (keys % 1000).to(torch.float64) * 0.5
+    now = ts + 1
+
+    def run_set(fn, s):
+        fn(s["vals"], s["presence"], s["last_ts"], slots, vals, now,
+           s["scratch"])
+
+    plain_st = row_clone(base2)
+    run_set(row_set, st)
+    run_set(row_set_plain, plain_st)
+    torch.cuda.synchronize()
+    err = max_abs_diff(torch, [(st[k], plain_st[k]) for k in
+                               ("vals", "presence", "last_ts", "scratch")])
+    if err:
+        raise AssertionError(f"row_set at {label}: the kernel and the plain "
+                             f"version differ by {err}")
+    ms = cuda_ms(lambda: run_set(row_set, st), torch, flush,
+                 setup=lambda: row_put_back(st, base2))
+    plain_ms = cuda_ms(lambda: run_set(row_set_plain, plain_st), torch,
+                       flush, reps=3,
+                       setup=lambda: row_put_back(plain_st, base2))
+    ws = torch.unique(slots.to(torch.int64))
+    w = int(ws.numel())
+    nbytes = n * (4 + 8 + 8) + w * (8 + 1 + 8)
+    cost = list_cost({"store": sectors(ws, 8) * 2 + sectors(ws, 1),
+                      "atomic": sectors(ws, 4)},
+                     n * (4 + 8 + 8), nbytes, rates)
+    out["row_set"] = {"rows": n, "capacity": cap, "slots_written": w,
+                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": None,
+                      "bound_by": "bytes", **cost,
+                      "share_of_bound": cost["bound_ms"] / ms}
+    # -- row_get: half the keys of the state, half absent ---------------------
+    probe = torch.where(torch.arange(n, device=dev) % 2 == 0, keys,
+                        keys + (1 << 40)).contiguous()
+    now_get = int(ts[-1]) + 5_000
+
+    def run_get(fn):
+        return fn(st["table"], st["vals"], st["presence"], st["last_ts"],
+                  probe, now_get, ttl)
+
+    vk, pk = run_get(row_get)
+    vp, pp = run_get(row_get_plain)
+    torch.cuda.synchronize()
+    err = max_abs_diff(torch, [(pk, pp), (vk[pk], vp[pp])])
+    if err:
+        raise AssertionError(f"row_get at {label}: the kernel and the plain "
+                             f"version differ by {err}")
+    ms = cuda_ms(lambda: run_get(row_get), torch, flush)
+    plain_ms = cuda_ms(lambda: run_get(row_get_plain), torch, flush, reps=3)
+    found = lookup(st["table"], sanitize_keys_device(probe))
+    fs = torch.unique(found[found >= 0].to(torch.int64))
+    nbytes = n * (8 + 8 + 1) + int(fs.numel()) * (8 + 8 + 1 + 8)
+    cost = list_cost({"read": sectors(fs, 8) * 3 + sectors(fs, 1)
+                      + int((found < 0).sum())},
+                     n * (8 + 8 + 1), nbytes, rates)
+    out["row_get"] = {"rows": n, "capacity": cap, "present": int(pk.sum()),
+                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": None,
+                      "bound_by": "bytes", **cost,
+                      "share_of_bound": cost["bound_ms"] / ms}
+    # -- row_unset: the same keys -------------------------------------------
+    base3 = row_clone(st)
+    plain_st = row_clone(base3)
+    uk = row_unset(st["table"], st["presence"], probe)
+    up = row_unset_plain(plain_st["table"], plain_st["presence"], probe)
+    torch.cuda.synchronize()
+    err = max_abs_diff(torch, [(uk >= 0, up >= 0),
+                               (st["presence"], plain_st["presence"])])
+    if err:
+        raise AssertionError(f"row_unset at {label}: the kernel and the "
+                             f"plain version differ by {err}")
+    ms = cuda_ms(lambda: row_unset(st["table"], st["presence"], probe),
+                 torch, flush, setup=lambda: row_put_back(st, base3))
+    plain_ms = cuda_ms(lambda: row_unset_plain(plain_st["table"],
+                                               plain_st["presence"], probe),
+                       torch, flush, reps=3,
+                       setup=lambda: row_put_back(plain_st, base3))
+    nbytes = n * (8 + 4) + int(fs.numel()) * (8 + 1)
+    cost = list_cost({"read": sectors(fs, 8) + int((found < 0).sum()),
+                      "store": sectors(fs, 1)}, n * (8 + 4), nbytes, rates)
+    out["row_unset"] = {"rows": n, "capacity": cap, "found": int(
+        (uk >= 0).sum()), "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": None, "bound_by": "bytes", **cost,
+        "share_of_bound": cost["bound_ms"] / ms}
+    del st, base, base2, base3, plain_st
+    return out
+
+
+def check_row_state(torch, dev, flush, rates: dict | None = None) -> dict:
+    """The row kernels against their plain versions: at both shapes
+    (``ROW_SHAPES``), on the adversarial sequences (``ROW_EDGE_CASES``)
+    and through a backend on the card against one on the CPU."""
+    shapes = {label: row_shape_cases(torch, dev, flush, rates, label, rows,
+                                     cap, n_keys)
+              for label, rows, cap, n_keys in ROW_SHAPES}
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the largest |kernel - plain| over the shapes' outputs and states (the
+    # edge cases and the backend compare the same way and raise)
+    return {"max_abs_err": max(c["max_abs_err"] for sh in shapes.values()
+                               for c in sh.values()),
+            "shapes": shapes, "edges": row_edges(torch, dev),
+            "backend": check_row_backend(torch, dev)}
+
+
+# -- keep-first deduplication on the card (dedup_10m) -------------------------
+#: Flink's documented keep-first deduplication (ROW_NUMBER() OVER
+#: (PARTITION BY id ORDER BY proctime ASC) = 1) with table.exec.state.ttl
+DEDUP_CELLS = {"dedup_10m": {"keys": 10_000_000, "events": 1 << 25,
+                             "batch": BATCH, "span_ms": 30_000,
+                             "ttl_ms": 10_000, "capacity": 1 << 16,
+                             "retract_batch": 32}}
+DEDUP_RUNS = 2                 # timed runs of the dedup cell
+DEDUP_CKPT_RUN_S = 3.0         # the checkpointed run's source pacing
+DEDUP_CKPT_INTERVAL_S = 0.25
+
+
+def dedup_config(cell: str = "dedup_10m", **overrides) -> dict:
+    return dict(DEDUP_CELLS[cell], **overrides)
+
+
+def dedup_gen(torch, c: dict):
+    """Row ``idx``: key ``mixed_keys(idx, keys)``, ts ascending over the
+    span, the row id, and UPDATE_BEFORE for every row of the retraction
+    batch (INSERT elsewhere). Torch indices (device batches) or numpy."""
+    n_keys, count, span = c["keys"], c["events"], c["span_ms"]
+    batch, rb = c["batch"], c["retract_batch"]
+
+    def gen(idx):
+        retract = (idx // batch) == rb
+        kind = (retract.astype(np.int8) if isinstance(idx, np.ndarray)
+                else retract.to(torch.int8))
+        return {"key": mixed_keys(idx, n_keys), "ts": (idx * span) // count,
+                "row": idx, "__rowkind__": kind}
+
+    return gen
+
+
+def dedup_expected(c: dict) -> np.ndarray:
+    """The row ids a keep-first deduplication emits, in order, by the
+    reference's batch-granular rule (flink_tpu/sql/dedup.py:17-20): in a
+    batch, a key's first valid row is fresh when the key is absent or
+    its last admission is more than the TTL before the row's ts; every
+    valid row's key becomes present; a fresh row restarts its key's
+    clock. The retraction batch's rows are not valid."""
+    n_keys, count, span, batch = (c["keys"], c["events"], c["span_ms"],
+                                  c["batch"])
+    present = np.zeros(n_keys, bool)
+    last = np.zeros(n_keys, np.int64)
+    out = []
+    for lo in range(0, count, batch):
+        if lo // batch == c["retract_batch"]:
+            continue
+        idx = np.arange(lo, min(lo + batch, count), dtype=np.int64)
+        key = mixed_keys(idx, n_keys)
+        ts = (idx * span) // count
+        uk, first = np.unique(key, return_index=True)
+        t = ts[first]
+        fresh = ~(present[uk] & (t - last[uk] <= c["ttl_ms"]))
+        present[uk] = True
+        last[uk[fresh]] = t[fresh]
+        out.append(idx[np.sort(first[fresh])])
+    return np.concatenate(out)
+
+
+def dedup_env(torch, dev, c: dict, count: int | None = None,
+              rate: float | None = None, source_hook=None,
+              settings: dict | None = None):
+    """datagen device batches -> key_by("key") -> DeduplicateOperator(keep
+    first, the cell's TTL) -> sink, a watermark after every batch. Returns
+    (env, [row ids of each sink batch, on the device])."""
+    from flink_tpu_torch.api import StreamExecutionEnvironment
+    from flink_tpu_torch.connectors.datagen import DataGenSource
+    from flink_tpu_torch.core import Configuration, Schema, WatermarkStrategy
+    from flink_tpu_torch.sql.dedup import DeduplicateOperator
+
+    schema = Schema([("key", np.int64), ("ts", np.int64), ("row", np.int64),
+                     ("__rowkind__", np.int8)])
+    env = StreamExecutionEnvironment(Configuration({
+        "pipeline.micro-batch-size": c["batch"],
+        "pipeline.auto-watermark-interval": 0.0, **(settings or {})}),
+        device=dev)
+    ws = WatermarkStrategy.for_monotonous_timestamps() \
+        .with_timestamp_column("ts")
+    source = DataGenSource(dedup_gen(torch, c), schema,
+                           count=count or c["events"], rate_per_sec=rate,
+                           timestamp_column="ts", device=True)
+    if source_hook is not None:
+        source_hook(source)
+    got = []
+
+    def sink(b):
+        got.append(b.device_column("row"))
+
+    def dedup_factory():
+        return DeduplicateOperator(0, keep="first", ttl_ms=c["ttl_ms"],
+                                   capacity=c["capacity"], device=dev)
+
+    (env.from_source(source, ws, "DataGen").key_by("key")
+     .transform("Deduplicate", dedup_factory).add_sink(sink, "fresh"))
+    return env, got
+
+
+def run_dedup(torch, dev, c: dict, count: int | None = None):
+    env, got = dedup_env(torch, dev, c, count)
+    return env.execute("dedup-keep-first", timeout=900.0), got
+
+
+def dedup_operator(job):
+    from flink_tpu_torch.sql.dedup import DeduplicateOperator
+
+    ops = [op for op in job.operators if isinstance(op, DeduplicateOperator)]
+    if len(ops) != 1:
+        raise AssertionError(f"{len(ops)} deduplications in the job")
+    return ops[0]
+
+
+def dedup_rows(got: list) -> np.ndarray:
+    return (np.concatenate([g.cpu().numpy() for g in got]) if got
+            else np.zeros(0, np.int64))
+
+
+def dedup_check(expected: np.ndarray, got: list) -> int:
+    g = dedup_rows(got)
+    if not np.array_equal(g, expected):
+        raise AssertionError(f"dedup: {len(g)} rows emitted, {len(expected)} "
+                             "expected, or they differ")
+    return len(g)
+
+
+def dedup_run_record(torch, c: dict, run, expected) -> dict:
+    """One timed run with the launch counters zeroed just before it:
+    every emitted row against the oracle, dedup_first launched once a
+    batch at least (twice for a batch that overflowed); events/s, peak
+    memory, rehashes, host seconds a batch by part."""
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+    from flink_tpu_torch.ops import kernels
+
+    start = fresh_memory(torch)
+    built = set(p.name for p in kernels.BUILD_DIR.glob("*.so"))
+    reset_launches()
+    job, got = run()
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(KERNEL_LAUNCHES)
+    rows = dedup_check(expected, got)
+    op = dedup_operator(job)
+    st = op.stats
+    b = op.backend
+    if launches["dedup_first"] != st["batches"] + b.row_overflows:
+        raise AssertionError(f"dedup: {launches['dedup_first']} launches "
+                             f"for {st['batches']} batches and "
+                             f"{b.row_overflows} retries")
+    return {"wall_s": job.wall_s, "events_per_sec": c["events"] / job.wall_s,
+            "fresh_rows": rows, "peak": peak, "start": start,
+            "launches": launches, "capacity": b.capacity,
+            "keys_in_state": b.num_keys,
+            "rehashes": int(np.log2(b.capacity // c["capacity"])),
+            "overflow_retries": b.row_overflows, "batches": st["batches"],
+            "host_s_per_batch": {k: st[k] / st["batches"]
+                                 for k in ("prep_s", "admit_s", "compact_s",
+                                           "emit_s")},
+            "kernel_builds_after_warmup": len(
+                set(p.name for p in kernels.BUILD_DIR.glob("*.so")) - built),
+            "tasks": task_record(job)}
+
+
+def dedup_profile(torch, run) -> dict:
+    """A run under torch.profiler: the card's busy time by kernel against
+    the run's wall time; the profiler's count of each of dedup_first's
+    two kernels must equal its launch counter."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+
+    symbols = ("dedup_resolve_kernel", "dedup_admit_kernel")
+    for tries in range(1, PROFILE_TRIES + 1):
+        reset_launches()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            job, _got = run()
+        by_name: dict[str, list] = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                acc = by_name.setdefault(e.name[:90], [0.0, 0])
+                acc[0] += e.self_device_time_total / 1e3
+                acc[1] += 1
+        counted = {s: sum(n for name, (_ms, n) in by_name.items()
+                          if s in name) for s in symbols}
+        if set(counted.values()) == {KERNEL_LAUNCHES["dedup_first"]}:
+            break
+    else:
+        raise AssertionError(f"profiler counted {counted}, the counter "
+                             f"{KERNEL_LAUNCHES['dedup_first']}")
+    busy = sum(ms for ms, _n in by_name.values())
+    wall = job.wall_s * 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"wall_ms": wall, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall if wall else None,
+            "profiles_taken": tries,
+            "dedup_first_device_ms": sum(
+                ms for name, (ms, _n) in by_name.items()
+                if any(s in name for s in symbols)),
+            "dedup_first_launches": KERNEL_LAUNCHES["dedup_first"],
+            "top": [{"name": k, "ms": ms, "calls": n}
+                    for k, (ms, n) in top]}
+
+
+def dedup_checkpoint(torch, dev, c: dict, expected: np.ndarray) -> dict:
+    """A checkpoint mid-run and a restore into a fresh job that continues:
+    the source paced, paused after the first completed checkpoint; after
+    a checkpoint triggered during the pause completes, the job is
+    cancelled and a new job restores from it. The rows of the two jobs,
+    one after the other, equal the oracle's: none lost, none repeated."""
+    sources = []
+    env, got = dedup_env(
+        torch, dev, c, rate=c["events"] / DEDUP_CKPT_RUN_S,
+        source_hook=sources.append,
+        settings={"execution.checkpointing.interval": DEDUP_CKPT_INTERVAL_S})
+    job = env.execute_async("dedup-checkpointed")
+
+    def completed(after: float) -> int:
+        return len([s for s in job.coordinator.stats
+                    if s.get("started", 0.0) > after
+                    and not s.get("failed")])
+
+    def wait(n: int, after: float) -> None:
+        t0 = time.perf_counter()
+        while (completed(after) < n and not job._failed
+               and time.perf_counter() - t0 < 300):
+            time.sleep(0.002)
+        if completed(after) < n:
+            raise AssertionError(f"dedup: no checkpoint completed after "
+                                 f"{after}: {job._failed}")
+
+    wait(1, 0.0)
+    sources[0].set_rate(0)
+    paused = time.time()
+    wait(1, paused)
+    job.cancel()
+    cp = job.coordinator.latest_checkpoint()
+    before = dedup_rows(got)
+    del job, env, got
+    env2, got2 = dedup_env(torch, dev, c)
+    env2.restore_from_checkpoint(cp)
+    t0 = time.perf_counter()
+    job2 = env2.execute("dedup-restored", timeout=900.0)
+    restored_s = time.perf_counter() - t0
+    after = dedup_rows(got2)
+    if not np.array_equal(np.concatenate([before, after]), expected):
+        raise AssertionError(f"dedup checkpoint: {len(before)} rows before "
+                             f"the cancel and {len(after)} after the "
+                             f"restore are not the oracle's {len(expected)}")
+    if not len(before) or not len(after):
+        raise AssertionError("dedup checkpoint: one job emitted nothing")
+    return {"restored_from": cp.checkpoint_id, "rows_before": len(before),
+            "rows_after_restore": len(after), "rows_repeated": 0,
+            "restored_run_s": restored_s,
+            "keys_restored_capacity": dedup_operator(job2).backend.capacity}
+
+
+def dedup_cell(torch, dev, cell: str = "dedup_10m") -> dict:
+    """The dedup cell: a warm-up run of 4 batches, ``DEDUP_RUNS`` timed
+    runs, a profiled run, then the checkpoint and restore; every run's
+    rows against the oracle."""
+    c = dedup_config(cell)
+    expected = dedup_expected(c)
+    job, got = run_dedup(torch, dev, c, count=4 * c["batch"])
+    del job, got
+    runs = [dedup_run_record(torch, c, lambda: run_dedup(torch, dev, c),
+                             expected) for _ in range(DEDUP_RUNS)]
+    prof = dedup_profile(torch, lambda: run_dedup(torch, dev, c))
+    ckpt = dedup_checkpoint(torch, dev, c, expected)
+    eps = sorted(r["events_per_sec"] for r in runs)
+    last = runs[-1]
+    return {"cell": cell, **c, "runs": len(runs),
+            "events_per_sec": float(np.median(eps)),
+            "events_per_sec_min_max": [eps[0], eps[-1]],
+            "wall_s": [r["wall_s"] for r in runs],
+            "fresh_rows": last["fresh_rows"],
+            "max_memory_allocated": max(r["peak"] for r in runs),
+            "memory_at_start": [r["start"] for r in runs],
+            "capacity": last["capacity"],
+            "keys_in_state": last["keys_in_state"],
+            "rehashes": last["rehashes"],
+            "overflow_retries": last["overflow_retries"],
+            "batches": last["batches"],
+            "host_s_per_batch": last["host_s_per_batch"],
+            "kernel_builds_after_warmup": sum(
+                r["kernel_builds_after_warmup"] for r in runs),
+            "launches_per_run": last["launches"],
+            "tasks_last_run": last["tasks"], "profile": prof,
+            "checkpoint": ckpt}
+
+
+VALUE_TTL_S = 2.0               # the ValueState phase's TTL
+
+
+def value_state_phase(torch, dev) -> dict:
+    """ValueState over the row plane on the card: a few hundred keys of
+    update, value and clear, and TTL expiry, against a dict; the launch
+    counters zeroed just before, read after: row_set, row_get and
+    row_unset each launched."""
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+    from flink_tpu_torch.core import KeyGroupRange
+    from flink_tpu_torch.state.descriptors import StateTtlConfig, \
+        ValueStateDescriptor
+    from flink_tpu_torch.state.device_backend import DeviceKeyedStateBackend
+
+    rng = np.random.default_rng(14)
+    reset_launches()
+    t0 = time.perf_counter()
+    b = DeviceKeyedStateBackend(KeyGroupRange(0, MAXP - 1), MAXP,
+                                capacity=256, device=dev)
+    h = b.get_partitioned_state(ValueStateDescriptor(
+        "total", default=0.0, ttl=StateTtlConfig(VALUE_TTL_S)))
+    want = {}
+    for i, key in enumerate(rng.integers(0, 300, 600).tolist()):
+        b.set_current_key(key)
+        if i % 9 == 8:
+            h.clear()
+            want.pop(key, None)
+        else:
+            h.update(h.value() + i)
+            want[key] = want.get(key, 0.0) + i
+    got = {}
+    for key in range(300):
+        b.set_current_key(key)
+        v = h.value()
+        if v != want.get(key, 0.0):
+            raise AssertionError(f"ValueState key {key}: {v}, "
+                                 f"{want.get(key, 0.0)} expected")
+        got[key] = v
+    if time.perf_counter() - t0 > VALUE_TTL_S / 2:
+        raise AssertionError("ValueState: the writes and reads took more "
+                             "than half the TTL, so some may have expired")
+    time.sleep(VALUE_TTL_S + 0.05)      # past the TTL of every write
+    expired = 0
+    for key in want:
+        b.set_current_key(key)
+        expired += h.value() == 0.0
+    if expired != len(want):
+        raise AssertionError(f"{len(want) - expired} values outlived "
+                             "their TTL")
+    launches = dict(KERNEL_LAUNCHES)
+    if not all(launches[k] for k in ("row_set", "row_get", "row_unset")):
+        raise AssertionError(f"ValueState: launches {launches}")
+    return {"keys": len(want), "ops": 600 + 300 + len(want),
+            "expired": expired, "capacity": b.capacity,
+            "seconds": time.perf_counter() - t0, "launches": launches}
+
+
+# -- the SQL joins on the host plane (sql_join) --------------------------------
+SQL_JOIN_AUCTIONS = 1 << 18
+SQL_JOIN_PERSONS = 1 << 16
+SQL_JOIN_SELLERS = SQL_JOIN_PERSONS + (1 << 12)   # some sellers unknown
+SQL_JOIN_Q3 = ("SELECT A.id AS aid, A.seller AS seller, P.id AS pid "
+               "FROM auction AS A INNER JOIN person AS P "
+               "ON A.seller = P.id WHERE A.category = 10")
+SQL_JOIN_LEFT_AGG = ("SELECT A.seller AS seller, COUNT(*) AS c, "
+                     "SUM(A.id) AS s FROM auction AS A LEFT JOIN person AS P "
+                     "ON A.seller = P.id GROUP BY A.seller")
+SQL_JOIN_TEMPORAL = ("SELECT A.id AS aid, A.category AS category, "
+                     "P.id AS pid FROM auction AS A JOIN person "
+                     "FOR SYSTEM_TIME AS OF A.ts AS P ON A.seller = P.id")
+
+
+def sql_join_tables(t_env, auctions: int, persons: int) -> None:
+    """Nexmark's auction and person tables through the datagen DDL:
+    person.id a sequence, auction.seller random over [0, sellers) (a few
+    beyond the persons), auction.category random over [0, 15], event time
+    the row's sequence number."""
+    sellers = persons + max(persons >> 4, 1)
+    for stmt in (
+            "CREATE TABLE person (id BIGINT, ts BIGINT, WATERMARK FOR ts AS "
+            "ts - INTERVAL '0' SECOND) WITH ('connector' = 'datagen', "
+            f"'number-of-rows' = '{persons}')",
+            "CREATE TABLE auction (id BIGINT, seller BIGINT, category BIGINT,"
+            " ts BIGINT, WATERMARK FOR ts AS ts - INTERVAL '0' SECOND) WITH "
+            f"('connector' = 'datagen', 'number-of-rows' = '{auctions}', "
+            "'fields.seller.kind' = 'random', 'fields.seller.min' = '0', "
+            f"'fields.seller.max' = '{sellers - 1}', "
+            "'fields.category.kind' = 'random', "
+            "'fields.category.min' = '0', 'fields.category.max' = '15')"):
+        t_env.execute_sql(stmt)
+
+
+def sql_join_random(idx: np.ndarray, lo: int, hi: int) -> np.ndarray:
+    """The datagen connector's random field (sql/ddl.py::_datagen_fn)."""
+    u = (idx.astype(np.uint64) * np.uint64(MULT)) >> np.uint64(33)
+    return lo + (u % np.uint64(hi - lo + 1)).astype(np.int64)
+
+
+def sql_join_expected(auctions: int, persons: int) -> dict:
+    """Dict oracles of the three queries' final rows."""
+    sellers = persons + max(persons >> 4, 1)
+    aid = np.arange(auctions, dtype=np.int64)
+    seller = sql_join_random(aid, 0, sellers - 1)
+    category = sql_join_random(aid, 0, 15)
+    known = seller < persons
+    q3 = sorted(zip(aid[(category == 10) & known].tolist(),
+                    seller[(category == 10) & known].tolist()))
+    agg = {}
+    for s, a in zip(seller.tolist(), aid.tolist()):
+        c, t = agg.get(s, (0, 0))
+        agg[s] = (c + 1, t + a)
+    temporal = known & (seller <= aid)   # person s's version from ts = s
+    return {"q3": q3, "left_agg": agg,
+            "temporal": sorted(zip(aid[temporal].tolist(),
+                                   category[temporal].tolist(),
+                                   seller[temporal].tolist()))}
+
+
+def run_sql_join(torch, dev, query: str, auctions: int = SQL_JOIN_AUCTIONS,
+                 persons: int = SQL_JOIN_PERSONS, batch: int = 1 << 14):
+    from flink_tpu_torch.sql import TableEnvironment
+
+    """One query over ``sql_join_tables``; returns (wall seconds of the
+    statement, planning included, and its result). A query over catalog
+    tables runs in an environment of its own."""
+    t_env = TableEnvironment(sql_env(torch, dev, batch))
+    sql_join_tables(t_env, auctions, persons)
+    t0 = time.perf_counter()
+    res = t_env.execute_sql(query, timeout=SQL_TIMEOUT_S)
+    return time.perf_counter() - t0, res
+
+
+def sql_join_check(name: str, expected: dict, res) -> int:
+    rows = res.collect_final()
+    if name == "q3":
+        got = sorted((int(a), int(s)) for a, s, p in rows if p == s)
+        ok = got == expected["q3"] and len(rows) == len(got)
+    elif name == "left_agg":
+        got = {int(s): (int(c), int(t)) for s, c, t in rows}
+        ok = got == expected["left_agg"]
+    else:
+        got = sorted((int(a), int(c), int(p)) for a, c, p in rows)
+        ok = got == expected["temporal"]
+    if not ok:
+        raise AssertionError(f"sql_join {name}: {len(rows)} final rows "
+                             "differ from the oracle")
+    return len(rows)
+
+
+def sql_join_phase(torch, dev, auctions: int = SQL_JOIN_AUCTIONS,
+                   persons: int = SQL_JOIN_PERSONS) -> dict:
+    """The SQL joins through ``execute_sql`` on datagen tables (the host
+    plane: the reference's operators, rows joined in Python): a Nexmark
+    Q3-shaped inner join, a LEFT JOIN under a GROUP BY over its changelog
+    (the device GROUP BY, retracting the null-padded rows) and a temporal
+    join; each one timed run, its final rows against a dict oracle."""
+    expected = sql_join_expected(auctions, persons)
+    out = {"auctions": auctions, "persons": persons, "plane": "host"}
+    for name, query in (("q3", SQL_JOIN_Q3), ("left_agg", SQL_JOIN_LEFT_AGG),
+                        ("temporal", SQL_JOIN_TEMPORAL)):
+        wall, res = run_sql_join(torch, dev, query, auctions, persons)
+        rows = sql_join_check(name, expected, res)
+        out[name] = {"sql": query, "final_rows": rows,
+                     "changelog_rows": len(res.collect()), "wall_s": wall,
+                     "input_rows_per_sec": (auctions + persons) / wall}
+    return out
+
+
 def main(argv: list[str]) -> int:
     if argv and (argv[0] != "--parent-kernels" or len(argv) != 2):
         print("usage: chip_smoke.py [--parent-kernels DIR]", file=sys.stderr)
@@ -6567,13 +7670,14 @@ def main(argv: list[str]) -> int:
     sess = check_session(torch, dev, flush)
     gagg = check_group_agg(torch, dev, flush, rates)
     lists = check_device_lists(torch, dev, flush, rates)
+    rows = check_row_state(torch, dev, flush, rates)
     emit({"kernel_checks": {"hist256": hist, "select_pass": select,
                             "hash_probe": probe, "ingest_step": step,
                             "ingest_step_forms": forms,
                             "ingest_step_edges": edges,
                             "launch_shape": shape, "window_seal": window,
                             "session": sess, "group_agg": gagg,
-                            "device_lists": lists}})
+                            "device_lists": lists, "row_state": rows}})
     del flush
     phase_s = {"build_and_kernels": time.perf_counter() - t_start}
     t_phase = time.perf_counter()
@@ -6650,6 +7754,14 @@ def main(argv: list[str]) -> int:
         joins[cell] = q7_join_cell(torch, dev, cell)
         emit({cell: joins[cell]})
         phase_done(cell)
+    value = value_state_phase(torch, dev)
+    emit({"value_state": value})
+    phase_done("value_state")
+    dedup = dedup_cell(torch, dev)
+    emit({"dedup_10m": dedup})
+    phase_done("dedup_10m")
+    emit({"sql_join": sql_join_phase(torch, dev)})
+    phase_done("sql_join")
     emit({"phase_seconds": phase_s})
     emit({"smoke_seconds_before_kernels_line": time.perf_counter() - t_start})
     main_run = q5_1m["full"]["launches_per_run"]
@@ -6758,7 +7870,9 @@ def main(argv: list[str]) -> int:
                 "source": "flink_tpu_torch/csrc/device_lists.cu",
                 "replaces": f"flink_tpu/state/device_lists.py:{line}",
                 "launches": joins["q7_join_10m"]["launches_per_run"][kernel],
-                "max_abs_err": lists["max_abs_err"],
+                "max_abs_err": max(lists["shapes"][cell][k]["max_abs_err"]
+                                   for cell in lists["shapes"]
+                                   for k in (lead, *others)),
                 **{k: at[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "share_of_bound")},
                 # the sector floors, a second turn's time, and the
@@ -6775,6 +7889,29 @@ def main(argv: list[str]) -> int:
                 "edge_cases": sorted(lists["edges"]),
                 "ptxas": {k: v for k, v in ptxas["device_lists"].items()
                           if any(part in k for part in LIST_PARTS[kernel])}}
+
+    def row_entry(kernel: str, line: int) -> dict:
+        # dedup_first's launches are the dedup_10m cell's; the value
+        # plane's kernels launch on the ValueState path
+        at = rows["shapes"]["dedup_10m"][kernel]
+        path, launched = (("dedup_10m", dedup["launches_per_run"])
+                          if kernel == "dedup_first"
+                          else ("value_state", value["launches"]))
+        return {"name": kernel, "route": "cuda",
+                "source": "flink_tpu_torch/csrc/row_state.cu",
+                "replaces": f"flink_tpu/state/tpu_backend.py:{line}",
+                "launches": launched[kernel], "launches_path": path,
+                "max_abs_err": max(sh[kernel]["max_abs_err"]
+                                   for sh in rows["shapes"].values()),
+                **{k: at[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms",
+                                      "sector_floor_ms",
+                                      "at_measured_rate_ms",
+                                      "share_of_bound")},
+                "shape": at, "at_small_shape": rows["shapes"]["small"][kernel],
+                "edge_cases": sorted(rows["edges"]),
+                "ptxas": {k: v for k, v in ptxas.get("row_state", {}).items()
+                          if ROW_PTXAS[kernel] in k}}
 
     emit({"kernels": [
         {"name": "hist256", "route": "cuda",
@@ -6838,6 +7975,10 @@ def main(argv: list[str]) -> int:
                    ("probe_maxes_by_batch",)),
         list_entry("list_prune", "91", "prune_bids_watermark",
                    ("prune_maxes_watermark",)),
+        row_entry("dedup_first", 189),
+        row_entry("row_set", 111),
+        row_entry("row_get", 127),
+        row_entry("row_unset", 157),
     ]})
     print(smi, flush=True)
     if torch.cuda.device_count() != 1:

@@ -16,6 +16,9 @@
   ``list_append`` (one cooperative kernel) and ``list_prune`` (one
   kernel) a call, and ``list_probe`` a launch of its one kernel (a call
   launches again only when its matches pass the output's room).
+  The row plane counts one launch of ``dedup_first`` and ``row_set`` a
+  call (each two kernels on one stream: resolve then admit, mark then
+  write) and of ``row_get`` and ``row_unset`` (one kernel each).
   A caller resets the counters, drives a path and reads them back to show
   which kernels the path went through.
 """
@@ -39,7 +42,9 @@ KERNEL_LAUNCHES: dict[str, int] = {"hist256": 0, "hash_probe": 0,
                                    "group_agg_compact": 0,
                                    "group_agg_fold": 0, "group_agg_emit": 0,
                                    "list_append": 0, "list_probe": 0,
-                                   "list_prune": 0}
+                                   "list_prune": 0, "dedup_first": 0,
+                                   "row_set": 0, "row_get": 0,
+                                   "row_unset": 0}
 # the tasks of a job launch from threads of their own
 _LAUNCH_LOCK = threading.Lock()
 

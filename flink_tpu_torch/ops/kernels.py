@@ -93,13 +93,23 @@ SOURCES = {
         "list_prune_launch": [_P, _I32, _I32, _P, _I64, _P, _I64, _I32,
                               _I64, _I32, _P, _P, _P, _P],
     },
+    "row_state": {
+        "dedup_first_launch": [_P, _I64, _P, _P, _P, _I64, _P, _P, _I64, _P,
+                               _P, _I32, _P, _P, _P, _P],
+        "row_set_launch": [_P, _I64, _P, _P, _I32, _P, _P, _P, _I64, _P,
+                           _P],
+        "row_get_launch": [_P, _I64, _P, _I64, _P, _I32, _P, _P, _I64, _I64,
+                           _P, _P, _P],
+        "row_unset_launch": [_P, _I64, _P, _I64, _P, _P, _P],
+    },
 }
 _ERROR_STRING = {"hist256": "hist256_error_string",
                  "hash_table": "hash_probe_error_string",
                  "session_window": "session_window_error_string",
                  "window_seal": "window_seal_error_string",
                  "group_agg": "group_agg_error_string",
-                 "device_lists": "device_lists_error_string"}
+                 "device_lists": "device_lists_error_string",
+                 "row_state": "row_state_error_string"}
 
 #: source stem -> C entry that loads every kernel of the library at once
 #: (its kernels launch inside CUDA graph captures)

@@ -58,6 +58,9 @@ class OneInputOperatorTestHarness:
         self._ensure_open()
         self.operator.process_watermark(Watermark(int(ts)))
 
+    def get_output(self) -> list:
+        return self.output.rows()
+
     def snapshot(self, checkpoint_id: int = 1) -> dict:
         return self.operator.snapshot_state(checkpoint_id)
 

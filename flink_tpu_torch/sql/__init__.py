@@ -6,7 +6,12 @@ DataStream graph and runs it on the environment's device. Integer-keyed
 GROUP BY runs on the device group aggregation (``sql/device_group_agg.py``,
 kernels in ``csrc/group_agg.cu``); TUMBLE, HOP and SESSION windows with
 one integer key on the device window operators; other keys, DISTINCT and
-MIN/MAX over a changelog on the host ``GroupAggOperator``.
+MIN/MAX over a changelog on the host ``GroupAggOperator``. Joins plan to
+the host ``StreamingJoinOperator`` (inner, left, right, full) and
+``TemporalJoinOperator`` (``FOR SYSTEM_TIME AS OF``) of ``sql/join.py``;
+a GROUP BY over a join's changelog retracts. ``sql/dedup.py`` (keep-first
+on the device row plane, keep-last on the host) and ``sql/over_agg.py``
+are operators the planner does not route, as in the reference.
 """
 
 from .expressions import (

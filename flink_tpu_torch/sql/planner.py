@@ -16,6 +16,12 @@ column closures (expressions.compile_expr) and picking operators —
   (reference StreamExecGroupAggregate -> GroupAggFunction)
 * ORDER BY <agg> DESC LIMIT n over a changelog -> host TopN operator
   (reference StreamExecRank)
+* JOIN ... ON a.x = b.y       -> key both sides, connect, and a
+  StreamingJoinOperator (inner, left, right, full; changelog out, residual
+  conjuncts of an inner join as a filter after it); b FOR SYSTEM_TIME AS
+  OF l.ts -> TemporalJoinOperator (reference StreamExecJoin /
+  StreamExecTemporalJoin). A GROUP BY over a join's changelog carries its
+  rowkind column and retracts.
 
 Aggregate inputs and group keys are materialized as generated columns
 (``__agg0__``, ...) by a projection ahead of the exchange, which is what the
@@ -25,9 +31,10 @@ The port's environment always runs the device backend, so the routes the
 reference takes under ``state.backend.type = tpu`` are the routes here:
 integer-keyed GROUP BY goes to ``DeviceGroupAggOperator``, TUMBLE/HOP and
 SESSION windows with one integer key to the device window operators.
-What the port does not plan yet raises ``PlanError`` naming the ROADMAP
-item that ports it: joins and temporal joins, MATCH_RECOGNIZE, CUMULATE
-windows, and window aggregations that need the host WindowOperator.
+Joins plan as the reference plans them (host operators). What the port
+does not plan yet raises ``PlanError`` naming the ROADMAP item that ports
+it: MATCH_RECOGNIZE, CUMULATE windows, and window aggregations that need
+the host WindowOperator.
 """
 
 from __future__ import annotations
@@ -48,10 +55,11 @@ from ..window.assigners import (
 from . import rowkind as rk
 from .device_group_agg import DeviceGroupAggOperator, combine_key_columns
 from .expressions import (
-    AggCall, Column, Expr, Star, collect_aggs, collect_columns,
+    AggCall, BinaryOp, Column, Expr, Star, collect_aggs, collect_columns,
     compile_expr, rewrite_expr,
 )
 from .group_agg import GroupAggOperator, LocalGroupAggOperator, SqlAggSpec
+from .join import StreamingJoinOperator, TemporalJoinOperator
 from .parser import JoinClause, MatchRecognize, SelectItem, SelectStmt, \
     TableRef, WindowTVF
 from .topn import TopNOperator
@@ -60,7 +68,6 @@ __all__ = ["plan", "PlanError"]
 
 WINDOW_COLS = ("window_start", "window_end")
 #: ROADMAP items that port what the trimmed planner refuses
-_JOINS_ITEM = "ROADMAP Queue 1 item 7 (SQL joins on row and list state)"
 _MATCH_ITEM = "ROADMAP Queue 1 item 10 (MATCH_RECOGNIZE, with cep/)"
 _WINDOW_ITEM = ("ROADMAP Queue 1 item 10 (CUMULATE windows and the host "
                 "WindowOperator)")
@@ -115,14 +122,184 @@ class _Planner:
                      if from_.alias else {})
             return sub, sub._sql_schema, None, quals
         if isinstance(from_, JoinClause):
-            kind = ("temporal join" if from_.temporal_time is not None
-                    else "join")
-            raise PlanError(f"the port does not plan a {kind} yet; "
-                            f"{_JOINS_ITEM} ports it")
+            return self.plan_join(from_)
         if isinstance(from_, MatchRecognize):
             raise PlanError("the port does not plan MATCH_RECOGNIZE yet; "
                             f"{_MATCH_ITEM} ports it")
         raise PlanError(f"unsupported FROM clause {from_!r}")
+
+    # -- JOIN --------------------------------------------------------------
+    def plan_join(self, jc: JoinClause) -> tuple[
+            DataStream, Schema, None, dict]:
+        """Equi-join of two streams (reference StreamExecJoin ->
+        StreamingJoinOperator): key both sides by the equi columns, connect
+        through a two-input vertex; residual (non-equi) conjuncts become a
+        post-join filter (inner only). Columns colliding across sides are
+        renamed ``{alias}_{name}``; the other side's numeric fields are
+        promoted to float64 when nullable (outer joins pad with NaN/None)."""
+        lds, lschema, ltvf, lq = self.plan_from(jc.left)
+        rds, rschema, rtvf, rq = self.plan_from(jc.right)
+        if ltvf is not None or rtvf is not None:
+            raise PlanError("window TVFs cannot be direct join inputs; wrap "
+                            "the windowed aggregation in a subquery")
+        dup = set(lq) & set(rq)
+        if dup:
+            raise PlanError(
+                f"duplicate table alias(es) in join: {sorted(dup)}")
+        join_type = {"INNER": "inner", "LEFT": "left", "RIGHT": "right",
+                     "FULL": "full"}[jc.kind]
+
+        lnames = [f.name for f in lschema.fields
+                  if f.name != rk.ROWKIND_COLUMN]
+        rnames = [f.name for f in rschema.fields
+                  if f.name != rk.ROWKIND_COLUMN]
+        lprefix = next(iter(lq)) if len(lq) == 1 else "l"
+        rprefix = next(iter(rq)) if len(rq) == 1 else "r"
+        out_l = {n: n if n not in set(rnames) else f"{lprefix}_{n}"
+                 for n in lnames}
+        out_r = {n: n if n not in set(lnames) else f"{rprefix}_{n}"
+                 for n in rnames}
+        if set(out_l.values()) & set(out_r.values()):
+            raise PlanError("join column renaming collision; add aliases")
+
+        # resolve one ON-condition column to (side, renamed name)
+        def resolve_on(c: Column) -> tuple[str, str]:
+            if c.table is not None:
+                if c.table in lq and c.name in lq[c.table]:
+                    return "l", out_l[lq[c.table][c.name]]
+                if c.table in rq and c.name in rq[c.table]:
+                    return "r", out_r[rq[c.table][c.name]]
+                raise PlanError(f"cannot resolve {c.table}.{c.name} in ON")
+            in_l, in_r = c.name in out_l, c.name in out_r
+            if in_l and in_r:
+                raise PlanError(f"ambiguous column {c.name!r} in ON")
+            if in_l:
+                return "l", out_l[c.name]
+            if in_r:
+                return "r", out_r[c.name]
+            raise PlanError(f"unknown column {c.name!r} in ON")
+
+        equi: list[tuple[str, str]] = []   # (left col, right col), renamed
+        residual: list[Expr] = []
+        for conj in _conjuncts(jc.on):
+            if (isinstance(conj, BinaryOp) and conj.op == "="
+                    and isinstance(conj.left, Column)
+                    and isinstance(conj.right, Column)):
+                s1, n1 = resolve_on(conj.left)
+                s2, n2 = resolve_on(conj.right)
+                if s1 != s2:
+                    equi.append((n1, n2) if s1 == "l" else (n2, n1))
+                    continue
+            residual.append(conj)
+        if not equi:
+            raise PlanError("streaming join needs at least one equi "
+                            "condition a.x = b.y")
+        if residual and join_type != "inner":
+            raise PlanError("non-equi ON conditions are only supported for "
+                            "INNER joins")
+
+        l_nullable = join_type in ("right", "full")
+        r_nullable = join_type in ("left", "full")
+        renamed_l = self._rename_side(lds, lschema, out_l, "JoinLeftRename")
+        renamed_r = self._rename_side(rds, rschema, out_r, "JoinRightRename")
+
+        out_fields = (
+            [(out_l[n], _nullable_dtype(lschema.field(n).dtype, l_nullable))
+             for n in lnames]
+            + [(out_r[n], _nullable_dtype(rschema.field(n).dtype, r_nullable))
+               for n in rnames]
+            + [(rk.ROWKIND_COLUMN, np.int8)])
+        out_schema = Schema(out_fields)
+
+        lkey_names = [p[0] for p in equi]
+        rkey_names = [p[1] for p in equi]
+        lkey_idx = (lnames.index(_orig(out_l, lkey_names[0]))
+                    if len(equi) == 1
+                    else tuple(lnames.index(_orig(out_l, n))
+                               for n in lkey_names))
+        rkey_idx = (rnames.index(_orig(out_r, rkey_names[0]))
+                    if len(equi) == 1
+                    else tuple(rnames.index(_orig(out_r, n))
+                               for n in rkey_names))
+
+        lkeyed = (renamed_l.key_by(lkey_names[0]) if len(equi) == 1
+                  else renamed_l.key_by(
+                      lambda row, _i=lkey_idx: tuple(row[i] for i in _i)))
+        rkeyed = (renamed_r.key_by(rkey_names[0]) if len(equi) == 1
+                  else renamed_r.key_by(
+                      lambda row, _i=rkey_idx: tuple(row[i] for i in _i)))
+
+        n_l, n_r = len(lnames), len(rnames)
+        jt = join_type
+        if jc.temporal_time is not None:
+            # b FOR SYSTEM_TIME AS OF l.rowtime: versioned-table join
+            # (reference StreamExecTemporalJoin.java:77). Event time rides
+            # the record timestamps; the AS OF column must name the left
+            # side's time attribute (documenting which side is probed).
+            if join_type not in ("inner", "left"):
+                raise PlanError(
+                    "temporal join supports INNER and LEFT JOIN only")
+            tcol = jc.temporal_time
+            if not isinstance(tcol, Column):
+                raise PlanError("FOR SYSTEM_TIME AS OF expects a column")
+            # the time attribute is the stream's out-of-band record
+            # timestamp, so the AS OF column need not be a data column —
+            # but its qualifier must name the LEFT (probe) side
+            on_left = (tcol.table in lq if tcol.table is not None
+                       else tcol.name in out_l)
+            if not on_left:
+                raise PlanError(
+                    "FOR SYSTEM_TIME AS OF must reference the left "
+                    "(probe) side's time attribute")
+            joined = lkeyed.connect(rkeyed).transform(
+                "TemporalJoin",
+                lambda: TemporalJoinOperator(jt, lkey_idx, rkey_idx,
+                                             out_schema, n_l, n_r))
+        else:
+            joined = lkeyed.connect(rkeyed).transform(
+                "Join",
+                lambda: StreamingJoinOperator(jt, lkey_idx, rkey_idx,
+                                              out_schema, n_l, n_r))
+        if residual:
+            cond = residual[0]
+            for c in residual[1:]:
+                cond = BinaryOp("AND", cond, c)
+            cond = rewrite_expr(cond, lambda e: (
+                Column(resolve_on(e)[1]) if isinstance(e, Column) else e))
+            cond_fn = compile_expr(cond)
+
+            def filt(batch: RecordBatch):
+                mask = cond_fn(dict(batch.columns), batch.n).astype(bool)
+                idx = np.flatnonzero(mask)
+                return batch.take(idx)
+
+            joined = joined.transform(
+                "JoinFilter", lambda: BatchFnOperator(filt, "JoinFilter"))
+
+        quals: dict = {}
+        for q, m in lq.items():
+            quals[q] = {orig: out_l[cur] for orig, cur in m.items()
+                        if cur in out_l}
+        for q, m in rq.items():
+            quals[q] = {orig: out_r[cur] for orig, cur in m.items()
+                        if cur in out_r}
+        joined._sql_schema = out_schema
+        return joined, out_schema, None, quals
+
+    def _rename_side(self, ds: DataStream, schema: Schema,
+                     rename: dict, name: str) -> DataStream:
+        if all(k == v for k, v in rename.items()):
+            return ds
+        out_fields = [(rename.get(f.name, f.name), f.dtype)
+                      for f in schema.fields]
+        out_schema = Schema(out_fields)
+
+        def project(batch: RecordBatch):
+            cols = {rename.get(f.name, f.name): batch.column(f.name)
+                    for f in batch.schema.fields}
+            return RecordBatch(out_schema, cols, batch.timestamps)
+
+        return ds.transform(name, lambda: BatchFnOperator(project, name))
 
     # -- SELECT ------------------------------------------------------------
     def plan_select(self, stmt: SelectStmt) -> DataStream:
@@ -532,6 +709,29 @@ class _Planner:
             parallelism=1)
         out._sql_schema = schema
         return out
+
+
+def _conjuncts(e: Expr) -> list:
+    if isinstance(e, BinaryOp) and e.op == "AND":
+        return _conjuncts(e.left) + _conjuncts(e.right)
+    return [e]
+
+
+def _orig(rename: dict, renamed: str) -> str:
+    for k, v in rename.items():
+        if v == renamed:
+            return k
+    raise KeyError(renamed)
+
+
+def _nullable_dtype(dtype, nullable: bool):
+    """Outer-join null padding: integer/bool columns become float64 (NaN
+    null), floats keep NaN, objects keep None."""
+    if not nullable or dtype is object:
+        return dtype
+    if np.issubdtype(np.dtype(dtype), np.floating):
+        return dtype
+    return np.float64
 
 
 def _resolve_stmt(stmt: SelectStmt, schema: Schema,

@@ -42,6 +42,16 @@ a snapshot does not depend on where a key lives (device or host tier).
   the tiers runs inside the ingest kernel (``StepSpill``): rows of spilled
   groups and failed inserts are staged on the device and folded into the
   host tier at the next watermark (``drain_staged``).
+* Row plane (the reference's typed row states, ``tpu_backend.py:1119-
+  1258``): per-key values of any numeric dtype as three array states of
+  kind ``sum``, ``name`` (values), ``name.__set__`` (int8 presence) and,
+  under a TTL, ``name.__ts__`` (int64 clock of the last write), so they
+  snapshot, mirror and restore with the rest. ``rows_upsert``,
+  ``rows_lookup``, ``rows_clear`` and keep-first ``dedup_first_batch``
+  run the kernels of ``ops/row_state.py`` (one batch a call, a
+  ``[capacity]`` int32 scratch kept across calls); ``get_partitioned_state``
+  hands out ``ValueState`` handles over them. The row plane refuses an
+  HBM budget, as the reference's does.
 """
 
 from __future__ import annotations
@@ -59,13 +69,18 @@ from ..core.keygroups import KeyGroupRange, hash_batch, \
 from ..device import numpy_dtype, torch_dtype
 from ..ops.hash_table import EMPTY_KEY, StepSpill, ingest_step, lookup, \
     lookup_or_insert, make_table, sanitize_keys_device
+from ..ops.row_state import dedup_first, new_row_scratch, row_get, row_set, \
+    row_unset
 from ..ops.segment_ops import identity, make_accumulator, scatter_fold
+from .backend import State, ValueState
+from .descriptors import StateDescriptor
 from .spill import HostTier
 
 __all__ = ["DeviceKeyedStateBackend"]
 
 _GROW_AT = 0.6   # occupancy share that triggers a doubling rehash
 _BLOCK = 512     # slots per dirty block
+_INT64_MAX = int(np.iinfo(np.int64).max)
 
 
 def _gather(src: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
@@ -166,6 +181,13 @@ class DeviceKeyedStateBackend:
         self.last_snapshot_s: dict[str, float] = {}
         #: one record per snapshot: id, phases, DMA bytes, dirty share
         self.snapshot_log: deque = deque(maxlen=64)
+        # -- row plane ------------------------------------------------------
+        self._row_meta: dict[str, tuple[int, np.dtype]] = {}  # name -> ttl
+        self._row_states: dict[str, State] = {}
+        self._row_scratch_buf: Optional[torch.Tensor] = None
+        self._current_key = None
+        #: keep-first batches run again after a row found no slot
+        self.row_overflows = 0
 
     # -- array states ---------------------------------------------------
     def register_array_state(self, name: str, kind: str, dtype,
@@ -682,6 +704,167 @@ class DeviceKeyedStateBackend:
                 len(shape) - 2, bcpu, part)
         return total
 
+    # -- row plane ---------------------------------------------------------
+    def register_row_state(self, name: str, dtype,
+                           ttl_ms: Optional[int] = None) -> None:
+        """Value plane [capacity] of ``dtype``, presence int8 and, with a
+        TTL, the int64 clock of each key's last write: an entry expires
+        ``ttl_ms`` after it, checked when read (the reference's relaxed
+        StateTtlConfig)."""
+        if self._budget:
+            raise NotImplementedError(
+                "the typed row plane does not page to the host tier; "
+                "configure this backend without hbm_budget_slots (the "
+                "budget applies to the array/window plane)")
+        if name in self._row_meta:
+            return
+        self._row_meta[name] = (int(ttl_ms or 0), np.dtype(dtype))
+        self._ensure_row_planes(name)
+
+    def _ensure_row_planes(self, name: str) -> None:
+        """(Re-)register a row state's planes: a restore rebuilds the array
+        states from the snapshot alone, so a plane it lacked (the TTL clock
+        of a job that had none) comes back here. A fresh clock next to
+        restored presence holds int64 max: those entries never expire,
+        rather than all at once."""
+        ttl, dtype = self._row_meta[name]
+        restored_presence = f"{name}.__set__" in self._array_states
+        self.register_array_state(name, "sum", dtype)
+        self.register_array_state(f"{name}.__set__", "sum", np.int8)
+        if ttl and f"{name}.__ts__" not in self._array_states:
+            self.register_array_state(f"{name}.__ts__", "sum", np.int64)
+            if restored_presence:
+                self.get_array(f"{name}.__ts__").fill_(_INT64_MAX)
+
+    def _row_planes(self, name: str):
+        ttl, _dtype = self._row_meta[name]
+        self._ensure_row_planes(name)
+        last = self.get_array(f"{name}.__ts__") if ttl else None
+        return (self.get_array(name), self.get_array(f"{name}.__set__"),
+                last, ttl)
+
+    def _row_scratch(self) -> torch.Tensor:
+        """The row programs' [capacity] int32 scratch, ``ROW_NONE``
+        between calls; a fresh one after the capacity changes."""
+        buf = self._row_scratch_buf
+        if buf is None or buf.numel() != self.capacity:
+            buf = self._row_scratch_buf = new_row_scratch(self.capacity,
+                                                          self.device)
+        return buf
+
+    def _device_keys(self, keys) -> torch.Tensor:
+        if isinstance(keys, torch.Tensor):
+            return keys.to(self.device, torch.int64).contiguous()
+        return torch.from_numpy(np.ascontiguousarray(
+            np.asarray(keys, np.int64))).to(self.device)
+
+    def _device_rows(self, values, dtype) -> torch.Tensor:
+        if isinstance(values, torch.Tensor):
+            return values.to(self.device, dtype).contiguous()
+        return torch.from_numpy(np.ascontiguousarray(
+            np.asarray(values).astype(numpy_dtype(dtype)))).to(self.device)
+
+    def rows_upsert(self, name: str, keys, values, now_ms) -> None:
+        """Set values for a batch of keys (numpy or tensors): the last
+        occurrence of a key wins. One slot resolution (``slots_for_batch``,
+        which grows the table and marks the dirty blocks) and one
+        ``row_set``. ``now_ms``: a scalar or an array a row (the clock)."""
+        slots = self.slots_for_batch(self._device_keys(keys))
+        vals, present, last, _ttl = self._row_planes(name)
+        now = (int(now_ms) if np.ndim(now_ms) == 0
+               else self._device_rows(now_ms, torch.int64))
+        row_set(vals, present, last, slots, self._device_rows(values,
+                                                             vals.dtype),
+                now, self._row_scratch())
+
+    def rows_lookup(self, name: str, keys, now_ms: int
+                    ) -> tuple[np.ndarray, np.ndarray]:
+        """(values, present) on the host for a batch of keys: absent,
+        cleared or expired keys report present False. One ``row_get`` and
+        one copy home of each."""
+        vals, present, last, ttl = self._row_planes(name)
+        v, p = row_get(self.table, vals, present, last,
+                       self._device_keys(keys), int(now_ms), ttl)
+        return v.cpu().numpy(), p.cpu().numpy()
+
+    def rows_clear(self, name: str, keys) -> None:
+        _vals, present, _last, _ttl = self._row_planes(name)
+        self.mark_dirty(row_unset(self.table, present,
+                                  self._device_keys(keys)))
+
+    def dedup_first_device(self, name: str, keys: torch.Tensor,
+                           ts: torch.Tensor,
+                           valid: Optional[torch.Tensor] = None
+                           ) -> tuple[torch.Tensor, int]:
+        """Keep-first admission of a batch of device keys: (fresh bool [n]
+        on the device, the number of fresh rows). One ``dedup_first`` and
+        one host read of its status a try; a batch a row of which found no
+        slot grows the table and runs again (presence and the clock are
+        left as they were), and the table doubles past 0.6 occupancy, as
+        the reference's synchronous mode."""
+        if name not in self._row_meta:
+            raise RuntimeError(f"row state {name!r} not registered")
+        keys = keys.to(self.device, torch.int64).contiguous()
+        ts = ts.to(self.device, torch.int64).contiguous()
+        if valid is not None:
+            valid = valid.to(self.device, torch.bool).contiguous()
+        while True:
+            _vals, present, last, ttl = self._row_planes(name)
+            fresh, _slots, status = dedup_first(
+                self.table, present, last, keys, valid, ts, ttl,
+                self._row_scratch(), self._dirty_buf, self.dirty_shift)
+            failed, claims, n_fresh = status.tolist()
+            if failed:
+                self.row_overflows += 1
+                self._rehash(self.capacity * 2)
+                continue
+            self._num_keys += claims
+            if self._num_keys > _GROW_AT * self.capacity:
+                self._rehash(self.capacity * 2)
+            return fresh, n_fresh
+
+    def dedup_first_batch(self, name: str, keys, ts,
+                          valid: Optional[np.ndarray] = None) -> np.ndarray:
+        """``dedup_first_device`` on host arrays: the fresh mask as numpy
+        (the reference's signature)."""
+        fresh, _n = self.dedup_first_device(
+            name, self._device_keys(keys), self._device_rows(ts, torch.int64),
+            None if valid is None else self._device_rows(valid, torch.bool))
+        return fresh.cpu().numpy()
+
+    # -- keyed state handles (the row plane's per-key API) ---------------------
+    def set_current_key(self, key) -> None:
+        self._current_key = key
+
+    @property
+    def current_key(self):
+        return self._current_key
+
+    def get_partitioned_state(self, descriptor: StateDescriptor) -> State:
+        """A ``ValueState`` over the row plane; each call of the handle is
+        one program and a host round trip. float64 unless the default is a
+        numpy integer (a Python int default must not truncate later float
+        updates)."""
+        if descriptor.kind != "value":
+            raise NotImplementedError(
+                "the device backend's row plane holds ValueState only; use "
+                "array states or the device list plane "
+                "(state/device_lists.py)")
+        handle = self._row_states.get(descriptor.name)
+        if handle is None:
+            default = descriptor.default
+            if isinstance(default, (np.integer, np.ndarray)) and \
+                    np.asarray(default).dtype.kind in "iu":
+                dtype = np.asarray(default).dtype
+            else:
+                dtype = np.float64
+            ttl_ms = (int(descriptor.ttl.ttl * 1000)
+                      if descriptor.ttl is not None else None)
+            self.register_row_state(descriptor.name, dtype, ttl_ms)
+            handle = _DeviceValueState(self, descriptor)
+            self._row_states[descriptor.name] = handle
+        return handle
+
     # -- checkpointing -----------------------------------------------------
     def snapshot(self, checkpoint_id: int) -> dict:
         """Host numpy snapshot in the reference's schema, canonical (group,
@@ -823,3 +1006,31 @@ class DeviceKeyedStateBackend:
         self._invalidate_mirror()
         if self._budget and self.capacity > self._budget:
             self._evict_cold_groups(rebuild_capacity=self._budget)
+
+
+class _DeviceValueState(ValueState):
+    """A ``ValueState`` over the row plane for the backend's current key
+    (the reference's ``_TpuValueState``): each call is one program and a
+    host round trip; the clock is the wall clock in ms."""
+
+    def __init__(self, backend: DeviceKeyedStateBackend,
+                 desc: StateDescriptor):
+        self._b, self._d = backend, desc
+
+    def _key(self) -> np.ndarray:
+        return np.asarray([self._b.current_key], np.int64)
+
+    def value(self):
+        vals, present = self._b.rows_lookup(
+            self._d.name, self._key(), now_ms=int(time.time() * 1000))
+        if not present[0]:
+            return self._d.default
+        v = vals[0]
+        return v.item() if isinstance(v, np.generic) else v
+
+    def update(self, value) -> None:
+        self._b.rows_upsert(self._d.name, self._key(), np.asarray([value]),
+                            now_ms=int(time.time() * 1000))
+
+    def clear(self) -> None:
+        self._b.rows_clear(self._d.name, self._key())

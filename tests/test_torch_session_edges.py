@@ -48,13 +48,16 @@ def ref():
 
 
 def _ref_state(jnp, st):
-    """The reference's state from the port's (numpy through both)."""
+    """The reference's state from the port's (numpy through both), copied:
+    ``jnp.asarray`` of a tensor's numpy view shares its memory on the CPU,
+    and the reference's programs run asynchronously while the plain
+    versions write the port's state in place."""
     planes = {"__start__": st["start"], "__end__": st["end"],
               "__open__": st["open"], "__count__": st["count"]}
     planes.update({f"a{q}": p for q, (_k, p) in enumerate(st["folds"])})
-    return {"table": jnp.asarray(st["table"].numpy()),
-            "planes": {k: jnp.asarray(v.numpy()) for k, v in planes.items()},
-            "cur_lane": jnp.asarray(st["cur_lane"].numpy()),
+    return {"table": jnp.array(st["table"].numpy()),
+            "planes": {k: jnp.array(v.numpy()) for k, v in planes.items()},
+            "cur_lane": jnp.array(st["cur_lane"].numpy()),
             "dropped": jnp.zeros((), jnp.int64),
             "late": jnp.zeros((), jnp.int64)}
 

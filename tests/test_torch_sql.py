@@ -534,10 +534,6 @@ def test_ddl_on_the_datagen_connector():
 
 
 UNPORTED = [
-    ("SELECT a.k, b.v FROM orders a JOIN orders b ON a.k = b.k",
-     "Queue 1 item 7"),
-    ("SELECT a.k FROM orders a JOIN orders FOR SYSTEM_TIME AS OF a.v AS b "
-     "ON a.k = b.k", "Queue 1 item 7"),
     ("SELECT * FROM orders MATCH_RECOGNIZE (PARTITION BY k ORDER BY v "
      "MEASURES A.v AS av PATTERN (A B) DEFINE A AS A.v > 1, B AS B.v > 2)",
      "Queue 1 item 10"),

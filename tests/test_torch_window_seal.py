@@ -88,10 +88,14 @@ def _state(kind, pane, rng):
 
 
 def _ref_arrays(jnp, kind, pane, state):
+    """The reference's inputs; ``state`` copied (``jnp.asarray`` of a
+    tensor's numpy view shares its memory on the CPU, and the plain
+    version writes it in place while the reference's program may still
+    run)."""
     inv = kind in seg.INVERTIBLE_KINDS
     return ({"p": jnp.asarray(pane)},
-            {"p": jnp.asarray(state.numpy())} if inv else {},
-            {} if inv else {"p": jnp.asarray(state.numpy())},
+            {"p": jnp.array(state.numpy())} if inv else {},
+            {} if inv else {"p": jnp.array(state.numpy())},
             ((kind, "p"),) if inv else (),
             () if inv else ((kind, "p"),))
 
