@@ -252,15 +252,21 @@ Run from the repository root:  python3 chip_smoke.py
     dedup cell's 17th batch of 2^19 rows into 2^24 slots holding its
     first 16 batches' keys, and 2^12 rows into 2^16 slots; fresh masks,
     status words and the state by key (presence, clock, value) equal,
-    the scratch back to ROW_NONE; each timed (the L2 flushed, the state
-    put back before each launch) beside its plain version, with its byte
-    bound, its 32-byte sector floor and that floor at the card's measured
-    random rates. Then the adversarial sequences (``ROW_EDGE_CASES``: a
-    random mix, one key repeated, every row invalid, the EMPTY sentinel
-    key, ts - last == ttl, an int64-max clock, an overflow on a 16-slot
-    table that must leave presence and clock as they were and a retry
-    that admits the plain version's rows, last-write-wins, every value
-    dtype) and a backend on the card against one on the CPU
+    the batch map back to its resting state; each timed (the L2 flushed,
+    the state put back before each launch) beside its plain version, with
+    its byte bound, its 32-byte sector floor and that floor at the card's
+    measured random rates (dedup_first and row_set also without the
+    sectors of the earlier design's [capacity] scratch, which they no
+    longer touch), and a row_set of one key (the ValueState path's shape)
+    beside its plain version.
+    Then the adversarial sequences (``ROW_EDGE_CASES``: a random mix, one
+    key repeated, every row invalid, the EMPTY sentinel key, ts - last ==
+    ttl, an int64-max clock, an overflow on a 16-slot table that must
+    leave presence and clock as they were and a retry that admits the
+    plain version's rows, last-write-wins, every value dtype, one key
+    spread over a batch behind a warp of long probes, slots that collide
+    in the batch map, a batch at the map's full load, a row_set of one
+    key) and a backend on the card against one on the CPU
     (``check_row_backend``: keep-first batches that grow a 64-slot table,
     a TTL value plane; snapshots equal).
 23. ``value_state``: a ValueState over the row plane on the card, 600
@@ -6565,11 +6571,13 @@ def check_list_sequence(torch, dev, c: dict | None = None,
 # -- the row plane: row_state.cu's four kernels ------------------------------
 ROW_EDGE_CASES = ("random", "one_key", "all_invalid", "empty_key",
                   "ttl_equal", "max_clock", "overflow", "last_wins",
-                  "dtypes")
+                  "dtypes", "spread", "map_collide", "map_full",
+                  "set_one_key")
 ROW_DTYPES = ("int8", "int32", "int64", "float32", "float64")
 #: kernel -> the part of its CUDA kernels' names (ptxas, the profiler)
-ROW_PTXAS = {"dedup_first": "dedup_", "row_set": "row_set_",
-             "row_get": "row_get_", "row_unset": "row_unset_"}
+ROW_PTXAS = {"dedup_first": "dedup_first_kernel",
+             "row_set": "row_set_kernel", "row_get": "row_get_kernel",
+             "row_unset": "row_unset_kernel"}
 
 
 def _row_values(rng, n: int, dtype: str) -> np.ndarray:
@@ -6653,6 +6661,17 @@ def row_edge_configs(case: str) -> list:
         c["ops"] = [("dedup", old, None, np.zeros(8, i64)),
                     ("dedup", new, valid, ts), ("grow",),
                     ("dedup", new, valid, ts), ("get", new, 300)]
+        # the same on the many-block path: 600 rows, 400 new keys into 256
+        big = {"cap": 256, "ttl": 100, "dtype": "float64"}
+        old = np.arange(100, dtype=i64)
+        new = rng.permutation(np.concatenate(
+            [np.arange(1000, 1400), old, old[:100]])).astype(i64)
+        valid = rng.random(len(new)) > 0.1
+        ts = np.sort(rng.integers(200, 300, len(new))).astype(i64)
+        big["ops"] = [("dedup", old, None, np.zeros(100, i64)),
+                      ("dedup", new, valid, ts), ("grow",), ("grow",),
+                      ("dedup", new, valid, ts), ("get", new, 300)]
+        return [c, big]
     elif case == "last_wins":
         c.update(cap=64, ttl=1000)
         keys = rng.integers(0, 6, 200).astype(i64)
@@ -6663,6 +6682,62 @@ def row_edge_configs(case: str) -> list:
                      _row_values(rng, 200, "float64"), 1500),
                     ("get", np.arange(8, dtype=i64), 2400),
                     ("get", np.arange(8, dtype=i64), 2600)]
+    elif case == "spread":
+        # one key's rows spread over a batch of 4096; its lowest row sits
+        # in a warp whose other 31 rows share one home slot, so they probe
+        # past each other and the key's later rows reach the map first
+        c.update(cap=8192, ttl=1000)
+        n, key = 4096, 77
+        keys = rng.choice(np.arange(10 ** 6, 2 * 10 ** 6), n,
+                          replace=False).astype(i64)
+        keys[:32] = np.insert(_keys_homed(8192, [100] * 31), 7, key)
+        keys[[40, 500, 1029, 2050, 3000, 4095]] = key
+        ts = np.sort(rng.integers(0, 400, n)).astype(i64)
+        c["ops"] = [("dedup", keys, None, ts),
+                    ("get", np.array([key], i64), 500),
+                    ("dedup", keys, None, ts + 500),
+                    ("dedup", keys, None, ts + 2000)]
+    elif case == "map_collide":
+        # 16 rows, a map of 32 entries: the slots of 8 keys are 5 and of 4
+        # keys 6 modulo 32, so they share two entries' probe chains
+        c.update(cap=1024, ttl=100)
+        homes = [5 + 32 * j for j in range(8)] + [6 + 32 * j
+                                                  for j in range(8, 12)]
+        hot = _keys_homed(1024, homes)
+        keys = rng.permutation(np.concatenate([hot, hot[:4]])).astype(i64)
+        c["ops"] = [("dedup", keys, None, np.arange(16, dtype=i64)),
+                    ("set", keys[::-1].copy(),
+                     _row_values(rng, 16, "float64"), 20),
+                    ("get", hot, 50),
+                    ("dedup", keys, None, np.arange(16, dtype=i64) * 10 + 60),
+                    ("get", hot, 200)]
+    elif case == "map_full":
+        # distinct keys filling the map to its full load (two entries a
+        # row), their slots colliding in it: 256 rows on the one-block
+        # path, 2^16 on the many-block path
+        out = []
+        for n, cap in ((256, 4096), (1 << 16, 1 << 18)):
+            keys = rng.choice(10 ** 7, n, replace=False).astype(i64)
+            ts = np.sort(rng.integers(0, 100, n)).astype(i64)
+            late = ts + np.where(np.arange(n) % 2 == 1, 50, 5000)
+            out.append({"cap": cap, "ttl": 1000, "dtype": "float64", "ops": [
+                ("dedup", keys, None, ts),
+                ("set", keys, _row_values(rng, n, "float64"), ts),
+                ("get", keys, 200), ("dedup", keys, None, late),
+                ("get", keys, 6000)]})
+        return out
+    elif case == "set_one_key":
+        c.update(cap=64, ttl=100)
+        one = np.array([9], i64)
+        c["ops"] = [("set", one, _row_values(rng, 1, "float64"), 10),
+                    ("get", np.array([9, 3], i64), 50),
+                    ("set", one, _row_values(rng, 1, "float64"),
+                     np.array([70], i64)),
+                    ("get", one, 150), ("get", one, 171),
+                    ("set", np.full(3, 9, i64),
+                     _row_values(rng, 3, "float64"), 200),
+                    ("get", one, 250), ("dedup", one, None,
+                                        np.array([400], i64))]
     elif case == "dtypes":
         out = []
         for dt in ROW_DTYPES:
@@ -6680,21 +6755,51 @@ def row_edge_configs(case: str) -> list:
     return [c]
 
 
+def _keys_homed(cap: int, homes) -> np.ndarray:
+    """A distinct key for each of ``homes``: the first non-negative keys
+    whose hash (the table's probe hash) lands on that slot of a table of
+    ``cap`` slots."""
+    import torch
+
+    from flink_tpu_torch.ops.hash_table import hash_keys_device
+
+    cand = np.arange(1 << 22, dtype=np.int64)
+    home = hash_keys_device(torch.from_numpy(cand)).numpy() & (cap - 1)
+    out, used = [], set()
+    for h in homes:
+        k = next(int(k) for k in cand[home == h] if int(k) not in used)
+        used.add(k)
+        out.append(k)
+    return np.array(out, np.int64)
+
+
 def row_state_new(torch, dev, c: dict) -> dict:
+    """A config's empty state, with a batch map for its largest batch on
+    a card (the plain versions need none)."""
     from flink_tpu_torch.device import torch_dtype
     from flink_tpu_torch.ops.hash_table import make_table
-    from flink_tpu_torch.ops.row_state import new_row_scratch
+    from flink_tpu_torch.ops.row_state import new_batch_map
 
     cap = c["cap"]
+    most = max([len(op[1]) for op in c["ops"] if op[0] in ("dedup", "set")],
+               default=1)
     return {"table": make_table(cap, dev),
             "vals": torch.zeros(cap, dtype=torch_dtype(c["dtype"]),
                                 device=dev),
             "presence": torch.zeros(cap, dtype=torch.int8, device=dev),
             "last_ts": (torch.zeros(cap, dtype=torch.int64, device=dev)
                         if c["ttl"] else None),
-            "scratch": new_row_scratch(cap, dev),
+            "map": new_batch_map(most, dev) if dev.type == "cuda" else None,
             "dirty": torch.zeros((cap >> EDGE_SHIFT) + 1, dtype=torch.uint8,
                                  device=dev)}
+
+
+def row_map_resting(batch_map) -> bool:
+    """A batch map as every call must leave it (``new_batch_map``)."""
+    from flink_tpu_torch.ops.row_state import MAP_HEAD
+
+    return bool((batch_map[:MAP_HEAD] == 0).all()
+                and (batch_map[MAP_HEAD:] == -1).all())
 
 
 def row_grow(torch, st: dict) -> None:
@@ -6702,7 +6807,6 @@ def row_grow(torch, st: dict) -> None:
     backend's rehash)."""
     from flink_tpu_torch.ops.hash_table import EMPTY_KEY, lookup_or_insert, \
         make_table
-    from flink_tpu_torch.ops.row_state import new_row_scratch
 
     table = st["table"]
     cap, dev = 2 * table.numel(), table.device
@@ -6717,7 +6821,6 @@ def row_grow(torch, st: dict) -> None:
             plane[slots] = st[name][old]
             st[name] = plane
     st["table"] = new_table
-    st["scratch"] = new_row_scratch(cap, dev)
     st["dirty"] = torch.zeros((cap >> EDGE_SHIFT) + 1, dtype=torch.uint8,
                               device=dev)
 
@@ -6725,7 +6828,9 @@ def row_grow(torch, st: dict) -> None:
 def apply_row_op(torch, st: dict, op: tuple, ttl: int) -> dict:
     """One operation of ``row_edge_configs`` through the wrappers (the
     kernels on a card, the plain versions on the CPU); its outputs as
-    numpy. A dedup's written slots must have their dirty blocks marked."""
+    numpy. A dedup must mark the dirty block of every slot whose key,
+    presence or clock it changed, and a kernel must leave its batch map
+    as it found it."""
     from flink_tpu_torch.ops.hash_table import lookup_or_insert, \
         sanitize_keys_device
     from flink_tpu_torch.ops.row_state import dedup_first, row_get, \
@@ -6737,18 +6842,29 @@ def apply_row_op(torch, st: dict, op: tuple, ttl: int) -> dict:
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
 
     kind = op[0]
+    def map_back():
+        if st["map"] is not None:
+            assert row_map_resting(st["map"]), \
+                f"{kind}: the batch map is not back at rest"
+
     if kind == "dedup":
         _, keys, valid, ts = op
         st["dirty"].zero_()
-        fresh, slots, status = dedup_first(
+        before = {k: st[k].clone() for k in ("table", "presence", "last_ts")
+                  if st[k] is not None}
+        fresh, _slots, status = dedup_first(
             st["table"], st["presence"], st["last_ts"], t(keys),
             None if valid is None else t(valid, torch.bool), t(ts), ttl,
-            st["scratch"], st["dirty"], EDGE_SHIFT)
+            st["dirty"], EDGE_SHIFT, st["map"])
         s = status.cpu().numpy()
+        map_back()
         if not s[0]:
-            ok = slots[slots >= 0].to(torch.int64)
-            assert bool((st["dirty"][ok >> EDGE_SHIFT] == 1).all()), \
-                "a written slot's dirty block is unmarked"
+            changed = torch.zeros_like(st["table"], dtype=torch.bool)
+            for k, v in before.items():
+                changed |= st[k] != v
+            blocks = torch.nonzero(changed).flatten() >> EDGE_SHIFT
+            assert bool((st["dirty"][blocks] == 1).all()), \
+                "a changed slot's dirty block is unmarked"
         return {"fresh": fresh.cpu().numpy(), "failed": bool(s[0]),
                 "claims": int(s[1]), "n_fresh": int(s[2])}
     if kind == "set":
@@ -6758,7 +6874,8 @@ def apply_row_op(torch, st: dict, op: tuple, ttl: int) -> dict:
         assert bool(ok.all())
         row_set(st["vals"], st["presence"], st["last_ts"], slots,
                 t(vals, st["vals"].dtype),
-                now if np.ndim(now) == 0 else t(now), st["scratch"])
+                now if np.ndim(now) == 0 else t(now), st["map"])
+        map_back()
         return {}
     if kind == "get":
         v, p = row_get(st["table"], st["vals"], st["presence"], st["last_ts"],
@@ -6935,14 +7052,14 @@ def row_shape_state(torch, dev, rows: int, cap: int, n_keys: int) -> dict:
     fewer keys), built through the kernels, and the 17th batch: keys, ts,
     valid (all), plus a float64 value plane for the set and get."""
     from flink_tpu_torch.ops.hash_table import make_table
-    from flink_tpu_torch.ops.row_state import dedup_first, new_row_scratch
+    from flink_tpu_torch.ops.row_state import dedup_first, new_batch_map
 
     span, count, ttl = 30_000, 32 * rows, 10_000
     st = {"table": make_table(cap, dev),
           "presence": torch.zeros(cap, dtype=torch.int8, device=dev),
           "last_ts": torch.zeros(cap, dtype=torch.int64, device=dev),
           "vals": torch.zeros(cap, dtype=torch.float64, device=dev),
-          "scratch": new_row_scratch(cap, dev),
+          "map": new_batch_map(rows, dev),
           "dirty": torch.zeros((cap >> DIRTY_SHIFT) + 1, dtype=torch.uint8,
                                device=dev), "ttl": ttl}
 
@@ -6955,7 +7072,7 @@ def row_shape_state(torch, dev, rows: int, cap: int, n_keys: int) -> dict:
         keys, ts = batch(b)
         _f, _s, status = dedup_first(st["table"], st["presence"],
                                      st["last_ts"], keys, None, ts, ttl,
-                                     st["scratch"], st["dirty"], DIRTY_SHIFT)
+                                     st["dirty"], DIRTY_SHIFT, st["map"])
         if int(status[0]):
             raise AssertionError("row shape state: the table overflowed")
     st["keys"], st["ts"] = batch(16)
@@ -6967,7 +7084,7 @@ def row_clone(st: dict) -> dict:
 
 
 def row_put_back(dst: dict, src: dict) -> None:
-    for k in ("table", "presence", "last_ts", "vals", "scratch"):
+    for k in ("table", "presence", "last_ts", "vals"):
         dst[k].copy_(src[k])
 
 
@@ -6977,13 +7094,34 @@ def row_state_of(torch, st: dict) -> dict:
                              for n in ("presence", "last_ts", "vals")})
 
 
+def row_floors(touched: dict, scratch: int, streamed: int, nbytes: int,
+               rates: dict | None, ms: float) -> dict:
+    """``list_cost`` of the sectors ``touched`` plus ``scratch`` atomic
+    sectors (the earlier design's [capacity] scratch, the floor as first
+    printed), the same floors without them (``_no_scratch``), and the
+    kernel's ``ms`` as a share of each floor at the measured rates."""
+    out = list_cost({**touched, "atomic": scratch}, streamed, nbytes, rates)
+    bare = list_cost(touched, streamed, nbytes, rates)
+    out["sector_floor_no_scratch_ms"] = bare["sector_floor_ms"]
+    if rates is not None:
+        out["at_measured_rate_no_scratch_ms"] = bare["at_measured_rate_ms"]
+        out["share_of_rate_floor"] = out["at_measured_rate_ms"] / ms
+        out["share_of_rate_floor_no_scratch"] = \
+            bare["at_measured_rate_ms"] / ms
+    return out
+
+
 def row_shape_cases(torch, dev, flush, rates, label: str, rows: int,
                     cap: int, n_keys: int) -> dict:
     """The four kernels against their plain versions at one shape (the
     plain versions run on the card too, on a copy of the same state),
     each timed with the L2 flushed and the state put back before every
     launch, with its byte bound, its 32-byte sector floor and that floor
-    at the card's measured random rates."""
+    at the card's measured random rates. dedup_first's and row_set's
+    floors count the atomic sectors of the earlier design's [capacity]
+    int32 scratch, as they were first printed; the ``_no_scratch`` floors
+    leave them out (the kernels now fold into a batch map in L2), and
+    ``share_of_*`` gives the kernel's time against each."""
     from flink_tpu_torch.ops.hash_table import lookup, \
         lookup_or_insert_plain, sanitize_keys_device
     from flink_tpu_torch.ops.row_state import dedup_first, \
@@ -7000,16 +7138,26 @@ def row_shape_cases(torch, dev, flush, rates, label: str, rows: int,
         return distinct_sectors(torch, idx.to(torch.int64) * esize)
 
     # -- dedup_first --------------------------------------------------------
-    def run_dedup(fn, s):
-        return fn(s["table"], s["presence"], s["last_ts"], keys, None, ts,
-                  ttl, s["scratch"], s["dirty"], DIRTY_SHIFT)
+    def run_dedup(s):
+        return dedup_first(s["table"], s["presence"], s["last_ts"], keys,
+                           None, ts, ttl, s["dirty"], DIRTY_SHIFT, s["map"])
+
+    def run_dedup_plain(s):
+        return dedup_first_plain(s["table"], s["presence"], s["last_ts"],
+                                 keys, None, ts, ttl, s["dirty"],
+                                 DIRTY_SHIFT)
+
+    def map_at_rest(what):
+        if not row_map_resting(st["map"]):
+            raise AssertionError(f"{what} at {label}: the batch map is not "
+                                 "back at rest")
 
     plain_st = row_clone(base)
-    fk, sk, stk = run_dedup(dedup_first, st)
-    fp, sp, stp = run_dedup(dedup_first_plain, plain_st)
+    fk, sk, stk = run_dedup(st)
+    fp, sp, stp = run_dedup_plain(plain_st)
     torch.cuda.synchronize()
-    err = max(max_abs_diff(torch, [(fk, fp), (stk, stp),
-                                   (st["scratch"], base["scratch"])]),
+    map_at_rest("dedup_first")
+    err = max(max_abs_diff(torch, [(fk, fp), (stk, stp)]),
               by_key_diff(torch, row_state_of(torch, st),
                           row_state_of(torch, plain_st)))
     if err:
@@ -7019,28 +7167,44 @@ def row_shape_cases(torch, dev, flush, rates, label: str, rows: int,
     ok = sk[sk >= 0].to(torch.int64)
     distinct = torch.unique(ok)
     fresh_slots = sk[fk].to(torch.int64)
-    new_slots = distinct[base["table"][distinct] != INT64_MAX]
-    ms = cuda_ms(lambda: run_dedup(dedup_first, st), torch, flush,
+    was_held = base["table"][distinct] != INT64_MAX
+    new_slots = distinct[~was_held]
+    p0 = base["presence"][distinct]
+    # the kernel reads a slot's clock only where presence is set, and
+    # writes presence (and marks the block) only where the slot is fresh
+    # or its presence is not already 1
+    clock_read = distinct[p0 > 0]
+    written = torch.unique(torch.cat([fresh_slots, distinct[p0 != 1]]))
+    ms = cuda_ms(lambda: run_dedup(st), torch, flush,
                  setup=lambda: row_put_back(st, base))
-    plain_ms = cuda_ms(lambda: run_dedup(dedup_first_plain, plain_st), torch,
-                       flush, reps=3, setup=lambda: row_put_back(plain_st,
-                                                                 base))
+    plain_ms = cuda_ms(lambda: run_dedup_plain(plain_st), torch, flush,
+                       reps=3, setup=lambda: row_put_back(plain_st, base))
     # least bytes: a row's key and ts read, its slot and fresh flag
-    # written; a distinct key's table entry read (a new key's claimed),
-    # presence and clock read, presence written, a fresh key's clock
-    # written, a dirty byte a touched block
+    # written; a distinct key's table entry and presence read (a new
+    # key's entry claimed), the clock read where presence is set, presence
+    # written where it changes, a fresh key's clock written, a dirty byte a
+    # written block
     d = int(distinct.numel())
-    nbytes = (n * (8 + 8 + 4 + 1) + d * (8 + 1 + 8 + 1)
-              + int(new_slots.numel()) * 8 + n_fresh * 8
-              + int(torch.unique(distinct >> DIRTY_SHIFT).numel()))
-    cost = list_cost({"claim": sectors(distinct, 8),
-                      "read": sectors(distinct, 8),
-                      "store": sectors(distinct, 1) + sectors(fresh_slots, 8),
-                      "atomic": sectors(distinct, 4)},
-                     n * (8 + 8 + 4 + 1), nbytes, rates)
+    nbytes = (n * (8 + 8 + 4 + 1) + d * (8 + 1)
+              + int(new_slots.numel()) * 8 + int(clock_read.numel()) * 8
+              + int(written.numel()) + n_fresh * 8
+              + int(torch.unique(written >> DIRTY_SHIFT).numel()))
+    # table sectors: a new key's at the claim's rate, the rest read; the
+    # presence sectors that no write covers read
+    claim = sectors(new_slots, 8)
+    stored = sectors(written, 1)
+    cost = row_floors({"claim": claim,
+                       "read": sectors(distinct, 8) - claim
+                       + sectors(clock_read, 8)
+                       + sectors(distinct, 1) - stored,
+                       "store": stored + sectors(fresh_slots, 8)},
+                      sectors(distinct, 4), n * (8 + 8 + 4 + 1), nbytes,
+                      rates, ms)
     out["dedup_first"] = {"rows": n, "capacity": cap, "keys_in_state": int(
         (base["table"] != INT64_MAX).sum()), "distinct_keys": d,
-        "claims": claims, "fresh": n_fresh, "max_abs_err": err, "ms": ms,
+        "claims": claims, "fresh": n_fresh,
+        "clock_reads": int(clock_read.numel()),
+        "slots_written": int(written.numel()), "max_abs_err": err, "ms": ms,
         "plain_ms": plain_ms, "library_ms": None, "bound_by": "bytes", **cost,
         "share_of_bound": cost["bound_ms"] / ms}
     # -- row_set: the batch's keys into the value plane, last row wins --------
@@ -7053,35 +7217,66 @@ def row_shape_cases(torch, dev, flush, rates, label: str, rows: int,
     vals = (keys % 1000).to(torch.float64) * 0.5
     now = ts + 1
 
-    def run_set(fn, s):
-        fn(s["vals"], s["presence"], s["last_ts"], slots, vals, now,
-           s["scratch"])
+    def run_set(s):
+        row_set(s["vals"], s["presence"], s["last_ts"], slots, vals, now,
+                s["map"])
+
+    def run_set_plain(s):
+        row_set_plain(s["vals"], s["presence"], s["last_ts"], slots, vals,
+                      now)
 
     plain_st = row_clone(base2)
-    run_set(row_set, st)
-    run_set(row_set_plain, plain_st)
+    run_set(st)
+    run_set_plain(plain_st)
     torch.cuda.synchronize()
+    map_at_rest("row_set")
     err = max_abs_diff(torch, [(st[k], plain_st[k]) for k in
-                               ("vals", "presence", "last_ts", "scratch")])
+                               ("vals", "presence", "last_ts")])
     if err:
         raise AssertionError(f"row_set at {label}: the kernel and the plain "
                              f"version differ by {err}")
-    ms = cuda_ms(lambda: run_set(row_set, st), torch, flush,
+    ms = cuda_ms(lambda: run_set(st), torch, flush,
                  setup=lambda: row_put_back(st, base2))
-    plain_ms = cuda_ms(lambda: run_set(row_set_plain, plain_st), torch,
-                       flush, reps=3,
+    plain_ms = cuda_ms(lambda: run_set_plain(plain_st), torch, flush, reps=3,
                        setup=lambda: row_put_back(plain_st, base2))
     ws = torch.unique(slots.to(torch.int64))
     w = int(ws.numel())
     nbytes = n * (4 + 8 + 8) + w * (8 + 1 + 8)
-    cost = list_cost({"store": sectors(ws, 8) * 2 + sectors(ws, 1),
-                      "atomic": sectors(ws, 4)},
-                     n * (4 + 8 + 8), nbytes, rates)
+    cost = row_floors({"store": sectors(ws, 8) * 2 + sectors(ws, 1)},
+                      sectors(ws, 4), n * (4 + 8 + 8), nbytes, rates, ms)
     out["row_set"] = {"rows": n, "capacity": cap, "slots_written": w,
                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                       "library_ms": None,
                       "bound_by": "bytes", **cost,
                       "share_of_bound": cost["bound_ms"] / ms}
+    # -- row_set of one key: the ValueState path's shape ----------------------
+    one = (slots[:1].contiguous(), vals[:1].contiguous(),
+           now[:1].contiguous())
+    row_put_back(st, base2)
+    row_put_back(plain_st, base2)
+    row_set(st["vals"], st["presence"], st["last_ts"], *one, st["map"])
+    row_set_plain(plain_st["vals"], plain_st["presence"],
+                  plain_st["last_ts"], *one)
+    torch.cuda.synchronize()
+    map_at_rest("row_set of one key")
+    err = max_abs_diff(torch, [(st[k], plain_st[k]) for k in
+                               ("vals", "presence", "last_ts")])
+    if err:
+        raise AssertionError(f"row_set of one key at {label}: the kernel "
+                             f"and the plain version differ by {err}")
+    ms = cuda_ms(lambda: row_set(st["vals"], st["presence"], st["last_ts"],
+                                 *one, st["map"]), torch, flush,
+                 setup=lambda: row_put_back(st, base2))
+    plain_ms = cuda_ms(lambda: row_set_plain(
+        plain_st["vals"], plain_st["presence"], plain_st["last_ts"], *one),
+        torch, flush, reps=3, setup=lambda: row_put_back(plain_st, base2))
+    nbytes = 4 + 8 + 8 + 8 + 1 + 8
+    out["row_set_one_key"] = {"rows": 1, "max_abs_err": err, "ms": ms,
+                              "plain_ms": plain_ms, "library_ms": None,
+                              "bound_by": "bytes", "bytes": nbytes,
+                              "bound_ms": bound_ms(nbytes)}
+    row_put_back(st, base2)
+    run_set(st)     # the batch's values, which row_get and row_unset read
     # -- row_get: half the keys of the state, half absent ---------------------
     probe = torch.where(torch.arange(n, device=dev) % 2 == 0, keys,
                         keys + (1 << 40)).contiguous()
@@ -7319,14 +7514,14 @@ def dedup_run_record(torch, c: dict, run, expected) -> dict:
 
 def dedup_profile(torch, run) -> dict:
     """A run under torch.profiler: the card's busy time by kernel against
-    the run's wall time; the profiler's count of each of dedup_first's
-    two kernels must equal its launch counter."""
+    the run's wall time; the profiler's count of dedup_first's kernel must
+    equal its launch counter."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
 
-    symbols = ("dedup_resolve_kernel", "dedup_admit_kernel")
+    symbols = ("dedup_first_kernel",)
     for tries in range(1, PROFILE_TRIES + 1):
         reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
@@ -7908,7 +8103,17 @@ def main(argv: list[str]) -> int:
                                       "sector_floor_ms",
                                       "at_measured_rate_ms",
                                       "share_of_bound")},
+                # dedup_first's and row_set's floors also without the earlier
+                # scratch, and the kernel's share of each
+                **{k: at[k] for k in ("sector_floor_no_scratch_ms",
+                                      "at_measured_rate_no_scratch_ms",
+                                      "share_of_rate_floor",
+                                      "share_of_rate_floor_no_scratch")
+                   if k in at},
                 "shape": at, "at_small_shape": rows["shapes"]["small"][kernel],
+                # row_set launches at one key on the ValueState path
+                **({"at_one_key": rows["shapes"]["dedup_10m"][
+                    "row_set_one_key"]} if kernel == "row_set" else {}),
                 "edge_cases": sorted(rows["edges"]),
                 "ptxas": {k: v for k, v in ptxas.get("row_state", {}).items()
                           if ROW_PTXAS[kernel] in k}}

@@ -17,8 +17,8 @@
   kernel) a call, and ``list_probe`` a launch of its one kernel (a call
   launches again only when its matches pass the output's room).
   The row plane counts one launch of ``dedup_first`` and ``row_set`` a
-  call (each two kernels on one stream: resolve then admit, mark then
-  write) and of ``row_get`` and ``row_unset`` (one kernel each).
+  call (each one cooperative kernel) and of ``row_get`` and
+  ``row_unset`` (one kernel each).
   A caller resets the counters, drives a path and reads them back to show
   which kernels the path went through.
 """

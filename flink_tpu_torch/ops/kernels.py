@@ -95,12 +95,13 @@ SOURCES = {
     },
     "row_state": {
         "dedup_first_launch": [_P, _I64, _P, _P, _P, _I64, _P, _P, _I64, _P,
-                               _P, _I32, _P, _P, _P, _P],
+                               _I64, _P, _I32, _P, _P, _P, _P],
         "row_set_launch": [_P, _I64, _P, _P, _I32, _P, _P, _P, _I64, _P,
-                           _P],
+                           _I64, _P],
         "row_get_launch": [_P, _I64, _P, _I64, _P, _I32, _P, _P, _I64, _I64,
                            _P, _P, _P],
         "row_unset_launch": [_P, _I64, _P, _I64, _P, _P, _P],
+        "row_state_block_rows": [],
     },
 }
 _ERROR_STRING = {"hist256": "hist256_error_string",

@@ -3,10 +3,15 @@ kernel (``csrc/row_state.cu``) with its plain PyTorch version beside it.
 
 Port of the row programs of ``flink_tpu/state/tpu_backend.py``. The
 state: ``table`` [capacity] int64 (``ops/hash_table.py``), a value plane
-``vals`` [capacity] of any numeric dtype, ``presence`` [capacity] int8,
-an optional TTL clock ``last_ts`` [capacity] int64 (None: no TTL), and
-``scratch`` [capacity] int32 (``new_row_scratch``), ``ROW_NONE`` in every
-entry between calls: each call restores the entries it touches.
+``vals`` [capacity] of any numeric dtype, ``presence`` [capacity] int8
+and an optional TTL clock ``last_ts`` [capacity] int64 (None: no TTL).
+``dedup_first`` and ``row_set`` find each slot's first (last) row of the
+batch: the kernels in a batch map (``new_batch_map``: ``MAP_HEAD`` zero
+words, then at least ``batch_map_entries(n)`` entries of -1, as every
+call leaves them; the backend keeps one that grows with its largest
+batch, and a wrapper on the card raises without one), the plain
+versions by ``scatter_reduce_`` into a fresh ``[capacity + 1]`` tensor,
+as the reference does.
 
 * ``dedup_first`` (``_dedup_first``, ``:189``): keep-first admission.
   Lookup-or-insert of the valid rows; fresh = ok and not was and first,
@@ -19,10 +24,12 @@ entry between calls: each call restores the entries it touches.
   keys, with presence 0) and no row is fresh: the caller grows the table
   and runs the batch again. Returns (fresh bool [n], slots int32 [n], -1
   for invalid and failed rows, status int64 [3]: failed rows, slots
-  claimed, fresh rows). Two launches (resolve, then admit).
+  claimed, fresh rows). One launch. The kernel leaves a slot whose
+  presence and clock do not change unwritten and may leave its dirty
+  block unmarked; the plain version marks every ok row's block.
 * ``row_set`` (``_rows_set``, ``:111``): the last row of each slot writes
   its value (cast to the plane's dtype), presence := 1 and, with a clock,
-  ``now`` (an int, or an int64 tensor of a value a row). Two launches.
+  ``now`` (an int, or an int64 tensor of a value a row). One launch.
 * ``row_get`` (``_rows_get``, ``:127``): (values, present) for keys: the
   value at the key's slot (slot 0's for an absent key, as the
   reference's gather), present = found and presence and ``now - last_ts
@@ -50,16 +57,52 @@ from ..device import note_launch
 from .hash_table import EMPTY_KEY, lookup_or_insert_plain, lookup_plain, \
     sanitize_keys_device
 
-__all__ = ["ROW_NONE", "new_row_scratch", "dedup_first", "dedup_first_plain",
-           "row_set", "row_set_plain", "row_get", "row_get_plain",
-           "row_unset", "row_unset_plain"]
+__all__ = ["MAP_HEAD", "batch_map_entries", "new_batch_map", "dedup_first",
+           "dedup_first_plain", "row_set", "row_set_plain", "row_get",
+           "row_get_plain", "row_unset", "row_unset_plain"]
 
-#: a scratch entry no row holds
-ROW_NONE = (1 << 31) - 1
+#: zero words at the head of a batch map (the kernels' counts and ticket)
+MAP_HEAD = 4
+#: entries below which a batch of more rows gets up to 16 entries a row
+SPARSE_MAP_ENTRIES = 1 << 17
 
 
-def new_row_scratch(capacity: int, device) -> torch.Tensor:
-    return torch.full((capacity,), ROW_NONE, dtype=torch.int32, device=device)
+def batch_map_entries(n: int) -> int:
+    """Entries of the batch map for n rows: the least power of two at or
+    above 2n and, for a batch of more rows than the kernels' one-block
+    launch takes (the library's ``row_state_block_rows``), at or above
+    min(16n, 2^17). A small batch's call waits on its longest probe chain,
+    which a sparser map shortens; a large batch's is held by the map walk,
+    which a denser map shortens (tools/row_designs.py, map_2n to map_16n:
+    at 2^12 rows 16n is the fastest, at 2^15 4n, at 2^19 2n)."""
+    from . import kernels
+
+    want = 2 * n
+    if n > kernels.library("row_state").row_state_block_rows():
+        want = max(want, min(16 * n, SPARSE_MAP_ENTRIES))
+    return 1 << max(1, (want - 1).bit_length())
+
+
+def new_batch_map(n: int, device) -> torch.Tensor:
+    """A batch map for up to n rows, as the kernels leave it."""
+    m = torch.full((MAP_HEAD + batch_map_entries(n),), -1, dtype=torch.int64,
+                   device=device)
+    m[:MAP_HEAD] = 0
+    return m
+
+
+def _map_entries(batch_map: Optional[torch.Tensor], n: int,
+                 like: torch.Tensor) -> int:
+    """The entries of ``batch_map`` that a launch for n rows uses."""
+    entries = batch_map_entries(n)
+    if (batch_map is None or batch_map.dtype != torch.int64
+            or batch_map.dim() != 1 or not batch_map.is_contiguous()
+            or batch_map.device != like.device
+            or batch_map.numel() < MAP_HEAD + entries):
+        raise ValueError(f"batch_map must be a contiguous int64 tensor of at "
+                         f"least {MAP_HEAD + entries} words on the state's "
+                         "device (new_batch_map)")
+    return entries
 
 
 def _check_table(table: torch.Tensor) -> None:
@@ -71,7 +114,7 @@ def _check_table(table: torch.Tensor) -> None:
 
 
 _PLANE_DTYPES = {"presence": torch.int8, "last_ts": torch.int64,
-                 "scratch": torch.int32, "dirty": torch.uint8}
+                 "dirty": torch.uint8}
 _BATCH_DTYPES = {"keys": torch.int64, "ts": torch.int64, "now": torch.int64,
                  "valid": torch.bool, "slots": torch.int32}
 
@@ -117,36 +160,41 @@ def _ptr(t: Optional[torch.Tensor]):
 def dedup_first(table: torch.Tensor, presence: torch.Tensor,
                 last_ts: Optional[torch.Tensor], keys: torch.Tensor,
                 valid: Optional[torch.Tensor], ts: torch.Tensor, ttl: int,
-                scratch: torch.Tensor, dirty: torch.Tensor, dirty_shift: int):
+                dirty: torch.Tensor, dirty_shift: int,
+                batch_map: Optional[torch.Tensor] = None):
     """Keep-first admission of a batch (module docstring). ``dirty``: the
-    backend's dirty bitmap, one byte a block of 2^dirty_shift slots."""
+    backend's dirty bitmap, one byte a block of 2^dirty_shift slots;
+    ``batch_map``: required on the card, unused on the CPU."""
     _check_table(table)
     _check_rows(table, {"presence": presence, "last_ts": last_ts,
-                        "scratch": scratch, "dirty": dirty},
+                        "dirty": dirty},
                 {"keys": keys, "valid": valid, "ts": ts})
     if table.device.type == "cpu":
         return dedup_first_plain(table, presence, last_ts, keys, valid, ts,
-                                 ttl, scratch, dirty, dirty_shift)
+                                 ttl, dirty, dirty_shift)
     kernels, lib, stream = _launcher(table)
     n = keys.numel()
+    entries = _map_entries(batch_map, n, table)
     slots = torch.empty(n, dtype=torch.int32, device=keys.device)
     fresh = torch.empty(n, dtype=torch.bool, device=keys.device)
     status = torch.empty(3, dtype=torch.int64, device=keys.device)
     kernels.check("row_state", lib.dedup_first_launch(
         table.data_ptr(), table.numel(), keys.data_ptr(), _ptr(valid),
         ts.data_ptr(), n, presence.data_ptr(), _ptr(last_ts), int(ttl),
-        scratch.data_ptr(), dirty.data_ptr(), int(dirty_shift),
+        batch_map.data_ptr(), entries, dirty.data_ptr(), int(dirty_shift),
         slots.data_ptr(), fresh.data_ptr(), status.data_ptr(), stream))
     note_launch("dedup_first")
     return fresh, slots, status
 
 
-def dedup_first_plain(table, presence, last_ts, keys, valid, ts, ttl,
-                      scratch, dirty, dirty_shift):
-    """Plain version of ``dedup_first``: the reference's probe rounds, the
-    first rows found through the same scratch."""
+def dedup_first_plain(table, presence, last_ts, keys, valid, ts, ttl, dirty,
+                      dirty_shift):
+    """Plain version of ``dedup_first``: the reference's probe rounds, each
+    slot's first row by ``scatter_reduce_`` amin into a fresh
+    ``[capacity + 1]`` tensor (the reference's ``firstpos``)."""
     dev = keys.device
     n = keys.numel()
+    cap = table.numel()
     before = int((table != EMPTY_KEY).sum())
     _, slots, ok = lookup_or_insert_plain(table, sanitize_keys_device(keys),
                                           valid)
@@ -158,15 +206,14 @@ def dedup_first_plain(table, presence, last_ts, keys, valid, ts, ttl,
     if last_ts is not None:
         was &= (ts - last_ts[sc]) <= int(ttl)
     rows = torch.arange(n, dtype=torch.int32, device=dev)
-    so = s[ok]
-    scratch.scatter_reduce_(0, so, rows[ok], "amin")
-    first = torch.zeros(n, dtype=torch.bool, device=dev)
-    first[ok] = scratch[so] == rows[ok]
-    scratch[so] = ROW_NONE
-    fresh = ok & ~was & first
+    widx = torch.where(ok, s, cap)
+    firstpos = torch.full((cap + 1,), n, dtype=torch.int32, device=dev)
+    firstpos.scatter_reduce_(0, widx, rows, "amin")
+    fresh = ok & ~was & (firstpos[widx] == rows)
     if failed:
         fresh.zero_()
     else:
+        so = s[ok]
         presence[so] = 1
         if last_ts is not None:
             last_ts[s[fresh]] = ts[fresh]
@@ -180,38 +227,39 @@ def dedup_first_plain(table, presence, last_ts, keys, valid, ts, ttl,
 def row_set(vals: torch.Tensor, presence: torch.Tensor,
             last_ts: Optional[torch.Tensor], slots: torch.Tensor,
             new_vals: torch.Tensor, now: Union[int, torch.Tensor],
-            scratch: torch.Tensor) -> None:
-    """Last row of each slot wins (module docstring); in place."""
+            batch_map: Optional[torch.Tensor] = None) -> None:
+    """Last row of each slot wins (module docstring); in place.
+    ``batch_map``: required on the card, unused on the CPU."""
     now_rows = now if isinstance(now, torch.Tensor) else None
     _check_rows(vals, {"vals": vals, "presence": presence,
-                       "last_ts": last_ts, "scratch": scratch},
+                       "last_ts": last_ts},
                 {"slots": slots, "new_vals": new_vals, "now": now_rows})
     new_vals = new_vals.to(vals.dtype).contiguous()
     if vals.device.type == "cpu":
-        return row_set_plain(vals, presence, last_ts, slots, new_vals, now,
-                             scratch)
+        return row_set_plain(vals, presence, last_ts, slots, new_vals, now)
     kernels, lib, stream = _launcher(vals)
+    n = slots.numel()
+    entries = _map_entries(batch_map, n, vals)
     kernels.check("row_state", lib.row_set_launch(
-        slots.data_ptr(), slots.numel(), vals.data_ptr(), new_vals.data_ptr(),
+        slots.data_ptr(), n, vals.data_ptr(), new_vals.data_ptr(),
         vals.element_size(), presence.data_ptr(), _ptr(last_ts),
         _ptr(now_rows), 0 if now_rows is not None else int(now),
-        scratch.data_ptr(), stream))
+        batch_map.data_ptr(), entries, stream))
     note_launch("row_set")
 
 
-def row_set_plain(vals, presence, last_ts, slots, new_vals, now, scratch):
-    """Plain version of ``row_set``: the last rows found through the same
-    scratch (each row's n - 1 - i under amin)."""
+def row_set_plain(vals, presence, last_ts, slots, new_vals, now):
+    """Plain version of ``row_set``: each slot's last row by
+    ``scatter_reduce_`` amax into a fresh ``[capacity + 1]`` tensor (the
+    reference's ``lastpos``)."""
     n = slots.numel()
+    cap = vals.numel()
     s = slots.to(torch.int64)
-    ok = s >= 0
-    so = s[ok]
-    rank = (n - 1 - torch.arange(n, dtype=torch.int64, device=s.device)
-            ).to(torch.int32)
-    scratch.scatter_reduce_(0, so, rank[ok], "amin")
-    win = torch.zeros(n, dtype=torch.bool, device=s.device)
-    win[ok] = scratch[so] == rank[ok]
-    scratch[so] = ROW_NONE
+    rows = torch.arange(n, dtype=torch.int32, device=s.device)
+    widx = torch.where(s >= 0, s, cap)
+    lastpos = torch.full((cap + 1,), -1, dtype=torch.int32, device=s.device)
+    lastpos.scatter_reduce_(0, widx, rows, "amax")
+    win = (s >= 0) & (lastpos[widx] == rows)
     ws = s[win]
     vals[ws] = new_vals.to(vals.dtype)[win]
     presence[ws] = 1

@@ -48,8 +48,8 @@ a snapshot does not depend on where a key lives (device or host tier).
   under a TTL, ``name.__ts__`` (int64 clock of the last write), so they
   snapshot, mirror and restore with the rest. ``rows_upsert``,
   ``rows_lookup``, ``rows_clear`` and keep-first ``dedup_first_batch``
-  run the kernels of ``ops/row_state.py`` (one batch a call, a
-  ``[capacity]`` int32 scratch kept across calls); ``get_partitioned_state``
+  run the kernels of ``ops/row_state.py`` (one batch a call, one batch
+  map that grows with the largest batch); ``get_partitioned_state``
   hands out ``ValueState`` handles over them. The row plane refuses an
   HBM budget, as the reference's does.
 """
@@ -69,8 +69,8 @@ from ..core.keygroups import KeyGroupRange, hash_batch, \
 from ..device import numpy_dtype, torch_dtype
 from ..ops.hash_table import EMPTY_KEY, StepSpill, ingest_step, lookup, \
     lookup_or_insert, make_table, sanitize_keys_device
-from ..ops.row_state import dedup_first, new_row_scratch, row_get, row_set, \
-    row_unset
+from ..ops.row_state import MAP_HEAD, batch_map_entries, dedup_first, \
+    new_batch_map, row_get, row_set, row_unset
 from ..ops.segment_ops import identity, make_accumulator, scatter_fold
 from .backend import State, ValueState
 from .descriptors import StateDescriptor
@@ -184,7 +184,7 @@ class DeviceKeyedStateBackend:
         # -- row plane ------------------------------------------------------
         self._row_meta: dict[str, tuple[int, np.dtype]] = {}  # name -> ttl
         self._row_states: dict[str, State] = {}
-        self._row_scratch_buf: Optional[torch.Tensor] = None
+        self._batch_map_buf: Optional[torch.Tensor] = None
         self._current_key = None
         #: keep-first batches run again after a row found no slot
         self.row_overflows = 0
@@ -743,13 +743,15 @@ class DeviceKeyedStateBackend:
         return (self.get_array(name), self.get_array(f"{name}.__set__"),
                 last, ttl)
 
-    def _row_scratch(self) -> torch.Tensor:
-        """The row programs' [capacity] int32 scratch, ``ROW_NONE``
-        between calls; a fresh one after the capacity changes."""
-        buf = self._row_scratch_buf
-        if buf is None or buf.numel() != self.capacity:
-            buf = self._row_scratch_buf = new_row_scratch(self.capacity,
-                                                          self.device)
+    def _batch_map(self, n: int) -> Optional[torch.Tensor]:
+        """The row kernels' batch map for n rows (``ops/row_state.py``),
+        grown with the largest batch; None on the CPU, whose plain
+        versions need none."""
+        if self.device.type == "cpu":
+            return None
+        buf = self._batch_map_buf
+        if buf is None or buf.numel() < MAP_HEAD + batch_map_entries(n):
+            buf = self._batch_map_buf = new_batch_map(n, self.device)
         return buf
 
     def _device_keys(self, keys) -> torch.Tensor:
@@ -775,7 +777,7 @@ class DeviceKeyedStateBackend:
                else self._device_rows(now_ms, torch.int64))
         row_set(vals, present, last, slots, self._device_rows(values,
                                                              vals.dtype),
-                now, self._row_scratch())
+                now, self._batch_map(slots.numel()))
 
     def rows_lookup(self, name: str, keys, now_ms: int
                     ) -> tuple[np.ndarray, np.ndarray]:
@@ -812,7 +814,8 @@ class DeviceKeyedStateBackend:
             _vals, present, last, ttl = self._row_planes(name)
             fresh, _slots, status = dedup_first(
                 self.table, present, last, keys, valid, ts, ttl,
-                self._row_scratch(), self._dirty_buf, self.dirty_shift)
+                self._dirty_buf, self.dirty_shift,
+                self._batch_map(keys.numel()))
             failed, claims, n_fresh = status.tolist()
             if failed:
                 self.row_overflows += 1
