@@ -136,12 +136,28 @@ Run from the repository root:  python3 chip_smoke.py
     gather, the store, DMA and fs bytes; the restore's time to its first
     batch.
 17. Q5-10M through env.execute() at state.backend.tpu.hbm-budget-slots
-    2^23: every window against the oracle, one spill-form ingest_step per
-    batch, no staged row dropped; events/sec, p99 fire latency, keys per
-    tier, evictions, host seconds, peak memory. Then a budgeted job's
-    checkpoint restored into an unbudgeted job and the reverse: windows
-    against the oracle, and each checkpoint restored under the other
-    budget snapshots byte for byte as it was stored.
+    2^23, with tiered residency (state/tiering/: the 2Q heat policy's
+    evictions, promotions of warm key groups back into the table at batch
+    boundaries, staged by the prefetch pipeline): every window against
+    the oracle, one spill-form ingest_step per batch, no staged row
+    dropped; events/sec, p99 fire latency, keys per tier, evictions and
+    promotions, the hit ratio per boundary, host seconds (tier_boundary
+    on the task's thread, staging off it), apply_promotion's device ms,
+    hash_probe launches, peak memory. Then an unbudgeted job's checkpoint
+    restored into a budgeted job: windows against the oracle, and the
+    checkpoint restored under the budget snapshots byte for byte as it was
+    stored. Then ``tiering_phase``: the same
+    configuration on the hot-set shift (``shift_keys``: a seeded set of
+    key groups goes cold, is driven to the host, then turns hot), through
+    the deferred step (staging inline) and through host batches (staging
+    off the task's thread, on a stream of its own): each window against
+    the oracle, a promotion landing in each, the two runs' rows equal
+    under the tie rule; then a deferred run checkpointed and cancelled at
+    its first checkpoint that holds a promotion and host-tier keys,
+    restored into an unbudgeted operator (its snapshot byte for byte the
+    checkpoint's) and an unbudgeted job run to the end (windows against
+    the oracle): the budgeted-to-unbudgeted crossing, which the spill
+    phase ran on its own before.
 18. Session windows (csrc/session_window.cu): in the kernel phase,
     session_step and session_fire against their plain versions at
     Q11-10M's shapes (a 2^19-row batch into 2^24 slots and 4 lanes, the
@@ -156,7 +172,9 @@ Run from the repository root:  python3 chip_smoke.py
     counters and the dirty blocks equal, the lanes that are not open at
     the identities; each timed beside its plain version, with its byte
     bound and its sector floor (the 32-byte sectors the layout makes it
-    touch). ptxas's registers, shared memory and spills of every kernel
+    touch), that floor also at the card's measured rates (``priced_sectors``:
+    random for the step, in address order for the fire, whose dense blocks
+    stream). ptxas's registers, shared memory and spills of every kernel
     are printed after the build. Then the cells, through env.execute()
     with a watermark after every batch: Nexmark Q11 at 10M bidders
     (q11.sql: count(*) per SESSION(dateTime, 10 s); bench.py's key mixer,
@@ -309,6 +327,7 @@ package beside this script, it exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import gc
 import hashlib
@@ -332,7 +351,7 @@ MIN_TIMESTAMP = -(1 << 62)     # first open pane before any fire
 PANE_MS, WINDOW_PANES, RING, BATCH, TOPK = 2000, 5, 16, 1 << 19, 1000
 Q5_RUNS = 4                    # timed runs of Q5-10M and the runtime cell
 SHORT_RUNS = 2                 # timed runs of the Q5-1M and Q7 cells
-WIDE_RUNS = 2                  # timed runs of the W = 20 cell
+WIDE_RUNS = 1                  # timed runs of the W = 20 cell
 WIDE_PANES = 20                # bench.py --window-panes 20
 #: (label, keys, events, capacity) of the two Q5 cells
 Q5_CELLS = (("1M", 1_000_000, 1 << 23, 1 << 21),
@@ -346,6 +365,7 @@ SECTOR_OPS = ("read8", "probe8", "cas8", "red4", "red8", "store4", "store8")
 FIRE_SLEEP_CYCLES = 40_000_000  # ~20 ms of device sleep before a timed fire
 FIRE_TIMING_TRIES = 3          # timed-fire runs, the sleep doubled each
 PROFILE_TRIES = 3              # profiles taken before a lost record fails
+PROFILE_CHILD_TIMEOUT_S = 600  # a profile taken again in a fresh process
 Q7_PANE_MS, Q7_VALUE_BITS = 10_000, 34   # bench.py _run_q7
 Q7_PRICES, Q7_BIDDER_BITS = 9973, 20
 CO_BATCH, CO_TARGET, CO_WM_EVERY = 1 << 16, 1 << 19, 8   # coalesced ingest
@@ -374,6 +394,27 @@ def bound_ms(nbytes: float) -> float:
 
 
 # -- timing ---------------------------------------------------------------
+class ProfileRecordsLost(AssertionError):
+    """Every one of PROFILE_TRIES profiles of a run lacked a kernel record
+    that the launch counters hold."""
+
+
+@contextlib.contextmanager
+def card_profile(torch, host: bool = False):
+    """``torch.profiler.profile`` of the card (and, with ``host``, of the
+    host) around a block, the card drained before it starts and after
+    the block, before it stops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.insert(0, ProfilerActivity.CPU)
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        yield prof
+        torch.cuda.synchronize()
+
+
 class L2Flush:
     """Evicts the 50 MB L2 by reading a 96 MB buffer, so it holds clean
     lines of that buffer: the timed launch finds its inputs in device
@@ -1541,13 +1582,10 @@ def device_kernels(torch, fn, symbol: str,
     kernels named ``symbol`` (the profiler at times loses a kernel's
     record; the launch counters do not); and the profiles taken."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     for tries in range(1, PROFILE_TRIES + 1):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with card_profile(torch) as prof:
             fn()
-            torch.cuda.synchronize()
         events = sorted((e for e in prof.events()
                          if e.device_type == DeviceType.CUDA),
                         key=lambda e: e.time_range.start)
@@ -1646,7 +1684,7 @@ def q5_env(torch, dev, n_keys: int, n_events: int, capacity: int,
            fire_mode: str = "full", window_panes: int = WINDOW_PANES,
            fused: bool = False, wm_interval: float = 0.0,
            settings: dict | None = None, rate: float | None = None,
-           staging: int = 1 << 16, source_hook=None):
+           staging: int = 1 << 16, source_hook=None, gen=None):
     """The Q5 pipeline on a fresh StreamExecutionEnvironment, not yet
     executed; returns (env, got, span ms), ``got`` filled by the sink with
     (window end - 1, auctions, bids, revenue) per window. ``defer`` False
@@ -1659,7 +1697,9 @@ def q5_env(torch, dev, n_keys: int, n_events: int, capacity: int,
     budget: ``state.backend.tpu.hbm-budget-slots``); ``rate`` caps the
     source's events per second; ``staging`` is the operator's
     ``spill_staging_slots``; ``source_hook(source)`` receives the
-    ``DataGenSource``."""
+    ``DataGenSource``; ``gen(n_keys, n_events, span)`` makes the
+    generator in place of ``q5_gen`` (the same price and ts, other
+    keys)."""
     from flink_tpu_torch.api import StreamExecutionEnvironment
     from flink_tpu_torch.connectors.datagen import DataGenSource
     from flink_tpu_torch.core import Configuration, Schema, WatermarkStrategy
@@ -1683,7 +1723,7 @@ def q5_env(torch, dev, n_keys: int, n_events: int, capacity: int,
                        **(settings or {})}), device=dev)
     ws = WatermarkStrategy.for_monotonous_timestamps() \
         .with_timestamp_column("ts")
-    source = DataGenSource(q5_gen(n_keys, n_events, span), schema,
+    source = DataGenSource((gen or q5_gen)(n_keys, n_events, span), schema,
                            count=n_events, rate_per_sec=rate,
                            timestamp_column="ts", device=True)
     if source_hook is not None:
@@ -1712,15 +1752,17 @@ def run_q5(torch, dev, n_keys: int, n_events: int, capacity: int, **kw):
 
 
 def q5_expected(n_keys: int, n_events: int, span: int, topk: int = TOPK,
-                window_panes: int = WINDOW_PANES) -> list:
+                window_panes: int = WINDOW_PANES, keys=None) -> list:
     """The numpy oracle of every Q5 window, once per configuration:
     [(end pane, top values, candidates, their bids and revenue, keys
     strictly above the k-th value)], where the candidates are the keys at
     or above the k-th value. Each window's sums slide: its newest pane is
-    added and the pane that left it subtracted, one bincount each."""
+    added and the pane that left it subtracted, one bincount each.
+    ``keys``: each event's key, in place of ``q5_gen``'s."""
     idx = np.arange(n_events, dtype=np.int64)
-    keys = ((idx.astype(np.uint64) * np.uint64(MULT))
-            % np.uint64(n_keys)).astype(np.int64)
+    if keys is None:
+        keys = ((idx.astype(np.uint64) * np.uint64(MULT))
+                % np.uint64(n_keys)).astype(np.int64)
     price = idx % 997 + 1
     panes = (idx * span) // n_events // PANE_MS
     n_p = int(panes[-1]) + 1
@@ -1974,14 +2016,12 @@ def run_profile(torch, run) -> dict:
     profiler's count of each hand kernel, which must equal its launch
     counter (a profile that lost a kernel would understate busy time)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
 
     for tries in range(1, PROFILE_TRIES + 1):
         reset_launches()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with card_profile(torch, host=True) as prof:
             job, _got, _span = run()
         by_name: dict[str, list] = {}
         for e in prof.events():
@@ -2396,7 +2436,6 @@ def fused_chain_phase(torch, dev) -> dict:
     one ingest_step per micro-batch, and chain_fused_dispatches_total
     must count every micro-batch."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
     from flink_tpu_torch.connectors.datagen import DataGenSource
@@ -2453,8 +2492,7 @@ def fused_chain_phase(torch, dev) -> dict:
     unfused_launches = KERNEL_LAUNCHES["ingest_step"]
     before = DEVICE_STATS.snapshot()["chain_fused_dispatches_total"]
     reset_launches()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with card_profile(torch, host=True) as prof:
         n_fused, host_fused = feed(True)
     fused_launches = KERNEL_LAUNCHES["ingest_step"]
     dispatches = DEVICE_STATS.snapshot()["chain_fused_dispatches_total"] \
@@ -2644,29 +2682,29 @@ def mirror_phase(torch, dev) -> dict:
             "state_bytes": backend.state_nbytes, "snapshots": records}
 
 
-def wait_checkpoints(job, n: int, spilled: bool = False,
-                     after: float = 0.0, timeout: float = 300.0) -> None:
+def wait_checkpoints(job, n: int, after: float = 0.0,
+                     timeout: float = 300.0, holds=None) -> None:
     """Until ``n`` checkpoints of ``job`` triggered after the wall time
-    ``after`` completed (or the job failed); with ``spilled``, until the
-    last of them holds host-tier keys too."""
+    ``after`` completed (or the job ended or failed); with ``holds``, until
+    the last of them also has a snapshot log record for which
+    ``holds(record)`` is true."""
     def done() -> bool:
         stats = [s for s in job.coordinator.stats
-                 if s.get("started", 0.0) > after]
-        if len(stats) < n:
-            return False
+                 if s.get("started", 0.0) > after and not s.get("failed")]
+        if len(stats) < n or holds is None:
+            return len(stats) >= n
         log = {r["checkpoint_id"]: r
                for r in job.operators[0].backend.snapshot_log}
-        return not spilled or log.get(stats[-1]["id"], {}).get(
-            "host_keys", 0) > 0
+        return holds(log.get(stats[-1]["id"], {}))
 
     t0 = time.perf_counter()
-    while (not done() and not job._failed
+    while (not done() and not job._done.is_set()
            and time.perf_counter() - t0 < timeout):
         time.sleep(0.002)
     if not done():
         raise AssertionError(f"{len(job.coordinator.stats)} checkpoints "
-                             f"completed, waiting for {n} after {after} "
-                             f"(spilled: {spilled}): {job._failed}")
+                             f"completed, waiting for {n} after {after}: "
+                             f"{job._failed}")
 
 
 def checkpoint_record(job, stat: dict) -> dict:
@@ -2818,15 +2856,14 @@ def spill_phase(torch, dev) -> dict:
     ``state.backend.tpu.hbm-budget-slots`` = SPILL_BUDGET (2^23: about
     half the key groups end on the host): every window against the
     oracle, one spill-form ingest_step per batch, no staged row dropped,
-    and the run's spill record. Then across budgets: a paced budgeted job
-    checkpointed into a directory, cancelled, and restored into an
-    unbudgeted job (at the first checkpoint that holds host-tier keys),
-    and the reverse; every window of both jobs equals the
-    oracle (a window may repeat, with equal values), and each checkpoint
-    restored into an operator of the other budget snapshots byte for
-    byte as the checkpoint it came from. The budgeted side holds host-tier
-    keys: at the checkpoint going one way, during the restored run going
-    the other."""
+    and the run's spill and tier record. Then across budgets: a paced
+    unbudgeted job checkpointed into a directory, cancelled, and restored
+    into a budgeted job, which holds host-tier keys during its run; every
+    window of both jobs equals the oracle (a window may repeat, with equal
+    values), and the checkpoint restored into a budgeted operator
+    snapshots byte for byte as it came. The other way, a budgeted
+    checkpoint holding host-tier keys restored unbudgeted, is
+    ``tiering_phase``'s checkpoint after a promotion."""
     import shutil
     import tempfile
 
@@ -2842,7 +2879,9 @@ def spill_phase(torch, dev) -> dict:
     peak = torch.cuda.max_memory_allocated()
     launches = dict(KERNEL_LAUNCHES)
     windows = q5_oracle_check(n_keys, n_events, span, got)
-    record = spill_record(job, n_events, peak)
+    record = {**spill_record(job, n_events, peak),
+              **tier_record(torch, job.operators[0].backend),
+              "hash_probe_launches": launches["hash_probe"]}
     emit({"spill_run": f"Q5-{label}", **record})
     if (launches["ingest_step_spill"] != n_events // BATCH
             or record["dropped"] or not record["groups_spilled"]):
@@ -2852,75 +2891,352 @@ def spill_phase(torch, dev) -> dict:
     expected = q5_expected(n_keys, n_events, span)
     by_end = {e[0]: e for e in expected}
     crossings = {}
-    for name, first, second in (("budgeted_to_unbudgeted", budget, {}),
-                                ("unbudgeted_to_budgeted", {}, budget)):
-        ckpt_dir = tempfile.mkdtemp(prefix="flink_tpu_torch_spill_")
-        try:
-            env, got1, _span = q5_env(
-                torch, dev, n_keys, n_events, cap, staging=SPILL_STAGING,
-                rate=n_events / (2 * CKPT_RUN_S),
-                settings={**first,
-                          "execution.checkpointing.interval": CKPT_INTERVAL_S,
-                          "execution.checkpointing.dir": ckpt_dir})
-            fresh_memory(torch)
-            job = env.execute_async(f"q5-{name}")
-            wait_checkpoints(job, 1, spilled=bool(first))
-            job.cancel()
-            cp = job.coordinator.latest_checkpoint()
-            stat = checkpoint_record(job, job.coordinator.stats[-1])
-            spilled_at_cp = job.operators[0].backend.spill_active
-            before = list(got1)
-            del job, env
-            loaded = load_checkpoint(cp.external_path)
-            (chain,) = [s["chain"] for s in loaded.task_snapshots.values()
-                        if s.get("chain")]
-            (window,) = [v for v in chain.values() if "keyed" in v]
-            op, _h = q5_operator(
-                torch, dev, cap, spill_staging_slots=SPILL_STAGING,
-                hbm_budget_slots=second.get(
-                    "state.backend.tpu.hbm-budget-slots", 0))
-            op.initialize_state([window["keyed"]], None)
-            twin = op.backend.snapshot(cp.checkpoint_id)
-            if snapshot_digest(twin) != snapshot_digest(
-                    window["keyed"]["backend"]):
-                raise AssertionError(f"{name}: the checkpoint restored "
-                                     "under the other budget snapshots "
-                                     "differently")
-            twin_spilled = op.backend.spill_active
-            del op, _h, twin, loaded, chain, window
-            env2, got2, _span = q5_env(torch, dev, n_keys, n_events, cap,
-                                       staging=SPILL_STAGING, settings=second)
-            env2.restore_from_checkpoint(cp.external_path)
-            job2 = env2.execute_async(f"q5-{name}-restored")
-            job2.wait()
-            ends = []
-            for rows in (before, got2):
-                e = [(ts + 1) // PANE_MS for ts, *_ in rows]
-                q5_check([by_end[x] for x in e], rows)
-                ends.append(e)
-            if not ends[1] or sorted(set(ends[0]) | set(ends[1])) != \
-                    sorted(by_end):
-                raise AssertionError(f"{name}: windows {ends}")
-            crossings[name] = {
-                "checkpoint": stat, "spill_active_at_checkpoint":
-                spilled_at_cp, "spill_active_after_restore": twin_spilled,
-                "restored_run": spill_record(
-                    job2, n_events, torch.cuda.max_memory_allocated()),
-                "windows_before": len(ends[0]),
-                "windows_after": len(ends[1]),
-                "windows_repeated": len(set(ends[0]) & set(ends[1]))}
-            del job2, env2, got2
-        finally:
-            shutil.rmtree(ckpt_dir, ignore_errors=True)
-    if not (crossings["budgeted_to_unbudgeted"]["spill_active_at_checkpoint"]
-            and crossings["unbudgeted_to_budgeted"]["restored_run"][
-                "groups_spilled"]):
-        raise AssertionError("a crossing did not hold spilled state on the "
-                             f"budgeted side: {crossings}")
+    name = "unbudgeted_to_budgeted"
+    ckpt_dir = tempfile.mkdtemp(prefix="flink_tpu_torch_spill_")
+    try:
+        env, got1, _span = q5_env(
+            torch, dev, n_keys, n_events, cap, staging=SPILL_STAGING,
+            rate=n_events / (2 * CKPT_RUN_S),
+            settings={"execution.checkpointing.interval": CKPT_INTERVAL_S,
+                      "execution.checkpointing.dir": ckpt_dir})
+        fresh_memory(torch)
+        job = env.execute_async(f"q5-{name}")
+        wait_checkpoints(job, 1)
+        job.cancel()
+        cp = job.coordinator.latest_checkpoint()
+        stat = checkpoint_record(job, job.coordinator.stats[-1])
+        spilled_at_cp = job.operators[0].backend.spill_active
+        before = list(got1)
+        del job, env
+        loaded = load_checkpoint(cp.external_path)
+        (chain,) = [s["chain"] for s in loaded.task_snapshots.values()
+                    if s.get("chain")]
+        (window,) = [v for v in chain.values() if "keyed" in v]
+        op, _h = q5_operator(
+            torch, dev, cap, spill_staging_slots=SPILL_STAGING,
+            hbm_budget_slots=SPILL_BUDGET)
+        op.initialize_state([window["keyed"]], None)
+        twin = op.backend.snapshot(cp.checkpoint_id)
+        if snapshot_digest(twin) != snapshot_digest(
+                window["keyed"]["backend"]):
+            raise AssertionError(f"{name}: the checkpoint restored "
+                                 "under the other budget snapshots "
+                                 "differently")
+        twin_spilled = op.backend.spill_active
+        op.backend.prefetch_pipeline.close()
+        del op, _h, twin, loaded, chain, window
+        env2, got2, _span = q5_env(torch, dev, n_keys, n_events, cap,
+                                   staging=SPILL_STAGING, settings=budget)
+        env2.restore_from_checkpoint(cp.external_path)
+        job2 = env2.execute_async(f"q5-{name}-restored")
+        job2.wait()
+        ends = []
+        for rows in (before, got2):
+            e = [(ts + 1) // PANE_MS for ts, *_ in rows]
+            q5_check([by_end[x] for x in e], rows)
+            ends.append(e)
+        if not ends[1] or sorted(set(ends[0]) | set(ends[1])) != \
+                sorted(by_end):
+            raise AssertionError(f"{name}: windows {ends}")
+        crossings[name] = {
+            "checkpoint": stat, "spill_active_at_checkpoint":
+            spilled_at_cp, "spill_active_after_restore": twin_spilled,
+            "restored_run": spill_record(
+                job2, n_events, torch.cuda.max_memory_allocated()),
+            "windows_before": len(ends[0]),
+            "windows_after": len(ends[1]),
+            "windows_repeated": len(set(ends[0]) & set(ends[1]))}
+        del job2, env2, got2
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if not crossings["unbudgeted_to_budgeted"]["restored_run"][
+            "groups_spilled"]:
+        raise AssertionError("the crossing did not hold spilled state on "
+                             f"the budgeted side: {crossings}")
     return {"spill": f"Q5-{label}", "hbm_budget_slots": SPILL_BUDGET,
             "staging_slots": SPILL_STAGING, "windows_checked": windows,
             "ingest_step_spill_launches": launches["ingest_step_spill"],
             **record, "across_budgets": crossings}
+
+
+# -- tiered residency: the 2Q heat policy, promotion and the prefetch ------
+#: the hot-set shift (``shift_keys``): the seed of its key-group sets (C,
+#: cold then hot again; R, kept hot; X, the rest), the groups in C and in
+#: R, the share of R's keys drawn before the shift, and the events
+#: (shares of the run) where the phases change
+SHIFT_SEED = 16
+SHIFT_GROUPS = 32
+SHIFT_EARLY = 0.25
+SHIFT_PHASES = (1 / 8, 5 / 8)
+SHIFT_CKPT_INTERVAL_S = 2.0    # the checkpointed shift run's interval
+#: the shift's runs, (label, deferred step), both with
+#: ``state.tiering.async-prefetch`` true: the deferred step stages inline
+#: (its drains race a payload staged off the thread), host batches stage
+#: on the prefetch thread and its own stream
+SHIFT_RUNS = (("deferred", True), ("host_batch_async", False))
+
+
+def shift_pools(n_keys: int, seed: int = SHIFT_SEED) -> tuple:
+    """The keys 0..n_keys-1 in four pools laid end to end in one
+    permutation: X's keys, R's early keys, C's keys, R's late keys (C and
+    R each SHIFT_GROUPS key groups, seeded and disjoint; X the others).
+    Returns (the permutation, the pool sizes, C as a [MAXP] mask)."""
+    from flink_tpu_torch.core.keygroups import hash_batch, \
+        key_groups_for_hash_batch
+
+    groups = key_groups_for_hash_batch(
+        hash_batch(np.arange(n_keys, dtype=np.int64)), MAXP)
+    pick = np.random.default_rng(seed).permutation(MAXP)
+    c_set = np.zeros(MAXP, bool)
+    c_set[pick[:SHIFT_GROUPS]] = True
+    r_set = np.zeros(MAXP, bool)
+    r_set[pick[SHIFT_GROUPS:2 * SHIFT_GROUPS]] = True
+    x = np.flatnonzero(~(c_set | r_set)[groups])
+    r = np.flatnonzero(r_set[groups])
+    early = int(SHIFT_EARLY * len(r))
+    c = np.flatnonzero(c_set[groups])
+    perm = np.concatenate([x, r[:early], c, r[early:]]).astype(np.int64)
+    return perm, (len(x), early, len(c), len(r) - early), c_set
+
+
+def shift_pool_index(m, idx, batch: int, e0: int, e1: int, sizes: tuple):
+    """Each event's position in ``shift_pools``' permutation, from the
+    MULT mixer's key m (numpy or torch). Until event e0, X, R's early keys
+    and C: every group is touched. Until e1, C is touched no more: X and
+    R's early keys in even batches, R's early keys alone in odd ones, so
+    R's groups gain heat twice as fast as X's and, as X's keys fill the
+    table past the budget, evictions drive C to the host first, then X's
+    groups. After e1, C and R's late keys: C turns hot on the host, while
+    the late keys are new to R's groups on the card, so the table grows,
+    evictions of X's cooling groups make room, and C's groups, hotter than
+    X's on the host after a few boundaries, are promoted."""
+    x, re_, c, rl = sizes
+    odd = (idx // batch) % 2 == 1
+    p1 = odd * (x + m % re_) + ~odd * (m % (x + re_))
+    return ((idx < e0) * (m % (x + re_ + c))
+            + ((idx >= e0) & (idx < e1)) * p1
+            + (idx >= e1) * (x + re_ + m % (c + rl)))
+
+
+def shift_keys(n_keys: int, n_events: int, batch: int = BATCH
+               ) -> np.ndarray:
+    """Every event's key in the hot-set shift, in numpy (the oracle's)."""
+    perm, sizes, _c = shift_pools(n_keys)
+    idx = np.arange(n_events, dtype=np.int64)
+    m = ((idx.astype(np.uint64) * np.uint64(MULT))
+         % np.uint64(n_keys)).astype(np.int64)
+    e0, e1 = (int(f * n_events) for f in SHIFT_PHASES)
+    return perm[shift_pool_index(m, idx, batch, e0, e1, sizes)]
+
+
+def shift_gen_factory(torch, dev, batch: int = BATCH):
+    """``q5_env``'s ``gen`` for the hot-set shift: ``shift_keys`` on int64
+    indices on the card, the permutation uploaded once."""
+    def make(n_keys: int, n_events: int, span: int):
+        perm, sizes, _c = shift_pools(n_keys)
+        perm = torch.from_numpy(perm).to(dev)
+        e0, e1 = (int(f * n_events) for f in SHIFT_PHASES)
+        q5 = q5_gen(n_keys, n_events, span)
+
+        def gen(idx):
+            cols = q5(idx)
+            cols["auction"] = perm[shift_pool_index(
+                cols["auction"], idx, batch, e0, e1, sizes)]
+            return cols
+
+        return gen
+
+    return make
+
+
+def tier_record(torch, b) -> dict:
+    """A budgeted backend's tiering: groups and keys demoted (those a
+    forced spill took beyond its own, when the card's probe could not
+    rebuild the table without them, apart) and promoted, promotions
+    applied and refused, boundaries, the hit ratio
+    per boundary, seconds of tier_boundary on the task's thread and of
+    staging (off it when staging is asynchronous) and apply_promotion's
+    device ms between CUDA events."""
+    r = b.residency
+    if b.device.type == "cuda":
+        torch.cuda.synchronize()
+    series = r.hit_ratio_series()
+    return {"groups_demoted": r.evicted_groups,
+            "groups_demoted_by_forced_fallback": b.evictions[
+                "forced_fallback"],
+            "groups_promoted": r.promoted_groups,
+            "keys_promoted": b.host_tier.promoted_keys if b.host_tier else 0,
+            "promotions": dict(b.promotions), "boundaries": r.boundaries,
+            "hit_ratio_last": series[-1] if series else None,
+            "hit_ratio_series_len": len(series), "hit_ratio_series": series,
+            "tier_boundary_s": b.tier_s["boundary"],
+            "staging_s": b.tier_s["stage"], "apply_s": b.tier_s["apply"],
+            "apply_promotion_device_ms": sum(
+                s.elapsed_time(e) for s, e in b.promotion_events)}
+
+
+def rows_equal_under_tie_rule(a: list, b: list) -> int:
+    """Two Q5 runs' windows: the same ends, values and revenue, the keys
+    strictly above each window's k-th value equal with their values;
+    returns the windows whose rows are equal outright too."""
+    if [r[0] for r in a] != [r[0] for r in b]:
+        raise AssertionError("the runs fired different windows")
+    same = 0
+    for (ts, ka, ba, ra), (_t, kb, bb, rb) in zip(a, b):
+        if not np.array_equal(ba, bb) or len(ka) != len(kb):
+            raise AssertionError(f"window {ts}: counts differ")
+        kth = ba[-1] if len(ba) else 0
+        sa = {(int(k), int(c), int(v)) for k, c, v in zip(ka, ba, ra)
+              if c > kth}
+        sb = {(int(k), int(c), int(v)) for k, c, v in zip(kb, bb, rb)
+              if c > kth}
+        if sa != sb:
+            raise AssertionError(f"window {ts}: keys above the k-th value "
+                                 "differ")
+        same += bool(np.array_equal(ka, kb) and np.array_equal(ra, rb))
+    return same
+
+
+def tiering_phase(torch, dev, spill: dict, keys: int = 10_000_000,
+                  events: int = 1 << 25, cap: int = 1 << 24,
+                  budget: int = SPILL_BUDGET,
+                  staging: int = SPILL_STAGING, batch: int = BATCH,
+                  ckpt_interval: float = SHIFT_CKPT_INTERVAL_S) -> dict:
+    """Tiered residency at Q5-10M under ``hbm-budget-slots`` 2^23. The
+    spill phase's budgeted run is tiered (its record, ``spill``). Then the
+    hot-set shift (``shift_keys``): the runs of SHIFT_RUNS, every window
+    of each against the oracle, equal rows under the tie rule, at least
+    one promotion landing in each; then a deferred run checkpointed every
+    SHIFT_CKPT_INTERVAL_S and cancelled at its first checkpoint that holds
+    a promotion and host-tier keys (the backend's spill still active),
+    which restores into an unbudgeted operator that snapshots
+    byte for byte as it was stored, and into an unbudgeted job run to the
+    end (every window of both jobs against the oracle, together all of
+    them). Each run's tier record, events/s, peak memory and probe
+    launches."""
+    import shutil
+    import tempfile
+
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+    from flink_tpu_torch.checkpoint.storage import load_checkpoint
+
+    setting = {"state.backend.tpu.hbm-budget-slots": budget}
+    make_gen = shift_gen_factory(torch, dev, batch)
+    span = q5_panes(events, batch) * PANE_MS
+    expected = q5_expected(keys, events, span,
+                           keys=shift_keys(keys, events, batch))
+    by_end = {e[0]: e for e in expected}
+    cold = shift_pools(keys)[2]
+    runs, rows = {}, {}
+    for mode, defer in SHIFT_RUNS:
+        fresh_memory(torch)
+        reset_launches()
+        job, got, _span = run_q5(
+            torch, dev, keys, events, cap, batch=batch, staging=staging,
+            gen=make_gen, defer=defer,
+            settings={**setting, "state.tiering.async-prefetch": True})
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(KERNEL_LAUNCHES)
+        windows = q5_check(expected, got)
+        b = job.operators[0].backend
+        rec = {**spill_record(job, events, peak), **tier_record(torch, b),
+               "staging": ("off the task's thread"
+                           if b.prefetch_pipeline.asynchronous
+                           else "inline"),
+               "windows_checked": windows,
+               "hash_probe_launches": launches["hash_probe"],
+               "ingest_step_spill_launches": launches["ingest_step_spill"],
+               "cold_set_promoted": int(
+                   (cold & ~b.host_tier.spilled_mask).sum())}
+        if not rec["promotions"]["applied"]:
+            raise AssertionError(f"shift run ({mode}): no promotion landed: "
+                                 f"{rec}")
+        if b.prefetch_pipeline.asynchronous == defer:
+            raise AssertionError(f"shift run ({mode}): staging {rec['staging']}")
+        runs[mode], rows[mode] = rec, got
+        emit({"tiering_shift_run": mode, **rec})
+        del job, b
+    same = rows_equal_under_tie_rule(*rows.values())
+    del rows
+    ckpt_dir = tempfile.mkdtemp(prefix="flink_tpu_torch_tier_")
+    try:
+        env, got1, _span = q5_env(
+            torch, dev, keys, events, cap, batch=batch, staging=staging,
+            gen=make_gen,
+            settings={**setting,
+                      "execution.checkpointing.interval": ckpt_interval,
+                      "execution.checkpointing.dir": ckpt_dir})
+        fresh_memory(torch)
+        job = env.execute_async("q5-shift-checkpointed")
+        op = job.operators[0]
+        wait_checkpoints(job, 1, timeout=600.0,
+                         holds=lambda r: r.get("promotions", 0) > 0
+                         and r.get("host_keys", 0) > 0)
+        job.cancel()
+        spilled_at_cp = op.backend.spill_active
+        # the latest completed checkpoint: the first after a promotion, or
+        # one that completed after it before the cancel
+        cp = job.coordinator.latest_checkpoint()
+        (stat,) = [st for st in job.coordinator.stats
+                   if st["id"] == cp.checkpoint_id]
+        record = checkpoint_record(job, stat)
+        (at,) = [r for r in op.backend.snapshot_log
+                 if r["checkpoint_id"] == stat["id"]]
+        promotions_at, host_keys_at = at["promotions"], at["host_keys"]
+        if not (promotions_at and host_keys_at and spilled_at_cp):
+            raise AssertionError(
+                f"checkpoint {stat['id']}: promotions {promotions_at}, "
+                f"host-tier keys {host_keys_at}, spill active "
+                f"{spilled_at_cp}: it must hold a promotion and spilled "
+                "state")
+        before = list(got1)
+        del job, env, op
+        loaded = load_checkpoint(cp.external_path)
+        (chain,) = [s["chain"] for s in loaded.task_snapshots.values()
+                    if s.get("chain")]
+        (window,) = [v for v in chain.values() if "keyed" in v]
+        twin_op, _h = q5_operator(torch, dev, cap,
+                                  spill_staging_slots=staging)
+        twin_op.initialize_state([window["keyed"]], None)
+        if snapshot_digest(twin_op.backend.snapshot(cp.checkpoint_id)) != \
+                snapshot_digest(window["keyed"]["backend"]):
+            raise AssertionError("the checkpoint after a promotion restored "
+                                 "unbudgeted snapshots differently")
+        del twin_op, _h, loaded, chain, window
+        env2, got2, _span = q5_env(torch, dev, keys, events, cap,
+                                   batch=batch, staging=staging,
+                                   gen=make_gen)
+        env2.restore_from_checkpoint(cp.external_path)
+        job2 = env2.execute_async("q5-shift-restored")
+        job2.wait()
+        ends = []
+        for part in (before, got2):
+            e = [(ts + 1) // PANE_MS for ts, *_ in part]
+            q5_check([by_end[x] for x in e], part)
+            ends.append(e)
+        if not ends[1] or sorted(set(ends[0]) | set(ends[1])) != \
+                sorted(by_end):
+            raise AssertionError(f"checkpointed shift run: windows {ends}")
+        restored = {"checkpoint": record,
+                    "promotions_at_checkpoint": promotions_at,
+                    "host_keys_at_checkpoint": host_keys_at,
+                    "spill_active_at_checkpoint": spilled_at_cp,
+                    "snapshot_equal_unbudgeted": True,
+                    "windows_before": len(ends[0]),
+                    "windows_after": len(ends[1]),
+                    "windows_repeated": len(set(ends[0]) & set(ends[1]))}
+        del job2, env2, got2
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {"tiering": f"Q5-{keys // 1_000_000}M", "hbm_budget_slots": budget,
+            "budgeted_run": {k: spill[k] for k in spill
+                             if k != "across_budgets"},
+            "shift": {"seed": SHIFT_SEED, "groups_c_r": SHIFT_GROUPS,
+                      "early_share": SHIFT_EARLY, "phases": SHIFT_PHASES,
+                      "runs": runs,
+                      "rows_equal_under_tie_rule": True,
+                      "windows_identical_outright": same},
+            "restored_after_promotion": restored}
 
 
 # -- session windows: Nexmark Q11 and bench.py's session configuration ------
@@ -3308,14 +3624,65 @@ def sector_floor(torch, read: list, written: list) -> int:
         written)).numel())
 
 
-def step_sectors(torch, pre: dict, post: dict, b: dict) -> dict:
+#: a kernel that walks a plane in address order streams a block of
+#: DENSE_BLOCK sectors (2 KiB) of which at least DENSE_SHARE are touched;
+#: ``sector_rates`` measures address order at 12% to 22% of the sectors
+DENSE_BLOCK = 64
+DENSE_SHARE = 0.25
+
+
+def priced_sectors(torch, rates: dict, read: list, written: list,
+                   widths: dict, claimed=None, ordered: bool = False
+                   ) -> float:
+    """Milliseconds the card needs for a sector pattern at its measured
+    rates (``sector_rates``): sectors only read at read8's rate, sectors
+    ``claimed`` (a new key's table sector) at probe8's, every other
+    written sector once at store8's or store4's by its plane's cell width
+    (``widths``: plane -> bytes). The rates are the random ones, or with
+    ``ordered`` (the kernel walks every plane in address order) those in
+    address order, and the sectors of a dense block (DENSE_BLOCK sectors
+    of a plane, at least DENSE_SHARE of them touched) then stream at
+    3.35 TB/s, counted as ``sector_floor`` counts them."""
+    order = "sorted" if ordered else "random"
+
+    def per_ms(op):
+        return rates["ops"][op][order]["g_sectors_per_s"] * 1e6
+
+    w = torch.unique(torch.cat(written))
+    r = torch.unique(torch.cat(read))
+    r = r[~torch.isin(r, w)]
+    ms = 0.0
+    if ordered:
+        blocks, n = torch.unique(torch.cat([r, w]) // DENSE_BLOCK,
+                                 return_counts=True)
+        dense = blocks[n >= DENSE_SHARE * DENSE_BLOCK]
+        on_r = torch.isin(r // DENSE_BLOCK, dense)
+        on_w = torch.isin(w // DENSE_BLOCK, dense)
+        ms += bound_ms(32 * (int(on_r.sum()) + 2 * int(on_w.sum())))
+        r, w = r[~on_r], w[~on_w]
+    ms += r.numel() / per_ms("read8")
+    if claimed is not None:
+        on = torch.isin(w, claimed)
+        ms += int(on.sum()) / per_ms("probe8")
+        w = w[~on]
+    wide = torch.zeros(max(widths) + 1, dtype=torch.bool, device=w.device)
+    wide[[p for p, width in widths.items() if width >= 8]] = True
+    eight = wide[w >> 44]
+    return (ms + int(eight.sum()) / per_ms("store8")
+            + int((~eight).sum()) / per_ms("store4"))
+
+
+def step_sectors(torch, pre: dict, post: dict, b: dict,
+                 rates: dict | None = None) -> dict:
     """The step's sector floor on the [L, capacity] layout for this batch:
     per distinct key its table sector (written when new); for a key
     already present the open sectors of its L lanes, its cur_lane sector
     and the start and end sectors of its open lanes; the start, end, open,
     count and aggregate sectors of every lane the batch changed and the
     cur_lane sectors it changed, each read and written. The dirty bitmap
-    stays in L2 and is not counted."""
+    stays in L2 and is not counted. With ``rates``, that pattern at the
+    card's measured random rates (``priced_sectors``: a new key's table
+    sector claimed)."""
     from flink_tpu_torch.ops.hash_table import lookup, sanitize_keys_device
 
     keys = b["keys"]
@@ -3346,16 +3713,29 @@ def step_sectors(torch, pre: dict, post: dict, b: dict) -> dict:
     written += [sector_ids(torch, 6 + q, w, p.element_size())
                 for q, (_k, p) in enumerate(pre["folds"])]
     n = sector_floor(torch, read, written)
-    return {"sectors": n, "keys": int(uk.numel()), "new_keys": int(
+    out = {"sectors": n, "keys": int(uk.numel()), "new_keys": int(
         new.numel()), "sectors_per_key": n / max(1, int(uk.numel())),
         "sector_floor_ms": bound_ms(32 * n)}
+    if rates is not None:
+        widths = {0: 8, 1: 1, 2: 4, 3: 8, 4: 8, 5: 8,
+                  **{6 + q: p.element_size()
+                     for q, (_k, p) in enumerate(pre["folds"])}}
+        out["at_measured_rate_ms"] = priced_sectors(
+            torch, rates, read, written, widths,
+            claimed=sector_ids(torch, 0, new, 8))
+    return out
 
 
-def fire_sectors(torch, pre: dict, post: dict, outs_bytes: int) -> dict:
+def fire_sectors(torch, pre: dict, post: dict, outs_bytes: int,
+                 rates: dict | None = None) -> dict:
     """One fire round's sector floor on the layout: the open plane, the
     end sectors that hold an open lane, the table sectors of fired slots,
     and the start, end, count, open and aggregate sectors that hold a
-    fired lane, read and written; the outputs written whole."""
+    fired lane, read and written; the outputs written whole. With
+    ``rates``, that pattern at the card's measured rates in address order,
+    the order the kernel walks its lanes in (``priced_sectors``: dense
+    blocks, the open plane's scan among them, and the outputs at
+    3.35 TB/s)."""
     L, cap = pre["open"].shape
     idx = torch.arange(L * cap, device=pre["open"].device)
     opened = idx[pre["open"].view(-1) > 0]
@@ -3368,9 +3748,16 @@ def fire_sectors(torch, pre: dict, post: dict, outs_bytes: int) -> dict:
                 for q, (_k, p) in enumerate(pre["folds"])]
     n = sector_floor(torch, read, written)
     out = fired.numel() * (32 + outs_bytes) // 32
-    return {"sectors": n + out, "fired": int(fired.numel()),
-            "open_lanes": int(opened.numel()),
-            "sector_floor_ms": bound_ms(32 * (n + out))}
+    rec = {"sectors": n + out, "fired": int(fired.numel()),
+           "open_lanes": int(opened.numel()),
+           "sector_floor_ms": bound_ms(32 * (n + out))}
+    if rates is not None:
+        widths = {0: 8, 1: 1, 3: 8, 4: 8, 5: 8,
+                  **{6 + q: p.element_size()
+                     for q, (_k, p) in enumerate(pre["folds"])}}
+        rec["at_measured_rate_ms"] = bound_ms(32 * out) + priced_sectors(
+            torch, rates, read, written, widths, ordered=True)
+    return rec
 
 
 # -- adversarial inputs of the session kernels --------------------------------
@@ -3718,7 +4105,7 @@ def ptxas_report(text: str) -> dict:
     return out
 
 def check_session(torch, dev, flush, q11: dict | None = None,
-                  edges: bool = True) -> dict:
+                  edges: bool = True, rates: dict | None = None) -> dict:
     """session_step and session_fire against their plain versions: at
     Q11-10M's shapes (a 2^19-row batch into 2^24 slots, 4 lanes, with 4
     batches and their fires in the state; a fire over [4, 2^24] with half
@@ -3729,7 +4116,9 @@ def check_session(torch, dev, flush, q11: dict | None = None,
     batch's keys are new, key by key, its dirty blocks those of the batch's
     slots; emitted and fired rows equal; each kernel timed beside its
     plain version. ``q11``: another configuration in place of Q11-10M's;
-    ``edges``: also the adversarial cases (``session_edges``)."""
+    ``edges``: also the adversarial cases (``session_edges``); ``rates``
+    (``sector_rates``): each shape's sector floor also at the card's
+    measured random rates."""
     from flink_tpu_torch.ops.hash_table import lookup_or_insert, \
         sanitize_keys_device
     from flink_tpu_torch.ops.session import session_fire, \
@@ -3786,7 +4175,7 @@ def check_session(torch, dev, flush, q11: dict | None = None,
                             flush, setup=lambda: copy_state(live_plain, pre)),
         "bound_ms": bound_ms(step_bytes(torch, pre, batch, gap)),
         "bound_by": "bytes", "library_ms": None,
-        **step_sectors(torch, pre, st, batch)}
+        **step_sectors(torch, pre, st, batch, rates)}
     del st, plain, shared, twin, live, live_plain, pre
 
     # -- the cell's own shapes: half its batches and their fires, then the
@@ -3818,7 +4207,7 @@ def check_session(torch, dev, flush, q11: dict | None = None,
                             flush, setup=lambda: copy_state(live_plain, pre)),
         "bound_ms": bound_ms(step_bytes(torch, pre, batch, gap)),
         "bound_by": "bytes", "library_ms": None,
-        **step_sectors(torch, pre, st, batch)}
+        **step_sectors(torch, pre, st, batch, rates)}
     del plain, live, live_plain, pre
     pre = clone_state(st)
     plain = clone_state(st)
@@ -3846,7 +4235,7 @@ def check_session(torch, dev, flush, q11: dict | None = None,
                             flush, setup=lambda: copy_state(live_plain, pre)),
         "bound_ms": bound_ms(fire_bytes(pre, n_due, 0)),
         "bound_by": "bytes", "library_ms": None,
-        **fire_sectors(torch, pre, live, 0)}
+        **fire_sectors(torch, pre, live, 0, rates)}
     assert_free_lanes_hold_identities(torch, st, "the cell's middle")
     del st, plain, live, live_plain, pre
 
@@ -3894,7 +4283,7 @@ def check_session(torch, dev, flush, q11: dict | None = None,
                             flush, setup=lambda: copy_state(live_plain, pre)),
         "bound_ms": bound_ms(fire_bytes(pre, n_due, 0)),
         "bound_by": "bytes", "library_ms": None,
-        **fire_sectors(torch, pre, live, 0)}
+        **fire_sectors(torch, pre, live, 0, rates)}
     del st, plain, live, live_plain, pre
 
     # -- a small signature: sum, min, max, avg; disorder and late rows -------
@@ -4926,16 +5315,13 @@ def gagg_stage_device_ms(torch, step, setup, flush, launches: dict,
     flush), from the first of up to PROFILE_TRIES profiles that recorded
     every launch of the counters' ``launches`` a step."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     for tries in range(1, PROFILE_TRIES + 1):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with card_profile(torch) as prof:
             for _ in range(reps):
                 setup()
                 flush()
                 step()
-            torch.cuda.synchronize()
         got = {s: [0.0, 0] for s in GAGG_STAGES}
         for e in prof.events():
             if e.device_type != DeviceType.CUDA:
@@ -5114,15 +5500,13 @@ def sql_profile(torch, run) -> dict:
     the run's wall time; the profiler's count of each group aggregation
     kernel must equal its launch counter."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
 
     symbols = GAGG_SYMBOLS + (("hash_probe", "hash_probe_kernel"),)
     for tries in range(1, PROFILE_TRIES + 1):
         reset_launches()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with card_profile(torch, host=True) as prof:
             job, _res = run()
         by_name: dict[str, list] = {}
         for e in prof.events():
@@ -5135,8 +5519,8 @@ def sql_profile(torch, run) -> dict:
         if all(n == KERNEL_LAUNCHES[k] for k, n in counted.items()):
             break
     else:
-        raise AssertionError(f"profiler counted {counted}, the counters "
-                             f"{dict(KERNEL_LAUNCHES)}")
+        raise ProfileRecordsLost(f"profiler counted {counted}, the "
+                                 f"counters {dict(KERNEL_LAUNCHES)}")
     busy = sum(ms for ms, _n in by_name.values())
     wall = job.wall_s * 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
@@ -5198,7 +5582,7 @@ def sql_tpch_q1_phase(torch, dev) -> dict:
     rec = sql_run_record(torch, "sql_tpch_q1",
                          lambda: run_tpch_q1(torch, dev),
                          lambda res: tpch_check(expected, res), TPCH_ROWS)
-    rec["profile"] = sql_profile(torch, lambda: run_tpch_q1(torch, dev))
+    rec["profile"] = cell_profile(torch, dev, "sql_tpch_q1")
     return {"sql_tpch_q1": rec}
 
 
@@ -5213,7 +5597,7 @@ def sql_groupby_phase(torch, dev) -> dict:
                          lambda: run_groupby(torch, dev),
                          lambda res: groupby_check(expected, res),
                          GROUPBY_ROWS)
-    rec["profile"] = sql_profile(torch, lambda: run_groupby(torch, dev))
+    rec["profile"] = cell_profile(torch, dev, "sql_groupby_10m")
     del expected
     retract = retraction_rows(GROUPBY_KEYS, GROUPBY_ROWS, BATCH)
     expected = groupby_expected(GROUPBY_KEYS, GROUPBY_ROWS, retract)
@@ -5243,7 +5627,7 @@ LIST_EDGE_CASES = ("hot_key_past_L", "duplicates", "ragged", "drop_all",
                    "wide_list", "one_row", "probe_room")
 Q7J_PANE_MS, Q7J_PANES, Q7J_BATCH = 10_000, 8, 1 << 15
 Q7J_ROWS_PER_KEY = 32          # bench.py's rows_per_key
-Q7J_RUNS = 2                   # timed runs of each join cell
+Q7J_RUNS = 1                   # timed runs of each join cell
 #: bench.py::bench_framework_q7_join (:590-677), and the same job at 10M
 #: auctions; the 10M cell's bids are device batches (datagen(device=True))
 Q7J_CELLS = {
@@ -5913,7 +6297,6 @@ def join_profile(torch, run) -> dict:
     three profiles of q7_join_ref once lacked one list_append and one
     hash_probe launch."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
 
@@ -5923,8 +6306,7 @@ def join_profile(torch, run) -> dict:
         job = None          # the 10M cell's state fits on the card once
         fresh_memory(torch)
         reset_launches()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with card_profile(torch, host=True) as prof:
             job, _got = run()
         by_name: dict[str, list] = {}
         for e in prof.events():
@@ -6188,15 +6570,12 @@ def kernel_device_ms(torch, fn, flush, symbols: tuple, reps: int = 7
     any of ``symbols``: the profiler's sum over ``reps`` calls, each after
     the L2 flush, over ``reps`` (the host's part of a call left out)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with card_profile(torch) as prof:
         for _ in range(reps):
             flush()
             fn()
-        torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.events()
                if e.device_type == DeviceType.CUDA
                and any(sym in e.name for sym in symbols)) / 1e3 / reps
@@ -7517,15 +7896,13 @@ def dedup_profile(torch, run) -> dict:
     the run's wall time; the profiler's count of dedup_first's kernel must
     equal its launch counter."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
 
     symbols = ("dedup_first_kernel",)
     for tries in range(1, PROFILE_TRIES + 1):
         reset_launches()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with card_profile(torch, host=True) as prof:
             job, _got = run()
         by_name: dict[str, list] = {}
         for e in prof.events():
@@ -7538,8 +7915,8 @@ def dedup_profile(torch, run) -> dict:
         if set(counted.values()) == {KERNEL_LAUNCHES["dedup_first"]}:
             break
     else:
-        raise AssertionError(f"profiler counted {counted}, the counter "
-                             f"{KERNEL_LAUNCHES['dedup_first']}")
+        raise ProfileRecordsLost(f"profiler counted {counted}, the counter "
+                                 f"{KERNEL_LAUNCHES['dedup_first']}")
     busy = sum(ms for ms, _n in by_name.values())
     wall = job.wall_s * 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
@@ -7617,7 +7994,7 @@ def dedup_cell(torch, dev, cell: str = "dedup_10m") -> dict:
     del job, got
     runs = [dedup_run_record(torch, c, lambda: run_dedup(torch, dev, c),
                              expected) for _ in range(DEDUP_RUNS)]
-    prof = dedup_profile(torch, lambda: run_dedup(torch, dev, c))
+    prof = cell_profile(torch, dev, cell)
     ckpt = dedup_checkpoint(torch, dev, c, expected)
     eps = sorted(r["events_per_sec"] for r in runs)
     last = runs[-1]
@@ -7809,10 +8186,71 @@ def sql_join_phase(torch, dev, auctions: int = SQL_JOIN_AUCTIONS,
     return out
 
 
+#: the cells whose profile a fresh process can take again (``--profile
+#: CELL``): the profile function, the run it profiles, the cell's warm-up
+PROFILED_CELLS = {
+    "sql_tpch_q1": (sql_profile, lambda torch, dev: run_tpch_q1(torch, dev),
+                    lambda torch, dev: run_tpch_q1(torch, dev, 4 * BATCH)),
+    "sql_groupby_10m": (
+        sql_profile, lambda torch, dev: run_groupby(torch, dev),
+        lambda torch, dev: run_groupby(torch, dev, n_rows=4 * BATCH)),
+    "dedup_10m": (
+        dedup_profile, lambda torch, dev: run_dedup(torch, dev,
+                                                    dedup_config()),
+        lambda torch, dev: run_dedup(torch, dev, dedup_config(),
+                                     count=4 * dedup_config()["batch"])),
+}
+
+
+def cell_profile(torch, dev, cell: str) -> dict:
+    """A cell's profile (``PROFILED_CELLS``), taken in this process. When
+    each of its PROFILE_TRIES profiles lacked a kernel record, it is taken
+    again in a fresh process on the same card (``--profile CELL``), held
+    to the same count: late in this long process the profiler has lost a
+    record of 64 or 70 in three profiles in a row, and no profile of a
+    short process lost one (``tools/profile_records.py``). The record says
+    where it was taken and what the profiles here counted."""
+    profile_fn, run, _warm = PROFILED_CELLS[cell]
+    try:
+        return {**profile_fn(torch, lambda: run(torch, dev)),
+                "profiled_in": "this process"}
+    except ProfileRecordsLost as e:
+        lost = str(e)
+    fresh_memory(torch)
+    torch.cuda.empty_cache()
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--profile", cell], capture_output=True,
+                         text=True, timeout=PROFILE_CHILD_TIMEOUT_S,
+                         cwd=HERE, stdin=subprocess.DEVNULL)
+    if out.returncode != 0:
+        raise AssertionError(f"{cell}: {lost}; the fresh process's "
+                             f"profile failed (rc {out.returncode}): "
+                             f"{out.stderr[-3000:]}")
+    rec = json.loads(out.stdout.strip().splitlines()[-1])["profile"]
+    return {**rec, "profiled_in": "a fresh process",
+            "lost_in_this_process": lost}
+
+
+def profile_child(torch, dev, cell: str) -> int:
+    """``--profile CELL``: the cell's warm-up, then its profile, printed
+    as the last line ``{"profile": ...}``."""
+    profile_fn, run, warm = PROFILED_CELLS[cell]
+    warm(torch, dev)
+    emit({"profile": profile_fn(torch, lambda: run(torch, dev))})
+    return 0
+
+
 def main(argv: list[str]) -> int:
-    if argv and (argv[0] != "--parent-kernels" or len(argv) != 2):
-        print("usage: chip_smoke.py [--parent-kernels DIR]", file=sys.stderr)
+    if argv and (len(argv) != 2 or argv[0] not in ("--parent-kernels",
+                                                   "--profile")
+                 or argv[0] == "--profile"
+                 and argv[1] not in PROFILED_CELLS):
+        print("usage: chip_smoke.py [--parent-kernels DIR | --profile "
+              f"{'|'.join(PROFILED_CELLS)}]", file=sys.stderr)
         return 2
+    child = argv[1] if argv and argv[0] == "--profile" else None
+    if child:
+        argv = []
     pkg_dir = os.path.abspath(argv[1]) if argv else HERE
     # the smoke runs on one card: show torch only the first one, so the
     # count it reports is the count it used
@@ -7832,6 +8270,9 @@ def main(argv: list[str]) -> int:
         print(f"chip_smoke: cannot import flink_tpu_torch from {pkg_dir} "
               f"({e})", file=sys.stderr)
         return 2
+    if child:
+        kernels.build_all()
+        return profile_child(torch, torch.device("cuda", 0), child)
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
     dev = torch.device("cuda", 0)
@@ -7862,7 +8303,7 @@ def main(argv: list[str]) -> int:
     edges = ingest_edges(torch, dev)
     shape = check_launch_shape(torch, dev)
     window = check_window_seal(torch, dev, flush)
-    sess = check_session(torch, dev, flush)
+    sess = check_session(torch, dev, flush, rates=rates)
     gagg = check_group_agg(torch, dev, flush, rates)
     lists = check_device_lists(torch, dev, flush, rates)
     rows = check_row_state(torch, dev, flush, rates)
@@ -7931,6 +8372,9 @@ def main(argv: list[str]) -> int:
     spill = spill_phase(torch, dev)
     emit(spill)
     phase_done("spill")
+    tiering = tiering_phase(torch, dev, spill)
+    emit({"tiering_phase": tiering})
+    phase_done("tiering")
     sessions = {cell: session_cell(torch, dev, cell)
                 for cell in SESSION_CELLS}
     for cell in SESSION_CELLS:
@@ -8018,6 +8462,10 @@ def main(argv: list[str]) -> int:
                 **{k: shape[k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms")},
                 "share_of_bound": shape["bound_ms"] / shape["ms"],
+                "sector_floor_ms": shape["sector_floor_ms"],
+                "at_measured_rate_ms": shape["at_measured_rate_ms"],
+                "share_of_measured_rate": shape["at_measured_rate_ms"]
+                / shape["ms"],
                 "launches_session_100K": sessions["session-100K"][
                     "launches_per_run"][f"session_{kernel}"],
                 "shape": shape,
@@ -8142,6 +8590,9 @@ def main(argv: list[str]) -> int:
          # a device GROUP BY batch probes once; a join's launches are the
          # window's probes and its list stores' reloads
          "launches_by_path": {
+             "Q5-10M budget 2^23, tiered": spill["hash_probe_launches"],
+             **{f"tiering shift, {m} staging": r["hash_probe_launches"]
+                for m, r in tiering["shift"]["runs"].items()},
              "sql_tpch_q1": tpch["launches"]["hash_probe"],
              "sql_groupby_10m": groupby["launches"]["hash_probe"],
              **{cell: joins[cell]["launches_per_run"]["hash_probe"]

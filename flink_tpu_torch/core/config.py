@@ -55,6 +55,18 @@ DEFAULTS: dict[str, Any] = {
     # from the operator's per-slot footprint; the slots key wins when both
     # are set (0: unlimited)
     "state.backend.tpu.hbm-budget-bytes": 0,
+    # tiered residency under a budget (state/tiering/): batch boundaries
+    # between heat decay steps, the factor each step applies, the seed of
+    # the policy's tie-break permutation, staging promotions on a thread
+    # of their own (false: inline at the boundary, deterministic), the
+    # share of capacity promotions may fill, and the least decayed heat of
+    # a warm key group worth promoting
+    "state.tiering.decay-interval": 8,
+    "state.tiering.decay-factor": 0.5,
+    "state.tiering.seed": 24243,
+    "state.tiering.async-prefetch": True,
+    "state.tiering.promote-headroom": 0.5,
+    "state.tiering.promote-min-heat": 2.0,
     # split a plain GROUP BY into a local combine before the keyed
     # exchange and a global merge after it (the host route; the device
     # fold pre-aggregates a whole batch and skips the split)

@@ -10,7 +10,14 @@ coalesced ingest's accounting, with the reference's counter names.
   coalesced ingest step;
 * ``chain_fused_dispatches_total``: micro-batches a certified fused
   source -> window chain ran as one dispatch (a CUDA graph replay on the
-  card).
+  card);
+* tiered residency under an HBM budget (``state/tiering/``):
+  ``tier_evictions_total`` and ``tier_evicted_keys_total``, key groups
+  and keys paged to the host tier; ``tier_prefetches_total`` and
+  ``tier_promoted_keys_total``, key groups and keys promoted back;
+  ``tier_hot_hit_ratio``, accesses that found their group on the device
+  over all accesses; ``tier_hbm_bytes_in_use``, the device bytes of the
+  keyed-state planes at the last batch boundary.
 """
 
 from __future__ import annotations
@@ -29,6 +36,13 @@ class DeviceStats:
         self._batches_coalesced = 0
         self._fire_merge_rows = 0
         self._chain_dispatches = 0
+        self._tier_evictions = 0
+        self._tier_evicted_keys = 0
+        self._tier_prefetches = 0
+        self._tier_promoted_keys = 0
+        self._tier_hot_touches = 0
+        self._tier_touches = 0
+        self._tier_hbm_bytes = 0
 
     def note_panes_sealed(self, n: int = 1) -> None:
         with self._lock:
@@ -46,13 +60,40 @@ class DeviceStats:
         with self._lock:
             self._chain_dispatches += 1
 
-    def snapshot(self) -> dict[str, int]:
+    def note_tier_eviction(self, groups: int, keys: int) -> None:
+        with self._lock:
+            self._tier_evictions += int(groups)
+            self._tier_evicted_keys += int(keys)
+
+    def note_tier_prefetch(self, groups: int, keys: int) -> None:
+        with self._lock:
+            self._tier_prefetches += int(groups)
+            self._tier_promoted_keys += int(keys)
+
+    def note_tier_touches(self, hot: int, total: int) -> None:
+        with self._lock:
+            self._tier_hot_touches += int(hot)
+            self._tier_touches += int(total)
+
+    def set_tier_hbm_bytes(self, nbytes: int) -> None:
+        with self._lock:
+            self._tier_hbm_bytes = int(nbytes)
+
+    def snapshot(self) -> dict:
         """Flat cumulative view, under the reference's keys."""
         with self._lock:
             return {"panes_sealed_total": self._panes_sealed,
                     "batches_coalesced_total": self._batches_coalesced,
                     "fire_merge_rows_read": self._fire_merge_rows,
-                    "chain_fused_dispatches_total": self._chain_dispatches}
+                    "chain_fused_dispatches_total": self._chain_dispatches,
+                    "tier_evictions_total": self._tier_evictions,
+                    "tier_evicted_keys_total": self._tier_evicted_keys,
+                    "tier_prefetches_total": self._tier_prefetches,
+                    "tier_promoted_keys_total": self._tier_promoted_keys,
+                    "tier_hot_hit_ratio": round(
+                        self._tier_hot_touches / max(self._tier_touches, 1),
+                        6),
+                    "tier_hbm_bytes_in_use": self._tier_hbm_bytes}
 
 
 DEVICE_STATS = DeviceStats()

@@ -46,7 +46,12 @@
   window before its pane retires (``_host_fire_part``) and merges it at
   materialization, re-ranking top k across both tiers. A budgeted job
   does not take the fused chain: its lazy batches decode and go through
-  the spill step, as the reference does.
+  the spill step, as the reference does. After the drain, each boundary
+  runs the backend's tiering step (``tier_boundary``): the residency
+  policy's clock and decay, and at most one promotion of warm key groups
+  back into the device table; a promotion makes the incremental fire
+  rebuild its window state. The residency registers as
+  ``"{task_name}/{subtask_index}"`` (``state/tiering/residency.py``).
 
 Late records (pane already fired) are dropped and counted. Host batches
 (the test harness, host sources) take the host late filter and upload
@@ -243,7 +248,8 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
         self._backend = DeviceKeyedStateBackend(
             ctx.key_group_range, ctx.max_parallelism,
             capacity=self._capacity, device=self._device,
-            defer_overflow=self._defer, hbm_budget_slots=budget)
+            defer_overflow=self._defer, hbm_budget_slots=budget,
+            config=ctx.config)
         # a COUNT with value_bits <= 31 promises every per-window count
         # fits int32: the count plane halves its traffic
         cvb = min((a.value_bits for a in self._aggs if a.kind == "count"),
@@ -282,6 +288,16 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
             # first fire after a restore rebuilds it
             self._inc_stale = "restore"
             self._inc_next = None
+
+    def open(self) -> None:
+        if self._backend.tiering_active:
+            from ...state.tiering import register_residency
+            register_residency(self._residency_name,
+                               self._backend.residency)
+
+    @property
+    def _residency_name(self) -> str:
+        return f"{self.ctx.task_name}/{self.ctx.subtask_index}"
 
     def enable_fused_chain(self, source, subtask: int,
                            parallelism: int) -> bool:
@@ -500,9 +516,15 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
 
     def _pre_fire_flush(self) -> None:
         """Coalesced batches fold before any fire, then the staged host
-        tier rows: a fire merges the host tier's part of its window."""
+        tier rows: a fire merges the host tier's part of its window. With
+        nothing in flight for any group, the tiering step runs: a
+        promotion lands only here, at a batch boundary."""
         self._coalesce_flush()
         self._drain_spill_stage()
+        if self._backend is not None and self._backend.tiering_active \
+                and self._backend.tier_boundary():
+            # promoted keys arrive with identity window-role planes
+            self._inc_stale = self._inc_stale or "promotion"
 
     def _admit_token(self) -> None:
         """Bounded in-flight window: wait for the step ``max_inflight``
@@ -732,8 +754,11 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
             results = {n: np.concatenate(
                 [v, hres[n].astype(v.dtype, copy=False)])
                 for n, v in results.items()}
-            if self._topk is not None and len(keys) > self._topk:
-                # re-rank across both tiers, ties in (device, host) order
+            if self._topk is not None:
+                # re-rank across both tiers, ties in (device, host) order;
+                # also when both hold k keys or fewer together, so the rows
+                # come in rank order as an unbudgeted run's do (the
+                # reference re-ranks only past k)
                 order = np.argsort(-results[self._aggs[0].out_name],
                                    kind="stable")[:self._topk]
                 keys = keys[order]
@@ -770,6 +795,12 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
         self._coalesce_flush()
         self._drain(block=True)
         self._refresh_late()
+
+    def close(self) -> None:
+        if self._backend is not None and self._backend.tiering_active:
+            from ...state.tiering import unregister_residency
+            self._backend.prefetch_pipeline.close()
+            unregister_residency(self._residency_name)
 
     def _refresh_late(self) -> None:
         """Blocking read of the device late counter (finish and checkpoint

@@ -36,12 +36,27 @@ a snapshot does not depend on where a key lives (device or host tier).
   the plain version of the capture.
 * HBM budget (``hbm_budget_slots``): the capacity is capped at the largest
   power of two under it. When the table would pass 0.6 of the cap, the
-  coldest resident key groups (least recently touched, by a per-group
-  batch clock) move to the host tier (``state/spill.py``) and the table is
-  rebuilt without them. In deferred mode the split of each batch between
-  the tiers runs inside the ingest kernel (``StepSpill``): rows of spilled
-  groups and failed inserts are staged on the device and folded into the
-  host tier at the next watermark (``drain_staged``).
+  coldest resident key groups move to the host tier (``state/spill.py``)
+  and the table is rebuilt without them. Coldest is the residency
+  manager's decayed 2Q order (``state/tiering/``: probationary groups by
+  recency, then protected ones by heat and recency, a seeded permutation
+  breaking ties), fed each host batch's key groups or, in deferred mode,
+  the ingest kernel's per-group batch clock, read once a boundary. In
+  deferred mode the split of each batch between the tiers runs inside the
+  ingest kernel (``StepSpill``): rows of spilled groups and failed
+  inserts are staged on the device and folded into the host tier at the
+  next watermark (``drain_staged``).
+* Promotion (``tier_boundary``, at each batch boundary after the drain):
+  warm groups with heat enough are staged by the prefetch pipeline (their
+  rows gathered from the host tier into pinned memory and copied to the
+  device on a stream of its own, off the task's thread when
+  ``state.tiering.async-prefetch`` is true and the batches are host
+  batches; the deferred step's drains race every such payload, so it
+  stages inline), and at most one staged
+  payload lands a boundary (``apply_promotion``): its keys go into the
+  table at fixed capacity through the probe kernel, all or none, its rows
+  into every pane plane in place, and only then do the groups leave the
+  host tier, so a key is never split between the tiers or lost.
 * Row plane (the reference's typed row states, ``tpu_backend.py:1119-
   1258``): per-key values of any numeric dtype as three array states of
   kind ``sum``, ``name`` (values), ``name.__set__`` (int8 presence) and,
@@ -56,6 +71,7 @@ a snapshot does not depend on where a key lives (device or host tier).
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -64,9 +80,11 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
+from ..core.config import DEFAULTS
 from ..core.keygroups import KeyGroupRange, hash_batch, \
     key_groups_device, key_groups_for_hash_batch
 from ..device import numpy_dtype, torch_dtype
+from ..metrics.device import DEVICE_STATS
 from ..ops.hash_table import EMPTY_KEY, StepSpill, ingest_step, lookup, \
     lookup_or_insert, make_table, sanitize_keys_device
 from ..ops.row_state import MAP_HEAD, batch_map_entries, dedup_first, \
@@ -75,12 +93,24 @@ from ..ops.segment_ops import identity, make_accumulator, scatter_fold
 from .backend import State, ValueState
 from .descriptors import StateDescriptor
 from .spill import HostTier
+from .tiering import PrefetchPipeline, ResidencyManager
 
 __all__ = ["DeviceKeyedStateBackend"]
 
 _GROW_AT = 0.6   # occupancy share that triggers a doubling rehash
 _BLOCK = 512     # slots per dirty block
 _INT64_MAX = int(np.iinfo(np.int64).max)
+
+
+def _tiering_params(config) -> dict:
+    """The ``state.tiering.*`` keys (their defaults without a config)."""
+    get = DEFAULTS.get if config is None else config.get
+    return {"seed": int(get("state.tiering.seed")),
+            "decay_interval": int(get("state.tiering.decay-interval")),
+            "decay_factor": float(get("state.tiering.decay-factor")),
+            "promote_headroom": float(get("state.tiering.promote-headroom")),
+            "promote_min_heat": float(get("state.tiering.promote-min-heat")),
+            "async_prefetch": bool(get("state.tiering.async-prefetch"))}
 
 
 def _gather(src: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
@@ -128,7 +158,8 @@ class _ArrayState:
 class DeviceKeyedStateBackend:
     def __init__(self, key_group_range: KeyGroupRange, max_parallelism: int,
                  capacity: int = 1 << 16, device="cuda",
-                 defer_overflow: bool = False, hbm_budget_slots: int = 0):
+                 defer_overflow: bool = False, hbm_budget_slots: int = 0,
+                 config=None):
         self.key_group_range = key_group_range
         self.max_parallelism = max_parallelism
         self.device = torch.device(device)
@@ -154,16 +185,53 @@ class DeviceKeyedStateBackend:
         # -- spill tier (HBM budget) --------------------------------------
         self._host: Optional[HostTier] = None
         self._batch_no = 0
-        # per-group batch clock of the last touch (eviction is coldest
-        # first); the deferred step keeps a device twin (_touch_dev)
-        self._last_touch = np.zeros(max_parallelism, np.int64)
+        # tiered residency (state/tiering/), under a budget only: the
+        # manager's heat policy decides which groups evict and promote; the
+        # pipeline stages promotions, applied at batch boundaries
+        self._residency: Optional[ResidencyManager] = None
+        self._prefetch: Optional[PrefetchPipeline] = None
+        if budget:
+            params = _tiering_params(config)
+            self._residency = ResidencyManager(
+                max_parallelism, budget, seed=params["seed"],
+                decay_interval=params["decay_interval"],
+                decay_factor=params["decay_factor"],
+                promote_headroom=params["promote_headroom"],
+                promote_min_heat=params["promote_min_heat"])
+            # the deferred step's drain folds the hot spilled groups' rows
+            # into the host tier at every boundary, so a payload staged off
+            # the task's thread is always stale when it would apply and is
+            # gathered again: deferred staging runs inline
+            self._prefetch = PrefetchPipeline(
+                self._stage_promotion,
+                asynchronous=params["async_prefetch"] and not self._defer)
+        # the staging copies' stream (the card only)
+        self._stage_stream = (torch.cuda.Stream(self.device)
+                              if budget and self.device.type == "cuda"
+                              else None)
+        self._tier_lock = threading.Lock()
+        #: promotions applied, refused (headroom gone, or an insert that
+        #: did not fit) and gathered again (raced by a host tier mutation);
+        #: seconds of tier_boundary on the task's thread, of staging (off
+        #: it when staging is asynchronous) and of apply_promotion
+        self.promotions = {"applied": 0, "refused": 0, "regathered": 0}
+        self.tier_s = {"boundary": 0.0, "stage": 0.0, "apply": 0.0}
+        #: (start, end) CUDA events around the latest applied promotions'
+        #: device work (insert and plane scatters), for their device ms
+        self.promotion_events: deque = deque(maxlen=1024)
+        # the deferred step's spilled-group mask and per-group batch clock,
+        # on the device
         self._spilled_dev: Optional[torch.Tensor] = None
         self._touch_dev: Optional[torch.Tensor] = None
         # host positions and host slots of the last sync-path batch's
         # spilled rows, folded by fold_batch
         self._pending_host: Optional[tuple[np.ndarray, np.ndarray]] = None
-        #: evictions: calls, key groups and keys moved to the host
-        self.evictions = {"calls": 0, "groups": 0, "keys": 0}
+        #: evictions: calls, key groups and keys moved to the host;
+        #: ``forced_fallback``: groups a forced spill took beyond those it
+        #: was asked for, because the card's probe could not rebuild the
+        #: table at the same capacity without them (``_force_spill_groups``)
+        self.evictions = {"calls": 0, "groups": 0, "keys": 0,
+                          "forced_fallback": 0}
         #: seconds of the spill tier's work: host folds of staged rows,
         #: and evictions (gather, host absorb, table rebuild)
         self.spill_s = {"host_fold": 0.0, "evict": 0.0}
@@ -179,7 +247,8 @@ class DeviceKeyedStateBackend:
         #: update), order (on the device), gather (from the mirror) and
         #: host_tier (the spilled keys merged in)
         self.last_snapshot_s: dict[str, float] = {}
-        #: one record per snapshot: id, phases, DMA bytes, dirty share
+        #: one record per snapshot: id, phases, DMA bytes, dirty share,
+        #: keys (on the host tier too) and the promotions applied so far
         self.snapshot_log: deque = deque(maxlen=64)
         # -- row plane ------------------------------------------------------
         self._row_meta: dict[str, tuple[int, np.dtype]] = {}  # name -> ttl
@@ -244,7 +313,9 @@ class DeviceKeyedStateBackend:
             keys_np = keys.cpu().numpy()
             groups = key_groups_for_hash_batch(hash_batch(keys_np),
                                                self.max_parallelism)
-            self._last_touch[groups] = self._batch_no
+            self._residency.observe(
+                groups, self._batch_no,
+                self._host.spilled_mask if self._host is not None else None)
         while True:
             sp = None
             if self.spill_active and groups is not None:
@@ -253,8 +324,14 @@ class DeviceKeyedStateBackend:
                     sp = None
             valid = (None if sp is None
                      else torch.from_numpy(~sp).to(self.device))
-            _, slots, ok = lookup_or_insert(self.table, keys, valid)
+            # under a budget a batch that does not fit leaves the table as
+            # it was (the eviction that follows sees the reference's
+            # resident set); without one the claims carry into the rehash
+            work = self.table.clone() if self._budget else self.table
+            _, slots, ok = lookup_or_insert(work, keys, valid)
             all_ok = bool((ok if valid is None else ok | ~valid).all())
+            if all_ok and work is not self.table:
+                self.table.copy_(work)
             self._num_keys = int((self.table != EMPTY_KEY).sum())
             if all_ok:
                 if self._num_keys <= _GROW_AT * self.capacity:
@@ -374,17 +451,25 @@ class DeviceKeyedStateBackend:
         old_slots = torch.nonzero(occupied).flatten()
         self._rebuild(self.table[old_slots], old_slots, new_capacity)
 
+    def _fresh_table(self, keys: torch.Tensor, capacity: int
+                     ) -> Optional[tuple[torch.Tensor, torch.Tensor]]:
+        """A table of ``capacity`` holding ``keys`` and their int64 slots,
+        or None when the probe cannot place every key."""
+        table = make_table(capacity, self.device)
+        _, slots, ok = lookup_or_insert(table, keys.contiguous())
+        return (table, slots.to(torch.int64)) if bool(ok.all()) else None
+
     def _rebuild(self, keys: torch.Tensor, old_slots: torch.Tensor,
-                 new_capacity: int) -> None:
+                 new_capacity: int, fresh: Optional[tuple] = None) -> None:
         """Re-key every plane, window-role planes included, onto a fresh
-        table of ``new_capacity`` holding ``keys`` only."""
-        new_table = make_table(new_capacity, self.device)
-        if keys.numel():
-            _, new_slots, ok = lookup_or_insert(new_table, keys.contiguous())
-            if not bool(ok.all()):
+        table of ``new_capacity`` holding ``keys`` only (``fresh``: that
+        table and the keys' slots, already built)."""
+        if fresh is None:
+            fresh = self._fresh_table(keys, new_capacity)
+            if fresh is None:
                 raise RuntimeError(
                     "rebuild failed: pathological key distribution")
-            new_slots = new_slots.to(torch.int64)
+        new_table, new_slots = fresh
         for st in self._array_states.values():
             shape = (st.ring, new_capacity) if st.ring else (new_capacity,)
             new_arr = make_accumulator(st.kind, shape, st.dtype, self.device)
@@ -449,7 +534,7 @@ class DeviceKeyedStateBackend:
         return self._touch_dev
 
     def note_batch(self) -> int:
-        """Tick the monotone batch clock of the eviction order."""
+        """Tick the monotone batch clock of the residency policy."""
         self._batch_no += 1
         return self._batch_no
 
@@ -459,10 +544,13 @@ class DeviceKeyedStateBackend:
                 torch.from_numpy(self._host.spilled_mask))
 
     def _sync_touch_from_device(self) -> None:
-        """Adopt the device clock of the deferred step (at evictions)."""
-        if self._touch_dev is not None:
-            np.maximum(self._last_touch, self._touch_dev.cpu().numpy(),
-                       out=self._last_touch)
+        """Hand the deferred step's device clock to the residency policy
+        (at boundaries and evictions): one copy home of [max_parallelism]
+        int64."""
+        if self._touch_dev is not None and self._residency is not None:
+            self._residency.adopt_clock(
+                self._touch_dev.cpu().numpy(),
+                self._host.spilled_mask if self._host is not None else None)
 
     def _ensure_host_tier(self) -> HostTier:
         if self._host is None:
@@ -484,19 +572,18 @@ class DeviceKeyedStateBackend:
     def _evict_cold_groups(self, rebuild_capacity: Optional[int] = None,
                            batch_groups: Optional[np.ndarray] = None
                            ) -> None:
-        """Page the coldest resident key groups to the host tier, least
-        recently touched first (group id breaks ties), until the resident
-        keys fall to 0.4 of the capacity (a quarter of them at least).
-        When the resident set alone cannot make room, half of the
-        incoming batch's groups are spilled too, so every call spills at
-        least one group."""
+        """Page the coldest resident key groups to the host tier, in the
+        residency policy's order, until the resident keys fall to 0.4 of
+        the capacity (a quarter of them at least). When the resident set
+        alone cannot make room, half of the incoming batch's groups are
+        spilled too, so every call spills at least one group."""
         t0 = time.perf_counter()
         self._ensure_host_tier()
         cap = rebuild_capacity or self.capacity
         keys, slots, groups = self._device_resident()
         counts = np.bincount(groups, minlength=self.max_parallelism)
         resident = np.flatnonzero(counts > 0)
-        order = resident[np.lexsort((resident, self._last_touch[resident]))]
+        order = self._residency.eviction_order(resident)
         target = int(0.4 * cap)
         need = max(len(groups) - target, max(1, len(groups) // 4))
         evict, acc = [], 0
@@ -517,13 +604,19 @@ class DeviceKeyedStateBackend:
         gmask[evict] = True
         sel = gmask[groups]
         self._absorb_and_rebuild(keys, slots, sel, evict, cap)
-        self.evictions["calls"] += 1
-        self.evictions["groups"] += len(evict)
-        self.evictions["keys"] += int(sel.sum())
+        self._note_demoted(np.asarray(evict, np.int64), int(sel.sum()))
         self.spill_s["evict"] += time.perf_counter() - t0
 
+    def _note_demoted(self, groups: np.ndarray, keys: int) -> None:
+        self._residency.note_demoted(groups)
+        DEVICE_STATS.note_tier_eviction(len(groups), keys)
+        self.evictions["calls"] += 1
+        self.evictions["groups"] += len(groups)
+        self.evictions["keys"] += keys
+
     def _absorb_and_rebuild(self, keys: torch.Tensor, slots: torch.Tensor,
-                            sel: np.ndarray, groups, cap: int) -> None:
+                            sel: np.ndarray, groups, cap: int,
+                            fresh: Optional[tuple] = None) -> None:
         """Move the selected device entries (their rows gathered on the
         device, one copy home) into the host tier, mark their groups
         spilled, and rebuild the table without them."""
@@ -537,22 +630,41 @@ class DeviceKeyedStateBackend:
         host.spilled_mask[np.asarray(groups, np.int64)] = True
         if sel.any() or cap != self.capacity:
             keep = ~dsel
-            self._rebuild(keys[keep], slots[keep], cap)
+            self._rebuild(keys[keep], slots[keep], cap, fresh)
         self._sync_spilled_dev()
 
     def _force_spill_groups(self, groups: np.ndarray) -> None:
         """Page the given key groups to the host tier now (the staged
         rows of a group seen for the first time there), so no key is ever
-        split across the tiers."""
+        split across the tiers. When the card's probe cannot place the
+        keys left in a table of this capacity (the deferred step filled it
+        between two fires, and a rebuild lays keys out anew), the coldest
+        resident groups go too, in the residency policy's order, down to
+        0.4 of the capacity, as an eviction takes them."""
         t0 = time.perf_counter()
         keys, slots, g = self._device_resident()
+        groups = [int(x) for x in np.asarray(groups, np.int64)]
         gmask = np.zeros(self.max_parallelism, bool)
-        gmask[np.asarray(groups, np.int64)] = True
+        gmask[groups] = True
         sel = gmask[g]
-        self._absorb_and_rebuild(keys, slots, sel, groups, self.capacity)
-        self.evictions["calls"] += 1
-        self.evictions["groups"] += len(groups)
-        self.evictions["keys"] += int(sel.sum())
+        fresh = self._fresh_table(keys[torch.from_numpy(~sel).to(
+            self.device)], self.capacity) if sel.any() else None
+        if sel.any() and fresh is None:
+            counts = np.bincount(g[~sel], minlength=self.max_parallelism)
+            kept = int((~sel).sum())
+            asked = len(groups)
+            for grp in self._residency.eviction_order(
+                    np.flatnonzero(counts > 0)):
+                if kept <= int(0.4 * self.capacity):
+                    break
+                groups.append(int(grp))
+                kept -= int(counts[grp])
+            self.evictions["forced_fallback"] += len(groups) - asked
+            gmask[groups] = True
+            sel = gmask[g]
+        self._absorb_and_rebuild(keys, slots, sel, groups, self.capacity,
+                                 fresh)
+        self._note_demoted(np.asarray(groups, np.int64), int(sel.sum()))
         self.spill_s["evict"] += time.perf_counter() - t0
 
     def drain_staged(self, keys: np.ndarray, ring_idx: np.ndarray,
@@ -575,6 +687,161 @@ class DeviceKeyedStateBackend:
             st = self._array_states[name]
             host.fold(name, hslots, vals, ring_idx if st.ring else None)
         self.spill_s["host_fold"] += time.perf_counter() - t0
+
+    # -- tiered residency: the boundary hook and promotion ------------------
+    @property
+    def tiering_active(self) -> bool:
+        return self._residency is not None
+
+    @property
+    def residency(self) -> Optional[ResidencyManager]:
+        return self._residency
+
+    @property
+    def prefetch_pipeline(self) -> Optional[PrefetchPipeline]:
+        return self._prefetch
+
+    def tier_boundary(self) -> bool:
+        """The batch-boundary step of tiered residency, called by the
+        operator after the staged rows' drain (nothing is in flight for
+        any group): adopt the device clock, advance the decay cadence,
+        request promotion candidates from the prefetch pipeline and apply
+        at most one staged payload. Raises a staging failure. Returns True
+        when a promotion landed, so the operator can rebuild derived
+        window planes."""
+        if self._residency is None:
+            return False
+        t0 = time.perf_counter()
+        self._sync_touch_from_device()
+        self._residency.on_boundary()
+        changed = False
+        host = self._host
+        if host is not None and host.active:
+            counts = host.group_counts()
+            cands = self._residency.promotion_candidates(
+                host.spilled_mask, counts, self._num_keys, self.capacity)
+            if len(cands):
+                self._prefetch.request(cands)
+            payload = self._prefetch.poll()
+            if payload is not None:
+                changed = self.apply_promotion(payload)
+                counts = host.group_counts()
+            self._residency.update_view(host.spilled_mask, counts)
+        DEVICE_STATS.set_tier_hbm_bytes(self.state_nbytes)
+        with self._tier_lock:
+            self.tier_s["boundary"] += time.perf_counter() - t0
+        return changed
+
+    def _stage_promotion(self, groups: np.ndarray) -> Optional[dict]:
+        """Gather ``groups``' warm rows and copy them to the device (on the
+        prefetch thread, unless staging is synchronous). The gather runs
+        under the host tier's lock, into pinned memory on the card, and is
+        stamped with the tier's version; the copies run on a stream of
+        their own and record an event that ``apply_promotion`` waits on.
+        Exactly the groups' n rows are staged."""
+        t0 = time.perf_counter()
+        host = self._host
+        if host is None:
+            return None
+        cuda = self.device.type == "cuda"
+        bufs: list[torch.Tensor] = []
+
+        def alloc(shape, dtype) -> np.ndarray:
+            t = torch.empty(shape, dtype=torch_dtype(dtype), pin_memory=cuda)
+            bufs.append(t)
+            return t.numpy()
+
+        with host._mtx:
+            version = host.version
+            groups = np.asarray(groups, np.int64)
+            groups = groups[host.spilled_mask[groups]]
+            if len(groups) == 0:
+                return None
+            keys, vals = host.peek_groups(groups, alloc)
+        n = len(keys)
+        if n == 0:
+            return None
+        staged = dict(zip(["__keys__", *vals], bufs))
+        event = None
+        if cuda:
+            with torch.cuda.stream(self._stage_stream):
+                staged = {k: v.to(self.device, non_blocking=True)
+                          for k, v in staged.items()}
+                event = torch.cuda.Event()
+                event.record(self._stage_stream)
+        with self._tier_lock:
+            self.tier_s["stage"] += time.perf_counter() - t0
+        return {"groups": groups, "version": version, "n": n,
+                "keys": staged.pop("__keys__"), "values": staged,
+                "event": event, "pinned": bufs}
+
+    def apply_promotion(self, payload: dict) -> bool:
+        """Install a staged promotion at a batch boundary (task thread):
+        insert its keys into the table at fixed capacity (one probe
+        launch on a copy of the table, its ``ok`` read once, the copy
+        written back only if every key found a slot), scatter its rows
+        into every pane plane in place, then drop the groups from the
+        host tier and clear their spilled flags. A payload raced by a host
+        tier mutation since staging is gathered again first. Refused, with
+        nothing moved and the groups left warm, when the promoted and
+        resident keys would pass 0.6 of the capacity or the insert does
+        not fit."""
+        t0 = time.perf_counter()
+        host = self._host
+        groups = np.asarray(payload["groups"], np.int64)
+        if host is None:
+            return False
+        if payload["version"] != host.version:
+            self.promotions["regathered"] += 1
+            payload = self._stage_promotion(groups)
+            if payload is None:
+                return False
+            groups = payload["groups"]
+        n = int(payload["n"])
+        if self._num_keys + n > int(_GROW_AT * self.capacity):
+            self._refuse(groups)
+            return False
+        cuda = self.device.type == "cuda"
+        if cuda:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(payload["event"])
+            # made on the staging stream, used on this one: the caching
+            # allocator must not hand their memory out before this use
+            payload["keys"].record_stream(stream)
+            for v in payload["values"].values():
+                v.record_stream(stream)
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+        work = self.table.clone()
+        _, slots, ok = lookup_or_insert(work, payload["keys"])
+        if not bool(ok.all()):
+            self._refuse(groups)
+            return False
+        self.table.copy_(work)
+        self._num_keys += n
+        slots = slots.to(torch.int64)
+        for st in self._pane_states():
+            st.array.index_copy_(st.array.dim() - 1, slots,
+                                 payload["values"][st.name])
+        if cuda:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(stream)
+            self.promotion_events.append((start, end))
+        host.drop_groups(groups)
+        self._sync_spilled_dev()
+        self.mark_dirty(slots)
+        self._residency.note_promoted(groups)
+        DEVICE_STATS.note_tier_prefetch(len(groups), n)
+        self.promotions["applied"] += 1
+        with self._tier_lock:
+            self.tier_s["apply"] += time.perf_counter() - t0
+        return True
+
+    def _refuse(self, groups: np.ndarray) -> None:
+        """A staged promotion that does not land: discarded, its groups
+        stay warm and may be requested again."""
+        self._prefetch.forget(groups)
+        self.promotions["refused"] += 1
 
     # -- incremental capture -----------------------------------------------
     @property
@@ -925,7 +1192,8 @@ class DeviceKeyedStateBackend:
             "checkpoint_id": checkpoint_id, **self.last_snapshot_s,
             "dma_bytes": self.last_snapshot_dma_bytes, "dirty_share": share,
             "keys": int(keys.numel()),
-            "host_keys": 0 if host_keys is None else len(host_keys)})
+            "host_keys": 0 if host_keys is None else len(host_keys),
+            "promotions": self.promotions["applied"]})
         return {"kind": "tpu", "keys": keys.numpy(),
                 "key_groups": groups.numpy(),
                 "max_parallelism": self.max_parallelism, "states": states}
@@ -968,6 +1236,10 @@ class DeviceKeyedStateBackend:
         """Rebuild from snapshots of either package, keeping the keys of
         this backend's key-group range; under a budget, state above it is
         paged out to the host tier at once."""
+        if self._prefetch is not None:
+            # stagings gathered against the state before the restore must
+            # never apply
+            self._prefetch.cancel()
         all_keys, per_state, meta = [], {}, {}
         for snap in snapshots:
             groups = np.asarray(snap["key_groups"])
@@ -1004,7 +1276,6 @@ class DeviceKeyedStateBackend:
         self._host = None
         self._spilled_dev = None
         self._touch_dev = None
-        self._last_touch[:] = 0
         self._pending_host = None
         self._invalidate_mirror()
         if self._budget and self.capacity > self._budget:

@@ -13,10 +13,16 @@ The key index is the port's own hash table (``ops/hash_table.py``) on a
 CPU tensor, which runs its plain version there, next to a
 ``[table capacity]`` array of dense slots; it doubles when it passes the
 backend's 0.6 load factor. Keys arrive sanitized (never ``EMPTY_KEY``).
+
+The prefetch pipeline (``state/tiering/prefetch.py``) reads the tier from
+a thread of its own: every mutation bumps ``version`` and runs under an
+``RLock``, as does ``peek_groups``, so a staged gather is never torn and
+one raced by a later mutation is known stale.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import numpy as np
@@ -131,6 +137,13 @@ class HostTier:
         # True where the key group lives on the host
         self.spilled_mask = np.zeros(max_parallelism, bool)
         self.evicted_keys = 0      # keys moved device -> host
+        self.promoted_keys = 0     # keys moved host -> device
+        # monotone mutation counter: a promotion staged off the task's
+        # thread is applied only while it still matches
+        self.version = 0
+        # mutations and the staging thread's multi-read gather; reentrant
+        # because absorb nests slots_for
+        self._mtx = threading.RLock()
         self._keys = np.empty(self.cap, np.int64)     # dense-slot order
         self._groups = np.empty(self.cap, np.int32)
 
@@ -161,11 +174,13 @@ class HostTier:
     def slots_for(self, keys: np.ndarray) -> np.ndarray:
         """Upsert host-side keys -> dense host slots."""
         keys = np.ascontiguousarray(keys, np.int64)
-        n0 = len(self.index)
-        slots = self.index.upsert(keys, self.keys)
-        self._ensure(len(self.index) + 1)
-        self.record_new_keys(keys, slots, n0)
-        return slots
+        with self._mtx:
+            self.version += 1
+            n0 = len(self.index)
+            slots = self.index.upsert(keys, self.keys)
+            self._ensure(len(self.index) + 1)
+            self.record_new_keys(keys, slots, n0)
+            return slots
 
     def record_new_keys(self, keys: np.ndarray, slots: np.ndarray,
                         n0: int) -> None:
@@ -185,26 +200,29 @@ class HostTier:
         table's), so one gather-combine-scatter per plane does the fold."""
         if len(keys) == 0:
             return
-        n0 = len(self.index)
-        slots = self.slots_for(keys)
-        # every key new: their slots are n0, n0 + 1, ... in order, and the
-        # fold into identities is a copy into that slice
-        fresh = len(self.index) == n0 + len(keys)
-        for name, vals in values.items():
-            a = self.arrays[name]
-            vals = vals.astype(a.dtype, copy=False)
-            if fresh:
-                a.array[..., n0:n0 + len(keys)] = vals
-            else:
-                a.array[..., slots] = _COMBINE[a.kind](a.array[..., slots],
-                                                       vals)
-        self.evicted_keys += len(keys)
+        with self._mtx:
+            n0 = len(self.index)
+            slots = self.slots_for(keys)
+            # every key new: their slots are n0, n0 + 1, ... in order, and
+            # the fold into identities is a copy into that slice
+            fresh = len(self.index) == n0 + len(keys)
+            for name, vals in values.items():
+                a = self.arrays[name]
+                vals = vals.astype(a.dtype, copy=False)
+                if fresh:
+                    a.array[..., n0:n0 + len(keys)] = vals
+                else:
+                    a.array[..., slots] = _COMBINE[a.kind](
+                        a.array[..., slots], vals)
+            self.evicted_keys += len(keys)
 
     def fold(self, name: str, slots: np.ndarray, values: np.ndarray,
              ring_idx: Optional[np.ndarray]) -> None:
-        a = self.arrays[name]
-        idx = (ring_idx, slots) if a.ring else slots
-        _FOLDS[a.kind](a.array, idx, values.astype(a.dtype, copy=False))
+        with self._mtx:
+            self.version += 1
+            a = self.arrays[name]
+            idx = (ring_idx, slots) if a.ring else slots
+            _FOLDS[a.kind](a.array, idx, values.astype(a.dtype, copy=False))
 
     def keys(self) -> np.ndarray:
         """All host keys, in dense-slot order."""
@@ -229,9 +247,11 @@ class HostTier:
         return out
 
     def reset_ring_row(self, row: int) -> None:
-        for a in self.arrays.values():
-            if a.ring:
-                a.array[row] = _ident(a.kind, a.dtype)
+        with self._mtx:
+            self.version += 1
+            for a in self.arrays.values():
+                if a.ring:
+                    a.array[row] = _ident(a.kind, a.dtype)
 
     def key_groups(self) -> np.ndarray:
         """Key group of every host key, in dense-slot order."""
@@ -242,44 +262,56 @@ class HostTier:
         return np.bincount(self.key_groups(),
                            minlength=self.max_parallelism)
 
-    def peek_groups(self, groups: np.ndarray
+    def peek_groups(self, groups: np.ndarray, alloc=np.empty
                     ) -> tuple[np.ndarray, dict[str, np.ndarray]]:
-        """Read-only copy of ``groups``' keys and accumulator rows."""
+        """Read-only copy of ``groups``' keys and accumulator rows, into
+        arrays from ``alloc(shape, dtype)`` (called for the keys first,
+        then for each plane in order); safe from the staging thread.
+        Removes nothing: a promotion inserts on the device first and only
+        then calls ``drop_groups``."""
         sel = np.zeros(self.max_parallelism, bool)
         sel[np.asarray(groups, np.int64)] = True
-        pick = sel[self.key_groups()]
-        n = len(self.index)
-        return (self.keys()[pick].copy(),
-                {name: a.array[..., :n][..., pick].copy()
-                 for name, a in self.arrays.items()})
+        with self._mtx:
+            pick = np.flatnonzero(sel[self.key_groups()])
+            keys = np.take(self.keys(), pick,
+                           out=alloc((len(pick),), np.int64))
+            vals = {}
+            for name, a in self.arrays.items():
+                vals[name] = np.take(a.array, pick, axis=-1, out=alloc(
+                    a.array.shape[:-1] + (len(pick),), a.dtype))
+            return keys, vals
 
     def drop_groups(self, groups: np.ndarray) -> int:
         """Remove ``groups`` from the tier and compact the rest (a new
-        index over the survivors, in their order). Returns the keys
+        index over the survivors, dense in their order). Returns the keys
         dropped."""
         groups = np.asarray(groups, np.int64)
         sel = np.zeros(self.max_parallelism, bool)
         sel[groups] = True
-        pick = sel[self.key_groups()]
-        dropped = int(pick.sum())
-        if dropped:
-            n = len(self.index)
-            keep_keys = self.keys()[~pick].copy()
-            keep_groups = self.key_groups()[~pick].copy()
-            for a in self.arrays.values():
-                kept = a.array[..., :n][..., ~pick]
-                a.array[..., :len(keep_keys)] = kept
-                a.array[..., len(keep_keys):] = _ident(a.kind, a.dtype)
-            self.index = _KeyIndex(self.index._table.numel())
-            self.index.upsert(keep_keys, lambda: keep_keys)
-            self._keys[:len(keep_keys)] = keep_keys
-            self._groups[:len(keep_keys)] = keep_groups
-        self.spilled_mask[groups] = False
-        return dropped
+        with self._mtx:
+            self.version += 1
+            pick = sel[self.key_groups()]
+            dropped = int(pick.sum())
+            if dropped:
+                n = len(self.index)
+                keep_keys = self.keys()[~pick].copy()
+                keep_groups = self.key_groups()[~pick].copy()
+                for a in self.arrays.values():
+                    kept = a.array[..., :n][..., ~pick]
+                    a.array[..., :len(keep_keys)] = kept
+                    a.array[..., len(keep_keys):] = _ident(a.kind, a.dtype)
+                # the survivors are distinct: one insert rebuilds the index
+                self.index._rebuild(self.index._table.numel(), keep_keys)
+                self._keys[:len(keep_keys)] = keep_keys
+                self._groups[:len(keep_keys)] = keep_groups
+                self.promoted_keys += dropped
+            self.spilled_mask[groups] = False
+            return dropped
 
     def snapshot_parts(self) -> tuple[np.ndarray, dict[str, np.ndarray]]:
         """(keys, {name: [ring?, n] values}) for checkpointing."""
-        n = len(self.index)
-        return (self.keys().copy(),
-                {name: a.array[..., :n].copy()
-                 for name, a in self.arrays.items()})
+        with self._mtx:
+            n = len(self.index)
+            return (self.keys().copy(),
+                    {name: a.array[..., :n].copy()
+                     for name, a in self.arrays.items()})

@@ -1,0 +1,256 @@
+"""ResidencyManager: per-backend manager of tiered state decisions (a copy
+of ``flink_tpu/state/tiering/residency.py``).
+
+One manager per budgeted
+:class:`~flink_tpu_torch.state.device_backend.DeviceKeyedStateBackend`.
+It owns the :class:`~flink_tpu_torch.state.tiering.policy.TieringPolicy`,
+feeds it the access observations the backend already collects (per-batch
+group histograms on the host-batch path, the device touch clock on the
+deferred path), accounts hot-tier hit ratios into DEVICE_STATS, and
+answers the two questions the backend asks:
+
+* which resident groups to *demote* when the HBM budget is exceeded
+  (:meth:`eviction_order`), and
+* which warm groups to *promote* when there is headroom and sustained
+  heat (:meth:`promotion_candidates`).
+
+Everything here is host-side numpy: the backend hands over plain arrays
+(one read of the device clock a boundary) and applies the answers on the
+device itself.
+
+A process-global registry maps operator names to live managers
+(``register_residency``), for a per-key-group residency and heat table
+of a running job (``residency_table``, ``hit_ratio_series``).
+"""
+
+from __future__ import annotations
+
+import threading
+from collections import deque
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from ...metrics.device import DEVICE_STATS
+from .policy import TieringPolicy, stage_name
+
+# Upper bound on groups promoted per boundary: keeps each staging gather
+# and fixed-capacity insert small enough to stay boundary-amortized.
+MAX_PROMOTIONS_PER_BOUNDARY = 16
+
+# Per-boundary hit-ratio samples retained per manager: enough to see a
+# whole run's trajectory without unbounded growth.
+HIT_RATIO_WINDOW = 64
+
+
+class ResidencyManager:
+    """Tracks heat and residency for one backend's key groups."""
+
+    def __init__(self, max_parallelism: int, budget_slots: int, *,
+                 seed: int = 24243, decay_interval: int = 8,
+                 decay_factor: float = 0.5, promote_headroom: float = 0.5,
+                 promote_min_heat: float = 2.0):
+        self.max_parallelism = int(max_parallelism)
+        self.budget_slots = int(budget_slots)
+        self.promote_headroom = float(promote_headroom)
+        self.promote_min_heat = float(promote_min_heat)
+        self.policy = TieringPolicy(
+            self.max_parallelism, seed=seed,
+            decay_interval=decay_interval, decay_factor=decay_factor)
+        self._lock = threading.Lock()
+        # Cached residency view for the debug table; updated at events,
+        # never by syncing the device from here.
+        self._spilled_view = np.zeros(self.max_parallelism, bool)
+        self._warm_counts_view = np.zeros(self.max_parallelism, np.int64)
+        self.evicted_groups = 0
+        self.promoted_groups = 0
+        self.boundaries = 0
+        # per-boundary hot-hit-ratio time series: touches accumulate
+        # between boundaries, each boundary seals one sample into the
+        # bounded ring (a shift of the hot set shows as a trajectory, not
+        # in the run-wide cumulative ratio)
+        self._window_hot = 0
+        self._window_total = 0
+        self._hit_ratio_series: deque = deque(maxlen=HIT_RATIO_WINDOW)
+
+    # ------------------------------------------------------------------
+    # observations (fed by the backend)
+    # ------------------------------------------------------------------
+    def observe(self, groups: np.ndarray, batch_no: int,
+                spilled_mask: Optional[np.ndarray]) -> None:
+        """Account one batch of per-record key groups (host-batch path)."""
+        if len(groups) == 0:
+            return
+        with self._lock:
+            uniq, counts = np.unique(np.asarray(groups, np.int64),
+                                     return_counts=True)
+            self.policy.touch(uniq, batch_no, counts=counts)
+            total = int(counts.sum())
+            if spilled_mask is None:
+                hot = total
+            else:
+                hot = int(counts[~spilled_mask[uniq]].sum())
+            self._window_hot += hot
+            self._window_total += total
+            DEVICE_STATS.note_tier_touches(hot, total)
+
+    def adopt_clock(self, clock: np.ndarray,
+                    spilled_mask: Optional[np.ndarray]) -> None:
+        """Merge the on-device touch clock (deferred spill path)."""
+        with self._lock:
+            advanced = self.policy.adopt_clock(clock)
+            total = int(advanced.sum())
+            if total == 0:
+                return
+            if spilled_mask is None:
+                hot = total
+            else:
+                hot = int((advanced & ~spilled_mask).sum())
+            self._window_hot += hot
+            self._window_total += total
+            DEVICE_STATS.note_tier_touches(hot, total)
+
+    def on_boundary(self) -> bool:
+        """Advance the decay cadence at a checkpoint/fire boundary; seals
+        the boundary's hot-hit-ratio sample into the bounded ring."""
+        with self._lock:
+            self.boundaries += 1
+            if self._window_total:
+                self._hit_ratio_series.append(
+                    round(self._window_hot / self._window_total, 4))
+                self._window_hot = 0
+                self._window_total = 0
+            return self.policy.on_boundary()
+
+    def hit_ratio_series(self) -> List[float]:
+        """Per-boundary hot-tier hit ratios, oldest first (last
+        ``HIT_RATIO_WINDOW`` boundaries that saw any touches)."""
+        with self._lock:
+            return list(self._hit_ratio_series)
+
+    # ------------------------------------------------------------------
+    # decisions (answered to the backend)
+    # ------------------------------------------------------------------
+    def eviction_order(self, candidates: np.ndarray) -> np.ndarray:
+        """Coldest-first ordering of resident ``candidates``."""
+        with self._lock:
+            return self.policy.eviction_order(candidates)
+
+    def promotion_candidates(self, spilled_mask: np.ndarray,
+                             warm_counts: np.ndarray, resident_keys: int,
+                             capacity: int) -> np.ndarray:
+        """Warm groups worth paging back in, hottest first.
+
+        Greedy under the headroom constraint: the promoted keys plus the
+        currently resident keys must stay within ``promote_headroom`` of
+        capacity, so a promotion can never itself force an eviction.
+        """
+        with self._lock:
+            warm = np.nonzero(spilled_mask & (warm_counts > 0))[0]
+            ranked = self.policy.promotion_order(warm, self.promote_min_heat)
+            if len(ranked) == 0:
+                return ranked
+            room = int(self.promote_headroom * capacity) - int(resident_keys)
+            picked: List[int] = []
+            for g in ranked[:MAX_PROMOTIONS_PER_BOUNDARY]:
+                take = int(warm_counts[g])
+                if take > room:
+                    continue
+                room -= take
+                picked.append(int(g))
+            return np.asarray(picked, np.int64)
+
+    def note_demoted(self, groups: np.ndarray) -> None:
+        with self._lock:
+            self.policy.demote(groups)
+            self.evicted_groups += len(groups)
+            self._spilled_view[np.asarray(groups, np.int64)] = True
+
+    def note_promoted(self, groups: np.ndarray) -> None:
+        with self._lock:
+            self.policy.promote(groups)
+            self.promoted_groups += len(groups)
+            self._spilled_view[np.asarray(groups, np.int64)] = False
+
+    # ------------------------------------------------------------------
+    # debug view
+    # ------------------------------------------------------------------
+    def update_view(self, spilled_mask: Optional[np.ndarray],
+                    warm_counts: Optional[np.ndarray]) -> None:
+        """Refresh the cached residency view from backend-held arrays."""
+        with self._lock:
+            if spilled_mask is not None:
+                self._spilled_view = np.array(spilled_mask, bool, copy=True)
+            if warm_counts is not None:
+                self._warm_counts_view = np.array(
+                    warm_counts, np.int64, copy=True)
+
+    def table_rows(self, include_cold: bool = False) -> List[dict]:
+        """Per-key-group rows for the residency/heat debug table."""
+        with self._lock:
+            pol = self.policy
+            rows = []
+            for g in range(self.max_parallelism):
+                touched = pol.last_touch[g] > 0 or pol.heat[g] > 0
+                spilled = bool(self._spilled_view[g])
+                if not (touched or spilled or include_cold):
+                    continue
+                rows.append({
+                    "key_group": g,
+                    "tier": "warm" if spilled else "hot",
+                    "stage": stage_name(pol.stage[g]),
+                    "warm_keys": int(self._warm_counts_view[g]),
+                    "heat": round(float(pol.heat[g]), 3),
+                    "last_touch": int(pol.last_touch[g]),
+                })
+            return rows
+
+
+# ----------------------------------------------------------------------
+# process-global registry of the residency tables
+# ----------------------------------------------------------------------
+RESIDENCY_REGISTRY: Dict[str, ResidencyManager] = {}
+_REGISTRY_LOCK = threading.Lock()
+
+
+def register_residency(name: str, manager: ResidencyManager) -> None:
+    with _REGISTRY_LOCK:
+        RESIDENCY_REGISTRY[str(name)] = manager
+
+
+def unregister_residency(name: str) -> None:
+    with _REGISTRY_LOCK:
+        RESIDENCY_REGISTRY.pop(str(name), None)
+
+
+def residency_table(name: Optional[str] = None) -> List[dict]:
+    """Rows across registered managers, newest registration last.
+
+    ``name`` filters by substring match against the registered operator
+    name (job name, operator name, or ``job/operator``); an empty match
+    falls back to every registered manager so the debug table still shows
+    something useful when the caller guesses the name wrong.
+    """
+    with _REGISTRY_LOCK:
+        items = list(RESIDENCY_REGISTRY.items())
+    if name:
+        matched = [(k, m) for k, m in items if str(name) in k]
+        if matched:
+            items = matched
+    rows: List[dict] = []
+    for key, manager in items:
+        for row in manager.table_rows():
+            rows.append({"operator": key, **row})
+    return rows
+
+
+def hit_ratio_series(name: Optional[str] = None) -> Dict[str, List[float]]:
+    """Per-boundary hot-hit-ratio series per registered manager (same
+    substring matching + fall-back semantics as ``residency_table``)."""
+    with _REGISTRY_LOCK:
+        items = list(RESIDENCY_REGISTRY.items())
+    if name:
+        matched = [(k, m) for k, m in items if str(name) in k]
+        if matched:
+            items = matched
+    return {key: manager.hit_ratio_series() for key, manager in items}

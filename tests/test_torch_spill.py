@@ -500,3 +500,30 @@ def test_budgeted_snapshot_equals_unbudgeted_twin(ref, direction):
 
 def _first_end(h) -> int:
     return int(h.output.batches[0].timestamps[0])
+
+
+def test_topk_of_k_keys_or_fewer_across_tiers_in_rank_order(ref):
+    """Top 2000 of windows that hold fewer keys across both tiers: every
+    key emits, in rank order (values non-increasing) as the unbudgeted
+    twin's rows are, with the same (key, values) rows as the twin and as
+    the reference (which re-ranks only past k, so its rows are compared as
+    a set)."""
+    kw = dict(capacity=64, hbm_budget_slots=256, defer_overflow=True,
+              spill_staging_slots=1 << 10)
+    ops = _stream(seed=5)
+    aggs = (("sum", "v"), ("count", None))
+    _r, rh, pop, ph = _ops_pair(ref, "tumbling", aggs, kw, False, topk=2000)
+    _f, _fh, _p2, fh = _ops_pair(ref, "tumbling", aggs,
+                                 dict(capacity=1 << 12), False, topk=2000)
+    for h in (rh, ph, fh):
+        _feed(h, ops)
+    assert pop.backend.spill_active
+    got, twin, want = _rows(ph), _rows(fh), _rows(rh)
+    assert len(got) > 5
+    assert [g[0] for g in got] == [t[0] for t in twin] == [w[0] for w in want]
+    for (end, schema, grows), (_e, tschema, trows), (_w, _s, wrows) in zip(
+            got, twin, want):
+        assert schema == tschema
+        sums = [r[3] for r in grows]
+        assert sums == sorted(sums, reverse=True) == [r[3] for r in trows]
+        assert sorted(grows) == sorted(trows) == sorted(wrows)
