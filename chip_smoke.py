@@ -309,7 +309,19 @@ Run from the repository root:  python3 chip_smoke.py
     string state filter cut), a LEFT JOIN under a GROUP BY over its
     changelog (the device GROUP BY retracting the padded rows) and a
     temporal join; each query's final rows against a dict oracle, rows/s.
-26. The kernels line, the nvidia-smi line, then the last line
+26. ``faults_phase``: Q5-1M at its widths through ``env.execute()``,
+    every window against the oracle: a seeded transient ``device.execute``
+    schedule (retries), a persistent trip (one degrade to the CPU rung,
+    its seconds), a poison trip on the first step (that batch
+    quarantined, the oracle without it), a hang past a 1 s deadline (one
+    watchdog trip, one retry); ``execute(recover=True)`` with checkpoints
+    and a ``sink.invoke`` failure after the first (one restart from a
+    checkpoint, no window twice, peak memory beside the same run without
+    the fault); and the watchdog's cost at Q5-10M full (on and off in
+    turns, two runs each: events/s, supervised calls, host µs a call).
+    Every other phase must leave the fault counters at 0
+    (``fault_counters_by_phase``).
+27. The kernels line, the nvidia-smi line, then the last line
     {"ok": true, "device": {...}}.
 
 ``python3 chip_smoke.py --parent-kernels DIR`` instead times, with the same
@@ -1684,7 +1696,7 @@ def q5_env(torch, dev, n_keys: int, n_events: int, capacity: int,
            fire_mode: str = "full", window_panes: int = WINDOW_PANES,
            fused: bool = False, wm_interval: float = 0.0,
            settings: dict | None = None, rate: float | None = None,
-           staging: int = 1 << 16, source_hook=None, gen=None):
+           staging: int = 1 << 16, source_hook=None, gen=None, sink=None):
     """The Q5 pipeline on a fresh StreamExecutionEnvironment, not yet
     executed; returns (env, got, span ms), ``got`` filled by the sink with
     (window end - 1, auctions, bids, revenue) per window. ``defer`` False
@@ -1699,7 +1711,8 @@ def q5_env(torch, dev, n_keys: int, n_events: int, capacity: int,
     ``spill_staging_slots``; ``source_hook(source)`` receives the
     ``DataGenSource``; ``gen(n_keys, n_events, span)`` makes the
     generator in place of ``q5_gen`` (the same price and ts, other
-    keys)."""
+    keys); ``sink``: a port ``Sink`` in place of the one that fills
+    ``got``."""
     from flink_tpu_torch.api import StreamExecutionEnvironment
     from flink_tpu_torch.connectors.datagen import DataGenSource
     from flink_tpu_torch.core import Configuration, Schema, WatermarkStrategy
@@ -1711,7 +1724,7 @@ def q5_env(torch, dev, n_keys: int, n_events: int, capacity: int,
                      ("ts", np.int64)])
     got = []
 
-    def sink(b):
+    def collect(b):
         got.append((int(b.timestamps[0]), b.column("auction"),
                     b.column("bids"), b.column("revenue")))
 
@@ -1738,7 +1751,7 @@ def q5_env(torch, dev, n_keys: int, n_events: int, capacity: int,
                           emit_window_bounds=False, emit_topk=topk,
                           defer_overflow=defer, async_fire=True,
                           spill_staging_slots=staging)
-        .add_sink(sink))
+        .add_sink(collect if sink is None else sink))
     return env, got, span
 
 
@@ -1752,13 +1765,15 @@ def run_q5(torch, dev, n_keys: int, n_events: int, capacity: int, **kw):
 
 
 def q5_expected(n_keys: int, n_events: int, span: int, topk: int = TOPK,
-                window_panes: int = WINDOW_PANES, keys=None) -> list:
+                window_panes: int = WINDOW_PANES, keys=None,
+                skip: tuple | None = None) -> list:
     """The numpy oracle of every Q5 window, once per configuration:
     [(end pane, top values, candidates, their bids and revenue, keys
     strictly above the k-th value)], where the candidates are the keys at
     or above the k-th value. Each window's sums slide: its newest pane is
     added and the pane that left it subtracted, one bincount each.
-    ``keys``: each event's key, in place of ``q5_gen``'s."""
+    ``keys``: each event's key, in place of ``q5_gen``'s; ``skip``: the
+    event indices [lo, hi) left out (a quarantined batch)."""
     idx = np.arange(n_events, dtype=np.int64)
     if keys is None:
         keys = ((idx.astype(np.uint64) * np.uint64(MULT))
@@ -1767,11 +1782,15 @@ def q5_expected(n_keys: int, n_events: int, span: int, topk: int = TOPK,
     panes = (idx * span) // n_events // PANE_MS
     n_p = int(panes[-1]) + 1
     bounds = np.searchsorted(panes, np.arange(n_p + 1))
+    kept = np.ones(n_events, np.int64)
+    if skip is not None:
+        kept[skip[0]:skip[1]] = 0
 
     def pane_sums(p):
         a, b = bounds[p], bounds[p + 1]
-        return (np.bincount(keys[a:b], minlength=n_keys),
-                np.bincount(keys[a:b], weights=price[a:b],
+        return (np.bincount(keys[a:b], weights=kept[a:b],
+                            minlength=n_keys).astype(np.int64),
+                np.bincount(keys[a:b], weights=price[a:b] * kept[a:b],
                             minlength=n_keys).astype(np.int64))
 
     c = np.zeros(n_keys, np.int64)
@@ -3051,8 +3070,9 @@ def shift_gen_factory(torch, dev, batch: int = BATCH):
 
 def tier_record(torch, b) -> dict:
     """A budgeted backend's tiering: groups and keys demoted (those a
-    forced spill took beyond its own, when the card's probe could not
-    rebuild the table without them, apart) and promoted, promotions
+    forced spill took beyond its own apart: none, as the rebuilds the
+    card's probe cannot place take the home-slot layout, counted in
+    ``ordered_rebuilds``) and promoted, promotions
     applied and refused, boundaries, the hit ratio
     per boundary, seconds of tier_boundary on the task's thread and of
     staging (off it when staging is asynchronous) and apply_promotion's
@@ -3064,6 +3084,7 @@ def tier_record(torch, b) -> dict:
     return {"groups_demoted": r.evicted_groups,
             "groups_demoted_by_forced_fallback": b.evictions[
                 "forced_fallback"],
+            "ordered_rebuilds": b.evictions["ordered_rebuilds"],
             "groups_promoted": r.promoted_groups,
             "keys_promoted": b.host_tier.promoted_keys if b.host_tier else 0,
             "promotions": dict(b.promotions), "boundaries": r.boundaries,
@@ -3153,6 +3174,11 @@ def tiering_phase(torch, dev, spill: dict, keys: int = 10_000_000,
                                  f"{rec}")
         if b.prefetch_pipeline.asynchronous == defer:
             raise AssertionError(f"shift run ({mode}): staging {rec['staging']}")
+        if rec["groups_demoted_by_forced_fallback"]:
+            raise AssertionError(
+                f"shift run ({mode}): a forced spill took "
+                f"{rec['groups_demoted_by_forced_fallback']} groups beyond "
+                "those the reference evicts")
         runs[mode], rows[mode] = rec, got
         emit({"tiering_shift_run": mode, **rec})
         del job, b
@@ -4451,7 +4477,7 @@ TPCH_EXACT = ("sq", "sp", "aq", "ap", "co")
 TPCH_TOL = ("sd", "sc", "ad")
 #: Nexmark Q17's per-auction aggregates at the north star's 10M keys
 GROUPBY_KEYS = 10_000_000
-GROUPBY_ROWS = 1 << 25
+GROUPBY_ROWS = 1 << 24          # cut from 2^25 for the time limit
 GROUPBY_SQL = ("SELECT auction, COUNT(*) c, SUM(price) s, MIN(price) mn, "
                "MAX(price) mx, AVG(price) a FROM bid GROUP BY auction")
 # over a changelog input the planner sends MIN/MAX to the host's exact
@@ -8188,6 +8214,254 @@ def sql_join_phase(torch, dev, auctions: int = SQL_JOIN_AUCTIONS,
 
 #: the cells whose profile a fresh process can take again (``--profile
 #: CELL``): the profile function, the run it profiles, the cell's warm-up
+# -- faults, the watchdog and the supervisor ---------------------------------
+#: (run, faults.spec, extra keys) of the faults phase at Q5-1M; the visit
+#: numbers count guarded dispatches (each ingest step and each fire visits
+#: device.execute once): the poison trips the first step, the persistent
+#: fault lands late in the stream so the CPU rung's share stays short
+FAULT_RUNS = (
+    ("transient", "device.execute=p0.2", {}),
+    ("persistent", "device.execute=once@22!persistent", {}),
+    ("poison", "device.execute=once@1!poison", {}),
+    ("hang", "device.execute=once@5!hang@3000",
+     {"watchdog.device.execute-timeout": 1.0}),
+)
+FAULT_SEED = 17
+RESTART_RUN_S = 3.0            # the supervised run's source pacing
+RESTART_INTERVAL_S = 0.5       # and its checkpoint interval
+RESTART_SPEC = "sink.invoke=once@8!persistent"
+WATCHDOG_RUNS = 5              # Q5-10M runs with the watchdog on and off
+HANDOFF_CALLS = 20_000         # no-op guarded and supervised calls timed
+HANDOFF_REPEATS = 5            # on the host, this many times each
+
+
+def fault_counters() -> dict:
+    """The device guard's, the ladder's and the watchdog's counters."""
+    from flink_tpu_torch.metrics import DEVICE_STATS
+    snap = DEVICE_STATS.snapshot()
+    return {k: snap[k] for k in ("device_retries_total",
+                                 "device_degraded_total",
+                                 "dead_letter_records_total",
+                                 "dead_letter_batches_total",
+                                 "watchdog_trips_total",
+                                 "injected_faults_total",
+                                 "stall_detections_total")}
+
+
+def counters_delta(before: dict) -> dict:
+    now = fault_counters()
+    return {k: now[k] - before[k] for k in now}
+
+
+def fault_run(torch, dev, name: str, spec: str, extra: dict, expected,
+              n_keys: int, n_events: int, cap: int,
+              batch: int = BATCH) -> dict:
+    """One Q5 run through ``env.execute()`` under ``spec``: its windows
+    against ``expected`` (under the tie rule), the counters it moved, the
+    trip log and what the operator did."""
+    from flink_tpu_torch.runtime.faults import FAULTS
+    from flink_tpu_torch.runtime.watchdog import WATCHDOG
+
+    FAULTS.reset()
+    WATCHDOG.reset()
+    before = fault_counters()
+    fresh_memory(torch)
+    job, got, _span = run_q5(
+        torch, dev, n_keys, n_events, cap, batch=batch,
+        settings={"faults.enabled": True, "faults.seed": FAULT_SEED,
+                  "faults.spec": spec, **extra})
+    windows = q5_check(expected, got)
+    op = job.operators[0]
+    moved = counters_delta(before)
+    return {"run": name, "spec": spec, **extra,
+            "windows_checked": windows, "wall_s": job.wall_s,
+            "events_per_sec": n_events / job.wall_s,
+            "counters": moved, "trips": list(FAULTS.events),
+            "visits": FAULTS.snapshot()["visits"],
+            "guard": {"retries": op._guard.retries,
+                      "failures": op._guard.failures,
+                      "stalls": op._guard.stalls},
+            "degraded": op._degraded, "degrade_s": op.degrade_s,
+            "quarantined_batches": op.quarantined_batches,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def supervised_run(torch, dev, n_keys: int, n_events: int, cap: int,
+                   expected, spec: str, batch: int = BATCH) -> dict:
+    """Q5 through ``env.execute(recover=True)`` with checkpoints every
+    RESTART_INTERVAL_S, the source paced to RESTART_RUN_S, into a
+    two-phase sink; ``spec`` (may be empty) arms the faults. Every window
+    against the oracle, none twice; the attempts, restores and peak
+    memory."""
+    from flink_tpu_torch.connectors.core import TransactionalCollectSink
+    from flink_tpu_torch.runtime.faults import FAULTS
+
+    FAULTS.reset()
+    sink = TransactionalCollectSink()
+    before = fault_counters()
+    fresh_memory(torch)
+    env, _got, _span = q5_env(
+        torch, dev, n_keys, n_events, cap, batch=batch,
+        rate=n_events / RESTART_RUN_S, sink=sink,
+        settings={"execution.checkpointing.interval": RESTART_INTERVAL_S,
+                  "restart-strategy.type": "fixed-delay",
+                  "restart-strategy.fixed-delay.delay": 0.0,
+                  **({"faults.enabled": True, "faults.spec": spec}
+                     if spec else {})})
+    t0 = time.perf_counter()
+    job = env.execute("q5-supervised", recover=True)
+    wall = time.perf_counter() - t0
+    sup = env.last_supervisor
+    got = [(int(b.timestamps[0]), b.column("auction"), b.column("bids"),
+            b.column("revenue")) for b in sink.batches]
+    ends = [(ts + 1) // PANE_MS for ts, *_ in got]
+    if len(ends) != len(set(ends)):
+        raise AssertionError(f"a window was emitted twice: {ends}")
+    windows = q5_check(expected, got)
+    restored = [h.get("restored_checkpoint") for h in sup.failure_history
+                if h["kind"] == "restart"]
+    return {"spec": spec or None, "attempts": sup.attempt,
+            "failure_kinds": [h["kind"] for h in sup.failure_history],
+            "restored_checkpoints": restored,
+            "restart_s": sup.restart_s, "wall_s": wall,
+            "checkpoints_completed": len(
+                [st for st in job.coordinator.stats if not st.get("failed")]),
+            "windows_checked": windows, "windows_repeated": 0,
+            "counters": counters_delta(before),
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def watchdog_cost(torch, dev, cell: tuple = Q5_CELLS[1],
+                  batch: int = BATCH) -> dict:
+    """The watchdog's cost at Q5-10M full: WATCHDOG_RUNS runs with the
+    watchdog at its defaults and with ``watchdog.enabled`` false, in turns
+    (on, off, on, off, ...); events/s of each, their median, range and
+    spread, and the guarded and supervised calls of the on runs. Then the
+    host cost of one call alone, HANDOFF_REPEATS times HANDOFF_CALLS
+    no-op calls each: a guarded dispatch (on the caller's thread) and a
+    supervised call (handed to the worker), against as many direct
+    calls."""
+    from flink_tpu_torch.runtime.faults import FAULTS, DeviceGuard
+    from flink_tpu_torch.runtime.watchdog import WATCHDOG
+
+    label, n_keys, n_events, cap = cell
+    expected = q5_expected(n_keys, n_events,
+                           q5_panes(n_events, batch) * PANE_MS)
+    FAULTS.reset()
+    runs = {"on": [], "off": []}
+    for _ in range(WATCHDOG_RUNS):
+        for mode in ("on", "off"):
+            WATCHDOG.reset()
+            calls0 = WATCHDOG.calls
+            fresh_memory(torch)
+            job, got, _span = run_q5(
+                torch, dev, n_keys, n_events, cap, batch=batch,
+                settings={"watchdog.enabled": mode == "on"})
+            q5_check(expected, got)
+            runs[mode].append({
+                "wall_s": job.wall_s, "events_per_sec": n_events / job.wall_s,
+                "guarded_calls": job.operators[0]._guard.calls,
+                "supervised_calls": WATCHDOG.calls - calls0})
+            del job, got
+    WATCHDOG.reset()
+
+    def per_call_us(fn) -> list:
+        out = []
+        for _ in range(HANDOFF_REPEATS):
+            t0 = time.perf_counter()
+            for _ in range(HANDOFF_CALLS):
+                fn()
+            on_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for _ in range(HANDOFF_CALLS):
+                int()
+            out.append((on_s - (time.perf_counter() - t0))
+                       / HANDOFF_CALLS * 1e6)
+        return out
+
+    guard = DeviceGuard("watchdog_cost")
+    guarded = per_call_us(lambda: guard.run(int))
+    supervised = per_call_us(lambda: WATCHDOG.run("transfer.d2h", int))
+    eps = {m: [r["events_per_sec"] for r in rs] for m, rs in runs.items()}
+    med = {m: float(np.median(v)) for m, v in eps.items()}
+    return {"cell": f"Q5-{label} full", "events": n_events,
+            "runs": runs,
+            "events_per_sec": {m: {"median": med[m], "min": min(v),
+                                   "max": max(v),
+                                   "spread": (max(v) - min(v)) / med[m]}
+                               for m, v in eps.items()},
+            "on_over_off_median": med["on"] / med["off"],
+            "guarded_calls_per_run": runs["on"][0]["guarded_calls"],
+            "supervised_calls_per_run": [r["supervised_calls"]
+                                         for r in runs["on"]],
+            "guarded_us_per_call": guarded,
+            "supervised_us_per_call": supervised,
+            "workers_started": WATCHDOG.workers_started}
+
+
+def faults_phase(torch, dev, cell: tuple = Q5_CELLS[0],
+                 cost_cell: tuple = Q5_CELLS[1], batch: int = BATCH
+                 ) -> dict:
+    """Faults, the watchdog and the supervisor on Q5-1M at its full
+    widths (1M keys, capacity 2^21, ring 16, batch 2^19, W = 5, top 1000
+    by count with sum(price), 2^23 events), every run through
+    ``env.execute()`` and every window against the oracle:
+
+    * transient ``device.execute`` trips on a seeded schedule: retries;
+    * a persistent trip late in the stream: exactly one degrade, the rest
+      on the CPU rung, its evacuation timed;
+    * a poison trip on the first step: exactly that batch quarantined,
+      the oracle without it;
+    * a hang above a 1 s ``device.execute`` deadline: one watchdog trip
+      and one retry;
+    * ``execute(recover=True)`` with checkpoints and a persistent
+      ``sink.invoke`` trip after the first completed checkpoint: one
+      restart from it, no window twice, peak memory beside the same run
+      without the fault;
+    * the watchdog's cost at Q5-10M full (``watchdog_cost``)."""
+    label, n_keys, n_events, cap = cell
+    span = q5_panes(n_events, batch) * PANE_MS
+    expected = q5_expected(n_keys, n_events, span)
+    runs = {}
+    for name, spec, extra in FAULT_RUNS:
+        exp = (q5_expected(n_keys, n_events, span, skip=(0, batch))
+               if name == "poison" else expected)
+        runs[name] = rec = fault_run(torch, dev, name, spec, extra, exp,
+                                     n_keys, n_events, cap, batch)
+        c = rec["counters"]
+        ok = {"transient": c["device_retries_total"] > 0
+              and not rec["degraded"] and not rec["quarantined_batches"],
+              "persistent": c["device_degraded_total"] == 1
+              and rec["degraded"],
+              "poison": rec["quarantined_batches"] == 1
+              and c["dead_letter_batches_total"] == 1
+              and c["dead_letter_records_total"] == batch
+              and not rec["degraded"],
+              "hang": c["watchdog_trips_total"] == 1
+              and rec["guard"]["stalls"] == 1
+              and c["device_retries_total"] == 1
+              and not rec["degraded"]}[name]
+        if not ok:
+            raise AssertionError(f"faults phase, {name} run: {rec}")
+        emit({"faults_run": name, **{k: v for k, v in rec.items()
+                                     if k != "trips"},
+              "trips": rec["trips"][:16]})
+    clean = supervised_run(torch, dev, n_keys, n_events, cap, expected, "",
+                           batch)
+    restart = supervised_run(torch, dev, n_keys, n_events, cap, expected,
+                             RESTART_SPEC, batch)
+    if not (clean["attempts"] == 1 and restart["attempts"] == 2
+            and restart["failure_kinds"] == ["task-failure", "restart"]
+            and restart["restored_checkpoints"] != [None]):
+        raise AssertionError(f"supervised runs: {clean} {restart}")
+    cost = watchdog_cost(torch, dev, cost_cell, batch)
+    return {"faults_phase": f"Q5-{label}", "keys": n_keys,
+            "events": n_events, "capacity": cap, "batch": batch,
+            "runs": runs, "supervised": {"without_fault": clean,
+                                         "with_restart": restart},
+            "watchdog_cost": cost}
+
+
 PROFILED_CELLS = {
     "sql_tpch_q1": (sql_profile, lambda torch, dev: run_tpch_q1(torch, dev),
                     lambda torch, dev: run_tpch_q1(torch, dev, 4 * BATCH)),
@@ -8317,12 +8591,25 @@ def main(argv: list[str]) -> int:
     del flush
     phase_s = {"build_and_kernels": time.perf_counter() - t_start}
     t_phase = time.perf_counter()
+    # every phase but the faults phase runs with no fault armed: it must
+    # move none of the guard's, the ladder's or the watchdog's counters
+    phase_faults = {"build_and_kernels": counters_delta(
+        {k: 0 for k in fault_counters()})}
+    if any(phase_faults["build_and_kernels"].values()):
+        raise AssertionError("the kernel checks moved the fault counters: "
+                             f"{phase_faults['build_and_kernels']}")
+    counters_at = fault_counters()
 
     def phase_done(name: str) -> None:
-        nonlocal t_phase
+        nonlocal t_phase, counters_at
         now = time.perf_counter()
         phase_s[name] = now - t_phase
         t_phase = now
+        phase_faults[name] = counters_delta(counters_at)
+        counters_at = fault_counters()
+        if name != "faults" and any(phase_faults[name].values()):
+            raise AssertionError(f"phase {name} moved the fault counters: "
+                                 f"{phase_faults[name]}")
 
     check_sync_detector(torch, dev)
     # every cell's timed runs first, both fire modes in turns; then the
@@ -8401,7 +8688,10 @@ def main(argv: list[str]) -> int:
     phase_done("dedup_10m")
     emit({"sql_join": sql_join_phase(torch, dev)})
     phase_done("sql_join")
+    emit(faults_phase(torch, dev))
+    phase_done("faults")
     emit({"phase_seconds": phase_s})
+    emit({"fault_counters_by_phase": phase_faults})
     emit({"smoke_seconds_before_kernels_line": time.perf_counter() - t_start})
     main_run = q5_1m["full"]["launches_per_run"]
     inc_run = q5_10m["incremental"]["launches_per_run"]

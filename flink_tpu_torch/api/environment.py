@@ -42,6 +42,7 @@ class StreamExecutionEnvironment:
         self._sinks: list[Transformation] = []
         self._restore: Optional[CompletedCheckpoint] = None
         self.last_job: Optional[LocalJob] = None
+        self.last_supervisor = None
 
     # -- config sugar ------------------------------------------------------
     @property
@@ -144,13 +145,25 @@ class StreamExecutionEnvironment:
         return build_restore_map(cp, jg) if cp is not None else None
 
     def execute(self, job_name: str = "flink-tpu-torch-job",
-                timeout: Optional[float] = None) -> LocalJob:
+                timeout: Optional[float] = None,
+                recover: bool = False) -> LocalJob:
         """Compile and run to the end of input; returns the finished job
-        (also kept as ``last_job``)."""
+        (also kept as ``last_job``). ``recover``: run under a
+        ``JobSupervisor`` (kept as ``last_supervisor``), which restarts a
+        failed job from its latest verified checkpoint, or only the failed
+        pipelined regions, as ``restart-strategy.*`` allows."""
         jg = self.get_job_graph(job_name)
-        self.last_job = run_job(jg, self.config, self.device,
-                                timeout=timeout,
-                                restored_state=self._take_restore_map(jg))
+        if recover:
+            from ..cluster.scheduler import JobSupervisor
+            cp, self._restore = self._restore, None
+            self.last_supervisor = JobSupervisor(jg, self.config,
+                                                 self.device)
+            self.last_job = self.last_supervisor.run(timeout,
+                                                     initial_restore=cp)
+        else:
+            self.last_job = run_job(
+                jg, self.config, self.device, timeout=timeout,
+                restored_state=self._take_restore_map(jg))
         self._transformations, self._sinks = [], []
         return self.last_job
 

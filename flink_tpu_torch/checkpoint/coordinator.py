@@ -12,8 +12,14 @@ port of ``flink_tpu/checkpoint/coordinator.py``).
   old subtasks of its vertex (backends keep their key-group range), and
   reader state maps 1:1 when the parallelism is unchanged.
 
-One checkpoint is in flight at a time. Verification, quarantine and the
-changelog store of the reference are not ported.
+* ``latest_verified_checkpoint`` is what a restart restores from: the
+  newest retained checkpoint whose files pass their digests (on disk;
+  in-memory storage has nothing to verify). One that fails is recorded
+  on the job's failure history, moved aside and dropped, and the walk
+  goes on to the next; when none verifies it raises.
+
+One checkpoint is in flight at a time. The changelog store of the
+reference is not ported.
 """
 
 from __future__ import annotations
@@ -26,7 +32,8 @@ from typing import Any, Optional
 from ..core.config import Configuration
 from ..core.elements import CheckpointBarrier
 from .storage import CheckpointStorage, CompletedCheckpoint, \
-    FsCheckpointStorage, MemoryCheckpointStorage, snapshot_nbytes
+    CorruptArtifactError, FsCheckpointStorage, MemoryCheckpointStorage, \
+    snapshot_nbytes, verify_checkpoint
 
 __all__ = ["CheckpointCoordinator", "build_restore_map"]
 
@@ -64,7 +71,10 @@ class CheckpointCoordinator:
         self._completed: list[CompletedCheckpoint] = []
         self._lock = threading.Lock()
         self._stop = threading.Event()
+        self._paused = False
         self._thread: Optional[threading.Thread] = None
+        #: checkpoints that failed verification before a restore
+        self.verify_failures: list[dict] = []
         #: one record per finished checkpoint: duration, per-task
         #: barrier-to-ack seconds, store seconds, snapshot bytes
         self.stats: list[dict] = []
@@ -147,12 +157,68 @@ class CheckpointCoordinator:
                 old = regulars.pop(0)
                 self._completed.remove(old)
                 self.storage.discard(old)
+        # tell every task (a two-phase sink commits on this)
+        for t in list(self.job.tasks.values()):
+            t.execute_in_mailbox(
+                lambda t=t: t.chain.notify_checkpoint_complete(
+                    p.checkpoint_id) if t.chain is not None else None)
         p.completed = cp
         p.done.set()
 
     def latest_checkpoint(self) -> Optional[CompletedCheckpoint]:
         with self._lock:
             return self._completed[-1] if self._completed else None
+
+    def latest_verified_checkpoint(self) -> Optional[CompletedCheckpoint]:
+        """The newest retained checkpoint whose files pass their digests.
+        Raises CorruptArtifactError when checkpoints were retained and
+        none verifies: starting over would replay the stream past output
+        already committed."""
+        skipped = 0
+        while True:
+            with self._lock:
+                cand = self._completed[-1] if self._completed else None
+            if cand is None:
+                if skipped:
+                    raise CorruptArtifactError(
+                        f"all {skipped} retained checkpoints failed "
+                        "verification; refusing to restore")
+                return None
+            if (not isinstance(self.storage, FsCheckpointStorage)
+                    or not cand.external_path):
+                return cand
+            try:
+                verify_checkpoint(cand.external_path)
+                return cand
+            except CorruptArtifactError as e:
+                skipped += 1
+                event = {"timestamp": time.time(),
+                         "kind": "corrupt-artifact",
+                         "checkpoint": cand.checkpoint_id,
+                         "path": cand.external_path,
+                         "error": f"{type(e).__name__}: {e}"}
+                self.verify_failures.append(event)
+                hist = getattr(self.job, "failure_history", None)
+                if hist is not None:
+                    hist.append(event)
+                with self._lock:
+                    if cand in self._completed:
+                        self._completed.remove(cand)
+                self.storage.quarantine(cand)
+
+    def pause(self) -> None:
+        """Trigger no periodic checkpoint until ``resume``, and abort the
+        checkpoints in flight: a region restart removes tasks whose
+        barriers can then never be acknowledged."""
+        with self._lock:
+            self._paused = True
+            for cid, p in list(self._pending.items()):
+                del self._pending[cid]
+                p.done.set()
+
+    def resume(self) -> None:
+        with self._lock:
+            self._paused = False
 
     # -- periodic loop -----------------------------------------------------
     def start_periodic(self) -> None:
@@ -165,6 +231,8 @@ class CheckpointCoordinator:
 
     def _loop(self) -> None:
         while not self._stop.wait(self.interval):
+            if self._paused:
+                continue
             now = time.time()
             with self._lock:
                 for cid, p in list(self._pending.items()):

@@ -26,6 +26,16 @@
 
 The on-disk format is the port's own (raw pages, no compression); a
 snapshot crosses packages as the snapshot dict, not as files.
+
+Fault sites (``runtime/faults.py``): every store runs under the
+``checkpoint.write`` site and every load under ``checkpoint.load``, each
+bounded by ``watchdog.checkpoint-timeout`` with in-place retries of a
+stall (a write is published by a rename and chunks are content-addressed,
+so running one again is safe); a raising trip fails that store or load.
+Every file of array bytes written visits the mutation sites
+``checkpoint.corrupt`` (one byte flipped mid-file) and
+``checkpoint.truncate`` (the second half dropped), which the digests
+catch at load and at ``verify_checkpoint``.
 """
 
 from __future__ import annotations
@@ -44,7 +54,8 @@ import numpy as np
 
 __all__ = ["CompletedCheckpoint", "CheckpointStorage",
            "MemoryCheckpointStorage", "FsCheckpointStorage",
-           "CorruptArtifactError", "load_checkpoint", "snapshot_nbytes"]
+           "CorruptArtifactError", "load_checkpoint", "verify_checkpoint",
+           "snapshot_nbytes"]
 
 _MANIFEST = "_manifest.pkl"
 _CHUNKS = "chunks"
@@ -81,6 +92,52 @@ def snapshot_nbytes(obj: Any) -> int:
     return 0
 
 
+def _bounded_io(site: str, fn):
+    """One storage operation under the stall watchdog: the site's rule is
+    visited once per attempt on the caller's thread (a raising trip fails
+    the operation, it is not retried; a hang past the deadline retries in
+    place up to ``watchdog.stall-retries`` times), then ``fn`` runs under
+    the deadline. A stall of ``fn`` itself fails the operation: the
+    abandoned write or read may still be running, so it is never run
+    again beside it."""
+    from ..metrics.device import DEVICE_STATS
+    from ..runtime.faults import FAULTS
+    from ..runtime.watchdog import WATCHDOG, StallError
+
+    if FAULTS.enabled:
+        bound = (site, WATCHDOG.deadline_in_force(site),
+                 "checkpoint.storage")
+        for attempt in range(WATCHDOG.stall_retries + 1):
+            try:
+                FAULTS.fire(site, bound)
+                break
+            except StallError:
+                if attempt >= WATCHDOG.stall_retries:
+                    raise
+                DEVICE_STATS.note_retry(site)
+    return WATCHDOG.run(site, fn, scope="checkpoint.storage")
+
+
+def _fault_mutate(path: str) -> None:
+    """The artifact-corruption sites, visited after every file of array
+    bytes is written: ``checkpoint.corrupt`` flips one byte mid-file,
+    ``checkpoint.truncate`` drops the second half."""
+    from ..runtime.faults import FAULTS
+    if not FAULTS.enabled:
+        return
+    if FAULTS.check("checkpoint.corrupt"):
+        size = os.path.getsize(path)
+        with open(path, "r+b") as f:
+            f.seek(size // 2)
+            b = f.read(1)
+            f.seek(size // 2)
+            f.write(bytes([(b[0] if b else 0) ^ 0x40]))
+    if FAULTS.check("checkpoint.truncate"):
+        size = os.path.getsize(path)
+        with open(path, "r+b") as f:
+            f.truncate(max(size // 2, 1))
+
+
 class CheckpointStorage:
     def store(self, checkpoint: CompletedCheckpoint) -> CompletedCheckpoint:
         raise NotImplementedError
@@ -97,8 +154,11 @@ class MemoryCheckpointStorage(CheckpointStorage):
         self._store: dict[int, CompletedCheckpoint] = {}
 
     def store(self, checkpoint: CompletedCheckpoint) -> CompletedCheckpoint:
-        self._store[checkpoint.checkpoint_id] = checkpoint
-        return checkpoint
+        def write():
+            self._store[checkpoint.checkpoint_id] = checkpoint
+            return checkpoint
+
+        return _bounded_io("checkpoint.write", write)
 
     def discard(self, checkpoint: CompletedCheckpoint) -> None:
         self._store.pop(checkpoint.checkpoint_id, None)
@@ -230,6 +290,7 @@ class FsCheckpointStorage(CheckpointStorage):
             with open(part, "wb") as f:
                 f.write(raw)
             os.replace(part, path)
+            _fault_mutate(path)
             written = arr.nbytes
         return _ChunkRef(digest, arr.nbytes), written
 
@@ -270,6 +331,11 @@ class FsCheckpointStorage(CheckpointStorage):
                             f"{kind}-{checkpoint.checkpoint_id}")
 
     def store(self, checkpoint: CompletedCheckpoint) -> CompletedCheckpoint:
+        return _bounded_io("checkpoint.write",
+                           lambda: self._store_inner(checkpoint))
+
+    def _store_inner(self, checkpoint: CompletedCheckpoint
+                     ) -> CompletedCheckpoint:
         final = self._path(checkpoint)
         tmp = final + ".inprogress"
         shutil.rmtree(tmp, ignore_errors=True)
@@ -287,6 +353,7 @@ class FsCheckpointStorage(CheckpointStorage):
                 view = arr.reshape(-1).view(np.uint8)
                 with open(os.path.join(tmp, name), "wb") as f:
                     f.write(view)
+                _fault_mutate(os.path.join(tmp, name))
                 self.last_bytes_written += arr.nbytes
                 return _ArrayRef(name, arr.dtype.str, arr.shape, arr.nbytes,
                                  _digest(view))
@@ -330,6 +397,15 @@ class FsCheckpointStorage(CheckpointStorage):
     def load(self, path: str) -> CompletedCheckpoint:
         return load_checkpoint(path)
 
+    def quarantine(self, checkpoint: CompletedCheckpoint) -> None:
+        """Move a checkpoint that failed verification aside to
+        ``<dir>.corrupt`` and drop its chunk references."""
+        path = checkpoint.external_path or self._path(checkpoint)
+        shutil.rmtree(path + ".corrupt", ignore_errors=True)
+        if os.path.isdir(path):
+            os.replace(path, path + ".corrupt")
+        self._release_refs(checkpoint.checkpoint_id)
+
 
 def _walk_chunks(obj):
     if isinstance(obj, _PagedState):
@@ -345,7 +421,17 @@ def _walk_chunks(obj):
 def load_checkpoint(path: str) -> CompletedCheckpoint:
     """The checkpoint stored at ``path`` (a ``chk-<id>`` or ``sp-<id>``
     directory), every array read back and its digest checked; pages come
-    from the ``chunks`` directory beside it."""
+    from the ``chunks`` directory beside it. Site ``checkpoint.load``."""
+    return _bounded_io("checkpoint.load", lambda: _load(path))
+
+
+def verify_checkpoint(path: str) -> None:
+    """Read every array of the checkpoint at ``path`` back and check its
+    digest; raises CorruptArtifactError on the first that fails."""
+    _load(path)
+
+
+def _load(path: str) -> CompletedCheckpoint:
     path = path.rstrip("/")
     try:
         with open(os.path.join(path, _MANIFEST), "rb") as f:

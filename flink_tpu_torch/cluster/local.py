@@ -17,12 +17,23 @@ column); ``LocalJob.fusion_declined`` records why.
 
 The job's wall time runs from its first read to the end of input, with
 the device drained, so events/s of a job is records / ``wall_s``.
+
+Faults and supervision: ``deploy_local`` arms the process-global fault
+injector and stall watchdog from the job's configuration (idempotent on
+an unchanged spec, so a redeploy keeps its visit counters), writers wait
+at most ``task.backpressure.stall-timeout`` on a full channel, and
+``run_job`` runs a ``TaskStallDetector`` (``task.stall-timeout``) beside
+the job. ``LocalJob.wait_event`` and ``current_failures`` let the job
+supervisor (``cluster/scheduler.py``) see a failure without cancelling,
+and ``restart_region`` rebuilds the tasks of some vertices inside a
+running job. Every task failure lands in ``failure_history``.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from collections import deque
 from typing import Callable, Optional
 
 import torch
@@ -35,7 +46,7 @@ from ..runtime.stream_task import OneInputStreamTask, SourceStreamTask, \
     StreamTask, TaskReporter, TwoInputStreamTask
 from ..runtime.writer import RecordWriter
 
-__all__ = ["LocalJob", "deploy_local", "run_job"]
+__all__ = ["LocalJob", "deploy_local", "restart_region", "run_job"]
 
 
 class LocalJob(TaskReporter):
@@ -61,6 +72,9 @@ class LocalJob(TaskReporter):
         #: vertex id -> why the fused chain was not armed there
         self.fusion_declined: dict[str, str] = {}
         self._ended_at: Optional[float] = None
+        #: task failures, degrades and restart decisions; a supervisor
+        #: shares one across its attempts
+        self.failure_history: deque = deque(maxlen=64)
 
     # -- TaskReporter ------------------------------------------------------
     def acknowledge_checkpoint(self, task_id: str, checkpoint_id: int,
@@ -77,6 +91,10 @@ class LocalJob(TaskReporter):
     def task_failed(self, task_id: str, error: BaseException) -> None:
         with self._lock:
             self._failed.append((task_id, error))
+            self.failure_history.append({
+                "timestamp": time.time(), "task": task_id,
+                "job": self.job_graph.name, "kind": "task-failure",
+                "error": f"{type(error).__name__}: {error}"})
             self._done.set()
 
     # -- control -----------------------------------------------------------
@@ -95,6 +113,33 @@ class LocalJob(TaskReporter):
         for t in self.tasks.values():
             t.join(30)
         self._done.set()
+
+    def wait_event(self, timeout: Optional[float] = None) -> bool:
+        """Wait for the end or a failure without cancelling anything (the
+        supervisor tries a region restart first)."""
+        return self._done.wait(timeout)
+
+    def current_failures(self) -> list:
+        with self._lock:
+            return list(self._failed)
+
+    def release(self) -> None:
+        """Drop a finished or cancelled attempt's tasks and their chains:
+        its tasks and this job reference each other, so without this its
+        device state would wait for the cyclic collector. A recorded
+        failure keeps its message, not its traceback, whose frames would
+        hold the failed task's operators."""
+        for t in self.tasks.values():
+            t.chain = None
+        self.tasks = {}
+        self.source_tasks = {}
+        with self._lock:
+            for _tid, err in self._failed:
+                seen = set()
+                while err is not None and id(err) not in seen:
+                    seen.add(id(err))
+                    err.__traceback__ = None
+                    err = err.__cause__ or err.__context__
 
     def wait(self, timeout: Optional[float] = None) -> None:
         """Block until every task finished (or one failed); raises on a
@@ -157,26 +202,77 @@ def deploy_local(job_graph: JobGraph, config: Configuration,
     subtask); a checkpoint coordinator when checkpointing is on. Nothing
     runs until ``job.start()``."""
     job = LocalJob(job_graph, config, device)
-    # channels[edge index][src sub][dst sub]
-    channels: dict[int, list[list[LocalChannel]]] = {}
-    for ei, e in enumerate(job_graph.edges):
-        src = job_graph.vertices[e.source_vertex]
-        dst = job_graph.vertices[e.target_vertex]
-        channels[ei] = [[LocalChannel() for _ in range(dst.parallelism)]
-                        for _ in range(src.parallelism)]
-    _deploy_vertices(job, job_graph, config, channels, restored_state)
+    # arm (or disarm) the process-global fault injector and the watchdog's
+    # deadlines from this job's configuration
+    from ..runtime.faults import FAULTS
+    from ..runtime.watchdog import WATCHDOG
+    FAULTS.configure(config)
+    WATCHDOG.configure(config)
+    _deploy_vertices(job, job_graph, config,
+                     _channels(job_graph, set(job_graph.vertices)),
+                     restored_state, set(job_graph.vertices))
     if config.get("execution.checkpointing.interval") > 0:
         from ..checkpoint.coordinator import CheckpointCoordinator
         job.coordinator = CheckpointCoordinator(job, config)
     return job
 
 
+def _channels(job_graph: JobGraph, vids: set) -> dict:
+    """channels[edge index][src sub][dst sub] of the edges leaving
+    ``vids``."""
+    channels: dict[int, list[list[LocalChannel]]] = {}
+    for ei, e in enumerate(job_graph.edges):
+        if e.source_vertex not in vids:
+            continue
+        src = job_graph.vertices[e.source_vertex]
+        dst = job_graph.vertices[e.target_vertex]
+        channels[ei] = [[LocalChannel() for _ in range(dst.parallelism)]
+                        for _ in range(src.parallelism)]
+    return channels
+
+
+def restart_region(job: LocalJob, job_graph: JobGraph,
+                   config: Configuration, vids: set,
+                   restored_state: Optional[dict] = None) -> list[str]:
+    """Pipelined-region failover: tear down and rebuild only the tasks of
+    ``vids`` inside a running job; regions share no channels, so the rest
+    keeps running. Returns the restarted task ids."""
+    affected = [tid for tid in list(job.tasks)
+                if tid.rsplit("#", 1)[0] in vids]
+    old = []
+    for tid in affected:
+        t = job.tasks.pop(tid)
+        job.source_tasks.pop(tid, None)
+        t.cancel()
+        old.append(t)
+    for t in old:
+        # the old attempt unwinds (reporting task_finished) before the
+        # new one deploys under the same ids
+        t.join(10)
+        t.chain = None
+    _deploy_vertices(job, job_graph, config, _channels(job_graph, vids),
+                     restored_state, vids)
+    with job._lock:
+        job._failed = [(tid, err) for tid, err in job._failed
+                       if tid.rsplit("#", 1)[0] not in vids]
+        job._finished -= set(affected)
+        job._done.clear()
+        if job._failed:
+            job._done.set()   # another region failed meanwhile
+    for tid in affected:
+        job.tasks[tid].start()
+    return affected
+
+
 def _deploy_vertices(job: LocalJob, job_graph: JobGraph,
                      config: Configuration, channels: dict,
-                     restored_state: Optional[dict]) -> None:
+                     restored_state: Optional[dict], vids: set) -> None:
     aligned = config.get("execution.checkpointing.mode") == "exactly-once"
     cert = job_graph.certificate
+    bp_stall = float(config.get("task.backpressure.stall-timeout"))
     for vid, vertex in job_graph.vertices.items():
+        if vid not in vids:
+            continue
         out_edges = [(ei, e) for ei, e in enumerate(job_graph.edges)
                      if e.source_vertex == vid]
         in_edges = [(ei, e) for ei, e in enumerate(job_graph.edges)
@@ -190,7 +286,8 @@ def _deploy_vertices(job: LocalJob, job_graph: JobGraph,
             if any(e.side_tag is not None for _ei, e in out_edges):
                 raise NotImplementedError("the port has no side outputs")
             writers = [RecordWriter(channels[ei][sub],
-                                    e.partitioner_factory(), sub)
+                                    e.partitioner_factory(), sub,
+                                    stall_timeout=bp_stall)
                        for ei, e in out_edges]
             snapshot = (restored_state or {}).get(task_id)
             if vertex.kind == "source":
@@ -265,8 +362,16 @@ def run_job(job_graph: JobGraph, config: Configuration, device: torch.device,
             timeout: Optional[float] = None,
             restored_state: Optional[dict] = None) -> LocalJob:
     """Deploy, start (with periodic checkpoints when configured), and run
-    to the end of input."""
+    to the end of input. A task whose progress stalls with queued input
+    fails the job with a StallError (``task.stall-timeout``); without a
+    supervisor there is no restart."""
+    from ..runtime.watchdog import TaskStallDetector
     job = deploy_local(job_graph, config, device, restored_state)
+    detector = TaskStallDetector(job, float(config.get("task.stall-timeout")))
     job.start()
-    job.wait(timeout)
+    detector.start()
+    try:
+        job.wait(timeout)
+    finally:
+        detector.stop()
     return job

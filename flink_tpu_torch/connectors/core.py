@@ -4,7 +4,10 @@ keeps what it is given, the SQL layer's result sink.
 
 ``CollectSink`` keeps the columnar batches in arrival order and builds
 Python rows only when they are asked for, so a large changelog can be
-read column by column (``TableResult.batches``)."""
+read column by column (``TableResult.batches``).
+``TransactionalCollectSink`` shows a batch only once the checkpoint after
+it completed (or the input ended): a restart from a checkpoint drops what
+the failed attempt wrote since, so every row shows once."""
 
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ from typing import Any
 
 from ..core.records import RecordBatch
 
-__all__ = ["Sink", "SinkWriter", "CollectSink"]
+__all__ = ["Sink", "SinkWriter", "CollectSink", "TransactionalCollectSink"]
 
 
 class Sink:
@@ -58,6 +61,45 @@ class CollectSink(Sink):
             def write_batch(self, batch: RecordBatch) -> None:
                 with sink._lock:
                     sink.batches.append(batch)
+
+        return _Writer()
+
+    @property
+    def rows(self) -> list:
+        return [r for b in self.batches for r in b.iter_rows()]
+
+
+class TransactionalCollectSink(Sink):
+    """A two-phase collecting sink: each writer stages its batches, a
+    checkpoint's snapshot moves them into that checkpoint's transaction,
+    and the checkpoint's completion publishes them to ``batches``. A
+    writer of a failed attempt is dropped with what it staged."""
+
+    def __init__(self):
+        self.batches: list[RecordBatch] = []
+        self._lock = threading.Lock()
+
+    def create_writer(self, subtask_index: int) -> SinkWriter:
+        sink = self
+
+        class _Writer(SinkWriter):
+            def __init__(self):
+                self.staged: list[RecordBatch] = []
+                self.prepared: dict[int, list[RecordBatch]] = {}
+
+            def write_batch(self, batch: RecordBatch) -> None:
+                self.staged.append(batch)
+
+            def prepare_commit(self, checkpoint_id: int) -> None:
+                self.prepared.setdefault(checkpoint_id, []).extend(
+                    self.staged)
+                self.staged = []
+
+            def commit(self, checkpoint_id: int) -> None:
+                done = sorted(c for c in self.prepared if c <= checkpoint_id)
+                with sink._lock:
+                    for c in done:
+                        sink.batches.extend(self.prepared.pop(c))
 
         return _Writer()
 

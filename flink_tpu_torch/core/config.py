@@ -71,6 +71,41 @@ DEFAULTS: dict[str, Any] = {
     # exchange and a global merge after it (the host route; the device
     # fold pre-aggregates a whole batch and skips the split)
     "sql.optimizer.agg-phase-strategy.two-phase": True,
+    # fault injection (reference FaultOptions): the master switch, the seed
+    # of probabilistic rules, the rules '<site>=<mode>[!flag...]' (modes
+    # once@N, every@N, p<float>, always, off; flags !persistent, !poison,
+    # !hang@MS; runtime/faults.py), screening of float aggregate columns
+    # for NaN/Inf, and the device guard's retries, backoff and degrade
+    # ladder
+    "faults.enabled": False,
+    "faults.seed": 0,
+    "faults.spec": "",
+    "faults.validate-batches": False,
+    "device.failover.max-retries": 3,
+    "device.failover.retry-backoff": 0.005,
+    "device.failover.retry-backoff-max": 0.25,
+    "device.failover.degradation": True,
+    # the stall watchdog (reference WatchdogOptions): per-site deadlines of
+    # supervised calls (0: unbounded, a direct call), in-place retries of a
+    # hang before its region starts, and task-progress supervision
+    "watchdog.enabled": True,
+    "watchdog.device.execute-timeout": 300.0,
+    "watchdog.transfer-timeout": 120.0,
+    "watchdog.checkpoint-timeout": 300.0,
+    "watchdog.tier-timeout": 120.0,
+    "watchdog.stall-retries": 1,
+    "task.stall-timeout": 120.0,
+    "task.backpressure.stall-timeout": 300.0,
+    # restart strategies of the job supervisor (reference RuntimeOptions):
+    # none | fixed-delay | exponential-delay | failure-rate
+    "restart-strategy.type": "exponential-delay",
+    "restart-strategy.fixed-delay.attempts": 3,
+    "restart-strategy.fixed-delay.delay": 0.1,
+    "restart-strategy.failure-rate.max-failures-per-interval": 3,
+    "restart-strategy.failure-rate.failure-rate-interval": 60.0,
+    "restart-strategy.failure-rate.delay": 0.1,
+    "restart-strategy.exponential-delay.initial-backoff": 0.05,
+    "restart-strategy.exponential-delay.max-backoff": 10.0,
 }
 
 
@@ -83,7 +118,17 @@ class SqlOptions:
 _TYPES: dict[str, type] = {"execution.checkpointing.dir": str}
 _DURATIONS = {"pipeline.auto-watermark-interval",
               "execution.checkpointing.interval",
-              "execution.checkpointing.timeout"}
+              "execution.checkpointing.timeout",
+              "device.failover.retry-backoff",
+              "device.failover.retry-backoff-max",
+              "watchdog.device.execute-timeout", "watchdog.transfer-timeout",
+              "watchdog.checkpoint-timeout", "watchdog.tier-timeout",
+              "task.stall-timeout", "task.backpressure.stall-timeout",
+              "restart-strategy.fixed-delay.delay",
+              "restart-strategy.failure-rate.failure-rate-interval",
+              "restart-strategy.failure-rate.delay",
+              "restart-strategy.exponential-delay.initial-backoff",
+              "restart-strategy.exponential-delay.max-backoff"}
 _MEMORY = {"state.backend.tpu.hbm-budget-bytes"}
 _DURATION_RE = re.compile(r"^\s*([0-9.]+)\s*(ms|s|min)?\s*$")
 _UNITS = {"ms": 1e-3, "s": 1.0, "min": 60.0}

@@ -49,6 +49,7 @@ from ..device import note_launch
 from .segment_ops import scatter_fold
 
 __all__ = ["EMPTY_KEY", "MAX_PROBES", "sanitize_keys_device", "make_table",
+           "ordered_table",
            "hash_keys_device", "lookup", "lookup_or_insert",
            "lookup_or_insert_plain", "lookup_plain", "ingest_step",
            "ingest_step_plain", "StepSpill"]
@@ -71,6 +72,52 @@ def make_table(capacity: int, device) -> torch.Tensor:
         raise ValueError(f"capacity {capacity} not a power of two")
     return torch.full((capacity,), EMPTY_KEY, dtype=torch.int64,
                       device=device)
+
+
+def ordered_table(keys: torch.Tensor, capacity: int
+                  ) -> Optional[tuple[torch.Tensor, torch.Tensor]]:
+    """A table of ``capacity`` holding the distinct ``keys`` in home-slot
+    order, and the keys' int64 slots; None when a key would sit
+    ``MAX_PROBES`` or more past its home.
+
+    Each key takes the first free slot at or after its home in the order
+    of the homes: slot_i = max(home_i, slot_(i-1) + 1), a prefix maximum,
+    so no probe runs and no claim order enters. This layout displaces no
+    key further than any linear-probe layout of the same keys can (the
+    greedy in order of the homes minimises the largest displacement), so
+    keys that one table held within the probe window fit again at the same
+    capacity, whatever order a probe would claim them in. Every slot from
+    a key's home to its own is taken, so lookups that stop at an empty
+    slot find it. Keys pushed past the end wrap to the front; the carry
+    into slot 0 is iterated to its fixed point."""
+    n = keys.numel()
+    dev = keys.device
+    table = make_table(capacity, dev)
+    if n == 0:
+        return table, torch.empty(0, dtype=torch.int64, device=dev)
+    if n > capacity:
+        return None
+    home = hash_keys_device(keys).to(dev) & (capacity - 1)
+    order = torch.argsort(home, stable=True)
+    h = home[order]
+    i = torch.arange(n, dtype=torch.int64, device=dev)
+    reach = torch.cummax(h - i, 0).values      # max over j <= i of h_j - j
+    carry = 0   # slots [0, carry) hold the keys that wrapped
+    for _ in range(64):
+        pos = i + reach.clamp(min=carry)
+        wrapped = int((pos >= capacity).sum())
+        if wrapped == carry:
+            break
+        carry = wrapped
+    else:
+        return None
+    if int((pos - h).max()) >= MAX_PROBES:
+        return None
+    slot = pos & (capacity - 1)
+    table[slot] = keys[order]
+    slots = torch.empty(n, dtype=torch.int64, device=dev)
+    slots[order] = slot
+    return table, slots
 
 
 def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:

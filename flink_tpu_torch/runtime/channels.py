@@ -19,6 +19,7 @@ from typing import Any, Optional
 from ..core.elements import CheckpointBarrier, EndOfInput, Watermark, \
     WatermarkStatus
 from ..core.records import MIN_TIMESTAMP, RecordBatch
+from .faults import FAULTS
 
 __all__ = ["Channel", "LocalChannel", "InputGate", "GateEvent",
            "DEFAULT_CAPACITY"]
@@ -44,6 +45,10 @@ class LocalChannel(Channel):
         self._q: queue.Queue = queue.Queue(maxsize=capacity)
 
     def put(self, element: Any, timeout: Optional[float] = None) -> bool:
+        if FAULTS.enabled and FAULTS.check("channel.backpressure"):
+            # drop-style site: report "queue full" once; the writer's wait
+            # treats it as a full queue and puts again, so nothing is lost
+            return False
         try:
             self._q.put(element, timeout=timeout)
             return True

@@ -61,6 +61,10 @@ class OneInputOperatorTestHarness:
     def get_output(self) -> list:
         return self.output.rows()
 
+    def get_side_output(self, tag: str) -> list:
+        return [r for b in self.output.side.get(tag, [])
+                for r in b.iter_rows()]
+
     def snapshot(self, checkpoint_id: int = 1) -> dict:
         return self.operator.snapshot_state(checkpoint_id)
 

@@ -47,6 +47,11 @@ class Output:
     def emit_watermark(self, watermark: Watermark) -> None:
         raise NotImplementedError
 
+    def emit_side(self, tag: str, batch: RecordBatch) -> None:
+        """A tagged side output (``dead-letter``); the port's runtime wires
+        none, the test harness collects them."""
+        raise NotImplementedError(f"no side output wired for tag {tag!r}")
+
 
 class CollectingOutput(Output):
     """Buffers everything: the tail of the test harness."""
@@ -54,6 +59,10 @@ class CollectingOutput(Output):
     def __init__(self):
         self.batches: list[RecordBatch] = []
         self.watermarks: list[Watermark] = []
+        self.side: dict[str, list[RecordBatch]] = {}
+
+    def emit_side(self, tag: str, batch: RecordBatch) -> None:
+        self.side.setdefault(tag, []).append(batch)
 
     def emit(self, batch: RecordBatch) -> None:
         if batch.n:
@@ -103,6 +112,10 @@ class StreamOperator:
 
     def snapshot_state(self, checkpoint_id: int) -> dict:
         return {}
+
+    def notify_checkpoint_complete(self, checkpoint_id: int) -> None:
+        """Every task acknowledged ``checkpoint_id`` and it is stored (a
+        two-phase sink commits here)."""
 
 
 class OneInputOperator(StreamOperator):
@@ -195,6 +208,10 @@ class OperatorChain:
     def snapshot_state(self, checkpoint_id: int) -> dict:
         return {_op_key(op): op.snapshot_state(checkpoint_id)
                 for op in self.operators}
+
+    def notify_checkpoint_complete(self, checkpoint_id: int) -> None:
+        for op in self.operators:
+            op.notify_checkpoint_complete(checkpoint_id)
 
     def finish(self) -> None:
         for op in self.operators:

@@ -30,8 +30,15 @@ the dirty blocks of the lanes it resets, so an incremental snapshot after
 a fire holds them closed (the reference's ``set_array`` marks nothing, and
 a restore from such a snapshot fires those sessions again).
 
-Left out: the watchdog and fault sites of the reference (``stall_bounded``),
-an HBM budget, processing-time sessions.
+The reference's five bounded sites (``runtime/watchdog.py``
+``stall_bounded``): each batch's upload (``transfer.h2d``, a device batch
+too, as the reference uploads every batch), its step (``device.execute``,
+on the task's thread: it ends at its launches) and the read of its
+emitted segments (``transfer.d2h``), and each fire round
+(``device.execute``) with its read (``transfer.d2h``). Each site is
+visited before its region starts.
+
+Left out: an HBM budget, processing-time sessions.
 """
 
 from __future__ import annotations
@@ -49,6 +56,7 @@ from ...core.records import RecordBatch, Schema
 from ...device import resolve_device, torch_dtype
 from ...ops.session import session_fire, session_step
 from ...state.device_backend import DeviceKeyedStateBackend
+from ..watchdog import stall_bounded
 from .base import OneInputOperator, OperatorContext, Output
 from .device_window import AggSpec
 
@@ -159,30 +167,43 @@ class DeviceSessionWindowOperator(OneInputOperator):
                     "device session windows need an integer key column; "
                     f"{self._key_column!r} is {key_dtype}")
             self._register_aggs(batch.schema)
-        keys, ts, cols = self._device_columns(batch)
-        # sort by (key, ts): ts first, then key, both stable, so ties keep
-        # their batch order (np.lexsort's order)
-        order = torch.sort(ts, stable=True).indices
-        order = order[torch.sort(keys[order], stable=True).indices]
-        backend = self._backend
-        folds = [(kind, backend.get_array(name),
-                  cols[field][order].to(backend.get_array(name).dtype))
-                 for kind, name, field in self._fold_sig()]
-        rows = session_step(
-            backend.table, *self._lanes_planes(), folds,
-            backend.get_array("__cur_lane__"), keys[order], ts[order],
-            self._gap, self._fired_boundary,
-            backend.dropped_device, self._late_dev, backend.dirty_buffer,
-            backend.dirty_shift)
+        # bounded sites, as the reference's: the upload and the reads on
+        # the supervised worker, the step on this thread; each site is
+        # visited before its region starts
+        keys, ts, cols = stall_bounded(
+            "transfer.h2d", lambda: self._device_columns(batch),
+            scope="device_session")
+
+        def step():
+            # sort by (key, ts): ts first, then key, both stable, so ties
+            # keep their batch order (np.lexsort's order)
+            order = torch.sort(ts, stable=True).indices
+            order = order[torch.sort(keys[order], stable=True).indices]
+            backend = self._backend
+            folds = [(kind, backend.get_array(name),
+                      cols[field][order].to(backend.get_array(name).dtype))
+                     for kind, name, field in self._fold_sig()]
+            return session_step(
+                backend.table, *self._lanes_planes(), folds,
+                backend.get_array("__cur_lane__"), keys[order], ts[order],
+                self._gap, self._fired_boundary,
+                backend.dropped_device, self._late_dev, backend.dirty_buffer,
+                backend.dirty_shift)
+
+        rows = stall_bounded("device.execute", step, scope="device_session")
         g = int(rows.n)   # the one host read per batch: emitted segments
         if g:
-            chunk = {"k": rows.key[:g].cpu().numpy(),
-                     "s": rows.start[:g].cpu().numpy(),
-                     "e": rows.end[:g].cpu().numpy(),
-                     "c": rows.count[:g].cpu().numpy()}
-            for (_k, name, _f), v in zip(self._fold_sig(), rows.values):
-                chunk[name] = v[:g].cpu().numpy()
-            self._pending.append(chunk)
+            def read() -> dict:
+                chunk = {"k": rows.key[:g].cpu().numpy(),
+                         "s": rows.start[:g].cpu().numpy(),
+                         "e": rows.end[:g].cpu().numpy(),
+                         "c": rows.count[:g].cpu().numpy()}
+                for (_k, name, _f), v in zip(self._fold_sig(), rows.values):
+                    chunk[name] = v[:g].cpu().numpy()
+                return chunk
+
+            self._pending.append(stall_bounded("transfer.d2h", read,
+                                               scope="device_session"))
 
     def _device_columns(self, batch: RecordBatch):
         """(keys int64, ts int64, {field: values}) on the device: a device
@@ -249,19 +270,23 @@ class DeviceSessionWindowOperator(OneInputOperator):
         outs = [(kind, backend.get_array(plane))
                 for kind, _o, plane in self._agg_sig()]
         while True:
-            rows = session_fire(
+            # each round a bounded device.execute visit, its reads a
+            # bounded transfer.d2h
+            rows = stall_bounded("device.execute", lambda: session_fire(
                 backend.table, *self._lanes_planes(), resets, outs,
                 self._gap, boundary, backend.dirty_buffer,
-                backend.dirty_shift)
+                backend.dirty_shift), scope="device_session")
             fired, overflow = rows.counts.tolist()   # fire loop control
             if fired == 0:
                 break
-            self._emit(rows.key[:fired].cpu().numpy(),
-                       rows.start[:fired].cpu().numpy(),
-                       rows.end[:fired].cpu().numpy(),
-                       {o: v[:fired].cpu().numpy()
-                        for (_k, o, _p), v in zip(self._agg_sig(),
-                                                  rows.values)})
+            host = stall_bounded("transfer.d2h", lambda: (
+                rows.key[:fired].cpu().numpy(),
+                rows.start[:fired].cpu().numpy(),
+                rows.end[:fired].cpu().numpy(),
+                {o: v[:fired].cpu().numpy()
+                 for (_k, o, _p), v in zip(self._agg_sig(), rows.values)}),
+                scope="device_session")
+            self._emit(*host)
             if overflow == 0:
                 break
         # deferred health: table overflow and lane collisions raise here

@@ -56,7 +56,34 @@
 Late records (pane already fired) are dropped and counted. Host batches
 (the test harness, host sources) take the host late filter and upload
 their columns (under a deferred budget they take the device step).
-The device guard and the degrade ladder are later slices.
+
+The device guard and the degrade ladder (``runtime/faults.py``,
+``runtime/watchdog.py``):
+
+* Every dispatch runs under a ``DeviceGuard`` (site ``device.execute``)
+  on the task's thread: the ingest step, the fused chain's replay, and a
+  fire's seal or rebuild with its merge, select and health scalars. Each
+  guarded region ends at its launches. The guard retries or degrades
+  only faults and hangs of its own visit, which come before the
+  dispatch, so a batch never folds twice. The blocking reads are
+  ``stall_bounded`` regions of their own on the supervised worker: an
+  upload (``transfer.h2d``), a fire's materialization and a staged spill
+  drain (``transfer.d2h``); the in-flight wait is bounded by the
+  ``device.execute`` deadline. A stall of one of them fails the task.
+* ``faults.validate-batches``: rows with NaN or Inf in an aggregated
+  float column go to the ``dead-letter`` side output (counted in
+  ``dead_letter_records_total``) before they fold, and so do fire rows
+  whose results are not finite.
+* A poison fault quarantines its batch to ``dead-letter``, unfolded.
+* A persistent fault, or retries run out, walks the degrade ladder
+  (``device.failover.degradation``, on by default): the state evacuates
+  through ``snapshot(-1)`` into an unbudgeted backend on the CPU that
+  runs the kernels' plain versions, and the operator stays there: no
+  fused chain, device batches copied home, the residency cancelled and
+  unregistered, ``DEVICE_STATS`` ``device_degraded_total`` counted and
+  ``degrade_s`` timed. Only an injected fault or a stall walks it: a real
+  CUDA error, a failed build or a library that does not load propagates
+  into task failover untouched.
 """
 
 from __future__ import annotations
@@ -79,6 +106,8 @@ from ...ops.topk import masked_topk
 from ...ops.window_seal import rebuild, seal
 from ...state.device_backend import DeviceKeyedStateBackend
 from ...window.assigners import WindowAssigner
+from ..faults import FAULTS, DeviceGuard, DeviceSegmentError
+from ..watchdog import WATCHDOG, stall_bounded
 from .base import OneInputOperator, OperatorContext, Output
 from .slice_control import AsyncFireQueue, CoalescingIngest, \
     SliceControlPlane
@@ -222,6 +251,16 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
         #: host parts of fires; and the rows drained
         self.spill_s = {"drain": 0.0, "host_fire": 0.0}
         self.spill_rows_drained = 0
+        # the degrade ladder: once a persistent fault evacuated the state
+        # to the CPU, the operator stays on that rung for its lifetime
+        self._guard: Optional[DeviceGuard] = None
+        self._degraded = False
+        self._degrade_enabled = True
+        self._validate_batches = False
+        #: batches quarantined to the dead-letter output
+        self.quarantined_batches = 0
+        #: seconds the evacuation to the CPU rung took (None: no degrade)
+        self.degrade_s: Optional[float] = None
 
     # -- lifecycle ---------------------------------------------------------
     def setup(self, ctx: OperatorContext, output: Output) -> None:
@@ -233,6 +272,11 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
             ctx.config.get("task.coalesce.target-records"))
         self._coalesce_timeout_s = float(
             ctx.config.get("task.coalesce.timeout-ms")) / 1e3
+        self._guard = DeviceGuard("device_window", ctx.config)
+        self._degrade_enabled = bool(
+            ctx.config.get("device.failover.degradation"))
+        self._validate_batches = bool(
+            ctx.config.get("faults.validate-batches"))
         budget = self._hbm_budget or int(
             ctx.config.get("state.backend.tpu.hbm-budget-slots"))
         budget_bytes = int(
@@ -341,9 +385,15 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
                     "device window aggregation needs an integer key column; "
                     f"{self._key_column!r} is {key_dtype}")
             self._register_aggs(batch.schema)
+        if self._validate_batches:
+            batch = self._screen_nonfinite(batch)
+            if batch.n == 0:
+                return
         if (self._fused_spec is not None and getattr(batch, "lazy", False)
                 and not batch.realized and not self._spill_deferred):
             self._ingest_chain(batch)
+        elif self._degraded:
+            self._ingest_at_home(batch)
         elif (isinstance(batch, DeviceRecordBatch) and self._defer
                 and batch.dtimestamps is not None):
             self._ingest_device(batch)
@@ -362,15 +412,138 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
 
     def _to_device_batch(self, batch: RecordBatch) -> DeviceRecordBatch:
         ts = np.asarray(batch.timestamps, np.int64)
-        cols = {self._key_column: self._upload(np.asarray(
-            batch.column(self._key_column)).astype(np.int64, copy=False))}
-        for a in self._aggs:
-            if a.field is not None and a.field not in cols:
-                cols[a.field] = self._upload(batch.column(a.field))
+
+        def upload():
+            cols = {self._key_column: self._upload(np.asarray(
+                batch.column(self._key_column)).astype(np.int64,
+                                                        copy=False))}
+            for a in self._aggs:
+                if a.field is not None and a.field not in cols:
+                    cols[a.field] = self._upload(batch.column(a.field))
+            return cols, self._upload(ts)
+
+        cols, dts = stall_bounded("transfer.h2d", upload,
+                                  scope="device_window")
         schema = Schema([(f.name, f.dtype) for f in batch.schema.fields
                          if f.name in cols])
-        return DeviceRecordBatch(schema, cols, self._upload(ts),
-                                 int(ts.min()), int(ts.max()))
+        return DeviceRecordBatch(schema, cols, dts, int(ts.min()),
+                                 int(ts.max()))
+
+    # -- the degrade ladder and the dead-letter output ----------------------
+    def _host_view(self, batch) -> RecordBatch:
+        """A host batch of ``batch`` (a device batch's columns copied
+        home; a lazy one is decoded first)."""
+        if isinstance(batch, DeviceRecordBatch):
+            if getattr(batch, "lazy", False):
+                batch.realize()
+            return batch._materialize()
+        return batch
+
+    def _screen_nonfinite(self, batch: RecordBatch) -> RecordBatch:
+        """``faults.validate-batches``: rows with NaN or Inf in an
+        aggregated float column go to the dead-letter output before they
+        fold; a NaN in a sum plane would spoil every later window of its
+        key."""
+        bad = None
+        for a in self._aggs:
+            if a.field is None:
+                continue
+            col = np.asarray(self._host_view(batch).column(a.field))
+            if not np.issubdtype(col.dtype, np.floating):
+                continue
+            mask = ~np.isfinite(col)
+            bad = mask if bad is None else (bad | mask)
+        if bad is None or not bad.any():
+            return batch
+        hb = self._host_view(batch)
+        self._dead_letter(hb.filter(bad))
+        return hb.filter(~bad)
+
+    def _dead_letter(self, batch: RecordBatch) -> None:
+        """Quarantine a host batch: counted, emitted on the ``dead-letter``
+        side output where one is wired, never folded."""
+        DEVICE_STATS.note_dead_letter(batch.n)
+        self.quarantined_batches += 1
+        try:
+            self.output.emit_side("dead-letter", batch)
+        except NotImplementedError:
+            pass   # no side output wired: the counter is the record
+
+    def _degrade(self, cause: BaseException) -> None:
+        """A persistent fault: evacuate the state through ``snapshot(-1)``
+        into an unbudgeted backend on the CPU and stay there. The keyed
+        state and the pane and fire metadata carry over, so the results
+        are the same; no fault site trips on this rung."""
+        if self._degraded:
+            raise cause
+        t0 = time.perf_counter()
+        with FAULTS.suppressed():
+            self._drain(block=True)
+            while self._inflight:
+                self._inflight.popleft().synchronize()
+            self._pre_fire_flush()
+            snap = self._backend.snapshot(-1)
+            if self._late_dev is not None:
+                self._late_dropped += int(self._late_dev)
+                self._late_dev = None
+                self._late_cached = 0
+            cpu = torch.device("cpu")
+            backend = DeviceKeyedStateBackend(
+                self.ctx.key_group_range, self.ctx.max_parallelism,
+                capacity=self._capacity, device=cpu, defer_overflow=False,
+                hbm_budget_slots=0, config=self.ctx.config)
+            backend.restore([snap])
+        if self._backend.tiering_active:
+            # the CPU backend is unbudgeted: the residency and any queued
+            # staging retire with the old one
+            from ...state.tiering import unregister_residency
+            self._backend.prefetch_pipeline.close()
+            unregister_residency(self._residency_name)
+        self._backend = backend
+        self._device = cpu
+        self._defer = False
+        self._stage = None
+        self._fused_spec = None
+        self.fused_chain = None
+        self._degraded = True
+        self._guard.active = False
+        # the evacuated snapshot carries only the pane planes
+        self._inc_stale = "degrade"
+        self._inc_next = None
+        DEVICE_STATS.note_degraded("device_window")
+        self.degrade_s = time.perf_counter() - t0
+
+    def _on_segment_failure(self, err: DeviceSegmentError,
+                            batch=None) -> bool:
+        """Poison quarantines the batch (True: handled, nothing folded);
+        anything else degrades when allowed (False: the caller runs the
+        work again on the CPU rung) or fails the task."""
+        if err.poison and batch is not None:
+            self._dead_letter(self._host_view(batch))
+            return True
+        if self._degrade_enabled and not self._degraded:
+            self._degrade(err)
+            return False
+        raise err
+
+    def _guarded_ingest(self, batch, dispatch) -> None:
+        """Run an ingest ``dispatch`` under the guard; after a degrade the
+        batch runs through the CPU rung (the guard raises only for its
+        own visit, before the dispatch, so nothing of it was folded)."""
+        try:
+            self._guard.run(dispatch)
+        except DeviceSegmentError as e:
+            if not self._on_segment_failure(e, batch):
+                self._ingest_at_home(batch)
+            return
+        self._admit_token()
+
+    def _ingest_at_home(self, batch) -> None:
+        """The CPU rung's ingest: a device batch comes home and takes the
+        plain host path."""
+        hb = self._host_view(batch)
+        self._ingest(hb, np.asarray(hb.column(self._key_column)).astype(
+            np.int64, copy=False))
 
     def _fold_sig(self) -> list[tuple[str, str, str]]:
         """(fold kind, plane name, field) per non-count aggregate."""
@@ -434,8 +607,7 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
         first_open = self._device_bookkeeping(batch)
         if first_open is None:
             return
-        self._step(batch, first_open)
-        self._admit_token()
+        self._guarded_ingest(batch, lambda: self._step(batch, first_open))
 
     def _ingest_chain(self, batch) -> None:
         """Certified-chain ingest of a ``LazyDeviceBatch``: no columns
@@ -456,10 +628,10 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
         planes = backend.fold_planes(      # (kind, plane, field name)
             [("__count__", None)]
             + [(name, field) for _kind, name, field in self._fold_sig()])
-        self.fused_chain.run(batch, backend.table, planes, self._late_dev,
-                             backend.dropped_device, first_open,
-                             backend.dirty_buffer, backend.dirty_shift)
-        self._admit_token()
+        self._guarded_ingest(batch, lambda: self.fused_chain.run(
+            batch, backend.table, planes, self._late_dev,
+            backend.dropped_device, first_open, backend.dirty_buffer,
+            backend.dirty_shift))
 
     def _step(self, batch: DeviceRecordBatch, first_open: int) -> None:
         """The ingest step on the device: one kernel launch on the card
@@ -497,12 +669,17 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
             return
         take = min(cnt, self._stage_slots)
         t0 = time.perf_counter()
-        keys = self._stage["keys"][:take].cpu().numpy()
-        ring = self._stage["ring"][:take].cpu().numpy()
+        stage = self._stage
+
+        host = stall_bounded(
+            "transfer.d2h", lambda: {k: v[:take].cpu().numpy()
+                                     for k, v in stage.items()
+                                     if k != "count"},
+            scope="device_window")
         vals = {"__count__": np.ones(take, np.int64)}
         for _k, name, _f in self._fold_sig():
-            vals[name] = self._stage[name][:take].cpu().numpy()
-        self._backend.drain_staged(keys, ring, vals)
+            vals[name] = host[name]
+        self._backend.drain_staged(host["keys"], host["ring"], vals)
         self._stage["count"].zero_()
         self.spill_s["drain"] += time.perf_counter() - t0
         self.spill_rows_drained += take
@@ -535,7 +712,13 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
         event.record()
         self._inflight.append(event)
         if len(self._inflight) > self._max_inflight:
-            self._inflight.popleft().synchronize()
+            # bounded: a step that never retires (a wedged card) fails the
+            # task into a restart instead of blocking its loop forever; a
+            # step already retired cannot block, and goes unsupervised
+            event = self._inflight.popleft()
+            if not event.query():
+                WATCHDOG.run("device.execute", event.synchronize,
+                             scope="device_window.inflight")
             if self._pending:
                 self._drain(block=False)
 
@@ -547,19 +730,30 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
         first = max(p_end - W, self._min_seen_pane)
         if first >= p_end:
             return
-        if self._inc_enabled:
-            view = self._seal_window(p_end, first)
 
-            def merged(_kind, name, idx=None):
-                return view[name] if idx is None else view[name][idx]
-        else:
-            rows = [p % self._ring for p in range(first, p_end)]
-            DEVICE_STATS.note_fire_merge_rows(len(rows))
-            backend = self._backend
+        def dispatch():
+            if self._inc_enabled:
+                view = self._seal_window(p_end, first)
 
-            def merged(kind, name, idx=None):
-                return _merge(kind, backend.get_array(name), rows, idx)
-        outs = self._fire_outputs(merged)
+                def merged(_kind, name, idx=None):
+                    return view[name] if idx is None else view[name][idx]
+            else:
+                rows = [p % self._ring for p in range(first, p_end)]
+                DEVICE_STATS.note_fire_merge_rows(len(rows))
+                backend = self._backend
+
+                def merged(kind, name, idx=None):
+                    return _merge(kind, backend.get_array(name), rows, idx)
+            return self._fire_outputs(merged)
+
+        try:
+            outs = self._guard.run(dispatch)
+        except DeviceSegmentError as e:
+            # a fire has no batch to quarantine: a persistent fault walks
+            # the ladder and the fire runs again on the CPU rung (a seal's
+            # window state is stale there: it rebuilds from the panes)
+            self._on_segment_failure(e)
+            outs = dispatch()
         # the host tier's part, taken before the pane below retires
         host_part = (self._host_fire_part([p % self._ring
                                            for p in range(first, p_end)])
@@ -734,6 +928,17 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
         self.spill_s["host_fire"] += time.perf_counter() - t0
         return ht.keys()[pos], res
 
+    def _await_copy(self, event) -> None:
+        """A fire's device->host copy, bounded: site ``transfer.d2h``. A
+        copy that has landed cannot block: with no fault armed it goes
+        unsupervised. On the CPU rung it is a host view."""
+        if (self._guard is not None and self._guard.active
+                and (FAULTS.enabled or not (event is None or event.query()))):
+            stall_bounded("transfer.d2h", lambda: event is None
+                          or event.synchronize(), scope="device_window")
+        elif event is not None:
+            event.synchronize()
+
     def _materialize(self, item) -> None:
         p_end, host, _event, t0, host_part = item
         keys_or_table, mask, results, (dropped, occ, late) = host
@@ -774,6 +979,19 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
 
     def _emit_rows(self, p_end: int, keys: np.ndarray,
                    results: dict[str, np.ndarray]) -> None:
+        if self._validate_batches and len(keys):
+            # a non-finite result, however it got into a plane, goes to
+            # the dead-letter count, not down the main stream
+            bad = np.zeros(len(keys), bool)
+            for v in results.values():
+                if np.issubdtype(np.asarray(v).dtype, np.floating):
+                    bad |= ~np.isfinite(v)
+            if bad.any():
+                DEVICE_STATS.note_dead_letter(int(bad.sum()))
+                keys = keys[~bad]
+                results = {n_: v[~bad] for n_, v in results.items()}
+                if not len(keys):
+                    return
         n = len(keys)
         start = (p_end - self._window_panes) * self._pane + self._offset
         end = p_end * self._pane + self._offset

@@ -1,10 +1,18 @@
 """Sink operator: hands every batch to a user sink (trimmed port of
-``flink_tpu/runtime/operators/sink.py``)."""
+``flink_tpu/runtime/operators/sink.py``).
+
+Each batch visits the ``sink.invoke`` fault site first. A ``Sink``'s
+writer takes part in checkpoints as the reference's does: a snapshot
+flushes it and prepares the checkpoint's commit, the checkpoint's
+completion commits it, and the end of input commits whatever is left, so
+a two-phase writer (``connectors.core.TransactionalCollectSink``) shows
+each row once across a restart from a checkpoint."""
 
 from __future__ import annotations
 
 from ...connectors.core import CollectSink
 from ...core.records import RecordBatch
+from ..faults import fire_with_retries
 from .base import OneInputOperator
 
 __all__ = ["SinkOperator", "CollectSink"]
@@ -25,13 +33,31 @@ class SinkOperator(OneInputOperator):
                 raise TypeError("a sink is a Sink, a callable or has "
                                 "invoke_batch(batch)")
 
-    def open(self) -> None:
+    def setup(self, ctx, output) -> None:
+        super().setup(ctx, output)
         if self._invoke is None:
-            self._writer = self._sink.create_writer(self.ctx.subtask_index)
+            self._writer = self._sink.create_writer(ctx.subtask_index)
             self._invoke = self._writer.write_batch
+
+    def initialize_state(self, keyed_snapshots: list,
+                         operator_snapshot) -> None:
+        if self._writer is not None and operator_snapshot is not None:
+            self._writer.restore(operator_snapshot)
+
+    def snapshot_state(self, checkpoint_id: int) -> dict:
+        if self._writer is None:
+            return {}
+        self._writer.flush()
+        self._writer.prepare_commit(checkpoint_id)
+        return {"operator": self._writer.snapshot()}
+
+    def notify_checkpoint_complete(self, checkpoint_id: int) -> None:
+        if self._writer is not None:
+            self._writer.commit(checkpoint_id)
 
     def process_batch(self, batch: RecordBatch) -> None:
         if batch.n:
+            fire_with_retries("sink.invoke")
             self._invoke(batch)
 
     def process_watermark(self, watermark) -> None:
@@ -39,7 +65,10 @@ class SinkOperator(OneInputOperator):
 
     def finish(self) -> None:
         if self._writer is not None:
+            # end of input: prepare and commit everything outstanding
             self._writer.flush()
+            self._writer.prepare_commit(1 << 62)
+            self._writer.commit(1 << 62)
 
     def close(self) -> None:
         if self._writer is not None:

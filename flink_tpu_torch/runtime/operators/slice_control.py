@@ -143,8 +143,7 @@ class AsyncFireQueue:
         if self._async:
             self._pending.append(item)
         else:
-            if event is not None:
-                event.synchronize()
+            self._await_copy(event)
             self._materialize(item)
 
     def _drain(self, block: bool = False) -> None:
@@ -155,12 +154,17 @@ class AsyncFireQueue:
                 self._pending.popleft()
                 continue
             event = head[2]
-            if event is not None:
-                if not block and not event.query():
-                    return
-                event.synchronize()
+            if event is not None and not block and not event.query():
+                return
+            self._await_copy(event)
             self._pending.popleft()
             self._materialize(head)
+
+    def _await_copy(self, event) -> None:
+        """Wait for a queued fire's copy to land (``event`` None: nothing
+        to wait for). Operators may bound the wait."""
+        if event is not None:
+            event.synchronize()
 
     def _emit_watermark_out(self, watermark: Watermark) -> None:
         if self._async and self._pending:

@@ -23,9 +23,11 @@ the coordinator), so operators never see concurrency.
 
 Every task of one job runs on the device's default stream, so a device
 batch made on a source thread is consumed in order on the window thread.
-Alignment groups, admission control, adaptive batch sizes, latency
-markers, tracing, the stall watchdog and unaligned checkpoints are not
-ported.
+Each loop bumps the task's progress epoch once per event it handled
+(``runtime/watchdog.py``): a task whose epoch stalls while its input
+holds queued data is failed by the job's stall detector. Alignment
+groups, admission control, adaptive batch sizes, latency markers,
+tracing and unaligned checkpoints are not ported.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from ..core.records import MIN_TIMESTAMP, RecordBatch
 from ..core.watermarks import WatermarkStrategy
 from .channels import InputGate
 from .operators.base import OperatorChain, OperatorContext, Output
+from .watchdog import PROGRESS, TaskProgress
 from .writer import RecordWriter
 
 __all__ = ["StreamTask", "SourceStreamTask", "OneInputStreamTask",
@@ -98,6 +101,8 @@ class StreamTask:
         self.idle_s = 0.0
         #: CPU seconds of the task's thread over its run
         self.cpu_s = 0.0
+        #: progress epoch, bumped once per handled event (stall detection)
+        self.progress = TaskProgress()
 
     def broadcast_all(self, element) -> None:
         for w in self.writers:
@@ -139,6 +144,8 @@ class StreamTask:
 
     def _run_safely(self) -> None:
         t0 = time.thread_time()
+        self.progress.bump()  # deploy-to-start time never reads as a stall
+        PROGRESS.register(self.task_id, self.progress)
         try:
             self.invoke()
             self.cpu_s = time.thread_time() - t0
@@ -149,9 +156,17 @@ class StreamTask:
                 self.reporter.task_finished(self.task_id)
             else:
                 self.reporter.task_failed(self.task_id, e)
+        finally:
+            PROGRESS.unregister(self.task_id)
 
     def invoke(self) -> None:
         raise NotImplementedError
+
+    def input_pending(self) -> bool:
+        """Queued input this task could be handling now: what tells a
+        stalled task from an idle one. A source has no gate and is never
+        flagged."""
+        return False
 
 
 class SourceStreamTask(StreamTask):
@@ -220,6 +235,7 @@ class SourceStreamTask(StreamTask):
                     self.chain.process_batch(batch)
                 else:
                     out.emit(batch)
+                self.progress.bump()
             else:
                 time.sleep(0.001)  # nothing due yet (rate limit)
                 self.idle_s += 0.001
@@ -287,10 +303,14 @@ class OneInputStreamTask(StreamTask):
                 self._on_barrier(ev.value)
             elif ev.kind == "idle":
                 self.broadcast_all(ev.value)
+            self.progress.bump()
         if not self._cancelled.is_set():
             self.chain.finish()
             self.chain.close()
             self.broadcast_all(EndOfInput())
+
+    def input_pending(self) -> bool:
+        return any(ch.size() > 0 for ch in self.gate.channels)
 
 
 
@@ -363,7 +383,11 @@ class TwoInputStreamTask(StreamTask):
                 self._maybe_complete_barrier()
             elif ev.kind == "idle":
                 self.broadcast_all(ev.value)
+            self.progress.bump()
         if not self._cancelled.is_set():
             self.chain.finish()
             self.chain.close()
             self.broadcast_all(EndOfInput())
+
+    def input_pending(self) -> bool:
+        return any(ch.size() > 0 for g in self.gates for ch in g.channels)

@@ -26,6 +26,7 @@ from ..core.elements import Watermark
 from ..core.keygroups import hash_batch, key_groups_for_hash_batch
 from ..core.records import RecordBatch
 from .channels import Channel
+from .faults import FAULTS, fire_with_retries
 
 __all__ = ["StreamPartitioner", "ForwardPartitioner", "RebalancePartitioner",
            "GlobalPartitioner", "KeyGroupPartitioner", "RecordWriter",
@@ -109,14 +110,19 @@ class WriterCancelled(Exception):
 class RecordWriter:
     """Writes one operator output to its downstream channels. A full
     channel blocks the writer (backpressure); a cancelled task unwinds out
-    of the wait."""
+    of the wait. ``stall_timeout`` (``task.backpressure.stall-timeout``, 0:
+    unbounded) caps the time one element may wait on a full channel: a
+    peer that never drains then fails this task with a StallError, and a
+    restart from a checkpoint replays the element (it is never dropped)."""
 
     def __init__(self, channels: list[Channel], partitioner: StreamPartitioner,
-                 subtask_index: int, put_timeout: float = 0.1):
+                 subtask_index: int, put_timeout: float = 0.1,
+                 stall_timeout: float = 0.0):
         self.channels = channels
         self.partitioner = partitioner
         self.subtask_index = subtask_index
         self._put_timeout = put_timeout
+        self.stall_timeout = stall_timeout
         self.cancel_event = None  # set by the task that owns this writer
         #: seconds spent blocked on a full channel
         self.backpressured_s = 0.0
@@ -131,6 +137,14 @@ class RecordWriter:
                     if (self.cancel_event is not None
                             and self.cancel_event.is_set()):
                         raise WriterCancelled()
+                    if (self.stall_timeout and time.perf_counter() - t0
+                            > self.stall_timeout):
+                        from ..metrics.device import DEVICE_STATS
+                        from .watchdog import StallError
+                        DEVICE_STATS.note_stall("channel.backpressure")
+                        raise StallError(
+                            "channel.backpressure", self.stall_timeout,
+                            scope=f"subtask {self.subtask_index}")
             finally:
                 self.backpressured_s += time.perf_counter() - t0
         self.max_queued = max(self.max_queued, channel.size())
@@ -138,6 +152,10 @@ class RecordWriter:
     def emit(self, batch: RecordBatch) -> None:
         if not batch.n:
             return
+        # fault site channel.send: a transient trip is one failed flush,
+        # retried in place; a persistent one fails the task
+        if FAULTS.enabled:
+            fire_with_retries("channel.send")
         for idx, part in self.partitioner.route(
                 batch, len(self.channels), self.subtask_index):
             self._put_blocking(self.channels[idx], part)

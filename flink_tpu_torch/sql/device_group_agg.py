@@ -46,6 +46,7 @@ import torch
 
 from ..core.records import RecordBatch, Schema
 from ..ops.group_agg import group_agg_step, new_rowpos
+from ..runtime.watchdog import stall_bounded
 from ..runtime.operators.base import OneInputOperator, OperatorContext, Output
 from ..state.device_backend import DeviceKeyedStateBackend
 from . import rowkind as rk
@@ -152,9 +153,13 @@ class DeviceGroupAggOperator(OneInputOperator):
             vals[j] = batch.column(f)
         t1 = time.perf_counter()
         dev = self._device
-        dkeys = torch.from_numpy(keys).to(dev)
-        dsign = torch.from_numpy(sign).to(dev)
-        dvals = torch.from_numpy(vals).to(dev)
+        # the reference's three bounded sites: the upload and the read on
+        # the supervised worker, and the step on this thread; each site is
+        # visited before its region starts
+        dkeys, dsign, dvals = stall_bounded(
+            "transfer.h2d", lambda: tuple(torch.from_numpy(a).to(dev)
+                                          for a in (keys, sign, vals)),
+            scope="device_group_agg")
         t2 = time.perf_counter()
         cap = self.backend.capacity
         slots = self.backend.slots_for_batch(dkeys)
@@ -168,17 +173,20 @@ class DeviceGroupAggOperator(OneInputOperator):
             # is equal
             self._rowpos = new_rowpos(self.backend.capacity, dev)
         t3 = time.perf_counter()
-        st = group_agg_step(
+        st = stall_bounded("device.execute", lambda: group_agg_step(
             [self.backend.get_array(n) for n in self._names], self._kinds,
             self._cols, slots, dsign, dvals, batch.n, self._rowpos,
-            self.backend.dirty_buffer, self.backend.dirty_shift)
+            self.backend.dirty_buffer, self.backend.dirty_shift),
+            scope="device_group_agg")
         t4 = time.perf_counter()
         g = int(st.n_groups[0])
         t5 = time.perf_counter()
         host_rows = host_comp = None
         if g:
-            host_rows = st.row_idx[:g].cpu().numpy()
-            host_comp = st.comp[:g].cpu().numpy()
+            host_rows, host_comp = stall_bounded(
+                "transfer.d2h", lambda: (st.row_idx[:g].cpu().numpy(),
+                                         st.comp[:g].cpu().numpy()),
+                scope="device_group_agg")
         t6 = time.perf_counter()
         if g:
             self._emit_changelog(batch, key_cols, host_rows, host_comp)

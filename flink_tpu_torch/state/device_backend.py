@@ -86,7 +86,7 @@ from ..core.keygroups import KeyGroupRange, hash_batch, \
 from ..device import numpy_dtype, torch_dtype
 from ..metrics.device import DEVICE_STATS
 from ..ops.hash_table import EMPTY_KEY, StepSpill, ingest_step, lookup, \
-    lookup_or_insert, make_table, sanitize_keys_device
+    lookup_or_insert, make_table, ordered_table, sanitize_keys_device
 from ..ops.row_state import MAP_HEAD, batch_map_entries, dedup_first, \
     new_batch_map, row_get, row_set, row_unset
 from ..ops.segment_ops import identity, make_accumulator, scatter_fold
@@ -227,11 +227,13 @@ class DeviceKeyedStateBackend:
         # spilled rows, folded by fold_batch
         self._pending_host: Optional[tuple[np.ndarray, np.ndarray]] = None
         #: evictions: calls, key groups and keys moved to the host;
-        #: ``forced_fallback``: groups a forced spill took beyond those it
-        #: was asked for, because the card's probe could not rebuild the
-        #: table at the same capacity without them (``_force_spill_groups``)
+        #: ``ordered_rebuilds``: rebuilds the probe could not place and the
+        #: home-slot layout did (``_fresh_table``); ``forced_fallback``:
+        #: groups a forced spill took beyond those it was asked for because
+        #: no layout held the rest at the same capacity, a guard that a
+        #: table's own keys never reach (``_force_spill_groups``)
         self.evictions = {"calls": 0, "groups": 0, "keys": 0,
-                          "forced_fallback": 0}
+                          "ordered_rebuilds": 0, "forced_fallback": 0}
         #: seconds of the spill tier's work: host folds of staged rows,
         #: and evictions (gather, host absorb, table rebuild)
         self.spill_s = {"host_fold": 0.0, "evict": 0.0}
@@ -454,10 +456,21 @@ class DeviceKeyedStateBackend:
     def _fresh_table(self, keys: torch.Tensor, capacity: int
                      ) -> Optional[tuple[torch.Tensor, torch.Tensor]]:
         """A table of ``capacity`` holding ``keys`` and their int64 slots,
-        or None when the probe cannot place every key."""
+        or None when no layout within the probe window holds them.
+
+        The probe places them first. On the card it claims slots in thread
+        order, and at a high load (the deferred step fills the table past
+        0.6 between two fires) that order can strand a key past the
+        probe's window although the keys fit: they are then laid out in
+        home-slot order (``ordered_table``), which fits every key set one
+        table already held at this capacity. So which keys a rebuild keeps
+        never depends on the card's thread order."""
         table = make_table(capacity, self.device)
         _, slots, ok = lookup_or_insert(table, keys.contiguous())
-        return (table, slots.to(torch.int64)) if bool(ok.all()) else None
+        if bool(ok.all()):
+            return table, slots.to(torch.int64)
+        self.evictions["ordered_rebuilds"] += 1
+        return ordered_table(keys.contiguous(), capacity)
 
     def _rebuild(self, keys: torch.Tensor, old_slots: torch.Tensor,
                  new_capacity: int, fresh: Optional[tuple] = None) -> None:
@@ -572,6 +585,22 @@ class DeviceKeyedStateBackend:
     def _evict_cold_groups(self, rebuild_capacity: Optional[int] = None,
                            batch_groups: Optional[np.ndarray] = None
                            ) -> None:
+        """``_evict_cold_groups_inner`` under the ``tier.evict`` site,
+        visited before anything moves (a transient trip retries with
+        nothing mutated, a persistent one fails the batch), and under the
+        watchdog's ``watchdog.tier-timeout``."""
+        from ..runtime.faults import fire_with_retries
+        from ..runtime.watchdog import WATCHDOG
+        fire_with_retries("tier.evict", scope="device_backend.tier")
+        WATCHDOG.run("tier.evict",
+                     lambda: self._evict_cold_groups_inner(rebuild_capacity,
+                                                           batch_groups),
+                     scope="device_backend.tier")
+
+    def _evict_cold_groups_inner(self,
+                                 rebuild_capacity: Optional[int] = None,
+                                 batch_groups: Optional[np.ndarray] = None
+                                 ) -> None:
         """Page the coldest resident key groups to the host tier, in the
         residency policy's order, until the resident keys fall to 0.4 of
         the capacity (a quarter of them at least). When the resident set
@@ -634,13 +663,24 @@ class DeviceKeyedStateBackend:
         self._sync_spilled_dev()
 
     def _force_spill_groups(self, groups: np.ndarray) -> None:
+        """``_force_spill_groups_inner`` under the ``tier.evict`` site and
+        the watchdog, as ``_evict_cold_groups``."""
+        from ..runtime.faults import fire_with_retries
+        from ..runtime.watchdog import WATCHDOG
+        fire_with_retries("tier.evict", scope="device_backend.tier")
+        WATCHDOG.run("tier.evict",
+                     lambda: self._force_spill_groups_inner(groups),
+                     scope="device_backend.tier")
+
+    def _force_spill_groups_inner(self, groups: np.ndarray) -> None:
         """Page the given key groups to the host tier now (the staged
         rows of a group seen for the first time there), so no key is ever
-        split across the tiers. When the card's probe cannot place the
-        keys left in a table of this capacity (the deferred step filled it
-        between two fires, and a rebuild lays keys out anew), the coldest
-        resident groups go too, in the residency policy's order, down to
-        0.4 of the capacity, as an eviction takes them."""
+        split across the tiers: exactly those groups, rebuilt at the same
+        capacity, as the reference evicts them. The rebuild cannot fail on
+        keys the table held (``_fresh_table``); were no layout to hold
+        them, the coldest resident groups would go too, in the residency
+        policy's order, down to 0.4 of the capacity, counted in
+        ``evictions["forced_fallback"]``."""
         t0 = time.perf_counter()
         keys, slots, g = self._device_resident()
         groups = [int(x) for x in np.asarray(groups, np.int64)]
@@ -1141,8 +1181,22 @@ class DeviceKeyedStateBackend:
         key) order, through the mirror: capture the dirty blocks, order
         the keys on the device, gather every plane from the mirror with one
         composed permutation, and merge in the host tier's keys."""
+        from ..runtime.faults import fire_with_retries
+        from ..runtime.watchdog import WATCHDOG
         t0 = time.perf_counter()
-        share = self._sync_mirror()
+
+        # site transfer.d2h under the checkpoint deadline; no retry in
+        # place: the mirror update mutates the backend, so a stall (an
+        # injected hang too) fails the checkpoint or the evacuation, and
+        # with it the task
+        deadline = WATCHDOG.deadline_for("checkpoint.write")
+        fire_with_retries("transfer.d2h", scope="device_backend.snapshot",
+                          bound=("transfer.d2h", WATCHDOG.deadline_in_force(
+                              "transfer.d2h", deadline),
+                              "device_backend.snapshot"))
+        share = WATCHDOG.run("transfer.d2h", self._sync_mirror,
+                             scope="device_backend.snapshot",
+                             deadline=deadline)
         t1 = time.perf_counter()
         slots = torch.nonzero(self.table != EMPTY_KEY).flatten()
         dev_keys = self.table[slots]
@@ -1253,6 +1307,9 @@ class DeviceKeyedStateBackend:
                     vals[:, sel] if sdata["ring"] else vals[sel])
         keys = (np.concatenate(all_keys) if all_keys
                 else np.empty(0, np.int64)).astype(np.int64)
+        # site transfer.h2d, before anything of this backend changes
+        from ..runtime.faults import fire_with_retries
+        fire_with_retries("transfer.h2d", scope="device_backend.restore")
         while self.capacity < 2 * max(len(keys), 1):
             self.capacity *= 2   # may pass the budget: evicted back below
         self.table = make_table(self.capacity, self.device)

@@ -17,8 +17,11 @@ payload can never apply against post-restore state.
 
 The staging callback supplied by the backend owns all device work; the
 worker thread runs while requests are queued and ends when the queue is
-empty, so an idle pipeline holds no thread. The reference's watchdog
-bound and fault-injection site (``tier.prefetch``) are not ported.
+empty, so an idle pipeline holds no thread. Each staging visits the
+``tier.prefetch`` fault site before it gathers (a transient trip retries
+with nothing mutated, a persistent one aborts the staging and is raised
+at the next poll) and runs under the stall watchdog's
+``watchdog.tier-timeout``.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ import threading
 from typing import Callable, Optional, Sequence
 
 import numpy as np
+
+_SCOPE = "tiering.prefetch"
 
 
 class PrefetchPipeline:
@@ -146,6 +151,13 @@ class PrefetchPipeline:
     # ------------------------------------------------------------------
     # staging (background thread in async mode, inline otherwise)
     # ------------------------------------------------------------------
+    def _stage(self, groups: np.ndarray) -> Optional[dict]:
+        from ...runtime.faults import fire_with_retries
+        from ...runtime.watchdog import WATCHDOG
+        fire_with_retries("tier.prefetch", _SCOPE)
+        return WATCHDOG.run("tier.prefetch", lambda: self._stage_fn(groups),
+                            scope=_SCOPE)
+
     def _worker(self) -> None:
         while True:
             with self._lock:
@@ -167,7 +179,7 @@ class PrefetchPipeline:
                 self._pending_groups.difference_update(int(g) for g in groups)
                 return
         try:
-            payload = self._stage_fn(groups)
+            payload = self._stage(groups)
         except Exception as exc:  # raised again at the next poll()
             with self._lock:
                 if epoch == self._epoch:

@@ -366,6 +366,27 @@ def test_fused_chain_is_one_graph_replay_per_micro_batch(card):
 
 
 @pytest.mark.cuda
+def test_guarded_replays_run_on_the_callers_stream(card):
+    """The device guard runs each replay on the task thread, and a
+    supervised call (a read) launches on its caller's current stream, not
+    the worker's default one; the rows equal a run with the watchdog
+    off."""
+    from flink_tpu_torch.runtime.watchdog import WATCHDOG
+
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        got = WATCHDOG.run("transfer.d2h", torch.cuda.current_stream,
+                           deadline=30.0)
+    assert got == side
+    want, _job = _run_q5({"pipeline.fusion.enabled": True,
+                          "watchdog.enabled": False}, device=card)
+    got, job = _run_q5({"pipeline.fusion.enabled": True}, device=card)
+    op = job.operators[0]
+    assert got == want and op.fused_chain is not None
+    assert op._guard.calls >= N // BATCH
+
+
+@pytest.mark.cuda
 def test_growth_under_fusion_recaptures_on_the_card(card):
     want, _job = _run_q5({}, device=card, capacity=64, keys=40,
                          async_fire=False)

@@ -30,7 +30,8 @@ import torch
 
 from flink_tpu_torch.core import Configuration, KeyGroupRange, Schema
 from flink_tpu_torch.metrics import DEVICE_STATS
-from flink_tpu_torch.ops.hash_table import EMPTY_KEY
+from flink_tpu_torch.ops.hash_table import EMPTY_KEY, MAX_PROBES, \
+    hash_keys_device, ordered_table
 from flink_tpu_torch.runtime import OneInputOperatorTestHarness
 from flink_tpu_torch.runtime.operators import device_window as port_dw
 from flink_tpu_torch.state.device_backend import DeviceKeyedStateBackend
@@ -290,7 +291,9 @@ def test_prefetch_async_payloads_equal_sync(ref):
             out.append((accepted, payloads))
         runs[mode] = out
         if mode == "port_async":
-            assert set(log) == {"tier-prefetch"}
+            # staged on the pipeline thread's supervised worker (the
+            # watchdog's tier.prefetch bound)
+            assert set(log) == {"watchdog:tier-prefetch"}
             t0 = time.perf_counter()
             while pipe._thread is not None and time.perf_counter() - t0 < 5:
                 time.sleep(0.001)
@@ -573,6 +576,85 @@ def test_forced_spill_the_probe_cannot_fit_evicts_the_coldest(monkeypatch):
     assert len(t[t != EMPTY_KEY]) > b.num_keys
     _partition(b, inserted)
     _snap_equal(b.snapshot(1), twin.snapshot(1))
+
+
+def adversarial_probe(real):
+    """A stand-in for the card's thread order: into an empty table (a
+    rebuild) keys claim one after another in descending order of their
+    home slot, the order that pushes each cluster's earliest homes
+    furthest, and a key finding no free slot within the window (the card's
+    128 slots scaled to 1/32 of these small tables) fails. Every
+    other probe is the plain version. Returns the probe and its tally."""
+    tally = {"rebuilds": 0, "stranded": 0}
+
+    def probe(table, keys, valid=None):
+        if valid is not None or bool((table != EMPTY_KEY).any()):
+            return real(table, keys, valid)
+        cap = table.numel()
+        window = min(MAX_PROBES, cap // 32)
+        home = (hash_keys_device(keys) & (cap - 1)).tolist()
+        kl = keys.tolist()
+        t = table.tolist()
+        slots = [-1] * len(kl)
+        for i in sorted(range(len(kl)), key=lambda j: -home[j]):
+            for d in range(window):
+                s = (home[i] + d) & (cap - 1)
+                if t[s] == EMPTY_KEY:
+                    t[s], slots[i] = kl[i], s
+                    break
+        table.copy_(torch.tensor(t, dtype=torch.int64))
+        slots = torch.tensor(slots, dtype=torch.int32)
+        tally["rebuilds"] += 1
+        tally["stranded"] += int((slots < 0).sum())
+        return table, slots, slots >= 0
+
+    return probe, tally
+
+
+@pytest.mark.parametrize("form", ["deferred", "deferred_incremental"])
+def test_forced_spill_under_an_adversarial_claim_order_equals_reference(
+        ref, monkeypatch, form):
+    """With rebuilds probed in an adversarial claim order that strands
+    keys, every forced spill still evicts exactly the groups the
+    reference evicts, boundary by boundary: the stranded rebuilds are laid
+    out in home-slot order instead (``ordered_rebuilds``), no group is
+    taken beyond those asked for (``forced_fallback`` 0), every key stays
+    on one tier, and the rows and the final snapshot equal the
+    reference's. The home-slot layout displaces no key further than the
+    adversary's layout would, and every key is found."""
+    from flink_tpu_torch.state import device_backend as port_db
+    probe, tally = adversarial_probe(port_db.lookup_or_insert)
+    monkeypatch.setattr(port_db, "lookup_or_insert", probe)
+    window, kw = FORMS[form]
+    pop, ph = port_operator(window, kw)
+    rop, rh = _ref_operator(ref, window, kw)
+    for op in shift_stream(seed=13):
+        for h in (ph, rh):
+            apply_op(h, op)
+        if op[0] == "wm":
+            _residency_equal(pop.backend, rop._backend)
+    b = pop.backend
+    assert tally["stranded"] > 0 and b.evictions["ordered_rebuilds"] > 0
+    assert b.evictions["forced_fallback"] == 0 and b.evictions["groups"] > 0
+    t = b.table.numpy()
+    live = torch.from_numpy(t[t != EMPTY_KEY])
+    assert torch.equal(port_db.lookup(b.table, live).long(),
+                       torch.from_numpy(np.flatnonzero(t != EMPTY_KEY)))
+    rsnap = rh.snapshot(1)["keyed"]
+    rsnap = (rsnap[0] if isinstance(rsnap, list) else rsnap)["backend"]
+    _snap_equal(ph.snapshot(1)["keyed"]["backend"], rsnap)
+    for h in (ph, rh):
+        h.close()
+    want = rows_of(rh)
+    assert len(want) > 5 and rows_of(ph) == want
+    # the home-slot layout of the live keys displaces none further than
+    # the table they sit in now does
+    mask = b.capacity - 1
+    home = hash_keys_device(live) & mask
+    now = (torch.from_numpy(np.flatnonzero(t != EMPTY_KEY)) - home) & mask
+    got = ordered_table(live, b.capacity)
+    assert got is not None
+    assert int(((got[1] - home) & mask).max()) <= int(now.max())
 
 
 # -- the window operator through the harness ----------------------------------
