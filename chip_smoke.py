@@ -4,7 +4,8 @@ checkpoints, state beyond an HBM budget, session windows (Q11), SQL
 GROUP BY on the card (TPC-H Q1, 10M keys), the interval join of two
 streams over device list state (Nexmark Q7's join, 100K and 10M
 auctions), the row plane (ValueState, keep-first deduplication at 10M
-keys) and the SQL joins.
+keys), the SQL joins and the multi-device window path (Q5-10M over 4
+shards on the one card, the builtin route, live rescale).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -321,7 +322,29 @@ Run from the repository root:  python3 chip_smoke.py
     turns, two runs each: events/s, supervised calls, host µs a call).
     Every other phase must leave the fault counters at 0
     (``fault_counters_by_phase``).
-27. The kernels line, the nvidia-smi line, then the last line
+27. ``mesh_phase``, the multi-device window path: ``exchange_bucket``
+    (csrc/exchange.cu) against its plain version at the mesh cell's shape
+    (4 source blocks of 2^17 rows of Q5-10M's 33rd batch to 4 shards) and
+    on edge cases (every key to one shard, an empty block, EMPTY_KEY and
+    negative keys, a base_range subset): counts equal, each (source,
+    destination) segment the same multiset; ``ingest_step``'s counted
+    form against its plain version on shard 0's buffer at 2^23 slots;
+    each timed with its bound (and the exchange beside the library sort
+    its plain version runs). Then the mesh cell: Q5-10M through
+    ``mesh_aggregate(..., n_devices=4)`` on the one card (4 shards of 2^23
+    slots, ``device_batch`` 2^17), a warm-up a mode under the sync check,
+    2 timed runs of each fire mode in turns (launches: one exchange a
+    batch, one counted step a shard and batch, a seal or rebuild a shard
+    and fire), every window against the oracle, and every fire timed on
+    the card in a run on one thread; a mesh that must grow (4 shards of
+    2^12 slots, 100K keys); the builtin route (``window(...).sum`` with
+    ``state.backend.tpu.mesh-devices`` 4 at Q5-1M against the
+    single-device operator's rows); ``live_rescale`` at Q5-1M, 4 -> 2 ->
+    4 shards mid-run (every window once, no kernel built); and a mesh
+    checkpoint restored into the single-device operator and the other way
+    round. ``python3 chip_smoke.py --mesh`` builds the kernels and runs
+    this phase alone.
+28. The kernels line, the nvidia-smi line, then the last line
     {"ok": true, "device": {...}}.
 
 ``python3 chip_smoke.py --parent-kernels DIR`` instead times, with the same
@@ -2071,7 +2094,7 @@ def run_profile(torch, run) -> dict:
                     for k, (ms, n) in top]}
 
 
-def fire_device_ms(torch, run) -> dict:
+def fire_device_ms(torch, run, op_cls=None) -> dict:
     """Runs ``run()`` with every window fire timed on the card alone: the
     card is drained and put to sleep for about 20 ms, the fire is enqueued
     between two CUDA events (seal or merge, emit mask, select, gathers,
@@ -2083,8 +2106,9 @@ def fire_device_ms(torch, run) -> dict:
     is then discarded and made again with twice the sleep, and the phase
     fails if every one of ``FIRE_TIMING_TRIES`` runs had such a fire."""
     from flink_tpu_torch.runtime.operators.device_window import \
-        DeviceWindowAggOperator as Op
+        DeviceWindowAggOperator
 
+    Op = op_cls or DeviceWindowAggOperator
     fire = Op._fire
     overtaken_runs = []
     for tries in range(1, FIRE_TIMING_TRIES + 1):
@@ -8462,6 +8486,770 @@ def faults_phase(torch, dev, cell: tuple = Q5_CELLS[0],
             "watchdog_cost": cost}
 
 
+# -- the multi-device window path (mesh) -------------------------------------
+MESH_SHARDS = 4                # shards of the mesh cells, all on the one card
+MESH_CAPACITY = 1 << 23        # slots a shard at Q5-10M (2.5M keys a shard)
+MESH_DEVICE_BATCH = 1 << 17    # a source block: a 2^19-row batch is 4
+MESH_RESCALE_TO = (2, 1, 4)    # live_rescale's shard counts, mid-run
+MESH_RESCALE_RUN_S = 16.0      # the rescaled run's source pacing: 4 s a step
+MESH_RESTORE_CUT = 8           # batches before the cross restores' snapshot
+MESH_RUNS = 2                  # timed runs of each fire mode of the cell
+# a mesh run's peak over its resident tensors (tables, pane planes,
+# incremental planes, exchange buffers): the fire's temporaries took 1.06x
+# to 1.14x at the cell; a second copy of the state would take 2x
+MESH_PEAK_MARGIN = 1.3
+MESH_START_SHARE = 0.05        # memory left allocated before a run, at most
+MESH_CELLS = {
+    "q5_10m": {"keys": 10_000_000, "events": 1 << 25, "batch": BATCH,
+               "shards": MESH_SHARDS, "device_batch": MESH_DEVICE_BATCH,
+               "capacity": MESH_CAPACITY},
+    "q5_1m": {"keys": 1_000_000, "events": 1 << 23, "batch": BATCH,
+              "shards": MESH_SHARDS, "device_batch": MESH_DEVICE_BATCH,
+              "capacity": 1 << 20},
+    # a mesh that must grow: 4 shards of 2^12 slots against 100K keys
+    "grow": {"keys": 100_000, "events": 1 << 18, "batch": 1 << 12,
+             "shards": MESH_SHARDS, "device_batch": 1 << 10,
+             "capacity": 1 << 12},
+}
+
+
+def mesh_config(cell: str = "q5_10m", **overrides) -> dict:
+    return {**MESH_CELLS[cell], **overrides}
+
+
+def mesh_span(c: dict) -> int:
+    return q5_panes(c["events"], c["batch"]) * PANE_MS
+
+
+def mesh_q5_env(torch, dev, c: dict, fire_mode: str = "full",
+                rate: float | None = None, settings: dict | None = None,
+                sink=None):
+    """Q5 through ``mesh_aggregate`` on a fresh environment, not yet
+    executed: ``c`` (``mesh_config``) gives keys, events, batch, shards,
+    device_batch and capacity (a shard's slots). Returns (env, got,
+    source), ``got`` as ``q5_env``'s."""
+    from flink_tpu_torch.api import StreamExecutionEnvironment
+    from flink_tpu_torch.connectors.datagen import DataGenSource
+    from flink_tpu_torch.core import Configuration, Schema, WatermarkStrategy
+    from flink_tpu_torch.runtime.operators import AggSpec
+    from flink_tpu_torch.window import SlidingEventTimeWindows
+
+    span = mesh_span(c)
+    schema = Schema([("auction", np.int64), ("price", np.int64),
+                     ("ts", np.int64)])
+    got = []
+
+    def collect(b):
+        got.append((int(b.timestamps[0]), b.column("auction"),
+                    b.column("bids"), b.column("revenue")))
+
+    env = StreamExecutionEnvironment(
+        Configuration({"pipeline.micro-batch-size": c["batch"],
+                       "window.fire.incremental": fire_mode == "incremental",
+                       "pipeline.auto-watermark-interval": 0.0,
+                       **(settings or {})}), device=dev)
+    ws = WatermarkStrategy.for_monotonous_timestamps() \
+        .with_timestamp_column("ts")
+    source = DataGenSource(q5_gen(c["keys"], c["events"], span), schema,
+                           count=c["events"], rate_per_sec=rate,
+                           timestamp_column="ts", device=True)
+    (env.from_source(source, ws, "DataGen")
+        .key_by("auction")
+        .window(SlidingEventTimeWindows.of(WINDOW_PANES * PANE_MS, PANE_MS))
+        .mesh_aggregate([AggSpec("count", out_name="bids", value_bits=31),
+                         AggSpec("sum", "price", out_name="revenue")],
+                        n_devices=c["shards"], capacity=c["capacity"],
+                        ring_size=RING, device_batch=c["device_batch"],
+                        emit_window_bounds=False,
+                        emit_topk=c.get("topk", TOPK), async_fire=True)
+        .add_sink(collect if sink is None else sink))
+    return env, got, source
+
+
+def run_mesh_q5(torch, dev, c: dict, fire_mode: str = "full", **kw):
+    """One run of ``mesh_q5_env``'s pipeline through ``env.execute()``;
+    returns (the finished job, windows)."""
+    env, got, _source = mesh_q5_env(torch, dev, c, fire_mode, **kw)
+    job = env.execute("nexmark-q5-mesh")
+    return job, got
+
+
+def mesh_q5_expected(c: dict) -> list:
+    return q5_expected(c["keys"], c["events"], mesh_span(c),
+                       c.get("topk", TOPK))
+
+
+def mesh_operator(job):
+    from flink_tpu_torch.runtime.operators import MeshWindowAggOperator
+    return next(op for op in job.operators
+                if isinstance(op, MeshWindowAggOperator))
+
+
+def run_mesh_direct(torch, dev, c: dict, fire_mode: str = "full"):
+    """The mesh Q5 job's reader and chain driven on the calling thread
+    (``run_q5_direct``'s loop), so nothing else enqueues work on the card
+    while a fire is timed. Returns (operator, windows)."""
+    from flink_tpu_torch.cluster import deploy_local
+    from flink_tpu_torch.core.elements import MAX_WATERMARK, Watermark
+
+    env, got, _source = mesh_q5_env(torch, dev, c, fire_mode)
+    job = deploy_local(env.get_job_graph("nexmark-q5-mesh-direct"),
+                       env.config, env.device)
+    (src,) = job.source_tasks.values()
+    (win,) = [t for t in job.tasks.values() if t is not src]
+    chain, reader, ws = win.chain, src.reader, src.ws
+    chain.open()
+    gen = ws.create_generator()
+    last = MIN_TIMESTAMP
+    while (batch := reader.read_batch(c["batch"])) is not None:
+        batch = ws.assign_timestamps(batch)
+        gen.on_batch(batch)
+        chain.process_batch(batch)
+        wm = gen.current_watermark()
+        if wm > last:
+            last = wm
+            chain.process_watermark(Watermark(wm))
+    chain.process_watermark(MAX_WATERMARK)
+    chain.finish()
+    chain.close()
+    reader.close()
+    return mesh_operator(job), got
+
+
+def _q5_block(torch, dev, c: dict, first_row: int, rows: int):
+    """Q5's rows [first_row, first_row + rows) on the card: (auction,
+    price, ts)."""
+    idx = torch.arange(first_row, first_row + rows, dtype=torch.int64,
+                       device=dev)
+    cols = q5_gen(c["keys"], c["events"], mesh_span(c))(idx)
+    return cols["auction"], cols["price"], cols["ts"]
+
+
+EXCHANGE_CASES = ("cell", "one_shard", "empty", "sentinel_and_negative",
+                  "base_subset")
+
+
+def exchange_case(torch, dev, c: dict, case: str) -> dict:
+    """The inputs of one exchange case: S = shards source blocks of
+    device_batch rows (Q5-10M's 33rd batch for the cell), with n_valid and
+    the ownership bounds."""
+    S, B = c["shards"], c["device_batch"]
+    keys, price, ts = _q5_block(torch, dev, c, PRESENT_PREFIX * c["batch"],
+                                S * B)
+    n_valid, start, length = S * B, 0, MAXP
+    if case == "one_shard":
+        keys = torch.full_like(keys, 12345)
+    elif case == "empty":
+        n_valid = 0
+    elif case == "sentinel_and_negative":
+        keys = keys - c["keys"] // 2
+        keys[:4] = torch.tensor([INT64_MAX, INT64_MAX - 1, -1, -(1 << 63)],
+                                device=dev)
+    elif case == "base_subset":
+        n_valid, start, length = S * B - 1000, 32, 64
+    return {"keys": keys.view(S, B).contiguous(),
+            "ts": ts.view(S, B).contiguous(),
+            "cols": [price.view(S, B).contiguous()], "n_valid": n_valid,
+            "start": start, "length": length, "S": S, "B": B}
+
+
+def run_exchange(torch, dev, x: dict, D: int, plain: bool):
+    from flink_tpu_torch.ops.exchange import ExchangeBuffers, \
+        exchange_bucket, exchange_bucket_plain
+
+    out = ExchangeBuffers.allocate(D, x["S"], x["B"],
+                                   [c.dtype for c in x["cols"]], dev)
+    if plain:
+        exchange_bucket_plain(x["keys"], x["ts"], x["cols"], out,
+                              x["n_valid"], None, PANE_MS, 0, D, MAXP,
+                              x["start"], x["length"])
+    else:
+        exchange_bucket(x["keys"], x["ts"], x["cols"], out,
+                        n_valid=x["n_valid"], pane=PANE_MS, n_dest=D,
+                        max_parallelism=MAXP, base_start=x["start"],
+                        base_len=x["length"])
+    return out
+
+
+def exchange_segments_equal(torch, a, b) -> bool:
+    """Equal counts, and every (source, destination) segment the same
+    multiset of (key, pane, value) rows: rows sorted inside each segment
+    on the card by a stable sort on each column, last column first."""
+    if not torch.equal(a.counts, b.counts):
+        return False
+    S, B, D = a.n_src, a.block, a.n_dest
+    pos = torch.arange(S * B, device=a.keys.device)
+    live = (pos % B)[None, :] < a.counts.t().repeat_interleave(B, 1)
+    for d in range(D):
+        cols = []
+        for o in (a, b):
+            seg = (pos // B)[live[d]]
+            rows = [o.keys[d][live[d]], o.panes[d][live[d]],
+                    *[c[d][live[d]] for c in o.cols]]
+            order = torch.arange(seg.numel(), device=seg.device)
+            for col in reversed([seg] + rows):
+                order = order[torch.argsort(col[order], stable=True)]
+            cols.append([r[order] for r in rows])
+        if not all(torch.equal(x, y) for x, y in zip(*cols)):
+            return False
+    return True
+
+
+def check_exchange(torch, dev, flush) -> dict:
+    """exchange_bucket against its plain version on the card, at the mesh
+    cell's shape (4 blocks of 2^17 rows of Q5-10M's 33rd batch to 4
+    shards) and on the edge cases: counts equal, segments equal as
+    multisets. Timed at the cell's shape beside the plain version and the
+    library sort the plain version runs (``torch.argsort(stable=True)`` of
+    the (source, destination) codes); bound: each row's key, ts and price
+    read once, each routed row's key, pane and price written once, the
+    counts zeroed and written."""
+    from flink_tpu_torch.core.keygroups import key_groups_device
+
+    c = mesh_config()
+    D = c["shards"]
+    out = {"shapes": {}, "edge_cases": {}}
+    for case in EXCHANGE_CASES:
+        x = exchange_case(torch, dev, c, case)
+        got = run_exchange(torch, dev, x, D, plain=False)
+        want = run_exchange(torch, dev, x, D, plain=True)
+        torch.cuda.synchronize()
+        if not exchange_segments_equal(torch, got, want):
+            raise AssertionError(f"exchange_bucket {case}: the kernel "
+                                 "disagrees with its plain version")
+        counts = got.counts.cpu().numpy()
+        if case == "one_shard" and (counts > 0).sum(1).max() != 1:
+            raise AssertionError("one_shard: rows reached two shards")
+        if case == "empty" and counts.sum():
+            raise AssertionError("empty: rows were routed")
+        out["edge_cases"][case] = {"routed": int(counts.sum()),
+                                   "deepest_bucket": int(counts.max())}
+    x = exchange_case(torch, dev, c, "cell")
+    S, B = x["S"], x["B"]
+    routed = out["edge_cases"]["cell"]["routed"]
+    nbytes = S * B * 24 + routed * 24 + 2 * S * D * 8
+    ms = cuda_ms(lambda: run_exchange(torch, dev, x, D, False), torch, flush)
+    plain_ms = cuda_ms(lambda: run_exchange(torch, dev, x, D, True), torch,
+                       flush, reps=5)
+    kg = key_groups_device(x["keys"].reshape(-1), MAXP).to(torch.int64)
+    code = (torch.arange(S * B, device=dev) // B) * (D + 1) + kg * D // MAXP
+    library_ms = cuda_ms(lambda: torch.argsort(code, stable=True), torch,
+                         flush)
+    out["shapes"]["cell"] = {
+        "sources": S, "block": B, "destinations": D, "routed": routed,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+        "share_of_bound": bound_ms(nbytes) / ms}
+    out["max_abs_err"] = 0
+    return out
+
+
+def counted_step_state(torch, dev, c: dict, prefix: int) -> dict:
+    """Shard 0's state at the cell's shape after ``prefix`` Q5-10M batches
+    through the kernels (the exchange, then the counted step), with the
+    exchange of the next batch: {table, planes, late, dropped, out}."""
+    from flink_tpu_torch.ops.hash_table import make_table
+
+    S, B, cap = c["shards"], c["device_batch"], c["capacity"]
+    st = {"table": make_table(cap, dev),
+          "count": torch.zeros((RING, cap), dtype=torch.int64, device=dev),
+          "revenue": torch.zeros((RING, cap), dtype=torch.int64,
+                                 device=dev),
+          "late": torch.zeros((), dtype=torch.int64, device=dev),
+          "dropped": torch.zeros((), dtype=torch.int64, device=dev)}
+    x = exchange_case(torch, dev, c, "cell")
+    for b in range(prefix + 1):
+        keys, price, ts = _q5_block(torch, dev, c, b * S * B, S * B)
+        x = {**x, "keys": keys.view(S, B), "ts": ts.view(S, B),
+             "cols": [price.view(S, B)]}
+        out = run_exchange(torch, dev, x, S, plain=False)
+        if b < prefix:
+            counted_step(st, out, 0, plain=False)
+    st["out"] = out
+    return st
+
+
+def counted_step(st: dict, out, d: int, plain: bool) -> None:
+    from flink_tpu_torch.ops.hash_table import ingest_step, ingest_step_plain
+
+    fn = ingest_step_plain if plain else ingest_step
+    fn(st["table"], [("count", st["count"], None),
+                     ("sum", st["revenue"], out.cols[0][d])],
+       out.panes[d], out.keys[d], 1, 0, MIN_TIMESTAMP, st["late"],
+       st["dropped"], segments=out.counts[:, d])
+
+
+def shard_state_by_key(torch, st: dict) -> tuple:
+    """(sorted keys, their count and revenue rows) of a shard's state."""
+    slots = torch.nonzero(st["table"] != INT64_MAX).flatten()
+    keys = st["table"][slots]
+    order = torch.argsort(keys)
+    s = slots[order]
+    return keys[order], st["count"][:, s], st["revenue"][:, s]
+
+
+def dense_step_ms(torch, pre: dict, out, work: dict, flush, setup,
+                  want: dict) -> float:
+    """The uncounted step over shard 0's counted rows packed densely (a
+    gather of each segment's front), held to the counted step's state by
+    key and timed as it is."""
+    from flink_tpu_torch.ops.hash_table import ingest_step
+
+    S, B = out.n_src, out.block
+    pos = torch.arange(B, device=out.keys.device)
+    rows = ((pos[None, :] < out.counts[:, 0:1]).reshape(-1)
+            .nonzero().flatten())
+    keys, panes = out.keys[0][rows], out.panes[0][rows]
+    price = out.cols[0][0][rows]
+
+    def step(st):
+        ingest_step(st["table"], [("count", st["count"], None),
+                                  ("sum", st["revenue"], price)],
+                    panes, keys, 1, 0, MIN_TIMESTAMP, st["late"],
+                    st["dropped"])
+
+    setup()
+    step(work)
+    torch.cuda.synchronize()
+    if any(not torch.equal(a, b) for a, b in zip(
+            shard_state_by_key(torch, work),
+            shard_state_by_key(torch, want))):
+        raise AssertionError("the uncounted step over the packed rows "
+                             "disagrees with the counted step")
+    return cuda_ms(lambda: step(work), torch, flush, setup=setup)
+
+
+def check_counted_ingest(torch, dev, flush) -> dict:
+    """ingest_step's counted form against its plain version on the card:
+    shard 0's fold of Q5-10M's 5th batch after 4 batches, at the cell's
+    2^23 slots, from the exchange's buffer (4 segments of 2^17 rows, their
+    counts on the card): the same keys, the count and revenue planes
+    equal key by key, late and dropped equal. Timed beside the plain
+    version; bound: each counted row's ts, key and price read once, a new
+    key's slot written, each (ring row, key) cell of the two planes read
+    and written once."""
+    c = mesh_config()
+    base = counted_step_state(torch, dev, c, STEP_PREFIX)
+    out = base.pop("out")
+    pre = {k: v.clone() for k, v in base.items()}
+    outs = []
+    for plain in (False, True):
+        st = {k: v.clone() for k, v in pre.items()}
+        counted_step(st, out, 0, plain)
+        outs.append(st)
+    torch.cuda.synchronize()
+    (kk, kc, kr), (pk, pc, pr) = (shard_state_by_key(torch, s)
+                                  for s in outs)
+    if not (torch.equal(kk, pk) and torch.equal(kc, pc)
+            and torch.equal(kr, pr)
+            and int(outs[0]["late"]) == int(outs[1]["late"])
+            and int(outs[0]["dropped"]) == int(outs[1]["dropped"])):
+        raise AssertionError("ingest_step counted form disagrees with its "
+                             "plain version")
+    rows = int(out.counts[:, 0].sum())
+    new_keys = int((pre["table"] == INT64_MAX).sum()
+                   - (outs[0]["table"] == INT64_MAX).sum())
+    touched = int(((outs[0]["count"] != pre["count"])).sum())
+    nbytes = rows * 24 + new_keys * 8 + touched * 2 * 2 * 8
+    work = {k: v.clone() for k, v in pre.items()}
+
+    def setup():
+        for k, v in pre.items():
+            work[k].copy_(v)
+
+    ms = cuda_ms(lambda: counted_step(work, out, 0, False), torch, flush,
+                 setup=setup)
+    plain_ms = cuda_ms(lambda: counted_step(work, out, 0, True), torch,
+                       flush, reps=3, setup=setup)
+    # the cost of the segments: the same rows packed densely, folded by
+    # the step without the counted form (one thread a row, no div/mod)
+    dense_ms = dense_step_ms(torch, pre, out, work, flush, setup, outs[0])
+    return {"shapes": {"cell_shard0": {
+        "rows_in_buffer": out.keys.shape[1], "rows_counted": rows,
+        "new_keys": new_keys, "cells_touched": touched,
+        "capacity": c["capacity"], "ms": ms, "plain_ms": plain_ms,
+        "dense_uncounted_ms": dense_ms,
+        "library_ms": None, "bound_ms": bound_ms(nbytes),
+        "bound_by": "bytes", "share_of_bound": bound_ms(nbytes) / ms}},
+        "max_abs_err": 0}
+
+
+def mesh_resident_bytes(torch, op) -> int:
+    """Bytes of the card tensors a mesh operator holds after its run: the
+    shards' tables, pane planes and counters, the incremental planes and
+    the exchange buffers (each storage once)."""
+    seen, total = set(), 0
+
+    def walk(x):
+        nonlocal total
+        if isinstance(x, torch.Tensor):
+            if x.is_cuda and x.untyped_storage().data_ptr() not in seen:
+                seen.add(x.untyped_storage().data_ptr())
+                total += x.untyped_storage().nbytes()
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif hasattr(x, "__dataclass_fields__"):
+            for f in x.__dataclass_fields__:
+                walk(getattr(x, f))
+
+    walk([op._state, op._inc_wins, op._inc_trees, op._dstage,
+          op._agg._buffers])
+    return total
+
+
+def mesh_run_record(torch, dev, c: dict, mode: str, expected: list) -> dict:
+    """One timed run of the mesh cell through ``env.execute()``: the
+    oracle, the launches of the path (one exchange_bucket a block, one
+    counted ingest_step a shard and block, the select's passes, a seal or
+    rebuild a shard and fire), events/s, p99 fire latency, peak memory,
+    host waits."""
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+
+    start = fresh_memory(torch)
+    reset_launches()
+    job, got = run_mesh_q5(torch, dev, c, mode)
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(KERNEL_LAUNCHES)
+    windows = q5_check(expected, got)
+    op = mesh_operator(job)
+    resident = mesh_resident_bytes(torch, op)
+    if (op._agg.capacity != c["capacity"]
+            or peak > MESH_PEAK_MARGIN * resident
+            or start["allocated_at_start"] > MESH_START_SHARE * resident):
+        raise AssertionError(
+            f"mesh {mode}: peak {peak} B against {resident} B resident "
+            f"(margin {MESH_PEAK_MARGIN}), {start} at the start, capacity "
+            f"{op._agg.capacity} a shard (no grow expected)")
+    batches = c["events"] // c["batch"]
+    D = c["shards"]
+    want = {"exchange_bucket": op.steps,
+            "ingest_step_counted": D * op.steps,
+            "ingest_step": D * op.steps,
+            "window_kernels": D * windows if mode == "incremental" else 0}
+    seen = {"exchange_bucket": launches["exchange_bucket"],
+            "ingest_step_counted": launches["ingest_step_counted"],
+            "ingest_step": launches["ingest_step"],
+            "window_kernels": launches["window_seal"]
+            + launches["window_rebuild"]}
+    if seen != want or op.steps != batches or not launches["hist256"]:
+        raise AssertionError(f"mesh {mode}: launches {launches}, expected "
+                             f"{want} and {batches} steps")
+    return {"wall_s": job.wall_s, "events_per_sec": c["events"] / job.wall_s,
+            "lat": list(op.fire_latencies_ms), "windows": windows,
+            "capacity_at_end": op._agg.capacity,
+            "max_memory_allocated": peak, "memory_at_start": start,
+            "resident_bytes": resident,
+            "launches_per_run": launches,
+            "launches_per_batch": {k: v / batches for k, v in seen.items()},
+            "host_waits_per_batch": op.host_waits / batches,
+            "zero_copy_blocks": op.zero_copy_blocks,
+            "late_dropped": op.late_dropped, "tasks": task_record(job)}
+
+
+def mesh_cell(torch, dev, expected: list) -> dict:
+    """The mesh cell, Q5-10M through 4 shards on the one card, in both
+    fire modes: a warm-up of 4 batches a mode under the sync check (no
+    wait for the card may recur per batch or fire), ``MESH_RUNS`` timed
+    runs of each mode in turns through the runtime, then a run on one
+    thread with every fire timed on the card (``fire_device_ms``); every
+    run against the oracle."""
+    from flink_tpu_torch.runtime.operators import MeshWindowAggOperator
+
+    c = mesh_config()
+    modes = ("full", "incremental")
+    warm = mesh_config(events=4 * c["batch"])
+    waits = {m: check_no_repeated_waits(
+        torch, f"mesh {m}", lambda m=m: run_mesh_q5(torch, dev, warm, m))
+        for m in modes}
+    runs = {m: [] for m in modes}
+    for _ in range(MESH_RUNS):
+        for m in modes:
+            runs[m].append(mesh_run_record(torch, dev, c, m, expected))
+    out = {}
+    for m in modes:
+        checked = []
+
+        def direct(m=m, checked=checked):
+            _op, got = run_mesh_direct(torch, dev, c, m)
+            checked.append(q5_check(expected, got))
+
+        fire = fire_device_ms(torch, direct, MeshWindowAggOperator)
+        eps = sorted(r["events_per_sec"] for r in runs[m])
+        lat = sorted(x for r in runs[m] for x in r.pop("lat"))
+        out[m] = {**runs[m][-1], "runs": len(runs[m]),
+                  "events_per_sec": float(np.median(eps)),
+                  "events_per_sec_min_max": [eps[0], eps[-1]],
+                  "wall_s": [r["wall_s"] for r in runs[m]],
+                  "p99_fire_latency_ms": lat[min(len(lat) - 1,
+                                                 int(0.99 * len(lat)))],
+                  "fires": len(lat),
+                  "max_memory_allocated": max(r["max_memory_allocated"]
+                                              for r in runs[m]),
+                  "memory_by_run": [{"at_start": r["memory_at_start"],
+                                     "peak": r["max_memory_allocated"],
+                                     "resident": r["resident_bytes"],
+                                     "capacity_at_end": r["capacity_at_end"]}
+                                    for r in runs[m]],
+                  "host_waits_per_job": waits[m], "fire_device_ms": fire,
+                  "direct_windows_checked": checked[-1]}
+    return out
+
+
+def mesh_grow_run(torch, dev) -> dict:
+    """A mesh that grows: 4 shards of 2^12 slots against 100K keys in
+    batches of 2^12; the probe grows every shard at watermarks, nothing is
+    dropped, every window equals the oracle."""
+    c = mesh_config("grow")
+    job, got = run_mesh_q5(torch, dev, c)
+    op = mesh_operator(job)
+    return {"windows": q5_check(mesh_q5_expected(c), got),
+            "capacity_before": c["capacity"],
+            "capacity_after": op._agg.capacity}
+
+
+def builtin_env(torch, dev, c: dict, mesh_devices: int):
+    """``window(...).sum("price")`` on Q5's stream (capacity 2^21 a shard
+    or device) with ``state.backend.tpu.mesh-devices``; rows (window end -
+    1, auction, result) a batch."""
+    from flink_tpu_torch.api import StreamExecutionEnvironment
+    from flink_tpu_torch.connectors.datagen import DataGenSource
+    from flink_tpu_torch.core import Configuration, Schema, WatermarkStrategy
+    from flink_tpu_torch.window import SlidingEventTimeWindows
+
+    schema = Schema([("auction", np.int64), ("price", np.int64),
+                     ("ts", np.int64)])
+    got = []
+    env = StreamExecutionEnvironment(Configuration({
+        "pipeline.micro-batch-size": c["batch"],
+        "pipeline.auto-watermark-interval": 0.0,
+        "state.backend.tpu.mesh-devices": mesh_devices,
+        "state.backend.tpu.slots-per-key-group": 1 << 21}), device=dev)
+    ws = WatermarkStrategy.for_monotonous_timestamps() \
+        .with_timestamp_column("ts")
+    (env.from_source(DataGenSource(q5_gen(c["keys"], c["events"],
+                                          mesh_span(c)), schema,
+                                   count=c["events"], timestamp_column="ts",
+                                   device=True), ws, "DataGen")
+        .key_by("auction")
+        .window(SlidingEventTimeWindows.of(WINDOW_PANES * PANE_MS, PANE_MS))
+        .sum("price")
+        .add_sink(lambda b: got.append((int(b.timestamps[0]),
+                                        b.column("auction"),
+                                        b.column("result")))))
+    return env, got
+
+
+def builtin_rows(got: list) -> dict:
+    """{window end - 1: (keys, results) in key order}."""
+    out = {}
+    for ts, k, v in got:
+        pk, pv = out.get(ts, (np.empty(0, np.int64), np.empty(0, np.int64)))
+        out[ts] = (np.concatenate([pk, k]), np.concatenate([pv, v]))
+    return {ts: (k[np.argsort(k)], v[np.argsort(k)])
+            for ts, (k, v) in out.items()}
+
+
+def mesh_builtin_route(torch, dev) -> dict:
+    """The builtin route at Q5-1M: ``state.backend.tpu.mesh-devices`` 4
+    against the single-device operator (0): every window's rows equal."""
+    c = mesh_config("q5_1m")
+    rows, walls = {}, {}
+    for n in (MESH_SHARDS, 0):
+        fresh_memory(torch)
+        env, got = builtin_env(torch, dev, c, n)
+        job = env.execute("builtin-sum")
+        rows[n], walls[n] = builtin_rows(got), job.wall_s
+        if n:
+            op = mesh_operator(job)
+            if op._n_devices != n:
+                raise AssertionError("the builtin route took no mesh")
+    mesh, single = rows[MESH_SHARDS], rows[0]
+    if sorted(mesh) != sorted(single) or not all(
+            np.array_equal(mesh[t][0], single[t][0])
+            and np.array_equal(mesh[t][1], single[t][1]) for t in single):
+        raise AssertionError("builtin sum on the mesh disagrees with the "
+                             "single-device operator")
+    return {"windows": len(single),
+            "rows": int(sum(len(k) for k, _v in single.values())),
+            "wall_s_mesh": walls[MESH_SHARDS], "wall_s_single": walls[0]}
+
+
+def mesh_rescale_run(torch, dev) -> dict:
+    """``live_rescale`` at Q5-1M, 4 -> 2 -> 1 -> 4 shards mid-run (the
+    source paced to ``MESH_RESCALE_RUN_S``, a rescale at each equal share
+    of it after the first batch): every window once and equal to the
+    oracle, no kernel built, and each new mesh at 2x headroom for the keys
+    it received (the scale-in to one shard brings it more keys than its
+    old 2^20 slots take at that headroom)."""
+    from flink_tpu_torch.cluster.local import live_rescale
+    from flink_tpu_torch.ops import kernels
+
+    c = mesh_config("q5_1m")
+    expected = mesh_q5_expected(c)
+    builds = kernels.builds()
+    fresh_memory(torch)
+    env, got, _source = mesh_q5_env(torch, dev, c,
+                                    rate=c["events"] / MESH_RESCALE_RUN_S)
+    job = env.execute_async("mesh-rescale")
+    stats = []
+    try:
+        op = mesh_operator(job)
+        deadline = time.monotonic() + 60
+        while op.first_batch_at is None and time.monotonic() < deadline:
+            time.sleep(0.005)
+        for i, n in enumerate(MESH_RESCALE_TO):
+            at = op.first_batch_at + MESH_RESCALE_RUN_S * (i + 1) / (
+                len(MESH_RESCALE_TO) + 1)
+            while time.perf_counter() < at:
+                time.sleep(0.005)
+            if job._finished:
+                raise AssertionError("the rescaled run ended before its "
+                                     f"rescale to {n} shards")
+            st = live_rescale(job, n, timeout=120)
+            keys = int(sum((t != INT64_MAX).sum() for t in op._state.table))
+            stats.append({**st, "after_steps": op.steps, "keys": keys,
+                          "capacity_per_shard": op._agg.capacity})
+            if op._agg.capacity * n < 2 * keys:
+                raise AssertionError(f"rescale to {n} shards: {keys} keys "
+                                     f"in {op._agg.capacity} slots a shard")
+        job.wait(300)
+    finally:
+        job.cancel()
+    windows = q5_check(expected, got)
+    if kernels.builds() != builds:
+        raise AssertionError("the live rescale built a kernel")
+    return {"windows": windows, "rescales": stats,
+            "shards_at_end": op._n_devices, "kernel_builds": 0,
+            "wall_s": job.wall_s}
+
+
+def q5_device_batches(torch, dev, c: dict):
+    """Q5's device batches of ``c`` with the watermark after each."""
+    from flink_tpu_torch.core import Schema
+    from flink_tpu_torch.core.device_records import DeviceRecordBatch
+
+    schema = Schema([("auction", np.int64), ("price", np.int64)])
+    span, n = mesh_span(c), c["batch"]
+    for b in range(c["events"] // n):
+        keys, price, ts = _q5_block(torch, dev, c, b * n, n)
+        lo = (b * n * span) // c["events"]
+        hi = (((b + 1) * n - 1) * span) // c["events"]
+        yield DeviceRecordBatch(schema, {"auction": keys, "price": price},
+                                ts, lo, hi), hi - 1
+
+
+def q5_operator_of(torch, dev, kind: str, c: dict):
+    from flink_tpu_torch.runtime.operators import AggSpec, \
+        DeviceWindowAggOperator, MeshWindowAggOperator
+    from flink_tpu_torch.window import SlidingEventTimeWindows
+
+    w = SlidingEventTimeWindows.of(WINDOW_PANES * PANE_MS, PANE_MS)
+    aggs = [AggSpec("count", out_name="bids", value_bits=31),
+            AggSpec("sum", "price", out_name="revenue")]
+    if kind == "mesh":
+        return MeshWindowAggOperator(
+            w, "auction", aggs, n_devices=c["shards"],
+            capacity=c["capacity"], ring_size=RING,
+            device_batch=c["device_batch"], emit_window_bounds=False,
+            emit_topk=TOPK, async_fire=True, device=dev)
+    return DeviceWindowAggOperator(
+        w, "auction", aggs, capacity=1 << 21, ring_size=RING,
+        emit_window_bounds=False, emit_topk=TOPK, defer_overflow=True,
+        async_fire=True, device=dev)
+
+
+def mesh_cross_restores(torch, dev) -> dict:
+    """At Q5-1M, a checkpoint after ``MESH_RESTORE_CUT`` batches of the
+    mesh restored into the single-device operator, and the other way
+    round: both halves' windows together equal the oracle."""
+    from flink_tpu_torch.core import Configuration
+    from flink_tpu_torch.core.elements import MAX_TIMESTAMP
+    from flink_tpu_torch.runtime import OneInputOperatorTestHarness
+
+    c = mesh_config("q5_1m")
+    expected = mesh_q5_expected(c)
+    out = {}
+    for first, second in (("mesh", "single"), ("single", "mesh")):
+        fresh_memory(torch)
+        hs = [OneInputOperatorTestHarness(
+            q5_operator_of(torch, dev, kind, c), config=Configuration())
+            for kind in (first, second)]
+        h = hs[0]
+        for i, (batch, wm) in enumerate(q5_device_batches(torch, dev, c)):
+            if i == MESH_RESTORE_CUT:
+                snap = h.snapshot(1)
+                h = hs[1]
+                h.open([snap["keyed"]])
+                keys = len(snap["keyed"]["backend"]["keys"])
+            h.process_batch(batch)
+            h.process_watermark(wm)
+        h.process_watermark(MAX_TIMESTAMP)
+        for hh in hs:
+            hh.close()
+        got = [(int(b.timestamps[0]), b.column("auction"), b.column("bids"),
+                b.column("revenue")) for hh in hs
+               for b in hh.output.batches]
+        out[f"{first}_to_{second}"] = {"windows": q5_check(expected, got),
+                                       "keys_restored": keys}
+    return out
+
+
+def mesh_entry(mesh: dict, kernel: str, source: str, shape: str,
+               replaces: str) -> dict:
+    """The kernels line's entry of a mesh kernel: its check at the cell's
+    shape, launches of the mesh cell's full-mode run (and by path)."""
+    check = mesh[kernel]
+    at = check["shapes"][shape]
+    cell = mesh["cell"]
+    return {"name": kernel, "route": "cuda",
+            "source": f"flink_tpu_torch/csrc/{source}.cu",
+            "replaces": replaces,
+            "launches": cell["full"]["launches_per_run"][kernel],
+            "max_abs_err": check["max_abs_err"],
+            **{k: at[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "share_of_bound")},
+            "shape": at,
+            "launches_by_path": {
+                f"mesh Q5-10M {m}": cell[m]["launches_per_run"][kernel]
+                for m in ("full", "incremental")},
+            "launches_per_batch": cell["full"]["launches_per_batch"][kernel],
+            **({"edge_cases": check["edge_cases"]}
+               if "edge_cases" in check else {})}
+
+
+def mesh_phase(torch, dev, flush) -> dict:
+    """The multi-device window path: the exchange kernel and the counted
+    step against their plain versions, the mesh cell in both fire modes,
+    a mesh that grows, the builtin route, the live rescale and the cross
+    restores."""
+    t0 = time.perf_counter()
+    out, seconds = {}, {}
+
+    def part(name: str, fn) -> None:
+        t = time.perf_counter()
+        out[name] = fn()
+        seconds[name] = time.perf_counter() - t
+        emit({f"mesh_{name}": out[name], "seconds": seconds[name]})
+
+    part("exchange_bucket", lambda: check_exchange(torch, dev, flush))
+    part("ingest_step_counted",
+         lambda: check_counted_ingest(torch, dev, flush))
+    expected = mesh_q5_expected(mesh_config())
+    part("cell", lambda: {"config": mesh_config(),
+                          **mesh_cell(torch, dev, expected)})
+    del expected
+    part("grow", lambda: mesh_grow_run(torch, dev))
+    part("builtin_route", lambda: mesh_builtin_route(torch, dev))
+    part("live_rescale", lambda: mesh_rescale_run(torch, dev))
+    part("cross_restores", lambda: mesh_cross_restores(torch, dev))
+    return {**out, "seconds": {**seconds,
+                               "all": time.perf_counter() - t0}}
+
+
 PROFILED_CELLS = {
     "sql_tpch_q1": (sql_profile, lambda torch, dev: run_tpch_q1(torch, dev),
                     lambda torch, dev: run_tpch_q1(torch, dev, 4 * BATCH)),
@@ -8515,12 +9303,15 @@ def profile_child(torch, dev, cell: str) -> int:
 
 
 def main(argv: list[str]) -> int:
+    mesh_only = argv == ["--mesh"]
+    if mesh_only:
+        argv = []
     if argv and (len(argv) != 2 or argv[0] not in ("--parent-kernels",
                                                    "--profile")
                  or argv[0] == "--profile"
                  and argv[1] not in PROFILED_CELLS):
         print("usage: chip_smoke.py [--parent-kernels DIR | --profile "
-              f"{'|'.join(PROFILED_CELLS)}]", file=sys.stderr)
+              f"{'|'.join(PROFILED_CELLS)} | --mesh]", file=sys.stderr)
         return 2
     child = argv[1] if argv and argv[0] == "--profile" else None
     if child:
@@ -8567,6 +9358,13 @@ def main(argv: list[str]) -> int:
     if argv:
         emit({"parent_kernels": parent_kernels(torch, dev, flush)})
         return 0
+    if mesh_only:
+        emit({"mesh_phase_seconds": mesh_phase(torch, dev, flush)["seconds"]})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
     rates = sector_rates(torch, dev, flush, sector_lib)
     emit({"sector_rates": rates})
     hist = check_hist256(torch, dev, flush)
@@ -8581,6 +9379,7 @@ def main(argv: list[str]) -> int:
     gagg = check_group_agg(torch, dev, flush, rates)
     lists = check_device_lists(torch, dev, flush, rates)
     rows = check_row_state(torch, dev, flush, rates)
+    mesh_flush = flush
     emit({"kernel_checks": {"hist256": hist, "select_pass": select,
                             "hash_probe": probe, "ingest_step": step,
                             "ingest_step_forms": forms,
@@ -8690,6 +9489,9 @@ def main(argv: list[str]) -> int:
     phase_done("sql_join")
     emit(faults_phase(torch, dev))
     phase_done("faults")
+    mesh = mesh_phase(torch, dev, mesh_flush)
+    del mesh_flush
+    phase_done("mesh")
     emit({"phase_seconds": phase_s})
     emit({"fault_counters_by_phase": phase_faults})
     emit({"smoke_seconds_before_kernels_line": time.perf_counter() - t_start})
@@ -8925,6 +9727,11 @@ def main(argv: list[str]) -> int:
         row_entry("row_set", 111),
         row_entry("row_get", 127),
         row_entry("row_unset", 157),
+        mesh_entry(mesh, "exchange_bucket", "exchange", "cell",
+                   "flink_tpu/parallel/exchange.py:110"),
+        mesh_entry(mesh, "ingest_step_counted", "hash_table",
+                   "cell_shard0",
+                   "flink_tpu/parallel/sharded_window.py:122"),
     ]})
     print(smi, flush=True)
     if torch.cuda.device_count() != 1:

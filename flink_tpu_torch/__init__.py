@@ -10,6 +10,8 @@ keeps its own trimmed copies of the host modules it needs. Layout mirrors
   ops/        hash table, segment folds, radix top-k, kernel build + binding
   csrc/       hand-written CUDA kernels (sm_90a), built at first use
   state/      device keyed-state backend (hash table + pane planes)
+  parallel/   the mesh: D shards in one process, the keyBy exchange on the
+              device, sharded window state, live rescale
   runtime/    operator base and chain, harness, the window operator, stream
               tasks, channels, record writers, the fused chain
   graph/      transformations, StreamGraph/JobGraph, fusion certificate

@@ -1,8 +1,10 @@
 """DataStream API of the port (trimmed port of
 ``flink_tpu/api/datastream.py``): a lazy Transformation DAG of sources,
-keyed exchanges, device window aggregates, custom one-input operators,
-two connected streams into one two-input operator (``connect`` then
-``transform``), and sinks, compiled and run by
+keyed exchanges, device window aggregates (one device, or a mesh of
+shards: ``mesh_aggregate``, and the builtin ``sum``/``count``/``min``/
+``max`` under ``state.backend.tpu.mesh-devices``), custom one-input
+operators, two connected streams into one two-input operator (``connect``
+then ``transform``), and sinks, compiled and run by
 ``StreamExecutionEnvironment.execute``."""
 
 from __future__ import annotations
@@ -16,7 +18,9 @@ from ..graph.transformations import OneInputTransformation, \
     PartitionTransformation, SinkTransformation, Transformation, \
     TwoInputTransformation
 from ..runtime.operators.device_session import DeviceSessionWindowOperator
-from ..runtime.operators.device_window import DeviceWindowAggOperator
+from ..runtime.operators.device_window import AggSpec, \
+    DeviceWindowAggOperator
+from ..runtime.operators.mesh_window import MeshWindowAggOperator
 from ..runtime.operators.sink import CollectSink, SinkOperator
 from ..runtime.writer import GlobalPartitioner, KeyGroupPartitioner, \
     RebalancePartitioner
@@ -237,4 +241,107 @@ class WindowedStream:
                 name=name)
 
         return self.keyed._one_input(name, factory,
+                                     key_extractor=self.keyed.key_extractor)
+
+    # -- builtin aggregates -------------------------------------------------
+    def sum(self, field: str, name: str = "WindowSum") -> DataStream:
+        return self._builtin_agg("sum", field, name)
+
+    def min(self, field: str, name: str = "WindowMin") -> DataStream:
+        return self._builtin_agg("min", field, name)
+
+    def max(self, field: str, name: str = "WindowMax") -> DataStream:
+        return self._builtin_agg("max", field, name)
+
+    def count(self, name: str = "WindowCount") -> DataStream:
+        return self._builtin_agg("count", None, name)
+
+    def _builtin_agg(self, kind: str, field, name: str) -> DataStream:
+        """The reference's planner rule (``_try_device_agg``): with the
+        ``tpu`` backend, a column key and a pane-decomposable assigner the
+        aggregate runs on the device operator, or as one vertex over a mesh
+        of ``state.backend.tpu.mesh-devices`` shards when that is 2 or
+        more; rows (key, result). The host WindowOperator the reference
+        falls back to is not ported."""
+        cfg = self.keyed.env.config
+        key_col = self.keyed.key_spec
+        if (cfg.get("state.backend.type") != "tpu"
+                or not isinstance(key_col, str)
+                or not isinstance(field, (str, type(None)))
+                or self.assigner.pane_size is None):
+            raise NotImplementedError(
+                "this window aggregate needs the host WindowOperator, which "
+                "is not ported yet (ROADMAP Queue 1, item 10); use the tpu "
+                "backend, a column key and a tumbling or sliding window")
+        assigner = self.assigner
+        device = self.keyed.env.device
+        capacity = cfg.get("state.backend.tpu.slots-per-key-group") \
+            or (1 << 16)
+        mesh_devices = cfg.get("state.backend.tpu.mesh-devices")
+
+        def spec():
+            return AggSpec(kind, field, out_name="result")
+
+        if mesh_devices and mesh_devices >= 2:
+            def mesh_factory():
+                return MeshWindowAggOperator(
+                    assigner, key_col, [spec()], n_devices=mesh_devices,
+                    capacity=capacity, emit_window_bounds=False,
+                    device=device, name=name)
+
+            # the mesh is the parallelism: one vertex owns every shard
+            return self.keyed._one_input(
+                name, mesh_factory, parallelism=1,
+                key_extractor=self.keyed.key_extractor)
+
+        def factory():
+            return DeviceWindowAggOperator(
+                assigner, key_col, [spec()], capacity=capacity,
+                emit_window_bounds=False, device=device, name=name)
+
+        return self.keyed._one_input(name, factory,
+                                     key_extractor=self.keyed.key_extractor)
+
+    def mesh_aggregate(self, aggs, n_devices: Optional[int] = None,
+                       capacity: int = 1 << 16, ring_size: int = 64,
+                       device_batch: int = 1 << 12,
+                       emit_window_bounds: bool = True,
+                       emit_topk: Optional[int] = None,
+                       async_fire: bool = False,
+                       parallelism: int = 1, devices=None,
+                       name: str = "MeshWindowAgg") -> DataStream:
+        """Window aggregation as one vertex over a mesh of ``n_devices``
+        shards (``runtime/operators/mesh_window.py``): the keyBy is the
+        exchange on the device and the state is split by key-group range
+        across the shards. ``parallelism=1``: one subtask whose
+        parallelism is the mesh; ``parallelism=H``: H subtasks each owning
+        a key-group range that its mesh re-splits (host batches only: a
+        device batch is not split by key group between subtasks).
+        ``emit_topk``/``async_fire`` as in ``device_aggregate``, the top k
+        ranked across every shard. ``devices``: the shards' devices
+        (default: every shard on the environment's device)."""
+        if not isinstance(self.keyed.key_spec, str):
+            raise ValueError("mesh aggregation needs a column key")
+        if emit_topk is not None and parallelism > 1:
+            raise ValueError(
+                "emit_topk with parallelism > 1 would rank each subtask's "
+                "key range separately, not globally; run the mesh top-k "
+                "at parallelism=1 or add a downstream global TopN")
+        if self.assigner.pane_size is None:
+            raise ValueError(
+                "mesh aggregation needs a pane-decomposable assigner "
+                "(tumbling, or sliding with size % slide == 0)")
+        assigner, key_col = self.assigner, self.keyed.key_spec
+        device = self.keyed.env.device
+
+        def factory():
+            return MeshWindowAggOperator(
+                assigner, key_col, aggs, n_devices=n_devices,
+                capacity=capacity, ring_size=ring_size,
+                device_batch=device_batch,
+                emit_window_bounds=emit_window_bounds, emit_topk=emit_topk,
+                async_fire=async_fire, device=device, devices=devices,
+                name=name)
+
+        return self.keyed._one_input(name, factory, parallelism=parallelism,
                                      key_extractor=self.keyed.key_extractor)

@@ -27,6 +27,11 @@ the job. ``LocalJob.wait_event`` and ``current_failures`` let the job
 supervisor (``cluster/scheduler.py``) see a failure without cancelling,
 and ``restart_region`` rebuilds the tasks of some vertices inside a
 running job. Every task failure lands in ``failure_history``.
+
+Meshes: ``deploy_local`` also configures the process-global
+``MESH_RUNTIME`` from the job's ``mesh.*`` keys, and ``live_rescale``
+changes the shard count of every mesh operator of a running job at one
+aligned checkpoint barrier, exactly once, without a restart.
 """
 
 from __future__ import annotations
@@ -46,7 +51,8 @@ from ..runtime.stream_task import OneInputStreamTask, SourceStreamTask, \
     StreamTask, TaskReporter, TwoInputStreamTask
 from ..runtime.writer import RecordWriter
 
-__all__ = ["LocalJob", "deploy_local", "restart_region", "run_job"]
+__all__ = ["LocalJob", "deploy_local", "restart_region", "run_job",
+           "live_rescale"]
 
 
 class LocalJob(TaskReporter):
@@ -208,6 +214,10 @@ def deploy_local(job_graph: JobGraph, config: Configuration,
     from ..runtime.watchdog import WATCHDOG
     FAULTS.configure(config)
     WATCHDOG.configure(config)
+    # the mesh's rules and rescale policy are process-global too: every
+    # mesh operator of the process reads the same
+    from ..parallel.plan import MESH_RUNTIME
+    MESH_RUNTIME.configure(config)
     _deploy_vertices(job, job_graph, config,
                      _channels(job_graph, set(job_graph.vertices)),
                      restored_state, set(job_graph.vertices))
@@ -375,3 +385,74 @@ def run_job(job_graph: JobGraph, config: Configuration, device: torch.device,
     finally:
         detector.stop()
     return job
+
+
+def live_rescale(job: LocalJob, n_devices: int,
+                 timeout: Optional[float] = None) -> dict:
+    """Change the shard count of every mesh operator of a RUNNING job,
+    barrier-aligned and exactly once, without a restart (port of the
+    reference's ``cluster/local.py::live_rescale``).
+
+    Stage the new count on every mesh operator (``request_rescale``), then
+    trigger ONE aligned checkpoint: each operator applies the change on its
+    task thread at its snapshot point, where every buffered row is folded
+    and every fire drained, so the barrier that makes the checkpoint
+    consistent makes the switch consistent too. The state moves as
+    digest-verified key-group pages (``parallel/rescale.py``); the derived
+    incremental planes are rebuilt. A job without periodic checkpoints gets
+    a coordinator for this one barrier. Returns the merged migration stats
+    (keygroups_migrated and bytes_moved summed, duration_ms and epoch the
+    largest)."""
+    from ..parallel.plan import MESH_RUNTIME
+    if not MESH_RUNTIME.rescale_enabled:
+        raise RuntimeError(
+            "live rescale is disabled (mesh.rescale.enabled=false)")
+    if timeout is None:
+        timeout = MESH_RUNTIME.rescale_timeout_ms / 1000.0
+    targets = []
+    for tid in list(job.tasks):
+        chain = getattr(job.tasks[tid], "chain", None)
+        for op in (chain.operators if chain is not None else ()):
+            if hasattr(op, "request_rescale"):
+                targets.append((tid, op))
+    if not targets:
+        raise ValueError("live_rescale: job has no mesh operators")
+    old_epochs = {tid: op._rescale_epoch for tid, op in targets}
+    for _, op in targets:
+        op.request_rescale(n_devices)
+    coordinator = job.coordinator
+    ephemeral = coordinator is None
+    if ephemeral:
+        from ..checkpoint.coordinator import CheckpointCoordinator
+        coordinator = CheckpointCoordinator(job, job.config)
+    try:
+        pending = coordinator.trigger_checkpoint()
+        if not pending.done.wait(timeout):
+            raise TimeoutError(
+                f"live rescale to {n_devices} devices timed out after "
+                f"{timeout:.1f}s (mesh.rescale.timeout) waiting for the "
+                "alignment barrier")
+        if pending.completed is None:
+            raise RuntimeError(
+                f"live rescale checkpoint {pending.checkpoint_id} was "
+                "declined; worker set unchanged")
+    finally:
+        if ephemeral:
+            job.checkpoint_listener = None
+    stale = [tid for tid, op in targets
+             if op._rescale_epoch <= old_epochs[tid]]
+    if stale:
+        raise RuntimeError(
+            f"live rescale barrier completed but operators {stale} did not "
+            "bump their mesh epoch")
+    merged = {"new_devices": int(n_devices), "operators": len(targets),
+              "keygroups_migrated": 0, "bytes_moved": 0,
+              "duration_ms": 0.0, "epoch": 0}
+    for _, op in targets:
+        st = op._last_rescale_stats or {}
+        merged["keygroups_migrated"] += st.get("keygroups_migrated", 0)
+        merged["bytes_moved"] += st.get("bytes_moved", 0)
+        merged["duration_ms"] = max(merged["duration_ms"],
+                                    st.get("duration_ms", 0.0))
+        merged["epoch"] = max(merged["epoch"], st.get("epoch", 0))
+    return merged

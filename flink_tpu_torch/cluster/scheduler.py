@@ -21,8 +21,10 @@ all old keyed snapshots of its vertex, and each backend keeps the key
 groups of its own range, so keyed state re-splits across the new
 parallelism. Reader positions map only where a vertex keeps its
 parallelism (rescale a keyed vertex, not a source), and a device batch
-cannot be split by key group across subtasks yet (the multi-device
-slice): rescale jobs of host batches.
+cannot be split by key group across subtasks yet: rescale the parallelism
+of jobs of host batches. ``mesh_devices`` re-splits a mesh job's device
+state too: each mesh operator restores from the savepoint and re-shards
+it across its new shard count before the job starts.
 """
 
 from __future__ import annotations
@@ -215,9 +217,12 @@ class JobSupervisor:
 
     # -- rescaling ---------------------------------------------------------
     def rescale(self, vertex_parallelism: dict[str, int],
-                timeout: float = 60.0) -> None:
+                timeout: float = 60.0,
+                mesh_devices: Optional[int] = None) -> None:
         """Stop with a savepoint, set the vertices' parallelism, and
-        deploy again from the savepoint. Call it from a thread other than
+        deploy again from the savepoint; with ``mesh_devices``, every mesh
+        operator re-shards its restored state across that many shards
+        before the new attempt starts. Call it from a thread other than
         the job's and ``run``'s."""
         job = self.current_job
         sp = job.coordinator.trigger_savepoint(timeout)
@@ -229,6 +234,10 @@ class JobSupervisor:
                 self.job_graph.vertices[vid].parallelism = par
             self._latest = sp
             new = self._deploy(sp)
+            if mesh_devices is not None:
+                for op in new.operators:
+                    if hasattr(op, "rescale_live"):
+                        op.rescale_live(mesh_devices)
             new.start()
             self._detector.start()
         finally:

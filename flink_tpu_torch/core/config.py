@@ -10,7 +10,8 @@ from __future__ import annotations
 import re
 from typing import Any, Optional
 
-__all__ = ["Configuration", "DEFAULTS", "SqlOptions"]
+__all__ = ["Configuration", "DEFAULTS", "SqlOptions", "StateOptions",
+           "MeshOptions"]
 
 #: key -> default (reference: PipelineOptions / CheckpointingOptions /
 #: TaskOptions / WindowOptions)
@@ -55,6 +56,19 @@ DEFAULTS: dict[str, Any] = {
     # from the operator's per-slot footprint; the slots key wins when both
     # are set (0: unlimited)
     "state.backend.tpu.hbm-budget-bytes": 0,
+    # pre-sized device slots of a builtin window aggregate (0: 2^16, grown
+    # by rehash)
+    "state.backend.tpu.slots-per-key-group": 0,
+    # builtin window aggregates run as one vertex over a mesh of this many
+    # shards (the keyBy exchange on the device); 0 and 1: one device
+    "state.backend.tpu.mesh-devices": 0,
+    # the mesh (parallel/plan.py): partition rules of the sharded state as
+    # ';'-separated 'regex=axis' entries ('regex=*' replicates; empty: the
+    # window state's rules), whether a live worker-set change may
+    # re-shard the state at an aligned barrier, and its deadline
+    "mesh.axis-rules": "",
+    "mesh.rescale.enabled": True,
+    "mesh.rescale.timeout": 30.0,
     # tiered residency under a budget (state/tiering/): batch boundaries
     # between heat decay steps, the factor each step applies, the seed of
     # the policy's tie-break permutation, staging promotions on a thread
@@ -114,6 +128,24 @@ class SqlOptions:
 
     TWO_PHASE_AGG = "sql.optimizer.agg-phase-strategy.two-phase"
 
+
+class StateOptions:
+    """Keyed-state keys the mesh route reads (reference
+    ``core/config.py::StateOptions``)."""
+
+    BACKEND = "state.backend.type"
+    TPU_CAPACITY = "state.backend.tpu.slots-per-key-group"
+    MESH_DEVICES = "state.backend.tpu.mesh-devices"
+
+
+class MeshOptions:
+    """The mesh's keys (reference ``core/config.py::MeshOptions``, same
+    defaults)."""
+
+    AXIS_RULES = "mesh.axis-rules"
+    RESCALE_ENABLED = "mesh.rescale.enabled"
+    RESCALE_TIMEOUT = "mesh.rescale.timeout"
+
 #: value type of each key whose default does not name it
 _TYPES: dict[str, type] = {"execution.checkpointing.dir": str}
 _DURATIONS = {"pipeline.auto-watermark-interval",
@@ -128,7 +160,8 @@ _DURATIONS = {"pipeline.auto-watermark-interval",
               "restart-strategy.failure-rate.failure-rate-interval",
               "restart-strategy.failure-rate.delay",
               "restart-strategy.exponential-delay.initial-backoff",
-              "restart-strategy.exponential-delay.max-backoff"}
+              "restart-strategy.exponential-delay.max-backoff",
+              "mesh.rescale.timeout"}
 _MEMORY = {"state.backend.tpu.hbm-budget-bytes"}
 _DURATION_RE = re.compile(r"^\s*([0-9.]+)\s*(ms|s|min)?\s*$")
 _UNITS = {"ms": 1e-3, "s": 1.0, "min": 60.0}

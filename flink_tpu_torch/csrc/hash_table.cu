@@ -51,8 +51,17 @@
 // bool plane has no min/max identity and its sum promotes to int64.) Late
 // and dropped rows are summed over the warp and added with one atomic each.
 //
-// Two optional parts of the step, each off when its pointer is null, so a
+// Three optional parts of the step, each off when its pointer is null, so a
 // launch without them keeps its form and its cost:
+//  * The counted form (the mesh's sharded step, flink_tpu/parallel/
+//    sharded_window.py:122-190): the rows are a destination shard's
+//    buffer from the keyBy exchange (exchange.cu), S segments of seg_len
+//    rows, one a source block, and row i is a row only when
+//    i % seg_len < seg_counts[(i / seg_len) * seg_stride], the count the
+//    exchange left on the card. The reference loops capacity rounds with
+//    the deepest bucket's count read across the mesh; here the buffer is
+//    sized for the worst case, so the step needs no round loop and no
+//    read of the counts on the host.
 //  * Dirty marking (device_window.py:150-151, the incremental snapshot's
 //    capture): every row that folds sets the byte of its slot's block,
 //    dirty[slot >> dirty_shift], to 1: an idempotent plain store into a
@@ -75,10 +84,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "keygroup.cuh"
 #include "probe.cuh"
 
 namespace {
 
+using keygroup::key_group;
 using probe_table::kEmpty;
 using probe_table::probe;
 constexpr int kThreads = 256;
@@ -99,30 +110,6 @@ constexpr unsigned long long kValueMask = (1ull << 62) - 1;
 
 enum Dtype { kI64 = 0, kI32 = 1, kF32 = 2, kF64 = 3, kU8 = 4, kBool = 5 };
 enum Kind { kSum = 0, kMin = 1, kMax = 2 };  // a count plane folds +1 as kSum
-
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
-  return (x << r) | (x >> (32 - r));
-}
-
-// key group of an int64 key: core/keygroups.py's murmur_mix of the
-// Long.hashCode fold, abs with INT_MIN -> 0, modulo max_parallelism
-__device__ __forceinline__ int key_group(unsigned long long u, int maxp) {
-  uint32_t k = (uint32_t)(u ^ (u >> 32));
-  k *= 0xCC9E2D51u;
-  k = rotl32(k, 15);
-  k *= 0x1B873593u;
-  uint32_t h = rotl32(k, 13);
-  h = h * 5u + 0xE6546B64u;
-  h ^= 4u;
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  int v = (int)h;
-  v = v == INT_MIN ? 0 : (v < 0 ? -v : v);
-  return v % maxp;
-}
 
 __device__ __forceinline__ unsigned long long load_one(const void* p,
                                                        int code, long long i) {
@@ -267,6 +254,10 @@ struct StepArgs {
   unsigned long long* status;      // [n_tiles] look-back words, zeroed
   unsigned int* tile_counter;      // zeroed
   long long n_tiles;
+  // the counted form: non-null -> row i is in only when
+  // i % seg_len < seg_counts[(i / seg_len) * seg_stride]
+  const long long* seg_counts;
+  long long seg_len, seg_stride;
 };
 
 // acc op= value, `raw` holding the value's bits as a column of dtype `code`
@@ -427,7 +418,9 @@ ingest_step_kernel(StepArgs a) {
   copy_planes(a, planes, nullptr);
   __syncthreads();
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in = i < a.n;
+  bool in = i < a.n;
+  if (in && a.seg_counts != nullptr)
+    in = i % a.seg_len < __ldg(a.seg_counts + (i / a.seg_len) * a.seg_stride);
   const RowIn<NC> r = load_row<NC>(a, i, in);
   const long long pane = row_pane(a, r.ts);
   const bool fresh = in && pane >= first_open_of(a);
@@ -651,7 +644,9 @@ extern "C" int hash_probe_launch(void* table, long long capacity,
 // for the count plane); in that form `dropped` counts the rows the stage
 // could not hold, failed inserts stage instead, the rows stage in batch
 // order, and scratch holds ingest_step_scratch_words(n) int64 words (the
-// launch zeroes them first).
+// launch zeroes them first). seg_counts non-null turns on the counted form
+// (not with the spill split): the n rows are segments of seg_len rows and
+// segment j holds seg_counts[j * seg_stride] rows at its front.
 // Dtype codes: 0 int64, 1 int32, 2 float32, 3 float64, 4 uint8, 5 bool.
 // Kind codes: 0 sum (and count), 1 min, 2 max. Returns cudaGetLastError.
 extern "C" int ingest_step_launch(
@@ -665,7 +660,8 @@ extern "C" int ingest_step_launch(
     int dirty_shift, int maxp, const void* spilled, void* touch,
     long long batch_no, void* stage_count, long long stage_cap,
     void* stage_keys, void* stage_ring, void* const* stage_vals,
-    void* scratch, void* stream) {
+    void* scratch, const void* seg_counts, long long seg_len,
+    long long seg_stride, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   if (n_planes < 1 || n_planes > kMaxPlanes || n_cols < 0 ||
       n_cols > kMaxCols || pane <= 0 || ring <= 0 || key_dtype == kF32 ||
@@ -673,7 +669,8 @@ extern "C" int ingest_step_launch(
       dirty_shift < 0 || dirty_shift > 30 || maxp < 0 ||
       (maxp > 0 && (spilled == nullptr || stage_count == nullptr ||
                     stage_keys == nullptr || stage_ring == nullptr ||
-                    scratch == nullptr || stage_cap < 0)))
+                    scratch == nullptr || stage_cap < 0)) ||
+      (seg_counts != nullptr && (seg_len <= 0 || maxp > 0)))
     return (int)cudaErrorInvalidValue;
   StepArgs a{};
   a.table = (unsigned long long*)table;
@@ -706,6 +703,9 @@ extern "C" int ingest_step_launch(
   }
   a.dirty = (uint8_t*)dirty;
   a.dirty_shift = dirty_shift;
+  a.seg_counts = (const long long*)seg_counts;
+  a.seg_len = seg_len;
+  a.seg_stride = seg_stride;
   a.maxp = maxp;
   if (maxp > 0) {
     a.spilled = (const uint8_t*)spilled;

@@ -8,7 +8,10 @@
   graph adds one for each kernel launch the graph holds. A launch of
   ``ingest_step`` in one of its two optional forms also counts into the
   form's own counter, ``ingest_step_dirty`` (dirty marking) or
-  ``ingest_step_spill`` (the spill split, which marks dirty blocks too).
+  ``ingest_step_spill`` (the spill split, which marks dirty blocks too)
+  or ``ingest_step_counted`` (a mesh shard's step over its exchange
+  buffer). The mesh's keyBy exchange counts one ``exchange_bucket`` a
+  call that routes any row.
   A session window launches ``session_step`` once per batch and
   ``session_fire`` once per fire round. A device GROUP BY batch launches
   ``group_agg_first``, ``_compact``, ``_fold`` and ``_emit`` once each.
@@ -44,7 +47,8 @@ KERNEL_LAUNCHES: dict[str, int] = {"hist256": 0, "hash_probe": 0,
                                    "list_append": 0, "list_probe": 0,
                                    "list_prune": 0, "dedup_first": 0,
                                    "row_set": 0, "row_get": 0,
-                                   "row_unset": 0}
+                                   "row_unset": 0, "exchange_bucket": 0,
+                                   "ingest_step_counted": 0}
 # the tasks of a job launch from threads of their own
 _LAUNCH_LOCK = threading.Lock()
 

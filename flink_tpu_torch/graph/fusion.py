@@ -118,10 +118,11 @@ def _classify_operator(op: Any) -> tuple[str, str]:
     from ..runtime.operators.device_session import \
         DeviceSessionWindowOperator
     from ..runtime.operators.device_window import DeviceWindowAggOperator
+    from ..runtime.operators.mesh_window import MeshWindowAggOperator
 
     if isinstance(op, DeviceWindowAggOperator):
         return "window-device", "keyed partial-agg tail (one-dispatch step)"
-    if isinstance(op, DeviceSessionWindowOperator):
+    if isinstance(op, (DeviceSessionWindowOperator, MeshWindowAggOperator)):
         return "keyed-device", "keyed device aggregate (own fused step)"
     return "host-effectful", f"unclassified operator {type(op).__name__}"
 

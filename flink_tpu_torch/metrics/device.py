@@ -26,6 +26,10 @@ coalesced ingest's accounting, with the reference's counter names.
   ``injected_faults_total`` (trips of ``faults.spec`` rules),
   ``watchdog_trips_total`` (supervised calls past their deadline) and
   ``stall_detections_total`` (tasks the stall detector failed).
+* live rescale of a mesh (``MeshWindowAggOperator.rescale_live``):
+  ``rescales_total``, ``keygroups_migrated_total`` (populated key groups
+  whose owner changed), ``rescale_bytes_moved_total`` (row bytes of the
+  pages that moved) and ``rescale_ms`` (time inside the switches).
 """
 
 from __future__ import annotations
@@ -58,6 +62,10 @@ class DeviceStats:
         self._stalls: dict[str, int] = {}
         self.dead_letter_records = 0
         self.dead_letter_batches = 0
+        self._rescales = 0
+        self._keygroups_migrated = 0
+        self._rescale_bytes_moved = 0
+        self._rescale_ms = 0.0
 
     def note_panes_sealed(self, n: int = 1) -> None:
         with self._lock:
@@ -121,6 +129,34 @@ class DeviceStats:
         with self._lock:
             self._stalls[scope] = self._stalls.get(scope, 0) + 1
 
+    def note_rescale(self, keygroups_migrated: int, bytes_moved: int,
+                     duration_ms: float) -> None:
+        with self._lock:
+            self._rescales += 1
+            self._keygroups_migrated += int(keygroups_migrated)
+            self._rescale_bytes_moved += int(bytes_moved)
+            self._rescale_ms += float(duration_ms)
+
+    @property
+    def rescales(self) -> int:
+        with self._lock:
+            return self._rescales
+
+    @property
+    def keygroups_migrated(self) -> int:
+        with self._lock:
+            return self._keygroups_migrated
+
+    @property
+    def rescale_bytes_moved(self) -> int:
+        with self._lock:
+            return self._rescale_bytes_moved
+
+    @property
+    def rescale_ms(self) -> float:
+        with self._lock:
+            return self._rescale_ms
+
     @property
     def retries(self) -> int:
         with self._lock:
@@ -153,6 +189,10 @@ class DeviceStats:
                     "batches_coalesced_total": self._batches_coalesced,
                     "fire_merge_rows_read": self._fire_merge_rows,
                     "chain_fused_dispatches_total": self._chain_dispatches,
+                    "rescales_total": self._rescales,
+                    "keygroups_migrated_total": self._keygroups_migrated,
+                    "rescale_bytes_moved_total": self._rescale_bytes_moved,
+                    "rescale_ms": round(self._rescale_ms, 3),
                     "tier_evictions_total": self._tier_evictions,
                     "tier_evicted_keys_total": self._tier_evicted_keys,
                     "tier_prefetches_total": self._tier_prefetches,

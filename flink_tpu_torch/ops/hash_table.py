@@ -26,7 +26,11 @@ keyed state lives in dense planes indexed by slot.
   source's fused kernel (the spill form's zeroes its look-back words
   first); its plain version is the chain of the probe's plain version and
   ``scatter_fold`` per plane. Both stage in batch order, as the reference
-  does.
+  does. A third part, the counted form (``segments``), reads a
+  destination shard's buffer from the mesh's keyBy exchange
+  (``ops/exchange.py``): S segments of rows, each holding at its front the
+  count of rows the exchange left on the device, so the step needs no host
+  read of the counts and no round loop.
 
 Contract (both): rows where ``valid`` is False never probe (slot -1, ok
 False); a key that exhausts ``MAX_PROBES`` reports ok False, slot -1, and
@@ -361,6 +365,20 @@ def _check_step(table, planes, ts, keys, first_open, late, dropped) -> None:
                          "table's device")
 
 
+def _check_segments(ts, segments, spill) -> int:
+    """The counted form's (counts, seg_len): ``counts`` a 1-D int64 view
+    on the table's device (one count a segment, any stride), the rows
+    ``len(counts) * seg_len``. Returns the stride of ``counts``."""
+    counts = segments
+    if (counts.dtype != torch.int64 or counts.dim() != 1
+            or counts.device != ts.device or counts.numel() == 0
+            or ts.numel() % counts.numel() or spill is not None):
+        raise ValueError("segments: a 1-D int64 tensor of one count a "
+                         "segment, on the table's device, dividing the rows "
+                         "evenly; not with the spill split")
+    return counts.stride(0)
+
+
 def _check_parts(table, planes, dirty, dirty_shift, spill) -> None:
     dev = table.device
     if dirty is not None and (
@@ -404,14 +422,22 @@ def ingest_step_plain(table: torch.Tensor, planes: Sequence[tuple],
                       dropped: torch.Tensor,
                       dirty: Optional[torch.Tensor] = None,
                       dirty_shift: int = 0,
-                      spill: Optional[StepSpill] = None) -> None:
+                      spill: Optional[StepSpill] = None,
+                      segments: Optional[torch.Tensor] = None) -> None:
     """Plain version of ``ingest_step`` (any device): the chain of the
     probe's plain version and one ``scatter_fold`` per plane, in the
     reference's batch order (staging positions by ``cumsum``). A tensor
     ``first_open`` is compared on the device, as the kernel reads it."""
     panes = torch.div(ts - offset, pane, rounding_mode="floor")
     fresh = panes >= first_open
-    late += (~fresh).sum()
+    if segments is not None:
+        seg_len = ts.numel() // segments.numel()
+        i = torch.arange(ts.numel(), device=ts.device)
+        inrow = (i % seg_len) < segments[i // seg_len]
+        late += (inrow & ~fresh).sum()
+        fresh = fresh & inrow
+    else:
+        late += (~fresh).sum()
     skeys = sanitize_keys_device(keys)
     ring = planes[0][1].shape[0]
     ring_idx = panes % ring
@@ -453,7 +479,8 @@ def ingest_step(table: torch.Tensor, planes: Sequence[tuple],
                 dropped: torch.Tensor,
                 dirty: Optional[torch.Tensor] = None,
                 dirty_shift: int = 0,
-                spill: Optional[StepSpill] = None) -> None:
+                spill: Optional[StepSpill] = None,
+                segments: Optional[torch.Tensor] = None) -> None:
     """One ingest step of a micro-batch, IN PLACE, with no host sync.
 
     Row i falls in pane p = floor((ts[i] - offset) / pane); a row with p <
@@ -475,13 +502,21 @@ def ingest_step(table: torch.Tensor, planes: Sequence[tuple],
     (``dropped`` then counts the rows past the stage's capacity). Both
     the kernel and the plain version stage in batch order, as the
     reference's ``cumsum`` does: position by position the same rows, and
-    the same rows dropped when the stage overflows."""
+    the same rows dropped when the stage overflows.
+
+    ``segments``: the counted form. The n rows are ``len(segments)``
+    segments of equal length; segment j holds ``segments[j]`` rows at its
+    front (an int64 count on the device, any stride: the column of a
+    destination in the exchange's ``[S, D]`` counts) and its other rows
+    are no rows at all: neither late nor folded."""
     _check_step(table, planes, ts, keys, first_open, late, dropped)
     _check_parts(table, planes, dirty, dirty_shift, spill)
+    seg_stride = (_check_segments(ts, segments, spill)
+                  if segments is not None else 0)
     if table.device.type == "cpu":
         return ingest_step_plain(table, planes, ts, keys, pane, offset,
                                  first_open, late, dropped, dirty,
-                                 dirty_shift, spill)
+                                 dirty_shift, spill, segments)
     if table.device.type != "cuda":
         raise ValueError(f"unsupported device {table.device}")
     from . import kernels
@@ -535,9 +570,13 @@ def ingest_step(table: torch.Tensor, planes: Sequence[tuple],
           if spill is not None else (None, None, 0, None, 0, None, None,
                                      None)),
         scratch.data_ptr() if scratch is not None else None,
+        segments.data_ptr() if segments is not None else None,
+        n // segments.numel() if segments is not None else 0, seg_stride,
         torch.cuda.current_stream(table.device).cuda_stream)
     kernels.check("hash_table", rc)
     note_launch("ingest_step")
+    if segments is not None:
+        note_launch("ingest_step_counted")
     if spill is not None:
         note_launch("ingest_step_spill")
     elif dirty is not None:

@@ -27,7 +27,7 @@ import time
 from pathlib import Path
 
 __all__ = ["build_all", "build_log", "library", "check", "BUILD_DIR",
-           "SOURCES"]
+           "SOURCES", "builds"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -55,7 +55,7 @@ SOURCES = {
                                _I64, _P, _I64, _P, _P, _I32, _PP, _PI32,
                                _PI32, _PI32, _I32, _PP, _PI32, _P, _I32,
                                _I32, _P, _P, _I64, _P, _I64, _P, _P, _PP,
-                               _P, _P],
+                               _P, _P, _I64, _I64, _P],
         "hash_table_load": [],
         "ingest_step_scratch_words": [_I64],
     },
@@ -93,6 +93,11 @@ SOURCES = {
         "list_prune_launch": [_P, _I32, _I32, _P, _I64, _P, _I64, _I32,
                               _I64, _I32, _P, _P, _P, _P],
     },
+    "exchange": {
+        "exchange_bucket_launch": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64,
+                                   _I32, _I32, _I32, _I32, _I32, _PP, _PI32,
+                                   _P, _P, _PP, _P, _P],
+    },
     "row_state": {
         "dedup_first_launch": [_P, _I64, _P, _P, _P, _I64, _P, _P, _I64, _P,
                                _I64, _P, _I32, _P, _P, _P, _P],
@@ -110,13 +115,22 @@ _ERROR_STRING = {"hist256": "hist256_error_string",
                  "window_seal": "window_seal_error_string",
                  "group_agg": "group_agg_error_string",
                  "device_lists": "device_lists_error_string",
-                 "row_state": "row_state_error_string"}
+                 "row_state": "row_state_error_string",
+                 "exchange": "exchange_error_string"}
 
 #: source stem -> C entry that loads every kernel of the library at once
 #: (its kernels launch inside CUDA graph captures)
 _LOAD = {"hash_table": "hash_table_load"}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+#: sources compiled by this process (``builds()``)
+_BUILT = [0]
+
+
+def builds() -> int:
+    """Sources this process has compiled: a run that builds nothing after
+    its warm-up reads the same count before and after."""
+    return _BUILT[0]
 
 
 def _nvcc() -> str:
@@ -153,6 +167,7 @@ def build_all() -> float:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    _BUILT[0] += len(todo)
     t0 = time.perf_counter()
     procs = []
     for stem in todo:

@@ -11,11 +11,13 @@ TPU the fold was an XLA scatter, not a Pallas kernel.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 __all__ = ["AGG_INITS", "AGG_FOLDS", "AGG_MERGES", "AGG_COMBINE2",
            "AGG_INVERT", "INVERTIBLE_KINDS", "identity", "make_accumulator",
-           "scatter_fold", "pow2_ceil", "merge_tree_build",
+           "scatter_fold", "pow2_ceil", "merge_rows", "merge_tree_build",
            "merge_tree_update", "merge_tree_root"]
 
 
@@ -97,6 +99,32 @@ def scatter_fold(kind: str, acc: torch.Tensor, flat_idx: torch.Tensor,
     idx = torch.where(valid, flat_idx.to(torch.int64), 0)
     vals = torch.where(valid, values.to(acc.dtype), ident)
     return AGG_FOLDS[kind](acc, idx, vals)
+
+
+def _runs(rows: list[int]) -> list[tuple[int, int]]:
+    """Consecutive ring rows as [start, stop) runs (a window wraps the ring
+    at most once), so a merge reads each row once through slicing and
+    needs no index tensor on the device."""
+    runs: list[tuple[int, int]] = []
+    for r in rows:
+        if runs and runs[-1][1] == r:
+            runs[-1] = (runs[-1][0], r + 1)
+        else:
+            runs.append((r, r + 1))
+    return runs
+
+
+def merge_rows(kind: str, arr: torch.Tensor, rows: list[int],
+               idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Merge the pane rows ``rows`` of a [ring, capacity] plane; with
+    ``idx``, only at those slots (the winner-only merge of a top-k fire):
+    the full fire of the window operators."""
+    out = None
+    for a, b in _runs(rows):
+        block = arr[a:b] if idx is None else arr[a:b].index_select(1, idx)
+        part = AGG_MERGES[kind](block)
+        out = part if out is None else AGG_COMBINE2[kind](out, part)
+    return out
 
 
 def merge_tree_build(kind: str, leaves: torch.Tensor) -> torch.Tensor:

@@ -100,8 +100,7 @@ from ...core.records import MIN_TIMESTAMP, RecordBatch, Schema
 from ...device import resolve_device, torch_dtype
 from ...metrics.device import DEVICE_STATS
 from ...ops.hash_table import EMPTY_KEY
-from ...ops.segment_ops import AGG_COMBINE2, AGG_MERGES, INVERTIBLE_KINDS, \
-    pow2_ceil
+from ...ops.segment_ops import INVERTIBLE_KINDS, merge_rows, pow2_ceil
 from ...ops.topk import masked_topk
 from ...ops.window_seal import rebuild, seal
 from ...state.device_backend import DeviceKeyedStateBackend
@@ -136,31 +135,6 @@ class AggSpec:
                            else 48 if kind == "count" else 64)
 
 
-def _runs(rows: list[int]) -> list[tuple[int, int]]:
-    """Consecutive ring rows as [start, stop) runs (a window wraps the ring
-    at most once), so a merge reads each row once through slicing and
-    needs no index tensor on the device."""
-    runs: list[tuple[int, int]] = []
-    for r in rows:
-        if runs and runs[-1][1] == r:
-            runs[-1] = (runs[-1][0], r + 1)
-        else:
-            runs.append((r, r + 1))
-    return runs
-
-
-def _merge(kind: str, arr: torch.Tensor, rows: list[int],
-           idx: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Merge the pane rows ``rows`` of a [ring, capacity] plane; with
-    ``idx``, only at those slots (the winner-only merge of a top-k fire)."""
-    out = None
-    for a, b in _runs(rows):
-        block = arr[a:b] if idx is None else arr[a:b].index_select(1, idx)
-        part = AGG_MERGES[kind](block)
-        out = part if out is None else AGG_COMBINE2[kind](out, part)
-    return out
-
-
 def _window_dtype(kind: str, pane_dtype: torch.dtype) -> torch.dtype:
     """dtype of an incremental window plane: an integer sum widens to
     int64 as the full merge's sum does; a count keeps its pane dtype (an
@@ -168,6 +142,18 @@ def _window_dtype(kind: str, pane_dtype: torch.dtype) -> torch.dtype:
     if kind == "sum" and not pane_dtype.is_floating_point:
         return torch.int64
     return pane_dtype
+
+
+def _own_count_plane(snap: dict) -> dict:
+    """A snapshot whose one count plane has another name (a mesh
+    operator's names it after its COUNT aggregate) restores as this
+    operator's ``__count__`` plane."""
+    states = snap.get("states", {})
+    counts = [n for n, sd in states.items() if sd["kind"] == "count"]
+    if "__count__" in states or len(counts) != 1:
+        return snap
+    return {**snap, "states": {("__count__" if n == counts[0] else n): sd
+                               for n, sd in states.items()}}
 
 
 class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
@@ -320,7 +306,8 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
     def initialize_state(self, keyed_snapshots: list,
                          operator_snapshot) -> None:
         if keyed_snapshots:
-            self._backend.restore([s["backend"] for s in keyed_snapshots])
+            self._backend.restore([_own_count_plane(s["backend"])
+                                   for s in keyed_snapshots])
             self._restore_control_meta([s["meta"] for s in keyed_snapshots])
             first = self._min_seen_pane
             if first is not None and self._fired_boundary is not None:
@@ -743,7 +730,8 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
                 backend = self._backend
 
                 def merged(kind, name, idx=None):
-                    return _merge(kind, backend.get_array(name), rows, idx)
+                    return merge_rows(kind, backend.get_array(name), rows,
+                                      idx)
             return self._fire_outputs(merged)
 
         try:

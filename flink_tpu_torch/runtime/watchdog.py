@@ -352,7 +352,13 @@ class TaskStallDetector:
         return self
 
     def stop(self) -> None:
+        """Stop and wait for the thread (from any other thread): once a
+        job has returned, no thread of it holds its tasks, so its device
+        state is freed with the job."""
         self._stop.set()
+        t = self._thread
+        if t is not None and t is not threading.current_thread():
+            t.join(5.0)
 
     def _loop(self) -> None:
         while not self._stop.wait(self.interval):

@@ -303,6 +303,32 @@ def test_task_stall_detector_equals_reference(monkeypatch):
     assert results["port"][2] > 0
 
 
+def test_a_finished_job_leaves_no_detector_holding_its_state():
+    """Once ``env.execute()`` has returned, the stall detector's thread
+    has ended: the job's operators, and their device state, go with the
+    job at the next collection (a detector not yet scheduled after its
+    stop kept the whole job alive, a second copy of the state beside the
+    next run's)."""
+    import gc
+    import weakref
+
+    alive = 0
+    for _ in range(5):
+        env = StreamExecutionEnvironment(Configuration({
+            "pipeline.micro-batch-size": 64, "task.stall-timeout": 30.0}),
+            device="cpu")
+        env.from_collection([(i % 7, i) for i in range(256)],
+                            Schema([("k", np.int64), ("v", np.int64)]),
+                            timestamps=list(range(256))).add_sink(
+                                lambda b: None)
+        job = env.execute("released")
+        ref = weakref.ref(next(iter(job.tasks.values())))
+        del env, job
+        gc.collect()
+        alive += ref() is not None
+    assert alive == 0
+
+
 def test_run_job_fails_a_task_stalled_with_queued_input():
     """A sink that does not return, in a task of its own: the stall
     detector fails it, and the job fails with a StallError."""
