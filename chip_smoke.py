@@ -325,14 +325,19 @@ Run from the repository root:  python3 chip_smoke.py
 27. ``mesh_phase``, the multi-device window path: ``exchange_bucket``
     (csrc/exchange.cu) against its plain version at the mesh cell's shape
     (4 source blocks of 2^17 rows of Q5-10M's 33rd batch to 4 shards) and
-    on edge cases (every key to one shard, an empty block, EMPTY_KEY and
-    negative keys, a base_range subset): counts equal, each (source,
-    destination) segment the same multiset; ``ingest_step``'s counted
-    form against its plain version on shard 0's buffer at 2^23 slots;
-    each timed with its bound (and the exchange beside the library sort
-    its plain version runs). Then the mesh cell: Q5-10M through
-    ``mesh_aggregate(..., n_devices=4)`` on the one card (4 shards of 2^23
-    slots, ``device_batch`` 2^17), a warm-up a mode under the sync check,
+    on edge cases (every key to one shard, each block to its own shard,
+    an empty block, EMPTY_KEY and negative keys, a base_range subset, 3
+    shards, 256 shards at a small block, calls back to back on the same
+    buffers and after a shape change): counts equal and every live row
+    equal position by position; ``ingest_step``'s counted form against
+    its plain version on shard 0's buffer at 2^23 slots; each timed with
+    its bound (the exchange also at the mesh Q5-1M block of 4 x 2^12
+    rows, beside the library sort its plain version runs, with its device
+    operations a call by the profiler: one; the counted step also with its
+    sector floor at the card's measured rates). Then the mesh cell:
+    Q5-10M through ``mesh_aggregate(..., n_devices=4)`` on the one card
+    (4 shards of 2^23 slots, ``device_batch`` 2^17), a warm-up a mode
+    under the sync check,
     2 timed runs of each fire mode in turns (launches: one exchange a
     batch, one counted step a shard and batch, a seal or rebuild a shard
     and fire), every window against the oracle, and every fire timed on
@@ -8626,17 +8631,25 @@ def _q5_block(torch, dev, c: dict, first_row: int, rows: int):
 
 
 EXCHANGE_CASES = ("cell", "one_shard", "empty", "sentinel_and_negative",
-                  "base_subset")
+                  "base_subset", "three_shards", "d256_small_block",
+                  "block_to_own_destination", "back_to_back",
+                  "after_shape_change")
+#: a small source block: the mesh Q5-1M cells' (device_batch 2^12)
+EXCHANGE_SMALL_BLOCK = 1 << 12
 
 
-def exchange_case(torch, dev, c: dict, case: str) -> dict:
+def exchange_case(torch, dev, c: dict, case: str,
+                  batch_no: int = PRESENT_PREFIX) -> dict:
     """The inputs of one exchange case: S = shards source blocks of
-    device_batch rows (Q5-10M's 33rd batch for the cell), with n_valid and
-    the ownership bounds."""
+    device_batch rows of the stream's batch ``batch_no`` (Q5-10M's 33rd
+    for the cell), with D, n_valid, the ownership bounds and the max
+    parallelism. ``back_to_back`` and ``after_shape_change`` start from
+    the cell's inputs (``check_exchange`` runs them)."""
     S, B = c["shards"], c["device_batch"]
-    keys, price, ts = _q5_block(torch, dev, c, PRESENT_PREFIX * c["batch"],
-                                S * B)
-    n_valid, start, length = S * B, 0, MAXP
+    if case == "d256_small_block":
+        B = EXCHANGE_SMALL_BLOCK
+    keys, price, ts = _q5_block(torch, dev, c, batch_no * c["batch"], S * B)
+    D, n_valid, start, length, maxp = S, S * B, 0, MAXP, MAXP
     if case == "one_shard":
         keys = torch.full_like(keys, 12345)
     elif case == "empty":
@@ -8647,99 +8660,199 @@ def exchange_case(torch, dev, c: dict, case: str) -> dict:
                                 device=dev)
     elif case == "base_subset":
         n_valid, start, length = S * B - 1000, 32, 64
+    elif case == "three_shards":
+        D = 3
+    elif case == "d256_small_block":
+        D, maxp = 256, 4096
+        length = maxp
+    elif case == "block_to_own_destination":
+        # source s's whole block to destination s: each segment full
+        from flink_tpu_torch.core.keygroups import key_groups_device
+
+        cand = torch.arange(1 << 12, dtype=torch.int64, device=dev)
+        dest = key_groups_device(cand, MAXP).to(torch.int64) * D // MAXP
+        own = torch.stack([cand[dest == s][0] for s in range(S)])
+        keys = own.repeat_interleave(B)
     return {"keys": keys.view(S, B).contiguous(),
             "ts": ts.view(S, B).contiguous(),
             "cols": [price.view(S, B).contiguous()], "n_valid": n_valid,
-            "start": start, "length": length, "S": S, "B": B}
+            "start": start, "length": length, "maxp": maxp, "S": S, "B": B,
+            "D": D}
 
 
-def run_exchange(torch, dev, x: dict, D: int, plain: bool):
+def run_exchange(torch, dev, x: dict, D: int, plain: bool, out=None):
+    """The kernel (or its plain version) on ``x`` into ``out``, or into
+    new buffers."""
     from flink_tpu_torch.ops.exchange import ExchangeBuffers, \
         exchange_bucket, exchange_bucket_plain
 
-    out = ExchangeBuffers.allocate(D, x["S"], x["B"],
-                                   [c.dtype for c in x["cols"]], dev)
+    if out is None:
+        out = ExchangeBuffers.allocate(D, x["S"], x["B"],
+                                       [c.dtype for c in x["cols"]], dev)
+    maxp, pane = x["maxp"], x.get("pane", PANE_MS)
     if plain:
         exchange_bucket_plain(x["keys"], x["ts"], x["cols"], out,
-                              x["n_valid"], None, PANE_MS, 0, D, MAXP,
+                              x["n_valid"], None, pane, 0, D, maxp,
                               x["start"], x["length"])
     else:
         exchange_bucket(x["keys"], x["ts"], x["cols"], out,
-                        n_valid=x["n_valid"], pane=PANE_MS, n_dest=D,
-                        max_parallelism=MAXP, base_start=x["start"],
+                        n_valid=x["n_valid"], pane=pane, n_dest=D,
+                        max_parallelism=maxp, base_start=x["start"],
                         base_len=x["length"])
     return out
 
 
 def exchange_segments_equal(torch, a, b) -> bool:
-    """Equal counts, and every (source, destination) segment the same
-    multiset of (key, pane, value) rows: rows sorted inside each segment
-    on the card by a stable sort on each column, last column first."""
+    """Equal counts, and every live row of every (source, destination)
+    segment equal position by position: key, pane and each column (both
+    keep batch order within a segment)."""
     if not torch.equal(a.counts, b.counts):
         return False
     S, B, D = a.n_src, a.block, a.n_dest
     pos = torch.arange(S * B, device=a.keys.device)
     live = (pos % B)[None, :] < a.counts.t().repeat_interleave(B, 1)
-    for d in range(D):
-        cols = []
-        for o in (a, b):
-            seg = (pos // B)[live[d]]
-            rows = [o.keys[d][live[d]], o.panes[d][live[d]],
-                    *[c[d][live[d]] for c in o.cols]]
-            order = torch.arange(seg.numel(), device=seg.device)
-            for col in reversed([seg] + rows):
-                order = order[torch.argsort(col[order], stable=True)]
-            cols.append([r[order] for r in rows])
-        if not all(torch.equal(x, y) for x, y in zip(*cols)):
-            return False
-    return True
+    return all(torch.equal(x[d][live[d]], y[d][live[d]])
+               for x, y in zip([a.keys, a.panes, *a.cols],
+                               [b.keys, b.panes, *b.cols])
+               for d in range(D))
 
 
-def check_exchange(torch, dev, flush) -> dict:
-    """exchange_bucket against its plain version on the card, at the mesh
-    cell's shape (4 blocks of 2^17 rows of Q5-10M's 33rd batch to 4
-    shards) and on the edge cases: counts equal, segments equal as
-    multisets. Timed at the cell's shape beside the plain version and the
-    library sort the plain version runs (``torch.argsort(stable=True)`` of
-    the (source, destination) codes); bound: each row's key, ts and price
-    read once, each routed row's key, pane and price written once, the
-    counts zeroed and written."""
+def exchange_snapshot(out):
+    """A copy of a call's buffers, taken on the stream behind it."""
+    from flink_tpu_torch.ops.exchange import ExchangeBuffers
+
+    return ExchangeBuffers(out.keys.clone(), out.panes.clone(),
+                           [c.clone() for c in out.cols], out.counts.clone(),
+                           out.scratch)
+
+
+def exchange_sequence(torch, dev, c: dict, case: str) -> list:
+    """(kernel, plain) buffer pairs of a sequence of calls: two batches
+    back to back on the same buffers, nothing synchronised between; or a
+    call, one on new buffers of another shape (as the mesh replaces them),
+    and one on the first buffers again."""
+    S, B = c["shards"], c["device_batch"]
+    first = exchange_case(torch, dev, c, "cell")
+    keys, price, ts = _q5_block(torch, dev, c,
+                                (PRESENT_PREFIX + 1) * c["batch"], S * B)
+    second = {**first, "keys": keys.view(S, B), "ts": ts.view(S, B),
+              "cols": [price.view(S, B)]}
+    bufs = run_exchange(torch, dev, first, S, False)
+    torch.cuda.synchronize()
+    if case == "back_to_back":
+        calls = [(first, bufs), (second, bufs)]
+    else:
+        small = exchange_case(torch, dev, c, "d256_small_block")
+        small = {**small, "D": S, "maxp": MAXP, "length": MAXP}
+        calls = [(small, None), (second, bufs)]
+    pairs = []
+    for x, out in calls:
+        got = exchange_snapshot(run_exchange(torch, dev, x, S, False, out))
+        pairs.append((got, run_exchange(torch, dev, x, S, True)))
+    return pairs
+
+
+def exchange_shapes(torch, dev) -> dict:
+    """The exchange's timed inputs: the mesh cell's block and the mesh
+    Q5-1M block (4 blocks of 2^12 rows of Q5-1M's 9th batch)."""
+    return {"cell": exchange_case(torch, dev, mesh_config(), "cell"),
+            "q5_1m_block": exchange_case(torch, dev, mesh_config(
+                "q5_1m", device_batch=EXCHANGE_SMALL_BLOCK), "cell",
+                batch_no=8)}
+
+
+def exchange_device_ops(torch, dev) -> dict:
+    """The device operations one exchange_bucket call makes at each of
+    ``exchange_shapes``, by the profiler: its kernel alone. Taken early in
+    the smoke's process (late in it the profiler has lost every record of
+    a profile), or at the start of ``--mesh``."""
+    out = {}
+    for label, x in exchange_shapes(torch, dev).items():
+        bufs = run_exchange(torch, dev, x, x["D"], False)
+        torch.cuda.synchronize()
+        ops, tries = device_kernels(
+            torch, lambda: run_exchange(torch, dev, x, x["D"], False, bufs),
+            "exchange_bucket_kernel", 1)
+        if len(ops) != 1 or "exchange_bucket_kernel" not in ops[0]:
+            raise AssertionError(f"one exchange_bucket call at {label} ran "
+                                 f"{ops} on the card, one kernel expected")
+        out[label] = {"device_ops_a_call": len(ops), "device_ops": ops,
+                      "profiles_taken": tries}
+    return out
+
+
+def exchange_timing(torch, dev, x: dict, flush) -> dict:
+    """The kernel at one shape, beside its plain version and the library
+    sort the plain version runs (``torch.argsort(stable=True)`` of the
+    (source, destination) codes), on buffers allocated once. Bound: each
+    row's key, ts and price read once, each routed row's key, pane and
+    price written once, the counts written once."""
     from flink_tpu_torch.core.keygroups import key_groups_device
 
-    c = mesh_config()
-    D = c["shards"]
-    out = {"shapes": {}, "edge_cases": {}}
-    for case in EXCHANGE_CASES:
-        x = exchange_case(torch, dev, c, case)
-        got = run_exchange(torch, dev, x, D, plain=False)
-        want = run_exchange(torch, dev, x, D, plain=True)
-        torch.cuda.synchronize()
-        if not exchange_segments_equal(torch, got, want):
-            raise AssertionError(f"exchange_bucket {case}: the kernel "
-                                 "disagrees with its plain version")
-        counts = got.counts.cpu().numpy()
-        if case == "one_shard" and (counts > 0).sum(1).max() != 1:
-            raise AssertionError("one_shard: rows reached two shards")
-        if case == "empty" and counts.sum():
-            raise AssertionError("empty: rows were routed")
-        out["edge_cases"][case] = {"routed": int(counts.sum()),
-                                   "deepest_bucket": int(counts.max())}
-    x = exchange_case(torch, dev, c, "cell")
-    S, B = x["S"], x["B"]
-    routed = out["edge_cases"]["cell"]["routed"]
-    nbytes = S * B * 24 + routed * 24 + 2 * S * D * 8
-    ms = cuda_ms(lambda: run_exchange(torch, dev, x, D, False), torch, flush)
-    plain_ms = cuda_ms(lambda: run_exchange(torch, dev, x, D, True), torch,
-                       flush, reps=5)
+    S, B, D = x["S"], x["B"], x["D"]
+    out = run_exchange(torch, dev, x, D, False)
+    torch.cuda.synchronize()
+    routed = int(out.counts.sum())
+    nbytes = S * B * 24 + routed * 24 + S * D * 8
+    ms = cuda_ms(lambda: run_exchange(torch, dev, x, D, False, out), torch,
+                 flush)
+    plain_out = run_exchange(torch, dev, x, D, True)
+    plain_ms = cuda_ms(lambda: run_exchange(torch, dev, x, D, True,
+                                            plain_out), torch, flush,
+                       reps=5)
     kg = key_groups_device(x["keys"].reshape(-1), MAXP).to(torch.int64)
     code = (torch.arange(S * B, device=dev) // B) * (D + 1) + kg * D // MAXP
     library_ms = cuda_ms(lambda: torch.argsort(code, stable=True), torch,
                          flush)
-    out["shapes"]["cell"] = {
-        "sources": S, "block": B, "destinations": D, "routed": routed,
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
-        "share_of_bound": bound_ms(nbytes) / ms}
+    return {"sources": S, "block": B, "destinations": D, "routed": routed,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+            "share_of_bound": bound_ms(nbytes) / ms}
+
+
+def check_exchange(torch, dev, flush, device_ops: dict) -> dict:
+    """exchange_bucket against its plain version on the card, at the mesh
+    cell's shape (4 blocks of 2^17 rows of Q5-10M's 33rd batch to 4
+    shards) and on ``EXCHANGE_CASES``: counts equal and every live row
+    equal position by position, also across calls back to back on the
+    same buffers and after a shape change. Timed at ``exchange_shapes``
+    (the cell's and the mesh Q5-1M block), each with its ``device_ops``
+    (``exchange_device_ops``)."""
+    c = mesh_config()
+    out = {"shapes": {}, "edge_cases": {}}
+    for case in EXCHANGE_CASES:
+        if case in ("back_to_back", "after_shape_change"):
+            pairs = exchange_sequence(torch, dev, c, case)
+        else:
+            x = exchange_case(torch, dev, c, case)
+            pairs = [(run_exchange(torch, dev, x, x["D"], plain=False),
+                      run_exchange(torch, dev, x, x["D"], plain=True))]
+        torch.cuda.synchronize()
+        for j, (got, want) in enumerate(pairs):
+            if not exchange_segments_equal(torch, got, want):
+                raise AssertionError(f"exchange_bucket {case} (call {j}): "
+                                     "the kernel disagrees with its plain "
+                                     "version")
+        counts = pairs[-1][0].counts.cpu().numpy()
+        if case == "one_shard" and (counts > 0).sum(1).max() != 1:
+            raise AssertionError("one_shard: rows reached two shards")
+        if case == "block_to_own_destination" and not (
+                counts == np.diag(counts.diagonal())).all():
+            raise AssertionError("block_to_own_destination: a block split")
+        if case == "empty" and counts.sum():
+            raise AssertionError("empty: rows were routed")
+        out["edge_cases"][case] = {
+            "calls": len(pairs), "destinations": counts.shape[1],
+            "routed": int(counts.sum()), "deepest_bucket": int(counts.max())}
+        del pairs
+    for label, x in exchange_shapes(torch, dev).items():
+        got = run_exchange(torch, dev, x, x["D"], False)
+        if not exchange_segments_equal(
+                torch, got, run_exchange(torch, dev, x, x["D"], True)):
+            raise AssertionError(f"exchange_bucket at {label}: the kernel "
+                                 "disagrees with its plain version")
+        out["shapes"][label] = {**exchange_timing(torch, dev, x, flush),
+                                **device_ops[label]}
     out["max_abs_err"] = 0
     return out
 
@@ -8819,7 +8932,50 @@ def dense_step_ms(torch, pre: dict, out, work: dict, flush, setup,
     return cuda_ms(lambda: step(work), torch, flush, setup=setup)
 
 
-def check_counted_ingest(torch, dev, flush) -> dict:
+def counted_sectors(torch, pre_table, table, keys, panes, cap: int,
+                    rates: dict | None) -> dict:
+    """The counted step's sector floor for shard 0's counted rows
+    (``keys``, ``panes``): every row's table sector read (a present key's
+    too), a new key's table sector written back; per plane (int64 count,
+    int64 revenue) each distinct (ring row, slot) sector read and written;
+    the counted rows streamed (24 B a row). With ``rates``
+    (``sector_rates``), that pattern at the card's measured random rates:
+    present keys' table sectors at read8's, new keys' at probe8's (the
+    claim), each plane's at red8's, the streamed bytes at 3.35 TB/s, one
+    after another."""
+    from flink_tpu_torch.ops.hash_table import lookup
+
+    slot = lookup(table, keys).to(torch.int64)
+    on = slot >= 0
+    s = slot[on]
+    was = lookup(pre_table, keys[on]) >= 0
+    cell = (panes[on] % RING) * cap + s
+    table_read = sector_ids(torch, 0, s, 8)
+    table_new = sector_ids(torch, 0, s[~was], 8)
+    count_sec = sector_ids(torch, 1, cell, 8)
+    rev_sec = sector_ids(torch, 2, cell, 8)
+    n = sector_floor(torch, [table_read, count_sec, rev_sec],
+                     [table_new, count_sec, rev_sec])
+    streamed = int(keys.numel()) * 24
+    out = {"sectors": n, "streamed_bytes": streamed,
+           "sector_floor_ms": bound_ms(32 * n + streamed)}
+    if rates is not None:
+        def distinct(ids):
+            return int(torch.unique(ids).numel())
+
+        def per_ms(op):
+            return rates["ops"][op]["random"]["g_sectors_per_s"] * 1e6
+
+        out["at_measured_rate_ms"] = (
+            distinct(sector_ids(torch, 0, s[was], 8)) / per_ms("read8")
+            + distinct(table_new) / per_ms("probe8")
+            + (distinct(count_sec) + distinct(rev_sec)) / per_ms("red8")
+            + bound_ms(streamed))
+    return out
+
+
+def check_counted_ingest(torch, dev, flush, rates: dict | None = None
+                         ) -> dict:
     """ingest_step's counted form against its plain version on the card:
     shard 0's fold of Q5-10M's 5th batch after 4 batches, at the cell's
     2^23 slots, from the exchange's buffer (4 segments of 2^17 rows, their
@@ -8864,13 +9020,26 @@ def check_counted_ingest(torch, dev, flush) -> dict:
     # the cost of the segments: the same rows packed densely, folded by
     # the step without the counted form (one thread a row, no div/mod)
     dense_ms = dense_step_ms(torch, pre, out, work, flush, setup, outs[0])
+    B = out.block
+    live = ((torch.arange(out.keys.shape[1], device=dev) % B)
+            < out.counts[:, 0].repeat_interleave(B))
+    sectors = counted_sectors(torch, pre["table"], outs[0]["table"],
+                              out.keys[0][live], out.panes[0][live],
+                              c["capacity"], rates)
+    floor = {"sector_floor_ms": sectors["sector_floor_ms"],
+             "share_of_sector_floor": sectors["sector_floor_ms"] / ms}
+    if "at_measured_rate_ms" in sectors:
+        floor.update({
+            "at_measured_rate_ms": sectors["at_measured_rate_ms"],
+            "share_of_rate_floor": sectors["at_measured_rate_ms"] / ms})
     return {"shapes": {"cell_shard0": {
         "rows_in_buffer": out.keys.shape[1], "rows_counted": rows,
         "new_keys": new_keys, "cells_touched": touched,
         "capacity": c["capacity"], "ms": ms, "plain_ms": plain_ms,
         "dense_uncounted_ms": dense_ms,
         "library_ms": None, "bound_ms": bound_ms(nbytes),
-        "bound_by": "bytes", "share_of_bound": bound_ms(nbytes) / ms}},
+        "bound_by": "bytes", "share_of_bound": bound_ms(nbytes) / ms,
+        "sectors": sectors, **floor}},
         "max_abs_err": 0}
 
 
@@ -9213,6 +9382,8 @@ def mesh_entry(mesh: dict, kernel: str, source: str, shape: str,
             **{k: at[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                   "library_ms", "share_of_bound")},
             "shape": at,
+            **{f"at_{k}": v for k, v in check["shapes"].items()
+               if k != shape},
             "launches_by_path": {
                 f"mesh Q5-10M {m}": cell[m]["launches_per_run"][kernel]
                 for m in ("full", "incremental")},
@@ -9221,11 +9392,14 @@ def mesh_entry(mesh: dict, kernel: str, source: str, shape: str,
                if "edge_cases" in check else {})}
 
 
-def mesh_phase(torch, dev, flush) -> dict:
-    """The multi-device window path: the exchange kernel and the counted
-    step against their plain versions, the mesh cell in both fire modes,
-    a mesh that grows, the builtin route, the live rescale and the cross
-    restores."""
+def mesh_phase(torch, dev, flush, rates: dict | None = None,
+               exchange_ops: dict | None = None) -> dict:
+    """The multi-device window path: the exchange kernel (its device
+    operations a call ``exchange_ops``, counted here when not given) and
+    the counted step against their plain versions (the step's sector
+    floor at the card's measured ``rates``), the mesh cell in both fire
+    modes, a mesh that grows, the builtin route, the live rescale and the
+    cross restores."""
     t0 = time.perf_counter()
     out, seconds = {}, {}
 
@@ -9235,9 +9409,12 @@ def mesh_phase(torch, dev, flush) -> dict:
         seconds[name] = time.perf_counter() - t
         emit({f"mesh_{name}": out[name], "seconds": seconds[name]})
 
-    part("exchange_bucket", lambda: check_exchange(torch, dev, flush))
+    if exchange_ops is None:
+        exchange_ops = exchange_device_ops(torch, dev)
+    part("exchange_bucket",
+         lambda: check_exchange(torch, dev, flush, exchange_ops))
     part("ingest_step_counted",
-         lambda: check_counted_ingest(torch, dev, flush))
+         lambda: check_counted_ingest(torch, dev, flush, rates))
     expected = mesh_q5_expected(mesh_config())
     part("cell", lambda: {"config": mesh_config(),
                           **mesh_cell(torch, dev, expected)})
@@ -9359,7 +9536,9 @@ def main(argv: list[str]) -> int:
         emit({"parent_kernels": parent_kernels(torch, dev, flush)})
         return 0
     if mesh_only:
-        emit({"mesh_phase_seconds": mesh_phase(torch, dev, flush)["seconds"]})
+        rates = sector_rates(torch, dev, flush, sector_lib)
+        emit({"mesh_phase_seconds": mesh_phase(torch, dev, flush,
+                                               rates)["seconds"]})
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -9374,6 +9553,7 @@ def main(argv: list[str]) -> int:
     forms = check_ingest_forms(torch, dev, flush, rates)
     edges = ingest_edges(torch, dev)
     shape = check_launch_shape(torch, dev)
+    exchange_ops = exchange_device_ops(torch, dev)
     window = check_window_seal(torch, dev, flush)
     sess = check_session(torch, dev, flush, rates=rates)
     gagg = check_group_agg(torch, dev, flush, rates)
@@ -9384,7 +9564,9 @@ def main(argv: list[str]) -> int:
                             "hash_probe": probe, "ingest_step": step,
                             "ingest_step_forms": forms,
                             "ingest_step_edges": edges,
-                            "launch_shape": shape, "window_seal": window,
+                            "launch_shape": shape,
+                            "exchange_device_ops": exchange_ops,
+                            "window_seal": window,
                             "session": sess, "group_agg": gagg,
                             "device_lists": lists, "row_state": rows}})
     del flush
@@ -9489,7 +9671,7 @@ def main(argv: list[str]) -> int:
     phase_done("sql_join")
     emit(faults_phase(torch, dev))
     phase_done("faults")
-    mesh = mesh_phase(torch, dev, mesh_flush)
+    mesh = mesh_phase(torch, dev, mesh_flush, rates, exchange_ops)
     del mesh_flush
     phase_done("mesh")
     emit({"phase_seconds": phase_s})

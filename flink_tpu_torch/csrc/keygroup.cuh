@@ -17,7 +17,8 @@ __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
 }
 
-__device__ __forceinline__ int key_group(unsigned long long u, int maxp) {
+// The key's hash before the modulo: abs of the murmur mix, in [0, 2^31).
+__device__ __forceinline__ int key_hash(unsigned long long u) {
   uint32_t k = (uint32_t)(u ^ (u >> 32));
   k *= 0xCC9E2D51u;
   k = rotl32(k, 15);
@@ -31,8 +32,11 @@ __device__ __forceinline__ int key_group(unsigned long long u, int maxp) {
   h *= 0xC2B2AE35u;
   h ^= h >> 16;
   int v = (int)h;
-  v = v == INT_MIN ? 0 : (v < 0 ? -v : v);
-  return v % maxp;
+  return v == INT_MIN ? 0 : (v < 0 ? -v : v);
+}
+
+__device__ __forceinline__ int key_group(unsigned long long u, int maxp) {
+  return key_hash(u) % maxp;
 }
 
 }  // namespace keygroup

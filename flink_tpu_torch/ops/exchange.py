@@ -4,21 +4,27 @@ with the routing of ``sharded_window.py``'s step, ``:143-169``).
 
 S source blocks of B rows go to D destination shards. Destination d's
 buffer (``ExchangeBuffers``) holds S segments of B rows; segment s holds,
-at its front, the rows of block s whose key group d owns, and
-``counts[s, d]`` is how many. Each row carries its sanitised key, its pane
-and its value columns. The buffer is sized for the worst case (a whole
-block to one destination), so one call routes any batch: the reference's
-capacity rounds (``bucket_capacity``, a skewed batch taking more rounds)
-become one launch, and the destination's ingest step reads the counts on
-the device (``ingest_step(..., segments=counts[:, d])``).
+at its front and in batch order, the rows of block s whose key group d
+owns, and ``counts[s, d]`` is how many. Each row carries its sanitised
+key, its pane and its value columns. The buffer is sized for the worst
+case (a whole block to one destination), so one call routes any batch:
+the reference's capacity rounds (``bucket_capacity``, a skewed batch
+taking more rounds) become one launch, and the destination's ingest step
+reads the counts on the device (``ingest_step(..., segments=counts[:,
+d])``).
 
 * On a CUDA tensor: one launch of the hand-written kernel
-  (``csrc/exchange.cu``) over all S blocks, which zeroes the counts first.
-  The order of rows within a bucket is the order the kernel's atomics
-  land; the destination's fold is atomic, so the state is the same.
+  (``csrc/exchange.cu``) over all S blocks, and no other device operation:
+  tiles of rows ranked in row order, each tile's base in each bucket from
+  a look-back over the tiles before it. The launch keeps its look-back
+  words in ``ExchangeBuffers.scratch``, zeroed once when the buffers are
+  allocated; each launch tags its words with the buffers' ``epoch``,
+  which the wrapper counts, so nothing is cleared between calls.
 * On a CPU tensor: the plain version, a stable ``argsort`` by (source,
-  destination) and a scatter (the reference's algorithm), which keeps
-  batch order within a bucket.
+  destination) and a scatter (the reference's algorithm).
+
+Both keep batch order within a bucket, so the kernel's buffers equal the
+plain version's position by position.
 
 Routing (``flink_tpu/parallel/mesh.py``): a row's key group is the murmur
 of ``core/keygroups.py`` over its RAW key; it is valid when its group lies
@@ -50,28 +56,37 @@ MAX_COLS = 7
 class ExchangeBuffers:
     """A destination-major exchange buffer for S blocks of B rows to D
     shards: ``keys`` and ``panes`` [D, S * B] int64, ``cols`` one [D, S *
-    B] tensor a value column, ``counts`` [S, D] int64."""
+    B] tensor a value column, ``counts`` [S, D] int64, and the kernel's
+    ``scratch`` (int64, zeroed; empty on the CPU, where the plain version
+    needs none) with ``epoch``, the kernel's launches on it, which tags
+    the words each launch leaves there."""
 
     keys: torch.Tensor
     panes: torch.Tensor
     cols: list
     counts: torch.Tensor
+    scratch: torch.Tensor
+    epoch: int = 0
 
     @classmethod
     def allocate(cls, n_dest: int, n_src: int, block: int,
                  col_dtypes: Sequence[torch.dtype], device
                  ) -> "ExchangeBuffers":
         """Zeroed on the CPU (the plain version reads whole rows), left
-        unset on the card (only the counted rows are ever read)."""
-        make = torch.zeros if torch.device(device).type == "cpu" \
-            else torch.empty
+        unset on the card (only the counted rows are ever read), the
+        scratch zeroed."""
+        on_cpu = torch.device(device).type == "cpu"
+        make = torch.zeros if on_cpu else torch.empty
         shape = (n_dest, n_src * block)
         return cls(make(shape, dtype=torch.int64, device=device),
                    make(shape, dtype=torch.int64, device=device),
                    [make(shape, dtype=dt, device=device)
                     for dt in col_dtypes],
                    torch.zeros((n_src, n_dest), dtype=torch.int64,
-                               device=device))
+                               device=device),
+                   torch.zeros(0 if on_cpu else
+                               _scratch_words(n_src, block, n_dest),
+                               dtype=torch.int64, device=device))
 
     @property
     def n_dest(self) -> int:
@@ -84,6 +99,17 @@ class ExchangeBuffers:
     @property
     def block(self) -> int:
         return self.keys.shape[1] // self.n_src
+
+
+def _scratch_words(n_src: int, block: int, n_dest: int) -> int:
+    from . import kernels
+
+    words = kernels.library("exchange").exchange_scratch_words(
+        n_src, block, n_dest)
+    if words < 0:
+        raise ValueError(f"{n_src} blocks of {block} rows to {n_dest} "
+                         "destinations: the kernel's scratch is too large")
+    return words
 
 
 def _check(keys, ts, cols, valid, out: ExchangeBuffers, n_valid: int,
@@ -111,8 +137,10 @@ def _check(keys, ts, cols, valid, out: ExchangeBuffers, n_valid: int,
             or out.counts.shape != (S, n_dest)
             or out.counts.dtype != torch.int64
             or len(out.cols) != len(cols)
+            or out.scratch.dtype != torch.int64
             or any(t.device != dev or not t.is_contiguous()
-                   for t in [out.keys, out.panes, out.counts, *out.cols])):
+                   for t in [out.keys, out.panes, out.counts, out.scratch,
+                             *out.cols])):
         raise ValueError("out must be ExchangeBuffers of D destinations for "
                          "these S blocks of B rows, on the keys' device")
     for c, o in zip(cols, out.cols):
@@ -191,6 +219,7 @@ def exchange_bucket(keys: torch.Tensor, ts: torch.Tensor,
 
     S, B = keys.shape
     n_c = len(cols)
+    out.epoch += 1
     rc = kernels.library("exchange").exchange_bucket_launch(
         keys.data_ptr(), ts.data_ptr(),
         valid.data_ptr() if valid is not None else None, n_valid, S, B,
@@ -200,8 +229,7 @@ def exchange_bucket(keys: torch.Tensor, ts: torch.Tensor,
         (ctypes.c_int * max(n_c, 1))(*[c.element_size() for c in cols]),
         out.keys.data_ptr(), out.panes.data_ptr(),
         (ctypes.c_void_p * max(n_c, 1))(*[c.data_ptr() for c in out.cols]),
-        out.counts.data_ptr(),
-        torch.cuda.current_stream(keys.device).cuda_stream)
+        out.counts.data_ptr(), out.scratch.data_ptr(), out.scratch.numel(),
+        out.epoch, torch.cuda.current_stream(keys.device).cuda_stream)
     kernels.check("exchange", rc)
-    if n_valid > 0:
-        note_launch("exchange_bucket")
+    note_launch("exchange_bucket")

@@ -96,7 +96,8 @@ SOURCES = {
     "exchange": {
         "exchange_bucket_launch": [_P, _P, _P, _I64, _I64, _I64, _I64, _I64,
                                    _I32, _I32, _I32, _I32, _I32, _PP, _PI32,
-                                   _P, _P, _PP, _P, _P],
+                                   _P, _P, _PP, _P, _P, _I64, _I64, _P],
+        "exchange_scratch_words": [_I64, _I64, _I32],
     },
     "row_state": {
         "dedup_first_launch": [_P, _I64, _P, _P, _P, _I64, _P, _P, _I64, _P,

@@ -7,7 +7,9 @@ capacity]`` plane per aggregate and a dropped counter, as tensors of its
 own on its shard's device. A step of S source blocks of B rows is
 
     one ``exchange_bucket`` launch (key groups of the raw keys, routing by
-    ownership, each row written into its destination's buffer)        ->
+    ownership, each row written into its destination's buffer, in batch
+    order within its source's segment, as the reference's stable
+    argsort leaves it)                                                 ->
     one counted ``ingest_step`` launch per shard (lookup-or-insert and
     one fold per plane, the rows counted on the device)
 

@@ -33,49 +33,126 @@ def _card():
     return torch.device("cuda")
 
 
+def _plain(keys, ts, cols, D, n_valid=None, valid=None, start=0,
+           length=MP, mp=MP, pane=1000, offset=3):
+    S, B = keys.shape
+    out = ExchangeBuffers.allocate(D, S, B, [c.dtype for c in cols], CPU)
+    exchange_bucket_plain(keys, ts, cols, out,
+                          S * B if n_valid is None else n_valid, valid,
+                          pane, offset, D, mp, start, length)
+    return out
+
+
+def _kernel(out, keys, ts, cols, D, n_valid=None, valid=None, start=0,
+            length=MP, mp=MP, pane=1000, offset=3):
+    dev = out.keys.device
+    exchange_bucket(keys.to(dev), ts.to(dev), [c.to(dev) for c in cols],
+                    out, n_valid=n_valid,
+                    valid=None if valid is None else valid.to(dev),
+                    pane=pane, offset=offset, n_dest=D, max_parallelism=mp,
+                    base_start=start, base_len=length)
+
+
+def _assert_equal(want, got, what):
+    """The same counts, and every live row of every (source, destination)
+    segment equal position by position: key, pane, every column."""
+    counts = got.counts.cpu()
+    assert torch.equal(counts, want.counts), what
+    S, B, D = want.n_src, want.block, want.n_dest
+    pos = torch.arange(S * B)
+    for d in range(D):
+        live = (pos % B) < counts[:, d].repeat_interleave(B)
+        for a, b in zip([want.keys, want.panes, *want.cols],
+                        [got.keys, got.panes, *got.cols]):
+            assert torch.equal(a[d][live], b[d].cpu()[live]), (what, d)
+
+
+def _batch(rng, S, B, col_dtypes=(torch.int32,)):
+    keys = torch.from_numpy(_keys(rng, S * B - 6).reshape(S, B))
+    ts = torch.from_numpy(rng.integers(-9000, 9000, (S, B)))
+    cols = [torch.from_numpy(rng.integers(-99, 99, (S, B))).to(dt)
+            for dt in col_dtypes]
+    return keys, ts, cols
+
+
 @pytest.mark.cuda
 def test_exchange_bucket_kernel_equals_plain_version():
     """exchange_bucket on the card against its plain version: the same
-    counts, and each (source, destination) segment the same multiset of
-    rows, on a random block, every key to one shard, an empty block and a
-    base_range subset."""
+    counts, and every live row of each (source, destination) segment equal
+    position by position (both keep batch order), on a random block, every
+    key to one shard, an empty block, a base_range subset, a mask with
+    columns of 1, 2, 4 and 8 bytes, and a block whose rows are not 16-byte
+    aligned (B odd, a ragged last tile)."""
     dev = _card()
     rng = np.random.default_rng(4)
     D, S, B = 4, 4, 1 << 12
-    for flat, n_valid, start, length in (
-            (_keys(rng, S * B - 6), None, 0, MP),
-            (np.full(S * B, -77, np.int64), None, 0, MP),
-            (_keys(rng, S * B - 6), 0, 0, MP),
-            (_keys(rng, S * B - 6), S * B - 100, 16, 64)):
-        keys = torch.from_numpy(flat.reshape(S, B))
-        ts = torch.from_numpy(rng.integers(0, 9000, (S, B)))
-        vals = torch.from_numpy(rng.integers(0, 99, (S, B)).astype(np.int32))
-        outs = []
-        for d_ in (CPU, dev):
-            out = ExchangeBuffers.allocate(D, S, B, [torch.int32], d_)
-            fn = exchange_bucket if d_.type == "cuda" else \
-                exchange_bucket_plain
-            args = (keys.to(d_), ts.to(d_), [vals.to(d_)], out)
-            if d_.type == "cuda":
-                fn(*args, n_valid=n_valid, pane=1000, offset=3, n_dest=D,
-                   max_parallelism=MP, base_start=start, base_len=length)
-            else:
-                fn(*args, S * B if n_valid is None else n_valid, None, 1000,
-                   3, D, MP, start, length)
-            outs.append(out)
+    for name, S_, B_, flat, n_valid, mask, start, length, dts in (
+            ("random", S, B, None, None, None, 0, MP, (torch.int32,)),
+            ("one_shard", S, B, np.full(S * B, -77, np.int64), None, None,
+             0, MP, (torch.int32,)),
+            ("empty", S, B, None, 0, None, 0, MP, (torch.int32,)),
+            ("base_subset", S, B, None, S * B - 100, None, 16, 64,
+             (torch.int32,)),
+            ("masked_widths", 3, 5001, None, None, 0.7, 0, MP,
+             (torch.int8, torch.int16, torch.int32, torch.float64)),
+            ("many_tiles", 2, 40_003, None, 2 * 40_003 - 999, None, 0, MP,
+             (torch.int64,))):
+        keys, ts, cols = _batch(rng, S_, B_, dts)
+        if flat is not None:
+            keys = torch.from_numpy(flat.reshape(S_, B_))
+        valid = None if mask is None else torch.from_numpy(
+            rng.random((S_, B_)) < mask)
+        want = _plain(keys, ts, cols, D, n_valid, valid, start, length)
+        got = ExchangeBuffers.allocate(D, S_, B_, [c.dtype for c in cols],
+                                       dev)
+        _kernel(got, keys, ts, cols, D, n_valid, valid, start, length)
         torch.cuda.synchronize()
-        want, got = outs[0], outs[1]
-        assert torch.equal(got.counts.cpu(), want.counts)
-        for s in range(S):
-            for d in range(D):
-                c = int(want.counts[s, d])
-                seg = slice(s * B, s * B + c)
-                rows = [torch.stack([o.keys[d][seg].cpu(),
-                                     o.panes[d][seg].cpu(),
-                                     o.cols[0][d][seg].cpu().long()], 1)
-                        for o in (want, got)]
-                assert sorted(map(tuple, rows[0].tolist())) == \
-                    sorted(map(tuple, rows[1].tolist()))
+        _assert_equal(want, got, name)
+
+
+@pytest.mark.cuda
+def test_exchange_bucket_back_to_back_and_after_a_shape_change():
+    """Calls on the same buffers back to back (no synchronisation between
+    them: the scratch each leaves is the next one's), each held to the
+    plain version after its own call; then new buffers for a new shape, as
+    the mesh replaces them, and the first buffers again."""
+    dev = _card()
+    rng = np.random.default_rng(19)
+    D, S, B = 4, 4, 3 * 2048 + 5
+    first = ExchangeBuffers.allocate(D, S, B, [torch.int32], dev)
+    for shape in ((S, B), (S, B), (2, 1 << 13), (S, B)):
+        S_, B_ = shape
+        out = first if shape == (S, B) else ExchangeBuffers.allocate(
+            D, S_, B_, [torch.int32], dev)
+        batches = [_batch(rng, S_, B_) for _ in range(3)]
+        wants = [_plain(*b, D) for b in batches]
+        gots = []
+        for b in batches:
+            _kernel(out, *b, D)
+            gots.append([t.clone() for t in (out.keys, out.panes,
+                                             out.cols[0], out.counts)])
+        torch.cuda.synchronize()
+        for want, (k, p, c, n) in zip(wants, gots):
+            _assert_equal(want, ExchangeBuffers(k, p, [c], n, out.scratch),
+                          f"back to back at {shape}")
+
+
+@pytest.mark.cuda
+def test_exchange_bucket_256_destinations():
+    """D = 256 (the most the kernel takes; one lane a destination in the
+    look-back), max parallelism 1024 so every destination owns groups,
+    held to the plain version position by position; and D = 3."""
+    dev = _card()
+    rng = np.random.default_rng(256)
+    S, B, mp = 3, 3 * 2048 + 11, 1024
+    for D in (256, 3):
+        keys, ts, cols = _batch(rng, S, B, (torch.int64,))
+        want = _plain(keys, ts, cols, D, mp=mp, length=mp)
+        got = ExchangeBuffers.allocate(D, S, B, [torch.int64], dev)
+        _kernel(got, keys, ts, cols, D, mp=mp, length=mp)
+        torch.cuda.synchronize()
+        _assert_equal(want, got, f"D = {D}")
+        assert int((want.counts > 0).sum()) > D * S // 2
 
 
 @pytest.mark.cuda

@@ -7,9 +7,10 @@ Inputs are made from numpy seeds. The port runs its plain versions here
 and scatter folds). Comparisons follow ROADMAP's parity rules:
 
 * routing is bit-exact (key groups, destinations, shard ranges);
-* the exchange forms compare as multisets of routed rows per destination
-  (the kernel's order within a bucket is its atomics', so order is not
-  part of the contract);
+* the exchange's buffers compare position by position with the rows the
+  reference's forms deliver, in their order (batch order within each
+  source's segment, the stable argsort's; the kernel keeps it too); the
+  port's own forms compare as multisets of routed rows per destination;
 * sharded state compares by key per shard, never by slot (a claim order
   lays slots out differently);
 * top-k fires compare under the tie rule;
@@ -302,6 +303,124 @@ def test_bounded_exchange_skew_takes_extra_rounds_losslessly():
     for B_ in (32, 256, 4096):
         for D_ in (1, 2, 8, 64):
             assert port.bucket_capacity(B_, D_) == ref.bucket_capacity(B_, D_)
+
+
+
+_REF_ROUTED = {}
+
+
+def _ref_routed(D, dest, payload, valid):
+    """The reference's routed rows, in the order each form delivers them:
+    {form: [destination][source] -> {column: rows}} for ``keyby_exchange``
+    and for ``plan_exchange`` + ``exchange_round`` (the rounds of a source
+    concatenated). ``dest``, ``valid`` [D, B]; ``payload`` {column: [D,
+    B]}; one jitted shard_map a (D, B, form)."""
+    B = dest.shape[1]
+    cap = ref.bucket_capacity(B, D)
+    rounds = -(-B // cap)
+    names = sorted(payload)
+
+    def build(bounded):
+        def body(dest, valid, *cols):
+            d, v = dest[0], valid[0]
+            pay = {n: c[0] for n, c in zip(names, cols)}
+            if not bounded:
+                routed, rvalid = ref.keyby_exchange("data", D, d, pay, v)
+                return (rvalid[None], *[routed[n][None] for n in names])
+            plan = ref.plan_exchange(d, v, D, cap)
+            ordered = {n: c[plan.order] for n, c in pay.items()}
+            n_rounds = jax.lax.pmax(plan.n_rounds, "data")
+            outs = (jnp.zeros((rounds * D * cap,), bool),
+                    *[jnp.zeros((rounds * D * cap,), pay[n].dtype)
+                      for n in names])
+
+            def rnd(carry):
+                r, outs = carry
+                routed, rvalid = ref.exchange_round("data", D, cap, plan,
+                                                    ordered, r)
+                got = (rvalid, *[routed[n] for n in names])
+                return r + 1, tuple(
+                    jax.lax.dynamic_update_slice(o, g, (r * D * cap,))
+                    for o, g in zip(outs, got))
+
+            _, outs = jax.lax.while_loop(lambda c: c[0] < n_rounds, rnd,
+                                         (jnp.int32(0), outs))
+            return tuple(o[None] for o in outs)
+
+        n_out = 1 + len(names)
+        return jax.jit(shard_map_compat(
+            body, ref.make_mesh(D), in_specs=(P("data"),) * (2 + len(names)),
+            out_specs=(P("data"),) * n_out))
+
+    out = {}
+    for form, bounded in (("keyby_exchange", False), ("rounds", True)):
+        key = (D, B, form, tuple(names))
+        if key not in _REF_ROUTED:
+            _REF_ROUTED[key] = build(bounded)
+        got = [np.asarray(g) for g in _REF_ROUTED[key](
+            jnp.asarray(dest), jnp.asarray(valid),
+            *[jnp.asarray(payload[n]) for n in names])]
+        rvalid, cols = got[0], dict(zip(names, got[1:]))
+        # [destination, round, source, cap] for the rounds, [destination,
+        # 1, source, B] for the one-shot form
+        width = cap if bounded else B
+        shape = (D, rounds if bounded else 1, D, width)
+        rvalid = rvalid.reshape(shape)
+        cols = {n: c.reshape(shape) for n, c in cols.items()}
+        out[form] = [[{n: np.concatenate([cols[n][d, r, s][rvalid[d, r, s]]
+                                          for r in range(shape[1])])
+                       for n in names}
+                      for s in range(D)] for d in range(D)]
+    return out
+
+
+@pytest.mark.parametrize("D", [1, 3, 8])
+def test_exchange_bucket_segments_equal_reference_in_order(D):
+    """The plain version's segments, position by position and not sorted,
+    against the reference's routed rows in the order both of its forms
+    deliver them (S = D sources, as the reference's devices): a masked, a
+    ragged and a base_range case, seeded. This is the order the kernel is
+    held to on the card."""
+    rng = np.random.default_rng(1900 + D)
+    B = 64
+    cases = {
+        "masked": (None, rng.random((D, B)) < 0.6, 0, MP),
+        "ragged": (D * B - 45, None, 0, MP),
+        "base_range": (None, rng.random((D, B)) < 0.9, 32, 64),
+    }
+    for name, (n_valid, mask, start, length) in cases.items():
+        keys = _keys(rng, D * B - 6).reshape(D, B)
+        ts = rng.integers(-5000, 5000, (D, B)).astype(np.int64)
+        vals = rng.integers(-99, 99, (D, B)).astype(np.int32)
+        out = _bucket(keys, ts, vals, D, n_valid, mask, start, length,
+                      pane=1000, offset=7)
+        ok = (np.arange(D * B) < (D * B if n_valid is None else n_valid)
+              ).reshape(D, B)
+        if mask is not None:
+            ok &= mask
+        kg = ref.key_groups_device(jnp.asarray(keys), MP)
+        dest = np.asarray(ref.device_index_for_key_groups(kg, D, MP, start,
+                                                          length))
+        ok &= (dest >= 0) & (dest < D)
+        payload = {"k": np.where(keys == EMPTY_KEY, EMPTY_KEY - 1, keys),
+                   "p": np.floor_divide(ts - 7, 1000), "v": vals}
+        routed = _ref_routed(D, np.clip(dest, 0, D - 1).astype(np.int32),
+                             payload, ok)
+        counts = out.counts.numpy()
+        for d in range(D):
+            for s in range(D):
+                c = counts[s, d]
+                seg = slice(s * B, s * B + c)
+                got = {"k": out.keys[d][seg].numpy(),
+                       "p": out.panes[d][seg].numpy(),
+                       "v": out.cols[0][d][seg].numpy()}
+                for form, rows in routed.items():
+                    for n in ("k", "p", "v"):
+                        np.testing.assert_array_equal(
+                            got[n], rows[d][s][n],
+                            err_msg=f"{name}: {form}, column {n}, "
+                                    f"source {s} to {d}")
+        assert counts.sum() == ok.sum(), name
 
 
 def _ref_agg(aggs, cap=1 << 12, ring=8, base=None):
