@@ -9479,19 +9479,319 @@ def profile_child(torch, dev, cell: str) -> int:
     return 0
 
 
+# -- the device-time ledger, the build cache and the sync audit -----------
+LEDGER_TURNS = (False, True, False, True)   # profiler.enabled, in turns
+LEDGER_GBPS = 3350.0           # profiler.cost-model.gbps: H100 SXM HBM3
+AOT_CHILD_TIMEOUT_S = 300      # a build-cache child process
+AOT_CHILD_FREE_BYTES = 8 << 30  # the card's free bytes before the children
+AUDIT_BATCHES = 4              # batches of each sync-audit run
+
+
+def ledger_profile_rows(profile: dict) -> list:
+    """The ledger's ``profile()`` rows, in its order, with the keys the
+    smoke reports."""
+    keys = ("job", "operator", "site", "shape_signature", "count",
+            "compiles", "self_ms", "compile_ms", "mean_ms", "p95_ms",
+            "est_flops", "est_bytes", "est_ms", "achieved_vs_estimated")
+    return [{k: r[k] for k in keys} for r in profile["programs"]]
+
+
+def ledger_counts(profile: dict) -> dict:
+    """site -> (count, compiles), summed over jobs, operators and shapes."""
+    out: dict = {}
+    for r in profile["programs"]:
+        c = out.setdefault(r["site"], [0, 0])
+        c[0] += r["count"]
+        c[1] += r["compiles"]
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def ledger_phase(torch, dev) -> dict:
+    """Q5-1M with ``profiler.enabled`` and without, in turns
+    (``LEDGER_TURNS``), each run held to the oracle. The last profiled run
+    runs under torch.profiler too: the ledger's ``device_window.step``
+    device ms must cover at least 0.95 of the profiler's
+    ``ingest_step_kernel`` total (its events enclose the kernel). Counts:
+    ``device_window.step`` one a batch, ``device_window.fire`` and
+    ``ops.pallas_topk`` one a fire, ``hist256`` 4 launches a fire (Q5's
+    31-bit counts: 4 digit passes a select); the first profiled run
+    charges each site's first dispatch as compile. The sync check finds
+    the same waits with the ledger on as off. Events/s of both are the
+    ledger's cost, not a claim."""
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+    from flink_tpu_torch.metrics.profiler import DEVICE_LEDGER
+
+    label, n_keys, n_events, cap = Q5_CELLS[0]
+    span = q5_panes(n_events) * PANE_MS
+    expected = q5_expected(n_keys, n_events, span)
+    batches = n_events // BATCH
+    on = {"profiler.enabled": True, "profiler.cost-model.gbps": LEDGER_GBPS}
+    off = {"profiler.enabled": False}
+    waits = {name: sorted(implicit_syncs(torch, lambda s=s: run_q5(
+        torch, dev, n_keys, AUDIT_BATCHES * BATCH, cap, settings=s)))
+        for name, s in (("off", off), ("on", on))}
+    if waits["on"] != waits["off"]:
+        raise AssertionError(f"the ledger changes the host waits: "
+                             f"{waits['on']} != {waits['off']}")
+    eps = {"on": [], "off": []}
+    runs = []
+    for turn, enabled in enumerate(LEDGER_TURNS):
+        last = turn == len(LEDGER_TURNS) - 1
+        fresh_memory(torch)
+        DEVICE_LEDGER.reset()
+        reset_launches()
+        if last:
+            with card_profile(torch) as prof:
+                job, got, _span = run_q5(torch, dev, n_keys, n_events, cap,
+                                         settings=on)
+        else:
+            job, got, _span = run_q5(torch, dev, n_keys, n_events, cap,
+                                     settings=on if enabled else off)
+        fires = q5_check(expected, got)
+        eps["on" if enabled else "off"].append(n_events / job.wall_s)
+        launches = dict(KERNEL_LAUNCHES)
+        if not enabled:
+            if DEVICE_LEDGER.snapshot()["entries"]:
+                raise AssertionError("a disabled ledger recorded samples")
+            continue
+        profile = DEVICE_LEDGER.profile(top=1000)
+        counts = ledger_counts(profile)
+        want = {"device_window.step": batches, "device_window.fire": fires,
+                "ops.pallas_topk": fires}
+        for site, n in want.items():
+            got_n = counts.get(site, (0, 0))
+            if sum(got_n) != n or (turn > 1 and got_n[1]):
+                raise AssertionError(f"ledger {site}: (count, compiles) "
+                                     f"{got_n}, want {n} dispatches")
+        if launches["hist256"] != 4 * fires:
+            raise AssertionError(f"hist256 launched {launches['hist256']} "
+                                 f"times for {fires} fires of 4 passes")
+        run = {"turn": turn, "fires": fires, "batches": batches,
+               "counts": counts, "hist256_launches": launches["hist256"],
+               "total_device_ms": profile["total_device_ms"],
+               "total_compile_ms": profile["total_compile_ms"],
+               "programs": ledger_profile_rows(profile),
+               "recompiles": profile["recompiles"],
+               "forced_waits": DEVICE_LEDGER.forced_waits}
+        if last:
+            from torch.autograd import DeviceType
+            kernel_ms = sum(e.self_device_time_total for e in prof.events()
+                            if e.device_type == DeviceType.CUDA
+                            and "ingest_step_kernel" in e.name) / 1e3
+            step_ms = sum(r["self_ms"] + r["compile_ms"]
+                          for r in profile["programs"]
+                          if r["site"] == "device_window.step")
+            if step_ms < 0.95 * kernel_ms:
+                raise AssertionError(
+                    f"the ledger's device_window.step {step_ms} ms is "
+                    f"below 0.95 of the profiler's ingest_step_kernel "
+                    f"{kernel_ms} ms")
+            run.update(profiler_ingest_step_ms=kernel_ms,
+                       ledger_step_ms=step_ms,
+                       ledger_over_profiler=step_ms / kernel_ms)
+        runs.append(run)
+    DEVICE_LEDGER.reset()
+    return {"ledger_phase": {
+        "cell": f"Q5-{label}", "keys": n_keys, "events": n_events,
+        "capacity": cap, "cost_model_gbps": LEDGER_GBPS,
+        "events_per_sec": eps,
+        "events_per_sec_median": {k: float(np.median(v))
+                                  for k, v in eps.items()},
+        "host_waits": waits, "profiled_runs": runs}}
+
+
+def aot_child(torch, dev, directory: str) -> int:
+    """A fresh process on the build cache at ``directory``: the warm-up
+    (``AOT.warmup`` alone, timed), then Q5-1M through ``env.execute()``
+    with the cache on, held to the oracle. The last line is the record."""
+    from flink_tpu_torch.core import Configuration
+    from flink_tpu_torch.ops import kernels
+    from flink_tpu_torch.runtime.aot import AOT
+
+    settings = {"aot.enabled": True, "aot.dir": directory}
+    AOT.configure(Configuration(settings))
+    t0 = time.perf_counter()
+    warmed = AOT.warmup()
+    warmup_s = time.perf_counter() - t0
+    builds_after_warmup = kernels.builds()
+    label, n_keys, n_events, cap = Q5_CELLS[0]
+    job, got, span = run_q5(torch, dev, n_keys, n_events, cap,
+                            settings=settings)
+    windows = q5_oracle_check(n_keys, n_events, span, got)
+    emit({"aot_child": {
+        "warmup_s": warmup_s, "warmup_loaded": warmed,
+        "builds_after_warmup": builds_after_warmup,
+        "builds": kernels.builds(), "windows": windows,
+        "events_per_sec": n_events / job.wall_s,
+        "max_memory_reserved": torch.cuda.max_memory_reserved(),
+        "aot": AOT.snapshot(),
+        "events": [{k: v for k, v in e.items() if k != "timestamp"}
+                   for e in AOT.events]}})
+    return 0
+
+
+def release_for_children(torch) -> dict:
+    """Before child processes on this card: this process's caching
+    allocator keeps the blocks earlier phases reserved (the 10M-key cells
+    leave tens of GB), and a child whose card is full fails at its first
+    allocation, a library's module load included ("out of memory" from
+    ``hash_table_load``). Frees the cached blocks; returns the bytes this
+    process had allocated and reserved and the card's free bytes after,
+    and raises when fewer than ``AOT_CHILD_FREE_BYTES`` are free."""
+    fresh = fresh_memory(torch)
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    rec = {**fresh, "reserved_before_release": reserved,
+           "reserved_after_release": torch.cuda.memory_reserved(),
+           "card_free": free, "card_total": total}
+    if free < AOT_CHILD_FREE_BYTES:
+        raise AssertionError(f"the card has {free} bytes free for the "
+                             f"build-cache children, fewer than "
+                             f"{AOT_CHILD_FREE_BYTES}: {rec}")
+    return rec
+
+
+def run_aot_child(directory: str) -> dict:
+    """``chip_smoke.py --aot-child DIR`` in a child process, on the card
+    this process uses (``CUDA_VISIBLE_DEVICES`` as set in ``main``)."""
+    proc = subprocess.run(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--aot-child",
+         directory], capture_output=True, text=True,
+        timeout=AOT_CHILD_TIMEOUT_S, env=dict(os.environ))
+    if proc.returncode != 0:
+        raise AssertionError(f"build-cache child failed ({proc.returncode}):"
+                             f" {proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])["aot_child"]
+
+
+def aot_phase(torch, dev) -> dict:
+    """The verified build cache on the card. This process builds every
+    library with ``aot.enabled`` into a fresh ``aot.dir`` (the cold
+    process: it stores them all), then three child processes run Q5-1M
+    from it: warm (0 builds), after one flipped payload byte of the
+    hist256 artifact (quarantined as .corrupt, exactly that source built
+    again, nothing else) and after an edited header fingerprint (a miss:
+    that source built again, nothing quarantined). Every child's windows
+    equal the oracle. The children start after this process has freed
+    its cached device blocks (``release_for_children``)."""
+    import tempfile
+
+    from flink_tpu_torch.core import Configuration
+    from flink_tpu_torch.ops import kernels
+    from flink_tpu_torch.runtime.aot import AOT, verify_aot_cache
+
+    with tempfile.TemporaryDirectory(prefix="aot-") as directory:
+        AOT.configure(Configuration({"aot.enabled": True,
+                                     "aot.dir": directory}))
+        try:
+            before = kernels.builds()
+            cold_s = kernels.build_all()
+            cold_builds = kernels.builds() - before
+            stores = AOT.snapshot()["stores"]
+        finally:
+            AOT.reset()
+        if cold_builds != len(kernels.SOURCES) or \
+                stores != len(kernels.SOURCES):
+            raise AssertionError(f"the cold process built {cold_builds} and "
+                                 f"stored {stores} of "
+                                 f"{len(kernels.SOURCES)} sources")
+        hist = [n for n in os.listdir(directory)
+                if n.startswith("hist256-") and n.endswith(".aotx")]
+        path = os.path.join(directory, hist[0])
+        memory = release_for_children(torch)
+        warm = run_aot_child(directory)
+        raw = bytearray(open(path, "rb").read())
+        raw[raw.index(b"\n") + 1 + (len(raw) - raw.index(b"\n")) // 2] ^= 0x01
+        open(path, "wb").write(bytes(raw))
+        corrupt = run_aot_child(directory)
+        quarantined = sorted(n for n in os.listdir(directory)
+                             if n.endswith(".corrupt"))
+        raw = open(path, "rb").read()
+        nl = raw.index(b"\n")
+        header = json.loads(raw[:nl])
+        header["fingerprint"][-1] = "another toolkit"
+        open(path, "wb").write(json.dumps(header, sort_keys=True).encode()
+                               + raw[nl:])
+        skew = run_aot_child(directory)
+        after = sorted(n for n in os.listdir(directory)
+                       if n.endswith(".corrupt"))
+        rows = verify_aot_cache(directory)
+    checks = {"warm": (warm, 0, 0), "corrupt": (corrupt, 1, 1),
+              "skew": (skew, 1, 0)}
+    for name, (child, builds, quar) in checks.items():
+        if child["builds"] != builds or child["aot"]["quarantined"] != quar:
+            raise AssertionError(f"build-cache child {name}: {child}")
+    if quarantined != [hist[0] + ".corrupt"] or after != quarantined:
+        raise AssertionError(f"quarantined {quarantined}, then {after}")
+    if not all(status in ("OK", "QUARANTINED") for _n, status, _d in rows):
+        raise AssertionError(f"the cache does not verify: {rows}")
+    return {"aot_phase": {
+        "cold": {"nvcc_s": cold_s, "builds": cold_builds, "stores": stores},
+        "memory_before_children": memory, "warm": warm, "corrupt": corrupt, "skew": skew,
+        "quarantined": quarantined, "verify": rows}}
+
+
+def sync_audit_phase(torch, dev) -> dict:
+    """Tier B of the port's lint: a Q5-1M step and fire, a session step,
+    a GROUP BY step and a mesh step under the sync debug mode
+    (``implicit_syncs``); every host wait in the package must be one a
+    ``# lint: sync-ok`` line or a TPU101 baseline entry names
+    (``analysis/sync_audit.py``)."""
+    from flink_tpu_torch.analysis.sync_audit import audit_waits
+
+    label, n_keys, n_events, cap = Q5_CELLS[0]
+    n = AUDIT_BATCHES * BATCH
+    sess = session_config("session-100K")
+    runs = {
+        f"Q5-{label}": lambda: run_q5(torch, dev, n_keys, n, cap),
+        "session-100K": lambda: run_session(
+            torch, dev, sess, AUDIT_BATCHES * sess["batch"]),
+        "groupby": lambda: run_groupby(torch, dev, n_keys, n, BATCH),
+        "mesh_q5_1m": lambda: run_mesh_q5(
+            torch, dev, mesh_config("q5_1m", events=n)),
+    }
+    out = {}
+    for name, run in runs.items():
+        fresh_memory(torch)
+        waits = implicit_syncs(torch, run)
+        out[name] = {"waits": len(waits), **audit_waits(waits)}
+    unnamed = {name: r["unnamed"] for name, r in out.items() if r["unnamed"]}
+    if unnamed:
+        emit({"sync_audit": out})
+        raise AssertionError(f"sync audit: host waits no sync-ok or "
+                             f"baseline entry names: {unnamed}")
+    return {"sync_audit": out}
+
+
+def observability_phases(torch, dev) -> dict:
+    """The ledger, the build cache and the sync audit, timed."""
+    t0 = time.perf_counter()
+    emit(ledger_phase(torch, dev))
+    t1 = time.perf_counter()
+    emit(aot_phase(torch, dev))
+    t2 = time.perf_counter()
+    emit(sync_audit_phase(torch, dev))
+    return {"ledger": t1 - t0, "aot": t2 - t1,
+            "sync_audit": time.perf_counter() - t2}
+
+
 def main(argv: list[str]) -> int:
     mesh_only = argv == ["--mesh"]
-    if mesh_only:
+    obs_only = argv == ["--observability"]
+    if mesh_only or obs_only:
         argv = []
     if argv and (len(argv) != 2 or argv[0] not in ("--parent-kernels",
-                                                   "--profile")
+                                                   "--profile", "--aot-child")
                  or argv[0] == "--profile"
                  and argv[1] not in PROFILED_CELLS):
         print("usage: chip_smoke.py [--parent-kernels DIR | --profile "
-              f"{'|'.join(PROFILED_CELLS)} | --mesh]", file=sys.stderr)
+              f"{'|'.join(PROFILED_CELLS)} | --mesh | --observability | "
+              "--aot-child DIR]", file=sys.stderr)
         return 2
     child = argv[1] if argv and argv[0] == "--profile" else None
-    if child:
+    aot_dir = argv[1] if argv and argv[0] == "--aot-child" else None
+    if child or aot_dir:
         argv = []
     pkg_dir = os.path.abspath(argv[1]) if argv else HERE
     # the smoke runs on one card: show torch only the first one, so the
@@ -9515,6 +9815,8 @@ def main(argv: list[str]) -> int:
     if child:
         kernels.build_all()
         return profile_child(torch, torch.device("cuda", 0), child)
+    if aot_dir:
+        return aot_child(torch, torch.device("cuda", 0), aot_dir)
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
     dev = torch.device("cuda", 0)
@@ -9534,6 +9836,14 @@ def main(argv: list[str]) -> int:
     flush = L2Flush(torch, dev)
     if argv:
         emit({"parent_kernels": parent_kernels(torch, dev, flush)})
+        return 0
+    if obs_only:
+        check_sync_detector(torch, dev)
+        emit({"observability_seconds": observability_phases(torch, dev)})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
         return 0
     if mesh_only:
         rates = sector_rates(torch, dev, flush, sector_lib)
@@ -9671,6 +9981,8 @@ def main(argv: list[str]) -> int:
     phase_done("sql_join")
     emit(faults_phase(torch, dev))
     phase_done("faults")
+    emit({"observability_seconds": observability_phases(torch, dev)})
+    phase_done("observability")
     mesh = mesh_phase(torch, dev, mesh_flush, rates, exchange_ops)
     del mesh_flush
     phase_done("mesh")

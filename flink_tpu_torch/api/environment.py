@@ -133,6 +133,8 @@ class StreamExecutionEnvironment:
     def get_job_graph(self, name: str = "job") -> JobGraph:
         if not self._sinks:
             raise RuntimeError("No sinks defined; nothing to execute")
+        # the ledger attributes the job's device time to this name
+        self.config.set("pipeline.name", name)
         sg = build_stream_graph(self._sinks, self.config)
         jg = build_job_graph(sg, self.config, name)
         if self.config.get("pipeline.fusion.enabled"):

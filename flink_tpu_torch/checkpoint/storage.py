@@ -198,6 +198,16 @@ def _digest(data) -> str:
     return hashlib.blake2b(data, digest_size=16).hexdigest()
 
 
+def _fsync_write(path: str, data: bytes) -> None:
+    """Atomic durable publish: write a temporary file, fsync, rename."""
+    tmp = f"{path}.part{os.getpid()}"
+    with open(tmp, "wb") as f:
+        f.write(data)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
 def _chunk_digest(raw, dtype: np.dtype, lead_shape: tuple) -> str:
     h = hashlib.blake2b(digest_size=16)
     h.update(raw)

@@ -218,6 +218,17 @@ def deploy_local(job_graph: JobGraph, config: Configuration,
     # mesh operator of the process reads the same
     from ..parallel.plan import MESH_RUNTIME
     MESH_RUNTIME.configure(config)
+    # device-time ledger: per-site dispatch profiling and recompile
+    # attribution (off by default: profiler.enabled)
+    from ..metrics.profiler import DEVICE_LEDGER
+    DEVICE_LEDGER.configure(config)
+    # the verified build cache of the kernel libraries: load every
+    # library from its artifact (deadline-bounded aot.warmup) before the
+    # first batch, so a restart or a fresh process builds nothing (off by
+    # default: aot.enabled)
+    from ..runtime.aot import AOT
+    AOT.configure(config)
+    AOT.warmup()
     _deploy_vertices(job, job_graph, config,
                      _channels(job_graph, set(job_graph.vertices)),
                      restored_state, set(job_graph.vertices))

@@ -208,6 +208,11 @@ class JobSupervisor:
             job.coordinator.pause()
         try:
             time.sleep(self.restart_strategy.backoff_seconds())
+            # the restarted region's libraries come from the build cache
+            # when it is on (a no-op for libraries already open)
+            from ..runtime.aot import AOT
+            if AOT.enabled:
+                AOT.warmup()
             restart_region(job, self.job_graph, self.config, vids, restored)
         finally:
             if job.coordinator is not None:

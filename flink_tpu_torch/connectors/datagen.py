@@ -182,6 +182,7 @@ class _DeviceDataGenReader(_DataGenReader):
         if self._viol_checked:
             return
         self._viol_checked = True
+        # lint: sync-ok the monotonicity flag, read once per job at its end
         if bool(self._viol):
             raise ValueError(
                 "DataGenSource(device=True) contract violated: the "

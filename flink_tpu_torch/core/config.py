@@ -11,11 +11,14 @@ import re
 from typing import Any, Optional
 
 __all__ = ["Configuration", "DEFAULTS", "SqlOptions", "StateOptions",
-           "MeshOptions"]
+           "MeshOptions", "ProfilerOptions", "AotOptions", "WatchdogOptions",
+           "all_options", "generate_config_docs"]
 
 #: key -> default (reference: PipelineOptions / CheckpointingOptions /
 #: TaskOptions / WindowOptions)
 DEFAULTS: dict[str, Any] = {
+    # the job's name; the device-time ledger attributes samples to it
+    "pipeline.name": "flink-tpu-job",
     "pipeline.parallelism": 1,
     "pipeline.max-parallelism": 128,
     "pipeline.micro-batch-size": 4096,
@@ -103,10 +106,12 @@ DEFAULTS: dict[str, Any] = {
     # supervised calls (0: unbounded, a direct call), in-place retries of a
     # hang before its region starts, and task-progress supervision
     "watchdog.enabled": True,
+    "watchdog.device.compile-timeout": 600.0,
     "watchdog.device.execute-timeout": 300.0,
     "watchdog.transfer-timeout": 120.0,
     "watchdog.checkpoint-timeout": 300.0,
     "watchdog.tier-timeout": 120.0,
+    "watchdog.aot-warmup-timeout": 120.0,
     "watchdog.stall-retries": 1,
     "task.stall-timeout": 120.0,
     "task.backpressure.stall-timeout": 300.0,
@@ -120,6 +125,24 @@ DEFAULTS: dict[str, Any] = {
     "restart-strategy.failure-rate.delay": 0.1,
     "restart-strategy.exponential-delay.initial-backoff": 0.05,
     "restart-strategy.exponential-delay.max-backoff": 10.0,
+    # the device-time ledger (metrics/profiler.py, reference
+    # ProfilerOptions): the master switch, the duration reservoir of an
+    # entry, the recompile records kept, the EWMA factor, the sample ring
+    # and the assumed rates of the cost model (estimated ms = max(flops /
+    # gflops, bytes / gbps)); assumed, not measured
+    "profiler.enabled": False,
+    "profiler.reservoir": 256,
+    "profiler.recompile-history": 64,
+    "profiler.ewma-alpha": 0.2,
+    "profiler.trace-samples": 2048,
+    "profiler.cost-model.gflops": 50.0,
+    "profiler.cost-model.gbps": 10.0,
+    # the verified build cache of the kernel libraries (runtime/aot.py,
+    # reference AotOptions): the master switch, its directory (empty: off)
+    # and the cap of each in-memory program cache (0: unbounded)
+    "aot.enabled": False,
+    "aot.dir": "",
+    "aot.in-memory-max-programs": 0,
 }
 
 
@@ -146,9 +169,41 @@ class MeshOptions:
     RESCALE_ENABLED = "mesh.rescale.enabled"
     RESCALE_TIMEOUT = "mesh.rescale.timeout"
 
+
+class ProfilerOptions:
+    """The device-time ledger's keys (reference
+    ``core/config.py::ProfilerOptions``, same defaults)."""
+
+    ENABLED = "profiler.enabled"
+    RESERVOIR = "profiler.reservoir"
+    RECOMPILE_HISTORY = "profiler.recompile-history"
+    EWMA_ALPHA = "profiler.ewma-alpha"
+    TRACE_SAMPLES = "profiler.trace-samples"
+    COST_GFLOPS = "profiler.cost-model.gflops"
+    COST_GBPS = "profiler.cost-model.gbps"
+
+
+class AotOptions:
+    """The build cache's keys (reference ``core/config.py::AotOptions``)."""
+
+    ENABLED = "aot.enabled"
+    DIR = "aot.dir"
+    IN_MEMORY_MAX_PROGRAMS = "aot.in-memory-max-programs"
+
+
+class WatchdogOptions:
+    """The deadlines of the kernel build and of the cache's warm-up
+    (reference ``core/config.py::WatchdogOptions``)."""
+
+    COMPILE_TIMEOUT = "watchdog.device.compile-timeout"
+    AOT_WARMUP_TIMEOUT = "watchdog.aot-warmup-timeout"
+
+
 #: value type of each key whose default does not name it
 _TYPES: dict[str, type] = {"execution.checkpointing.dir": str}
 _DURATIONS = {"pipeline.auto-watermark-interval",
+              "watchdog.device.compile-timeout",
+              "watchdog.aot-warmup-timeout",
               "execution.checkpointing.interval",
               "execution.checkpointing.timeout",
               "device.failover.retry-backoff",
@@ -220,3 +275,21 @@ class Configuration:
 
     def get(self, key: str) -> Any:
         return self._values.get(key, DEFAULTS[key])
+
+
+def all_options() -> list[str]:
+    """Every key the port reads, sorted."""
+    return sorted(DEFAULTS)
+
+
+def generate_config_docs() -> str:
+    """The option table of ``flink_tpu_torch/docs/CONFIG.md``: one row a
+    key with its default, generated so the committed page cannot drift
+    from ``DEFAULTS`` (the lint's TPU303 compares them)."""
+    lines = ["# Configuration of the port", "",
+             "Generated from `flink_tpu_torch/core/config.py::DEFAULTS` by "
+             "`generate_config_docs()`; do not edit by hand.", "",
+             "| Key | Default |", "| --- | --- |"]
+    for key in all_options():
+        lines.append(f"| `{key}` | `{DEFAULTS[key]!r}` |")
+    return "\n".join(lines) + "\n"

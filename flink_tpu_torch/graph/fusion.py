@@ -14,18 +14,21 @@ device source heading a vertex of parallelism 1 and ends at the device
 window aggregate is that vertex's ``lowered_prefix``, which the deployer
 (``cluster/local.py``) arms as one dispatch per micro-batch
 (``runtime/compiled.py``). The verdicts and rule names are the
-reference's; the capture harness and CLI are not ported.
+reference's; the capture harness and CLI are not ported. Every
+certificate also goes into ``CERTIFICATE_LOG`` (bounded), which the
+lint's PLAN6xx rules read (``analysis/plan_rules.py``).
 """
 
 from __future__ import annotations
 
 import inspect
+from collections import deque
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Optional
 
 __all__ = ["VERDICTS", "PlanFinding", "FusedOp", "ChainReport",
-           "FusionCertificate", "certify"]
+           "FusionCertificate", "certify", "CERTIFICATE_LOG"]
 
 VERDICTS = ("CERTIFIED", "PARTIAL", "REJECTED")
 
@@ -89,6 +92,11 @@ class FusionCertificate:
             if c.vertex_id == vertex_id:
                 return c
         return None
+
+
+#: the most recent certificates of this process, newest last (the lint's
+#: plan rules read them; tests seed it directly)
+CERTIFICATE_LOG: deque = deque(maxlen=64)
 
 
 # ---------------------------------------------------------------------------
@@ -277,4 +285,5 @@ def certify(stream_graph: Any, job_graph: Any,
                 file=head.file, line=head.line,
                 symbol=f"{dst.uid}:{head.name}:edge"))
             dst.verdict = "PARTIAL" if dst.certified else "REJECTED"
+    CERTIFICATE_LOG.append(cert)
     return cert

@@ -30,11 +30,24 @@ coalesced ingest's accounting, with the reference's counter names.
   ``rescales_total``, ``keygroups_migrated_total`` (populated key groups
   whose owner changed), ``rescale_bytes_moved_total`` (row bytes of the
   pages that moved) and ``rescale_ms`` (time inside the switches).
+* transfers (``note_h2d``/``note_d2h``, where the reference notes them):
+  ``h2d_bytes``, ``h2d_records``, ``h2d_batches``, ``d2h_bytes``,
+  ``d2h_records``, ``d2h_fires``; each note is also a ``transfer.h2d`` or
+  ``transfer.d2h`` sample of the device-time ledger, with its bytes.
+* the build cache (``runtime/aot.py``): ``aot_hits_total`` (libraries
+  loaded from a verified artifact), ``aot_misses_total``,
+  ``aot_stores_total``, ``aot_fallbacks_total`` (a load that failed and
+  fell back to a build), ``aot_in_memory_evictions_total`` (programs an
+  in-memory cache evicted under ``aot.in-memory-max-programs``) and
+  ``verify_failures_total`` (artifacts quarantined).
 """
 
 from __future__ import annotations
 
 import threading
+from typing import Optional
+
+from .profiler import DEVICE_LEDGER
 
 __all__ = ["DeviceStats", "DEVICE_STATS"]
 
@@ -66,6 +79,62 @@ class DeviceStats:
         self._keygroups_migrated = 0
         self._rescale_bytes_moved = 0
         self._rescale_ms = 0.0
+        self.h2d_bytes = 0
+        self.h2d_records = 0
+        self.h2d_batches = 0
+        self.d2h_bytes = 0
+        self.d2h_records = 0
+        self.d2h_fires = 0
+        self._aot_hits: dict[str, int] = {}
+        self._aot_misses: dict[str, int] = {}
+        self._aot_stores: dict[str, int] = {}
+        self._aot_fallbacks: dict[str, int] = {}
+        self._aot_evictions = 0
+        self._verify_failures: dict[str, int] = {}
+
+    # -- transfers -----------------------------------------------------------
+    def note_h2d(self, nbytes: int, records: int = 0,
+                 ms: Optional[float] = None) -> None:
+        with self._lock:
+            self.h2d_bytes += int(nbytes)
+            self.h2d_records += int(records)
+            self.h2d_batches += 1
+        DEVICE_LEDGER.record("transfer.h2d", ms or 0.0, nbytes=nbytes)
+
+    def note_d2h(self, nbytes: int, records: int = 0,
+                 ms: Optional[float] = None) -> None:
+        with self._lock:
+            self.d2h_bytes += int(nbytes)
+            self.d2h_records += int(records)
+            self.d2h_fires += 1
+        DEVICE_LEDGER.record("transfer.d2h", ms or 0.0, nbytes=nbytes)
+
+    # -- the build cache -----------------------------------------------------
+    def note_aot_hit(self, scope: str) -> None:
+        with self._lock:
+            self._aot_hits[scope] = self._aot_hits.get(scope, 0) + 1
+
+    def note_aot_miss(self, scope: str) -> None:
+        with self._lock:
+            self._aot_misses[scope] = self._aot_misses.get(scope, 0) + 1
+
+    def note_aot_store(self, scope: str) -> None:
+        with self._lock:
+            self._aot_stores[scope] = self._aot_stores.get(scope, 0) + 1
+
+    def note_aot_fallback(self, scope: str) -> None:
+        with self._lock:
+            self._aot_fallbacks[scope] = \
+                self._aot_fallbacks.get(scope, 0) + 1
+
+    def note_aot_eviction(self, n: int = 1) -> None:
+        with self._lock:
+            self._aot_evictions += int(n)
+
+    def note_verify_failure(self, scope: str) -> None:
+        with self._lock:
+            self._verify_failures[scope] = \
+                self._verify_failures.get(scope, 0) + 1
 
     def note_panes_sealed(self, n: int = 1) -> None:
         with self._lock:
@@ -208,7 +277,20 @@ class DeviceStats:
                     "injected_faults_total": sum(self._injected.values()),
                     "watchdog_trips_total":
                         sum(self._watchdog_trips.values()),
-                    "stall_detections_total": sum(self._stalls.values())}
+                    "stall_detections_total": sum(self._stalls.values()),
+                    "h2d_bytes": self.h2d_bytes,
+                    "h2d_records": self.h2d_records,
+                    "h2d_batches": self.h2d_batches,
+                    "d2h_bytes": self.d2h_bytes,
+                    "d2h_records": self.d2h_records,
+                    "d2h_fires": self.d2h_fires,
+                    "aot_hits_total": sum(self._aot_hits.values()),
+                    "aot_misses_total": sum(self._aot_misses.values()),
+                    "aot_stores_total": sum(self._aot_stores.values()),
+                    "aot_fallbacks_total": sum(self._aot_fallbacks.values()),
+                    "aot_in_memory_evictions_total": self._aot_evictions,
+                    "verify_failures_total":
+                        sum(self._verify_failures.values())}
 
 
 DEVICE_STATS = DeviceStats()

@@ -172,6 +172,7 @@ def make_step(planes: Sequence[torch.Tensor], kinds: Sequence[str],
         torch.empty(n, dtype=torch.uint8, device=dev), dirty,
         int(dirty_shift),
         torch.empty(n, dtype=torch.int32, device=dev),
+        # lint: f64-ok the changelog's values are the planes' float64 SQL sums
         torch.empty((n, 2 * len(planes)), dtype=torch.float64, device=dev),
         torch.zeros(1, dtype=torch.int64, device=dev), status)
 

@@ -56,10 +56,24 @@ __all__ = ["EMPTY_KEY", "MAX_PROBES", "sanitize_keys_device", "make_table",
            "ordered_table",
            "hash_keys_device", "lookup", "lookup_or_insert",
            "lookup_or_insert_plain", "lookup_plain", "ingest_step",
-           "ingest_step_plain", "StepSpill"]
+           "ingest_step_plain", "StepSpill", "step_cost"]
 
 EMPTY_KEY = int(np.iinfo(np.int64).max)
 MAX_PROBES = 128
+
+
+def step_cost(n: int, capacity: int, ring: int, plane_sizes: tuple,
+              column_sizes: tuple) -> tuple[int, int]:
+    """(flops, bytes) of one ingest step over ``n`` rows, from the shapes
+    alone (the device-time ledger's cost model; the step's ledger samples
+    carry (rows, capacity, ring, plane item sizes, column item sizes)):
+    every column read once
+    (timestamps, keys, each value column), each row's table slot read once
+    (8 bytes) and its element of every plane read and written once;
+    operations: one hash and one fold a plane per row. The table's and the
+    planes' sizes do not enter: a step touches at most ``n`` slots."""
+    return (n * (1 + len(plane_sizes)),
+            n * (sum(column_sizes) + 8 + 2 * sum(plane_sizes)))
 CHUNK = 8  # plain version: probe-window width, as in the reference
 _M32 = 0xFFFFFFFF
 

@@ -14,6 +14,13 @@ source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
 source or header rebuilds and an unchanged one is reused. The compiler's
 output (ptxas's registers, shared memory and spills per kernel) is kept
 beside each library (``build_log``).
+
+With the build cache on (``aot.enabled`` and ``aot.dir``,
+``runtime/aot.py``) a library is opened only from bytes that verified
+against a cache artifact's digest and fingerprint; a missing, corrupt or
+skewed artifact is built live from the same source and stored. Every
+build runs under the ``device.compile`` fault site and watchdog deadline,
+and each source built counts in ``builds()``.
 """
 
 from __future__ import annotations
@@ -23,11 +30,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
 __all__ = ["build_all", "build_log", "library", "check", "BUILD_DIR",
-           "SOURCES", "builds"]
+           "SOURCES", "builds", "load_cached", "loaded_count"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -126,12 +134,22 @@ _LOAD = {"hash_table": "hash_table_load"}
 _LIBS: dict[str, ctypes.CDLL] = {}
 #: sources compiled by this process (``builds()``)
 _BUILT = [0]
+#: serializes loads and builds (the cache's warm-up loads on the
+#: watchdog's worker while a task thread may need a library)
+_LOCK = threading.RLock()
+#: opens a verified library file (``ctypes.CDLL``)
+_dlopen = ctypes.CDLL
 
 
 def builds() -> int:
     """Sources this process has compiled: a run that builds nothing after
     its warm-up reads the same count before and after."""
     return _BUILT[0]
+
+
+def loaded_count() -> int:
+    """Libraries this process has open."""
+    return len(_LIBS)
 
 
 def _nvcc() -> str:
@@ -147,48 +165,141 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path(stem: str) -> Path:
-    """The library's path, named by the hash of its source, every shared
-    header of ``csrc/`` and the flags."""
+def _source_digest(stem: str) -> str:
+    """The hash of the source, every shared header of ``csrc/`` and the
+    flags: what names a library."""
     h = hashlib.sha256((CSRC_DIR / f"{stem}.cu").read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    digest = h.hexdigest()
-    return BUILD_DIR / f"lib{stem}-{digest[:12]}.so"
+    return h.hexdigest()
+
+
+def _lib_path(stem: str) -> Path:
+    """The library's path, named by the hash of its source, every shared
+    header of ``csrc/`` and the flags."""
+    return BUILD_DIR / f"lib{stem}-{_source_digest(stem)[:12]}.so"
+
+
+def _build_key(stem: str, source_digest: str, flags: str) -> str:
+    """The parts of a build the ledger's recompile attribution diffs."""
+    return f"{stem}:{source_digest[:12]}:{flags}"
+
+
+def _compile(todo: list, out_of) -> float:
+    """Compile every source of ``todo`` to ``out_of(stem)``, one ``nvcc``
+    per source, all at once, under the ``device.compile`` fault site and
+    watchdog deadline. Raises with the compiler's output when a build
+    fails."""
+    from ..metrics.profiler import DEVICE_LEDGER
+    from ..runtime.watchdog import stall_bounded
+
+    nvcc = _nvcc()
+    flags = " ".join(NVCC_FLAGS)
+
+    def run() -> float:
+        _BUILT[0] += len(todo)
+        for stem in todo:
+            DEVICE_LEDGER.note_build(f"build.{stem}", _build_key(
+                stem, _source_digest(stem), flags), _build_key,
+                (stem, _source_digest(stem), flags), {})
+        t0 = time.perf_counter()
+        procs = []
+        for stem in todo:
+            out = Path(out_of(stem))
+            tmp = out.with_suffix(f".tmp{os.getpid()}")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                   str(CSRC_DIR / f"{stem}.cu")]
+            procs.append((stem, out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        failed = []
+        for stem, out, tmp, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{stem}.cu:\n{log.decode(errors='replace')}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, out)
+                out.with_suffix(".log").write_bytes(log)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        return time.perf_counter() - t0
+
+    # the site is visited before the build starts (a hang past the
+    # deadline is a stall there); the build itself runs under the deadline
+    return stall_bounded("device.compile", run, scope="kernels")
+
+
+def _nvcc_version() -> str:
+    """The last line of ``nvcc --version`` (recorded in a cache artifact's
+    header at build time only)."""
+    try:
+        out = subprocess.run([_nvcc(), "--version"], capture_output=True,
+                             text=True, timeout=60).stdout
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return ""
+    lines = [ln for ln in out.splitlines() if ln.strip()]
+    return lines[-1] if lines else ""
 
 
 def build_all() -> float:
     """Compile every source whose library is missing, one ``nvcc`` per
     source, all at once. Returns the wall seconds spent (0.0 when every
     library was already built). Raises with the compiler's output when a
-    build fails."""
-    todo = [s for s in SOURCES if not _lib_path(s).exists()]
+    build fails. With the build cache on (``runtime/aot.py``) a library
+    is missing when no verified artifact holds it: each one built is
+    stored."""
+    from ..runtime.aot import AOT
+    with _LOCK:
+        if AOT.enabled:
+            return _build_cached([s for s in SOURCES if s not in _READY])
+        todo = [s for s in SOURCES if not _lib_path(s).exists()]
+        if not todo:
+            return 0.0
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        return _compile(todo, _lib_path)
+
+
+#: source stem -> a verified library file not opened yet (cache mode)
+_READY: dict[str, str] = {}
+
+
+def _build_cached(stems: list) -> float:
+    """Cache mode: every stem whose artifact does not verify is built live
+    (into the cache's work directory) and stored. A stem not open yet ends
+    ready to open (``_READY``); an open one keeps its library, and the
+    file just verified or built is removed."""
+    from ..runtime.aot import AOT
+    todo = []
+    for stem in stems:
+        path = AOT.load(stem, _source_digest(stem))
+        if path is None:
+            todo.append(stem)
+        else:
+            _keep_ready(stem, path)
     if not todo:
         return 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    _BUILT[0] += len(todo)
-    t0 = time.perf_counter()
-    procs = []
+    work = Path(AOT.directory) / ".build"
+    work.mkdir(parents=True, exist_ok=True)
+
+    def out_of(stem: str) -> Path:
+        return work / f"lib{stem}-{_source_digest(stem)[:12]}-{os.getpid()}.so"
+
+    seconds = _compile(todo, out_of)
+    version = _nvcc_version()
     for stem in todo:
-        out = _lib_path(stem)
-        tmp = out.with_suffix(f".tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{stem}.cu")]
-        procs.append((stem, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-    failed = []
-    for stem, out, tmp, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{stem}.cu:\n{log.decode(errors='replace')}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, out)
-            out.with_suffix(".log").write_bytes(log)
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return time.perf_counter() - t0
+        out = out_of(stem)
+        AOT.store(stem, _source_digest(stem), out.read_bytes(), version)
+        out.with_suffix(".log").unlink(missing_ok=True)
+        _keep_ready(stem, str(out))
+    return seconds
+
+
+def _keep_ready(stem: str, path: str) -> None:
+    if stem in _LIBS:
+        Path(path).unlink(missing_ok=True)
+    else:
+        _READY[stem] = path
 
 
 def build_log(stem: str) -> str:
@@ -199,26 +310,68 @@ def build_log(stem: str) -> str:
     return log.read_text(errors="replace") if log.exists() else ""
 
 
+def _open(stem: str, path: str, private: bool) -> ctypes.CDLL:
+    """Open and bind ``path`` as ``stem``'s library (``_LOCK`` held); a
+    private copy from the cache is removed once open."""
+    try:
+        lib = _dlopen(str(path))
+    finally:
+        if private:
+            Path(path).unlink(missing_ok=True)
+            Path(path).with_suffix(".log").unlink(missing_ok=True)
+    for entry, argtypes in SOURCES[stem].items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    err = getattr(lib, _ERROR_STRING[stem])
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    _LIBS[stem] = lib
+    if stem in _LOAD:
+        check(stem, getattr(lib, _LOAD[stem])())
+    return lib
+
+
 def library(stem: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<stem>.cu``, building it first if
-    needed, with every C entry's argtypes and restype declared."""
+    needed, with every C entry's argtypes and restype declared. With the
+    build cache on, the library comes from its verified artifact, or from
+    a live build of that source alone."""
     lib = _LIBS.get(stem)
-    if lib is None:
+    if lib is not None:
+        return lib
+    from ..runtime.aot import AOT
+    with _LOCK:
+        lib = _LIBS.get(stem)
+        if lib is not None:
+            return lib
+        if AOT.enabled:
+            if stem not in _READY:
+                _build_cached([stem])
+            return _open(stem, _READY.pop(stem), private=True)
         path = _lib_path(stem)
         if not path.exists():
             build_all()
-        lib = ctypes.CDLL(str(path))
-        for entry, argtypes in SOURCES[stem].items():
-            fn = getattr(lib, entry)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        err = getattr(lib, _ERROR_STRING[stem])
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        _LIBS[stem] = lib
-        if stem in _LOAD:
-            check(stem, getattr(lib, _LOAD[stem])())
-    return lib
+        return _open(stem, str(path), private=False)
+
+
+def load_cached() -> int:
+    """Cache mode's warm-up: open every library whose artifact verifies,
+    ``hash_table_load`` included; the others build at first use. Returns
+    the libraries opened."""
+    from ..runtime.aot import AOT
+    opened = 0
+    for stem in SOURCES:
+        with _LOCK:
+            if stem in _LIBS:
+                continue
+            path = _READY.pop(stem, None) or AOT.load(
+                stem, _source_digest(stem))
+            if path is None:
+                continue
+            _open(stem, path, private=True)
+            opened += 1
+    return opened
 
 
 def check(stem: str, code: int) -> None:

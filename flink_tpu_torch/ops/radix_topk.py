@@ -307,6 +307,9 @@ def masked_topk_hist(values: torch.Tensor, valid: torch.Tensor, k: int,
         return (values[:0].clone(), torch.zeros(0, dtype=torch.int64,
                                                 device=dev),
                 torch.zeros(0, dtype=torch.bool, device=dev))
+    from ..metrics.profiler import DEVICE_LEDGER
+    tok = DEVICE_LEDGER.begin("ops.pallas_topk", dev) \
+        if DEVICE_LEDGER.enabled else None
     values = values.contiguous()
     valid = valid.to(torch.bool).contiguous()
     state = radix_select(values, valid, k, value_bits)
@@ -333,4 +336,19 @@ def masked_topk_hist(values: torch.Tensor, valid: torch.Tensor, k: int,
     o1 = torch.sort(sec, stable=True).indices
     o2 = torch.sort(filled[o1].to(torch.int8), stable=True).indices
     order = o1[o2].flip(0)
-    return buf_v[order], idx[order], filled[order]
+    out = buf_v[order], idx[order], filled[order]
+    if tok is not None:
+        DEVICE_LEDGER.end(tok, (n, values.element_size(), k, len(
+            digit_plan(values.dtype, value_bits)[0])), select_cost)
+    return out
+
+
+def select_cost(n: int, itemsize: int, k: int,
+                passes: int) -> tuple[int, int]:
+    """(flops, bytes) of one masked top-k select from its shapes: each
+    radix pass reads the values and the mask once (``itemsize`` + 1 bytes
+    a row), the seat pass reads them once more, and the k seats are
+    written once (value, int64 index, flag); one operation a row a
+    pass."""
+    return (passes + 1) * n, (passes + 1) * n * (itemsize + 1) \
+        + k * (itemsize + 9)

@@ -18,7 +18,8 @@ import torch
 __all__ = ["AGG_INITS", "AGG_FOLDS", "AGG_MERGES", "AGG_COMBINE2",
            "AGG_INVERT", "INVERTIBLE_KINDS", "identity", "make_accumulator",
            "scatter_fold", "pow2_ceil", "merge_rows", "merge_tree_build",
-           "merge_tree_update", "merge_tree_root"]
+           "merge_tree_update", "merge_tree_root", "fire_cost",
+           "seal_cost"]
 
 
 def _max_of(dtype: torch.dtype):
@@ -168,3 +169,37 @@ def merge_tree_root(tree: torch.Tensor) -> torch.Tensor:
 def pow2_ceil(n: int) -> int:
     """Next power of two >= n (n >= 1)."""
     return 1 << (n - 1).bit_length() if n > 1 else 1
+
+
+def fire_cost(n_rows: int, capacity: int, plane_sizes: tuple, topk: int,
+              out_sizes: tuple) -> tuple[int, int]:
+    """(flops, bytes) of a fire from its shapes: every plane's ``n_rows``
+    pane rows (1: an incremental fire's sealed view) read once, the table
+    read once (8 bytes a slot), the emit mask written (1 byte a slot) and
+    the outputs written once: the winners' keys and columns under top k,
+    else a [capacity] column each; one operation a merged element. The
+    select inside a top-k fire is ``ops.pallas_topk``'s own sample."""
+    merged = n_rows * capacity * sum(plane_sizes)
+    rows_out = topk if topk else capacity
+    return (n_rows * capacity * len(plane_sizes),
+            merged + capacity * 9 + rows_out * (8 + sum(out_sizes)))
+
+
+def seal_cost(capacity: int, rows: int, tree_size: int,
+              planes: tuple) -> tuple[int, int]:
+    """(flops, bytes) of a seal or rebuild from its shapes: ``rows`` pane
+    rows of every plane read once (a seal: the newest and the retiring
+    row), the running state read and written once (an invertible
+    aggregate's [capacity] accumulator; a merge tree's path of
+    log2(2 * tree_size) nodes a slot, or its 2 * tree_size nodes when a
+    rebuild writes it whole) and the view written once; one operation an
+    element moved. ``planes``: (is_tree, pane item size, state item size)
+    per plane."""
+    depth = max(1, (2 * tree_size).bit_length() - 1)
+    nbytes = flops = 0
+    for is_tree, s_pane, s_state in planes:
+        state = (2 * tree_size if rows > 2 else depth) if is_tree else 1
+        elems = rows + 2 * state + 1
+        nbytes += capacity * (rows * s_pane + (2 * state + 1) * s_state)
+        flops += capacity * elems
+    return flops, nbytes

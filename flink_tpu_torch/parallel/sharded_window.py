@@ -46,8 +46,10 @@ from ..device import numpy_dtype, torch_dtype
 from ..ops.exchange import ExchangeBuffers, exchange_bucket
 from ..ops.hash_table import EMPTY_KEY, ingest_step, lookup_or_insert, \
     make_table
-from ..ops.segment_ops import INVERTIBLE_KINDS, identity, \
+from ..ops.segment_ops import INVERTIBLE_KINDS, fire_cost, identity, \
+    seal_cost, \
     make_accumulator, merge_rows, pow2_ceil
+from ..metrics.profiler import DEVICE_LEDGER
 from ..ops.topk import masked_topk
 from ..ops.window_seal import rebuild, seal
 from .mesh import shard_ranges
@@ -58,6 +60,44 @@ __all__ = ["AggDef", "ShardedWindowState", "ShardedWindowAgg",
 #: first open pane before any fire: nothing is late
 MIN_PANE = -(1 << 62)
 
+
+
+def mesh_step_cost(rows: int, n_dev: int, col_sizes: tuple,
+                   plane_sizes: tuple) -> tuple[int, int]:
+    """(flops, bytes) of a mesh step over ``rows`` rows from its shapes:
+    the exchange reads each row's key, timestamp and value columns once
+    and writes them once into its shard's bucket; each shard's step reads
+    them back once, reads the row's table slot (8 bytes) and reads and
+    writes its element of every plane once; operations: the routing, the
+    hash and one fold a plane per row."""
+    row = 16 + sum(col_sizes)
+    return (rows * (2 + len(plane_sizes)),
+            rows * (3 * row + 8 + 2 * sum(plane_sizes)))
+
+
+def mesh_fire_cost(n_dev: int, n_rows: int, capacity: int,
+                   plane_sizes: tuple, topk: int,
+                   out_sizes: tuple) -> tuple[int, int]:
+    """(flops, bytes) of a mesh fire: every shard's fire
+    (``ops/segment_ops.py::fire_cost``)."""
+    flops, nbytes = fire_cost(n_rows, capacity, plane_sizes, topk,
+                              out_sizes)
+    return n_dev * flops, n_dev * nbytes
+
+
+def mesh_seal_cost(n_dev: int, capacity: int, rows: int, tree_size: int,
+                   planes: tuple) -> tuple[int, int]:
+    """(flops, bytes) of a mesh seal or rebuild: every shard's
+    (``ops/segment_ops.py::seal_cost``)."""
+    flops, nbytes = seal_cost(capacity, rows, tree_size, planes)
+    return n_dev * flops, n_dev * nbytes
+
+
+def mesh_retire_cost(n_dev: int, capacity: int,
+                     plane_sizes: tuple) -> tuple[int, int]:
+    """(flops, bytes) of a mesh pane retirement: one ring row of every
+    plane of every shard written once."""
+    return 0, n_dev * capacity * sum(plane_sizes)
 
 class AggDef(NamedTuple):
     """One aggregate plane: kind in sum|count|min|max. ``count`` needs no
@@ -221,6 +261,8 @@ class ShardedWindowAgg:
         col_list = [cols[n].contiguous() for n in names]
         S, B = keys.shape
         src_dev = keys.device
+        tok = DEVICE_LEDGER.begin("mesh.step", src_dev) \
+            if DEVICE_LEDGER.enabled else None
         buf = self._exchange_buffers(S, B, tuple(c.dtype for c in col_list),
                                      src_dev)
         exchange_bucket(keys.contiguous(), ts.contiguous(), col_list, buf,
@@ -246,6 +288,11 @@ class ShardedWindowAgg:
                       for a in self.aggs]
             ingest_step(state.table[d], planes, p, k, 1, 0, int(first_open),
                         state.late[d], state.dropped[d], segments=counts)
+        if tok is not None:
+            DEVICE_LEDGER.end(tok, (
+                S * B, self.n_dev, tuple(c.element_size() for c in col_list),
+                tuple(state.accs[a.name][0].element_size()
+                      for a in self.aggs)), mesh_step_cost)
 
     def step(self, state: ShardedWindowState, keys, cols: dict, panes,
              valid=None) -> tuple[ShardedWindowState, torch.Tensor]:
@@ -282,10 +329,15 @@ class ShardedWindowAgg:
         """Merge the given ring rows into per-key window results ({name:
         [capacity] per shard}) and the emit masks (per shard)."""
         rows = self._rows(pane_rows, rows_valid)
+        tok = DEVICE_LEDGER.begin("mesh.fire_full", self.mesh[0]) \
+            if DEVICE_LEDGER.enabled else None
         out = {a.name: [merge_rows(a.kind, state.accs[a.name][d], rows)
                         for d in range(self.n_dev)] for a in self.aggs}
         emit = [(state.table[d] != EMPTY_KEY) & (out[self.count_name][d] > 0)
                 for d in range(self.n_dev)]
+        if tok is not None:
+            DEVICE_LEDGER.end(tok, self._fire_sig(len(rows), 0),
+                              mesh_fire_cost)
         return out, emit
 
     @staticmethod
@@ -312,8 +364,13 @@ class ShardedWindowAgg:
         def merged(kind, name, d, idx=None):
             return merge_rows(kind, state.accs[name][d], rows, idx)
 
-        return self._fire_outputs(state, merged, rank_name, topk,
-                                  value_bits)
+        tok = DEVICE_LEDGER.begin("mesh.fire", self.mesh[0]) \
+            if DEVICE_LEDGER.enabled else None
+        out = self._fire_outputs(state, merged, rank_name, topk, value_bits)
+        if tok is not None:
+            DEVICE_LEDGER.end(tok, self._fire_sig(len(rows), topk or 0),
+                              mesh_fire_cost)
+        return out
 
     def _fire_outputs(self, state, merged, rank_name, topk, value_bits):
         D = self.n_dev
@@ -386,9 +443,14 @@ class ShardedWindowAgg:
         one ``window_seal`` launch a shard. Returns (view {name: [capacity]
         per shard}, wins, trees)."""
         per_shard = self._inc_planes(state, wins, trees)
+        tok = DEVICE_LEDGER.begin("mesh.seal_inc", self.mesh[0]) \
+            if DEVICE_LEDGER.enabled else None
         for planes, _view in per_shard:
             seal(planes, int(new_row), int(sub_row), bool(sub_valid),
                  int(new_leaf), int(old_leaf))
+        if tok is not None:
+            DEVICE_LEDGER.end(tok, self._seal_sig(
+                per_shard, 2 if sub_valid else 1), mesh_seal_cost)
         return self._views(per_shard), wins, trees
 
     def rebuild_inc(self, state: ShardedWindowState, pane_rows, rows_valid,
@@ -401,8 +463,13 @@ class ShardedWindowAgg:
         leaves = self._rows(pane_leaves, rows_valid)
         wins, trees = self.new_inc_planes()
         per_shard = self._inc_planes(state, wins, trees)
+        tok = DEVICE_LEDGER.begin("mesh.rebuild_inc", self.mesh[0]) \
+            if DEVICE_LEDGER.enabled else None
         for planes, _view in per_shard:
             rebuild(planes, rows, leaves, int(sub_row), bool(sub_valid))
+        if tok is not None:
+            DEVICE_LEDGER.end(tok, self._seal_sig(per_shard, len(rows)),
+                              mesh_seal_cost)
         return self._views(per_shard), wins, trees
 
     def fire_inc(self, state: ShardedWindowState, view: dict,
@@ -414,16 +481,44 @@ class ShardedWindowAgg:
             v = view[name][d]
             return v if idx is None else v[idx]
 
-        return self._fire_outputs(state, merged, rank_name, topk,
-                                  value_bits)
+        tok = DEVICE_LEDGER.begin("mesh.fire_inc", self.mesh[0]) \
+            if DEVICE_LEDGER.enabled else None
+        out = self._fire_outputs(state, merged, rank_name, topk, value_bits)
+        if tok is not None:
+            DEVICE_LEDGER.end(tok, self._fire_sig(1, topk or 0),
+                              mesh_fire_cost)
+        return out
 
     def retire_row(self, state: ShardedWindowState,
                    row: int) -> ShardedWindowState:
         """Reset one ring row of every plane of every shard."""
+        tok = DEVICE_LEDGER.begin("mesh.retire", self.mesh[0]) \
+            if DEVICE_LEDGER.enabled else None
         for a in self.aggs:
             for arr in state.accs[a.name]:
                 arr[int(row)].fill_(identity(a.kind, arr.dtype))
+        if tok is not None:
+            DEVICE_LEDGER.end(tok, (self.n_dev, self.capacity, tuple(
+                state.accs[a.name][0].element_size() for a in self.aggs)),
+                mesh_retire_cost)
         return state
+
+    def _fire_sig(self, n_rows: int, topk: int) -> tuple:
+        """(shards, pane rows merged, capacity, item size of each plane,
+        top k or 0, item size of each output column): a mesh fire's
+        cost."""
+        return (self.n_dev, n_rows, self.capacity,
+                tuple(a.dtype.itemsize
+                      for a in self.aggs), topk, tuple(8 for _a in self.aggs))
+
+    def _seal_sig(self, per_shard: list, rows: int) -> tuple:
+        """(shards, capacity, pane rows read, tree size, (is_tree, pane
+        item size, state item size) per plane): a seal's or rebuild's
+        cost."""
+        planes, _view = per_shard[0]
+        return (self.n_dev, self.capacity, rows, self.tree_size,
+                tuple((kind not in INVERTIBLE_KINDS, pane.element_size(),
+                       st.element_size()) for kind, pane, st, _v in planes))
 
     # -- snapshots ------------------------------------------------------------
     def snapshot(self, state: ShardedWindowState) -> dict:

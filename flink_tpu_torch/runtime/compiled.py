@@ -29,17 +29,31 @@ micro-batch.
 Each micro-batch counts one ``chain_fused_dispatches_total``; a replay
 counts the one ``ingest_step`` launch it holds. There is no fallback: on
 the card the chain captures and replays, or it raises.
+
+The graphs are an in-memory program cache: ``aot.in-memory-max-programs``
+(``AOT.in_memory_max_programs``; 0: unbounded) caps them with LRU
+eviction, counted in ``aot_in_memory_evictions_total``; a recapture after
+an eviction is a capture (``captures``), never a kernel build. Each
+capture is a ``note_build`` of the device-time ledger with the graph key's
+parts (batch length, the table's capacity, ...), so a recapture names the
+dimension that changed. The ledger times each micro-batch as one
+``chain.fused_step`` sample: one event pair around the replay on the card
+(nothing is recorded inside a capture; the site's first dispatch in the
+process is charged as compile), and a zero-ms ``chain.fused_prelude``
+compile marker at each capture, as the reference records its prelude.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Optional
 
 import torch
 
 from ..device import note_launch, torch_dtype
 from ..metrics.device import DEVICE_STATS
-from ..ops.hash_table import ingest_step
+from ..metrics.profiler import DEVICE_LEDGER
+from ..ops.hash_table import ingest_step, step_cost
 
 __all__ = ["FusedChain"]
 
@@ -62,8 +76,9 @@ class FusedChain:
         # [start, prev_last, first_open] of the batch being dispatched
         self._scal = torch.zeros(3, dtype=torch.int64, device=self._dev)
         self._iota: dict[int, torch.Tensor] = {}
-        #: batch length -> (pointer key, graph)
-        self._graphs: dict[int, tuple[tuple, torch.cuda.CUDAGraph]] = {}
+        #: batch length -> (pointer key, graph), least recently used first
+        self._graphs: OrderedDict[int, tuple[tuple, torch.cuda.CUDAGraph]] \
+            = OrderedDict()
         #: graphs captured (a grown table or a new batch length recaptures)
         self.captures = 0
 
@@ -100,10 +115,17 @@ class FusedChain:
             self._iota[n] = torch.arange(n, dtype=torch.int64,
                                          device=self._dev)
         viol = batch.reader._viol
+        sig = (n, table.numel(), planes[0][1].shape[0],
+               tuple(arr.element_size() for _k, arr, _f in planes),
+               self._column_sizes(planes))
         if not self._cuda:
+            tok = DEVICE_LEDGER.begin("chain.fused_step", self._dev) \
+                if DEVICE_LEDGER.enabled else None
             self._scal.copy_(host)
             self._body(n, viol, table, planes, late, dropped, dirty,
                        dirty_shift)
+            if tok is not None:
+                DEVICE_LEDGER.end(tok, sig, step_cost)
             batch.reader._viol_checked = False
             DEVICE_STATS.note_chain_dispatch()
             return
@@ -115,14 +137,49 @@ class FusedChain:
         entry = self._graphs.get(n)
         if entry is None or entry[0] != key:
             self._graphs.pop(n, None)   # frees a stale graph's pool first
+            if DEVICE_LEDGER.enabled:
+                DEVICE_LEDGER.note_build(
+                    "chain.fused_step", repr(sig), _graph_key,
+                    (n, table.numel(), planes[0][1].shape[0],
+                     tuple(str(arr.dtype) for _k, arr, _f in planes),
+                     dirty_shift), {})
+                DEVICE_LEDGER.record("chain.fused_prelude", 0.0,
+                                     shape_sig=repr(sig), kind="compile")
             entry = (key, self._capture(n, viol, table, planes, late,
                                         dropped, dirty, dirty_shift))
             self._graphs[n] = entry
+            self._evict()
+        else:
+            self._graphs.move_to_end(n)
+        tok = DEVICE_LEDGER.begin("chain.fused_step", self._dev) \
+            if DEVICE_LEDGER.enabled else None
         entry[1].replay()
+        if tok is not None:
+            DEVICE_LEDGER.end(tok, sig, step_cost)
         batch.reader._viol_checked = False
         note_launch("ingest_step")
         note_launch("ingest_step_dirty")
         DEVICE_STATS.note_chain_dispatch()
+
+    def _column_sizes(self, planes: list) -> tuple:
+        """Item sizes of the decoded columns the step reads: timestamps,
+        keys, then each non-count plane's field."""
+        import numpy as np
+        dt = {f.name: np.dtype(f.dtype).itemsize
+              for f in self._src.schema.fields}
+        return (8, dt[self._key_column]) + tuple(
+            dt[field] for _k, _a, field in planes if field is not None)
+
+    def _evict(self) -> None:
+        """LRU eviction past ``aot.in-memory-max-programs``."""
+        from .aot import AOT
+        cap = AOT.in_memory_max_programs
+        evicted = 0
+        while cap and len(self._graphs) > cap:
+            self._graphs.popitem(last=False)
+            evicted += 1
+        if evicted:
+            DEVICE_STATS.note_aot_eviction(evicted)
 
     def _capture(self, n: int, viol, table, planes, late, dropped, dirty,
                  dirty_shift: int) -> torch.cuda.CUDAGraph:
@@ -141,3 +198,9 @@ class FusedChain:
         torch.cuda.current_stream(self._dev).wait_stream(side)
         self.captures += 1
         return graph
+
+
+def _graph_key(batch_length: int, capacity: int, ring: int,
+               plane_dtypes: tuple, dirty_shift: int) -> None:
+    """The parts of a graph's key the ledger's recompile attribution
+    diffs (the pointers themselves change with every allocation)."""

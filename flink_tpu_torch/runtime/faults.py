@@ -24,6 +24,17 @@ Sites the port threads:
     sink.invoke       delivering a batch to a sink
     tier.evict        paging cold key groups to the host tier
     tier.prefetch     staging warm key groups for promotion
+    device.compile    an ``nvcc`` build of a kernel library
+                      (``ops/kernels.py``), under the watchdog's
+                      ``device.compile`` deadline
+    aot.load          reading a cached kernel library back
+                      (``runtime/aot.py``); a ``!poison`` trip
+                      corrupt-mutates the bytes read, so the digest check,
+                      not luck, must catch it
+    aot.store         persisting a freshly built library; a trip skips
+                      persistence (the next process builds again), a
+                      ``!poison`` trip commits a corrupt-mutated artifact
+                      for the verified load to quarantine
 
 Rule grammar ``site=mode[!flag...]``: modes ``once@N`` (trip on the Nth
 visit), ``every@N``, ``p<float>`` (seeded per-visit probability),
@@ -71,13 +82,14 @@ __all__ = ["FAULT_SITES", "FaultRule", "InjectedFault", "DeviceSegmentError", "F
 #: Every site the port threads; a spec naming another site is rejected, so
 #: a typo fails loudly instead of injecting nothing.
 FAULT_SITES = (
-    "device.execute",
+    "device.compile", "device.execute",
     "transfer.h2d", "transfer.d2h",
     "channel.send", "channel.backpressure",
     "checkpoint.write", "checkpoint.load",
     "checkpoint.corrupt", "checkpoint.truncate",
     "sink.invoke",
     "tier.evict", "tier.prefetch",
+    "aot.load", "aot.store",
 )
 
 
@@ -222,16 +234,16 @@ class FaultInjector:
             self._rules = rules
             self.seed = seed
             self.enabled = enabled and bool(rules)
-            self._clear()
+            self._clear_locked()
 
     def reset(self) -> None:
         """Disarm and clear every schedule and counter (test isolation)."""
         with self._lock:
             self.enabled = False
             self._rules = {}
-            self._clear()
+            self._clear_locked()
 
-    def _clear(self) -> None:
+    def _clear_locked(self) -> None:
         self._visits.clear()
         self._trips.clear()
         self._rngs.clear()

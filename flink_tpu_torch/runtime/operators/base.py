@@ -17,6 +17,7 @@ from ...core.config import Configuration
 from ...core.elements import Watermark
 from ...core.keygroups import KeyGroupRange, key_group_range_for_operator
 from ...core.records import MIN_TIMESTAMP, RecordBatch
+from ...metrics.profiler import DEVICE_LEDGER, set_dispatch_context
 
 __all__ = ["OperatorContext", "Output", "CollectingOutput", "StreamOperator",
            "OneInputOperator", "TwoInputOperator", "OperatorChain"]
@@ -88,10 +89,23 @@ class StreamOperator:
         self.ctx: OperatorContext = None  # type: ignore[assignment]
         self.output: Output = None  # type: ignore[assignment]
         self.current_watermark: int = MIN_TIMESTAMP
+        self._ledger_job = ""
+        self._ledger_ident = self.name
 
     def setup(self, ctx: OperatorContext, output: Output) -> None:
         self.ctx = ctx
         self.output = output
+        # device-time ledger attribution: the owning job's name and the
+        # chain-stable operator key (see OperatorChain)
+        self._ledger_job = str(ctx.config.get("pipeline.name"))
+        self._ledger_ident = getattr(self, "_op_key", self.name)
+
+    def _enter_dispatch(self) -> None:
+        """Pin this operator as the (job, operator) owner of the ledger
+        samples recorded on this thread: called at every batch and
+        watermark entry. One attribute read when the ledger is off."""
+        if DEVICE_LEDGER.enabled:
+            set_dispatch_context(self._ledger_job, self._ledger_ident)
 
     def initialize_state(self, keyed_snapshots: list,
                          operator_snapshot) -> None:
@@ -153,9 +167,11 @@ class _ChainingOutput(Output):
 
     def emit(self, batch: RecordBatch) -> None:
         if batch.n:
+            self._op._enter_dispatch()
             self._op.process_batch(batch)
 
     def emit_watermark(self, watermark: Watermark) -> None:
+        self._op._enter_dispatch()
         self._op.process_watermark(watermark)
 
 
@@ -189,13 +205,16 @@ class OperatorChain:
             op.open()
 
     def process_batch(self, batch: RecordBatch) -> None:
+        self.head._enter_dispatch()
         self.head.process_batch(batch)
 
     def process_watermark(self, watermark: Watermark) -> None:
+        self.head._enter_dispatch()
         self.head.process_watermark(watermark)
 
     def process_batch_n(self, input_index: int, batch: RecordBatch) -> None:
         """A batch to input 0 or 1 of a two-input head."""
+        self.head._enter_dispatch()
         if input_index == 0:
             self.head.process_batch1(batch)
         else:
@@ -203,6 +222,7 @@ class OperatorChain:
 
     def process_watermark_n(self, input_index: int,
                             watermark: Watermark) -> None:
+        self.head._enter_dispatch()
         self.head.process_watermark_n(input_index, watermark)
 
     def snapshot_state(self, checkpoint_id: int) -> dict:

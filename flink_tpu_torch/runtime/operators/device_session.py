@@ -54,6 +54,8 @@ from ...core.elements import Watermark
 from ...core.keygroups import hash_batch, key_groups_for_hash_batch
 from ...core.records import RecordBatch, Schema
 from ...device import resolve_device, torch_dtype
+from ...metrics.device import DEVICE_STATS
+from ...metrics.profiler import DEVICE_LEDGER
 from ...ops.session import session_fire, session_step
 from ...state.device_backend import DeviceKeyedStateBackend
 from ..watchdog import stall_bounded
@@ -61,6 +63,30 @@ from .base import OneInputOperator, OperatorContext, Output
 from .device_window import AggSpec
 
 __all__ = ["DeviceSessionWindowOperator"]
+
+
+def session_step_cost(n: int, capacity: int, lanes: int, col_sizes: tuple,
+                      plane_sizes: tuple) -> tuple[int, int]:
+    """(flops, bytes) of one session step over ``n`` rows from its shapes:
+    keys, timestamps and the value columns read once; the two stable
+    sorts read their keys and write an int64 order once each; each row's
+    table slot read once and its element of every lane plane read and
+    written once; operations: the two sorts' n log2 n comparisons and one
+    fold a plane per row. The emitted segments depend on the data and are
+    not counted."""
+    log_n = max(1, (n - 1).bit_length())
+    return (2 * n * log_n + n * (1 + len(plane_sizes)),
+            n * (16 + sum(col_sizes)) + 2 * n * 16
+            + n * (8 + 2 * sum(plane_sizes)))
+
+
+def session_fire_cost(capacity: int, lanes: int,
+                      plane_sizes: tuple) -> tuple[int, int]:
+    """(flops, bytes) of one session fire round from its shapes: the
+    table (8 bytes a slot) and every lane of every plane read once; one
+    operation a lane a slot. The fired rows depend on the data and are
+    not counted."""
+    return capacity * lanes, capacity * (8 + lanes * sum(plane_sizes))
 
 _NEG = -(1 << 62)
 
@@ -173,6 +199,9 @@ class DeviceSessionWindowOperator(OneInputOperator):
         keys, ts, cols = stall_bounded(
             "transfer.h2d", lambda: self._device_columns(batch),
             scope="device_session")
+        if not isinstance(batch, DeviceRecordBatch):
+            DEVICE_STATS.note_h2d(keys.nbytes + ts.nbytes + sum(
+                c.nbytes for c in cols.values()), batch.n)
 
         def step():
             # sort by (key, ts): ts first, then key, both stable, so ties
@@ -190,10 +219,21 @@ class DeviceSessionWindowOperator(OneInputOperator):
                 backend.dropped_device, self._late_dev, backend.dirty_buffer,
                 backend.dirty_shift)
 
+        tok = DEVICE_LEDGER.begin("device_session.step", self._device) \
+            if DEVICE_LEDGER.enabled else None
         rows = stall_bounded("device.execute", step, scope="device_session")
-        g = int(rows.n)   # the one host read per batch: emitted segments
+        if tok is not None:
+            DEVICE_LEDGER.end(tok, (
+                batch.n, self._backend.capacity, self._lanes,
+                tuple(c.element_size() for c in cols.values()),
+                tuple(self._backend.get_array(n).element_size()
+                      for _k, n, _f in self._fold_sig())),
+                session_step_cost)
+        # lint: sync-ok the one host read per batch: emitted segments
+        g = int(rows.n)
         if g:
             def read() -> dict:
+                # lint: sync-ok the emitted segments, one bounded read a batch
                 chunk = {"k": rows.key[:g].cpu().numpy(),
                          "s": rows.start[:g].cpu().numpy(),
                          "e": rows.end[:g].cpu().numpy(),
@@ -202,8 +242,10 @@ class DeviceSessionWindowOperator(OneInputOperator):
                     chunk[name] = v[:g].cpu().numpy()
                 return chunk
 
-            self._pending.append(stall_bounded("transfer.d2h", read,
-                                               scope="device_session"))
+            chunk = stall_bounded("transfer.d2h", read,
+                                  scope="device_session")
+            DEVICE_STATS.note_d2h(sum(v.nbytes for v in chunk.values()), g)
+            self._pending.append(chunk)
 
     def _device_columns(self, batch: RecordBatch):
         """(keys int64, ts int64, {field: values}) on the device: a device
@@ -272,11 +314,19 @@ class DeviceSessionWindowOperator(OneInputOperator):
         while True:
             # each round a bounded device.execute visit, its reads a
             # bounded transfer.d2h
+            tok = DEVICE_LEDGER.begin("device_session.fire", self._device) \
+                if DEVICE_LEDGER.enabled else None
             rows = stall_bounded("device.execute", lambda: session_fire(
                 backend.table, *self._lanes_planes(), resets, outs,
                 self._gap, boundary, backend.dirty_buffer,
                 backend.dirty_shift), scope="device_session")
-            fired, overflow = rows.counts.tolist()   # fire loop control
+            if tok is not None:
+                DEVICE_LEDGER.end(tok, (
+                    backend.capacity, self._lanes,
+                    tuple(p.element_size() for _k, p in resets)),
+                    session_fire_cost)
+            # lint: sync-ok fire loop control: fired and overflow counts
+            fired, overflow = rows.counts.tolist()
             if fired == 0:
                 break
             host = stall_bounded("transfer.d2h", lambda: (
@@ -286,12 +336,15 @@ class DeviceSessionWindowOperator(OneInputOperator):
                 {o: v[:fired].cpu().numpy()
                  for (_k, o, _p), v in zip(self._agg_sig(), rows.values)}),
                 scope="device_session")
+            DEVICE_STATS.note_d2h(sum(a.nbytes for a in host[:3]) + sum(
+                v.nbytes for v in host[3].values()), fired)
             self._emit(*host)
             if overflow == 0:
                 break
         # deferred health: table overflow and lane collisions raise here
-        dropped, late = torch.stack([backend.dropped_device,
-                                     self._late_dev]).tolist()
+        health = torch.stack([backend.dropped_device, self._late_dev])
+        # lint: sync-ok deferred health, once a fire
+        dropped, late = health.tolist()
         self._late_cached = late
         if dropped:
             raise RuntimeError(
@@ -321,6 +374,7 @@ class DeviceSessionWindowOperator(OneInputOperator):
     def _refresh_late(self) -> None:
         """Blocking read of the device late counter (fires and
         checkpoints only)."""
+        # lint: sync-ok the late counter at fires and checkpoints only
         self._late_cached = int(self._late_dev)
 
     @property

@@ -99,8 +99,10 @@ from ...core.device_records import DeviceRecordBatch
 from ...core.records import MIN_TIMESTAMP, RecordBatch, Schema
 from ...device import resolve_device, torch_dtype
 from ...metrics.device import DEVICE_STATS
-from ...ops.hash_table import EMPTY_KEY
-from ...ops.segment_ops import INVERTIBLE_KINDS, merge_rows, pow2_ceil
+from ...metrics.profiler import DEVICE_LEDGER
+from ...ops.hash_table import EMPTY_KEY, step_cost
+from ...ops.segment_ops import INVERTIBLE_KINDS, fire_cost, merge_rows, \
+    pow2_ceil, seal_cost
 from ...ops.topk import masked_topk
 from ...ops.window_seal import rebuild, seal
 from ...state.device_backend import DeviceKeyedStateBackend
@@ -109,7 +111,7 @@ from ..faults import FAULTS, DeviceGuard, DeviceSegmentError
 from ..watchdog import WATCHDOG, stall_bounded
 from .base import OneInputOperator, OperatorContext, Output
 from .slice_control import AsyncFireQueue, CoalescingIngest, \
-    SliceControlPlane
+    SliceControlPlane, _leaves
 
 __all__ = ["DeviceWindowAggOperator", "AggSpec"]
 
@@ -411,6 +413,8 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
 
         cols, dts = stall_bounded("transfer.h2d", upload,
                                   scope="device_window")
+        DEVICE_STATS.note_h2d(sum(c.nbytes for c in cols.values())
+                              + dts.nbytes, batch.n)
         schema = Schema([(f.name, f.dtype) for f in batch.schema.fields
                          if f.name in cols])
         return DeviceRecordBatch(schema, cols, dts, int(ts.min()),
@@ -471,6 +475,7 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
             self._pre_fire_flush()
             snap = self._backend.snapshot(-1)
             if self._late_dev is not None:
+                # lint: sync-ok the late counter, once at a degrade
                 self._late_dropped += int(self._late_dev)
                 self._late_dev = None
                 self._late_cached = 0
@@ -555,12 +560,15 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
         backend = self._backend
         slots = backend.slots_for_batch(self._upload(keys))
         ring_idx = self._upload(panes % self._ring)
+        nbytes = keys.nbytes + ring_idx.nbytes
         valid = slots >= 0
         backend.fold_batch("__count__", slots,
                            torch.ones_like(slots), valid, ring_idx)
         for _kind, name, field in self._fold_sig():
-            backend.fold_batch(name, slots, self._upload(batch.column(field)),
-                               valid, ring_idx)
+            vals = self._upload(batch.column(field))
+            nbytes += vals.nbytes
+            backend.fold_batch(name, slots, vals, valid, ring_idx)
+        DEVICE_STATS.note_h2d(nbytes, batch.n)
         self._admit_token()
 
     def _device_bookkeeping(self, batch: DeviceRecordBatch
@@ -627,10 +635,21 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
         folds = [("__count__", None)] + [
             (name, batch.device_column(field))
             for _kind, name, field in self._fold_sig()]
+        tok = DEVICE_LEDGER.begin("device_window.step", self._device) \
+            if DEVICE_LEDGER.enabled else None
         self._backend.ingest_deferred(
             batch.dtimestamps, batch.device_column(self._key_column), folds,
             self._pane, self._offset, first_open, self._late_dev,
             self._ensure_stage() if self._spill_deferred else None)
+        if tok is not None:
+            backend = self._backend
+            DEVICE_LEDGER.end(tok, (
+                batch.n, backend.capacity, self._ring,
+                tuple(backend.get_array(n).element_size()
+                      for n in self._plane_names()),
+                (8, batch.device_column(self._key_column).element_size())
+                + tuple(c.element_size() for _n, c in folds[1:])),
+                step_cost)
 
     def _ensure_stage(self) -> dict:
         """The staging buffers of the deferred spill split: keys, ring
@@ -651,6 +670,7 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
         watermark, a copy of the written prefix when rows were staged)."""
         if self._stage is None:
             return
+        # lint: sync-ok the staged row count, once per watermark
         cnt = int(self._stage["count"])
         if cnt == 0:
             return
@@ -659,10 +679,12 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
         stage = self._stage
 
         host = stall_bounded(
+            # lint: sync-ok the spill stage's drain, one bounded read a watermark
             "transfer.d2h", lambda: {k: v[:take].cpu().numpy()
                                      for k, v in stage.items()
                                      if k != "count"},
             scope="device_window")
+        DEVICE_STATS.note_d2h(sum(v.nbytes for v in host.values()), take)
         vals = {"__count__": np.ones(take, np.int64)}
         for _k, name, _f in self._fold_sig():
             vals[name] = host[name]
@@ -721,18 +743,30 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
         def dispatch():
             if self._inc_enabled:
                 view = self._seal_window(p_end, first)
+                n_rows = 1
 
                 def merged(_kind, name, idx=None):
                     return view[name] if idx is None else view[name][idx]
+
+                tok = DEVICE_LEDGER.begin("device_window.fire_inc",
+                                          self._device) \
+                    if DEVICE_LEDGER.enabled else None
             else:
                 rows = [p % self._ring for p in range(first, p_end)]
                 DEVICE_STATS.note_fire_merge_rows(len(rows))
                 backend = self._backend
+                n_rows = len(rows)
 
                 def merged(kind, name, idx=None):
                     return merge_rows(kind, backend.get_array(name), rows,
                                       idx)
-            return self._fire_outputs(merged)
+
+                tok = DEVICE_LEDGER.begin("device_window.fire", self._device) \
+                    if DEVICE_LEDGER.enabled else None
+            outs = self._fire_outputs(merged)
+            if tok is not None:
+                DEVICE_LEDGER.end(tok, self._fire_sig(n_rows), fire_cost)
+            return outs
 
         try:
             outs = self._guard.run(dispatch)
@@ -809,15 +843,26 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
         cause = self._inc_stale or (None if self._inc_next == p_end
                                     else "fire boundary jump")
         if cause is not None:
+            tok = DEVICE_LEDGER.begin("device_window.fire_rebuild",
+                                      self._device) \
+                if DEVICE_LEDGER.enabled else None
             panes = range(first, p_end)
             rebuild(planes, [p % ring for p in panes],
                     [p % L for p in panes], sub_row, sub_valid)
             self.inc_rebuilds[cause] = self.inc_rebuilds.get(cause, 0) + 1
             rows_read = sealed = len(panes)
         else:
+            tok = DEVICE_LEDGER.begin("device_window.seal", self._device) \
+                if DEVICE_LEDGER.enabled else None
             seal(planes, (p_end - 1) % ring, sub_row, sub_valid,
                  (p_end - 1) % L, (p_end - 1 - W) % L)
             rows_read, sealed = (2 if sub_valid else 1), 1
+        if tok is not None:
+            DEVICE_LEDGER.end(tok, (
+                backend.capacity, rows_read, L,
+                tuple((kind not in INVERTIBLE_KINDS, pane.element_size(),
+                       state.element_size())
+                      for kind, pane, state, _v in planes)), seal_cost)
         DEVICE_STATS.note_panes_sealed(sealed)
         DEVICE_STATS.note_fire_merge_rows(rows_read)
         self._inc_stale = None
@@ -875,6 +920,16 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
                 results[a.out_name] = merged(a.kind, a.out_name)
         return table, emit, results, health
 
+    def _fire_sig(self, n_rows: int) -> tuple:
+        """The shapes a fire's cost depends on: (pane rows merged, capacity,
+        item size of each aggregate's plane, top k or 0, item size of each
+        output column)."""
+        backend = self._backend
+        return (n_rows, backend.capacity,
+                tuple(backend.get_array(n).element_size()
+                      for n in self._plane_names()),
+                self._topk or 0, tuple(8 for _a in self._aggs))
+
     def _host_fire_part(self, rows: list[int]):
         """The window's results for the host tier's keys (numpy merges of
         their ring rows), or None when none has a row in it. Under top k
@@ -930,6 +985,7 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
     def _materialize(self, item) -> None:
         p_end, host, _event, t0, host_part = item
         keys_or_table, mask, results, (dropped, occ, late) = host
+        d2h_bytes = sum(t.nbytes for t in _leaves(host) if t is not None)
         self._backend.apply_health(int(dropped), int(occ))
         if late is not None:
             self._late_cached = int(late)
@@ -961,6 +1017,7 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
             order = np.argsort(keys, kind="stable")
             keys = keys[order]
             results = {n: v[order] for n, v in results.items()}
+        DEVICE_STATS.note_d2h(d2h_bytes, len(keys))
         if len(keys):
             self._emit_rows(p_end, keys, results)
         self._note_latency(t0)
@@ -1012,6 +1069,7 @@ class DeviceWindowAggOperator(AsyncFireQueue, CoalescingIngest,
         """Blocking read of the device late counter (finish and checkpoint
         boundaries only; fires carry it home asynchronously)."""
         if self._late_dev is not None:
+            # lint: sync-ok the late counter at finish and checkpoints only
             self._late_cached = int(self._late_dev)
 
     @property

@@ -607,6 +607,7 @@ class MeshWindowAggOperator(AsyncFireQueue, SliceControlPlane,
         snapshots, grows)."""
         if self._state is not None and self._state.late:
             dev = self._mesh[0]
+            # lint: sync-ok the late counters at finish, snapshots and grows
             self._late_dev_seen = int(torch.stack(
                 [t.to(dev) for t in self._state.late]).sum())
 

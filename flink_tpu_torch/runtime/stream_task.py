@@ -103,6 +103,8 @@ class StreamTask:
         self.cpu_s = 0.0
         #: progress epoch, bumped once per handled event (stall detection)
         self.progress = TaskProgress()
+        #: the owning job (the ledger's attribution)
+        self.job_name = str(self.config.get("pipeline.name") or "")
 
     def broadcast_all(self, element) -> None:
         for w in self.writers:
@@ -143,6 +145,10 @@ class StreamTask:
         return self._thread is not None and self._thread.is_alive()
 
     def _run_safely(self) -> None:
+        from ..metrics.profiler import set_dispatch_context
+        # pin the owning job for the whole task thread; the operator chain
+        # narrows the operator part at each batch and watermark
+        set_dispatch_context(self.job_name, self.task_id)
         t0 = time.thread_time()
         self.progress.bump()  # deploy-to-start time never reads as a stall
         PROGRESS.register(self.task_id, self.progress)

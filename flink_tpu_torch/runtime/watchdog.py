@@ -29,7 +29,9 @@ call. An abandoned worker finishes its call and exits; the caller's next
 call starts a fresh one. A worker whose owner thread has ended exits when
 it next wakes. The worker launches on the caller's CUDA stream
 (``torch.cuda.current_stream()`` is per thread), so its launches keep
-their order with the caller's other work.
+their order with the caller's other work, and with the caller's ledger
+dispatch context (``metrics/profiler.py``), so its samples keep their
+(job, operator).
 """
 
 from __future__ import annotations
@@ -133,6 +135,7 @@ class Watchdog:
 
     #: site -> the key its deadline reads
     _SITE_KEYS = {
+        "device.compile": "watchdog.device.compile-timeout",
         "device.execute": "watchdog.device.execute-timeout",
         "transfer.h2d": "watchdog.transfer-timeout",
         "transfer.d2h": "watchdog.transfer-timeout",
@@ -140,6 +143,7 @@ class Watchdog:
         "checkpoint.load": "watchdog.checkpoint-timeout",
         "tier.evict": "watchdog.tier-timeout",
         "tier.prefetch": "watchdog.tier-timeout",
+        "aot.warmup": "watchdog.aot-warmup-timeout",
     }
 
     def __init__(self):
@@ -220,6 +224,18 @@ class Watchdog:
             return fn()
         with self._lock:
             self.calls += 1
+        # the worker is another thread: re-pin the caller's (job,
+        # operator) dispatch context so device-time ledger samples
+        # recorded inside fn keep their attribution across the hop
+        from ..metrics.profiler import dispatch_context, set_dispatch_context
+        job, operator = dispatch_context()
+        if job or operator:
+            inner = fn
+
+            def fn():
+                set_dispatch_context(job, operator)
+                return inner()
+
         call = _Call(fn, _caller_stream())
         worker = self._worker()
         worker.inbox.put(call)

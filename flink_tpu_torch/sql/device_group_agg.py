@@ -45,6 +45,8 @@ import numpy as np
 import torch
 
 from ..core.records import RecordBatch, Schema
+from ..metrics.device import DEVICE_STATS
+from ..metrics.profiler import DEVICE_LEDGER
 from ..ops.group_agg import group_agg_step, new_rowpos
 from ..runtime.watchdog import stall_bounded
 from ..runtime.operators.base import OneInputOperator, OperatorContext, Output
@@ -68,6 +70,17 @@ def combine_key_columns(cols: Sequence[np.ndarray]) -> np.ndarray:
             out ^= (out >> np.int64(29)) & np.int64(0x5555555555555555)
     return out
 
+
+
+def group_agg_cost(n: int, capacity: int, slot_size: int, n_values: int,
+                   plane_sizes: tuple) -> tuple[int, int]:
+    """(flops, bytes) of one GROUP BY step over ``n`` rows from its
+    shapes: the slots, the sign (8 bytes) and every value column (8 bytes)
+    read once, each row's element of every plane read and written once;
+    one fold a plane per row. The changelog rows depend on the data and
+    are not counted."""
+    return (n * len(plane_sizes),
+            n * (slot_size + 8 + 8 * n_values + 2 * sum(plane_sizes)))
 
 class DeviceGroupAggOperator(OneInputOperator):
     """Changelog GROUP BY on device accumulator planes (integer keys)."""
@@ -157,9 +170,11 @@ class DeviceGroupAggOperator(OneInputOperator):
         # the supervised worker, and the step on this thread; each site is
         # visited before its region starts
         dkeys, dsign, dvals = stall_bounded(
+            # lint: sync-ok the batch's upload from host memory, one a batch
             "transfer.h2d", lambda: tuple(torch.from_numpy(a).to(dev)
                                           for a in (keys, sign, vals)),
             scope="device_group_agg")
+        DEVICE_STATS.note_h2d(dvals.nbytes + dsign.nbytes, batch.n)
         t2 = time.perf_counter()
         cap = self.backend.capacity
         slots = self.backend.slots_for_batch(dkeys)
@@ -173,22 +188,33 @@ class DeviceGroupAggOperator(OneInputOperator):
             # is equal
             self._rowpos = new_rowpos(self.backend.capacity, dev)
         t3 = time.perf_counter()
+        tok = DEVICE_LEDGER.begin("sql.device_group_agg", dev) \
+            if DEVICE_LEDGER.enabled else None
         st = stall_bounded("device.execute", lambda: group_agg_step(
             [self.backend.get_array(n) for n in self._names], self._kinds,
             self._cols, slots, dsign, dvals, batch.n, self._rowpos,
             self.backend.dirty_buffer, self.backend.dirty_shift),
             scope="device_group_agg")
+        if tok is not None:
+            DEVICE_LEDGER.end(tok, (
+                batch.n, self.backend.capacity, slots.element_size(),
+                len(self._val_fields),
+                tuple(self.backend.get_array(n).element_size()
+                      for n in self._names)), group_agg_cost)
         t4 = time.perf_counter()
+        # lint: sync-ok the changelog's one host read per batch: its groups
         g = int(st.n_groups[0])
         t5 = time.perf_counter()
         host_rows = host_comp = None
         if g:
             host_rows, host_comp = stall_bounded(
+                # lint: sync-ok the changelog's rows, one bounded read a batch
                 "transfer.d2h", lambda: (st.row_idx[:g].cpu().numpy(),
                                          st.comp[:g].cpu().numpy()),
                 scope="device_group_agg")
         t6 = time.perf_counter()
         if g:
+            DEVICE_STATS.note_d2h(host_rows.nbytes + host_comp.nbytes, g)
             self._emit_changelog(batch, key_cols, host_rows, host_comp)
         t7 = time.perf_counter()
         s = self.stats

@@ -331,9 +331,11 @@ class DeviceKeyedStateBackend:
             # resident set); without one the claims carry into the rehash
             work = self.table.clone() if self._budget else self.table
             _, slots, ok = lookup_or_insert(work, keys, valid)
+            # lint: sync-ok the probe's all-found flag, one a host batch
             all_ok = bool((ok if valid is None else ok | ~valid).all())
             if all_ok and work is not self.table:
                 self.table.copy_(work)
+            # lint: sync-ok the key count of the growth check, one a host batch
             self._num_keys = int((self.table != EMPTY_KEY).sum())
             if all_ok:
                 if self._num_keys <= _GROW_AT * self.capacity:
@@ -416,9 +418,16 @@ class DeviceKeyedStateBackend:
         """Pane retirement: ring row ``row`` of every ring pane plane back
         to its aggregate identity. The host knows the row, so the mirror
         replays it without marking anything dirty."""
+        from ..metrics.profiler import DEVICE_LEDGER
+        tok = DEVICE_LEDGER.begin("state.reset_row", self.table.device) \
+            if DEVICE_LEDGER.enabled else None
         for st in self._pane_states():
             if st.ring:
                 st.array[row].fill_(identity(st.kind, st.dtype))
+        if tok is not None:
+            DEVICE_LEDGER.end(tok, (self.capacity, tuple(
+                st.array.element_size() for st in self._pane_states()
+                if st.ring)), reset_row_cost)
         self._retired_rows.add(int(row))
         if self._host is not None:
             self._host.reset_ring_row(row)
@@ -450,6 +459,7 @@ class DeviceKeyedStateBackend:
     def _rehash(self, new_capacity: int) -> None:
         """Grow the table and re-key every plane on the device."""
         occupied = self.table != EMPTY_KEY
+        # lint: sync-ok the occupied slots, once a rehash
         old_slots = torch.nonzero(occupied).flatten()
         self._rebuild(self.table[old_slots], old_slots, new_capacity)
 
@@ -467,6 +477,7 @@ class DeviceKeyedStateBackend:
         never depends on the card's thread order."""
         table = make_table(capacity, self.device)
         _, slots, ok = lookup_or_insert(table, keys.contiguous())
+        # lint: sync-ok the probe's all-placed flag, once a rebuild
         if bool(ok.all()):
             return table, slots.to(torch.int64)
         self.evictions["ordered_rebuilds"] += 1
@@ -909,8 +920,9 @@ class DeviceKeyedStateBackend:
     def mark_dirty(self, slots: torch.Tensor) -> None:
         """Mark the blocks of ``slots`` (slot -1 marks nothing), sync-free."""
         s = slots.to(torch.int64)
-        self._dirty_buf[torch.where(s >= 0, s >> self.dirty_shift,
-                                    self._n_blocks)] = 1
+        # a scalar fill: index assignment would copy its value from the host
+        self._dirty_buf.index_fill_(0, torch.where(
+            s >= 0, s >> self.dirty_shift, self._n_blocks), 1)
 
     def _invalidate_mirror(self) -> None:
         """Structural change (rehash, eviction, restore, ring conform): the
@@ -1365,3 +1377,10 @@ class _DeviceValueState(ValueState):
 
     def clear(self) -> None:
         self._b.rows_clear(self._d.name, self._key())
+
+
+def reset_row_cost(capacity: int, plane_sizes: tuple) -> tuple[int, int]:
+    """(flops, bytes) of a pane retirement from its shapes: one ring row
+    of every ring plane written once ([capacity] elements each), nothing
+    read."""
+    return 0, capacity * sum(plane_sizes)

@@ -65,6 +65,7 @@ def pack_columns(ts: torch.Tensor, cols: Sequence[torch.Tensor],
     out = [ts.to(torch.int64)]
     for c, d in zip(cols, dtypes):
         if d.kind == "f":
+            # lint: f64-ok a float column rides as its float64 bits in int64
             out.append(c.to(torch.float64).view(torch.int64))
         else:
             out.append(c.to(torch.int64))

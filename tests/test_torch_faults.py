@@ -103,7 +103,7 @@ def test_rule_parsing_equals_reference():
             with pytest.raises(ValueError):
                 mod.FaultRule.parse(entry)
     # sites the port does not thread are rejected, not silently ignored
-    for site in ("rpc.heartbeat", "device.compile", "aot.load"):
+    for site in ("rpc.heartbeat", "bench.probe", "net.connect"):
         ref_faults.FaultRule.parse(f"{site}=once")
         with pytest.raises(ValueError, match="unknown fault site"):
             port_faults.FaultRule.parse(f"{site}=once")
