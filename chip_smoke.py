@@ -4,8 +4,10 @@ checkpoints, state beyond an HBM budget, session windows (Q11), SQL
 GROUP BY on the card (TPC-H Q1, 10M keys), the interval join of two
 streams over device list state (Nexmark Q7's join, 100K and 10M
 auctions), the row plane (ValueState, keep-first deduplication at 10M
-keys), the SQL joins and the multi-device window path (Q5-10M over 4
-shards on the one card, the builtin route, live rescale).
+keys), the SQL joins, the DataStream core (WordCount, Nexmark Q1/Q2 as
+map and filter, a KeyedProcessFunction, CUMULATE) and the multi-device
+window path (Q5-10M over 4 shards on the one card, the builtin route,
+live rescale).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -310,7 +312,36 @@ Run from the repository root:  python3 chip_smoke.py
     string state filter cut), a LEFT JOIN under a GROUP BY over its
     changelog (the device GROUP BY retracting the padded rows) and a
     temporal join; each query's final rows against a dict oracle, rows/s.
-26. ``faults_phase``: Q5-1M at its widths through ``env.execute()``,
+26. ``datastream_core``: the DataStream core through ``env.execute()``,
+    each job against its oracle: (a) BASELINE config #1, bench.py's
+    WordCount (500 000 events, 5000 words as an object column, 8 tumbling
+    event-time windows of 5000 ms, batch 2^15) on the hashmap backend and
+    the host WindowOperator, every window against a Counter, events/s and
+    the tasks' CPU seconds; (b) BASELINE config #2 on Q5-10M's device bid
+    stream (2^25 events, batches of 2^19): Nexmark Q1 as a map whose
+    map_batch computes 0.908 * price in float64 on the card, Q2 as a
+    filter whose filter_batch masks auction % 123 == 0 and compacts the
+    device batch on the card, each into a sink that counts and sums on
+    the card (the count and integer sums exact, the float sum within
+    1e-9 relative, the first batch exact, no batch copied home), then Q2
+    -> key_by -> the Q5 sliding window -> device_aggregate(count, sum,
+    emit_topk) with every window against the oracle under the tie rule
+    (one ingest_step a batch), each job after a warm-up of 4 batches; (c)
+    a KeyedProcessFunction on the device backend (2^14 bids over 2^11
+    auctions across 40 000 ms, batch 2^12, a watermark a batch: a
+    ValueState count an auction, an event-time timer 10 000 ms after its
+    first bid that emits and clears it; an eighth of 2^17 over 2^14 for
+    the time limit: every row is a Python call, three launches and about
+    seven host transfers), every row against a dict,
+    row_get, row_set and row_unset each launched, and a host profile of
+    500 rows of the ValueState calls (``row_api_profile``); (d) CUMULATE
+    (2 s step, 10 s size) through SQL on the host WindowOperator over the
+    datagen DDL (2^16 rows, half of 2^17 for the time limit, auction
+    random over [0, 4095], ts the sequence number), every row against
+    numpy.
+    ``python3 chip_smoke.py --datastream`` builds the kernels and runs
+    this phase alone.
+27. ``faults_phase``: Q5-1M at its widths through ``env.execute()``,
     every window against the oracle: a seeded transient ``device.execute``
     schedule (retries), a persistent trip (one degrade to the CPU rung,
     its seconds), a poison trip on the first step (that batch
@@ -322,7 +353,7 @@ Run from the repository root:  python3 chip_smoke.py
     turns, two runs each: events/s, supervised calls, host µs a call).
     Every other phase must leave the fault counters at 0
     (``fault_counters_by_phase``).
-27. ``mesh_phase``, the multi-device window path: ``exchange_bucket``
+28. ``mesh_phase``, the multi-device window path: ``exchange_bucket``
     (csrc/exchange.cu) against its plain version at the mesh cell's shape
     (4 source blocks of 2^17 rows of Q5-10M's 33rd batch to 4 shards) and
     on edge cases (every key to one shard, each block to its own shard,
@@ -349,7 +380,7 @@ Run from the repository root:  python3 chip_smoke.py
     checkpoint restored into the single-device operator and the other way
     round. ``python3 chip_smoke.py --mesh`` builds the kernels and runs
     this phase alone.
-28. The kernels line, the nvidia-smi line, then the last line
+29. The kernels line, the nvidia-smi line, then the last line
     {"ok": true, "device": {...}}.
 
 ``python3 chip_smoke.py --parent-kernels DIR`` instead times, with the same
@@ -1724,7 +1755,8 @@ def q5_env(torch, dev, n_keys: int, n_events: int, capacity: int,
            fire_mode: str = "full", window_panes: int = WINDOW_PANES,
            fused: bool = False, wm_interval: float = 0.0,
            settings: dict | None = None, rate: float | None = None,
-           staging: int = 1 << 16, source_hook=None, gen=None, sink=None):
+           staging: int = 1 << 16, source_hook=None, gen=None, sink=None,
+           stage=None):
     """The Q5 pipeline on a fresh StreamExecutionEnvironment, not yet
     executed; returns (env, got, span ms), ``got`` filled by the sink with
     (window end - 1, auctions, bids, revenue) per window. ``defer`` False
@@ -1740,7 +1772,8 @@ def q5_env(torch, dev, n_keys: int, n_events: int, capacity: int,
     ``DataGenSource``; ``gen(n_keys, n_events, span)`` makes the
     generator in place of ``q5_gen`` (the same price and ts, other
     keys); ``sink``: a port ``Sink`` in place of the one that fills
-    ``got``."""
+    ``got``; ``stage(stream) -> stream``: steps between the source and
+    the keyed exchange (a filter)."""
     from flink_tpu_torch.api import StreamExecutionEnvironment
     from flink_tpu_torch.connectors.datagen import DataGenSource
     from flink_tpu_torch.core import Configuration, Schema, WatermarkStrategy
@@ -1769,7 +1802,10 @@ def q5_env(torch, dev, n_keys: int, n_events: int, capacity: int,
                            timestamp_column="ts", device=True)
     if source_hook is not None:
         source_hook(source)
-    (env.from_source(source, ws, "DataGen")
+    stream = env.from_source(source, ws, "DataGen")
+    if stage is not None:
+        stream = stage(stream)
+    (stream
         .key_by("auction")
         .window(SlidingEventTimeWindows.of(window_panes * PANE_MS, PANE_MS))
         .device_aggregate([AggSpec("count", out_name="bids", value_bits=31),
@@ -1792,16 +1828,29 @@ def run_q5(torch, dev, n_keys: int, n_events: int, capacity: int, **kw):
     return job, got, span
 
 
+#: q5_expected's oracles of bench.py's own keys (no ``keys``, ``skip`` or
+#: ``keep``) by (n_keys, n_events, span, topk, window_panes): the phases
+#: check the same configuration many times, and one Q5-10M oracle takes
+#: tens of seconds of numpy (a partition of the 10M counts a window)
+_Q5_EXPECTED: dict = {}
+
+
 def q5_expected(n_keys: int, n_events: int, span: int, topk: int = TOPK,
                 window_panes: int = WINDOW_PANES, keys=None,
-                skip: tuple | None = None) -> list:
+                skip: tuple | None = None, keep=None) -> list:
     """The numpy oracle of every Q5 window, once per configuration:
     [(end pane, top values, candidates, their bids and revenue, keys
     strictly above the k-th value)], where the candidates are the keys at
     or above the k-th value. Each window's sums slide: its newest pane is
     added and the pane that left it subtracted, one bincount each.
     ``keys``: each event's key, in place of ``q5_gen``'s; ``skip``: the
-    event indices [lo, hi) left out (a quarantined batch)."""
+    event indices [lo, hi) left out (a quarantined batch); ``keep``: a
+    bool mask of the events a filter lets through. The result is shared:
+    callers read it and change nothing."""
+    plain = keys is None and skip is None and keep is None
+    memo = (n_keys, n_events, span, topk, window_panes)
+    if plain and memo in _Q5_EXPECTED:
+        return _Q5_EXPECTED[memo]
     idx = np.arange(n_events, dtype=np.int64)
     if keys is None:
         keys = ((idx.astype(np.uint64) * np.uint64(MULT))
@@ -1813,6 +1862,8 @@ def q5_expected(n_keys: int, n_events: int, span: int, topk: int = TOPK,
     kept = np.ones(n_events, np.int64)
     if skip is not None:
         kept[skip[0]:skip[1]] = 0
+    if keep is not None:
+        kept *= keep
 
     def pane_sums(p):
         a, b = bounds[p], bounds[p + 1]
@@ -1835,6 +1886,8 @@ def q5_expected(n_keys: int, n_events: int, span: int, topk: int = TOPK,
         cand = np.flatnonzero(c >= want[-1])
         out.append((p_end, want, cand, c[cand], r[cand],
                     set(np.flatnonzero(c > want[-1]).tolist())))
+    if plain:
+        _Q5_EXPECTED[memo] = out
     return out
 
 
@@ -8496,7 +8549,10 @@ MESH_SHARDS = 4                # shards of the mesh cells, all on the one card
 MESH_CAPACITY = 1 << 23        # slots a shard at Q5-10M (2.5M keys a shard)
 MESH_DEVICE_BATCH = 1 << 17    # a source block: a 2^19-row batch is 4
 MESH_RESCALE_TO = (2, 1, 4)    # live_rescale's shard counts, mid-run
-MESH_RESCALE_RUN_S = 16.0      # the rescaled run's source pacing: 4 s a step
+MESH_RESCALE_RUN_S = 24.0      # the rescaled run's source pacing: 6 s a step
+#                                (a rescale takes 2.6 to 4 s on an H100's
+#                                host; at 4 s a step the last one could
+#                                start after the source had ended)
 MESH_RESTORE_CUT = 8           # batches before the cross restores' snapshot
 MESH_RUNS = 2                  # timed runs of each fire mode of the cell
 # a mesh run's peak over its resident tensors (tables, pane planes,
@@ -9775,11 +9831,474 @@ def observability_phases(torch, dev) -> dict:
     return {"ledger": t1 - t0, "aot": t2 - t1,
             "sync_audit": time.perf_counter() - t2}
 
+# -- the DataStream core (datastream_core) --------------------------------------
+#: (a) BASELINE config #1, bench.py::bench_wordcount: events, words, the
+#: tumbling window, the event-time span (8 windows) and the batch
+WC_EVENTS, WC_WORDS, WC_WINDOW_MS, WC_SPAN_MS, WC_BATCH = \
+    500_000, 5000, 5000, 40_000, 1 << 15
+#: (b) BASELINE config #2 on Q5-10M's bid stream: Q1's rate (q1.sql) and
+#: Q2's auction modulus (q2.sql)
+Q1_RATE, Q2_MOD = 0.908, 123
+#: (c) the KeyedProcessFunction job: bids, auctions, event-time span,
+#: batch and the timer's delay after an auction's first bid. Cut for the
+#: smoke's time limit: a row is one Python call, three launches (the
+#: probe, row_set, row_get) and about seven host transfers, 786 us a row
+#: on an H100 (2^17 bids over 2^14 auctions took 103.1 s); an eighth of
+#: both keeps 8 bids an auction
+KP_BIDS, KP_AUCTIONS, KP_SPAN_MS, KP_BATCH, KP_TIMER_MS = \
+    1 << 14, 1 << 11, 40_000, 1 << 12, 10_000
+#: (d) CUMULATE through SQL on the datagen DDL (the shape of Flink's
+#: documented CUMULATE example: a 2 s step in a 10 s window); 2^16 rows,
+#: half of 2^17, for the smoke's time limit (a row is about 5 windows of
+#: host state work, 7.1 K to 7.8 K rows/s on an H100's host)
+CUM_ROWS, CUM_AUCTIONS, CUM_STEP_MS, CUM_SIZE_MS = 1 << 16, 4096, 2000, \
+    10_000
+CUM_SQL = ("SELECT auction, window_start, window_end, COUNT(*) AS c, "
+           "SUM(price) AS s FROM CUMULATE(TABLE bid, DESCRIPTOR(ts), "
+           "INTERVAL '2' SECOND, INTERVAL '10' SECOND) GROUP BY auction, "
+           "window_start, window_end")
+
+
+def wordcount_words(idx: np.ndarray) -> np.ndarray:
+    """bench.py::bench_wordcount's word of each event index."""
+    u = idx.astype(np.uint64) * np.uint64(MULT)
+    return (u % np.uint64(WC_WORDS)).astype(np.int64)
+
+
+def wordcount_phase(torch, dev, events: int = WC_EVENTS) -> dict:
+    """(a) Streaming WordCount on the host path, as bench_wordcount: words
+    (an object column) -> key_by(word) -> 5 s tumbling event-time windows
+    -> sum(one) on the hashmap backend and the host WindowOperator, every
+    window's counts against a Counter of the same words."""
+    from flink_tpu_torch.api import StreamExecutionEnvironment
+    from flink_tpu_torch.core import Configuration, Schema, \
+        WatermarkStrategy
+    from flink_tpu_torch.window import TumblingEventTimeWindows
+
+    vocab = np.array([f"word{i:04d}" for i in range(WC_WORDS)],
+                     dtype=object)
+
+    def gen(idx):
+        return {"word": vocab[wordcount_words(idx)],
+                "one": np.ones(len(idx), np.int64),
+                "ts": (idx * WC_SPAN_MS) // events}
+
+    env = StreamExecutionEnvironment(
+        Configuration({"pipeline.micro-batch-size": WC_BATCH,
+                       "pipeline.auto-watermark-interval": 0}), device=dev)
+    env.set_state_backend("hashmap")
+    ws = WatermarkStrategy.for_monotonous_timestamps() \
+        .with_timestamp_column("ts")
+    got = {}
+
+    def sink(b):
+        for t, (word, count) in zip(b.timestamps.tolist(), b.iter_rows()):
+            if (t, word) in got:
+                raise AssertionError(f"WordCount: window {t} of {word!r} "
+                                     "fired twice")
+            got[(t, word)] = count
+
+    (env.datagen(gen, Schema([("word", object), ("one", np.int64),
+                              ("ts", np.int64)]), count=events,
+                 timestamp_column="ts", watermark_strategy=ws)
+        .key_by("word").window(TumblingEventTimeWindows.of(WC_WINDOW_MS))
+        .sum("one").add_sink(sink, "count"))
+    job = env.execute("wordcount")
+    idx = np.arange(events, dtype=np.int64)
+    window = (idx * WC_SPAN_MS) // events // WC_WINDOW_MS
+    codes, counts = np.unique(window * WC_WORDS + wordcount_words(idx),
+                              return_counts=True)
+    want = {(int(c // WC_WORDS) * WC_WINDOW_MS + WC_WINDOW_MS - 1,
+             str(vocab[c % WC_WORDS])): int(n)
+            for c, n in zip(codes.tolist(), counts.tolist())}
+    if got != want:
+        raise AssertionError(f"WordCount: {len(got)} window rows, "
+                             f"{len(want)} expected, "
+                             f"{sum(got.get(k) != v for k, v in want.items())}"
+                             " differ")
+    return {"events": events, "words": WC_WORDS, "windows": 8,
+            "batch": WC_BATCH, "backend": "hashmap", "rows": len(got),
+            "wall_s": job.wall_s,
+            "events_per_sec": events / job.wall_s,
+            "tasks": task_record(job)}
+
+
+class _DeviceTally:
+    """A callable sink of device batches: counts rows and batches, sums
+    ``columns`` on the card (no host copy), keeps the first batch's columns
+    for the check, and counts batches that reached it copied home."""
+
+    def __init__(self, torch, columns: tuple):
+        self.torch = torch
+        self.columns = columns
+        self.rows = self.batches = self.host_copies = 0
+        self.sums = None
+        self.first = None
+
+    def __call__(self, b):
+        from flink_tpu_torch.core.device_records import DeviceRecordBatch
+        if not isinstance(b, DeviceRecordBatch):
+            raise AssertionError(f"a {type(b).__name__} reached the device "
+                                 "sink: the stage left the card")
+        self.batches += 1
+        self.rows += b.n
+        self.host_copies += b._host is not None
+        cols = [b.dcolumns[c] for c in self.columns]
+        if self.first is None:
+            self.first = [c.clone() for c in cols + [b.dtimestamps]]
+        part = [c.sum(dtype=c.dtype) for c in cols]
+        self.sums = part if self.sums is None else [
+            a + p for a, p in zip(self.sums, part)]
+
+
+def q1_q2_functions(torch):
+    """Nexmark Q1 (the price in euros, 0.908 * price in float64, as a
+    torch op) and Q2 (auction % 123 == 0, a torch mask) as vectorized
+    DataStream functions over device batches."""
+    from flink_tpu_torch.core import Schema
+    from flink_tpu_torch.core.device_records import DeviceRecordBatch
+    from flink_tpu_torch.core.functions import FilterFunction, MapFunction
+
+    class Q1(MapFunction):
+        def map_batch(self, batch):
+            cols = dict(batch.dcolumns)
+            cols["price"] = cols["price"].to(torch.float64) * Q1_RATE
+            schema = Schema([(f.name, np.float64 if f.name == "price"
+                              else f.dtype) for f in batch.schema.fields])
+            return DeviceRecordBatch(schema, cols, batch.dtimestamps,
+                                     batch.ts_min, batch.ts_max,
+                                     batch.ts_column)
+
+    class Q2(FilterFunction):
+        def filter_batch(self, batch):
+            return batch.device_column("auction") % Q2_MOD == 0
+
+    return Q1, Q2
+
+
+def stateless_job(torch, dev, name: str, stage, n_keys: int,
+                  n_events: int, span: int, batch: int, count: int):
+    """One Nexmark stateless job on Q5's device bid stream of
+    ``n_events`` (the first ``count`` of them read): datagen ->
+    ``stage`` -> a ``_DeviceTally`` of auction and price; returns (the
+    tally, the finished job)."""
+    from flink_tpu_torch.connectors.datagen import DataGenSource
+    from flink_tpu_torch.core import Schema, WatermarkStrategy
+
+    tally = _DeviceTally(torch, ("auction", "price"))
+    env = sql_env(torch, dev, batch)
+    source = DataGenSource(
+        q5_gen(n_keys, n_events, span),
+        Schema([("auction", np.int64), ("price", np.int64),
+                ("ts", np.int64)]), count=count, timestamp_column="ts",
+        device=True)
+    ws = WatermarkStrategy.for_monotonous_timestamps() \
+        .with_timestamp_column("ts")
+    stage(env.from_source(source, ws, "DataGen")).add_sink(tally, name)
+    return tally, env.execute(f"nexmark-{name}")
+
+
+def filtered_q5_expected(keys: np.ndarray, keep: np.ndarray, n_events: int,
+                         span: int) -> list:
+    """``q5_expected`` of the events ``keep`` lets through, over dense ids
+    of their keys (a bincount over the kept keys, not the key space),
+    the candidates and strict sets mapped back to the keys."""
+    uniq, dense = np.unique(keys[keep], return_inverse=True)
+    ids = np.zeros(n_events, np.int64)
+    ids[keep] = dense
+    out = []
+    for p_end, want, cand, cc, cr, strict in q5_expected(
+            len(uniq), n_events, span, keys=ids, keep=keep):
+        out.append((p_end, want, uniq[cand], cc, cr,
+                    {int(uniq[i]) for i in strict}))
+    return out
+
+
+def nexmark_stateless_phase(torch, dev, cell: tuple = Q5_CELLS[1],
+                            batch: int = BATCH) -> dict:
+    """(b) Q1 and Q2 as DataStream map and filter on Q5-10M's device bid
+    stream (2^25 events, batches of 2^19), each into a sink that counts
+    and sums on the card; then Q2 -> key_by -> the Q5 sliding window ->
+    device_aggregate(count, emit_topk), every window against the oracle
+    under the tie rule. Each job runs 4 batches first (a warm-up: the
+    kernels' first launches), then once timed."""
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+
+    label, n_keys, n_events, cap = cell
+    span = q5_panes(n_events, batch) * PANE_MS
+    Q1, Q2 = q1_q2_functions(torch)
+    idx = np.arange(n_events, dtype=np.int64)
+    keys = ((idx.astype(np.uint64) * np.uint64(MULT))
+            % np.uint64(n_keys)).astype(np.int64)
+    price = idx % 997 + 1
+    ts = (idx * span) // n_events
+    warm = min(4 * batch, n_events)
+    out = {"cell": f"Q5-{label} bids", "events": n_events, "batch": batch}
+    for name, stage in (("q1", lambda s: s.map(Q1())),
+                        ("q2", lambda s: s.filter(Q2()))):
+        stateless_job(torch, dev, name, stage, n_keys, n_events, span, batch,
+                      warm)
+        tally, job = stateless_job(torch, dev, name, stage, n_keys, n_events,
+                                   span, batch, n_events)
+        first_n = min(batch, n_events)
+        if name == "q1":
+            keep = np.ones(n_events, bool)
+            want_price = price * Q1_RATE
+        else:
+            keep = keys % Q2_MOD == 0
+            want_price = price
+        a_sum, p_sum = (v.item() for v in tally.sums)
+        f_keep = keep[:first_n]
+        f_auction, f_price, f_ts = (t.cpu().numpy() for t in tally.first)
+        exact = (tally.rows == int(keep.sum())
+                 and a_sum == int(keys[keep].sum())
+                 and np.array_equal(f_auction, keys[:first_n][f_keep])
+                 and np.array_equal(f_price, want_price[:first_n][f_keep])
+                 and np.array_equal(f_ts, ts[:first_n][f_keep]))
+        want_p = float(want_price[keep].sum())
+        if name == "q2":
+            exact = exact and p_sum == int(want_p)
+        rel = abs(p_sum - want_p) / want_p
+        if not exact or rel > 1e-9 or tally.host_copies:
+            raise AssertionError(
+                f"{name}: rows {tally.rows} (want {int(keep.sum())}), sums "
+                f"{a_sum}, {p_sum} (want {int(keys[keep].sum())}, {want_p}),"
+                f" host copies {tally.host_copies}")
+        out[name] = {"rows_out": tally.rows, "batches": tally.batches,
+                     "host_copies_per_batch": tally.host_copies
+                     / tally.batches,
+                     "price_sum_rel_err": rel, "wall_s": job.wall_s,
+                     "events_per_sec": n_events / job.wall_s,
+                     "tasks": task_record(job)}
+    # Q2 in front of the Q5 device window
+    keep = keys % Q2_MOD == 0
+    expected = filtered_q5_expected(keys, keep, n_events, span)
+    run_q5(torch, dev, n_keys, warm, cap, batch=batch,
+           stage=lambda s: s.filter(Q2()))
+    reset_launches()
+    job, got, _span = run_q5(torch, dev, n_keys, n_events, cap, batch=batch,
+                             stage=lambda s: s.filter(Q2()))
+    launches = dict(KERNEL_LAUNCHES)
+    windows = q5_check(expected, got)
+    batches = -(-n_events // batch)
+    if launches["ingest_step"] != batches or not launches["hist256"]:
+        raise AssertionError(f"Q2 -> Q5: launches {launches}, "
+                             f"{batches} batches")
+    out["q2_q5_window"] = {"rows_in_window": int(keep.sum()),
+                           "windows_checked": windows,
+                           "wall_s": job.wall_s,
+                           "events_per_sec": n_events / job.wall_s,
+                           "launches": {k: v for k, v in launches.items()
+                                        if v},
+                           "tasks": task_record(job)}
+    return out
+
+
+def keyed_process_expected(bids: int = KP_BIDS) -> list:
+    """Dict oracle of (c): the operator's order of events, a batch at a
+    time; after each batch the watermark (the batch's last ts - 1) fires
+    the timers at or before it, and the end of input fires the rest."""
+    import heapq
+    idx = np.arange(bids, dtype=np.int64)
+    auction = sql_join_random(idx, 0, KP_AUCTIONS - 1).tolist()
+    ts = ((idx * KP_SPAN_MS) // bids).tolist()
+    count, timers, rows = {}, [], []
+
+    def fire(upto):
+        while timers and timers[0][0] <= upto:
+            t, a = heapq.heappop(timers)
+            rows.append((a, count.pop(a), t))
+
+    for lo in range(0, bids, KP_BATCH):
+        for a, t in zip(auction[lo:lo + KP_BATCH], ts[lo:lo + KP_BATCH]):
+            if not count.get(a):
+                heapq.heappush(timers, (t + KP_TIMER_MS, a))
+                count[a] = 0
+            count[a] += 1
+        fire(ts[min(lo + KP_BATCH, bids) - 1] - 1)
+    fire(1 << 62)
+    return sorted(rows)
+
+
+def row_api_profile(torch, dev, rows: int = 500) -> dict:
+    """Where a process function's row goes on the device backend: ``rows``
+    of ``value()`` and ``update()`` on one ValueState (a key a row, as in
+    (c)), timed, then again under cProfile (the host's functions by their
+    own seconds, the profiler's cost included)."""
+    import cProfile
+    import pstats
+    from flink_tpu_torch.core import KeyGroupRange
+    from flink_tpu_torch.state.descriptors import ValueStateDescriptor
+    from flink_tpu_torch.state.device_backend import DeviceKeyedStateBackend
+
+    b = DeviceKeyedStateBackend(KeyGroupRange(0, MAXP - 1), MAXP, device=dev)
+    h = b.get_partitioned_state(ValueStateDescriptor("n", default=0))
+    keys = sql_join_random(np.arange(rows), 0, KP_AUCTIONS - 1).tolist()
+
+    def run():
+        for k in keys:
+            b.set_current_key(k)
+            h.update(h.value() + 1)
+
+    run()                                        # warm-up
+    t0 = time.perf_counter()
+    run()
+    wall = time.perf_counter() - t0
+    prof = cProfile.Profile()
+    prof.enable()
+    run()
+    prof.disable()
+    top = sorted(pstats.Stats(prof).stats.items(),
+                 key=lambda kv: -kv[1][2])[:10]
+    return {"rows": rows, "us_per_row": wall / rows * 1e6,
+            "profiled_top_own_s": [
+                {"function": f"{os.path.basename(f)}:{line}({name})",
+                 "calls": v[1], "own_s": v[2]}
+                for (f, line, name), v in top]}
+
+
+def keyed_process_phase(torch, dev, bids: int = KP_BIDS) -> dict:
+    """(c) A KeyedProcessFunction on the device backend: a ValueState
+    count an auction on the row plane; an auction's first bid sets an
+    event-time timer 10 s on, which emits (auction, count) and clears the
+    count. Every row against a dict; row_get, row_set and row_unset must
+    each launch."""
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+    from flink_tpu_torch.api import StreamExecutionEnvironment
+    from flink_tpu_torch.core import Configuration, Schema, \
+        WatermarkStrategy
+    from flink_tpu_torch.core.functions import ProcessFunction
+    from flink_tpu_torch.state.descriptors import ValueStateDescriptor
+
+    class FirstBidTimer(ProcessFunction):
+        def open(self, ctx):
+            self._ctx = ctx
+            self._desc = ValueStateDescriptor("bids", default=0)
+
+        def process_element(self, value, ctx, out):
+            st = self._ctx.get_state(self._desc)
+            c = st.value()
+            if c == 0:
+                ctx.timer_service.register_event_time_timer(
+                    ctx.timestamp + KP_TIMER_MS)
+            st.update(c + 1)
+
+        def on_timer(self, ts, ctx, out):
+            st = self._ctx.get_state(self._desc)
+            out.collect((ctx.current_key, int(st.value()), ts), ts)
+            st.clear()
+
+    def gen(idx):
+        return {"auction": sql_join_random(idx, 0, KP_AUCTIONS - 1),
+                "ts": (idx * KP_SPAN_MS) // bids}
+
+    env = StreamExecutionEnvironment(
+        Configuration({"pipeline.micro-batch-size": KP_BATCH,
+                       "pipeline.auto-watermark-interval": 0}), device=dev)
+    ws = WatermarkStrategy.for_monotonous_timestamps() \
+        .with_timestamp_column("ts")
+    stream = (env.datagen(gen, Schema([("auction", np.int64),
+                                       ("ts", np.int64)]), count=bids,
+                          timestamp_column="ts", watermark_strategy=ws)
+              .key_by("auction").process(FirstBidTimer()))
+    got = []
+    stream.add_sink(lambda b: got.extend(b.iter_rows()), "rows")
+    reset_launches()
+    job = env.execute("keyed-process")
+    launches = dict(KERNEL_LAUNCHES)
+    want = keyed_process_expected(bids)
+    if sorted(got) != want:
+        raise AssertionError(f"keyed process: {len(got)} rows, {len(want)} "
+                             "expected, or their values differ")
+    if not all(launches[k] for k in ("row_get", "row_set", "row_unset")):
+        raise AssertionError(f"keyed process: launches {launches}")
+    (op,) = [o for o in job.operators if type(o).__name__
+             == "KeyedProcessOperator"]
+    if op._backend.device.type != torch.device(dev).type:
+        raise AssertionError("keyed process: the backend is not on "
+                             f"{dev}: {op._backend.device}")
+    return {"bids": bids, "auctions": KP_AUCTIONS, "batch": KP_BATCH,
+            "rows_out": len(got), "backend": "tpu",
+            "capacity": op._backend.capacity, "wall_s": job.wall_s,
+            "rows_per_sec": bids / job.wall_s,
+            "launches": {k: v for k, v in launches.items() if v},
+            "tasks": task_record(job),
+            "row_api_profile": row_api_profile(torch, dev)}
+
+
+def cumulate_expected(rows: int = CUM_ROWS) -> dict:
+    """numpy oracle of CUM_SQL over the datagen table: every (auction,
+    window_start, window_end) -> (count, sum of price)."""
+    idx = np.arange(rows, dtype=np.int64)
+    auction = sql_join_random(idx, 0, CUM_AUCTIONS - 1)
+    price = sql_join_random(idx, 1, 1000)
+    out = {}
+    for base in range(0, rows, CUM_SIZE_MS):
+        for end in range(base + CUM_STEP_MS, base + CUM_SIZE_MS + 1,
+                         CUM_STEP_MS):
+            lo, hi = base, min(end, rows)
+            if lo >= hi:
+                continue
+            c = np.bincount(auction[lo:hi], minlength=CUM_AUCTIONS)
+            s = np.bincount(auction[lo:hi], weights=price[lo:hi],
+                            minlength=CUM_AUCTIONS)
+            for a in np.flatnonzero(c).tolist():
+                out[(a, base, end)] = (int(c[a]), int(s[a]))
+    return out
+
+
+def cumulate_phase(torch, dev, rows: int = CUM_ROWS) -> dict:
+    """(d) CUMULATE through SQL on the host WindowOperator: the datagen
+    DDL's bid table (auction random over [0, 4095], price random over [1,
+    1000], ts the sequence number), every final row against numpy."""
+    from flink_tpu_torch.sql import TableEnvironment
+
+    t_env = TableEnvironment(sql_env(torch, dev, 1 << 14))
+    t_env.execute_sql(
+        "CREATE TABLE bid (auction BIGINT, price BIGINT, ts BIGINT, "
+        "WATERMARK FOR ts AS ts - INTERVAL '0' SECOND) WITH ('connector' = "
+        f"'datagen', 'number-of-rows' = '{rows}', "
+        "'fields.auction.kind' = 'random', 'fields.auction.min' = '0', "
+        f"'fields.auction.max' = '{CUM_AUCTIONS - 1}', "
+        "'fields.price.kind' = 'random', 'fields.price.min' = '1', "
+        "'fields.price.max' = '1000')")
+    t0 = time.perf_counter()
+    res = t_env.execute_sql(CUM_SQL, timeout=SQL_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    out = res.collect()
+    got = {(int(a), int(ws), int(we)): (int(c), int(s))
+           for a, ws, we, c, s in out}
+    want = cumulate_expected(rows)
+    if len(got) != len(out) or got != want:
+        raise AssertionError(f"CUMULATE: {len(out)} rows, {len(want)} "
+                             "expected, or their values differ")
+    return {"rows_in": rows, "rows_out": len(out), "sql": CUM_SQL,
+            "wall_s": wall, "rows_per_sec": rows / wall}
+
+
+def datastream_core_phase(torch, dev, sizes: dict | None = None) -> dict:
+    """The DataStream core on the card, each job through ``env.execute()``
+    against its oracle: (a) WordCount, (b) Q1/Q2 and Q2 -> Q5, (c) a
+    KeyedProcessFunction on the device backend, (d) CUMULATE through SQL;
+    the seconds of each. ``sizes``: keyword arguments a job (a rehearsal
+    at a small size on the CPU)."""
+    out, seconds = {}, {}
+    for name, fn in (("wordcount", wordcount_phase),
+                     ("nexmark_q1_q2", nexmark_stateless_phase),
+                     ("keyed_process", keyed_process_phase),
+                     ("cumulate_sql", cumulate_phase)):
+        t0 = time.perf_counter()
+        out[name] = fn(torch, dev, **(sizes or {}).get(name, {}))
+        seconds[name] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    return out
+
 
 def main(argv: list[str]) -> int:
     mesh_only = argv == ["--mesh"]
     obs_only = argv == ["--observability"]
-    if mesh_only or obs_only:
+    ds_only = argv == ["--datastream"]
+    if mesh_only or obs_only or ds_only:
         argv = []
     if argv and (len(argv) != 2 or argv[0] not in ("--parent-kernels",
                                                    "--profile", "--aot-child")
@@ -9787,7 +10306,7 @@ def main(argv: list[str]) -> int:
                  and argv[1] not in PROFILED_CELLS):
         print("usage: chip_smoke.py [--parent-kernels DIR | --profile "
               f"{'|'.join(PROFILED_CELLS)} | --mesh | --observability | "
-              "--aot-child DIR]", file=sys.stderr)
+              "--datastream | --aot-child DIR]", file=sys.stderr)
         return 2
     child = argv[1] if argv and argv[0] == "--profile" else None
     aot_dir = argv[1] if argv and argv[0] == "--aot-child" else None
@@ -9840,6 +10359,13 @@ def main(argv: list[str]) -> int:
     if obs_only:
         check_sync_detector(torch, dev)
         emit({"observability_seconds": observability_phases(torch, dev)})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    if ds_only:
+        emit({"datastream_core": datastream_core_phase(torch, dev)})
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -9979,6 +10505,8 @@ def main(argv: list[str]) -> int:
     phase_done("dedup_10m")
     emit({"sql_join": sql_join_phase(torch, dev)})
     phase_done("sql_join")
+    emit({"datastream_core": datastream_core_phase(torch, dev)})
+    phase_done("datastream_core")
     emit(faults_phase(torch, dev))
     phase_done("faults")
     emit({"observability_seconds": observability_phases(torch, dev)})

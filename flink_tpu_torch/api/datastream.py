@@ -1,33 +1,64 @@
-"""DataStream API of the port (trimmed port of
-``flink_tpu/api/datastream.py``): a lazy Transformation DAG of sources,
-keyed exchanges, device window aggregates (one device, or a mesh of
-shards: ``mesh_aggregate``, and the builtin ``sum``/``count``/``min``/
-``max`` under ``state.backend.tpu.mesh-devices``), custom one-input
-operators, two connected streams into one two-input operator (``connect``
-then ``transform``), and sinks, compiled and run by
-``StreamExecutionEnvironment.execute``."""
+"""DataStream API of the port (port of ``flink_tpu/api/datastream.py``):
+a lazy Transformation DAG compiled and run by
+``StreamExecutionEnvironment.execute``.
+
+* Stateless steps: ``map``, ``flat_map``, ``filter`` (a function's
+  vectorized path runs torch ops on a device batch where it lies),
+  ``process``, custom one-input operators (``transform``).
+* Exchanges: ``key_by``, ``rebalance``, ``rescale``, ``broadcast``,
+  ``shuffle``, ``global_``, ``forward``, ``partition_custom``; ``union``;
+  tagged side outputs (``get_side_output``).
+* Keyed: ``process`` with keyed state and timers, the rolling ``reduce``
+  and ``sum``/``min``/``max``, ``window``, ``count_window``.
+* Windows: the device window aggregates (one device, or a mesh of
+  shards: ``mesh_aggregate``), and the host WindowOperator with
+  ``trigger``, ``evictor``, ``allowed_lateness``,
+  ``side_output_late_data``, ``reduce``, ``aggregate`` and ``apply``.
+  The builtin ``sum``/``count``/``min``/``max`` take the device operator
+  where the reference's planner rule does, else the host operator.
+* Two connected streams into one two-input operator (``connect`` then
+  ``transform``), and sinks.
+
+Broadcast state (``broadcast(descriptor)`` and its keyed process
+function) comes with the broadcast operator, and iterations with the
+feedback writer (ROADMAP Queue 1 item 10, group 5).
+"""
 
 from __future__ import annotations
 
-from typing import Optional
+import operator as _op
+from typing import Any, Callable, Optional, Union
 
 import numpy as np
 
-from ..core.records import RecordBatch
+from ..core.functions import AggregateFunction, ProcessFunction, \
+    SinkFunction, as_filter, as_flat_map, as_map, as_reduce
+from ..core.records import RecordBatch, Schema
 from ..graph.transformations import OneInputTransformation, \
-    PartitionTransformation, SinkTransformation, Transformation, \
-    TwoInputTransformation
+    PartitionTransformation, SideOutputTransformation, SinkTransformation, \
+    Transformation, TwoInputTransformation, UnionTransformation
 from ..runtime.operators.device_session import DeviceSessionWindowOperator
 from ..runtime.operators.device_window import AggSpec, \
     DeviceWindowAggOperator
 from ..runtime.operators.mesh_window import MeshWindowAggOperator
-from ..runtime.operators.sink import CollectSink, SinkOperator
-from ..runtime.writer import GlobalPartitioner, KeyGroupPartitioner, \
-    RebalancePartitioner
-from ..window.assigners import EventTimeSessionWindows, WindowAssigner
+from ..runtime.operators.simple import FilterOperator, FlatMapOperator, \
+    KeyedProcessOperator, MapOperator
+from ..runtime.operators.sink import CollectSink, FunctionSinkOperator, \
+    SinkOperator
+from ..runtime.operators.window import WindowOperator
+from ..runtime.writer import BroadcastPartitioner, CustomPartitioner, \
+    ForwardPartitioner, GlobalPartitioner, KeyGroupPartitioner, \
+    RebalancePartitioner, RescalePartitioner, ShufflePartitioner
+from ..state.descriptors import ReducingStateDescriptor
+from ..window.assigners import CumulateWindows, EventTimeSessionWindows, \
+    GlobalWindows, WindowAssigner, reject_variable_pane_assigner
+from ..window.triggers import CountTrigger, Evictor, PurgingTrigger, \
+    Trigger
 
 __all__ = ["DataStream", "KeyedStream", "WindowedStream", "ConnectedStreams",
            "make_key_extractor"]
+
+_GROUP_5 = "ROADMAP Queue 1 item 10, group 5"
 
 
 def make_key_extractor(key):
@@ -78,6 +109,42 @@ class DataStream:
         return self._one_input(name, operator_factory, parallelism,
                                traceable=traceable)
 
+    # -- stateless steps -----------------------------------------------------
+    def map(self, fn, name: str = "Map", out_schema: Optional[Schema] = None,
+            parallelism: Optional[int] = None) -> "DataStream":
+        """A transform a row (or a batch, through ``map_batch``). A tuple
+        of the input's arity keeps the input's column names; a map that
+        reorders or replaces fields names them with ``out_schema``."""
+        mf = as_map(fn)
+        return self._one_input(
+            name, lambda: MapOperator(mf, out_schema, name), parallelism)
+
+    def flat_map(self, fn, name: str = "FlatMap",
+                 out_schema: Optional[Schema] = None,
+                 parallelism: Optional[int] = None) -> "DataStream":
+        ff = as_flat_map(fn)
+        return self._one_input(
+            name, lambda: FlatMapOperator(ff, out_schema, name), parallelism)
+
+    def filter(self, fn, name: str = "Filter",
+               parallelism: Optional[int] = None) -> "DataStream":
+        pf = as_filter(fn)
+        return self._one_input(name, lambda: FilterOperator(pf, name),
+                               parallelism)
+
+    def process(self, fn: ProcessFunction, name: str = "Process",
+                parallelism: Optional[int] = None) -> "DataStream":
+        """A process function over the whole stream: one pseudo-key, so
+        its state and timers are the subtask's."""
+        device = self.env.device
+
+        def extract(batch: RecordBatch) -> np.ndarray:
+            return np.zeros(batch.n, dtype=np.int64)
+
+        return self._one_input(
+            name, lambda: KeyedProcessOperator(fn, extract, name=name,
+                                               device=device), parallelism)
+
     def key_by(self, key) -> "KeyedStream":
         """A hash exchange by key group; ``key`` as ``make_key_extractor``
         takes it. The device window operators need a column name."""
@@ -105,23 +172,72 @@ class DataStream:
         if not isinstance(other, DataStream):
             raise NotImplementedError(
                 f"connect takes a DataStream, not {type(other).__name__}; "
-                "broadcast state is not ported")
+                f"broadcast state is {_GROUP_5}")
         return ConnectedStreams(self.env, self, other)
 
     def rebalance(self) -> "DataStream":
         return self._repartition("rebalance", RebalancePartitioner)
 
+    def rescale(self) -> "DataStream":
+        return self._repartition("rescale", RescalePartitioner)
+
+    def broadcast(self, *descriptors) -> "DataStream":
+        """Every record to every subtask of the next operator. Broadcast
+        state (``descriptors``) is not ported yet."""
+        if descriptors:
+            raise NotImplementedError(
+                "broadcast state (broadcast(descriptor) and a keyed "
+                f"broadcast process function) is {_GROUP_5}")
+        return self._repartition("broadcast", BroadcastPartitioner)
+
+    def shuffle(self) -> "DataStream":
+        return self._repartition("shuffle", ShufflePartitioner)
+
     def global_(self) -> "DataStream":
         """Every record to subtask 0 of the next operator."""
         return self._repartition("global", GlobalPartitioner)
 
+    def forward(self) -> "DataStream":
+        return self._repartition("forward", ForwardPartitioner)
+
+    def partition_custom(self, fn: Callable[[Any, int], int],
+                         key) -> "DataStream":
+        """``fn(key, num_channels) -> channel`` a record."""
+        extractor = make_key_extractor(key)
+        return self._repartition(
+            "custom", lambda: CustomPartitioner(fn, extractor))
+
+    def union(self, *others: "DataStream") -> "DataStream":
+        t = UnionTransformation(
+            name="union",
+            inputs=[self.transformation] + [o.transformation for o in others])
+        self.env._transformations.append(t)
+        return DataStream(self.env, t)
+
+    def get_side_output(self, tag: str) -> "DataStream":
+        """The batches this stream's operator emits under ``tag``."""
+        t = SideOutputTransformation(name=f"side-{tag}", tag=tag,
+                                     inputs=[self.transformation])
+        self.env._transformations.append(t)
+        return DataStream(self.env, t)
+
+    def window_all(self, assigner: WindowAssigner) -> "WindowedStream":
+        """Windows over the whole stream: one pseudo-key, parallelism 1."""
+        keyed = self.global_().key_by(lambda _row: 0)
+        return WindowedStream(keyed, assigner, all_windows=True)
+
     def add_sink(self, sink, name: str = "Sink",
                  parallelism: Optional[int] = None) -> "DataStream":
-        """``sink``: a callable taking a batch, or an object with
+        """``sink``: a ``SinkFunction``, a ``connectors.core.Sink``, a
+        callable taking a batch, or an object with
         ``invoke_batch(batch)``."""
-        t = SinkTransformation(name=name,
-                               operator_factory=lambda: SinkOperator(sink,
-                                                                     name),
+        if isinstance(sink, SinkFunction):
+            def factory():
+                return FunctionSinkOperator(sink, name)
+        else:
+            def factory():
+                return SinkOperator(sink, name)
+        t = SinkTransformation(name=name, operator_factory=factory,
                                parallelism=parallelism,
                                inputs=[self.transformation])
         self.env._transformations.append(t)
@@ -158,8 +274,72 @@ class KeyedStream(DataStream):
         self.key_extractor = key_extractor
         self.key_spec = key_spec
 
+    def process(self, fn: ProcessFunction, name: str = "KeyedProcess",
+                parallelism: Optional[int] = None) -> DataStream:
+        """A process function a record, with keyed state on the configured
+        backend (``tpu``: the device row plane, ValueState only;
+        ``hashmap``: every kind) and event- and processing-time timers."""
+        ke, device = self.key_extractor, self.env.device
+        return self._one_input(
+            name, lambda: KeyedProcessOperator(fn, ke, name=name,
+                                               device=device),
+            parallelism, key_extractor=ke)
+
+    # -- rolling (non-windowed) aggregation -------------------------------
+    def reduce(self, fn, name: str = "KeyedReduce") -> DataStream:
+        """The running reduce of each key, one row a record (a reducing
+        state: the ``hashmap`` backend holds it)."""
+        rf = as_reduce(fn)
+
+        class _RollingReduce(ProcessFunction):
+            def open(self, ctx):
+                self._desc = ReducingStateDescriptor("rolling-reduce", rf)
+                self._ctx = ctx
+
+            def process_element(self, value, ctx, out):
+                state = self._ctx.get_state(self._desc)
+                state.add(value)
+                out.collect(state.get(), ctx.timestamp)
+
+        return self.process(_RollingReduce(), name)
+
+    def sum(self, field: int, name: str = "KeyedSum") -> DataStream:
+        return self._rolling_builtin("sum", field, name)
+
+    def min(self, field: int, name: str = "KeyedMin") -> DataStream:
+        return self._rolling_builtin("min", field, name)
+
+    def max(self, field: int, name: str = "KeyedMax") -> DataStream:
+        return self._rolling_builtin("max", field, name)
+
+    def _rolling_builtin(self, kind: str, field, name: str) -> DataStream:
+        if isinstance(field, str):
+            raise NotImplementedError(
+                "string fields on rolling agg need tuple index; use window "
+                "aggregation or pass an int index")
+        pick = _op.itemgetter(field)
+
+        def combine(a, b):
+            va, vb = pick(a), pick(b)
+            v = va + vb if kind == "sum" else (
+                min(va, vb) if kind == "min" else max(va, vb))
+            # the latest record's other fields, the aggregated field set
+            if isinstance(b, tuple):
+                out = list(b)
+                out[field] = v
+                return tuple(out)
+            return v
+
+        return self.reduce(combine, name)
+
+    # -- windows -----------------------------------------------------------
     def window(self, assigner: WindowAssigner) -> "WindowedStream":
         return WindowedStream(self, assigner)
+
+    def count_window(self, size: int) -> "WindowedStream":
+        """Windows of ``size`` records a key, purged at each fire."""
+        return WindowedStream(self, GlobalWindows.create(),
+                              trigger=PurgingTrigger.of(CountTrigger.of(size)))
 
 
 class ConnectedStreams:
@@ -184,9 +364,73 @@ class ConnectedStreams:
 
 
 class WindowedStream:
-    def __init__(self, keyed: KeyedStream, assigner: WindowAssigner):
+    """A keyed stream with an assigner, and the trigger, evictor and
+    lateness of the host operator; it ends in a device aggregate or in
+    ``reduce``/``aggregate``/``apply`` on the host."""
+
+    def __init__(self, keyed: KeyedStream, assigner: WindowAssigner,
+                 trigger: Optional[Trigger] = None,
+                 evictor: Optional[Evictor] = None,
+                 all_windows: bool = False):
         self.keyed = keyed
         self.assigner = assigner
+        self._trigger = trigger
+        self._evictor = evictor
+        self._lateness = 0
+        self._late_tag: Optional[str] = None
+        self._all = all_windows
+
+    def trigger(self, trigger: Trigger) -> "WindowedStream":
+        self._trigger = trigger
+        return self
+
+    def evictor(self, evictor: Evictor) -> "WindowedStream":
+        self._evictor = evictor
+        return self
+
+    def allowed_lateness(self, ms: int) -> "WindowedStream":
+        self._lateness = int(ms)
+        return self
+
+    def side_output_late_data(self, tag: str = "late-data"
+                              ) -> "WindowedStream":
+        """Late records go to the operator's ``late-data`` side output."""
+        self._late_tag = tag
+        return self
+
+    def _parallelism(self) -> Optional[int]:
+        return 1 if self._all else None
+
+    def _build(self, name, aggregate=None, reduce=None, window_fn=None,
+               out_schema=None) -> DataStream:
+        """The host WindowOperator."""
+        assigner, trigger, evictor = self.assigner, self._trigger, \
+            self._evictor
+        lateness, late = self._lateness, self._late_tag
+        ke = self.keyed.key_extractor
+
+        def factory():
+            return WindowOperator(
+                assigner, ke, aggregate=aggregate, reduce=reduce,
+                window_fn=window_fn, trigger=trigger, evictor=evictor,
+                allowed_lateness=lateness, emit_late_data=late is not None,
+                out_schema=out_schema, name=name)
+
+        return self.keyed._one_input(name, factory,
+                                     parallelism=self._parallelism(),
+                                     key_extractor=ke)
+
+    def reduce(self, fn, name: str = "WindowReduce",
+               window_fn=None) -> DataStream:
+        return self._build(name, reduce=as_reduce(fn), window_fn=window_fn)
+
+    def aggregate(self, fn: AggregateFunction, name: str = "WindowAggregate",
+                  window_fn=None) -> DataStream:
+        return self._build(name, aggregate=fn, window_fn=window_fn)
+
+    def apply(self, window_fn, name: str = "WindowApply") -> DataStream:
+        """``window_fn(key, window, elements: list)`` -> rows."""
+        return self._build(name, window_fn=window_fn)
 
     def device_aggregate(self, aggs, capacity: int = 1 << 16,
                          ring_size: int = 64,
@@ -212,6 +456,7 @@ class WindowedStream:
         if not isinstance(key_col, str):
             raise ValueError("device aggregation needs a column key")
         device = self.keyed.env.device
+        par = self._parallelism()
         if type(assigner) is EventTimeSessionWindows:
             if emit_topk is not None:
                 raise ValueError(
@@ -229,7 +474,10 @@ class WindowedStream:
                     name=name)
 
             return self.keyed._one_input(
-                name, session_factory, key_extractor=self.keyed.key_extractor)
+                name, session_factory, parallelism=par,
+                key_extractor=self.keyed.key_extractor)
+
+        reject_variable_pane_assigner(assigner, "device")
 
         def factory():
             return DeviceWindowAggOperator(
@@ -240,40 +488,51 @@ class WindowedStream:
                 spill_staging_slots=spill_staging_slots, device=device,
                 name=name)
 
-        return self.keyed._one_input(name, factory,
+        return self.keyed._one_input(name, factory, parallelism=par,
                                      key_extractor=self.keyed.key_extractor)
 
     # -- builtin aggregates -------------------------------------------------
-    def sum(self, field: str, name: str = "WindowSum") -> DataStream:
+    def sum(self, field: Union[str, int],
+            name: str = "WindowSum") -> DataStream:
         return self._builtin_agg("sum", field, name)
 
-    def min(self, field: str, name: str = "WindowMin") -> DataStream:
+    def min(self, field: Union[str, int],
+            name: str = "WindowMin") -> DataStream:
         return self._builtin_agg("min", field, name)
 
-    def max(self, field: str, name: str = "WindowMax") -> DataStream:
+    def max(self, field: Union[str, int],
+            name: str = "WindowMax") -> DataStream:
         return self._builtin_agg("max", field, name)
 
     def count(self, name: str = "WindowCount") -> DataStream:
         return self._builtin_agg("count", None, name)
 
     def _builtin_agg(self, kind: str, field, name: str) -> DataStream:
-        """The reference's planner rule (``_try_device_agg``): with the
-        ``tpu`` backend, a column key and a pane-decomposable assigner the
-        aggregate runs on the device operator, or as one vertex over a mesh
-        of ``state.backend.tpu.mesh-devices`` shards when that is 2 or
-        more; rows (key, result). The host WindowOperator the reference
-        falls back to is not ported."""
+        """The device window operator where the reference's planner rule
+        (``_try_device_agg``) takes it, else the host WindowOperator over
+        a field-wise aggregate; rows (key, result) either way."""
+        device = self._try_device_agg(kind, field, name)
+        if device is not None:
+            return device
+        return self._build(name, aggregate=_BuiltinAggregate(kind, field))
+
+    def _try_device_agg(self, kind: str, field, name: str
+                        ) -> Optional[DataStream]:
+        """With the ``tpu`` backend, a column key, a pane-decomposable
+        assigner that is not CUMULATE, and no custom trigger, evictor or
+        lateness, the aggregate runs on the device operator, or as one
+        vertex over a mesh of ``state.backend.tpu.mesh-devices`` shards
+        when that is 2 or more. None otherwise."""
         cfg = self.keyed.env.config
-        key_col = self.keyed.key_spec
         if (cfg.get("state.backend.type") != "tpu"
-                or not isinstance(key_col, str)
+                or not isinstance(self.keyed.key_spec, str)
                 or not isinstance(field, (str, type(None)))
-                or self.assigner.pane_size is None):
-            raise NotImplementedError(
-                "this window aggregate needs the host WindowOperator, which "
-                "is not ported yet (ROADMAP Queue 1, item 10); use the tpu "
-                "backend, a column key and a tumbling or sliding window")
-        assigner = self.assigner
+                or self.assigner.pane_size is None
+                or isinstance(self.assigner, CumulateWindows)
+                or self._trigger is not None or self._evictor is not None
+                or self._lateness != 0 or self._late_tag is not None):
+            return None
+        assigner, key_col = self.assigner, self.keyed.key_spec
         device = self.keyed.env.device
         capacity = cfg.get("state.backend.tpu.slots-per-key-group") \
             or (1 << 16)
@@ -300,6 +559,7 @@ class WindowedStream:
                 emit_window_bounds=False, device=device, name=name)
 
         return self.keyed._one_input(name, factory,
+                                     parallelism=self._parallelism(),
                                      key_extractor=self.keyed.key_extractor)
 
     def mesh_aggregate(self, aggs, n_devices: Optional[int] = None,
@@ -331,6 +591,7 @@ class WindowedStream:
             raise ValueError(
                 "mesh aggregation needs a pane-decomposable assigner "
                 "(tumbling, or sliding with size % slide == 0)")
+        reject_variable_pane_assigner(self.assigner, "mesh")
         assigner, key_col = self.assigner, self.keyed.key_spec
         device = self.keyed.env.device
 
@@ -345,3 +606,45 @@ class WindowedStream:
 
         return self.keyed._one_input(name, factory, parallelism=parallelism,
                                      key_extractor=self.keyed.key_extractor)
+
+
+class _BuiltinAggregate(AggregateFunction):
+    """A field-wise builtin aggregate on the host WindowOperator.
+    ``bind_schema`` resolves a string field to the tuple index of the
+    batch's schema (the operator calls it a batch); ``builtin_kind`` and
+    ``builtin_field`` let the operator's grouped path fold a column with
+    numpy instead of calling ``add`` a row."""
+
+    def __init__(self, kind: str, field):
+        self.builtin_kind = kind
+        self.builtin_field = field
+        self._pick = (_op.itemgetter(field) if isinstance(field, int)
+                      else None)
+
+    def bind_schema(self, schema) -> None:
+        if isinstance(self.builtin_field, str):
+            self._pick = (
+                (lambda v: v) if len(schema) == 1
+                else _op.itemgetter(schema.index_of(self.builtin_field)))
+
+    def create_accumulator(self):
+        return None
+
+    def _combine(self, a, b):
+        if self.builtin_kind in ("sum", "count"):
+            return a + b
+        return min(a, b) if self.builtin_kind == "min" else max(a, b)
+
+    def add(self, value, acc):
+        v = 1 if self.builtin_field is None else self._pick(value)
+        return v if acc is None else self._combine(acc, v)
+
+    def merge(self, a, b):
+        if a is None:
+            return b
+        if b is None:
+            return a
+        return self._combine(a, b)
+
+    def get_result(self, acc):
+        return acc

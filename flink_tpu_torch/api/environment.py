@@ -31,10 +31,6 @@ __all__ = ["StreamExecutionEnvironment"]
 
 
 class StreamExecutionEnvironment:
-    #: the keyed-state backend every job of the port runs: the device
-    #: backend, under the reference's name
-    state_backend = "tpu"
-
     def __init__(self, config: Optional[Configuration] = None, device=None):
         self.config = config or Configuration()
         self.device = resolve_device(device)
@@ -72,12 +68,17 @@ class StreamExecutionEnvironment:
         self.config.set("pipeline.operator-chaining", False)
         return self
 
+    @property
+    def state_backend(self) -> str:
+        """The configured keyed-state backend (``state.backend.type``)."""
+        return self.config.get("state.backend.type")
+
     def set_state_backend(self, name: str) -> "StreamExecutionEnvironment":
-        """The port has one keyed-state backend, the device backend, under
-        the reference's name ``tpu``."""
-        if name not in ("tpu", "device"):
-            raise ValueError(f"unknown state backend {name!r}; the port "
-                             "runs the device backend ('tpu')")
+        """``tpu`` (the default): the device backend, whose row plane holds
+        value state and whose operators run on the card; ``hashmap``: the
+        heap backend, which holds every state kind on the host (the host
+        window operator keeps its windows there under either)."""
+        self.config.set("state.backend.type", name)
         return self
 
     def restore_from_checkpoint(self, checkpoint

@@ -4,7 +4,9 @@ port of ``flink_tpu/cluster/local.py``).
 Real channels, real barrier alignment, real keyed state: every (vertex,
 subtask) becomes a task on a thread of its own, joined to its neighbours
 by bounded channels. A two-input vertex gets one gate per logical input
-(its in-edges' ``target_input``). ``run_job`` deploys, attaches the checkpoint
+(its in-edges' ``target_input``). An edge that carries a ``side_tag``
+(``get_side_output(tag)``) gets its own writers, which receive the
+chain's batches of that tag. ``run_job`` deploys, attaches the checkpoint
 coordinator when ``execution.checkpointing.interval`` > 0, and runs to
 the end of input.
 
@@ -304,12 +306,15 @@ def _deploy_vertices(job: LocalJob, job_graph: JobGraph,
                 task_name=vertex.name, subtask_index=sub,
                 parallelism=vertex.parallelism,
                 max_parallelism=vertex.max_parallelism, config=config)
-            if any(e.side_tag is not None for _ei, e in out_edges):
-                raise NotImplementedError("the port has no side outputs")
-            writers = [RecordWriter(channels[ei][sub],
-                                    e.partitioner_factory(), sub,
-                                    stall_timeout=bp_stall)
-                       for ei, e in out_edges]
+            # one writer a main edge; a side edge's writers by its tag
+            writers, side_writers = [], {}
+            for ei, e in out_edges:
+                w = RecordWriter(channels[ei][sub], e.partitioner_factory(),
+                                 sub, stall_timeout=bp_stall)
+                if e.side_tag is None:
+                    writers.append(w)
+                else:
+                    side_writers.setdefault(e.side_tag, []).append(w)
             snapshot = (restored_state or {}).get(task_id)
             if vertex.kind == "source":
                 src_node = vertex.chained_nodes[0]
@@ -324,10 +329,11 @@ def _deploy_vertices(job: LocalJob, job_graph: JobGraph,
                         job.fusion_declined[vid] = why
                 task = SourceStreamTask(task_id, ctx, reader,
                                         src_node.watermark_strategy, writers,
-                                        job, config)
+                                        job, config, side_writers)
                 if ops:
                     task.chain = OperatorChain(ops, ctx,
-                                               task.make_tail_output())
+                                               task.make_tail_output(),
+                                               task.side_outputs())
                 job.source_tasks[task_id] = task
             elif vertex.kind == "two_input":
                 per_input: list[list] = [[], []]
@@ -337,19 +343,19 @@ def _deploy_vertices(job: LocalJob, job_graph: JobGraph,
                 task = TwoInputStreamTask(
                     task_id, ctx, InputGate(per_input[0], aligned=aligned),
                     InputGate(per_input[1], aligned=aligned), writers, job,
-                    config)
+                    config, side_writers)
                 task.chain = OperatorChain(
                     [n.operator_factory() for n in vertex.chained_nodes],
-                    ctx, task.make_tail_output())
+                    ctx, task.make_tail_output(), task.side_outputs())
             else:
                 in_channels = [channels[ei][s][sub] for ei, _e in in_edges
                                for s in range(len(channels[ei]))]
                 task = OneInputStreamTask(
                     task_id, ctx, InputGate(in_channels, aligned=aligned),
-                    writers, job, config)
+                    writers, job, config, side_writers)
                 task.chain = OperatorChain(
                     [n.operator_factory() for n in vertex.chained_nodes],
-                    ctx, task.make_tail_output())
+                    ctx, task.make_tail_output(), task.side_outputs())
             if snapshot:
                 task.restore_state(snapshot)
             job.tasks[task_id] = task

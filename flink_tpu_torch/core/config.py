@@ -48,9 +48,11 @@ DEFAULTS: dict[str, Any] = {
     # incremental fires: a running window accumulator per invertible
     # aggregate and a merge tree per min/max, sealed once per pane
     "window.fire.incremental": False,
-    # the interval join's state plane: "tpu" keeps each side's rows in
-    # device lists (state/device_lists.py), "hashmap" in host buffers;
-    # every other operator of the port keeps its state on the device
+    # the keyed-state backend: "tpu" is the device backend (its row plane
+    # holds value state; the device operators and the interval join's
+    # device lists run on the card), "hashmap" the heap backend, which
+    # holds every state kind on the host (host window operators, process
+    # functions, host joins and GROUP BY)
     "state.backend.type": "tpu",
     # most device hash-table slots of keyed state; state beyond them pages
     # to the host spill tier at key-group granularity (0: unlimited)

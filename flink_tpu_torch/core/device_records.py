@@ -63,6 +63,39 @@ class DeviceRecordBatch(RecordBatch):
     def timestamps(self) -> np.ndarray:
         return self._materialize().timestamps
 
+    def compact(self, mask: torch.Tensor) -> "DeviceRecordBatch":
+        """The rows where ``mask`` (bool, on this batch's device) holds,
+        in batch order, compacted on the device. One host read: the kept
+        row count and the kept rows' event-time bounds together."""
+        mask = mask.to(torch.bool)
+        ts = self.dtimestamps
+        count = mask.sum()
+        if ts is None:
+            stats = count.reshape(1)
+        else:
+            big = torch.iinfo(torch.int64).max
+            stats = torch.stack([count,
+                                 torch.where(mask, ts, big).min(),
+                                 torch.where(mask, ts, -big - 1).max()])
+        # lint: sync-ok a filter's kept rows size its output: one read a batch
+        got = stats.tolist()
+        n = got[0]
+        ts_min, ts_max = (got[1], got[2]) if ts is not None and n else \
+            (self.ts_min, self.ts_max)
+        # each kept row's place; a dropped row goes to a spare slot n
+        dest = torch.where(mask, torch.cumsum(mask, 0) - 1,
+                           torch.full_like(mask, n, dtype=torch.int64))
+
+        def pack(col: torch.Tensor) -> torch.Tensor:
+            out = torch.empty((n + 1,) + tuple(col.shape[1:]),
+                              dtype=col.dtype, device=col.device)
+            return out.index_copy_(0, dest, col)[:n]
+
+        return DeviceRecordBatch(
+            self.schema, {k: pack(c) for k, c in self.dcolumns.items()},
+            None if ts is None else pack(ts), ts_min, ts_max,
+            self.ts_column)
+
     def __repr__(self) -> str:
         return (f"DeviceRecordBatch(n={self.n}, schema={self.schema!r}, "
                 f"ts=[{self.ts_min},{self.ts_max}])")

@@ -2,8 +2,9 @@
 
 Trimmed copy of ``flink_tpu/core/records.py`` (numpy only): records travel
 as struct-of-arrays micro-batches, each record with an int64 event
-timestamp in milliseconds. Device-resident batches are in
-``device_records.py``.
+timestamp in milliseconds. A column is a numpy dtype or ``object``
+(strings, tuples: the host operators' values). Device-resident batches
+are in ``device_records.py``.
 """
 
 from __future__ import annotations
@@ -28,14 +29,18 @@ def scalar(v):
 # Canonical dtype aliases accepted in schemas.
 _DTYPES = {
     "int32": np.int32, "int64": np.int64, "float32": np.float32,
-    "float64": np.float64, "bool": np.bool_,
+    "float64": np.float64, "bool": np.bool_, "object": object,
 }
 
 
 @dataclass(frozen=True)
 class FieldType:
     name: str
-    dtype: Any  # numpy scalar type
+    dtype: Any  # numpy scalar type or ``object``
+
+    @property
+    def is_numeric(self) -> bool:
+        return self.dtype is not object
 
 
 class Schema:
@@ -75,16 +80,22 @@ class Schema:
 
     @staticmethod
     def infer(row: Any) -> "Schema":
-        """Schema from one sample element: tuples become f0..fN."""
+        """Schema from one sample element: scalars become ('value',),
+        tuples f0..fN, dicts their keys; a value neither bool, int nor
+        float is an ``object`` column."""
         def dtype_of(v: Any) -> Any:
             if isinstance(v, (bool, np.bool_)):
                 return np.bool_
             if isinstance(v, (int, np.integer)):
                 return np.int64
-            return np.float64
+            if isinstance(v, (float, np.floating)):
+                return np.float64
+            return object
 
         if isinstance(row, tuple):
             return Schema([(f"f{i}", dtype_of(v)) for i, v in enumerate(row)])
+        if isinstance(row, dict):
+            return Schema([(k, dtype_of(v)) for k, v in row.items()])
         return Schema([("value", dtype_of(row))])
 
 
@@ -112,20 +123,75 @@ class RecordBatch:
         if len(self.timestamps) != self.n:
             raise ValueError("timestamps length mismatch")
 
+    @staticmethod
+    def _row_columns(schema: Schema, rows: Sequence[Any]) -> dict:
+        """Per-column Python lists of scalar, tuple or dict rows."""
+        n = len(rows)
+        cols: dict[str, list] = {f.name: [None] * n for f in schema.fields}
+        single = len(schema) == 1
+        for i, row in enumerate(rows):
+            if isinstance(row, dict):
+                for f in schema.fields:
+                    cols[f.name][i] = row[f.name]
+            elif isinstance(row, tuple) and not single:
+                for f, v in zip(schema.fields, row):
+                    cols[f.name][i] = v
+            else:
+                cols[schema.fields[0].name][i] = row
+        return cols
+
     @classmethod
     def from_rows(cls, schema: Schema, rows: Sequence[Any],
                   timestamps: Optional[Sequence[int]] = None) -> "RecordBatch":
-        """Build from Python rows (scalars or tuples per the schema)."""
-        single = len(schema) == 1
-        cols = {f.name: [] for f in schema.fields}
-        for row in rows:
-            vals = (row,) if single or not isinstance(row, tuple) else row
-            for f, v in zip(schema.fields, vals):
-                cols[f.name].append(v)
-        arrs = {f.name: np.array(cols[f.name], dtype=f.dtype)
+        """Build from Python rows (scalars, tuples or dicts per the
+        schema)."""
+        cols = cls._row_columns(schema, rows)
+        arrs = {f.name: _column(cols[f.name], f.dtype)
                 for f in schema.fields}
         ts = None if timestamps is None else np.asarray(timestamps, np.int64)
         return cls(schema, arrs, ts)
+
+    @classmethod
+    def from_rows_infer(cls, schema: Optional[Schema], rows: Sequence[Any],
+                        timestamps: Optional[Sequence[int]] = None
+                        ) -> tuple["RecordBatch", Schema]:
+        """``from_rows`` with inference and per-column promotion: a column
+        that stops fitting its dtype widens along int64 -> float64 ->
+        object (never silently truncated); the widened schema is returned
+        for the next batch. Only the offending column widens."""
+        if not rows:
+            if schema is None:
+                raise ValueError(
+                    "from_rows_infer needs a schema to build an empty batch")
+            return cls.empty(schema), schema
+        if schema is None:
+            schema = Schema.infer(rows[0])
+        cols = cls._row_columns(schema, rows)
+        out_fields: list[tuple[str, Any]] = []
+        arrs: dict[str, np.ndarray] = {}
+        for f in schema.fields:
+            vals = cols[f.name]
+            if not f.is_numeric:
+                arrs[f.name] = _column(vals, object)
+                out_fields.append((f.name, object))
+                continue
+            try:
+                natural = np.asarray(vals)
+            except (ValueError, TypeError):
+                natural = _column(vals, object)
+            if natural.dtype == object or natural.dtype.kind in "USV":
+                arrs[f.name] = _column(vals, object)
+                out_fields.append((f.name, object))
+            elif np.can_cast(natural.dtype, f.dtype, "safe"):
+                arrs[f.name] = natural.astype(f.dtype)
+                out_fields.append((f.name, f.dtype))
+            else:
+                promoted = np.promote_types(natural.dtype, np.dtype(f.dtype))
+                arrs[f.name] = natural.astype(promoted)
+                out_fields.append((f.name, promoted.type))
+        out_schema = Schema(out_fields)
+        ts = None if timestamps is None else np.asarray(timestamps, np.int64)
+        return cls(out_schema, arrs, ts), out_schema
 
     def column(self, name: str) -> np.ndarray:
         return self.columns[name]
@@ -159,7 +225,8 @@ class RecordBatch:
     @classmethod
     def empty(cls, schema: Schema) -> "RecordBatch":
         return cls(schema, {f.name: np.empty(0, dtype=f.dtype)
-                            for f in schema.fields})
+                            for f in schema.fields},
+                   np.empty(0, dtype=np.int64))
 
     def split_by(self, part: np.ndarray, num_parts: int) -> list["RecordBatch"]:
         """Partition rows by an int partition-id array (stable within
@@ -168,3 +235,11 @@ class RecordBatch:
         bounds = np.searchsorted(part[order], np.arange(num_parts + 1))
         return [self.take(order[bounds[p]:bounds[p + 1]])
                 for p in range(num_parts)]
+
+
+def _column(values: list, dtype) -> np.ndarray:
+    """A column of ``dtype`` from Python values; an ``object`` column
+    keeps each value as it is (a tuple stays one element)."""
+    if dtype is object:
+        return np.fromiter(values, dtype=object, count=len(values))
+    return np.array(values, dtype=dtype)

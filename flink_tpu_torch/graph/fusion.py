@@ -122,17 +122,42 @@ def _class_location(cls: type) -> tuple[str, int]:
 
 
 def _classify_operator(op: Any) -> tuple[str, str]:
-    """Category of an instantiated operator of the port."""
-    from ..runtime.operators.device_session import \
-        DeviceSessionWindowOperator
+    """Category of an instantiated operator of the port, as the
+    reference classifies its counterpart: a vectorized batch method is
+    the device-safe surface; a row loop decodes host rows (a serializer
+    boundary); timers and side collectors escape the dispatch."""
+    from ..core.functions import FilterFunction, MapFunction
     from ..runtime.operators.device_window import DeviceWindowAggOperator
-    from ..runtime.operators.mesh_window import MeshWindowAggOperator
+    from ..runtime.operators.simple import BatchFnOperator, \
+        FilterOperator, FlatMapOperator, KeyedProcessOperator, MapOperator
 
     if isinstance(op, DeviceWindowAggOperator):
         return "window-device", "keyed partial-agg tail (one-dispatch step)"
-    if isinstance(op, (DeviceSessionWindowOperator, MeshWindowAggOperator)):
+    name = type(op).__name__
+    if name in ("DeviceSessionWindowOperator", "MeshWindowAggOperator",
+                "DeviceGroupAggOperator"):
         return "keyed-device", "keyed device aggregate (own fused step)"
-    return "host-effectful", f"unclassified operator {type(op).__name__}"
+    if isinstance(op, KeyedProcessOperator) or name in (
+            "CepOperator", "AsyncWaitOperator", "WindowOperator"):
+        return "timer", "timer/side-output surface escapes the dispatch"
+    if isinstance(op, BatchFnOperator):
+        return "host-effectful", "opaque batch fn (not declared traceable)"
+    fn = getattr(op, "_fn", None)
+    if isinstance(op, MapOperator):
+        if fn is not None and \
+                type(fn).map_batch is not MapFunction.map_batch:
+            return "pure", "vectorized map_batch"
+        return "serializer", "row-loop map decodes host rows"
+    if isinstance(op, FilterOperator):
+        if fn is not None and \
+                type(fn).filter_batch is not FilterFunction.filter_batch:
+            return "pure", "vectorized filter_batch"
+        return "serializer", "row-loop filter decodes host rows"
+    if isinstance(op, FlatMapOperator):
+        return "serializer", "row-loop flat_map decodes host rows"
+    if type(op).__module__.startswith("flink_tpu_torch.sql"):
+        return "keyed-host", "host keyed SQL operator (legal flush point)"
+    return "host-effectful", f"unclassified operator {name}"
 
 
 def _classify_node(node: Any) -> FusedOp:

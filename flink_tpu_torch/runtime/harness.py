@@ -1,7 +1,7 @@
 """Deterministic single-operator test harnesses (minimal port of
 ``flink_tpu/runtime/harness.py``): drive one operator, of one input or of
-two, with batches and watermarks, and round-trip snapshots, with no
-runner and no threads."""
+two, with batches, watermarks and a manual processing-time clock, and
+round-trip snapshots, with no runner and no threads."""
 
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ from typing import Any, Optional, Sequence
 
 from ..core.config import Configuration
 from ..core.elements import Watermark
-from ..core.records import RecordBatch, Schema
+from ..core.records import MIN_TIMESTAMP, RecordBatch, Schema
 from .operators.base import CollectingOutput, OneInputOperator, \
     OperatorContext, TwoInputOperator
 
@@ -25,8 +25,10 @@ class OneInputOperatorTestHarness:
         self.operator = operator
         self.schema = schema
         self.output = CollectingOutput()
+        self._now_ms = 0
         self.ctx = OperatorContext(task_name, subtask_index, parallelism,
-                                   max_parallelism, config or Configuration())
+                                   max_parallelism, config or Configuration(),
+                                   processing_time=lambda: self._now_ms)
         operator.setup(self.ctx, self.output)
         self._opened = False
 
@@ -40,6 +42,22 @@ class OneInputOperatorTestHarness:
     def _ensure_open(self) -> None:
         if not self._opened:
             self.open()
+
+    def process_element(self, value: Any,
+                        timestamp: int = MIN_TIMESTAMP) -> None:
+        self.process_elements([value], [timestamp])
+
+    def set_processing_time(self, now_ms: int) -> None:
+        """Move the manual clock and fire the processing-time timers."""
+        self._ensure_open()
+        self._now_ms = int(now_ms)
+        self.operator.advance_processing_time(self._now_ms)
+
+    def get_watermarks(self) -> list[int]:
+        return [w.timestamp for w in self.output.watermarks]
+
+    def clear_output(self) -> None:
+        self.output.clear()
 
     def process_elements(self, values: Sequence[Any],
                          timestamps: Optional[Sequence[int]] = None) -> None:

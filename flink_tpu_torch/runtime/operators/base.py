@@ -4,20 +4,33 @@
 Operators are batch-oriented: ``process_batch`` receives a whole
 RecordBatch and watermarks arrive through ``process_watermark`` in channel
 order. Chained operators call each other directly; ``OperatorChain`` is
-the fused sequence one task runs. A ``TwoInputOperator`` heads a chain of
-a two-input task: ``process_batch1/2`` per input, and its watermark is
-the min across the inputs.
+the fused sequence one task runs, and it routes tagged side outputs to
+the task's side writers. A ``TwoInputOperator`` heads a chain of a
+two-input task: ``process_batch1/2`` per input, and its watermark is the
+min across the inputs. The task's loop advances processing time through
+the chain (``advance_processing_time``), which fires processing-time
+timers.
+
+Each operator pins itself as the device-time ledger's owner of the work
+it dispatches while it runs. A chained call hands the pin to the
+downstream operator and gives it back when that call returns, so work
+an operator dispatches after it emits stays its own (the reference
+leaves the downstream operator pinned, ROADMAP Queue 3's kept
+differences).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
+from typing import Callable, Optional
 
 from ...core.config import Configuration
 from ...core.elements import Watermark
 from ...core.keygroups import KeyGroupRange, key_group_range_for_operator
 from ...core.records import MIN_TIMESTAMP, RecordBatch
-from ...metrics.profiler import DEVICE_LEDGER, set_dispatch_context
+from ...metrics.profiler import DEVICE_LEDGER, dispatch_context, \
+    set_dispatch_context
 
 __all__ = ["OperatorContext", "Output", "CollectingOutput", "StreamOperator",
            "OneInputOperator", "TwoInputOperator", "OperatorChain"]
@@ -32,11 +45,25 @@ class OperatorContext:
     parallelism: int
     max_parallelism: int
     config: Configuration = field(default_factory=Configuration)
+    #: the task's clock in ms (the harness injects a manual one)
+    processing_time: Callable[[], int] = lambda: int(time.time() * 1000)
 
     @property
     def key_group_range(self) -> KeyGroupRange:
         return key_group_range_for_operator(
             self.max_parallelism, self.parallelism, self.subtask_index)
+
+    def create_keyed_backend(self, name: Optional[str] = None, **kwargs):
+        """The keyed backend of this subtask's range: ``name`` overrides
+        the configured ``state.backend.type`` (an operator whose state
+        shapes a partial backend cannot hold pins one that can);
+        ``kwargs`` go to the backend (the device backend's ``device``)."""
+        from ...state.backend import create_backend
+        if name is None:
+            name = self.config.get("state.backend.type")
+        return create_backend(name, self.key_group_range,
+                              self.max_parallelism, config=self.config,
+                              **kwargs)
 
 
 class Output:
@@ -49,8 +76,9 @@ class Output:
         raise NotImplementedError
 
     def emit_side(self, tag: str, batch: RecordBatch) -> None:
-        """A tagged side output (``dead-letter``); the port's runtime wires
-        none, the test harness collects them."""
+        """A tagged side output (``late-data``, ``dead-letter``, a process
+        function's tags); the runtime routes it to the edges that
+        ``get_side_output(tag)`` made."""
         raise NotImplementedError(f"no side output wired for tag {tag!r}")
 
 
@@ -78,6 +106,7 @@ class CollectingOutput(Output):
     def clear(self) -> None:
         self.batches.clear()
         self.watermarks.clear()
+        self.side.clear()
 
 
 class StreamOperator:
@@ -124,6 +153,9 @@ class StreamOperator:
         self.current_watermark = watermark.timestamp
         self.output.emit_watermark(watermark)
 
+    def advance_processing_time(self, now_ms: int) -> None:
+        """Driven by the task's loop: fires processing-time timers."""
+
     def snapshot_state(self, checkpoint_id: int) -> dict:
         return {}
 
@@ -160,19 +192,38 @@ class TwoInputOperator(StreamOperator):
 
 
 class _ChainingOutput(Output):
-    """Direct-call edge between chained operators."""
+    """Direct-call edge between chained operators; tagged side outputs go
+    to the task's side outputs."""
 
-    def __init__(self, downstream: OneInputOperator):
+    def __init__(self, downstream: OneInputOperator,
+                 side_router: Optional[dict] = None):
         self._op = downstream
+        self._side = side_router or {}
+
+    def _call(self, fn, arg) -> None:
+        """Run the downstream ``fn(arg)`` as the ledger's owner, then give
+        the pin back to the caller."""
+        if not DEVICE_LEDGER.enabled:
+            fn(arg)
+            return
+        caller = dispatch_context()
+        self._op._enter_dispatch()
+        try:
+            fn(arg)
+        finally:
+            set_dispatch_context(*caller)
 
     def emit(self, batch: RecordBatch) -> None:
         if batch.n:
-            self._op._enter_dispatch()
-            self._op.process_batch(batch)
+            self._call(self._op.process_batch, batch)
 
     def emit_watermark(self, watermark: Watermark) -> None:
-        self._op._enter_dispatch()
-        self._op.process_watermark(watermark)
+        self._call(self._op.process_watermark, watermark)
+
+    def emit_side(self, tag: str, batch: RecordBatch) -> None:
+        out = self._side.get(tag)
+        if out is not None:
+            out.emit(batch)
 
 
 class OperatorChain:
@@ -180,7 +231,7 @@ class OperatorChain:
     the task's input; the tail writes the task's output."""
 
     def __init__(self, operators: list, ctx: OperatorContext,
-                 tail_output: Output):
+                 tail_output: Output, side_outputs: Optional[dict] = None):
         self.operators = operators
         self.ctx = ctx
         for i, op in enumerate(operators):
@@ -190,7 +241,7 @@ class OperatorChain:
         out = tail_output
         for op in reversed(operators):
             op.setup(ctx, out)
-            out = _ChainingOutput(op)
+            out = _ChainingOutput(op, side_outputs)
         self.head = operators[0]
 
     def initialize_state(self, per_operator_snapshots) -> None:
@@ -224,6 +275,10 @@ class OperatorChain:
                             watermark: Watermark) -> None:
         self.head._enter_dispatch()
         self.head.process_watermark_n(input_index, watermark)
+
+    def advance_processing_time(self, now_ms: int) -> None:
+        for op in self.operators:
+            op.advance_processing_time(now_ms)
 
     def snapshot_state(self, checkpoint_id: int) -> dict:
         return {_op_key(op): op.snapshot_state(checkpoint_id)

@@ -11,11 +11,12 @@ each row once across a restart from a checkpoint."""
 from __future__ import annotations
 
 from ...connectors.core import CollectSink
-from ...core.records import RecordBatch
+from ...core.functions import SinkFunction
+from ...core.records import MIN_TIMESTAMP, RecordBatch
 from ..faults import fire_with_retries
 from .base import OneInputOperator
 
-__all__ = ["SinkOperator", "CollectSink"]
+__all__ = ["SinkOperator", "FunctionSinkOperator", "CollectSink"]
 
 
 class SinkOperator(OneInputOperator):
@@ -73,3 +74,26 @@ class SinkOperator(OneInputOperator):
     def close(self) -> None:
         if self._writer is not None:
             self._writer.close()
+
+
+class FunctionSinkOperator(OneInputOperator):
+    """A ``SinkFunction``: its batch path when it takes the batch, else
+    ``invoke`` a row."""
+
+    def __init__(self, fn: SinkFunction, name: str = "Sink"):
+        super().__init__(name)
+        self._fn = fn
+
+    def process_batch(self, batch: RecordBatch) -> None:
+        fire_with_retries("sink.invoke")
+        if self._fn.invoke_batch(batch):
+            return
+        for i, row in enumerate(batch.iter_rows()):
+            ts = int(batch.timestamps[i])
+            self._fn.invoke(row, None if ts == MIN_TIMESTAMP else ts)
+
+    def process_watermark(self, watermark) -> None:
+        self.current_watermark = watermark.timestamp
+
+    def close(self) -> None:
+        self._fn.close()

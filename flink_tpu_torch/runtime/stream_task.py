@@ -20,6 +20,11 @@ the coordinator), so operators never see concurrency.
   held barrier completes when the other gate's input ends.
 * At the end of a bounded input the MAX watermark flushes event time, the
   chain finishes, and ``EndOfInput`` closes every output channel.
+* Every loop turn, and every idle wait, advances the chain's processing
+  time to the task's clock, which fires processing-time timers.
+* A side output's writers (``get_side_output(tag)``) get the chain's
+  tagged batches; watermarks, barriers and end of input go to them too,
+  since the stream behind a side edge needs event time as well.
 
 Every task of one job runs on the device's default stream, so a device
 batch made on a source thread is consumed in order on the window thread.
@@ -68,10 +73,13 @@ class TaskReporter:
 
 
 class _WriterFanout(Output):
-    """Chain tail output -> this task's record writers."""
+    """Chain tail output -> this task's record writers; watermarks go to
+    the side writers too."""
 
-    def __init__(self, writers: list[RecordWriter]):
+    def __init__(self, writers: list[RecordWriter],
+                 side_writers: Optional[dict] = None):
         self._writers = writers
+        self._side = side_writers or {}
 
     def emit(self, batch: RecordBatch) -> None:
         for w in self._writers:
@@ -80,6 +88,13 @@ class _WriterFanout(Output):
     def emit_watermark(self, watermark: Watermark) -> None:
         for w in self._writers:
             w.emit_watermark(watermark)
+        for ws in self._side.values():
+            for w in ws:
+                w.emit_watermark(watermark)
+
+    def emit_side(self, tag: str, batch: RecordBatch) -> None:
+        for w in self._side.get(tag, ()):
+            w.emit(batch)
 
 
 class StreamTask:
@@ -87,10 +102,14 @@ class StreamTask:
 
     def __init__(self, task_id: str, ctx: OperatorContext,
                  writers: list[RecordWriter], reporter: TaskReporter,
-                 config: Optional[Configuration] = None):
+                 config: Optional[Configuration] = None,
+                 side_writers: Optional[dict] = None):
         self.task_id = task_id
         self.ctx = ctx
         self.writers = writers
+        #: tag -> the writers of the side edges leaving this task
+        self.side_writers: dict = side_writers or {}
+        self._last_proc_time = 0
         self.reporter = reporter
         self.config = config or ctx.config
         self.chain: Optional[OperatorChain] = None
@@ -106,12 +125,32 @@ class StreamTask:
         #: the owning job (the ledger's attribution)
         self.job_name = str(self.config.get("pipeline.name") or "")
 
+    def all_writers(self):
+        yield from self.writers
+        for ws in self.side_writers.values():
+            yield from ws
+
     def broadcast_all(self, element) -> None:
-        for w in self.writers:
+        for w in self.all_writers():
             w.broadcast(element)
 
     def make_tail_output(self) -> _WriterFanout:
-        return _WriterFanout(self.writers)
+        return _WriterFanout(self.writers, self.side_writers)
+
+    def side_outputs(self) -> Optional[dict]:
+        """tag -> output of the side writers, for the chain's inner
+        operators."""
+        if not self.side_writers:
+            return None
+        return {tag: _WriterFanout(ws)
+                for tag, ws in self.side_writers.items()}
+
+    def _advance_processing_time(self) -> None:
+        now = self.ctx.processing_time()
+        if now > self._last_proc_time:
+            self._last_proc_time = now
+            if self.chain is not None:
+                self.chain.advance_processing_time(now)
 
     # -- mailbox -----------------------------------------------------------
     def execute_in_mailbox(self, fn: Callable[[], None]) -> None:
@@ -126,7 +165,7 @@ class StreamTask:
 
     # -- control -----------------------------------------------------------
     def start(self) -> threading.Thread:
-        for w in self.writers:
+        for w in self.all_writers():
             w.cancel_event = self._cancelled
         self._thread = threading.Thread(target=self._run_safely,
                                         name=self.task_id, daemon=True)
@@ -182,8 +221,10 @@ class SourceStreamTask(StreamTask):
     def __init__(self, task_id: str, ctx: OperatorContext, reader,
                  watermark_strategy: WatermarkStrategy,
                  writers: list[RecordWriter], reporter: TaskReporter,
-                 config: Optional[Configuration] = None):
-        super().__init__(task_id, ctx, writers, reporter, config)
+                 config: Optional[Configuration] = None,
+                 side_writers: Optional[dict] = None):
+        super().__init__(task_id, ctx, writers, reporter, config,
+                         side_writers)
         self.reader = reader
         self.ws = watermark_strategy
         self._restored_reader_state = None
@@ -256,6 +297,7 @@ class SourceStreamTask(StreamTask):
                         self.chain.process_watermark(Watermark(wm))
                     else:
                         out.emit_watermark(Watermark(wm))
+            self._advance_processing_time()
         if not self._cancelled.is_set():
             self._drain_mailbox()
             # bounded source done: flush event time, finish the chain,
@@ -275,8 +317,10 @@ class OneInputStreamTask(StreamTask):
 
     def __init__(self, task_id: str, ctx: OperatorContext, gate: InputGate,
                  writers: list[RecordWriter], reporter: TaskReporter,
-                 config: Optional[Configuration] = None):
-        super().__init__(task_id, ctx, writers, reporter, config)
+                 config: Optional[Configuration] = None,
+                 side_writers: Optional[dict] = None):
+        super().__init__(task_id, ctx, writers, reporter, config,
+                         side_writers)
         self.gate = gate
 
     def restore_state(self, snapshot: Optional[dict]) -> None:
@@ -298,6 +342,7 @@ class OneInputStreamTask(StreamTask):
             if ev is None:
                 if self.gate.all_ended():
                     break
+                self._advance_processing_time()
                 time.sleep(IDLE_POLL_S)
                 self.idle_s += IDLE_POLL_S
                 continue
@@ -310,6 +355,7 @@ class OneInputStreamTask(StreamTask):
             elif ev.kind == "idle":
                 self.broadcast_all(ev.value)
             self.progress.bump()
+            self._advance_processing_time()
         if not self._cancelled.is_set():
             self.chain.finish()
             self.chain.close()
@@ -326,8 +372,10 @@ class TwoInputStreamTask(StreamTask):
     def __init__(self, task_id: str, ctx: OperatorContext, gate1: InputGate,
                  gate2: InputGate, writers: list[RecordWriter],
                  reporter: TaskReporter,
-                 config: Optional[Configuration] = None):
-        super().__init__(task_id, ctx, writers, reporter, config)
+                 config: Optional[Configuration] = None,
+                 side_writers: Optional[dict] = None):
+        super().__init__(task_id, ctx, writers, reporter, config,
+                         side_writers)
         self.gates = [gate1, gate2]
         # the barrier each gate delivered and the task holds
         self._gate_barrier: list = [None, None]
@@ -377,6 +425,7 @@ class TwoInputStreamTask(StreamTask):
             if ev is None:
                 if all(g.all_ended() for g in self.gates):
                     break
+                self._advance_processing_time()
                 time.sleep(IDLE_POLL_S)
                 self.idle_s += IDLE_POLL_S
                 continue
@@ -390,6 +439,7 @@ class TwoInputStreamTask(StreamTask):
             elif ev.kind == "idle":
                 self.broadcast_all(ev.value)
             self.progress.bump()
+            self._advance_processing_time()
         if not self._cancelled.is_set():
             self.chain.finish()
             self.chain.close()

@@ -2,8 +2,9 @@
 ``flink_tpu/runtime/writer.py``).
 
 Partitioning is batch-granular: a keyed exchange splits one batch into
-per-subtask sub-batches in one vectorized pass; rebalance rotates whole
-batches. Watermarks, barriers and end of input broadcast to every output
+per-subtask sub-batches in one vectorized pass; rebalance, rescale and
+shuffle move whole batches; broadcast copies each batch to every
+channel; a custom partitioner picks a channel a record. Watermarks, barriers and end of input broadcast to every output
 channel, which is what makes downstream alignment and min-combine
 correct.
 
@@ -17,8 +18,9 @@ it raises.
 
 from __future__ import annotations
 
+import random
 import time
-from typing import Any, Callable, Sequence
+from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 
@@ -29,8 +31,9 @@ from .channels import Channel
 from .faults import FAULTS, fire_with_retries
 
 __all__ = ["StreamPartitioner", "ForwardPartitioner", "RebalancePartitioner",
-           "GlobalPartitioner", "KeyGroupPartitioner", "RecordWriter",
-           "WriterCancelled"]
+           "RescalePartitioner", "BroadcastPartitioner", "ShufflePartitioner",
+           "GlobalPartitioner", "KeyGroupPartitioner", "CustomPartitioner",
+           "RecordWriter", "WriterCancelled"]
 
 
 class StreamPartitioner:
@@ -61,6 +64,35 @@ class RebalancePartitioner(StreamPartitioner):
     def route(self, batch, num_channels, subtask_index):
         self._next = (self._next + 1) % num_channels
         return [(self._next, batch)]
+
+
+class RescalePartitioner(RebalancePartitioner):
+    """Round-robin within the pointwise group (the edge wiring gives the
+    locality; the rotation is rebalance's)."""
+
+    name = "rescale"
+
+
+class BroadcastPartitioner(StreamPartitioner):
+    """Every batch to every channel (a device batch by reference)."""
+
+    name = "broadcast"
+
+    def route(self, batch, num_channels, subtask_index):
+        return [(i, batch) for i in range(num_channels)]
+
+
+class ShufflePartitioner(StreamPartitioner):
+    """A random channel a batch."""
+
+    name = "shuffle"
+
+    def __init__(self, seed: Optional[int] = None):
+        # seed None draws from the OS, as the reference's does
+        self._rng = random.Random(seed)
+
+    def route(self, batch, num_channels, subtask_index):
+        return [(self._rng.randrange(num_channels), batch)]
 
 
 class GlobalPartitioner(StreamPartitioner):
@@ -99,6 +131,24 @@ class KeyGroupPartitioner(StreamPartitioner):
         # subtask = kg * parallelism // max_parallelism, vectorized
         targets = (groups.astype(np.int64) * num_channels
                    // self.max_parallelism).astype(np.int32)
+        parts = batch.split_by(targets, num_channels)
+        return [(i, p) for i, p in enumerate(parts) if p.n]
+
+
+class CustomPartitioner(StreamPartitioner):
+    """``fn(key, num_channels) -> channel`` a record."""
+
+    name = "custom"
+
+    def __init__(self, fn: Callable[[Any, int], int],
+                 key_extractor: Callable[[RecordBatch], np.ndarray]):
+        self._fn = fn
+        self._key_extractor = key_extractor
+
+    def route(self, batch, num_channels, subtask_index):
+        keys = self._key_extractor(batch)
+        targets = np.fromiter((self._fn(k, num_channels) for k in keys),
+                              dtype=np.int32, count=batch.n)
         parts = batch.split_by(targets, num_channels)
         return [(i, p) for i, p in enumerate(parts) if p.n]
 

@@ -26,7 +26,8 @@ Connectors: datagen (rows-per-second, number-of-rows, per-field kind =
 sequence|random) as a source, blackhole as a sink. The reference's
 filesystem, log, socket and print connectors, its formats and its plugin
 connectors are not ported: a table naming one of the first three raises
-``SqlError`` naming ROADMAP Queue 1 item 10, the others are unknown.
+``SqlError`` naming ROADMAP Queue 1 item 10, group 2, the others are
+unknown.
 """
 
 from __future__ import annotations
@@ -387,8 +388,8 @@ _UNPORTED = ("filesystem", "log", "socket")
 
 def _unported(connector: str, entry: "CatalogTable") -> SqlError:
     return SqlError(f"connector {connector!r} of table {entry.name!r} is "
-                    "not ported yet (ROADMAP Queue 1 item 10); the port "
-                    "reads datagen tables")
+                    "not ported yet (ROADMAP Queue 1 item 10, group 2); "
+                    "the port reads datagen tables")
 
 
 def _watermark_strategy(entry: CatalogTable) -> Optional[WatermarkStrategy]:

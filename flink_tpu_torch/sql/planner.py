@@ -27,14 +27,14 @@ Aggregate inputs and group keys are materialized as generated columns
 (``__agg0__``, ...) by a projection ahead of the exchange, which is what the
 two-phase local/global split needs (reference StreamExecLocalGroupAggregate).
 
-The port's environment always runs the device backend, so the routes the
-reference takes under ``state.backend.type = tpu`` are the routes here:
-integer-keyed GROUP BY goes to ``DeviceGroupAggOperator``, TUMBLE/HOP and
-SESSION windows with one integer key to the device window operators.
-Joins plan as the reference plans them (host operators). What the port
-does not plan yet raises ``PlanError`` naming the ROADMAP item that ports
-it: MATCH_RECOGNIZE, CUMULATE windows, and window aggregations that need
-the host WindowOperator.
+The routes follow the environment's ``state.backend.type`` as the
+reference's do: under ``tpu`` (the default) integer-keyed GROUP BY goes
+to ``DeviceGroupAggOperator``, TUMBLE/HOP and SESSION windows with one
+integer key to the device window operators; CUMULATE windows, other keys
+and the ``hashmap`` backend take the host WindowOperator
+(``_host_window_agg``). Joins plan as the reference plans them (host
+operators). MATCH_RECOGNIZE raises ``PlanError`` naming the ROADMAP
+item that ports it.
 """
 
 from __future__ import annotations
@@ -45,11 +45,12 @@ import numpy as np
 
 from ..api.datastream import DataStream
 from ..core.config import SqlOptions
+from ..core.functions import AggregateFunction
 from ..core.records import RecordBatch, Schema
 from ..runtime.operators.device_window import AggSpec as DevAggSpec
 from ..runtime.operators.simple import BatchFnOperator
 from ..window.assigners import (
-    EventTimeSessionWindows, SlidingEventTimeWindows,
+    CumulateWindows, EventTimeSessionWindows, SlidingEventTimeWindows,
     TumblingEventTimeWindows,
 )
 from . import rowkind as rk
@@ -67,10 +68,8 @@ from .topn import TopNOperator
 __all__ = ["plan", "PlanError"]
 
 WINDOW_COLS = ("window_start", "window_end")
-#: ROADMAP items that port what the trimmed planner refuses
-_MATCH_ITEM = "ROADMAP Queue 1 item 10 (MATCH_RECOGNIZE, with cep/)"
-_WINDOW_ITEM = ("ROADMAP Queue 1 item 10 (CUMULATE windows and the host "
-                "WindowOperator)")
+#: the ROADMAP item that ports what the trimmed planner refuses
+_MATCH_ITEM = "ROADMAP Queue 1 item 10, group 4 (MATCH_RECOGNIZE, with cep/)"
 
 
 class PlanError(ValueError):
@@ -78,8 +77,7 @@ class PlanError(ValueError):
 
 
 def _device_backend(env) -> bool:
-    """The reference's ``state.backend.type == "tpu"`` test: the port's
-    environment names its backend, and it is always the device one."""
+    """The reference's ``state.backend.type == "tpu"`` test."""
     return getattr(env, "state_backend", None) == "tpu"
 
 
@@ -594,35 +592,48 @@ class _Planner:
             assigner = TumblingEventTimeWindows.of(tvf.size_ms)
         elif tvf.kind == "HOP":
             assigner = SlidingEventTimeWindows.of(tvf.size_ms, tvf.slide_ms)
+        elif tvf.kind == "CUMULATE":
+            # parser: CUMULATE(..., INTERVAL step, INTERVAL size)
+            assigner = CumulateWindows.of(tvf.size_ms, tvf.slide_ms)
         elif tvf.kind == "SESSION":
             assigner = EventTimeSessionWindows.with_gap(tvf.size_ms)
-        elif tvf.kind == "CUMULATE":
-            raise PlanError("the port does not plan CUMULATE windows yet; "
-                            f"{_WINDOW_ITEM} ports them")
         else:
             raise PlanError(f"{tvf.kind} windows not supported yet")
         key_field = pre_schema.field(key_names[0])
         use_device = (_device_backend(self.env)
+                      and tvf.kind in ("TUMBLE", "HOP", "SESSION")
                       and key_field.dtype is not object
                       and np.issubdtype(np.dtype(key_field.dtype),
                                         np.integer)
                       and (tvf.kind == "SESSION"
                            or assigner.pane_size is not None))
-        if not use_device:
-            raise PlanError(
-                f"this {tvf.kind} aggregation needs the host "
-                f"WindowOperator (key {key_names[0]!r} is "
-                f"{key_field.dtype}, pane size {assigner.pane_size}); "
-                f"{_WINDOW_ITEM} ports it")
         windowed = ds.key_by(key_names[0]).window(assigner)
-        dev_specs = [DevAggSpec(s.kind, s.field, out_name=s.out_name)
-                     for s in agg_specs]
         out_schema = Schema(
             [(key_names[0], key_field.dtype),
              ("window_start", np.int64), ("window_end", np.int64)]
             + [(s.out_name, np.float64) for s in agg_specs])
-        out = windowed.device_aggregate(dev_specs, name="WindowAggregate")
+        if use_device:
+            dev_specs = [DevAggSpec(s.kind, s.field, out_name=s.out_name)
+                         for s in agg_specs]
+            out = windowed.device_aggregate(dev_specs,
+                                            name="WindowAggregate")
+        else:
+            out = self._host_window_agg(windowed, pre_schema, agg_specs,
+                                        out_schema)
         return out, out_schema
+
+    def _host_window_agg(self, windowed, pre_schema: Schema,
+                         agg_specs: list[SqlAggSpec], out_schema: Schema):
+        """The aggregates on the host WindowOperator: one composite
+        accumulator a (key, window), rows (key, window_start, window_end,
+        *results)."""
+        agg = _CompositeAggregate(pre_schema, agg_specs)
+
+        def window_fn(key, window, result):
+            yield (key, window.start, window.end) + tuple(result)
+
+        return windowed._build("WindowAggregate", aggregate=agg,
+                               window_fn=window_fn, out_schema=out_schema)
 
     # -- post-aggregation projection --------------------------------------
     def _post_project(self, stmt: SelectStmt, ds: DataStream,
@@ -793,3 +804,52 @@ def _infer_dtype(e: Expr, schema: Schema):
                     for c in cols):
         return object
     return np.float64
+
+
+class _CompositeAggregate(AggregateFunction):
+    """The SQL aggregates of one window as one accumulator (a list, one
+    slot an aggregate): COUNT, SUM, AVG (sum, count), MIN and MAX."""
+
+    def __init__(self, pre_schema: Schema, specs: list[SqlAggSpec]):
+        self._idx = {f.name: i for i, f in enumerate(pre_schema.fields)}
+        self._specs = list(specs)
+        self._single = len(pre_schema) == 1
+
+    def create_accumulator(self):
+        return [(0.0, 0) if s.kind == "avg"
+                else (0 if s.kind in ("count", "sum") else None)
+                for s in self._specs]
+
+    def add(self, value, acc):
+        row = (value,) if self._single else value
+        out = []
+        for s, a in zip(self._specs, acc):
+            v = None if s.field is None else row[self._idx[s.field]]
+            if s.kind == "count":
+                out.append(a + (1 if s.field is None else (v is not None)))
+            elif s.kind == "sum":
+                out.append(a + v)
+            elif s.kind == "avg":
+                out.append((a[0] + v, a[1] + 1))
+            elif s.kind == "min":
+                out.append(v if a is None else min(a, v))
+            else:
+                out.append(v if a is None else max(a, v))
+        return out
+
+    def merge(self, a, b):
+        out = []
+        for s, x, y in zip(self._specs, a, b):
+            if s.kind in ("count", "sum"):
+                out.append(x + y)
+            elif s.kind == "avg":
+                out.append((x[0] + y[0], x[1] + y[1]))
+            elif x is None or y is None:
+                out.append(y if x is None else x)
+            else:
+                out.append(min(x, y) if s.kind == "min" else max(x, y))
+        return out
+
+    def get_result(self, acc):
+        return [(a[0] / a[1] if a[1] else 0.0) if s.kind == "avg" else a
+                for s, a in zip(self._specs, acc)]

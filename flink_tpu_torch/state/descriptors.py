@@ -1,19 +1,25 @@
 """State descriptors: named, typed handles to keyed state (trimmed port of
-``flink_tpu/state/descriptors.py``: the value descriptor and its TTL
-config, the only kind the device backend's row plane holds)."""
+``flink_tpu/state/descriptors.py``): value, list, map, reducing and
+aggregating descriptors, with their TTL config. The device backend's row
+plane holds the value kind; the heap backend (``state/heap.py``) holds
+every kind."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Optional
 
-__all__ = ["StateDescriptor", "ValueStateDescriptor", "StateTtlConfig"]
+from ..core.functions import AggregateFunction, ReduceFunction
+
+__all__ = ["StateDescriptor", "ValueStateDescriptor", "ListStateDescriptor",
+           "ReducingStateDescriptor", "AggregatingStateDescriptor",
+           "MapStateDescriptor", "StateTtlConfig"]
 
 
 @dataclass(frozen=True)
 class StateTtlConfig:
-    """Relaxed TTL (reference StateTtlConfig): entries expire ttl seconds
-    after last update; cleanup happens lazily on access."""
+    """Relaxed TTL: entries expire ttl seconds after last update; cleanup
+    happens lazily on access and on snapshot."""
 
     ttl: float
     update_on_read: bool = False
@@ -36,3 +42,39 @@ def ValueStateDescriptor(name: str, default: Any = None,
                          ttl: Optional[StateTtlConfig] = None
                          ) -> StateDescriptor:
     return StateDescriptor(name, "value", default, ttl)
+
+
+def ListStateDescriptor(name: str, ttl: Optional[StateTtlConfig] = None
+                        ) -> StateDescriptor:
+    return StateDescriptor(name, "list", None, ttl)
+
+
+def MapStateDescriptor(name: str, ttl: Optional[StateTtlConfig] = None
+                       ) -> StateDescriptor:
+    return StateDescriptor(name, "map", None, ttl)
+
+
+@dataclass(frozen=True)
+class ReducingStateDescriptor(StateDescriptor):
+    reduce_function: ReduceFunction = None  # type: ignore[assignment]
+
+    def __init__(self, name: str, reduce_function: ReduceFunction,
+                 ttl: Optional[StateTtlConfig] = None):
+        object.__setattr__(self, "name", name)
+        object.__setattr__(self, "kind", "reducing")
+        object.__setattr__(self, "default", None)
+        object.__setattr__(self, "ttl", ttl)
+        object.__setattr__(self, "reduce_function", reduce_function)
+
+
+@dataclass(frozen=True)
+class AggregatingStateDescriptor(StateDescriptor):
+    aggregate_function: AggregateFunction = None  # type: ignore[assignment]
+
+    def __init__(self, name: str, aggregate_function: AggregateFunction,
+                 ttl: Optional[StateTtlConfig] = None):
+        object.__setattr__(self, "name", name)
+        object.__setattr__(self, "kind", "aggregating")
+        object.__setattr__(self, "default", None)
+        object.__setattr__(self, "ttl", ttl)
+        object.__setattr__(self, "aggregate_function", aggregate_function)

@@ -83,14 +83,14 @@ import torch
 from ..core.config import DEFAULTS
 from ..core.keygroups import KeyGroupRange, hash_batch, \
     key_groups_device, key_groups_for_hash_batch
-from ..device import numpy_dtype, torch_dtype
+from ..device import numpy_dtype, resolve_device, torch_dtype
 from ..metrics.device import DEVICE_STATS
 from ..ops.hash_table import EMPTY_KEY, StepSpill, ingest_step, lookup, \
     lookup_or_insert, make_table, ordered_table, sanitize_keys_device
 from ..ops.row_state import MAP_HEAD, batch_map_entries, dedup_first, \
     new_batch_map, row_get, row_set, row_unset
 from ..ops.segment_ops import identity, make_accumulator, scatter_fold
-from .backend import State, ValueState
+from .backend import State, ValueState, register_backend
 from .descriptors import StateDescriptor
 from .spill import HostTier
 from .tiering import PrefetchPipeline, ResidencyManager
@@ -156,13 +156,19 @@ class _ArrayState:
 
 
 class DeviceKeyedStateBackend:
+    # the row plane holds value state only: an operator that needs
+    # namespaced list, aggregating or map state pins ``hashmap``
+    SUPPORTS_GENERAL_STATE = False
+
     def __init__(self, key_group_range: KeyGroupRange, max_parallelism: int,
-                 capacity: int = 1 << 16, device="cuda",
+                 capacity: int = 1 << 16, device=None,
                  defer_overflow: bool = False, hbm_budget_slots: int = 0,
                  config=None):
         self.key_group_range = key_group_range
         self.max_parallelism = max_parallelism
-        self.device = torch.device(device)
+        # the card unless a caller asks for the CPU (the registry's ``tpu``
+        # factory passes the operator's device, or nothing)
+        self.device = resolve_device(device)
         cap = 1
         while cap < capacity:
             cap <<= 1
@@ -1169,9 +1175,9 @@ class DeviceKeyedStateBackend:
         updates)."""
         if descriptor.kind != "value":
             raise NotImplementedError(
-                "the device backend's row plane holds ValueState only; use "
-                "array states or the device list plane "
-                "(state/device_lists.py)")
+                "TPU backend row plane supports ValueState only; use array "
+                "states (device operators), the device list plane "
+                "(state/device_lists.py), or the hashmap backend")
         handle = self._row_states.get(descriptor.name)
         if handle is None:
             default = descriptor.default
@@ -1384,3 +1390,6 @@ def reset_row_cost(capacity: int, plane_sizes: tuple) -> tuple[int, int]:
     of every ring plane written once ([capacity] elements each), nothing
     read."""
     return 0, capacity * sum(plane_sizes)
+
+
+register_backend("tpu", DeviceKeyedStateBackend)

@@ -1,0 +1,263 @@
+"""Host in-memory keyed state backend, ``hashmap`` (port of
+``flink_tpu/state/heap.py``).
+
+Layout is ``states[name][key_group][(key, namespace)] -> entry``, so a
+snapshot is partitioned by key group and a restore keeps the groups of
+its own range. The backend holds every state kind (value, list,
+reducing, aggregating, map) under any namespace; the host window
+operator keeps its window contents, trigger state and merging-window
+set here whenever the configured backend is the partial device one.
+
+Snapshots are the reference's schema field for field: ``{"kind":
+"heap", "states": {name: {kg: [((key, ns), value, expiry)]}},
+"serializers": {name: [serializer, version]}}``. The port has no
+serializer registry yet (ROADMAP Queue 1 item 10, group 3): every state
+is written by the default ``pickle`` serializer at version 1, and a
+restore refuses a snapshot that names another.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Iterable, Optional
+
+from ..core.keygroups import KeyGroupRange
+from .backend import AggregatingState, KeyedStateBackend, ListState, \
+    MapState, ReducingState, State, ValueState, register_backend
+from .descriptors import AggregatingStateDescriptor, \
+    ReducingStateDescriptor, StateDescriptor
+
+__all__ = ["HeapKeyedStateBackend"]
+
+#: the default serializer's identity (name, version) as snapshots record it
+DEFAULT_SERIALIZER = ("pickle", 1)
+
+
+class _Entry:
+    __slots__ = ("value", "expiry")
+
+    def __init__(self, value: Any, expiry: Optional[float] = None):
+        self.value = value
+        self.expiry = expiry
+
+
+class HeapKeyedStateBackend(KeyedStateBackend):
+    def __init__(self, key_group_range: KeyGroupRange, max_parallelism: int,
+                 **_kwargs):
+        super().__init__(key_group_range, max_parallelism)
+        # name -> kg -> {(key, ns): _Entry}
+        self._states: dict[str, dict[int, dict]] = {}
+        self._descriptors: dict[str, StateDescriptor] = {}
+        self._handles: dict[str, State] = {}
+
+    # -- internals ---------------------------------------------------------
+    def _table(self, name: str) -> dict[int, dict]:
+        return self._states.setdefault(name, {})
+
+    def _kg_map(self, name: str) -> dict:
+        kg = self._current_key_group
+        if kg not in self.key_group_range:
+            raise KeyError(
+                f"Key group {kg} outside backend range {self.key_group_range}")
+        return self._table(name).setdefault(kg, {})
+
+    def _get(self, desc: StateDescriptor) -> Any:
+        m = self._kg_map(desc.name)
+        e = m.get((self._current_key, self._current_namespace))
+        if e is None:
+            return None
+        if e.expiry is not None and e.expiry <= time.time():
+            del m[(self._current_key, self._current_namespace)]
+            return None
+        return e.value
+
+    def _put(self, desc: StateDescriptor, value: Any) -> None:
+        expiry = time.time() + desc.ttl.ttl if desc.ttl else None
+        self._kg_map(desc.name)[(self._current_key,
+                                 self._current_namespace)] = \
+            _Entry(value, expiry)
+
+    def _remove(self, desc: StateDescriptor) -> None:
+        self._kg_map(desc.name).pop(
+            (self._current_key, self._current_namespace), None)
+
+    # -- state handles -----------------------------------------------------
+    def get_partitioned_state(self, descriptor: StateDescriptor) -> State:
+        handle = self._handles.get(descriptor.name)
+        if handle is None:
+            prev = self._descriptors.get(descriptor.name)
+            if prev is not None and prev.kind != descriptor.kind:
+                raise ValueError(f"State {descriptor.name!r} already "
+                                 f"registered as {prev.kind}")
+            self._descriptors[descriptor.name] = descriptor
+            handle = _HANDLE_TYPES[descriptor.kind](self, descriptor)
+            self._handles[descriptor.name] = handle
+        return handle
+
+    # -- checkpointing -----------------------------------------------------
+    def snapshot(self, checkpoint_id: int) -> dict:
+        now = time.time()
+        out: dict[str, dict[int, list]] = {}
+        for name, table in self._states.items():
+            per_kg: dict[int, list] = {}
+            for kg, kg_map in table.items():
+                items = [(kn, e.value, e.expiry) for kn, e in kg_map.items()
+                         if e.expiry is None or e.expiry > now]
+                if items:
+                    per_kg[kg] = items
+            out[name] = per_kg
+        return {"kind": "heap", "states": out,
+                "serializers": {name: list(DEFAULT_SERIALIZER)
+                                for name in out}}
+
+    def restore(self, snapshots: Iterable[dict]) -> None:
+        self._states.clear()
+        self._handles.clear()
+        for snap in snapshots:
+            sers = snap.get("serializers") or {}
+            for name, per_kg in snap.get("states", {}).items():
+                rec = sers.get(name)
+                if rec is not None and tuple(rec) != DEFAULT_SERIALIZER:
+                    raise RuntimeError(
+                        f"state {name!r}: snapshot was written by serializer "
+                        f"{rec[0]!r} v{rec[1]}; the port restores the "
+                        f"default {DEFAULT_SERIALIZER[0]!r} "
+                        f"v{DEFAULT_SERIALIZER[1]} only (the serializer "
+                        "registry is ROADMAP Queue 1 item 10, group 3)")
+                table = self._table(name)
+                for kg, items in per_kg.items():
+                    kg = int(kg)
+                    if kg not in self.key_group_range:
+                        continue  # rescaling: not ours
+                    m = table.setdefault(kg, {})
+                    for kn, value, expiry in items:
+                        m[tuple(kn) if isinstance(kn, list) else kn] = \
+                            _Entry(value, expiry)
+
+
+class _HeapValueState(ValueState):
+    def __init__(self, backend: HeapKeyedStateBackend, desc: StateDescriptor):
+        self._b, self._d = backend, desc
+
+    def value(self) -> Any:
+        v = self._b._get(self._d)
+        return self._d.default if v is None else v
+
+    def update(self, value: Any) -> None:
+        self._b._put(self._d, value)
+
+    def clear(self) -> None:
+        self._b._remove(self._d)
+
+
+class _HeapListState(ListState):
+    def __init__(self, backend: HeapKeyedStateBackend, desc: StateDescriptor):
+        self._b, self._d = backend, desc
+
+    def get(self) -> list:
+        return self._b._get(self._d) or []
+
+    def add(self, value: Any) -> None:
+        cur = self._b._get(self._d)
+        if cur is None:
+            self._b._put(self._d, [value])
+        else:
+            cur.append(value)
+            self._b._put(self._d, cur)
+
+    def update(self, values: list) -> None:
+        self._b._put(self._d, list(values))
+
+    def clear(self) -> None:
+        self._b._remove(self._d)
+
+
+class _HeapReducingState(ReducingState):
+    def __init__(self, backend: HeapKeyedStateBackend,
+                 desc: ReducingStateDescriptor):
+        self._b, self._d = backend, desc
+        self._fn = desc.reduce_function
+
+    def get(self) -> Any:
+        return self._b._get(self._d)
+
+    def add(self, value: Any) -> None:
+        cur = self._b._get(self._d)
+        self._b._put(self._d,
+                     value if cur is None else self._fn.reduce(cur, value))
+
+    def clear(self) -> None:
+        self._b._remove(self._d)
+
+
+class _HeapAggregatingState(AggregatingState):
+    def __init__(self, backend: HeapKeyedStateBackend,
+                 desc: AggregatingStateDescriptor):
+        self._b, self._d = backend, desc
+        self._fn = desc.aggregate_function
+
+    def get(self) -> Any:
+        acc = self._b._get(self._d)
+        return None if acc is None else self._fn.get_result(acc)
+
+    def get_accumulator(self) -> Any:
+        return self._b._get(self._d)
+
+    def add(self, value: Any) -> None:
+        acc = self._b._get(self._d)
+        if acc is None:
+            acc = self._fn.create_accumulator()
+        self._b._put(self._d, self._fn.add(value, acc))
+
+    def merge_accumulator(self, other: Any) -> None:
+        acc = self._b._get(self._d)
+        self._b._put(self._d,
+                     other if acc is None else self._fn.merge(acc, other))
+
+    def clear(self) -> None:
+        self._b._remove(self._d)
+
+
+class _HeapMapState(MapState):
+    def __init__(self, backend: HeapKeyedStateBackend, desc: StateDescriptor):
+        self._b, self._d = backend, desc
+
+    def _map(self) -> dict:
+        m = self._b._get(self._d)
+        if m is None:
+            m = {}
+            self._b._put(self._d, m)
+        return m
+
+    def get(self, key: Any) -> Any:
+        return self._map().get(key)
+
+    def put(self, key: Any, value: Any) -> None:
+        m = self._map()
+        m[key] = value
+        self._b._put(self._d, m)
+
+    def remove(self, key: Any) -> None:
+        m = self._map()
+        m.pop(key, None)
+        self._b._put(self._d, m)
+
+    def contains(self, key: Any) -> bool:
+        return key in self._map()
+
+    def items(self):
+        return self._map().items()
+
+    def clear(self) -> None:
+        self._b._remove(self._d)
+
+
+_HANDLE_TYPES = {
+    "value": _HeapValueState,
+    "list": _HeapListState,
+    "reducing": _HeapReducingState,
+    "aggregating": _HeapAggregatingState,
+    "map": _HeapMapState,
+}
+
+register_backend("hashmap", HeapKeyedStateBackend)

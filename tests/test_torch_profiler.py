@@ -20,6 +20,10 @@ against flink_tpu/metrics/profiler.py.
   where the port runs its step on the device batch; the reference's Q5
   fire ranks inside the fire program, so ``ops.pallas_topk`` is the
   port's alone.
+* One batch through a window -> sink chain: the reference charges what
+  the window dispatches after it emits to the sink, the port to the
+  window (ROADMAP Queue 3, a kept difference); the tiny Q5's counts are
+  compared with that charge moved.
 * A disabled ledger records nothing; the CPU timing, the cost model and
   the context hop to the watchdog's worker behave as documented. The CUDA
   event timing runs on the card only (``cuda`` marker).
@@ -331,6 +335,18 @@ def _dispatches(profile: dict) -> dict:
     return out
 
 
+def _charge_sink_work_to_window(dispatches: dict,
+                                sink: str = "1:Collect",
+                                window: str = "0:DeviceWindowAgg") -> dict:
+    """The reference's dispatch counts with what it charged to the sink
+    moved to the window (a sink dispatches no device work of its own)."""
+    out: dict = {}
+    for (job, op, site), n in dispatches.items():
+        k = (job, window if op == sink else op, site)
+        out[k] = out.get(k, 0) + n
+    return out
+
+
 @pytest.mark.parametrize("incremental", [False, True])
 def test_tiny_q5_gives_the_reference_sites_and_counts(ref, incremental):
     from flink_tpu.metrics.profiler import DEVICE_LEDGER as REF_LEDGER
@@ -349,6 +365,11 @@ def test_tiny_q5_gives_the_reference_sites_and_counts(ref, incremental):
             k = (job, op, "device_window.step")
             want[k] = want.get(k, 0) + n
     want = {k: n for k, n in want.items() if k[2] != "transfer.h2d"}
+    # the reference charges the window's device work after an emit to the
+    # chained sink (the sink's context stays pinned); the port gives the
+    # pin back to the window (ROADMAP Queue 3, a kept difference): the
+    # same sites and counts, every one the window's
+    want = _charge_sink_work_to_window(want)
     # the reference's Q5 fire ranks inside its fire program: the select
     # site is the port's alone (one a fire)
     selects = {k: n for k, n in got.items() if k[2] == "ops.pallas_topk"}
@@ -370,7 +391,8 @@ def test_fused_q5_times_one_chain_step_a_micro_batch(ref):
     settings = {"profiler.enabled": True, "pipeline.fusion.enabled": True}
     assert len(_q5(False, settings)) == len(_q5(True, settings))
     got = _dispatches(port_prof.DEVICE_LEDGER.profile(top=10_000))
-    want = _dispatches(REF_LEDGER.profile(top=10_000))
+    want = _charge_sink_work_to_window(
+        _dispatches(REF_LEDGER.profile(top=10_000)))
     steps = {k: n for k, n in got.items() if k[2] == "chain.fused_step"}
     assert steps == {k: n for k, n in want.items()
                      if k[2] == "chain.fused_step"}
@@ -379,6 +401,50 @@ def test_fused_q5_times_one_chain_step_a_micro_batch(ref):
     # marker (the card records one a capture)
     assert not any(k[2] == "chain.fused_prelude" for k in got)
     assert any(k[2] == "chain.fused_prelude" for k in want)
+
+
+def test_a_window_keeps_the_device_work_it_dispatches_after_an_emit(ref):
+    """ROADMAP Queue 3, a kept difference: one batch through a window ->
+    sink chain in both packages, the window dispatching once after it
+    emits. The reference's chained call leaves the sink pinned, so the
+    dispatch is charged to the sink; the port's gives the pin back, so it
+    is the window's."""
+    from flink_tpu.core.config import Configuration as RefConfiguration
+    from flink_tpu.core.records import RecordBatch as RefBatch
+    from flink_tpu.core.records import Schema as RefSchema
+    from flink_tpu.runtime.operators import base as ref_base
+    from flink_tpu_torch.core.records import RecordBatch, Schema
+    from flink_tpu_torch.runtime.operators import base as port_base
+    ref_prof = ref[0]
+    charged = {}
+    for side, base, prof, conf, batch_cls, schema_cls in (
+            ("ref", ref_base, ref_prof, RefConfiguration, RefBatch,
+             RefSchema),
+            ("port", port_base, port_prof, Configuration, RecordBatch,
+             Schema)):
+        config = conf()
+        config.set("profiler.enabled", True)
+        prof.DEVICE_LEDGER.configure(config)
+        ledger = prof.DEVICE_LEDGER
+
+        class Window(base.OneInputOperator):
+            def process_batch(self, batch):
+                self.output.emit(batch)
+                ledger.record("device_window.fire", 1.0)
+
+        class Sink(base.OneInputOperator):
+            def process_batch(self, batch):
+                pass
+
+        ctx = base.OperatorContext("task", 0, 1, 128, config=config)
+        chain = base.OperatorChain([Window("Window"), Sink("Sink")], ctx,
+                                   base.CollectingOutput())
+        chain.process_batch(batch_cls.from_rows(
+            schema_cls([("v", np.int64)]), [1, 2]))
+        charged[side] = {(r["operator"], r["site"], r["count"])
+                         for r in ledger.profile(top=100)["programs"]}
+    assert charged["ref"] == {("1:Sink", "device_window.fire", 1)}
+    assert charged["port"] == {("0:Window", "device_window.fire", 1)}
 
 
 def test_a_disabled_ledger_records_nothing():
