@@ -420,7 +420,9 @@ MULT = 0x9E3779B97F4A7C15      # bench.py's key mixer
 INT64_MAX = (1 << 63) - 1
 MIN_TIMESTAMP = -(1 << 62)     # first open pane before any fire
 PANE_MS, WINDOW_PANES, RING, BATCH, TOPK = 2000, 5, 16, 1 << 19, 1000
-Q5_RUNS = 4                    # timed runs of Q5-10M and the runtime cell
+Q5_RUNS = 2                    # timed runs of Q5-10M and the runtime cell
+#                                (4 before the connectors phase: cut for
+#                                the time limit)
 SHORT_RUNS = 2                 # timed runs of the Q5-1M and Q7 cells
 WIDE_RUNS = 1                  # timed runs of the W = 20 cell
 WIDE_PANES = 20                # bench.py --window-panes 20
@@ -1570,6 +1572,36 @@ def seal_planes(torch, dev, sig: str, ring: int, cap: int, gen):
     return copies
 
 
+def window_library_ms(torch, flush, planes, rows: list, leaves: list,
+                      sub_row: int) -> dict:
+    """The library call beside the window kernels: one ``torch.sum`` over
+    dim 0 of the W ring rows of a plane (a slice of the ring, no gather),
+    which gives an invertible plane's window value, the view the rebuild
+    and the seal write (they also write the state the next seal starts
+    from, the view less the retiring row); first held equal to the view a
+    plain rebuild of the window's own live rows writes. A plane that
+    keeps a merge tree (max) has no such call: ``torch.amax`` gives its
+    view, not the tree the kernels keep, so ``library_ms`` is None."""
+    from flink_tpu_torch.ops.window_seal import rebuild_plain
+
+    if any(kind not in ("sum", "count") for kind, *_ in planes):
+        return {"library_ms": None,
+                "library_call": "none: torch.amax gives the view, not the "
+                                "merge tree the kernels keep"}
+    rebuild_plain(planes, rows, leaves, sub_row, True)
+    idx = torch.tensor(rows, device=planes[0][1].device)
+    for _kind, pane, _state, view in planes:
+        if not torch.equal(torch.sum(pane.index_select(0, idx), 0)
+                           .to(view.dtype), view):
+            raise AssertionError("torch.sum over the live rows differs from "
+                                 "the window's view")
+    W = len(rows)
+    return {"library_ms": sum(
+        cuda_ms(lambda p=pane: torch.sum(p[:W], 0), torch, flush)
+        for _kind, pane, _state, _view in planes),
+        "library_call": f"torch.sum(pane[:{W}], 0), one a plane"}
+
+
 def check_window_seal(torch, dev, flush) -> dict:
     """window_seal and window_rebuild against their plain versions on each
     SEAL_CASES shape: a rebuild from the window's W live rows, then seals
@@ -1625,6 +1657,8 @@ def check_window_seal(torch, dev, flush) -> dict:
             seal_bound = bound_ms(seal_bytes(kern, *args))
             rebuild_bound = bound_ms(rebuild_bytes(kern, rows, sub_row,
                                                    True))
+            library = window_library_ms(torch, flush, plain, rows, leaves,
+                                        sub_row)
             out[name] = {
                 "capacity": cap, "ring": ring, "tree_leaves": L,
                 "window_panes": W,
@@ -1640,7 +1674,7 @@ def check_window_seal(torch, dev, flush) -> dict:
                     reps=5),
                 "rebuild_bound_ms": rebuild_bound,
                 "rebuild_share_of_bound": rebuild_bound / rebuild_ms,
-                "bound_by": "bytes", "library_ms": None}
+                "bound_by": "bytes", **library}
             del kern, plain
     # integers: the count of view and state entries that differ
     return {"max_abs_err": mismatches, "shapes": out}
@@ -1756,7 +1790,8 @@ def q5_env(torch, dev, n_keys: int, n_events: int, capacity: int,
            fused: bool = False, wm_interval: float = 0.0,
            settings: dict | None = None, rate: float | None = None,
            staging: int = 1 << 16, source_hook=None, gen=None, sink=None,
-           stage=None):
+           stage=None, source=None, watermarks=None,
+           window_bounds: bool = False):
     """The Q5 pipeline on a fresh StreamExecutionEnvironment, not yet
     executed; returns (env, got, span ms), ``got`` filled by the sink with
     (window end - 1, auctions, bids, revenue) per window. ``defer`` False
@@ -1773,7 +1808,10 @@ def q5_env(torch, dev, n_keys: int, n_events: int, capacity: int,
     generator in place of ``q5_gen`` (the same price and ts, other
     keys); ``sink``: a port ``Sink`` in place of the one that fills
     ``got``; ``stage(stream) -> stream``: steps between the source and
-    the keyed exchange (a filter)."""
+    the keyed exchange (a filter); ``source``: a port ``Source`` of the
+    same schema in place of the ``DataGenSource`` (a file or a log), with
+    ``watermarks`` in place of monotonous ones on ``ts``;
+    ``window_bounds``: the rows carry window_start and window_end."""
     from flink_tpu_torch.api import StreamExecutionEnvironment
     from flink_tpu_torch.connectors.datagen import DataGenSource
     from flink_tpu_torch.core import Configuration, Schema, WatermarkStrategy
@@ -1795,14 +1833,16 @@ def q5_env(torch, dev, n_keys: int, n_events: int, capacity: int,
                        "pipeline.fusion.enabled": fused,
                        "pipeline.auto-watermark-interval": wm_interval,
                        **(settings or {})}), device=dev)
-    ws = WatermarkStrategy.for_monotonous_timestamps() \
+    ws = (watermarks or WatermarkStrategy.for_monotonous_timestamps()) \
         .with_timestamp_column("ts")
-    source = DataGenSource((gen or q5_gen)(n_keys, n_events, span), schema,
-                           count=n_events, rate_per_sec=rate,
-                           timestamp_column="ts", device=True)
+    name = "DataGen" if source is None else type(source).__name__
+    if source is None:
+        source = DataGenSource((gen or q5_gen)(n_keys, n_events, span),
+                               schema, count=n_events, rate_per_sec=rate,
+                               timestamp_column="ts", device=True)
     if source_hook is not None:
         source_hook(source)
-    stream = env.from_source(source, ws, "DataGen")
+    stream = env.from_source(source, ws, name)
     if stage is not None:
         stream = stage(stream)
     (stream
@@ -1812,7 +1852,7 @@ def q5_env(torch, dev, n_keys: int, n_events: int, capacity: int,
                            AggSpec("sum", "price", out_name="revenue")],
                           capacity=capacity,
                           ring_size=ring_for(window_panes),
-                          emit_window_bounds=False, emit_topk=topk,
+                          emit_window_bounds=window_bounds, emit_topk=topk,
                           defer_overflow=defer, async_fire=True,
                           spill_staging_slots=staging)
         .add_sink(collect if sink is None else sink))
@@ -2739,6 +2779,7 @@ def mirror_phase(torch, dev) -> dict:
     backend = op.backend
     records = []
     last = [None]
+    whole = [None]   # the digest of the last whole-copy snapshot
 
     def feed(k: int) -> None:
         for _ in range(k):
@@ -2746,17 +2787,21 @@ def mirror_phase(torch, dev) -> dict:
             last[0] = batch
             h.process_batch(batch)
 
-    def snap(label: str) -> None:
+    def snap(label: str, unchanged: bool = False) -> None:
+        """``unchanged``: nothing reached the state since the last
+        snapshot, so its whole copy (15 to 20 s at Q5-10M) stands."""
         cid = len(records) + 1
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         got = op.snapshot_state(cid)["keyed"]["backend"]
         took = time.perf_counter() - t0
         log = dict(backend.snapshot_log[-1])
-        t1 = time.perf_counter()
-        want = backend.snapshot_plain(cid)
-        plain_s = time.perf_counter() - t1
-        if snapshot_digest(got) != snapshot_digest(want):
+        plain_s = None
+        if not unchanged:
+            t1 = time.perf_counter()
+            whole[0] = snapshot_digest(backend.snapshot_plain(cid))
+            plain_s = time.perf_counter() - t1
+        if snapshot_digest(got) != whole[0]:
             raise AssertionError(f"mirror snapshot '{label}' differs from "
                                  "the whole-copy snapshot")
         records.append({"snapshot": label, "seconds": took, **log,
@@ -2766,7 +2811,7 @@ def mirror_phase(torch, dev) -> dict:
     snap("full_capture")
     feed(8)
     snap("delta_under_load")
-    snap("idle")
+    snap("idle", unchanged=True)
     hot = torch.arange(64, dtype=torch.int64, device=dev).repeat(16)
     ts = torch.full_like(hot, last[0].ts_max)
     h.process_batch(DeviceRecordBatch(
@@ -3360,7 +3405,8 @@ SESSION_CELLS = {
                      "capacity": 1 << 18, "lanes": 4, "span": 200_000,
                      "gap": 5000, "lag": 1000, "agg": "sum"},
 }
-SESSION_RUNS = 3               # timed runs of each session cell
+SESSION_RUNS = 2               # timed runs of each session cell (3 before
+#                                the connectors phase: cut for the limit)
 SESSION_PREFIX = 4             # Q11 batches in the state before a timed step
 SESSION_MID = 32               # Q11 batches before the mid-run step and fire
 SESS_CKPT_RUN_S, SESS_CKPT_INTERVAL_S = 2.0, 0.25   # session checkpoints
@@ -8184,9 +8230,8 @@ def value_state_phase(torch, dev) -> dict:
 
 
 # -- the SQL joins on the host plane (sql_join) --------------------------------
-SQL_JOIN_AUCTIONS = 1 << 18
-SQL_JOIN_PERSONS = 1 << 16
-SQL_JOIN_SELLERS = SQL_JOIN_PERSONS + (1 << 12)   # some sellers unknown
+SQL_JOIN_AUCTIONS = 1 << 17    # 2^18 and 2^16 before the connectors
+SQL_JOIN_PERSONS = 1 << 15     # phase: cut for the time limit
 SQL_JOIN_Q3 = ("SELECT A.id AS aid, A.seller AS seller, P.id AS pid "
                "FROM auction AS A INNER JOIN person AS P "
                "ON A.seller = P.id WHERE A.category = 10")
@@ -8312,7 +8357,9 @@ FAULT_SEED = 17
 RESTART_RUN_S = 3.0            # the supervised run's source pacing
 RESTART_INTERVAL_S = 0.5       # and its checkpoint interval
 RESTART_SPEC = "sink.invoke=once@8!persistent"
-WATCHDOG_RUNS = 5              # Q5-10M runs with the watchdog on and off
+WATCHDOG_RUNS = 3              # Q5-10M runs with the watchdog on and off
+#                                (5 before the connectors phase: cut for
+#                                the time limit)
 HANDOFF_CALLS = 20_000         # no-op guarded and supervised calls timed
 HANDOFF_REPEATS = 5            # on the host, this many times each
 
@@ -10294,11 +10341,688 @@ def datastream_core_phase(torch, dev, sizes: dict | None = None) -> dict:
     return out
 
 
+# -- connectors, file systems and formats ------------------------------------
+#: (a) Q5 at 10M keys from columnar files: Q5-10M's bid stream, written in
+#: ``files`` parts (a manual checkpoint rolls each), read back through
+#: FileSource
+CONN_Q5 = {"keys": 10_000_000, "events": 1 << 25, "capacity": 1 << 24,
+           "batch": BATCH, "files": 4}
+#: (b) SQL over the filesystem: csv bids into the device GROUP BY, and an
+#: append-only INSERT INTO a json table under checkpoints of ``ckpt_s``
+CONN_SQL = {"rows": 1 << 18, "auctions": 1 << 16, "batch": 1 << 14,
+            "hot_price": 990, "ckpt_s": 0.05}
+#: (c) the log: Q5's shape over ``auctions`` from a topic of ``lines`` json
+#: bids in ``partitions``, its fired rows into a transactional topic; then
+#: ``net_lines`` through a broker on loopback
+CONN_LOG = {"lines": 1 << 18, "net_lines": 1 << 14, "auctions": 1 << 16,
+            "partitions": 4, "batch": 1 << 12, "capacity": 1 << 18,
+            "cut": 2 / 3}
+#: (d) the socket: ``lines`` of "word ts" into a word count of tumbling
+#: windows of ``window_ms`` on the host WindowOperator
+CONN_SOCKET = {"lines": 1 << 14, "words": 500, "window_ms": 1000,
+               "span_ms": 8000}
+Q5_FIELDS = (("auction", np.int64), ("price", np.int64), ("ts", np.int64))
+
+
+def q5_host_gen(n_keys: int, n_events: int, span: int):
+    """``q5_gen`` on numpy indices (a host source's batches)."""
+    def gen(idx):
+        return {"auction": bid_keys(idx, n_keys), "price": idx % 997 + 1,
+                "ts": (idx * span) // n_events}
+
+    return gen
+
+
+def commit_watch(sink):
+    """``sink`` behind a port ``Sink`` whose writers pass every call on
+    and record each checkpoint id they committed (``committed``);
+    ``wait_commit(cid)`` blocks until one did."""
+    import threading
+
+    from flink_tpu_torch.connectors.core import Sink, SinkWriter
+
+    class Watch(Sink):
+        def __init__(self):
+            self.inner = sink
+            self.committed: list[int] = []
+            self.cond = threading.Condition()
+
+        def create_writer(self, subtask_index: int):
+            inner, watch = sink.create_writer(subtask_index), self
+
+            class Writer(SinkWriter):
+                def write_batch(self, batch):
+                    inner.write_batch(batch)
+
+                def flush(self):
+                    inner.flush()
+
+                def prepare_commit(self, checkpoint_id):
+                    inner.prepare_commit(checkpoint_id)
+
+                def commit(self, checkpoint_id):
+                    inner.commit(checkpoint_id)
+                    with watch.cond:
+                        watch.committed.append(checkpoint_id)
+                        watch.cond.notify_all()
+
+                def snapshot(self):
+                    return inner.snapshot()
+
+                def restore(self, state):
+                    inner.restore(state)
+
+                def close(self):
+                    inner.close()
+
+            return Writer()
+
+        def wait_commit(self, cid: int, timeout: float = 120.0) -> None:
+            with self.cond:
+                if not self.cond.wait_for(lambda: cid in self.committed,
+                                          timeout):
+                    raise AssertionError(f"checkpoint {cid} never "
+                                         "committed at the sink")
+
+    return Watch()
+
+
+def checkpoint_at(job, coordinator, records: int,
+                  timeout: float = 300.0):
+    """Once the job's sources have read ``records``, one checkpoint
+    (the job has no periodic ones); returns the completed checkpoint."""
+    t0 = time.perf_counter()
+    while (job.records_in < records and not job._done.is_set()
+           and time.perf_counter() - t0 < timeout):
+        time.sleep(0.001)
+    if job._done.is_set():
+        raise AssertionError(f"the job ended before {records} records "
+                             f"were read ({job.records_in}): "
+                             f"{job._failed}")
+    pending = coordinator.trigger_checkpoint()
+    t0 = time.perf_counter()
+    # a source that ended before the barrier reached it never takes it
+    while (not pending.done.wait(0.05) and not job._done.is_set()
+           and time.perf_counter() - t0 < timeout):
+        pass
+    if pending.completed is None and not pending.done.wait(1.0):
+        raise AssertionError(f"checkpoint {pending.checkpoint_id} did not "
+                             f"complete; the job ended: {job._done.is_set()}")
+    if pending.completed is None:
+        raise AssertionError(f"checkpoint {pending.checkpoint_id} failed")
+    return pending.completed
+
+
+def manual_coordinator(job):
+    from flink_tpu_torch.checkpoint.coordinator import CheckpointCoordinator
+    return CheckpointCoordinator(job, job.config)
+
+
+def card_stage(torch, dev):
+    """The stage a job puts between a host source and the device window:
+    a map whose batch path moves the columns and timestamps to the card
+    (a ``DeviceRecordBatch``), so the window takes its deferred step, one
+    ``ingest_step`` a batch, as on a device source."""
+    from flink_tpu_torch.core.device_records import DeviceRecordBatch
+    from flink_tpu_torch.core.functions import MapFunction
+
+    class ToCard(MapFunction):
+        def map_batch(self, b):
+            ts = np.asarray(b.timestamps)
+            cols = {n: torch.from_numpy(np.ascontiguousarray(c)).to(dev)
+                    for n, c in b.columns.items()}
+            return DeviceRecordBatch(b.schema, cols,
+                                     torch.from_numpy(ts).to(dev),
+                                     int(ts.min()), int(ts.max()), "ts")
+
+    return lambda stream: stream.map(ToCard(), "ToCard")
+
+
+def q5_rows(batches) -> list:
+    """A Q5 sink's batches as ``q5_env``'s ``got`` rows."""
+    return [(int(b.timestamps[0]), b.column("auction"), b.column("bids"),
+             b.column("revenue")) for b in batches if b.n]
+
+
+def disjoint_windows(expected: list, parts: list) -> list:
+    """Every part's windows against the oracle, none in two parts, and
+    together every window; returns each part's window count."""
+    by_end = {e[0]: e for e in expected}
+    ends = []
+    for rows in parts:
+        e = [(ts + 1) // PANE_MS for ts, *_ in rows]
+        if not set(e) <= set(by_end) or len(set(e)) != len(e):
+            raise AssertionError(f"windows {e} repeat or are unknown")
+        q5_check([by_end[x] for x in e], rows)
+        ends.append(e)
+    every = sorted(x for e in ends for x in e)
+    if every != sorted(by_end):
+        raise AssertionError(f"the parts' windows {ends} are not every "
+                             f"window once")
+    return [len(e) for e in ends]
+
+
+def part_files(directory: str) -> tuple[list, list]:
+    """(committed part files, in-progress files) of a sink directory."""
+    names = sorted(os.listdir(directory))
+    return ([n for n in names if not n.startswith(".")],
+            [n for n in names if n.endswith(".inprogress")])
+
+
+def q5_files_write(torch, dev, directory: str, c: dict) -> dict:
+    """(a), the write: Q5's bid stream (a host source) into a columnar
+    FileSink, a manual checkpoint after each ``files``-th of the events;
+    each checkpoint's part must be visible once it committed, and the end
+    leaves every part committed and none in progress."""
+    from flink_tpu_torch.api import StreamExecutionEnvironment
+    from flink_tpu_torch.connectors.file import FileSink
+    from flink_tpu_torch.core import Configuration, Schema
+    from flink_tpu_torch.formats.columnar import ColumnarFormat
+
+    n, span = c["events"], q5_panes(c["events"], c["batch"]) * PANE_MS
+    schema = Schema(list(Q5_FIELDS))
+    env = StreamExecutionEnvironment(
+        Configuration({"pipeline.micro-batch-size": c["batch"]}), device=dev)
+    sink = commit_watch(FileSink(directory, ColumnarFormat(schema),
+                                 rolling_size=1 << 40))
+    env.datagen(q5_host_gen(c["keys"], n, span), schema,
+                count=n).add_sink(sink, "ColumnarFiles")
+    t0 = time.perf_counter()
+    job = env.execute_async("q5-files-write")
+    coordinator = manual_coordinator(job)
+    for k in range(1, c["files"]):
+        cp = checkpoint_at(job, coordinator, k * n // c["files"])
+        sink.wait_commit(cp.checkpoint_id)
+        if len(part_files(directory)[0]) != k:
+            raise AssertionError(f"after checkpoint {k}: parts "
+                                 f"{part_files(directory)}")
+    job.wait()
+    wall = time.perf_counter() - t0
+    committed, in_progress = part_files(directory)
+    if in_progress or len(committed) != c["files"]:
+        raise AssertionError(f"the write left parts {committed} and in "
+                             f"progress {in_progress}")
+    nbytes = sum(os.path.getsize(os.path.join(directory, f))
+                 for f in committed)
+    (src,) = job.source_tasks.values()
+    return {"events": n, "batch": c["batch"], "format": "columnar",
+            "checkpoints": len(coordinator.stats),
+            "files_committed": len(committed), "in_progress_left": 0,
+            "bytes_written": nbytes, "bytes_a_row": nbytes / n,
+            "wall_s": wall, "events_per_sec": n / wall,
+            "task_cpu_s": src.cpu_s}
+
+
+def q5_files_env(torch, dev, directory: str, c: dict, **kw):
+    """(a), the read: FileSource over the committed parts -> the card ->
+    key_by(auction) -> Q5's sliding window, count and sum(price), top
+    1000, as ``q5_env``."""
+    from flink_tpu_torch.connectors.file import FileSource
+    from flink_tpu_torch.core import Schema
+    from flink_tpu_torch.formats.columnar import ColumnarFormat
+
+    source = FileSource(directory, ColumnarFormat(Schema(list(Q5_FIELDS))))
+    return q5_env(torch, dev, c["keys"], c["events"], c["capacity"],
+                  batch=c["batch"], source=source,
+                  stage=card_stage(torch, dev), **kw)
+
+
+def q5_files_read(torch, dev, directory: str, c: dict) -> dict:
+    """(a), the read, timed: every window against the Q5 oracle, one
+    ``ingest_step`` a batch; the reader's CPU seconds in reads and in
+    decode, the window task's idle share and the peak memory."""
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+
+    start = fresh_memory(torch)
+    env, got, span = q5_files_env(torch, dev, directory, c)
+    reset_launches()
+    job = env.execute("q5-files-read")
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(KERNEL_LAUNCHES)
+    windows = q5_oracle_check(c["keys"], c["events"], span, got)
+    if dev.type == "cuda" and (
+            launches["ingest_step"] != c["events"] // c["batch"]
+            or not launches["hist256"]):
+        raise AssertionError(f"(a) read: launches {launches}")
+    (src,) = job.source_tasks.values()
+    tasks = task_record(job)
+    (win,) = [t for t in tasks if t not in job.source_tasks]
+    return {"windows_checked": windows, "wall_s": job.wall_s,
+            "events_per_sec": c["events"] / job.wall_s,
+            "source_cpu_s": src.cpu_s, "reader": dict(src.reader.stats),
+            "window_task_idle_share": tasks[win]["idle_s"] / job.wall_s,
+            "tasks": tasks, "peak_bytes": peak, "start": start,
+            "launches": {k: v for k, v in launches.items() if v},
+            "state_bytes": next(op.backend.state_nbytes
+                                for op in job.operators
+                                if hasattr(op, "backend"))}
+
+
+def columnar_frames(path: str) -> list[int]:
+    """The rows of each frame of a columnar file, from the frames'
+    headers (``formats/columnar.py``'s layout)."""
+    import struct
+
+    rows = []
+    with open(path, "rb") as f:
+        while head := f.read(12):
+            ln, _magic, hlen = struct.unpack("<I4sI", head)
+            rows.append(json.loads(f.read(hlen))["n"])
+            f.seek(ln - 8 - hlen, os.SEEK_CUR)
+    return rows
+
+
+def mid_file_cut(directory: str) -> int:
+    """Events to read before the read job's checkpoint: half the frames
+    of the middle part, so windows fire before it and the checkpoint
+    lands inside the part unless the source runs ahead by the rest of
+    its frames."""
+    frames = [columnar_frames(os.path.join(directory, f))
+              for f in part_files(directory)[0]]
+    mid = len(frames) // 2
+    return (sum(sum(f) for f in frames[:mid])
+            + sum(frames[mid][:max(1, len(frames[mid]) // 2)]))
+
+
+def q5_files_restore(torch, dev, directory: str, c: dict) -> dict:
+    """(a) across a restore: the read job into a transactional sink, one
+    checkpoint inside a part file (``mid_file_cut``), a cancel after the
+    checkpoint committed, then a fresh job restored from it; the first
+    job's committed windows and the second's are every window once."""
+    from flink_tpu_torch.connectors.core import TransactionalCollectSink
+
+    cut = mid_file_cut(directory)
+    fresh_memory(torch)
+    tx = TransactionalCollectSink()
+    sink = commit_watch(tx)
+    env, _got, span = q5_files_env(torch, dev, directory, c, sink=sink)
+    job = env.execute_async("q5-files-checkpointed")
+    coordinator = manual_coordinator(job)
+    t0 = time.perf_counter()
+    cp = checkpoint_at(job, coordinator, cut)
+    ckpt_s = time.perf_counter() - t0
+    sink.wait_commit(cp.checkpoint_id)
+    job.cancel()
+    (reader,) = [s["reader"] for s in cp.task_snapshots.values()
+                 if s.get("reader") is not None]
+    parts = part_files(directory)[0]
+    size = os.path.getsize(os.path.join(directory, parts[reader["file"]]))
+    if not 0 < reader["pos"] < size:
+        raise AssertionError(f"the checkpoint's reader {reader} is not "
+                             f"inside its file of {size} bytes")
+    before = q5_rows(tx.batches)
+    job.release()
+    del job, env, tx, sink
+    fresh_memory(torch)
+    env2, got2, _span = q5_files_env(torch, dev, directory, c)
+    env2.restore_from_checkpoint(cp)
+    t1 = time.perf_counter()
+    job2 = env2.execute("q5-files-restored")
+    restored_s = time.perf_counter() - t1
+    counts = disjoint_windows(q5_expected(c["keys"], c["events"], span),
+                              [before, got2])
+    if not all(counts):
+        raise AssertionError(f"(a) restore: windows before the cancel and "
+                             f"after the restore {counts}; one side empty")
+    job2.release()
+    return {"cut_events": cut, "checkpoint_reader": reader,
+            "file_bytes": size,
+            "checkpoint_s": ckpt_s, "snapshot_bytes":
+            coordinator.stats[-1]["bytes"],
+            "windows_before_cancel": counts[0],
+            "windows_after_restore": counts[1], "windows_repeated": 0,
+            "restored_run_s": restored_s}
+
+
+def connectors_q5_files(torch, dev, c: dict | None = None) -> dict:
+    """(a): Q5 at 10M keys written to and read from committed columnar
+    files (a temporary directory, removed after)."""
+    import shutil
+    import tempfile
+
+    c = dict(CONN_Q5, **(c or {}))
+    directory = tempfile.mkdtemp(prefix="flink_tpu_torch_q5_files_")
+    try:
+        write = q5_files_write(torch, dev, directory, c)
+        read = q5_files_read(torch, dev, directory, c)
+        restore = q5_files_restore(torch, dev, directory, c)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    return {"keys": c["keys"], "events": c["events"],
+            "capacity": c["capacity"], "write": write, "read": read,
+            "restore": restore}
+
+
+def connectors_sql(torch, dev, c: dict | None = None) -> dict:
+    """(b): a csv filesystem table of bids (written through INSERT INTO
+    from a view of a host source) read into the device GROUP BY (COUNT,
+    SUM, MIN, MAX of price by auction), every final group against numpy;
+    then an append-only INSERT INTO a json table under checkpoints, its
+    committed parts read back against the oracle's rows."""
+    import shutil
+    import tempfile
+
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+    from flink_tpu_torch.core import Schema
+    from flink_tpu_torch.formats.core import JsonFormat
+    from flink_tpu_torch.sql import TableEnvironment
+
+    c = dict(CONN_SQL, **(c or {}))
+    n, auctions = c["rows"], c["auctions"]
+    root = tempfile.mkdtemp(prefix="flink_tpu_torch_sql_fs_")
+    cols = "auction BIGINT, price BIGINT, ts BIGINT"
+    try:
+        env = sql_env(torch, dev, c["batch"])
+        t_env = TableEnvironment(env)
+        schema = Schema(list(Q5_FIELDS))
+        # Q5's bids with ts the event's index
+        t_env.create_temporary_view("gen", env.datagen(
+            q5_host_gen(auctions, n, n), schema, count=n), schema)
+        t_env.execute_sql(f"CREATE TABLE bids ({cols}) WITH ('connector' = "
+                          f"'filesystem', 'path' = '{root}/bids', "
+                          "'format' = 'csv')")
+        t0 = time.perf_counter()
+        wrote = t_env.execute_sql("INSERT INTO bids SELECT * FROM gen",
+                                  timeout=SQL_TIMEOUT_S).collect()
+        write_s = time.perf_counter() - t0
+        reset_launches()
+        t1 = time.perf_counter()
+        res = t_env.execute_sql(
+            "SELECT auction, COUNT(*) c, SUM(price) s, MIN(price) mn, "
+            "MAX(price) mx, AVG(price) a FROM bids GROUP BY auction",
+            timeout=SQL_TIMEOUT_S)
+        query_s = time.perf_counter() - t1
+        launches = {k: v for k, v in KERNEL_LAUNCHES.items() if v}
+        if dev.type == "cuda" and not launches.get("group_agg_first"):
+            raise AssertionError(f"(b): the GROUP BY left the card: "
+                                 f"{launches}")
+        groups = groupby_check(groupby_expected(auctions, n), res)
+        env.config.set("execution.checkpointing.interval", c["ckpt_s"])
+        t_env.execute_sql(f"CREATE TABLE hot ({cols}) WITH ('connector' = "
+                          f"'filesystem', 'path' = '{root}/hot', "
+                          "'format' = 'json')")
+        t2 = time.perf_counter()
+        hot = t_env.execute_sql(
+            f"INSERT INTO hot SELECT auction, price, ts FROM bids WHERE "
+            f"price > {c['hot_price']}", timeout=SQL_TIMEOUT_S).collect()
+        insert_s = time.perf_counter() - t2
+        committed, in_progress = part_files(f"{root}/hot")
+        if in_progress or len(committed) < 2:
+            raise AssertionError(f"(b) json sink: parts {committed}, in "
+                                 f"progress {in_progress}; a checkpoint "
+                                 "rolls and commits a part")
+        fmt = JsonFormat(schema)
+        rows = sorted(r for f in committed for r in fmt.decode_lines(
+            open(f"{root}/hot/{f}").read().splitlines()).iter_rows())
+        idx = np.arange(n, dtype=np.int64)
+        want = q5_host_gen(auctions, n, n)(idx)
+        keep = want["price"] > c["hot_price"]
+        expect = sorted(zip(want["auction"][keep].tolist(),
+                            want["price"][keep].tolist(),
+                            want["ts"][keep].tolist()))
+        if rows != expect or hot != [(len(expect),)]:
+            raise AssertionError(f"(b) json sink: {len(rows)} rows read "
+                                 f"back, {len(expect)} expected")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"rows": n, "auctions": auctions, "rows_written": wrote[0][0],
+            "csv_write_s": write_s, "group_by_s": query_s,
+            "group_by_rows_per_sec": n / query_s, "launches": launches,
+            **groups, "json_rows": len(rows), "json_parts": len(committed),
+            "insert_s": insert_s}
+
+
+def log_shape(c: dict, n: int) -> tuple[int, int]:
+    """(c)'s micro-batch and span ms for a topic of ``n`` lines: the
+    batch scaled with the topic, so the watermark's lag behind the
+    partitions' round-robin (``log_q5_env``) stays a few panes."""
+    batch = max(1, c["batch"] * n // c["lines"])
+    return batch, q5_panes(n, batch) * PANE_MS
+
+
+def log_bid_lines(n: int, auctions: int, partitions: int,
+                  span: int) -> list:
+    """(c)'s topic: Q5's bids (``auctions`` keys) as json lines, bid i in
+    partition i % partitions; the lines by partition."""
+    from flink_tpu_torch.core import RecordBatch, Schema
+    from flink_tpu_torch.formats.core import JsonFormat
+
+    idx = np.arange(n, dtype=np.int64)
+    batch = RecordBatch(Schema(list(Q5_FIELDS)),
+                        q5_host_gen(auctions, n, span)(idx))
+    lines = JsonFormat(batch.schema).encode_batch(batch).splitlines()
+    return [lines[p::partitions] for p in range(partitions)]
+
+
+def log_q5_env(torch, dev, broker, topic: str, out_topic: str, c: dict,
+               n: int, sink_wrap=None):
+    """(c)'s job: a bounded LogSource over ``topic`` -> Q5's window on the
+    card (a watermark behind the round-robin's disorder) -> a LogSink of
+    json rows into ``out_topic``."""
+    from flink_tpu_torch.connectors.log import LogSink, LogSource
+    from flink_tpu_torch.core import Schema, WatermarkStrategy
+    from flink_tpu_torch.formats.core import JsonFormat
+
+    # a poll reads a micro-batch of one partition, in turns: rows of the
+    # other partitions trail it by up to partitions x batch events, twice
+    # that after a restore (the turns start again at partition 0, where a
+    # partition read a batch ahead reads one more)
+    batch, span = log_shape(c, n)
+    lag = 2 * c["partitions"] * batch * span // n + PANE_MS
+    out = Schema([("auction", np.int64), ("window_start", np.int64),
+                  ("window_end", np.int64), ("bids", np.int32),
+                  ("revenue", np.int64)])
+    sink = LogSink(broker, out_topic, JsonFormat(out))
+    env, _got, _span = q5_env(
+        torch, dev, c["auctions"], n, c["capacity"], batch=batch,
+        source=LogSource(broker, topic, JsonFormat(Schema(list(Q5_FIELDS))),
+                         bounded=True),
+        watermarks=WatermarkStrategy.for_bounded_out_of_orderness(lag),
+        stage=card_stage(torch, dev), window_bounds=True,
+        sink=sink if sink_wrap is None else sink_wrap(sink))
+    return env, span
+
+
+def log_windows(broker, topic: str, partitions: int) -> list:
+    """The committed rows of a Q5 out topic as ``got`` rows, a window's
+    rows in the order they were written; a window whose rows repeat
+    fails."""
+    import json
+
+    rows = {}
+    for p in range(partitions):
+        for _o, line in broker.poll(topic, p, 0,
+                                    broker.end_offset(topic, p)):
+            r = json.loads(line)
+            rows.setdefault(r["window_end"], []).append(
+                (r["auction"], r["bids"], r["revenue"]))
+    got = []
+    for end in sorted(rows):
+        w = rows[end]
+        if len({a for a, _b, _r in w}) != len(w):
+            raise AssertionError(f"window {end}: a row committed twice")
+        got.append((end - 1, *(np.array(x) for x in zip(*w))))
+    return got
+
+
+def connectors_log(torch, dev, c: dict | None = None) -> dict:
+    """(c): Q5's shape over a 4-partition json topic in an
+    InMemoryLogBroker into a LogSink topic, cancelled after its first
+    checkpoint committed and restored, every window and line once; then
+    the same job through a LogBrokerServer on loopback."""
+    from flink_tpu_torch.connectors.log import InMemoryLogBroker
+    from flink_tpu_torch.connectors.log_net import LogBrokerServer, \
+        RemoteLogBroker
+
+    c = dict(CONN_LOG, **(c or {}))
+    n, parts = c["lines"], c["partitions"]
+    broker = InMemoryLogBroker(parts)
+    t0 = time.perf_counter()
+    span = log_shape(c, n)[1]
+    by_part = log_bid_lines(n, c["auctions"], parts, span)
+    for p, lines in enumerate(by_part):
+        broker.append("bids", p, lines)
+    produce_s = time.perf_counter() - t0
+    broker.create_topic("q5")
+    watch = {}
+
+    def wrap(sink):
+        watch["sink"] = commit_watch(sink)
+        return watch["sink"]
+
+    env, _span = log_q5_env(torch, dev, broker, "bids", "q5", c, n, wrap)
+    job = env.execute_async("q5-log-checkpointed")
+    cp = checkpoint_at(job, manual_coordinator(job), int(n * c["cut"]))
+    watch["sink"].wait_commit(cp.checkpoint_id)
+    job.cancel()
+    job.release()
+    committed_before = sum(broker.end_offset("q5", p) for p in range(parts))
+    env2, _span = log_q5_env(torch, dev, broker, "bids", "q5", c, n)
+    env2.restore_from_checkpoint(cp)
+    t1 = time.perf_counter()
+    job2 = env2.execute("q5-log-restored")
+    restored_s = time.perf_counter() - t1
+    if not committed_before:
+        raise AssertionError("(c): no window committed before the cancel")
+    expected = q5_expected(c["auctions"], n, span)
+    got = log_windows(broker, "q5", parts)
+    windows = q5_check(expected, got)
+    lines = sum(broker.end_offset("q5", p) for p in range(parts))
+    if lines != sum(len(w[1]) for w in got):
+        raise AssertionError("(c): the out topic holds lines of no window")
+    (reader,) = [s["reader"] for s in cp.task_snapshots.values()
+                 if s.get("reader") is not None]
+    job2.release()
+    # the same job at net_lines through a broker behind TCP on loopback
+    m = c["net_lines"]
+    server = LogBrokerServer(InMemoryLogBroker(parts), port=0)
+    remote = RemoteLogBroker(server.address)
+    try:
+        span_m = log_shape(c, m)[1]
+        by_part = log_bid_lines(m, c["auctions"], parts, span_m)
+        for p, lines_p in enumerate(by_part):
+            remote.append("bids", p, lines_p)
+        remote.create_topic("q5")
+        env3, _span = log_q5_env(torch, dev, remote, "bids", "q5", c, m)
+        t2 = time.perf_counter()
+        env3.execute("q5-log-net")
+        net_s = time.perf_counter() - t2
+        net_windows = q5_check(q5_expected(c["auctions"], m, span_m),
+                               log_windows(remote, "q5", parts))
+    finally:
+        remote.close()
+        server.close()
+    return {"lines": n, "partitions": parts, "auctions": c["auctions"],
+            "produce_s": produce_s, "checkpoint_offsets": reader,
+            "lines_committed_before_cancel": committed_before,
+            "lines_committed": lines, "windows_checked": windows,
+            "restored_run_s": restored_s,
+            "restored_lines_per_sec": n * (1 - c["cut"]) / restored_s,
+            "net_lines": m, "net_windows_checked": net_windows,
+            "net_run_s": net_s}
+
+
+def connectors_socket(torch, dev, c: dict | None = None) -> dict:
+    """(d): a loopback server writes ``lines`` of "word ts" and closes;
+    SocketSource -> a map that parses them (event time from ts) ->
+    key_by(word) -> tumbling windows -> sum on the hashmap backend and
+    the host WindowOperator, every window against a dict of the words."""
+    import socket
+    import threading
+
+    from flink_tpu_torch.api import StreamExecutionEnvironment
+    from flink_tpu_torch.connectors.socket import SocketSource
+    from flink_tpu_torch.core import Configuration, RecordBatch, Schema
+    from flink_tpu_torch.core.functions import MapFunction
+    from flink_tpu_torch.window import TumblingEventTimeWindows
+
+    c = dict(CONN_SOCKET, **(c or {}))
+    n = c["lines"]
+    idx = np.arange(n, dtype=np.int64)
+    words = wordcount_words(idx) % c["words"]
+    ts = idx * c["span_ms"] // n
+    payload = "".join(f"w{w} {t}\n" for w, t in zip(words.tolist(),
+                                                     ts.tolist())).encode()
+    srv = socket.create_server(("127.0.0.1", 0))
+    port = srv.getsockname()[1]
+
+    def serve():
+        conn, _ = srv.accept()
+        with conn:
+            conn.sendall(payload)
+
+    server = threading.Thread(target=serve, name="socket-smoke",
+                              daemon=True)
+    server.start()
+    out_schema = Schema([("word", object), ("one", np.int64)])
+
+    class Parse(MapFunction):
+        def map_batch(self, b):
+            split = [ln.split(" ") for ln in b.column("line")]
+            return RecordBatch(
+                out_schema, {"word": np.array([s[0] for s in split],
+                                              dtype=object),
+                             "one": np.ones(len(split), np.int64)},
+                np.array([int(s[1]) for s in split], np.int64))
+
+    env = StreamExecutionEnvironment(
+        Configuration({"pipeline.auto-watermark-interval": 0}), device=dev)
+    env.set_state_backend("hashmap")
+    got = {}
+
+    def sink(b):
+        for t, (word, count) in zip(b.timestamps.tolist(), b.iter_rows()):
+            if (t, word) in got:
+                raise AssertionError(f"(d): window {t} of {word} twice")
+            got[(t, word)] = count
+
+    try:
+        (env.from_source(SocketSource("127.0.0.1", port), name="Socket")
+            .map(Parse(), "Parse")
+            .key_by("word")
+            .window(TumblingEventTimeWindows.of(c["window_ms"]))
+            .sum("one").add_sink(sink, "count"))
+        job = env.execute("socket-wordcount", timeout=300)
+    finally:
+        server.join(60)
+        srv.close()
+    want = {}
+    for w, t in zip(words.tolist(), ts.tolist()):
+        key = (t // c["window_ms"] * c["window_ms"] + c["window_ms"] - 1,
+               f"w{w}")
+        want[key] = want.get(key, 0) + 1
+    if got != want:
+        raise AssertionError(f"(d): {len(got)} window rows, {len(want)} "
+                             "expected, or counts differ")
+    return {"lines": n, "words": c["words"], "rows": len(got),
+            "wall_s": job.wall_s, "lines_per_sec": n / job.wall_s}
+
+
+def connectors_phase(torch, dev, sizes: dict | None = None) -> dict:
+    """Connectors, file systems and formats on the card: (a) Q5 at 10M
+    keys through committed columnar files, (b) SQL over filesystem
+    tables, (c) the log, (d) the socket; the seconds of each.
+    ``sizes``: each part's configuration overrides (a rehearsal on the
+    CPU)."""
+    out, seconds = {}, {}
+    for name, fn in (("q5_files", connectors_q5_files),
+                     ("sql_filesystem", connectors_sql),
+                     ("log", connectors_log),
+                     ("socket", connectors_socket)):
+        t0 = time.perf_counter()
+        out[name] = fn(torch, dev, (sizes or {}).get(name))
+        seconds[name] = time.perf_counter() - t0
+        emit({f"connectors_{name}": out[name]})
+    out["seconds"] = seconds
+    return out
+
+
 def main(argv: list[str]) -> int:
     mesh_only = argv == ["--mesh"]
     obs_only = argv == ["--observability"]
     ds_only = argv == ["--datastream"]
-    if mesh_only or obs_only or ds_only:
+    conn_only = argv == ["--connectors"]
+    if mesh_only or obs_only or ds_only or conn_only:
         argv = []
     if argv and (len(argv) != 2 or argv[0] not in ("--parent-kernels",
                                                    "--profile", "--aot-child")
@@ -10306,7 +11030,8 @@ def main(argv: list[str]) -> int:
                  and argv[1] not in PROFILED_CELLS):
         print("usage: chip_smoke.py [--parent-kernels DIR | --profile "
               f"{'|'.join(PROFILED_CELLS)} | --mesh | --observability | "
-              "--datastream | --aot-child DIR]", file=sys.stderr)
+              "--datastream | --connectors | --aot-child DIR]",
+              file=sys.stderr)
         return 2
     child = argv[1] if argv and argv[0] == "--profile" else None
     aot_dir = argv[1] if argv and argv[0] == "--aot-child" else None
@@ -10359,6 +11084,13 @@ def main(argv: list[str]) -> int:
     if obs_only:
         check_sync_detector(torch, dev)
         emit({"observability_seconds": observability_phases(torch, dev)})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    if conn_only:
+        emit({"connectors_seconds": connectors_phase(torch, dev)["seconds"]})
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -10507,6 +11239,8 @@ def main(argv: list[str]) -> int:
     phase_done("sql_join")
     emit({"datastream_core": datastream_core_phase(torch, dev)})
     phase_done("datastream_core")
+    emit({"connectors_seconds": connectors_phase(torch, dev)["seconds"]})
+    phase_done("connectors")
     emit(faults_phase(torch, dev))
     phase_done("faults")
     emit({"observability_seconds": observability_phases(torch, dev)})
@@ -10533,14 +11267,16 @@ def main(argv: list[str]) -> int:
                 "ms": seal_q5[f"{kernel}_ms"],
                 "plain_ms": seal_q5[f"{kernel}_plain_ms"],
                 "bound_ms": seal_q5[f"{kernel}_bound_ms"],
-                "bound_by": "bytes", "library_ms": None,
+                "bound_by": "bytes", "library_ms": seal_q5["library_ms"],
+                "library_call": seal_q5["library_call"],
                 "launches_by_path": {
                     f"{cell} incremental": c["incremental"][
                         "launches_per_run"][f"window_{kernel}"]
                     for cell, c in (("Q5-10M-W20", wide), ("Q7-10M", q7))},
-                "shapes": {k: {f: v[f"{kernel}_{f}"] for f in
-                               ("ms", "plain_ms", "bound_ms",
-                                "share_of_bound")}
+                "shapes": {k: {**{f: v[f"{kernel}_{f}"] for f in
+                                  ("ms", "plain_ms", "bound_ms",
+                                   "share_of_bound")},
+                               "library_ms": v["library_ms"]}
                            for k, v in window["shapes"].items()}}
 
     def form_entry(form: str, launches: int, lead: str,

@@ -5,7 +5,8 @@ JAX package stays the reference; this package imports nothing of it and
 keeps its own trimmed copies of the host modules it needs. Layout mirrors
 ``flink_tpu`` so each module's counterpart is found under the same path:
 
-  core/       records, key groups, watermarks, device batches, config
+  core/       records, key groups, watermarks, device batches, config,
+              file systems, serializers, plugins
   window/     tumbling and sliding event-time assigners
   ops/        hash table, segment folds, radix top-k, kernel build + binding
   csrc/       hand-written CUDA kernels (sm_90a), built at first use
@@ -17,7 +18,9 @@ keeps its own trimmed copies of the host modules it needs. Layout mirrors
   graph/      transformations, StreamGraph/JobGraph, fusion certificate
   cluster/    local deployment of a JobGraph as threads
   checkpoint/ checkpoint coordinator and storage
-  connectors/ datagen and collection sources
+  connectors/ datagen and collection sources; files, logs, sockets
+  formats/    csv, json, binary, columnar, avro, parquet, protobuf
+  utils/      the cluster secret of network endpoints
   metrics/    device counters
   api/        StreamExecutionEnvironment / DataStream
 

@@ -1,5 +1,7 @@
-"""Sink SPI (trimmed port of ``flink_tpu/connectors/core.py``): a
-``Sink`` makes one ``SinkWriter`` per sink subtask, and ``CollectSink``
+"""Source and sink SPI (trimmed port of ``flink_tpu/connectors/core.py``):
+a ``Source`` splits its input over the source subtasks and makes one
+``SourceReader`` a split (the reader's snapshot is its replay position);
+a ``Sink`` makes one ``SinkWriter`` per sink subtask, and ``CollectSink``
 keeps what it is given, the SQL layer's result sink.
 
 ``CollectSink`` keeps the columnar batches in arrival order and builds
@@ -15,8 +17,25 @@ import threading
 from typing import Any
 
 from ..core.records import RecordBatch
+from .datagen import SourceReader, SourceSplit
 
-__all__ = ["Sink", "SinkWriter", "CollectSink", "TransactionalCollectSink"]
+__all__ = ["Source", "SourceReader", "SourceSplit", "Sink", "SinkWriter",
+           "CollectSink", "TransactionalCollectSink"]
+
+
+class Source:
+    """``bounded``: the input ends; ``schema``: the batches' schema."""
+
+    bounded = True
+    schema = None
+
+    def create_splits(self, parallelism: int) -> list[SourceSplit]:
+        raise NotImplementedError
+
+    def create_reader(self, split: SourceSplit,
+                      device=None) -> SourceReader:
+        """``device``: the job's device (host readers ignore it)."""
+        raise NotImplementedError
 
 
 class Sink:

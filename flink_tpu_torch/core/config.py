@@ -11,8 +11,8 @@ import re
 from typing import Any, Optional
 
 __all__ = ["Configuration", "DEFAULTS", "SqlOptions", "StateOptions",
-           "MeshOptions", "ProfilerOptions", "AotOptions", "WatchdogOptions",
-           "all_options", "generate_config_docs"]
+           "MeshOptions", "ProfilerOptions", "AotOptions", "SecurityOptions",
+           "WatchdogOptions", "all_options", "generate_config_docs"]
 
 #: key -> default (reference: PipelineOptions / CheckpointingOptions /
 #: TaskOptions / WindowOptions)
@@ -145,6 +145,10 @@ DEFAULTS: dict[str, Any] = {
     "aot.enabled": False,
     "aot.dir": "",
     "aot.in-memory-max-programs": 0,
+    # the shared secret the network log broker's processes present before
+    # any pickle crosses a socket (empty: loopback binds only; the
+    # FLINK_TPU_CLUSTER_SECRET environment variable is the fallback)
+    "security.cluster-secret": "",
 }
 
 
@@ -191,6 +195,13 @@ class AotOptions:
     ENABLED = "aot.enabled"
     DIR = "aot.dir"
     IN_MEMORY_MAX_PROGRAMS = "aot.in-memory-max-programs"
+
+
+class SecurityOptions:
+    """The cluster's trust boundary (reference
+    ``core/config.py::SecurityOptions``)."""
+
+    CLUSTER_SECRET = "security.cluster-secret"
 
 
 class WatchdogOptions:

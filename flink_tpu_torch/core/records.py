@@ -228,6 +228,19 @@ class RecordBatch:
                             for f in schema.fields},
                    np.empty(0, dtype=np.int64))
 
+    @classmethod
+    def concat(cls, batches: Sequence["RecordBatch"]) -> "RecordBatch":
+        """The batches' rows in order, under the first batch's schema."""
+        if not batches:
+            raise ValueError("concat of zero batches")
+        if len(batches) == 1:
+            return batches[0]
+        schema = batches[0].schema
+        cols = {name: np.concatenate([b.columns[name] for b in batches])
+                for name in schema.names}
+        ts = np.concatenate([b.timestamps for b in batches])
+        return cls(schema, cols, ts)
+
     def split_by(self, part: np.ndarray, num_parts: int) -> list["RecordBatch"]:
         """Partition rows by an int partition-id array (stable within
         parts)."""

@@ -23,20 +23,22 @@ Grammar (LL(1), same tokenizer as the query parser):
     SHOW TABLES | DESCRIBE name | INSERT INTO name <select>
 
 Connectors: datagen (rows-per-second, number-of-rows, per-field kind =
-sequence|random) as a source, blackhole as a sink. The reference's
-filesystem, log, socket and print connectors, its formats and its plugin
-connectors are not ported: a table naming one of the first three raises
-``SqlError`` naming ROADMAP Queue 1 item 10, group 2, the others are
-unknown.
+sequence|random), filesystem (path, format = csv|json|binary|columnar|
+avro), log (the Kafka-shaped partitioned log: topic, broker: a name of a
+process-global in-memory broker, or host:port of a ``LogBrokerServer``),
+socket, print, blackhole; then the connectors that plugins registered
+(``register_connector``, ``core/plugins.py``).
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 
+from ..core.functions import SinkFunction
 from ..core.records import Schema
 from ..core.watermarks import WatermarkStrategy
 from .parser import SelectStmt, SqlError, _tokenize, parse
@@ -383,13 +385,71 @@ class Catalog:
 
 # -- connector factories ----------------------------------------------------
 
-_UNPORTED = ("filesystem", "log", "socket")
+# process-global named brokers of the log connector, so tables created in
+# different TableEnvironments meet in one topic (as two Kafka clients share
+# a cluster by its address)
+_BROKERS: dict[Any, Any] = {}
+_BROKERS_LOCK = threading.Lock()
+
+# plugin connectors, looked up after the built-in ones: name ->
+# {"source": factory or None, "sink": factory or None}
+_PLUGIN_CONNECTORS: dict[str, dict] = {}
 
 
-def _unported(connector: str, entry: "CatalogTable") -> SqlError:
-    return SqlError(f"connector {connector!r} of table {entry.name!r} is "
-                    "not ported yet (ROADMAP Queue 1 item 10, group 2); "
-                    "the port reads datagen tables")
+def register_connector(name: str, source=None, sink=None) -> None:
+    """The plugin seam: ``source(env, catalog_table) -> DataStream``,
+    ``sink(catalog_table) -> Sink | SinkFunction``."""
+    _PLUGIN_CONNECTORS[name] = {"source": source, "sink": sink}
+
+
+def _broker(name: str, config=None):
+    """The named in-process broker, or a TCP client when the name is
+    host:port (a ``LogBrokerServer`` listens there). ``config`` gives the
+    client's cluster secret, which is part of the cache key: a caller with
+    another secret gets a connection of its own."""
+    from ..utils import auth
+
+    cache_key: Any = name
+    if ":" in name:
+        cache_key = (name, auth.resolve_secret(config))
+    with _BROKERS_LOCK:
+        b = _BROKERS.get(cache_key)
+        if b is None:
+            if ":" in name:   # one connection an address, not a statement
+                from ..connectors.log_net import RemoteLogBroker
+                b = RemoteLogBroker(name, config=config)
+            else:
+                from ..connectors.log import InMemoryLogBroker
+                b = InMemoryLogBroker()
+            _BROKERS[cache_key] = b
+        return b
+
+
+def _format(options: dict, schema: Schema):
+    from ..formats.core import BinaryFormat, CsvFormat, JsonFormat
+    fmt = options.get("format", "csv")
+    if fmt == "csv":
+        return CsvFormat(schema)
+    if fmt == "json":
+        return JsonFormat(schema)
+    if fmt == "binary":
+        return BinaryFormat(schema)
+    if fmt == "columnar":
+        from ..formats.columnar import ColumnarFormat
+        return ColumnarFormat(schema)
+    if fmt == "avro":
+        from ..formats.avro import AvroFormat
+        return AvroFormat(schema)
+    raise SqlError(f"unsupported format {fmt!r} "
+                   f"(csv|json|binary|columnar|avro)")
+
+
+def _log_format(entry: "CatalogTable"):
+    fmt = _format(entry.options, entry.schema)
+    if fmt.binary:
+        raise SqlError("log topics carry text lines; use csv|json "
+                       f"(table {entry.name!r})")
+    return fmt
 
 
 def _watermark_strategy(entry: CatalogTable) -> Optional[WatermarkStrategy]:
@@ -448,20 +508,68 @@ def instantiate_source(env, entry: CatalogTable):
             rate_per_sec=float(rate) if rate else None,
             timestamp_column=entry.watermark_col,
             watermark_strategy=ws, name=entry.name)
-    if connector in _UNPORTED:
-        raise _unported(connector, entry)
+    if connector == "filesystem":
+        from ..connectors.file import FileSource
+        src = FileSource(opts["path"], _format(opts, entry.schema))
+        return env.from_source(src, ws, entry.name)
+    if connector == "log":
+        from ..connectors.log import LogSource
+        src = LogSource(_broker(opts.get("broker", "default"),
+                                config=env.config),
+                        opts["topic"], _log_format(entry),
+                        bounded=opts.get("bounded", "false") == "true",
+                        starting_offsets=opts.get("scan.startup.mode",
+                                                  "earliest"))
+        return env.from_source(src, ws, entry.name)
+    if connector == "socket":
+        from ..connectors.socket import SocketSource
+        if (len(entry.schema) != 1
+                or entry.schema.fields[0].dtype is not object):
+            raise SqlError("socket tables carry newline-delimited text: "
+                           "declare exactly one STRING column")
+        src = SocketSource(opts.get("hostname", "127.0.0.1"),
+                           int(opts["port"]), entry.schema)
+        return env.from_source(src, ws, entry.name)
+    plugin = _PLUGIN_CONNECTORS.get(connector)
+    if plugin is not None and plugin.get("source") is not None:
+        return plugin["source"](env, entry)
     raise SqlError(f"unknown connector {connector!r} for source table "
                    f"{entry.name!r}")
 
 
-def instantiate_sink(entry: CatalogTable):
-    """Build the sink of INSERT INTO's target, a callable taking a batch
-    (reference FactoryUtil.createDynamicTableSink)."""
+class _BlackHole(SinkFunction):
+    def invoke_batch(self, batch) -> bool:
+        return True
+
+
+class _Print(SinkFunction):
+    def invoke_batch(self, batch) -> bool:
+        for row in batch.iter_rows():
+            print(row)
+        return True
+
+
+def instantiate_sink(entry: CatalogTable, config=None):
+    """Build the sink of INSERT INTO's target, a ``Sink`` or a
+    ``SinkFunction`` (reference FactoryUtil.createDynamicTableSink).
+    ``config`` gives a network broker's cluster secret."""
     opts = entry.options
     connector = opts.get("connector")
-    if connector in _UNPORTED:
-        raise _unported(connector, entry)
+    if connector == "filesystem":
+        from ..connectors.file import FileSink
+        return FileSink(opts["path"], _format(opts, entry.schema))
+    if connector == "log":
+        from ..connectors.log import LogSink
+        fmt = _log_format(entry)
+        broker = _broker(opts.get("broker", "default"), config=config)
+        broker.create_topic(opts["topic"])
+        return LogSink(broker, opts["topic"], fmt)
     if connector == "blackhole":
-        return lambda batch: None
+        return _BlackHole()
+    if connector == "print":
+        return _Print()
+    plugin = _PLUGIN_CONNECTORS.get(connector)
+    if plugin is not None and plugin.get("sink") is not None:
+        return plugin["sink"](entry)
     raise SqlError(f"unknown connector {connector!r} for sink table "
                    f"{entry.name!r}")

@@ -24,8 +24,9 @@ import numpy as np
 
 from ..api.datastream import DataStream
 from ..api.environment import StreamExecutionEnvironment
-from ..connectors.core import CollectSink
+from ..connectors.core import CollectSink, Sink, SinkWriter
 from ..core.config import Configuration
+from ..core.functions import SinkFunction
 from ..core.records import RecordBatch, Schema
 from ..graph.stream_graph import build_job_graph, build_stream_graph
 from ..runtime.operators.simple import BatchFnOperator
@@ -317,7 +318,7 @@ class TableEnvironment:
             stream = stream.transform(
                 "InsertRename",
                 lambda: BatchFnOperator(rename, "InsertRename"))
-        sink = instantiate_sink(target)
+        sink = instantiate_sink(target, config=stream.env.config)
         rows = _CountingSink()
         stream.add_sink(rows.wrap(sink), f"insert-{stmt.target}")
         stream.env.execute(f"insert-{stmt.target}", timeout=timeout)
@@ -408,9 +409,45 @@ class _CountingSink:
             self.count += n
 
     def wrap(self, sink):
-        """``sink`` is a callable taking a batch (``instantiate_sink``)."""
-        def counting(batch):
-            self._add(batch.n)
-            return sink(batch)
+        """``sink``: a ``Sink`` (its writer's two-phase calls pass through,
+        so a filesystem or log table commits at checkpoints) or a
+        ``SinkFunction`` (``instantiate_sink``)."""
+        outer = self
+        if isinstance(sink, Sink):
+            class _CountingWrapper(Sink):
+                def create_writer(self, subtask_index: int) -> SinkWriter:
+                    inner = sink.create_writer(subtask_index)
 
-        return counting
+                    class _W(SinkWriter):
+                        def write_batch(self, batch):
+                            outer._add(batch.n)
+                            return inner.write_batch(batch)
+
+                        def flush(self):
+                            inner.flush()
+
+                        def prepare_commit(self, checkpoint_id):
+                            inner.prepare_commit(checkpoint_id)
+
+                        def commit(self, checkpoint_id):
+                            inner.commit(checkpoint_id)
+
+                        def snapshot(self):
+                            return inner.snapshot()
+
+                        def restore(self, state):
+                            inner.restore(state)
+
+                        def close(self):
+                            inner.close()
+
+                    return _W()
+
+            return _CountingWrapper()
+
+        class _CountingFn(SinkFunction):
+            def invoke_batch(self, batch):
+                outer._add(batch.n)
+                return sink.invoke_batch(batch)
+
+        return _CountingFn()

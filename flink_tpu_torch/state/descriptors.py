@@ -31,6 +31,9 @@ class StateDescriptor:
     kind: str  # value | list | reducing | aggregating | map
     default: Any = None
     ttl: Optional[StateTtlConfig] = None
+    # value serializer (None: the registry's default); its name and
+    # version are written with a heap snapshot and resolved on restore
+    serializer: Any = None
 
     def __post_init__(self):
         if self.kind not in ("value", "list", "reducing", "aggregating",
@@ -39,9 +42,10 @@ class StateDescriptor:
 
 
 def ValueStateDescriptor(name: str, default: Any = None,
-                         ttl: Optional[StateTtlConfig] = None
-                         ) -> StateDescriptor:
-    return StateDescriptor(name, "value", default, ttl)
+                         ttl: Optional[StateTtlConfig] = None,
+                         serializer: Any = None) -> StateDescriptor:
+    return StateDescriptor(name, "value", default, ttl,
+                           serializer=serializer)
 
 
 def ListStateDescriptor(name: str, ttl: Optional[StateTtlConfig] = None
@@ -64,6 +68,7 @@ class ReducingStateDescriptor(StateDescriptor):
         object.__setattr__(self, "kind", "reducing")
         object.__setattr__(self, "default", None)
         object.__setattr__(self, "ttl", ttl)
+        object.__setattr__(self, "serializer", None)
         object.__setattr__(self, "reduce_function", reduce_function)
 
 
@@ -77,4 +82,5 @@ class AggregatingStateDescriptor(StateDescriptor):
         object.__setattr__(self, "kind", "aggregating")
         object.__setattr__(self, "default", None)
         object.__setattr__(self, "ttl", ttl)
+        object.__setattr__(self, "serializer", None)
         object.__setattr__(self, "aggregate_function", aggregate_function)

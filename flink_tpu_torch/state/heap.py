@@ -10,10 +10,12 @@ set here whenever the configured backend is the partial device one.
 
 Snapshots are the reference's schema field for field: ``{"kind":
 "heap", "states": {name: {kg: [((key, ns), value, expiry)]}},
-"serializers": {name: [serializer, version]}}``. The port has no
-serializer registry yet (ROADMAP Queue 1 item 10, group 3): every state
-is written by the default ``pickle`` serializer at version 1, and a
-restore refuses a snapshot that names another.
+"serializers": {name: [serializer, version]}}``. A state's serializer
+is its descriptor's, else the registry's default (``core/serializers.py``);
+a restore resolves each recorded (name, version) against the current
+serializer and runs the registry's value migrations from an older
+version, and refuses another serializer, a newer version or a version
+with no migration path.
 """
 
 from __future__ import annotations
@@ -22,16 +24,13 @@ import time
 from typing import Any, Iterable, Optional
 
 from ..core.keygroups import KeyGroupRange
+from ..core.serializers import registry
 from .backend import AggregatingState, KeyedStateBackend, ListState, \
     MapState, ReducingState, State, ValueState, register_backend
 from .descriptors import AggregatingStateDescriptor, \
     ReducingStateDescriptor, StateDescriptor
 
 __all__ = ["HeapKeyedStateBackend"]
-
-#: the default serializer's identity (name, version) as snapshots record it
-DEFAULT_SERIALIZER = ("pickle", 1)
-
 
 class _Entry:
     __slots__ = ("value", "expiry")
@@ -49,6 +48,8 @@ class HeapKeyedStateBackend(KeyedStateBackend):
         self._states: dict[str, dict[int, dict]] = {}
         self._descriptors: dict[str, StateDescriptor] = {}
         self._handles: dict[str, State] = {}
+        # state name -> its descriptor's serializer (absent: the default)
+        self._serializers: dict[str, Any] = {}
 
     # -- internals ---------------------------------------------------------
     def _table(self, name: str) -> dict[int, dict]:
@@ -90,6 +91,8 @@ class HeapKeyedStateBackend(KeyedStateBackend):
                 raise ValueError(f"State {descriptor.name!r} already "
                                  f"registered as {prev.kind}")
             self._descriptors[descriptor.name] = descriptor
+            if descriptor.serializer is not None:
+                self._serializers[descriptor.name] = descriptor.serializer
             handle = _HANDLE_TYPES[descriptor.kind](self, descriptor)
             self._handles[descriptor.name] = handle
         return handle
@@ -106,24 +109,60 @@ class HeapKeyedStateBackend(KeyedStateBackend):
                 if items:
                     per_kg[kg] = items
             out[name] = per_kg
-        return {"kind": "heap", "states": out,
-                "serializers": {name: list(DEFAULT_SERIALIZER)
-                                for name in out}}
+        sers = {}
+        for name in out:
+            ser = self._serializers.get(name) or registry.default()
+            sers[name] = [ser.name, ser.version]
+        return {"kind": "heap", "states": out, "serializers": sers}
+
+    def _value_migration(self, state_name: str, snap_sers: dict):
+        """The migration of one state's values from the snapshot's
+        serializer version to the current one: None when they match.
+        Restore runs before the operator registers its descriptors, so a
+        state without one resolves the recorded name in the registry."""
+        rec = (snap_sers or {}).get(state_name)
+        if rec is None:
+            return None  # a snapshot from before serializers were recorded
+        sname, sver = rec[0], int(rec[1])
+        cur = self._serializers.get(state_name)
+        if cur is None:
+            try:
+                cur = registry.get(sname)
+            except KeyError:
+                raise RuntimeError(
+                    f"state {state_name!r}: snapshot was written by "
+                    f"serializer {sname!r} v{sver}, which is not registered "
+                    "in this process (core.serializers.registry.register)"
+                ) from None
+        if sname != cur.name:
+            raise RuntimeError(
+                f"state {state_name!r}: snapshot was written by serializer "
+                f"{sname!r} v{sver} but the current serializer is "
+                f"{cur.name!r} v{cur.version}; serializer replacement "
+                "needs an offline rewrite (state-processor API)")
+        if sver == cur.version:
+            return None
+        if sver > cur.version:
+            raise RuntimeError(
+                f"state {state_name!r}: snapshot serializer {sname!r} "
+                f"v{sver} is NEWER than the running v{cur.version}; "
+                "downgrade is not supported")
+        if not registry.has_migration_path(sname, sver, cur.version):
+            raise RuntimeError(
+                f"state {state_name!r}: serializer {sname!r} snapshot "
+                f"v{sver} is incompatible with current v{cur.version} and "
+                f"no migration chain v{sver}->v{cur.version} is "
+                "registered (registry.register_migration)")
+        return (lambda v, _n=sname, _f=sver, _t=cur.version:
+                registry.migrate_value(_n, _f, _t, v))
 
     def restore(self, snapshots: Iterable[dict]) -> None:
         self._states.clear()
         self._handles.clear()
         for snap in snapshots:
-            sers = snap.get("serializers") or {}
+            snap_sers = snap.get("serializers")
             for name, per_kg in snap.get("states", {}).items():
-                rec = sers.get(name)
-                if rec is not None and tuple(rec) != DEFAULT_SERIALIZER:
-                    raise RuntimeError(
-                        f"state {name!r}: snapshot was written by serializer "
-                        f"{rec[0]!r} v{rec[1]}; the port restores the "
-                        f"default {DEFAULT_SERIALIZER[0]!r} "
-                        f"v{DEFAULT_SERIALIZER[1]} only (the serializer "
-                        "registry is ROADMAP Queue 1 item 10, group 3)")
+                migrate = self._value_migration(name, snap_sers)
                 table = self._table(name)
                 for kg, items in per_kg.items():
                     kg = int(kg)
@@ -131,6 +170,8 @@ class HeapKeyedStateBackend(KeyedStateBackend):
                         continue  # rescaling: not ours
                     m = table.setdefault(kg, {})
                     for kn, value, expiry in items:
+                        if migrate is not None:
+                            value = migrate(value)
                         m[tuple(kn) if isinstance(kn, list) else kn] = \
                             _Entry(value, expiry)
 
