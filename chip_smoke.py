@@ -5,9 +5,10 @@ GROUP BY on the card (TPC-H Q1, 10M keys), the interval join of two
 streams over device list state (Nexmark Q7's join, 100K and 10M
 auctions), the row plane (ValueState, keep-first deduplication at 10M
 keys), the SQL joins, the DataStream core (WordCount, Nexmark Q1/Q2 as
-map and filter, a KeyedProcessFunction, CUMULATE) and the multi-device
-window path (Q5-10M over 4 shards on the one card, the builtin route,
-live rescale).
+map and filter, a KeyedProcessFunction, CUMULATE), connectors, CEP and
+MATCH_RECOGNIZE, broadcast state, async I/O, the SQL gateway and the
+multi-device window path (Q5-10M over 4 shards on the one card, the
+builtin route, live rescale).
 
 Run from the repository root:  python3 chip_smoke.py
 
@@ -327,21 +328,41 @@ Run from the repository root:  python3 chip_smoke.py
     -> key_by -> the Q5 sliding window -> device_aggregate(count, sum,
     emit_topk) with every window against the oracle under the tie rule
     (one ingest_step a batch), each job after a warm-up of 4 batches; (c)
-    a KeyedProcessFunction on the device backend (2^14 bids over 2^11
+    a KeyedProcessFunction on the device backend (2^13 bids over 2^11
     auctions across 40 000 ms, batch 2^12, a watermark a batch: a
     ValueState count an auction, an event-time timer 10 000 ms after its
-    first bid that emits and clears it; an eighth of 2^17 over 2^14 for
-    the time limit: every row is a Python call, three launches and about
+    first bid that emits and clears it; a sixteenth of 2^17 bids over an
+    eighth of 2^14 auctions for the time limit: every row is a Python
+    call, three launches and about
     seven host transfers), every row against a dict,
     row_get, row_set and row_unset each launched, and a host profile of
     500 rows of the ValueState calls (``row_api_profile``); (d) CUMULATE
     (2 s step, 10 s size) through SQL on the host WindowOperator over the
-    datagen DDL (2^16 rows, half of 2^17 for the time limit, auction
+    datagen DDL (2^15 rows, a quarter of 2^17 for the time limit, auction
     random over [0, 4095], ts the sequence number), every row against
     numpy.
     ``python3 chip_smoke.py --datastream`` builds the kernels and runs
-    this phase alone.
-27. ``faults_phase``: Q5-1M at its widths through ``env.execute()``,
+    this phase alone. Then ``connectors`` (``--connectors`` alone).
+27. ``patterns``, each part against an oracle written here: (a) the V
+    shape of Flink's MATCH_RECOGNIZE documentation (SKIP PAST LAST ROW,
+    WITHIN 10 s) over 2^16 ticks of 2^13 symbols, alone (every match
+    against a per-symbol scan) and under a device GROUP BY (every group),
+    with the documented forms the port refuses; (b) CEP on bench.py's
+    bid stream (2^17 bids, 2^13 bidders, 60 s): a bid followed by a
+    higher bid of the bidder within 10 s, SKIP_PAST_LAST_EVENT, its
+    matches by auction through the card into Q5's window (W = 5, top
+    100), then a checkpoint, a cancel and a restore, every window once;
+    (c) the dynamic-rules broadcast pattern at parallelism 2 on the
+    hashmap backend (2^15 bids, thresholds of 16 buckets changed three
+    times), restored mid-run; (d) async enrichment of 2^16 of Q5's bids
+    over 2^16 auctions (a thread-pool lookup of about 100 us, capacity 100),
+    ordered with an injected timeout that retries, then unordered across
+    a checkpoint taken with a hung request in flight and a restore, into
+    Q5's window on the card; (e) the SQL gateway on loopback: (a)'s GROUP
+    BY and Q17's aggregates over HTTP equal to a TableEnvironment's, a
+    bad statement a 400. ``python3 chip_smoke.py --patterns`` builds
+    the kernels and runs this phase alone.
+28. ``faults_phase``: Q5-1M at its widths through ``env.execute()``,
     every window against the oracle: a seeded transient ``device.execute``
     schedule (retries), a persistent trip (one degrade to the CPU rung,
     its seconds), a poison trip on the first step (that batch
@@ -353,7 +374,7 @@ Run from the repository root:  python3 chip_smoke.py
     turns, two runs each: events/s, supervised calls, host µs a call).
     Every other phase must leave the fault counters at 0
     (``fault_counters_by_phase``).
-28. ``mesh_phase``, the multi-device window path: ``exchange_bucket``
+29. ``mesh_phase``, the multi-device window path: ``exchange_bucket``
     (csrc/exchange.cu) against its plain version at the mesh cell's shape
     (4 source blocks of 2^17 rows of Q5-10M's 33rd batch to 4 shards) and
     on edge cases (every key to one shard, each block to its own shard,
@@ -380,7 +401,7 @@ Run from the repository root:  python3 chip_smoke.py
     checkpoint restored into the single-device operator and the other way
     round. ``python3 chip_smoke.py --mesh`` builds the kernels and runs
     this phase alone.
-29. The kernels line, the nvidia-smi line, then the last line
+30. The kernels line, the nvidia-smi line, then the last line
     {"ok": true, "device": {...}}.
 
 ``python3 chip_smoke.py --parent-kernels DIR`` instead times, with the same
@@ -9890,15 +9911,17 @@ Q1_RATE, Q2_MOD = 0.908, 123
 #: batch and the timer's delay after an auction's first bid. Cut for the
 #: smoke's time limit: a row is one Python call, three launches (the
 #: probe, row_set, row_get) and about seven host transfers, 786 us a row
-#: on an H100 (2^17 bids over 2^14 auctions took 103.1 s); an eighth of
-#: both keeps 8 bids an auction
+#: on an H100 (2^17 bids over 2^14 auctions took 103.1 s); a sixteenth
+#: of the bids and an eighth of the auctions keep 4 bids an auction (an
+#: eighth of both, 8 an auction, before the patterns phase)
 KP_BIDS, KP_AUCTIONS, KP_SPAN_MS, KP_BATCH, KP_TIMER_MS = \
-    1 << 14, 1 << 11, 40_000, 1 << 12, 10_000
+    1 << 13, 1 << 11, 40_000, 1 << 12, 10_000
 #: (d) CUMULATE through SQL on the datagen DDL (the shape of Flink's
-#: documented CUMULATE example: a 2 s step in a 10 s window); 2^16 rows,
-#: half of 2^17, for the smoke's time limit (a row is about 5 windows of
-#: host state work, 7.1 K to 7.8 K rows/s on an H100's host)
-CUM_ROWS, CUM_AUCTIONS, CUM_STEP_MS, CUM_SIZE_MS = 1 << 16, 4096, 2000, \
+#: documented CUMULATE example: a 2 s step in a 10 s window); 2^15 rows,
+#: a quarter of 2^17, for the smoke's time limit (a row is about 5
+#: windows of host state work, 7.1 K to 7.8 K rows/s on an H100's host;
+#: 2^16 before the patterns phase)
+CUM_ROWS, CUM_AUCTIONS, CUM_STEP_MS, CUM_SIZE_MS = 1 << 15, 4096, 2000, \
     10_000
 CUM_SQL = ("SELECT auction, window_start, window_end, COUNT(*) AS c, "
            "SUM(price) AS s FROM CUMULATE(TABLE bid, DESCRIPTOR(ts), "
@@ -11017,12 +11040,933 @@ def connectors_phase(torch, dev, sizes: dict | None = None) -> dict:
     return out
 
 
+# -- patterns: CEP, MATCH_RECOGNIZE, broadcast state, async I/O, gateway ---
+#: the patterns phase's parts. (a) MATCH_RECOGNIZE's V shape over ticks of
+#: 2^13 symbols (about the listed US equities), each about every 2 s
+#: (2^16 ticks: half of 2^17, for the time limit); (b) bench.py's bid
+#: stream with 2^13 bidders over 60 s into CEP; (c) the dynamic-rules
+#: broadcast pattern; (d) async enrichment of Q5's bids over 2^16
+#: auctions (2^16 bids: a quarter of 2^18, for the time limit); (e) the
+#: SQL gateway
+PATTERNS = {
+    "mr": {"ticks": 1 << 16, "symbols": 1 << 13, "span_ms": 16_000,
+           "batch": 1 << 12, "prices": 64},
+    "cep": {"bids": 1 << 17, "bidders": 1 << 13, "auctions": 1 << 12,
+            "span_ms": 60_000, "within_ms": 10_000, "batch": 1 << 13,
+            "capacity": 1 << 14, "topk": 100, "paced_s": 6.0},
+    "broadcast": {"bids": 1 << 15, "auctions": 1 << 10, "buckets": 16,
+                  "changes": 3, "span_ms": 40_000, "batch": 1 << 11,
+                  "parallelism": 2, "paced_s": 2.0},
+    "async": {"bids": 1 << 16, "auctions": 1 << 16, "batch": 1 << 12,
+              "capacity": 100, "lookup_s": 1e-4, "threads": 16,
+              "timeout_ms": 500, "ckpt_timeout_ms": 3000,
+              "window_capacity": 1 << 17, "topk": 100, "wm_interval_s": 2.0},
+    "gateway": {"ticks": 1 << 14, "symbols": 256, "bids": 1 << 16,
+                "auctions": 1 << 12, "batch": 1 << 12},
+}
+PATTERN_TIMEOUT_S = 600
+TICK_FIELDS = (("symbol", np.int64), ("price", np.int64), ("ts", np.int64))
+CEP_BID_FIELDS = (("auction", np.int64), ("price", np.int64),
+                  ("bidder", np.int64), ("ts", np.int64))
+CEP_MATCH_FIELDS = (("auction", np.int64), ("price", np.int64),
+                    ("ts", np.int64))
+ENRICHED_FIELDS = (("auction", np.int64), ("price", np.int64),
+                   ("ts", np.int64), ("category", np.int64))
+#: (a)'s query: the V shape of Flink's MATCH_RECOGNIZE documentation (the
+#: Ticker example) in the form the parser takes, under a device GROUP BY
+MR_CLAUSE = """ticks MATCH_RECOGNIZE (
+    PARTITION BY symbol ORDER BY ts
+    MEASURES FIRST(START_ROW.price) AS start_price,
+             LAST(PRICE_DOWN.price) AS bottom_price,
+             PRICE_UP.price AS end_price
+    ONE ROW PER MATCH
+    AFTER MATCH SKIP PAST LAST ROW
+    PATTERN (START_ROW PRICE_DOWN+ PRICE_UP)
+    WITHIN INTERVAL '10' SECOND
+    DEFINE PRICE_DOWN AS PRICE_DOWN.price < START_ROW.price,
+           PRICE_UP AS PRICE_UP.price > LAST(PRICE_DOWN.price)
+)"""
+MR_MATCHES_SQL = f"SELECT * FROM {MR_CLAUSE}"
+MR_GROUP_SQL = ("SELECT symbol, COUNT(*) AS matches, MIN(bottom_price) AS "
+                "low, MAX(end_price) AS high FROM (SELECT * FROM "
+                f"{MR_CLAUSE}) GROUP BY symbol")
+#: what of the documentation's text the port does not take: each
+#: replaces a part of MR_MATCHES_SQL
+MR_DOC_FORMS = {
+    "LAST(var.col, 1)": ("LAST(PRICE_DOWN.price)",
+                         "LAST(PRICE_DOWN.price, 1)"),
+    "IS NULL": ("PRICE_DOWN.price < START_ROW.price",
+                "(LAST(PRICE_DOWN.price) IS NULL AND PRICE_DOWN.price < "
+                "START_ROW.price)"),
+    "AFTER MATCH SKIP TO LAST var": ("SKIP PAST LAST ROW",
+                                     "SKIP TO LAST PRICE_UP"),
+    "MATCH_ROWTIME()": ("PRICE_UP.price AS end_price",
+                        "MATCH_ROWTIME() AS end_price"),
+}
+Q17_SQL = ("SELECT auction, COUNT(*) c, SUM(price) s, MIN(price) mn, "
+           "MAX(price) mx, AVG(price) a FROM bids GROUP BY auction")
+
+
+def mix_bits(idx: np.ndarray, shift: int) -> np.ndarray:
+    """A second hash of the index (splitmix64's multiplier), uint64."""
+    return ((idx.astype(np.uint64) * np.uint64(0xBF58476D1CE4E5B9))
+            >> np.uint64(shift))
+
+
+def mr_ticks(c: dict):
+    """(a)'s ticks on numpy indices: the symbol by the MULT mixer, a price
+    of 1 to ``prices`` by a second hash, ts index * span // ticks."""
+    n = c["ticks"]
+
+    def gen(idx):
+        return {"symbol": bid_keys(idx, c["symbols"]),
+                "price": (mix_bits(idx, 40) % np.uint64(c["prices"]))
+                .astype(np.int64) + 1,
+                "ts": (idx * c["span_ms"]) // n}
+
+    return gen
+
+
+def mr_scan(c: dict, within_ms: int = 10_000) -> list:
+    """The oracle of (a)'s clause: a scan of each symbol's ticks in (ts,
+    arrival) order. From a start row A the longest match: B rows below A
+    (consecutive), then C above the last B, every row within
+    ``within_ms`` of A; AFTER MATCH SKIP PAST LAST ROW (the next start
+    after C), leftmost first. Rows (symbol, start, bottom, end price)."""
+    cols = mr_ticks(c)(np.arange(c["ticks"], dtype=np.int64))
+    sym, price, ts = cols["symbol"], cols["price"], cols["ts"]
+    order = np.argsort(sym, kind="stable")
+    cuts = np.flatnonzero(np.diff(sym[order])) + 1
+    out = []
+    for rows in np.split(order, cuts):
+        p, t = price[rows].tolist(), ts[rows].tolist()
+        n, i = len(rows), 0
+        while i < n:
+            best, j = None, i + 1
+            while j < n and p[j] < p[i] and t[j] - t[i] <= within_ms:
+                r = j + 1
+                if r < n and t[r] - t[i] <= within_ms and p[r] > p[j]:
+                    best = r
+                j += 1
+            if best is None:
+                i += 1
+                continue
+            out.append((int(sym[rows[0]]), p[i], p[best - 1], p[best]))
+            i = best + 1
+    return sorted(out)
+
+
+def mr_groups(matches: list) -> dict:
+    """symbol -> (matches, lowest bottom, highest end) of the oracle."""
+    out: dict = {}
+    for s, _a, low, high in matches:
+        n, lo, hi = out.get(s, (0, low, high))
+        out[s] = (n + 1, min(lo, low), max(hi, high))
+    return out
+
+
+def patterns_env(torch, dev, batch: int, **settings):
+    from flink_tpu_torch.api import StreamExecutionEnvironment
+    from flink_tpu_torch.core import Configuration
+
+    return StreamExecutionEnvironment(
+        Configuration({"pipeline.micro-batch-size": batch,
+                       "pipeline.auto-watermark-interval": 0,
+                       **settings}), device=dev)
+
+
+def mr_t_env(torch, dev, c: dict):
+    """A TableEnvironment with (a)'s ticks as the view ``ticks`` (a host
+    source, event time on ts)."""
+    from flink_tpu_torch.core import Schema, WatermarkStrategy
+    from flink_tpu_torch.sql import TableEnvironment
+
+    env = patterns_env(torch, dev, c["batch"])
+    t_env = TableEnvironment(env)
+    schema = Schema(list(TICK_FIELDS))
+    ws = WatermarkStrategy.for_monotonous_timestamps() \
+        .with_timestamp_column("ts")
+    t_env.create_temporary_view("ticks", env.datagen(
+        mr_ticks(c), schema, count=c["ticks"], timestamp_column="ts",
+        watermark_strategy=ws), schema)
+    return env, t_env
+
+
+def op_task_cpu(job, kind: str) -> float:
+    """CPU seconds of the tasks whose chains hold an operator of class
+    ``kind``."""
+    return sum(t.cpu_s for t in job.tasks.values()
+               if t.chain is not None
+               and any(type(op).__name__ == kind
+                       for op in t.chain.operators))
+
+
+def pattern_record(torch, job, rows: int, kind: str, launches: dict,
+                   start: dict) -> dict:
+    return {"wall_s": job.wall_s, "rows_per_sec": rows / job.wall_s,
+            "operator_task_cpu_s": op_task_cpu(job, kind),
+            "launches": {k: launches.get(k, 0)
+                         for k in ("ingest_step", "hist256", "hash_probe",
+                                   *(f"group_agg_{s}" for s in GAGG_STAGES))},
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "memory_at_start": start, "tasks": task_record(job)}
+
+
+def mr_doc_forms(torch, dev, c: dict) -> dict:
+    """Each documented form the port does not take, with its error: each
+    runs on 256 ticks of 4 symbols, and must fail."""
+    out = {}
+    for name, (old, new) in MR_DOC_FORMS.items():
+        # a fresh environment each: a failed job leaves its sink behind
+        _env, t_env = mr_t_env(torch, dev, dict(c, ticks=256, symbols=4,
+                                                batch=256))
+        try:
+            rows = t_env.execute_sql(MR_MATCHES_SQL.replace(old, new),
+                                     timeout=PATTERN_TIMEOUT_S).collect()
+        except Exception as e:  # noqa: BLE001 - the refusal is the record
+            out[name] = f"{type(e).__name__}: {e}"
+            continue
+        raise AssertionError(f"(a): the documented form {name} now runs "
+                             f"({len(rows)} rows); take it off the list")
+    return out
+
+
+def patterns_mr(torch, dev, c: dict | None = None) -> dict:
+    """(a): the clause alone (every match against the scan), then under
+    the device GROUP BY (every group against the scan's)."""
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+
+    c = dict(PATTERNS["mr"], **(c or {}))
+    expected = mr_scan(c)
+    env, t_env = mr_t_env(torch, dev, c)
+    start = fresh_memory(torch)
+    reset_launches()
+    res = t_env.execute_sql(MR_MATCHES_SQL, timeout=PATTERN_TIMEOUT_S)
+    clause = pattern_record(torch, env.last_job, c["ticks"], "CepOperator",
+                            dict(KERNEL_LAUNCHES), start)
+    got = sorted((int(s), int(a), int(b), int(e))
+                 for s, a, b, e in res.collect_final())
+    if got != expected:
+        raise AssertionError(f"(a): {len(got)} matches, {len(expected)} "
+                             "by the scan, or they differ")
+    start = fresh_memory(torch)
+    reset_launches()
+    res = t_env.execute_sql(MR_GROUP_SQL, timeout=PATTERN_TIMEOUT_S)
+    job = env.last_job
+    launches = dict(KERNEL_LAUNCHES)
+    grouped = pattern_record(torch, job, c["ticks"], "CepOperator",
+                             launches, start)
+    groups = {int(s): (int(n), int(lo), int(hi))
+              for s, n, lo, hi in res.collect_final()}
+    if groups != mr_groups(expected):
+        raise AssertionError(f"(a) GROUP BY: {len(groups)} groups, or they "
+                             "differ from the scan's")
+    if dev.type == "cuda" and not launches["group_agg_first"]:
+        raise AssertionError(f"(a): the GROUP BY left the card: {launches}")
+    forms = mr_doc_forms(torch, dev, c)
+    return {"ticks": c["ticks"], "symbols": c["symbols"],
+            "matches": len(expected), "groups": len(groups),
+            "clause": clause, "group_by": grouped,
+            "documented_forms_refused": forms}
+
+
+# -- (b) DataStream CEP into the window --------------------------------------
+def cep_bid_gen(c: dict, torch=None):
+    """bench.py's bid stream at (b)'s size: the auction by the MULT
+    mixer, price index % 997 + 1, bidder index % bidders, ts index *
+    span // bids; on torch indices (a device source) when ``torch`` is
+    given, else numpy."""
+    n = c["bids"]
+
+    def gen(idx):
+        keys = (mixed_keys(idx, c["auctions"]) if torch is not None
+                else bid_keys(idx, c["auctions"]))
+        return {"auction": keys, "price": idx % 997 + 1,
+                "bidder": idx % c["bidders"],
+                "ts": (idx * c["span_ms"]) // n}
+
+    return gen
+
+
+def cep_higher(event: dict, history: dict) -> bool:
+    return event["price"] > history["first"][0]["price"]
+
+
+def cep_pattern(Pattern, within_ms: int = 10_000):
+    """A bid followed by a higher bid of the same bidder, within 10 s."""
+    return (Pattern.begin("first").followed_by("higher")
+            .where_with_history(cep_higher).within(within_ms))
+
+
+def cep_select(match) -> tuple:
+    h = match["higher"][0]
+    return (h["auction"], h["price"], h["ts"])
+
+
+def cep_matches_expected(c: dict) -> np.ndarray:
+    """The oracle of (b)'s matches, a scan of each bidder's bids: a start
+    at every bid, dropped past ``within``; the first bid above a live
+    start matches the earliest such start, and SKIP_PAST_LAST_EVENT then
+    drops every start (the new bid's too). Rows [auction, price, ts]."""
+    cols = cep_bid_gen(c)(np.arange(c["bids"], dtype=np.int64))
+    price, ts = cols["price"].tolist(), cols["ts"].tolist()
+    order = np.argsort(cols["bidder"], kind="stable")
+    cuts = np.flatnonzero(np.diff(cols["bidder"][order])) + 1
+    hits = []
+    for rows in np.split(order, cuts):
+        live: list = []
+        for i in rows.tolist():
+            live = [s for s in live if ts[i] - ts[s] <= c["within_ms"]]
+            if any(price[i] > price[s] for s in live):
+                hits.append(i)
+                live = []
+            else:
+                live.append(i)
+    hits = np.sort(np.asarray(hits, np.int64))
+    return np.stack([cols["auction"][hits], cols["price"][hits],
+                     cols["ts"][hits]], axis=1)
+
+
+def windows_expected(keys: np.ndarray, values: np.ndarray, ts: np.ndarray,
+                     n_keys: int, topk: int,
+                     window_panes: int = WINDOW_PANES) -> list:
+    """``q5_expected``'s oracle for any rows: count and sum of ``values``
+    by key in every sliding window, in ``q5_check``'s form."""
+    order = np.argsort(ts, kind="stable")
+    keys, values = keys[order], values[order]
+    panes = ts[order] // PANE_MS
+    first, n_p = int(panes[0]), int(panes[-1]) + 1
+    bounds = np.searchsorted(panes, np.arange(n_p + 1))
+    c = np.zeros(n_keys, np.int64)
+    r = np.zeros(n_keys, np.int64)
+    out = []
+    for p_end in range(first + 1, n_p + window_panes):
+        for p, sign in ((p_end - 1, 1), (p_end - 1 - window_panes, -1)):
+            if first <= p < n_p:
+                a, b = bounds[p], bounds[p + 1]
+                c += sign * np.bincount(keys[a:b], minlength=n_keys)
+                r += sign * np.bincount(keys[a:b], weights=values[a:b],
+                                        minlength=n_keys).astype(np.int64)
+        kk = min(topk, int((c > 0).sum()))
+        if not kk:
+            continue
+        want = -np.sort(-np.partition(c, len(c) - kk)[len(c) - kk:])
+        cand = np.flatnonzero(c >= want[-1])
+        out.append((p_end, want, cand, c[cand], r[cand],
+                    set(np.flatnonzero(c > want[-1]).tolist())))
+    return out
+
+
+def cep_windows_expected(c: dict) -> list:
+    m = cep_matches_expected(c)
+    return windows_expected(m[:, 0], m[:, 1], m[:, 2], c["auctions"],
+                            c["topk"])
+
+
+def window_stage(torch, dev, stream, c: dict, value: str, capacity: int,
+                 sink):
+    """The card (a map to device batches), key_by auction, Q5's sliding
+    window (W = 5) of count and sum(``value``), top ``topk``."""
+    from flink_tpu_torch.runtime.operators import AggSpec
+    from flink_tpu_torch.window import SlidingEventTimeWindows
+
+    (card_stage(torch, dev)(stream)
+        .key_by("auction")
+        .window(SlidingEventTimeWindows.of(WINDOW_PANES * PANE_MS, PANE_MS))
+        .device_aggregate([AggSpec("count", out_name="bids", value_bits=31),
+                           AggSpec("sum", value, out_name="revenue")],
+                          capacity=capacity, ring_size=RING,
+                          emit_window_bounds=False, emit_topk=c["topk"],
+                          defer_overflow=True, async_fire=True)
+        .add_sink(sink))
+
+
+def collect_windows(got: list):
+    def collect(b):
+        got.append((int(b.timestamps[0]), b.column("auction"),
+                    b.column("bids"), b.column("revenue")))
+    return collect
+
+
+def cep_env(torch, dev, c: dict, sink=None, rate=None):
+    """(b): the bid stream (a device source) -> CEP by bidder -> the card
+    -> Q5's window of the matches by auction; returns (env, got,
+    matches), ``matches`` counting the select calls."""
+    from flink_tpu_torch.cep import CEP, SKIP_PAST_LAST_EVENT, Pattern
+    from flink_tpu_torch.core import Schema, WatermarkStrategy
+
+    env = patterns_env(torch, dev, c["batch"])
+    ws = WatermarkStrategy.for_monotonous_timestamps() \
+        .with_timestamp_column("ts")
+    bids = env.datagen(cep_bid_gen(c, torch), Schema(list(CEP_BID_FIELDS)),
+                       count=c["bids"], rate_per_sec=rate,
+                       timestamp_column="ts", watermark_strategy=ws,
+                       device=True)
+    matches = [0]
+
+    def select(m):
+        matches[0] += 1
+        return cep_select(m)
+
+    out = CEP.pattern(bids, cep_pattern(Pattern, c["within_ms"]),
+                      key="bidder") \
+        .with_skip_strategy(SKIP_PAST_LAST_EVENT) \
+        .select(select, Schema(list(CEP_MATCH_FIELDS)))
+    got: list = []
+    window_stage(torch, dev, out, c, "price", c["capacity"],
+                 collect_windows(got) if sink is None else sink)
+    return env, got, matches
+
+
+def cep_run(torch, dev, c: dict) -> dict:
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+
+    env, got, matches = cep_env(torch, dev, c)
+    start = fresh_memory(torch)
+    reset_launches()
+    job = env.execute("cep-b")
+    rec = pattern_record(torch, job, c["bids"], "CepOperator",
+                         dict(KERNEL_LAUNCHES), start)
+    return {**rec, "got": got, "matches": matches[0]}
+
+
+def checkpointed_run(torch, dev, make_env, records: int, expected: list,
+                     extra=None, trigger=None) -> dict:
+    """A job into a transactional sink, one checkpoint once its sources
+    read ``records`` (``trigger(job, coordinator, records)``, by default
+    ``checkpoint_at``), a cancel after the checkpoint committed, then a
+    fresh job restored from it: the windows committed before the cancel
+    and those after the restore are every window once.
+    ``make_env(sink, paced) -> env``; ``extra(checkpoint)`` adds to the
+    record."""
+    from flink_tpu_torch.connectors.core import TransactionalCollectSink
+
+    fresh_memory(torch)
+    tx = TransactionalCollectSink()
+    sink = commit_watch(tx)
+    job = make_env(sink, True).execute_async("checkpointed")
+    coordinator = manual_coordinator(job)
+    t0 = time.perf_counter()
+    cp = (trigger or checkpoint_at)(job, coordinator, records)
+    ckpt_s = time.perf_counter() - t0
+    sink.wait_commit(cp.checkpoint_id)
+    job.cancel()
+    before = q5_rows(tx.batches)
+    job.release()
+    fresh_memory(torch)
+    got: list = []
+    env2 = make_env(collect_windows(got), False)
+    env2.restore_from_checkpoint(cp)
+    job2 = env2.execute("restored")
+    restored_s = job2.wall_s
+    counts = disjoint_windows(expected, [before, got])
+    if not all(counts):
+        raise AssertionError(f"windows before the cancel and after the "
+                             f"restore {counts}; one side empty")
+    job2.release()
+    return {"checkpoint_s": ckpt_s, "snapshot_bytes":
+            coordinator.stats[-1]["bytes"],
+            "windows_before_cancel": counts[0],
+            "windows_after_restore": counts[1], "windows_repeated": 0,
+            "restored_run_s": restored_s,
+            **(extra(cp) if extra is not None else {})}
+
+
+def patterns_cep(torch, dev, c: dict | None = None) -> dict:
+    """(b): a timed run, every window against the oracle, the matches
+    counted; then a checkpoint in the middle, a cancel and a restore."""
+    c = dict(PATTERNS["cep"], **(c or {}))
+    expected = cep_windows_expected(c)
+    run = cep_run(torch, dev, c)
+    windows = q5_check(expected, run.pop("got"))
+    launches = run["launches"]
+    want = len(cep_matches_expected(c))
+    if run["matches"] != want:
+        raise AssertionError(f"(b): {run['matches']} matches, {want} by "
+                             "the scan")
+    if dev.type == "cuda" and not (launches["ingest_step"]
+                                   and launches["hist256"]):
+        raise AssertionError(f"(b): launches {launches}")
+
+    def make_env(sink, paced):
+        rate = c["bids"] / c["paced_s"] if paced else None
+        return cep_env(torch, dev, c, sink=sink, rate=rate)[0]
+
+    restore = checkpointed_run(torch, dev, make_env, c["bids"] // 4,
+                               expected)
+    return {"bids": c["bids"], "bidders": c["bidders"],
+            "auctions": c["auctions"], "matches": want, "windows": windows,
+            **run, "restore": restore}
+
+
+# -- (c) broadcast state: dynamic rules ---------------------------------------
+def bcast_rules(c: dict):
+    """The rule stream on numpy indices, paced as the bids: row i gives
+    bucket i % buckets the threshold of the version in force at its ts
+    (``changes`` new versions at equal steps of the span), so a bucket's
+    threshold changes at its first row of a new version."""
+    n, span = c["bids"], c["span_ms"]
+
+    def gen(idx):
+        ts = (idx * span) // n
+        bucket = idx % c["buckets"]
+        version = ts * (c["changes"] + 1) // span
+        return {"bucket": bucket, "threshold": (bucket * 37 + version * 211)
+                % 900 + 50, "eff": ts}
+
+    return gen
+
+
+def bcast_versions(c: dict) -> dict:
+    """bucket -> [(ts from which, threshold)]: where each rule row changed
+    its bucket's threshold."""
+    rules = bcast_rules(c)(np.arange(c["bids"], dtype=np.int64))
+    out: dict = {}
+    for b, thr, eff in zip(rules["bucket"].tolist(),
+                           rules["threshold"].tolist(),
+                           rules["eff"].tolist()):
+        v = out.setdefault(b, [])
+        if not v or v[-1][1] != thr:
+            v.append((eff, thr))
+    return out
+
+
+def bcast_bids(c: dict):
+    n = c["bids"]
+
+    def gen(idx):
+        return {"auction": bid_keys(idx, c["auctions"]),
+                "price": idx % 997 + 1, "ts": (idx * c["span_ms"]) // n}
+
+    return gen
+
+
+def bcast_expected(c: dict) -> list:
+    """Each bid over its bucket's threshold in force at its ts (none
+    before the bucket's first rule), with its auction's running count of
+    alerts (ts order)."""
+    versions = bcast_versions(c)
+    cols = bcast_bids(c)(np.arange(c["bids"], dtype=np.int64))
+    counts: dict = {}
+    out = []
+    for a, p, t in zip(cols["auction"].tolist(), cols["price"].tolist(),
+                       cols["ts"].tolist()):
+        thr = [v for eff, v in versions[a % c["buckets"]] if eff <= t]
+        if thr and p > thr[-1]:
+            counts[a] = counts.get(a, 0) + 1
+            out.append((a, p, t, counts[a]))
+    return sorted(out)
+
+
+def bcast_function(c: dict):
+    """Flink's dynamic-rules pattern at event time: thresholds by bucket
+    ride the broadcast side into a map of versions; each bid waits in
+    keyed list state for the watermark (an event-time timer at its ts),
+    then is held against the threshold in force at its ts, and a keyed
+    count numbers its auction's alerts."""
+    from flink_tpu_torch.core.functions import KeyedBroadcastProcessFunction
+    from flink_tpu_torch.state.descriptors import ListStateDescriptor, \
+        MapStateDescriptor, ValueStateDescriptor
+
+    rules = MapStateDescriptor("thresholds")
+    buckets = c["buckets"]
+
+    class ThresholdAlerts(KeyedBroadcastProcessFunction):
+        def open(self, ctx):
+            self._ctx = ctx
+            self._pending = ListStateDescriptor("pending")
+            self._alerts = ValueStateDescriptor("alerts", default=0)
+
+        def process_element(self, value, ctx, out):
+            self._ctx.get_state(self._pending).add(value)
+            ctx.timer_service.register_event_time_timer(ctx.timestamp)
+
+        def process_broadcast_element(self, value, ctx, out):
+            bucket, thr, eff = (int(v) for v in value)
+            versions = ctx.get_broadcast_state(rules)
+            held = versions.get(bucket, ())
+            if not held or held[-1][1] != thr:
+                versions[bucket] = held + ((eff, thr),)
+
+        def on_timer(self, timestamp, ctx, out):
+            pending = self._ctx.get_state(self._pending)
+            rows = list(pending.get() or [])
+            due = sorted((r for r in rows if r[2] <= timestamp),
+                         key=lambda r: r[2])
+            pending.update([r for r in rows if r[2] > timestamp])
+            versions = ctx.get_broadcast_state(rules)
+            count = self._ctx.get_state(self._alerts)
+            for a, p, t in due:
+                thr = [v for eff, v in versions.get(a % buckets, ())
+                       if eff <= t]
+                if thr and p > thr[-1]:
+                    count.update(count.value() + 1)
+                    out.collect((a, p, t, count.value()), t)
+
+    return ThresholdAlerts(), rules
+
+
+def bcast_env(torch, dev, c: dict, sink, rate=None):
+    from flink_tpu_torch.core import Schema, WatermarkStrategy
+
+    env = patterns_env(torch, dev, c["batch"],
+                       **{"state.backend.type": "hashmap"})
+    ws = WatermarkStrategy.for_monotonous_timestamps() \
+        .with_timestamp_column("ts")
+    fn, desc = bcast_function(c)
+    rules = env.datagen(
+        bcast_rules(c), Schema([("bucket", np.int64),
+                                ("threshold", np.int64), ("eff", np.int64)]),
+        count=c["bids"], rate_per_sec=rate, timestamp_column="eff",
+        watermark_strategy=WatermarkStrategy.for_monotonous_timestamps()
+        .with_timestamp_column("eff"))
+    bids = env.datagen(bcast_bids(c), Schema(list(Q5_FIELDS)),
+                       count=c["bids"], rate_per_sec=rate,
+                       timestamp_column="ts", watermark_strategy=ws)
+    (bids.key_by("auction").connect(rules.broadcast(desc))
+        .process(fn, out_schema=Schema([("auction", np.int64),
+                                        ("price", np.int64),
+                                        ("ts", np.int64),
+                                        ("alerts", np.int64)]),
+                 parallelism=c["parallelism"])
+        .add_sink(sink, parallelism=1))
+    return env
+
+
+def patterns_broadcast(torch, dev, c: dict | None = None) -> dict:
+    """(c): a run at parallelism 2 against the oracle; then a checkpoint,
+    a cancel and a restore: the rows committed before and those after
+    are the oracle's, once."""
+    from flink_tpu_torch.connectors.core import TransactionalCollectSink
+
+    c = dict(PATTERNS["broadcast"], **(c or {}))
+    expected = bcast_expected(c)
+    rows: list = []
+    env = bcast_env(torch, dev, c, lambda b: rows.extend(b.iter_rows()))
+    start = fresh_memory(torch)
+    job = env.execute("broadcast-c")
+    rec = pattern_record(torch, job, c["bids"], "CoBroadcastWithKeyedOperator",
+                         {}, start)
+    if sorted(rows) != expected:
+        raise AssertionError(f"(c): {len(rows)} alerts, {len(expected)} "
+                             "expected, or they differ")
+    fresh_memory(torch)
+    tx = TransactionalCollectSink()
+    sink = commit_watch(tx)
+    job = bcast_env(torch, dev, c, sink,
+                    rate=c["bids"] / c["paced_s"]).execute_async("bc-ckpt")
+    coordinator = manual_coordinator(job)
+    cp = checkpoint_at(job, coordinator, c["bids"] // 2)
+    sink.wait_commit(cp.checkpoint_id)
+    job.cancel()
+    before = tx.rows
+    job.release()
+    after: list = []
+    env2 = bcast_env(torch, dev, c, lambda b: after.extend(b.iter_rows()))
+    env2.restore_from_checkpoint(cp)
+    env2.execute("bc-restored")
+    if sorted(before + after) != expected or not before or not after:
+        raise AssertionError(f"(c) restore: {len(before)} alerts before the "
+                             f"cancel, {len(after)} after, {len(expected)} "
+                             "expected once")
+    return {"bids": c["bids"], "auctions": c["auctions"],
+            "rule_changes": c["changes"],
+            "threshold_changes": sum(len(v) - 1
+                                     for v in bcast_versions(c).values()),
+            "alerts": len(expected),
+            "parallelism": c["parallelism"], **rec,
+            "restore": {"alerts_before_cancel": len(before),
+                        "alerts_after_restore": len(after)}}
+
+
+# -- (d) async enrichment -------------------------------------------------
+#: the injected timeout, shared by the function's copies: ``armed``
+#: hangs the next row offered (its first attempt never answers, so its
+#: timeout retries it); then ``row`` is that row and ``attempts`` counts
+#: its attempts
+ASYNC_HANG: dict = {}
+
+
+def async_category(auction):
+    """The lookup's answer: a category of 16 by a hash of the auction."""
+    return (auction * 0x9E3779B1 >> 16) % 16
+
+
+def async_function(c: dict):
+    """A thread-pool lookup of about ``lookup_s`` a call, with the
+    injected timeout of ``ASYNC_HANG``."""
+    from concurrent.futures import Future, ThreadPoolExecutor
+
+    from flink_tpu_torch.runtime.operators.async_io import AsyncFunction
+
+    class Enrich(AsyncFunction):
+        def open(self):
+            self.pool = ThreadPoolExecutor(c["threads"])
+
+        def async_invoke(self, row, ts):
+            hang = ASYNC_HANG
+            if hang.get("armed"):
+                hang.update(armed=False, row=row, attempts=1)
+                return Future()
+            if row == hang.get("row"):
+                hang["attempts"] += 1
+
+            def lookup():
+                time.sleep(c["lookup_s"])
+                return (*row, async_category(row[0]))
+
+            return self.pool.submit(lookup)
+
+        def close(self):
+            self.pool.shutdown(wait=False)
+
+    return Enrich()
+
+
+def async_span(c: dict) -> int:
+    return q5_panes(c["bids"], c["batch"]) * PANE_MS
+
+
+def async_expected(c: dict) -> list:
+    idx = np.arange(c["bids"], dtype=np.int64)
+    cols = q5_host_gen(c["auctions"], c["bids"], async_span(c))(idx)
+    return windows_expected(cols["auction"], async_category(cols["auction"]),
+                            cols["ts"], c["auctions"], c["topk"])
+
+
+def async_env(torch, dev, c: dict, mode: str, sink, timeout_ms: int):
+    """(d): Q5's bids (a device source) -> async enrichment -> the card
+    -> Q5's window of count and sum(category) by auction, top 100."""
+    from flink_tpu_torch.connectors.datagen import DataGenSource
+    from flink_tpu_torch.core import Schema, WatermarkStrategy
+    from flink_tpu_torch.runtime.operators.async_io import RetryPolicy
+
+    # a watermark drains the queue: one every wm_interval_s, not after
+    # every batch, lets a barrier find requests in flight
+    env = patterns_env(torch, dev, c["batch"], **{
+        "pipeline.auto-watermark-interval": c["wm_interval_s"]})
+    ws = WatermarkStrategy.for_monotonous_timestamps() \
+        .with_timestamp_column("ts")
+    source = DataGenSource(q5_gen(c["auctions"], c["bids"], async_span(c)),
+                           Schema(list(Q5_FIELDS)), count=c["bids"],
+                           timestamp_column="ts", device=True)
+    out = env.from_source(source, ws, "DataGen").async_io(
+        async_function(c), capacity=c["capacity"],
+        timeout_ms=timeout_ms, mode=mode,
+        retry=RetryPolicy(max_attempts=3, delay_ms=1), on_timeout="fail",
+        out_schema=Schema(list(ENRICHED_FIELDS)))
+    window_stage(torch, dev, out, c, "category", c["window_capacity"], sink)
+    return env
+
+
+def patterns_async(torch, dev, c: dict | None = None) -> dict:
+    """(d): ordered, with one injected timeout that retries; then
+    unordered with a checkpoint while requests are in flight, a cancel
+    and a restore (the restored run timed); every window against the
+    oracle, once in the two halves."""
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+
+    c = dict(PATTERNS["async"], **(c or {}))
+    expected = async_expected(c)
+    ASYNC_HANG.clear()
+    ASYNC_HANG["armed"] = True      # the first row hangs, then retries
+    got: list = []
+    env = async_env(torch, dev, c, "ordered", collect_windows(got),
+                    c["timeout_ms"])
+    start = fresh_memory(torch)
+    reset_launches()
+    job = env.execute("async-d-ordered")
+    ordered = pattern_record(torch, job, c["bids"], "AsyncWaitOperator",
+                             dict(KERNEL_LAUNCHES), start)
+    windows = q5_check(expected, got)
+    hung = ASYNC_HANG.get("attempts", 0)
+    if hung != 2:
+        raise AssertionError(f"(d): the injected timeout made {hung} "
+                             "attempts; one retry expected")
+    launches = ordered["launches"]
+    if dev.type == "cuda" and not (launches["ingest_step"]
+                                   and launches["hist256"]):
+        raise AssertionError(f"(d): launches {launches}")
+
+    def make_env(sink, _paced):
+        return async_env(torch, dev, c, "unordered", sink,
+                         c["ckpt_timeout_ms"])
+
+    def checkpoint_while_hung(job, coordinator, records: int):
+        """Once the source read ``records``, after a watermark: hang the
+        next row offered, then a checkpoint. The barrier follows that
+        row's batch, before the next watermark (the interval is longer
+        than a batch) and before its timeout, so the row is in flight."""
+        (src,) = job.source_tasks.values()
+        while src.records_in < records and not job._done.is_set():
+            time.sleep(0.001)
+        wms = src.watermarks_out
+        while src.watermarks_out == wms and not job._done.is_set():
+            time.sleep(0.0005)
+        ASYNC_HANG.clear()
+        ASYNC_HANG["armed"] = True
+        while "row" not in ASYNC_HANG and not job._done.is_set():
+            time.sleep(0.0005)
+        return checkpoint_at(job, coordinator, 0)
+
+    def in_flight(cp) -> dict:
+        pending, read = [], 0
+        for snap in cp.task_snapshots.values():
+            reader = snap.get("reader")
+            if reader is not None:   # a device datagen reader's position
+                read += reader["next"]
+            for key, op in (snap.get("chain") or {}).items():
+                if key.endswith(":AsyncIO"):
+                    pending += (op.get("operator") or {}).get("pending", [])
+        return {"in_flight_at_checkpoint": len(pending),
+                "hung_row_in_flight": any(tuple(row) == ASYNC_HANG["row"]
+                                          for row, _ts in pending),
+                "read_at_checkpoint": read}
+
+    restore = checkpointed_run(torch, dev, make_env, c["bids"] // 2,
+                               expected, in_flight, checkpoint_while_hung)
+    if not restore["hung_row_in_flight"]:
+        raise AssertionError("(d): the hung request was not in flight at "
+                             f"the checkpoint: {restore}")
+    rest = c["bids"] - restore["read_at_checkpoint"]
+    return {"bids": c["bids"], "auctions": c["auctions"],
+            "capacity": c["capacity"], "windows": windows,
+            "injected_attempts": hung, "ordered": ordered,
+            "unordered_restored": {
+                "rows": rest, "wall_s": restore["restored_run_s"],
+                "rows_per_sec": rest / restore["restored_run_s"]},
+            "restore": restore}
+
+
+# -- (e) the SQL gateway --------------------------------------------------
+def gateway_ddl(c: dict) -> list:
+    """(e)'s tables on the datagen connector: ticks with event time on ts
+    (one a ms) for (a)'s query, bids for Q17's aggregates."""
+    return [
+        "CREATE TABLE ticks (symbol BIGINT, price BIGINT, ts BIGINT, "
+        "WATERMARK FOR ts AS ts - INTERVAL '0' SECOND) WITH ("
+        f"'connector' = 'datagen', 'number-of-rows' = '{c['ticks']}', "
+        "'fields.symbol.kind' = 'random', 'fields.symbol.min' = '0', "
+        f"'fields.symbol.max' = '{c['symbols'] - 1}', "
+        "'fields.price.kind' = 'random', 'fields.price.min' = '1', "
+        "'fields.price.max' = '1000')",
+        "CREATE TABLE bids (auction BIGINT, price BIGINT, ts BIGINT) WITH ("
+        f"'connector' = 'datagen', 'number-of-rows' = '{c['bids']}', "
+        "'fields.auction.kind' = 'random', 'fields.auction.min' = '0', "
+        f"'fields.auction.max' = '{c['auctions'] - 1}', "
+        "'fields.price.kind' = 'random', 'fields.price.min' = '1', "
+        "'fields.price.max' = '1000')"]
+
+
+def http_json(port: int, method: str, path: str, body=None):
+    """One call to a gateway on loopback: (status, JSON body)."""
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(body).encode() if body is not None else None
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=data, method=method,
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=PATTERN_TIMEOUT_S) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def patterns_gateway(torch, dev, c: dict | None = None) -> dict:
+    """(e): the gateway on loopback, port 0: a session, the DDL, (a)'s
+    GROUP BY and Q17's device GROUP BY over HTTP, a bad statement (400,
+    the session survives), the session closed; the rows equal a
+    TableEnvironment's on the same device."""
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+    from flink_tpu_torch.sql import TableEnvironment
+    from flink_tpu_torch.sql.gateway import SqlGateway, _json_safe
+
+    c = dict(PATTERNS["gateway"], **(c or {}))
+    sql = {"mr_group_by": MR_GROUP_SQL, "q17": Q17_SQL}
+    gw = SqlGateway(port=0, device=dev)
+    port = gw.start()
+    t0 = time.perf_counter()
+    try:
+        code, out = http_json(port, "POST", "/v1/sessions")
+        sid = out["session_id"]
+        for stmt in gateway_ddl(c):
+            code, out = http_json(port, "POST",
+                                  f"/v1/sessions/{sid}/statements",
+                                  {"statement": stmt})
+            if code != 200:
+                raise AssertionError(f"(e) DDL: {code} {out}")
+        http_rows, seconds, launches = {}, {}, {}
+        for name, q in sql.items():
+            reset_launches()
+            t1 = time.perf_counter()
+            code, out = http_json(port, "POST",
+                                  f"/v1/sessions/{sid}/statements",
+                                  {"statement": q})
+            seconds[name] = time.perf_counter() - t1
+            launches[name] = {k: v for k, v in KERNEL_LAUNCHES.items() if v}
+            if code != 200:
+                raise AssertionError(f"(e) {name}: {code} {out}")
+            http_rows[name] = sorted(out["rows"])
+        bad = http_json(port, "POST", f"/v1/sessions/{sid}/statements",
+                        {"statement": "SELEC nope"})
+        alive = http_json(port, "POST", f"/v1/sessions/{sid}/statements",
+                          {"statement": "SHOW TABLES"})
+        if bad[0] != 400 or alive[0] != 200:
+            raise AssertionError(f"(e): a bad statement gave {bad}, the "
+                                 f"next {alive}")
+        closed = http_json(port, "DELETE", f"/v1/sessions/{sid}")[0]
+        gone = http_json(port, "GET", f"/v1/sessions/{sid}")[0]
+        if (closed, gone) != (200, 404):
+            raise AssertionError(f"(e): close gave {closed}, then {gone}")
+    finally:
+        gw.stop()
+    wall = time.perf_counter() - t0
+    t_env = TableEnvironment(patterns_env(torch, dev, c["batch"]))
+    for stmt in gateway_ddl(c):
+        t_env.execute_sql(stmt)
+    direct = {name: sorted([_json_safe(v) for v in r]
+                           for r in t_env.execute_sql(q).collect_final())
+              for name, q in sql.items()}
+    if direct != http_rows or not all(http_rows.values()):
+        raise AssertionError("(e): the rows over HTTP differ from the "
+                             "TableEnvironment's")
+    if dev.type == "cuda" and not launches["q17"].get("group_agg_first"):
+        raise AssertionError(f"(e): Q17 left the card: {launches['q17']}")
+    return {"ticks": c["ticks"], "bids": c["bids"],
+            "groups": {k: len(v) for k, v in http_rows.items()},
+            "statement_s": seconds, "wall_s": wall,
+            "rows_per_sec": {"mr_group_by": c["ticks"]
+                             / seconds["mr_group_by"],
+                             "q17": c["bids"] / seconds["q17"]},
+            "launches": launches, "bad_statement": bad[0]}
+
+
+def patterns_phase(torch, dev, sizes: dict | None = None) -> dict:
+    """CEP, MATCH_RECOGNIZE, broadcast state, async I/O and the SQL
+    gateway on the card: (a) to (e), the seconds of each. ``sizes``:
+    each part's configuration overrides (a rehearsal on the CPU)."""
+    out, seconds = {}, {}
+    for name, fn in (("mr", patterns_mr), ("cep", patterns_cep),
+                     ("broadcast", patterns_broadcast),
+                     ("async", patterns_async),
+                     ("gateway", patterns_gateway)):
+        t0 = time.perf_counter()
+        out[name] = fn(torch, dev, (sizes or {}).get(name))
+        seconds[name] = time.perf_counter() - t0
+        emit({f"patterns_{name}": out[name]})
+    out["seconds"] = seconds
+    return out
+
+
 def main(argv: list[str]) -> int:
     mesh_only = argv == ["--mesh"]
     obs_only = argv == ["--observability"]
     ds_only = argv == ["--datastream"]
     conn_only = argv == ["--connectors"]
-    if mesh_only or obs_only or ds_only or conn_only:
+    pat_only = argv == ["--patterns"]
+    if mesh_only or obs_only or ds_only or conn_only or pat_only:
         argv = []
     if argv and (len(argv) != 2 or argv[0] not in ("--parent-kernels",
                                                    "--profile", "--aot-child")
@@ -11030,7 +11974,7 @@ def main(argv: list[str]) -> int:
                  and argv[1] not in PROFILED_CELLS):
         print("usage: chip_smoke.py [--parent-kernels DIR | --profile "
               f"{'|'.join(PROFILED_CELLS)} | --mesh | --observability | "
-              "--datastream | --connectors | --aot-child DIR]",
+              "--datastream | --connectors | --patterns | --aot-child DIR]",
               file=sys.stderr)
         return 2
     child = argv[1] if argv and argv[0] == "--profile" else None
@@ -11091,6 +12035,13 @@ def main(argv: list[str]) -> int:
         return 0
     if conn_only:
         emit({"connectors_seconds": connectors_phase(torch, dev)["seconds"]})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    if pat_only:
+        emit({"patterns_seconds": patterns_phase(torch, dev)["seconds"]})
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -11241,6 +12192,9 @@ def main(argv: list[str]) -> int:
     phase_done("datastream_core")
     emit({"connectors_seconds": connectors_phase(torch, dev)["seconds"]})
     phase_done("connectors")
+    pats = patterns_phase(torch, dev)
+    emit({"patterns_seconds": pats["seconds"]})
+    phase_done("patterns")
     emit(faults_phase(torch, dev))
     phase_done("faults")
     emit({"observability_seconds": observability_phases(torch, dev)})
@@ -11348,7 +12302,11 @@ def main(argv: list[str]) -> int:
                 "launches_by_path": {
                     "sql_groupby_10m": groupby["launches"][key],
                     "sql_groupby_10m retractions": groupby[
-                        "retraction_run"]["launches"][key]},
+                        "retraction_run"]["launches"][key],
+                    "patterns (a) GROUP BY": pats["mr"]["group_by"][
+                        "launches"][key],
+                    "patterns (e) Q17 over HTTP": pats["gateway"][
+                        "launches"]["q17"].get(key, 0)},
                 "at_groupby_10m": gagg["shapes"]["groupby_10m"]["stages"][
                     stage],
                 "edge_cases": sorted(gagg["edges"]),
@@ -11428,9 +12386,12 @@ def main(argv: list[str]) -> int:
          "standalone_at_n_2^21": hist["shapes"][small],
          "standalone_at_n_2^24": hist["shapes"][large],
          "launches_by_path": {
-             f"{cell} {m}": c[m]["launches_per_run"]["hist256"]
-             for cell, c in (("Q5-10M", q5_10m), ("Q5-10M-W20", wide),
-                             ("Q7-10M", q7)) for m in modes}},
+             **{f"{cell} {m}": c[m]["launches_per_run"]["hist256"]
+                for cell, c in (("Q5-10M", q5_10m), ("Q5-10M-W20", wide),
+                                ("Q7-10M", q7)) for m in modes},
+             "patterns (b) CEP": pats["cep"]["launches"]["hist256"],
+             "patterns (d) async": pats["async"]["ordered"]["launches"][
+                 "hist256"]}},
         {"name": "hash_probe", "route": "cuda",
          "source": "flink_tpu_torch/csrc/hash_table.cu",
          "replaces": "flink_tpu/ops/hash_table.py:133",
@@ -11445,6 +12406,8 @@ def main(argv: list[str]) -> int:
                 for m, r in tiering["shift"]["runs"].items()},
              "sql_tpch_q1": tpch["launches"]["hash_probe"],
              "sql_groupby_10m": groupby["launches"]["hash_probe"],
+             "patterns (a) GROUP BY": pats["mr"]["group_by"]["launches"][
+                 "hash_probe"],
              **{cell: joins[cell]["launches_per_run"]["hash_probe"]
                 for cell in Q7J_CELLS}},
          "list_reloads_by_cell": {
@@ -11461,6 +12424,10 @@ def main(argv: list[str]) -> int:
              "ingest_step"],
          "launches_q5_10M_fused": runtime["fused"]["launches_per_run"][
              "ingest_step"],
+         "launches_patterns": {
+             "(b) CEP": pats["cep"]["launches"]["ingest_step"],
+             "(d) async": pats["async"]["ordered"]["launches"][
+                 "ingest_step"]},
          "fused_graph_launches_per_micro_batch":
              fused["graph_launches"] / fused["micro_batches"][0]},
         form_entry("dirty", main_run["ingest_step_dirty"],

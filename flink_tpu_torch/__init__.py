@@ -20,7 +20,8 @@ keeps its own trimmed copies of the host modules it needs. Layout mirrors
   checkpoint/ checkpoint coordinator and storage
   connectors/ datagen and collection sources; files, logs, sockets
   formats/    csv, json, binary, columnar, avro, parquet, protobuf
-  utils/      the cluster secret of network endpoints
+  utils/      the cluster secret of network endpoints, the HTTP server
+  cep/        CEP: patterns, the NFA, the pattern operator
   metrics/    device counters
   api/        StreamExecutionEnvironment / DataStream
 

@@ -18,10 +18,9 @@ a lazy Transformation DAG compiled and run by
   where the reference's planner rule does, else the host operator.
 * Two connected streams into one two-input operator (``connect`` then
   ``transform``), and sinks.
-
-Broadcast state (``broadcast(descriptor)`` and its keyed process
-function) comes with the broadcast operator, and iterations with the
-feedback writer (ROADMAP Queue 1 item 10, group 5).
+* The broadcast state pattern: ``keyed.connect(rules.broadcast(desc))
+  .process(KeyedBroadcastProcessFunction)``; asynchronous lookups
+  (``async_io``). Iterations are not ported (no ``iterate``).
 """
 
 from __future__ import annotations
@@ -32,11 +31,14 @@ from typing import Any, Callable, Optional, Union
 import numpy as np
 
 from ..core.functions import AggregateFunction, ProcessFunction, \
-    SinkFunction, as_filter, as_flat_map, as_map, as_reduce
+    SinkFunction, as_filter, as_flat_map, as_map, as_reduce, \
+    copy_per_subtask
 from ..core.records import RecordBatch, Schema
 from ..graph.transformations import OneInputTransformation, \
     PartitionTransformation, SideOutputTransformation, SinkTransformation, \
     Transformation, TwoInputTransformation, UnionTransformation
+from ..runtime.operators.async_io import AsyncWaitOperator
+from ..runtime.operators.co_broadcast import CoBroadcastWithKeyedOperator
 from ..runtime.operators.device_session import DeviceSessionWindowOperator
 from ..runtime.operators.device_window import AggSpec, \
     DeviceWindowAggOperator
@@ -56,9 +58,8 @@ from ..window.triggers import CountTrigger, Evictor, PurgingTrigger, \
     Trigger
 
 __all__ = ["DataStream", "KeyedStream", "WindowedStream", "ConnectedStreams",
+           "BroadcastStream", "BroadcastConnectedStream",
            "make_key_extractor"]
-
-_GROUP_5 = "ROADMAP Queue 1 item 10, group 5"
 
 
 def make_key_extractor(key):
@@ -145,6 +146,23 @@ class DataStream:
             name, lambda: KeyedProcessOperator(fn, extract, name=name,
                                                device=device), parallelism)
 
+    def async_io(self, fn, capacity: int = 100,
+                 timeout_ms: Optional[int] = None, mode: str = "ordered",
+                 retry=None, on_timeout: str = "fail",
+                 out_schema: Optional[Schema] = None,
+                 parallelism: Optional[int] = None,
+                 name: str = "AsyncIO") -> "DataStream":
+        """Asynchronous lookups (Flink's AsyncDataStream.orderedWait and
+        unorderedWait): ``fn`` is an ``AsyncFunction``
+        (``runtime/operators/async_io.py``). Each subtask gets its own
+        copy, so a function makes its pools and clients in ``open()``."""
+        return self._one_input(
+            name, lambda: AsyncWaitOperator(
+                copy_per_subtask(fn), capacity=capacity,
+                timeout_ms=timeout_ms, mode=mode, retry=retry,
+                on_timeout=on_timeout, out_schema=out_schema, name=name),
+            parallelism=parallelism)
+
     def key_by(self, key) -> "KeyedStream":
         """A hash exchange by key group; ``key`` as ``make_key_extractor``
         takes it. The device window operators need a column name."""
@@ -167,12 +185,19 @@ class DataStream:
     def connect(self, other: "DataStream") -> "ConnectedStreams":
         """This stream and ``other`` into one two-input operator
         (``ConnectedStreams.transform``); each input keeps its own
-        exchange (``key_by`` both for a keyed join). Broadcast state is not
-        ported: only a DataStream connects."""
+        exchange (``key_by`` both for a keyed join). A broadcast stream
+        connects to a keyed stream only."""
+        if isinstance(other, BroadcastStream):
+            raise NotImplementedError(
+                "broadcast state requires a KEYED stream: use "
+                "ds.key_by(...).connect(rules.broadcast(desc)) with a "
+                "KeyedBroadcastProcessFunction (the non-keyed "
+                "BroadcastProcessFunction is not implemented, and dropping "
+                "the descriptors would run the job with no broadcast "
+                "state)")
         if not isinstance(other, DataStream):
             raise NotImplementedError(
-                f"connect takes a DataStream, not {type(other).__name__}; "
-                f"broadcast state is {_GROUP_5}")
+                f"connect takes a DataStream, not {type(other).__name__}")
         return ConnectedStreams(self.env, self, other)
 
     def rebalance(self) -> "DataStream":
@@ -181,14 +206,15 @@ class DataStream:
     def rescale(self) -> "DataStream":
         return self._repartition("rescale", RescalePartitioner)
 
-    def broadcast(self, *descriptors) -> "DataStream":
-        """Every record to every subtask of the next operator. Broadcast
-        state (``descriptors``) is not ported yet."""
+    def broadcast(self, *descriptors):
+        """Every record to every subtask of the next operator. With map
+        state descriptors, a ``BroadcastStream`` for the broadcast state
+        pattern: ``keyed.connect(rules.broadcast(desc)).process(fn)``."""
+        replicated = self._repartition("broadcast", BroadcastPartitioner)
         if descriptors:
-            raise NotImplementedError(
-                "broadcast state (broadcast(descriptor) and a keyed "
-                f"broadcast process function) is {_GROUP_5}")
-        return self._repartition("broadcast", BroadcastPartitioner)
+            return BroadcastStream(self.env, replicated.transformation,
+                                   descriptors)
+        return replicated
 
     def shuffle(self) -> "DataStream":
         return self._repartition("shuffle", ShufflePartitioner)
@@ -267,12 +293,59 @@ class DataStream:
         return self
 
 
+class BroadcastStream:
+    """A broadcast stream bound to the map state descriptors of the
+    broadcast state it feeds."""
+
+    def __init__(self, env, transformation: Transformation, descriptors):
+        self.env = env
+        self.transformation = transformation
+        self.descriptors = list(descriptors)
+
+
+class BroadcastConnectedStream:
+    """A keyed stream and a broadcast stream awaiting a
+    ``KeyedBroadcastProcessFunction``."""
+
+    def __init__(self, env, keyed: "KeyedStream",
+                 broadcast: BroadcastStream):
+        self.env = env
+        self.keyed = keyed
+        self.broadcast = broadcast
+
+    def process(self, fn, name: str = "CoBroadcastWithKeyed",
+                out_schema: Optional[Schema] = None,
+                parallelism: Optional[int] = None) -> DataStream:
+        """The keyed side's state is the configured backend's, on the
+        environment's device."""
+        ke, device = self.keyed.key_extractor, self.env.device
+        descs = tuple(self.broadcast.descriptors)
+        t = TwoInputTransformation(
+            name=name,
+            operator_factory=lambda: CoBroadcastWithKeyedOperator(
+                fn, ke, descs, out_schema=out_schema, name=name,
+                device=device),
+            parallelism=parallelism,
+            inputs=[self.keyed.transformation,
+                    self.broadcast.transformation],
+            key_extractor1=ke)
+        self.env._transformations.append(t)
+        return DataStream(self.env, t)
+
+
 class KeyedStream(DataStream):
     def __init__(self, env, transformation: Transformation, key_extractor,
                  key_spec):
         super().__init__(env, transformation)
         self.key_extractor = key_extractor
         self.key_spec = key_spec
+
+    def connect(self, other):
+        """A broadcast stream gives a ``BroadcastConnectedStream``, any
+        other stream ``ConnectedStreams``."""
+        if isinstance(other, BroadcastStream):
+            return BroadcastConnectedStream(self.env, self, other)
+        return super().connect(other)
 
     def process(self, fn: ProcessFunction, name: str = "KeyedProcess",
                 parallelism: Optional[int] = None) -> DataStream:

@@ -10,7 +10,9 @@ port of ``flink_tpu/checkpoint/coordinator.py``).
 * ``build_restore_map`` maps a completed checkpoint onto a (possibly
   rescaled) topology: every new subtask gets the keyed snapshots of all
   old subtasks of its vertex (backends keep their key-group range), and
-  reader state maps 1:1 when the parallelism is unchanged.
+  reader and operator state map 1:1 when the parallelism is unchanged;
+  on a rescale the broadcast maps go to every new subtask
+  (``redistribute_operator_state``).
 
 * ``latest_verified_checkpoint`` is what a restart restores from: the
   newest retained checkpoint whose files pass their digests (on disk;
@@ -35,7 +37,8 @@ from .storage import CheckpointStorage, CompletedCheckpoint, \
     CorruptArtifactError, FsCheckpointStorage, MemoryCheckpointStorage, \
     snapshot_nbytes, verify_checkpoint
 
-__all__ = ["CheckpointCoordinator", "build_restore_map"]
+__all__ = ["CheckpointCoordinator", "build_restore_map",
+           "redistribute_operator_state"]
 
 RETAINED = 1   # completed checkpoints kept (savepoints are not counted)
 
@@ -284,13 +287,24 @@ def build_restore_map(checkpoint: CompletedCheckpoint,
         op_keys: set[str] = set()
         for snap in old.values():
             op_keys.update((snap.get("chain") or {}).keys())
+        # a rescale: the operator state that survives it, redistributed
+        redistributed: dict[str, list] = {}
+        if not same_par:
+            for op_key in op_keys:
+                redistributed[op_key] = redistribute_operator_state(
+                    [op_snap for osub in sorted(old)
+                     if (op_snap := ((old[osub].get("chain") or {})
+                                     .get(op_key) or {}).get("operator"))
+                     is not None], vertex.parallelism)
         for sub in range(vertex.parallelism):
             task_snap: dict[str, Any] = {}
             if same_par and sub in old:
                 task_snap["reader"] = old[sub].get("reader")
             chain_map: dict[str, dict] = {}
             for op_key in op_keys:
-                keyed_list, operator_state = [], None
+                keyed_list = []
+                operator_state = (None if same_par
+                                  else redistributed[op_key][sub])
                 for osub in sorted(old):
                     op_snap = (old[osub].get("chain") or {}).get(op_key) or {}
                     if op_snap.get("keyed") is not None:
@@ -303,3 +317,20 @@ def build_restore_map(checkpoint: CompletedCheckpoint,
                 task_snap["chain"] = chain_map
             restore[f"{vid}#{sub}"] = task_snap
     return restore
+
+
+def redistribute_operator_state(snapshots: list,
+                                new_parallelism: int) -> list:
+    """One operator's non-keyed snapshots, of the old subtasks, for each
+    of ``new_parallelism`` new ones. Only the broadcast maps
+    (``CoBroadcastWithKeyedOperator``) cross a rescale: every old subtask
+    wrote an equal replica, so each new subtask takes the first (the
+    reference's ``OperatorStateBackend.redistribute``, which ships
+    broadcast state whole). Other operator state starts empty, as in the
+    reference, whose split and union lists the port does not keep."""
+    first = next((s["broadcast"] for s in snapshots if s.get("broadcast")),
+                 None)
+    if first is None:
+        return [None] * new_parallelism
+    return [{"broadcast": {n: dict(m) for n, m in first.items()}}
+            for _ in range(new_parallelism)]

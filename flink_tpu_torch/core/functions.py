@@ -13,7 +13,9 @@ The vectorized path receives the batch itself: numpy columns
 (``batch.dcolumns``) for a ``DeviceRecordBatch``, so a device batch is
 mapped or filtered with torch ops where it lies. ``open``/``close``
 mirror RichFunction; ``RuntimeContext`` gives subtask facts and keyed
-state. The broadcast process function comes with the broadcast operator.
+state. ``KeyedBroadcastProcessFunction`` is the keyed side and the
+broadcast side of the broadcast state pattern, the keyed side seeing the
+broadcast maps through a read-only ``_ReadOnlyMap``.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ __all__ = [
     "copy_per_subtask", "RuntimeContext", "Function", "MapFunction",
     "FlatMapFunction", "FilterFunction", "ReduceFunction",
     "AggregateFunction", "KeySelector", "Collector", "ProcessFunction",
-    "KeyedProcessFunction", "SourceFunction", "SinkFunction", "as_map",
+    "KeyedProcessFunction", "KeyedBroadcastProcessFunction",
+    "SourceFunction", "SinkFunction", "as_map",
     "as_flat_map", "as_filter", "as_reduce", "as_key_selector",
     "BuiltinAggregate", "ReduceAggregate",
 ]
@@ -178,6 +181,97 @@ class ProcessFunction(Function, Generic[IN, OUT]):
 
 
 KeyedProcessFunction = ProcessFunction  # keyed-ness comes from the stream
+
+
+class KeyedBroadcastProcessFunction(Function, Generic[IN, OUT]):
+    """The function of a keyed stream connected to a broadcast stream
+    (Flink's KeyedBroadcastProcessFunction, run by
+    CoBroadcastWithKeyedOperator). ``process_element`` sees a keyed
+    record and the broadcast state read-only; ``process_broadcast_element``
+    sees each broadcast record on every subtask, with the broadcast state
+    read-write. Replicas stay equal as long as the broadcast side's
+    updates are deterministic. The canonical use is dynamic rules: rules
+    ride the broadcast side into the state, and the keyed side holds each
+    event against them."""
+
+    class ReadOnlyContext:
+        def __init__(self, timestamp, current_key, broadcast_view,
+                     timer_service=None):
+            self.timestamp = timestamp
+            self.current_key = current_key
+            self.timer_service = timer_service
+            self._view = broadcast_view
+
+        def get_broadcast_state(self, descriptor) -> "_ReadOnlyMap":
+            return self._view(descriptor.name)
+
+    class Context:
+        def __init__(self, timestamp, broadcast_rw, apply_keyed=None):
+            self.timestamp = timestamp
+            self._rw = broadcast_rw
+            self._apply_keyed = apply_keyed
+
+        def get_broadcast_state(self, descriptor) -> dict:
+            return self._rw(descriptor.name)
+
+        def apply_to_keyed_state(self, descriptor, fn) -> None:
+            """``fn(key, state)`` for every key of this subtask holding
+            state under ``descriptor`` (Flink's applyToKeyedState): the
+            broadcast side's one way into the keyed state, e.g. to hold
+            the events buffered before a rule against it."""
+            if self._apply_keyed is None:
+                raise RuntimeError("keyed state access not wired")
+            self._apply_keyed(descriptor, fn)
+
+    def process_element(self, value: IN,
+                        ctx: "KeyedBroadcastProcessFunction.ReadOnlyContext",
+                        out: Collector[OUT]) -> None:
+        raise NotImplementedError
+
+    def process_broadcast_element(
+            self, value: IN, ctx: "KeyedBroadcastProcessFunction.Context",
+            out: Collector[OUT]) -> None:
+        raise NotImplementedError
+
+    def on_timer(self, timestamp: int,
+                 ctx: "KeyedBroadcastProcessFunction.ReadOnlyContext",
+                 out: Collector[OUT]) -> None:
+        pass
+
+
+class _ReadOnlyMap:
+    """A broadcast map as the keyed side sees it: reads only (a write
+    from one subtask would make the replicas differ), so an item
+    assignment raises TypeError."""
+
+    __slots__ = ("_m",)
+
+    def __init__(self, m: dict):
+        self._m = m
+
+    def get(self, k, default=None):
+        return self._m.get(k, default)
+
+    def __getitem__(self, k):
+        return self._m[k]
+
+    def __contains__(self, k):
+        return k in self._m
+
+    def __iter__(self):
+        return iter(self._m)
+
+    def __len__(self):
+        return len(self._m)
+
+    def items(self):
+        return self._m.items()
+
+    def keys(self):
+        return self._m.keys()
+
+    def values(self):
+        return self._m.values()
 
 
 class SourceFunction(Function, Generic[OUT]):

@@ -33,8 +33,9 @@ to ``DeviceGroupAggOperator``, TUMBLE/HOP and SESSION windows with one
 integer key to the device window operators; CUMULATE windows, other keys
 and the ``hashmap`` backend take the host WindowOperator
 (``_host_window_agg``). Joins plan as the reference plans them (host
-operators). MATCH_RECOGNIZE raises ``PlanError`` naming the ROADMAP
-item that ports it.
+operators); MATCH_RECOGNIZE lowers onto the CEP operator
+(``sql/match_recognize.py``), whose rows a GROUP BY above it takes on its
+host-batch route.
 """
 
 from __future__ import annotations
@@ -61,6 +62,7 @@ from .expressions import (
 )
 from .group_agg import GroupAggOperator, LocalGroupAggOperator, SqlAggSpec
 from .join import StreamingJoinOperator, TemporalJoinOperator
+from .match_recognize import plan_match_recognize
 from .parser import JoinClause, MatchRecognize, SelectItem, SelectStmt, \
     TableRef, WindowTVF
 from .topn import TopNOperator
@@ -68,8 +70,6 @@ from .topn import TopNOperator
 __all__ = ["plan", "PlanError"]
 
 WINDOW_COLS = ("window_start", "window_end")
-#: the ROADMAP item that ports what the trimmed planner refuses
-_MATCH_ITEM = "ROADMAP Queue 1 item 10, group 4 (MATCH_RECOGNIZE, with cep/)"
 
 
 class PlanError(ValueError):
@@ -122,8 +122,12 @@ class _Planner:
         if isinstance(from_, JoinClause):
             return self.plan_join(from_)
         if isinstance(from_, MatchRecognize):
-            raise PlanError("the port does not plan MATCH_RECOGNIZE yet; "
-                            f"{_MATCH_ITEM} ports it")
+            ds, schema = self.resolve(from_.table.name)
+            out = plan_match_recognize(from_, ds, schema, self.env)
+            quals = ({from_.alias: {f.name: f.name
+                                    for f in out._sql_schema.fields}}
+                     if from_.alias else {})
+            return out, out._sql_schema, None, quals
         raise PlanError(f"unsupported FROM clause {from_!r}")
 
     # -- JOIN --------------------------------------------------------------

@@ -1193,6 +1193,12 @@ class DeviceKeyedStateBackend:
             self._row_states[descriptor.name] = handle
         return handle
 
+    def keys(self, state_name: str, namespace=None) -> list:
+        """Every key of the table (the reference's ``keys``: the table's
+        keys, whatever their planes hold); one copy home."""
+        t = self.table.cpu().numpy()
+        return t[t != EMPTY_KEY].tolist()
+
     # -- checkpointing -----------------------------------------------------
     def snapshot(self, checkpoint_id: int) -> dict:
         """Host numpy snapshot in the reference's schema, canonical (group,

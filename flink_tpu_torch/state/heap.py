@@ -15,11 +15,15 @@ is its descriptor's, else the registry's default (``core/serializers.py``);
 a restore resolves each recorded (name, version) against the current
 serializer and runs the registry's value migrations from an older
 version, and refuses another serializer, a newer version or a version
-with no migration path.
+with no migration path. A snapshot and a restore copy each list, map
+and set value: list and map state change theirs in place, and an
+in-memory checkpoint keeps the snapshot by reference (the reference
+shares them, ROADMAP Queue 3).
 """
 
 from __future__ import annotations
 
+import copy
 import time
 from typing import Any, Iterable, Optional
 
@@ -31,6 +35,14 @@ from .descriptors import AggregatingStateDescriptor, \
     ReducingStateDescriptor, StateDescriptor
 
 __all__ = ["HeapKeyedStateBackend"]
+
+def _detached(value: Any) -> Any:
+    """A list, map or set value copied: list and map state change their
+    value in place, so a snapshot (which an in-memory checkpoint keeps
+    by reference) and a restore each take their own."""
+    return copy.copy(value) if isinstance(value, (list, dict, set)) \
+        else value
+
 
 class _Entry:
     __slots__ = ("value", "expiry")
@@ -97,6 +109,14 @@ class HeapKeyedStateBackend(KeyedStateBackend):
             self._handles[descriptor.name] = handle
         return handle
 
+    def keys(self, state_name: str, namespace: Any = None) -> Iterable[Any]:
+        """The keys holding state ``state_name`` under ``namespace``
+        (the broadcast side's ``apply_to_keyed_state``)."""
+        for kg_map in self._table(state_name).values():
+            for (key, ns) in list(kg_map):
+                if ns == namespace:
+                    yield key
+
     # -- checkpointing -----------------------------------------------------
     def snapshot(self, checkpoint_id: int) -> dict:
         now = time.time()
@@ -104,7 +124,8 @@ class HeapKeyedStateBackend(KeyedStateBackend):
         for name, table in self._states.items():
             per_kg: dict[int, list] = {}
             for kg, kg_map in table.items():
-                items = [(kn, e.value, e.expiry) for kn, e in kg_map.items()
+                items = [(kn, _detached(e.value), e.expiry)
+                         for kn, e in kg_map.items()
                          if e.expiry is None or e.expiry > now]
                 if items:
                     per_kg[kg] = items
@@ -170,6 +191,7 @@ class HeapKeyedStateBackend(KeyedStateBackend):
                         continue  # rescaling: not ours
                     m = table.setdefault(kg, {})
                     for kn, value, expiry in items:
+                        value = _detached(value)
                         if migrate is not None:
                             value = migrate(value)
                         m[tuple(kn) if isinstance(kn, list) else kn] = \

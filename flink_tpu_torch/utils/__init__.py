@@ -1,2 +1,2 @@
 """Utilities of the port (``utils/auth.py``: the cluster secret of the
-network endpoints)."""
+network endpoints; ``utils/httpd.py``: the SQL gateway's HTTP server)."""

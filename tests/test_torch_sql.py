@@ -15,8 +15,8 @@ non-representable decimals, whose host fold orders differ.
 
 Also: parse trees equal the reference's, parse and plan errors, EXPLAIN
 naming ``GroupAggregate(device)``, the DDL statements on the datagen
-connector, unported routes raising PlanError with their ROADMAP item, and
-the whole SQL path once in a subprocess that cannot import jax or
+connector, MATCH_RECOGNIZE planned with rows equal to the reference's,
+and the whole SQL path once in a subprocess that cannot import jax or
 flink_tpu.
 """
 
@@ -533,10 +533,13 @@ def test_ddl_on_the_datagen_connector():
     assert results["ref"] == results["port"]
 
 
-UNPORTED = [
-    ("SELECT * FROM orders MATCH_RECOGNIZE (PARTITION BY k ORDER BY v "
-     "MEASURES A.v AS av PATTERN (A B) DEFINE A AS A.v > 1, B AS B.v > 2)",
-     "Queue 1 item 10, group 4"),
+#: MATCH_RECOGNIZE raised PlanError until the port planned it; now its
+#: rows equal the reference's (tests/test_torch_match_recognize.py holds
+#: the clause's cases)
+MATCH_ROUTES = [
+    "SELECT * FROM bids MATCH_RECOGNIZE (PARTITION BY k ORDER BY ts "
+    "MEASURES A.v AS av, B.v AS bv PATTERN (A B) DEFINE A AS A.v > 1, "
+    "B AS B.v > 2)",
 ]
 #: routes the host WindowOperator now plans (they raised before it was
 #: ported); tests/test_torch_window_operator.py holds their rows to the
@@ -557,9 +560,17 @@ def test_unported_routes_raise_plan_error():
     schema = port_records.Schema(ORDERS_FIELDS)
     t_env.create_temporary_view("orders", env.from_collection(
         ORDERS, schema), schema)
-    for sql, item in UNPORTED:
-        with pytest.raises(port_sql.PlanError, match=item):
-            t_env.execute_sql(sql)
+    for sql in MATCH_ROUTES:
+        rows = {}
+        for side in SIDES:
+            _make, rec, _wm, sqlmod = SIDES[side]
+            e = _env(side)
+            t = sqlmod.TableEnvironment(e)
+            bids = rec.Schema(BIDS_FIELDS)
+            t.create_temporary_view("bids", e.from_collection(
+                BIDS, bids, timestamps=[r[2] for r in BIDS]), bids)
+            rows[side] = sorted(t.execute_sql(sql).collect_final())
+        assert rows["port"] == rows["ref"] and rows["port"]
     for sql in HOST_WINDOW_ROUTES:
         assert t_env.execute_sql(sql).collect()
     # a filesystem table plans in both packages and fails as the
