@@ -307,8 +307,8 @@ Run from the repository root:  python3 chip_smoke.py
     whose rows continue the first's with none lost or repeated. Events/s,
     peak memory, rehashes, retries, host seconds a batch by part, kernel
     builds after the warm-up, dedup_first's device ms and the idle share.
-25. ``sql_join``: through ``execute_sql`` on datagen tables (2^18
-    auctions, 2^16 persons; the host plane: the reference's join
+25. ``sql_join``: through ``execute_sql`` on datagen tables (2^16
+    auctions, 2^14 persons; the host plane: the reference's join
     operators): a Nexmark Q3-shaped inner join (category = 10; q3.sql's
     string state filter cut), a LEFT JOIN under a GROUP BY over its
     changelog (the device GROUP BY retracting the padded rows) and a
@@ -328,32 +328,32 @@ Run from the repository root:  python3 chip_smoke.py
     -> key_by -> the Q5 sliding window -> device_aggregate(count, sum,
     emit_topk) with every window against the oracle under the tie rule
     (one ingest_step a batch), each job after a warm-up of 4 batches; (c)
-    a KeyedProcessFunction on the device backend (2^13 bids over 2^11
+    a KeyedProcessFunction on the device backend (2^12 bids over 2^11
     auctions across 40 000 ms, batch 2^12, a watermark a batch: a
     ValueState count an auction, an event-time timer 10 000 ms after its
-    first bid that emits and clears it; a sixteenth of 2^17 bids over an
-    eighth of 2^14 auctions for the time limit: every row is a Python
+    first bid that emits and clears it; a thirty-second of 2^17 bids over
+    an eighth of 2^14 auctions for the time limit: every row is a Python
     call, three launches and about
     seven host transfers), every row against a dict,
     row_get, row_set and row_unset each launched, and a host profile of
     500 rows of the ValueState calls (``row_api_profile``); (d) CUMULATE
     (2 s step, 10 s size) through SQL on the host WindowOperator over the
-    datagen DDL (2^15 rows, a quarter of 2^17 for the time limit, auction
+    datagen DDL (2^14 rows, an eighth of 2^17 for the time limit, auction
     random over [0, 4095], ts the sequence number), every row against
     numpy.
     ``python3 chip_smoke.py --datastream`` builds the kernels and runs
     this phase alone. Then ``connectors`` (``--connectors`` alone).
 27. ``patterns``, each part against an oracle written here: (a) the V
     shape of Flink's MATCH_RECOGNIZE documentation (SKIP PAST LAST ROW,
-    WITHIN 10 s) over 2^16 ticks of 2^13 symbols, alone (every match
+    WITHIN 10 s) over 2^15 ticks of 2^13 symbols, alone (every match
     against a per-symbol scan) and under a device GROUP BY (every group),
     with the documented forms the port refuses; (b) CEP on bench.py's
-    bid stream (2^17 bids, 2^13 bidders, 60 s): a bid followed by a
+    bid stream (2^16 bids, 2^13 bidders, 30 s): a bid followed by a
     higher bid of the bidder within 10 s, SKIP_PAST_LAST_EVENT, its
     matches by auction through the card into Q5's window (W = 5, top
     100), then a checkpoint, a cancel and a restore, every window once;
     (c) the dynamic-rules broadcast pattern at parallelism 2 on the
-    hashmap backend (2^15 bids, thresholds of 16 buckets changed three
+    hashmap backend (2^14 bids, thresholds of 16 buckets changed three
     times), restored mid-run; (d) async enrichment of 2^16 of Q5's bids
     over 2^16 auctions (a thread-pool lookup of about 100 us, capacity 100),
     ordered with an injected timeout that retries, then unordered across
@@ -362,7 +362,36 @@ Run from the repository root:  python3 chip_smoke.py
     BY and Q17's aggregates over HTTP equal to a TableEnvironment's, a
     bad statement a 400. ``python3 chip_smoke.py --patterns`` builds
     the kernels and runs this phase alone.
-28. ``faults_phase``: Q5-1M at its widths through ``env.execute()``,
+28. ``runtime_io``, each part against an oracle written here: (a)
+    Q5-10M's stream (10M keys, 2^24 slots, W = 5, ring 16, top 1000,
+    device batches of 2^19, 2^25 events) from two sources (the even
+    indices unpaced, the odd ones paced over 1.5 s) into one window task,
+    unfused, with ``execution.checkpointing.unaligned``: the unpaced
+    source holds the window task 0.1 s through its mailbox at its 2nd
+    batch and triggers a checkpoint at its 12th, which captures its
+    batches queued at the gate; the window task's barrier-to-ack seconds,
+    the in-flight batches, rows and card bytes, the seconds they take to
+    come home, against the same job aligned (run first: a process's first
+    snapshot also allocates its pinned mirror); a cancel and a restore from
+    the fs checkpoint, the captured batches replayed first, every window
+    once against the oracle; (b) the same window fed by two sources of
+    one alignment group (drift 4000 ms), one taking an index in 5 (its
+    event time 4 times the other's a record): pauses, the largest
+    overshoot (at most one of its batches' event time), the widest pane
+    span the ring held, events/s, and with ``metrics.latency.interval``
+    10 ms the markers the window and the sink saw and the sink's latency
+    p50 and p99 beside p99 fire latency, then the same job without
+    alignment; (c) datastream_core's keyed_process job (2^13 bids, 2^12
+    auctions)
+    with a queryable total a key on ``changelog`` and ``hashmap``,
+    checkpoints every 200 ms: bytes written, materializations, segments;
+    counts read over a ``KvStateServer`` while it runs (never going
+    down); a cancel and a restore (base plus segments), the rows across
+    it and the restored totals over TCP against the oracle; (d) the
+    Collatz-style loop of tests/test_iterations.py at 2^14 seeds on host
+    batches, each seed's steps against numpy. ``python3 chip_smoke.py
+    --runtime-io`` builds the kernels and runs this phase alone.
+29. ``faults_phase``: Q5-1M at its widths through ``env.execute()``,
     every window against the oracle: a seeded transient ``device.execute``
     schedule (retries), a persistent trip (one degrade to the CPU rung,
     its seconds), a poison trip on the first step (that batch
@@ -374,7 +403,7 @@ Run from the repository root:  python3 chip_smoke.py
     turns, two runs each: events/s, supervised calls, host µs a call).
     Every other phase must leave the fault counters at 0
     (``fault_counters_by_phase``).
-29. ``mesh_phase``, the multi-device window path: ``exchange_bucket``
+30. ``mesh_phase``, the multi-device window path: ``exchange_bucket``
     (csrc/exchange.cu) against its plain version at the mesh cell's shape
     (4 source blocks of 2^17 rows of Q5-10M's 33rd batch to 4 shards) and
     on edge cases (every key to one shard, each block to its own shard,
@@ -401,7 +430,7 @@ Run from the repository root:  python3 chip_smoke.py
     checkpoint restored into the single-device operator and the other way
     round. ``python3 chip_smoke.py --mesh`` builds the kernels and runs
     this phase alone.
-30. The kernels line, the nvidia-smi line, then the last line
+31. The kernels line, the nvidia-smi line, then the last line
     {"ok": true, "device": {...}}.
 
 ``python3 chip_smoke.py --parent-kernels DIR`` instead times, with the same
@@ -8251,8 +8280,8 @@ def value_state_phase(torch, dev) -> dict:
 
 
 # -- the SQL joins on the host plane (sql_join) --------------------------------
-SQL_JOIN_AUCTIONS = 1 << 17    # 2^18 and 2^16 before the connectors
-SQL_JOIN_PERSONS = 1 << 15     # phase: cut for the time limit
+SQL_JOIN_AUCTIONS = 1 << 16    # 2^17 and 2^15 before runtime_io, 2^18 and
+SQL_JOIN_PERSONS = 1 << 14     # 2^16 before connectors: cut for the time limit
 SQL_JOIN_Q3 = ("SELECT A.id AS aid, A.seller AS seller, P.id AS pid "
                "FROM auction AS A INNER JOIN person AS P "
                "ON A.seller = P.id WHERE A.category = 10")
@@ -9913,15 +9942,16 @@ Q1_RATE, Q2_MOD = 0.908, 123
 #: probe, row_set, row_get) and about seven host transfers, 786 us a row
 #: on an H100 (2^17 bids over 2^14 auctions took 103.1 s); a sixteenth
 #: of the bids and an eighth of the auctions keep 4 bids an auction (an
-#: eighth of both, 8 an auction, before the patterns phase)
+#: eighth of both, 8 an auction, before the patterns phase; 2^13 bids
+#: before the runtime_io phase)
 KP_BIDS, KP_AUCTIONS, KP_SPAN_MS, KP_BATCH, KP_TIMER_MS = \
-    1 << 13, 1 << 11, 40_000, 1 << 12, 10_000
+    1 << 12, 1 << 11, 40_000, 1 << 12, 10_000
 #: (d) CUMULATE through SQL on the datagen DDL (the shape of Flink's
 #: documented CUMULATE example: a 2 s step in a 10 s window); 2^15 rows,
 #: a quarter of 2^17, for the smoke's time limit (a row is about 5
 #: windows of host state work, 7.1 K to 7.8 K rows/s on an H100's host;
-#: 2^16 before the patterns phase)
-CUM_ROWS, CUM_AUCTIONS, CUM_STEP_MS, CUM_SIZE_MS = 1 << 15, 4096, 2000, \
+#: 2^16 before the patterns phase, 2^15 before the runtime_io phase)
+CUM_ROWS, CUM_AUCTIONS, CUM_STEP_MS, CUM_SIZE_MS = 1 << 14, 4096, 2000, \
     10_000
 CUM_SQL = ("SELECT auction, window_start, window_end, COUNT(*) AS c, "
            "SUM(price) AS s FROM CUMULATE(TABLE bid, DESCRIPTOR(ts), "
@@ -10164,13 +10194,15 @@ def nexmark_stateless_phase(torch, dev, cell: tuple = Q5_CELLS[1],
     return out
 
 
-def keyed_process_expected(bids: int = KP_BIDS) -> list:
+def keyed_process_expected(bids: int = KP_BIDS,
+                           auctions: int = KP_AUCTIONS,
+                           batch: int = KP_BATCH) -> list:
     """Dict oracle of (c): the operator's order of events, a batch at a
     time; after each batch the watermark (the batch's last ts - 1) fires
     the timers at or before it, and the end of input fires the rest."""
     import heapq
     idx = np.arange(bids, dtype=np.int64)
-    auction = sql_join_random(idx, 0, KP_AUCTIONS - 1).tolist()
+    auction = sql_join_random(idx, 0, auctions - 1).tolist()
     ts = ((idx * KP_SPAN_MS) // bids).tolist()
     count, timers, rows = {}, [], []
 
@@ -10179,13 +10211,13 @@ def keyed_process_expected(bids: int = KP_BIDS) -> list:
             t, a = heapq.heappop(timers)
             rows.append((a, count.pop(a), t))
 
-    for lo in range(0, bids, KP_BATCH):
-        for a, t in zip(auction[lo:lo + KP_BATCH], ts[lo:lo + KP_BATCH]):
+    for lo in range(0, bids, batch):
+        for a, t in zip(auction[lo:lo + batch], ts[lo:lo + batch]):
             if not count.get(a):
                 heapq.heappush(timers, (t + KP_TIMER_MS, a))
                 count[a] = 0
             count[a] += 1
-        fire(ts[min(lo + KP_BATCH, bids) - 1] - 1)
+        fire(ts[min(lo + batch, bids) - 1] - 1)
     fire(1 << 62)
     return sorted(rows)
 
@@ -10372,12 +10404,14 @@ CONN_Q5 = {"keys": 10_000_000, "events": 1 << 25, "capacity": 1 << 24,
            "batch": BATCH, "files": 4}
 #: (b) SQL over the filesystem: csv bids into the device GROUP BY, and an
 #: append-only INSERT INTO a json table under checkpoints of ``ckpt_s``
-CONN_SQL = {"rows": 1 << 18, "auctions": 1 << 16, "batch": 1 << 14,
+#: (2^17 rows: 2^18 before the runtime_io phase, cut for the time limit)
+CONN_SQL = {"rows": 1 << 17, "auctions": 1 << 16, "batch": 1 << 14,
             "hot_price": 990, "ckpt_s": 0.05}
 #: (c) the log: Q5's shape over ``auctions`` from a topic of ``lines`` json
 #: bids in ``partitions``, its fired rows into a transactional topic; then
-#: ``net_lines`` through a broker on loopback
-CONN_LOG = {"lines": 1 << 18, "net_lines": 1 << 14, "auctions": 1 << 16,
+#: ``net_lines`` through a broker on loopback (2^17 lines: 2^18 before PR
+#: 24, cut for the time limit)
+CONN_LOG = {"lines": 1 << 17, "net_lines": 1 << 14, "auctions": 1 << 16,
             "partitions": 4, "batch": 1 << 12, "capacity": 1 << 18,
             "cut": 2 / 3}
 #: (d) the socket: ``lines`` of "word ts" into a word count of tumbling
@@ -11041,22 +11075,26 @@ def connectors_phase(torch, dev, sizes: dict | None = None) -> dict:
 
 
 # -- patterns: CEP, MATCH_RECOGNIZE, broadcast state, async I/O, gateway ---
-#: the patterns phase's parts. (a) MATCH_RECOGNIZE's V shape over ticks of
-#: 2^13 symbols (about the listed US equities), each about every 2 s
-#: (2^16 ticks: half of 2^17, for the time limit); (b) bench.py's bid
-#: stream with 2^13 bidders over 60 s into CEP; (c) the dynamic-rules
-#: broadcast pattern; (d) async enrichment of Q5's bids over 2^16
-#: auctions (2^16 bids: a quarter of 2^18, for the time limit); (e) the
-#: SQL gateway
+#: the patterns phase's parts; (a) to (c) cut to half their stream for
+#: the time limit when the runtime_io phase came (the rates kept: the
+#: span halved with the events), the earlier figures in brackets. (a)
+#: MATCH_RECOGNIZE's V shape over ticks of 2^13 symbols (about the listed
+#: US equities), each about every 2 s (2^15 ticks over 8 s; 2^16 over 16
+#: s, 2^17 before); (b) bench.py's bid stream with 2^13 bidders into CEP
+#: (2^16 bids over 30 s, paced over 3 s; 2^17 over 60 s, 6 s); (c) the
+#: dynamic-rules broadcast pattern (2^14 bids over 20 s; 2^15 over 40 s);
+#: (d) async enrichment of Q5's bids over 2^16 auctions (2^16 bids: a
+#: quarter of 2^18, for the time limit; its checkpoint waits for a
+#: periodic watermark after half the bids); (e) the SQL gateway
 PATTERNS = {
-    "mr": {"ticks": 1 << 16, "symbols": 1 << 13, "span_ms": 16_000,
+    "mr": {"ticks": 1 << 15, "symbols": 1 << 13, "span_ms": 8_000,
            "batch": 1 << 12, "prices": 64},
-    "cep": {"bids": 1 << 17, "bidders": 1 << 13, "auctions": 1 << 12,
-            "span_ms": 60_000, "within_ms": 10_000, "batch": 1 << 13,
-            "capacity": 1 << 14, "topk": 100, "paced_s": 6.0},
-    "broadcast": {"bids": 1 << 15, "auctions": 1 << 10, "buckets": 16,
-                  "changes": 3, "span_ms": 40_000, "batch": 1 << 11,
-                  "parallelism": 2, "paced_s": 2.0},
+    "cep": {"bids": 1 << 16, "bidders": 1 << 13, "auctions": 1 << 12,
+            "span_ms": 30_000, "within_ms": 10_000, "batch": 1 << 13,
+            "capacity": 1 << 14, "topk": 100, "paced_s": 3.0},
+    "broadcast": {"bids": 1 << 14, "auctions": 1 << 10, "buckets": 16,
+                  "changes": 3, "span_ms": 20_000, "batch": 1 << 11,
+                  "parallelism": 2, "paced_s": 1.0},
     "async": {"bids": 1 << 16, "auctions": 1 << 16, "batch": 1 << 12,
               "capacity": 100, "lookup_s": 1e-4, "threads": 16,
               "timeout_ms": 500, "ckpt_timeout_ms": 3000,
@@ -11960,13 +11998,708 @@ def patterns_phase(torch, dev, sizes: dict | None = None) -> dict:
     return out
 
 
+# -- the task runtime and state I/O (runtime_io) -------------------------------
+#: (a) Q5-10M's stream from two sources (the even and the odd indices,
+#: the strided split of two source subtasks) into one window task,
+#: unfused. The paced one reads nothing until the checkpoint, then
+#: spreads its share over RIO_PACED_S seconds, so its channel is empty
+#: and its barrier reaches the gate first (paced from the deploy at that
+#: rate, it kept up with the other on the card, and both queues held
+#: ten batches: nothing was captured). The unpaced one holds the window
+#: task RIO_HOLD_S seconds through its mailbox at its RIO_HOLD_BATCH-th
+#: batch (a window busy with a fire or a snapshot) and triggers the
+#: checkpoint at its RIO_TRIGGER_BATCH-th, so the batches between queue
+#: ahead of its barrier
+RIO_PACED_S, RIO_HOLD_BATCH, RIO_TRIGGER_BATCH, RIO_HOLD_S = \
+    1.5, 2, 12, 0.1
+#: (b) the alignment group's drift (2 panes) and the latency markers'
+#: interval; two sources of the strided halves, the slow one paced over
+#: RIO_SKEW_S seconds and the fast one RIO_SKEW times its rate, so the
+#: fast one's event time runs RIO_SKEW times as fast (unpaced, with 4
+#: times the event time a record, the first source of two fell behind the
+#: other on the card and the slow one paused instead)
+RIO_DRIFT_MS, RIO_MARKER_S, RIO_SKEW, RIO_SKEW_S = 4000, 0.01, 4, 2.0
+#: (c) the keyed_process job on the changelog and hashmap backends: bids,
+#: auctions, checkpoint interval, the paced run's seconds
+RIO_KP_BIDS, RIO_KP_AUCTIONS, RIO_CKPT_S, RIO_KP_PACED_S = \
+    1 << 13, 1 << 12, 0.2, 1.2
+#: (d) the Collatz-style loop: seeds (host batches) and the head's wait
+RIO_SEEDS, RIO_LOOP_WAIT_S = 1 << 14, 0.5
+RIO_TIMEOUT_S = 300
+
+
+def rio_q5_config(**overrides) -> dict:
+    """(a) and (b)'s configuration: Q5-10M (bench.py:315-414) unless a
+    rehearsal shrinks it."""
+    _label, keys, events, capacity = Q5_CELLS[1]
+    c = {"keys": keys, "events": events, "capacity": capacity,
+         "batch": BATCH, "topk": TOPK, "paced_s": RIO_PACED_S,
+         "hold_batch": RIO_HOLD_BATCH, "trigger_batch": RIO_TRIGGER_BATCH,
+         "hold_s": RIO_HOLD_S}
+    c.update(overrides)
+    c["span"] = q5_panes(c["events"], c["batch"]) * PANE_MS
+    return c
+
+
+def rio_sources(env, c: dict, parts, ws):
+    """One device datagen source per ``(name, index_of, count, rate,
+    on_batch)``: its i-th record is the Q5 stream's record
+    ``index_of(i)``, and ``on_batch()`` runs after each batch it makes;
+    returns their union and the (name, source) pairs."""
+    from flink_tpu_torch.connectors.datagen import DataGenSource
+    from flink_tpu_torch.core import Schema
+
+    schema = Schema([("auction", np.int64), ("price", np.int64),
+                     ("ts", np.int64)])
+    q5 = q5_gen(c["keys"], c["events"], c["span"])
+    streams, made = [], []
+    for name, index_of, count, rate, on_batch in parts:
+        def gen(idx, index_of=index_of, on_batch=on_batch):
+            cols = q5(index_of(idx))
+            if on_batch is not None and idx.numel() > 2:
+                on_batch()      # not the 2-index event-time bound probe
+            return cols
+
+        src = DataGenSource(gen, schema, count=count, rate_per_sec=rate,
+                            timestamp_column="ts", device=True)
+        made.append((name, src))
+        streams.append(env.from_source(src, ws, name))
+    return streams[0].union(*streams[1:]), made
+
+
+def rio_window(stream, c: dict, sink):
+    """Q5's window (W = 5, ring 16, count and revenue, top k) on the
+    card, deferred overflow, asynchronous fires, as ``q5_env``'s."""
+    from flink_tpu_torch.runtime.operators import AggSpec
+    from flink_tpu_torch.window import SlidingEventTimeWindows
+
+    (stream.key_by("auction")
+        .window(SlidingEventTimeWindows.of(WINDOW_PANES * PANE_MS, PANE_MS))
+        .device_aggregate([AggSpec("count", out_name="bids", value_bits=31),
+                           AggSpec("sum", "price", out_name="revenue")],
+                          capacity=c["capacity"], ring_size=RING,
+                          emit_topk=c["topk"], emit_window_bounds=False,
+                          defer_overflow=True, async_fire=True)
+        .add_sink(sink))
+
+
+def rio_env(torch, dev, c: dict, **settings):
+    from flink_tpu_torch.api import StreamExecutionEnvironment
+    from flink_tpu_torch.core import Configuration
+
+    return StreamExecutionEnvironment(Configuration({
+        "pipeline.micro-batch-size": c["batch"],
+        "pipeline.auto-watermark-interval": 0, **settings}), device=dev)
+
+
+def rio_split_parts(c: dict, paced: bool, on_batch=None):
+    """(a)'s two sources: the even indices unpaced (with ``on_batch``),
+    the odd ones paused (rate 0) until the checkpoint is triggered, then
+    at the rate that spreads them over ``paced_s`` (``rio_pace``; the
+    clock starts at the next read, so no backlog of due batches): their
+    channel is empty when their barrier goes in."""
+    half = c["events"] // 2
+    return [("even", lambda i: 2 * i, half, None, on_batch),
+            ("odd", lambda i: 2 * i + 1, half, 0.0 if paced else None,
+             None)]
+
+
+def rio_pace(sources: list, c: dict) -> None:
+    (odd,) = [s for name, s in sources if name == "odd"]
+    odd.set_rate(c["events"] // 2 / c["paced_s"])
+
+
+def inflight_bytes(batches: list) -> int:
+    """Bytes of the card tensors of captured device batches (what a
+    retained checkpoint holds on the card)."""
+    seen: dict = {}
+    for b in batches:
+        tensors = list(getattr(b, "dcolumns", {}).values())
+        if getattr(b, "dtimestamps", None) is not None:
+            tensors.append(b.dtimestamps)   # often the ts column itself
+        for t in tensors:
+            seen[t.data_ptr()] = t.numel() * t.element_size()
+    return sum(seen.values())
+
+
+def window_task(job):
+    """The task whose chain holds the device window operator."""
+    (task,) = [t for t in job.tasks.values()
+               if hasattr(t, "gate") and t.chain is not None
+               and any(type(o).__name__ == "DeviceWindowAggOperator"
+                       for o in t.chain.operators)]
+    return task
+
+
+def rio_checkpointed_run(torch, dev, c: dict, unaligned: bool,
+                         ckpt_dir: str | None) -> dict:
+    """(a)'s paced job: the unpaced source holds the window task
+    ``hold_s`` at its ``hold_batch``-th batch and triggers one checkpoint
+    at its ``trigger_batch``-th; a cancel once it committed. Returns the
+    record, the completed checkpoint and the committed windows."""
+    import threading
+
+    from flink_tpu_torch.connectors.core import TransactionalCollectSink
+    from flink_tpu_torch.core import WatermarkStrategy
+
+    holder: dict = {}
+    ready = threading.Event()
+    made = [0]
+
+    def on_batch():
+        made[0] += 1
+        if made[0] not in (c["hold_batch"], c["trigger_batch"]):
+            return
+        if not ready.wait(30):
+            raise AssertionError("runtime_io (a): the job never started")
+        job = holder["job"]
+        gate = window_task(job).gate
+        queued = [ch.size() for ch in gate.channels]
+        if made[0] == c["hold_batch"]:
+            holder["queued_at_hold"] = queued
+            window_task(job).execute_in_mailbox(
+                lambda: time.sleep(c["hold_s"]))
+            return
+        holder["queued_at_trigger"] = queued
+        holder["paced_read_at_trigger"] = sum(
+            t.records_in for t in job.source_tasks.values()
+            if t.ctx.task_name == "odd")
+        holder["pending"] = job.coordinator.trigger_checkpoint()
+        rio_pace(holder["sources"], c)
+
+    tx = TransactionalCollectSink()
+    sink = commit_watch(tx)
+    settings = {"execution.checkpointing.unaligned": unaligned,
+                "execution.checkpointing.interval": 3600.0}
+    if ckpt_dir:
+        settings["execution.checkpointing.dir"] = ckpt_dir
+    env = rio_env(torch, dev, c, **settings)
+    ws = WatermarkStrategy.for_monotonous_timestamps() \
+        .with_timestamp_column("ts")
+    stream, holder["sources"] = rio_sources(
+        env, c, rio_split_parts(c, True, on_batch), ws)
+    rio_window(stream, c, sink)
+    start = fresh_memory(torch)
+    job = env.execute_async("runtime-io-a")
+    holder["job"] = job
+    ready.set()
+    t0 = time.perf_counter()
+    while "pending" not in holder:
+        if job._done.is_set() or time.perf_counter() - t0 > RIO_TIMEOUT_S:
+            raise AssertionError(f"runtime_io (a): no checkpoint was "
+                                 f"triggered ({made[0]} batches, "
+                                 f"{job._failed})")
+        time.sleep(0.001)
+    pending = holder["pending"]
+    if not pending.done.wait(RIO_TIMEOUT_S) or pending.completed is None:
+        raise AssertionError(f"runtime_io (a): checkpoint "
+                             f"{pending.checkpoint_id} did not complete "
+                             f"({job._failed})")
+    cp = pending.completed
+    sink.wait_commit(cp.checkpoint_id)
+    job.cancel()
+    stats = job.coordinator.stats[-1]
+    wid = window_task(job).task_id
+    inflight = cp.task_snapshots[wid].get("inflight", [])
+    record = {"unaligned": unaligned,
+              "barrier_to_ack_s": stats["barrier_to_ack_s"],
+              "window_barrier_to_ack_s": stats["barrier_to_ack_s"][wid],
+              "checkpoint_s": stats["duration_s"],
+              "store_s": stats["store_s"],
+              "bytes_written": stats["bytes_written"],
+              "inflight_batches": len(inflight),
+              "inflight_rows": sum(b.n for b in inflight),
+              "inflight_card_bytes": inflight_bytes(inflight),
+              "even_batches_made": made[0],
+              "channel_sizes_at_hold": holder.get("queued_at_hold"),
+              "channel_sizes_at_trigger": holder.get("queued_at_trigger"),
+              "paced_records_at_trigger": holder.get(
+                  "paced_read_at_trigger"),
+              "memory_at_start": start,
+              "peak_bytes": torch.cuda.max_memory_allocated()}
+    if inflight:
+        # the seconds the captured columns take to come home, beside the
+        # store's (which copies them home as it pickles them)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for b in inflight:
+            for col in list(b.dcolumns.values()) + [b.dtimestamps]:
+                col.cpu()
+        record["home_s"] = time.perf_counter() - t1
+    before = q5_rows(tx.batches)
+    job.release()
+    return {"record": record, "checkpoint": cp, "before": before}
+
+
+def rio_unaligned(torch, dev, c: dict | None = None) -> dict:
+    """(a) An unaligned checkpoint of Q5-10M on the card against the same
+    paced job aligned, then a cancel and a restore of the unaligned one
+    from fs storage: the in-flight batches replay before new input and
+    every window equals the oracle (under the tie rule)."""
+    import shutil
+    import tempfile
+
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+    from flink_tpu_torch.core import WatermarkStrategy
+
+    c = rio_q5_config(**(c or {}))
+    expected = q5_expected(c["keys"], c["events"], c["span"], c["topk"])
+    ckpt_dir = tempfile.mkdtemp(prefix="flink_tpu_torch_unaligned_")
+    try:
+        # aligned first: the first snapshot of a process also allocates
+        # its pinned host mirror (1.668 s against 0.537 s after, on an H100)
+        ali = rio_checkpointed_run(torch, dev, c, False, None)["record"]
+        if ali["inflight_batches"]:
+            raise AssertionError("runtime_io (a): an aligned checkpoint "
+                                 "carried in-flight batches")
+        una = rio_checkpointed_run(torch, dev, c, True, ckpt_dir)
+        cp = una["checkpoint"]
+        if not una["record"]["inflight_batches"]:
+            raise AssertionError("runtime_io (a): the unaligned checkpoint "
+                                 "captured no in-flight batch: "
+                                 f"{una['record']}")
+        path = cp.external_path
+        del una["checkpoint"], cp
+        gc.collect()
+        fresh_memory(torch)
+        got: list = []
+        env = rio_env(torch, dev, c)
+        ws = WatermarkStrategy.for_monotonous_timestamps() \
+            .with_timestamp_column("ts")
+        stream, _ = rio_sources(env, c, rio_split_parts(c, False), ws)
+        rio_window(stream, c, collect_windows(got))
+        env.restore_from_checkpoint(path)
+        reset_launches()
+        job = env.execute("runtime-io-a-restored")
+        launches = dict(KERNEL_LAUNCHES)
+        # the checkpoint comes early (the paced source holds the
+        # watermark back), so few windows commit before the cancel; a
+        # lost in-flight batch would leave later windows short of the
+        # oracle
+        counts = disjoint_windows(expected, [una["before"], got])
+        restored = {"wall_s": job.wall_s, "windows_before_cancel": counts[0],
+                    "windows_after_restore": counts[1],
+                    "launches": {k: launches.get(k, 0)
+                                 for k in ("ingest_step", "hist256")},
+                    "tasks": task_record(job)}
+        job.release()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return {"config": dict(c), "unaligned": una["record"], "aligned": ali,
+            "restore_from_fs": restored}
+
+
+class PaneSpan:
+    """Records the widest span of panes the device window's ring held:
+    from its first open pane to the newest pane a batch reached, at each
+    batch's bookkeeping."""
+
+    def __init__(self):
+        self.widest = 0
+
+    @contextlib.contextmanager
+    def watching(self):
+        from flink_tpu_torch.runtime.operators.device_window import \
+            DeviceWindowAggOperator as Op
+
+        inner = Op._device_bookkeeping
+        span = self
+
+        def bookkeeping(op, batch):
+            out = inner(op, batch)
+            hi = (batch.ts_max - op._offset) // op._pane
+            lo = (op._fired_boundary - op._window_panes
+                  if op._fired_boundary is not None else op._min_seen_pane)
+            if lo is not None:
+                span.widest = max(span.widest, int(hi - lo + 1))
+            return out
+
+        Op._device_bookkeeping = bookkeeping
+        try:
+            yield self
+        finally:
+            Op._device_bookkeeping = inner
+
+
+def rio_skew_parts(c: dict):
+    """(b)'s two sources over Q5's stream, the even and the odd indices:
+    the slow one spread over ``skew_s`` seconds, the fast one at RIO_SKEW
+    times its rate; both paused (rate 0) until ``rio_skew_pace``."""
+    half = c["events"] // 2
+    return [("fast", lambda i: 2 * i, half, 0.0, None),
+            ("slow", lambda i: 2 * i + 1, half, 0.0, None)]
+
+
+def rio_skew_pace(sources: list, c: dict) -> None:
+    rate = c["events"] // 2 / c["skew_s"]
+    for name, src in sources:
+        src.set_rate(rate * (RIO_SKEW if name == "fast" else 1))
+
+
+def rio_aligned_run(torch, dev, c: dict, aligned: bool, markers: bool):
+    from flink_tpu_torch import KERNEL_LAUNCHES, reset_launches
+    from flink_tpu_torch.core import WatermarkStrategy
+    from flink_tpu_torch.metrics.core import Histogram, MetricRegistry
+
+    settings = {"metrics.latency.interval": RIO_MARKER_S} if markers else {}
+    env = rio_env(torch, dev, c, **settings)
+    ws = WatermarkStrategy.for_monotonous_timestamps() \
+        .with_timestamp_column("ts")
+    if aligned:
+        ws = ws.with_watermark_alignment("bids", RIO_DRIFT_MS)
+    got: list = []
+    stream, sources = rio_sources(env, c, rio_skew_parts(c), ws)
+    rio_window(stream, c, collect_windows(got))
+    reg = MetricRegistry()
+    span = PaneSpan()
+    start = fresh_memory(torch)
+    reset_launches()
+    with span.watching():
+        job = env.execute_async("runtime-io-b", metrics_registry=reg)
+        # the readers' clocks start now, not at the deploy
+        rio_skew_pace(sources, c)
+        job.wait(RIO_TIMEOUT_S)
+    launches = dict(KERNEL_LAUNCHES)
+    ops = job.operators
+    (window,) = [o for o in ops
+                 if type(o).__name__ == "DeviceWindowAggOperator"]
+    (sink,) = [o for o in ops if "Sink" in type(o).__name__]
+    srcs = {t.ctx.task_name: t for t in job.source_tasks.values()}
+    hist = [m for scope, m in reg.all_metrics().items()
+            if scope[-1] == "latency" and isinstance(m, Histogram)
+            and sink._op_key in scope]
+    lat = sorted(window.fire_latencies_ms)
+    rec = {"wall_s": job.wall_s, "events_per_sec": c["events"] / job.wall_s,
+           "widest_pane_span": span.widest, "ring": RING,
+           "alignment_pauses": {n: t.alignment_pauses
+                                for n, t in srcs.items()},
+           "alignment_max_overshoot_ms": {
+               n: t.alignment_max_overshoot_ms for n, t in srcs.items()},
+           # a batch of either half spans 2 x batch indices of event time
+           "batch_event_time_ms": 2 * c["batch"] * c["span"] // c["events"],
+           "p99_fire_latency_ms": lat[min(len(lat) - 1, int(0.99 * len(lat)))]
+           if lat else None,
+           "fires": len(lat),
+           "launches": {k: launches.get(k, 0)
+                        for k in ("ingest_step", "hist256")},
+           "memory_at_start": start,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "tasks": task_record(job)}
+    if markers:
+        (h,) = hist
+        rec["latency_markers"] = {
+            "sent": sum(t.latency_markers_out for t in srcs.values()),
+            "window_saw": window.latency_markers_seen,
+            "sink_saw": sink.latency_markers_seen,
+            "sink_p50_ms": h.quantile(0.5), "sink_p99_ms": h.quantile(0.99),
+            "sink_samples": h.count}
+    job.release()
+    return rec, got
+
+
+def rio_alignment(torch, dev, c: dict | None = None) -> dict:
+    """(b) Watermark alignment into Q5-10M's window: two sources of one
+    group (drift 2 panes), the fast one's event time RIO_SKEW times the
+    slow one's; latency markers every RIO_MARKER_S. Every window against
+    the oracle; no aligned source past its group's bound by more than one
+    of its batches' event time. Then the same job without alignment, for
+    the pane span it leaves the ring."""
+    c = rio_q5_config(**{"skew_s": RIO_SKEW_S, **(c or {})})
+    expected = q5_expected(c["keys"], c["events"], c["span"], c["topk"])
+    aligned, got = rio_aligned_run(torch, dev, c, True, True)
+    aligned["windows_checked"] = q5_check(expected, got)
+    over = max(aligned["alignment_max_overshoot_ms"].values())
+    if over > aligned["batch_event_time_ms"] \
+            or aligned["alignment_pauses"]["fast"] == 0:
+        raise AssertionError(f"runtime_io (b): overshoot {over} ms, pauses "
+                             f"{aligned['alignment_pauses']}")
+    if aligned["widest_pane_span"] > RING:
+        raise AssertionError(f"runtime_io (b): {aligned['widest_pane_span']}"
+                             f" panes open in a ring of {RING}")
+    lm = aligned["latency_markers"]
+    if not (lm["window_saw"] and lm["sink_saw"] and lm["sink_samples"]):
+        raise AssertionError(f"runtime_io (b): latency markers {lm}")
+    free, got = rio_aligned_run(torch, dev, c, False, False)
+    free["windows_checked"] = q5_check(expected, got)
+    return {"config": c, "aligned": aligned, "unaligned_sources": free}
+
+
+def keyed_process_counts(bids: int, auctions: int) -> np.ndarray:
+    idx = np.arange(bids, dtype=np.int64)
+    return np.bincount(sql_join_random(idx, 0, auctions - 1),
+                       minlength=auctions)
+
+
+def rio_keyed_env(torch, dev, c: dict, backend: str, ckpt_dir: str,
+                  paced: bool, interval: float, sink):
+    """(c): datastream_core's keyed_process job with a queryable total
+    a key."""
+    from flink_tpu_torch.api import StreamExecutionEnvironment
+    from flink_tpu_torch.core import Configuration, Schema, \
+        WatermarkStrategy
+    from flink_tpu_torch.core.functions import ProcessFunction
+    from flink_tpu_torch.state.descriptors import ValueStateDescriptor
+
+    bids, auctions = c["bids"], c["auctions"]
+
+    class FirstBidTimer(ProcessFunction):
+        def open(self, ctx):
+            self._ctx = ctx
+            self._desc = ValueStateDescriptor("bids", default=0)
+            self._total = ValueStateDescriptor(
+                "total", default=0).queryable("count")
+
+        def process_element(self, value, ctx, out):
+            st = self._ctx.get_state(self._desc)
+            n = st.value()
+            if n == 0:
+                ctx.timer_service.register_event_time_timer(
+                    ctx.timestamp + KP_TIMER_MS)
+            st.update(n + 1)
+            tot = self._ctx.get_state(self._total)
+            tot.update(tot.value() + 1)
+
+        def on_timer(self, ts, ctx, out):
+            st = self._ctx.get_state(self._desc)
+            out.collect((ctx.current_key, int(st.value()), ts), ts)
+            st.clear()
+
+    def gen(idx):
+        return {"auction": sql_join_random(idx, 0, auctions - 1),
+                "ts": (idx * KP_SPAN_MS) // bids}
+
+    env = StreamExecutionEnvironment(Configuration({
+        "pipeline.micro-batch-size": c["batch"],
+        "pipeline.auto-watermark-interval": 0,
+        "state.backend.type": backend,
+        "execution.checkpointing.interval": interval,
+        "execution.checkpointing.dir": ckpt_dir}), device=dev)
+    ws = WatermarkStrategy.for_monotonous_timestamps() \
+        .with_timestamp_column("ts")
+    (env.datagen(gen, Schema([("auction", np.int64), ("ts", np.int64)]),
+                 count=bids, timestamp_column="ts", watermark_strategy=ws,
+                 rate_per_sec=bids / c["paced_s"] if paced else None)
+        .key_by("auction").process(FirstBidTimer())
+        .add_sink(sink, "rows"))
+    return env
+
+
+def rio_keyed_run(torch, dev, c: dict, backend: str, want: list,
+                  totals: np.ndarray) -> dict:
+    """(c) on one backend: periodic checkpoints while the paced job runs
+    and queryable reads over TCP; after 3 checkpoints the coordinator
+    pauses, the last one commits and the job is cancelled; a fresh job
+    restored from it (base plus segments on ``changelog``) runs to the
+    end. Rows before the cancel and after the restore are the oracle's
+    once; the restored job's totals read over TCP equal the oracle."""
+    import shutil
+    import tempfile
+
+    from flink_tpu_torch.connectors.core import TransactionalCollectSink
+    from flink_tpu_torch.state.queryable_net import KvStateServer, \
+        RemoteQueryableStateClient
+
+    ckpt_dir = tempfile.mkdtemp(prefix=f"flink_tpu_torch_{backend}_")
+    try:
+        tx = TransactionalCollectSink()
+        sink = commit_watch(tx)
+        env = rio_keyed_env(torch, dev, c, backend, ckpt_dir, True,
+                            RIO_CKPT_S, sink)
+        job = env.execute_async(f"runtime-io-c-{backend}")
+        srv = KvStateServer.for_job(job)
+        client = RemoteQueryableStateClient(srv.address)
+        probe = list(range(0, c["auctions"], max(1, c["auctions"] // 16)))
+        reads = {k: [] for k in probe}
+        coord = job.coordinator
+        t0 = time.perf_counter()
+        while len([s for s in coord.stats if not s.get("failed")
+                   and not s.get("declined")]) < 3:
+            if job._done.is_set() or time.perf_counter() - t0 > \
+                    RIO_TIMEOUT_S:
+                raise AssertionError(f"runtime_io (c) {backend}: "
+                                     f"{coord.stats} ({job._failed})")
+            if "count" in client.names():   # registered at first use
+                for k in probe:
+                    reads[k].append(client.get_kv_state("count", k,
+                                                        default=0))
+            time.sleep(0.01)
+        coord.pause()
+        cp = coord.latest_checkpoint()
+        sink.wait_commit(cp.checkpoint_id)
+        client.close()
+        srv.close()
+        (op,) = [o for o in job.operators
+                 if type(o).__name__ == "KeyedProcessOperator"]
+        back = op._backend
+        record = {
+            "checkpoints": [{k: s.get(k) for k in ("id", "duration_s",
+                                                   "store_s", "bytes",
+                                                   "bytes_written")}
+                            for s in coord.stats],
+            "records_in_at_cancel": job.records_in}
+        if backend == "changelog":
+            record.update(materializations=back.materializations,
+                          segments_uploaded=back._writer.segments_uploaded,
+                          segment_bytes_uploaded=back.bytes_uploaded,
+                          changelog_dir_bytes=sum(
+                              os.path.getsize(os.path.join(r, f))
+                              for r, _d, fs in os.walk(
+                                  os.path.join(ckpt_dir, "changelog"))
+                              for f in fs))
+        job.cancel()
+        if any(v != sorted(v) for v in reads.values()):
+            raise AssertionError(f"runtime_io (c) {backend}: a live count "
+                                 "read over TCP went down")
+        before = tx.rows
+        job.release()
+        got: list = []
+        env2 = rio_keyed_env(torch, dev, c, backend, ckpt_dir, False, 0.0,
+                             lambda b: got.extend(b.iter_rows()))
+        env2.restore_from_checkpoint(cp.external_path)
+        t1 = time.perf_counter()
+        job2 = env2.execute(f"runtime-io-c-{backend}-restored")
+        restore_s = time.perf_counter() - t1
+        if sorted(tuple(r) for r in before + got) != want:
+            raise AssertionError(f"runtime_io (c) {backend}: "
+                                 f"{len(before)} + {len(got)} rows across "
+                                 f"the restore, {len(want)} expected")
+        srv = KvStateServer.for_job(job2)
+        client = RemoteQueryableStateClient(srv.address)
+        try:
+            final = [client.get_kv_state("count", k, default=0)
+                     for k in range(c["auctions"])]
+        finally:
+            client.close()
+            srv.close()
+        if final != totals.tolist():
+            raise AssertionError(f"runtime_io (c) {backend}: queryable "
+                                 "totals after the restore differ")
+        record.update(rows_before_cancel=len(before),
+                      rows_after_restore=len(got),
+                      live_reads=sum(len(v) for v in reads.values()),
+                      restored_run_s=restore_s,
+                      restored_wall_s=job2.wall_s)
+        job2.release()
+        return record
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def rio_changelog(torch, dev, c: dict | None = None) -> dict:
+    """(c) The changelog backend against hashmap, and queryable state."""
+    c = {"bids": RIO_KP_BIDS, "auctions": RIO_KP_AUCTIONS,
+         "batch": KP_BATCH // 8, "paced_s": RIO_KP_PACED_S, **(c or {})}
+    want = keyed_process_expected(c["bids"], c["auctions"], c["batch"])
+    totals = keyed_process_counts(c["bids"], c["auctions"])
+    return {"config": c,
+            **{b: rio_keyed_run(torch, dev, c, b, want, totals)
+               for b in ("changelog", "hashmap")}}
+
+
+def collatz_steps(seeds: np.ndarray) -> np.ndarray:
+    """numpy oracle of (d): the steps each seed takes to reach 1."""
+    v, steps = seeds.copy(), np.zeros_like(seeds)
+    live = v != 1
+    while live.any():
+        v[live] = np.where(v[live] % 2 == 0, v[live] // 2, 3 * v[live] + 1)
+        steps[live] += 1
+        live = v != 1
+    return steps
+
+
+def rio_iteration(torch, dev, c: dict | None = None) -> dict:
+    """(d) The reference test's Collatz-style loop (tests/
+    test_iterations.py:22) on host batches: each seed loops (halve the
+    evens, 3v + 1 the odds) until it reaches 1 and leaves with its step
+    count; every (seed, steps) against numpy."""
+    from flink_tpu_torch.api import StreamExecutionEnvironment
+    from flink_tpu_torch.core import Configuration, RecordBatch, Schema
+    from flink_tpu_torch.core.functions import FilterFunction
+    from flink_tpu_torch.runtime.operators.simple import BatchFnOperator
+
+    class AtOne(FilterFunction):
+        """v == 1 (or, with ``done=False``, v != 1), a batch at a time."""
+
+        def __init__(self, done: bool):
+            self.done = done
+
+        def filter(self, row):
+            return (row[1] == 1) == self.done
+
+        def filter_batch(self, batch):
+            return (batch.column("v") == 1) == self.done
+
+    c = {"seeds": RIO_SEEDS, "batch": 1 << 12, "wait_s": RIO_LOOP_WAIT_S,
+         **(c or {})}
+    schema = Schema([("seed", np.int64), ("v", np.int64),
+                     ("steps", np.int64)])
+    seeds = np.arange(2, c["seeds"] + 2, dtype=np.int64)
+    env = StreamExecutionEnvironment(Configuration({
+        "pipeline.micro-batch-size": c["batch"]}), device=dev)
+    src = env.datagen(lambda idx: {"seed": idx + 2, "v": idx + 2,
+                                   "steps": idx * 0}, schema,
+                      count=c["seeds"])
+    it = src.iterate(max_wait_s=c["wait_s"])
+    passes = [0]
+
+    def step(b):
+        passes[0] += 1
+        v = b.column("v")
+        return RecordBatch(schema, {
+            "seed": b.column("seed"),
+            "v": np.where(v % 2 == 0, v // 2, 3 * v + 1),
+            "steps": b.column("steps") + 1}, b.timestamps)
+
+    stepped = it.transform("collatz-step",
+                           lambda: BatchFnOperator(step, "collatz-step"))
+    it.close_with(stepped.filter(AtOne(False), name="loop"))
+    got: list = []
+    stepped.filter(AtOne(True), name="done").add_sink(
+        lambda b: got.extend(b.iter_rows()), "rows")
+    t0 = time.perf_counter()
+    job = env.execute("runtime-io-d", timeout=RIO_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    want = collatz_steps(seeds)
+    rows = sorted((int(s), int(n)) for s, _v, n in got)
+    if rows != list(zip(seeds.tolist(), want.tolist())):
+        raise AssertionError(f"runtime_io (d): {len(rows)} rows, "
+                             f"{len(seeds)} expected, or their steps differ")
+    rec = {"config": c, "rows": len(rows), "max_steps": int(want.max()),
+           "batches_through_the_loop": passes[0], "wall_s": wall,
+           "seeds_per_sec": len(seeds) / wall, "tasks": task_record(job)}
+    job.release()
+    return rec
+
+
+def runtime_io_phase(torch, dev, sizes: dict | None = None) -> dict:
+    """The task runtime and state I/O on the card: (a) an unaligned
+    checkpoint of Q5-10M's in-flight device batches, (b) watermark
+    alignment and latency markers into Q5-10M's window, (c) the changelog
+    backend and queryable state, (d) an iteration; the seconds of each.
+    ``sizes``: each part's configuration overrides (a rehearsal)."""
+    out, seconds = {}, {}
+    for name, fn in (("unaligned", rio_unaligned),
+                     ("alignment", rio_alignment),
+                     ("changelog", rio_changelog),
+                     ("iteration", rio_iteration)):
+        t0 = time.perf_counter()
+        out[name] = fn(torch, dev, (sizes or {}).get(name))
+        seconds[name] = time.perf_counter() - t0
+        emit({f"runtime_io_{name}": out[name]})
+    out["seconds"] = seconds
+    return out
+
+
 def main(argv: list[str]) -> int:
     mesh_only = argv == ["--mesh"]
     obs_only = argv == ["--observability"]
     ds_only = argv == ["--datastream"]
     conn_only = argv == ["--connectors"]
     pat_only = argv == ["--patterns"]
-    if mesh_only or obs_only or ds_only or conn_only or pat_only:
+    rio_only = argv == ["--runtime-io"]
+    if mesh_only or obs_only or ds_only or conn_only or pat_only \
+            or rio_only:
         argv = []
     if argv and (len(argv) != 2 or argv[0] not in ("--parent-kernels",
                                                    "--profile", "--aot-child")
@@ -11974,7 +12707,8 @@ def main(argv: list[str]) -> int:
                  and argv[1] not in PROFILED_CELLS):
         print("usage: chip_smoke.py [--parent-kernels DIR | --profile "
               f"{'|'.join(PROFILED_CELLS)} | --mesh | --observability | "
-              "--datastream | --connectors | --patterns | --aot-child DIR]",
+              "--datastream | --connectors | --patterns | --runtime-io | "
+              "--aot-child DIR]",
               file=sys.stderr)
         return 2
     child = argv[1] if argv and argv[0] == "--profile" else None
@@ -12042,6 +12776,13 @@ def main(argv: list[str]) -> int:
         return 0
     if pat_only:
         emit({"patterns_seconds": patterns_phase(torch, dev)["seconds"]})
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    if rio_only:
+        emit({"runtime_io_seconds": runtime_io_phase(torch, dev)["seconds"]})
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -12195,6 +12936,9 @@ def main(argv: list[str]) -> int:
     pats = patterns_phase(torch, dev)
     emit({"patterns_seconds": pats["seconds"]})
     phase_done("patterns")
+    rio = runtime_io_phase(torch, dev)
+    emit({"runtime_io_seconds": rio["seconds"]})
+    phase_done("runtime_io")
     emit(faults_phase(torch, dev))
     phase_done("faults")
     emit({"observability_seconds": observability_phases(torch, dev)})
@@ -12391,7 +13135,11 @@ def main(argv: list[str]) -> int:
                                 ("Q7-10M", q7)) for m in modes},
              "patterns (b) CEP": pats["cep"]["launches"]["hist256"],
              "patterns (d) async": pats["async"]["ordered"]["launches"][
-                 "hist256"]}},
+                 "hist256"],
+             "runtime_io (a) restored": rio["unaligned"][
+                 "restore_from_fs"]["launches"]["hist256"],
+             "runtime_io (b) aligned": rio["alignment"]["aligned"][
+                 "launches"]["hist256"]}},
         {"name": "hash_probe", "route": "cuda",
          "source": "flink_tpu_torch/csrc/hash_table.cu",
          "replaces": "flink_tpu/ops/hash_table.py:133",
@@ -12427,6 +13175,11 @@ def main(argv: list[str]) -> int:
          "launches_patterns": {
              "(b) CEP": pats["cep"]["launches"]["ingest_step"],
              "(d) async": pats["async"]["ordered"]["launches"][
+                 "ingest_step"]},
+         "launches_runtime_io": {
+             "(a) restored": rio["unaligned"]["restore_from_fs"][
+                 "launches"]["ingest_step"],
+             "(b) aligned": rio["alignment"]["aligned"]["launches"][
                  "ingest_step"]},
          "fused_graph_launches_per_micro_batch":
              fused["graph_launches"] / fused["micro_batches"][0]},

@@ -20,7 +20,12 @@ a lazy Transformation DAG compiled and run by
   ``transform``), and sinks.
 * The broadcast state pattern: ``keyed.connect(rules.broadcast(desc))
   .process(KeyedBroadcastProcessFunction)``; asynchronous lookups
-  (``async_io``). Iterations are not ported (no ``iterate``).
+  (``async_io``).
+* Iterations: ``iterate(max_wait_s)`` opens a loop; the body built on
+  the returned ``IterativeStream`` routes batches back into its head with
+  ``close_with(stream)``. The head ends once its input ended and the loop
+  stayed quiet for ``max_wait_s``; a job with an iteration takes no
+  checkpoint.
 """
 
 from __future__ import annotations
@@ -34,9 +39,10 @@ from ..core.functions import AggregateFunction, ProcessFunction, \
     SinkFunction, as_filter, as_flat_map, as_map, as_reduce, \
     copy_per_subtask
 from ..core.records import RecordBatch, Schema
-from ..graph.transformations import OneInputTransformation, \
-    PartitionTransformation, SideOutputTransformation, SinkTransformation, \
-    Transformation, TwoInputTransformation, UnionTransformation
+from ..graph.transformations import FeedbackTransformation, \
+    OneInputTransformation, PartitionTransformation, \
+    SideOutputTransformation, SinkTransformation, Transformation, \
+    TwoInputTransformation, UnionTransformation
 from ..runtime.operators.async_io import AsyncWaitOperator
 from ..runtime.operators.co_broadcast import CoBroadcastWithKeyedOperator
 from ..runtime.operators.device_session import DeviceSessionWindowOperator
@@ -58,7 +64,7 @@ from ..window.triggers import CountTrigger, Evictor, PurgingTrigger, \
     Trigger
 
 __all__ = ["DataStream", "KeyedStream", "WindowedStream", "ConnectedStreams",
-           "BroadcastStream", "BroadcastConnectedStream",
+           "BroadcastStream", "BroadcastConnectedStream", "IterativeStream",
            "make_key_extractor"]
 
 
@@ -240,6 +246,20 @@ class DataStream:
         self.env._transformations.append(t)
         return DataStream(self.env, t)
 
+    def iterate(self, max_wait_s: float = 2.0) -> "IterativeStream":
+        """Open a feedback loop: build its body on the returned stream,
+        then ``close_with(feedback_stream)`` routes that stream's batches
+        back into the head. The head ends once this stream ended and the
+        loop stayed quiet for ``max_wait_s``, which must exceed the body's
+        longest time for a batch: rows still inside the body then are
+        lost, as in the reference. Iterations take no checkpoint (the
+        deploy refuses one with periodic checkpoints)."""
+        t = FeedbackTransformation(name="iteration",
+                                   inputs=[self.transformation],
+                                   max_wait_s=max_wait_s)
+        self.env._transformations.append(t)
+        return IterativeStream(self.env, t)
+
     def get_side_output(self, tag: str) -> "DataStream":
         """The batches this stream's operator emits under ``tag``."""
         t = SideOutputTransformation(name=f"side-{tag}", tag=tag,
@@ -291,6 +311,16 @@ class DataStream:
     def disable_chaining(self) -> "DataStream":
         self.transformation.chaining_allowed = False
         return self
+
+
+class IterativeStream(DataStream):
+    """The head of a feedback loop; ``close_with`` adds the back edge."""
+
+    def close_with(self, feedback: DataStream) -> DataStream:
+        """Route ``feedback``'s batches back into the loop's head; returns
+        ``feedback``, so the loop's exit can go on from it."""
+        self.transformation.feedback_inputs.append(feedback.transformation)
+        return feedback
 
 
 class BroadcastStream:

@@ -149,12 +149,14 @@ class StreamExecutionEnvironment:
 
     def execute(self, job_name: str = "flink-tpu-torch-job",
                 timeout: Optional[float] = None,
-                recover: bool = False) -> LocalJob:
+                recover: bool = False, metrics_registry=None) -> LocalJob:
         """Compile and run to the end of input; returns the finished job
         (also kept as ``last_job``). ``recover``: run under a
         ``JobSupervisor`` (kept as ``last_supervisor``), which restarts a
         failed job from its latest verified checkpoint, or only the failed
-        pipelined regions, as ``restart-strategy.*`` allows."""
+        pipelined regions, as ``restart-strategy.*`` allows.
+        ``metrics_registry`` (``metrics/core.py``): each task's metrics
+        and each operator's latency histogram register there."""
         jg = self.get_job_graph(job_name)
         if recover:
             from ..cluster.scheduler import JobSupervisor
@@ -166,17 +168,19 @@ class StreamExecutionEnvironment:
         else:
             self.last_job = run_job(
                 jg, self.config, self.device, timeout=timeout,
-                restored_state=self._take_restore_map(jg))
+                restored_state=self._take_restore_map(jg),
+                metrics_registry=metrics_registry)
         self._transformations, self._sinks = [], []
         return self.last_job
 
-    def execute_async(self, job_name: str = "flink-tpu-torch-job"
-                      ) -> LocalJob:
+    def execute_async(self, job_name: str = "flink-tpu-torch-job",
+                      metrics_registry=None) -> LocalJob:
         """Compile, deploy and start; returns the running job (``wait``,
         ``cancel``, and ``coordinator`` when checkpointing is on)."""
         jg = self.get_job_graph(job_name)
         job = deploy_local(jg, self.config, self.device,
-                           restored_state=self._take_restore_map(jg))
+                           restored_state=self._take_restore_map(jg),
+                           metrics_registry=metrics_registry)
         job.start()
         self.last_job = job
         self._transformations, self._sinks = [], []

@@ -5,14 +5,24 @@ port of ``flink_tpu/checkpoint/coordinator.py``).
   at each source (through the source task's mailbox); barriers flow with
   the data, tasks align, snapshot and acknowledge here.
 * A pending checkpoint completes when every task acknowledged; it is
-  stored, and the one before it discarded (savepoints are kept). A
-  failed store aborts it; so does the timeout.
+  stored, and those before the last ``execution.checkpointing.
+  num-retained`` discarded (savepoints are kept). A task's decline (an
+  unaligned checkpoint overtaken before its capture finished) aborts it
+  at once; so do a failed store and the timeout. Every abort reaches the
+  tasks' operators (``notify_checkpoint_aborted``), whose changelog
+  backends drop the generation they pinned for it. A savepoint's
+  changelog handles are rewritten into self-contained snapshots
+  (``savepoint_self_contained``), so no truncation can reach it.
+* A job with an iteration (feedback edges) takes no checkpoint.
 * ``build_restore_map`` maps a completed checkpoint onto a (possibly
   rescaled) topology: every new subtask gets the keyed snapshots of all
   old subtasks of its vertex (backends keep their key-group range), and
   reader and operator state map 1:1 when the parallelism is unchanged;
   on a rescale the broadcast maps go to every new subtask
-  (``redistribute_operator_state``).
+  (``redistribute_operator_state``). An unaligned checkpoint's in-flight
+  batches (``inflight``, ``inflight1``, ``inflight2``) go to the same
+  subtask; a rescale of a vertex that has some is refused, as in the
+  reference.
 
 * ``latest_verified_checkpoint`` is what a restart restores from: the
   newest retained checkpoint whose files pass their digests (on disk;
@@ -20,8 +30,7 @@ port of ``flink_tpu/checkpoint/coordinator.py``).
   on the job's failure history, moved aside and dropped, and the walk
   goes on to the next; when none verifies it raises.
 
-One checkpoint is in flight at a time. The changelog store of the
-reference is not ported.
+One checkpoint is in flight at a time.
 """
 
 from __future__ import annotations
@@ -38,9 +47,41 @@ from .storage import CheckpointStorage, CompletedCheckpoint, \
     snapshot_nbytes, verify_checkpoint
 
 __all__ = ["CheckpointCoordinator", "build_restore_map",
-           "redistribute_operator_state"]
+           "redistribute_operator_state", "savepoint_self_contained"]
 
-RETAINED = 1   # completed checkpoints kept (savepoints are not counted)
+
+def savepoint_self_contained(snapshots: dict, config: Configuration) -> dict:
+    """Every ``changelog-dstl`` snapshot in ``snapshots`` rewritten into
+    the inline ``changelog`` form (its base and the log past it embedded),
+    so a savepoint outlives the changelog store's truncation."""
+    import os
+    import pickle
+
+    from ..state.dstl import read_any_base, read_any_segment
+
+    directory = config.get("execution.checkpointing.dir")
+    root = os.path.join(directory, "changelog") if directory else None
+
+    def rewrite(node):
+        if isinstance(node, dict):
+            if node.get("kind") == "changelog-dstl":
+                base = None
+                if node.get("base") is not None:
+                    base = pickle.loads(read_any_base(
+                        node["driver"], node["base"], root))
+                base_seq = node.get("base_seq", 0)
+                records: list = []
+                for h in node.get("segments", []):
+                    records.extend(read_any_segment(h, root))
+                return {"kind": "changelog", "mat": base,
+                        "log": [rec for seq, rec in sorted(records)
+                                if seq > base_seq]}
+            return {k: rewrite(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [rewrite(v) for v in node]
+        return node
+
+    return rewrite(snapshots)
 
 
 @dataclass
@@ -52,6 +93,7 @@ class _Pending:
     expected: frozenset = frozenset()
     acks: dict[str, dict] = field(default_factory=dict)
     ack_at: dict[str, float] = field(default_factory=dict)
+    declined: bool = False
     completed: Optional[CompletedCheckpoint] = None
     done: threading.Event = field(default_factory=threading.Event)
 
@@ -69,6 +111,8 @@ class CheckpointCoordinator:
                                    else MemoryCheckpointStorage())
         self.timeout = config.get("execution.checkpointing.timeout")
         self.interval = config.get("execution.checkpointing.interval")
+        self.retained = max(1, config.get(
+            "execution.checkpointing.num-retained"))
         self._next_id = 1
         self._pending: dict[int, _Pending] = {}
         self._completed: list[CompletedCheckpoint] = []
@@ -82,18 +126,25 @@ class CheckpointCoordinator:
         #: barrier-to-ack seconds, store seconds, snapshot bytes
         self.stats: list[dict] = []
         job.checkpoint_listener = self._on_ack
+        job.decline_listener = self._on_decline
 
     # -- trigger -----------------------------------------------------------
     def trigger_checkpoint(self, is_savepoint: bool = False) -> _Pending:
         """Inject a barrier at every source."""
+        if any(e.feedback for e in self.job.job_graph.edges):
+            # the back edge drops barriers: the head would align forever
+            raise ValueError("iteration jobs (feedback edges) cannot be "
+                             "checkpointed or savepointed")
         with self._lock:
             cid = self._next_id
             self._next_id += 1
             pending = _Pending(cid, time.time(), is_savepoint,
                                expected=frozenset(self.job.tasks))
             self._pending[cid] = pending
-        barrier = CheckpointBarrier(cid, timestamp=pending.started,
-                                    is_savepoint=is_savepoint)
+        barrier = CheckpointBarrier(
+            cid, timestamp=pending.started, is_savepoint=is_savepoint,
+            unaligned=bool(self.config.get(
+                "execution.checkpointing.unaligned")))
         for st in self.job.source_tasks.values():
             st.trigger_checkpoint(barrier)
         return pending
@@ -110,19 +161,49 @@ class CheckpointCoordinator:
     def _on_ack(self, task_id: str, checkpoint_id: int,
                 snapshot: dict) -> None:
         complete = None
+        stale = False
         with self._lock:
             p = self._pending.get(checkpoint_id)
             if p is None:
-                return
-            p.acks[task_id] = snapshot
-            p.ack_at[task_id] = time.time()
-            if set(p.acks) >= set(p.expected):
-                del self._pending[checkpoint_id]
-                complete = p
-        if complete is not None:
+                # a snapshot of an abandoned checkpoint landed after the
+                # abort went out: abort again, so its pins are dropped
+                stale = not any(c.checkpoint_id == checkpoint_id
+                                for c in self._completed)
+            else:
+                p.acks[task_id] = snapshot
+                p.ack_at[task_id] = time.time()
+                if set(p.acks) >= set(p.expected):
+                    del self._pending[checkpoint_id]
+                    complete = p
+        if stale:
+            self._notify_aborted(checkpoint_id)
+        elif complete is not None:
             self._complete(complete)
 
+    def _on_decline(self, task_id: str, checkpoint_id: int,
+                    reason: str) -> None:
+        """A task cannot complete ``checkpoint_id``: abort it now."""
+        with self._lock:
+            p = self._pending.pop(checkpoint_id, None)
+            if p is not None:
+                self.stats.append({"id": checkpoint_id, "declined": True,
+                                   "task": task_id, "reason": reason})
+        if p is not None:
+            p.declined = True
+            p.done.set()
+            self._notify_aborted(checkpoint_id)
+
+    def _notify_aborted(self, checkpoint_id: int) -> None:
+        """Tell every task's operators ``checkpoint_id`` will not
+        complete."""
+        for t in list(self.job.tasks.values()):
+            t.execute_in_mailbox(
+                lambda t=t, c=checkpoint_id: t.chain.notify_checkpoint_aborted(
+                    c) if t.chain is not None else None)
+
     def _complete(self, p: _Pending) -> None:
+        if p.is_savepoint:
+            p.acks = savepoint_self_contained(p.acks, self.config)
         vertices = self.job.job_graph.vertices
         cp = CompletedCheckpoint(
             checkpoint_id=p.checkpoint_id, timestamp=p.started,
@@ -139,6 +220,7 @@ class CheckpointCoordinator:
                 self.stats.append({"id": p.checkpoint_id, "failed": True,
                                    "error": f"{type(e).__name__}: {e}"})
             p.done.set()
+            self._notify_aborted(p.checkpoint_id)
             return
         now = time.time()
         with self._lock:
@@ -156,7 +238,7 @@ class CheckpointCoordinator:
                                          None),
                 "tasks": len(p.acks)})
             regulars = [c for c in self._completed if not c.is_savepoint]
-            while len(regulars) > RETAINED:
+            while len(regulars) > self.retained:
                 old = regulars.pop(0)
                 self._completed.remove(old)
                 self.storage.discard(old)
@@ -164,7 +246,8 @@ class CheckpointCoordinator:
         for t in list(self.job.tasks.values()):
             t.execute_in_mailbox(
                 lambda t=t: t.chain.notify_checkpoint_complete(
-                    p.checkpoint_id) if t.chain is not None else None)
+                    p.checkpoint_id, is_savepoint=p.is_savepoint)
+                if t.chain is not None else None)
         p.completed = cp
         p.done.set()
 
@@ -215,9 +298,13 @@ class CheckpointCoordinator:
         barriers can then never be acknowledged."""
         with self._lock:
             self._paused = True
+            aborted = list(self._pending)
             for cid, p in list(self._pending.items()):
                 del self._pending[cid]
+                p.declined = True
                 p.done.set()
+        for cid in aborted:
+            self._notify_aborted(cid)
 
     def resume(self) -> None:
         with self._lock:
@@ -237,12 +324,16 @@ class CheckpointCoordinator:
             if self._paused:
                 continue
             now = time.time()
+            timed_out = []
             with self._lock:
                 for cid, p in list(self._pending.items()):
                     if now - p.started > self.timeout:
                         del self._pending[cid]
                         p.done.set()
+                        timed_out.append(cid)
                 in_flight = len(self._pending)
+            for cid in timed_out:
+                self._notify_aborted(cid)
             if in_flight:
                 continue
             # a finished source cannot inject a barrier any more
@@ -255,6 +346,10 @@ class CheckpointCoordinator:
         if (self._thread is not None
                 and self._thread is not threading.current_thread()):
             self._thread.join(timeout=2.0)
+
+
+#: a task snapshot's in-flight batches of an unaligned checkpoint
+_INFLIGHT = ("inflight", "inflight1", "inflight2")
 
 
 def build_restore_map(checkpoint: CompletedCheckpoint,
@@ -284,6 +379,13 @@ def build_restore_map(checkpoint: CompletedCheckpoint,
             continue
         same_par = checkpoint.vertex_parallelism.get(
             old_vid, len(old)) == vertex.parallelism
+        if not same_par and any(s.get(k) for s in old.values()
+                                for k in _INFLIGHT):
+            # channel state cannot be redistributed across parallelisms
+            raise ValueError(
+                f"cannot rescale vertex {vid} from an unaligned checkpoint "
+                "with in-flight data; take an aligned checkpoint/savepoint "
+                "first")
         op_keys: set[str] = set()
         for snap in old.values():
             op_keys.update((snap.get("chain") or {}).keys())
@@ -300,6 +402,9 @@ def build_restore_map(checkpoint: CompletedCheckpoint,
             task_snap: dict[str, Any] = {}
             if same_par and sub in old:
                 task_snap["reader"] = old[sub].get("reader")
+                for k in _INFLIGHT:
+                    if old[sub].get(k):
+                        task_snap[k] = old[sub][k]
             chain_map: dict[str, dict] = {}
             for op_key in op_keys:
                 keyed_list = []

@@ -20,6 +20,24 @@ column); ``LocalJob.fusion_declined`` records why.
 The job's wall time runs from its first read to the end of input, with
 the device drained, so events/s of a job is records / ``wall_s``.
 
+Checkpoint modes: gates are aligned under ``exactly-once`` and unaligned
+with ``execution.checkpointing.unaligned`` (or they turn unaligned after
+``aligned-checkpoint-timeout``). A fused source -> window chain is one
+task with no gate, so nothing is ever in flight inside it: an unaligned
+checkpoint of it is taken as an aligned one, as in the reference, and
+``fusion_declined`` says nothing of it. Under
+``pipeline.adaptive-batch-size`` the fused chain is declined: a captured
+CUDA graph replays one batch shape, and adaptive sizes change it.
+
+Each job holds a ``KvStateRegistry`` (``kv_registry``: the queryable
+states its backends register) and a ``WatermarkAlignmentCoordinator``
+(``watermark_alignment``: its sources' alignment groups), and, with
+``metrics_registry=``, a ``TaskMetrics`` group a task. Iterations: a
+feedback edge's channels are unbounded (a bounded back edge wedges the
+loop once its head ends on quiescence), its writer carries batches and
+the end of input only, and the head's gate is an ``IterationGate``; a
+job with a feedback edge refuses periodic checkpoints.
+
 Faults and supervision: ``deploy_local`` arms the process-global fault
 injector and stall watchdog from the job's configuration (idempotent on
 an unchanged spec, so a redeploy keeps its visit counters), writers wait
@@ -47,11 +65,11 @@ import torch
 
 from ..core.config import Configuration
 from ..graph.stream_graph import JobGraph
-from ..runtime.channels import InputGate, LocalChannel
+from ..runtime.channels import InputGate, IterationGate, LocalChannel
 from ..runtime.operators.base import OperatorChain, OperatorContext
 from ..runtime.stream_task import OneInputStreamTask, SourceStreamTask, \
     StreamTask, TaskReporter, TwoInputStreamTask
-from ..runtime.writer import RecordWriter
+from ..runtime.writer import FeedbackRecordWriter, RecordWriter
 
 __all__ = ["LocalJob", "deploy_local", "restart_region", "run_job",
            "live_rescale"]
@@ -62,7 +80,9 @@ class LocalJob(TaskReporter):
     the checkpoint coordinator's hook."""
 
     def __init__(self, job_graph: JobGraph, config: Configuration,
-                 device: torch.device):
+                 device: torch.device, metrics_registry=None):
+        from ..runtime.alignment import WatermarkAlignmentCoordinator
+        from ..state.queryable import KvStateRegistry
         self.job_graph = job_graph
         self.config = config
         self.device = torch.device(device)
@@ -76,7 +96,11 @@ class LocalJob(TaskReporter):
         self._lock = threading.Lock()
         self._done = threading.Event()
         self.checkpoint_listener: Optional[Callable] = None
+        self.decline_listener: Optional[Callable] = None
         self.coordinator = None
+        self.metrics_registry = metrics_registry
+        self.kv_registry = KvStateRegistry()
+        self.watermark_alignment = WatermarkAlignmentCoordinator()
         #: vertex id -> why the fused chain was not armed there
         self.fusion_declined: dict[str, str] = {}
         self._ended_at: Optional[float] = None
@@ -89,6 +113,11 @@ class LocalJob(TaskReporter):
                                snapshot: dict) -> None:
         if self.checkpoint_listener is not None:
             self.checkpoint_listener(task_id, checkpoint_id, snapshot)
+
+    def declined_checkpoint(self, task_id: str, checkpoint_id: int,
+                            reason: str) -> None:
+        if self.decline_listener is not None:
+            self.decline_listener(task_id, checkpoint_id, reason)
 
     def task_finished(self, task_id: str) -> None:
         with self._lock:
@@ -205,11 +234,19 @@ class LocalJob(TaskReporter):
 
 def deploy_local(job_graph: JobGraph, config: Configuration,
                  device: torch.device,
-                 restored_state: Optional[dict] = None) -> LocalJob:
+                 restored_state: Optional[dict] = None,
+                 metrics_registry=None) -> LocalJob:
     """Channels, gates, writers, chains and tasks for every (vertex,
     subtask); a checkpoint coordinator when checkpointing is on. Nothing
     runs until ``job.start()``."""
-    job = LocalJob(job_graph, config, device)
+    if any(e.feedback for e in job_graph.edges) \
+            and config.get("execution.checkpointing.interval") > 0:
+        # a barrier circulating the loop would align the head forever
+        raise ValueError(
+            "iterations (feedback edges) cannot run with periodic "
+            "checkpointing enabled; disable execution.checkpointing."
+            "interval for this job")
+    job = LocalJob(job_graph, config, device, metrics_registry)
     # arm (or disarm) the process-global fault injector and the watchdog's
     # deadlines from this job's configuration
     from ..runtime.faults import FAULTS
@@ -249,7 +286,9 @@ def _channels(job_graph: JobGraph, vids: set) -> dict:
             continue
         src = job_graph.vertices[e.source_vertex]
         dst = job_graph.vertices[e.target_vertex]
-        channels[ei] = [[LocalChannel() for _ in range(dst.parallelism)]
+        # a feedback edge's channels are unbounded (capacity 0)
+        channels[ei] = [[LocalChannel(0) if e.feedback else LocalChannel()
+                         for _ in range(dst.parallelism)]
                         for _ in range(src.parallelism)]
     return channels
 
@@ -290,7 +329,14 @@ def restart_region(job: LocalJob, job_graph: JobGraph,
 def _deploy_vertices(job: LocalJob, job_graph: JobGraph,
                      config: Configuration, channels: dict,
                      restored_state: Optional[dict], vids: set) -> None:
+    from ..metrics.core import TaskMetrics
     aligned = config.get("execution.checkpointing.mode") == "exactly-once"
+    gate_kw = dict(aligned=aligned,
+                   unaligned=aligned and config.get(
+                       "execution.checkpointing.unaligned"),
+                   alignment_timeout_s=config.get(
+                       "execution.checkpointing.aligned-checkpoint-timeout"))
+    adaptive = config.get("pipeline.adaptive-batch-size")
     cert = job_graph.certificate
     bp_stall = float(config.get("task.backpressure.stall-timeout"))
     for vid, vertex in job_graph.vertices.items():
@@ -302,15 +348,21 @@ def _deploy_vertices(job: LocalJob, job_graph: JobGraph,
                     if e.target_vertex == vid]
         for sub in range(vertex.parallelism):
             task_id = f"{vid}#{sub}"
+            metrics = (TaskMetrics(job.metrics_registry, job_graph.name,
+                                   vid, sub)
+                       if job.metrics_registry is not None else None)
             ctx = OperatorContext(
                 task_name=vertex.name, subtask_index=sub,
                 parallelism=vertex.parallelism,
-                max_parallelism=vertex.max_parallelism, config=config)
-            # one writer a main edge; a side edge's writers by its tag
+                max_parallelism=vertex.max_parallelism, config=config,
+                metrics=metrics, kv_registry=job.kv_registry)
+            # one writer a main edge (a feedback edge's carries batches
+            # only); a side edge's writers by its tag
             writers, side_writers = [], {}
             for ei, e in out_edges:
-                w = RecordWriter(channels[ei][sub], e.partitioner_factory(),
-                                 sub, stall_timeout=bp_stall)
+                cls = FeedbackRecordWriter if e.feedback else RecordWriter
+                w = cls(channels[ei][sub], e.partitioner_factory(), sub,
+                        stall_timeout=bp_stall)
                 if e.side_tag is None:
                     writers.append(w)
                 else:
@@ -323,8 +375,10 @@ def _deploy_vertices(job: LocalJob, job_graph: JobGraph,
                                       job.device)
                 rep = cert.chain_for_vertex(vid) if cert is not None else None
                 if rep is not None and rep.lowered_prefix and ops:
-                    why = _arm_fused_chain(ops[0], reader, src_node.source,
-                                           sub, vertex.parallelism)
+                    why = ("adaptive batch sizing changes the batch shape a "
+                           "captured graph replays" if adaptive else
+                           _arm_fused_chain(ops[0], reader, src_node.source,
+                                            sub, vertex.parallelism))
                     if why:
                         job.fusion_declined[vid] = why
                 task = SourceStreamTask(task_id, ctx, reader,
@@ -341,18 +395,26 @@ def _deploy_vertices(job: LocalJob, job_graph: JobGraph,
                     per_input[e.target_input].extend(
                         channels[ei][s][sub] for s in range(len(channels[ei])))
                 task = TwoInputStreamTask(
-                    task_id, ctx, InputGate(per_input[0], aligned=aligned),
-                    InputGate(per_input[1], aligned=aligned), writers, job,
+                    task_id, ctx, InputGate(per_input[0], **gate_kw),
+                    InputGate(per_input[1], **gate_kw), writers, job,
                     config, side_writers)
                 task.chain = OperatorChain(
                     [n.operator_factory() for n in vertex.chained_nodes],
                     ctx, task.make_tail_output(), task.side_outputs())
             else:
-                in_channels = [channels[ei][s][sub] for ei, _e in in_edges
-                               for s in range(len(channels[ei]))]
-                task = OneInputStreamTask(
-                    task_id, ctx, InputGate(in_channels, aligned=aligned),
-                    writers, job, config, side_writers)
+                in_channels, feedback = [], set()
+                for ei, e in in_edges:
+                    for s in range(len(channels[ei])):
+                        if e.feedback:
+                            feedback.add(len(in_channels))
+                        in_channels.append(channels[ei][s][sub])
+                head = vertex.chained_nodes[0]
+                gate = (IterationGate(in_channels, feedback,
+                                      head.iteration_wait_s, aligned=aligned)
+                        if head.iteration_head
+                        else InputGate(in_channels, **gate_kw))
+                task = OneInputStreamTask(task_id, ctx, gate, writers, job,
+                                          config, side_writers)
                 task.chain = OperatorChain(
                     [n.operator_factory() for n in vertex.chained_nodes],
                     ctx, task.make_tail_output(), task.side_outputs())
@@ -387,13 +449,15 @@ def _make_reader(src_node, subtask: int, parallelism: int,
 
 def run_job(job_graph: JobGraph, config: Configuration, device: torch.device,
             timeout: Optional[float] = None,
-            restored_state: Optional[dict] = None) -> LocalJob:
+            restored_state: Optional[dict] = None,
+            metrics_registry=None) -> LocalJob:
     """Deploy, start (with periodic checkpoints when configured), and run
     to the end of input. A task whose progress stalls with queued input
     fails the job with a StallError (``task.stall-timeout``); without a
     supervisor there is no restart."""
     from ..runtime.watchdog import TaskStallDetector
-    job = deploy_local(job_graph, config, device, restored_state)
+    job = deploy_local(job_graph, config, device, restored_state,
+                       metrics_registry)
     detector = TaskStallDetector(job, float(config.get("task.stall-timeout")))
     job.start()
     detector.start()
@@ -455,7 +519,7 @@ def live_rescale(job: LocalJob, n_devices: int,
                 "declined; worker set unchanged")
     finally:
         if ephemeral:
-            job.checkpoint_listener = None
+            job.checkpoint_listener = job.decline_listener = None
     stale = [tid for tid, op in targets
              if op._rescale_epoch <= old_epochs[tid]]
     if stale:

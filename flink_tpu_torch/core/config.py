@@ -27,6 +27,13 @@ DEFAULTS: dict[str, Any] = {
     # periodic watermark emission of a source task (seconds of wall time;
     # 0 emits after every batch)
     "pipeline.auto-watermark-interval": 0.2,
+    # size each source batch to a latency target (the reference's
+    # BufferDebloater analog: size = throughput x target, EMA-smoothed),
+    # between the min and max clamps
+    "pipeline.adaptive-batch-size": False,
+    "pipeline.adaptive-batch-size.target-latency": 0.1,
+    "pipeline.adaptive-batch-size.min": 64,
+    "pipeline.adaptive-batch-size.max": 1 << 20,
     # certify chains (graph/fusion.py) and lower a certified source ->
     # window prefix to one dispatch per micro-batch; also lets a hash edge
     # chain at parallelism 1 into a device window aggregate
@@ -38,6 +45,18 @@ DEFAULTS: dict[str, Any] = {
     "execution.checkpointing.timeout": 600.0,
     # checkpoint directory; in-memory storage when unset
     "execution.checkpointing.dir": None,
+    # completed checkpoints kept before subsumption (savepoints apart)
+    "execution.checkpointing.num-retained": 1,
+    # unaligned barriers: the first barrier at a gate fires at once, and
+    # the batches still queued ahead of the other channels' barriers go
+    # into the checkpoint as in-flight data
+    "execution.checkpointing.unaligned": False,
+    # an aligned checkpoint whose alignment stalls longer than this turns
+    # unaligned (seconds; 0: never)
+    "execution.checkpointing.aligned-checkpoint-timeout": 0.0,
+    # seconds between latency markers a source injects; each operator
+    # records source-to-here ms into its "latency" histogram (0: off)
+    "metrics.latency.interval": 0.0,
     "task.max-inflight": 2,
     # coalesce consecutive same-schema micro-batches host-side up to this
     # many records, then run one ingest step (0/1: off)
@@ -54,6 +73,9 @@ DEFAULTS: dict[str, Any] = {
     # holds every state kind on the host (host window operators, process
     # functions, host joins and GROUP BY)
     "state.backend.type": "tpu",
+    # the changelog backend: checkpoints between two materializations of
+    # its base (the log holds the changes in between)
+    "state.backend.changelog.materialization-interval": 10,
     # most device hash-table slots of keyed state; state beyond them pages
     # to the host spill tier at key-group granularity (0: unlimited)
     "state.backend.tpu.hbm-budget-slots": 0,
@@ -215,6 +237,9 @@ class WatchdogOptions:
 #: value type of each key whose default does not name it
 _TYPES: dict[str, type] = {"execution.checkpointing.dir": str}
 _DURATIONS = {"pipeline.auto-watermark-interval",
+              "pipeline.adaptive-batch-size.target-latency",
+              "execution.checkpointing.aligned-checkpoint-timeout",
+              "metrics.latency.interval",
               "watchdog.device.compile-timeout",
               "watchdog.aot-warmup-timeout",
               "execution.checkpointing.interval",

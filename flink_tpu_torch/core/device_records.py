@@ -6,6 +6,11 @@ sees only metadata (row count, event-time bounds as host ints), so
 watermark generation and pane bookkeeping never synchronize with the
 device. Host columns materialize lazily, once, for any consumer that
 genuinely needs host values.
+
+A device batch pickles as the host batch of its columns (``__reduce__``):
+an unaligned checkpoint's in-flight batches are written by the fs
+storage that way, and restore as host batches. A lazy batch realizes
+its columns first.
 """
 
 from __future__ import annotations
@@ -62,6 +67,11 @@ class DeviceRecordBatch(RecordBatch):
     @property
     def timestamps(self) -> np.ndarray:
         return self._materialize().timestamps
+
+    def __reduce__(self):
+        # tensors on a card do not survive a process: ship the host batch
+        host = self._materialize()
+        return (RecordBatch, (host.schema, host.columns, host.timestamps))
 
     def compact(self, mask: torch.Tensor) -> "DeviceRecordBatch":
         """The rows where ``mask`` (bool, on this batch's device) holds,

@@ -57,6 +57,10 @@ class _NoWatermarks(WatermarkGenerator):
 class WatermarkStrategy:
     _gen_factory: Callable[[], WatermarkGenerator]
     timestamp_column: Optional[str] = None
+    # watermark alignment: sources of one group pause while their
+    # watermark runs more than the drift ahead of the group's slowest
+    alignment_group: Optional[str] = None
+    alignment_max_drift_ms: int = 0
 
     @staticmethod
     def for_bounded_out_of_orderness(max_out_of_orderness_ms: int
@@ -75,6 +79,14 @@ class WatermarkStrategy:
     def with_timestamp_column(self, column: str) -> "WatermarkStrategy":
         """Event time = this int64 column (ms)."""
         return replace(self, timestamp_column=column)
+
+    def with_watermark_alignment(self, group: str,
+                                 max_drift_ms: int) -> "WatermarkStrategy":
+        """Sources of ``group`` pause reading while their watermark is
+        ahead of the group's minimum by more than ``max_drift_ms``
+        (``runtime/alignment.py``)."""
+        return replace(self, alignment_group=group,
+                       alignment_max_drift_ms=int(max_drift_ms))
 
     def create_generator(self) -> WatermarkGenerator:
         return self._gen_factory()

@@ -299,12 +299,14 @@ def certify(stream_graph: Any, job_graph: Any,
         if e.partitioner_name == "hash" and head.category in (
                 "window-device", "keyed-device", "keyed-host", "timer"):
             continue  # the keyed exchange IS the legal flush point
-        if (e.partitioner_name != "forward" and tail.category in _FUSABLE
+        if ((e.partitioner_name != "forward" or e.feedback)
+                and tail.category in _FUSABLE
                 and head.category == "pure"
                 and src.parallelism == dst.parallelism):
             dst.findings.append(PlanFinding(
                 rule="PLAN603",
-                message=(f"non-forward edge ({e.partitioner_name}) between "
+                message=(f"non-forward edge ({e.partitioner_name}"
+                         f"{', feedback' if e.feedback else ''}) between "
                          f"fusable operators {tail.name!r} -> {head.name!r} "
                          "at equal parallelism: a forward edge would fuse"),
                 file=head.file, line=head.line,

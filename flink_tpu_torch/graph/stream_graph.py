@@ -9,10 +9,12 @@ slot-sharing group. Under ``pipeline.fusion.enabled`` a hash edge at
 parallelism 1 into a device window aggregate chains too: every record
 lands on subtask 0, so the keyed exchange is forward-equivalent.
 
-The port builds sources, one-input and two-input operators and sinks;
-iterations are refused. A two-input node's in-edges carry
-``target_input`` (0 or 1), and it heads its chain: nothing chains into
-it, and forward edges after it chain as usual.
+The port builds sources, one-input and two-input operators, sinks and
+iterations. A two-input node's in-edges carry ``target_input`` (0 or 1),
+and it heads its chain: nothing chains into it, and forward edges after
+it chain as usual. An iteration head (``FeedbackTransformation``) is a
+pass-through node that chains with nothing upstream; the loop body's
+tail reaches it over a ``feedback`` edge, which never chains.
 """
 
 from __future__ import annotations
@@ -22,9 +24,9 @@ from typing import Any, Callable, Optional
 
 from ..core.config import Configuration
 from .transformations import (
-    OneInputTransformation, PartitionTransformation, SideOutputTransformation,
-    SinkTransformation, SourceTransformation, Transformation,
-    TwoInputTransformation, UnionTransformation,
+    FeedbackTransformation, OneInputTransformation, PartitionTransformation,
+    SideOutputTransformation, SinkTransformation, SourceTransformation,
+    Transformation, TwoInputTransformation, UnionTransformation,
 )
 
 __all__ = ["StreamNode", "StreamEdge", "StreamGraph", "JobVertex", "JobEdge",
@@ -47,6 +49,10 @@ class StreamNode:
     source: Any = None
     watermark_strategy: Any = None
     traceable: bool = False
+    # an iteration head's gate ends once its regular inputs ended and the
+    # feedback loop stayed quiet this long
+    iteration_head: bool = False
+    iteration_wait_s: float = 0.0
 
 
 @dataclass
@@ -57,6 +63,7 @@ class StreamEdge:
     partitioner_name: str = "forward"
     side_tag: Optional[str] = None
     target_input: int = 0
+    feedback: bool = False  # an iteration's back edge (body tail -> head)
 
 
 @dataclass
@@ -129,15 +136,36 @@ def build_stream_graph(sinks: list[Transformation],
         elif isinstance(t, TwoInputTransformation):
             node = StreamNode(t.id, t.name, "two_input", par, maxp,
                               operator_factory=t.operator_factory, **common)
+        elif isinstance(t, FeedbackTransformation):
+            from ..runtime.operators.simple import BatchFnOperator
+            # the head owns the special gate: it never chains into an
+            # upstream task (a source task has no gate for the feedback)
+            common["chaining_allowed"] = False
+            node = StreamNode(t.id, t.name, "one_input", par, maxp,
+                              operator_factory=lambda: BatchFnOperator(
+                                  lambda b: b, "IterationHead"),
+                              iteration_head=True,
+                              iteration_wait_s=t.max_wait_s, **common)
         else:
             raise TypeError(f"the port builds no {type(t).__name__}")
         g.nodes[node.id] = node
+        # registered before its inputs resolve: a feedback edge cycles
+        # back here, and this entry ends the recursion
         visited[t.id] = node.id
         two = isinstance(t, TwoInputTransformation)
         for input_idx, up in enumerate(t.inputs):
             for nid, attrs in resolve_input(up):
                 g.edges.append(_make_edge(nid, node.id, attrs,
                                           input_idx if two else 0))
+        if isinstance(t, FeedbackTransformation):
+            if not t.feedback_inputs:
+                raise ValueError(
+                    f"iteration {t.name!r} was never closed: call "
+                    "close_with(feedback_stream) on the IterativeStream")
+            for up in t.feedback_inputs:
+                for nid, attrs in resolve_input(up):
+                    g.edges.append(_make_edge(nid, node.id,
+                                              {**attrs, "feedback": True}))
         return node.id
 
     for s in sinks:
@@ -153,7 +181,8 @@ def _make_edge(source_id: int, target_id: int, attrs: dict,
         partitioner_factory=attrs.get("partitioner_factory",
                                       ForwardPartitioner),
         partitioner_name=attrs.get("partitioner_name", "forward"),
-        side_tag=attrs.get("side_tag"), target_input=target_input)
+        side_tag=attrs.get("side_tag"), target_input=target_input,
+        feedback=attrs.get("feedback", False))
 
 
 # ---------------------------------------------------------------------------
@@ -168,6 +197,7 @@ class JobEdge:
     partitioner_name: str = "forward"
     side_tag: Optional[str] = None
     target_input: int = 0
+    feedback: bool = False
 
 
 @dataclass
@@ -243,7 +273,7 @@ def build_job_graph(g: StreamGraph, config: Configuration,
         return _window_head[node.id]
 
     def chainable(e: StreamEdge) -> bool:
-        if not chaining or e.side_tag is not None:
+        if not chaining or e.side_tag is not None or e.feedback:
             return False
         up, down = g.nodes[e.source_id], g.nodes[e.target_id]
         forward_ok = e.partitioner_name == "forward"
@@ -316,5 +346,6 @@ def build_job_graph(g: StreamGraph, config: Configuration,
             source_vertex=f"v{src_head}", target_vertex=f"v{dst_head}",
             partitioner_factory=e.partitioner_factory,
             partitioner_name=e.partitioner_name,
-            side_tag=e.side_tag, target_input=e.target_input))
+            side_tag=e.side_tag, target_input=e.target_input,
+            feedback=e.feedback))
     return jg

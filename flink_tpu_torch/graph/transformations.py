@@ -88,8 +88,9 @@ class SideOutputTransformation(Transformation):
 @dataclass
 class FeedbackTransformation(Transformation):
     """Iteration head: a pass-through node whose input set grows a
-    FEEDBACK edge at close_with time. The port builds no iterations; the
-    graph compiler refuses one."""
+    feedback edge at ``close_with`` time: the loop body's batches flow
+    back into it. The head ends once its regular inputs ended and the
+    loop stayed quiet for ``max_wait_s``."""
 
     feedback_inputs: list["Transformation"] = field(default_factory=list)
     max_wait_s: float = 2.0

@@ -17,16 +17,24 @@ downstream operator and gives it back when that call returns, so work
 an operator dispatches after it emits stays its own (the reference
 leaves the downstream operator pinned, ROADMAP Queue 3's kept
 differences).
+
+Latency markers ride the chain: every operator counts a marker
+(``latency_markers_seen``), records the ms since the source marked it
+into its ``latency`` histogram when the job has a metric registry, and
+forwards it. A marker touches no device work, so on a device window's
+chain it costs no host sync. A completed or aborted checkpoint reaches
+an operator's keyed backend (``_backend``), which may prune artifacts
+then (the changelog backend's generations).
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 from ...core.config import Configuration
-from ...core.elements import Watermark
+from ...core.elements import LatencyMarker, Watermark
 from ...core.keygroups import KeyGroupRange, key_group_range_for_operator
 from ...core.records import MIN_TIMESTAMP, RecordBatch
 from ...metrics.profiler import DEVICE_LEDGER, dispatch_context, \
@@ -47,6 +55,10 @@ class OperatorContext:
     config: Configuration = field(default_factory=Configuration)
     #: the task's clock in ms (the harness injects a manual one)
     processing_time: Callable[[], int] = lambda: int(time.time() * 1000)
+    #: the task's ``TaskMetrics`` (a job run with a metric registry)
+    metrics: Any = None
+    #: the job's queryable-state registry (``state/queryable.py``)
+    kv_registry: Any = None
 
     @property
     def key_group_range(self) -> KeyGroupRange:
@@ -61,9 +73,11 @@ class OperatorContext:
         from ...state.backend import create_backend
         if name is None:
             name = self.config.get("state.backend.type")
-        return create_backend(name, self.key_group_range,
-                              self.max_parallelism, config=self.config,
-                              **kwargs)
+        backend = create_backend(name, self.key_group_range,
+                                 self.max_parallelism, config=self.config,
+                                 **kwargs)
+        backend.kv_registry = self.kv_registry
+        return backend
 
 
 class Output:
@@ -74,6 +88,9 @@ class Output:
 
     def emit_watermark(self, watermark: Watermark) -> None:
         raise NotImplementedError
+
+    def emit_latency_marker(self, marker: LatencyMarker) -> None:
+        pass
 
     def emit_side(self, tag: str, batch: RecordBatch) -> None:
         """A tagged side output (``late-data``, ``dead-letter``, a process
@@ -88,7 +105,11 @@ class CollectingOutput(Output):
     def __init__(self):
         self.batches: list[RecordBatch] = []
         self.watermarks: list[Watermark] = []
+        self.latency_markers: list[LatencyMarker] = []
         self.side: dict[str, list[RecordBatch]] = {}
+
+    def emit_latency_marker(self, marker: LatencyMarker) -> None:
+        self.latency_markers.append(marker)
 
     def emit_side(self, tag: str, batch: RecordBatch) -> None:
         self.side.setdefault(tag, []).append(batch)
@@ -120,6 +141,8 @@ class StreamOperator:
         self.current_watermark: int = MIN_TIMESTAMP
         self._ledger_job = ""
         self._ledger_ident = self.name
+        self._latency_hist = None
+        self.latency_markers_seen = 0
 
     def setup(self, ctx: OperatorContext, output: Output) -> None:
         self.ctx = ctx
@@ -128,6 +151,20 @@ class StreamOperator:
         # chain-stable operator key (see OperatorChain)
         self._ledger_job = str(ctx.config.get("pipeline.name"))
         self._ledger_ident = getattr(self, "_op_key", self.name)
+        metrics = ctx.metrics
+        if metrics is not None:
+            # the operator's scope under its task: watermark gauges and
+            # the latency histogram
+            g = metrics.operator_group(self._ledger_ident)
+            g.gauge("currentInputWatermark", lambda: self.current_watermark)
+            g.gauge("watermarkLag", self._watermark_lag_ms)
+            self._latency_hist = g.histogram("latency")
+
+    def _watermark_lag_ms(self) -> float:
+        """Wall ms behind the operator's watermark; NaN before the first."""
+        if self.current_watermark <= MIN_TIMESTAMP:
+            return float("nan")
+        return max(0, int(time.time() * 1000) - self.current_watermark)
 
     def _enter_dispatch(self) -> None:
         """Pin this operator as the (job, operator) owner of the ledger
@@ -153,15 +190,39 @@ class StreamOperator:
         self.current_watermark = watermark.timestamp
         self.output.emit_watermark(watermark)
 
+    def process_latency_marker(self, marker: LatencyMarker) -> None:
+        """Count the marker, record the ms since the source marked it,
+        and forward it."""
+        self.latency_markers_seen += 1
+        if self._latency_hist is not None:
+            self._latency_hist.update(
+                (time.time() - marker.marked_time) * 1e3)
+        self.output.emit_latency_marker(marker)
+
     def advance_processing_time(self, now_ms: int) -> None:
         """Driven by the task's loop: fires processing-time timers."""
 
     def snapshot_state(self, checkpoint_id: int) -> dict:
         return {}
 
-    def notify_checkpoint_complete(self, checkpoint_id: int) -> None:
+    def notify_checkpoint_complete(self, checkpoint_id: int,
+                                   is_savepoint: bool = False) -> None:
         """Every task acknowledged ``checkpoint_id`` and it is stored (a
-        two-phase sink commits here)."""
+        two-phase sink commits here). A keyed backend that prunes on
+        subsumption (the changelog backend) hears of it."""
+        backend = getattr(self, "_backend", None)
+        if backend is not None and hasattr(backend,
+                                           "notify_checkpoint_complete"):
+            backend.notify_checkpoint_complete(checkpoint_id,
+                                               is_savepoint=is_savepoint)
+
+    def notify_checkpoint_aborted(self, checkpoint_id: int) -> None:
+        """``checkpoint_id`` will not complete (declined, timed out or
+        paused): a backend drops what it pinned for it."""
+        backend = getattr(self, "_backend", None)
+        if backend is not None and hasattr(backend,
+                                           "notify_checkpoint_aborted"):
+            backend.notify_checkpoint_aborted(checkpoint_id)
 
 
 class OneInputOperator(StreamOperator):
@@ -220,6 +281,9 @@ class _ChainingOutput(Output):
     def emit_watermark(self, watermark: Watermark) -> None:
         self._call(self._op.process_watermark, watermark)
 
+    def emit_latency_marker(self, marker: LatencyMarker) -> None:
+        self._op.process_latency_marker(marker)
+
     def emit_side(self, tag: str, batch: RecordBatch) -> None:
         out = self._side.get(tag)
         if out is not None:
@@ -276,6 +340,11 @@ class OperatorChain:
         self.head._enter_dispatch()
         self.head.process_watermark_n(input_index, watermark)
 
+    def process_latency_marker(self, marker: LatencyMarker) -> None:
+        """A latency marker through every chained operator (each records
+        its latency) out to the tail."""
+        self.head.process_latency_marker(marker)
+
     def advance_processing_time(self, now_ms: int) -> None:
         for op in self.operators:
             op.advance_processing_time(now_ms)
@@ -284,9 +353,15 @@ class OperatorChain:
         return {_op_key(op): op.snapshot_state(checkpoint_id)
                 for op in self.operators}
 
-    def notify_checkpoint_complete(self, checkpoint_id: int) -> None:
+    def notify_checkpoint_complete(self, checkpoint_id: int,
+                                   is_savepoint: bool = False) -> None:
         for op in self.operators:
-            op.notify_checkpoint_complete(checkpoint_id)
+            op.notify_checkpoint_complete(checkpoint_id,
+                                          is_savepoint=is_savepoint)
+
+    def notify_checkpoint_aborted(self, checkpoint_id: int) -> None:
+        for op in self.operators:
+            op.notify_checkpoint_aborted(checkpoint_id)
 
     def finish(self) -> None:
         for op in self.operators:

@@ -52,7 +52,8 @@ class SinkOperator(OneInputOperator):
         self._writer.prepare_commit(checkpoint_id)
         return {"operator": self._writer.snapshot()}
 
-    def notify_checkpoint_complete(self, checkpoint_id: int) -> None:
+    def notify_checkpoint_complete(self, checkpoint_id: int,
+                                   is_savepoint: bool = False) -> None:
         if self._writer is not None:
             self._writer.commit(checkpoint_id)
 

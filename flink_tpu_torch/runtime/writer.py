@@ -14,6 +14,10 @@ feeding a window and a join) hands the same batch to each writer: a
 device batch reaches every consumer by reference. Splitting a device batch by key group
 across several subtasks is multi-device work the port does not do yet:
 it raises.
+
+``FeedbackRecordWriter`` writes an iteration's back edge: only batches
+and the end of input flow into the loop; watermarks, barriers, status
+and latency markers are dropped there.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from typing import Any, Callable, Optional, Sequence
 
 import numpy as np
 
-from ..core.elements import Watermark
+from ..core.elements import EndOfInput, Watermark
 from ..core.keygroups import hash_batch, key_groups_for_hash_batch
 from ..core.records import RecordBatch
 from .channels import Channel
@@ -33,7 +37,7 @@ from .faults import FAULTS, fire_with_retries
 __all__ = ["StreamPartitioner", "ForwardPartitioner", "RebalancePartitioner",
            "RescalePartitioner", "BroadcastPartitioner", "ShufflePartitioner",
            "GlobalPartitioner", "KeyGroupPartitioner", "CustomPartitioner",
-           "RecordWriter", "WriterCancelled"]
+           "RecordWriter", "FeedbackRecordWriter", "WriterCancelled"]
 
 
 class StreamPartitioner:
@@ -176,6 +180,8 @@ class RecordWriter:
         self.cancel_event = None  # set by the task that owns this writer
         #: seconds spent blocked on a full channel
         self.backpressured_s = 0.0
+        #: the owning task's ``TaskIOTimers`` (backpressured time)
+        self.io_timers = None
         #: the most elements a channel held just after a put
         self.max_queued = 0
 
@@ -196,7 +202,10 @@ class RecordWriter:
                             "channel.backpressure", self.stall_timeout,
                             scope=f"subtask {self.subtask_index}")
             finally:
-                self.backpressured_s += time.perf_counter() - t0
+                dt = time.perf_counter() - t0
+                self.backpressured_s += dt
+                if self.io_timers is not None:
+                    self.io_timers.backpressured_s += dt
         self.max_queued = max(self.max_queued, channel.size())
 
     def emit(self, batch: RecordBatch) -> None:
@@ -217,3 +226,15 @@ class RecordWriter:
 
     def emit_watermark(self, wm: Watermark) -> None:
         self.broadcast(wm)
+
+
+class FeedbackRecordWriter(RecordWriter):
+    """The writer of an iteration's back edge: batches and the end of
+    input only. Event time does not advance through the loop (the head's
+    gate keeps feedback channels idle), and a barrier circulating the
+    loop would start the head's alignment again, which is why a job with
+    an iteration takes no checkpoint."""
+
+    def broadcast(self, element) -> None:
+        if isinstance(element, EndOfInput):
+            super().broadcast(element)

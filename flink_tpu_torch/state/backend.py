@@ -109,7 +109,15 @@ class KeyedStateBackend:
     def current_key(self) -> Any:
         return self._current_key
 
+    #: the job's queryable-state registry, set by the operator context
+    kv_registry: Any = None
+
     def get_partitioned_state(self, descriptor: StateDescriptor) -> State:
+        raise NotImplementedError
+
+    def read_raw(self, state_name: str, key: Any,
+                 namespace: Any = VOID_NAMESPACE) -> Any:
+        """A point read for queryable state; None when absent."""
         raise NotImplementedError
 
     def snapshot(self, checkpoint_id: int) -> dict:
@@ -128,7 +136,8 @@ StateBackendFactory = Callable[..., Any]
 _BACKENDS: dict[str, StateBackendFactory] = {}
 # built-in backends whose modules register themselves at first use
 _LAZY_BACKENDS = {"tpu": "flink_tpu_torch.state.device_backend",
-                  "hashmap": "flink_tpu_torch.state.heap"}
+                  "hashmap": "flink_tpu_torch.state.heap",
+                  "changelog": "flink_tpu_torch.state.changelog"}
 
 
 def register_backend(name: str, factory: StateBackendFactory) -> None:

@@ -2,7 +2,8 @@
 ``flink_tpu/state/descriptors.py``): value, list, map, reducing and
 aggregating descriptors, with their TTL config. The device backend's row
 plane holds the value kind; the heap backend (``state/heap.py``) holds
-every kind."""
+every kind. ``descriptor.queryable(name)`` exposes a state to point
+reads from outside the job (``state/queryable.py``)."""
 
 from __future__ import annotations
 
@@ -31,6 +32,8 @@ class StateDescriptor:
     kind: str  # value | list | reducing | aggregating | map
     default: Any = None
     ttl: Optional[StateTtlConfig] = None
+    # the name a queryable-state client reads it by (None: private)
+    queryable_name: Optional[str] = None
     # value serializer (None: the registry's default); its name and
     # version are written with a heap snapshot and resolved on restore
     serializer: Any = None
@@ -39,6 +42,15 @@ class StateDescriptor:
         if self.kind not in ("value", "list", "reducing", "aggregating",
                              "map"):
             raise ValueError(f"Unknown state kind {self.kind!r}")
+
+    def queryable(self, external_name: str) -> "StateDescriptor":
+        """This state, exposed to queryable-state clients under
+        ``external_name`` (a copy: the reducing and aggregating
+        descriptors' own ``__init__`` rule out ``dataclasses.replace``)."""
+        import copy
+        c = copy.copy(self)
+        object.__setattr__(c, "queryable_name", external_name)
+        return c
 
 
 def ValueStateDescriptor(name: str, default: Any = None,
@@ -68,6 +80,7 @@ class ReducingStateDescriptor(StateDescriptor):
         object.__setattr__(self, "kind", "reducing")
         object.__setattr__(self, "default", None)
         object.__setattr__(self, "ttl", ttl)
+        object.__setattr__(self, "queryable_name", None)
         object.__setattr__(self, "serializer", None)
         object.__setattr__(self, "reduce_function", reduce_function)
 
@@ -82,5 +95,6 @@ class AggregatingStateDescriptor(StateDescriptor):
         object.__setattr__(self, "kind", "aggregating")
         object.__setattr__(self, "default", None)
         object.__setattr__(self, "ttl", ttl)
+        object.__setattr__(self, "queryable_name", None)
         object.__setattr__(self, "serializer", None)
         object.__setattr__(self, "aggregate_function", aggregate_function)

@@ -19,6 +19,10 @@ with no migration path. A snapshot and a restore copy each list, map
 and set value: list and map state change theirs in place, and an
 in-memory checkpoint keeps the snapshot by reference (the reference
 shares them, ROADMAP Queue 3).
+
+A state whose descriptor is ``queryable(name)`` registers in the job's
+``KvStateRegistry`` (``kv_registry``) when its handle is first made, and
+``read_raw`` serves its point reads.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import copy
 import time
 from typing import Any, Iterable, Optional
 
-from ..core.keygroups import KeyGroupRange
+from ..core.keygroups import KeyGroupRange, assign_to_key_group
 from ..core.serializers import registry
 from .backend import AggregatingState, KeyedStateBackend, ListState, \
     MapState, ReducingState, State, ValueState, register_backend
@@ -107,7 +111,27 @@ class HeapKeyedStateBackend(KeyedStateBackend):
                 self._serializers[descriptor.name] = descriptor.serializer
             handle = _HANDLE_TYPES[descriptor.kind](self, descriptor)
             self._handles[descriptor.name] = handle
+            if descriptor.queryable_name and self.kv_registry is not None:
+                self.kv_registry.register(descriptor.queryable_name,
+                                          descriptor.name, self)
         return handle
+
+    def read_raw(self, state_name: str, key: Any,
+                 namespace: Any = None) -> Any:
+        """A point read of ``key``'s value (queryable state); None when
+        absent or expired. Reads are dirty: the live state, not a
+        checkpoint's."""
+        kg = assign_to_key_group(key, self.max_parallelism)
+        e = self._table(state_name).get(kg, {}).get((key, namespace))
+        if e is None or (e.expiry is not None and e.expiry <= time.time()):
+            return None
+        return e.value
+
+    def entries(self, state_name: str):
+        """((key, namespace), value) of a state across the range."""
+        for kg_map in self._table(state_name).values():
+            for kn, e in kg_map.items():
+                yield kn, e.value
 
     def keys(self, state_name: str, namespace: Any = None) -> Iterable[Any]:
         """The keys holding state ``state_name`` under ``namespace``
