@@ -8466,7 +8466,8 @@ def fault_run(torch, dev, name: str, spec: str, extra: dict, expected,
 
 
 def supervised_run(torch, dev, n_keys: int, n_events: int, cap: int,
-                   expected, spec: str, batch: int = BATCH) -> dict:
+                   expected, spec: str, batch: int = BATCH,
+                   extra: dict | None = None) -> dict:
     """Q5 through ``env.execute(recover=True)`` with checkpoints every
     RESTART_INTERVAL_S, the source paced to RESTART_RUN_S, into a
     two-phase sink; ``spec`` (may be empty) arms the faults. Every window
@@ -8486,7 +8487,7 @@ def supervised_run(torch, dev, n_keys: int, n_events: int, cap: int,
                   "restart-strategy.type": "fixed-delay",
                   "restart-strategy.fixed-delay.delay": 0.0,
                   **({"faults.enabled": True, "faults.spec": spec}
-                     if spec else {})})
+                     if spec else {}), **(extra or {})})
     t0 = time.perf_counter()
     job = env.execute("q5-supervised", recover=True)
     wall = time.perf_counter() - t0
@@ -8598,13 +8599,21 @@ def faults_phase(torch, dev, cell: tuple = Q5_CELLS[0],
       restart from it, no window twice, peak memory beside the same run
       without the fault;
     * the watchdog's cost at Q5-10M full (``watchdog_cost``)."""
+    import tempfile
+
     label, n_keys, n_events, cap = cell
     span = q5_panes(n_events, batch) * PANE_MS
     expected = q5_expected(n_keys, n_events, span)
+    # the stall's and the restart's flight-recorder dumps go here (the
+    # tracing phase reports them)
+    flight = {"traces.flight-recorder.dir": tempfile.mkdtemp(
+        prefix="flink_tpu_torch_flight_")}
     runs = {}
     for name, spec, extra in FAULT_RUNS:
         exp = (q5_expected(n_keys, n_events, span, skip=(0, batch))
                if name == "poison" else expected)
+        if name == "hang":
+            extra = {**extra, **flight}
         runs[name] = rec = fault_run(torch, dev, name, spec, extra, exp,
                                      n_keys, n_events, cap, batch)
         c = rec["counters"]
@@ -8625,10 +8634,15 @@ def faults_phase(torch, dev, cell: tuple = Q5_CELLS[0],
         emit({"faults_run": name, **{k: v for k, v in rec.items()
                                      if k != "trips"},
               "trips": rec["trips"][:16]})
+        if name == "hang":
+            FLIGHT_DUMPS["stall"] = flight_dump(
+                flight, "stall", "watchdog", "Stall")
     clean = supervised_run(torch, dev, n_keys, n_events, cap, expected, "",
                            batch)
     restart = supervised_run(torch, dev, n_keys, n_events, cap, expected,
-                             RESTART_SPEC, batch)
+                             RESTART_SPEC, batch, flight)
+    FLIGHT_DUMPS["job-restart"] = flight_dump(flight, "job-restart",
+                                              "restart", "JobRestart")
     if not (clean["attempts"] == 1 and restart["attempts"] == 2
             and restart["failure_kinds"] == ["task-failure", "restart"]
             and restart["restored_checkpoints"] != [None]):
@@ -8638,7 +8652,7 @@ def faults_phase(torch, dev, cell: tuple = Q5_CELLS[0],
             "events": n_events, "capacity": cap, "batch": batch,
             "runs": runs, "supervised": {"without_fault": clean,
                                          "with_restart": restart},
-            "watchdog_cost": cost}
+            "flight_dumps": FLIGHT_DUMPS, "watchdog_cost": cost}
 
 
 # -- the multi-device window path (mesh) -------------------------------------
@@ -9917,16 +9931,323 @@ def sync_audit_phase(torch, dev) -> dict:
     return {"sync_audit": out}
 
 
+# -- tracing, the flight recorder and the reporters (tracing) ----------------
+TRACE_RUNS = 2                 # Q5-10M runs with traces.enabled on and off,
+#                                each, in turns
+TRACE_RUN_S = 2.0              # (b): the traced run's source pacing, and
+TRACE_CKPT_S = 1.2             # its checkpoint interval: one checkpoint
+#                                lands mid-run
+SPAN_LOOP = 100_000            # spans timed alone on the host
+TRACE_TAIL = 8                 # a dump's last entries that must hold its span
+#: the faults phase's flight-recorder dumps by reason, reported by (d)
+FLIGHT_DUMPS: dict = {}
+
+
+def flight_dump(settings: dict, reason: str, scope: str, name: str) -> dict:
+    """The flight recorder's dump of ``reason``: it must be in the
+    directory ``settings`` name, and its last TRACE_TAIL entries must hold
+    the ``scope.name`` span of the fault."""
+    from flink_tpu_torch.metrics.tracing import FLIGHT_RECORDER
+
+    directory = settings["traces.flight-recorder.dir"]
+    dumps = [d for d in FLIGHT_RECORDER.dumps if d["reason"] == reason
+             and d["path"].startswith(directory)]
+    if not dumps:
+        raise AssertionError(f"no {reason} flight dump in {directory}: "
+                             f"{FLIGHT_RECORDER.dumps}")
+    path = dumps[-1]["path"]
+    with open(path) as f:
+        payload = json.load(f)
+    tail = payload["entries"][-TRACE_TAIL:]
+    held = [e for e in tail if e.get("type") == "span"
+            and e.get("scope") == scope and e.get("name") == name]
+    if not held:
+        raise AssertionError(f"the {reason} dump's tail holds no "
+                             f"{scope}.{name} span: {tail}")
+    return {"path": path, "bytes": os.path.getsize(path),
+            "entries": payload["entry_count"],
+            "span": {k: held[-1][k] for k in ("scope", "name",
+                                              "duration_ms", "attributes")}}
+
+
+def scrape(port: int) -> dict:
+    """One GET of a PrometheusReporter over loopback: ms, bytes and the
+    samples by name."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                timeout=30) as r:
+        body = r.read()
+    ms = (time.perf_counter() - t0) * 1e3
+    vals = {}
+    for ln in body.decode().splitlines():
+        if ln and not ln.startswith("#"):
+            name, _, val = ln.rpartition(" ")
+            vals[name] = float(val)
+    return {"ms": ms, "bytes": len(body), "values": vals}
+
+
+def span_cost_us(loop: int, retained: int) -> float:
+    """Host µs of one span (a builder, two attributes, finish and the
+    reporters) through a tracer with the global one's reporters: an
+    in-memory ring of ``retained`` spans and a flight recorder of the
+    default capacity. With ``retained`` below ``loop`` the ring evicts,
+    as a long run's does."""
+    from flink_tpu_torch.metrics.tracing import FlightRecorder, \
+        InMemoryTraceReporter, Tracer
+
+    tracer = Tracer([InMemoryTraceReporter(max_retained=retained),
+                     FlightRecorder()])
+    t0 = time.perf_counter()
+    for i in range(loop):
+        (tracer.span("task", "SourceBatch").set_attribute("task", "t#0")
+         .set_attribute("records", i).finish())
+    return (time.perf_counter() - t0) / loop * 1e6
+
+
+def tracing_cost(torch, dev) -> dict:
+    """(a) Q5-10M full at its configuration, TRACE_RUNS runs each with
+    ``traces.enabled`` true and false in turns (on, off, on, off) after an
+    untimed run of 4 batches (a first run in a process pays its
+    allocations): events/s (median and range), p99 fire latency, the spans
+    of each run by (scope, name), the spans dropped and the CPU seconds of
+    each task's thread; every window against the oracle."""
+    from flink_tpu_torch.metrics import DEVICE_STATS, TRACER
+
+    _label, n_keys, n_events, cap = Q5_CELLS[1]
+    expected = q5_expected(n_keys, n_events,
+                           q5_panes(n_events) * PANE_MS)
+    fresh_memory(torch)
+    run_q5(torch, dev, n_keys, 4 * BATCH, cap)
+    runs = {"on": [], "off": []}
+    for _ in range(TRACE_RUNS):
+        for mode in ("on", "off"):
+            TRACER.reset()
+            dropped = DEVICE_STATS.spans_dropped
+            fresh_memory(torch)
+            job, got, _span = run_q5(
+                torch, dev, n_keys, n_events, cap,
+                settings={"traces.enabled": mode == "on"})
+            windows = q5_check(expected, got)
+            spans = {}
+            for sp in TRACER.retained_spans():
+                key = f"{sp.scope}.{sp.name}"
+                spans[key] = spans.get(key, 0) + 1
+            lat = sorted(job.operators[0].fire_latencies_ms)
+            runs[mode].append({
+                "wall_s": job.wall_s, "events_per_sec": n_events / job.wall_s,
+                "p99_fire_latency_ms": lat[min(len(lat) - 1,
+                                               int(0.99 * len(lat)))],
+                "windows": windows, "spans": spans,
+                "spans_dropped": DEVICE_STATS.spans_dropped - dropped,
+                "task_cpu_s": {tid: t.cpu_s for tid, t in job.tasks.items()}})
+            del job, got
+    batches = n_events // BATCH
+    for r in runs["on"]:
+        if r["spans"].get("task.SourceBatch") != batches \
+                or r["spans"].get("device.Execute", 0) < batches:
+            raise AssertionError(f"traced Q5-10M run: spans {r['spans']}, "
+                                 f"expected {batches} SourceBatch and as "
+                                 "many Execute at least")
+    if any(r["spans"] for r in runs["off"]):
+        raise AssertionError(f"untraced runs reported spans: {runs['off']}")
+    eps = {m: [r["events_per_sec"] for r in rs] for m, rs in runs.items()}
+    med = {m: float(np.median(v)) for m, v in eps.items()}
+    per_run = sum(runs["on"][0]["spans"].values())
+    loop = {"retained_above_loop": span_cost_us(SPAN_LOOP, SPAN_LOOP),
+            "retained_4096_evicting": span_cost_us(SPAN_LOOP, 4096)}
+    return {"cell": "Q5-10M full", "runs": runs,
+            "events_per_sec": {m: {"median": med[m], "min": min(v),
+                                   "max": max(v)}
+                               for m, v in eps.items()},
+            "on_over_off_median": med["on"] / med["off"],
+            "p99_fire_latency_ms": {
+                m: max(r["p99_fire_latency_ms"] for r in rs)
+                for m, rs in runs.items()},
+            "spans_per_run": per_run,
+            "host_us_per_span": loop,
+            "host_ms_per_run": per_run * loop["retained_above_loop"] / 1e3,
+            "run_wall_ms_on": [r["wall_s"] * 1e3 for r in runs["on"]]}
+
+
+def tracing_run(torch, dev) -> dict:
+    """(b) and (c): one traced Q5-10M run, paced to TRACE_RUN_S, with the
+    ledger on and one checkpoint to fs storage in its middle, its metrics
+    in a registry that ``reporters_from_config`` opened (``metrics.
+    reporters: prometheus``) and passed to ``execute(...,
+    metrics_registry=reg)``. The checkpoint's tree beside the
+    coordinator's own seconds; the spans exported for Perfetto with the
+    ledger's counter tracks; the reporter scraped mid-run and after, its
+    device and profiler series equal to DEVICE_STATS and the ledger."""
+    import shutil
+    import tempfile
+    import threading
+
+    from flink_tpu_torch.metrics import DEVICE_LEDGER, DEVICE_STATS, \
+        MetricRegistry, PrometheusReporter, TRACER, chrome_trace_events, \
+        reporters_from_config
+    from flink_tpu_torch.metrics.device import DEVICE_GAUGES
+
+    _label, n_keys, n_events, cap = Q5_CELLS[1]
+    ckpt_dir = tempfile.mkdtemp(prefix="flink_tpu_torch_ckpt_")
+    export_dir = tempfile.mkdtemp(prefix="flink_tpu_torch_trace_")
+    try:
+        env, got, span = q5_env(
+            torch, dev, n_keys, n_events, cap, rate=n_events / TRACE_RUN_S,
+            settings={"execution.checkpointing.interval": TRACE_CKPT_S,
+                      "execution.checkpointing.dir": ckpt_dir,
+                      "profiler.enabled": True,
+                      "metrics.reporters": "prometheus"})
+        reg = MetricRegistry()
+        reporters = reporters_from_config(env.config)
+        for rep in reporters:
+            rep.open(reg)
+        (prom,) = [r for r in reporters if isinstance(r, PrometheusReporter)]
+        TRACER.reset()
+        DEVICE_LEDGER.reset()
+        fresh_memory(torch)
+        mid = {}
+        timer = threading.Timer(TRACE_RUN_S / 2,
+                                lambda: mid.update(scrape(prom.port)))
+        timer.start()
+        job = env.execute("q5-traced", metrics_registry=reg)
+        timer.join()
+        final = scrape(prom.port)
+        for rep in reporters:
+            rep.close()
+        windows = q5_oracle_check(n_keys, n_events, span, got)
+        # (c): the scrape after the run against the counters themselves
+        vals = final.pop("values")
+        wrong = {name: (vals.get(f"flink_tpu_device_{name}"),
+                        getattr(DEVICE_STATS, attr))
+                 for name, attr in DEVICE_GAUGES
+                 if vals.get(f"flink_tpu_device_{name}")
+                 != float(getattr(DEVICE_STATS, attr))}
+        snap = DEVICE_LEDGER.snapshot()
+        for name, key in (("entries", "entries"),
+                          ("device_ms_total", "device_ms_total"),
+                          ("compile_ms_total", "compile_ms_total"),
+                          ("dispatches_total", "dispatches_total"),
+                          ("recompiles_attributed_total",
+                           "recompiles_attributed")):
+            if vals.get(f"flink_tpu_profiler_{name}") != float(snap[key]):
+                wrong[f"profiler_{name}"] = (
+                    vals.get(f"flink_tpu_profiler_{name}"), snap[key])
+        if wrong or not mid or vals.get("flink_tpu_profiler_enabled") != 1:
+            raise AssertionError(f"the scrape disagrees with DEVICE_STATS "
+                                 f"and the ledger: {wrong}, mid-run {mid}")
+        mid_vals = mid.pop("values")
+        # (b): the first completed checkpoint's tree
+        stats = [st for st in job.coordinator.stats if "barrier_to_ack_s"
+                 in st]
+        if not stats:
+            raise AssertionError("no checkpoint completed mid-run")
+        st = stats[0]
+        spans = TRACER.retained_spans()
+        (root,) = [sp for sp in spans if sp.name == "Checkpoint"
+                   and sp.attributes.get("checkpointId") == st["id"]]
+        tree = [sp for sp in spans if sp.trace_id == root.trace_id
+                and sp is not root]
+        bad = [sp.name for sp in tree if sp.parent_id != root.span_id]
+        names = sorted(f"{sp.name}:{sp.attributes.get('task', '')}"
+                       for sp in tree)
+        want = sorted([f"Snapshot:{t}" for t in job.tasks]
+                      + [f"Align:{t}" for t in job.tasks
+                         if t not in job.source_tasks]
+                      + ["Store:", "Notify:"])
+        if bad or root.parent_id or names != want:
+            raise AssertionError(f"checkpoint {st['id']}'s tree: {names}, "
+                                 f"want {want}; not on the root: {bad}")
+        tree_ms = {f"{sp.name}:{sp.attributes.get('task', '')}".rstrip(":"):
+                   sp.duration_ms for sp in tree}
+        # the Perfetto export
+        doc = chrome_trace_events(spans,
+                                  counters=DEVICE_LEDGER.trace_counters())
+        path = os.path.join(export_dir, "q5_10m.trace.json")
+        with open(path, "w") as f:
+            json.dump(doc, f)
+        with open(path) as f:
+            back = json.load(f)
+        events = back["traceEvents"]
+        ids = {e["args"]["span_id"] for e in events if e["ph"] == "X"}
+        dangling = [e["name"] for e in events if e["ph"] == "X"
+                    and e["args"].get("parent_id", "") not in ids | {""}]
+        if dangling:
+            raise AssertionError(f"spans whose parent is not in the "
+                                 f"export: {dangling}")
+        tracks: dict = {}
+        for e in events:
+            if e["ph"] == "C":
+                tracks[e["name"]] = tracks.get(e["name"], 0) + 1
+        kinds: dict = {}
+        for e in events:
+            kinds[e["ph"]] = kinds.get(e["ph"], 0) + 1
+        by_name: dict = {}
+        for sp in spans:
+            key = f"{sp.scope}.{sp.name}"
+            by_name[key] = by_name.get(key, 0) + 1
+        return {
+            "run": {"wall_s": job.wall_s, "windows_checked": windows,
+                    "checkpoints_completed": len(stats),
+                    "spans": by_name},
+            "checkpoint_tree": {
+                "id": st["id"], "root_ms": root.duration_ms,
+                "span_ms": tree_ms,
+                "coordinator": {"duration_s": st["duration_s"],
+                                "barrier_to_ack_s": st["barrier_to_ack_s"],
+                                "store_s": st["store_s"],
+                                "bytes_written": st["bytes_written"]}},
+            "perfetto": {"path": path, "bytes": os.path.getsize(path),
+                         "events": len(events), "by_phase": kinds,
+                         "counter_tracks": tracks},
+            "scrape": {"mid_run": {**mid, "series": len(mid_vals),
+                                   "d2h_fires": mid_vals.get(
+                                       "flink_tpu_device_d2h_fires")},
+                       "after_run": {**final, "series": len(vals)},
+                       "device_series_equal": len(DEVICE_GAUGES),
+                       "profiler_series_equal": 5}}
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+
+def tracing_phase(torch, dev) -> dict:
+    """Spans, the flight recorder, the Perfetto export and the reporters
+    on Q5-10M: (a) tracing's cost, (b) one traced run's checkpoint tree
+    and its export, (c) a scrape, (d) the faults phase's dumps. The
+    tracer's settings go back to the defaults afterwards."""
+    from flink_tpu_torch.core import Configuration
+    from flink_tpu_torch.metrics import TRACER, set_compile_tracer
+
+    t0 = time.perf_counter()
+    _label, n_keys, n_events, _cap = Q5_CELLS[1]
+    q5_expected(n_keys, n_events, q5_panes(n_events) * PANE_MS)
+    oracle_s = time.perf_counter() - t0
+    try:
+        cost = tracing_cost(torch, dev)
+        run = tracing_run(torch, dev)
+    finally:
+        TRACER.configure(Configuration())
+        set_compile_tracer(TRACER)
+    return {"tracing": {
+        "oracle_s": oracle_s, "cost": cost, **run,
+        "dumps": FLIGHT_DUMPS or "the faults phase did not run in this "
+                                 "call",
+        "seconds_without_oracle": time.perf_counter() - t0 - oracle_s}}
+
+
 def observability_phases(torch, dev) -> dict:
-    """The ledger, the build cache and the sync audit, timed."""
+    """The ledger, the build cache, the sync audit and tracing, timed."""
     t0 = time.perf_counter()
     emit(ledger_phase(torch, dev))
     t1 = time.perf_counter()
     emit(aot_phase(torch, dev))
     t2 = time.perf_counter()
     emit(sync_audit_phase(torch, dev))
-    return {"ledger": t1 - t0, "aot": t2 - t1,
-            "sync_audit": time.perf_counter() - t2}
+    t3 = time.perf_counter()
+    emit(tracing_phase(torch, dev))
+    return {"ledger": t1 - t0, "aot": t2 - t1, "sync_audit": t3 - t2,
+            "tracing": time.perf_counter() - t3}
 
 # -- the DataStream core (datastream_core) --------------------------------------
 #: (a) BASELINE config #1, bench.py::bench_wordcount: events, words, the
@@ -12941,8 +13262,11 @@ def main(argv: list[str]) -> int:
     phase_done("runtime_io")
     emit(faults_phase(torch, dev))
     phase_done("faults")
-    emit({"observability_seconds": observability_phases(torch, dev)})
+    obs = observability_phases(torch, dev)
+    emit({"observability_seconds": obs})
     phase_done("observability")
+    # the tracing phase's part of it, on a line of its own
+    phase_s["observability.tracing"] = obs["tracing"]
     mesh = mesh_phase(torch, dev, mesh_flush, rates, exchange_ops)
     del mesh_flush
     phase_done("mesh")

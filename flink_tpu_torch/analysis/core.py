@@ -125,10 +125,14 @@ class AnalysisSettings:
         ("cluster/scheduler.py", "JobSupervisor"),
     )
     # TPU201: process-global singletons every deploy path must configure,
-    # each with the NAME(s) whose ``.configure(...)`` call satisfies it
+    # each with the NAME(s) whose ``.configure(...)`` call satisfies it;
+    # FLIGHT_RECORDER is a reporter of TRACER, so TRACER.configure() wires
+    # it too (metrics/tracing.py)
     singletons: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
         ("FAULTS", ("FAULTS",)),
         ("WATCHDOG", ("WATCHDOG",)),
+        ("TRACER", ("TRACER",)),
+        ("FLIGHT_RECORDER", ("FLIGHT_RECORDER", "TRACER")),
         ("MESH_RUNTIME", ("MESH_RUNTIME",)),
         ("DEVICE_LEDGER", ("DEVICE_LEDGER",)),
         ("AOT", ("AOT",)),

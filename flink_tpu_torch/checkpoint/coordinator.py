@@ -28,7 +28,17 @@ port of ``flink_tpu/checkpoint/coordinator.py``).
   newest retained checkpoint whose files pass their digests (on disk;
   in-memory storage has nothing to verify). One that fails is recorded
   on the job's failure history, moved aside and dropped, and the walk
-  goes on to the next; when none verifies it raises.
+  goes on to the next; when none verifies it raises. Each failure counts
+  in ``DEVICE_STATS`` (``verify_failures_total``, which dumps the flight
+  recorder as ``corrupt-artifact``), and a restore that skipped one in
+  ``restore_fallbacks_total``.
+
+With a ``tracer``, a checkpoint is one trace tree: its root
+``checkpoint.Checkpoint`` span (trigger to completion) rides the barrier
+as a wire context; the tasks' Align and Snapshot spans and the
+coordinator's ``Store`` and ``Notify`` parent on it. A restore candidate's
+selection is a ``restore.Restore`` span, with a ``restore.Fallback`` child
+when it skipped a corrupt checkpoint.
 
 One checkpoint is in flight at a time.
 """
@@ -42,6 +52,7 @@ from typing import Any, Optional
 
 from ..core.config import Configuration
 from ..core.elements import CheckpointBarrier
+from ..metrics.device import DEVICE_STATS
 from .storage import CheckpointStorage, CompletedCheckpoint, \
     CorruptArtifactError, FsCheckpointStorage, MemoryCheckpointStorage, \
     snapshot_nbytes, verify_checkpoint
@@ -96,15 +107,19 @@ class _Pending:
     declined: bool = False
     completed: Optional[CompletedCheckpoint] = None
     done: threading.Event = field(default_factory=threading.Event)
+    # the open root span (metrics/tracing.SpanBuilder), with a tracer
+    span: Any = None
 
 
 class CheckpointCoordinator:
     def __init__(self, job, config: Configuration,
-                 storage: Optional[CheckpointStorage] = None):
+                 storage: Optional[CheckpointStorage] = None, tracer=None):
         """``job`` exposes ``tasks``, ``source_tasks``, ``job_graph`` and
-        a ``checkpoint_listener`` hook (a ``LocalJob``)."""
+        a ``checkpoint_listener`` hook (a ``LocalJob``); ``tracer`` (a
+        ``metrics/tracing.Tracer``) receives each checkpoint's spans."""
         self.job = job
         self.config = config
+        self.tracer = tracer
         directory = config.get("execution.checkpointing.dir")
         self.storage = storage or (FsCheckpointStorage(directory)
                                    if directory
@@ -138,13 +153,20 @@ class CheckpointCoordinator:
         with self._lock:
             cid = self._next_id
             self._next_id += 1
+            span = None
+            if self.tracer is not None:
+                span = (self.tracer.span("checkpoint", "Checkpoint")
+                        .set_attribute("checkpointId", cid)
+                        .set_attribute("savepoint", is_savepoint))
             pending = _Pending(cid, time.time(), is_savepoint,
-                               expected=frozenset(self.job.tasks))
+                               expected=frozenset(self.job.tasks),
+                               span=span)
             self._pending[cid] = pending
         barrier = CheckpointBarrier(
             cid, timestamp=pending.started, is_savepoint=is_savepoint,
             unaligned=bool(self.config.get(
-                "execution.checkpointing.unaligned")))
+                "execution.checkpointing.unaligned")),
+            trace=span.context.to_wire() if span is not None else None)
         for st in self.job.source_tasks.values():
             st.trigger_checkpoint(barrier)
         return pending
@@ -191,6 +213,9 @@ class CheckpointCoordinator:
         if p is not None:
             p.declined = True
             p.done.set()
+            if p.span is not None:
+                p.span.set_attribute("aborted", True).set_attribute(
+                    "declined_by", task_id).finish()
             self._notify_aborted(checkpoint_id)
 
     def _notify_aborted(self, checkpoint_id: int) -> None:
@@ -212,16 +237,27 @@ class CheckpointCoordinator:
                                 for vid, v in vertices.items()},
             vertex_uids={vid: v.uid for vid, v in vertices.items()
                          if v.uid})
+        store_sb = None
+        if p.span is not None:
+            store_sb = (self.tracer.span("checkpoint", "Store",
+                                         parent=p.span.context)
+                        .set_attribute("checkpointId", p.checkpoint_id))
         t0 = time.time()
         try:
             cp = self.storage.store(cp)
         except Exception as e:  # noqa: BLE001 - a failed write aborts it
+            if store_sb is not None:
+                store_sb.set_attribute("error", True).finish()
+                p.span.set_attribute("error", True).set_attribute(
+                    "aborted", True).finish()
             with self._lock:
                 self.stats.append({"id": p.checkpoint_id, "failed": True,
                                    "error": f"{type(e).__name__}: {e}"})
             p.done.set()
             self._notify_aborted(p.checkpoint_id)
             return
+        if store_sb is not None:
+            store_sb.finish()
         now = time.time()
         with self._lock:
             self._completed.append(cp)
@@ -243,11 +279,24 @@ class CheckpointCoordinator:
                 self._completed.remove(old)
                 self.storage.discard(old)
         # tell every task (a two-phase sink commits on this)
+        notify_sb = None
+        if p.span is not None:
+            notify_sb = (self.tracer.span("checkpoint", "Notify",
+                                          parent=p.span.context)
+                         .set_attribute("checkpointId", p.checkpoint_id)
+                         .set_attribute("tasks", len(self.job.tasks)))
         for t in list(self.job.tasks.values()):
             t.execute_in_mailbox(
                 lambda t=t: t.chain.notify_checkpoint_complete(
                     p.checkpoint_id, is_savepoint=p.is_savepoint)
                 if t.chain is not None else None)
+        if notify_sb is not None:
+            notify_sb.finish()
+        if p.span is not None:
+            (p.span.set_attribute("tasks", len(p.acks))
+             .set_start_ts(int(p.started * 1000))
+             .set_attribute("duration_s", round(now - p.started, 6))
+             .finish())
         p.completed = cp
         p.done.set()
 
@@ -260,6 +309,30 @@ class CheckpointCoordinator:
         Raises CorruptArtifactError when checkpoints were retained and
         none verifies: starting over would replay the stream past output
         already committed."""
+        restore_sb = (self.tracer.span("restore", "Restore")
+                      if self.tracer is not None else None)
+        try:
+            cand, skipped = self._verified_candidate()
+        except BaseException:
+            if restore_sb is not None:
+                restore_sb.set_attribute("error", True).finish()
+            raise
+        if skipped:
+            DEVICE_STATS.note_restore_fallback("checkpoint.restore")
+            if restore_sb is not None:
+                (self.tracer.span("restore", "Fallback",
+                                  parent=restore_sb.context)
+                 .set_attribute("checkpointId", cand.checkpoint_id)
+                 .set_attribute("skipped", skipped)
+                 .finish())
+        if restore_sb is not None:
+            if cand is not None:
+                restore_sb.set_attribute("checkpointId", cand.checkpoint_id)
+            restore_sb.set_attribute("skipped", skipped).finish()
+        return cand
+
+    def _verified_candidate(self) -> tuple:
+        """(the newest verifying candidate or None, candidates skipped)."""
         skipped = 0
         while True:
             with self._lock:
@@ -269,15 +342,16 @@ class CheckpointCoordinator:
                     raise CorruptArtifactError(
                         f"all {skipped} retained checkpoints failed "
                         "verification; refusing to restore")
-                return None
+                return None, 0
             if (not isinstance(self.storage, FsCheckpointStorage)
                     or not cand.external_path):
-                return cand
+                return cand, skipped
             try:
                 verify_checkpoint(cand.external_path)
-                return cand
+                return cand, skipped
             except CorruptArtifactError as e:
                 skipped += 1
+                DEVICE_STATS.note_verify_failure("checkpoint.restore")
                 event = {"timestamp": time.time(),
                          "kind": "corrupt-artifact",
                          "checkpoint": cand.checkpoint_id,
@@ -303,6 +377,8 @@ class CheckpointCoordinator:
                 del self._pending[cid]
                 p.declined = True
                 p.done.set()
+                if p.span is not None:
+                    p.span.set_attribute("aborted", True).finish()
         for cid in aborted:
             self._notify_aborted(cid)
 

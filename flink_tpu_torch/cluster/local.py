@@ -52,6 +52,16 @@ Meshes: ``deploy_local`` also configures the process-global
 ``MESH_RUNTIME`` from the job's ``mesh.*`` keys, and ``live_rescale``
 changes the shard count of every mesh operator of a running job at one
 aligned checkpoint barrier, exactly once, without a restart.
+
+Tracing and metrics: ``deploy_local`` configures the process-global
+``TRACER`` (and its flight recorder) from the job's ``traces.*`` keys and
+routes the device spans into it when tracing is on; the checkpoint
+coordinator gets the tracer. With ``metrics_registry=``, the device
+counters and the ledger's rollups are bound to that registry as gauges;
+reporters are the caller's to open on it (``metrics/reporters.py``). A
+region restart is a ``restart.RegionRestart`` span and a flight-recorder
+dump (``region-restart``), a live rescale a ``rescale.Rescale`` root
+span.
 """
 
 from __future__ import annotations
@@ -253,6 +263,12 @@ def deploy_local(job_graph: JobGraph, config: Configuration,
     from ..runtime.watchdog import WATCHDOG
     FAULTS.configure(config)
     WATCHDOG.configure(config)
+    # causal tracing is on by default: the global tracer takes this job's
+    # traces.* limits and the device spans go into the same trees
+    from ..metrics.device import set_compile_tracer
+    from ..metrics.tracing import TRACER
+    TRACER.configure(config)
+    set_compile_tracer(TRACER if TRACER.enabled else None)
     # the mesh's rules and rescale policy are process-global too: every
     # mesh operator of the process reads the same
     from ..parallel.plan import MESH_RUNTIME
@@ -268,12 +284,20 @@ def deploy_local(job_graph: JobGraph, config: Configuration,
     from ..runtime.aot import AOT
     AOT.configure(config)
     AOT.warmup()
+    if metrics_registry is not None:
+        # the process-global counters and the ledger, through the registry
+        # the caller's reporters read
+        from ..metrics.device import bind_device_metrics
+        from ..metrics.profiler import bind_ledger_metrics
+        bind_device_metrics(metrics_registry)
+        bind_ledger_metrics(metrics_registry)
     _deploy_vertices(job, job_graph, config,
                      _channels(job_graph, set(job_graph.vertices)),
                      restored_state, set(job_graph.vertices))
     if config.get("execution.checkpointing.interval") > 0:
         from ..checkpoint.coordinator import CheckpointCoordinator
-        job.coordinator = CheckpointCoordinator(job, config)
+        job.coordinator = CheckpointCoordinator(
+            job, config, tracer=TRACER if TRACER.enabled else None)
     return job
 
 
@@ -298,9 +322,17 @@ def restart_region(job: LocalJob, job_graph: JobGraph,
                    restored_state: Optional[dict] = None) -> list[str]:
     """Pipelined-region failover: tear down and rebuild only the tasks of
     ``vids`` inside a running job; regions share no channels, so the rest
-    keeps running. Returns the restarted task ids."""
+    keeps running. Returns the restarted task ids. The restart is a
+    ``restart.RegionRestart`` span, reported before the flight recorder
+    dumps (``region-restart``), so the dump's tail holds it (the
+    reference dumps before its span ends)."""
+    from ..metrics.tracing import TRACER, dump_flight_recorder
     affected = [tid for tid in list(job.tasks)
                 if tid.rsplit("#", 1)[0] in vids]
+    restart_sb = (TRACER.span("restart", "RegionRestart")
+                  .set_attribute("job", job_graph.name)
+                  .set_attribute("vertices", sorted(vids))
+                  .set_attribute("tasks", len(affected)))
     old = []
     for tid in affected:
         t = job.tasks.pop(tid)
@@ -321,6 +353,9 @@ def restart_region(job: LocalJob, job_graph: JobGraph,
         job._done.clear()
         if job._failed:
             job._done.set()   # another region failed meanwhile
+    restart_sb.finish()
+    dump_flight_recorder("region-restart", job=job_graph.name,
+                         vertices=sorted(vids), tasks=affected)
     for tid in affected:
         job.tasks[tid].start()
     return affected
@@ -483,7 +518,8 @@ def live_rescale(job: LocalJob, n_devices: int,
     incremental planes are rebuilt. A job without periodic checkpoints gets
     a coordinator for this one barrier. Returns the merged migration stats
     (keygroups_migrated and bytes_moved summed, duration_ms and epoch the
-    largest)."""
+    largest). The whole change is a ``rescale.Rescale`` root span."""
+    from ..metrics.tracing import TRACER
     from ..parallel.plan import MESH_RUNTIME
     if not MESH_RUNTIME.rescale_enabled:
         raise RuntimeError(
@@ -498,6 +534,28 @@ def live_rescale(job: LocalJob, n_devices: int,
                 targets.append((tid, op))
     if not targets:
         raise ValueError("live_rescale: job has no mesh operators")
+    sb = (TRACER.span("rescale", "Rescale")
+          .set_attribute("job", job.job_graph.name)
+          .set_attribute("operators", len(targets))
+          .set_attribute("new_devices", int(n_devices)))
+    try:
+        merged = _rescale_at_barrier(job, targets, n_devices, timeout)
+        sb.set_attribute("keygroups_migrated", merged["keygroups_migrated"])
+        sb.set_attribute("bytes_moved", merged["bytes_moved"])
+        sb.set_attribute("epoch", merged["epoch"])
+        return merged
+    except BaseException as e:
+        sb.set_attribute("error", repr(e))
+        raise
+    finally:
+        sb.finish()
+
+
+def _rescale_at_barrier(job: LocalJob, targets: list, n_devices: int,
+                        timeout: float) -> dict:
+    """``live_rescale``'s staging, barrier and merge of the operators'
+    stats."""
+    from ..metrics.tracing import TRACER
     old_epochs = {tid: op._rescale_epoch for tid, op in targets}
     for _, op in targets:
         op.request_rescale(n_devices)
@@ -505,7 +563,8 @@ def live_rescale(job: LocalJob, n_devices: int,
     ephemeral = coordinator is None
     if ephemeral:
         from ..checkpoint.coordinator import CheckpointCoordinator
-        coordinator = CheckpointCoordinator(job, job.config)
+        coordinator = CheckpointCoordinator(
+            job, job.config, tracer=TRACER if TRACER.enabled else None)
     try:
         pending = coordinator.trigger_checkpoint()
         if not pending.done.wait(timeout):

@@ -25,6 +25,10 @@ cannot be split by key group across subtasks yet: rescale the parallelism
 of jobs of host batches. ``mesh_devices`` re-splits a mesh job's device
 state too: each mesh operator restores from the savepoint and re-shards
 it across its new shard count before the job starts.
+
+A restart of the whole job is a ``restart.JobRestart`` span (cancel,
+release, backoff) and a flight-recorder dump (``job-restart``) written
+once the span has ended.
 """
 
 from __future__ import annotations
@@ -163,6 +167,13 @@ class JobSupervisor:
                     "kind": "restart", "error": str(e),
                     "restored_checkpoint": (self._latest.checkpoint_id
                                             if self._latest else None)})
+                from ..metrics.tracing import TRACER, dump_flight_recorder
+                restart_sb = (TRACER.span("restart", "JobRestart")
+                              .set_attribute("job", self.job_graph.name)
+                              .set_attribute("attempt", self.attempt)
+                              .set_attribute("restored",
+                                             self._latest.checkpoint_id
+                                             if self._latest else None))
                 job.cancel()
                 # the old attempt's device state goes before the new one
                 # deploys
@@ -170,6 +181,12 @@ class JobSupervisor:
                 gc.collect()
                 time.sleep(self.restart_strategy.backoff_seconds())
                 restore = self._latest
+                # the span ends before the dump reads the ring, so the
+                # dump's tail holds it (the reference dumps first)
+                restart_sb.finish()
+                dump_flight_recorder(
+                    "job-restart", job=self.job_graph.name,
+                    attempt=self.attempt, error=str(e))
                 self.restart_s.append(time.perf_counter() - t_fail)
 
     def _try_region_restart(self, job: LocalJob) -> bool:

@@ -12,7 +12,8 @@ from typing import Any, Optional
 
 __all__ = ["Configuration", "DEFAULTS", "SqlOptions", "StateOptions",
            "MeshOptions", "ProfilerOptions", "AotOptions", "SecurityOptions",
-           "WatchdogOptions", "all_options", "generate_config_docs"]
+           "WatchdogOptions", "MetricOptions", "TraceOptions", "all_options",
+           "generate_config_docs"]
 
 #: key -> default (reference: PipelineOptions / CheckpointingOptions /
 #: TaskOptions / WindowOptions)
@@ -57,6 +58,20 @@ DEFAULTS: dict[str, Any] = {
     # seconds between latency markers a source injects; each operator
     # records source-to-here ms into its "latency" histogram (0: off)
     "metrics.latency.interval": 0.0,
+    # metric reporters (reference MetricOptions): comma-separated names
+    # ("log", "prometheus", or a plugin's) that reporters_from_config
+    # builds, and the logging reporter's period
+    "metrics.reporters": "",
+    "metrics.reporter.interval": 10.0,
+    # causal tracing and the flight recorder (reference TraceOptions): the
+    # master switch, the spans the in-memory ring keeps, the recorder's
+    # ring, its dump directory (empty: <tmpdir>/flink_tpu_flight) and the
+    # least seconds between two dumps of one reason
+    "traces.enabled": True,
+    "traces.max-retained": 4096,
+    "traces.flight-recorder.capacity": 512,
+    "traces.flight-recorder.dir": "",
+    "traces.flight-recorder.min-interval": 1.0,
     "task.max-inflight": 2,
     # coalesce consecutive same-schema micro-batches host-side up to this
     # many records, then run one ingest step (0/1: off)
@@ -234,12 +249,33 @@ class WatchdogOptions:
     AOT_WARMUP_TIMEOUT = "watchdog.aot-warmup-timeout"
 
 
+class MetricOptions:
+    """The reporters' keys (reference ``core/config.py::MetricOptions``)."""
+
+    REPORTERS = "metrics.reporters"
+    INTERVAL = "metrics.reporter.interval"
+    LATENCY_INTERVAL = "metrics.latency.interval"
+
+
+class TraceOptions:
+    """Causal tracing and the flight recorder (reference
+    ``core/config.py::TraceOptions``, same defaults)."""
+
+    ENABLED = "traces.enabled"
+    MAX_RETAINED = "traces.max-retained"
+    FLIGHT_CAPACITY = "traces.flight-recorder.capacity"
+    FLIGHT_DIR = "traces.flight-recorder.dir"
+    FLIGHT_MIN_INTERVAL = "traces.flight-recorder.min-interval"
+
+
 #: value type of each key whose default does not name it
 _TYPES: dict[str, type] = {"execution.checkpointing.dir": str}
 _DURATIONS = {"pipeline.auto-watermark-interval",
               "pipeline.adaptive-batch-size.target-latency",
               "execution.checkpointing.aligned-checkpoint-timeout",
               "metrics.latency.interval",
+              "metrics.reporter.interval",
+              "traces.flight-recorder.min-interval",
               "watchdog.device.compile-timeout",
               "watchdog.aot-warmup-timeout",
               "execution.checkpointing.interval",

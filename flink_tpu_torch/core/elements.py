@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
+from typing import Optional
 
 from .records import MAX_TIMESTAMP
 
@@ -42,6 +43,10 @@ class CheckpointBarrier:
     is_savepoint: bool = False
     # an unaligned checkpoint's barrier (the gate may let it overtake)
     unaligned: bool = False
+    # the wire form of the coordinator's trace context
+    # (metrics/tracing.py): tasks parent their Align and Snapshot spans on
+    # it, so one checkpoint's spans form one tree
+    trace: Optional[dict] = None
 
 
 @dataclass(frozen=True)

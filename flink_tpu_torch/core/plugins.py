@@ -11,11 +11,12 @@ registry of extension points:
         registry.filesystem("s3", MyS3FileSystem)
         registry.state_backend("rocks2", MyBackend)
         registry.connector("my-source", source=my_source_factory)
+        registry.metric_reporter("my-reporter", MyReporter)
 
 The extension points are the framework's seams: path-scheme filesystems
-(``core/fs.py``), state backends (``state/backend.py``) and SQL
-connectors (``sql/ddl.py``). Metric reporters are not ported yet: asking
-for one raises naming ROADMAP Queue 1 item 10, group 7.
+(``core/fs.py``), state backends (``state/backend.py``), SQL connectors
+(``sql/ddl.py``) and metric reporters, resolved by name from
+``metrics.reporters`` (``metrics/reporters.py``).
 """
 
 from __future__ import annotations
@@ -26,11 +27,6 @@ import uuid
 from typing import Any, Callable
 
 __all__ = ["PluginRegistry", "PluginManager"]
-
-_REPORTERS_UNPORTED = ("metric reporters are not ported yet "
-                       "(metrics/reporters.py, ROADMAP Queue 1 item 10, "
-                       "group 7)")
-
 
 class PluginRegistry:
     """The extension points a plugin's ``register(registry)`` hook can
@@ -47,7 +43,9 @@ class PluginRegistry:
 
     @property
     def metric_reporters(self) -> dict:
-        raise NotImplementedError(_REPORTERS_UNPORTED)
+        """A copy of the reporter factories by name."""
+        from ..metrics.reporters import _REPORTER_FACTORIES
+        return dict(_REPORTER_FACTORIES)
 
     def filesystem(self, scheme: str, factory: Callable) -> None:
         from .fs import register_filesystem
@@ -66,7 +64,9 @@ class PluginRegistry:
         register_connector(name, source=source, sink=sink)
 
     def metric_reporter(self, name: str, factory: Callable) -> None:
-        raise NotImplementedError(_REPORTERS_UNPORTED)
+        """A reporter ``metrics.reporters`` can name."""
+        from ..metrics.reporters import register_reporter
+        register_reporter(name, factory)
 
 
 class PluginManager:

@@ -7,8 +7,9 @@ metrics_registry=reg)`` gives each task a ``TaskMetrics`` group: records
 in and out, the busy, idle and backpressured ms a second of its loop,
 its progress epoch, and a group per chained operator holding the
 operator's watermark gauges and its ``latency`` histogram (ms from a
-source's latency marker to the operator). Reporters, which poll a
-registry on an interval, are not ported (item 10, group 7).
+source's latency marker to the operator). Reporters
+(``metrics/reporters.py``) expose a registry: Prometheus text over HTTP,
+or a periodic log.
 
 Every metric is safe to read from another thread while the task's
 thread updates it.
@@ -19,7 +20,7 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 __all__ = ["Counter", "Gauge", "Meter", "Histogram", "MetricGroup",
            "MetricRegistry", "TaskMetrics"]
@@ -104,6 +105,23 @@ class Histogram:
             return 0.0
         return vals[min(int(q * len(vals)), len(vals) - 1)]
 
+    #: the ``le`` bounds of the exposition's cumulative buckets: latency
+    #: histograms are milliseconds, 1 ms to 10 s
+    BUCKET_BOUNDS = (1.0, 2.5, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0,
+                     500.0, 1000.0, 2500.0, 5000.0, 10000.0)
+
+    def bucket_counts(self, bounds: Optional[tuple] = None
+                      ) -> list[tuple[str, int]]:
+        """Cumulative ``le``-labelled counts over the window, ending with
+        ``("+Inf", count)``: buckets aggregate across processes, a
+        summary's quantiles do not."""
+        use = self.BUCKET_BOUNDS if bounds is None else tuple(bounds)
+        with self._lock:
+            vals = list(self._values)
+        out = [(repr(float(b)), sum(1 for v in vals if v <= b)) for b in use]
+        out.append(("+Inf", len(vals)))
+        return out
+
     @property
     def count(self) -> int:
         return len(self._values)
@@ -113,6 +131,11 @@ class Histogram:
         with self._lock:
             vals = list(self._values)
         return sum(vals) / len(vals) if vals else 0.0
+
+    @property
+    def sum(self) -> float:
+        with self._lock:
+            return float(sum(self._values))
 
 
 class MetricGroup:

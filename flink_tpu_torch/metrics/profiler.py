@@ -58,8 +58,10 @@ Totals, reservoir percentiles, clamping, the EWMA duration and rate and
 the bounded sample ring are the reference's arithmetic: the same
 ``record`` and ``note_build`` calls give the same ``snapshot`` and
 ``profile``. All mutation happens under the ledger's lock; read paths copy
-under it. The Prometheus gauges (``bind_ledger_metrics``) and the Perfetto
-counter export are not ported: ``trace_counters`` returns the data.
+under it. ``bind_ledger_metrics`` registers the rollups as gauges under a
+registry's ``profiler`` scope (Prometheus ``flink_tpu_profiler_*``), and
+``trace_counters`` feeds the Perfetto export's counter tracks
+(``metrics/tracing.py::chrome_trace_events``).
 """
 
 from __future__ import annotations
@@ -75,6 +77,7 @@ from .tracing import now_ms
 __all__ = [
     "ProgramKey", "DeviceLedger", "DEVICE_LEDGER", "LEDGER_SITE_INVENTORY",
     "set_dispatch_context", "clear_dispatch_context", "dispatch_context",
+    "bind_ledger_metrics",
 ]
 
 
@@ -623,6 +626,22 @@ class DeviceLedger:
 
 
 DEVICE_LEDGER = DeviceLedger()
+
+
+def bind_ledger_metrics(registry) -> None:
+    """Register the ledger's rollups as gauges under the ``profiler``
+    scope of a MetricRegistry (Prometheus ``flink_tpu_profiler_*``).
+    Idempotent: binding again overwrites the same entries."""
+    g = registry.root().group("profiler")
+    led = DEVICE_LEDGER
+    g.gauge("enabled", lambda: 1 if led.enabled else 0)
+    for name, key in (("entries", "entries"),
+                      ("device_ms_total", "device_ms_total"),
+                      ("compile_ms_total", "compile_ms_total"),
+                      ("dispatches_total", "dispatches_total"),
+                      ("recompiles_attributed_total",
+                       "recompiles_attributed")):
+        g.gauge(name, lambda key=key: led.snapshot()[key])
 
 
 # Every ledger dispatch site, with its recording location.  The "Ledger

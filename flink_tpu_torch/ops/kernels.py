@@ -190,8 +190,13 @@ def _compile(todo: list, out_of) -> float:
     """Compile every source of ``todo`` to ``out_of(stem)``, one ``nvcc``
     per source, all at once, under the ``device.compile`` fault site and
     watchdog deadline. Raises with the compiler's output when a build
-    fails."""
+    fails. Each build counts in ``DEVICE_STATS`` (``compiles``,
+    ``compile_ms``: the seconds until its compiler exited) and is a
+    ``device.Compile`` span, the port's counterpart of the reference's
+    XLA compile."""
+    from ..metrics.device import DEVICE_STATS
     from ..metrics.profiler import DEVICE_LEDGER
+    from ..metrics.tracing import now_ms
     from ..runtime.watchdog import stall_bounded
 
     nvcc = _nvcc()
@@ -203,6 +208,7 @@ def _compile(todo: list, out_of) -> float:
             DEVICE_LEDGER.note_build(f"build.{stem}", _build_key(
                 stem, _source_digest(stem), flags), _build_key,
                 (stem, _source_digest(stem), flags), {})
+        start_ms = now_ms()
         t0 = time.perf_counter()
         procs = []
         for stem in todo:
@@ -215,6 +221,9 @@ def _compile(todo: list, out_of) -> float:
         failed = []
         for stem, out, tmp, proc in procs:
             log, _ = proc.communicate()
+            DEVICE_STATS.note_build(f"build.{stem}")
+            DEVICE_STATS.note_compile_done(
+                f"build.{stem}", (time.perf_counter() - t0) * 1e3, start_ms)
             if proc.returncode != 0:
                 failed.append(f"{stem}.cu:\n{log.decode(errors='replace')}")
                 tmp.unlink(missing_ok=True)
@@ -285,6 +294,10 @@ def _build_cached(stems: list) -> float:
     def out_of(stem: str) -> Path:
         return work / f"lib{stem}-{_source_digest(stem)[:12]}-{os.getpid()}.so"
 
+    from ..metrics.device import DEVICE_STATS
+    for stem in todo:
+        # a live build while the cache is on
+        DEVICE_STATS.note_compile_storm(f"build.{stem}")
     seconds = _compile(todo, out_of)
     version = _nvcc_version()
     for stem in todo:
@@ -340,19 +353,26 @@ def library(stem: str) -> ctypes.CDLL:
     lib = _LIBS.get(stem)
     if lib is not None:
         return lib
+    from ..metrics.device import DEVICE_STATS
     from ..runtime.aot import AOT
     with _LOCK:
         lib = _LIBS.get(stem)
         if lib is not None:
             return lib
+        built = _BUILT[0]
         if AOT.enabled:
             if stem not in _READY:
                 _build_cached([stem])
-            return _open(stem, _READY.pop(stem), private=True)
-        path = _lib_path(stem)
-        if not path.exists():
-            build_all()
-        return _open(stem, str(path), private=False)
+            lib = _open(stem, _READY.pop(stem), private=True)
+        else:
+            path = _lib_path(stem)
+            if not path.exists():
+                build_all()
+            lib = _open(stem, str(path), private=False)
+        if _BUILT[0] == built:
+            # opened without a build: found built (or in the cache)
+            DEVICE_STATS.note_cache_hit(f"build.{stem}")
+        return lib
 
 
 def load_cached() -> int:

@@ -436,26 +436,44 @@ class DeviceGuard:
 
     def run(self, fn: Callable, sites: tuple = ("device.execute",)):
         """Visit ``sites``, then call ``fn``. Retries transient faults and
-        stalls of the visits; raises DeviceSegmentError beyond them."""
+        stalls of the visits; raises DeviceSegmentError beyond them. Each
+        attempt is a ``device.Execute`` span (host times: it covers the
+        visits and the enqueue, as the reference's covers an asynchronous
+        dispatch). It is the ambient parent of the visits (a stall's span
+        hangs off it) but not of ``fn``: in the reference the dispatch runs
+        on the watchdog's worker, so what it emits (a kernel build)
+        parents on nothing, here as there."""
         if not self.active:
             return fn()
+        from ..metrics.tracing import TRACER, use_context
         self.calls += 1
         attempt = 0
         while True:
+            sb = (TRACER.span("device", "Execute")
+                  .set_attribute("scope", self.scope)
+                  .set_attribute("attempt", attempt))
             try:
                 if FAULTS.enabled:
-                    self._visit(sites)
+                    with use_context(sb.context):
+                        self._visit(sites)
             except InjectedFault as e:
+                sb.set_attribute("error", True).finish()
                 if e.poison:
                     self.failures += 1
                     raise DeviceSegmentError(self.scope, e, poison=True) \
                         from e
                 err, retryable = e, e.transient
             except StallError as e:
+                sb.set_attribute("error", True).finish()
                 self.stalls += 1
                 err, retryable = e, True
             else:
-                out = fn()
+                try:
+                    out = fn()
+                except BaseException:
+                    sb.set_attribute("error", True).finish()
+                    raise
+                sb.set_attribute("error", False).finish()
                 if attempt:
                     self._strategy.notify_recovered()
                 return out

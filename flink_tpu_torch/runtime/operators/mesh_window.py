@@ -33,10 +33,9 @@ their batches as they come.
 * Live rescale (``request_rescale``, applied at the next snapshot, or
   ``rescale_live``): the state moves through the checkpoint's key-group
   pages (``parallel/rescale.py``), digest-verified, onto the new mesh; the
-  incremental planes are rebuilt, never shipped.
-
-Not ported: the reference's ``rescale/`` tracing spans (the port has no
-tracer yet).
+  incremental planes are rebuilt, never shipped. The change is one trace
+  tree: a ``rescale.Rescale`` span with ``Migrate`` (the page diff and
+  transfer) and ``Rebuild`` (the install on the new mesh) children.
 """
 
 from __future__ import annotations
@@ -653,6 +652,7 @@ class MeshWindowAggOperator(AsyncFireQueue, SliceControlPlane,
         the new mesh at the smallest power-of-two capacity that gives every
         shard 2x headroom (never below the old one), and rebuild the
         incremental planes."""
+        from ...metrics.tracing import TRACER
         from ...parallel.rescale import plan_migration, reassemble_pages
         t0 = time.perf_counter()
         old_n = self._n_devices
@@ -675,29 +675,43 @@ class MeshWindowAggOperator(AsyncFireQueue, SliceControlPlane,
                 "keygroups_migrated": 0, "bytes_moved": 0,
                 "epoch": self._rescale_epoch, "duration_ms": 0.0}
             return self._last_rescale_stats
-        self._flush(pad=True)
-        self._drain(block=True)
-        self._refresh_late()
-        old_sig = self._agg.sig
-        old_ranges = tuple(self._agg.shard_ranges)
-        new_ranges = tuple(shard_ranges(self._max_parallelism, n,
-                                        self._base_range))
-        snap = self._agg.snapshot(self._state)
-        plan = plan_migration(snap, old_ranges, new_ranges)
-        verified = reassemble_pages(plan.pages, snap)
-        self._n_devices = n
-        self._mesh = self._mesh_for(n)
-        # per-shard capacity never shrinks; a scale-in that brings a shard
-        # more keys than 2x headroom allows doubles it (_restore_backends)
-        self._capacity = max(self._capacity, self._agg.capacity)
-        if len(verified["keys"]) or verified["states"]:
-            self._restore_backends([verified])
-        else:
-            self._build(list(self._agg.aggs), capacity=self._capacity)
-        self._dstage = None
-        self._probe = None
-        self._mark_inc_dirty()
-        self._rescale_epoch += 1
+        with TRACER.span("rescale", "Rescale") as root:
+            root.set_attribute("old_devices", old_n)
+            root.set_attribute("new_devices", n)
+            self._flush(pad=True)
+            self._drain(block=True)
+            self._refresh_late()
+            old_sig = self._agg.sig
+            old_ranges = tuple(self._agg.shard_ranges)
+            new_ranges = tuple(shard_ranges(self._max_parallelism, n,
+                                            self._base_range))
+            snap = self._agg.snapshot(self._state)
+            with TRACER.span("rescale", "Migrate") as mig:
+                plan = plan_migration(snap, old_ranges, new_ranges)
+                verified = reassemble_pages(plan.pages, snap)
+                mig.set_attribute("keygroups_migrated",
+                                  plan.keygroups_migrated)
+                mig.set_attribute("bytes_moved", plan.bytes_moved)
+                mig.set_attribute("pages_moved", len(plan.moved_pages))
+            with TRACER.span("rescale", "Rebuild") as reb:
+                self._n_devices = n
+                self._mesh = self._mesh_for(n)
+                # per-shard capacity never shrinks; a scale-in that brings
+                # a shard more keys than 2x headroom allows doubles it
+                # (_restore_backends)
+                self._capacity = max(self._capacity, self._agg.capacity)
+                if len(verified["keys"]) or verified["states"]:
+                    self._restore_backends([verified])
+                else:
+                    self._build(list(self._agg.aggs),
+                                capacity=self._capacity)
+                self._dstage = None
+                self._probe = None
+                self._mark_inc_dirty()
+                reb.set_attribute("local_shapes_changed",
+                                  self._agg.sig != old_sig)
+            self._rescale_epoch += 1
+            root.set_attribute("epoch", self._rescale_epoch)
         duration_ms = (time.perf_counter() - t0) * 1e3
         DEVICE_STATS.note_rescale(plan.keygroups_migrated, plan.bytes_moved,
                                   duration_ms)

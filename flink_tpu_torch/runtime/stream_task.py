@@ -47,6 +47,13 @@ the coordinator), so operators never see concurrency.
 * ``TaskIOTimers`` keeps the loop's busy, idle and backpressured seconds
   (the reference's busy/idle/backPressuredTimeMsPerSecond, cumulative
   over the run).
+* Spans (``metrics/tracing.py``): a source's read-and-emit cycle is a
+  ``task.SourceBatch`` span; a barrier's alignment at a task is a
+  ``checkpoint.Align`` span and its snapshot up to the acknowledgement a
+  ``checkpoint.Snapshot`` span, both parented on the coordinator's
+  context the barrier carries (an unaligned snapshot's span ends when the
+  state is taken, marked ``unaligned``). The two-input task's unaligned
+  path has both spans too, which the reference's lacks.
 
 Every task of one job runs on the device's default stream, so a device
 batch made on a source thread is consumed in order on the window thread.
@@ -70,6 +77,7 @@ from ..core.elements import MAX_WATERMARK, CheckpointBarrier, EndOfInput, \
     LatencyMarker, Watermark
 from ..core.records import MIN_TIMESTAMP, RecordBatch, Schema
 from ..core.watermarks import WatermarkStrategy
+from ..metrics.tracing import TRACER, TraceContext, now_ms
 from .channels import InputGate
 from .operators.base import OperatorChain, OperatorContext, Output
 from .watchdog import PROGRESS, TaskProgress
@@ -159,6 +167,24 @@ def own_batch(batch: RecordBatch) -> RecordBatch:
         return batch
     schema = Schema([(f.name, f.dtype) for f in batch.schema.fields])
     return RecordBatch(schema, dict(batch.columns), batch.timestamps)
+
+
+def _barrier_spans(task_id: str, barrier: CheckpointBarrier,
+                   align: bool = True):
+    """The task's checkpoint spans, parented on the coordinator's context
+    the barrier carries: the Align span (trigger to aligned here) is
+    reported now; the Snapshot builder is returned open, for the caller
+    to finish at the acknowledgement."""
+    parent = TraceContext.from_wire(barrier.trace)
+    if align:
+        (TRACER.span("checkpoint", "Align", parent=parent)
+         .set_attribute("task", task_id)
+         .set_attribute("checkpointId", barrier.checkpoint_id)
+         .set_start_ts(int(barrier.timestamp * 1000))
+         .finish())
+    return (TRACER.span("checkpoint", "Snapshot", parent=parent)
+            .set_attribute("task", task_id)
+            .set_attribute("checkpointId", barrier.checkpoint_id))
 
 
 class _WriterFanout(Output):
@@ -328,10 +354,6 @@ class StreamTask:
         self.reporter.declined_checkpoint(self.task_id,
                                           barrier.checkpoint_id, OVERTAKEN)
 
-    # the reference opens trace spans around a barrier's alignment and
-    # snapshot here; the port has no tracer yet (item 10, group 7), so
-    # nothing is recorded
-
 
 class SourceStreamTask(StreamTask):
     """Runs one source reader; checkpoints are injected here by the
@@ -375,14 +397,16 @@ class SourceStreamTask(StreamTask):
             self.chain.initialize_state(snapshot["chain"])
 
     def _snapshot(self, barrier: CheckpointBarrier) -> None:
-        # the source is the barrier's origin: downstream first, then the
-        # reader's position and the chained operators
+        # the source is the barrier's origin (nothing to align): downstream
+        # first, then the reader's position and the chained operators
+        sb = _barrier_spans(self.task_id, barrier, align=False)
         self.broadcast_all(barrier)
         snap = {"reader": self.reader.snapshot(),
                 "chain": (self.chain.snapshot_state(barrier.checkpoint_id)
                           if self.chain else None)}
         self.reporter.acknowledge_checkpoint(
             self.task_id, barrier.checkpoint_id, snap)
+        sb.finish()
 
     def trigger_checkpoint(self, barrier: CheckpointBarrier) -> None:
         self.execute_in_mailbox(lambda: self._snapshot(barrier))
@@ -457,6 +481,16 @@ class SourceStreamTask(StreamTask):
                 emit_dt = time.perf_counter() - t0
                 self.io_timers.busy_s += emit_dt
                 self.progress.bump()
+                if TRACER.enabled:
+                    # one read + chain/emit cycle of the loop
+                    end = now_ms()
+                    (TRACER.span("task", "SourceBatch")
+                     .set_attribute("task", self.task_id)
+                     .set_attribute("records", batch.n)
+                     .set_attribute("read_ms", round(read_dt * 1e3, 3))
+                     .set_attribute("emit_ms", round(emit_dt * 1e3, 3))
+                     .set_start_ts(end - int((read_dt + emit_dt) * 1e3))
+                     .finish(end))
                 if adaptive:
                     # halfway toward throughput x target: at the fixpoint
                     # one batch takes the target
@@ -540,15 +574,18 @@ class OneInputStreamTask(StreamTask):
             # a newer checkpoint overtook before the capture finished
             self._decline(self._unaligned_pending[0])
             self._unaligned_pending = None
+        sb = _barrier_spans(self.task_id, barrier)
         self.broadcast_all(barrier)
         snap = {"chain": self.chain.snapshot_state(barrier.checkpoint_id)}
         if self.gate.capture_active and not self.gate.capture_complete:
             self._unaligned_pending = (barrier, snap)
+            sb.set_attribute("unaligned", True).finish()
             return
         if self.gate.capture_active:  # complete already (one channel)
             snap["inflight"] = self.gate.take_captured()
         self.reporter.acknowledge_checkpoint(
             self.task_id, barrier.checkpoint_id, snap)
+        sb.finish()
 
     def _maybe_finish_unaligned(self) -> None:
         if self._unaligned_pending is None or \
@@ -637,8 +674,10 @@ class TwoInputStreamTask(StreamTask):
             if self._unaligned_pending is not None:
                 self._decline(self._unaligned_pending[0])
                 self._unaligned_pending = None
+            sb = _barrier_spans(self.task_id, barrier)
             self.broadcast_all(barrier)
             snap = {"chain": self.chain.snapshot_state(barrier.checkpoint_id)}
+            sb.set_attribute("unaligned", True).finish()
             self.gates[1 - gi].begin_capture(barrier)
             self._unaligned_pending = (barrier, snap)
             self._maybe_finish_unaligned()
@@ -672,11 +711,13 @@ class TwoInputStreamTask(StreamTask):
             self._gate_barrier = [b if b is newer else None
                                   for b in self._gate_barrier]
             return
+        sb = _barrier_spans(self.task_id, b0)
         self._gate_barrier = [None, None]
         self.broadcast_all(b0)
         snap = {"chain": self.chain.snapshot_state(b0.checkpoint_id)}
         self.reporter.acknowledge_checkpoint(self.task_id, b0.checkpoint_id,
                                              snap)
+        sb.finish()
 
     def invoke(self) -> None:
         self.chain.open()

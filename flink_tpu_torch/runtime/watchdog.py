@@ -250,14 +250,31 @@ class Watchdog:
 
     def _note_trip(self, site: str, scope: Optional[str],
                    deadline: float) -> None:
+        """Count a trip, then (on the caller's thread, so under the
+        caller's trace context, not the worker's) report the
+        ``watchdog.Stall`` span and dump the flight recorder: the span is
+        in the ring before the dump reads it, so the dump's tail holds
+        the stall."""
+        from ..metrics.profiler import dispatch_context
+        job = dispatch_context()[0]
         with self._lock:
             self.trips[site] = self.trips.get(site, 0) + 1
             if len(self.events) < 1024:
                 self.events.append({
                     "timestamp": time.time(), "kind": "watchdog-stall",
-                    "site": site, "scope": scope, "deadline_s": deadline})
+                    "site": site, "scope": scope, "job": job,
+                    "deadline_s": deadline})
         from ..metrics.device import DEVICE_STATS
         DEVICE_STATS.note_watchdog_trip(site)
+        from ..metrics.tracing import TRACER, dump_flight_recorder
+        (TRACER.span("watchdog", "Stall")
+         .set_attribute("site", site)
+         .set_attribute("scope", scope)
+         .set_attribute("job", job)
+         .set_attribute("deadline_s", deadline)
+         .finish())
+        dump_flight_recorder("stall", site=site, scope=scope, job=job,
+                             deadline_s=deadline)
 
 
 #: The process-global watchdog every bounded site consults.

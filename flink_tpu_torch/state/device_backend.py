@@ -622,7 +622,14 @@ class DeviceKeyedStateBackend:
         residency policy's order, until the resident keys fall to 0.4 of
         the capacity (a quarter of them at least). When the resident set
         alone cannot make room, half of the incoming batch's groups are
-        spilled too, so every call spills at least one group."""
+        spilled too, so every call spills at least one group. The call is
+        a ``tier.Evict`` span."""
+        from ..metrics.tracing import TRACER
+        with TRACER.span("tier", "Evict") as sp:
+            self._evict_cold(sp, rebuild_capacity, batch_groups)
+
+    def _evict_cold(self, sp, rebuild_capacity: Optional[int],
+                    batch_groups: Optional[np.ndarray]) -> None:
         t0 = time.perf_counter()
         self._ensure_host_tier()
         cap = rebuild_capacity or self.capacity
@@ -651,6 +658,8 @@ class DeviceKeyedStateBackend:
         sel = gmask[groups]
         self._absorb_and_rebuild(keys, slots, sel, evict, cap)
         self._note_demoted(np.asarray(evict, np.int64), int(sel.sum()))
+        sp.set_attribute("groups", len(evict))
+        sp.set_attribute("keys", int(sel.sum()))
         self.spill_s["evict"] += time.perf_counter() - t0
 
     def _note_demoted(self, groups: np.ndarray, keys: int) -> None:
@@ -697,7 +706,13 @@ class DeviceKeyedStateBackend:
         keys the table held (``_fresh_table``); were no layout to hold
         them, the coldest resident groups would go too, in the residency
         policy's order, down to 0.4 of the capacity, counted in
-        ``evictions["forced_fallback"]``."""
+        ``evictions["forced_fallback"]``. The call is a ``tier.Evict``
+        span marked ``forced``."""
+        from ..metrics.tracing import TRACER
+        with TRACER.span("tier", "Evict") as sp:
+            self._force_spill(sp, groups)
+
+    def _force_spill(self, sp, groups: np.ndarray) -> None:
         t0 = time.perf_counter()
         keys, slots, g = self._device_resident()
         groups = [int(x) for x in np.asarray(groups, np.int64)]
@@ -722,6 +737,9 @@ class DeviceKeyedStateBackend:
         self._absorb_and_rebuild(keys, slots, sel, groups, self.capacity,
                                  fresh)
         self._note_demoted(np.asarray(groups, np.int64), int(sel.sum()))
+        sp.set_attribute("groups", len(groups))
+        sp.set_attribute("keys", int(sel.sum()))
+        sp.set_attribute("forced", True)
         self.spill_s["evict"] += time.perf_counter() - t0
 
     def drain_staged(self, keys: np.ndarray, ring_idx: np.ndarray,

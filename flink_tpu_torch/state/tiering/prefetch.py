@@ -21,7 +21,7 @@ empty, so an idle pipeline holds no thread. Each staging visits the
 ``tier.prefetch`` fault site before it gathers (a transient trip retries
 with nothing mutated, a persistent one aborts the staging and is raised
 at the next poll) and runs under the stall watchdog's
-``watchdog.tier-timeout``.
+``watchdog.tier-timeout``, inside a ``tier.Prefetch`` span.
 """
 
 from __future__ import annotations
@@ -152,11 +152,17 @@ class PrefetchPipeline:
     # staging (background thread in async mode, inline otherwise)
     # ------------------------------------------------------------------
     def _stage(self, groups: np.ndarray) -> Optional[dict]:
+        from ...metrics.tracing import TRACER
         from ...runtime.faults import fire_with_retries
         from ...runtime.watchdog import WATCHDOG
         fire_with_retries("tier.prefetch", _SCOPE)
-        return WATCHDOG.run("tier.prefetch", lambda: self._stage_fn(groups),
-                            scope=_SCOPE)
+        with TRACER.span("tier", "Prefetch") as sp:
+            payload = WATCHDOG.run(
+                "tier.prefetch", lambda: self._stage_fn(groups), scope=_SCOPE)
+            sp.set_attribute("groups", int(len(groups)))
+            sp.set_attribute("keys", 0 if payload is None
+                             else int(payload.get("n", 0)))
+        return payload
 
     def _worker(self) -> None:
         while True:

@@ -213,8 +213,8 @@ def test_tier_a_is_clean_on_the_port_against_its_reasoned_baseline(
 def test_the_singleton_wiring_covers_the_ledger_and_the_build_cache():
     ctx = AnalysisContext()
     names = {s for s, _acc in ctx.settings.singletons}
-    assert names == {"FAULTS", "WATCHDOG", "MESH_RUNTIME", "DEVICE_LEDGER",
-                     "AOT"}
+    assert names == {"FAULTS", "WATCHDOG", "TRACER", "FLIGHT_RECORDER",
+                     "MESH_RUNTIME", "DEVICE_LEDGER", "AOT"}
     assert run_rules(ctx, ["TPU201"]) == []
 
 

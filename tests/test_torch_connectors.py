@@ -49,10 +49,12 @@ import flink_tpu.core.fs as ref_fs  # noqa: E402
 import flink_tpu.core.records as ref_records  # noqa: E402
 import flink_tpu.formats.columnar as ref_col  # noqa: E402
 import flink_tpu.formats.core as ref_fmt  # noqa: E402
+import flink_tpu.metrics.reporters as ref_reporters  # noqa: E402
 import flink_tpu.sql as ref_sql  # noqa: E402
 import flink_tpu.sql.ddl as ref_ddl  # noqa: E402
 from flink_tpu.api import StreamExecutionEnvironment as RefEnv  # noqa: E402
 from flink_tpu.core import WatermarkStrategy as RefWS  # noqa: E402
+from flink_tpu.core.config import Configuration as RefConfiguration  # noqa: E402
 from flink_tpu.core.plugins import PluginManager as RefPlugins  # noqa: E402
 from flink_tpu.runtime.operators.device_window import \
     AggSpec as RefAggSpec  # noqa: E402
@@ -64,6 +66,7 @@ import flink_tpu_torch.core.fs as port_fs  # noqa: E402
 import flink_tpu_torch.core.records as port_records  # noqa: E402
 import flink_tpu_torch.formats.columnar as port_col  # noqa: E402
 import flink_tpu_torch.formats.core as port_fmt  # noqa: E402
+import flink_tpu_torch.metrics.reporters as port_reporters  # noqa: E402
 import flink_tpu_torch.sql as port_sql  # noqa: E402
 import flink_tpu_torch.sql.ddl as port_ddl  # noqa: E402
 from flink_tpu_torch.api import StreamExecutionEnvironment  # noqa: E402
@@ -77,10 +80,12 @@ from flink_tpu_torch.window import SlidingEventTimeWindows  # noqa: E402
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 REF = {"file": ref_file, "log": ref_log, "socket": ref_socket,
        "fs": ref_fs, "records": ref_records, "col": ref_col,
-       "fmt": ref_fmt, "sql": ref_sql, "ddl": ref_ddl}
+       "fmt": ref_fmt, "sql": ref_sql, "ddl": ref_ddl,
+       "reporters": ref_reporters, "config": RefConfiguration}
 PORT = {"file": port_file, "log": port_log, "socket": port_socket,
         "fs": port_fs, "records": port_records, "col": port_col,
-        "fmt": port_fmt, "sql": port_sql, "ddl": port_ddl}
+        "fmt": port_fmt, "sql": port_sql, "ddl": port_ddl,
+        "reporters": port_reporters, "config": Configuration}
 SIDES = (REF, PORT)
 KV = [("k", np.int64), ("v", np.int64)]
 
@@ -154,9 +159,10 @@ def test_local_and_mem_file_systems_and_a_registered_scheme(tmp_path):
 
 def test_plugin_manager_loads_isolated_plugins_and_sql_uses_them(tmp_path):
     """Two plugin directories: one plugin registers a scheme, a state
-    backend and a SQL connector; a broken one and one without a hook are
-    recorded; two files of one name stay separate modules. The plugin
-    connector serves a SQL table in both packages."""
+    backend, a SQL connector and a metric reporter; a broken one and one
+    without a hook are recorded; two files of one name stay separate
+    modules. The plugin connector serves a SQL table and the plugin
+    reporter is built from ``metrics.reporters``, in both packages."""
     name, scheme = f"plug-{_tag()}", f"p{_tag()}"
     good = tmp_path / "a"
     good.mkdir()
@@ -180,7 +186,15 @@ def register(registry):
     class Fs:
         scheme = {scheme!r}
 
+    class Reporter:
+        def open(self, registry):
+            self.registry = registry
+
+        def close(self):
+            pass
+
     registry.connector({name!r}, source=source, sink=sink)
+    registry.metric_reporter({name!r}, Reporter)
     registry.filesystem({scheme!r}, Fs)
     registry.state_backend({name!r}, object)
     registry.sink_rows = SEEN
@@ -209,12 +223,14 @@ def register(registry):
         rows = sorted(t_env.execute_sql("SELECT k, v FROM p WHERE k > 1")
                       .collect())
         n = t_env.execute_sql("INSERT INTO q SELECT k, v FROM p").collect()
-        got[id(side)] = (rows, n, sorted(reg.sink_rows))
+        reporters = side["reporters"].reporters_from_config(
+            side["config"]({"metrics.reporters": f"prometheus, {name}"}))
+        got[id(side)] = (rows, n, sorted(reg.sink_rows),
+                         name in reg.metric_reporters,
+                         [type(r).__name__ for r in reporters])
     assert got[id(REF)] == got[id(PORT)]
     assert got[id(PORT)][0] == [(i, i * i) for i in range(2, 6)]
-    from flink_tpu_torch.core.plugins import PluginRegistry
-    with pytest.raises(NotImplementedError, match="item 10, group 7"):
-        PluginRegistry().metric_reporter("x", object)
+    assert got[id(PORT)][3:] == (True, ["PrometheusReporter", "Reporter"])
 
 
 # -- the file connector ------------------------------------------------------

@@ -291,9 +291,8 @@ def test_metric_registry_snapshot_of_a_job():
         ds.filter(lambda r: r[0] % 2 == 0, name="even") \
             .add_sink(side.Collect(), "s")
         env.execute("metrics", metrics_registry=reg)
-        # the task scopes (job.vertex.subtask.name); the reference also
-        # binds its process-global device counters at the root, which
-        # come with reporters (item 10, group 7)
+        # the task scopes (job.vertex.subtask.name), without the
+        # process-global device and profiler gauges both bind at the root
         snap = {k: v for k, v in reg.snapshot().items() if k.count(".") >= 3}
         names = sorted({k.split(".", 3)[-1] for k in snap})
         ins = sorted(v for k, v in snap.items()
